@@ -1,9 +1,8 @@
 """Chip smoke run of the PyTorch/CUDA port (pclean_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py                 # the full run (one card)
-    python3 chip_smoke.py --kernels-only  # build + check the kernels only
-    python3 chip_smoke.py --out DIR       # also write the details to
-                                          # DIR/chip_smoke.json
+    python3 chip_smoke.py            # the full run (one card)
+    python3 chip_smoke.py --out DIR  # also write the details to
+                                     # DIR/chip_smoke.json
 
 It drives the port only (never jax, never pclean_tpu), in order:
   1. prints the card's name and power limit (nvidia-smi);
@@ -243,7 +242,6 @@ def small_device_check(dev):
 
 def main() -> int:
     args = sys.argv[1:]
-    kernels_only = "--kernels-only" in args
     out_dir = args[args.index("--out") + 1] if "--out" in args else None
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -286,47 +284,42 @@ def main() -> int:
     print(f"tracer cuda-vs-cpu check on the small config: max |dlogZ| "
           f"{report['small_check_max_abs_err']:.3g}", flush=True)
 
-    if not kernels_only:
-        torch.cuda.reset_peak_memory_stats()
-        ops.reset_counts()
-        torch.cuda.synchronize()
-        t = time.time()
-        arenas, params = init_state(cm, 0, device="cuda")
-        eng = Engine(cm, config, device="cuda")
-        arenas, params, gen = eng.initialize(1, arenas, params)
-        torch.cuda.synchronize()
-        init_s = time.time() - t
-        t = time.time()
-        arenas, params, gen = eng.run(gen, arenas, params)
-        torch.cuda.synchronize()
-        sweep_s = time.time() - t
-        launches = dict(ops.LAUNCHES)
-        res = evaluate_accuracy_device(cm, arenas, params, dirty, clean,
-                                       query)
-        occ = eng.arena_occupancy(arenas)
-        report.update(
-            rows=ROWS, batch_rows=BATCH, init_s=init_s, sweep_s=sweep_s,
-            rows_cleaned_per_s=ROWS / (init_s + sweep_s),
-            f1=res["f1"], precision=res["precision"], recall=res["recall"],
-            occupancy=occ, phase_times=eng.phase_times,
-            max_memory_allocated=torch.cuda.max_memory_allocated(),
-            launches=launches)
-        print(f"main path ({ROWS} rows, B={BATCH}): init {init_s:.2f} s, "
-              f"sweep {sweep_s:.2f} s, rows-cleaned/s "
-              f"{report['rows_cleaned_per_s']:.1f}", flush=True)
-        print(f"phases (wall s): {eng.phase_times}")
-        print(f"F1 {res['f1']:.4f} precision {res['precision']:.4f} "
-              f"recall {res['recall']:.4f}; occupancy {occ}; "
-              f"max_memory_allocated {report['max_memory_allocated']}")
-        print(f"launches on the main path: {launches}", flush=True)
-        for k in kernels:
-            k["launches"] = launches[k["name"]]
-        missing = [k for k, v in launches.items() if v <= 0]
-        assert not missing, f"kernels never launched on the main path: {missing}"
-        assert res["f1"] >= 0.80, f"F1 {res['f1']} < 0.80"
-    else:
-        for k in kernels:
-            k["launches"] = 0
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    torch.cuda.synchronize()
+    t = time.time()
+    arenas, params = init_state(cm, 0, device="cuda")
+    eng = Engine(cm, config, device="cuda")
+    arenas, params, gen = eng.initialize(1, arenas, params)
+    torch.cuda.synchronize()
+    init_s = time.time() - t
+    t = time.time()
+    arenas, params, gen = eng.run(gen, arenas, params)
+    torch.cuda.synchronize()
+    sweep_s = time.time() - t
+    launches = dict(ops.LAUNCHES)
+    res = evaluate_accuracy_device(cm, arenas, params, dirty, clean, query)
+    occ = eng.arena_occupancy(arenas)
+    report.update(
+        rows=ROWS, batch_rows=BATCH, init_s=init_s, sweep_s=sweep_s,
+        rows_cleaned_per_s=ROWS / (init_s + sweep_s),
+        f1=res["f1"], precision=res["precision"], recall=res["recall"],
+        occupancy=occ, phase_times=eng.phase_times,
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+        launches=launches)
+    print(f"main path ({ROWS} rows, B={BATCH}): init {init_s:.2f} s, "
+          f"sweep {sweep_s:.2f} s, rows-cleaned/s "
+          f"{report['rows_cleaned_per_s']:.1f}", flush=True)
+    print(f"phases (wall s): {eng.phase_times}")
+    print(f"F1 {res['f1']:.4f} precision {res['precision']:.4f} "
+          f"recall {res['recall']:.4f}; occupancy {occ}; "
+          f"max_memory_allocated {report['max_memory_allocated']}")
+    print(f"launches on the main path: {launches}", flush=True)
+    for k in kernels:
+        k["launches"] = launches[k["name"]]
+    missing = [k for k, v in launches.items() if v <= 0]
+    assert not missing, f"kernels never launched on the main path: {missing}"
+    assert res["f1"] >= 0.80, f"F1 {res['f1']} < 0.80"
     report["total_s"] = time.time() - t0
     report["kernels"] = kernels
     if out_dir:

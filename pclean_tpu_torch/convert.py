@@ -10,13 +10,21 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .utils import resolve_device
 
-def to_torch(tree, device="cpu"):
-    """Nested dicts/tuples/lists of array-likes -> the same of tensors."""
+
+def to_torch(tree, device=None):
+    """Nested dicts/tuples/lists of array-likes -> the same of tensors on
+    `device` (the card unless the caller asks for "cpu", as the entry points
+    resolve it)."""
+    return _to_torch(tree, resolve_device(device))
+
+
+def _to_torch(tree, device):
     if isinstance(tree, dict):
-        return {k: to_torch(v, device) for k, v in tree.items()}
+        return {k: _to_torch(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(to_torch(v, device) for v in tree)
+        return type(tree)(_to_torch(v, device) for v in tree)
     return torch.as_tensor(np.asarray(tree), device=device)
 
 

@@ -18,8 +18,9 @@ raises. `LAUNCHES` counts kernel launches (plain calls are not counted).
 
 Build: one `nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared` per
 source, all started together, into pclean_tpu_torch/_build/ (listed in
-.gitignore) at first use; the libraries have a plain C interface and are
-loaded with ctypes. Nothing is built or loaded when the module is imported.
+.gitignore) at first use, skipped where the library is newer than its
+sources; the libraries have a plain C interface and are loaded with
+ctypes. Nothing is built or loaded when the module is imported.
 """
 from __future__ import annotations
 
@@ -63,34 +64,48 @@ def _nvcc() -> str:
     return path
 
 
+def _stale(name: str, out: str) -> bool:
+    """True when lib<name>.so is missing or older than its sources."""
+    if not os.path.exists(out):
+        return True
+    srcs = [os.path.join(_HERE, "csrc", _SOURCES[name]),
+            os.path.join(_HERE, "csrc", "common.cuh")]
+    return os.path.getmtime(out) < max(os.path.getmtime(p) for p in srcs)
+
+
 def build_kernels() -> float:
-    """Compile every kernel (one nvcc per source, in parallel) and load the
-    libraries; returns the wall seconds the build took. Raises with the
-    compiler's output if any build fails."""
+    """Compile every kernel whose library is missing or older than its
+    sources (one nvcc per source, in parallel) and load the libraries;
+    returns the wall seconds the build took. Raises with the compiler's
+    output if any build fails. Each process compiles into a file of its own
+    and renames it into place, so processes sharing a checkout never load a
+    half-written library."""
     with _lock:
         if len(_libs) == len(_SOURCES):
             return 0.0
         t0 = time.time()
         os.makedirs(BUILD_DIR, exist_ok=True)
-        nvcc = _nvcc()
         procs = {}
         for name, src in _SOURCES.items():
             out = os.path.join(BUILD_DIR, f"lib{name}.so")
-            cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
+            if not _stale(name, out):
+                continue
+            tmp = f"{out}.{os.getpid()}.tmp"
+            cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
                    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
                    "-Xptxas", "-v", "-I", os.path.join(_HERE, "csrc"),
-                   "-o", out + ".tmp", os.path.join(_HERE, "csrc", src)]
+                   "-o", tmp, os.path.join(_HERE, "csrc", src)]
             procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                             stderr=subprocess.STDOUT,
-                                            text=True), out)
+                                            text=True), tmp, out)
         failed = []
-        for name, (p, out) in procs.items():
+        for name, (p, tmp, out) in procs.items():
             log, _ = p.communicate(timeout=900)
             BUILD_LOG[name] = log
             if p.returncode != 0:
                 failed.append(f"{name}:\n{log}")
             else:
-                os.replace(out + ".tmp", out)
+                os.replace(tmp, out)
         if failed:
             raise RuntimeError("CUDA kernel build failed\n" + "\n".join(failed))
         P, I64 = ctypes.c_void_p, ctypes.c_int64
@@ -103,7 +118,9 @@ def build_kernels() -> float:
             elif name == "inv_cdf_sample":
                 fn.argtypes = [P, P, P, I64, I64, P]
             else:
-                fn.argtypes = [P, P, P, P, P, I64, I64, ctypes.c_int, P]
+                fn.argtypes = [ctypes.POINTER(I64),
+                               ctypes.POINTER(ctypes.c_int32), P, P, P, I64,
+                               I64, ctypes.c_int, P]
             _libs[name] = fn
         return time.time() - t0
 
@@ -232,25 +249,6 @@ def obs_gather_sum_plain(mats, obs: torch.Tensor,
     return out
 
 
-def _mat_table(mats):
-    """Device tables of the matrices' pointers and sizes, cached per tuple
-    of matrices (the AddTypos matrices live for the compiled model)."""
-    key = tuple(m.data_ptr() for m in mats)
-    hit = _mat_cache.get(key)
-    if hit is None:
-        dev = mats[0].device
-        ptrs = torch.tensor([m.data_ptr() for m in mats], dtype=torch.int64,
-                            device=dev)
-        sizes = torch.tensor([m.shape[0] for m in mats], dtype=torch.int32,
-                             device=dev)
-        hit = (list(mats), ptrs, sizes)
-        _mat_cache[key] = hit
-    return hit[1], hit[2]
-
-
-_mat_cache: dict = {}
-
-
 def obs_gather_sum(mats, obs: torch.Tensor, word: torch.Tensor) -> torch.Tensor:
     """K3. mats: C square f32 matrices [V_c, V_c]; obs [B, C] int32;
     word [C, K] int32 -> [B, K] f32. More than 8 columns launch once per
@@ -277,13 +275,14 @@ def obs_gather_sum(mats, obs: torch.Tensor, word: torch.Tensor) -> torch.Tensor:
     for c0 in range(0, C, _MAX_COLS):
         cs = slice(c0, min(C, c0 + _MAX_COLS))
         part_mats = mats[cs]
-        ptrs, sizes = _mat_table(part_mats)
+        n = len(part_mats)
+        ptrs = (ctypes.c_int64 * n)(*[m.data_ptr() for m in part_mats])
+        sizes = (ctypes.c_int32 * n)(*[m.shape[0] for m in part_mats])
         o = obs[:, cs].contiguous()
         w = word[cs].contiguous()
         part = torch.empty((B, K), dtype=torch.float32, device=obs.device)
-        rc = _fn("obs_gather_sum")(_ptr(ptrs), _ptr(sizes), _ptr(o), _ptr(w),
-                                   _ptr(part), B, K, len(part_mats),
-                                   _stream(obs))
+        rc = _fn("obs_gather_sum")(ptrs, sizes, _ptr(o), _ptr(w),
+                                   _ptr(part), B, K, n, _stream(obs))
         _check(rc, "obs_gather_sum")
         LAUNCHES["obs_gather_sum"] += 1
         out = part if out is None else out + part

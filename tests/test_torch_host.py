@@ -217,6 +217,8 @@ def test_entry_points_refuse_cpu_fallback():
         tcompile.init_state(cm, 0)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TEngine(cm, TConfig(batch_rows=4))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        to_torch({"x": np.zeros(3)})
 
 
 # ------------------------------------------------------- host + compile
@@ -342,7 +344,7 @@ def test_refresh_parity_and_point_deltas():
     cm_j, cm_t, arenas, _params = _chain_state()
     obs_j = j_obs_device(cm_j)
     obs_t = TEngine(cm_t, TConfig(batch_rows=4), device="cpu").obs_dev
-    aj, at = to_jax(arenas), to_torch(arenas)
+    aj, at = to_jax(arenas), to_torch(arenas, "cpu")
     rj = jrefresh.refresh(cm_j, aj, obs_j)
     rt = trefresh.refresh(cm_t, at, obs_t)
     assert_rel_equal(rj, rt, "refresh")
@@ -366,10 +368,10 @@ def test_dense_per_row_delta_matches_jax_vmap():
     cm_j, cm_t, arenas, _params = _chain_state()
     obs_j = j_obs_device(cm_j)
     obs_t = TEngine(cm_t, TConfig(batch_rows=4), device="cpu").obs_dev
-    aj, at = to_jax(arenas), to_torch(arenas)
+    aj, at = to_jax(arenas), to_torch(arenas, "cpu")
     rj = jrefresh.refresh(cm_j, aj, obs_j)
     rt = trefresh.refresh(cm_t, at, obs_t)
-    slots = np.array([0, 1, 7, 23, 30], np.int32)  # 30: out of range
+    slots =np.array([0, 1, 7, 23, 30], np.int32)  # 30: out of range
     dj = jax.vmap(lambda s: jrefresh.row_delta(cm_j, rj, aj, obs_j, "Record",
                                                s, -1, dense=True))(
         jnp.asarray(slots))
@@ -397,8 +399,8 @@ def test_batch_deltas_and_hops_parity():
     slots = np.array([2, 4, 9, 11], np.int32)
     hv = cm_t.layouts["Record"].fk_vertices[0]
     new["Record"]["values"][hv][slots] = rng.integers(0, 12, size=4)
-    aj0, at0, aj1, at1 = (to_jax(arenas), to_torch(arenas), to_jax(new),
-                          to_torch(new))
+    aj0, at0, aj1, at1 = (to_jax(arenas), to_torch(arenas, "cpu"),
+                          to_jax(new), to_torch(new, "cpu"))
     rj = jrefresh.refresh(cm_j, aj0, obs_j)
     rt = trefresh.refresh(cm_t, at0, obs_t)
     bj = jrefresh.batch_obs_delta(cm_j, rj, aj0, aj1, obs_j, "Record",
@@ -420,6 +422,6 @@ def test_batch_deltas_and_hops_parity():
     new2["Hospital"]["values"][lv][hs] = rng.integers(0, 12, size=3)
     lj = jrefresh.batch_latent_delta(cm_j, rj, aj0, to_jax(new2), "Hospital",
                                      jnp.asarray(hs), hj)
-    lt = trefresh.batch_latent_delta(cm_t, rt, at0, to_torch(new2),
+    lt = trefresh.batch_latent_delta(cm_t, rt, at0, to_torch(new2, "cpu"),
                                      "Hospital", torch.as_tensor(hs), ht)
     assert_rel_equal(lj, lt, "batch_latent_delta")

@@ -11,16 +11,15 @@ counterparts (CPU), and CUDA kernels against the plain versions (card only).
 
 The CUDA tests carry the `cuda` marker and skip where no card is present;
 run them on the card with `python -m pytest -m cuda tests/test_torch_kernels.py`.
+The JAX package is imported inside the CPU tests only, so the module also
+loads where JAX is not installed.
 """
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from pclean_tpu.engine.propose import _inv_cdf_from_u
-from pclean_tpu.utils import NEG_INF, logsumexp as jlogsumexp
 from pclean_tpu_torch import ops
+from pclean_tpu_torch.utils import NEG_INF
 
 
 def _logits(rng, R, K, dead=0.3):
@@ -31,6 +30,9 @@ def _logits(rng, R, K, dead=0.3):
 
 
 def test_k1_plain_matches_jax_logsumexp():
+    import jax.numpy as jnp
+    from pclean_tpu.utils import logsumexp as jlogsumexp
+
     rng = np.random.default_rng(0)
     ex = _logits(rng, 64, 257)
     new = rng.normal(size=64).astype(np.float32)
@@ -50,6 +52,10 @@ def test_k1_plain_matches_jax_logsumexp():
 
 
 def test_k2_plain_matches_jax_inv_cdf():
+    import jax
+    import jax.numpy as jnp
+    from pclean_tpu.engine.propose import _inv_cdf_from_u
+
     rng = np.random.default_rng(1)
     lg = _logits(rng, 256, 130)
     lg[0, 5] = 0.0  # row 0: one live entry
@@ -65,6 +71,9 @@ def test_k2_plain_matches_jax_inv_cdf():
 
 
 def test_k3_plain_matches_jax_gather_and_onehot():
+    import jax
+    import jax.numpy as jnp
+
     rng = np.random.default_rng(2)
     Vs = [40, 17, 9]
     mats = [rng.normal(size=(v, v)).astype(np.float32) for v in Vs]

@@ -53,7 +53,7 @@ class Pair:
         self.eng_t = tsmc.Engine(cm_t, cfg_t, device="cpu")
         arenas, params = port_state(cm_t, cfg_t, seed=seed, sweep=sweep)
         self.aj, self.pj = to_jax(arenas), to_jax(params)
-        self.at, self.pt = to_torch(arenas), to_torch(params)
+        self.at, self.pt = to_torch(arenas, "cpu"), to_torch(params, "cpu")
         self.rj = jrefresh.refresh(cm_j, self.aj, self.eng_j.obs_dev)
         self.rt = trefresh.refresh(cm_t, self.at, self.eng_t.obs_dev)
 
@@ -240,8 +240,9 @@ def test_alloc_births_bit_for_bit(scaled):
           "values": {k: jnp.asarray(v) for k, v in values.items()}}],
         statics, jnp.asarray(alloc))
     at, env_t, of_t = tsmc._alloc_births(
-        cm_t, scaled.at, scaled.rt, to_torch(env2),
-        [{"is_new": torch.as_tensor(is_new), "values": to_torch(values)}],
+        cm_t, scaled.at, scaled.rt, to_torch(env2, "cpu"),
+        [{"is_new": torch.as_tensor(is_new),
+          "values": to_torch(values, "cpu")}],
         statics, torch.as_tensor(alloc))
     np.testing.assert_array_equal(np.asarray(of_j), of_t.numpy())
     np.testing.assert_array_equal(np.asarray(env_j[fk]), env_t[fk].numpy())
