@@ -7,14 +7,11 @@
 It drives the port only (never jax, never pclean_tpu), in order:
   1. prints the card's name and power limit (nvidia-smi);
   2. builds the three CUDA kernels from pclean_tpu_torch/csrc/ (one nvcc per
-     source, in parallel) and prints the build time;
-  3. for each kernel, at the main path's shapes on seeded inputs: its error
-     against its plain PyTorch version on the card (with the tolerance
-     stated below), kernel / plain / library ms (CUDA events, median), and
-     the bytes bound on an H100 (3.35 TB/s);
-  4. checks the tracer's CUDA path against its CPU path (plain versions) on
+     source, in parallel) and prints the build time and ptxas's registers,
+     shared memory, stack frame and spills for each compiled function;
+  3. checks the tracer's CUDA path against its CPU path (plain versions) on
      a small input: same state, same injected uniforms;
-  5. runs the scaled workload's main path end to end — compile_model,
+  4. runs the scaled workload's main path end to end — compile_model,
      init_state, Engine.initialize (sequential ramp, batched init segments,
      batched birth allocation, replay), Engine.run (segmented batched MH
      sweep with resample_all), evaluate_accuracy_device — at the entity
@@ -23,18 +20,29 @@ It drives the port only (never jax, never pclean_tpu), in order:
      County 1,472, batch_rows 4096, 1 sweep) with the rows cut from the
      source's 1,000,000 to 100,000 so the run fits its time limit; prints
      init s, sweep s, rows-cleaned/s, F1, precision, recall, arena
-     occupancy, peak device memory and each kernel's launches on that run;
+     occupancy, peak device memory and each kernel's launches on that run,
+     split into one-row (r1) and batched (rn) launches;
+  5. after the main path (so that its peak memory is its own), for each
+     kernel, at both shapes the main path launches it at (the
+     batch shape, B = 4096 rows, and the sequential loops' one row), on
+     seeded inputs (pclean_tpu_torch/kernel_bench.py): its error against
+     its plain PyTorch version on the card (with the tolerance stated
+     below), kernel / plain / library ms (device time: median over replays
+     of a CUDA graph of many calls), the kernel's time for one call with
+     its host side (CUDA events around it), the bytes bound on an H100
+     (3.35 TB/s) and, for K2 and K3, the launch plan;
   6. prints the `kernels` JSON line, then the card line, then the result.
 
 Tolerances: K1 record bit-equal, logZ rtol 1e-6 (the same f32 formula
-summed in another order); K2 indices equal on all but <= 1e-2 of rows, and
-every differing row's threshold within 1e-5 of the total from the exact
-prefix sums between the two picks (f32 prefix sums in the kernel's chunked
-order and in torch.cumsum's round differently: at K ~ 11k logits about one
-row in a thousand sits that close to a boundary), never a zero-mass pick; K3
-bit-equal (same column order). It fails (non-zero exit, no result line) if
-there is no card, a kernel does not build, launch or agree, a kernel was
-not launched on the main path, F1 < 0.80, or any phase raises.
+summed in another order); K2 indices equal on all but <= 1e-2 of rows (at
+100 rows or more), and every differing row's threshold within 1e-5 of the
+total from the exact prefix sums between the two picks (the kernel's exact
+fixed-point prefix sums and torch.cumsum's f32 ones round differently: at
+K ~ 11k logits about one row in a thousand sits that close to a boundary),
+never a zero-mass pick; K3 bit-equal (same column order). It fails
+(non-zero exit, no result line) if there is no card, a kernel does not
+build, launch or agree, a kernel was not launched on the main path,
+F1 < 0.80, or any phase raises.
 """
 import json
 import os
@@ -48,7 +56,6 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 ROWS = 100_000
 BATCH = 4096
 SCALED = dict(counties=1000, hospitals=8000, names=2000, zips=500,
@@ -62,134 +69,74 @@ def card_line() -> str:
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps=20, warmup=3) -> float:
-    """Median ms per call, CUDA events around each call."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
+SOURCES = {
+    "enum_logsumexp": ("pclean_tpu_torch/csrc/enum_logsumexp.cu",
+                       "pclean_tpu/engine/propose.py:559"),
+    "inv_cdf_sample": ("pclean_tpu_torch/csrc/inv_cdf_sample.cu",
+                       "pclean_tpu/engine/propose.py:1153"),
+    "obs_gather_sum": ("pclean_tpu_torch/csrc/obs_gather_sum.cu",
+                       "pclean_tpu/engine/propose.py:296"),
+}
 
 
 def bench_kernels(ops, cm, dev):
-    """K1-K3 at the main path's shapes: B = batch_rows rows against the
-    Hospital candidate axis (K = its capacity; _kc keeps the full axis at
-    this scale since ~8,000 live hospitals exceed half of 11,264), the
-    model's own AddTypos matrices for K3."""
-    from pclean_tpu_torch.engine.kernels import _AddTyposK
+    """K1-K3 at the two shapes the main path launches them at: the batch
+    shape (B = batch_rows rows) and the sequential shape (one row), against
+    the Hospital candidate axis, with the model's own AddTypos matrices for
+    K3 (kernel_bench.main_path_inputs). Each is checked against its plain
+    version, then timed with its plain version and library call."""
+    from pclean_tpu_torch import kernel_bench as kb
 
-    g = torch.Generator(device=dev)
-    g.manual_seed(0)
-    B = BATCH
-    K = cm.layouts["Hospital"].capacity
-    out = []
+    out = {name: dict(name=name, route="cuda", source=src, replaces=rep,
+                      bound_by="bytes")
+           for name, (src, rep) in SOURCES.items()}
+    for shape, B in (("", BATCH), ("_r1", 1)):
+        inp = kb.main_path_inputs(cm, dev, B)
+        K, C = inp["K"], len(inp["mats"])
+        err1 = kb.check_k1(ops, inp["exist"], inp["new"])
+        k2 = kb.check_k2(ops, inp["logits"], inp["u"])
+        err3 = kb.check_k3(ops, inp["mats"], inp["obs"], inp["word"])
+        times = kb.time_kernels(ops, inp)
+        nbytes = kb.kernel_bytes(inp)
+        errs = {"enum_logsumexp": err1, "inv_cdf_sample": k2["max_abs_err"],
+                "obs_gather_sum": err3}
+        shapes = {
+            "enum_logsumexp": f"exist [{B}, {K}], new [{B}]",
+            "inv_cdf_sample": f"logits [{B}, {K + 1}], u [{B}]",
+            "obs_gather_sum": f"obs [{B}, {C}], word [{C}, {K}], V = "
+                              f"{[m.shape[0] for m in inp['mats']]}",
+        }
+        plans = {
+            "inv_cdf_sample": ops.inv_cdf_plan(B, K + 1),
+            "obs_gather_sum": ops.obs_gather_plan(
+                B, K, [m.shape[0] for m in inp["mats"]]),
+        }
+        for name, k in out.items():
+            k["ms" + shape] = times[name]["ms"]
+            k["plain_ms" + shape] = times[name]["plain_ms"]
+            k["library_ms" + shape] = times[name]["library_ms"]
+            if "call_ms" in times[name]:
+                k["call_ms" + shape] = times[name]["call_ms"]
+            k["max_abs_err" + shape] = errs[name]
+            k["bytes" + shape] = nbytes[name]
+            k["bound_ms" + shape] = nbytes[name] / kb.HBM_BYTES_PER_S * 1e3
+            k["shape" + shape] = shapes[name]
+            if name in plans:
+                k["plan" + shape] = plans[name]
+        out["inv_cdf_sample"]["mismatch_rate" + shape] = k2["mismatch_rate"]
+        out["inv_cdf_sample"]["boundary_gap" + shape] = k2["boundary_gap"]
+        del inp, times
+        torch.cuda.empty_cache()
+    return list(out.values())
 
-    # K1: exist [B, K] (PY term + child terms, dead slots at NEG_INF), new [B]
-    exist = torch.randn((B, K), generator=g, device=dev) * 3.0
-    exist = torch.where(torch.rand((B, K), generator=g, device=dev) < 0.2,
-                        torch.full_like(exist, -1e30), exist)
-    new = torch.randn((B,), generator=g, device=dev)
-    r0, z0 = ops.enum_logsumexp_plain(exist, new)
-    r1, z1 = ops.enum_logsumexp(exist, new)
-    torch.cuda.synchronize()
-    assert torch.equal(r0, r1), "K1 record differs from the plain version"
-    err1 = float((z1 - z0).abs().max())
-    assert torch.allclose(z1, z0, rtol=1e-6, atol=0.0), f"K1 logZ err {err1}"
-    cat = torch.cat([exist, new[:, None]], 1)
-    out.append(dict(
-        name="enum_logsumexp", route="cuda",
-        source="pclean_tpu_torch/csrc/enum_logsumexp.cu",
-        replaces="pclean_tpu/engine/propose.py:559",
-        max_abs_err=err1,
-        ms=cuda_ms(lambda: ops.enum_logsumexp(exist, new)),
-        plain_ms=cuda_ms(lambda: ops.enum_logsumexp_plain(exist, new)),
-        library_ms=cuda_ms(lambda: torch.logsumexp(cat, dim=1)),
-        bytes=B * K * 4 + B * 4 + B * (K + 1) * 4 + B * 4,
-        shape=f"exist [{B}, {K}], new [{B}]"))
 
-    # K2: the recorded fk logits [B, K+1] and one uniform per row
-    u = torch.rand((B,), generator=g, device=dev)
-    a = ops.inv_cdf_sample(r0, u)
-    b = ops.inv_cdf_sample_plain(r0, u)
-    torch.cuda.synchronize()
-    diff = (a != b)
-    rate = float(diff.float().mean())
-    assert rate <= 1e-2, f"K2 mismatch rate {rate}"
-    if bool(diff.any()):
-        # every entry between the two picks must have its exact (float64)
-        # prefix sum within 1e-5 of the total from the threshold: the draw
-        # sat on a boundary that the two f32 summation orders place apart
-        rows = torch.nonzero(diff)[:, 0]
-        lg = r0[rows].double()
-        c = torch.cumsum(torch.exp(lg - lg.max(1, keepdim=True).values), 1)
-        ub = (1.0 - u[rows].double()) * c[:, -1]
-        lo = torch.minimum(a[rows], b[rows]).long()[:, None]
-        hi = torch.maximum(a[rows], b[rows]).long()[:, None]
-        pos = torch.arange(c.shape[1], device=dev)[None, :]
-        between = (pos >= lo) & (pos < hi)
-        gap = ((c - ub[:, None]).abs() / c[:, -1:]).masked_fill(~between, 0)
-        assert float(gap.max()) <= 1e-5, "K2 differs away from a boundary"
-    picked = r0.gather(1, a.long()[:, None])[:, 0]
-    assert bool((picked > -1e29).all()), "K2 drew a zero-mass entry"
-    out.append(dict(
-        name="inv_cdf_sample", route="cuda",
-        source="pclean_tpu_torch/csrc/inv_cdf_sample.cu",
-        replaces="pclean_tpu/engine/propose.py:1153",
-        max_abs_err=float((a - b).abs().max()), mismatch_rate=rate,
-        ms=cuda_ms(lambda: ops.inv_cdf_sample(r0, u)),
-        plain_ms=cuda_ms(lambda: ops.inv_cdf_sample_plain(r0, u)),
-        library_ms=None,
-        bytes=B * (K + 1) * 4 + B * 4 + B * 4,
-        shape=f"logits [{B}, {K + 1}], u [{B}]"))
-
-    # K3: the Record block's C = 3 observed AddTypos columns
-    spec = cm.obs_specs[0]
-    cols = [v for v in sorted(spec.columns)
-            if isinstance(cm.kernels[cm.canon("Record", v)], _AddTyposK)]
-    mats = [cm.use(cm.kernels[cm.canon("Record", v)].M) for v in cols]
-    obs_np = np.stack([spec.columns[v][0][:B] for v in cols],
-                      1).astype(np.int32)
-    obs = torch.as_tensor(obs_np, device=dev)
-    word = torch.stack([torch.randint(0, m.shape[0], (K,), generator=g,
-                                      device=dev) for m in mats]) \
-        .to(torch.int32)
-    o0 = ops.obs_gather_sum_plain(mats, obs, word)
-    o1 = ops.obs_gather_sum(mats, obs, word)
-    torch.cuda.synchronize()
-    assert torch.equal(o0, o1), "K3 differs from the plain version"
-    # the JAX package's one-hot contraction, timed as a yardstick only
-    oh = torch.cat([torch.nn.functional.one_hot(obs[:, c].long(),
-                                                m.shape[0]).float()
-                    for c, m in enumerate(mats)], 1)
-    T = torch.cat([m[:, word[c].long()] for c, m in enumerate(mats)], 0)
-    distinct = sum(int(torch.unique(obs[:, c]).numel()) * m.shape[0]
-                   for c, m in enumerate(mats))
-    out.append(dict(
-        name="obs_gather_sum", route="cuda",
-        source="pclean_tpu_torch/csrc/obs_gather_sum.cu",
-        replaces="pclean_tpu/engine/propose.py:296",
-        max_abs_err=float((o1 - o0).abs().max()),
-        ms=cuda_ms(lambda: ops.obs_gather_sum(mats, obs, word)),
-        plain_ms=cuda_ms(lambda: ops.obs_gather_sum_plain(mats, obs, word)),
-        library_ms=cuda_ms(lambda: oh @ T),
-        bytes=B * K * 4 + len(mats) * K * 4 + B * len(mats) * 4
-        + distinct * 4,
-        shape=f"obs [{B}, {len(mats)}], word [{len(mats)}, {K}], "
-              f"V = {[m.shape[0] for m in mats]}"))
-    for k in out:
-        k["bound_ms"] = k["bytes"] / HBM_BYTES_PER_S * 1e3
-        k["bound_by"] = "bytes"
-    del exist, cat, oh, T, r0, r1
-    torch.cuda.empty_cache()
-    return out
+def ptxas_lines(ops) -> dict:
+    """Per kernel source, the ptxas -v lines of each compiled function:
+    registers, shared memory, stack frame and spills."""
+    keep = ("Compiling entry function", "registers", "stack frame")
+    return {name: [ln.strip() for ln in log.splitlines()
+                   if any(x in ln for x in keep)]
+            for name, log in ops.BUILD_LOG.items()}
 
 
 def small_device_check(dev):
@@ -199,6 +146,7 @@ def small_device_check(dev):
     from pclean_tpu_torch.convert import to_numpy, to_torch
     from pclean_tpu_torch.engine.compile import init_state
     from pclean_tpu_torch.engine.propose import BlockTracer, _draw_bound
+    from pclean_tpu_torch.kernel_bench import require
     from pclean_tpu_torch.engine.refresh import refresh
     from pclean_tpu_torch.engine.smc import Engine
     from pclean_tpu_torch.workloads import scaled
@@ -235,8 +183,9 @@ def small_device_check(dev):
     torch.testing.assert_close(outs["cuda"][0], outs["cpu"][0], rtol=1e-5,
                                atol=1e-5)
     for v, x in outs["cpu"][1].items():
-        assert torch.equal(x.to(torch.int64), outs["cuda"][1][v]
-                           .to(torch.int64)), f"sampled vertex {v} differs"
+        require(torch.equal(x.to(torch.int64),
+                            outs["cuda"][1][v].to(torch.int64)),
+                f"sampled vertex {v} differs")
     return float((outs["cuda"][0] - outs["cpu"][0]).abs().max())
 
 
@@ -247,6 +196,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     from pclean_tpu_torch import ops
+    from pclean_tpu_torch.kernel_bench import require
     from pclean_tpu_torch.analysis import evaluate_accuracy_device
     from pclean_tpu_torch.engine.compile import init_state
     from pclean_tpu_torch.engine.smc import Engine
@@ -258,14 +208,14 @@ def main() -> int:
     card = card_line()
     print(f"card: {card}", flush=True)
     t0 = time.time()
-    build_s = ops.build_kernels()
+    build_s = ops.build_kernels(force=True)
     print(f"kernel build: {build_s:.2f} s", flush=True)
-    for name, log in ops.BUILD_LOG.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}: {line.strip()}")
+    ptxas = ptxas_lines(ops)
+    for name, lines in ptxas.items():
+        for line in lines:
+            print(f"  ptxas {name}: {line}")
     report = {"card": card, "build_s": build_s, "torch": torch.__version__,
-              "cuda": torch.version.cuda}
+              "cuda": torch.version.cuda, "ptxas": ptxas}
 
     t = time.time()
     cm, config, dirty, clean, query, _sweeps = scaled.setup(
@@ -274,12 +224,6 @@ def main() -> int:
     caps = {c: cm.layouts[c].capacity for c in cm.model.class_order}
     print(f"compile_model: {report['compile_s']:.2f} s, capacities {caps}",
           flush=True)
-    kernels = bench_kernels(ops, cm, dev)
-    for k in kernels:
-        print(f"{k['name']}: {k['shape']}: max_abs_err {k['max_abs_err']:.3g}"
-              f" kernel {k['ms']:.4f} ms plain {k['plain_ms']:.4f} ms "
-              f"library {k['library_ms']} ms bound {k['bound_ms']:.4f} ms "
-              f"({k['bound_by']})", flush=True)
     report["small_check_max_abs_err"] = small_device_check(dev)
     print(f"tracer cuda-vs-cpu check on the small config: max |dlogZ| "
           f"{report['small_check_max_abs_err']:.3g}", flush=True)
@@ -298,6 +242,7 @@ def main() -> int:
     torch.cuda.synchronize()
     sweep_s = time.time() - t
     launches = dict(ops.LAUNCHES)
+    by_shape = {k: dict(v) for k, v in ops.LAUNCHES_BY_SHAPE.items()}
     res = evaluate_accuracy_device(cm, arenas, params, dirty, clean, query)
     occ = eng.arena_occupancy(arenas)
     report.update(
@@ -306,7 +251,7 @@ def main() -> int:
         f1=res["f1"], precision=res["precision"], recall=res["recall"],
         occupancy=occ, phase_times=eng.phase_times,
         max_memory_allocated=torch.cuda.max_memory_allocated(),
-        launches=launches)
+        launches=launches, launches_by_shape=by_shape)
     print(f"main path ({ROWS} rows, B={BATCH}): init {init_s:.2f} s, "
           f"sweep {sweep_s:.2f} s, rows-cleaned/s "
           f"{report['rows_cleaned_per_s']:.1f}", flush=True)
@@ -314,12 +259,27 @@ def main() -> int:
     print(f"F1 {res['f1']:.4f} precision {res['precision']:.4f} "
           f"recall {res['recall']:.4f}; occupancy {occ}; "
           f"max_memory_allocated {report['max_memory_allocated']}")
-    print(f"launches on the main path: {launches}", flush=True)
+    print(f"launches on the main path: {launches}; by shape (r1 = one "
+          f"row, rn = more): {by_shape}", flush=True)
+    # after the main path, so that its peak memory is its own (CUDA graph
+    # timing leaves allocator state behind, about 0.1 GB)
+    kernels = bench_kernels(ops, cm, dev)
+    for k in kernels:
+        for sh in ("", "_r1"):
+            print(f"{k['name']}: {k['shape' + sh]}: max_abs_err "
+                  f"{k['max_abs_err' + sh]:.3g} kernel {k['ms' + sh]:.4f} ms"
+                  f" plain {k['plain_ms' + sh]:.4f} ms library "
+                  f"{k['library_ms' + sh]} ms bound {k['bound_ms' + sh]:.4f}"
+                  f" ms ({k['bound_by']}) one call with its host side "
+                  f"{k.get('call_ms' + sh)} ms plan {k.get('plan' + sh)}",
+                  flush=True)
     for k in kernels:
         k["launches"] = launches[k["name"]]
+        k["launches_r1"] = by_shape[k["name"]]["r1"]
+        k["launches_rn"] = by_shape[k["name"]]["rn"]
     missing = [k for k, v in launches.items() if v <= 0]
-    assert not missing, f"kernels never launched on the main path: {missing}"
-    assert res["f1"] >= 0.80, f"F1 {res['f1']} < 0.80"
+    require(not missing, f"kernels never launched on the main path: {missing}")
+    require(res["f1"] >= 0.80, f"F1 {res['f1']} < 0.80")
     report["total_s"] = time.time() - t0
     report["kernels"] = kernels
     if out_dir:
@@ -327,7 +287,9 @@ def main() -> int:
         with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
             json.dump(report, f, indent=1, default=str)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "launches_r1", "ms_r1", "plain_ms_r1", "bound_ms_r1",
+            "library_ms_r1")
     print(json.dumps({"kernels": [{k: kk[k] for k in keys}
                                   for kk in kernels]}))
     print(card)

@@ -13,57 +13,178 @@
 // the rows the batch observes are needed: (B*K*4 + C*K*4 + B*C*4 +
 // sum_c distinct(obs[:, c]) * V_c * 4) / 3.35e12 s.
 //
-// Design: a block owns 256 consecutive candidates k and kRows rows b. The
-// matrices' pointers and sizes come by value in one kernel argument, so the
-// kernel reads them from the parameter space and keeps no table of its own
-// on the device. Each thread loads its candidate's C word codes once into
-// registers (the column loops unroll to kMaxCols with a guard on C, so no
-// per-column array is indexed at run time) and reuses them for the block's
-// rows; the reads M_c[obs[b, c], .] of one row b hit one M_c row (<= ~22 KB
-// at the scaled vocabularies), which stays in L1/L2. Columns are summed in
-// order c = 0..C-1 from 0, the order of the plain version, so the two agree
-// bit for bit. Codes are clamped into [0, V_c), as the JAX package's
-// gathers clamp.
+// Two paths in one source; ops.obs_gather_plan picks one and its tile
+// sizes from (B, K, [V_c]) and passes them to the entry point.
+//
+// Staged path (batches): a block owns RB rows and a range of kt candidates.
+// It first copies its rows' observed M rows, M_c[obs[b, c], :] for every
+// column, into shared memory (cp.async, neighbouring threads on
+// neighbouring addresses; the rows of an odd V are not 16-byte aligned, so
+// the copies are 4 bytes a thread), then walks its candidates four to a
+// thread: each column's word codes are read once per block as one int4, the
+// RB x 4 accumulators live in registers, every M entry is a shared-memory
+// read, and each row's four sums go out as one float4. The scattered
+// device-memory gathers of the direct path (one 32-byte sector per 4-byte
+// entry) become one coalesced read of each observed row per block, and the
+// word codes are read once per RB rows instead of once per row. RB is 1
+// or 2, the plan's: four 512-thread blocks share an SM (registers capped at
+// 32 a thread by the launch bounds, and the plan's staged rows fit four
+// blocks' shared memory where they can), so one block's copies overlap
+// the others' arithmetic. On an H100 at the scaled workload's V that took
+// 11% less time than an 8-row tile that fills 227 KB alone (PERF.md). Staged rows up
+// to 227 KB are taken, one block an SM at that size; above 48 KB the
+// launch raises the kernel's dynamic shared-memory limit first.
+//
+// Direct path (one or a few rows, or rows too long to stage): a block owns
+// 256 consecutive candidates and 4 rows; each thread keeps its candidate's
+// word codes in registers and gathers M_c[obs[b, c], w_c] from device
+// memory (the row of one b stays in L1/L2 for the block).
+//
+// Both paths sum the columns in order c = 0..C-1 from 0 (or from `out`
+// when `accumulate` is set, for the groups after the first eight columns),
+// the order of the plain version, so the two agree bit for bit. Matrix
+// pointers, sizes and staged-row offsets come by value in one kernel
+// argument, and the column loops unroll to kMaxCols with a guard on C, so
+// no per-column array is indexed at run time (no local memory). Codes are
+// clamped into [0, V_c), as the JAX package's gathers clamp.
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kRows = 4;
 constexpr int kMaxCols = 8;
+constexpr int kStagedThreads = 512;
+constexpr int kStagedBlocksPerSM = 4;  // 2,048 threads: <= 32 registers each
+constexpr int kDirectThreads = 256;
+constexpr int kDirectRows = 4;
+constexpr int kMaxSmem = 232448;  // the H100's per-block shared-memory limit
 
 struct Mats {
   const float* M[kMaxCols];
   int32_t V[kMaxCols];
 };
 
-__global__ void __launch_bounds__(kThreads)
-obs_gather_sum_kernel(const Mats mats, const int32_t* __restrict__ obs,
-                      const int32_t* __restrict__ word,
-                      float* __restrict__ out, int64_t B, int64_t K, int C) {
-  const int64_t k = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (k >= K) return;
-  int32_t w[kMaxCols];
-#pragma unroll
-  for (int c = 0; c < kMaxCols; ++c) {
-    if (c < C) {
-      const int32_t V = mats.V[c];
-      const int32_t wc = word[(int64_t)c * K + k];
-      w[c] = wc < 0 ? 0 : (wc >= V ? V - 1 : wc);
-    }
-  }
-  const int64_t b0 = (int64_t)blockIdx.y * kRows;
-  for (int r = 0; r < kRows; ++r) {
+struct StagedMats {
+  const float* M[kMaxCols];
+  int32_t V[kMaxCols];
+  int32_t off[kMaxCols];  // column c's offset in a staged row, in floats
+};
+
+__device__ __forceinline__ int32_t clamp_code(int32_t x, int32_t V) {
+  return x < 0 ? 0 : (x >= V ? V - 1 : x);
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src));
+}
+
+template <int RB>
+__global__ void __launch_bounds__(kStagedThreads, kStagedBlocksPerSM)
+obs_gather_staged(const StagedMats mats, const int32_t* __restrict__ obs,
+                  const int32_t* __restrict__ word, float* __restrict__ out,
+                  int64_t B, int64_t K, int C, int row_floats, int64_t kt,
+                  int accumulate, int vec) {
+  extern __shared__ float4 staged4[];
+  float* staged = reinterpret_cast<float*>(staged4);  // [RB][row_floats]
+  const int tid = threadIdx.x;
+  const int64_t b0 = (int64_t)blockIdx.x * RB;
+
+#pragma unroll 1
+  for (int r = 0; r < RB; ++r) {
     const int64_t b = b0 + r;
     if (b >= B) break;
-    float acc = 0.0f;
 #pragma unroll
     for (int c = 0; c < kMaxCols; ++c) {
       if (c < C) {
         const int32_t V = mats.V[c];
-        int32_t o = obs[b * C + c];
-        o = o < 0 ? 0 : (o >= V ? V - 1 : o);
+        const int32_t o = clamp_code(obs[b * C + c], V);
+        const float* src = mats.M[c] + (int64_t)o * V;
+        float* dst = staged + r * row_floats + mats.off[c];
+        for (int i = tid; i < V; i += kStagedThreads)
+          cp_async4(dst + i, src + i);
+      }
+    }
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+
+  const int64_t k_lo = (int64_t)blockIdx.y * kt;
+  const int64_t k_hi = k_lo + kt < K ? k_lo + kt : K;
+  for (int64_t k = k_lo + 4 * tid; k < k_hi; k += 4 * kStagedThreads) {
+    float acc[RB][4];
+#pragma unroll
+    for (int r = 0; r < RB; ++r) {
+      const int64_t b = b0 + r;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        acc[r][j] = (accumulate && b < B && k + j < k_hi)
+                        ? out[b * K + k + j] : 0.0f;
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < kMaxCols; ++c) {
+      if (c < C) {
+        const int32_t V = mats.V[c];
+        int32_t w[4];
+        if (vec) {
+          const int4 w4 = __ldg(reinterpret_cast<const int4*>(
+              word + (int64_t)c * K + k));
+          w[0] = w4.x; w[1] = w4.y; w[2] = w4.z; w[3] = w4.w;
+        } else {
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            w[j] = k + j < k_hi ? word[(int64_t)c * K + k + j] : 0;
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) w[j] = clamp_code(w[j], V);
+        const float* sc = staged + mats.off[c];
+#pragma unroll
+        for (int r = 0; r < RB; ++r) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[r][j] += sc[r * row_floats + w[j]];
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < RB; ++r) {
+      const int64_t b = b0 + r;
+      if (b >= B) break;
+      if (vec) {
+        *reinterpret_cast<float4*>(out + b * K + k) =
+            make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (k + j < k_hi) out[b * K + k + j] = acc[r][j];
+      }
+    }
+  }
+}
+
+template <bool ACC>
+__global__ void __launch_bounds__(kDirectThreads)
+obs_gather_direct(const Mats mats, const int32_t* __restrict__ obs,
+                  const int32_t* __restrict__ word, float* __restrict__ out,
+                  int64_t B, int64_t K, int C) {
+  const int64_t k = (int64_t)blockIdx.x * kDirectThreads + threadIdx.x;
+  if (k >= K) return;
+  int32_t w[kMaxCols];
+#pragma unroll
+  for (int c = 0; c < kMaxCols; ++c) {
+    if (c < C) w[c] = clamp_code(word[(int64_t)c * K + k], mats.V[c]);
+  }
+  const int64_t b0 = (int64_t)blockIdx.y * kDirectRows;
+  for (int r = 0; r < kDirectRows; ++r) {
+    const int64_t b = b0 + r;
+    if (b >= B) break;
+    float acc = ACC ? out[b * K + k] : 0.0f;
+#pragma unroll
+    for (int c = 0; c < kMaxCols; ++c) {
+      if (c < C) {
+        const int32_t V = mats.V[c];
+        const int32_t o = clamp_code(obs[b * C + c], V);
         acc += __ldg(mats.M[c] + (int64_t)o * V + w[c]);
       }
     }
@@ -71,28 +192,84 @@ obs_gather_sum_kernel(const Mats mats, const int32_t* __restrict__ obs,
   }
 }
 
+template <int RB>
+int launch_staged(const StagedMats& m, const int32_t* obs, const int32_t* word,
+                  float* out, int64_t B, int64_t K, int C, int row_floats,
+                  int64_t kt, int accumulate, int vec, int smem,
+                  cudaStream_t stream) {
+  static bool raised = false;  // the limit is a property of the function
+  if (!raised) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        obs_gather_staged<RB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kMaxSmem);
+    if (e != cudaSuccess) return (int)e;
+    raised = true;
+  }
+  const dim3 grid((unsigned)((B + RB - 1) / RB),
+                  (unsigned)((K + kt - 1) / kt));
+  obs_gather_staged<RB><<<grid, kStagedThreads, smem, stream>>>(
+      m, obs, word, out, B, K, C, row_floats, kt, accumulate, vec);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // mats [C] host array of device pointers to f32 [V_c, V_c] matrices, vsize
 // [C] host int32 array; obs [B, C] int32, word [C, K] int32, out [B, K] f32
-// on the device, contiguous; 1 <= C <= 8. Returns cudaGetLastError() after
-// the launch.
+// on the device, contiguous; 1 <= C <= 8. accumulate: add into `out`
+// instead of starting from 0. The plan (ops.obs_gather_plan): path 0 =
+// direct (rb 4, kt 256, smem 0), path 1 = staged (rb in {1, 2}, kt a
+// multiple of 4, smem = rb * sum(V_c) * 4 <= 232448). The direct grid is
+// (candidate tiles, row groups), the staged grid (row groups, candidate
+// tiles). Returns
+// cudaErrorInvalidValue for a plan it does not take, else
+// cudaGetLastError() after the launch.
 extern "C" int pclean_obs_gather_sum(const int64_t* mats,
                                      const int32_t* vsize,
                                      const int32_t* obs, const int32_t* word,
                                      float* out, int64_t B, int64_t K, int C,
-                                     void* stream) {
+                                     int accumulate, int path, int rb,
+                                     int64_t kt, int smem, void* stream) {
   if (C < 1 || C > kMaxCols) return (int)cudaErrorInvalidValue;
-  Mats m = {};
+  if (B <= 0 || K <= 0) return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  if (path == 0) {
+    if (rb != kDirectRows || kt != kDirectThreads || smem != 0)
+      return (int)cudaErrorInvalidValue;
+    Mats m = {};
+    for (int c = 0; c < C; ++c) {
+      m.M[c] = reinterpret_cast<const float*>(mats[c]);
+      m.V[c] = vsize[c];
+    }
+    const dim3 grid((unsigned)((K + kDirectThreads - 1) / kDirectThreads),
+                    (unsigned)((B + kDirectRows - 1) / kDirectRows));
+    if (accumulate)
+      obs_gather_direct<true><<<grid, kDirectThreads, 0, s>>>(m, obs, word,
+                                                              out, B, K, C);
+    else
+      obs_gather_direct<false><<<grid, kDirectThreads, 0, s>>>(m, obs, word,
+                                                               out, B, K, C);
+    return (int)cudaGetLastError();
+  }
+  StagedMats m = {};
+  int row_floats = 0;
   for (int c = 0; c < C; ++c) {
     m.M[c] = reinterpret_cast<const float*>(mats[c]);
     m.V[c] = vsize[c];
+    m.off[c] = row_floats;
+    row_floats += vsize[c];
   }
-  if (B > 0 && K > 0) {
-    dim3 grid((unsigned)((K + kThreads - 1) / kThreads),
-              (unsigned)((B + kRows - 1) / kRows));
-    obs_gather_sum_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        m, obs, word, out, B, K, C);
+  if (path != 1 || kt <= 0 || kt % 4 != 0 ||
+      (int64_t)smem != (int64_t)rb * row_floats * 4 || smem > kMaxSmem)
+    return (int)cudaErrorInvalidValue;
+  const int vec = K % 4 == 0 &&
+                  reinterpret_cast<uintptr_t>(word) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  switch (rb) {
+    case 1: return launch_staged<1>(m, obs, word, out, B, K, C, row_floats,
+                                    kt, accumulate, vec, smem, s);
+    case 2: return launch_staged<2>(m, obs, word, out, B, K, C, row_floats,
+                                    kt, accumulate, vec, smem, s);
+    default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }

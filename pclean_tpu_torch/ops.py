@@ -14,7 +14,12 @@ replaces, its bound on the H100 and its design):
 
 Each has a plain PyTorch version here. A wrapper takes the plain version
 only for tensors on the CPU; for CUDA tensors it launches its kernel or
-raises. `LAUNCHES` counts kernel launches (plain calls are not counted).
+raises. `LAUNCHES` counts kernel launches (plain calls are not counted);
+`LAUNCHES_BY_SHAPE` splits the same launches into those over one row
+("r1", the sequential loops) and over more ("rn", the batched phases).
+K2 and K3 each take a launch plan (path and tile sizes) from a function of
+their shapes alone, `inv_cdf_plan` and `obs_gather_plan`, which the CPU
+tests check.
 
 Build: one `nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared` per
 source, all started together, into pclean_tpu_torch/_build/ (listed in
@@ -25,6 +30,7 @@ ctypes. Nothing is built or loaded when the module is imported.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 import shutil
 import subprocess
@@ -43,6 +49,11 @@ _SOURCES = {
     "obs_gather_sum": "obs_gather_sum.cu",
 }
 LAUNCHES = {name: 0 for name in _SOURCES}
+LAUNCHES_BY_SHAPE = {name: {"r1": 0, "rn": 0} for name in _SOURCES}
+SMEM_MAX = 232448     # shared memory one block may use on an H100 (227 KB)
+SMEM_PER_SM = 233472  # shared memory of one SM (228 KB)
+SMEM_RESERVED = 1024  # what the card keeps of it for each resident block
+N_SMS = 132           # streaming multiprocessors of an H100 SXM
 _lock = threading.Lock()
 _libs: dict = {}
 BUILD_LOG: dict = {}
@@ -51,6 +62,12 @@ BUILD_LOG: dict = {}
 def reset_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+        LAUNCHES_BY_SHAPE[k] = {"r1": 0, "rn": 0}
+
+
+def _count(name: str, rows: int) -> None:
+    LAUNCHES[name] += 1
+    LAUNCHES_BY_SHAPE[name]["r1" if rows == 1 else "rn"] += 1
 
 
 def _nvcc() -> str:
@@ -73,22 +90,23 @@ def _stale(name: str, out: str) -> bool:
     return os.path.getmtime(out) < max(os.path.getmtime(p) for p in srcs)
 
 
-def build_kernels() -> float:
+def build_kernels(force: bool = False) -> float:
     """Compile every kernel whose library is missing or older than its
-    sources (one nvcc per source, in parallel) and load the libraries;
-    returns the wall seconds the build took. Raises with the compiler's
-    output if any build fails. Each process compiles into a file of its own
+    sources, or every kernel with `force` (one nvcc per source, in
+    parallel), and load the libraries; returns the wall seconds the build
+    took; BUILD_LOG keeps each compiler's output (ptxas -v). Raises with
+    the compiler's output if any build fails. Each process compiles into a file of its own
     and renames it into place, so processes sharing a checkout never load a
     half-written library."""
     with _lock:
-        if len(_libs) == len(_SOURCES):
+        if len(_libs) == len(_SOURCES) and not force:
             return 0.0
         t0 = time.time()
         os.makedirs(BUILD_DIR, exist_ok=True)
         procs = {}
         for name, src in _SOURCES.items():
             out = os.path.join(BUILD_DIR, f"lib{name}.so")
-            if not _stale(name, out):
+            if not force and not _stale(name, out):
                 continue
             tmp = f"{out}.{os.getpid()}.tmp"
             cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
@@ -116,11 +134,12 @@ def build_kernels() -> float:
             if name == "enum_logsumexp":
                 fn.argtypes = [P, P, P, P, I64, I64, P]
             elif name == "inv_cdf_sample":
-                fn.argtypes = [P, P, P, I64, I64, P]
+                fn.argtypes = [P, P, P, I64, I64, I64, ctypes.c_int, P]
             else:
+                I32 = ctypes.c_int
                 fn.argtypes = [ctypes.POINTER(I64),
                                ctypes.POINTER(ctypes.c_int32), P, P, P, I64,
-                               I64, ctypes.c_int, P]
+                               I64, I32, I32, I32, I32, I64, I32, P]
             _libs[name] = fn
         return time.time() - t0
 
@@ -193,7 +212,7 @@ def enum_logsumexp(exist: torch.Tensor, new=None):
         rc = _fn("enum_logsumexp")(_ptr(exist), _ptr(new), _ptr(rec),
                                    _ptr(logz), R, K, _stream(exist))
     _check(rc, "enum_logsumexp")
-    LAUNCHES["enum_logsumexp"] += 1
+    _count("enum_logsumexp", R)
     return rec, logz
 
 
@@ -210,6 +229,32 @@ def inv_cdf_sample_plain(logits: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     return torch.sum(c < ub[..., None], dim=-1).to(torch.int32)
 
 
+_K2_MAX_K = 1 << 21      # the fixed-point total stays below 2^53
+_K2_STREAM_TILE = 16384  # floats per tile for rows that do not fit
+_K2_STATIC_SMEM = 1024   # room left for the kernel's static shared memory
+
+
+def inv_cdf_plan(R: int, K: int) -> dict:
+    """K2's launch: one 512-thread block per row. A row of K floats that
+    fits in shared memory (with 4 floats to align it and room for the
+    kernel's own scan buffers) is read once ("smem", tile = K); a longer one
+    streams through a 64 KB tile ("stream"). smem is the dynamic shared
+    memory in bytes."""
+    return dict(_inv_cdf_plan(int(R), int(K)))
+
+
+@functools.lru_cache(maxsize=256)
+def _inv_cdf_plan(R: int, K: int) -> dict:
+    if K < 1 or K > _K2_MAX_K:
+        raise ValueError(f"inv_cdf_sample: K must lie in [1, {_K2_MAX_K}]")
+    if (K + 4) * 4 <= SMEM_MAX - _K2_STATIC_SMEM:
+        path, tile = "smem", K
+    else:
+        path, tile = "stream", _K2_STREAM_TILE
+    return dict(path=path, tile=tile, smem=(min(tile, K) + 4) * 4,
+                threads=512, grid=(R, 1))
+
+
 def inv_cdf_sample(logits: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     """K2. logits [R, K] f32, u [R] f32 in [0, 1) -> idx [R] int32."""
     if not _route(logits, "inv_cdf_sample"):
@@ -221,18 +266,84 @@ def inv_cdf_sample(logits: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     R, K = logits.shape
     if u.shape[0] != R:
         raise ValueError("inv_cdf_sample: one uniform per row")
+    plan = _inv_cdf_plan(R, K)
     idx = torch.empty((R,), dtype=torch.int32, device=logits.device)
     rc = _fn("inv_cdf_sample")(_ptr(logits), _ptr(u), _ptr(idx), R, K,
-                               _stream(logits))
+                               plan["tile"], plan["smem"], _stream(logits))
     _check(rc, "inv_cdf_sample")
-    LAUNCHES["inv_cdf_sample"] += 1
+    _count("inv_cdf_sample", R)
     return idx
 
 
 # ---------------------------------------------------------------- K3
 
 _MAX_COLS = 8
-_MAX_ROWS = 65535 * 4  # grid.y * rows per block
+_K3_STAGED_THREADS = 512
+_K3_BLOCKS_PER_SM = 4     # 512-thread blocks one SM holds (2,048 threads)
+_K3_DIRECT_ROWS = 4
+_K3_DIRECT_THREADS = 256  # candidates a direct block owns
+_GRID_Y_MAX = 65535
+
+
+def obs_gather_plan(B: int, K: int, Vs) -> dict:
+    """K3's launch for B rows, K candidates and one group of <= 8 columns
+    of vocabulary sizes Vs. Returns dict(path, rb, kt, smem, threads, grid):
+    a block owns rb rows and kt candidates, grid = (row groups, candidate
+    tiles) for "staged", smem is its dynamic shared memory in bytes.
+
+    "staged" copies each block's observed M rows (sum(Vs) floats a row)
+    into shared memory. rb is 2 where two rows let four blocks share an
+    SM's shared memory (the most 512-thread blocks it holds; the kernel's
+    launch bounds fit their registers too), so one block's copies overlap
+    the others' arithmetic; else 1. Occupancy, not reuse of the word codes
+    across rows, is what paid on an H100 at the scaled workload's V: 1, 2,
+    4 and 8 rows a block took 0.119, 0.122, 0.128 and 0.137 ms
+    (kernel_bench.k3_row_tile_sweep, PERF.md). Staging is taken only where
+    it pays:
+      - one row fits at all;
+      - a staged row (4 * sum(Vs) bytes, read coalesced) costs no more than
+        the direct path's gathers for that row, one 32-byte sector per
+        candidate and column (32 * K * C bytes);
+      - there are enough rows for half of the SMs to get a full tile of rb
+        rows: with fewer, as in the sequential loops' one-row calls, the
+        direct path spreads the gathers over more blocks and has the
+        shorter dependent chain.
+    Where the row groups alone do not fill the SMs twice over, the candidate
+    axis is cut into tiles of at least one pass of the block (2,048
+    candidates), each block staging its rows again.
+    "direct" gathers straight from device memory: 4 rows and 256 candidates
+    a block, no shared memory, grid = (candidate tiles, row groups)."""
+    return dict(_obs_gather_plan(int(B), int(K), tuple(int(v) for v in Vs)))
+
+
+@functools.lru_cache(maxsize=256)
+def _obs_gather_plan(B: int, K: int, Vs: tuple) -> dict:
+    C = len(Vs)
+    if not 1 <= C <= _MAX_COLS:
+        raise ValueError(f"obs_gather_sum: 1 to {_MAX_COLS} columns a launch")
+    row_bytes = 4 * sum(Vs)
+    share = SMEM_PER_SM // _K3_BLOCKS_PER_SM - SMEM_RESERVED
+    rb = 2 if 2 * row_bytes <= share else int(row_bytes <= SMEM_MAX)
+    staged = (rb >= 1 and row_bytes <= 32 * K * C
+              and B >= rb * (N_SMS // 2))
+    if staged:
+        groups = -(-B // rb)
+        step = 4 * _K3_STAGED_THREADS
+        tiles = max(1, min(-(-2 * N_SMS // groups), -(-K // step)))
+        kt = -(-K // tiles)
+        kt = -(-kt // 4) * 4
+        plan = dict(path="staged", rb=rb, kt=kt, smem=rb * row_bytes,
+                    threads=_K3_STAGED_THREADS,
+                    grid=(groups, -(-K // kt)))
+    else:
+        plan = dict(path="direct", rb=_K3_DIRECT_ROWS, kt=_K3_DIRECT_THREADS,
+                    smem=0, threads=_K3_DIRECT_THREADS,
+                    grid=(-(-K // _K3_DIRECT_THREADS),
+                          -(-B // _K3_DIRECT_ROWS)))
+    if plan["grid"][1] > _GRID_Y_MAX:
+        raise ValueError(f"obs_gather_sum: B = {B} rows and K = {K} "
+                         f"candidates exceed the grid")
+    return plan
 
 
 def obs_gather_sum_plain(mats, obs: torch.Tensor,
@@ -252,7 +363,7 @@ def obs_gather_sum_plain(mats, obs: torch.Tensor,
 def obs_gather_sum(mats, obs: torch.Tensor, word: torch.Tensor) -> torch.Tensor:
     """K3. mats: C square f32 matrices [V_c, V_c]; obs [B, C] int32;
     word [C, K] int32 -> [B, K] f32. More than 8 columns launch once per
-    group of 8 and add the groups."""
+    group of 8, each later group adding into the output in column order."""
     if not _route(obs, "obs_gather_sum"):
         return obs_gather_sum_plain(mats, obs, word)
     obs = obs.to(torch.int32).contiguous()
@@ -269,21 +380,21 @@ def obs_gather_sum(mats, obs: torch.Tensor, word: torch.Tensor) -> torch.Tensor:
     if C != len(mats) or word.shape[0] != C:
         raise ValueError("obs_gather_sum: one obs column and one word row "
                          "per matrix")
-    if B > _MAX_ROWS:
-        raise ValueError(f"obs_gather_sum: at most {_MAX_ROWS} rows")
-    out = None
+    out = torch.empty((B, K), dtype=torch.float32, device=obs.device)
     for c0 in range(0, C, _MAX_COLS):
         cs = slice(c0, min(C, c0 + _MAX_COLS))
         part_mats = mats[cs]
         n = len(part_mats)
+        Vs = tuple(m.shape[0] for m in part_mats)
+        plan = _obs_gather_plan(B, K, Vs)
         ptrs = (ctypes.c_int64 * n)(*[m.data_ptr() for m in part_mats])
-        sizes = (ctypes.c_int32 * n)(*[m.shape[0] for m in part_mats])
+        sizes = (ctypes.c_int32 * n)(*Vs)
         o = obs[:, cs].contiguous()
         w = word[cs].contiguous()
-        part = torch.empty((B, K), dtype=torch.float32, device=obs.device)
-        rc = _fn("obs_gather_sum")(ptrs, sizes, _ptr(o), _ptr(w),
-                                   _ptr(part), B, K, n, _stream(obs))
+        rc = _fn("obs_gather_sum")(
+            ptrs, sizes, _ptr(o), _ptr(w), _ptr(out), B, K, n, int(c0 > 0),
+            0 if plan["path"] == "direct" else 1, plan["rb"], plan["kt"],
+            plan["smem"], _stream(obs))
         _check(rc, "obs_gather_sum")
-        LAUNCHES["obs_gather_sum"] += 1
-        out = part if out is None else out + part
+        _count("obs_gather_sum", B)
     return out

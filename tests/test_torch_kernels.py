@@ -9,8 +9,14 @@ counterparts (CPU), and CUDA kernels against the plain versions (card only).
   K3 obs_gather_sum — sum of AddTypos gathers M_c[obs_c, word_c], and the
      one-hot contraction of _matmul_obs_term/_mm_flush: rtol 1e-5.
 
+The launch plans of K2 and K3 (path and tile sizes, a function of the
+shapes alone) are checked here for legal geometry on the H100.
+
 The CUDA tests carry the `cuda` marker and skip where no card is present;
 run them on the card with `python -m pytest -m cuda tests/test_torch_kernels.py`.
+They cover both paths of K2 and K3 at the main path's shapes and at the
+edge shapes (one row, ragged tiles, rows too long for shared memory, more
+than 8 columns, threshold edges).
 The JAX package is imported inside the CPU tests only, so the module also
 loads where JAX is not installed.
 """
@@ -105,6 +111,92 @@ def test_wrappers_take_plain_version_on_cpu_without_counting():
     ops.obs_gather_sum([torch.zeros((3, 3))], torch.zeros((2, 1), dtype=torch.int32),
                        torch.zeros((1, 3), dtype=torch.int32))
     assert all(v == 0 for v in ops.LAUNCHES.values())
+    assert all(v == {"r1": 0, "rn": 0} for v in ops.LAUNCHES_BY_SHAPE.values())
+
+
+MAIN_V = [5125, 1832, 138]  # the scaled workload's Record AddTypos columns
+MAIN_K = 11264              # its Hospital capacity
+
+
+@pytest.mark.parametrize("B,K,Vs,path", [
+    (4096, MAIN_K, MAIN_V, "staged"),   # the batch shape
+    (1, MAIN_K, MAIN_V, "direct"),      # the sequential loops' one row
+    (4097, MAIN_K, MAIN_V, "staged"),   # B not a multiple of the row tile
+    (200, MAIN_K, MAIN_V, "staged"),    # few row tiles: K cut into tiles
+    (64, MAIN_K, MAIN_V, "direct"),     # too few rows for staging to pay
+    (4096, MAIN_K, [7300] * 8, "direct"),  # one staged row > 227 KB
+    (4096, 16, [5125], "direct"),       # K too short for staging to pay
+    (4096, 1001, [300, 120, 40], "staged"),  # K not a multiple of 4
+])
+def test_k3_plan_is_legal(B, K, Vs, path):
+    plan = ops.obs_gather_plan(B, K, Vs)
+    assert plan["path"] == path
+    gx, gy = plan["grid"]
+    assert plan["smem"] <= ops.SMEM_MAX == 232448
+    assert 1 <= gx < 2 ** 31 and 1 <= gy <= 65535
+    assert plan["threads"] <= 1024 and plan["threads"] % 32 == 0
+    # the grid covers every row and candidate, with no block left empty
+    rows, cands = (gx, gy) if path == "staged" else (gy, gx)
+    assert rows * plan["rb"] >= B > (rows - 1) * plan["rb"]
+    assert cands * plan["kt"] >= K > (cands - 1) * plan["kt"]
+    if path == "staged":
+        assert plan["rb"] in (1, 2) and plan["kt"] % 4 == 0
+        assert plan["smem"] == plan["rb"] * 4 * sum(Vs)
+        # 2 rows wherever 4 such blocks share an SM's shared memory
+        share = ops.SMEM_PER_SM // 4 - ops.SMEM_RESERVED
+        assert (plan["rb"] == 2) == (2 * 4 * sum(Vs) <= share)
+    else:
+        assert (plan["rb"], plan["kt"], plan["smem"]) == (4, 256, 0)
+
+
+def test_k3_plan_refuses_a_grid_out_of_range():
+    # direct rows go on grid.y: at most 65,535 groups of 4 rows
+    with pytest.raises(ValueError):
+        ops.obs_gather_plan(4 * 65535 + 1, MAIN_K, [7300] * 8)
+
+
+def test_k3_plan_main_shape():
+    # 2 staged rows of 28,380 B: 56,760 B a block, so 4 blocks share an
+    # SM's 228 KB; one candidate tile, 2,048 row groups
+    plan = ops.obs_gather_plan(4096, MAIN_K, MAIN_V)
+    assert plan == dict(path="staged", rb=2, kt=MAIN_K, smem=56760,
+                        threads=512, grid=(2048, 1))
+
+
+def test_k3_plan_cuts_the_candidate_axis_for_few_rows():
+    plan = ops.obs_gather_plan(200, MAIN_K, MAIN_V)
+    assert plan["grid"] == (100, 3) and plan["kt"] == 3756
+
+
+def test_k3_plan_long_rows_take_one_row_a_block():
+    # 80,000 B rows: staged one to a block (two blocks an SM)
+    plan = ops.obs_gather_plan(4096, MAIN_K, [20000])
+    assert (plan["path"], plan["rb"], plan["smem"]) == ("staged", 1, 80000)
+
+
+@pytest.mark.parametrize("R,K,path", [
+    (4096, MAIN_K + 1, "smem"),  # the batch shape: fk logits [B, K+1]
+    (1, MAIN_K + 1, "smem"),     # the sequential shape
+    (3, 1473, "smem"),           # County's axis, not a multiple of 4
+    (2, 57852, "smem"),          # the longest row that still fits
+    (2, 57853, "stream"),        # one entry more
+    (2, 70001, "stream"),        # longer than shared memory holds
+])
+def test_k2_plan_is_legal(R, K, path):
+    plan = ops.inv_cdf_plan(R, K)
+    assert plan["path"] == path
+    assert plan["smem"] <= ops.SMEM_MAX - 1024  # static shared memory too
+    assert plan["grid"] == (R, 1) and plan["threads"] == 512
+    if path == "smem":
+        assert plan["tile"] == K and plan["smem"] == (K + 4) * 4
+    else:
+        assert plan["tile"] < K and plan["tile"] % 4 == 0
+        assert plan["smem"] == (plan["tile"] + 4) * 4
+
+
+def test_k2_plan_rejects_rows_past_exact_totals():
+    with pytest.raises(ValueError):
+        ops.inv_cdf_plan(1, (1 << 21) + 1)
 
 
 @pytest.fixture
@@ -131,29 +223,84 @@ def test_k1_cuda_matches_plain(card):
 
 
 @pytest.mark.cuda
-def test_k2_cuda_matches_plain(card):
+@pytest.mark.parametrize("R,K", [
+    (4096, 1473),        # County's axis: K not a multiple of any tile
+    (4096, MAIN_K + 1),  # the batch shape
+    (1, MAIN_K + 1),     # the sequential shape
+    (64, 70001),         # longer than shared memory holds: streamed
+])
+def test_k2_cuda_matches_plain(card, R, K):
+    from pclean_tpu_torch.kernel_bench import check_k2
+
     rng = np.random.default_rng(6)
-    lg = torch.as_tensor(_logits(rng, 4096, 1473), device=card)
-    u = torch.rand(4096, device=card)
-    a = ops.inv_cdf_sample(lg, u)
-    b = ops.inv_cdf_sample_plain(lg, u)
-    torch.cuda.synchronize()
-    assert (a != b).float().mean().item() <= 1e-2
-    picked = lg.gather(1, a.long()[:, None])[:, 0]
-    assert bool((picked[1:] > NEG_INF / 2).all())
+    lg = torch.as_tensor(_logits(rng, R, K), device=card)
+    if R == 1:
+        lg[0, : K // 2] = NEG_INF  # a live row for the one-row case
+        lg[0, K // 2:] = torch.as_tensor(rng.normal(0, 3, K - K // 2),
+                                         dtype=torch.float32)
+    u = torch.as_tensor(rng.random(R).astype(np.float32), device=card)
+    check_k2(ops, lg, u)
 
 
 @pytest.mark.cuda
-def test_k3_cuda_matches_plain(card):
-    rng = np.random.default_rng(7)
-    Vs = [300, 120, 40]
+@pytest.mark.parametrize("K", [1473, MAIN_K + 1, 70001])
+def test_k2_cuda_edges(card, K):
+    """All mass on the last entry; one live slot among dead ones; the
+    uniform's extremes 0 and 1 - 2^-24 on a row whose first and last
+    entries are dead. Each pick is exact and never a zero-mass entry."""
+    from pclean_tpu_torch.kernel_bench import check_k2
+
+    rng = np.random.default_rng(8)
+    n = 8
+    lg = np.full((n, K), NEG_INF, dtype=np.float32)
+    lg[0, -1] = 0.0                      # all mass on the last entry
+    lg[1, K // 3] = 5.0                  # dead slots but one
+    lg[2:, 1:-1] = rng.normal(0, 2, (n - 2, K - 2))  # dead first and last
+    u = np.array([0.3, 0.7, 0.0, 1 - 2 ** -24, 0.0, 1 - 2 ** -24, 0.5, 0.5],
+                 dtype=np.float32)
+    lg_t = torch.as_tensor(lg, device=card)
+    u_t = torch.as_tensor(u, device=card)
+    check_k2(ops, lg_t, u_t)
+    got = ops.inv_cdf_sample(lg_t, u_t).cpu().numpy()
+    assert got[0] == K - 1 and got[1] == K // 3
+    assert (got[2:] >= 1).all() and (got[2:] <= K - 2).all()
+    # u = 0: the threshold is the total, so the last live entry
+    assert got[2] == K - 2 and got[4] == K - 2
+    # u = 1 - 2^-24: the threshold is 2^-24 of the total, so an early entry
+    assert got[3] < K // 2 and got[5] < K // 2
+
+
+def _k3_inputs(card, rng, B, K, Vs):
     mats = [torch.as_tensor(rng.normal(size=(v, v)).astype(np.float32),
                             device=card) for v in Vs]
-    obs = torch.as_tensor(np.stack([rng.integers(0, v, 513) for v in Vs], 1)
+    obs = torch.as_tensor(np.stack([rng.integers(0, v, B) for v in Vs], 1)
                           .astype(np.int32), device=card)
-    word = torch.as_tensor(np.stack([rng.integers(0, v, 1000) for v in Vs])
+    word = torch.as_tensor(np.stack([rng.integers(0, v, K) for v in Vs])
                            .astype(np.int32), device=card)
-    a = ops.obs_gather_sum(mats, obs, word)
-    b = ops.obs_gather_sum_plain(mats, obs, word)
-    torch.cuda.synchronize()
-    assert torch.equal(a, b)
+    return mats, obs, word
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,K,Vs", [
+    (1, MAIN_K, MAIN_V),         # the sequential shape: direct
+    (4096, MAIN_K, MAIN_V),      # the batch shape: staged, 2 rows a block
+    (4097, MAIN_K, MAIN_V),      # a last row tile of one row
+    (200, MAIN_K, MAIN_V),       # candidate axis cut into tiles
+    (256, 1000, [7300] * 8),     # a row too long to stage: direct
+    (4096, 1000, [138]),         # C = 1
+    (4096, 1000, [20000]),       # one staged row a block
+    (4096, 1001, [300, 120, 40]),  # K not a multiple of 4: scalar stores
+    (4096, 1000, [90, 80, 70, 60, 50, 40, 30, 20, 10]),  # C = 9: two groups
+    (5, 1000, [90, 80, 70, 60, 50, 40, 30, 20, 10]),     # the same, direct
+    # C = 17: three groups, each adding into the output in column order
+    (4096, 1000, list(range(10, 180, 10))),
+    (5, 1000, list(range(10, 180, 10))),
+])
+def test_k3_cuda_bit_equal(card, B, K, Vs):
+    from pclean_tpu_torch.kernel_bench import check_k3
+
+    rng = np.random.default_rng(7)
+    mats, obs, word = _k3_inputs(card, rng, B, K, Vs)
+    obs[0, 0] = -3      # codes out of range clamp like the JAX gathers
+    word[-1, 0] = Vs[-1] + 5
+    check_k3(ops, mats, obs, word)
