@@ -27,10 +27,11 @@ It drives the port only (never jax, never pclean_tpu), in order:
      batch shape, B = 4096 rows, and the sequential loops' one row), on
      seeded inputs (pclean_tpu_torch/kernel_bench.py): its error against
      its plain PyTorch version on the card (with the tolerance stated
-     below), kernel / plain / library ms (device time: median over replays
-     of a CUDA graph of many calls), the kernel's time for one call with
-     its host side (CUDA events around it), the bytes bound on an H100
-     (3.35 TB/s) and, for K2 and K3, the launch plan;
+     below), kernel / plain / library ms (median of CUDA events around one
+     call, host side included where it is longer), the kernel's device time
+     per call (`device_ms`: median over replays of a CUDA graph of many
+     calls), the bytes bound on an H100 (3.35 TB/s) and, for K2 and K3,
+     the launch plan;
   6. prints the `kernels` JSON line, then the card line, then the result.
 
 Tolerances: K1 record bit-equal, logZ rtol 1e-6 (the same f32 formula
@@ -107,16 +108,13 @@ def bench_kernels(ops, cm, dev):
                               f"{[m.shape[0] for m in inp['mats']]}",
         }
         plans = {
-            "inv_cdf_sample": ops.inv_cdf_plan(B, K + 1),
+            "inv_cdf_sample": ops.inv_cdf_plan(K + 1),
             "obs_gather_sum": ops.obs_gather_plan(
                 B, K, [m.shape[0] for m in inp["mats"]]),
         }
         for name, k in out.items():
-            k["ms" + shape] = times[name]["ms"]
-            k["plain_ms" + shape] = times[name]["plain_ms"]
-            k["library_ms" + shape] = times[name]["library_ms"]
-            if "call_ms" in times[name]:
-                k["call_ms" + shape] = times[name]["call_ms"]
+            for key in ("ms", "device_ms", "plain_ms", "library_ms"):
+                k[key + shape] = times[name][key]
             k["max_abs_err" + shape] = errs[name]
             k["bytes" + shape] = nbytes[name]
             k["bound_ms" + shape] = nbytes[name] / kb.HBM_BYTES_PER_S * 1e3
@@ -268,10 +266,10 @@ def main() -> int:
         for sh in ("", "_r1"):
             print(f"{k['name']}: {k['shape' + sh]}: max_abs_err "
                   f"{k['max_abs_err' + sh]:.3g} kernel {k['ms' + sh]:.4f} ms"
-                  f" plain {k['plain_ms' + sh]:.4f} ms library "
+                  f" (device {k['device_ms' + sh]:.4f} ms) plain "
+                  f"{k['plain_ms' + sh]:.4f} ms library "
                   f"{k['library_ms' + sh]} ms bound {k['bound_ms' + sh]:.4f}"
-                  f" ms ({k['bound_by']}) one call with its host side "
-                  f"{k.get('call_ms' + sh)} ms plan {k.get('plan' + sh)}",
+                  f" ms ({k['bound_by']}) plan {k.get('plan' + sh)}",
                   flush=True)
     for k in kernels:
         k["launches"] = launches[k["name"]]
@@ -287,9 +285,9 @@ def main() -> int:
         with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
             json.dump(report, f, indent=1, default=str)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "launches_r1", "ms_r1", "plain_ms_r1", "bound_ms_r1",
-            "library_ms_r1")
+            "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "launches_r1", "ms_r1", "device_ms_r1",
+            "plain_ms_r1", "bound_ms_r1", "library_ms_r1")
     print(json.dumps({"kernels": [{k: kk[k] for k in keys}
                                   for kk in kernels]}))
     print(card)

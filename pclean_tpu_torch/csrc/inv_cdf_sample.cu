@@ -213,22 +213,26 @@ inv_cdf_sample_kernel(const float* __restrict__ logits,
 }  // namespace
 
 // logits [R, K] f32, u [R] f32 in [0, 1), idx [R] int32; contiguous.
-// The plan (ops.inv_cdf_plan): tile >= K reads the row once into
-// shared memory (smem = (K + 4) * 4 bytes); a shorter tile, a multiple of
-// 4, streams the row (smem = (tile + 4) * 4). Returns cudaErrorInvalidValue
-// for a plan it does not take, else cudaGetLastError() after the launch.
+// One block a row. The plan (ops.inv_cdf_plan): tile >= K reads the row
+// once into shared memory (smem = (K + 4) * 4 bytes); a shorter tile, a
+// multiple of 4, streams the row (smem = (tile + 4) * 4). Returns
+// cudaErrorInvalidValue for a plan it does not take, the error of raising
+// the shared-memory limit where the card refuses smem, else
+// cudaGetLastError() after the launch.
 extern "C" int pclean_inv_cdf_sample(const float* logits, const float* u,
                                      int32_t* idx, int64_t R, int64_t K,
                                      int64_t tile, int smem, void* stream) {
   const int64_t held = tile < K ? tile : K;
   if (K < 1 || K > (1ll << 21) || tile < 4 || (tile < K && tile % 4 != 0) ||
-      (int64_t)smem != (held + 4) * 4 || smem > 232448 - 1024)
+      (int64_t)smem != (held + 4) * 4)
     return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
+  static int smem_limit = 48 * 1024;  // a property of the function
+  if (smem > smem_limit) {
     const cudaError_t e = cudaFuncSetAttribute(
         inv_cdf_sample_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        232448 - 1024);
+        smem);
     if (e != cudaSuccess) return (int)e;
+    smem_limit = smem;
   }
   if (R > 0) {
     inv_cdf_sample_kernel<<<(unsigned)R, kThreads, smem,

@@ -13,27 +13,27 @@
 // the rows the batch observes are needed: (B*K*4 + C*K*4 + B*C*4 +
 // sum_c distinct(obs[:, c]) * V_c * 4) / 3.35e12 s.
 //
-// Two paths in one source; ops.obs_gather_plan picks one and its tile
-// sizes from (B, K, [V_c]) and passes them to the entry point.
+// Two paths in one source; ops.obs_gather_plan picks one, its candidate
+// tile and its grid from (B, K, [V_c]) and passes them to the entry point,
+// which launches that grid.
 //
-// Staged path (batches): a block owns RB rows and a range of kt candidates.
-// It first copies its rows' observed M rows, M_c[obs[b, c], :] for every
+// Staged path (batches): a block owns one row and a range of kt candidates.
+// It first copies the row's observed M rows, M_c[obs[b, c], :] for every
 // column, into shared memory (cp.async, neighbouring threads on
 // neighbouring addresses; the rows of an odd V are not 16-byte aligned, so
 // the copies are 4 bytes a thread), then walks its candidates four to a
-// thread: each column's word codes are read once per block as one int4, the
-// RB x 4 accumulators live in registers, every M entry is a shared-memory
-// read, and each row's four sums go out as one float4. The scattered
-// device-memory gathers of the direct path (one 32-byte sector per 4-byte
-// entry) become one coalesced read of each observed row per block, and the
-// word codes are read once per RB rows instead of once per row. RB is 1
-// or 2, the plan's: four 512-thread blocks share an SM (registers capped at
-// 32 a thread by the launch bounds, and the plan's staged rows fit four
-// blocks' shared memory where they can), so one block's copies overlap
-// the others' arithmetic. On an H100 at the scaled workload's V that took
-// 11% less time than an 8-row tile that fills 227 KB alone (PERF.md). Staged rows up
-// to 227 KB are taken, one block an SM at that size; above 48 KB the
-// launch raises the kernel's dynamic shared-memory limit first.
+// thread: each column's word codes are read as one int4, the 4
+// accumulators live in registers, every M entry is a shared-memory read,
+// and the four sums go out as one float4. The scattered device-memory
+// gathers of the direct path (one 32-byte sector per 4-byte entry) become
+// one coalesced read of each observed row per block. Four 512-thread
+// blocks share an SM (registers capped at 32 a thread by the launch
+// bounds), so one block's copies overlap the others' arithmetic; on an
+// H100 at the scaled workload's V that beat tiles of 2, 4 and 8 rows a
+// block that reuse each word code across rows (PERF.md). Staged rows up to
+// the card's per-block shared memory are taken (the plan bounds them);
+// above 48 KB the launch raises the kernel's dynamic shared-memory limit
+// first.
 //
 // Direct path (one or a few rows, or rows too long to stage): a block owns
 // 256 consecutive candidates and 4 rows; each thread keeps its candidate's
@@ -57,7 +57,7 @@ constexpr int kStagedThreads = 512;
 constexpr int kStagedBlocksPerSM = 4;  // 2,048 threads: <= 32 registers each
 constexpr int kDirectThreads = 256;
 constexpr int kDirectRows = 4;
-constexpr int kMaxSmem = 232448;  // the H100's per-block shared-memory limit
+constexpr int kDefaultSmem = 48 * 1024;  // dynamic shared memory without opt-in
 
 struct Mats {
   const float* M[kMaxCols];
@@ -80,31 +80,25 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
                "l"(src));
 }
 
-template <int RB>
 __global__ void __launch_bounds__(kStagedThreads, kStagedBlocksPerSM)
 obs_gather_staged(const StagedMats mats, const int32_t* __restrict__ obs,
                   const int32_t* __restrict__ word, float* __restrict__ out,
-                  int64_t B, int64_t K, int C, int row_floats, int64_t kt,
-                  int accumulate, int vec) {
+                  int64_t B, int64_t K, int C, int64_t kt, int accumulate,
+                  int vec) {
   extern __shared__ float4 staged4[];
-  float* staged = reinterpret_cast<float*>(staged4);  // [RB][row_floats]
+  float* staged = reinterpret_cast<float*>(staged4);  // one row of sum(V_c)
   const int tid = threadIdx.x;
-  const int64_t b0 = (int64_t)blockIdx.x * RB;
+  const int64_t b = blockIdx.x;
+  if (b >= B) return;
 
-#pragma unroll 1
-  for (int r = 0; r < RB; ++r) {
-    const int64_t b = b0 + r;
-    if (b >= B) break;
 #pragma unroll
-    for (int c = 0; c < kMaxCols; ++c) {
-      if (c < C) {
-        const int32_t V = mats.V[c];
-        const int32_t o = clamp_code(obs[b * C + c], V);
-        const float* src = mats.M[c] + (int64_t)o * V;
-        float* dst = staged + r * row_floats + mats.off[c];
-        for (int i = tid; i < V; i += kStagedThreads)
-          cp_async4(dst + i, src + i);
-      }
+  for (int c = 0; c < kMaxCols; ++c) {
+    if (c < C) {
+      const int32_t V = mats.V[c];
+      const int32_t o = clamp_code(obs[b * C + c], V);
+      const float* src = mats.M[c] + (int64_t)o * V;
+      float* dst = staged + mats.off[c];
+      for (int i = tid; i < V; i += kStagedThreads) cp_async4(dst + i, src + i);
     }
   }
   asm volatile("cp.async.wait_all;\n" ::: "memory");
@@ -112,17 +106,12 @@ obs_gather_staged(const StagedMats mats, const int32_t* __restrict__ obs,
 
   const int64_t k_lo = (int64_t)blockIdx.y * kt;
   const int64_t k_hi = k_lo + kt < K ? k_lo + kt : K;
+  float* row = out + b * K;
   for (int64_t k = k_lo + 4 * tid; k < k_hi; k += 4 * kStagedThreads) {
-    float acc[RB][4];
+    float acc[4];
 #pragma unroll
-    for (int r = 0; r < RB; ++r) {
-      const int64_t b = b0 + r;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        acc[r][j] = (accumulate && b < B && k + j < k_hi)
-                        ? out[b * K + k + j] : 0.0f;
-      }
-    }
+    for (int j = 0; j < 4; ++j)
+      acc[j] = (accumulate && k + j < k_hi) ? row[k + j] : 0.0f;
 #pragma unroll
     for (int c = 0; c < kMaxCols; ++c) {
       if (c < C) {
@@ -137,28 +126,18 @@ obs_gather_staged(const StagedMats mats, const int32_t* __restrict__ obs,
           for (int j = 0; j < 4; ++j)
             w[j] = k + j < k_hi ? word[(int64_t)c * K + k + j] : 0;
         }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) w[j] = clamp_code(w[j], V);
         const float* sc = staged + mats.off[c];
 #pragma unroll
-        for (int r = 0; r < RB; ++r) {
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[r][j] += sc[r * row_floats + w[j]];
-        }
+        for (int j = 0; j < 4; ++j) acc[j] += sc[clamp_code(w[j], V)];
       }
     }
+    if (vec) {
+      *reinterpret_cast<float4*>(row + k) =
+          make_float4(acc[0], acc[1], acc[2], acc[3]);
+    } else {
 #pragma unroll
-    for (int r = 0; r < RB; ++r) {
-      const int64_t b = b0 + r;
-      if (b >= B) break;
-      if (vec) {
-        *reinterpret_cast<float4*>(out + b * K + k) =
-            make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
-      } else {
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          if (k + j < k_hi) out[b * K + k + j] = acc[r][j];
-      }
+      for (int j = 0; j < 4; ++j)
+        if (k + j < k_hi) row[k + j] = acc[j];
     }
   }
 }
@@ -192,57 +171,38 @@ obs_gather_direct(const Mats mats, const int32_t* __restrict__ obs,
   }
 }
 
-template <int RB>
-int launch_staged(const StagedMats& m, const int32_t* obs, const int32_t* word,
-                  float* out, int64_t B, int64_t K, int C, int row_floats,
-                  int64_t kt, int accumulate, int vec, int smem,
-                  cudaStream_t stream) {
-  static bool raised = false;  // the limit is a property of the function
-  if (!raised) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        obs_gather_staged<RB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kMaxSmem);
-    if (e != cudaSuccess) return (int)e;
-    raised = true;
-  }
-  const dim3 grid((unsigned)((B + RB - 1) / RB),
-                  (unsigned)((K + kt - 1) / kt));
-  obs_gather_staged<RB><<<grid, kStagedThreads, smem, stream>>>(
-      m, obs, word, out, B, K, C, row_floats, kt, accumulate, vec);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 // mats [C] host array of device pointers to f32 [V_c, V_c] matrices, vsize
 // [C] host int32 array; obs [B, C] int32, word [C, K] int32, out [B, K] f32
 // on the device, contiguous; 1 <= C <= 8. accumulate: add into `out`
-// instead of starting from 0. The plan (ops.obs_gather_plan): path 0 =
-// direct (rb 4, kt 256, smem 0), path 1 = staged (rb in {1, 2}, kt a
-// multiple of 4, smem = rb * sum(V_c) * 4 <= 232448). The direct grid is
-// (candidate tiles, row groups), the staged grid (row groups, candidate
-// tiles). Returns
-// cudaErrorInvalidValue for a plan it does not take, else
-// cudaGetLastError() after the launch.
+// instead of starting from 0. The plan (ops.obs_gather_plan) is launched as
+// given: path 0 = direct (kt 256, smem 0, grid (candidate tiles of 256,
+// row groups of 4)), path 1 = staged (kt a multiple of 4, smem =
+// sum(V_c) * 4, grid (B rows, candidate tiles of kt)). Returns
+// cudaErrorInvalidValue for a plan that does not cover [B, K] with these
+// tiles, the error of raising the shared-memory limit where the card
+// refuses smem, else cudaGetLastError() after the launch.
 extern "C" int pclean_obs_gather_sum(const int64_t* mats,
                                      const int32_t* vsize,
                                      const int32_t* obs, const int32_t* word,
                                      float* out, int64_t B, int64_t K, int C,
-                                     int accumulate, int path, int rb,
-                                     int64_t kt, int smem, void* stream) {
+                                     int accumulate, int path, int64_t kt,
+                                     int smem, int64_t grid_x, int64_t grid_y,
+                                     void* stream) {
   if (C < 1 || C > kMaxCols) return (int)cudaErrorInvalidValue;
   if (B <= 0 || K <= 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
+  const dim3 grid((unsigned)grid_x, (unsigned)grid_y);
   if (path == 0) {
-    if (rb != kDirectRows || kt != kDirectThreads || smem != 0)
+    if (kt != kDirectThreads || smem != 0 || grid_x * kt < K ||
+        grid_y * kDirectRows < B)
       return (int)cudaErrorInvalidValue;
     Mats m = {};
     for (int c = 0; c < C; ++c) {
       m.M[c] = reinterpret_cast<const float*>(mats[c]);
       m.V[c] = vsize[c];
     }
-    const dim3 grid((unsigned)((K + kDirectThreads - 1) / kDirectThreads),
-                    (unsigned)((B + kDirectRows - 1) / kDirectRows));
     if (accumulate)
       obs_gather_direct<true><<<grid, kDirectThreads, 0, s>>>(m, obs, word,
                                                               out, B, K, C);
@@ -252,24 +212,27 @@ extern "C" int pclean_obs_gather_sum(const int64_t* mats,
     return (int)cudaGetLastError();
   }
   StagedMats m = {};
-  int row_floats = 0;
+  int64_t row_floats = 0;
   for (int c = 0; c < C; ++c) {
     m.M[c] = reinterpret_cast<const float*>(mats[c]);
     m.V[c] = vsize[c];
-    m.off[c] = row_floats;
+    m.off[c] = (int32_t)row_floats;
     row_floats += vsize[c];
   }
-  if (path != 1 || kt <= 0 || kt % 4 != 0 ||
-      (int64_t)smem != (int64_t)rb * row_floats * 4 || smem > kMaxSmem)
+  if (path != 1 || kt <= 0 || kt % 4 != 0 || (int64_t)smem != row_floats * 4
+      || grid_x < B || grid_y * kt < K)
     return (int)cudaErrorInvalidValue;
+  static int smem_limit = kDefaultSmem;  // a property of the function
+  if (smem > smem_limit) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        obs_gather_staged, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    smem_limit = smem;
+  }
   const int vec = K % 4 == 0 &&
                   reinterpret_cast<uintptr_t>(word) % 16 == 0 &&
                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  switch (rb) {
-    case 1: return launch_staged<1>(m, obs, word, out, B, K, C, row_floats,
-                                    kt, accumulate, vec, smem, s);
-    case 2: return launch_staged<2>(m, obs, word, out, B, K, C, row_floats,
-                                    kt, accumulate, vec, smem, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  obs_gather_staged<<<grid, kStagedThreads, smem, s>>>(
+      m, obs, word, out, B, K, C, kt, accumulate, vec);
+  return (int)cudaGetLastError();
 }

@@ -10,9 +10,15 @@ one card, in turns, on the same inputs:
         --turns 0,1,1,0 --out DIR
 
 (each tree a directory holding a `pclean_tpu_torch/`; the model is built
-once by this checkout's package; DIR/kernel_ab.json gets every turn). It
-then times this checkout's K3 staged path under each row tile
-(k3_row_tile_sweep).
+once by this checkout's package; DIR/kernel_ab.json gets every turn). Its
+shapes are those two and two more batches the main path also launches:
+66 rows, the fewest that K3's plan stages, and 1,024, the chunk of the
+batched birth-allocation replay.
+
+Two times are kept for each kernel: `ms`, CUDA events around one call
+(median), which also counts the host's time for the call where it exceeds
+the device's, and `device_ms`, the device time per call from a CUDA graph
+of many calls.
 """
 from __future__ import annotations
 
@@ -198,21 +204,20 @@ def kernel_bytes(inp: dict) -> dict:
 
 def time_kernels(ops, inp: dict, plain: bool = True,
                  library: bool = True) -> dict:
-    """{kernel: {ms, plain_ms, library_ms}} on these inputs. Library calls:
+    """{kernel: {ms, device_ms, plain_ms, library_ms}} on these inputs.
+    ms, plain_ms and library_ms are CUDA events around one call (cuda_ms);
+    device_ms is the kernel's device time (graph_ms). Library calls:
     torch.logsumexp for K1, none for K2, and for K3 the JAX package's
-    one-hot contraction as one matmul (a yardstick the port never calls).
-    Every time is a device time from a CUDA graph (graph_ms); `call_ms`
-    adds the kernel's time for one call with its host side (CUDA events
-    around it)."""
+    one-hot contraction as one matmul (a yardstick the port never calls)."""
     exist, new, lg, u = inp["exist"], inp["new"], inp["logits"], inp["u"]
     mats, obs, word = inp["mats"], inp["obs"], inp["word"]
-    timer = graph_ms
+    timer = cuda_ms
     calls = {
         "enum_logsumexp": lambda: ops.enum_logsumexp(exist, new),
         "inv_cdf_sample": lambda: ops.inv_cdf_sample(lg, u),
         "obs_gather_sum": lambda: ops.obs_gather_sum(mats, obs, word),
     }
-    res = {k: dict(ms=timer(fn), call_ms=cuda_ms(fn))
+    res = {k: dict(ms=timer(fn), device_ms=graph_ms(fn))
            for k, fn in calls.items()}
     if plain:
         res["enum_logsumexp"]["plain_ms"] = timer(
@@ -231,44 +236,6 @@ def time_kernels(ops, inp: dict, plain: bool = True,
         res["inv_cdf_sample"]["library_ms"] = None
         res["obs_gather_sum"]["library_ms"] = timer(lambda: oh @ T)
         del oh, T
-    return res
-
-
-def k3_row_tile_sweep(ops, inp: dict) -> dict:
-    """K3's staged path at these inputs under each row tile rb the kernel
-    takes (ops.obs_gather_plan gives 2 at the scaled workload's V), one
-    launch of the library per call with one candidate tile:
-    {rb: device ms}. Each result is checked bit-equal first. A measurement
-    of the plan's choice, not a route the port takes."""
-    import ctypes
-
-    mats, obs, word = inp["mats"], inp["obs"], inp["word"]
-    B, C = obs.shape
-    K = word.shape[1]
-    Vs = [m.shape[0] for m in mats]
-    ref = ops.obs_gather_sum_plain(mats, obs, word)
-    fn = ops._fn("obs_gather_sum")
-    ptrs = (ctypes.c_int64 * C)(*[m.data_ptr() for m in mats])
-    sizes = (ctypes.c_int32 * C)(*Vs)
-    out = torch.empty_like(ref)
-    res = {}
-    for rb in (1, 2):
-        smem = rb * 4 * sum(Vs)
-        if smem > ops.SMEM_MAX:
-            continue
-
-        def run():
-            stream = torch.cuda.current_stream().cuda_stream  # the capture's
-            rc = fn(ptrs, sizes, ctypes.c_void_p(obs.data_ptr()),
-                    ctypes.c_void_p(word.data_ptr()),
-                    ctypes.c_void_p(out.data_ptr()), B, K, C, 0, 1, rb, K,
-                    smem, ctypes.c_void_p(stream))
-            require(rc == 0, f"K3 launch with rb {rb} failed: {rc}")
-        out.fill_(float("nan"))
-        run()
-        torch.cuda.synchronize()
-        require(torch.equal(out, ref), f"K3 with rb {rb} differs")
-        res[rb] = graph_ms(run)
     return res
 
 
@@ -306,7 +273,9 @@ def main(argv=None) -> int:
     # rows, batch_rows 4096
     cm = scaled.setup(rows=100_000, batch=4096, device="cuda")[0]
     shapes = {"batch": main_path_inputs(cm, dev, 4096),
-              "r1": main_path_inputs(cm, dev, 1)}
+              "r1": main_path_inputs(cm, dev, 1),
+              "b66": main_path_inputs(cm, dev, 66),
+              "b1024": main_path_inputs(cm, dev, 1024)}
     bounds = {s: {k: v / HBM_BYTES_PER_S * 1e3
                   for k, v in kernel_bytes(inp).items()}
               for s, inp in shapes.items()}
@@ -328,24 +297,21 @@ def main(argv=None) -> int:
             for k in KERNELS:
                 rows = [r for r in turns if r["tree"] == tree
                         and r["shape"] == s and r["kernel"] == k]
-                ms = [r["ms"] for r in rows]
+                dev_ms = [r["device_ms"] for r in rows]
                 summary[f"{tree} {s} {k}"] = dict(
-                    ms=ms, call_ms=[r.get("call_ms") for r in rows],
+                    ms=[r["ms"] for r in rows], device_ms=dev_ms,
                     bound_ms=bounds[s][k],
-                    share_of_bound=bounds[s][k] / float(np.median(ms)))
+                    share_of_bound=bounds[s][k] / float(np.median(dev_ms)))
     for key, v in summary.items():
-        print(f"{key}: ms {['%.4f' % x for x in v['ms']]} bound "
-              f"{v['bound_ms']:.5f} ms share {v['share_of_bound']:.3f}"
-              f" call_ms {v['call_ms']}")
-    from . import ops as own_ops
-
-    sweep = [k3_row_tile_sweep(own_ops, shapes["batch"]) for _ in range(2)]
-    print(f"K3 staged, ms by row tile (two sweeps): {sweep}")
+        print(f"{key}: ms {['%.4f' % x for x in v['ms']]} device_ms "
+              f"{['%.4f' % x for x in v['device_ms']]} bound "
+              f"{v['bound_ms']:.5f} ms share of bound (device) "
+              f"{v['share_of_bound']:.3f}")
     if a.out:
         os.makedirs(a.out, exist_ok=True)
         with open(os.path.join(a.out, "kernel_ab.json"), "w") as f:
             json.dump(dict(card=torch.cuda.get_device_name(0), turns=turns,
-                           summary=summary, k3_row_tiles=sweep), f, indent=1)
+                           summary=summary), f, indent=1)
     return 0
 
 

@@ -17,9 +17,10 @@ only for tensors on the CPU; for CUDA tensors it launches its kernel or
 raises. `LAUNCHES` counts kernel launches (plain calls are not counted);
 `LAUNCHES_BY_SHAPE` splits the same launches into those over one row
 ("r1", the sequential loops) and over more ("rn", the batched phases).
-K2 and K3 each take a launch plan (path and tile sizes) from a function of
-their shapes alone, `inv_cdf_plan` and `obs_gather_plan`, which the CPU
-tests check.
+K2 and K3 each take a launch plan (path, tile sizes, shared memory and,
+for K3, the grid) from a function of their shapes alone, `inv_cdf_plan`
+and `obs_gather_plan`; the C entry points launch the plan they are given,
+so the plan the CPU tests check is the one launched.
 
 Build: one `nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared` per
 source, all started together, into pclean_tpu_torch/_build/ (listed in
@@ -50,10 +51,8 @@ _SOURCES = {
 }
 LAUNCHES = {name: 0 for name in _SOURCES}
 LAUNCHES_BY_SHAPE = {name: {"r1": 0, "rn": 0} for name in _SOURCES}
-SMEM_MAX = 232448     # shared memory one block may use on an H100 (227 KB)
-SMEM_PER_SM = 233472  # shared memory of one SM (228 KB)
-SMEM_RESERVED = 1024  # what the card keeps of it for each resident block
-N_SMS = 132           # streaming multiprocessors of an H100 SXM
+SMEM_MAX = 232448  # shared memory one block may use on an H100 (227 KB)
+N_SMS = 132        # streaming multiprocessors of an H100 SXM
 _lock = threading.Lock()
 _libs: dict = {}
 BUILD_LOG: dict = {}
@@ -139,7 +138,7 @@ def build_kernels(force: bool = False) -> float:
                 I32 = ctypes.c_int
                 fn.argtypes = [ctypes.POINTER(I64),
                                ctypes.POINTER(ctypes.c_int32), P, P, P, I64,
-                               I64, I32, I32, I32, I32, I64, I32, P]
+                               I64, I32, I32, I32, I64, I32, I64, I64, P]
             _libs[name] = fn
         return time.time() - t0
 
@@ -234,25 +233,24 @@ _K2_STREAM_TILE = 16384  # floats per tile for rows that do not fit
 _K2_STATIC_SMEM = 1024   # room left for the kernel's static shared memory
 
 
-def inv_cdf_plan(R: int, K: int) -> dict:
-    """K2's launch: one 512-thread block per row. A row of K floats that
-    fits in shared memory (with 4 floats to align it and room for the
-    kernel's own scan buffers) is read once ("smem", tile = K); a longer one
-    streams through a 64 KB tile ("stream"). smem is the dynamic shared
-    memory in bytes."""
-    return dict(_inv_cdf_plan(int(R), int(K)))
+def inv_cdf_plan(K: int) -> dict:
+    """K2's launch, one 512-thread block per row: dict(path, tile, smem). A
+    row of K floats that fits in shared memory (with 4 floats to align it
+    and room for the kernel's own scan buffers) is read once ("smem", tile
+    = K); a longer one streams through a 64 KB tile ("stream"). smem is the
+    dynamic shared memory in bytes."""
+    return dict(_inv_cdf_plan(int(K)))
 
 
 @functools.lru_cache(maxsize=256)
-def _inv_cdf_plan(R: int, K: int) -> dict:
+def _inv_cdf_plan(K: int) -> dict:
     if K < 1 or K > _K2_MAX_K:
         raise ValueError(f"inv_cdf_sample: K must lie in [1, {_K2_MAX_K}]")
     if (K + 4) * 4 <= SMEM_MAX - _K2_STATIC_SMEM:
         path, tile = "smem", K
     else:
         path, tile = "stream", _K2_STREAM_TILE
-    return dict(path=path, tile=tile, smem=(min(tile, K) + 4) * 4,
-                threads=512, grid=(R, 1))
+    return dict(path=path, tile=tile, smem=(min(tile, K) + 4) * 4)
 
 
 def inv_cdf_sample(logits: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
@@ -266,7 +264,7 @@ def inv_cdf_sample(logits: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     R, K = logits.shape
     if u.shape[0] != R:
         raise ValueError("inv_cdf_sample: one uniform per row")
-    plan = _inv_cdf_plan(R, K)
+    plan = _inv_cdf_plan(K)
     idx = torch.empty((R,), dtype=torch.int32, device=logits.device)
     rc = _fn("inv_cdf_sample")(_ptr(logits), _ptr(u), _ptr(idx), R, K,
                                plan["tile"], plan["smem"], _stream(logits))
@@ -279,7 +277,6 @@ def inv_cdf_sample(logits: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
 
 _MAX_COLS = 8
 _K3_STAGED_THREADS = 512
-_K3_BLOCKS_PER_SM = 4     # 512-thread blocks one SM holds (2,048 threads)
 _K3_DIRECT_ROWS = 4
 _K3_DIRECT_THREADS = 256  # candidates a direct block owns
 _GRID_Y_MAX = 65535
@@ -287,32 +284,28 @@ _GRID_Y_MAX = 65535
 
 def obs_gather_plan(B: int, K: int, Vs) -> dict:
     """K3's launch for B rows, K candidates and one group of <= 8 columns
-    of vocabulary sizes Vs. Returns dict(path, rb, kt, smem, threads, grid):
-    a block owns rb rows and kt candidates, grid = (row groups, candidate
-    tiles) for "staged", smem is its dynamic shared memory in bytes.
+    of vocabulary sizes Vs: dict(path, kt, smem, grid). A block owns kt
+    candidates; smem is its dynamic shared memory in bytes; the entry point
+    launches `grid` as given.
 
-    "staged" copies each block's observed M rows (sum(Vs) floats a row)
-    into shared memory. rb is 2 where two rows let four blocks share an
-    SM's shared memory (the most 512-thread blocks it holds; the kernel's
-    launch bounds fit their registers too), so one block's copies overlap
-    the others' arithmetic; else 1. Occupancy, not reuse of the word codes
-    across rows, is what paid on an H100 at the scaled workload's V: 1, 2,
-    4 and 8 rows a block took 0.119, 0.122, 0.128 and 0.137 ms
-    (kernel_bench.k3_row_tile_sweep, PERF.md). Staging is taken only where
-    it pays:
-      - one row fits at all;
-      - a staged row (4 * sum(Vs) bytes, read coalesced) costs no more than
-        the direct path's gathers for that row, one 32-byte sector per
-        candidate and column (32 * K * C bytes);
-      - there are enough rows for half of the SMs to get a full tile of rb
-        rows: with fewer, as in the sequential loops' one-row calls, the
-        direct path spreads the gathers over more blocks and has the
-        shorter dependent chain.
-    Where the row groups alone do not fill the SMs twice over, the candidate
-    axis is cut into tiles of at least one pass of the block (2,048
-    candidates), each block staging its rows again.
-    "direct" gathers straight from device memory: 4 rows and 256 candidates
-    a block, no shared memory, grid = (candidate tiles, row groups)."""
+    "staged": one row a block, grid = (B, candidate tiles). The block
+    copies its row's observed M rows (sum(Vs) floats) into shared memory.
+    Staging is taken only where it pays:
+      - the staged row fits at all;
+      - it costs no more than the direct path's gathers for that row, one
+        32-byte sector per candidate and column (32 * K * C bytes);
+      - there are rows enough for half of the SMs: with fewer, as in the
+        sequential loops' one-row calls, the direct path spreads the
+        gathers over more blocks and has the shorter dependent chain. On
+        an H100 at the scaled workload's V, 66 staged rows took 0.0056 ms
+        against 0.0124 ms for the direct design (PERF.md); below 66 rows
+        the crossing is not measured.
+    Where the rows alone do not fill the SMs twice over, the candidate axis
+    is cut into tiles of at least one pass of the block (2,048
+    candidates), each block staging its row again.
+    "direct": gathers straight from device memory, 4 rows and 256
+    candidates a block, no shared memory, grid = (candidate tiles, row
+    groups)."""
     return dict(_obs_gather_plan(int(B), int(K), tuple(int(v) for v in Vs)))
 
 
@@ -322,28 +315,20 @@ def _obs_gather_plan(B: int, K: int, Vs: tuple) -> dict:
     if not 1 <= C <= _MAX_COLS:
         raise ValueError(f"obs_gather_sum: 1 to {_MAX_COLS} columns a launch")
     row_bytes = 4 * sum(Vs)
-    share = SMEM_PER_SM // _K3_BLOCKS_PER_SM - SMEM_RESERVED
-    rb = 2 if 2 * row_bytes <= share else int(row_bytes <= SMEM_MAX)
-    staged = (rb >= 1 and row_bytes <= 32 * K * C
-              and B >= rb * (N_SMS // 2))
-    if staged:
-        groups = -(-B // rb)
-        step = 4 * _K3_STAGED_THREADS
-        tiles = max(1, min(-(-2 * N_SMS // groups), -(-K // step)))
+    if (row_bytes <= SMEM_MAX and row_bytes <= 32 * K * C
+            and B >= N_SMS // 2):
+        tiles = max(1, min(-(-2 * N_SMS // B),
+                           -(-K // (4 * _K3_STAGED_THREADS))))
         kt = -(-K // tiles)
         kt = -(-kt // 4) * 4
-        plan = dict(path="staged", rb=rb, kt=kt, smem=rb * row_bytes,
-                    threads=_K3_STAGED_THREADS,
-                    grid=(groups, -(-K // kt)))
-    else:
-        plan = dict(path="direct", rb=_K3_DIRECT_ROWS, kt=_K3_DIRECT_THREADS,
-                    smem=0, threads=_K3_DIRECT_THREADS,
-                    grid=(-(-K // _K3_DIRECT_THREADS),
-                          -(-B // _K3_DIRECT_ROWS)))
-    if plan["grid"][1] > _GRID_Y_MAX:
-        raise ValueError(f"obs_gather_sum: B = {B} rows and K = {K} "
-                         f"candidates exceed the grid")
-    return plan
+        return dict(path="staged", kt=kt, smem=row_bytes,
+                    grid=(B, -(-K // kt)))
+    groups = -(-B // _K3_DIRECT_ROWS)
+    if groups > _GRID_Y_MAX:
+        raise ValueError(f"obs_gather_sum: B = {B} rows exceed the direct "
+                         f"path's grid")
+    return dict(path="direct", kt=_K3_DIRECT_THREADS, smem=0,
+                grid=(-(-K // _K3_DIRECT_THREADS), groups))
 
 
 def obs_gather_sum_plain(mats, obs: torch.Tensor,
@@ -393,8 +378,8 @@ def obs_gather_sum(mats, obs: torch.Tensor, word: torch.Tensor) -> torch.Tensor:
         w = word[cs].contiguous()
         rc = _fn("obs_gather_sum")(
             ptrs, sizes, _ptr(o), _ptr(w), _ptr(out), B, K, n, int(c0 > 0),
-            0 if plan["path"] == "direct" else 1, plan["rb"], plan["kt"],
-            plan["smem"], _stream(obs))
+            0 if plan["path"] == "direct" else 1, plan["kt"], plan["smem"],
+            *plan["grid"], _stream(obs))
         _check(rc, "obs_gather_sum")
         _count("obs_gather_sum", B)
     return out

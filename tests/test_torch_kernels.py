@@ -121,12 +121,14 @@ MAIN_K = 11264              # its Hospital capacity
 @pytest.mark.parametrize("B,K,Vs,path", [
     (4096, MAIN_K, MAIN_V, "staged"),   # the batch shape
     (1, MAIN_K, MAIN_V, "direct"),      # the sequential loops' one row
-    (4097, MAIN_K, MAIN_V, "staged"),   # B not a multiple of the row tile
-    (200, MAIN_K, MAIN_V, "staged"),    # few row tiles: K cut into tiles
-    (64, MAIN_K, MAIN_V, "direct"),     # too few rows for staging to pay
-    (4096, MAIN_K, [7300] * 8, "direct"),  # one staged row > 227 KB
+    (4097, MAIN_K, MAIN_V, "staged"),   # B not a multiple of 4 (direct rows)
+    (200, MAIN_K, MAIN_V, "staged"),    # few rows: K cut into tiles
+    (66, MAIN_K, MAIN_V, "staged"),     # the fewest rows staged
+    (65, MAIN_K, MAIN_V, "direct"),     # too few rows for staging to pay
+    (4096, MAIN_K, [7300] * 8, "direct"),  # a staged row > 227 KB
     (4096, 16, [5125], "direct"),       # K too short for staging to pay
     (4096, 1001, [300, 120, 40], "staged"),  # K not a multiple of 4
+    (4097, 1001, [300, 120, 40], "staged"),  # nor B of anything
 ])
 def test_k3_plan_is_legal(B, K, Vs, path):
     plan = ops.obs_gather_plan(B, K, Vs)
@@ -134,19 +136,15 @@ def test_k3_plan_is_legal(B, K, Vs, path):
     gx, gy = plan["grid"]
     assert plan["smem"] <= ops.SMEM_MAX == 232448
     assert 1 <= gx < 2 ** 31 and 1 <= gy <= 65535
-    assert plan["threads"] <= 1024 and plan["threads"] % 32 == 0
     # the grid covers every row and candidate, with no block left empty
-    rows, cands = (gx, gy) if path == "staged" else (gy, gx)
-    assert rows * plan["rb"] >= B > (rows - 1) * plan["rb"]
-    assert cands * plan["kt"] >= K > (cands - 1) * plan["kt"]
     if path == "staged":
-        assert plan["rb"] in (1, 2) and plan["kt"] % 4 == 0
-        assert plan["smem"] == plan["rb"] * 4 * sum(Vs)
-        # 2 rows wherever 4 such blocks share an SM's shared memory
-        share = ops.SMEM_PER_SM // 4 - ops.SMEM_RESERVED
-        assert (plan["rb"] == 2) == (2 * 4 * sum(Vs) <= share)
+        rows, cands, per_block = gx, gy, 1
+        assert plan["kt"] % 4 == 0 and plan["smem"] == 4 * sum(Vs)
     else:
-        assert (plan["rb"], plan["kt"], plan["smem"]) == (4, 256, 0)
+        rows, cands, per_block = gy, gx, 4
+        assert (plan["kt"], plan["smem"]) == (256, 0)
+    assert rows * per_block >= B > (rows - 1) * per_block
+    assert cands * plan["kt"] >= K > (cands - 1) * plan["kt"]
 
 
 def test_k3_plan_refuses_a_grid_out_of_range():
@@ -156,37 +154,38 @@ def test_k3_plan_refuses_a_grid_out_of_range():
 
 
 def test_k3_plan_main_shape():
-    # 2 staged rows of 28,380 B: 56,760 B a block, so 4 blocks share an
-    # SM's 228 KB; one candidate tile, 2,048 row groups
+    # one staged row of 28,380 B a block (four blocks an SM), one candidate
+    # tile, one block a row
     plan = ops.obs_gather_plan(4096, MAIN_K, MAIN_V)
-    assert plan == dict(path="staged", rb=2, kt=MAIN_K, smem=56760,
-                        threads=512, grid=(2048, 1))
+    assert plan == dict(path="staged", kt=MAIN_K, smem=28380,
+                        grid=(4096, 1))
 
 
 def test_k3_plan_cuts_the_candidate_axis_for_few_rows():
     plan = ops.obs_gather_plan(200, MAIN_K, MAIN_V)
-    assert plan["grid"] == (100, 3) and plan["kt"] == 3756
+    assert plan["grid"] == (200, 2) and plan["kt"] == 5632
 
 
 def test_k3_plan_long_rows_take_one_row_a_block():
-    # 80,000 B rows: staged one to a block (two blocks an SM)
+    # 80,000 B rows still stage (two blocks an SM); one float more than a
+    # block holds does not
     plan = ops.obs_gather_plan(4096, MAIN_K, [20000])
-    assert (plan["path"], plan["rb"], plan["smem"]) == ("staged", 1, 80000)
+    assert (plan["path"], plan["smem"]) == ("staged", 80000)
+    assert ops.obs_gather_plan(4096, MAIN_K, [58112])["path"] == "staged"
+    assert ops.obs_gather_plan(4096, MAIN_K, [58113])["path"] == "direct"
 
 
-@pytest.mark.parametrize("R,K,path", [
-    (4096, MAIN_K + 1, "smem"),  # the batch shape: fk logits [B, K+1]
-    (1, MAIN_K + 1, "smem"),     # the sequential shape
-    (3, 1473, "smem"),           # County's axis, not a multiple of 4
-    (2, 57852, "smem"),          # the longest row that still fits
-    (2, 57853, "stream"),        # one entry more
-    (2, 70001, "stream"),        # longer than shared memory holds
+@pytest.mark.parametrize("K,path", [
+    (MAIN_K + 1, "smem"),  # the batch and sequential shapes: [R, K+1]
+    (1473, "smem"),        # County's axis, not a multiple of 4
+    (57852, "smem"),       # the longest row that still fits
+    (57853, "stream"),     # one entry more
+    (70001, "stream"),     # longer than shared memory holds
 ])
-def test_k2_plan_is_legal(R, K, path):
-    plan = ops.inv_cdf_plan(R, K)
+def test_k2_plan_is_legal(K, path):
+    plan = ops.inv_cdf_plan(K)
     assert plan["path"] == path
     assert plan["smem"] <= ops.SMEM_MAX - 1024  # static shared memory too
-    assert plan["grid"] == (R, 1) and plan["threads"] == 512
     if path == "smem":
         assert plan["tile"] == K and plan["smem"] == (K + 4) * 4
     else:
@@ -196,7 +195,7 @@ def test_k2_plan_is_legal(R, K, path):
 
 def test_k2_plan_rejects_rows_past_exact_totals():
     with pytest.raises(ValueError):
-        ops.inv_cdf_plan(1, (1 << 21) + 1)
+        ops.inv_cdf_plan((1 << 21) + 1)
 
 
 @pytest.fixture
@@ -283,12 +282,14 @@ def _k3_inputs(card, rng, B, K, Vs):
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,K,Vs", [
     (1, MAIN_K, MAIN_V),         # the sequential shape: direct
-    (4096, MAIN_K, MAIN_V),      # the batch shape: staged, 2 rows a block
-    (4097, MAIN_K, MAIN_V),      # a last row tile of one row
+    (4096, MAIN_K, MAIN_V),      # the batch shape: staged
+    (4097, MAIN_K, MAIN_V),      # B not a multiple of the direct row group
     (200, MAIN_K, MAIN_V),       # candidate axis cut into tiles
+    (66, MAIN_K, MAIN_V),        # the fewest rows staged
+    (65, MAIN_K, MAIN_V),        # the most rows gathered directly
     (256, 1000, [7300] * 8),     # a row too long to stage: direct
     (4096, 1000, [138]),         # C = 1
-    (4096, 1000, [20000]),       # one staged row a block
+    (4096, MAIN_K, [20000]),     # an 80,000 B staged row: raised limit
     (4096, 1001, [300, 120, 40]),  # K not a multiple of 4: scalar stores
     (4096, 1000, [90, 80, 70, 60, 50, 40, 30, 20, 10]),  # C = 9: two groups
     (5, 1000, [90, 80, 70, 60, 50, 40, 30, 20, 10]),     # the same, direct
