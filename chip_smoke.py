@@ -21,7 +21,8 @@ It drives the port only (never jax, never pclean_tpu), in order:
      source's 1,000,000 to 100,000 so the run fits its time limit; prints
      init s, sweep s, rows-cleaned/s, F1, precision, recall, arena
      occupancy, peak device memory and each kernel's launches on that run,
-     split into one-row (r1) and batched (rn) launches;
+     split into one-row (r1) and batched (rn) launches, and K1's and K2's
+     launch census by (mode, r1 or rn, row length K);
   5. after the main path (so that its peak memory is its own), for each
      kernel, at both shapes the main path launches it at (the
      batch shape, B = 4096 rows, and the sequential loops' one row), on
@@ -30,9 +31,14 @@ It drives the port only (never jax, never pclean_tpu), in order:
      below), kernel / plain / library ms (median of CUDA events around one
      call, host side included where it is longer), the kernel's device time
      per call (`device_ms`: median over replays of a CUDA graph of many
-     calls), the bytes bound on an H100 (3.35 TB/s) and, for K2 and K3,
-     the launch plan;
-  6. prints the `kernels` JSON line, then the card line, then the result.
+     calls), the bytes bound on an H100 (3.35 TB/s) and the launch plan;
+  6. K1, and K2 on K1's record, at the batch shape and at every one-row
+     shape that holds >= 5% of K1's launches in the census, in the mode the
+     main path used there (K1 also checked in the other mode): error,
+     plan, device and events ms, bound, the launch floor (device time of
+     one PyTorch op on one element) and torch.logsumexp's device time, the
+     two yardsticks a one-row time is read against;
+  7. prints the `kernels` JSON line, then the card line, then the result.
 
 Tolerances: K1 record bit-equal, logZ rtol 1e-6 (the same f32 formula
 summed in another order); K2 indices equal on all but <= 1e-2 of rows (at
@@ -108,6 +114,7 @@ def bench_kernels(ops, cm, dev):
                               f"{[m.shape[0] for m in inp['mats']]}",
         }
         plans = {
+            "enum_logsumexp": ops.enum_logsumexp_plan(B, K, "fk"),
             "inv_cdf_sample": ops.inv_cdf_plan(K + 1),
             "obs_gather_sum": ops.obs_gather_plan(
                 B, K, [m.shape[0] for m in inp["mats"]]),
@@ -119,13 +126,69 @@ def bench_kernels(ops, cm, dev):
             k["bytes" + shape] = nbytes[name]
             k["bound_ms" + shape] = nbytes[name] / kb.HBM_BYTES_PER_S * 1e3
             k["shape" + shape] = shapes[name]
-            if name in plans:
-                k["plan" + shape] = plans[name]
+            k["plan" + shape] = plans[name]
         out["inv_cdf_sample"]["mismatch_rate" + shape] = k2["mismatch_rate"]
         out["inv_cdf_sample"]["boundary_gap" + shape] = k2["boundary_gap"]
         del inp, times
         torch.cuda.empty_cache()
     return list(out.values())
+
+
+def bench_k1_shapes(ops, cm, dev, census) -> dict:
+    """K1, and K2 on K1's record, at the batch shape (B = batch_rows, fk
+    mode over the Hospital axis) and at every one-row shape holding >= 5%
+    of K1's launches in `census` (ops.census() of the main path), in the
+    main path's mode there: checked in both modes (record bit-equal, logZ
+    rtol 1e-6; K2 as in bench_kernels), then timed. Returns {kernel: [one
+    dict per shape]}, with each shape's launches from the census."""
+    from pclean_tpu_torch import kernel_bench as kb
+
+    count = {(r["kernel"], r["mode"], r["rows"], r["K"]): r["launches"]
+             for r in census}
+    picks = [(BATCH, "fk", cm.layouts["Hospital"].capacity)]
+    picks += [(1, r["mode"], r["K"]) for r in census
+              if r["kernel"] == "enum_logsumexp" and r["rows"] == "r1"
+              and r["share"] >= 0.05]
+    floor = kb.launch_floor_ms()
+    out = {"enum_logsumexp": [], "inv_cdf_sample": []}
+    for R, mode, K in picks:
+        inp = kb.k1_inputs(dev, R, K, mode)
+        other = kb.k1_inputs(dev, R, K, "choice" if mode == "fk" else "fk",
+                             seed=1)
+        err = kb.check_k1(ops, inp["exist"], inp["new"])
+        err_other = kb.check_k1(ops, other["exist"], other["new"])
+        k2 = kb.check_k2(ops, inp["logits"], inp["u"])
+        t = kb.time_k1(ops, inp)
+        rows = "r1" if R == 1 else "rn"
+        bound = kb.k1_bytes(R, K, mode) / kb.HBM_BYTES_PER_S * 1e3
+        K2 = inp["logits"].shape[1]
+        bound2 = kb.k2_bytes(R, K2) / kb.HBM_BYTES_PER_S * 1e3
+        out["enum_logsumexp"].append(dict(
+            mode=mode, rows=R, K=K,
+            launches=count.get(("enum_logsumexp", mode, rows, K), 0),
+            plan=ops.enum_logsumexp_plan(R, K, mode), max_abs_err=err,
+            max_abs_err_other_mode=err_other, ms=t["ms"],
+            device_ms=t["device_ms"], plain_ms=t["plain_ms"],
+            library_ms=t["library_ms"],
+            library_device_ms=t["library_device_ms"], floor_ms=floor,
+            bound_ms=bound, share_of_bound=bound / t["device_ms"]))
+        out["inv_cdf_sample"].append(dict(
+            rows=R, K=K2, launches=count.get(("inv_cdf_sample", None, rows,
+                                              K2), 0),
+            max_abs_err=k2["max_abs_err"], mismatch_rate=k2["mismatch_rate"],
+            ms=t["k2_ms"], device_ms=t["k2_device_ms"],
+            plain_ms=t["k2_plain_ms"], floor_ms=floor, bound_ms=bound2,
+            share_of_bound=bound2 / t["k2_device_ms"]))
+        for name, r in ((n, out[n][-1]) for n in out):
+            print(f"{name} at {mode} R={R} K={r['K']}: launches "
+                  f"{r['launches']} max_abs_err {r['max_abs_err']:.3g} "
+                  f"device {r['device_ms']:.4f} ms (events {r['ms']:.4f}) "
+                  f"bound {r['bound_ms']:.5f} ms floor {floor:.4f} ms "
+                  f"library device {r.get('library_device_ms')} plan "
+                  f"{r.get('plan')}", flush=True)
+        del inp, other
+        torch.cuda.empty_cache()
+    return out
 
 
 def ptxas_lines(ops) -> dict:
@@ -241,6 +304,7 @@ def main() -> int:
     sweep_s = time.time() - t
     launches = dict(ops.LAUNCHES)
     by_shape = {k: dict(v) for k, v in ops.LAUNCHES_BY_SHAPE.items()}
+    census = ops.census()
     res = evaluate_accuracy_device(cm, arenas, params, dirty, clean, query)
     occ = eng.arena_occupancy(arenas)
     report.update(
@@ -249,7 +313,7 @@ def main() -> int:
         f1=res["f1"], precision=res["precision"], recall=res["recall"],
         occupancy=occ, phase_times=eng.phase_times,
         max_memory_allocated=torch.cuda.max_memory_allocated(),
-        launches=launches, launches_by_shape=by_shape)
+        launches=launches, launches_by_shape=by_shape, census=census)
     print(f"main path ({ROWS} rows, B={BATCH}): init {init_s:.2f} s, "
           f"sweep {sweep_s:.2f} s, rows-cleaned/s "
           f"{report['rows_cleaned_per_s']:.1f}", flush=True)
@@ -259,6 +323,9 @@ def main() -> int:
           f"max_memory_allocated {report['max_memory_allocated']}")
     print(f"launches on the main path: {launches}; by shape (r1 = one "
           f"row, rn = more): {by_shape}", flush=True)
+    for r in census:
+        print(f"census {r['kernel']} {r['mode'] or '-'} {r['rows']} "
+              f"K={r['K']}: {r['launches']} ({100 * r['share']:.1f}%)")
     # after the main path, so that its peak memory is its own (CUDA graph
     # timing leaves allocator state behind, about 0.1 GB)
     kernels = bench_kernels(ops, cm, dev)
@@ -271,10 +338,13 @@ def main() -> int:
                   f"{k['library_ms' + sh]} ms bound {k['bound_ms' + sh]:.4f}"
                   f" ms ({k['bound_by']}) plan {k.get('plan' + sh)}",
                   flush=True)
+    shapes = bench_k1_shapes(ops, cm, dev, census)
     for k in kernels:
         k["launches"] = launches[k["name"]]
         k["launches_r1"] = by_shape[k["name"]]["r1"]
         k["launches_rn"] = by_shape[k["name"]]["rn"]
+        if k["name"] in shapes:
+            k["shapes"] = shapes[k["name"]]
     missing = [k for k, v in launches.items() if v <= 0]
     require(not missing, f"kernels never launched on the main path: {missing}")
     require(res["f1"] >= 0.80, f"F1 {res['f1']} < 0.80")
@@ -287,8 +357,8 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "launches_r1", "ms_r1", "device_ms_r1",
-            "plain_ms_r1", "bound_ms_r1", "library_ms_r1")
-    print(json.dumps({"kernels": [{k: kk[k] for k in keys}
+            "plain_ms_r1", "bound_ms_r1", "library_ms_r1", "shapes")
+    print(json.dumps({"kernels": [{k: kk[k] for k in keys if k in kk}
                                   for kk in kernels]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

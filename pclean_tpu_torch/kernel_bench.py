@@ -1,10 +1,12 @@
 """Inputs, checks and timings of the port's hand kernels on the card.
 
 chip_smoke.py uses it to hold every kernel against its plain version and
-time it at the two shapes the main path launches it at: the batch shape
-(B = batch_rows rows) and the sequential shape (one row, the ramp and
-replay loops). Run alone, it compares the kernels of several checkouts on
-one card, in turns, on the same inputs:
+time it at the shapes the main path launches it at: the batch shape
+(B = batch_rows rows), the sequential shape (one row, the ramp and replay
+loops) and, for K1 and K2, every row length and mode the main path gives
+them (`k1_shapes`: each fk target's capacity and each choice's vocabulary).
+Run alone, it compares the kernels of several checkouts on one card, in
+turns, on the same inputs:
 
     python -m pclean_tpu_torch.kernel_bench --trees PARENT CHANGE \\
         --turns 0,1,1,0 --out DIR
@@ -13,12 +15,20 @@ one card, in turns, on the same inputs:
 once by this checkout's package; DIR/kernel_ab.json gets every turn). Its
 shapes are those two and two more batches the main path also launches:
 66 rows, the fewest that K3's plan stages, and 1,024, the chunk of the
-batched birth-allocation replay.
+batched birth-allocation replay; and K1 (with K2 on K1's record) at one
+row and at the batch shape for every entry of `k1_shapes`. Every turn
+checks K1 in both modes, K2 and K3 against their plain versions before it
+times them. With --paths it also times each of K1's paths at each of
+those shapes and over an R x K grid in both modes (the last tree's
+kernels; PERF.md takes the plan's cut-overs from that table).
 
 Two times are kept for each kernel: `ms`, CUDA events around one call
 (median), which also counts the host's time for the call where it exceeds
 the device's, and `device_ms`, the device time per call from a CUDA graph
-of many calls.
+of many calls. Two yardsticks stand beside K1's device time, both timed
+the same way and never called by the port: `library_device_ms`, one
+torch.logsumexp over the same rows, and the launch floor
+(`launch_floor_ms`), one PyTorch op on one element.
 """
 from __future__ import annotations
 
@@ -101,20 +111,16 @@ def graph_ms(fn, reps=10) -> float:
 def main_path_inputs(cm, dev, B: int, seed: int = 0) -> dict:
     """Seeded inputs of K1-K3 at B rows against the Hospital candidate axis
     (K = its capacity; _kc keeps the full axis at the scaled workload's size
-    since ~8,000 live hospitals exceed half of 11,264): K1's exist [B, K]
-    (dead slots at NEG_INF) and new [B]; K2's logits = K1's record
-    [B, K+1] and one uniform per row; K3's Record-block AddTypos matrices
-    (C = 3), the data's first B observed codes and random word codes."""
+    since ~8,000 live hospitals exceed half of 11,264): K1's and K2's from
+    k1_inputs in fk mode (K2's logits = K1's record [B, K+1]); K3's
+    Record-block AddTypos matrices (C = 3), the data's first B observed
+    codes and random word codes."""
     from .engine.kernels import _AddTyposK
 
-    g = torch.Generator(device=dev)
-    g.manual_seed(seed)
     K = cm.layouts["Hospital"].capacity
-    exist = torch.randn((B, K), generator=g, device=dev) * 3.0
-    exist = torch.where(torch.rand((B, K), generator=g, device=dev) < 0.2,
-                        torch.full_like(exist, -1e30), exist)
-    new = torch.randn((B,), generator=g, device=dev)
-    u = torch.rand((B,), generator=g, device=dev)
+    inp = k1_inputs(dev, B, K, "fk", seed)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 1)
     spec = cm.obs_specs[0]
     cols = [v for v in sorted(spec.columns)
             if isinstance(cm.kernels[cm.canon("Record", v)], _AddTyposK)]
@@ -124,16 +130,103 @@ def main_path_inputs(cm, dev, B: int, seed: int = 0) -> dict:
     word = torch.stack([torch.randint(0, m.shape[0], (K,), generator=g,
                                       device=dev) for m in mats]) \
         .to(torch.int32)
-    return dict(B=B, K=K, exist=exist, new=new,
-                logits=torch.cat([exist, new[:, None]], 1), u=u, mats=mats,
-                obs=obs, word=word)
+    return dict(inp, B=B, mats=mats, obs=obs, word=word)
 
 
-def check_k1(ops, exist, new) -> float:
+def k1_shapes(cm) -> list:
+    """(mode, K) of every K1 launch of the scaled workload's main path: an
+    fk enumeration over each fk target's capacity (Hospital, County) and a
+    choice enumeration over each Record AddTypos column's vocabulary."""
+    from .engine.kernels import _AddTyposK
+
+    spec = cm.obs_specs[0]
+    vs = [cm.kernels[cm.canon("Record", v)].M.shape[0]
+          for v in sorted(spec.columns)
+          if isinstance(cm.kernels[cm.canon("Record", v)], _AddTyposK)]
+    return ([("fk", cm.layouts[c].capacity) for c in ("Hospital", "County")]
+            + [("choice", int(v)) for v in vs])
+
+
+def k1_inputs(dev, R: int, K: int, mode: str, seed: int = 0) -> dict:
+    """Seeded K1 inputs of R rows of K logits (a fifth of them NEG_INF, as
+    main_path_inputs): exist [R, K], new [R] in fk mode (None in choice
+    mode); K2's logits = K1's record (exist itself in choice mode) and one
+    uniform per row."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    exist = torch.randn((R, K), generator=g, device=dev) * 3.0
+    exist = torch.where(torch.rand((R, K), generator=g, device=dev) < 0.2,
+                        torch.full_like(exist, -1e30), exist)
+    new = torch.randn((R,), generator=g, device=dev) if mode == "fk" \
+        else None
+    u = torch.rand((R,), generator=g, device=dev)
+    logits = exist if new is None else torch.cat([exist, new[:, None]], 1)
+    return dict(R=R, K=K, mode=mode, exist=exist, new=new, logits=logits,
+                u=u)
+
+
+def k1_bytes(R: int, K: int, mode: str) -> int:
+    """K1's bytes: exist read once and logZ written; in fk mode also new
+    read and the record [R, K+1] written."""
+    if mode == "fk":
+        return R * K * 4 + R * 4 + R * (K + 1) * 4 + R * 4
+    return R * K * 4 + R * 4
+
+
+def k2_bytes(R: int, K: int) -> int:
+    """K2's bytes: logits [R, K] and u read once, indices written."""
+    return R * K * 4 + R * 4 + R * 4
+
+
+def launch_floor_ms() -> float:
+    """Device ms of one PyTorch op on one element (graph_ms): what any
+    launch costs on the card whatever it does."""
+    x = torch.zeros((1,), device="cuda")
+    return graph_ms(lambda: x.add_(1.0))
+
+
+def time_k1(ops, inp: dict, plain: bool = True) -> dict:
+    """K1 on these inputs, and K2 on K1's record: ms / device_ms of each
+    (cuda_ms / graph_ms), K1's plain_ms and library_ms (events) and
+    library_device_ms (graph_ms of torch.logsumexp over the record)."""
+    exist, new, lg, u = inp["exist"], inp["new"], inp["logits"], inp["u"]
+    k1 = lambda: ops.enum_logsumexp(exist, new)  # noqa: E731
+    k2 = lambda: ops.inv_cdf_sample(lg, u)  # noqa: E731
+    res = dict(ms=cuda_ms(k1), device_ms=graph_ms(k1),
+               k2_ms=cuda_ms(k2), k2_device_ms=graph_ms(k2))
+    if plain:
+        lib = lambda: torch.logsumexp(lg, dim=1)  # noqa: E731
+        res.update(plain_ms=cuda_ms(lambda: ops.enum_logsumexp_plain(exist,
+                                                                     new)),
+                   library_ms=cuda_ms(lib), library_device_ms=graph_ms(lib),
+                   k2_plain_ms=cuda_ms(
+                       lambda: ops.inv_cdf_sample_plain(lg, u)))
+    return res
+
+
+def k1_path_ms(ops, inp: dict) -> dict:
+    """{path: device ms} of every path of K1's plan on these inputs, each
+    checked against the plain version first (check_k1)."""
+    exist, new = inp["exist"], inp["new"]
+    out = {}
+    for path in ops.K1_PATHS:
+        check_k1(ops, exist, new, path=path)
+        out[path] = graph_ms(lambda: ops.enum_logsumexp(exist, new,
+                                                        path=path))
+    return out
+
+
+# R x K grid over which --paths also times K1's paths (PERF.md's cut-overs)
+PATH_GRID_R = (1, 8, 66, 1024, 4096)
+PATH_GRID_K = (138, 512, 1024, 1472, 2048, 5125, 8192, 11264)
+
+
+def check_k1(ops, exist, new, path=None) -> float:
     """Record bit-equal, logZ rtol 1e-6 (the same f32 formula summed in
-    another order). Returns max |dlogZ|."""
+    another order). `new` None checks choice mode. Returns max |dlogZ|."""
     r0, z0 = ops.enum_logsumexp_plain(exist, new)
-    r1, z1 = ops.enum_logsumexp(exist, new)
+    r1, z1 = (ops.enum_logsumexp(exist, new) if path is None
+              else ops.enum_logsumexp(exist, new, path=path))
     torch.cuda.synchronize()
     require(torch.equal(r0, r1), "K1 record differs from the plain version")
     err = float((z1 - z0).abs().max())
@@ -196,8 +289,8 @@ def kernel_bytes(inp: dict) -> dict:
     distinct = sum(int(torch.unique(obs[:, c]).numel()) * m.shape[0]
                    for c, m in enumerate(mats))
     C = len(mats)
-    return {"enum_logsumexp": B * K * 4 + B * 4 + B * (K + 1) * 4 + B * 4,
-            "inv_cdf_sample": B * (K + 1) * 4 + B * 4 + B * 4,
+    return {"enum_logsumexp": k1_bytes(B, K, "fk"),
+            "inv_cdf_sample": k2_bytes(B, K + 1),
             "obs_gather_sum": B * K * 4 + C * K * 4 + B * C * 4
             + distinct * 4}
 
@@ -258,6 +351,10 @@ def main(argv=None) -> int:
     ap.add_argument("--trees", nargs="+", required=True)
     ap.add_argument("--turns", default="0,1,1,0")
     ap.add_argument("--out", default=None)
+    ap.add_argument("--paths", action="store_true",
+                    help="also time every path of K1's plan at every K1 "
+                         "shape and over PATH_GRID_R x PATH_GRID_K in both "
+                         "modes, with the last tree's kernels")
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_bench: no CUDA device available", file=sys.stderr)
@@ -271,32 +368,59 @@ def main(argv=None) -> int:
         print(f"{t}: kernel build {o.build_kernels():.2f} s", flush=True)
     # chip_smoke.py's main path: the scaled workload's entity counts, 100,000
     # rows, batch_rows 4096
-    cm = scaled.setup(rows=100_000, batch=4096, device="cuda")[0]
-    shapes = {"batch": main_path_inputs(cm, dev, 4096),
+    B = 4096
+    cm = scaled.setup(rows=100_000, batch=B, device="cuda")[0]
+    shapes = {"batch": main_path_inputs(cm, dev, B),
               "r1": main_path_inputs(cm, dev, 1),
               "b66": main_path_inputs(cm, dev, 66),
               "b1024": main_path_inputs(cm, dev, 1024)}
     bounds = {s: {k: v / HBM_BYTES_PER_S * 1e3
                   for k, v in kernel_bytes(inp).items()}
               for s, inp in shapes.items()}
+    k1s = {}  # K1 (and K2 on its record) at the main path's other shapes
+    for mode, K in k1_shapes(cm):
+        for R in (1, B):
+            if (mode, K) != ("fk", shapes["batch"]["K"]):
+                k1s[f"{mode} K={K} R={R}"] = k1_inputs(dev, R, K, mode)
+    for s, inp in k1s.items():
+        R, K, mode = inp["R"], inp["K"], inp["mode"]
+        bounds[s] = {
+            "enum_logsumexp": k1_bytes(R, K, mode) / HBM_BYTES_PER_S * 1e3,
+            "inv_cdf_sample": k2_bytes(R, inp["logits"].shape[1])
+            / HBM_BYTES_PER_S * 1e3}
     turns = []
+
+    def log(tree, s, k, times):
+        turns.append(dict(tree=tree, shape=s, kernel=k, **times))
+        print(f"turn {len(turns)}: {tree} {s} {k} {times}", flush=True)
+
     for t in [int(x) for x in a.turns.split(",")]:
         ops = tree_ops[t]
         for s, inp in shapes.items():
+            check_k1(ops, inp["exist"], inp["new"])
+            check_k1(ops, inp["exist"], None)
             check_k3(ops, inp["mats"], inp["obs"], inp["word"])
             check_k2(ops, inp["logits"], inp["u"])
             times = time_kernels(ops, inp, plain=False, library=False)
             for k in KERNELS:
-                turns.append(dict(tree=a.trees[t], shape=s, kernel=k,
-                                  **times[k]))
-                print(f"turn {len(turns)}: {a.trees[t]} {s} {k} "
-                      f"{times[k]}", flush=True)
+                log(a.trees[t], s, k, times[k])
+        for s, inp in k1s.items():
+            check_k1(ops, inp["exist"], inp["new"])
+            check_k1(ops, inp["exist"], None)
+            check_k2(ops, inp["logits"], inp["u"])
+            times = time_k1(ops, inp, plain=False)
+            log(a.trees[t], s, "enum_logsumexp",
+                dict(ms=times["ms"], device_ms=times["device_ms"]))
+            log(a.trees[t], s, "inv_cdf_sample",
+                dict(ms=times["k2_ms"], device_ms=times["k2_device_ms"]))
     summary = {}
     for tree in a.trees:
-        for s in shapes:
+        for s in list(shapes) + list(k1s):
             for k in KERNELS:
                 rows = [r for r in turns if r["tree"] == tree
                         and r["shape"] == s and r["kernel"] == k]
+                if not rows:
+                    continue
                 dev_ms = [r["device_ms"] for r in rows]
                 summary[f"{tree} {s} {k}"] = dict(
                     ms=[r["ms"] for r in rows], device_ms=dev_ms,
@@ -307,11 +431,45 @@ def main(argv=None) -> int:
               f"{['%.4f' % x for x in v['device_ms']]} bound "
               f"{v['bound_ms']:.5f} ms share of bound (device) "
               f"{v['share_of_bound']:.3f}")
+    # yardsticks (never called by the port), and with --paths K1's paths
+    k1_all = dict(k1s, **{"fk K=%d R=%d" % (shapes[s]["K"], shapes[s]["B"]):
+                          shapes[s] for s in ("batch", "r1")})
+    floor = launch_floor_ms()
+    yard = {s: dict(library_device_ms=graph_ms(
+        lambda: torch.logsumexp(inp["logits"], dim=1)))
+        for s, inp in k1_all.items()}
+    print(f"launch floor (one PyTorch op on one element): {floor:.4f} ms")
+    for s, y in yard.items():
+        print(f"{s}: torch.logsumexp device {y['library_device_ms']:.4f} ms")
+    paths = {}
+    if a.paths:
+        ops = tree_ops[-1]
+        for s, inp in k1_all.items():
+            R, K = inp["exist"].shape
+            mode = "choice" if inp["new"] is None else "fk"
+            paths[s] = dict(plan=ops.enum_logsumexp_plan(R, K, mode),
+                            bound_ms=k1_bytes(R, K, mode)
+                            / HBM_BYTES_PER_S * 1e3,
+                            **k1_path_ms(ops, inp))
+            print(f"paths {s}: {paths[s]}", flush=True)
+        for mode in ("fk", "choice"):
+            for R in PATH_GRID_R:
+                for K in PATH_GRID_K:
+                    inp = k1_inputs(dev, R, K, mode)
+                    s = f"grid {mode} K={K} R={R}"
+                    paths[s] = dict(plan=ops.enum_logsumexp_plan(R, K, mode),
+                                    bound_ms=k1_bytes(R, K, mode)
+                                    / HBM_BYTES_PER_S * 1e3,
+                                    **k1_path_ms(ops, inp))
+                    print(f"paths {s}: " + " ".join(
+                        f"{p} {paths[s][p]:.4f}" for p in ops.K1_PATHS)
+                        + f" plan {paths[s]['plan']['path']}", flush=True)
     if a.out:
         os.makedirs(a.out, exist_ok=True)
         with open(os.path.join(a.out, "kernel_ab.json"), "w") as f:
             json.dump(dict(card=torch.cuda.get_device_name(0), turns=turns,
-                           summary=summary), f, indent=1)
+                           summary=summary, launch_floor_ms=floor,
+                           yardsticks=yard, paths=paths), f, indent=1)
     return 0
 
 

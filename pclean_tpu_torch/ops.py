@@ -16,11 +16,13 @@ Each has a plain PyTorch version here. A wrapper takes the plain version
 only for tensors on the CPU; for CUDA tensors it launches its kernel or
 raises. `LAUNCHES` counts kernel launches (plain calls are not counted);
 `LAUNCHES_BY_SHAPE` splits the same launches into those over one row
-("r1", the sequential loops) and over more ("rn", the batched phases).
-K2 and K3 each take a launch plan (path, tile sizes, shared memory and,
-for K3, the grid) from a function of their shapes alone, `inv_cdf_plan`
-and `obs_gather_plan`; the C entry points launch the plan they are given,
-so the plan the CPU tests check is the one launched.
+("r1", the sequential loops) and over more ("rn", the batched phases);
+`LAUNCH_CENSUS` splits K1's and K2's further by mode and row length.
+Each kernel takes a launch plan (path and geometry: threads, tiles,
+cluster, shared memory, grid) from a function of its shapes alone,
+`enum_logsumexp_plan`, `inv_cdf_plan` and `obs_gather_plan`; the C entry
+points launch the plan they are given, so the plan the CPU tests check is
+the one launched.
 
 Build: one `nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared` per
 source, all started together, into pclean_tpu_torch/_build/ (listed in
@@ -51,8 +53,12 @@ _SOURCES = {
 }
 LAUNCHES = {name: 0 for name in _SOURCES}
 LAUNCHES_BY_SHAPE = {name: {"r1": 0, "rn": 0} for name in _SOURCES}
+# K1's and K2's launches by (mode, "r1" or "rn", K): K1's mode is "fk" or
+# "choice", K2's is None; K is the row length the kernel was given
+LAUNCH_CENSUS = {"enum_logsumexp": {}, "inv_cdf_sample": {}}
 SMEM_MAX = 232448  # shared memory one block may use on an H100 (227 KB)
 N_SMS = 132        # streaming multiprocessors of an H100 SXM
+_GRID_Y_MAX = 65535
 _lock = threading.Lock()
 _libs: dict = {}
 BUILD_LOG: dict = {}
@@ -62,11 +68,29 @@ def reset_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
         LAUNCHES_BY_SHAPE[k] = {"r1": 0, "rn": 0}
+    for census in LAUNCH_CENSUS.values():
+        census.clear()
 
 
-def _count(name: str, rows: int) -> None:
+def _count(name: str, rows: int, K=None, mode=None) -> None:
+    shape = "r1" if rows == 1 else "rn"
     LAUNCHES[name] += 1
-    LAUNCHES_BY_SHAPE[name]["r1" if rows == 1 else "rn"] += 1
+    LAUNCHES_BY_SHAPE[name][shape] += 1
+    if name in LAUNCH_CENSUS:
+        key = (mode, shape, K)
+        LAUNCH_CENSUS[name][key] = LAUNCH_CENSUS[name].get(key, 0) + 1
+
+
+def census() -> list:
+    """LAUNCH_CENSUS as rows dict(kernel, mode, rows, K, launches, share),
+    share = launches / the kernel's launches, most launched first."""
+    out = []
+    for name, c in LAUNCH_CENSUS.items():
+        total = sum(c.values())
+        out += [dict(kernel=name, mode=mode, rows=shape, K=K, launches=n,
+                     share=n / total)
+                for (mode, shape, K), n in c.items()]
+    return sorted(out, key=lambda r: (r["kernel"], -r["launches"]))
 
 
 def _nvcc() -> str:
@@ -130,12 +154,13 @@ def build_kernels(force: bool = False) -> float:
             lib = ctypes.CDLL(os.path.join(BUILD_DIR, f"lib{name}.so"))
             fn = getattr(lib, f"pclean_{name}")
             fn.restype = ctypes.c_int
+            I32 = ctypes.c_int
             if name == "enum_logsumexp":
-                fn.argtypes = [P, P, P, P, I64, I64, P]
+                fn.argtypes = [P, P, P, P, I64, I64, I32, I32, I32, I32, I64,
+                               I64, P]
             elif name == "inv_cdf_sample":
                 fn.argtypes = [P, P, P, I64, I64, I64, ctypes.c_int, P]
             else:
-                I32 = ctypes.c_int
                 fn.argtypes = [ctypes.POINTER(I64),
                                ctypes.POINTER(ctypes.c_int32), P, P, P, I64,
                                I64, I32, I32, I32, I64, I32, I64, I64, P]
@@ -189,18 +214,104 @@ def enum_logsumexp_plain(exist: torch.Tensor, new=None):
     return rec, logsumexp(rec, dim=-1)
 
 
-def enum_logsumexp(exist: torch.Tensor, new=None):
-    """K1. exist [R, K] f32, new [R] f32 or None -> (record, logZ [R])."""
+K1_PATHS = ("warp", "block", "split")
+_K1_WARP_ROWS = 8            # rows (warps) a block on the warp path
+_K1_MAX_WARPS = 16           # 512 threads a block at most
+_K1_SPLIT_THREADS = 256      # threads of each block of a split cluster
+_K1_MAX_CLUSTER = 8          # the portable cluster size
+_K1_TILE = 128               # floats a warp loads at once (a float4 a lane)
+_K1_MAX_K = 1 << 30          # row-local indices stay 32-bit in the kernel
+_K1_WARP_MAX_K = 512         # longest row a warp takes alone at any R
+_K1_WARP_MANY_ROWS = 1024    # rows from which a warp a row pays ...
+_K1_WARP_MANY_MAX_K = 2048   # ... up to this row length
+_K1_SPLIT_MAX_ROWS = 8       # most rows a launch splits over clusters ...
+_K1_SPLIT_MIN_K = 8193       # ... from this row length
+
+
+def enum_logsumexp_plan(R: int, K: int, mode: str, path=None) -> dict:
+    """K1's launch for R rows of K logits in `mode` ("fk": a record [R, K+1]
+    is written; "choice": logZ only): dict(path, threads, rows, cluster,
+    grid). The entry point launches `grid` blocks of `threads` threads as
+    given. `path` forces one of K1_PATHS (tests, and the path timings in
+    kernel_bench); by default it follows from the shape.
+
+    "warp": one warp a row, `rows` rows a block, grid (ceil(R / rows), 1).
+    "block": one block a row, a warp for each 128-float tile up to 16,
+    grid (R, 1).
+    "split": a cluster of `cluster` 256-thread blocks a row, one block for
+    each 8 tiles up to 8 blocks, grid (cluster, R); R <= 65,535.
+
+    Cut-overs, from every path timed over R in (1, 8, 66, 1,024, 4,096) x
+    K in (138 ... 11,264) in both modes on an H100 (PERF.md,
+    `kernel_bench --paths`; device ms, fk mode):
+      - split for at most 8 rows longer than 8,192: at one row of 11,264,
+        0.0032 against 0.0039 for block; at 8,192 the two tie (0.0030,
+        0.0031), and at 66 rows of 11,264 split loses (0.0054 against
+        0.0045);
+      - warp for rows of at most 512 at any R (one row of 138: 0.0021
+        against 0.0024), and from 1,024 rows for rows up to 2,048 (4,096
+        rows of 1,472: 0.0172 against 0.0241; of 2,048: 0.0271 against
+        0.0315); at 5,125 the block path wins (0.0603 against 0.0677).
+        Between 66 and 1,024 rows, and between 2,048 and 5,125 long, the
+        crossings are not measured;
+      - block otherwise (one row of 1,024 to 8,192: 0.0024-0.0031 against
+        0.0029-0.0120 for warp; 4,096 rows of 11,264: 0.1311 against
+        0.1414).
+    The mode moves no cut-over: choice mode orders the paths as fk mode
+    does at every measured shape but rows of 8,192 at 1 and 8 rows, where
+    fk's split leads block by 0.0001-0.0003 ms and choice's block leads
+    split by as much; the main path launches no row of that length."""
+    return dict(_k1_plan(int(R), int(K), mode, path))
+
+
+@functools.lru_cache(maxsize=256)
+def _k1_plan(R: int, K: int, mode: str, path) -> dict:
+    if mode not in ("fk", "choice"):
+        raise ValueError(f"enum_logsumexp: mode {mode!r} is not fk or choice")
+    if R < 0 or not 0 <= K <= _K1_MAX_K:
+        raise ValueError(f"enum_logsumexp: R = {R}, K = {K} out of range "
+                         f"(K <= {_K1_MAX_K})")
+    tiles = -(-K // _K1_TILE)
+    if path is None:
+        if R <= _K1_SPLIT_MAX_ROWS and K >= _K1_SPLIT_MIN_K:
+            path = "split"
+        elif K <= _K1_WARP_MAX_K or (R >= _K1_WARP_MANY_ROWS
+                                     and K <= _K1_WARP_MANY_MAX_K):
+            path = "warp"
+        else:
+            path = "block"
+    if path == "warp":
+        rows = min(_K1_WARP_ROWS, max(1, R))
+        return dict(path=path, threads=32 * rows, rows=rows, cluster=1,
+                    grid=(-(-R // rows), 1))
+    if path == "block":
+        return dict(path=path, threads=32 * min(_K1_MAX_WARPS, max(1, tiles)),
+                    rows=1, cluster=1, grid=(R, 1))
+    if path == "split":
+        if R > _GRID_Y_MAX:
+            raise ValueError(f"enum_logsumexp: R = {R} rows exceed the split "
+                             f"path's grid")
+        cluster = min(_K1_MAX_CLUSTER,
+                      max(1, -(-tiles // (_K1_SPLIT_THREADS // 32))))
+        return dict(path=path, threads=_K1_SPLIT_THREADS, rows=1,
+                    cluster=cluster, grid=(cluster, R))
+    raise ValueError(f"enum_logsumexp: path {path!r} is not one of "
+                     f"{K1_PATHS}")
+
+
+def enum_logsumexp(exist: torch.Tensor, new=None, path=None):
+    """K1. exist [R, K] f32, new [R] f32 or None -> (record, logZ [R]).
+    `path` forces a path of enum_logsumexp_plan."""
     if not _route(exist, "enum_logsumexp"):
         return enum_logsumexp_plain(exist, new)
     exist = exist.contiguous()
     _need(exist, torch.float32, "enum_logsumexp exist", 2)
     R, K = exist.shape
+    mode = "choice" if new is None else "fk"
+    plan = _k1_plan(R, K, mode, path)
     logz = torch.empty((R,), dtype=torch.float32, device=exist.device)
     if new is None:
         rec = exist
-        rc = _fn("enum_logsumexp")(_ptr(exist), None, None, _ptr(logz), R, K,
-                                   _stream(exist))
     else:
         new = new.contiguous()
         _need(new, torch.float32, "enum_logsumexp new", 1)
@@ -208,10 +319,12 @@ def enum_logsumexp(exist: torch.Tensor, new=None):
             raise ValueError("enum_logsumexp: new must have one entry per row")
         rec = torch.empty((R, K + 1), dtype=torch.float32,
                           device=exist.device)
-        rc = _fn("enum_logsumexp")(_ptr(exist), _ptr(new), _ptr(rec),
-                                   _ptr(logz), R, K, _stream(exist))
+    rc = _fn("enum_logsumexp")(
+        _ptr(exist), _ptr(new), _ptr(None if new is None else rec),
+        _ptr(logz), R, K, K1_PATHS.index(plan["path"]), plan["threads"],
+        plan["rows"], plan["cluster"], *plan["grid"], _stream(exist))
     _check(rc, "enum_logsumexp")
-    _count("enum_logsumexp", R)
+    _count("enum_logsumexp", R, K, mode)
     return rec, logz
 
 
@@ -269,7 +382,7 @@ def inv_cdf_sample(logits: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     rc = _fn("inv_cdf_sample")(_ptr(logits), _ptr(u), _ptr(idx), R, K,
                                plan["tile"], plan["smem"], _stream(logits))
     _check(rc, "inv_cdf_sample")
-    _count("inv_cdf_sample", R)
+    _count("inv_cdf_sample", R, K)
     return idx
 
 
@@ -279,7 +392,6 @@ _MAX_COLS = 8
 _K3_STAGED_THREADS = 512
 _K3_DIRECT_ROWS = 4
 _K3_DIRECT_THREADS = 256  # candidates a direct block owns
-_GRID_Y_MAX = 65535
 
 
 def obs_gather_plan(B: int, K: int, Vs) -> dict:

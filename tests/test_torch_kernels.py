@@ -9,14 +9,17 @@ counterparts (CPU), and CUDA kernels against the plain versions (card only).
   K3 obs_gather_sum — sum of AddTypos gathers M_c[obs_c, word_c], and the
      one-hot contraction of _matmul_obs_term/_mm_flush: rtol 1e-5.
 
-The launch plans of K2 and K3 (path and tile sizes, a function of the
-shapes alone) are checked here for legal geometry on the H100.
+The launch plans of K1, K2 and K3 (path, geometry and tile sizes, a
+function of the shapes alone) are checked here for legal geometry on the
+H100, and K1's plan for the path it gives each shape the main path
+launches it at.
 
 The CUDA tests carry the `cuda` marker and skip where no card is present;
 run them on the card with `python -m pytest -m cuda tests/test_torch_kernels.py`.
-They cover both paths of K2 and K3 at the main path's shapes and at the
-edge shapes (one row, ragged tiles, rows too long for shared memory, more
-than 8 columns, threshold edges).
+They cover every path of K1 (warp, block, split) and both paths of K2 and
+K3 at the main path's shapes and at the edge shapes (one row, ragged
+tiles, every 16-byte phase, all-dead rows, rows too long for shared
+memory, more than 8 columns, threshold edges).
 The JAX package is imported inside the CPU tests only, so the module also
 loads where JAX is not installed.
 """
@@ -112,6 +115,28 @@ def test_wrappers_take_plain_version_on_cpu_without_counting():
                        torch.zeros((1, 3), dtype=torch.int32))
     assert all(v == 0 for v in ops.LAUNCHES.values())
     assert all(v == {"r1": 0, "rn": 0} for v in ops.LAUNCHES_BY_SHAPE.values())
+    assert not any(ops.LAUNCH_CENSUS.values())
+
+
+def test_census_counts_launches_by_mode_rows_and_length():
+    ops.reset_counts()
+    try:
+        for rows, K, mode in [(1, 11264, "fk"), (1, 138, "choice"),
+                              (1, 138, "choice"), (4096, 138, "choice")]:
+            ops._count("enum_logsumexp", rows, K, mode)
+        ops._count("inv_cdf_sample", 1, 11265)
+        ops._count("obs_gather_sum", 1)
+        rows = ops.census()
+        assert [(r["kernel"], r["mode"], r["rows"], r["K"], r["launches"])
+                for r in rows] == [
+            ("enum_logsumexp", "choice", "r1", 138, 2),
+            ("enum_logsumexp", "fk", "r1", 11264, 1),
+            ("enum_logsumexp", "choice", "rn", 138, 1),
+            ("inv_cdf_sample", None, "r1", 11265, 1)]
+        assert rows[0]["share"] == 0.5 and rows[-1]["share"] == 1.0
+        assert ops.LAUNCHES_BY_SHAPE["enum_logsumexp"] == {"r1": 3, "rn": 1}
+    finally:
+        ops.reset_counts()
 
 
 MAIN_V = [5125, 1832, 138]  # the scaled workload's Record AddTypos columns
@@ -198,6 +223,61 @@ def test_k2_plan_rejects_rows_past_exact_totals():
         ops.inv_cdf_plan((1 << 21) + 1)
 
 
+CENSUS_K1 = [  # (R, K, mode) of the main path's K1 launches
+    (1, MAIN_K, "fk"), (1, 1472, "fk"), (1, 5125, "choice"),
+    (1, 1832, "choice"), (1, 138, "choice"),
+    (4096, MAIN_K, "fk"), (4096, 1472, "fk"), (4096, 5125, "choice"),
+    (4096, 1832, "choice"), (4096, 138, "choice")]
+K1_PATH = {  # the path the plan gives each of them (the fastest measured)
+    (1, MAIN_K, "fk"): "split", (1, 1472, "fk"): "block",
+    (1, 5125, "choice"): "block", (1, 1832, "choice"): "block",
+    (1, 138, "choice"): "warp",
+    (4096, MAIN_K, "fk"): "block", (4096, 1472, "fk"): "warp",
+    (4096, 5125, "choice"): "block", (4096, 1832, "choice"): "warp",
+    (4096, 138, "choice"): "warp"}
+
+
+@pytest.mark.parametrize("R,K,mode", CENSUS_K1)
+def test_k1_plan_routes_the_main_path_shapes(R, K, mode):
+    assert ops.enum_logsumexp_plan(R, K, mode)["path"] == K1_PATH[(R, K, mode)]
+
+
+@pytest.mark.parametrize("path", [None, "warp", "block", "split"])
+@pytest.mark.parametrize("R,K", [(0, 138), (1, 1), (1, 3), (1, 138),
+                                 (1, 1472), (1, 5125), (1, MAIN_K),
+                                 (3, 70001), (9, 2000), (4096, 138),
+                                 (4096, MAIN_K), (65535, 5)])
+def test_k1_plan_is_legal(R, K, path):
+    for mode in ("fk", "choice"):
+        plan = ops.enum_logsumexp_plan(R, K, mode, path=path)
+        assert plan["path"] in ops.K1_PATHS
+        assert path is None or plan["path"] == path
+        gx, gy = plan["grid"]
+        assert 32 <= plan["threads"] <= 512 and plan["threads"] % 32 == 0
+        assert 1 <= plan["cluster"] <= 8 and gx % plan["cluster"] == 0
+        assert 0 <= gx < 2 ** 31 and 0 <= gy <= 65535
+        # one row a warp, a block or a cluster; every row covered once
+        if plan["path"] == "warp":
+            assert plan["threads"] == 32 * plan["rows"] and gy == 1
+            assert gx * plan["rows"] >= R > (gx - 1) * plan["rows"]
+            assert plan["cluster"] == 1
+        elif plan["path"] == "block":
+            assert (plan["rows"], plan["cluster"], gx, gy) == (1, 1, R, 1)
+        else:
+            assert (plan["rows"], gx, gy) == (1, plan["cluster"], R)
+
+
+def test_k1_plan_refuses_what_it_cannot_launch():
+    with pytest.raises(ValueError):
+        ops.enum_logsumexp_plan(65536, 2000, "fk", path="split")
+    with pytest.raises(ValueError):
+        ops.enum_logsumexp_plan(1, 2000, "sum")
+    with pytest.raises(ValueError):
+        ops.enum_logsumexp_plan(1, 2000, "fk", path="grid")
+    with pytest.raises(ValueError):  # row-local indices are 32-bit
+        ops.enum_logsumexp_plan(1, (1 << 30) + 1, "choice")
+
+
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
@@ -219,6 +299,66 @@ def test_k1_cuda_matches_plain(card):
     _r, z2 = ops.enum_logsumexp(ex)
     torch.testing.assert_close(z2, ops.enum_logsumexp_plain(ex)[1], rtol=1e-6,
                                atol=0)
+
+
+def _k1_check(ex, new, path):
+    from pclean_tpu_torch.kernel_bench import check_k1
+
+    check_k1(ops, ex, new, path=path)
+    check_k1(ops, ex, None, path=path)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["warp", "block", "split"])
+@pytest.mark.parametrize("R,K", [
+    (1, 1), (1, 3), (1, 138), (1, 1472), (1, 5125), (1, MAIN_K),  # one row
+    (3, 70001),         # long rows
+    (4096, 138),        # the batched choice shape
+    (4096, MAIN_K),     # the batch shape
+])
+def test_k1_cuda_paths_match_plain(card, R, K, path):
+    rng = np.random.default_rng(9)
+    ex = torch.as_tensor(_logits(rng, R, K), device=card)
+    if R == 1:
+        ex[0] = torch.as_tensor(rng.normal(0, 3, K), dtype=torch.float32)
+    new = torch.as_tensor(rng.normal(size=R).astype(np.float32), device=card)
+    _k1_check(ex, new, path)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["warp", "block", "split"])
+@pytest.mark.parametrize("K", [1001, 1473, 1474, 1475, 5])
+def test_k1_cuda_every_phase(card, K, path):
+    """Rows of K floats with K not a multiple of 4 start at every 16-byte
+    phase, in exist and (stride K + 1) in the record; the exist tensor also
+    starts at each 4-byte offset of a 16-byte boundary."""
+    rng = np.random.default_rng(10)
+    R = 8
+    for off in range(4):
+        flat = torch.empty(R * K + 4, device=card)
+        ex = flat[off: off + R * K].view(R, K)
+        ex.copy_(torch.as_tensor(_logits(rng, R, K, dead=0.1)))
+        new = torch.as_tensor(rng.normal(size=R).astype(np.float32),
+                              device=card)
+        _k1_check(ex, new, path)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["warp", "block", "split"])
+@pytest.mark.parametrize("K", [1, 138, 1472, MAIN_K])
+def test_k1_cuda_dead_rows(card, K, path):
+    """An all-NEG_INF row gives NEG_INF (never NaN), in both modes; a row
+    live only in `new` gives new's value exactly."""
+    ex = torch.full((3, K), NEG_INF, device=card)
+    new = torch.tensor([NEG_INF, 0.37, -2.5], device=card)
+    rec, z = ops.enum_logsumexp(ex, new, path=path)
+    _r, zc = ops.enum_logsumexp(ex, path=path)
+    torch.cuda.synchronize()
+    assert torch.equal(rec, torch.cat([ex, new[:, None]], 1))
+    assert z[0].item() == np.float32(NEG_INF)
+    assert z[1].item() == np.float32(0.37) and z[2].item() == np.float32(-2.5)
+    assert bool((zc == np.float32(NEG_INF)).all())
+    _k1_check(ex, new, path)
 
 
 @pytest.mark.cuda
