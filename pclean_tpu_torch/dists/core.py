@@ -1,10 +1,11 @@
 """PClean distributions, declarative form (the subset the port runs).
 
-The port carries the distributions of its main path: ChooseProportionally,
-ChooseUniformly, StringPrior and AddTypos. The rest of pclean_tpu/dists/core.py
-(TimePrior, MaybeSwap, AddNoise, TransformedGaussian, FormatName,
-ExpandOnShortVersion, NumberCodePrior, Unmodeled) comes with their kernels in
-a later slice. Each class mirrors one reference distribution file under
+The port carries the distributions of its scaled and rents paths:
+ChooseProportionally, ChooseUniformly, StringPrior, AddTypos, AddNoise,
+TransformedGaussian (with its Transformation) and Unmodeled. The rest of
+pclean_tpu/dists/core.py (TimePrior, MaybeSwap, FormatName,
+ExpandOnShortVersion, NumberCodePrior) comes with their kernels in a later
+slice. Each class mirrors one reference distribution file under
 PClean's src/distributions/ (cited per class). Constructors take the same
 argument lists as the reference so models read alike; arguments may be:
 
@@ -20,7 +21,8 @@ interpreter and its `discrete_proposal` enumerations.
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence, Union
+from dataclasses import dataclass
+from typing import Callable, Optional, Sequence, Union
 
 import numpy as np
 
@@ -83,6 +85,44 @@ class AddTypos(PCleanDistribution):
     def __init__(self, word: ArgT, max_typos: Optional[int] = None):
         self.word = word
         self.max_typos = max_typos
+
+
+class AddNoise(PCleanDistribution):
+    """Gaussian noise Normal(mean, std) (add_noise.jl:5-7); mean may be a
+    learned MeanParameter."""
+
+    def __init__(self, mean: ArgT, std: float):
+        self.mean = mean
+        self.std = float(std)
+
+
+@dataclass(frozen=True, eq=False)
+class Transformation:
+    """User bijection with |g'| for the Jacobian correction
+    (transformed_gaussian.jl:5-9). The callables take and return torch
+    tensors; `deriv` may return a Python number for a constant derivative.
+    Instances compare by identity, so each is one value of a vocabulary."""
+
+    forward: Callable
+    backward: Callable
+    deriv: Callable
+
+
+class TransformedGaussian(PCleanDistribution):
+    """Gaussian pushed through a Transformation (transformed_gaussian.jl:13-16):
+    logdensity = Normal(mean, std).logpdf(backward(x)) - log|deriv(backward(x))|.
+    MeanParameter sufficient stats use backward(observed) (26-33)."""
+
+    def __init__(self, mean: ArgT, std: float, transform: ArgT):
+        self.mean = mean
+        self.std = float(std)
+        self.transform = transform
+
+
+class Unmodeled(PCleanDistribution):
+    """logdensity 0 for anything; sampling is an error (unmodeled.jl)."""
+
+    supports_missing = True
 
 
 # ---------------------------------------------------------------------------

@@ -3,20 +3,22 @@
 Counterpart of pclean_tpu/dists/params.py (reference Parameter interface,
 distributions.jl:27-61). The specs are plain data and identical; the state
 is a dict of fixed-shape tensors with an explicit leading index axis, and
-every draw takes an explicit torch.Generator. The port's main path learns
-only Proportions (Dirichlet-categorical, choose_proportionally.jl:23-89);
-Prob and Mean keep their specs so models declare them alike, and their
-resampling comes with MaybeSwap / AddNoise in a later slice.
+every draw takes an explicit torch.Generator. The port learns Proportions
+(Dirichlet-categorical, choose_proportionally.jl:23-89) and Mean
+(Normal-Normal, add_noise.jl:12-82); Prob keeps its spec so models declare
+it alike, and its resampling comes with MaybeSwap in a later slice. State
+is built on the device the entry points resolve (the card unless the
+caller asks for "cpu").
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Union
+from typing import Optional, Sequence, Union
 
 import numpy as np
 import torch
 
-from ..utils import sample_dirichlet
+from ..utils import resolve_device, sample_dirichlet
 
 
 @dataclass(frozen=True)
@@ -67,7 +69,8 @@ def _concentration(spec: Proportions, num_options: int,
 
 def init_proportions_state(gen: torch.Generator, spec: Proportions,
                            num_options: int, num_indices: int = 1,
-                           device="cpu") -> dict:
+                           device="cuda") -> dict:
+    device = resolve_device(device)
     conc = _concentration(spec, num_options, device)
     value = sample_dirichlet(gen, conc.expand(num_indices, num_options))
     return {
@@ -86,3 +89,44 @@ def resample_proportions(gen: torch.Generator, state: dict,
     value = sample_dirichlet(gen, conc[None, :] + counts)
     return {"counts": state["counts"],
             "log_value": torch.log(value.to(torch.float32))}
+
+
+def init_mean_state(gen: torch.Generator, spec: Mean, num_sites: int,
+                    num_indices: int = 1, device="cuda") -> dict:
+    """`num_sites` = number of AddNoise/TransformedGaussian call sites using
+    this parameter; each site has one static noise std, replacing the
+    reference's dynamically-grown per-std vectors (add_noise.jl:21-27)."""
+    device = resolve_device(device)
+    z = torch.randn((num_indices,), generator=gen, device=device)
+    return {
+        "counts": torch.zeros((num_indices, num_sites), dtype=torch.int32,
+                              device=device),
+        "sums": torch.zeros((num_indices, num_sites), dtype=torch.float32,
+                            device=device),
+        "value": (spec.mean + spec.prior_std() * z).to(torch.float32),
+    }
+
+
+def mean_posterior(state: dict, spec: Mean, site_stds: Sequence[float]):
+    """(mean, var) [I] of the exact Normal-Normal posterior over all sites
+    (add_noise.jl:74-82):
+
+    posterior precision = 1/var0 + sum_s count_s/std_s^2
+    posterior mean = var * (mean0/var0 + sum_s sum_s/std_s^2)
+    """
+    var0 = spec.prior_std() ** 2
+    var_s = torch.as_tensor(np.asarray(site_stds, dtype=np.float32),
+                            device=state["sums"].device) ** 2  # [S]
+    prec = 1.0 / var0 + torch.sum(state["counts"].to(torch.float32)
+                                  / var_s[None, :], dim=-1)
+    num = spec.mean / var0 + torch.sum(state["sums"] / var_s[None, :], dim=-1)
+    var = 1.0 / prec
+    return var * num, var
+
+
+def resample_mean(gen: torch.Generator, state: dict, spec: Mean,
+                  site_stds: Sequence[float]) -> dict:
+    """One draw from mean_posterior."""
+    mean, var = mean_posterior(state, spec, site_stds)
+    z = torch.randn(mean.shape, generator=gen, device=mean.device)
+    return {**state, "value": (mean + torch.sqrt(var) * z).to(torch.float32)}

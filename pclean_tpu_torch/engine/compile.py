@@ -31,8 +31,9 @@ import numpy as np
 import torch
 
 from ..dists import params as P
-from ..dists.core import (AddTypos, ChooseProportionally, ChooseUniformly,
-                          StringPrior)
+from ..dists.core import (AddNoise, AddTypos, ChooseProportionally,
+                          ChooseUniformly, StringPrior, TransformedGaussian,
+                          Unmodeled)
 from ..domains import CATEGORICAL, FLOAT, Domain, ListRegistry
 from ..model.ir import (ChoiceNode, ClassID, ComputeNode,
                         ExternalLikelihoodNode, ForeignKeyNode, Model, Node,
@@ -133,9 +134,11 @@ def compile_model(model: Model, datasets: Sequence[ObservedDataset],
     caller asks for "cpu"; raises when no card is present)."""
     cm = CompiledModel(model, resolve_device(device))
     for cid in model.class_order:
-        if any(isinstance(n, ParamLookupNode) for n in model.classes[cid].nodes):
+        if any(isinstance(n, ParamLookupNode) and n.gate_id is not None
+               for n in model.classes[cid].nodes):
             raise NotImplementedError(
-                "indexed-parameter lookups (param_lookup) are not ported yet")
+                "gated param_lookup (the flights model's trust rule) comes "
+                "with the flights slice of the port")
     _assign_domains(cm)
     _ingest(cm, datasets)
     _build_tables(cm)
@@ -439,6 +442,10 @@ def _choice_domain(cm: CompiledModel, cid: ClassID, vid: VertexID,
     if isinstance(d, AddTypos):
         assert "word" in node.arg_ids, "AddTypos word must be a model attribute"
         return _domain_of(cm, cid, node.arg_ids["word"])
+    if isinstance(d, (AddNoise, TransformedGaussian)):
+        return Domain.floating()
+    if isinstance(d, Unmodeled):
+        return Domain.categorical([])
     raise TypeError(f"distribution {type(d).__name__} is not ported yet")
 
 
@@ -614,7 +621,22 @@ def _collect_param_meta(cm: CompiledModel) -> None:
                         break
                 assert nopt is not None, f"Proportions param {node.name} unused"
                 meta["num_options"] = nopt
-            if not isinstance(node.spec, P.Proportions):
+            elif isinstance(node.spec, P.Mean):
+                # sites: AddNoise/TransformedGaussian choice nodes whose mean
+                # flows (directly or via ParamLookup) from this parameter
+                sites = []
+                for w, n2 in enumerate(c.nodes):
+                    if isinstance(n2, ChoiceNode) and \
+                            isinstance(n2.dist, (AddNoise, TransformedGaussian)):
+                        mid = n2.arg_ids.get("mean")
+                        if mid is None:
+                            continue
+                        mnode = c.nodes[mid]
+                        if mid == vid or (isinstance(mnode, ParamLookupNode)
+                                          and mnode.param_id == vid):
+                            sites.append((w, n2.dist.std))
+                meta["sites"] = sites
+            else:
                 raise TypeError(f"{type(node.spec).__name__} parameters are "
                                 "not ported yet")
             cm.param_meta[(cid, vid)] = meta
@@ -658,8 +680,12 @@ def init_state(cm: CompiledModel, key, device="cuda") -> tuple[dict, dict]:
     params: dict[ClassID, dict] = {}
     for (cid, vid), meta in cm.param_meta.items():
         spec = meta["spec"]
-        st = P.init_proportions_state(gen, spec, meta["num_options"],
-                                      meta["num_indices"], device=dev)
+        if isinstance(spec, P.Proportions):
+            st = P.init_proportions_state(gen, spec, meta["num_options"],
+                                          meta["num_indices"], device=dev)
+        else:
+            st = P.init_mean_state(gen, spec, max(len(meta["sites"]), 1),
+                                   meta["num_indices"], device=dev)
         params.setdefault(cid, {})[vid] = st
     # Pitman-Yor hyperparameters as state so they can be resampled
     # (reference PitmanYorParams, trace.jl:80-108)

@@ -2,21 +2,56 @@
 
 Counterpart of pclean_tpu/engine/gibbs_params.py (gibbs_params.py:54-224):
 the conjugate resample_value! of the reference (choose_proportionally.jl:
-70-74) and resample_py_params! (trace.jl:80-108). Sufficient statistics are
-recomputed from the arenas as dense masked reductions right before each
-resample. The main path learns Proportions only; Prob and Mean come with
-MaybeSwap / AddNoise in a later slice. Every draw takes an explicit
-torch.Generator.
+70-74, add_noise.jl:74-82) and resample_py_params! (trace.jl:80-108).
+Sufficient statistics are recomputed from the arenas as dense masked
+reductions in plain torch ops right before each resample. The port learns
+Proportions and Mean; Prob comes with MaybeSwap in a later slice. Every
+draw takes an explicit torch.Generator.
 """
 from __future__ import annotations
 
 import torch
 
 from ..dists import params as P
-from ..model.ir import ChoiceNode, ClassID, VertexID
+from ..model.ir import ChoiceNode, ClassID, ParamLookupNode, VertexID
 from ..utils import sample_gamma, scatter_add_drop
 from .compile import CompiledModel
+from .propose import _RowCtx, row_value
 from .refresh import refresh
+
+
+def mean_suffstats(cm: CompiledModel, cid: ClassID, vid: VertexID,
+                   arenas: dict, params: dict, alive) -> dict:
+    """{"counts" int32, "sums" f32} [I, S] of a Mean parameter: for each
+    site s (an AddNoise/TransformedGaussian node whose mean is the parameter
+    or a lookup of it) and each live row, one count and backward(value) at
+    the row's index (gibbs_params.py:123-146; out-of-range keys drop)."""
+    meta = cm.param_meta[(cid, vid)]
+    c = cm.cls(cid)
+    cap = cm.layouts[cid].capacity
+    I, sites = meta["num_indices"], meta["sites"]
+    S = max(len(sites), 1)
+    slots = torch.arange(cap, device=cm.device)
+    ctx = _RowCtx(cm, arenas, params, cid, slots)
+    counts = torch.zeros((I * S,), dtype=torch.int32, device=cm.device)
+    sums = torch.zeros((I * S,), dtype=torch.float32, device=cm.device)
+    for si, (w, _std) in enumerate(sites):
+        kern = cm.kernels[cm.canon(cid, w)]
+        z = kern.backward(ctx, arenas[cid]["values"][w].to(torch.float32))
+        mv = c.nodes[w].arg_ids.get("mean")
+        if mv == vid:
+            keyv = torch.zeros((cap,), dtype=torch.long, device=cm.device)
+        else:
+            pl = c.nodes[mv]
+            assert isinstance(pl, ParamLookupNode) and pl.param_id == vid
+            keyv = row_value(cm, arenas, params, cid, pl.key_id, slots).long()
+        # keys out of [0, I) drop, as the JAX scatter's mode="drop" does
+        cell = torch.where((keyv >= 0) & (keyv < I), keyv * S + si,
+                           torch.full_like(keyv, I * S))
+        counts = scatter_add_drop(counts, cell, alive.to(torch.int32))
+        sums = scatter_add_drop(sums, cell, torch.where(
+            alive, z, torch.zeros((), device=cm.device)))
+    return {"counts": counts.reshape(I, S), "sums": sums.reshape(I, S)}
 
 
 def recompute_and_resample(cm: CompiledModel, cid: ClassID, vid: VertexID,
@@ -30,6 +65,11 @@ def recompute_and_resample(cm: CompiledModel, cid: ClassID, vid: VertexID,
     lay = cm.layouts[cid]
     alive = arenas[cid]["alive"] if lay.observed else rel[cid]["alive"]
     state = params[cid][vid]
+    if isinstance(spec, P.Mean):
+        state = {**state, **mean_suffstats(cm, cid, vid, arenas, params,
+                                           alive)}
+        stds = [s for (_w, s) in meta["sites"]] or [1.0]
+        return P.resample_mean(gen, state, spec, stds)
     if not isinstance(spec, P.Proportions):
         raise TypeError(f"{type(spec).__name__} is not ported yet")
     # the unique choice node drawing from these proportions

@@ -1,8 +1,8 @@
 """Per-choice-node distribution kernels: dense tables + tensor closures.
 
-Counterpart of pclean_tpu/engine/kernels.py (kernels.py:48-311), for the
-distributions of the port's main path. Each ChoiceNode gets a DistKernel at
-model-compile time:
+Counterpart of pclean_tpu/engine/kernels.py (kernels.py:48-311, 394-474,
+690-707), for the distributions of the port's scaled and rents paths.
+Each ChoiceNode gets a DistKernel at model-compile time:
 
   * enum_logits  — the discrete proposal as a dense (masked) log-weight
                    vector over the node's Domain (reference
@@ -26,8 +26,11 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..dists.core import (AddTypos, ChooseProportionally, ChooseUniformly,
-                          StringPrior, residual_dummy_logit)
+from ..dists.core import (AddNoise, AddTypos, ChooseProportionally,
+                          ChooseUniformly, StringPrior, Transformation,
+                          TransformedGaussian, Unmodeled,
+                          residual_dummy_logit)
+from ..domains import CATEGORICAL
 from ..model.ir import ChoiceNode, ClassID, ParameterNode, VertexID
 from ..strings import typos_logdensity_matrix
 from ..utils import NEG_INF
@@ -45,6 +48,7 @@ class DistKernel:
 
     def __init__(self, cm):
         self._use = cm.use
+        self.device = cm.device
 
     def enum_logits(self, ctx):  # -> [*, V]
         raise NotImplementedError
@@ -69,6 +73,10 @@ def build_kernel(cm, cid: ClassID, vid: VertexID, node: ChoiceNode) -> DistKerne
         return _StringPriorK(cm, cid, vid, node)
     if isinstance(d, AddTypos):
         return _AddTyposK(cm, cid, vid, node)
+    if isinstance(d, (AddNoise, TransformedGaussian)):
+        return _GaussianK(cm, cid, vid, node)
+    if isinstance(d, Unmodeled):
+        return _UnmodeledK(cm, cid, vid, node)
     raise TypeError(f"{type(d).__name__} is not ported yet")
 
 
@@ -261,3 +269,106 @@ class _AddTyposK(DistKernel):
         # typo process (add_typos.jl:36-45) only matters for unobserved
         # corrupted cells, which queries never read back.
         return ctx.value(self.node.arg_ids["word"])
+
+
+class _GaussianK(DistKernel):
+    """AddNoise / TransformedGaussian (add_noise.jl:5-7,
+    transformed_gaussian.jl:13-16). Float-valued; never enumerable. The mean
+    is static, a learned Mean parameter, or a vertex (a ParamLookup of an
+    indexed Mean); the transformation is static or a categorical vertex
+    whose vocabulary holds Transformation objects."""
+
+    def __init__(self, cm, cid, vid, node):
+        super().__init__(cm)
+        self.node = node
+        d = node.dist
+        self.std = d.std
+        self.mean_vid = node.arg_ids.get("mean")
+        self.mean_param_key = None
+        if self.mean_vid is not None and \
+                isinstance(cm.node(cid, self.mean_vid), ParameterNode):
+            self.mean_param_key = cm.canon(cid, self.mean_vid)
+            self.mean_vid = None
+        self.static_mean = None if (self.mean_vid is not None or
+                                    self.mean_param_key) else float(d.mean)
+        self.transforms = None
+        self.static_transform = None
+        if isinstance(d, TransformedGaussian):
+            tv = node.arg_ids.get("transform")
+            if tv is None:
+                self.static_transform = d.transform
+            else:
+                self.transform_vid = tv
+                tdom = cm.domain(cid, tv)
+                assert tdom.kind == CATEGORICAL
+                self.transforms = list(tdom.vocab.values)
+                assert all(isinstance(t, Transformation)
+                           for t in self.transforms)
+
+    def _mean(self, ctx):
+        if self.mean_param_key is not None:
+            return ctx.pstate(*self.mean_param_key)["value"][0]
+        if self.mean_vid is not None:
+            return ctx.value(self.mean_vid)
+        return self.static_mean
+
+    def _per_unit(self, ctx, fn, x):
+        """fn(t, x) under the transformation of each value: the static one,
+        or the one the transform vertex selects (broadcast over its axes)."""
+        if self.static_transform is not None:
+            return fn(self.static_transform, x)
+        if self.transforms is None:
+            return None
+        tc = ctx.value(self.transform_vid).long().clamp(
+            0, len(self.transforms) - 1)
+        outs = torch.broadcast_tensors(
+            *[fn(t, x) + torch.zeros_like(x) for t in self.transforms], tc)
+        out = outs[0]
+        for i in range(1, len(self.transforms)):
+            out = torch.where(outs[-1] == i, outs[i], out)
+        return out
+
+    def backward(self, ctx, y):
+        z = self._per_unit(ctx, lambda t, v: t.backward(v), y)
+        return y if z is None else z
+
+    def _log_abs_deriv(self, ctx, z):
+        # `+ zeros_like`: a constant deriv comes back as a Python number
+        out = self._per_unit(ctx, lambda t, v: torch.log(torch.abs(
+            t.deriv(v) + torch.zeros_like(v))), z)
+        return 0.0 if out is None else out
+
+    def forward(self, ctx, x):
+        y = self._per_unit(ctx, lambda t, v: t.forward(v), x)
+        return x if y is None else y
+
+    def obs_logdensity(self, ctx, obs):
+        z = self.backward(ctx, obs.to(torch.float32))
+        mean = self._mean(ctx)
+        ll = -0.5 * ((z - mean) / self.std) ** 2 \
+            - math.log(self.std) - 0.5 * math.log(2 * math.pi)
+        return ll - self._log_abs_deriv(ctx, z)
+
+    def sample_prior(self, ctx, gen):
+        mean = torch.as_tensor(self._mean(ctx), dtype=torch.float32,
+                               device=self.device)
+        x = mean + self.std * torch.randn(mean.shape, generator=gen,
+                                          device=self.device)
+        return self.forward(ctx, x)
+
+
+class _UnmodeledK(DistKernel):
+    """unmodeled.jl: logdensity 0 for anything."""
+
+    supports_missing = True
+    prior_needs_key = False
+
+    def __init__(self, cm, cid, vid, node):
+        super().__init__(cm)
+        self.V = cm.domain(cid, vid).size
+
+    def obs_logdensity(self, ctx, obs):
+        return torch.zeros(obs.shape, dtype=torch.float32, device=obs.device)
+
+    def sample_prior(self, ctx, gen):
+        return torch.zeros((), dtype=torch.int32, device=self.device)

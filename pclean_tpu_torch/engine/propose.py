@@ -12,7 +12,7 @@ Where the JAX tracer runs one row under `vmap`, this tracer carries the
 batch axis explicitly: `row_slot` is [B] and every value at enumeration
 depth d has rank 1 + d — the batch axis first (size B, or 1 when the value
 is the same for every row), then the d enumeration axes (size 1 where it
-broadcasts). Three hot spots go through the hand kernels of ops.py:
+broadcasts). Five hot spots go through the hand kernels of ops.py:
 
   * K1 enum_logsumexp: score_fk's record [.., K+1] + logZ, and
     score_choice's logZ;
@@ -20,7 +20,11 @@ broadcasts). Three hot spots go through the hand kernels of ops.py:
   * K3 obs_gather_sum: the statically observed AddTypos columns of one
     enumeration context, deferred and summed in one launch at the
     context's flush (the JAX package's _matmul_obs_term/_mm_flush frames,
-    as a gather-accumulate instead of a one-hot contraction).
+    as a gather-accumulate instead of a one-hot contraction);
+  * K4 gauss_suffstats: the per-segment sufficient statistics behind a
+    closed-form Gaussian external (referrer_histograms);
+  * K5 gauss_ext_term: that external's term for every row and option of a
+    latent block (_ext_gauss_term).
 
 The sample pass draws its uniforms from a per-block pool [B, n]
 (propose.py:897-904); callers may inject the pool, which is how the tests
@@ -28,6 +32,7 @@ feed the JAX package's uniforms to the port.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Any, Optional
 
@@ -187,7 +192,9 @@ class BlockTracer:
         return row_value(self.cm, self.arenas, self.params, cls, vid, slot)
 
     def compute_value(self, vid: VertexID, node, value_of):
-        """Value of a Compute node given an arg resolver."""
+        """Value of a Compute/ParamLookup node given an arg resolver."""
+        if isinstance(node, ParamLookupNode):
+            return _lookup(self.cm, self.params, self.cid, node, value_of)
         assert isinstance(node, ComputeNode)
         if node.kind == "tensor":
             return node.fn(*[value_of(a) for a in node.arg_ids])
@@ -217,7 +224,9 @@ class BlockTracer:
         return existing, new
 
     def _taint_from_args(self, vid: VertexID, node) -> None:
-        if any(a in self.taint for a in node.arg_ids):
+        args = [node.key_id] if isinstance(node, ParamLookupNode) \
+            else node.arg_ids
+        if any(a in self.taint for a in args):
             self.taint.add(vid)
 
     def _args_untainted(self, vid: VertexID, node: ChoiceNode) -> bool:
@@ -513,7 +522,9 @@ class BlockTracer:
                 cache[svid] = v
                 return v
             snode = self.cm.node(src, svid)
-            if isinstance(snode, ComputeNode):
+            if isinstance(snode, ParamLookupNode):
+                v = _lookup(self.cm, self.params, src, snode, ext_value)
+            elif isinstance(snode, ComputeNode):
                 if snode.kind == "tensor":
                     v = snode.fn(*[ext_value(a) for a in snode.arg_ids])
                 else:
@@ -542,7 +553,9 @@ class BlockTracer:
         presummed = torch.zeros((1,) * (1 + depth), device=dev)
         if isinstance(ext, (ComputeNode, ParamLookupNode)):
             cache.pop(node.ext_id, None)
-            if ext.kind == "tensor":
+            if isinstance(ext, ParamLookupNode):
+                v = _lookup(self.cm, self.params, src, ext, ext_value)
+            elif ext.kind == "tensor":
                 v = ext.fn(*[ext_value(a) for a in ext.arg_ids])
             else:
                 tbl = self.cm.use(self.cm.tables[self.cm.canon(src, node.ext_id)])
@@ -553,6 +566,9 @@ class BlockTracer:
             hist_term = self._ext_hist_term(kern, ext, src, node.ext_id,
                                             mask, inv, depth, ext_value,
                                             path=node.path, slots=slots)
+            if hist_term is None:
+                hist_term = self._ext_gauss_term(kern, src, node.ext_id, inv,
+                                                 depth, path=node.path)
             if hist_term is not None:
                 presummed = presummed + hist_term
             else:
@@ -571,7 +587,16 @@ class BlockTracer:
                     zero = torch.zeros((), device=dev)
                     term = torch.where(st == 1, obs_t,
                                        torch.where(st == 2, miss_t, zero))
-                total = total + term
+                if all(n == 1 for n in term.shape[1:-1]):
+                    # option-independent (no enumeration axis): sum over the
+                    # referrers once instead of broadcasting into the
+                    # [B, axes..., Cs] total (propose.py:692-699)
+                    t2 = term.reshape(term.shape[0], term.shape[-1])
+                    presummed = presummed + torch.where(
+                        mask, t2, torch.zeros((), device=dev)).sum(-1) \
+                        .reshape((-1,) + (1,) * depth)
+                else:
+                    total = total + term
         elif isinstance(ext, ForeignKeyNode):
             raise NotImplementedError(
                 "external foreign-key likelihoods (DPMem-style) unsupported, "
@@ -684,6 +709,48 @@ class BlockTracer:
             (self.B,) + (1,) * depth)
         return termvec[(bidx,) + tuple(
             e.long().clamp(0, env_shape[i] - 1) for i, e in enumerate(env_idx))]
+
+    def _ext_gauss_term(self, kern, src: ClassID, ext_id: VertexID, inv,
+                        depth: int, path=None):
+        """Closed-form Gaussian external through per-segment sufficient
+        statistics (propose.py:814-872), one K5 launch.
+
+        A Gaussian external whose mean is an indexed-parameter lookup keyed
+        by a table over (overlaid env axes..., one per-referrer categorical
+        c) would otherwise build an [B, axes..., referrers] tensor. With
+        (n_c, Sz_c, Szz_c) per referrer group of the swept slot (hoisted per
+        segment by referrer_histograms, valid while the referrers are
+        frozen) the whole external is
+            -(Szz - 2 mu_c Sz_c + n_c mu_c^2) / (2 s^2) summed over c
+        plus the mean-independent normalisation and Jacobian terms pre0.
+        K5 gathers mu_c = value[tbl[env, c]] and reduces over c for every
+        (row, option). None (dense path) unless the structure matches and
+        the hoisted statistics are there."""
+        pre = self.ext_hists.get((path, ext_id))
+        if not (isinstance(pre, tuple) and pre[0] == "gauss"):
+            return None
+        _tag, n_g, sz_g, szz_g, pre0 = pre
+        cm = self.cm
+        mnode, knode = gauss_mean_lookup(cm, src, kern)
+        env_args = [a for a in knode.arg_ids
+                    if a in inv and inv[a] in self.env]
+        ref_args = [a for a in knode.arg_ids if a not in env_args]
+        if len(ref_args) != 1:
+            return None
+        order = tuple(knode.arg_ids.index(a) for a in env_args + ref_args)
+        env_shape, tbl = gauss_key_table(cm, src, mnode.key_id, order)
+        full = self._full(depth)
+        # row-major position of the env tuple in tbl's leading axes
+        idx = torch.zeros(full, dtype=torch.long, device=cm.device)
+        for a, n in zip(env_args, env_shape):
+            idx = idx * n + self.aligned(inv[a], depth).long().clamp(0, n - 1)
+        pk = cm.canon(src, mnode.param_id)
+        out = ops.gauss_ext_term(
+            self.params[pk[0]][pk[1]]["value"], cm.use(tbl),
+            idx.reshape(self.B, -1).to(torch.int32),
+            self.row_slot.to(torch.int32), n_g, sz_g, szz_g, pre0,
+            -0.5 * (1.0 / (kern.std * kern.std)))
+        return out.reshape(full)
 
     def _ext_obs(self, src: ClassID, svid: VertexID, slots):
         """Observed (value, state) of a source-class vertex over `slots`,
@@ -1006,15 +1073,101 @@ def precompute_sa_tables(cm: CompiledModel) -> None:
                 collect(step)
 
 
+def gauss_mean_lookup(cm: CompiledModel, src: ClassID, kern):
+    """(ParamLookupNode, its key's table ComputeNode) of a Gaussian kernel
+    of class src whose mean is an ungated lookup keyed by a table, the
+    shape the closed-form external takes; None otherwise."""
+    from .kernels import _GaussianK
+
+    if not isinstance(kern, _GaussianK) or kern.mean_vid is None:
+        return None
+    mnode = cm.node(src, kern.mean_vid)
+    if not isinstance(mnode, ParamLookupNode) or mnode.gate_id is not None:
+        return None
+    knode = cm.node(src, mnode.key_id)
+    if not (isinstance(knode, ComputeNode) and knode.kind == "table"):
+        return None
+    return mnode, knode
+
+
+def gauss_key_table(cm: CompiledModel, src: ClassID, key_vid: VertexID,
+                    order: tuple):
+    """(env_shape, tbl [E, C] int32): the key table of a Gaussian mean's
+    ParamLookup with its axes put in `order` (env axes..., the referrer
+    group axis) and the env axes flattened row-major, as K5 reads it;
+    cached on the model."""
+    ck = ("gauss_tbl", cm.canon(src, key_vid), order)
+    tcache = cm.__dict__.setdefault("_gauss_tbl_cache", {})
+    if ck not in tcache:
+        t = np.transpose(cm.tables[cm.canon(src, key_vid)], order)
+        tcache[ck] = (t.shape[:-1], np.ascontiguousarray(
+            t.reshape(-1, t.shape[-1]), dtype=np.int32))
+    return tcache[ck]
+
+
+class _RowCtx:
+    """Kernel ctx resolving every argument by row_value over `slots`."""
+
+    def __init__(self, cm, arenas, params, cls, slots):
+        self.cm, self.arenas, self.params = cm, arenas, params
+        self.cls, self.slots = cls, slots
+
+    def value(self, vid):
+        return row_value(self.cm, self.arenas, self.params, self.cls, vid,
+                         self.slots)
+
+    def pstate(self, cid, vid):
+        return self.params[cid][vid]
+
+
+def gauss_stats_inputs(cm: CompiledModel, arenas: dict, params: dict,
+                       rel: dict, obs_arrays: dict, cap: int, node, kern,
+                       inv):
+    """K4's arguments for the Gaussian external `node` of a class of
+    capacity `cap` (propose.py:1300-1347): dict(t, rv, w, z, ld, const,
+    cap, C) over every source row, with z = backward(value) and ld =
+    log|deriv| from the model's Transformation callables; None where
+    _ext_gauss_term cannot use the statistics."""
+    src = node.path[-1][0]
+    lookup = gauss_mean_lookup(cm, src, kern)
+    if lookup is None:
+        return None
+    knode = lookup[1]
+    ref_args = [a for a in knode.arg_ids if a not in inv]
+    if len(ref_args) != 1:
+        return None
+    rdom = cm.domain(src, ref_args[0])
+    oa = obs_arrays.get(src, {}).get(node.ext_id)
+    if rdom is None or rdom.kind == FLOAT or oa is None:
+        return None
+    slots = torch.arange(cm.layouts[src].capacity, device=cm.device)
+    codes, state = oa
+    stored = row_value(cm, arenas, params, src, node.ext_id, slots)
+    val = torch.where(state == 1, codes, stored.to(codes.dtype))
+    w = rel[src]["alive"] & (state == 1)
+    t = None
+    for (hop_cid, hop_fk) in reversed(node.path):
+        col = arenas[hop_cid]["values"][hop_fk]
+        t = col if t is None else take(col, t)
+    rctx = _RowCtx(cm, arenas, params, src, slots)
+    z = kern.backward(rctx, val.to(torch.float32))
+    ld = kern._log_abs_deriv(rctx, z) + torch.zeros_like(z)
+    rv = row_value(cm, arenas, params, src, ref_args[0], slots)
+    const = -math.log(kern.std) - 0.5 * math.log(2.0 * math.pi)
+    return dict(t=t.to(torch.int32), rv=rv.to(torch.int32), w=w, z=z, ld=ld,
+                const=const, cap=cap, C=rdom.size)
+
+
 def referrer_histograms(cm: CompiledModel, cid: ClassID, arenas: dict,
                         params: dict, rel: dict, obs_arrays: dict) -> dict:
-    """{(path, ext_id): [cap, V] float32}: the referrer-observation
-    histograms behind every hoistable AddTypos external of class `cid`, for
-    all swept slots at once (loop-invariant during cid's own sweep: its
-    referrers are frozen). Same size gate as the JAX package (cap * V <=
-    32M); above it the tracer builds per-row histograms instead. The
-    Gaussian sufficient statistics (rents) come with AddNoise later."""
-    from .kernels import _AddTyposK
+    """{(path, ext_id): [cap, V] float32 or a ("gauss", ...) tuple}: the
+    referrer-observation histograms behind every hoistable AddTypos
+    external of class `cid`, and the Gaussian sufficient statistics behind
+    every closed-form Gaussian external (gauss_stats_inputs), for all swept
+    slots at once (loop-invariant during cid's own sweep: its referrers are
+    frozen). Same size gate as the JAX package (cap * V <= 32M); above it
+    the tracer builds per-row histograms instead."""
+    from .kernels import _AddTyposK, _GaussianK
 
     out: dict = {}
     cap = cm.layouts[cid].capacity
@@ -1030,6 +1183,13 @@ def referrer_histograms(cm: CompiledModel, cid: ClassID, arenas: dict,
                 vmap = cm.cls(cid).incoming_references[node.path]
                 inv = {sv: tv for tv, sv in vmap.items()}
                 key = (node.path, node.ext_id)
+                if isinstance(kern, _GaussianK) and key not in out:
+                    # per (swept slot, referrer group) sufficient statistics
+                    # and the mean-independent presum, one K4 launch
+                    g = gauss_stats_inputs(cm, arenas, params, rel,
+                                           obs_arrays, cap, node, kern, inv)
+                    if g is not None:
+                        out[key] = ("gauss",) + ops.gauss_suffstats(**g)
                 if isinstance(kern, _AddTyposK) and word_sv in inv \
                         and key not in out and cap * kern.V <= 32_000_000:
                     t = None
@@ -1089,7 +1249,18 @@ def row_value(cm: CompiledModel, arenas: dict, params: dict, cls: ClassID,
         tbl = cm.use(cm.tables[cm.canon(cls, vid)])
         return _tbl_get(tbl, [row_value(cm, arenas, params, cls, a, slot)
                               for a in node.arg_ids])
+    if isinstance(node, ParamLookupNode):
+        return _lookup(cm, params, cls, node, lambda a: row_value(
+            cm, arenas, params, cls, a, slot))
     raise TypeError(type(node))
+
+
+def _lookup(cm: CompiledModel, params: dict, cid: ClassID,
+            node: ParamLookupNode, value_of):
+    """param.value[key] of an (ungated) ParamLookupNode of class cid; the
+    key index clamps like the JAX gather."""
+    pc, pv = cm.canon(cid, node.param_id)
+    return take(params[pc][pv]["value"], value_of(node.key_id))
 
 
 def _fk(cm: CompiledModel, cid: ClassID, vid: VertexID) -> ForeignKeyNode:

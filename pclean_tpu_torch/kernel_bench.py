@@ -29,6 +29,11 @@ of many calls. Two yardsticks stand beside K1's device time, both timed
 the same way and never called by the port: `library_device_ms`, one
 torch.logsumexp over the same rows, and the launch floor
 (`launch_floor_ms`), one PyTorch op on one element.
+
+K4 and K5 (the rents path's Gaussian statistics and external term) take
+their inputs from the rents model's own state (`rents_inputs`): K4 over
+every Obs row into County's slots, K5 over a County batch of B rows and
+the state axis.
 """
 from __future__ import annotations
 
@@ -279,6 +284,150 @@ def check_k3(ops, mats, obs, word) -> float:
     torch.cuda.synchronize()
     require(torch.equal(o0, o1), "K3 differs from the plain version")
     return float((o1 - o0).abs().max())
+
+
+def gauss_external(cm, cid="County"):
+    """(node, kern, inv) of class cid's Gaussian external (the rents
+    model's rent likelihood seen from County)."""
+    from .engine.kernels import _GaussianK
+    from .model.ir import ExternalLikelihoodNode
+
+    c = cm.cls(cid)
+    for node in c.nodes:
+        if isinstance(node, ExternalLikelihoodNode):
+            kern = cm.kernels.get(cm.canon(node.path[-1][0], node.ext_id))
+            if isinstance(kern, _GaussianK):
+                inv = {sv: tv for tv, sv in
+                       c.incoming_references[node.path].items()}
+                return node, kern, inv
+    raise ValueError(f"{cid} has no Gaussian external")
+
+
+def rents_inputs(cm, arenas, params, obs_dev, B: int) -> dict:
+    """K4's and K5's inputs at the shapes the rents path launches them at,
+    from the rents model's state: K4 over every Obs row into County's
+    slots (propose.gauss_stats_inputs); K5 over the first B live County
+    slots and every state, with the statistics K4 makes of that state, the
+    indexed Mean's values and the key table in the order _ext_gauss_term
+    reads it (idx[b, a] = the row-major position of (state a, slot b's
+    county key)). Returns dict(k4=..., k5=...)."""
+    from . import ops
+    from .engine.propose import (gauss_key_table, gauss_mean_lookup,
+                                 gauss_stats_inputs)
+    from .engine.refresh import refresh
+
+    node, kern, inv = gauss_external(cm)
+    src = node.path[-1][0]
+    rel = refresh(cm, arenas, obs_dev)
+    cap = cm.layouts["County"].capacity
+    k4 = gauss_stats_inputs(cm, arenas, params, rel, obs_dev, cap, node,
+                            kern, inv)
+    n, sz, szz, pre0 = ops.gauss_suffstats_plain(**k4)
+    mnode, knode = gauss_mean_lookup(cm, src, kern)
+    env = [a for a in knode.arg_ids if a in inv]
+    ref = [a for a in knode.arg_ids if a not in inv]
+    order = tuple(knode.arg_ids.index(a) for a in env + ref)
+    env_shape, tbl = gauss_key_table(cm, src, mnode.key_id, order)
+    slots = torch.nonzero(rel["County"]["alive"])[:B, 0]
+    A = cm.domain("County", cm.cls("County").names["state"]).size
+    idx = torch.zeros((len(slots), A), dtype=torch.long, device=cm.device)
+    state_vid = cm.cls("County").names["state"]
+    for a, size in zip(env, env_shape):
+        if inv[a] == state_vid:  # the enumerated axis
+            v = torch.arange(A, device=cm.device)[None, :]
+        else:
+            v = arenas["County"]["values"][inv[a]][slots][:, None].long()
+        idx = idx * size + v.clamp(0, size - 1)
+    pv = cm.canon(src, mnode.param_id)
+    k5 = dict(values=params[pv[0]][pv[1]]["value"], tbl=cm.use(tbl),
+              idx=idx.to(torch.int32), slot=slots.to(torch.int32), n=n,
+              sz=sz, szz=szz, pre0=pre0,
+              coef=-0.5 * (1.0 / (kern.std * kern.std)))
+    return dict(k4=k4, k5=k5)
+
+
+def check_k4(ops, k4: dict) -> float:
+    """n equal to the plain version's; sz, szz and pre0 within rtol 1e-5 of
+    each cell's sum of |terms| (the atomics add in another order). Returns
+    the largest |difference|."""
+    got = ops.gauss_suffstats(**k4)
+    want = ops.gauss_suffstats_plain(**k4)
+    mag = ops.gauss_suffstats_plain(**dict(
+        k4, z=k4["z"].abs(), ld=-(k4["const"] - k4["ld"]).abs(), const=0.0))
+    torch.cuda.synchronize()
+    require(torch.equal(got[0], want[0]), "K4 n differs from the plain "
+            "version")
+    err = 0.0
+    for i, nm in ((1, "sz"), (2, "szz"), (3, "pre0")):
+        d = (got[i] - want[i]).abs()
+        require(bool((d <= 1e-5 * mag[i] + 1e-6).all()),
+                f"K4 {nm} differs by {float(d.max())}")
+        err = max(err, float(d.max()))
+    return err
+
+
+def check_k5(ops, k5: dict) -> float:
+    """Within 2^-20 * |coef| * (|sum szz| + 2 |sum mu sz| + |sum mu^2 n|)
+    + 1e-5 of the plain version (the three f32 sums in another order, then
+    subtracted). Returns the largest |difference|."""
+    got = ops.gauss_ext_term(**k5)
+    want = ops.gauss_ext_term_plain(**k5)
+    a_szz, a_sz, a_n = ops.gauss_ext_term_parts(
+        k5["values"], k5["tbl"], k5["idx"], k5["slot"], k5["n"], k5["sz"],
+        k5["szz"])
+    scale = abs(k5["coef"]) * (a_szz.abs() + 2 * a_sz.abs() + a_n.abs())
+    torch.cuda.synchronize()
+    d = (got - want).abs()
+    require(bool((d <= 2.0 ** -20 * scale + 1e-5).all()),
+            f"K5 differs by {float(d.max())}")
+    return float(d.max())
+
+
+def k4_bytes(k4: dict) -> int:
+    """K4's bytes: t, rv, z, ld (4 B) and w (1 B) of every referrer read
+    once, n, sz, szz and pre0 written once."""
+    R = k4["z"].shape[0]
+    return R * 17 + (3 * k4["cap"] * k4["C"] + k4["cap"]) * 4
+
+
+def k5_bytes(k5: dict) -> int:
+    """K5's bytes on these inputs: idx and out [B, A], the slots, each key
+    table row and Mean value the batch touches, and the B slots' statistics
+    (3 C + 1 floats), each once."""
+    idx, tbl = k5["idx"], k5["tbl"]
+    B, A = idx.shape
+    C = tbl.shape[1]
+    rows = torch.unique(idx.long().clamp(0, tbl.shape[0] - 1))
+    vals = torch.unique(tbl[rows].long())
+    nslot = int(torch.unique(k5["slot"]).numel())
+    return (2 * B * A * 4 + B * 4 + int(rows.numel()) * C * 4
+            + int(vals.numel()) * 4 + nslot * (3 * C + 1) * 4)
+
+
+def time_k45(ops, inp: dict) -> dict:
+    """{kernel: {ms, device_ms, plain_ms, library_ms}} of K4 and K5 on
+    rents_inputs (ms, plain_ms, library_ms: cuda_ms; device_ms: graph_ms).
+    K4's library call: one index_add_ of the stacked [R, 3] statistics
+    (1, z, z^2) into [cap * C, 3] (the pre0 sum left out); K5 has none."""
+    k4, k5 = inp["k4"], inp["k5"]
+    res = {}
+    for name, fn, plain in (
+            ("gauss_suffstats", lambda: ops.gauss_suffstats(**k4),
+             lambda: ops.gauss_suffstats_plain(**k4)),
+            ("gauss_ext_term", lambda: ops.gauss_ext_term(**k5),
+             lambda: ops.gauss_ext_term_plain(**k5))):
+        res[name] = dict(ms=cuda_ms(fn), device_ms=graph_ms(fn),
+                         plain_ms=cuda_ms(plain), library_ms=None)
+    ok = k4["w"] & (k4["t"] >= 0) & (k4["t"] < k4["cap"]) & \
+        (k4["rv"] >= 0) & (k4["rv"] < k4["C"])
+    cell = torch.where(ok, k4["t"].long() * k4["C"] + k4["rv"].long(),
+                       torch.zeros_like(k4["t"].long()))
+    z = torch.where(ok, k4["z"], torch.zeros_like(k4["z"]))
+    stacked = torch.stack([ok.float(), z, z * z], 1)
+    out = torch.zeros((k4["cap"] * k4["C"], 3), device=z.device)
+    res["gauss_suffstats"]["library_ms"] = cuda_ms(
+        lambda: out.index_add_(0, cell, stacked))
+    return res
 
 
 def kernel_bytes(inp: dict) -> dict:

@@ -36,10 +36,12 @@ from typing import Any, Callable, Optional, Sequence
 
 from ..dists.base import ParamRef, PCleanDistribution, Ref
 from ..dists.core import (
+    AddNoise,
     AddTypos,
     ChooseProportionally,
     ChooseUniformly,
     StringPrior,
+    TransformedGaussian,
 )
 from ..dists.params import ParamSpec
 from .graph import DiGraph, connected_components, in_topological_order
@@ -71,6 +73,8 @@ DIST_SLOTS: dict[type, list[str]] = {
     ChooseUniformly: ["options"],
     StringPrior: ["atoms"],
     AddTypos: ["word"],
+    AddNoise: ["mean"],
+    TransformedGaussian: ["mean", "transform"],
 }
 
 

@@ -1,7 +1,7 @@
 """The port's hand-written CUDA kernels: build, bind, plain versions, counts.
 
-Three kernels carry the block enumeration of the batched MH path (sources in
-pclean_tpu_torch/csrc/, each with a header note on the JAX computation it
+Five kernels carry the block enumeration of the batched MH path (sources
+in pclean_tpu_torch/csrc/, each with a header note on the JAX computation it
 replaces, its bound on the H100 and its design):
 
   K1 enum_logsumexp  — record [R, K+1] = [exist, new] and logZ [R] in one
@@ -10,7 +10,12 @@ replaces, its bound on the H100 and its design):
                        (propose.py _inv_cdf_from_u);
   K3 obs_gather_sum  — out[b, k] = sum_c M_c[obs[b, c], word[c, k]], the
                        AddTypos observed-column score (propose.py
-                       _matmul_obs_term/_mm_flush and the eager gather).
+                       _matmul_obs_term/_mm_flush and the eager gather);
+  K4 gauss_suffstats — per (slot, group) Gaussian sufficient statistics of
+                       a latent class's referrers (propose.py
+                       referrer_histograms' gauss_stats scatters);
+  K5 gauss_ext_term  — the closed-form Gaussian external of a latent block
+                       from those statistics (propose.py _ext_gauss_term).
 
 Each has a plain PyTorch version here. A wrapper takes the plain version
 only for tensors on the CPU; for CUDA tensors it launches its kernel or
@@ -20,9 +25,10 @@ raises. `LAUNCHES` counts kernel launches (plain calls are not counted);
 `LAUNCH_CENSUS` splits K1's and K2's further by mode and row length.
 Each kernel takes a launch plan (path and geometry: threads, tiles,
 cluster, shared memory, grid) from a function of its shapes alone,
-`enum_logsumexp_plan`, `inv_cdf_plan` and `obs_gather_plan`; the C entry
-points launch the plan they are given, so the plan the CPU tests check is
-the one launched.
+`enum_logsumexp_plan`, `inv_cdf_plan`, `obs_gather_plan`,
+`gauss_suffstats_plan` and `gauss_ext_term_plan`; the C entry points launch
+the plan they are given, so the plan the CPU tests check is the one
+launched.
 
 Build: one `nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared` per
 source, all started together, into pclean_tpu_torch/_build/ (listed in
@@ -50,6 +56,8 @@ _SOURCES = {
     "enum_logsumexp": "enum_logsumexp.cu",
     "inv_cdf_sample": "inv_cdf_sample.cu",
     "obs_gather_sum": "obs_gather_sum.cu",
+    "gauss_suffstats": "gauss_suffstats.cu",
+    "gauss_ext_term": "gauss_ext_term.cu",
 }
 LAUNCHES = {name: 0 for name in _SOURCES}
 LAUNCHES_BY_SHAPE = {name: {"r1": 0, "rn": 0} for name in _SOURCES}
@@ -149,21 +157,25 @@ def build_kernels(force: bool = False) -> float:
                 os.replace(tmp, out)
         if failed:
             raise RuntimeError("CUDA kernel build failed\n" + "\n".join(failed))
-        P, I64 = ctypes.c_void_p, ctypes.c_int64
+        P, I64, I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+        F32 = ctypes.c_float
+        argtypes = {
+            "enum_logsumexp": [P, P, P, P, I64, I64, I32, I32, I32, I32, I64,
+                               I64, P],
+            "inv_cdf_sample": [P, P, P, I64, I64, I64, I32, P],
+            "obs_gather_sum": [ctypes.POINTER(I64),
+                               ctypes.POINTER(ctypes.c_int32), P, P, P, I64,
+                               I64, I32, I32, I32, I64, I32, I64, I64, P],
+            "gauss_suffstats": [P, P, P, P, P, F32, P, P, P, P, I64, I64, I32,
+                                I32, I64, P],
+            "gauss_ext_term": [P, I64, P, I64, I32, P, P, P, P, P, P, I64,
+                               F32, P, I64, I64, I32, I64, P],
+        }
         for name in _SOURCES:
             lib = ctypes.CDLL(os.path.join(BUILD_DIR, f"lib{name}.so"))
             fn = getattr(lib, f"pclean_{name}")
             fn.restype = ctypes.c_int
-            I32 = ctypes.c_int
-            if name == "enum_logsumexp":
-                fn.argtypes = [P, P, P, P, I64, I64, I32, I32, I32, I32, I64,
-                               I64, P]
-            elif name == "inv_cdf_sample":
-                fn.argtypes = [P, P, P, I64, I64, I64, ctypes.c_int, P]
-            else:
-                fn.argtypes = [ctypes.POINTER(I64),
-                               ctypes.POINTER(ctypes.c_int32), P, P, P, I64,
-                               I64, I32, I32, I32, I64, I32, I64, I64, P]
+            fn.argtypes = argtypes[name]
             _libs[name] = fn
         return time.time() - t0
 
@@ -350,8 +362,8 @@ def inv_cdf_plan(K: int) -> dict:
     """K2's launch, one 512-thread block per row: dict(path, tile, smem). A
     row of K floats that fits in shared memory (with 4 floats to align it
     and room for the kernel's own scan buffers) is read once ("smem", tile
-    = K); a longer one streams through a 64 KB tile ("stream"). smem is the
-    dynamic shared memory in bytes."""
+    = K, at least 4); a longer one streams through a 64 KB tile ("stream").
+    smem is the dynamic shared memory in bytes."""
     return dict(_inv_cdf_plan(int(K)))
 
 
@@ -360,7 +372,9 @@ def _inv_cdf_plan(K: int) -> dict:
     if K < 1 or K > _K2_MAX_K:
         raise ValueError(f"inv_cdf_sample: K must lie in [1, {_K2_MAX_K}]")
     if (K + 4) * 4 <= SMEM_MAX - _K2_STATIC_SMEM:
-        path, tile = "smem", K
+        # the entry takes tiles of >= 4 floats; a row of 1-3 (the rents
+        # model's 2-unit choice) is still read whole
+        path, tile = "smem", max(K, 4)
     else:
         path, tile = "stream", _K2_STREAM_TILE
     return dict(path=path, tile=tile, smem=(min(tile, K) + 4) * 4)
@@ -494,4 +508,136 @@ def obs_gather_sum(mats, obs: torch.Tensor, word: torch.Tensor) -> torch.Tensor:
             *plan["grid"], _stream(obs))
         _check(rc, "obs_gather_sum")
         _count("obs_gather_sum", B)
+    return out
+
+
+# ---------------------------------------------------------------- K4
+
+_K45_THREADS = 256
+
+
+def gauss_suffstats_plan(R: int) -> dict:
+    """K4's launch over R referrers: one thread a referrer, dict(threads,
+    grid)."""
+    return dict(threads=_K45_THREADS, grid=max(1, -(-int(R) // _K45_THREADS)))
+
+
+def gauss_suffstats_plain(t, rv, w, z, ld, const: float, cap: int, C: int):
+    """(n, sz, szz [cap, C], pre0 [cap]) f32: the scatters of
+    pclean_tpu.engine.propose.referrer_histograms' gauss_stats, in referrer
+    order. A referrer counts where w is set; (t, rv) out of range drops it
+    from n/sz/szz, t out of range from pre0 too (mode="drop")."""
+    ok = w & (t >= 0) & (t < cap)
+    ok2 = ok & (rv >= 0) & (rv < C)
+    cell = (t.long() * C + rv.long())[ok2]
+    zz = z[ok2]
+    stats = torch.zeros((3, cap * C), dtype=torch.float32, device=z.device)
+    stats[0].index_add_(0, cell, torch.ones_like(zz))
+    stats[1].index_add_(0, cell, zz)
+    stats[2].index_add_(0, cell, zz * zz)
+    pre0 = torch.zeros((cap,), dtype=torch.float32, device=z.device)
+    pre0.index_add_(0, t.long()[ok], (const - ld)[ok].to(torch.float32))
+    n, sz, szz = (x.reshape(cap, C) for x in stats)
+    return n, sz, szz, pre0
+
+
+def gauss_suffstats(t, rv, w, z, ld, const: float, cap: int, C: int):
+    """K4. t, rv [R] int32, w [R] bool, z, ld [R] f32, the scalar const ->
+    (n, sz, szz [cap, C], pre0 [cap]) f32, as gauss_suffstats_plain."""
+    if not _route(z, "gauss_suffstats"):
+        return gauss_suffstats_plain(t, rv, w, z, ld, const, cap, C)
+    t, rv = t.to(torch.int32).contiguous(), rv.to(torch.int32).contiguous()
+    w = w.to(torch.bool).contiguous()
+    z, ld = z.contiguous(), ld.contiguous()
+    for x, dt, nm in ((t, torch.int32, "t"), (rv, torch.int32, "rv"),
+                      (w, torch.bool, "w"), (z, torch.float32, "z"),
+                      (ld, torch.float32, "ld")):
+        _need(x, dt, f"gauss_suffstats {nm}", 1)
+        if x.shape != z.shape or not x.is_cuda:
+            raise ValueError("gauss_suffstats: t, rv, w, z and ld must be "
+                             "CUDA vectors of one length")
+    R = z.shape[0]
+    plan = gauss_suffstats_plan(R)
+    buf = torch.zeros((3 * cap * C + cap,), dtype=torch.float32,
+                      device=z.device)
+    n, sz, szz = (buf[i * cap * C:(i + 1) * cap * C].view(cap, C)
+                  for i in range(3))
+    pre0 = buf[3 * cap * C:]
+    rc = _fn("gauss_suffstats")(
+        _ptr(t), _ptr(rv), _ptr(w), _ptr(z), _ptr(ld), float(const),
+        _ptr(n), _ptr(sz), _ptr(szz), _ptr(pre0), R, cap, C,
+        plan["threads"], plan["grid"], _stream(z))
+    _check(rc, "gauss_suffstats")
+    _count("gauss_suffstats", R)
+    return n, sz, szz, pre0
+
+
+# ---------------------------------------------------------------- K5
+
+
+def gauss_ext_term_plan(B: int, A: int) -> dict:
+    """K5's launch over B rows of A options: one thread an output, dict(
+    threads, grid)."""
+    return dict(threads=_K45_THREADS,
+                grid=max(1, -(-int(B) * int(A) // _K45_THREADS)))
+
+
+def gauss_ext_term_parts(values, tbl, idx, slot, n, sz, szz):
+    """The three sums of the closed form, [B, A] each: sum_c szz[s_b, c],
+    sum_c mu sz[s_b, c] and sum_c mu^2 n[s_b, c] with mu = values[tbl[idx,
+    c]] (gathers clamped)."""
+    s = slot.long().clamp(0, n.shape[0] - 1)
+    rows = tbl[idx.long().clamp(0, tbl.shape[0] - 1)]             # [B, A, C]
+    mu = values[rows.long().clamp(0, values.shape[0] - 1)]
+    a_szz = szz[s].sum(-1)[:, None].expand(idx.shape)
+    a_sz = (mu * sz[s][:, None, :]).sum(-1)
+    a_n = (mu * mu * n[s][:, None, :]).sum(-1)
+    return a_szz, a_sz, a_n
+
+
+def gauss_ext_term_plain(values, tbl, idx, slot, n, sz, szz, pre0,
+                         coef: float):
+    """coef * (sum szz - 2 sum mu sz + sum mu^2 n) + pre0[slot] -> [B, A],
+    the formula of pclean_tpu.engine.propose._ext_gauss_term."""
+    a_szz, a_sz, a_n = gauss_ext_term_parts(values, tbl, idx, slot, n, sz,
+                                            szz)
+    s = slot.long().clamp(0, n.shape[0] - 1)
+    return coef * (a_szz - 2.0 * a_sz + a_n) + pre0[s][:, None]
+
+
+def gauss_ext_term(values, tbl, idx, slot, n, sz, szz, pre0, coef: float):
+    """K5. values [I] f32, tbl [E, C] int32, idx [B, A] int32, slot [B]
+    int32, n, sz, szz [cap, C] f32, pre0 [cap] f32, coef = -1/(2 std^2) ->
+    [B, A] f32, as gauss_ext_term_plain."""
+    if not _route(idx, "gauss_ext_term"):
+        return gauss_ext_term_plain(values, tbl, idx, slot, n, sz, szz, pre0,
+                                    coef)
+    values = values.contiguous()
+    tbl = tbl.to(torch.int32).contiguous()
+    idx = idx.to(torch.int32).contiguous()
+    slot = slot.to(torch.int32).contiguous()
+    n, sz, szz, pre0 = (x.contiguous() for x in (n, sz, szz, pre0))
+    _need(values, torch.float32, "gauss_ext_term values", 1)
+    _need(tbl, torch.int32, "gauss_ext_term tbl", 2)
+    _need(idx, torch.int32, "gauss_ext_term idx", 2)
+    _need(slot, torch.int32, "gauss_ext_term slot", 1)
+    for x, nm in ((n, "n"), (sz, "sz"), (szz, "szz")):
+        _need(x, torch.float32, f"gauss_ext_term {nm}", 2)
+    _need(pre0, torch.float32, "gauss_ext_term pre0", 1)
+    B, A = idx.shape
+    cap, C = n.shape
+    if not (slot.shape[0] == B and tbl.shape[1] == C
+            and sz.shape == n.shape == szz.shape and pre0.shape[0] == cap):
+        raise ValueError("gauss_ext_term: shapes do not agree")
+    if not all(x.is_cuda for x in (values, tbl, slot, n, sz, szz, pre0)):
+        raise ValueError("gauss_ext_term: every input must be on the card")
+    plan = gauss_ext_term_plan(B, A)
+    out = torch.empty((B, A), dtype=torch.float32, device=idx.device)
+    rc = _fn("gauss_ext_term")(
+        _ptr(values), values.shape[0], _ptr(tbl), tbl.shape[0], C, _ptr(idx),
+        _ptr(slot), _ptr(n), _ptr(sz), _ptr(szz), _ptr(pre0), cap,
+        float(coef), _ptr(out), B, A, plan["threads"], plan["grid"],
+        _stream(idx))
+    _check(rc, "gauss_ext_term")
+    _count("gauss_ext_term", B)
     return out

@@ -175,7 +175,8 @@ def assert_rel_equal(rj, rt, what=""):
 def test_port_imports_neither_jax_nor_pclean_tpu():
     code = ("import sys; import pclean_tpu_torch, pclean_tpu_torch.ops, "
             "pclean_tpu_torch.engine.smc, pclean_tpu_torch.analysis, "
-            "pclean_tpu_torch.convert, pclean_tpu_torch.workloads.scaled; "
+            "pclean_tpu_torch.convert, pclean_tpu_torch.workloads.scaled, "
+            "pclean_tpu_torch.workloads.rents; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'pclean_tpu' or "
             "m.startswith('pclean_tpu.')); print(bad); "
@@ -219,6 +220,21 @@ def test_entry_points_refuse_cpu_fallback():
         TEngine(cm, TConfig(batch_rows=4))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         to_torch({"x": np.zeros(3)})
+
+
+def test_param_state_builders_refuse_cpu_fallback():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from pclean_tpu_torch.dists import params as tparams
+
+    gen = torch.Generator()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tparams.init_proportions_state(gen, td.Proportions(), 3)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tparams.init_mean_state(gen, td.Mean(1500.0, 1000.0), 1, 4)
+    st = tparams.init_mean_state(gen, td.Mean(1500.0, 1000.0), 1, 4,
+                                 device="cpu")
+    assert st["value"].shape == (4,) and st["counts"].shape == (4, 1)
 
 
 # ------------------------------------------------------- host + compile

@@ -1,4 +1,4 @@
-"""The port's three hand kernels: plain versions against their JAX
+"""The port's hand kernels: plain versions against their JAX
 counterparts (CPU), and CUDA kernels against the plain versions (card only).
 
   K1 enum_logsumexp — pclean_tpu.utils.logsumexp over concat([exist, new])
@@ -8,6 +8,13 @@ counterparts (CPU), and CUDA kernels against the plain versions (card only).
      uniforms: equal indices, dead (NEG_INF) entries never drawn.
   K3 obs_gather_sum — sum of AddTypos gathers M_c[obs_c, word_c], and the
      one-hot contraction of _matmul_obs_term/_mm_flush: rtol 1e-5.
+  K4 gauss_suffstats and K5 gauss_ext_term — the rents path's Gaussian
+     statistics and closed-form external; their plain versions are held to
+     the JAX package in tests/test_torch_rents.py, and here on the card the
+     kernels to the plain versions (kernel_bench.check_k4 / check_k5) at
+     the rents shapes and the edges: all referrers dead, a group with no
+     referrers, slots and groups out of range, C = 1, one slot taking
+     20,000 referrers, and one row for K5.
 
 The launch plans of K1, K2 and K3 (path, geometry and tile sizes, a
 function of the shapes alone) are checked here for legal geometry on the
@@ -116,6 +123,34 @@ def test_wrappers_take_plain_version_on_cpu_without_counting():
     assert all(v == 0 for v in ops.LAUNCHES.values())
     assert all(v == {"r1": 0, "rn": 0} for v in ops.LAUNCHES_BY_SHAPE.values())
     assert not any(ops.LAUNCH_CENSUS.values())
+
+
+def test_gauss_wrappers_take_plain_version_on_cpu_without_counting():
+    ops.reset_counts()
+    z = torch.ones(4)
+    t = torch.tensor([0, 1, 1, 9], dtype=torch.int32)
+    n, sz, szz, pre0 = ops.gauss_suffstats(t, torch.zeros(4, dtype=torch.int32),
+                                           torch.ones(4, dtype=torch.bool), z,
+                                           torch.zeros(4), 1.0, 2, 1)
+    assert n[:, 0].tolist() == [1.0, 2.0] and pre0.tolist() == [1.0, 2.0]
+    out = ops.gauss_ext_term(torch.ones(3), torch.zeros((2, 1),
+                                                        dtype=torch.int32),
+                             torch.zeros((1, 2), dtype=torch.int32),
+                             torch.zeros(1, dtype=torch.int32), n, sz, szz,
+                             pre0, -0.5)
+    # -0.5 * (1 - 2 * 1 + 1) + 1 for slot 0's single referrer at z = mu = 1
+    assert out.tolist() == [[1.0, 1.0]]
+    assert all(v == 0 for v in ops.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("R,B,A", [(50_000, 256, 51), (1, 1, 1),
+                                   (0, 1, 51), (2 ** 24, 4096, 51)])
+def test_gauss_plans_cover_their_work(R, B, A):
+    p4 = ops.gauss_suffstats_plan(R)
+    assert p4["threads"] == 256 and p4["grid"] * 256 >= R >= (p4["grid"] - 1) * 256
+    p5 = ops.gauss_ext_term_plan(B, A)
+    assert p5["threads"] == 256 and p5["grid"] * 256 >= B * A
+    assert (p5["grid"] - 1) * 256 < B * A
 
 
 def test_census_counts_launches_by_mode_rows_and_length():
@@ -361,8 +396,19 @@ def test_k1_cuda_dead_rows(card, K, path):
     _k1_check(ex, new, path)
 
 
+@pytest.mark.parametrize("K", [1, 2, 3])
+def test_k2_plan_reads_rows_shorter_than_a_tile_whole(K):
+    # the rents model's unit choice draws from 2 options; the entry takes
+    # tiles of >= 4 floats and holds min(tile, K) of them
+    plan = ops.inv_cdf_plan(K)
+    assert (plan["path"], plan["tile"], plan["smem"]) == ("smem", 4,
+                                                          (K + 4) * 4)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("R,K", [
+    (256, 2),            # the rents unit choice, batched
+    (1, 2),              # and at one row
     (4096, 1473),        # County's axis: K not a multiple of any tile
     (4096, MAIN_K + 1),  # the batch shape
     (1, MAIN_K + 1),     # the sequential shape
@@ -445,3 +491,82 @@ def test_k3_cuda_bit_equal(card, B, K, Vs):
     obs[0, 0] = -3      # codes out of range clamp like the JAX gathers
     word[-1, 0] = Vs[-1] + 5
     check_k3(ops, mats, obs, word)
+
+
+def _k4_inputs(card, rng, R, cap, C, dead=0.2):
+    return dict(
+        t=torch.as_tensor(rng.integers(0, cap, R).astype(np.int32),
+                          device=card),
+        rv=torch.as_tensor(rng.integers(0, C, R).astype(np.int32),
+                           device=card),
+        w=torch.as_tensor(rng.random(R) >= dead, device=card),
+        z=torch.as_tensor(rng.normal(1500, 700, R).astype(np.float32),
+                          device=card),
+        ld=torch.as_tensor(np.where(rng.random(R) < 0.1, np.log(1000.0), 0.0)
+                           .astype(np.float32), device=card),
+        const=-5.9295738, cap=cap, C=C)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["rents", "all_dead", "empty_group",
+                                  "out_of_range", "C1", "crowded"])
+def test_k4_cuda_matches_plain(card, case):
+    from pclean_tpu_torch.kernel_bench import check_k4
+
+    rng = np.random.default_rng(11)
+    R, cap, C = 50_000, 4096, 5   # the rents path: Obs rows into County
+    if case == "C1":
+        C = 1
+    k4 = _k4_inputs(card, rng, R, cap, C)
+    if case == "all_dead":
+        k4["w"] = torch.zeros_like(k4["w"])
+    elif case == "empty_group":
+        k4["rv"] = torch.where(k4["rv"] == 2, torch.ones_like(k4["rv"]),
+                               k4["rv"])
+    elif case == "out_of_range":
+        k4["t"][::7] = cap + 3
+        k4["t"][1::11] = -1
+        k4["rv"][2::5] = C
+    elif case == "crowded":
+        k4["t"][:20_000] = 17     # one slot takes 20,000 referrers
+    check_k4(ops, k4)
+    n, _sz, _szz, pre0 = ops.gauss_suffstats(**k4)
+    if case == "all_dead":
+        assert float(n.abs().sum()) == 0 and float(pre0.abs().sum()) == 0
+    if case == "empty_group":
+        assert float(n[:, 2].sum()) == 0
+    if case == "crowded":
+        assert int(n[17].sum()) == int(k4["w"][:20_000].sum()) + int(
+            (k4["w"][20_000:] & (k4["t"][20_000:] == 17)).sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,A,C,case", [
+    (256, 51, 5, "rents"),   # a County batch over the states
+    (1, 51, 5, "rents"),     # one row
+    (256, 51, 1, "rents"),   # C = 1
+    (256, 51, 5, "out_of_range"),
+])
+def test_k5_cuda_matches_plain(card, B, A, C, case):
+    from pclean_tpu_torch.kernel_bench import check_k5
+
+    rng = np.random.default_rng(12)
+    cap, E, I = 4096, 51 * 180, 51 * 180 * C
+    k4 = _k4_inputs(card, rng, 50_000, cap, C)
+    n, sz, szz, pre0 = ops.gauss_suffstats_plain(**k4)
+    values = torch.as_tensor(rng.normal(1500, 1000, I).astype(np.float32),
+                             device=card)
+    tbl = torch.as_tensor(rng.integers(0, I, (E, C)).astype(np.int32),
+                          device=card)
+    key = rng.integers(0, 180, B)
+    idx = torch.as_tensor((np.arange(A)[None, :] * 180 + key[:, None])
+                          .astype(np.int32), device=card)
+    slot = torch.as_tensor(rng.choice(cap, B, replace=False).astype(np.int32),
+                           device=card)
+    if case == "out_of_range":   # gathers clamp like the JAX package's
+        idx[0, 0] = E + 5
+        slot[-1] = cap + 1
+        tbl[0, 0] = -4
+    k5 = dict(values=values, tbl=tbl, idx=idx, slot=slot, n=n, sz=sz,
+              szz=szz, pre0=pre0, coef=-0.5 / 150.0 ** 2)
+    check_k5(ops, k5)
