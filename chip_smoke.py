@@ -6,13 +6,14 @@
 
 It drives the port only (never jax, never pclean_tpu), in order:
   1. prints the card's name and power limit (nvidia-smi);
-  2. builds the five CUDA kernels from pclean_tpu_torch/csrc/ (one nvcc per
+  2. builds the six CUDA kernels from pclean_tpu_torch/csrc/ (one nvcc per
      source, in parallel) and prints the build time and ptxas's registers,
      shared memory, stack frame and spills for each compiled function;
   3. checks the tracer's CUDA path against its CPU path (plain versions) on
      small inputs: same state, same injected uniforms, for the scaled
-     workload's Record block and the rents workload's County block (K4's
-     statistics and K5's closed form);
+     workload's Record block, the rents workload's County block (K4's
+     statistics and K5's closed form), and the flights workload's Flight
+     time block (K6) and Obs blocks;
   4. runs the scaled workload's main path end to end — compile_model,
      init_state, Engine.initialize (sequential ramp, batched init segments,
      batched birth allocation, replay), Engine.run (segmented batched MH
@@ -51,11 +52,26 @@ It drives the port only (never jax, never pclean_tpu), in order:
      50,000 Obs rows into County's 4,096 slots, K5 over 256 County rows and
      51 states, inputs from the rents state, kernel_bench.rents_inputs):
      error against the plain version, kernel / plain / library ms, device
-     ms, the bytes bound and the launch floor; K4's library call is one
-     index_add_ of the stacked [R, 3] statistics, K5 has none;
-  9. prints the `kernels` JSON line (K1-K5; `launches` summed over both
-     paths, with each path's own beside it), then the card line, then the
-     result.
+     ms (the library call's too), the bytes bound and the launch floor;
+     K4's library call is one index_add_ of the stacked [R, 3] statistics,
+     K5 has none; and where one K4 call's host time goes
+     (kernel_bench.k4_call_split);
+  9. runs the flights path end to end (pclean_tpu_torch/workloads/
+     flights.py, the port's copy of experiments/flights.py on its seeded
+     synthetic flights tables) at the source's 2,376 rows, 100 flights, 38
+     websites, capacities Flight 160 and TrackingWebsite 64, MH, 5 sweeps,
+     batch_rows 1 (the sequential drivers), rejuv_frequency 50, with the
+     counts set to 0 just before it and read just after: the same report
+     as the other paths, and K1's and K2's census there;
+ 10. K6 at the shape the flights path launches it at (one Flight slot
+     against the 2,376 Obs rows, for each time field's vocabulary, inputs
+     from the flights state, kernel_bench.flights_inputs): error against
+     the plain version, kernel / plain / device ms, the bytes bound and the
+     launch floor; and K1 and K2 at every one-row flights census shape
+     holding >= 5% of either's launches there;
+ 11. prints the `kernels` JSON line (K1-K6; `launches` summed over the
+     three paths, with each path's own beside it), then the card line,
+     then the result.
 
 Tolerances: K1 record bit-equal, logZ rtol 1e-6 (the same f32 formula
 summed in another order); K2 indices equal on all but <= 1e-2 of rows (at
@@ -66,11 +82,13 @@ K ~ 11k logits about one row in a thousand sits that close to a boundary),
 never a zero-mass pick; K3 bit-equal (same column order); K4's counts
 equal and its sums within 1e-5 of each cell's sum of |terms| (atomics add
 in any order); K5 within 2^-20 * |coef| * (|sum szz| + 2 |sum mu sz| +
-|sum mu^2 n|) + 1e-5 (its f32 sums subtract). It fails (non-zero exit, no
-result line) if there is no card, a kernel does not build, launch or
-agree, K1-K3 were not launched on the scaled path or K4 and K5 not on the
-rents path, the scaled F1 < 0.80, the rents F1 < RENTS_F1_FLOOR, or any
-phase raises.
+|sum mu^2 n|) + 1e-5 (its f32 sums subtract); K6 within 1e-5 of each
+cell's sum of |terms| + 1e-6 (the same terms summed in another order). It
+fails (non-zero exit, no result line) if there is no card, a kernel does
+not build, launch or agree, K1-K3 were not launched on the scaled path, K4
+and K5 not on the rents path or K1, K2 and K6 not on the flights path, the
+scaled F1 < 0.80, the rents F1 < RENTS_F1_FLOOR, the flights F1 <
+FLIGHTS_F1_FLOOR, or any phase raises.
 """
 import json
 import os
@@ -93,6 +111,11 @@ RENTS = dict(rows=50_000, states=51, counties=1500, batch=256)
 # F1 0.8941, 0.8890 and 0.8914 (scripts/rents_jax_floor.py); the floor is
 # the lowest less 0.03
 RENTS_F1_FLOOR = 0.8890112089671738 - 0.03
+FLIGHTS = dict(rows=2376, flights=100, websites=38)
+# pclean_tpu on the CPU on the same flights tables (MH, 5 sweeps, B = 1,
+# seeds 0-2) reached F1 1.0, 0.9934 and 1.0 (scripts/flights_jax_floor.py);
+# the floor is the lowest less 0.03
+FLIGHTS_F1_FLOOR = 0.9933812949640289 - 0.03
 
 
 def card_line() -> str:
@@ -113,9 +136,13 @@ SOURCES = {
                         "pclean_tpu/engine/propose.py:1348"),
     "gauss_ext_term": ("pclean_tpu_torch/csrc/gauss_ext_term.cu",
                        "pclean_tpu/engine/propose.py:856"),
+    "maybe_swap_ext": ("pclean_tpu_torch/csrc/maybe_swap_ext.cu",
+                       "pclean_tpu/engine/propose.py:683"),
 }
 SCALED_KERNELS = ("enum_logsumexp", "inv_cdf_sample", "obs_gather_sum")
 RENTS_KERNELS = ("gauss_suffstats", "gauss_ext_term")
+FLIGHTS_KERNELS = ("enum_logsumexp", "inv_cdf_sample", "maybe_swap_ext")
+PATHS = ("scaled", "rents", "flights")
 
 
 def bench_kernels(ops, cm, dev):
@@ -152,8 +179,9 @@ def bench_kernels(ops, cm, dev):
                 B, K, [m.shape[0] for m in inp["mats"]]),
         }
         for name, k in out.items():
-            for key in ("ms", "device_ms", "plain_ms", "library_ms"):
-                k[key + shape] = times[name][key]
+            for key in ("ms", "device_ms", "plain_ms", "library_ms",
+                        "library_device_ms"):
+                k[key + shape] = times[name].get(key)
             k["max_abs_err" + shape] = errs[name]
             k["bytes" + shape] = nbytes[name]
             k["bound_ms" + shape] = nbytes[name] / kb.HBM_BYTES_PER_S * 1e3
@@ -166,21 +194,28 @@ def bench_kernels(ops, cm, dev):
     return list(out.values())
 
 
-def bench_k1_shapes(ops, cm, dev, census) -> dict:
-    """K1, and K2 on K1's record, at the batch shape (B = batch_rows, fk
-    mode over the Hospital axis) and at every one-row shape holding >= 5%
-    of K1's launches in `census` (ops.census() of the main path), in the
-    main path's mode there: checked in both modes (record bit-equal, logZ
-    rtol 1e-6; K2 as in bench_kernels), then timed. Returns {kernel: [one
-    dict per shape]}, with each shape's launches from the census."""
+def bench_k1_shapes(ops, dev, census, batch_pick=None) -> dict:
+    """K1, and K2 on K1's record, at `batch_pick` (R, mode, K) (the scaled
+    path's batch shape: B = batch_rows, fk mode over the Hospital axis) and
+    at every one-row shape holding >= 5% of K1's launches in `census`
+    (ops.census() of a path), in the path's mode there, and at every
+    one-row K2 shape holding >= 5% of K2's launches that no K1 shape
+    covers (as a choice row of that length): checked in both modes (record
+    bit-equal, logZ rtol 1e-6; K2 as in bench_kernels), then timed.
+    Returns {kernel: [one dict per shape]}, with each shape's launches from
+    the census."""
     from pclean_tpu_torch import kernel_bench as kb
 
     count = {(r["kernel"], r["mode"], r["rows"], r["K"]): r["launches"]
              for r in census}
-    picks = [(BATCH, "fk", cm.layouts["Hospital"].capacity)]
+    picks = [batch_pick] if batch_pick else []
     picks += [(1, r["mode"], r["K"]) for r in census
               if r["kernel"] == "enum_logsumexp" and r["rows"] == "r1"
               and r["share"] >= 0.05]
+    k2_rows = {K + (mode == "fk") for _R, mode, K in picks}
+    picks += [(1, "choice", r["K"]) for r in census
+              if r["kernel"] == "inv_cdf_sample" and r["rows"] == "r1"
+              and r["share"] >= 0.05 and r["K"] not in k2_rows]
     floor = kb.launch_floor_ms()
     out = {"enum_logsumexp": [], "inv_cdf_sample": []}
     for R, mode, K in picks:
@@ -234,6 +269,7 @@ def bench_rents_kernels(ops, cm, arenas, params, obs_dev, floor) -> list:
     errs = {"gauss_suffstats": kb.check_k4(ops, inp["k4"]),
             "gauss_ext_term": kb.check_k5(ops, inp["k5"])}
     times = kb.time_k45(ops, inp)
+    times["gauss_suffstats"]["call_split"] = kb.k4_call_split(ops, inp["k4"])
     nbytes = {"gauss_suffstats": kb.k4_bytes(inp["k4"]),
               "gauss_ext_term": kb.k5_bytes(inp["k5"])}
     k4, k5 = inp["k4"], inp["k5"]
@@ -258,10 +294,51 @@ def bench_rents_kernels(ops, cm, arenas, params, obs_dev, floor) -> list:
               f"kernel {k['ms']:.4f} ms (device {k['device_ms']:.4f} ms) "
               f"plain {k['plain_ms']:.4f} ms library {k['library_ms']} ms "
               f"bound {k['bound_ms']:.5f} ms floor {floor:.4f} ms plan "
-              f"{k['plan']}", flush=True)
+              f"{k['plan']} library device {k.get('library_device_ms')} ms "
+              f"call split {k.get('call_split')}", flush=True)
     del inp
     torch.cuda.empty_cache()
     return out
+
+
+def bench_flights_k6(ops, eng, arenas, params, floor) -> dict:
+    """K6 at the shape the flights path launches it at, one Flight slot
+    against its referrers, for each time field (kernel_bench.flights_inputs
+    on the flights state: the list form over the referrer bound where the
+    model has one, else the dense form over every Obs row): checked against
+    its plain version, timed beside it, with the bytes bound and the launch
+    floor. The kernels-line numbers are the largest vocabulary's; `shapes`
+    holds each field's."""
+    from pclean_tpu_torch import kernel_bench as kb
+
+    shapes = []
+    for f in kb.flights_inputs(eng, arenas, params):
+        k6 = f["k6"]
+        nbytes = kb.k6_bytes(k6)
+        N = k6["obs"].shape[-1]
+        form = (f"list of {int(k6['cnt'][0])} of {N}" if "cnt" in k6
+                else f"dense over {N}")
+        shapes.append(dict(
+            field=f["field"], rows=1, V=f["V"], N=N, form=form,
+            max_abs_err=kb.check_k6(ops, k6), bytes=nbytes,
+            bound_ms=nbytes / kb.HBM_BYTES_PER_S * 1e3, floor_ms=floor,
+            plan=ops.maybe_swap_ext_plan(1, f["V"]), **kb.time_k6(ops, k6)))
+        r = shapes[-1]
+        print(f"maybe_swap_ext {r['field']}: out [1, {r['V']}], referrers "
+              f"{form}: max_abs_err {r['max_abs_err']:.3g} kernel "
+              f"{r['ms']:.4f} ms (device {r['device_ms']:.4f} ms) plain "
+              f"{r['plain_ms']:.4f} ms bound {r['bound_ms']:.6f} ms floor "
+              f"{floor:.4f} ms", flush=True)
+    top = max(shapes, key=lambda r: r["V"])
+    torch.cuda.empty_cache()
+    return dict({k: top[k] for k in ("max_abs_err", "ms", "device_ms",
+                                     "plain_ms", "library_ms", "bytes",
+                                     "bound_ms", "floor_ms", "plan")},
+                name="maybe_swap_ext", route="cuda",
+                source=SOURCES["maybe_swap_ext"][0],
+                replaces=SOURCES["maybe_swap_ext"][1], bound_by="bytes",
+                shape=f"out [1, {top['V']}], referrers {top['form']}",
+                shapes=shapes)
 
 
 def ptxas_lines(ops) -> dict:
@@ -273,6 +350,26 @@ def ptxas_lines(ops) -> dict:
             for name, log in ops.BUILD_LOG.items()}
 
 
+def _small_state(mod, small):
+    """The workload's model on the CPU and on the card, and a reachable
+    state from the port's CPU init (numpy)."""
+    from pclean_tpu_torch.convert import to_numpy
+    from pclean_tpu_torch.engine.compile import init_state
+    from pclean_tpu_torch.engine.smc import Engine
+
+    res = {}
+    for d in ("cpu", "cuda"):
+        cm, cfg, _dirty, _clean, _q, _ = mod.setup(**small, device=d)
+        res[d] = (cm, cfg)
+    cm_c, cfg_c = res["cpu"]
+    a, p = init_state(cm_c, 0, device="cpu")
+    eng = Engine(cm_c, cfg_c, device="cpu")
+    a, p, g = eng.initialize(1, a, p)
+    if cfg_c.batch_rows <= 1:   # the flights times settle in the sweeps
+        a, p, g = eng.run(g, a, p)
+    return res, to_numpy(a), to_numpy(p)
+
+
 def small_device_check(dev, workload="scaled"):
     """The tracer's CUDA path (kernels) against its CPU path (plain
     versions) on a small config, same state, same injected uniforms ->
@@ -282,75 +379,104 @@ def small_device_check(dev, workload="scaled"):
     statistics (K4) and closed-form Gaussian external (K5); logZ rtol 1e-5
     and, per row, atol |sum_c szz| * 2^-20 / (2 * 150^2) + 1e-5 (K4's
     atomics and K5's sums add in another order before the closed form
-    subtracts)."""
+    subtracts). "flights": 300 rows, 12 flights, 8 websites, capacities 16,
+    after init and 2 sweeps; every block of six live and two dead Flight
+    slots (the time block through K6) and of 16 Obs rows whose four times
+    are observed (their MaybeSwap prior draws are discarded, so the two
+    devices' generators do not matter), through Engine._propose; the block
+    weights rtol 1e-5 and, per Flight row, atol 1e-5 * (sum over the four
+    fields of the largest option's sum of |terms|) + 1e-5 (K6's
+    tolerance)."""
+    from pclean_tpu_torch import kernel_bench as kb
     from pclean_tpu_torch import ops
-    from pclean_tpu_torch.convert import to_numpy, to_torch
-    from pclean_tpu_torch.engine.compile import init_state
+    from pclean_tpu_torch.convert import to_torch
     from pclean_tpu_torch.engine.propose import (BlockTracer, _draw_bound,
                                                  referrer_histograms)
     from pclean_tpu_torch.kernel_bench import require
     from pclean_tpu_torch.engine.refresh import refresh
     from pclean_tpu_torch.engine.smc import Engine
-    from pclean_tpu_torch.workloads import rents, scaled
+    from pclean_tpu_torch.workloads import flights, rents, scaled
 
     if workload == "scaled":
-        mod, cid, every = scaled, "Record", 8
+        mod, need = scaled, ("enum_logsumexp", "inv_cdf_sample",
+                             "obs_gather_sum")
         small = dict(rows=512, hospitals=48, counties=12, names=24, zips=32,
                      batch=8)
-    else:
-        mod, cid, every = rents, "County", 1
+    elif workload == "rents":
+        mod, need = rents, ("gauss_suffstats", "gauss_ext_term")
         small = dict(rows=1000, states=12, counties=40, batch=16)
-    res = {}
-    for d in ("cpu", "cuda"):
-        cm, cfg, _dirty, _clean, _q, _ = mod.setup(**small, device=d)
-        res[d] = (cm, cfg)
-    cm_c, cfg_c = res["cpu"]
-    a, p = init_state(cm_c, 0, device="cpu")
-    eng = Engine(cm_c, cfg_c, device="cpu")
-    a, p, _g = eng.initialize(1, a, p)
-    arenas, params = to_numpy(a), to_numpy(p)
-    if cid == "County":  # the live slots first, and two dead ones
-        alive = arenas["County"]["alive"]
-        slots = np.concatenate([np.flatnonzero(alive)[:62],
-                                np.flatnonzero(~alive)[:2]])
     else:
-        slots = np.arange(0, small["rows"], every)[:64]
-    outs = {}
+        mod, need = flights, FLIGHTS_KERNELS
+        small = dict(rows=300, flights=12, websites=8, sweeps=2,
+                     capacities={"Flight": 16, "TrackingWebsite": 16})
+    res, arenas, params = _small_state(mod, small)
+    if workload == "scaled":
+        checks = [("Record", 0, np.arange(0, small["rows"], 8)[:64])]
+    elif workload == "rents":   # the live slots first, and two dead ones
+        alive = arenas["County"]["alive"]
+        checks = [("County", 0, np.concatenate([
+            np.flatnonzero(alive)[:62], np.flatnonzero(~alive)[:2]]))]
+    else:
+        rel = refresh(res["cpu"][0], to_torch(arenas, "cpu"),
+                      Engine(*res["cpu"], device="cpu").obs_dev)
+        alive = rel["Flight"]["alive"].numpy()
+        spec = res["cpu"][0].obs_specs[0]
+        full = np.all([spec.columns[v][1] == 1 for v in spec.columns], 0)
+        checks = [("Flight", None, np.concatenate([
+            np.flatnonzero(alive)[:6], np.flatnonzero(~alive)[:2]])),
+                  ("Obs", None, np.flatnonzero(full)[:16])]
+    worst = 0.0
     before = dict(ops.LAUNCHES)
-    for d in ("cpu", "cuda"):
-        cm, cfg = res[d]
-        e = Engine(cm, cfg, device=d)
-        at, pt = to_torch(arenas, d), to_torch(params, d)
-        rel = refresh(cm, at, e.obs_dev)
-        hists = referrer_histograms(cm, cid, at, pt, rel, e.obs_dev) \
-            if cid == "County" else None
-        st = torch.as_tensor(slots, device=d)
-        plan = cm.cls(cid).plans[0]
-        n = _draw_bound(cm, cid, plan)
-        pool = torch.as_tensor(np.random.default_rng(1).random(
-            (len(slots), n)).astype(np.float32), device=d)
-        tr = BlockTracer(cm, cid, at, rel, pt, e.obs_dev,
-                         e._obs_row_slices(cid, st, rel), {}, st,
-                         ext_hists=hists)
-        logz, r = tr.run(plan, pool=pool)
-        atol = torch.full((len(slots),), 1e-5)
-        if hists:
-            szz = [v[3] for v in hists.values() if isinstance(v, tuple)][0]
-            atol = atol + szz[st].sum(-1).abs().cpu() * 2.0 ** -20 / (
-                2 * 150.0 ** 2)
-        outs[d] = (logz.cpu(), {v: x.cpu() for v, x in r.env.items()}, atol)
+    for cid, plan_idx, slots in checks:
+        outs = {}
+        for d in ("cpu", "cuda"):
+            cm, cfg = res[d]
+            e = Engine(cm, cfg, device=d)
+            at, pt = to_torch(arenas, d), to_torch(params, d)
+            rel = refresh(cm, at, e.obs_dev)
+            hists = None if cm.layouts[cid].observed else \
+                referrer_histograms(cm, cid, at, pt, rel, e.obs_dev)
+            st = torch.as_tensor(slots, device=d)
+            plans = cm.cls(cid).plans if plan_idx is None \
+                else [cm.cls(cid).plans[plan_idx]]
+            pools = [torch.as_tensor(np.random.default_rng(1 + i).random(
+                (len(slots), _draw_bound(cm, cid, pl))).astype(np.float32),
+                device=d) for i, pl in enumerate(plans)]
+            if plan_idx is None:
+                gen = torch.Generator(device=d)
+                gen.manual_seed(0)
+                env, _b, logz = e._propose(cid, at, rel, pt, st, gen, False,
+                                           ext_hists=hists, pools=pools)
+            else:
+                tr = BlockTracer(cm, cid, at, rel, pt, e.obs_dev,
+                                 e._obs_row_slices(cid, st, rel), {}, st,
+                                 ext_hists=hists)
+                logz, r = tr.run(plans[0], pool=pools[0])
+                env = r.env
+            atol = torch.full((len(slots),), 1e-5)
+            gauss = [v for v in (hists or {}).values()
+                     if isinstance(v, tuple)]
+            if gauss:
+                atol = atol + gauss[0][3][st].sum(-1).abs().cpu() \
+                    * 2.0 ** -20 / (2 * 150.0 ** 2)
+            if cid == "Flight" and d == "cpu":
+                for f in kb.flights_inputs(e, at, pt, st):
+                    mag = ops.maybe_swap_ext_plain(**f["k6"], absolute=True)
+                    atol = atol + 1e-5 * mag.amax(-1)
+            outs[d] = (logz.cpu(), {v: x.cpu() for v, x in env.items()},
+                       atol)
+        dz = (outs["cuda"][0] - outs["cpu"][0]).abs()
+        require(bool((dz <= outs["cpu"][2] + 1e-5 * outs["cpu"][0].abs())
+                     .all()), f"{workload} {cid}: CUDA logZ differs by "
+                f"{float(dz.max())}")
+        for v, x in outs["cpu"][1].items():
+            require(torch.equal(x.double(), outs["cuda"][1][v].double()),
+                    f"{workload} {cid}: sampled vertex {v} differs")
+        worst = max(worst, float(dz.max()))
     launched = {k: v - before[k] for k, v in ops.LAUNCHES.items()}
-    need = ("gauss_suffstats", "gauss_ext_term") if cid == "County" \
-        else ("enum_logsumexp", "inv_cdf_sample", "obs_gather_sum")
     require(all(launched[k] > 0 for k in need),
-            f"{workload} {cid} block: kernels not launched: {launched}")
-    dz = (outs["cuda"][0] - outs["cpu"][0]).abs()
-    require(bool((dz <= outs["cpu"][2] + 1e-5 * outs["cpu"][0].abs()).all()),
-            f"{workload} {cid} block: CUDA logZ differs by {float(dz.max())}")
-    for v, x in outs["cpu"][1].items():
-        require(torch.equal(x.double(), outs["cuda"][1][v].double()),
-                f"{workload} {cid} block: sampled vertex {v} differs")
-    return float(dz.max()), launched
+            f"{workload} small check: kernels not launched: {launched}")
+    return worst, launched
 
 
 def run_path(ops, name, cm, config, dirty, clean, query, rows):
@@ -411,7 +537,7 @@ def main() -> int:
     from pclean_tpu_torch import kernel_bench as kb
     from pclean_tpu_torch import ops
     from pclean_tpu_torch.kernel_bench import require
-    from pclean_tpu_torch.workloads import rents, scaled
+    from pclean_tpu_torch.workloads import flights, rents, scaled
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -427,7 +553,7 @@ def main() -> int:
             print(f"  ptxas {name}: {line}")
     report = {"card": card, "build_s": build_s, "torch": torch.__version__,
               "cuda": torch.version.cuda, "ptxas": ptxas}
-    for wl in ("scaled", "rents"):
+    for wl in PATHS:
         err, launched = small_device_check(dev, wl)
         report[f"small_check_{wl}_max_abs_err"] = err
         print(f"tracer cuda-vs-cpu check on the small {wl} config: max "
@@ -454,10 +580,13 @@ def main() -> int:
                   f"{k['max_abs_err' + sh]:.3g} kernel {k['ms' + sh]:.4f} ms"
                   f" (device {k['device_ms' + sh]:.4f} ms) plain "
                   f"{k['plain_ms' + sh]:.4f} ms library "
-                  f"{k['library_ms' + sh]} ms bound {k['bound_ms' + sh]:.4f}"
+                  f"{k['library_ms' + sh]} ms (device "
+                  f"{k['library_device_ms' + sh]} ms) bound "
+                  f"{k['bound_ms' + sh]:.4f}"
                   f" ms ({k['bound_by']}) plan {k.get('plan' + sh)}",
                   flush=True)
-    shapes = bench_k1_shapes(ops, cm, dev, sc["census"])
+    shapes = bench_k1_shapes(ops, dev, sc["census"], batch_pick=(
+        BATCH, "fk", cm.layouts["Hospital"].capacity))
     del cm, dirty, clean, query
     torch.cuda.empty_cache()
 
@@ -476,24 +605,44 @@ def main() -> int:
     floor = kb.launch_floor_ms()
     kernels += bench_rents_kernels(ops, cm, arenas, params, eng.obs_dev,
                                    floor)
+    del cm, dirty, clean, query, arenas, params, eng
+    torch.cuda.empty_cache()
+
+    # the flights path (batch_rows 1), then K6, K1 and K2 at its shapes
+    t = time.time()
+    cm, config, dirty, clean, query, _sweeps = flights.setup(
+        **FLIGHTS, device="cuda")
+    compile_s = time.time() - t
+    print(f"flights compile_model: {compile_s:.2f} s, capacities "
+          f"{ {c: cm.layouts[c].capacity for c in cm.model.class_order} }, "
+          f"exact Gibbs {cm.exact_gibbs_ok}", flush=True)
+    fl, (arenas, params, eng) = run_path(ops, "flights", cm, config, dirty,
+                                         clean, query, FLIGHTS["rows"])
+    report["flights"] = dict(fl, compile_s=compile_s,
+                             f1_floor=FLIGHTS_F1_FLOOR)
+    kernels.append(bench_flights_k6(ops, eng, arenas, params, floor))
+    fl_shapes = bench_k1_shapes(ops, dev, fl["census"])
+    runs = {"scaled": sc, "rents": rn, "flights": fl}
     for k in kernels:
-        k["launches_scaled"] = sc["launches"][k["name"]]
-        k["launches_rents"] = rn["launches"][k["name"]]
-        k["launches"] = k["launches_scaled"] + k["launches_rents"]
+        for path, r in runs.items():
+            k[f"launches_{path}"] = r["launches"][k["name"]]
+        k["launches"] = sum(k[f"launches_{p}"] for p in PATHS)
         if k["name"] in SCALED_KERNELS:
             k["launches_r1"] = sc["launches_by_shape"][k["name"]]["r1"]
             k["launches_rn"] = sc["launches_by_shape"][k["name"]]["rn"]
         if k["name"] in shapes:
             k["shapes"] = shapes[k["name"]]
-    missing = [k for k in SCALED_KERNELS if sc["launches"][k] <= 0]
-    require(not missing, f"kernels never launched on the scaled path: "
-            f"{missing}")
-    missing = [k for k in RENTS_KERNELS if rn["launches"][k] <= 0]
-    require(not missing, f"kernels never launched on the rents path: "
-            f"{missing}")
+            k["shapes_flights"] = fl_shapes[k["name"]]
+    for path, need in (("scaled", SCALED_KERNELS), ("rents", RENTS_KERNELS),
+                       ("flights", FLIGHTS_KERNELS)):
+        missing = [k for k in need if runs[path]["launches"][k] <= 0]
+        require(not missing, f"kernels never launched on the {path} path: "
+                f"{missing}")
     require(sc["f1"] >= 0.80, f"scaled F1 {sc['f1']} < 0.80")
     require(rn["f1"] >= RENTS_F1_FLOOR,
             f"rents F1 {rn['f1']} < {RENTS_F1_FLOOR}")
+    require(fl["f1"] >= FLIGHTS_F1_FLOOR,
+            f"flights F1 {fl['f1']} < {FLIGHTS_F1_FLOOR}")
     report["total_s"] = time.time() - t0
     report["kernels"] = kernels
     if out_dir:
@@ -502,9 +651,10 @@ def main() -> int:
             json.dump(report, f, indent=1, default=str)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "launches_scaled", "launches_rents", "launches_r1",
-            "ms_r1", "device_ms_r1", "plain_ms_r1", "bound_ms_r1",
-            "library_ms_r1", "floor_ms", "shapes")
+            "library_ms", "library_device_ms", "launches_scaled",
+            "launches_rents", "launches_flights", "launches_r1", "ms_r1",
+            "device_ms_r1", "plain_ms_r1", "bound_ms_r1", "library_ms_r1",
+            "floor_ms", "shapes", "shapes_flights")
     print(json.dumps({"kernels": [{k: kk[k] for k in keys if k in kk}
                                   for kk in kernels]}))
     print(card)

@@ -1,13 +1,13 @@
 """PClean distributions of the port's paths (see core.py, params.py)."""
 from .base import ParamRef, PCleanDistribution, Ref
 from .core import (AddNoise, AddTypos, ChooseProportionally, ChooseUniformly,
-                   StringPrior, Transformation, TransformedGaussian,
-                   Unmodeled)
+                   MaybeSwap, StringPrior, TimePrior, Transformation,
+                   TransformedGaussian, Unmodeled)
 from .params import Mean, Prob, Proportions
 
 __all__ = [
     "PCleanDistribution", "Ref", "ParamRef",
-    "ChooseProportionally", "ChooseUniformly", "StringPrior", "AddTypos",
-    "AddNoise", "TransformedGaussian", "Unmodeled", "Transformation",
+    "ChooseProportionally", "ChooseUniformly", "StringPrior", "TimePrior",
+    "AddTypos", "MaybeSwap", "AddNoise", "TransformedGaussian", "Unmodeled", "Transformation",
     "Proportions", "Prob", "Mean",
 ]

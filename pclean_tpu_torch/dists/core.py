@@ -1,9 +1,9 @@
 """PClean distributions, declarative form (the subset the port runs).
 
-The port carries the distributions of its scaled and rents paths:
-ChooseProportionally, ChooseUniformly, StringPrior, AddTypos, AddNoise,
-TransformedGaussian (with its Transformation) and Unmodeled. The rest of
-pclean_tpu/dists/core.py (TimePrior, MaybeSwap, FormatName,
+The port carries the distributions of its scaled, rents and flights paths:
+ChooseProportionally, ChooseUniformly, StringPrior, TimePrior, AddTypos,
+MaybeSwap, AddNoise, TransformedGaussian (with its Transformation) and
+Unmodeled. The rest of pclean_tpu/dists/core.py (FormatName,
 ExpandOnShortVersion, NumberCodePrior) comes with their kernels in a later
 slice. Each class mirrors one reference distribution file under
 PClean's src/distributions/ (cited per class). Constructors take the same
@@ -21,6 +21,7 @@ interpreter and its `discrete_proposal` enumerations.
 from __future__ import annotations
 
 import math
+import re
 from dataclasses import dataclass
 from typing import Callable, Optional, Sequence, Union
 
@@ -71,6 +72,24 @@ class StringPrior(PCleanDistribution):
         return "*" * int(math.floor((self.min_length + self.max_length) / 2))
 
 
+class TimePrior(PCleanDistribution):
+    """'h:mm a.m./p.m.' prior, uniform over 1440 minutes; enumerable over
+    atoms matching the regex + dummy (time_prior.jl:5-27)."""
+
+    enumerable = True
+    TIME_RE = re.compile(r"^\d?\d:\d\d [ap]\.m\.$")
+
+    def __init__(self, atoms: ArgT):
+        self.atoms = atoms
+
+    def dummy_value(self) -> str:
+        return "**:** p.m."  # time_prior.jl:16-18
+
+    @classmethod
+    def atom_logprob(cls, s: str) -> float:
+        return -math.log(1440.0) if cls.TIME_RE.match(s) else -np.inf
+
+
 class AddTypos(PCleanDistribution):
     """Typo corruption of a source string (add_typos.jl).
 
@@ -85,6 +104,19 @@ class AddTypos(PCleanDistribution):
     def __init__(self, word: ArgT, max_typos: Optional[int] = None):
         self.word = word
         self.max_typos = max_typos
+
+
+class MaybeSwap(PCleanDistribution):
+    """With prob p, replace val by a uniform draw from options
+    (maybe_swap.jl:5-28). Missing observations: 0 if val in options else
+    -1000."""
+
+    supports_missing = True
+
+    def __init__(self, val: ArgT, options: ArgT, prob: ArgT):
+        self.val = val
+        self.options = options
+        self.prob = prob
 
 
 class AddNoise(PCleanDistribution):

@@ -3,12 +3,12 @@
 Counterpart of pclean_tpu/dists/params.py (reference Parameter interface,
 distributions.jl:27-61). The specs are plain data and identical; the state
 is a dict of fixed-shape tensors with an explicit leading index axis, and
-every draw takes an explicit torch.Generator. The port learns Proportions
-(Dirichlet-categorical, choose_proportionally.jl:23-89) and Mean
-(Normal-Normal, add_noise.jl:12-82); Prob keeps its spec so models declare
-it alike, and its resampling comes with MaybeSwap in a later slice. State
-is built on the device the entry points resolve (the card unless the
-caller asks for "cpu").
+every draw takes an explicit torch.Generator. The three conjugate
+families: Proportions (Dirichlet-categorical, choose_proportionally.jl:
+23-89), Prob (Beta-Bernoulli, maybe_swap.jl:41-95; Beta drawn as two gamma
+draws, since torch's Beta sampler takes no generator) and Mean
+(Normal-Normal, add_noise.jl:12-82). State is built on the device the entry
+points resolve (the card unless the caller asks for "cpu").
 """
 from __future__ import annotations
 
@@ -18,7 +18,7 @@ from typing import Optional, Sequence, Union
 import numpy as np
 import torch
 
-from ..utils import resolve_device, sample_dirichlet
+from ..utils import resolve_device, sample_dirichlet, sample_gamma
 
 
 @dataclass(frozen=True)
@@ -89,6 +89,33 @@ def resample_proportions(gen: torch.Generator, state: dict,
     value = sample_dirichlet(gen, conc[None, :] + counts)
     return {"counts": state["counts"],
             "log_value": torch.log(value.to(torch.float32))}
+
+
+def sample_beta(gen: torch.Generator, a: torch.Tensor,
+                b: torch.Tensor) -> torch.Tensor:
+    """Beta(a, b) = X / (X + Y), X ~ Gamma(a), Y ~ Gamma(b)."""
+    x = sample_gamma(gen, a)
+    y = sample_gamma(gen, b)
+    return x / (x + y)
+
+
+def init_prob_state(gen: torch.Generator, spec: Prob, num_indices: int = 1,
+                    device="cuda") -> dict:
+    device = resolve_device(device)
+    full = lambda v: torch.full((num_indices,), float(v),  # noqa: E731
+                                dtype=torch.float32, device=device)
+    return {
+        "heads": torch.zeros((num_indices,), dtype=torch.int32, device=device),
+        "tails": torch.zeros((num_indices,), dtype=torch.int32, device=device),
+        "value": sample_beta(gen, full(spec.a), full(spec.b)),
+    }
+
+
+def resample_prob(gen: torch.Generator, state: dict, spec: Prob) -> dict:
+    """Beta(a + heads, b + tails) (maybe_swap.jl:87-89)."""
+    value = sample_beta(gen, spec.a + state["heads"].to(torch.float32),
+                        spec.b + state["tails"].to(torch.float32))
+    return {**state, "value": value.to(torch.float32)}
 
 
 def init_mean_state(gen: torch.Generator, spec: Mean, num_sites: int,

@@ -32,8 +32,8 @@ import torch
 
 from ..dists import params as P
 from ..dists.core import (AddNoise, AddTypos, ChooseProportionally,
-                          ChooseUniformly, StringPrior, TransformedGaussian,
-                          Unmodeled)
+                          ChooseUniformly, MaybeSwap, StringPrior, TimePrior,
+                          TransformedGaussian, Unmodeled)
 from ..domains import CATEGORICAL, FLOAT, Domain, ListRegistry
 from ..model.ir import (ChoiceNode, ClassID, ComputeNode,
                         ExternalLikelihoodNode, ForeignKeyNode, Model, Node,
@@ -86,6 +86,8 @@ class CompiledModel:
         self._dev: dict[int, tuple] = {}
         # set by _audit_exact_gibbs during compile_model
         self.exact_gibbs_ok: bool = True
+        # (cid, vid) -> bool [V] host truth tables (truth_table)
+        self._truth: dict = {}
 
     # -- helpers -------------------------------------------------------------
 
@@ -108,6 +110,21 @@ class CompiledModel:
 
     def domain(self, cid: ClassID, vid: VertexID) -> Domain:
         return self.domains[self.canon(cid, vid)]
+
+    def truth_table(self, cid: ClassID, vid: VertexID) -> np.ndarray:
+        """bool [V] host table mapping a categorical vertex's *codes* to the
+        Python truthiness of the underlying values (INVALID is false): gate
+        codes are vocabulary indices, not booleans, so ParamLookup gates
+        decode through it (`cm.use` hands out its device tensor)."""
+        key = self.canon(cid, vid)
+        hit = self._truth.get(key)
+        if hit is None:
+            dom = self.domains[key]
+            assert dom is not None and dom.kind == CATEGORICAL
+            hit = np.array([bool(v) and v != INVALID
+                            for v in dom.vocab.values], dtype=bool)
+            self._truth[key] = hit
+        return hit
 
     def use(self, arr) -> torch.Tensor:
         """The device tensor of a host numpy table (uploaded once, cached by
@@ -133,12 +150,6 @@ def compile_model(model: Model, datasets: Sequence[ObservedDataset],
     entries always win. `device`: where the tables live ("cuda" unless the
     caller asks for "cpu"; raises when no card is present)."""
     cm = CompiledModel(model, resolve_device(device))
-    for cid in model.class_order:
-        if any(isinstance(n, ParamLookupNode) and n.gate_id is not None
-               for n in model.classes[cid].nodes):
-            raise NotImplementedError(
-                "gated param_lookup (the flights model's trust rule) comes "
-                "with the flights slice of the port")
     _assign_domains(cm)
     _ingest(cm, datasets)
     _build_tables(cm)
@@ -433,7 +444,7 @@ def _choice_domain(cm: CompiledModel, cid: ClassID, vid: VertexID,
     d = node.dist
     if isinstance(d, (ChooseProportionally, ChooseUniformly)):
         return _arg_domain(cm, cid, node, "options", getattr(d, "options", None))
-    if isinstance(d, StringPrior):
+    if isinstance(d, (StringPrior, TimePrior)):
         dom = _arg_domain(cm, cid, node, "atoms", d.atoms)
         dummy = d.dummy_value()
         code = dom.vocab.encode_or_add(dummy)
@@ -442,6 +453,9 @@ def _choice_domain(cm: CompiledModel, cid: ClassID, vid: VertexID,
     if isinstance(d, AddTypos):
         assert "word" in node.arg_ids, "AddTypos word must be a model attribute"
         return _domain_of(cm, cid, node.arg_ids["word"])
+    if isinstance(d, MaybeSwap):
+        assert "val" in node.arg_ids, "MaybeSwap val must be a model attribute"
+        return _domain_of(cm, cid, node.arg_ids["val"])
     if isinstance(d, (AddNoise, TransformedGaussian)):
         return Domain.floating()
     if isinstance(d, Unmodeled):
@@ -636,7 +650,7 @@ def _collect_param_meta(cm: CompiledModel) -> None:
                                           and mnode.param_id == vid):
                             sites.append((w, n2.dist.std))
                 meta["sites"] = sites
-            else:
+            elif not isinstance(node.spec, P.Prob):
                 raise TypeError(f"{type(node.spec).__name__} parameters are "
                                 "not ported yet")
             cm.param_meta[(cid, vid)] = meta
@@ -683,6 +697,8 @@ def init_state(cm: CompiledModel, key, device="cuda") -> tuple[dict, dict]:
         if isinstance(spec, P.Proportions):
             st = P.init_proportions_state(gen, spec, meta["num_options"],
                                           meta["num_indices"], device=dev)
+        elif isinstance(spec, P.Prob):
+            st = P.init_prob_state(gen, spec, meta["num_indices"], device=dev)
         else:
             st = P.init_mean_state(gen, spec, max(len(meta["sites"]), 1),
                                    meta["num_indices"], device=dev)

@@ -4,17 +4,18 @@ Counterpart of pclean_tpu/engine/gibbs_params.py (gibbs_params.py:54-224):
 the conjugate resample_value! of the reference (choose_proportionally.jl:
 70-74, add_noise.jl:74-82) and resample_py_params! (trace.jl:80-108).
 Sufficient statistics are recomputed from the arenas as dense masked
-reductions in plain torch ops right before each resample. The port learns
-Proportions and Mean; Prob comes with MaybeSwap in a later slice. Every
-draw takes an explicit torch.Generator.
+reductions in plain torch ops right before each resample, for the three
+families: Proportions, Prob (MaybeSwap sites, with the gated-lookup mask)
+and Mean. Every draw takes an explicit torch.Generator.
 """
 from __future__ import annotations
 
 import torch
 
 from ..dists import params as P
+from ..dists.core import MaybeSwap
 from ..model.ir import ChoiceNode, ClassID, ParamLookupNode, VertexID
-from ..utils import sample_gamma, scatter_add_drop
+from ..utils import sample_gamma, scatter_add_drop, take
 from .compile import CompiledModel
 from .propose import _RowCtx, row_value
 from .refresh import refresh
@@ -54,6 +55,53 @@ def mean_suffstats(cm: CompiledModel, cid: ClassID, vid: VertexID,
     return {"counts": counts.reshape(I, S), "sums": sums.reshape(I, S)}
 
 
+def prob_suffstats(cm: CompiledModel, cid: ClassID, vid: VertexID,
+                   arenas: dict, params: dict, obs_dev: dict, alive) -> dict:
+    """{"heads", "tails"} int32 [I] of a Prob parameter over its MaybeSwap
+    sites (gibbs_params.py:79-121): a live row whose observation is present
+    counts a head where it differs from val (a swap) and a tail where it
+    equals it, at the row's index; missing observations and rows whose
+    lookup gate is true (the parameter is bypassed) count nothing; keys out
+    of [0, I) drop."""
+    c = cm.cls(cid)
+    cap = cm.layouts[cid].capacity
+    I = cm.param_meta[(cid, vid)]["num_indices"]
+    slots = torch.arange(cap, device=cm.device)
+    heads = torch.zeros((I,), dtype=torch.int32, device=cm.device)
+    tails = torch.zeros((I,), dtype=torch.int32, device=cm.device)
+    for w, n in enumerate(c.nodes):
+        if not (isinstance(n, ChoiceNode) and isinstance(n.dist, MaybeSwap)):
+            continue
+        pv = n.arg_ids.get("prob")
+        gate = None
+        if pv == vid:
+            keyv = torch.zeros((cap,), dtype=torch.long, device=cm.device)
+        elif pv is not None and isinstance(c.nodes[pv], ParamLookupNode) \
+                and c.nodes[pv].param_id == vid:
+            pl = c.nodes[pv]
+            keyv = row_value(cm, arenas, params, cid, pl.key_id, slots).long()
+            if pl.gate_id is not None:
+                truth = cm.use(cm.truth_table(cid, pl.gate_id))
+                gate = take(truth, row_value(cm, arenas, params, cid,
+                                             pl.gate_id, slots))
+        else:
+            continue
+        valv = row_value(cm, arenas, params, cid, n.arg_ids["val"], slots)
+        oa = obs_dev.get(cid, {}).get(w)
+        if oa is not None:
+            obsv, observed = oa[0], oa[1] == 1
+        else:
+            obsv = arenas[cid]["values"][w]
+            observed = torch.ones((cap,), dtype=torch.bool, device=cm.device)
+        mask = alive & observed
+        if gate is not None:
+            mask = mask & ~gate
+        same = obsv == valv
+        heads = scatter_add_drop(heads, keyv, (mask & ~same).to(torch.int32))
+        tails = scatter_add_drop(tails, keyv, (mask & same).to(torch.int32))
+    return {"heads": heads, "tails": tails}
+
+
 def recompute_and_resample(cm: CompiledModel, cid: ClassID, vid: VertexID,
                            arenas: dict, rel: dict, params: dict,
                            obs_dev: dict, gen: torch.Generator) -> dict:
@@ -70,6 +118,10 @@ def recompute_and_resample(cm: CompiledModel, cid: ClassID, vid: VertexID,
                                            alive)}
         stds = [s for (_w, s) in meta["sites"]] or [1.0]
         return P.resample_mean(gen, state, spec, stds)
+    if isinstance(spec, P.Prob):
+        state = {**state, **prob_suffstats(cm, cid, vid, arenas, params,
+                                           obs_dev, alive)}
+        return P.resample_prob(gen, state, spec)
     if not isinstance(spec, P.Proportions):
         raise TypeError(f"{type(spec).__name__} is not ported yet")
     # the unique choice node drawing from these proportions

@@ -1,7 +1,7 @@
 """Per-choice-node distribution kernels: dense tables + tensor closures.
 
-Counterpart of pclean_tpu/engine/kernels.py (kernels.py:48-311, 394-474,
-690-707), for the distributions of the port's scaled and rents paths.
+Counterpart of pclean_tpu/engine/kernels.py (kernels.py:48-474, 690-707),
+for the distributions of the port's scaled, rents and flights paths.
 Each ChoiceNode gets a DistKernel at model-compile time:
 
   * enum_logits  — the discrete proposal as a dense (masked) log-weight
@@ -26,9 +26,10 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import ops
 from ..dists.core import (AddNoise, AddTypos, ChooseProportionally,
-                          ChooseUniformly, StringPrior, Transformation,
-                          TransformedGaussian, Unmodeled,
+                          ChooseUniformly, MaybeSwap, StringPrior, TimePrior,
+                          Transformation, TransformedGaussian, Unmodeled,
                           residual_dummy_logit)
 from ..domains import CATEGORICAL
 from ..model.ir import ChoiceNode, ClassID, ParameterNode, VertexID
@@ -71,8 +72,12 @@ def build_kernel(cm, cid: ClassID, vid: VertexID, node: ChoiceNode) -> DistKerne
         return _ChooseUniformlyK(cm, cid, vid, node)
     if isinstance(d, StringPrior):
         return _StringPriorK(cm, cid, vid, node)
+    if isinstance(d, TimePrior):
+        return _TimePriorK(cm, cid, vid, node)
     if isinstance(d, AddTypos):
         return _AddTyposK(cm, cid, vid, node)
+    if isinstance(d, MaybeSwap):
+        return _MaybeSwapK(cm, cid, vid, node)
     if isinstance(d, (AddNoise, TransformedGaussian)):
         return _GaussianK(cm, cid, vid, node)
     if isinstance(d, Unmodeled):
@@ -237,6 +242,23 @@ class _StringPriorK(_AtomPriorK):
         return self._atoms_arg
 
 
+class _TimePriorK(_AtomPriorK):
+    def __init__(self, cm, cid, vid, node):
+        dom = cm.domain(cid, vid)
+        d = node.dist
+        sv = np.array([TimePrior.atom_logprob(v) if isinstance(v, str)
+                       else -np.inf for v in dom.vocab.values])
+        self._atoms_arg = d.atoms
+        super().__init__(cm, cid, vid, node, sv)
+        # the reference's logdensity is -log(1440) for *any* observed string
+        # (time_prior.jl:25-27): keep the constant for observed scoring
+        self.score_vec = np.full((self.V,), -math.log(1440.0),
+                                 dtype=np.float32)
+
+    def _static_atoms(self):
+        return self._atoms_arg
+
+
 class _AddTyposK(DistKernel):
     """Dense [V, V] typo-likelihood matrix over the shared source/observed
     vocabulary (add_typos.jl:50-66 computed eagerly for all pairs). The
@@ -269,6 +291,99 @@ class _AddTyposK(DistKernel):
         # typo process (add_typos.jl:36-45) only matters for unobserved
         # corrupted cells, which queries never read back.
         return ctx.value(self.node.arg_ids["word"])
+
+
+class _MaybeSwapK(DistKernel):
+    """maybe_swap.jl:13-28. options static or a list vertex sharing val's
+    vocabulary; prob static, a learned Prob parameter, or a vertex (the
+    flights model's gated indexed lookup)."""
+
+    supports_missing = True
+
+    def __init__(self, cm, cid, vid, node):
+        super().__init__(cm)
+        dom = cm.domain(cid, vid)
+        self.V = dom.size
+        self.node = node
+        d = node.dist
+        self.dynamic_opts = "options" in node.arg_ids
+        if self.dynamic_opts:
+            reg = cm.list_reg[cm.canon(cid, node.arg_ids["options"])]
+            assert reg.domain.vocab is dom.vocab, \
+                "MaybeSwap options and val must share a domain"
+            self.mask = reg.mask_matrix()                         # [L, V]
+            self.lens = np.maximum(reg.lengths(), 1)
+        else:
+            m = np.zeros(self.V, dtype=bool)
+            for o in d.options:
+                m[dom.vocab.encode(o)] = True
+            self.mask = m
+            self.n = max(len(d.options), 1)
+        self.param_key = None
+        self.prob_vid = None
+        self.static_prob = None
+        pv = node.arg_ids.get("prob")
+        if pv is not None and isinstance(cm.node(cid, pv), ParameterNode):
+            self.param_key = cm.canon(cid, pv)
+        elif pv is not None:
+            self.prob_vid = pv
+        else:
+            self.static_prob = float(d.prob)
+
+    def _prob(self, ctx):
+        if self.param_key is not None:
+            return ctx.pstate(*self.param_key)["value"][0]
+        if self.prob_vid is not None:
+            return ctx.value(self.prob_vid)
+        return torch.tensor(self.static_prob, device=self.device)
+
+    def _loglen(self, ctx):
+        if self.dynamic_opts:
+            lc = ctx.value(self.node.arg_ids["options"]).long()
+            return torch.log(self._use(self.lens)[lc].to(torch.float32))
+        return math.log(self.n)
+
+    def _member_rows(self, ctx):
+        """The options mask [*, V] (dynamic) or [V] (static)."""
+        if self.dynamic_opts:
+            lc = ctx.value(self.node.arg_ids["options"]).long()
+            return self._use(self.mask)[lc]
+        return self._use(self.mask)
+
+    def obs_logdensity(self, ctx, obs):
+        val = ctx.value(self.node.arg_ids["val"])
+        p = self._prob(ctx)
+        return torch.where(obs == val, torch.log1p(-p),
+                           torch.log(p) - self._loglen(ctx))
+
+    def missing_logdensity(self, ctx):
+        # maybe_swap.jl:18-23: 0 if val in options else -1000
+        val = ctx.value(self.node.arg_ids["val"]).long()
+        if self.dynamic_opts:
+            lc = ctx.value(self.node.arg_ids["options"]).long()
+            member = self._use(self.mask)[lc, val]
+        else:
+            member = self._use(self.mask)[val]
+        return torch.where(member, torch.zeros((), device=self.device),
+                           torch.full((), -1000.0, device=self.device))
+
+    def sample_prior(self, ctx, gen):
+        """val, swapped with probability p for a uniform option: the option
+        drawn by inverse CDF (K2) over the options mask, the swap by a
+        uniform below p (the JAX package's categorical and bernoulli, from a
+        torch.Generator)."""
+        val = ctx.value(self.node.arg_ids["val"])
+        p = torch.as_tensor(self._prob(ctx), dtype=torch.float32,
+                            device=self.device)
+        rows = self._member_rows(ctx)
+        shape = torch.broadcast_shapes(val.shape, p.shape, rows.shape[:-1])
+        logits = torch.where(rows, torch.zeros((), device=self.device),
+                             torch.full((), NINF, device=self.device))
+        logits = logits.expand(shape + (self.V,)).reshape(-1, self.V)
+        u = torch.rand((logits.shape[0],), generator=gen, device=self.device)
+        alt = ops.inv_cdf_sample(logits.contiguous(), u).reshape(shape)
+        swap = torch.rand(shape, generator=gen, device=self.device) < p
+        return torch.where(swap, alt, val.to(alt.dtype))
 
 
 class _GaussianK(DistKernel):

@@ -12,7 +12,7 @@ Where the JAX tracer runs one row under `vmap`, this tracer carries the
 batch axis explicitly: `row_slot` is [B] and every value at enumeration
 depth d has rank 1 + d — the batch axis first (size B, or 1 when the value
 is the same for every row), then the d enumeration axes (size 1 where it
-broadcasts). Five hot spots go through the hand kernels of ops.py:
+broadcasts). Six hot spots go through the hand kernels of ops.py:
 
   * K1 enum_logsumexp: score_fk's record [.., K+1] + logZ, and
     score_choice's logZ;
@@ -24,7 +24,10 @@ broadcasts). Five hot spots go through the hand kernels of ops.py:
   * K4 gauss_suffstats: the per-segment sufficient statistics behind a
     closed-form Gaussian external (referrer_histograms);
   * K5 gauss_ext_term: that external's term for every row and option of a
-    latent block (_ext_gauss_term).
+    latent block (_ext_gauss_term);
+  * K6 maybe_swap_ext: a MaybeSwap external whose `val` is the block's
+    innermost enumerated value, summed over each row's referrers for every
+    option (_ext_swap_term; the flights Flight time block).
 
 The sample pass draws its uniforms from a per-block pool [B, n]
 (propose.py:897-904); callers may inject the pool, which is how the tests
@@ -142,6 +145,9 @@ class BlockTracer:
         # {target class: (idx [Kc], inv [cap], nc)} compact candidate axes
         self.cand = cand or {}
         self._mm_frames: list[list] = []
+        # vids enumerated by score_choice whose option axis is live: vid ->
+        # the depth of their children (K6 reads the innermost one)
+        self._enum_axis: dict[VertexID, int] = {}
         self._pool = None
         self._pool_i = 0
         self._gen = None
@@ -224,8 +230,11 @@ class BlockTracer:
         return existing, new
 
     def _taint_from_args(self, vid: VertexID, node) -> None:
-        args = [node.key_id] if isinstance(node, ParamLookupNode) \
-            else node.arg_ids
+        if isinstance(node, ParamLookupNode):
+            args = [node.key_id] + ([node.gate_id]
+                                    if node.gate_id is not None else [])
+        else:
+            args = node.arg_ids
         if any(a in self.taint for a in args):
             self.taint.add(vid)
 
@@ -419,9 +428,11 @@ class BlockTracer:
         self.axes.append(V)
         self.env[vid] = (depth + 1, torch.arange(V, device=self.cm.device)
                          .reshape((1,) * (1 + depth) + (V,)))
+        self._enum_axis[vid] = depth + 1
         self._mm_push()
         children = self._mm_flush(
             self.score_plan(step.rest, depth + 1, mode, ctx_key))
+        del self._enum_axis[vid]
         self.axes.pop()
         total = (logits + children).expand(full + (V,))
         self.records[(vid, ctx_key)] = total
@@ -493,8 +504,10 @@ class BlockTracer:
         if comp is not None:
             idx_all, cnt = comp
             slots = take(idx_all, self.row_slot)                    # [B, R]
+            cnt_rows = take(cnt, self.row_slot)
             mask = torch.arange(slots.shape[1], device=dev)[None, :] < \
-                take(cnt, self.row_slot)[:, None]
+                cnt_rows[:, None]
+            refs = {"cnt": cnt_rows}
             slots_r = slots.reshape((self.B,) + (1,) * depth + (-1,))
         else:
             Cs = self.cm.layouts[src].capacity
@@ -504,6 +517,7 @@ class BlockTracer:
                 t = col if t is None else take(col, t)
             alive = self.rel[src]["alive"]
             mask = alive & (t[None, :] == self.row_slot[:, None])  # [B, Cs]
+            refs = {"t": t, "alive": alive, "slot": self.row_slot}
             slots = torch.arange(Cs, device=dev)
             slots_r = slots.reshape((1,) * (1 + depth) + (Cs,))
 
@@ -537,15 +551,17 @@ class BlockTracer:
 
         mask_r = mask.reshape((self.B,) + (1,) * depth + (mask.shape[-1],))
         terms, presummed = self._ext_terms(step, src, ext_value, cache,
-                                           depth, mask, inv, slots)
+                                           depth, mask, inv, slots, refs)
         zero = torch.zeros((), device=dev)
         return torch.where(mask_r, terms, zero).sum(-1) + presummed
 
     def _ext_terms(self, step: Step, src: ClassID, ext_value, cache,
-                   depth: int, mask, inv, slots):
+                   depth: int, mask, inv, slots, refs=None):
         """(per-referrer terms [.., Cs], pre-summed terms [..]). AddTypos
         externals whose word is the overlaid value collapse to a referrer
-        histogram times the typo matrix (_ext_hist_term)."""
+        histogram times the typo matrix (_ext_hist_term). `refs` names each
+        row's referrers for K6: dict(t, alive, slot) over the full source
+        axis, or dict(cnt) of the compacted per-row lists `slots`."""
         node: ExternalLikelihoodNode = self.node(step.idx)
         ext = node.ext_node
         dev = self.cm.device
@@ -569,6 +585,10 @@ class BlockTracer:
             if hist_term is None:
                 hist_term = self._ext_gauss_term(kern, src, node.ext_id, inv,
                                                  depth, path=node.path)
+            if hist_term is None and refs is not None:
+                hist_term = self._ext_swap_term(kern, ext, src, node.ext_id,
+                                                inv, depth, ext_value, slots,
+                                                refs)
             if hist_term is not None:
                 presummed = presummed + hist_term
             else:
@@ -605,7 +625,7 @@ class BlockTracer:
             cn = self.node(child.idx)
             assert isinstance(cn, ExternalLikelihoodNode)
             t2, p2 = self._ext_terms(child, src, ext_value, cache, depth,
-                                     mask, inv, slots)
+                                     mask, inv, slots, refs)
             total = total + t2
             presummed = presummed + p2
         return total, presummed
@@ -751,6 +771,72 @@ class BlockTracer:
             self.row_slot.to(torch.int32), n_g, sz_g, szz_g, pre0,
             -0.5 * (1.0 / (kern.std * kern.std)))
         return out.reshape(full)
+
+    def _ext_swap_term(self, kern, ext: ChoiceNode, src: ClassID,
+                       ext_id: VertexID, inv, depth: int, ext_value, slots,
+                       refs):
+        """A MaybeSwap external whose `val` is this block's innermost
+        enumerated value, one K6 launch (propose.py:683-701 and the masked
+        referrer sum of :631-632): for every row b and option a,
+            sum over referrers r of row b (`refs`: the full source axis
+            masked by alive and the fk chain, or the row's compacted list) of
+              st_r = 1: (obs_r == a) ? log1p(-p_r) : log p_r - log len_b
+              st_r = 2: member[lc_b, a] ? 0 : -1000
+        where options (the list lc_b, dynamic or static) and p_r (the
+        referrer's prob: static, a Prob parameter, or a vertex such as the
+        flights model's gated lookup, computed here by torch) carry no
+        enumeration axis. None (dense path) otherwise."""
+        from .kernels import _MaybeSwapK
+
+        if not isinstance(kern, _MaybeSwapK) or depth == 0:
+            return None
+        tv = inv.get(ext.arg_ids.get("val"))
+        if tv is None or self._enum_axis.get(tv) != depth \
+                or self.axes[depth - 1] != kern.V:
+            return None
+        dev = self.cm.device
+        B = self.B
+
+        def rowwise(x):
+            """x as [B or 1, last] when it carries no enumeration axis."""
+            x = torch.as_tensor(x, device=dev)
+            if x.dim() <= 1 + depth:
+                x = x.reshape(tuple(x.shape) + (1,) * (2 + depth - x.dim()))
+            if any(n != 1 for n in x.shape[1:-1]):
+                return None
+            return x.reshape(x.shape[0], x.shape[-1])
+
+        if kern.dynamic_opts:
+            ot = inv.get(ext.arg_ids["options"])
+            if ot is None or ot not in self.env:
+                return None
+            lc = rowwise(self.aligned(ot, depth)[..., None])
+            if lc is None:
+                return None
+            lc = lc[:, 0].expand(B)
+            member, lens = self.cm.use(kern.mask), self.cm.use(kern.lens)
+        else:
+            lc = torch.zeros((B,), dtype=torch.int32, device=dev)
+            member = self.cm.use(kern.mask)[None, :]
+            lens = torch.full((1,), kern.n, dtype=torch.int32, device=dev)
+        N = slots.shape[-1]
+        if kern.prob_vid is not None:
+            p = rowwise(ext_value(ext.arg_ids["prob"]))
+            if p is None:
+                return None
+            p = p.expand(p.shape[0], N)
+        else:
+            p = kern._prob(_Ctx(self, depth)).reshape(1, 1).expand(1, N)
+        obs, st = self._ext_obs(src, ext_id, slots)
+        if st is None:
+            st = torch.ones_like(obs, dtype=torch.int8)
+        i32 = {k: v.to(torch.int32) if v.dtype != torch.bool else v
+               for k, v in refs.items()}
+        out = ops.maybe_swap_ext(
+            obs.to(torch.int32).contiguous(), st.to(torch.int8).contiguous(),
+            p.to(torch.float32).contiguous(), lc.to(torch.int32),
+            lens.to(torch.int32), member, **i32)
+        return out.reshape((B,) + (1,) * (depth - 1) + (kern.V,))
 
     def _ext_obs(self, src: ClassID, svid: VertexID, slots):
         """Observed (value, state) of a source-class vertex over `slots`,
@@ -1257,10 +1343,18 @@ def row_value(cm: CompiledModel, arenas: dict, params: dict, cls: ClassID,
 
 def _lookup(cm: CompiledModel, params: dict, cid: ClassID,
             node: ParamLookupNode, value_of):
-    """param.value[key] of an (ungated) ParamLookupNode of class cid; the
-    key index clamps like the JAX gather."""
+    """param.value[key] of a ParamLookupNode of class cid, or its
+    gate_value where the gate vertex's value is true (decoded through
+    cm.truth_table: gate codes are vocabulary indices). Indices clamp like
+    the JAX gathers."""
     pc, pv = cm.canon(cid, node.param_id)
-    return take(params[pc][pv]["value"], value_of(node.key_id))
+    val = take(params[pc][pv]["value"], value_of(node.key_id))
+    if node.gate_id is None:
+        return val
+    truth = cm.use(cm.truth_table(cid, node.gate_id))
+    gate = take(truth, value_of(node.gate_id))
+    return torch.where(gate, torch.tensor(node.gate_value, dtype=val.dtype,
+                                          device=val.device), val)
 
 
 def _fk(cm: CompiledModel, cid: ClassID, vid: VertexID) -> ForeignKeyNode:

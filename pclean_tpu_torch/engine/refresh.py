@@ -5,7 +5,8 @@ reference maintains reference counts, row liveness and propagated
 observations incrementally (PClean src/model/dependency_tracking.jl); here
 the same invariants are recomputed as dense reductions over the arenas
 (`refresh`) or carried by exact point deltas (`row_delta`,
-`latent_row_delta`, `batch_obs_delta`, `batch_latent_delta`):
+`latent_row_delta` with `hop_move`, `batch_obs_delta`,
+`batch_latent_delta`):
 
   * a latent row is alive iff its recomputed reference count is > 0 —
     classes are processed in reverse declaration order, so transitive GC
@@ -178,6 +179,41 @@ def hop_histograms(cm: CompiledModel, cid: ClassID, arenas: dict,
                 torch.where(mask, codes, torch.zeros_like(codes)))
             out.append(((fkv, chain[k + 1:], (tc, tv)), (gcnt, gcode)))
     return out
+
+
+def hop_move(cm: CompiledModel, rel: dict, arenas: dict, cid: ClassID,
+             slot, old_fks: dict, hop_hists) -> dict:
+    """After latent row `slot`'s fk columns were (possibly) rewritten: move
+    its whole referrer group's propagated observations from the old chain
+    targets to the new ones with the per-segment hop_histograms (refresh.py:
+    177-206). `old_fks` holds the pre-rewrite fk values; unchanged fks
+    cancel exactly. Code removal relies on the same observed-equality
+    agreement invariant as row_delta."""
+    if not hop_hists:
+        return rel
+    rel = _copy_rel(rel)
+    slot = _slot_tensor(cm, slot).reshape(1)
+    for (fkv, suffix, (tc, tv)), (gcnt, gcode) in hop_hists:
+        g = take(gcnt, slot)
+        gc = take(gcode, slot)
+        of = torch.as_tensor(old_fks[fkv], device=cm.device).reshape(1)
+        nf = take(arenas[cid]["values"][fkv], slot)
+        for (hc, fv) in suffix:
+            of = take(arenas[hc]["values"][fv], of)
+            nf = take(arenas[hc]["values"][fv], nf)
+        code, cnt = rel[tc]["prop"][tv]
+        zero = torch.zeros((), dtype=code.dtype, device=code.device)
+        cnt = scatter_add_drop(cnt, of, -g)
+        # code.at[of].set(where(cnt[of] > 0, code[of], 0)), mode="drop"
+        inb = (of >= 0) & (of < code.shape[0])
+        idx = of.long().clamp(0, code.shape[0] - 1)
+        keep = torch.where(_at(cnt, of) > 0, _at(code, of), zero)
+        code = code.clone()
+        code[idx] = torch.where(inb, keep, code[idx])
+        cnt = scatter_add_drop(cnt, nf, g)
+        code = scatter_max_drop(code, nf, torch.where(g > 0, gc, zero))
+        rel[tc]["prop"][tv] = (code, cnt)
+    return rel
 
 
 def row_delta(cm: CompiledModel, rel: dict, arenas: dict, obs_arrays: dict,

@@ -1,8 +1,8 @@
-"""Inference driver: SMC initialization + batched MH blocked-Gibbs sweeps.
+"""Inference driver: SMC initialization + MH blocked-Gibbs sweeps.
 
 Counterpart of pclean_tpu/engine/smc.py (smc.py:44-405 and the Engine
-drivers of its batched MH path), itself the counterpart of the reference's
-inference.jl / row_inference.jl:
+drivers of its MH paths), itself the counterpart of the reference's
+inference.jl / row_inference.jl. With batch_rows > 1 (the batched path):
 
   * `Engine.initialize` streams the dataset rows in: a sequential ramp
     (`scan_init`), then B-row batches proposed against a frozen relational
@@ -16,13 +16,20 @@ inference.jl / row_inference.jl:
     `mh_row_step`), with parameter + Pitman-Yor resampling interleaved
     (`resample_all`).
 
+With batch_rows = 1 (the reference-exact sequential path, smc.py:1023-1083
+and 1332-1447): `initialize` runs `scan_init` over every row, and `sweep`
+runs `scan_sweep_class` (`_sweep_segment`) for each class in declaration
+order, one row slot at a time, with `resample_all` every rejuv_frequency
+slots. The JAX package's `scan_sweep_all` fuses those per-class segments
+into one XLA dispatch with the same semantics; eager torch has no dispatch
+to save, so it has no twin here.
+
 JAX's `vmap` over rows becomes the explicit batch axis of the BlockTracer,
 and its `lax.scan` bodies become Python loops over batches or rows. The
-particle-Gibbs drivers, the B=1 drivers, the fused one-dispatch sweeps and
-sharding are not ported yet: `sweep` and `initialize` raise for configs
-that need them. Randomness comes from one torch.Generator per call
-(`key`), so runs are reproducible per seed but do not reproduce the JAX
-package's key streams.
+particle-Gibbs drivers and sharding are not ported yet: `sweep` and
+`initialize` raise for configs that need them. Randomness comes from one
+torch.Generator per call (`key`), so runs are reproducible per seed but do
+not reproduce the JAX package's key streams.
 """
 from __future__ import annotations
 
@@ -41,7 +48,7 @@ from .compile import CompiledModel
 from .gibbs_params import resample_all
 from .propose import BlockTracer, _rtake, build_cand, referrer_histograms
 from .refresh import (batch_latent_delta, batch_obs_delta, hop_histograms,
-                      latent_row_delta, refresh, row_delta)
+                      hop_move, latent_row_delta, refresh, row_delta)
 
 
 @dataclass
@@ -336,9 +343,6 @@ class Engine:
         if not cfg.use_mh_instead_of_pg and cfg.num_particles > 1:
             raise NotImplementedError(
                 "particle Gibbs is not ported yet (use_mh_instead_of_pg)")
-        if cfg.batch_rows <= 1:
-            raise NotImplementedError(
-                "the batch_rows=1 sequential drivers are not ported yet")
         if not self.exact_accept and cfg.num_particles > 1:
             raise NotImplementedError(
                 "two-particle MH init for models failing the exact-Gibbs "
@@ -614,6 +618,87 @@ class Engine:
 
         return run, seg
 
+    def _sweep_segment(self, cid: ClassID, arenas, params, base: int, gen,
+                       seg: int, pools=None):
+        """One class's MH rejuvenation over `seg` row slots from `base`, one
+        row at a time (smc.py:1332-1429), with the relational state carried
+        by class kind:
+          * observed: row_delta point deltas excluding and re-adding the row;
+          * non-leaf latent: latent_row_delta for reference counts, and
+            hop_move with per-segment hop_histograms for the referrer
+            group's propagated observations;
+          * leaf latent: the segment-entry snapshot (loop-invariant).
+        Dead slots propose and are rejected by the accept mask; the explicit
+        MH comparison runs where exact_accept is False; resample_all runs
+        every rejuv_frequency slots. `pools`: optional per-row lists of
+        per-block injected uniform pools [1, n]."""
+        cm = self.cm
+        cap = cm.layouts[cid].capacity
+        R = self.config.rejuv_frequency
+        leaf = self._leaf_latent(cid)
+        observed = cm.layouts[cid].observed
+        relc = refresh(cm, arenas, self.obs_dev)
+        hists = self._ext_hists(cid, arenas, params, rel=relc)
+        comp = self._ref_comp(cid, arenas, relc)
+        hops = [] if (observed or leaf) else \
+            hop_histograms(cm, cid, arenas, self.obs_dev)
+        fkvs = cm.layouts[cid].fk_vertices
+        relcar = relc
+        for off in range(seg):
+            slot = base + off
+            if slot >= cap:
+                break
+            st = torch.tensor([slot], device=cm.device)
+            if observed:
+                rel = row_delta(cm, relcar, arenas, self.obs_dev, cid, slot,
+                                -1)
+            elif leaf:
+                rel = relc
+            else:
+                rel = latent_row_delta(cm, relcar, arenas, cid, slot, -1)
+            env_p, births_p, w_p = self._propose(
+                cid, arenas, rel, params, st, gen, False, ext_hists=hists,
+                ref_comp=comp, pools=None if pools is None else pools[off])
+            alive = take(arenas[cid]["alive"] if observed
+                         else rel[cid]["alive"], st)
+            if self.exact_accept:
+                accept = alive
+            else:
+                _e, _b, w_r = self._propose(cid, arenas, rel, params, st, gen,
+                                            True, ext_hists=hists,
+                                            ref_comp=comp)
+                u = torch.rand((1,), generator=gen, device=cm.device)
+                accept = (torch.log(u) < (w_p - w_r)) & alive
+            if hops:
+                old_fks = {fkv: take(arenas[cid]["values"][fkv], st)
+                           for fkv in fkvs}
+            arenas = apply_row(cm, cid, arenas, slot, env_p, births_p,
+                               accept=accept, mark_alive=False)
+            if observed:
+                # re-add the row's (possibly rewritten) contributions
+                relcar = row_delta(cm, rel, arenas, self.obs_dev, cid, slot,
+                                   +1)
+            elif not leaf:
+                relcar = latent_row_delta(cm, rel, arenas, cid, slot, +1)
+                if hops:
+                    relcar = hop_move(cm, relcar, arenas, cid, slot,
+                                      old_fks, hops)
+            if (slot + 1) % R == 0:
+                arenas, params = resample_all(cm, arenas, params,
+                                              self.obs_dev, gen, rel=relcar)
+        return arenas, params
+
+    def scan_sweep_class(self, cid: ClassID):
+        """A segment of one class's sequential rejuvenation sweep
+        (smc.py:1431-1447): run(arenas, params, base, gen) sweeps `seg` row
+        slots from `base`. Returns (run, seg)."""
+        seg = min(self.config.scan_segment, self.cm.layouts[cid].capacity)
+
+        def run(arenas, params, base, gen):
+            return self._sweep_segment(cid, arenas, params, base, gen, seg)
+
+        return run, seg
+
     def scan_init_batched(self, cid: ClassID, num_rows: int, B: int,
                           kc: Optional[dict] = None):
         """Batched init segment (smc.py:1210-1330): run(arenas, params,
@@ -777,26 +862,66 @@ class Engine:
         self.phase_times[cid] = t
         return arenas, params
 
+    def _init_sequential(self, cid, spec, gen, arenas, params, progress):
+        """One observed class's sequential initialization at batch_rows=1
+        (smc.py:1891-1909): scan_init over every row in segments; wall
+        seconds in self.phase_times[cid]."""
+        run, seg = self.scan_init(cid, spec.num_rows)
+        t0 = time.time()
+        done = 0
+        while done < spec.num_rows:
+            arenas, params = run(arenas, params, done, gen)
+            done += seg
+            if progress and (done // progress) != ((done - seg) // progress):
+                print(f"Initialized ~{min(done, spec.num_rows)} of "
+                      f"{spec.num_rows} rows for {cid}")
+        self._sync()
+        self.phase_times[cid] = {"sequential": time.time() - t0,
+                                 "rows": spec.num_rows}
+        return arenas, params
+
     def initialize(self, key, arenas, params, progress: Optional[int] = None):
-        """initialize_trace (inference.jl:3-57) through the batched MH path.
-        `key`: a torch.Generator or an int seed. Returns (arenas, params,
-        generator)."""
+        """initialize_trace (inference.jl:3-57): the sequential scan_init at
+        batch_rows=1, else the batched MH path. `key`: a torch.Generator or
+        an int seed. Returns (arenas, params, generator)."""
         self._check_supported()
         gen = self._gen(key)
         progress = self._progress(progress)
+        init = self._init_sequential if self.config.batch_rows <= 1 \
+            else self._init_batched
         for spec in self.cm.obs_specs:
-            arenas, params = self._init_batched(spec.class_id, spec, gen,
-                                                arenas, params, progress)
+            arenas, params = init(spec.class_id, spec, gen, arenas, params,
+                                  progress)
         self._check_arena_pressure(arenas)
         return arenas, params, gen
 
     def sweep(self, key, arenas, params, progress: Optional[int] = None):
-        """pgibbs_sweep! (inference.jl:60-81) as per-class segmented batched
-        MH sweeps (the JAX package's _sweep_batched_segmented branch)."""
+        """pgibbs_sweep! (inference.jl:60-81): at batch_rows=1 every class's
+        sequential sweep in declaration order (smc.py:1997-2010), else
+        per-class segmented batched MH sweeps (the JAX package's
+        _sweep_batched_segmented branch)."""
         self._check_supported()
         gen = self._gen(key)
-        return self._sweep_batched_segmented(gen, arenas, params,
-                                             self._progress(progress))
+        progress = self._progress(progress)
+        if self.config.batch_rows <= 1:
+            return self._sweep_sequential(gen, arenas, params, progress)
+        return self._sweep_batched_segmented(gen, arenas, params, progress)
+
+    def _sweep_sequential(self, gen, arenas, params, progress):
+        """Every class's scan_sweep_class segments over all its row slots,
+        in declaration order; wall seconds in self.phase_times."""
+        for cid in self.cm.model.class_order:
+            run, seg = self.scan_sweep_class(cid)
+            cap = self.cm.layouts[cid].capacity
+            t0 = time.time()
+            for base in range(0, cap, seg):
+                arenas, params = run(arenas, params, base, gen)
+            self._sync()
+            self.phase_times[f"sweep:{cid}"] = {"sequential": time.time() - t0,
+                                                "rows": cap}
+            if progress:
+                print(f"{cid}: sweep done")
+        return arenas, params, gen
 
     def _sweep_batched_segmented(self, gen, arenas, params, progress):
         """Per-class segmented batched rejuvenation sweep; deferred entity-

@@ -33,7 +33,10 @@ torch.logsumexp over the same rows, and the launch floor
 K4 and K5 (the rents path's Gaussian statistics and external term) take
 their inputs from the rents model's own state (`rents_inputs`): K4 over
 every Obs row into County's slots, K5 over a County batch of B rows and
-the state axis.
+the state axis. K6 (the flights path's MaybeSwap external) takes its
+inputs from the flights model's state (`flights_inputs`): one Flight slot
+against every Obs row, for each of the four time fields; `k6_inputs`
+draws seeded inputs of any shape for the card tests.
 """
 from __future__ import annotations
 
@@ -46,6 +49,8 @@ import sys
 
 import numpy as np
 import torch
+
+from .utils import take
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 KERNELS = ("enum_logsumexp", "inv_cdf_sample", "obs_gather_sum")
@@ -425,9 +430,198 @@ def time_k45(ops, inp: dict) -> dict:
     z = torch.where(ok, k4["z"], torch.zeros_like(k4["z"]))
     stacked = torch.stack([ok.float(), z, z * z], 1)
     out = torch.zeros((k4["cap"] * k4["C"], 3), device=z.device)
-    res["gauss_suffstats"]["library_ms"] = cuda_ms(
-        lambda: out.index_add_(0, cell, stacked))
+    lib = lambda: out.index_add_(0, cell, stacked)  # noqa: E731
+    res["gauss_suffstats"]["library_ms"] = cuda_ms(lib)
+    res["gauss_suffstats"]["library_device_ms"] = graph_ms(lib)
     return res
+
+
+def k4_call_split(ops, k4: dict, n: int = 200) -> dict:
+    """Where one K4 call's time goes, host side: mean host ms per call over
+    n calls issued back to back (time.perf_counter, one synchronize at the
+    end) of the whole wrapper, of its zeroed output buffer alone
+    (torch.zeros), and of the bare ctypes launch with prepared arguments;
+    `rest_ms` is the wrapper less those two (argument checks, conversions,
+    views, the count)."""
+    import ctypes
+    import time
+
+    cap, C, R = k4["cap"], k4["C"], k4["z"].shape[0]
+    size = 3 * cap * C + cap
+
+    def host_ms(fn):
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(n):
+            fn()
+        host = (time.perf_counter() - t) / n * 1e3
+        torch.cuda.synchronize()
+        return host
+
+    buf = torch.zeros((size,), device=k4["z"].device)
+    t32, rv32 = k4["t"].to(torch.int32), k4["rv"].to(torch.int32)
+    plan = ops.gauss_suffstats_plan(R)
+    fn = ops._fn("gauss_suffstats")
+    ptr = lambda x: ctypes.c_void_p(x.data_ptr())  # noqa: E731
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    launch = lambda: fn(  # noqa: E731
+        ptr(t32), ptr(rv32), ptr(k4["w"]), ptr(k4["z"]), ptr(k4["ld"]),
+        float(k4["const"]), ptr(buf), ptr(buf), ptr(buf), ptr(buf), R, cap,
+        C, plan["threads"], plan["grid"], stream)
+    out = dict(wrapper_ms=host_ms(lambda: ops.gauss_suffstats(**k4)),
+               zeros_ms=host_ms(lambda: torch.zeros((size,),
+                                                    device=buf.device)),
+               launch_ms=host_ms(launch))
+    out["rest_ms"] = out["wrapper_ms"] - out["zeros_ms"] - out["launch_ms"]
+    return out
+
+
+def swap_externals(cm, cid="Flight") -> list:
+    """[(field vid, node, kern)] of class cid's MaybeSwap externals whose
+    val is one of cid's own choices (the flights model's four time fields
+    seen from Flight), in node order."""
+    from .engine.kernels import _MaybeSwapK
+    from .model.ir import ExternalLikelihoodNode
+
+    c = cm.cls(cid)
+    out = []
+    for node in c.nodes:
+        if not isinstance(node, ExternalLikelihoodNode):
+            continue
+        kern = cm.kernels.get(cm.canon(node.path[-1][0], node.ext_id))
+        if isinstance(kern, _MaybeSwapK):
+            inv = {sv: tv for tv, sv in
+                   c.incoming_references[node.path].items()}
+            out.append((inv[node.ext_node.arg_ids["val"]], node, kern))
+    return out
+
+
+def flights_inputs(eng, arenas, params, slots=None) -> list:
+    """K6's inputs at the shapes the flights path launches it at, from the
+    flights model's state (`eng` an Engine of the flights model): for each
+    time field, Flight slots (the first live one, as the path's one-row
+    launches, or `slots`) with their referrers in the form the tracer holds
+    them: the list form over Engine._ref_comp's per-slot lists where the
+    model has a referrer bound (the flights path at 2,376 rows: 256), else
+    the dense form over every Obs row; each slot's own atom list, and each
+    referrer's gated error rate (propose.row_value of the lookup, which
+    reads the referrer's own flight: the swept slot's). Returns
+    [dict(field, V, k6=...)]."""
+    from .engine.propose import row_value
+    from .engine.refresh import refresh
+
+    cm = eng.cm
+    rel = refresh(cm, arenas, eng.obs_dev)
+    if slots is None:
+        slots = torch.nonzero(rel["Flight"]["alive"])[:1, 0]
+    st = torch.as_tensor(slots, device=cm.device).long().reshape(-1)
+    comp = eng._ref_comp("Flight", arenas, rel)
+    names = {v: k for k, v in cm.cls("Flight").names.items()}
+    out = []
+    for fv, node, kern in swap_externals(cm):
+        src, fk = node.path[-1]
+        codes, state = eng.obs_dev[src][node.ext_id]
+        lc = row_value(cm, arenas, params, "Flight",
+                       cm.cls("Flight").nodes[fv].arg_ids["atoms"], st)
+        k6 = dict(lc=lc.to(torch.int32), lens=cm.use(kern.lens)
+                  .to(torch.int32), member=cm.use(kern.mask))
+        if node.path in comp:
+            idx, cnt = comp[node.path]
+            rows = idx[st]                                       # [B, R]
+            k6.update(cnt=cnt[st].to(torch.int32))
+        else:
+            rows = torch.arange(cm.layouts[src].capacity, device=cm.device)
+            k6.update(t=arenas[src]["values"][fk].to(torch.int32),
+                      alive=rel[src]["alive"], slot=st.to(torch.int32))
+        p = row_value(cm, arenas, params, src,
+                      node.ext_node.arg_ids["prob"], rows)
+        k6.update(obs=take(codes, rows).to(torch.int32).contiguous(),
+                  st=take(state, rows).to(torch.int8).contiguous(),
+                  p=p.to(torch.float32).reshape(-1 if "cnt" in k6 else 1,
+                                                rows.shape[-1]).contiguous())
+        out.append(dict(field=names.get(fv, str(fv)), V=kern.V, k6=k6))
+    return out
+
+
+def k6_inputs(dev, B: int, V: int, N: int, L: int = 64, seed: int = 0,
+              missing: float = 0.03, shared_p: bool = False,
+              lists: bool = False, per_slot: int = 0) -> dict:
+    """Seeded K6 inputs with codes in [0, V), 3% missing and 1% unobserved
+    states, p in (0, 0.5) with every tenth 1e-5 (the gated rate), and L
+    option lists of 1 to V options (list 0 empty; lens = max(list length,
+    1)). Dense form: N source rows over `per_slot`-sized groups of slots
+    (0: 2 * B slots), a fifth dead, the B rows the even slots. List form
+    (`lists`): each row's N entries, of which a random count in [0, N] are
+    its referrers."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    shape = (B, N) if lists else (N,)
+    obs = torch.randint(0, V, shape, generator=g, device=dev,
+                        dtype=torch.int32)
+    u = torch.rand(shape, generator=g, device=dev)
+    st = torch.where(u < missing, 2, torch.where(u < missing + 0.01, 0, 1)) \
+        .to(torch.int8)
+    p = torch.rand((1 if shared_p else B, N), generator=g, device=dev) * 0.5
+    p = torch.where((torch.arange(N, device=dev) % 10 == 0)[None, :],
+                    torch.full_like(p, 1e-5), p.clamp_min(1e-6))
+    member = torch.rand((L, V), generator=g, device=dev) < \
+        torch.rand((L, 1), generator=g, device=dev)
+    member[0] = False
+    k6 = dict(obs=obs, st=st, p=p, member=member,
+              lens=member.sum(1).clamp_min(1).to(torch.int32),
+              lc=torch.randint(0, L, (B,), generator=g, device=dev,
+                               dtype=torch.int32))
+    if lists:
+        k6["cnt"] = torch.randint(0, N + 1, (B,), generator=g, device=dev,
+                                  dtype=torch.int32)
+    else:
+        slots = max(2 * B, N // per_slot) if per_slot else 2 * B
+        k6.update(t=torch.randint(0, slots, (N,), generator=g, device=dev,
+                                  dtype=torch.int32),
+                  alive=torch.rand((N,), generator=g, device=dev) >= 0.2,
+                  slot=(2 * torch.arange(B, device=dev)).to(torch.int32))
+    return k6
+
+
+def check_k6(ops, k6: dict) -> float:
+    """Within 1e-5 of each cell's sum of |terms| (+1e-6) of the plain
+    version (the same f32 terms, summed in another order). Returns the
+    largest |difference|."""
+    got = ops.maybe_swap_ext(**k6)
+    want = ops.maybe_swap_ext_plain(**k6)
+    mag = ops.maybe_swap_ext_plain(**k6, absolute=True)
+    torch.cuda.synchronize()
+    d = (got - want).abs()
+    require(bool((d <= 1e-5 * mag + 1e-6).all()),
+            f"K6 differs by {float(d.max())}")
+    return float(d.max())
+
+
+def k6_bytes(k6: dict) -> int:
+    """K6's bytes on these inputs: each row's list code, the length and
+    member-mask row of each list the rows use, out [B, V] written once;
+    in list form each row's count and its first cnt entries of obs (4 B),
+    st (1 B) and p (4 B); in dense form each row's slot and t, obs (4 B),
+    alive, st (1 B) of every source row and p's rows."""
+    B, V = k6["lc"].shape[0], k6["member"].shape[1]
+    nl = int(torch.unique(k6["lc"].long().clamp(
+        0, k6["member"].shape[0] - 1)).numel())
+    common = B * 4 + nl * (4 + V) + B * V * 4
+    if "cnt" in k6:
+        n = int(k6["cnt"].clamp(0, k6["obs"].shape[1]).sum())
+        return common + B * 4 + n * 9
+    N = k6["obs"].shape[0]
+    return common + B * 4 + N * 10 + k6["p"].numel() * 4
+
+
+def time_k6(ops, k6: dict) -> dict:
+    """K6 on these inputs: ms and plain_ms (cuda_ms), device_ms
+    (graph_ms); no single PyTorch call computes it (library_ms None)."""
+    fn = lambda: ops.maybe_swap_ext(**k6)  # noqa: E731
+    return dict(ms=cuda_ms(fn), device_ms=graph_ms(fn),
+                plain_ms=cuda_ms(lambda: ops.maybe_swap_ext_plain(**k6)),
+                library_ms=None)
 
 
 def kernel_bytes(inp: dict) -> dict:
@@ -477,6 +671,7 @@ def time_kernels(ops, inp: dict, plain: bool = True,
             lambda: torch.logsumexp(lg, dim=1))
         res["inv_cdf_sample"]["library_ms"] = None
         res["obs_gather_sum"]["library_ms"] = timer(lambda: oh @ T)
+        res["obs_gather_sum"]["library_device_ms"] = graph_ms(lambda: oh @ T)
         del oh, T
     return res
 

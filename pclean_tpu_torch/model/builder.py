@@ -40,7 +40,9 @@ from ..dists.core import (
     AddTypos,
     ChooseProportionally,
     ChooseUniformly,
+    MaybeSwap,
     StringPrior,
+    TimePrior,
     TransformedGaussian,
 )
 from ..dists.params import ParamSpec
@@ -72,7 +74,9 @@ DIST_SLOTS: dict[type, list[str]] = {
     ChooseProportionally: ["options", "probs"],
     ChooseUniformly: ["options"],
     StringPrior: ["atoms"],
+    TimePrior: ["atoms"],
     AddTypos: ["word"],
+    MaybeSwap: ["val", "options", "prob"],
     AddNoise: ["mean"],
     TransformedGaussian: ["mean", "transform"],
 }

@@ -1,6 +1,6 @@
 """The port's hand-written CUDA kernels: build, bind, plain versions, counts.
 
-Five kernels carry the block enumeration of the batched MH path (sources
+Six kernels carry the block enumeration of the port's paths (sources
 in pclean_tpu_torch/csrc/, each with a header note on the JAX computation it
 replaces, its bound on the H100 and its design):
 
@@ -15,7 +15,11 @@ replaces, its bound on the H100 and its design):
                        a latent class's referrers (propose.py
                        referrer_histograms' gauss_stats scatters);
   K5 gauss_ext_term  — the closed-form Gaussian external of a latent block
-                       from those statistics (propose.py _ext_gauss_term).
+                       from those statistics (propose.py _ext_gauss_term);
+  K6 maybe_swap_ext  — a MaybeSwap external summed over each row's
+                       referrers for every option of its enumerated value
+                       (propose.py _ext_terms' dense path, the flights
+                       Flight time block).
 
 Each has a plain PyTorch version here. A wrapper takes the plain version
 only for tensors on the CPU; for CUDA tensors it launches its kernel or
@@ -26,7 +30,8 @@ raises. `LAUNCHES` counts kernel launches (plain calls are not counted);
 Each kernel takes a launch plan (path and geometry: threads, tiles,
 cluster, shared memory, grid) from a function of its shapes alone,
 `enum_logsumexp_plan`, `inv_cdf_plan`, `obs_gather_plan`,
-`gauss_suffstats_plan` and `gauss_ext_term_plan`; the C entry points launch
+`gauss_suffstats_plan`, `gauss_ext_term_plan` and `maybe_swap_ext_plan`;
+the C entry points launch
 the plan they are given, so the plan the CPU tests check is the one
 launched.
 
@@ -58,6 +63,7 @@ _SOURCES = {
     "obs_gather_sum": "obs_gather_sum.cu",
     "gauss_suffstats": "gauss_suffstats.cu",
     "gauss_ext_term": "gauss_ext_term.cu",
+    "maybe_swap_ext": "maybe_swap_ext.cu",
 }
 LAUNCHES = {name: 0 for name in _SOURCES}
 LAUNCHES_BY_SHAPE = {name: {"r1": 0, "rn": 0} for name in _SOURCES}
@@ -170,6 +176,8 @@ def build_kernels(force: bool = False) -> float:
                                 I32, I64, P],
             "gauss_ext_term": [P, I64, P, I64, I32, P, P, P, P, P, P, I64,
                                F32, P, I64, I64, I32, I64, P],
+            "maybe_swap_ext": [P, P, P, P, P, P, P, I64, P, P, I64, P, I64,
+                               P, I64, I64, I32, I64, I64, P],
         }
         for name in _SOURCES:
             lib = ctypes.CDLL(os.path.join(BUILD_DIR, f"lib{name}.so"))
@@ -640,4 +648,101 @@ def gauss_ext_term(values, tbl, idx, slot, n, sz, szz, pre0, coef: float):
         _stream(idx))
     _check(rc, "gauss_ext_term")
     _count("gauss_ext_term", B)
+    return out
+
+
+# ---------------------------------------------------------------- K6
+
+_K6_THREADS = 512
+_K6_OPTIONS = _K6_THREADS * 8  # options a block owns (8 a thread)
+
+
+def maybe_swap_ext_plan(B: int, V: int) -> dict:
+    """K6's launch for B rows of V options: one 512-thread block a row and
+    group of up to 4,096 options, dict(threads, grid=(B, groups))."""
+    B, V = int(B), int(V)
+    if B < 0 or V < 1:
+        raise ValueError(f"maybe_swap_ext: B = {B}, V = {V} out of range")
+    groups = -(-V // _K6_OPTIONS)
+    if groups > _GRID_Y_MAX:
+        raise ValueError(f"maybe_swap_ext: V = {V} options exceed the grid")
+    return dict(threads=_K6_THREADS, grid=(B, groups))
+
+
+def maybe_swap_ext_plain(obs, st, p, lc, lens, member, t=None, alive=None,
+                         slot=None, cnt=None, absolute: bool = False):
+    """[B, V] f32: for each row b, the dense per-referrer MaybeSwap terms
+    of pclean_tpu.engine.propose._ext_terms (obs == option ? log1p(-p) :
+    log p - log lens[lc_b] where st is 1, member[lc_b, option] ? 0 : -1000
+    where st is 2, else 0) over row b's referrers, summed. Dense form: obs,
+    st [N] and p [1 or B, N] over the whole source axis, row b's referrers
+    those alive with t == slot_b. List form (`cnt` given): obs, st [B, N]
+    and p [1 or B, N] per row, row b's referrers its first min(cnt_b, N)
+    entries. Indices clamp like the JAX gathers. `absolute` sums |terms|
+    instead: the scale of the kernel's tolerance."""
+    B, V = lc.shape[0], member.shape[1]
+    lcc = lc.long().clamp(0, member.shape[0] - 1)
+    loglen = torch.log(lens[lcc].to(torch.float32))
+    a = torch.arange(V, device=obs.device)[:, None]
+    zero = torch.zeros((), device=obs.device)
+    out = torch.zeros((B, V), dtype=torch.float32, device=obs.device)
+    for b in range(B):
+        prow = p[0 if p.shape[0] == 1 else b]
+        if cnt is None:
+            r = torch.nonzero(alive & (t == slot[b]))[:, 0]
+            o, sr, pr = obs[r], st[r], prow[r]
+        else:
+            n = int(cnt[b].clamp(0, obs.shape[1]))
+            o, sr, pr = obs[b, :n], st[b, :n], prow[:n]
+        pr = pr[None, :]
+        obs_t = torch.where(o[None, :].long() == a, torch.log1p(-pr),
+                            torch.log(pr) - loglen[b])
+        miss_t = torch.where(member[lcc[b]], zero,
+                             torch.full((), -1000.0, device=obs.device))
+        sr = sr[None, :]
+        term = torch.where(sr == 1, obs_t,
+                           torch.where(sr == 2, miss_t[:, None], zero))
+        out[b] = (term.abs() if absolute else term).sum(-1)
+    return out
+
+
+def maybe_swap_ext(obs, st, p, lc, lens, member, t=None, alive=None,
+                   slot=None, cnt=None):
+    """K6, as maybe_swap_ext_plain. Dense form: t, obs [N] int32, alive [N]
+    bool, st [N] int8, slot [B] int32. List form: cnt [B] int32, obs
+    [B, N] int32, st [B, N] int8. Both: p [1 or B, N] f32, lc [B] int32,
+    lens [L] int32, member [L, V] bool -> [B, V] f32."""
+    if not _route(obs, "maybe_swap_ext"):
+        return maybe_swap_ext_plain(obs, st, p, lc, lens, member, t=t,
+                                    alive=alive, slot=slot, cnt=cnt)
+    dense = cnt is None
+    args = dict(obs=(obs, torch.int32, 1 if dense else 2),
+                st=(st, torch.int8, 1 if dense else 2),
+                p=(p, torch.float32, 2), lc=(lc, torch.int32, 1),
+                lens=(lens, torch.int32, 1), member=(member, torch.bool, 2))
+    if dense:
+        args.update(t=(t, torch.int32, 1), alive=(alive, torch.bool, 1),
+                    slot=(slot, torch.int32, 1))
+    else:
+        args.update(cnt=(cnt, torch.int32, 1))
+    for nm, (x, dt, dim) in args.items():
+        _need(x, dt, f"maybe_swap_ext {nm}", dim)
+        if not x.is_cuda:
+            raise ValueError("maybe_swap_ext: every input must be on the card")
+    B, N = lc.shape[0], obs.shape[-1]
+    L, V = member.shape
+    ok = (st.shape == obs.shape and p.shape[1] == N and p.shape[0] in (1, B)
+          and lens.shape[0] == L)
+    ok = ok and (t.shape[0] == alive.shape[0] == N and slot.shape[0] == B
+                 if dense else obs.shape[0] == cnt.shape[0] == B)
+    if not ok:
+        raise ValueError("maybe_swap_ext: shapes do not agree")
+    plan = maybe_swap_ext_plan(B, V)
+    out = torch.empty((B, V), dtype=torch.float32, device=obs.device)
+    rc = _fn("maybe_swap_ext")(
+        _ptr(t), _ptr(alive), _ptr(slot), _ptr(cnt), _ptr(obs), _ptr(st),
+        _ptr(p), p.shape[0], _ptr(lc), _ptr(lens), L, _ptr(member), V,
+        _ptr(out), B, N, plan["threads"], *plan["grid"], _stream(obs))
+    _check(rc, "maybe_swap_ext")
+    _count("maybe_swap_ext", B)
     return out

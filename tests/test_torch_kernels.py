@@ -570,3 +570,128 @@ def test_k5_cuda_matches_plain(card, B, A, C, case):
     k5 = dict(values=values, tbl=tbl, idx=idx, slot=slot, n=n, sz=sz,
               szz=szz, pre0=pre0, coef=-0.5 / 150.0 ** 2)
     check_k5(ops, k5)
+
+
+# ---------------------------------------------------------------- K6
+
+
+def _k6_brute(k6):
+    """out[b, a] by a Python loop over the referrers (float64), in either
+    form: dense (t, alive, slot) or list (cnt)."""
+    p = k6["p"].double()
+    member, lens = k6["member"], k6["lens"]
+    B, V = k6["lc"].shape[0], member.shape[1]
+    out = np.zeros((B, V))
+    for b in range(B):
+        l = int(k6["lc"][b])
+        pr = p[0 if p.shape[0] == 1 else b]
+        if "cnt" in k6:
+            n = min(int(k6["cnt"][b]), k6["obs"].shape[1])
+            obs, st = k6["obs"][b].tolist(), k6["st"][b].tolist()
+            refs = range(n)
+        else:
+            obs, st = k6["obs"].tolist(), k6["st"].tolist()
+            refs = [r for r in range(len(obs)) if bool(k6["alive"][r])
+                    and int(k6["t"][r]) == int(k6["slot"][b])]
+        for r in refs:
+            if st[r] == 1:
+                same = float(torch.log1p(-pr[r]))
+                diff = float(torch.log(pr[r])) - np.log(float(lens[l]))
+                out[b] += np.where(np.arange(V) == obs[r], same, diff)
+            elif st[r] == 2:
+                out[b] += np.where(member[l].numpy(), 0.0, -1000.0)
+    return out
+
+
+@pytest.mark.parametrize("shared_p", [False, True])
+def test_k6_plain_matches_brute_force(shared_p):
+    from pclean_tpu_torch.kernel_bench import k6_inputs
+
+    k6 = k6_inputs(torch.device("cpu"), B=5, V=9, N=300, L=6, seed=3,
+                   missing=0.2, shared_p=shared_p)
+    k6["lc"][1] = 0            # the empty list (lens clamps to 1)
+    k6["slot"][2] = 99         # a slot no referrer points at
+    got = ops.maybe_swap_ext_plain(**k6)
+    np.testing.assert_allclose(got.numpy(), _k6_brute(k6), rtol=1e-5,
+                               atol=1e-3)
+    assert float(got[2].abs().sum()) == 0.0
+    mag = ops.maybe_swap_ext_plain(**k6, absolute=True)
+    assert bool((mag >= got.abs() - 1e-3).all())
+
+
+@pytest.mark.parametrize("shared_p", [False, True])
+def test_k6_plain_list_form_matches_brute_force(shared_p):
+    from pclean_tpu_torch.kernel_bench import k6_inputs
+
+    k6 = k6_inputs(torch.device("cpu"), B=4, V=7, N=40, L=5, seed=4,
+                   missing=0.2, shared_p=shared_p, lists=True)
+    k6["cnt"][0] = 0           # a slot with no referrers
+    k6["cnt"][1] = 99          # a count past the list clamps to it
+    got = ops.maybe_swap_ext_plain(**k6)
+    np.testing.assert_allclose(got.numpy(), _k6_brute(k6), rtol=1e-5,
+                               atol=1e-3)
+    assert float(got[0].abs().sum()) == 0.0
+
+
+def test_k6_wrapper_takes_plain_version_on_cpu_without_counting():
+    from pclean_tpu_torch.kernel_bench import k6_inputs
+
+    ops.reset_counts()
+    k6 = k6_inputs(torch.device("cpu"), B=2, V=4, N=20, L=3)
+    assert torch.equal(ops.maybe_swap_ext(**k6),
+                       ops.maybe_swap_ext_plain(**k6))
+    assert all(v == 0 for v in ops.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("B,V", [(1, 2), (1, 300), (1, 4096), (1, 4097),
+                                 (64, 4096), (0, 27), (3, 100_000)])
+def test_k6_plan_covers_its_options(B, V):
+    plan = ops.maybe_swap_ext_plan(B, V)
+    gx, gy = plan["grid"]
+    assert plan["threads"] == 512 and gx == B
+    assert gy * 4096 >= V > (gy - 1) * 4096
+
+
+def test_k6_plan_refuses_what_it_cannot_launch():
+    with pytest.raises(ValueError):
+        ops.maybe_swap_ext_plan(1, 0)
+    with pytest.raises(ValueError):
+        ops.maybe_swap_ext_plan(1, 4096 * 65536)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["path", "empty_slot", "all_missing", "V2",
+                                  "gated", "shared_p", "big", "path_list",
+                                  "gated_list", "big_list"])
+def test_k6_cuda_matches_plain(card, case):
+    from pclean_tpu_torch.kernel_bench import check_k6, k6_inputs
+
+    # one Flight slot against 2,376 Obs rows (dense form), or against its
+    # list of up to 256 referrers (the flights path's referrer bound)
+    B, V, Cs = 1, 300, 2376
+    lists = case.endswith("_list")
+    if lists:
+        Cs = 256
+    if case.startswith("big"):
+        B, V, Cs = 64, 4096, 50_000
+    elif case == "V2":
+        V = 2                     # one atom and the dummy
+    k6 = k6_inputs(card, B, V, Cs, seed=7, shared_p=case == "shared_p",
+                   lists=lists)
+    if lists:
+        k6["cnt"][0] = Cs         # a full list
+    if case == "empty_slot":
+        k6["slot"][0] = 2 * B + 5
+    elif case == "all_missing":
+        k6["st"] = torch.full_like(k6["st"], 2)
+    elif case.startswith("gated"):
+        k6["p"] = torch.full_like(k6["p"], 1e-5)
+    check_k6(ops, k6)
+    out = ops.maybe_swap_ext(**k6)
+    if case == "empty_slot":
+        assert float(out[0].abs().sum()) == 0.0
+    if case == "all_missing":
+        lc = k6["lc"].long()
+        n = (k6["alive"] & (k6["t"] == k6["slot"][0])).sum()
+        want = torch.where(k6["member"][lc[0]], 0.0, -1000.0) * n
+        torch.testing.assert_close(out[0], want.float(), rtol=1e-6, atol=0)
