@@ -6,14 +6,16 @@
 
 It drives the port only (never jax, never pclean_tpu), in order:
   1. prints the card's name and power limit (nvidia-smi);
-  2. builds the six CUDA kernels from pclean_tpu_torch/csrc/ (one nvcc per
+  2. builds the eight CUDA kernels from pclean_tpu_torch/csrc/ (one nvcc per
      source, in parallel) and prints the build time and ptxas's registers,
      shared memory, stack frame and spills for each compiled function;
   3. checks the tracer's CUDA path against its CPU path (plain versions) on
      small inputs: same state, same injected uniforms, for the scaled
      workload's Record block, the rents workload's County block (K4's
-     statistics and K5's closed form), and the flights workload's Flight
-     time block (K6) and Obs blocks;
+     statistics and K5's closed form), the flights workload's Flight
+     time block (K6) and Obs blocks, and the hospital workload's two
+     Record blocks and its County and Measure blocks (K7's hoisted
+     histograms, K8's composed stateavg term);
   4. runs the scaled workload's main path end to end — compile_model,
      init_state, Engine.initialize (sequential ramp, batched init segments,
      batched birth allocation, replay), Engine.run (segmented batched MH
@@ -25,7 +27,9 @@ It drives the port only (never jax, never pclean_tpu), in order:
      init s, sweep s, rows-cleaned/s, F1, precision, recall, arena
      occupancy, peak device memory and each kernel's launches on that run,
      split into one-row (r1) and batched (rn) launches, and K1's and K2's
-     launch census by (mode, r1 or rn, row length K);
+     launch census by (mode, r1 or rn, row length K); then K7's per-row
+     form at the Hospital sweep's un-hoisted name histogram (4,096 rows
+     against every Record) on that state;
   5. after the main path (so that its peak memory is its own), for each
      kernel, at both shapes the main path launches it at (the
      batch shape, B = 4096 rows, and the sequential loops' one row), on
@@ -59,7 +63,8 @@ It drives the port only (never jax, never pclean_tpu), in order:
   9. runs the flights path end to end (pclean_tpu_torch/workloads/
      flights.py, the port's copy of experiments/flights.py on its seeded
      synthetic flights tables) at the source's 2,376 rows, 100 flights, 38
-     websites, capacities Flight 160 and TrackingWebsite 64, MH, 5 sweeps,
+     websites, capacities Flight 160 and TrackingWebsite 64, MH, 3 sweeps
+     (the source's 5 cut to fit the four paths into the time limit),
      batch_rows 1 (the sequential drivers), rejuv_frequency 50, with the
      counts set to 0 just before it and read just after: the same report
      as the other paths, and K1's and K2's census there;
@@ -69,8 +74,21 @@ It drives the port only (never jax, never pclean_tpu), in order:
      the plain version, kernel / plain / device ms, the bytes bound and the
      launch floor; and K1 and K2 at every one-row flights census shape
      holding >= 5% of either's launches there;
- 11. prints the `kernels` JSON line (K1-K6; `launches` summed over the
-     three paths, with each path's own beside it), then the card line,
+ 11. runs the hospital path end to end (pclean_tpu_torch/workloads/
+     hospital.py, the port's copy of experiments/hospital.py on its seeded
+     synthetic hospital tables) at the source's config: 1,000 rows tiled
+     100 times, capacities of experiments/hospital.py, MH, 1 sweep,
+     batch_rows 4096 (bench.py:238-239), with the counts set to 0 just
+     before it and read just after: the same report as the other paths;
+ 12. K7 and K8 at the shapes the hospital path launches them at (inputs
+     from its state, kernel_bench.hospital_inputs: K7 hoisted for the
+     largest histogram and the three-hop County chain, K7 per row at one
+     row; K8 at the County and Measure sweeps' 4,096 rows against every
+     Record): error against the plain version, kernel / plain / library
+     ms (K7's library call is one torch.bincount), device ms, the bytes
+     bound and the launch floor;
+ 13. prints the `kernels` JSON line (K1-K8; `launches` summed over the
+     four paths, with each path's own beside it), then the card line,
      then the result.
 
 Tolerances: K1 record bit-equal, logZ rtol 1e-6 (the same f32 formula
@@ -83,12 +101,15 @@ never a zero-mass pick; K3 bit-equal (same column order); K4's counts
 equal and its sums within 1e-5 of each cell's sum of |terms| (atomics add
 in any order); K5 within 2^-20 * |coef| * (|sum szz| + 2 |sum mu sz| +
 |sum mu^2 n|) + 1e-5 (its f32 sums subtract); K6 within 1e-5 of each
-cell's sum of |terms| + 1e-6 (the same terms summed in another order). It
-fails (non-zero exit, no result line) if there is no card, a kernel does
-not build, launch or agree, K1-K3 were not launched on the scaled path, K4
-and K5 not on the rents path or K1, K2 and K6 not on the flights path, the
-scaled F1 < 0.80, the rents F1 < RENTS_F1_FLOOR, the flights F1 <
-FLIGHTS_F1_FLOOR, or any phase raises.
+cell's sum of |terms| + 1e-6 (the same terms summed in another order); K7
+bit-equal (integer counts); K8 within 1e-5 of each cell's sum of |terms|
++ 1e-6 (double sums in referrer order against an f32 histogram-times-SA
+product). It fails (non-zero exit, no result line) if there is no card, a
+kernel does not build, launch or agree, K1-K3 were not launched on the
+scaled path, K4 and K5 not on the rents path, K1, K2 and K6 not on the
+flights path or K1-K3, K7 and K8 not on the hospital path, the scaled F1 <
+0.80, the rents F1 < RENTS_F1_FLOOR, the flights F1 < FLIGHTS_F1_FLOOR,
+the hospital F1 < HOSPITAL_F1_FLOOR, or any phase raises.
 """
 import json
 import os
@@ -111,11 +132,19 @@ RENTS = dict(rows=50_000, states=51, counties=1500, batch=256)
 # F1 0.8941, 0.8890 and 0.8914 (scripts/rents_jax_floor.py); the floor is
 # the lowest less 0.03
 RENTS_F1_FLOOR = 0.8890112089671738 - 0.03
-FLIGHTS = dict(rows=2376, flights=100, websites=38)
+# the source's 5 sweeps cut to 3 so that the four paths fit the time limit
+# (F1 reaches 0.99 from the third sweep, as pclean_tpu's does)
+FLIGHTS = dict(rows=2376, flights=100, websites=38, sweeps=3)
 # pclean_tpu on the CPU on the same flights tables (MH, 5 sweeps, B = 1,
 # seeds 0-2) reached F1 1.0, 0.9934 and 1.0 (scripts/flights_jax_floor.py);
 # the floor is the lowest less 0.03
 FLIGHTS_F1_FLOOR = 0.9933812949640289 - 0.03
+HOSPITAL = dict(rows=1000, repeat=100, batch=4096)
+# pclean_tpu on the CPU on the same hospital tables (MH, 1 sweep, seeds 0-2,
+# at 5,000 rows and B = 256: 100,000 rows at B = 4096 do not fit a CPU host)
+# reached F1 0.99945, 0.99931 and 0.99931 (scripts/hospital_jax_floor.py);
+# the floor is the lowest less 0.03
+HOSPITAL_F1_FLOOR = 0.9993136582017845 - 0.03
 
 
 def card_line() -> str:
@@ -138,11 +167,17 @@ SOURCES = {
                        "pclean_tpu/engine/propose.py:856"),
     "maybe_swap_ext": ("pclean_tpu_torch/csrc/maybe_swap_ext.cu",
                        "pclean_tpu/engine/propose.py:683"),
+    "referrer_hist": ("pclean_tpu_torch/csrc/referrer_hist.cu",
+                      "pclean_tpu/engine/propose.py:1399"),
+    "sa_ext_term": ("pclean_tpu_torch/csrc/sa_ext_term.cu",
+                    "pclean_tpu/engine/propose.py:801"),
 }
 SCALED_KERNELS = ("enum_logsumexp", "inv_cdf_sample", "obs_gather_sum")
 RENTS_KERNELS = ("gauss_suffstats", "gauss_ext_term")
 FLIGHTS_KERNELS = ("enum_logsumexp", "inv_cdf_sample", "maybe_swap_ext")
-PATHS = ("scaled", "rents", "flights")
+HOSPITAL_KERNELS = ("enum_logsumexp", "inv_cdf_sample", "obs_gather_sum",
+                    "referrer_hist", "sa_ext_term")
+PATHS = ("scaled", "rents", "flights", "hospital")
 
 
 def bench_kernels(ops, cm, dev):
@@ -341,6 +376,73 @@ def bench_flights_k6(ops, eng, arenas, params, floor) -> dict:
                 shapes=shapes)
 
 
+def bench_k7_k8_shape(ops, name, label, form, k, floor) -> dict:
+    """K7 (`form` "hoisted" or "rows") or K8 on the inputs `k`: checked
+    against its plain version, timed beside it (K7 also beside its library
+    call, torch.bincount), with the bytes bound, the launch floor and the
+    plan."""
+    from pclean_tpu_torch import kernel_bench as kb
+
+    if name == "referrer_hist":
+        err, nbytes, t = kb.check_k7(ops, k), kb.k7_bytes(k), \
+            kb.time_k7(ops, k)
+        R = k["w"].shape[-1]
+        G = k["cap"] if form == "hoisted" else k["w"].shape[0]
+        plan = ops.referrer_hist_plan(R, G, k["V"], form == "rows")
+        shape = (f"{form}: out [{G}, {k['V']}], {R} referrers"
+                 + (f", {len(k['hops'])} hop(s)" if form == "hoisted"
+                    else ""))
+    else:
+        err, nbytes, t = kb.check_k8(ops, k), kb.k8_bytes(k), \
+            kb.time_k8(ops, k)
+        E, Vc, V = k["SA"].shape
+        B, R = k["w"].shape
+        plan = ops.sa_ext_term_plan(B, E)
+        shape = (f"out [{B}, {E}], SA [{E}, {Vc}, {V}], {R} referrers, "
+                 f"{int(k['w'].sum())} kept")
+    r = dict(label=label, shape=shape, max_abs_err=err, bytes=nbytes,
+             bound_ms=nbytes / kb.HBM_BYTES_PER_S * 1e3, floor_ms=floor,
+             plan=plan, **t)
+    print(f"{name} {label}: {shape}: max_abs_err {err:.3g} kernel "
+          f"{r['ms']:.4f} ms (device {r['device_ms']:.4f} ms) plain "
+          f"{r['plain_ms']:.4f} ms library {r['library_ms']} ms bound "
+          f"{r['bound_ms']:.5f} ms floor {floor:.4f} ms plan {plan}",
+          flush=True)
+    return r
+
+
+def bench_hospital_kernels(ops, eng, arenas, params, floor,
+                           scaled_k7) -> list:
+    """K7 and K8 at the shapes the hospital path launches them at
+    (kernel_bench.hospital_inputs on its state: K7 hoisted for the largest
+    histogram and the deepest fk chain, K7 per row at one row; K8 at the
+    County and Measure sweeps' batch shape), through bench_k7_k8_shape;
+    `scaled_k7` is K7's row at the scaled path's un-hoisted Hospital sweep
+    shape, measured while the scaled state was alive. The kernels-line
+    numbers are the first shape's (K7: the largest hoisted histogram; K8:
+    the County sweep); `shapes` holds every shape's."""
+    from pclean_tpu_torch import kernel_bench as kb
+
+    inp = kb.hospital_inputs(eng, arenas, params, HOSPITAL["batch"])
+    rows = {"referrer_hist": [
+        bench_k7_k8_shape(ops, "referrer_hist", label, form, k, floor)
+        for label, form, k in inp["k7"]] + [scaled_k7],
+        "sa_ext_term": [bench_k7_k8_shape(ops, "sa_ext_term", label, "rows",
+                                          k, floor)
+                        for label, k in inp["k8"]]}
+    out = []
+    for name, shapes in rows.items():
+        top = shapes[0]
+        out.append(dict({key: top[key] for key in (
+            "max_abs_err", "ms", "device_ms", "plain_ms", "library_ms",
+            "library_device_ms", "bytes", "bound_ms", "floor_ms", "plan",
+            "shape")}, name=name, route="cuda", source=SOURCES[name][0],
+            replaces=SOURCES[name][1], bound_by="bytes", shapes=shapes))
+    del inp
+    torch.cuda.empty_cache()
+    return out
+
+
 def ptxas_lines(ops) -> dict:
     """Per kernel source, the ptxas -v lines of each compiled function:
     registers, shared memory, stack frame and spills."""
@@ -395,7 +497,7 @@ def small_device_check(dev, workload="scaled"):
     from pclean_tpu_torch.kernel_bench import require
     from pclean_tpu_torch.engine.refresh import refresh
     from pclean_tpu_torch.engine.smc import Engine
-    from pclean_tpu_torch.workloads import flights, rents, scaled
+    from pclean_tpu_torch.workloads import flights, hospital, rents, scaled
 
     if workload == "scaled":
         mod, need = scaled, ("enum_logsumexp", "inv_cdf_sample",
@@ -405,6 +507,9 @@ def small_device_check(dev, workload="scaled"):
     elif workload == "rents":
         mod, need = rents, ("gauss_suffstats", "gauss_ext_term")
         small = dict(rows=1000, states=12, counties=40, batch=16)
+    elif workload == "hospital":
+        mod, need = hospital, ("referrer_hist", "sa_ext_term")
+        small = dict(rows=240, batch=16)
     else:
         mod, need = flights, FLIGHTS_KERNELS
         small = dict(rows=300, flights=12, websites=8, sweeps=2,
@@ -416,6 +521,14 @@ def small_device_check(dev, workload="scaled"):
         alive = arenas["County"]["alive"]
         checks = [("County", 0, np.concatenate([
             np.flatnonzero(alive)[:62], np.flatnonzero(~alive)[:2]]))]
+    elif workload == "hospital":   # both Record blocks, the composed term
+        rel = refresh(res["cpu"][0], to_torch(arenas, "cpu"),
+                      Engine(*res["cpu"], device="cpu").obs_dev)
+        checks = [("Record", None, np.arange(0, small["rows"], 15))]
+        for cid in ("County", "Measure"):
+            alive = rel[cid]["alive"].numpy()
+            checks.append((cid, 0, np.concatenate([
+                np.flatnonzero(alive)[:14], np.flatnonzero(~alive)[:2]])))
     else:
         rel = refresh(res["cpu"][0], to_torch(arenas, "cpu"),
                       Engine(*res["cpu"], device="cpu").obs_dev)
@@ -537,7 +650,7 @@ def main() -> int:
     from pclean_tpu_torch import kernel_bench as kb
     from pclean_tpu_torch import ops
     from pclean_tpu_torch.kernel_bench import require
-    from pclean_tpu_torch.workloads import flights, rents, scaled
+    from pclean_tpu_torch.workloads import flights, hospital, rents, scaled
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -553,6 +666,7 @@ def main() -> int:
             print(f"  ptxas {name}: {line}")
     report = {"card": card, "build_s": build_s, "torch": torch.__version__,
               "cuda": torch.version.cuda, "ptxas": ptxas}
+    floor = kb.launch_floor_ms()
     for wl in PATHS:
         err, launched = small_device_check(dev, wl)
         report[f"small_check_{wl}_max_abs_err"] = err
@@ -567,12 +681,18 @@ def main() -> int:
     caps = {c: cm.layouts[c].capacity for c in cm.model.class_order}
     print(f"scaled compile_model: {report['compile_s']:.2f} s, capacities "
           f"{caps}", flush=True)
-    sc, _state = run_path(ops, "scaled", cm, config, dirty, clean, query,
-                          ROWS)
-    del _state
+    sc, (arenas, params, eng) = run_path(ops, "scaled", cm, config, dirty,
+                                         clean, query, ROWS)
     report.update(sc)  # the scaled path's numbers at the report's top level
     # after the path, so that its peak memory is its own (CUDA graph timing
-    # leaves allocator state behind, about 0.1 GB)
+    # leaves allocator state behind, about 0.1 GB): K7's per-row form at the
+    # Hospital sweep's un-hoisted name histogram, then K1-K3
+    k7_in = kb.scaled_k7_rows_inputs(eng, arenas, params, BATCH)
+    scaled_k7 = bench_k7_k8_shape(
+        ops, "referrer_hist", f"scaled Hospital sweep V={k7_in['V']}, "
+        f"{BATCH} rows", "rows", k7_in, floor)
+    del arenas, params, eng, k7_in
+    torch.cuda.empty_cache()
     kernels = bench_kernels(ops, cm, dev)
     for k in kernels:
         for sh in ("", "_r1"):
@@ -602,7 +722,6 @@ def main() -> int:
     rn, (arenas, params, eng) = run_path(ops, "rents", cm, config, dirty,
                                          clean, query, RENTS["rows"])
     report["rents"] = dict(rn, compile_s=compile_s, f1_floor=RENTS_F1_FLOOR)
-    floor = kb.launch_floor_ms()
     kernels += bench_rents_kernels(ops, cm, arenas, params, eng.obs_dev,
                                    floor)
     del cm, dirty, clean, query, arenas, params, eng
@@ -622,7 +741,27 @@ def main() -> int:
                              f1_floor=FLIGHTS_F1_FLOOR)
     kernels.append(bench_flights_k6(ops, eng, arenas, params, floor))
     fl_shapes = bench_k1_shapes(ops, dev, fl["census"])
-    runs = {"scaled": sc, "rents": rn, "flights": fl}
+    del cm, dirty, clean, query, arenas, params, eng
+    torch.cuda.empty_cache()
+
+    # the hospital path (100,000 rows, B = 4096), then K7 and K8 at its
+    # shapes
+    t = time.time()
+    cm, config, dirty, clean, query, _sweeps = hospital.setup(
+        **HOSPITAL, device="cuda")
+    compile_s = time.time() - t
+    rows = HOSPITAL["rows"] * HOSPITAL["repeat"]
+    print(f"hospital compile_model: {compile_s:.2f} s, capacities "
+          f"{ {c: cm.layouts[c].capacity for c in cm.model.class_order} }, "
+          f"composed SA tensors "
+          f"{[a.shape for a in cm._ext_sa_cache.values()]}", flush=True)
+    hp, (arenas, params, eng) = run_path(ops, "hospital", cm, config, dirty,
+                                         clean, query, rows)
+    report["hospital"] = dict(hp, compile_s=compile_s,
+                              f1_floor=HOSPITAL_F1_FLOOR)
+    kernels += bench_hospital_kernels(ops, eng, arenas, params, floor,
+                                      scaled_k7)
+    runs = {"scaled": sc, "rents": rn, "flights": fl, "hospital": hp}
     for k in kernels:
         for path, r in runs.items():
             k[f"launches_{path}"] = r["launches"][k["name"]]
@@ -634,7 +773,8 @@ def main() -> int:
             k["shapes"] = shapes[k["name"]]
             k["shapes_flights"] = fl_shapes[k["name"]]
     for path, need in (("scaled", SCALED_KERNELS), ("rents", RENTS_KERNELS),
-                       ("flights", FLIGHTS_KERNELS)):
+                       ("flights", FLIGHTS_KERNELS),
+                       ("hospital", HOSPITAL_KERNELS)):
         missing = [k for k in need if runs[path]["launches"][k] <= 0]
         require(not missing, f"kernels never launched on the {path} path: "
                 f"{missing}")
@@ -643,6 +783,8 @@ def main() -> int:
             f"rents F1 {rn['f1']} < {RENTS_F1_FLOOR}")
     require(fl["f1"] >= FLIGHTS_F1_FLOOR,
             f"flights F1 {fl['f1']} < {FLIGHTS_F1_FLOOR}")
+    require(hp["f1"] >= HOSPITAL_F1_FLOOR,
+            f"hospital F1 {hp['f1']} < {HOSPITAL_F1_FLOOR}")
     report["total_s"] = time.time() - t0
     report["kernels"] = kernels
     if out_dir:
@@ -652,7 +794,8 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "library_device_ms", "launches_scaled",
-            "launches_rents", "launches_flights", "launches_r1", "ms_r1",
+            "launches_rents", "launches_flights", "launches_hospital",
+            "launches_r1", "ms_r1",
             "device_ms_r1", "plain_ms_r1", "bound_ms_r1", "library_ms_r1",
             "floor_ms", "shapes", "shapes_flights")
     print(json.dumps({"kernels": [{k: kk[k] for k in keys if k in kk}

@@ -12,7 +12,7 @@ Where the JAX tracer runs one row under `vmap`, this tracer carries the
 batch axis explicitly: `row_slot` is [B] and every value at enumeration
 depth d has rank 1 + d — the batch axis first (size B, or 1 when the value
 is the same for every row), then the d enumeration axes (size 1 where it
-broadcasts). Six hot spots go through the hand kernels of ops.py:
+broadcasts). Eight hot spots go through the hand kernels of ops.py:
 
   * K1 enum_logsumexp: score_fk's record [.., K+1] + logZ, and
     score_choice's logZ;
@@ -27,7 +27,14 @@ broadcasts). Six hot spots go through the hand kernels of ops.py:
     latent block (_ext_gauss_term);
   * K6 maybe_swap_ext: a MaybeSwap external whose `val` is the block's
     innermost enumerated value, summed over each row's referrers for every
-    option (_ext_swap_term; the flights Flight time block).
+    option (_ext_swap_term; the flights Flight time block);
+  * K7 referrer_hist: the referrer-observation histograms of the AddTypos
+    externals, hoisted once per segment over the swept class's slots
+    (referrer_histograms) or per batch row where none is hoisted
+    (_ext_hist_term);
+  * K8 sa_ext_term: the composed AddTypos external (word = table[option,
+    referrer value], the hospital model's stateavg) summed over each row's
+    referrers (_ext_hist_term).
 
 The sample pass draws its uniforms from a per-block pool [B, n]
 (propose.py:897-904); callers may inject the pool, which is how the tests
@@ -48,7 +55,7 @@ from ..model.ir import (ChoiceNode, ClassID, ComputeNode,
                         ExternalLikelihoodNode, ForeignKeyNode, Node,
                         ParameterNode, ParamLookupNode, Plan, Step,
                         SubmodelNode, VertexID, strip_subnodes)
-from ..utils import NEG_INF, bgather, take
+from ..utils import NEG_INF, bgather, chase, take
 from .compile import CompiledModel
 
 NINF = float(NEG_INF)
@@ -511,10 +518,7 @@ class BlockTracer:
             slots_r = slots.reshape((self.B,) + (1,) * depth + (-1,))
         else:
             Cs = self.cm.layouts[src].capacity
-            t = None
-            for (hop_cid, hop_fk) in reversed(path):
-                col = self.arenas[hop_cid]["values"][hop_fk]
-                t = col if t is None else take(col, t)
+            t = chase([self.arenas[c]["values"][f] for c, f in reversed(path)])
             alive = self.rel[src]["alive"]
             mask = alive & (t[None, :] == self.row_slot[:, None])  # [B, Cs]
             refs = {"t": t, "alive": alive, "slot": self.row_slot}
@@ -632,29 +636,15 @@ class BlockTracer:
 
     _SA_MAX_CELLS = 16_000_000
 
-    def _batch_hist(self, shape, idx_fn, w):
-        """Per-row histograms: out[b, idx...] += 1 over the referrers r with
-        w[b, r] (w is [B, Cs] or [B, R]); idx_fn(b, r) gives the index
-        columns. Only the set pairs are touched, so no [B, Cs, V] tensor."""
-        out = torch.zeros((self.B,) + tuple(shape), dtype=torch.float32,
-                          device=self.cm.device)
-        b, r = torch.nonzero(w, as_tuple=True)
-        cols = idx_fn(b, r)
-        ok = torch.ones_like(b, dtype=torch.bool)
-        for c, n in zip(cols, shape):
-            ok = ok & (c >= 0) & (c < n)
-        out.index_put_((b[ok],) + tuple(c[ok] for c in cols),
-                       torch.ones((int(ok.sum()),), device=self.cm.device),
-                       accumulate=True)
-        return out
-
     def _ext_hist_term(self, kern, ext: ChoiceNode, src: ClassID,
                        ext_id: VertexID, mask, inv, depth: int, ext_value,
                        path=None, slots=None):
         """Histogram path for AddTypos externals: sum_r M[obs_r, word_r]
-        collapses to hist @ M when `word` is the overlaid latent value, or
-        to SA . H when word = table[latent, one referrer value] (the
-        composed case, propose.py:719-812). None when inapplicable."""
+        collapses to hist @ M when `word` is the overlaid latent value (the
+        hoisted histogram, else K7's per-row form), or, when word =
+        table[latent, one referrer value] (the composed case,
+        propose.py:719-812), to the sum of SA[option, rv_r, obs_r] over the
+        referrers (K8). None when inapplicable."""
         from .kernels import _AddTyposK
 
         if not isinstance(kern, _AddTyposK):
@@ -665,20 +655,15 @@ class BlockTracer:
         val, st = self._ext_obs(src, ext_id, slots)
         w = mask if st is None else (mask & (st != 2))
         V = kern.V
-
-        def pick(x, b, r):
-            """x over the referrer axis ([R] or [1|B, R]) at pairs (b, r)."""
-            if x.dim() == 1:
-                return x[r]
-            return x[0, r] if x.shape[0] == 1 else x[b, r]
+        # the referrer axis as [1 or B, R] beside w [B, R]
+        val = val.reshape(-1, val.shape[-1])
 
         if word_sv in inv and inv[word_sv] in self.env:
             pre = self.ext_hists.get((path, ext_id))
             if pre is not None:
                 hist = take(pre, self.row_slot)                   # [B, V]
             else:
-                hist = self._batch_hist((V,), lambda b, r: (
-                    pick(val, b, r).long(),), w)
+                hist = ops.referrer_hist(val, w, V)
             termvec = hist @ self.cm.use(kern.M)                  # [B, V]
             arg = self.aligned(inv[word_sv], depth)
             return bgather(termvec, arg)
@@ -708,21 +693,16 @@ class BlockTracer:
         SAd = self.cm.use(SA)
         ne = len(env_args)
         env_shape = SA.shape[:ne]
+        E = int(np.prod(env_shape))
         if ref_args:
             rv = ext_value(ref_args[0])
             if rv.shape[-1] != mask.shape[-1] or rv.dim() != 2 + depth \
                     or any(s != 1 for s in rv.shape[1:-1]):
                 return None  # overlay-dependent: dense path
             rv = rv.reshape(rv.shape[0], rv.shape[-1])
-            Vc = tbl.shape[snode.arg_ids.index(ref_args[0])]
-            H = self._batch_hist((Vc, V), lambda b, r: (
-                pick(rv, b, r).long(), pick(val, b, r).long()), w)
-            termvec = H.reshape(self.B, -1) @ SAd.reshape(
-                int(np.prod(env_shape)), -1).T
+            termvec = ops.sa_ext_term(SAd.reshape(E, -1, V), rv, val, w)
         else:
-            hist = self._batch_hist((V,), lambda b, r: (
-                pick(val, b, r).long(),), w)
-            termvec = hist @ SAd.reshape(-1, V).T
+            termvec = ops.referrer_hist(val, w, V) @ SAd.reshape(-1, V).T
         termvec = termvec.reshape((self.B,) + tuple(env_shape))
         env_idx = [self.aligned(inv[a], depth) for a in env_args]
         bidx = torch.arange(self.B, device=self.cm.device).reshape(
@@ -1231,10 +1211,7 @@ def gauss_stats_inputs(cm: CompiledModel, arenas: dict, params: dict,
     stored = row_value(cm, arenas, params, src, node.ext_id, slots)
     val = torch.where(state == 1, codes, stored.to(codes.dtype))
     w = rel[src]["alive"] & (state == 1)
-    t = None
-    for (hop_cid, hop_fk) in reversed(node.path):
-        col = arenas[hop_cid]["values"][hop_fk]
-        t = col if t is None else take(col, t)
+    t = chase([arenas[c]["values"][f] for c, f in reversed(node.path)])
     rctx = _RowCtx(cm, arenas, params, src, slots)
     z = kern.backward(rctx, val.to(torch.float32))
     ld = kern._log_abs_deriv(rctx, z) + torch.zeros_like(z)
@@ -1278,10 +1255,10 @@ def referrer_histograms(cm: CompiledModel, cid: ClassID, arenas: dict,
                         out[key] = ("gauss",) + ops.gauss_suffstats(**g)
                 if isinstance(kern, _AddTyposK) and word_sv in inv \
                         and key not in out and cap * kern.V <= 32_000_000:
-                    t = None
-                    for (hop_cid, hop_fk) in reversed(node.path):
-                        col = arenas[hop_cid]["values"][hop_fk]
-                        t = col if t is None else take(col, t)
+                    # the fk chain from each source row to the swept slot
+                    # and the scatter-add, one K7 launch
+                    hops = [arenas[hop_cid]["values"][hop_fk]
+                            for (hop_cid, hop_fk) in reversed(node.path)]
                     Cs = cm.layouts[src].capacity
                     slots = torch.arange(Cs, device=cm.device)
                     oa = obs_arrays.get(src, {}).get(node.ext_id)
@@ -1294,15 +1271,8 @@ def referrer_histograms(cm: CompiledModel, cid: ClassID, arenas: dict,
                         w = rel[src]["alive"] & (state != 2)
                     else:
                         val, w = stored, rel[src]["alive"]
-                    ok = w & (t >= 0) & (t < cap) & (val >= 0) & \
-                        (val < kern.V)
-                    h = torch.zeros((cap, kern.V), dtype=torch.float32,
-                                    device=cm.device)
-                    h.index_put_((t[ok].long(), val[ok].long()),
-                                 torch.ones((int(ok.sum()),),
-                                            device=cm.device),
-                                 accumulate=True)
-                    out[key] = h
+                    out[key] = ops.referrer_hist(val, w, kern.V, cap=cap,
+                                                 hops=hops)
         for child in step.rest.steps:
             collect(child)
 

@@ -36,7 +36,14 @@ every Obs row into County's slots, K5 over a County batch of B rows and
 the state axis. K6 (the flights path's MaybeSwap external) takes its
 inputs from the flights model's state (`flights_inputs`): one Flight slot
 against every Obs row, for each of the four time fields; `k6_inputs`
-draws seeded inputs of any shape for the card tests.
+draws seeded inputs of any shape for the card tests. K7 and K8 (the
+hospital path's referrer histograms and composed stateavg term) take
+theirs from the hospital model's state (`hospital_inputs`), K7's per-row
+form also at the scaled path's un-hoisted Hospital sweep shape
+(`scaled_k7_rows_inputs`); `k7_seeded` and `k8_seeded` draw seeded inputs
+for the card tests. K7's yardstick is one torch.bincount of the kept
+cells, which reads its input's maximum back to the host and so is timed by
+events only.
 """
 from __future__ import annotations
 
@@ -50,7 +57,7 @@ import sys
 import numpy as np
 import torch
 
-from .utils import take
+from .utils import chase, take
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 KERNELS = ("enum_logsumexp", "inv_cdf_sample", "obs_gather_sum")
@@ -622,6 +629,298 @@ def time_k6(ops, k6: dict) -> dict:
     return dict(ms=cuda_ms(fn), device_ms=graph_ms(fn),
                 plain_ms=cuda_ms(lambda: ops.maybe_swap_ext_plain(**k6)),
                 library_ms=None)
+
+
+def addtypos_externals(cm, cid) -> list:
+    """[(node, kern, word_sv, inv)] of class cid's AddTypos externals, in
+    node order (inv maps the source class's vertices to cid's)."""
+    from .engine.kernels import _AddTyposK
+    from .model.ir import ChoiceNode, ExternalLikelihoodNode
+
+    c = cm.cls(cid)
+    out = []
+    for node in c.nodes:
+        if not (isinstance(node, ExternalLikelihoodNode)
+                and isinstance(node.ext_node, ChoiceNode)):
+            continue
+        kern = cm.kernels.get(cm.canon(node.path[-1][0], node.ext_id))
+        word = node.ext_node.arg_ids.get("word")
+        if isinstance(kern, _AddTyposK) and word is not None:
+            inv = {sv: tv for tv, sv in
+                   c.incoming_references[node.path].items()}
+            out.append((node, kern, word, inv))
+    return out
+
+
+def _referrers(cm, arenas, params, obs_dev, node):
+    """(t, val, st) of an external's source rows: the slot each row's fk
+    chain leads to, its observed-or-stored value and obs state (None where
+    the column is not observed), as the tracer reads them."""
+    from .engine.propose import row_value
+
+    src = node.path[-1][0]
+    hops = [arenas[c]["values"][f] for c, f in reversed(node.path)]
+    slots = torch.arange(cm.layouts[src].capacity, device=cm.device)
+    stored = row_value(cm, arenas, params, src, node.ext_id, slots)
+    oa = obs_dev.get(src, {}).get(node.ext_id)
+    if oa is None:
+        return hops, stored.to(torch.int32), None
+    codes, state = oa
+    val = torch.where(state == 1, codes, stored.to(codes.dtype))
+    return hops, val.to(torch.int32), state
+
+
+def k7_hoisted_inputs(cm, arenas, params, rel, obs_dev, cid, node,
+                      kern) -> dict:
+    """K7's hoisted-form inputs for one external of class cid, as
+    referrer_histograms launches it: every source row, w = alive and not
+    missing, the fk chain's hop columns."""
+    src = node.path[-1][0]
+    hops, val, state = _referrers(cm, arenas, params, obs_dev, node)
+    w = rel[src]["alive"]
+    if state is not None:
+        w = w & (state != 2)
+    return dict(val=val, w=w, V=kern.V, cap=cm.layouts[cid].capacity,
+                hops=hops)
+
+
+def k7_rows_inputs(cm, arenas, params, rel, obs_dev, node, kern,
+                   slots) -> dict:
+    """K7's per-row inputs for one external at the batch rows `slots`
+    (dense form, as _ext_hist_term launches it where no histogram is
+    hoisted): w [B, Cs] = alive and t == slot and not missing, val [1,
+    Cs]."""
+    src = node.path[-1][0]
+    hops, val, state = _referrers(cm, arenas, params, obs_dev, node)
+    t = chase(hops)
+    ok = rel[src]["alive"]
+    if state is not None:
+        ok = ok & (state != 2)
+    w = ok[None, :] & (t[None, :] == slots.to(t.dtype)[:, None])
+    return dict(val=val.reshape(1, -1), w=w, V=kern.V)
+
+
+def k8_inputs(cm, arenas, params, rel, obs_dev, cid, B: int) -> list:
+    """K8's inputs at the shape the batched sweep of class cid launches it
+    at (the first B slots, dense form: w [B, Cs] = alive and t == slot and
+    not missing), one per composed AddTypos external of cid (the hospital
+    stateavg seen from County or Measure): dict(SA [E, Vc, V], rv, val [1,
+    Cs], w), with SA from the compile-time cache in _ext_hist_term's axis
+    order."""
+    from .engine.propose import row_value
+    from .model.ir import ComputeNode
+
+    out = []
+    slots = torch.arange(B, device=cm.device)
+    for node, kern, word, inv in addtypos_externals(cm, cid):
+        src = node.path[-1][0]
+        snode = cm.node(src, word)
+        if word in inv or not (isinstance(snode, ComputeNode)
+                               and snode.kind == "table"):
+            continue
+        env = [a for a in snode.arg_ids if a in inv]
+        ref = [a for a in snode.arg_ids if a not in inv]
+        order = tuple(snode.arg_ids.index(a) for a in env + ref)
+        SA = cm._ext_sa_cache[("sa", cm.canon(src, word),
+                               cm.canon(src, node.ext_id), order)]
+        E = int(np.prod(SA.shape[:len(env)]))
+        hops, val, state = _referrers(cm, arenas, params, obs_dev, node)
+        t = chase(hops)
+        ok = rel[src]["alive"] if state is None else \
+            rel[src]["alive"] & (state != 2)
+        rv = row_value(cm, arenas, params, src, ref[0],
+                       torch.arange(cm.layouts[src].capacity,
+                                    device=cm.device))
+        out.append(dict(SA=cm.use(SA).reshape(E, -1, SA.shape[-1]),
+                        rv=rv.to(torch.int32).reshape(1, -1),
+                        val=val.reshape(1, -1),
+                        w=ok[None, :] & (t[None, :] == slots[:, None])))
+    return out
+
+
+def hospital_inputs(eng, arenas, params, B: int) -> dict:
+    """K7's and K8's inputs at the shapes the hospital path launches them
+    at, from its state (`eng` an Engine of the hospital model): K7 hoisted
+    over every Record for the largest histogram (cap * V) of any latent
+    class and for the deepest fk chain's; K7 per row at one row, the
+    sequential replays' shape (a live Hospital slot, its largest column,
+    dense over every Record); K8 at the County and Measure sweeps' batch
+    shape (B rows against every Record). Returns dict(k7=[(label, form,
+    inputs)], k8=[(label, inputs)])."""
+    from .engine.refresh import refresh
+
+    cm = eng.cm
+    rel = refresh(cm, arenas, eng.obs_dev)
+    hoisted = []
+    for cid in cm.model.class_order:
+        if cm.layouts[cid].observed:
+            continue
+        for node, kern, word, inv in addtypos_externals(cm, cid):
+            if word in inv:
+                hoisted.append((cm.layouts[cid].capacity * kern.V,
+                                len(node.path), cid, node, kern))
+    big = max(hoisted, key=lambda h: (h[0], h[1]))
+    deep = max(hoisted, key=lambda h: (h[1], h[0]))
+    k7 = []
+    for _n, hops, cid, node, kern in [big] + ([deep] if deep is not big
+                                              else []):
+        k7.append((f"{cid} V={kern.V} cap {cm.layouts[cid].capacity}, "
+                   f"{hops} hop(s)", "hoisted",
+                   k7_hoisted_inputs(cm, arenas, params, rel, eng.obs_dev,
+                                     cid, node, kern)))
+    _n, _h, cid, node, kern = max((h for h in hoisted if h[2] == "Hospital"),
+                                  key=lambda h: h[0])
+    slot = torch.nonzero(rel["Hospital"]["alive"])[:1, 0]
+    k7.append((f"Hospital V={kern.V}, one row", "rows",
+               k7_rows_inputs(cm, arenas, params, rel, eng.obs_dev, node,
+                              kern, slot)))
+    k8 = [(f"{cid} sweep, {B} rows", k) for cid in ("County", "Measure")
+          for k in k8_inputs(cm, arenas, params, rel, eng.obs_dev, cid, B)]
+    return dict(k7=k7, k8=k8)
+
+
+def scaled_k7_rows_inputs(eng, arenas, params, B: int) -> dict:
+    """K7's per-row inputs at the scaled path's Hospital sweep shape: the
+    first B Hospital slots against every Record for the column whose
+    histogram is not hoisted (cap * V above referrer_histograms' gate: the
+    name vocabulary)."""
+    from .engine.refresh import refresh
+
+    cm = eng.cm
+    rel = refresh(cm, arenas, eng.obs_dev)
+    cap = cm.layouts["Hospital"].capacity
+    node, kern = next((n, k) for n, k, word, inv in
+                      addtypos_externals(cm, "Hospital")
+                      if word in inv and cap * k.V > 32_000_000)
+    return k7_rows_inputs(cm, arenas, params, rel, eng.obs_dev, node, kern,
+                          torch.arange(B, device=cm.device))
+
+
+def k7_seeded(dev, G: int, V: int, R: int, per_row: bool, hops: int = 1,
+              rows_val: int = 1, seed: int = 0, dead: float = 0.2,
+              density: float = None) -> dict:
+    """Seeded K7 inputs with some slots and values out of range. Hoisted:
+    R referrers, `hops` hop columns (the first [R] into a class of 2 * G
+    rows, each later one into the next class, the last into [-1, G + 2)),
+    val [R] in [-1, V + 1), w set on all but `dead` of them. Per row: w [G,
+    R] set with `density` (1 / G by default, as t == slot keeps), val
+    [rows_val, R] in [-1, V + 1)."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    i32 = dict(device=dev, dtype=torch.int32, generator=g)
+    if per_row:
+        p = 1.0 / max(G, 1) if density is None else density
+        return dict(val=torch.randint(-1, V + 1, (rows_val, R), **i32),
+                    w=torch.rand((G, R), generator=g, device=dev) < p, V=V)
+    lens = [R] + [2 * G] * (hops - 1)
+    cols = [torch.randint(0, lens[h + 1], (lens[h],), **i32)
+            for h in range(hops - 1)]
+    cols.append(torch.randint(-1, G + 2, (lens[-1],), **i32))
+    return dict(val=torch.randint(-1, V + 1, (R,), **i32),
+                w=torch.rand((R,), generator=g, device=dev) >= dead, V=V,
+                cap=G, hops=cols)
+
+
+def k8_seeded(dev, B: int, E: int, Vc: int, V: int, R: int,
+              rows_pairs: int = 1, seed: int = 0,
+              density: float = None) -> dict:
+    """Seeded K8 inputs: SA [E, Vc, V] of typo log densities (normal about
+    -20, a tenth at the -1e5 the typo model gives beyond its edit limit),
+    rv and val [rows_pairs, R] with some out of range, w [B, R] set with
+    `density` (1 / B by default)."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    SA = torch.randn((E, Vc, V), generator=g, device=dev) * 5.0 - 20.0
+    SA = torch.where(torch.rand((E, Vc, V), generator=g, device=dev)
+                     < 0.1, torch.full_like(SA, -1e5), SA)
+    i32 = dict(device=dev, dtype=torch.int32, generator=g)
+    p = 1.0 / max(B, 1) if density is None else density
+    return dict(SA=SA, rv=torch.randint(-1, Vc + 1, (rows_pairs, R), **i32),
+                val=torch.randint(-1, V + 1, (rows_pairs, R), **i32),
+                w=torch.rand((B, R), generator=g, device=dev) < p)
+
+
+def check_k7(ops, k7: dict) -> float:
+    """Bit-equal to the plain version (integer counts, exact in f32 in any
+    order of addition)."""
+    got = ops.referrer_hist(**k7)
+    want = ops.referrer_hist_plain(**k7)
+    torch.cuda.synchronize()
+    require(torch.equal(got, want), "K7 differs from the plain version")
+    return float((got - want).abs().max())
+
+
+def check_k8(ops, k8: dict) -> float:
+    """Within 1e-5 of each cell's sum of |terms| (+1e-6) of the plain
+    version (the same terms summed in double in referrer order, against an
+    f32 histogram-times-SA product). Returns the largest |difference|."""
+    got = ops.sa_ext_term(**k8)
+    want = ops.sa_ext_term_plain(**k8)
+    mag = ops.sa_ext_term_plain(**k8, absolute=True)
+    torch.cuda.synchronize()
+    d = (got - want).abs()
+    require(bool((d <= 1e-5 * mag + 1e-6).all()),
+            f"K8 differs by {float(d.max())}")
+    return float(d.max())
+
+
+def k7_flat(k7: dict):
+    """(cells, G * V) of the library call: the kept pairs' flat cells
+    g * V + v, for torch.bincount(cells, minlength=G * V)."""
+    from . import ops
+
+    cell, ok, G = ops.referrer_hist_cells(**k7)
+    return cell[ok], G * k7["V"]
+
+
+def k7_bytes(k7: dict) -> int:
+    """K7's bytes: hoisted, w (1 B), val and each hop column's entries (4
+    B) of every referrer read once; per row, w [B, R] (1 B) and val's rows
+    (4 B); [G, V] written once."""
+    V = k7["V"]
+    if k7.get("hops") is not None:
+        R = k7["w"].shape[0]
+        return R * 5 + sum(int(h.shape[0]) for h in k7["hops"]) * 4 \
+            + k7["cap"] * V * 4
+    B, R = k7["w"].shape
+    return B * R + k7["val"].numel() * 4 + B * V * 4
+
+
+def k8_bytes(k8: dict) -> int:
+    """K8's bytes on these inputs: w [B, R] (1 B), rv and val (4 B each)
+    read once, the SA entries the kept referrers touch (each distinct (rv,
+    val) pair's E floats) and out [B, E] written once."""
+    SA, w = k8["SA"], k8["w"]
+    E, Vc, V = SA.shape
+    B, R = w.shape
+    rv, val = k8["rv"].long(), k8["val"].long()
+    kept = w.any(0, keepdim=True) if rv.shape[0] == 1 else w
+    ok = kept & (rv >= 0) & (rv < Vc) & (val >= 0) & (val < V)
+    pairs = int(torch.unique((rv * V + val)[ok]).numel())
+    return B * R + 2 * k8["rv"].numel() * 4 + pairs * E * 4 + B * E * 4
+
+
+def time_k7(ops, k7: dict) -> dict:
+    """K7 on these inputs: ms, plain_ms and library_ms (cuda_ms) and
+    device_ms (graph_ms). The library call is one torch.bincount of the
+    kept pairs' flat cells (masked before the call) with minlength G * V;
+    it reads its input's maximum back to the host, so no CUDA graph can
+    hold it and only its events time (`ms`'s timer) is taken."""
+    fn = lambda: ops.referrer_hist(**k7)  # noqa: E731
+    cells, n = k7_flat(k7)
+    lib = lambda: torch.bincount(cells, minlength=n)  # noqa: E731
+    return dict(ms=cuda_ms(fn), device_ms=graph_ms(fn),
+                plain_ms=cuda_ms(lambda: ops.referrer_hist_plain(**k7)),
+                library_ms=cuda_ms(lib), library_device_ms=None)
+
+
+def time_k8(ops, k8: dict) -> dict:
+    """K8 on these inputs: ms and plain_ms (cuda_ms), device_ms (graph_ms);
+    no single PyTorch call computes it (library_ms None)."""
+    fn = lambda: ops.sa_ext_term(**k8)  # noqa: E731
+    return dict(ms=cuda_ms(fn), device_ms=graph_ms(fn),
+                plain_ms=cuda_ms(lambda: ops.sa_ext_term_plain(**k8)),
+                library_ms=None, library_device_ms=None)
 
 
 def kernel_bytes(inp: dict) -> dict:

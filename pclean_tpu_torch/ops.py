@@ -1,6 +1,6 @@
 """The port's hand-written CUDA kernels: build, bind, plain versions, counts.
 
-Six kernels carry the block enumeration of the port's paths (sources
+Eight kernels carry the block enumeration of the port's paths (sources
 in pclean_tpu_torch/csrc/, each with a header note on the JAX computation it
 replaces, its bound on the H100 and its design):
 
@@ -19,19 +19,27 @@ replaces, its bound on the H100 and its design):
   K6 maybe_swap_ext  — a MaybeSwap external summed over each row's
                        referrers for every option of its enumerated value
                        (propose.py _ext_terms' dense path, the flights
-                       Flight time block).
+                       Flight time block);
+  K7 referrer_hist   — referrer-observation histograms of the AddTypos
+                       externals: hoisted over a class's slots through the
+                       fk chain (propose.py referrer_histograms), or per
+                       batch row (_ext_hist_term's in-step scatter);
+  K8 sa_ext_term     — the composed AddTypos external (word = table[env
+                       option, referrer value], the hospital stateavg)
+                       summed over each row's referrers (propose.py
+                       _ext_hist_term's composed case).
 
 Each has a plain PyTorch version here. A wrapper takes the plain version
 only for tensors on the CPU; for CUDA tensors it launches its kernel or
 raises. `LAUNCHES` counts kernel launches (plain calls are not counted);
 `LAUNCHES_BY_SHAPE` splits the same launches into those over one row
 ("r1", the sequential loops) and over more ("rn", the batched phases);
-`LAUNCH_CENSUS` splits K1's and K2's further by mode and row length.
+`LAUNCH_CENSUS` splits K1's, K2's and K7's further by mode and row length.
 Each kernel takes a launch plan (path and geometry: threads, tiles,
 cluster, shared memory, grid) from a function of its shapes alone,
 `enum_logsumexp_plan`, `inv_cdf_plan`, `obs_gather_plan`,
-`gauss_suffstats_plan`, `gauss_ext_term_plan` and `maybe_swap_ext_plan`;
-the C entry points launch
+`gauss_suffstats_plan`, `gauss_ext_term_plan`, `maybe_swap_ext_plan`,
+`referrer_hist_plan` and `sa_ext_term_plan`; the C entry points launch
 the plan they are given, so the plan the CPU tests check is the one
 launched.
 
@@ -53,7 +61,7 @@ import time
 
 import torch
 
-from .utils import logsumexp
+from .utils import chase, logsumexp
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_HERE, "_build")
@@ -64,12 +72,16 @@ _SOURCES = {
     "gauss_suffstats": "gauss_suffstats.cu",
     "gauss_ext_term": "gauss_ext_term.cu",
     "maybe_swap_ext": "maybe_swap_ext.cu",
+    "referrer_hist": "referrer_hist.cu",
+    "sa_ext_term": "sa_ext_term.cu",
 }
 LAUNCHES = {name: 0 for name in _SOURCES}
 LAUNCHES_BY_SHAPE = {name: {"r1": 0, "rn": 0} for name in _SOURCES}
-# K1's and K2's launches by (mode, "r1" or "rn", K): K1's mode is "fk" or
-# "choice", K2's is None; K is the row length the kernel was given
-LAUNCH_CENSUS = {"enum_logsumexp": {}, "inv_cdf_sample": {}}
+# K1's, K2's and K7's launches by (mode, "r1" or "rn", K): K1's mode is
+# "fk" or "choice", K2's is None, K7's "hoisted" or "rows"; K is the row
+# length the kernel was given (K7: the histogram's V)
+LAUNCH_CENSUS = {"enum_logsumexp": {}, "inv_cdf_sample": {},
+                 "referrer_hist": {}}
 SMEM_MAX = 232448  # shared memory one block may use on an H100 (227 KB)
 N_SMS = 132        # streaming multiprocessors of an H100 SXM
 _GRID_Y_MAX = 65535
@@ -178,6 +190,11 @@ def build_kernels(force: bool = False) -> float:
                                F32, P, I64, I64, I32, I64, P],
             "maybe_swap_ext": [P, P, P, P, P, P, P, I64, P, P, I64, P, I64,
                                P, I64, I64, I32, I64, I64, P],
+            "referrer_hist": [I32, ctypes.POINTER(I64), ctypes.POINTER(I64),
+                              I32, P, I64, P, P, I64, I64, I64, I64, I64, I64,
+                              I64, I32, P],
+            "sa_ext_term": [P, I64, I64, I64, P, P, I64, P, I64, P, I64, I32,
+                            I32, I64, I64, P],
         }
         for name in _SOURCES:
             lib = ctypes.CDLL(os.path.join(BUILD_DIR, f"lib{name}.so"))
@@ -745,4 +762,182 @@ def maybe_swap_ext(obs, st, p, lc, lens, member, t=None, alive=None,
         _ptr(out), B, N, plan["threads"], *plan["grid"], _stream(obs))
     _check(rc, "maybe_swap_ext")
     _count("maybe_swap_ext", B)
+    return out
+
+
+# ---------------------------------------------------------------- K7
+
+_K7_THREADS = 256
+_K7_TILE = 12288         # output cells a block counts in shared memory
+_K7_MIN_PER = 1024       # fewest referrers worth a block of their own
+_K7_MAX_HOPS = 8
+
+
+def referrer_hist_plan(R: int, G: int, V: int, per_row: bool) -> dict:
+    """K7's launch over R referrers into G rows of V cells: dict(threads,
+    tile, chunks, per, tiles, grid). Each block counts one tile of up to
+    12,288 output cells (cap * V hoisted, V per row) in shared memory over
+    one chunk of `per` referrers. Chunks split the referrer axis only as far
+    as needed to give the card two blocks an SM, at least 1,024 referrers a
+    chunk. Hoisted: grid (chunks, tiles). Per row: grid (G, chunks,
+    tiles)."""
+    R, G, V = int(R), int(G), int(V)
+    if R < 0 or G < 0 or V < 1:
+        raise ValueError(f"referrer_hist: R = {R}, G = {G}, V = {V} out of "
+                         f"range")
+    cells = V if per_row else G * V
+    tile = max(1, min(_K7_TILE, cells))
+    tiles = -(-cells // tile)
+    blocks = tiles * (G if per_row else 1)
+    want = -(-2 * N_SMS // max(1, blocks))
+    chunks = max(1, min(want, -(-R // _K7_MIN_PER)))
+    per = -(-R // chunks)
+    chunks = max(1, -(-R // max(1, per)))
+    if tiles > _GRID_Y_MAX or chunks > _GRID_Y_MAX:
+        raise ValueError(f"referrer_hist: {cells} cells or {R} referrers "
+                         f"exceed the grid")
+    grid = (G, chunks, tiles) if per_row else (chunks, tiles)
+    return dict(threads=_K7_THREADS, tile=tile, chunks=chunks, per=per,
+                tiles=tiles, grid=grid)
+
+
+def referrer_hist_cells(val, w, V: int, cap: int = None, hops=None):
+    """(cell, ok, G): each counted pair's flat cell g * V + v of the [G, V]
+    histogram (0 where dropped) and whether it counts. Hoisted (hops
+    given): one pair per source row r, g = chase(hops)[r], kept where
+    w[r]; per row: one pair per set w[b, r], g = b, v = val[b or 0, r]
+    (torch.nonzero of w, so no [B, R] index tensor). Pairs out of range
+    drop (mode="drop")."""
+    if hops is not None:
+        g, G, v, ok = chase(hops).long(), cap, val.long(), w
+    else:
+        G = w.shape[0]
+        g, r = torch.nonzero(w, as_tuple=True)
+        v = (val[0, r] if val.shape[0] == 1 else val[g, r]).long()
+        ok = torch.ones_like(g, dtype=torch.bool)
+    ok = ok & (g >= 0) & (g < G) & (v >= 0) & (v < V)
+    return torch.where(ok, g * V + v, torch.zeros_like(v)), ok, G
+
+
+def referrer_hist_plain(val, w, V: int, cap: int = None, hops=None):
+    """[cap or B, V] f32 counts: the hoisted form (hops given) counts each
+    referrer r with w[r] at (chase(hops)[r], val[r]) into [cap, V]; the
+    per-row form counts row b's referrers r with w[b, r] at val[b or 0, r]
+    into [B, V]. Pairs out of range drop (mode="drop"): they add weight 0
+    in one index_put_, with no host synchronisation on their count."""
+    cell, ok, G = referrer_hist_cells(val, w, V, cap=cap, hops=hops)
+    out = torch.zeros((G * V,), dtype=torch.float32, device=w.device)
+    out.index_put_((cell,), ok.to(torch.float32), accumulate=True)
+    return out.reshape(G, V)
+
+
+def referrer_hist(val, w, V: int, cap: int = None, hops=None):
+    """K7, as referrer_hist_plain. Hoisted (hops: the chain's fk columns,
+    the first [N], then each target class's column): val [N] int32, w [N]
+    bool -> [cap, V]. Per row (hops None): w [B, R] bool, val [1 or B, R]
+    int32 -> [B, V]."""
+    if not _route(w, "referrer_hist"):
+        return referrer_hist_plain(val, w, V, cap=cap, hops=hops)
+    per_row = hops is None
+    val = val.to(torch.int32).contiguous()
+    w = w.to(torch.bool).contiguous()
+    if per_row:
+        _need(w, torch.bool, "referrer_hist w", 2)
+        _need(val, torch.int32, "referrer_hist val", 2)
+        (G, R), rows = w.shape, val.shape[0]
+        if val.shape[1] != R or rows not in (1, G):
+            raise ValueError("referrer_hist: val must be [1 or B, R] beside "
+                             "w [B, R]")
+        hop_t = []
+    else:
+        _need(w, torch.bool, "referrer_hist w", 1)
+        _need(val, torch.int32, "referrer_hist val", 1)
+        G, R, rows = int(cap), w.shape[0], 1
+        hop_t = [h.to(torch.int32).contiguous() for h in hops]
+        if not 1 <= len(hop_t) <= _K7_MAX_HOPS or val.shape[0] != R \
+                or hop_t[0].shape != (R,):
+            raise ValueError("referrer_hist: 1 to 8 hop columns, the first "
+                             "as long as val and w")
+        for h in hop_t:
+            _need(h, torch.int32, "referrer_hist hop", 1)
+    if not all(x.is_cuda for x in [val] + hop_t):
+        raise ValueError("referrer_hist: every input must be on the card")
+    plan = referrer_hist_plan(R, G, V, per_row)
+    out = torch.zeros((G, V), dtype=torch.float32, device=w.device)
+    n = len(hop_t)
+    ptrs = (ctypes.c_int64 * max(1, n))(*[h.data_ptr() for h in hop_t])
+    lens = (ctypes.c_int64 * max(1, n))(*[h.shape[0] for h in hop_t])
+    rc = _fn("referrer_hist")(
+        int(per_row), ptrs, lens, n, _ptr(val), rows, _ptr(w), _ptr(out), G,
+        V, R, plan["tile"], plan["chunks"], plan["per"], plan["tiles"],
+        plan["threads"], _stream(w))
+    _check(rc, "referrer_hist")
+    _count("referrer_hist", G, V, "rows" if per_row else "hoisted")
+    return out
+
+
+# ---------------------------------------------------------------- K8
+
+_K8_THREADS = 256
+
+
+def sa_ext_term_plan(B: int, E: int) -> dict:
+    """K8's launch for B rows of E options: one 256-thread block a row and
+    group of options, each option owned by `tpo` threads (the largest power
+    of two up to 32 that the block can spare, 256 // tpo options a block):
+    dict(threads, tpo, grid=(B, groups))."""
+    B, E = int(B), int(E)
+    if B < 0 or E < 1:
+        raise ValueError(f"sa_ext_term: B = {B}, E = {E} out of range")
+    tpo = 1
+    while tpo < 32 and 2 * tpo * min(E, _K8_THREADS) <= _K8_THREADS:
+        tpo *= 2
+    groups = -(-E // (_K8_THREADS // tpo))
+    if groups > _GRID_Y_MAX:
+        raise ValueError(f"sa_ext_term: E = {E} options exceed the grid")
+    return dict(threads=_K8_THREADS, tpo=tpo, grid=(B, groups))
+
+
+def sa_ext_term_plain(SA, rv, val, w, absolute: bool = False):
+    """[B, E] f32: out[b, e] = sum over r with w[b, r] of SA[e, rv, val]
+    (rv, val [1 or B, R]; pairs out of [0, Vc) x [0, V) drop), as
+    pclean_tpu.engine.propose._ext_hist_term's composed case computes it:
+    the [B, Vc * V] pair histogram (K7's plain version) times SA as [E,
+    Vc * V]. `absolute` sums |SA| instead: the scale of K8's tolerance."""
+    E, Vc, V = SA.shape
+    rv, val = rv.long(), val.long()
+    ok = (rv >= 0) & (rv < Vc) & (val >= 0) & (val < V)
+    cell = torch.where(ok, rv * V + val, torch.full_like(rv, -1))
+    H = referrer_hist_plain(cell, w, Vc * V)
+    S = SA.abs() if absolute else SA
+    return H @ S.reshape(E, -1).T
+
+
+def sa_ext_term(SA, rv, val, w):
+    """K8. SA [E, Vc, V] f32, rv and val [1 or B, R] int32, w [B, R] bool
+    -> [B, E] f32, as sa_ext_term_plain."""
+    if not _route(w, "sa_ext_term"):
+        return sa_ext_term_plain(SA, rv, val, w)
+    SA = SA.contiguous()
+    rv = rv.to(torch.int32).contiguous()
+    val = val.to(torch.int32).contiguous()
+    w = w.to(torch.bool).contiguous()
+    _need(SA, torch.float32, "sa_ext_term SA", 3)
+    _need(rv, torch.int32, "sa_ext_term rv", 2)
+    _need(val, torch.int32, "sa_ext_term val", 2)
+    _need(w, torch.bool, "sa_ext_term w", 2)
+    B, R = w.shape
+    E, Vc, V = SA.shape
+    if rv.shape != val.shape or rv.shape[1] != R or rv.shape[0] not in (1, B):
+        raise ValueError("sa_ext_term: rv and val must be [1 or B, R] beside "
+                         "w [B, R]")
+    if not all(x.is_cuda for x in (SA, rv, val)):
+        raise ValueError("sa_ext_term: every input must be on the card")
+    plan = sa_ext_term_plan(B, E)
+    out = torch.empty((B, E), dtype=torch.float32, device=w.device)
+    rc = _fn("sa_ext_term")(
+        _ptr(SA), E, Vc, V, _ptr(rv), _ptr(val), rv.shape[0], _ptr(w), R,
+        _ptr(out), B, plan["threads"], plan["tpo"], *plan["grid"], _stream(w))
+    _check(rc, "sa_ext_term")
+    _count("sa_ext_term", B)
     return out

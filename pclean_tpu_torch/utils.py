@@ -52,6 +52,16 @@ def take(x: torch.Tensor, idx) -> torch.Tensor:
     return x[idx.long().clamp(0, x.shape[0] - 1)]
 
 
+def chase(hops) -> torch.Tensor:
+    """An fk chain's target per source row: t = hops[0], then t =
+    hops[h][t] for each later hop (the fk columns in the order they are
+    followed), indices clamped like the JAX gathers."""
+    t = hops[0]
+    for col in hops[1:]:
+        t = take(col, t)
+    return t
+
+
 def bgather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Row-wise gather: out[b, ...] = table[b][idx[b, ...]] for a per-row
     table [Bt, V] and an index of rank >= 1 whose dim 0 is Bt or 1. A table

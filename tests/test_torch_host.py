@@ -176,7 +176,10 @@ def test_port_imports_neither_jax_nor_pclean_tpu():
     code = ("import sys; import pclean_tpu_torch, pclean_tpu_torch.ops, "
             "pclean_tpu_torch.engine.smc, pclean_tpu_torch.analysis, "
             "pclean_tpu_torch.convert, pclean_tpu_torch.workloads.scaled, "
-            "pclean_tpu_torch.workloads.rents; "
+            "pclean_tpu_torch.workloads.rents, "
+            "pclean_tpu_torch.workloads.flights, "
+            "pclean_tpu_torch.workloads.hospital, "
+            "pclean_tpu_torch.kernel_bench; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'pclean_tpu' or "
             "m.startswith('pclean_tpu.')); print(bad); "

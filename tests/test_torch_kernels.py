@@ -2,8 +2,10 @@
 counterparts (CPU), and CUDA kernels against the plain versions (card only).
 
   K1 enum_logsumexp — pclean_tpu.utils.logsumexp over concat([exist, new])
-     (propose.py score_fk / score_choice): rtol 1e-6, the same f32 formula
-     summed in another order; the finite NEG_INF rules exactly.
+     (propose.py score_fk / score_choice): rtol 1e-5, atol 1e-6, the
+     score pass's tolerance (the same f32 formula summed in another order
+     by two libraries; rtol 1e-6 failed once at 4.9e-6); the finite
+     NEG_INF rules exactly.
   K2 inv_cdf_sample — pclean_tpu.engine.propose._inv_cdf_from_u fed the same
      uniforms: equal indices, dead (NEG_INF) entries never drawn.
   K3 obs_gather_sum — sum of AddTypos gathers M_c[obs_c, word_c], and the
@@ -15,6 +17,16 @@ counterparts (CPU), and CUDA kernels against the plain versions (card only).
      the rents shapes and the edges: all referrers dead, a group with no
      referrers, slots and groups out of range, C = 1, one slot taking
      20,000 referrers, and one row for K5.
+  K7 referrer_hist and K8 sa_ext_term — the hospital path's referrer
+     histograms and composed stateavg term: their plain versions against
+     Python loops over the referrers (numpy) here, and on the card the
+     kernels against the plain versions at the hospital path's shapes (K7
+     hoisted over 100,000 Records through one and three hops, per row at
+     one row; K8 at the County and Measure sweeps' 4,096 x 100,000), at
+     scaled's un-hoisted Hospital sweep (K7 per row, 4,096 x 100,000, V =
+     5,125) and the edges: R = 0 and 1, slots and values out of range,
+     all-dead referrers, compacted lists against the dense form, a V wider
+     than one tile, and 20,000 referrers on one row for K8.
 
 The launch plans of K1, K2 and K3 (path, geometry and tile sizes, a
 function of the shapes alone) are checked here for legal geometry on the
@@ -58,13 +70,13 @@ def test_k1_plain_matches_jax_logsumexp():
     cat = jnp.concatenate([jnp.asarray(ex), jnp.asarray(new)[:, None]], -1)
     np.testing.assert_array_equal(rec.numpy(), np.asarray(cat))
     np.testing.assert_allclose(lz.numpy(), np.asarray(jlogsumexp(cat, -1)),
-                               rtol=1e-6)
+                               rtol=1e-5, atol=1e-6)
     rec2, lz2 = ops.enum_logsumexp_plain(torch.as_tensor(ex))
     assert rec2.data_ptr() == torch.as_tensor(ex).data_ptr() or \
         np.array_equal(rec2.numpy(), ex)
     np.testing.assert_allclose(lz2.numpy(),
                                np.asarray(jlogsumexp(jnp.asarray(ex), -1)),
-                               rtol=1e-6)
+                               rtol=1e-5, atol=1e-6)
 
 
 def test_k2_plain_matches_jax_inv_cdf():
@@ -695,3 +707,248 @@ def test_k6_cuda_matches_plain(card, case):
         n = (k6["alive"] & (k6["t"] == k6["slot"][0])).sum()
         want = torch.where(k6["member"][lc[0]], 0.0, -1000.0) * n
         torch.testing.assert_close(out[0], want.float(), rtol=1e-6, atol=0)
+
+
+# ---------------------------------------------------------------- K7 / K8
+
+
+def _k7_reference(k7):
+    """K7 by a Python loop over the referrers (numpy): hoisted through the
+    hop columns (later hops clamped), or per row."""
+    V = k7["V"]
+    val = k7["val"].numpy()
+    w = k7["w"].numpy()
+    if k7.get("hops") is not None:
+        cap = k7["cap"]
+        out = np.zeros((cap, V))
+        hops = [h.numpy() for h in k7["hops"]]
+        for r in range(len(val)):
+            g = int(hops[0][r])
+            for h in hops[1:]:
+                g = int(h[min(max(g, 0), len(h) - 1)])
+            if w[r] and 0 <= g < cap and 0 <= val[r] < V:
+                out[g, val[r]] += 1
+        return out
+    B, R = w.shape
+    out = np.zeros((B, V))
+    for b in range(B):
+        vrow = val[0 if val.shape[0] == 1 else b]
+        for r in range(R):
+            if w[b, r] and 0 <= vrow[r] < V:
+                out[b, vrow[r]] += 1
+    return out
+
+
+@pytest.mark.parametrize("hops", [1, 2, 3])
+def test_k7_plain_hoisted_matches_reference(hops):
+    from pclean_tpu_torch.kernel_bench import k7_seeded
+
+    k7 = k7_seeded(torch.device("cpu"), G=12, V=9, R=400, per_row=False,
+                   hops=hops, seed=hops)
+    got = ops.referrer_hist_plain(**k7)
+    assert got.shape == (12, 9) and got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), _k7_reference(k7))
+    assert 0 < float(got.sum()) < 400
+
+
+@pytest.mark.parametrize("rows_val", [1, 6])
+def test_k7_plain_per_row_matches_reference(rows_val):
+    from pclean_tpu_torch.kernel_bench import k7_seeded
+
+    k7 = k7_seeded(torch.device("cpu"), G=6, V=11, R=300, per_row=True,
+                   rows_val=rows_val, seed=4)
+    k7["w"][2] = False                 # a row with no referrers
+    got = ops.referrer_hist_plain(**k7)
+    np.testing.assert_array_equal(got.numpy(), _k7_reference(k7))
+    assert float(got[2].abs().sum()) == 0.0 and float(got.sum()) > 0
+
+
+def test_k8_plain_matches_reference():
+    from pclean_tpu_torch.kernel_bench import k8_seeded
+
+    k8 = k8_seeded(torch.device("cpu"), B=5, E=7, Vc=6, V=13, R=200,
+                   rows_pairs=5, seed=3, density=0.3)
+    k8["w"][1] = False
+    SA = k8["SA"].double().numpy()
+    rv, val, w = (k8[k].numpy() for k in ("rv", "val", "w"))
+    want = np.zeros((5, 7))
+    for b in range(5):
+        for r in range(200):
+            c, o = rv[b, r], val[b, r]
+            if w[b, r] and 0 <= c < 6 and 0 <= o < 13:
+                want[b] += SA[:, c, o]
+    got = ops.sa_ext_term_plain(**k8)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-2)
+    assert float(got[1].abs().sum()) == 0.0
+    mag = ops.sa_ext_term_plain(**k8, absolute=True)
+    assert bool((mag >= got.abs() - 1e-2).all())
+
+
+def test_k7_k8_wrappers_take_plain_version_on_cpu_without_counting():
+    from pclean_tpu_torch.kernel_bench import k7_seeded, k8_seeded
+
+    ops.reset_counts()
+    cpu = torch.device("cpu")
+    for per_row in (False, True):
+        k7 = k7_seeded(cpu, G=4, V=5, R=50, per_row=per_row)
+        assert torch.equal(ops.referrer_hist(**k7),
+                           ops.referrer_hist_plain(**k7))
+    k8 = k8_seeded(cpu, B=3, E=4, Vc=3, V=5, R=40)
+    assert torch.equal(ops.sa_ext_term(**k8), ops.sa_ext_term_plain(**k8))
+    assert all(v == 0 for v in ops.LAUNCHES.values())
+    assert not any(ops.LAUNCH_CENSUS.values())
+
+
+@pytest.mark.parametrize("R,G,V,per_row", [
+    (100_000, 512, 110, False),   # the hospital path's largest histogram
+    (100_000, 128, 49, False),    # County, three hops
+    (100_000, 4096, 5125, True),  # scaled's un-hoisted Hospital sweep
+    (100_000, 1, 110, True),      # one row (the sequential replays)
+    (256, 64, 300, True),         # a compacted list
+    (0, 512, 110, False), (1, 1, 1, True), (5, 3, 70_000, True),
+    (3_000_000, 11264, 2000, False),
+])
+def test_k7_plan_covers_its_work(R, G, V, per_row):
+    plan = ops.referrer_hist_plan(R, G, V, per_row)
+    cells = V if per_row else G * V
+    assert plan["threads"] == 256 and 1 <= plan["tile"] <= 12288
+    assert plan["tile"] * 4 <= 48 * 1024
+    assert plan["tiles"] * plan["tile"] >= cells > \
+        (plan["tiles"] - 1) * plan["tile"]
+    assert plan["chunks"] * plan["per"] >= R
+    assert R == 0 or (plan["chunks"] - 1) * plan["per"] < R
+    assert 1 <= plan["chunks"] <= 65535 and plan["tiles"] <= 65535
+    assert plan["grid"] == ((G, plan["chunks"], plan["tiles"]) if per_row
+                            else (plan["chunks"], plan["tiles"]))
+    if per_row and G >= 264:
+        assert plan["chunks"] == 1   # the rows alone fill the card
+
+
+@pytest.mark.parametrize("E,tpo", [(1, 32), (8, 32), (9, 16), (14, 16),
+                                   (78, 2), (128, 2), (129, 1), (300, 1)])
+def test_k8_plan_gives_each_option_its_threads(E, tpo):
+    plan = ops.sa_ext_term_plan(4096, E)
+    assert plan["tpo"] == tpo and plan["threads"] == 256
+    opts = 256 // tpo
+    assert plan["grid"][0] == 4096
+    assert plan["grid"][1] * opts >= E > (plan["grid"][1] - 1) * opts
+    with pytest.raises(ValueError):
+        ops.sa_ext_term_plan(1, 0)
+
+
+def _to_lists(w, val, R):
+    """The dense form's referrers as per-row compacted lists of length R:
+    (w [B, R], val [B, R]) with each row's referrers first, in order."""
+    B = w.shape[0]
+    wl = torch.zeros((B, R), dtype=torch.bool, device=w.device)
+    vl = torch.zeros((B, R), dtype=val.dtype, device=w.device)
+    for b in range(B):
+        idx = torch.nonzero(w[b])[:, 0][:R]
+        wl[b, :len(idx)] = True
+        vl[b, :len(idx)] = val[0 if val.shape[0] == 1 else b, idx]
+    return wl, vl
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    "hospital", "hospital_3hops", "R0", "R1", "out_of_range", "all_dead",
+    "rows_scaled", "rows_one", "rows_list", "rows_R0", "rows_wide_V",
+    "list_vs_dense"])
+def test_k7_cuda_matches_plain(card, case):
+    from pclean_tpu_torch.kernel_bench import check_k7, k7_seeded
+
+    if case.startswith("hospital"):
+        k7 = k7_seeded(card, G=512, V=110, R=100_000, per_row=False,
+                       hops=3 if case.endswith("3hops") else 1)
+    elif case in ("R0", "R1"):
+        k7 = k7_seeded(card, G=512, V=110, R=int(case[1]), per_row=False,
+                       dead=0.0)
+    elif case == "out_of_range":
+        k7 = k7_seeded(card, G=64, V=20, R=50_000, per_row=False, hops=2)
+        k7["hops"][0][::3] = -5
+        k7["hops"][1][::5] = 10_000
+        k7["val"][1::7] = 20
+    elif case == "all_dead":
+        k7 = k7_seeded(card, G=128, V=49, R=100_000, per_row=False, hops=3,
+                       dead=1.0)
+    elif case == "rows_scaled":
+        k7 = k7_seeded(card, G=4096, V=5125, R=100_000, per_row=True,
+                       density=12 / 100_000)
+    elif case == "rows_one":
+        k7 = k7_seeded(card, G=1, V=110, R=100_000, per_row=True,
+                       density=0.02)
+    elif case == "rows_list":
+        k7 = k7_seeded(card, G=64, V=300, R=256, per_row=True, rows_val=64,
+                       density=0.5)
+    elif case == "rows_R0":
+        k7 = k7_seeded(card, G=4, V=30, R=0, per_row=True)
+    elif case == "rows_wide_V":   # V over one 12,288-cell tile
+        k7 = k7_seeded(card, G=3, V=30_000, R=20_000, per_row=True,
+                       density=0.5)
+    else:
+        k7 = k7_seeded(card, G=32, V=200, R=50_000, per_row=True,
+                       density=0.01)
+        wl, vl = _to_lists(k7["w"], k7["val"], 1024)
+        dense = ops.referrer_hist(**k7)
+        lists = ops.referrer_hist(vl, wl, 200)
+        torch.cuda.synchronize()
+        assert torch.equal(dense, lists)
+    check_k7(ops, k7)
+    out = ops.referrer_hist(**k7)
+    if case == "all_dead" or case.endswith("R0"):
+        assert float(out.abs().sum()) == 0.0
+    if case == "R1":
+        assert float(out.sum()) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    "county", "measure", "R0", "R1", "all_dead", "list", "list_vs_dense",
+    "crowded", "one_row"])
+def test_k8_cuda_matches_plain(card, case):
+    from pclean_tpu_torch.kernel_bench import check_k8, k8_seeded
+
+    # the hospital County sweep: 4,096 rows against 100,000 Records, SA
+    # over 14 states x 78 codes x ~1,200 stateavg words; Measure: the roles
+    # swapped
+    if case == "county":
+        k8 = k8_seeded(card, B=4096, E=14, Vc=78, V=1200, R=100_000,
+                       density=1 / 128)
+    elif case == "measure":
+        k8 = k8_seeded(card, B=4096, E=78, Vc=14, V=1200, R=100_000,
+                       density=1 / 128)
+    elif case in ("R0", "R1"):
+        k8 = k8_seeded(card, B=8, E=14, Vc=78, V=1200, R=int(case[1]),
+                       density=1.0)
+    elif case == "all_dead":
+        k8 = k8_seeded(card, B=64, E=14, Vc=78, V=1200, R=100_000,
+                       density=0.0)
+    elif case == "list":
+        k8 = k8_seeded(card, B=64, E=30, Vc=20, V=500, R=256, rows_pairs=64,
+                       density=0.6)
+    elif case == "crowded":   # 20,000 referrers on one row
+        k8 = k8_seeded(card, B=4, E=14, Vc=78, V=1200, R=100_000,
+                       density=0.0)
+        k8["w"][1, :40_000:2] = True
+    elif case == "one_row":
+        k8 = k8_seeded(card, B=1, E=78, Vc=14, V=1200, R=100_000,
+                       density=0.03)
+    else:
+        k8 = k8_seeded(card, B=16, E=14, Vc=78, V=1200, R=50_000,
+                       density=0.02)
+        _, rv_l = _to_lists(k8["w"], k8["rv"], 2048)
+        wl, val_l = _to_lists(k8["w"], k8["val"], 2048)
+        dense = ops.sa_ext_term(**k8)
+        lists = dict(SA=k8["SA"], rv=rv_l, val=val_l, w=wl)
+        mag = ops.sa_ext_term_plain(**k8, absolute=True)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(ops.sa_ext_term(**lists), dense,
+                                   rtol=0, atol=float(1e-5 * mag.max()))
+        check_k8(ops, lists)
+    check_k8(ops, k8)
+    out = ops.sa_ext_term(**k8)
+    if case in ("all_dead", "R0"):
+        assert float(out.abs().sum()) == 0.0
+    if case == "crowded":
+        assert float(out[0].abs().sum()) == 0.0
+        assert float(out[1].abs().min()) > 0
