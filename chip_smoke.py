@@ -25,91 +25,79 @@ It drives the port only (never jax, never pclean_tpu), in order:
      County 1,472, batch_rows 4096, 1 sweep) with the rows cut from the
      source's 1,000,000 to 100,000 so the run fits its time limit; prints
      init s, sweep s, rows-cleaned/s, F1, precision, recall, arena
-     occupancy, peak device memory and each kernel's launches on that run,
-     split into one-row (r1) and batched (rn) launches, and K1's and K2's
-     launch census by (mode, r1 or rn, row length K); then K7's per-row
-     form at the Hospital sweep's un-hoisted name histogram (4,096 rows
-     against every Record) on that state;
-  5. after the main path (so that its peak memory is its own), for each
-     kernel, at both shapes the main path launches it at (the
-     batch shape, B = 4096 rows, and the sequential loops' one row), on
-     seeded inputs (pclean_tpu_torch/kernel_bench.py): its error against
-     its plain PyTorch version on the card (with the tolerance stated
-     below), kernel / plain / library ms (median of CUDA events around one
-     call, host side included where it is longer), the kernel's device time
-     per call (`device_ms`: median over replays of a CUDA graph of many
-     calls), the bytes bound on an H100 (3.35 TB/s) and the launch plan;
-  6. K1, and K2 on K1's record, at the batch shape and at every one-row
-     shape that holds >= 5% of K1's launches in the census, in the mode the
-     main path used there (K1 also checked in the other mode): error,
-     plan, device and events ms, bound, the launch floor (device time of
-     one PyTorch op on one element) and torch.logsumexp's device time, the
-     two yardsticks a one-row time is read against;
-  7. runs the rents path end to end (pclean_tpu_torch/workloads/rents.py,
+     occupancy, peak device memory (and what was allocated before the
+     path) and each kernel's launches on that run, split into one-row
+     (r1) and batched (rn) launches, and the launch census of K1, K2, K3,
+     K7 and K8 by (mode, r1 or rn, row length K);
+  5. right after each path, on its state, K7 and K8 at every shape of its
+     census (kernel_bench.k7_census_inputs, k8_census_inputs: hoisted
+     histograms over every source row, per-row histograms and composed terms
+     at one row or B rows against every source row); after the scaled path
+     also K1-K3 at the batch shape and at one row with the model's own
+     AddTypos matrices (kernel_bench.main_path_inputs); and after all four
+     paths (so that the CUDA graphs of the timings leave nothing in a path's
+     peak memory), for each path, K1, and K2 on K1's record, at every census
+     shape holding >= SHAPE_SHARE of the path's one-row or of its batched
+     launches, in the path's mode there (K1 also checked in the other mode),
+     and K3 likewise (seeded matrices of the launch's vocabularies,
+     kernel_bench.k3_seeded). Each shape: its error against the plain
+     PyTorch version on the card (with the tolerance stated below), kernel /
+     plain / library ms (median of CUDA events around one call, host side
+     included where it is longer), the kernel's device time per call
+     (`device_ms`: median over replays of a CUDA graph of many calls), the
+     bytes bound on an H100 (3.35 TB/s), the launch floor (device time of
+     one PyTorch op on one element) and the launch plan;
+  6. runs the rents path end to end (pclean_tpu_torch/workloads/rents.py,
      the port's copy of experiments/rents.py on its seeded synthetic rents
      tables) at the source's 50,000 rows, 51 states, about 1,500 counties,
      County capacity 4,096, batch_rows 256, 1 sweep, rejuv_frequency 500,
-     with the counts set to 0 just before it and read just after: init s,
-     sweep s, rows-cleaned/s, F1, precision, recall, phase times,
-     occupancy, peak device memory and each kernel's launches there;
-  8. K4 and K5 at the shapes the rents path launches them at (K4 over the
-     50,000 Obs rows into County's 4,096 slots, K5 over 256 County rows and
-     51 states, inputs from the rents state, kernel_bench.rents_inputs):
-     error against the plain version, kernel / plain / library ms, device
-     ms (the library call's too), the bytes bound and the launch floor;
-     K4's library call is one index_add_ of the stacked [R, 3] statistics,
-     K5 has none; and where one K4 call's host time goes
-     (kernel_bench.k4_call_split);
-  9. runs the flights path end to end (pclean_tpu_torch/workloads/
+     with the counts set to 0 just before it and read just after: the same
+     report; then K4 and K5 at its shapes (K4 over the 50,000 Obs rows into
+     County's 4,096 slots, K5 over 256 County rows and 51 states,
+     kernel_bench.rents_inputs; K4's library call is one index_add_ of the
+     stacked [R, 3] statistics, K5 has none; where one K4 call's host time
+     goes, kernel_bench.k4_call_split) and K7 as in step 5;
+  7. runs the flights path end to end (pclean_tpu_torch/workloads/
      flights.py, the port's copy of experiments/flights.py on its seeded
      synthetic flights tables) at the source's 2,376 rows, 100 flights, 38
-     websites, capacities Flight 160 and TrackingWebsite 64, MH, 3 sweeps
-     (the source's 5 cut to fit the four paths into the time limit),
-     batch_rows 1 (the sequential drivers), rejuv_frequency 50, with the
-     counts set to 0 just before it and read just after: the same report
-     as the other paths, and K1's and K2's census there;
- 10. K6 at the shape the flights path launches it at (one Flight slot
-     against the 2,376 Obs rows, for each time field's vocabulary, inputs
-     from the flights state, kernel_bench.flights_inputs): error against
-     the plain version, kernel / plain / device ms, the bytes bound and the
-     launch floor; and K1 and K2 at every one-row flights census shape
-     holding >= 5% of either's launches there;
- 11. runs the hospital path end to end (pclean_tpu_torch/workloads/
+     websites, capacities Flight 160 and TrackingWebsite 64, MH, 5 sweeps,
+     batch_rows 1 (the sequential drivers), rejuv_frequency 50: the same
+     report; then K6 at its shape (one Flight slot against the 2,376 Obs
+     rows, for each time field's vocabulary, kernel_bench.flights_inputs);
+  8. runs the hospital path end to end (pclean_tpu_torch/workloads/
      hospital.py, the port's copy of experiments/hospital.py on its seeded
      synthetic hospital tables) at the source's config: 1,000 rows tiled
      100 times, capacities of experiments/hospital.py, MH, 1 sweep,
-     batch_rows 4096 (bench.py:238-239), with the counts set to 0 just
-     before it and read just after: the same report as the other paths;
- 12. K7 and K8 at the shapes the hospital path launches them at (inputs
-     from its state, kernel_bench.hospital_inputs: K7 hoisted for the
-     largest histogram and the three-hop County chain, K7 per row at one
-     row; K8 at the County and Measure sweeps' 4,096 rows against every
-     Record): error against the plain version, kernel / plain / library
-     ms (K7's library call is one torch.bincount), device ms, the bytes
-     bound and the launch floor;
- 13. prints the `kernels` JSON line (K1-K8; `launches` summed over the
-     four paths, with each path's own beside it), then the card line,
-     then the result.
+     batch_rows 4096 (bench.py:238-239): the same report, then K7 and K8
+     as in step 5 (K7's library call is one torch.bincount, K8 has none);
+  9. prints, for each kernel, how many shapes were checked and the worst
+     error, then the `kernels` JSON line (K1-K8; `launches` summed over
+     the four paths, with each path's own beside it; `max_abs_err` the
+     worst over every shape checked; the times those of the shape named in
+     `shape`; every shape's numbers in chip_smoke.json under --out), then
+     the card line, then the result.
 
-Tolerances: K1 record bit-equal, logZ rtol 1e-6 (the same f32 formula
-summed in another order); K2 indices equal on all but <= 1e-2 of rows (at
-100 rows or more), and every differing row's threshold within 1e-5 of the
-total from the exact prefix sums between the two picks (the kernel's exact
-fixed-point prefix sums and torch.cumsum's f32 ones round differently: at
-K ~ 11k logits about one row in a thousand sits that close to a boundary),
-never a zero-mass pick; K3 bit-equal (same column order); K4's counts
-equal and its sums within 1e-5 of each cell's sum of |terms| (atomics add
-in any order); K5 within 2^-20 * |coef| * (|sum szz| + 2 |sum mu sz| +
-|sum mu^2 n|) + 1e-5 (its f32 sums subtract); K6 within 1e-5 of each
-cell's sum of |terms| + 1e-6 (the same terms summed in another order); K7
-bit-equal (integer counts); K8 within 1e-5 of each cell's sum of |terms|
-+ 1e-6 (double sums in referrer order against an f32 histogram-times-SA
-product). It fails (non-zero exit, no result line) if there is no card, a
-kernel does not build, launch or agree, K1-K3 were not launched on the
-scaled path, K4 and K5 not on the rents path, K1, K2 and K6 not on the
-flights path or K1-K3, K7 and K8 not on the hospital path, the scaled F1 <
-0.80, the rents F1 < RENTS_F1_FLOOR, the flights F1 < FLIGHTS_F1_FLOOR,
-the hospital F1 < HOSPITAL_F1_FLOOR, or any phase raises.
+Tolerances: K1 record bit-equal, logZ within 1e-6 of the larger of |logZ|
+and the row's |max| (the same f32 formula, max + log(sum of exp), summed in
+another order; logZ can lie near 0 in a row of a few options); K2 indices
+equal on all but <= 1e-2 of rows (at 100 rows or more), and every differing
+row's threshold within 1e-5 of the total from the exact prefix sums between
+the two picks (the kernel's exact fixed-point prefix sums and
+torch.cumsum's f32 ones round differently: at K ~ 11k logits about one row
+in a thousand sits that close to a boundary), never a zero-mass pick; K3
+bit-equal (same column order); K4's counts equal and its sums within 1e-5
+of each cell's sum of |terms| (atomics add in any order); K5 within 2^-20 *
+|coef| * (|sum szz| + 2 |sum mu sz| + |sum mu^2 n|) + 1e-5 (its f32 sums
+subtract); K6 within 1e-5 of each cell's sum of |terms| + 1e-6 (the same
+terms summed in another order); K7 bit-equal (integer counts); K8 within
+1e-5 of each cell's sum of |terms| + 1e-6 (double sums in referrer order
+against an f32 histogram-times-SA product). It fails (non-zero exit, no
+result line) if there is no card, a kernel does not build, launch or agree,
+K1-K3 were not launched on the scaled path, K4 and K5 not on the rents
+path, K1, K2 and K6 not on the flights path or K1-K3, K7 and K8 not on the
+hospital path, the scaled F1 < SCALED_F1_FLOOR (0.80), the rents F1 <
+RENTS_F1_FLOOR, the flights F1 < FLIGHTS_F1_FLOOR, the hospital F1 <
+HOSPITAL_F1_FLOOR, or any phase raises.
 """
 import json
 import os
@@ -127,14 +115,13 @@ ROWS = 100_000
 BATCH = 4096
 SCALED = dict(counties=1000, hospitals=8000, names=2000, zips=500,
               typo=0.05)
+SCALED_F1_FLOOR = 0.80
 RENTS = dict(rows=50_000, states=51, counties=1500, batch=256)
 # pclean_tpu on the CPU on the same rents tables (B = 256, seeds 0-2) reached
 # F1 0.8941, 0.8890 and 0.8914 (scripts/rents_jax_floor.py); the floor is
 # the lowest less 0.03
 RENTS_F1_FLOOR = 0.8890112089671738 - 0.03
-# the source's 5 sweeps cut to 3 so that the four paths fit the time limit
-# (F1 reaches 0.99 from the third sweep, as pclean_tpu's does)
-FLIGHTS = dict(rows=2376, flights=100, websites=38, sweeps=3)
+FLIGHTS = dict(rows=2376, flights=100, websites=38, sweeps=5)
 # pclean_tpu on the CPU on the same flights tables (MH, 5 sweeps, B = 1,
 # seeds 0-2) reached F1 1.0, 0.9934 and 1.0 (scripts/flights_jax_floor.py);
 # the floor is the lowest less 0.03
@@ -145,6 +132,10 @@ HOSPITAL = dict(rows=1000, repeat=100, batch=4096)
 # reached F1 0.99945, 0.99931 and 0.99931 (scripts/hospital_jax_floor.py);
 # the floor is the lowest less 0.03
 HOSPITAL_F1_FLOOR = 0.9993136582017845 - 0.03
+# K1-K3 are checked at every census shape holding at least this share of
+# a path's one-row, or of its batched, launches of the kernel; K7 and K8 at
+# every census shape
+SHAPE_SHARE = 0.01
 
 
 def card_line() -> str:
@@ -229,28 +220,34 @@ def bench_kernels(ops, cm, dev):
     return list(out.values())
 
 
-def bench_k1_shapes(ops, dev, census, batch_pick=None) -> dict:
-    """K1, and K2 on K1's record, at `batch_pick` (R, mode, K) (the scaled
-    path's batch shape: B = batch_rows, fk mode over the Hospital axis) and
-    at every one-row shape holding >= 5% of K1's launches in `census`
-    (ops.census() of a path), in the path's mode there, and at every
-    one-row K2 shape holding >= 5% of K2's launches that no K1 shape
-    covers (as a choice row of that length): checked in both modes (record
-    bit-equal, logZ rtol 1e-6; K2 as in bench_kernels), then timed.
-    Returns {kernel: [one dict per shape]}, with each shape's launches from
-    the census."""
+def census_picks(census, kernel: str, rows: str) -> list:
+    """The census rows of `kernel` in row class `rows` ("r1" or "rn") that
+    hold at least SHAPE_SHARE of that class's launches."""
+    mine = [r for r in census if r["kernel"] == kernel and r["rows"] == rows]
+    total = sum(r["launches"] for r in mine)
+    return [r for r in mine if r["launches"] >= SHAPE_SHARE * total]
+
+
+def bench_k1_shapes(ops, dev, census, B: int) -> dict:
+    """K1, and K2 on K1's record, at every shape of a path's census
+    (ops.census()) holding >= SHAPE_SHARE of K1's one-row or batched
+    launches, at one row or B rows, in the path's mode there, and at every
+    such K2 shape that no K1 shape covers (as a choice row of that length):
+    checked in both modes (kernel_bench.check_k1; K2 as in bench_kernels),
+    then timed. Returns {kernel: [one dict per shape]},
+    with each shape's launches from the census."""
     from pclean_tpu_torch import kernel_bench as kb
 
     count = {(r["kernel"], r["mode"], r["rows"], r["K"]): r["launches"]
              for r in census}
-    picks = [batch_pick] if batch_pick else []
-    picks += [(1, r["mode"], r["K"]) for r in census
-              if r["kernel"] == "enum_logsumexp" and r["rows"] == "r1"
-              and r["share"] >= 0.05]
-    k2_rows = {K + (mode == "fk") for _R, mode, K in picks}
-    picks += [(1, "choice", r["K"]) for r in census
-              if r["kernel"] == "inv_cdf_sample" and r["rows"] == "r1"
-              and r["share"] >= 0.05 and r["K"] not in k2_rows]
+    picks = []
+    for rows, R in (("rn", B), ("r1", 1)):
+        mine = [(R, r["mode"], r["K"])
+                for r in census_picks(census, "enum_logsumexp", rows)]
+        k2_rows = {K + (mode == "fk") for _R, mode, K in mine}
+        picks += mine + [(R, "choice", r["K"])
+                         for r in census_picks(census, "inv_cdf_sample", rows)
+                         if r["K"] not in k2_rows]
     floor = kb.launch_floor_ms()
     out = {"enum_logsumexp": [], "inv_cdf_sample": []}
     for R, mode, K in picks:
@@ -290,6 +287,39 @@ def bench_k1_shapes(ops, dev, census, batch_pick=None) -> dict:
                   f"{r.get('plan')}", flush=True)
         del inp, other
         torch.cuda.empty_cache()
+    return out
+
+
+def bench_k3_shapes(ops, dev, census, B: int) -> list:
+    """K3 at every shape of a path's census holding >= SHAPE_SHARE of its
+    one-row or batched launches (one row or B rows, the launch's
+    vocabularies, row length K), on seeded inputs (kernel_bench.k3_seeded):
+    checked bit-equal against its plain version, timed beside it and the
+    one-hot matmul, with the bytes bound."""
+    from pclean_tpu_torch import kernel_bench as kb
+
+    out = []
+    for rows, R in (("rn", B), ("r1", 1)):
+        for r in census_picks(census, "obs_gather_sum", rows):
+            Vs = [int(v) for v in r["mode"].split(",")]
+            k3 = kb.k3_seeded(dev, R, r["K"], Vs)
+            nbytes = kb.k3_bytes(k3)
+            out.append(dict(
+                rows=R, K=r["K"], Vs=Vs, launches=r["launches"],
+                max_abs_err=kb.check_k3(ops, k3["mats"], k3["obs"],
+                                        k3["word"]),
+                bytes=nbytes, bound_ms=nbytes / kb.HBM_BYTES_PER_S * 1e3,
+                plan=ops.obs_gather_plan(R, r["K"], Vs), **kb.time_k3(ops,
+                                                                     k3)))
+            k = out[-1]
+            print(f"obs_gather_sum at R={R} K={r['K']} V={Vs}: launches "
+                  f"{k['launches']} max_abs_err {k['max_abs_err']:.3g} "
+                  f"device {k['device_ms']:.4f} ms (events {k['ms']:.4f}) "
+                  f"plain {k['plain_ms']:.4f} ms library device "
+                  f"{k['library_device_ms']:.4f} ms bound "
+                  f"{k['bound_ms']:.5f} ms plan {k['plan']}", flush=True)
+            del k3
+    torch.cuda.empty_cache()
     return out
 
 
@@ -411,36 +441,43 @@ def bench_k7_k8_shape(ops, name, label, form, k, floor) -> dict:
     return r
 
 
-def bench_hospital_kernels(ops, eng, arenas, params, floor,
-                           scaled_k7) -> list:
-    """K7 and K8 at the shapes the hospital path launches them at
-    (kernel_bench.hospital_inputs on its state: K7 hoisted for the largest
-    histogram and the deepest fk chain, K7 per row at one row; K8 at the
-    County and Measure sweeps' batch shape), through bench_k7_k8_shape;
-    `scaled_k7` is K7's row at the scaled path's un-hoisted Hospital sweep
-    shape, measured while the scaled state was alive. The kernels-line
-    numbers are the first shape's (K7: the largest hoisted histogram; K8:
-    the County sweep); `shapes` holds every shape's."""
+def bench_k7_k8_census(ops, eng, arenas, params, census, B: int, path: str,
+                       floor) -> dict:
+    """K7 and K8 at every shape of a path's launch census, on inputs from
+    its state (kernel_bench.k7_census_inputs, k8_census_inputs), through
+    bench_k7_k8_shape. Returns {kernel: [one dict per shape]}, each with
+    the path, its batched-or-one-row class and its launches."""
     from pclean_tpu_torch import kernel_bench as kb
 
-    inp = kb.hospital_inputs(eng, arenas, params, HOSPITAL["batch"])
-    rows = {"referrer_hist": [
-        bench_k7_k8_shape(ops, "referrer_hist", label, form, k, floor)
-        for label, form, k in inp["k7"]] + [scaled_k7],
-        "sa_ext_term": [bench_k7_k8_shape(ops, "sa_ext_term", label, "rows",
-                                          k, floor)
-                        for label, k in inp["k8"]]}
-    out = []
-    for name, shapes in rows.items():
-        top = shapes[0]
-        out.append(dict({key: top[key] for key in (
-            "max_abs_err", "ms", "device_ms", "plain_ms", "library_ms",
-            "library_device_ms", "bytes", "bound_ms", "floor_ms", "plan",
-            "shape")}, name=name, route="cuda", source=SOURCES[name][0],
-            replaces=SOURCES[name][1], bound_by="bytes", shapes=shapes))
-    del inp
+    out = {"referrer_hist": [], "sa_ext_term": []}
+    for name, inputs in (
+            ("referrer_hist", kb.k7_census_inputs(eng, arenas, params,
+                                                  census, B)),
+            ("sa_ext_term", kb.k8_census_inputs(eng, arenas, params, census,
+                                                B))):
+        for r, cid, k in inputs:
+            form = r["mode"] if name == "referrer_hist" else "rows"
+            label = f"{path} {cid} {r['rows']} ({r['launches']} launches)"
+            out[name].append(dict(
+                bench_k7_k8_shape(ops, name, label, form, k, floor),
+                path=path, rows=r["rows"], launches=r["launches"]))
+            del k
     torch.cuda.empty_cache()
     return out
+
+
+def k7_k8_entry(name: str, shapes: list) -> dict:
+    """K7's or K8's kernels-line entry: the numbers of the hospital path's
+    batched shape that moves the most bytes (K7: its largest hoisted
+    histogram; K8: the County or Measure sweep)."""
+    top = max((r for r in shapes
+               if r["path"] == "hospital" and r["rows"] == "rn"),
+              key=lambda r: r["bytes"])
+    return dict({key: top[key] for key in (
+        "max_abs_err", "ms", "device_ms", "plain_ms", "library_ms",
+        "library_device_ms", "bytes", "bound_ms", "floor_ms", "plan",
+        "shape")}, name=name, route="cuda", source=SOURCES[name][0],
+        replaces=SOURCES[name][1], bound_by="bytes")
 
 
 def ptxas_lines(ops) -> dict:
@@ -604,6 +641,7 @@ def run_path(ops, name, cm, config, dirty, clean, query, rows):
     torch.cuda.reset_peak_memory_stats()
     ops.reset_counts()
     torch.cuda.synchronize()
+    at_start = torch.cuda.memory_allocated()
     t = time.time()
     arenas, params = init_state(cm, 0, device="cuda")
     eng = Engine(cm, config, device="cuda")
@@ -625,14 +663,16 @@ def run_path(ops, name, cm, config, dirty, clean, query, rows):
                recall=res["recall"], occupancy=occ,
                phase_times=eng.phase_times,
                max_memory_allocated=torch.cuda.max_memory_allocated(),
-               launches=launches, launches_by_shape=by_shape, census=census)
+               memory_allocated_at_start=at_start, launches=launches,
+               launches_by_shape=by_shape, census=census)
     print(f"{name} path ({rows} rows, B={config.batch_rows}): init "
           f"{init_s:.2f} s, sweep {sweep_s:.2f} s, rows-cleaned/s "
           f"{rep['rows_cleaned_per_s']:.1f}", flush=True)
     print(f"{name} phases (wall s): {eng.phase_times}")
     print(f"{name} F1 {res['f1']:.4f} precision {res['precision']:.4f} "
           f"recall {res['recall']:.4f}; occupancy {occ}; "
-          f"max_memory_allocated {rep['max_memory_allocated']}")
+          f"max_memory_allocated {rep['max_memory_allocated']} (of which "
+          f"allocated before the path {at_start})")
     print(f"{name} launches: {launches}; by shape (r1 = one row, rn = "
           f"more): {by_shape}", flush=True)
     for r in census:
@@ -673,7 +713,20 @@ def main() -> int:
         print(f"tracer cuda-vs-cpu check on the small {wl} config: max "
               f"|dlogZ| {err:.3g}, launches {launched}", flush=True)
 
-    # the scaled path, then K1-K3 at its shapes
+    checked = {name: [] for name in SOURCES}   # every shape checked
+
+    def add(path, res):
+        for name, rows in res.items():
+            checked[name] += [dict(r, path=path) for r in rows]
+
+    def phase(what):
+        report["phase_s"][what] = time.time() - t0
+        print(f"[{time.time() - t0:.1f} s] {what}", flush=True)
+
+    report["phase_s"] = {}
+    # the scaled path, K7 and K8 at its census shapes while its state
+    # lives, then K1-K3 on the model's own matrices
+    phase("scaled path")
     t = time.time()
     cm, config, dirty, clean, query, _sweeps = scaled.setup(
         rows=ROWS, batch=BATCH, device="cuda", **SCALED)
@@ -685,13 +738,11 @@ def main() -> int:
                                          clean, query, ROWS)
     report.update(sc)  # the scaled path's numbers at the report's top level
     # after the path, so that its peak memory is its own (CUDA graph timing
-    # leaves allocator state behind, about 0.1 GB): K7's per-row form at the
-    # Hospital sweep's un-hoisted name histogram, then K1-K3
-    k7_in = kb.scaled_k7_rows_inputs(eng, arenas, params, BATCH)
-    scaled_k7 = bench_k7_k8_shape(
-        ops, "referrer_hist", f"scaled Hospital sweep V={k7_in['V']}, "
-        f"{BATCH} rows", "rows", k7_in, floor)
-    del arenas, params, eng, k7_in
+    # leaves allocator state behind, about 0.1 GB)
+    phase("scaled kernel checks")
+    add("scaled", bench_k7_k8_census(ops, eng, arenas, params, sc["census"],
+                                     BATCH, "scaled", floor))
+    del arenas, params, eng
     torch.cuda.empty_cache()
     kernels = bench_kernels(ops, cm, dev)
     for k in kernels:
@@ -705,12 +756,15 @@ def main() -> int:
                   f"{k['bound_ms' + sh]:.4f}"
                   f" ms ({k['bound_by']}) plan {k.get('plan' + sh)}",
                   flush=True)
-    shapes = bench_k1_shapes(ops, dev, sc["census"], batch_pick=(
-        BATCH, "fk", cm.layouts["Hospital"].capacity))
+            add("scaled", {k["name"]: [dict(
+                shape=k["shape" + sh], max_abs_err=k["max_abs_err" + sh],
+                device_ms=k["device_ms" + sh], bound_ms=k["bound_ms" + sh],
+                model_inputs=True)]})
     del cm, dirty, clean, query
     torch.cuda.empty_cache()
 
-    # the rents path, then K4 and K5 at its shapes
+    # the rents path, then K4, K5 and K7 at its shapes
+    phase("rents path")
     t = time.time()
     cm, config, dirty, clean, query, _sweeps = rents.setup(
         rows=RENTS["rows"], states=RENTS["states"],
@@ -722,12 +776,17 @@ def main() -> int:
     rn, (arenas, params, eng) = run_path(ops, "rents", cm, config, dirty,
                                          clean, query, RENTS["rows"])
     report["rents"] = dict(rn, compile_s=compile_s, f1_floor=RENTS_F1_FLOOR)
+    phase("rents kernel checks")
     kernels += bench_rents_kernels(ops, cm, arenas, params, eng.obs_dev,
                                    floor)
+    add("rents", {k["name"]: [k] for k in kernels[-2:]})
+    add("rents", bench_k7_k8_census(ops, eng, arenas, params, rn["census"],
+                                    RENTS["batch"], "rents", floor))
     del cm, dirty, clean, query, arenas, params, eng
     torch.cuda.empty_cache()
 
-    # the flights path (batch_rows 1), then K6, K1 and K2 at its shapes
+    # the flights path (batch_rows 1), then K6 at its shapes
+    phase("flights path")
     t = time.time()
     cm, config, dirty, clean, query, _sweeps = flights.setup(
         **FLIGHTS, device="cuda")
@@ -739,13 +798,15 @@ def main() -> int:
                                          clean, query, FLIGHTS["rows"])
     report["flights"] = dict(fl, compile_s=compile_s,
                              f1_floor=FLIGHTS_F1_FLOOR)
+    phase("flights kernel checks")
     kernels.append(bench_flights_k6(ops, eng, arenas, params, floor))
-    fl_shapes = bench_k1_shapes(ops, dev, fl["census"])
+    add("flights", {"maybe_swap_ext": kernels[-1].pop("shapes")})
     del cm, dirty, clean, query, arenas, params, eng
     torch.cuda.empty_cache()
 
     # the hospital path (100,000 rows, B = 4096), then K7 and K8 at its
     # shapes
+    phase("hospital path")
     t = time.time()
     cm, config, dirty, clean, query, _sweeps = hospital.setup(
         **HOSPITAL, device="cuda")
@@ -759,9 +820,27 @@ def main() -> int:
                                          clean, query, rows)
     report["hospital"] = dict(hp, compile_s=compile_s,
                               f1_floor=HOSPITAL_F1_FLOOR)
-    kernels += bench_hospital_kernels(ops, eng, arenas, params, floor,
-                                      scaled_k7)
+    phase("hospital kernel checks")
+    add("hospital", bench_k7_k8_census(ops, eng, arenas, params,
+                                       hp["census"], BATCH, "hospital",
+                                       floor))
+    del cm, dirty, clean, query, arenas, params, eng
+    torch.cuda.empty_cache()
+
+    # K1-K3 at every path's census shapes, on seeded inputs: last, so that
+    # the CUDA graphs they are timed in leave nothing behind in a path's
+    # peak memory
     runs = {"scaled": sc, "rents": rn, "flights": fl, "hospital": hp}
+    for path, B in (("scaled", BATCH), ("rents", RENTS["batch"]),
+                    ("flights", 1), ("hospital", BATCH)):
+        phase(f"{path} K1-K3 census shapes")
+        add(path, bench_k1_shapes(ops, dev, runs[path]["census"], B))
+        add(path, {"obs_gather_sum": bench_k3_shapes(
+            ops, dev, runs[path]["census"], B)})
+    kernels += [k7_k8_entry(name, checked[name])
+                for name in ("referrer_hist", "sa_ext_term")]
+    phase("done")
+
     for k in kernels:
         for path, r in runs.items():
             k[f"launches_{path}"] = r["launches"][k["name"]]
@@ -769,16 +848,24 @@ def main() -> int:
         if k["name"] in SCALED_KERNELS:
             k["launches_r1"] = sc["launches_by_shape"][k["name"]]["r1"]
             k["launches_rn"] = sc["launches_by_shape"][k["name"]]["rn"]
-        if k["name"] in shapes:
-            k["shapes"] = shapes[k["name"]]
-            k["shapes_flights"] = fl_shapes[k["name"]]
+        # the line's error is the worst of every shape checked
+        shapes = checked[k["name"]]
+        k["shapes_checked"] = len(shapes)
+        k["max_abs_err"] = max(
+            [k["max_abs_err"]] + [r["max_abs_err"] for r in shapes]
+            + [r.get("max_abs_err_other_mode", 0.0) for r in shapes])
+        k["shapes"] = shapes
+        print(f"{k['name']}: {len(shapes)} shapes checked on "
+              f"{sorted({r['path'] for r in shapes})}, worst max_abs_err "
+              f"{k['max_abs_err']:.3g}", flush=True)
     for path, need in (("scaled", SCALED_KERNELS), ("rents", RENTS_KERNELS),
                        ("flights", FLIGHTS_KERNELS),
                        ("hospital", HOSPITAL_KERNELS)):
         missing = [k for k in need if runs[path]["launches"][k] <= 0]
         require(not missing, f"kernels never launched on the {path} path: "
                 f"{missing}")
-    require(sc["f1"] >= 0.80, f"scaled F1 {sc['f1']} < 0.80")
+    require(sc["f1"] >= SCALED_F1_FLOOR,
+            f"scaled F1 {sc['f1']} < {SCALED_F1_FLOOR}")
     require(rn["f1"] >= RENTS_F1_FLOOR,
             f"rents F1 {rn['f1']} < {RENTS_F1_FLOOR}")
     require(fl["f1"] >= FLIGHTS_F1_FLOOR,
@@ -797,7 +884,7 @@ def main() -> int:
             "launches_rents", "launches_flights", "launches_hospital",
             "launches_r1", "ms_r1",
             "device_ms_r1", "plain_ms_r1", "bound_ms_r1", "library_ms_r1",
-            "floor_ms", "shapes", "shapes_flights")
+            "floor_ms", "shape", "shapes_checked")
     print(json.dumps({"kernels": [{k: kk[k] for k in keys if k in kk}
                                   for kk in kernels]}))
     print(card)

@@ -34,7 +34,8 @@ only for tensors on the CPU; for CUDA tensors it launches its kernel or
 raises. `LAUNCHES` counts kernel launches (plain calls are not counted);
 `LAUNCHES_BY_SHAPE` splits the same launches into those over one row
 ("r1", the sequential loops) and over more ("rn", the batched phases);
-`LAUNCH_CENSUS` splits K1's, K2's and K7's further by mode and row length.
+`LAUNCH_CENSUS` splits K1's, K2's, K3's, K7's and K8's further by mode and
+row length.
 Each kernel takes a launch plan (path and geometry: threads, tiles,
 cluster, shared memory, grid) from a function of its shapes alone,
 `enum_logsumexp_plan`, `inv_cdf_plan`, `obs_gather_plan`,
@@ -77,11 +78,13 @@ _SOURCES = {
 }
 LAUNCHES = {name: 0 for name in _SOURCES}
 LAUNCHES_BY_SHAPE = {name: {"r1": 0, "rn": 0} for name in _SOURCES}
-# K1's, K2's and K7's launches by (mode, "r1" or "rn", K): K1's mode is
-# "fk" or "choice", K2's is None, K7's "hoisted" or "rows"; K is the row
-# length the kernel was given (K7: the histogram's V)
+# K1's, K2's, K3's, K7's and K8's launches by (mode, "r1" or "rn", K): K1's
+# mode is "fk" or "choice", K2's is None, K3's the launch's vocabularies
+# ("V1,V2,..."), K7's "hoisted" or "rows", K8's SA's shape ("ExVcxV"); K is
+# the row length the kernel was given (K7: the histogram's V; K8: the
+# referrer axis R)
 LAUNCH_CENSUS = {"enum_logsumexp": {}, "inv_cdf_sample": {},
-                 "referrer_hist": {}}
+                 "obs_gather_sum": {}, "referrer_hist": {}, "sa_ext_term": {}}
 SMEM_MAX = 232448  # shared memory one block may use on an H100 (227 KB)
 N_SMS = 132        # streaming multiprocessors of an H100 SXM
 _GRID_Y_MAX = 65535
@@ -532,7 +535,7 @@ def obs_gather_sum(mats, obs: torch.Tensor, word: torch.Tensor) -> torch.Tensor:
             0 if plan["path"] == "direct" else 1, plan["kt"], plan["smem"],
             *plan["grid"], _stream(obs))
         _check(rc, "obs_gather_sum")
-        _count("obs_gather_sum", B)
+        _count("obs_gather_sum", B, K, ",".join(map(str, Vs)))
     return out
 
 
@@ -898,39 +901,46 @@ def sa_ext_term_plan(B: int, E: int) -> dict:
     return dict(threads=_K8_THREADS, tpo=tpo, grid=(B, groups))
 
 
-def sa_ext_term_plain(SA, rv, val, w, absolute: bool = False):
+def sa_ext_term_plain(SA, rv, val, w):
     """[B, E] f32: out[b, e] = sum over r with w[b, r] of SA[e, rv, val]
-    (rv, val [1 or B, R]; pairs out of [0, Vc) x [0, V) drop), as
+    (rv, val each [1 or B, R]; pairs out of [0, Vc) x [0, V) drop), as
     pclean_tpu.engine.propose._ext_hist_term's composed case computes it:
     the [B, Vc * V] pair histogram (K7's plain version) times SA as [E,
-    Vc * V]. `absolute` sums |SA| instead: the scale of K8's tolerance."""
+    Vc * V]. SA.abs() in place of SA gives the sum of |terms|, the scale
+    of K8's tolerance."""
     E, Vc, V = SA.shape
-    rv, val = rv.long(), val.long()
+    B, R = w.shape
+    for x in (rv, val):
+        if x.dim() != 2 or x.shape[1] != R or x.shape[0] not in (1, B):
+            raise ValueError("sa_ext_term: rv and val must each be [1 or B, "
+                             "R] beside w [B, R]")
+    rv, val = torch.broadcast_tensors(rv.long(), val.long())
     ok = (rv >= 0) & (rv < Vc) & (val >= 0) & (val < V)
     cell = torch.where(ok, rv * V + val, torch.full_like(rv, -1))
     H = referrer_hist_plain(cell, w, Vc * V)
-    S = SA.abs() if absolute else SA
-    return H @ S.reshape(E, -1).T
+    return H @ SA.reshape(E, -1).T
 
 
 def sa_ext_term(SA, rv, val, w):
-    """K8. SA [E, Vc, V] f32, rv and val [1 or B, R] int32, w [B, R] bool
-    -> [B, E] f32, as sa_ext_term_plain."""
+    """K8. SA [E, Vc, V] f32, rv and val each [1 or B, R] int32 (a [1, R]
+    side beside a [B, R] one is expanded to [B, R]), w [B, R] bool -> [B,
+    E] f32, as sa_ext_term_plain."""
     if not _route(w, "sa_ext_term"):
         return sa_ext_term_plain(SA, rv, val, w)
     SA = SA.contiguous()
-    rv = rv.to(torch.int32).contiguous()
-    val = val.to(torch.int32).contiguous()
     w = w.to(torch.bool).contiguous()
     _need(SA, torch.float32, "sa_ext_term SA", 3)
-    _need(rv, torch.int32, "sa_ext_term rv", 2)
-    _need(val, torch.int32, "sa_ext_term val", 2)
     _need(w, torch.bool, "sa_ext_term w", 2)
     B, R = w.shape
     E, Vc, V = SA.shape
-    if rv.shape != val.shape or rv.shape[1] != R or rv.shape[0] not in (1, B):
-        raise ValueError("sa_ext_term: rv and val must be [1 or B, R] beside "
-                         "w [B, R]")
+    for x in (rv, val):
+        if x.dim() != 2 or x.shape[1] != R or x.shape[0] not in (1, B):
+            raise ValueError("sa_ext_term: rv and val must each be [1 or B, "
+                             "R] beside w [B, R]")
+    if rv.shape != val.shape:
+        rv, val = torch.broadcast_tensors(rv, val)
+    rv = rv.to(torch.int32).contiguous()
+    val = val.to(torch.int32).contiguous()
     if not all(x.is_cuda for x in (SA, rv, val)):
         raise ValueError("sa_ext_term: every input must be on the card")
     plan = sa_ext_term_plan(B, E)
@@ -939,5 +949,5 @@ def sa_ext_term(SA, rv, val, w):
         _ptr(SA), E, Vc, V, _ptr(rv), _ptr(val), rv.shape[0], _ptr(w), R,
         _ptr(out), B, plan["threads"], plan["tpo"], *plan["grid"], _stream(w))
     _check(rc, "sa_ext_term")
-    _count("sa_ext_term", B)
+    _count("sa_ext_term", B, R, f"{E}x{Vc}x{V}")
     return out

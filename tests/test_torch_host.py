@@ -128,13 +128,14 @@ def composed(ns, n_rows=30):
     return ns.compile(model, [ds], capacities={"County": 8}, **ns.kw), q
 
 
-def scaled_pair(batch=8, **cfg):
-    """The scaled CPU config through both packages (JAX side forced onto
-    the segmented batched drivers, the only ones the port has)."""
+def scaled_pair(batch=8, size=SMALL, **cfg):
+    """The scaled CPU config (or the entity counts `size`) through both
+    packages (JAX side forced onto the segmented batched drivers, the only
+    ones the port has)."""
     cm_j, cfg_j, dirty, clean, q_j, _ = jscaled.setup(
-        **SMALL, batch=batch, fused_dispatch_rows=0, **cfg)
+        **size, batch=batch, fused_dispatch_rows=0, **cfg)
     cm_t, cfg_t, dirty_t, clean_t, q_t, _ = tscaled.setup(
-        **SMALL, batch=batch, device="cpu", **cfg)
+        **size, batch=batch, device="cpu", **cfg)
     assert dirty == dirty_t and clean == clean_t
     return (cm_j, cfg_j, q_j), (cm_t, cfg_t, q_t), dirty, clean
 

@@ -172,14 +172,18 @@ def test_census_counts_launches_by_mode_rows_and_length():
                               (1, 138, "choice"), (4096, 138, "choice")]:
             ops._count("enum_logsumexp", rows, K, mode)
         ops._count("inv_cdf_sample", 1, 11265)
-        ops._count("obs_gather_sum", 1)
+        ops._count("obs_gather_sum", 1, 11264, "5125,1832,138")
+        ops._count("gauss_suffstats", 1)
+        ops._count("sa_ext_term", 4096, 100_000, "14x78x1133")
         rows = ops.census()
         assert [(r["kernel"], r["mode"], r["rows"], r["K"], r["launches"])
                 for r in rows] == [
             ("enum_logsumexp", "choice", "r1", 138, 2),
             ("enum_logsumexp", "fk", "r1", 11264, 1),
             ("enum_logsumexp", "choice", "rn", 138, 1),
-            ("inv_cdf_sample", None, "r1", 11265, 1)]
+            ("inv_cdf_sample", None, "r1", 11265, 1),
+            ("obs_gather_sum", "5125,1832,138", "r1", 11264, 1),
+            ("sa_ext_term", "14x78x1133", "rn", 100_000, 1)]
         assert rows[0]["share"] == 0.5 and rows[-1]["share"] == 1.0
         assert ops.LAUNCHES_BY_SHAPE["enum_logsumexp"] == {"r1": 3, "rn": 1}
     finally:
@@ -780,8 +784,27 @@ def test_k8_plain_matches_reference():
     got = ops.sa_ext_term_plain(**k8)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-2)
     assert float(got[1].abs().sum()) == 0.0
-    mag = ops.sa_ext_term_plain(**k8, absolute=True)
+    mag = ops.sa_ext_term_plain(**dict(k8, SA=k8["SA"].abs()))
     assert bool((mag >= got.abs() - 1e-2).all())
+
+
+def test_k8_plain_takes_pair_rows_of_different_lengths():
+    """rv and val are each [1 or B, R]: a [1, R] side beside a [B, R] one
+    broadcasts (the card's wrapper expands it the same way); any other
+    shape raises on the CPU as on the card."""
+    from pclean_tpu_torch.kernel_bench import k8_seeded
+
+    k8 = k8_seeded(torch.device("cpu"), B=4, E=5, Vc=6, V=7, R=30,
+                   rows_pairs=1, seed=2, density=0.5)
+    want = ops.sa_ext_term_plain(**k8)
+    for side in ("rv", "val"):
+        wide = dict(k8, **{side: k8[side].expand(4, -1).clone()})
+        assert torch.equal(ops.sa_ext_term_plain(**wide), want)
+        assert torch.equal(ops.sa_ext_term(**wide), want)
+    with pytest.raises(ValueError):
+        ops.sa_ext_term_plain(**dict(k8, rv=k8["rv"][:, :10]))
+    with pytest.raises(ValueError):
+        ops.sa_ext_term(**dict(k8, val=k8["val"].expand(3, -1)))
 
 
 def test_k7_k8_wrappers_take_plain_version_on_cpu_without_counting():
@@ -904,7 +927,7 @@ def test_k7_cuda_matches_plain(card, case):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", [
     "county", "measure", "R0", "R1", "all_dead", "list", "list_vs_dense",
-    "crowded", "one_row"])
+    "crowded", "one_row", "mixed_pair_rows"])
 def test_k8_cuda_matches_plain(card, case):
     from pclean_tpu_torch.kernel_bench import check_k8, k8_seeded
 
@@ -933,6 +956,10 @@ def test_k8_cuda_matches_plain(card, case):
     elif case == "one_row":
         k8 = k8_seeded(card, B=1, E=78, Vc=14, V=1200, R=100_000,
                        density=0.03)
+    elif case == "mixed_pair_rows":   # rv [B, R] beside val [1, R]
+        k8 = k8_seeded(card, B=64, E=14, Vc=78, V=1200, R=5000,
+                       density=0.1)
+        k8["rv"] = k8["rv"].expand(64, -1).clone()
     else:
         k8 = k8_seeded(card, B=16, E=14, Vc=78, V=1200, R=50_000,
                        density=0.02)
@@ -940,7 +967,7 @@ def test_k8_cuda_matches_plain(card, case):
         wl, val_l = _to_lists(k8["w"], k8["val"], 2048)
         dense = ops.sa_ext_term(**k8)
         lists = dict(SA=k8["SA"], rv=rv_l, val=val_l, w=wl)
-        mag = ops.sa_ext_term_plain(**k8, absolute=True)
+        mag = ops.sa_ext_term_plain(**dict(k8, SA=k8["SA"].abs()))
         torch.cuda.synchronize()
         torch.testing.assert_close(ops.sa_ext_term(**lists), dense,
                                    rtol=0, atol=float(1e-5 * mag.max()))

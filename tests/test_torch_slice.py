@@ -83,17 +83,18 @@ def test_scaled_f1_within_jax_seed_spread(scaled_runs):
 
 
 def deferred_agree(n_j: int, n_t: int) -> bool:
-    """The port defers as many rows as the JAX package, within the spread
-    of a count over a few seeds: |difference| <= max(6, half JAX's)."""
-    return abs(n_t - n_j) <= max(6, n_j // 2)
+    """The port defers as many rows as the JAX package: the two counts,
+    each a sum of per-row births whose variance is at most its mean, differ
+    by at most 4 standard deviations of their difference,
+    |n_t - n_j| <= 4 sqrt(n_j + n_t) + 1. At a few rows this tells little;
+    tests/test_torch_defer_scale.py holds it at hundreds."""
+    return abs(n_t - n_j) <= 4.0 * (n_j + n_t) ** 0.5 + 1.0
 
 
 def test_scaled_sweep_defers_as_many_rows_as_jax(scaled_runs):
     """Over seeds 0-2 both packages defer a handful of the ~48 live
     Hospitals' rows and no County or Record row (JAX 2, 4, 5 and the port
-    6, 2, 5 Hospital rows on the CPU): the port's birth flag is the
-    reference's. The Hospital sweep's 3,416 replayed rows of the 100,000-row
-    scaled path on the card are no fault of the port's flag."""
+    6, 2, 5 Hospital rows on the CPU)."""
     n_j = {}
     n_t = {}
     for (_f, dj), (_g, dt) in scaled_runs:
