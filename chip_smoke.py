@@ -28,7 +28,7 @@ It drives the port only (never jax, never pclean_tpu), in order:
      occupancy, peak device memory (and what was allocated before the
      path) and each kernel's launches on that run, split into one-row
      (r1) and batched (rn) launches, and the launch census of K1, K2, K3,
-     K7 and K8 by (mode, r1 or rn, row length K);
+     K6, K7 and K8 by (mode, r1 or rn, row length K);
   5. right after each path, on its state, K7 and K8 at every shape of its
      census (kernel_bench.k7_census_inputs, k8_census_inputs: hoisted
      histograms over every source row, per-row histograms and composed terms
@@ -63,8 +63,10 @@ It drives the port only (never jax, never pclean_tpu), in order:
      synthetic flights tables) at the source's 2,376 rows, 100 flights, 38
      websites, capacities Flight 160 and TrackingWebsite 64, MH, 5 sweeps,
      batch_rows 1 (the sequential drivers), rejuv_frequency 50: the same
-     report; then K6 at its shape (one Flight slot against the 2,376 Obs
-     rows, for each time field's vocabulary, kernel_bench.flights_inputs);
+     report; then K6 at every shape of its launch census (a Flight slot
+     against its referrer list or the Obs rows, for the time field of
+     each census vocabulary, kernel_bench.k6_census_inputs; the plan names
+     its route: warp or block);
   8. runs the hospital path end to end (pclean_tpu_torch/workloads/
      hospital.py, the port's copy of experiments/hospital.py on its seeded
      synthetic hospital tables) at the source's config: 1,000 rows tiled
@@ -91,7 +93,7 @@ of each cell's sum of |terms| (atomics add in any order); K5 within 2^-20 *
 |coef| * (|sum szz| + 2 |sum mu sz| + |sum mu^2 n|) + 1e-5 (its f32 sums
 subtract); K6 within 1e-5 of each cell's sum of |terms| + 1e-6 (the same
 terms summed in another order); K7 bit-equal (integer counts); K8 within
-1e-5 of each cell's sum of |terms| + 1e-6 (double sums in referrer order
+1e-5 of each cell's sum of |terms| + 1e-6 (double sums in a fixed order
 against an f32 histogram-times-SA product). It fails (non-zero exit, no
 result line) if there is no card, a kernel does not build, launch or agree,
 K1-K3 were not launched on the scaled path, K4 and K5 not on the rents
@@ -372,35 +374,37 @@ def bench_rents_kernels(ops, cm, arenas, params, obs_dev, floor) -> list:
     return out
 
 
-def bench_flights_k6(ops, eng, arenas, params, floor) -> dict:
-    """K6 at the shape the flights path launches it at, one Flight slot
-    against its referrers, for each time field (kernel_bench.flights_inputs
-    on the flights state: the list form over the referrer bound where the
-    model has one, else the dense form over every Obs row): checked against
-    its plain version, timed beside it, with the bytes bound and the launch
-    floor. The kernels-line numbers are the largest vocabulary's; `shapes`
-    holds each field's."""
+def bench_flights_k6(ops, eng, arenas, params, census, floor) -> dict:
+    """K6 at every shape of the flights path's launch census (form,
+    referrer axis N, one row or batched, V), on inputs from its state
+    (kernel_bench.k6_census_inputs: the time field of that V at Flight's
+    first live slot, its referrers in the form the tracer holds them):
+    checked against its plain version, timed beside it, with the bytes
+    bound, the launch floor and the plan (its route). The kernels-line
+    numbers are the largest vocabulary's; `shapes` holds each shape's."""
     from pclean_tpu_torch import kernel_bench as kb
 
     shapes = []
-    for f in kb.flights_inputs(eng, arenas, params):
-        k6 = f["k6"]
+    for r, field, k6 in kb.k6_census_inputs(eng, arenas, params, census, 1):
         nbytes = kb.k6_bytes(k6)
-        N = k6["obs"].shape[-1]
+        B, N, V = k6["lc"].shape[0], k6["obs"].shape[-1], \
+            k6["member"].shape[1]
         form = (f"list of {int(k6['cnt'][0])} of {N}" if "cnt" in k6
                 else f"dense over {N}")
         shapes.append(dict(
-            field=f["field"], rows=1, V=f["V"], N=N, form=form,
-            max_abs_err=kb.check_k6(ops, k6), bytes=nbytes,
+            field=field, rows=r["rows"], launches=r["launches"], V=V, N=N,
+            form=form, max_abs_err=kb.check_k6(ops, k6), bytes=nbytes,
             bound_ms=nbytes / kb.HBM_BYTES_PER_S * 1e3, floor_ms=floor,
-            plan=ops.maybe_swap_ext_plan(1, f["V"]), **kb.time_k6(ops, k6)))
-        r = shapes[-1]
-        print(f"maybe_swap_ext {r['field']}: out [1, {r['V']}], referrers "
-              f"{form}: max_abs_err {r['max_abs_err']:.3g} kernel "
-              f"{r['ms']:.4f} ms (device {r['device_ms']:.4f} ms) plain "
-              f"{r['plain_ms']:.4f} ms bound {r['bound_ms']:.6f} ms floor "
-              f"{floor:.4f} ms", flush=True)
-    top = max(shapes, key=lambda r: r["V"])
+            plan=ops.maybe_swap_ext_plan(B, V, N, "cnt" not in k6),
+            **kb.time_k6(ops, k6)))
+        x = shapes[-1]
+        print(f"maybe_swap_ext {x['field']} {x['rows']} ({x['launches']} "
+              f"launches): out [{B}, {V}], referrers {form}: max_abs_err "
+              f"{x['max_abs_err']:.3g} kernel {x['ms']:.4f} ms (device "
+              f"{x['device_ms']:.4f} ms) plain {x['plain_ms']:.4f} ms bound "
+              f"{x['bound_ms']:.6f} ms floor {floor:.4f} ms plan "
+              f"{x['plan']}", flush=True)
+    top = max(shapes, key=lambda x: x["V"])
     torch.cuda.empty_cache()
     return dict({k: top[k] for k in ("max_abs_err", "ms", "device_ms",
                                      "plain_ms", "library_ms", "bytes",
@@ -433,7 +437,7 @@ def bench_k7_k8_shape(ops, name, label, form, k, floor) -> dict:
             kb.time_k8(ops, k)
         E, Vc, V = k["SA"].shape
         B, R = k["w"].shape
-        plan = ops.sa_ext_term_plan(B, E)
+        plan = ops.sa_ext_term_plan(B, E, R)
         shape = (f"out [{B}, {E}], SA [{E}, {Vc}, {V}], {R} referrers, "
                  f"{int(k['w'].sum())} kept")
     r = dict(label=label, shape=shape, max_abs_err=err, bytes=nbytes,
@@ -805,7 +809,8 @@ def main() -> int:
     report["flights"] = dict(fl, compile_s=compile_s,
                              f1_floor=FLIGHTS_F1_FLOOR)
     phase("flights kernel checks")
-    kernels.append(bench_flights_k6(ops, eng, arenas, params, floor))
+    kernels.append(bench_flights_k6(ops, eng, arenas, params, fl["census"],
+                                    floor))
     add("flights", {"maybe_swap_ext": kernels[-1].pop("shapes")})
     del cm, dirty, clean, query, arenas, params, eng
     torch.cuda.empty_cache()

@@ -22,20 +22,41 @@
 // launch is a latency chain: a few dependent global loads, a block scan
 // and the option loop.
 //
-// Design: one block of 512 threads a row and up to 4,096 options (grid
-// (B, option groups)). The block walks its referrer axis in chunks of
-// 2,048 (four consecutive entries a thread), keeps the referrers by a
-// block prefix scan, so their order stays the referrer order, and stages
-// each kept referrer's code, state and two log terms in shared memory; then
-// each thread adds the chunk's kept referrers, in that order, into the
-// sums of its eight options (registers, in double: a crowded slot of a
-// thousand referrers drifts by up to 1e-4 of its sum in sequential float
-// adds, so a float accumulator would fail the tolerance below where torch's
-// pairwise sums do not). The sums are not rewritten as a presum plus a
-// correction: with p = 1e-5 a term is -11.5 and subtracting it back would
-// trade exactness for nothing at these sizes. The terms are the plain
-// version's float terms; the two agree to 1e-5 of each cell's sum of
-// |terms|, not bit for bit.
+// Design: two routes, picked by ops.maybe_swap_ext_plan from (B, V, N).
+//   * block (long lists and the dense form): one block of 512 threads a
+//     row and up to 4,096 options (grid (B, option groups)). The block
+//     walks its referrer axis in chunks of 2,048 (four consecutive entries
+//     a thread), keeps the referrers by a block prefix scan, so their order
+//     stays the referrer order, and stages each kept referrer's code, state
+//     and two log terms in shared memory; then each thread adds the chunk's
+//     kept referrers, in that order, into the sums of its eight options
+//     (registers, in double: a crowded slot of a thousand referrers drifts
+//     by up to 1e-4 of its sum in sequential float adds, so a float
+//     accumulator would fail the tolerance below where torch's pairwise
+//     sums do not).
+//   * warp (short lists, such as the flights path's 23 kept of 256): a
+//     warp serves a row and 64 options (2 a lane), a block of up to 8
+//     warps, grid (B, option groups of 64 x warps); each warp walks the
+//     row itself, so there is no __syncthreads. A one-row launch there is
+//     a latency chain, so every independent load is issued at once before
+//     anything depends on it: cnt, lc, slot, and 64 entries of obs, st
+//     and p (2 a lane, masked by cnt afterwards: a load past cnt stays
+//     inside the row's N entries); then lens and the member row, which
+//     depend on lc alone, arrive while the step's terms are made, and the
+//     next 64 entries load while this step's are summed.
+//     Referrers are kept by one __ballot_sync for each 32 entries (a vote
+//     with no kept entry skips them); each kept one's code, state, log1p(-p)
+//     and log p go into the warp's shared-memory list at its rank (a
+//     __popc of the vote), so the list keeps the referrer order. Then each
+//     lane adds the list, in that order and without a branch, into its two
+//     options' double sums, with the block route's terms (log p - log len
+//     subtracted in float, as the block route and the plain version do),
+//     so the two routes give the same bits. The sums are not rewritten as
+//     a presum of the log p terms plus corrections at the observed
+//     options: with two options a lane it would save one double add a
+//     referrer, and a p of 0 would turn it into -inf + inf.
+// The terms are the plain version's float terms; the two agree to 1e-5 of
+// each cell's sum of |terms|, not bit for bit.
 
 #include "common.cuh"
 
@@ -47,6 +68,11 @@ constexpr int kChunk = kThreads * kPerThread;    // referrers a chunk
 constexpr int kMaxTiles = 8;                     // options a thread owns
 constexpr int kOptions = kThreads * kMaxTiles;   // options a block owns
 constexpr int kWarps = kThreads / 32;
+// the warp route
+constexpr int kLaneOpt = 2;                      // options a lane owns
+constexpr int kWarpOpt = 32 * kLaneOpt;          // options a warp owns
+constexpr int kStep = 2;                         // entries a lane loads a step
+constexpr int kMaxRouteWarps = 8;                // warps a block
 
 __device__ __forceinline__ int64_t clamp64(int64_t x, int64_t hi) {
   return x < 0 ? 0 : (x >= hi ? hi - 1 : x);
@@ -166,6 +192,121 @@ maybe_swap_ext_kernel(const int32_t* __restrict__ t,
   }
 }
 
+// Warp route: warp k of block (b, y) owns options a0 + lane + 32 i
+// (i < 2), a0 = (y * warps + k) * 64, and walks row b's entries itself.
+template <bool kList>
+__global__ void __launch_bounds__(32 * kMaxRouteWarps)
+maybe_swap_ext_warp(const int32_t* __restrict__ t,
+                    const bool* __restrict__ alive,
+                    const int32_t* __restrict__ slot,
+                    const int32_t* __restrict__ cnt,
+                    const int32_t* __restrict__ obs,
+                    const int8_t* __restrict__ st,
+                    const float* __restrict__ p, int64_t p_rows,
+                    const int32_t* __restrict__ lc,
+                    const int32_t* __restrict__ lens, int64_t L,
+                    const bool* __restrict__ member, int64_t V,
+                    float* __restrict__ out, int64_t N) {
+  __shared__ int2 sh_code[kMaxRouteWarps][32 * kStep];    // (obs, st)
+  __shared__ float2 sh_log[kMaxRouteWarps][32 * kStep];   // (log1p(-p), log p)
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t b = blockIdx.x;
+  const int64_t a0 =
+      ((int64_t)blockIdx.y * (blockDim.x >> 5) + warp) * kWarpOpt;
+  if (a0 >= V) return;  // the whole warp: no block barrier follows
+  const int32_t* orow = obs + (kList ? b * N : 0);
+  const int8_t* srow = st + (kList ? b * N : 0);
+  const float* prow = p + (p_rows == 1 ? 0 : b * N);
+  // the independent loads: the row's count or slot, its list code, and
+  // the first step's entries
+  const int32_t c_or_s = kList ? __ldg(cnt + b) : __ldg(slot + b);
+  const int32_t lcb = __ldg(lc + b);
+  struct Step {   // a lane's entries base + 32 j + lane of one step
+    int32_t o[kStep];
+    int8_t sv[kStep];
+    float pv[kStep];
+    bool live[kStep];
+  };
+  auto load = [&](Step& x, int64_t base) {
+#pragma unroll
+    for (int j = 0; j < kStep; ++j) {
+      const int64_t r = base + 32 * j + lane;
+      const bool in = r < N;
+      x.o[j] = in ? __ldg(orow + r) : 0;
+      x.sv[j] = in ? srow[r] : (int8_t)0;
+      x.pv[j] = in ? __ldg(prow + r) : 0.5f;
+      x.live[j] = in && (kList || (alive[r] && __ldg(t + r) == c_or_s));
+    }
+  };
+  Step cur, nxt;
+  load(cur, 0);
+  // then what depends on lc alone
+  const int64_t l = clamp64(lcb, L);
+  const int32_t len = __ldg(lens + l);
+  const bool* mrow = member + l * V;
+  bool miss[kLaneOpt];
+#pragma unroll
+  for (int i = 0; i < kLaneOpt; ++i) {
+    const int64_t a = a0 + lane + 32 * i;
+    miss[i] = a < V ? !mrow[a] : false;
+  }
+  // entries to walk: the whole axis (dense) or the row's list
+  const int64_t n =
+      kList ? (int64_t)min(max(c_or_s, 0), (int)N) : N;
+  const int rel = (int)(a0 + lane);   // option i of this lane: rel + 32 i
+  const uint32_t below = (1u << lane) - 1u;
+  int2* code = sh_code[warp];
+  float2* logs = sh_log[warp];
+  float loglen = 0.0f;
+  bool have_len = false;
+  double acc[kLaneOpt];
+#pragma unroll
+  for (int i = 0; i < kLaneOpt; ++i) acc[i] = 0.0;
+  for (int64_t base = 0; base < n; base += 32 * kStep) {
+    if (base + 32 * kStep < n) load(nxt, base + 32 * kStep);
+    int k = 0;   // kept entries of this step, listed in referrer order
+#pragma unroll
+    for (int j = 0; j < kStep; ++j) {
+      const int64_t r = base + 32 * j + lane;
+      const int8_t sj = cur.sv[j];
+      const bool keep = cur.live[j] && r < n && (sj == 1 || sj == 2);
+      const uint32_t m = __ballot_sync(0xffffffffu, keep);
+      if (m == 0u) continue;
+      if (keep) {
+        const int pos = k + __popc(m & below);
+        code[pos] = make_int2(cur.o[j], (int)sj);
+        logs[pos] = sj == 1 ? make_float2(log1pf(-cur.pv[j]),
+                                          logf(cur.pv[j]))
+                            : make_float2(0.0f, 0.0f);
+      }
+      k += __popc(m);
+    }
+    __syncwarp();
+    if (k > 0 && !have_len) {
+      loglen = logf((float)len);
+      have_len = true;
+    }
+#pragma unroll 4
+    for (int i = 0; i < k; ++i) {   // the same entry on every lane
+      const int2 q = code[i];
+      const float2 lg = logs[i];
+      const float diff = lg.y - loglen;
+      const int d = q.x - rel;
+#pragma unroll
+      for (int u = 0; u < kLaneOpt; ++u)
+        acc[u] += q.y == 1 ? (double)(d == 32 * u ? lg.x : diff)
+                           : (miss[u] ? -1000.0 : 0.0);
+    }
+    __syncwarp();   // the next step overwrites the list
+    cur = nxt;
+  }
+#pragma unroll
+  for (int i = 0; i < kLaneOpt; ++i) {
+    const int64_t a = (int64_t)rel + 32 * i;
+    if (a < V) out[b * V + a] = (float)acc[i];
+  }
+}
+
 }  // namespace
 
 // Dense form (cnt null): t [N] int32, alive [N] bool, slot [B] int32,
@@ -173,10 +314,11 @@ maybe_swap_ext_kernel(const int32_t* __restrict__ t,
 // int32, obs [B, N] int32, st [B, N] int8. Both: p [p_rows, N] f32
 // (p_rows 1 or B), lc [B] int32, lens [L] int32, member [L, V] bool, out
 // [B, V] f32, on the device and contiguous. The plan
-// (ops.maybe_swap_ext_plan) is launched as given: `threads` threads (512) a
-// block, grid (B, option groups of 4,096). Returns cudaErrorInvalidValue
-// for a plan or shape that does not fit, else cudaGetLastError() after the
-// launch.
+// (ops.maybe_swap_ext_plan) is launched as given: route 0 (block) with 512
+// threads a block and grid (B, option groups of 4,096), or route 1 (warp)
+// with 32-256 threads a block and grid (B, option groups of 64 for each
+// warp). Returns cudaErrorInvalidValue for a plan or shape that does not
+// fit, else cudaGetLastError() after the launch.
 extern "C" int pclean_maybe_swap_ext(const int32_t* t, const bool* alive,
                                      const int32_t* slot, const int32_t* cnt,
                                      const int32_t* obs, const int8_t* st,
@@ -184,7 +326,7 @@ extern "C" int pclean_maybe_swap_ext(const int32_t* t, const bool* alive,
                                      const int32_t* lc, const int32_t* lens,
                                      int64_t L, const bool* member, int64_t V,
                                      float* out, int64_t B, int64_t N,
-                                     int threads, int64_t grid_x,
+                                     int route, int threads, int64_t grid_x,
                                      int64_t grid_y, void* stream) {
   const bool list = cnt != nullptr;
   if (L < 1 || V < 1 || N < 0 || N > (1 << 30) ||
@@ -192,16 +334,31 @@ extern "C" int pclean_maybe_swap_ext(const int32_t* t, const bool* alive,
       (!list && (t == nullptr || alive == nullptr || slot == nullptr)))
     return (int)cudaErrorInvalidValue;
   if (B <= 0) return (int)cudaGetLastError();
-  if (threads != kThreads || grid_x != B || grid_y < 1 || grid_y > 65535 ||
-      grid_y * kOptions < V)
+  const bool warp = route == 1;
+  const int64_t per_block =
+      warp ? (int64_t)(threads / 32) * kWarpOpt : (int64_t)kOptions;
+  if ((route != 0 && route != 1) || grid_x != B || grid_y < 1 ||
+      grid_y > 65535 || grid_y * per_block < V ||
+      (warp ? (threads < 32 || threads > 32 * kMaxRouteWarps ||
+               threads % 32 != 0)
+            : threads != kThreads))
     return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)grid_x, (unsigned)grid_y);
-  if (list)
-    maybe_swap_ext_kernel<true><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+  cudaStream_t s = (cudaStream_t)stream;
+  if (warp && list)
+    maybe_swap_ext_warp<true><<<grid, threads, 0, s>>>(
+        t, alive, slot, cnt, obs, st, p, p_rows, lc, lens, L, member, V, out,
+        N);
+  else if (warp)
+    maybe_swap_ext_warp<false><<<grid, threads, 0, s>>>(
+        t, alive, slot, cnt, obs, st, p, p_rows, lc, lens, L, member, V, out,
+        N);
+  else if (list)
+    maybe_swap_ext_kernel<true><<<grid, kThreads, 0, s>>>(
         t, alive, slot, cnt, obs, st, p, p_rows, lc, lens, L, member, V, out,
         N);
   else
-    maybe_swap_ext_kernel<false><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+    maybe_swap_ext_kernel<false><<<grid, kThreads, 0, s>>>(
         t, alive, slot, cnt, obs, st, p, p_rows, lc, lens, L, member, V, out,
         N);
   return (int)cudaGetLastError();

@@ -30,9 +30,10 @@
 //     row of a wide V, hospital's widest): no shared-memory tile; each set
 //     referrer is read and chased once, by one thread, and added into the
 //     output (zeroed by the wrapper, the only dense work) with one global
-//     atomic. w is read in 16-byte words: a warp skips a 512-referrer span
-//     with no set byte by one ballot (the per-row masks are almost all
-//     empty), stages the span in shared memory and gives lane l the
+//     atomic. w is read in 16-byte words (pclean_walk in common.cuh, which
+//     K8 shares): a warp skips a 512-referrer span with no set byte by one
+//     ballot (the per-row masks are almost all empty), stages the span in
+//     shared memory and gives lane l the
 //     referrers 32 j + l (consecutive lanes on consecutive val and hop
 //     entries); each lane issues the loads of its 16 referrers together,
 //     hop by hop.
@@ -56,7 +57,6 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxHops = 8;
-constexpr int kSpan = 512;  // referrers a warp reads a step: 32 x 16 B
 constexpr int kTileMax = 12288;  // cells of one private tile: 48 KB
 
 __device__ __forceinline__ int64_t min64(int64_t a, int64_t b) {
@@ -79,51 +79,6 @@ __device__ __forceinline__ int64_t chase(const Hops& hops, int64_t g) {
   return g;
 }
 
-// Zeroes the bytes of `v` (loaded from address a) outside [lo, hi).
-__device__ __forceinline__ uint4 mask_word(uint4 v, uintptr_t a,
-                                           uintptr_t lo, uintptr_t hi) {
-  uint32_t c[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int k = 0; k < 16; ++k)
-    if (a + k < lo || a + k >= hi) c[k >> 2] &= ~(0xffu << (8 * (k & 3)));
-  return make_uint4(c[0], c[1], c[2], c[3]);
-}
-
-// Walks the set bytes of w[lo, hi) with the block's warps, a 512-byte span
-// a warp and step (16-byte aligned words, bytes outside the range masked),
-// and calls count(r0, set) for every span with a set byte: bit j of `set`
-// says that referrer r0 + 32 j is set (r0 = the span's start + lane, in
-// referrers from w). Every lane of the warp makes the call.
-template <class F>
-__device__ __forceinline__ void walk(const uint8_t* __restrict__ w,
-                                     int64_t lo, int64_t hi, uint4* stage,
-                                     F&& count) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const uintptr_t base = reinterpret_cast<uintptr_t>(w);
-  const uintptr_t a_lo = base + lo, a_hi = base + hi;
-  const uintptr_t first = a_lo & ~(uintptr_t)15;
-  for (uintptr_t s = first + (uintptr_t)warp * kSpan; s < a_hi;
-       s += (uintptr_t)kWarps * kSpan) {
-    const uintptr_t a = s + 16 * lane;
-    uint4 word = make_uint4(0, 0, 0, 0);
-    if (a < a_hi) {
-      word = __ldg(reinterpret_cast<const uint4*>(a));
-      if (a < a_lo || a + 16 > a_hi) word = mask_word(word, a, a_lo, a_hi);
-    }
-    const bool any = (word.x | word.y | word.z | word.w) != 0u;
-    if (__ballot_sync(0xffffffffu, any) == 0u) continue;
-    stage[lane] = word;
-    __syncwarp();
-    const uint8_t* bytes = reinterpret_cast<const uint8_t*>(stage);
-    uint32_t set = 0;
-#pragma unroll
-    for (int j = 0; j < 16; ++j)
-      set |= (bytes[32 * j + lane] != 0 ? 1u : 0u) << j;
-    __syncwarp();
-    count((int64_t)(s - base) + lane, set);
-  }
-}
-
 // Sparse route, hoisted form. Grid (chunks): block x reads referrers
 // [x per, (x + 1) per).
 __global__ void __launch_bounds__(kThreads)
@@ -133,8 +88,8 @@ referrer_hist_chase_sparse(Hops hops, const int32_t* __restrict__ val,
                            float* __restrict__ out) {
   __shared__ uint4 stage[kWarps][32];
   const int64_t r0 = (int64_t)blockIdx.x * per;
-  walk(w, r0, min64(N, r0 + per), stage[threadIdx.x >> 5],
-       [&](int64_t rb, uint32_t set) {
+  pclean_walk<kWarps>(w, r0, min64(N, r0 + per), stage[threadIdx.x >> 5],
+                      [&](int64_t rb, uint32_t set) {
          int64_t g[16];
          int32_t v[16];
 #pragma unroll
@@ -171,8 +126,8 @@ referrer_hist_rows_sparse(const uint8_t* __restrict__ w,
   const int32_t* vrow = val + (val_rows == 1 ? 0 : b * R);
   float* orow = out + b * V;
   const int64_t r0 = (int64_t)blockIdx.y * per;
-  walk(w + b * R, r0, min64(R, r0 + per), stage[threadIdx.x >> 5],
-       [&](int64_t rb, uint32_t set) {
+  pclean_walk<kWarps>(w + b * R, r0, min64(R, r0 + per),
+                      stage[threadIdx.x >> 5], [&](int64_t rb, uint32_t set) {
          int32_t v[16];
 #pragma unroll
          for (int j = 0; j < 16; ++j)

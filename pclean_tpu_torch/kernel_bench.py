@@ -19,18 +19,25 @@ batched birth-allocation replay; and K1 (with K2 on K1's record) at one
 row and at the batch shape for every entry of `k1_shapes`. Every turn
 checks K1 in both modes, K2 and K3 against their plain versions before it
 times them. The turns also time K4 at 50,000 seeded referrers into
-[4,096, 5] (AB_K4) and K7 at AB_K7's shapes (scaled's, rents' and
-hospital's hoisted histograms, one row and 4,096 rows of V = 5,125, and
-hospital's shapes with their counts crowded into few cells), each checked
-against its plain version and timed beside its library call; `--kernels
-k4,k7` times only those, with no model to build. With --paths it also
-times each of K1's paths at each of those shapes and over an R x K grid in
-both modes (the last tree's kernels; PERF.md takes the plan's cut-overs
-from that table). With --census hospital it first runs chip_smoke.py's
-hospital path (HOSPITAL_PATH: 100,000 rows, B = 4,096, one sweep) with
-this checkout's package, then times K7 in the turns at every shape of
-that run's launch census too, on inputs from its state
-(`k7_census_inputs`): the hospital's Records crowd into its few live
+[4,096, 5] (AB_K4, beside its library call: a zeroed buffer and one
+index_add_ of n, sz, szz and pre0, k4_library), K6 at the flights path's
+four list shapes and its dense shape (AB_K6), K7 at AB_K7's shapes
+(scaled's, rents' and hospital's hoisted histograms, one row and 4,096
+rows of V = 5,125, and hospital's shapes with their counts crowded into
+few cells) and K8 at AB_K8's (the hospital census shapes' sizes on seeded
+inputs, and a batch whose every row holds referrers), each checked
+against its plain version; `--kernels k4,k6,k7,k8` (any of them) times
+only those, with no model to build. With --paths it also times each of
+K1's paths at each of those shapes and over an R x K grid in both modes
+(the last tree's kernels; PERF.md takes the plan's cut-overs from that
+table); with --routes each of K6's routes over K6_ROUTE_GRID and K8 at
+each of K8_SPLITS splits at one row (the last tree's kernels; the K6
+cut-over and K8's split count come from it). With --census hospital it
+first runs chip_smoke.py's hospital path (HOSPITAL_PATH: 100,000 rows, B
+= 4,096, one sweep) with this checkout's package, then times K7 and K8
+(those in --kernels) in the turns at every shape of that run's launch
+census too, on inputs from its state (`k7_census_inputs`,
+`k8_census_inputs`): the hospital's Records crowd into its few live
 slots, which seeded inputs do not reproduce.
 
 Two times are kept for each kernel: `ms`, CUDA events around one call
@@ -46,8 +53,9 @@ their inputs from the rents model's own state (`rents_inputs`): K4 over
 every Obs row into County's slots, K5 over a County batch of B rows and
 the state axis. K6 (the flights path's MaybeSwap external) takes its
 inputs from the flights model's state (`flights_inputs`): one Flight slot
-against every Obs row, for each of the four time fields; `k6_inputs`
-draws seeded inputs of any shape for the card tests. K7 and K8 (the
+against its referrers, for each of the four time fields, and at every
+shape of a path's launch census (`k6_census_inputs`); `k6_inputs` draws
+seeded inputs of any shape for the card tests and the A/B. K7 and K8 (the
 referrer histograms and the hospital's composed stateavg term) take
 theirs from a path's state at every shape of its launch census
 (`k7_census_inputs`, `k8_census_inputs`); `k7_seeded` and `k8_seeded` draw
@@ -434,8 +442,9 @@ def k5_bytes(k5: dict) -> int:
 def time_k45(ops, inp: dict) -> dict:
     """{kernel: {ms, device_ms, plain_ms, library_ms}} of K4 and K5 on
     rents_inputs (ms, plain_ms, library_ms: cuda_ms; device_ms: graph_ms).
-    K4's library call: one index_add_ of the stacked [R, 3] statistics
-    (1, z, z^2) into [cap * C, 3] (the pre0 sum left out); K5 has none."""
+    K4's library call: k4_library, a zeroed buffer and one index_add_ of
+    n, sz, szz and pre0 (checked against the plain version first); K5 has
+    none."""
     k4, k5 = inp["k4"], inp["k5"]
     res = {}
     for name, fn, plain in (
@@ -446,25 +455,54 @@ def time_k45(ops, inp: dict) -> dict:
         res[name] = dict(ms=cuda_ms(fn), device_ms=graph_ms(fn),
                          plain_ms=cuda_ms(plain), library_ms=None)
     lib = k4_library(k4)
+    check_k4_library(ops, k4, lib)
     res["gauss_suffstats"]["library_ms"] = cuda_ms(lib)
     res["gauss_suffstats"]["library_device_ms"] = graph_ms(lib)
     return res
 
 
 def k4_library(k4: dict):
-    """K4's yardstick, a call the port never makes: one index_add_ of the
-    stacked [n, 3] statistics (1, z, z^2) of the n kept referrers into a
-    [cap * C, 3] buffer that is never zeroed. The referrers that are not
-    kept are dropped before the call, as K7's bincount yardstick drops
-    them, so none of them queues on a cell. It does less than K4: no pre0
-    sum and no zeroing of the output."""
-    ok = k4["w"] & (k4["t"] >= 0) & (k4["t"] < k4["cap"]) & \
-        (k4["rv"] >= 0) & (k4["rv"] < k4["C"])
-    cell = (k4["t"].long() * k4["C"] + k4["rv"].long())[ok]
-    z = k4["z"][ok]
-    stacked = torch.stack([torch.ones_like(z), z, z * z], 1)
-    out = torch.zeros((k4["cap"] * k4["C"], 3), device=z.device)
-    return lambda: out.index_add_(0, cell, stacked)
+    """K4's yardstick, a call the port never makes: one graphable PyTorch
+    expression of K4's whole output, a zeroed [cap * C + cap, 3] buffer
+    and one index_add_ into it of 2R rows: each referrer's (1, z, z^2) at
+    its cell t * C + rv (rows 0 to cap * C - 1: n, sz, szz) and its
+    const - ld at row cap * C + t (column 0 of the last cap rows: pre0).
+    A referrer that is not kept (K4's mode="drop") adds weight 0 at its
+    cell clamped into range: weights masked to 0, not a boolean index,
+    which would sync, and spread over the cells as the kept ones are, so
+    none of them queues on one cell. The index and the weighted rows are
+    built once from the inputs, before the timing."""
+    t, rv, z = k4["t"].long(), k4["rv"].long(), k4["z"]
+    cap, C = k4["cap"], k4["C"]
+    ok = k4["w"] & (t >= 0) & (t < cap)
+    m = ok.to(z.dtype)
+    m2 = (ok & (rv >= 0) & (rv < C)).to(z.dtype)
+    slot = t.clamp(0, cap - 1)
+    idx = torch.cat([slot * C + rv.clamp(0, C - 1), cap * C + slot])
+    zero = torch.zeros_like(z)
+    rows = torch.cat([torch.stack([m2, z * m2, z * z * m2], 1),
+                      torch.stack([(k4["const"] - k4["ld"]) * m, zero, zero],
+                                  1)])
+    n = cap * C + cap
+    return lambda: torch.zeros((n, 3), device=z.device).index_add_(
+        0, idx, rows)
+
+
+def check_k4_library(ops, k4: dict, lib) -> None:
+    """The yardstick computes K4's function: its [cap * C + cap, 3] buffer
+    read as (n, sz, szz, pre0) holds the plain version's counts exactly and
+    its sums within check_k4's tolerance."""
+    cap, C = k4["cap"], k4["C"]
+    out = lib()
+    got = (out[:cap * C, 0].reshape(cap, C), out[:cap * C, 1].reshape(cap, C),
+           out[:cap * C, 2].reshape(cap, C), out[cap * C:, 0])
+    want = ops.gauss_suffstats_plain(**k4)
+    mag = ops.gauss_suffstats_plain(**dict(
+        k4, z=k4["z"].abs(), ld=-(k4["const"] - k4["ld"]).abs(), const=0.0))
+    require(torch.equal(got[0], want[0]), "K4's yardstick n differs")
+    for i in (1, 2, 3):
+        require(bool(((got[i] - want[i]).abs() <= 1e-5 * mag[i] + 1e-6)
+                     .all()), "K4's yardstick differs from K4's function")
 
 
 def k4_seeded(dev, R: int, cap: int, C: int, live: int = None,
@@ -596,6 +634,32 @@ def flights_inputs(eng, arenas, params, slots=None) -> list:
     return out
 
 
+def k6_census_inputs(eng, arenas, params, census: list, B: int) -> list:
+    """K6's inputs at every shape of a path's launch census (ops.census()
+    rows of maybe_swap_ext: form and referrer axis "list,N" or "dense,N",
+    r1 or rn, V), from its state: flights_inputs at _census_slots' rows of
+    Flight, the time field whose vocabulary is V. Raises where no field
+    has that V and form. Returns [(census row, field, inputs)]."""
+    from .engine.refresh import refresh
+
+    cm = eng.cm
+    rel = refresh(cm, arenas, eng.obs_dev)
+    out = []
+    for r in census:
+        if r["kernel"] != "maybe_swap_ext":
+            continue
+        form, N = r["mode"].split(",")
+        slots = _census_slots(cm, rel, "Flight", r["rows"], B)
+        found = [(r, f["field"], f["k6"]) for f in flights_inputs(
+            eng, arenas, params, slots) if f["V"] == r["K"]
+            and ("cnt" in f["k6"]) == (form == "list")
+            and f["k6"]["obs"].shape[-1] == int(N)]
+        require(bool(found), f"K6 census shape {r} has no MaybeSwap field "
+                f"of its form and V")
+        out.append(found[0])
+    return out
+
+
 def k6_inputs(dev, B: int, V: int, N: int, L: int = 64, seed: int = 0,
               missing: float = 0.03, shared_p: bool = False,
               lists: bool = False, per_slot: int = 0) -> dict:
@@ -636,11 +700,12 @@ def k6_inputs(dev, B: int, V: int, N: int, L: int = 64, seed: int = 0,
     return k6
 
 
-def check_k6(ops, k6: dict) -> float:
+def check_k6(ops, k6: dict, **force) -> float:
     """Within 1e-5 of each cell's sum of |terms| (+1e-6) of the plain
-    version (the same f32 terms, summed in another order). Returns the
-    largest |difference|."""
-    got = ops.maybe_swap_ext(**k6)
+    version (the same f32 terms, summed in another order). `force` goes to
+    the kernel's wrapper alone (route=). Returns the largest
+    |difference|."""
+    got = ops.maybe_swap_ext(**k6, **force)
     want = ops.maybe_swap_ext_plain(**k6)
     mag = ops.maybe_swap_ext_plain(**k6, absolute=True)
     torch.cuda.synchronize()
@@ -941,11 +1006,13 @@ def k7_seeded(dev, G: int, V: int, R: int, per_row: bool, hops: int = 1,
 
 def k8_seeded(dev, B: int, E: int, Vc: int, V: int, R: int,
               rows_pairs: int = 1, seed: int = 0,
-              density: float = None) -> dict:
+              density: float = None, live: int = None) -> dict:
     """Seeded K8 inputs: SA [E, Vc, V] of typo log densities (normal about
     -20, a tenth at the -1e5 the typo model gives beyond its edit limit),
     rv and val [rows_pairs, R] with some out of range, w [B, R] set with
-    `density` (1 / B by default)."""
+    `density` (1 / B by default) on its first `live` rows (all by default)
+    and empty on the others, as a batch whose rows past the class's live
+    slots hold no referrer."""
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
     SA = torch.randn((E, Vc, V), generator=g, device=dev) * 5.0 - 20.0
@@ -953,9 +1020,11 @@ def k8_seeded(dev, B: int, E: int, Vc: int, V: int, R: int,
                      < 0.1, torch.full_like(SA, -1e5), SA)
     i32 = dict(device=dev, dtype=torch.int32, generator=g)
     p = 1.0 / max(B, 1) if density is None else density
+    w = torch.rand((B, R), generator=g, device=dev) < p
+    if live is not None:
+        w[live:] = False
     return dict(SA=SA, rv=torch.randint(-1, Vc + 1, (rows_pairs, R), **i32),
-                val=torch.randint(-1, V + 1, (rows_pairs, R), **i32),
-                w=torch.rand((B, R), generator=g, device=dev) < p)
+                val=torch.randint(-1, V + 1, (rows_pairs, R), **i32), w=w)
 
 
 def check_k7(ops, k7: dict) -> float:
@@ -968,11 +1037,12 @@ def check_k7(ops, k7: dict) -> float:
     return float((got - want).abs().max())
 
 
-def check_k8(ops, k8: dict) -> float:
+def check_k8(ops, k8: dict, **force) -> float:
     """Within 1e-5 of each cell's sum of |terms| (+1e-6) of the plain
-    version (the same terms summed in double in referrer order, against an
-    f32 histogram-times-SA product). Returns the largest |difference|."""
-    got = ops.sa_ext_term(**k8)
+    version (the same terms summed in double in a fixed order, against an
+    f32 histogram-times-SA product). `force` goes to the kernel's wrapper
+    alone (splits=). Returns the largest |difference|."""
+    got = ops.sa_ext_term(**k8, **force)
     want = ops.sa_ext_term_plain(**k8)
     mag = ops.sa_ext_term_plain(**dict(k8, SA=k8["SA"].abs()))
     torch.cuda.synchronize()
@@ -1122,16 +1192,54 @@ AB_K7 = (  # K7's shapes in the A/B: (label, G, V, R, per_row, density,
     ("rows [64, 111] crowded", 64, 111, 100_000, True, 1 / 55, (55, 2)),
 )
 AB_K4 = ("rents 50000 -> [4096, 5]", 50_000, 4096, 5)
-AB_KINDS = ("k1-k3", "k4", "k7")
+AB_K6 = (  # K6's shapes in the A/B: (label, B, V, N, list form, kept)
+    # the flights path's four time fields: one Flight slot, a list of 23
+    # kept of its 256 (the referrer bound)
+    ("list of 23 of 256 [1, 222]", 1, 222, 256, True, 23),
+    ("list of 23 of 256 [1, 236]", 1, 236, 256, True, 23),
+    ("list of 23 of 256 [1, 238]", 1, 238, 256, True, 23),
+    ("list of 23 of 256 [1, 241]", 1, 241, 256, True, 23),
+    # the dense form over the flights path's 2,376 Obs rows, one slot
+    ("dense over 2376 [1, 241]", 1, 241, 2376, False, None),
+)
+AB_K8 = (  # K8's seeded shapes in the A/B: (label, B, E, Vc, V, R, density,
+    # live rows): the hospital path's four census shapes' sizes (100,000
+    # Records into 9 live counties of ~11,100 or 40 measures of 2,500, the
+    # batch's other rows empty), and every row of a batch holding referrers
+    ("one row County [1, 14], 11% kept", 1, 14, 78, 1133, 100_000, 0.112,
+     None),
+    ("one row Measure [1, 78], 2.6% kept", 1, 78, 14, 1133, 100_000, 0.026,
+     None),
+    ("County [4096, 14], 9 live rows", 4096, 14, 78, 1133, 100_000, 1 / 9,
+     9),
+    ("Measure [4096, 78], 40 live rows", 4096, 78, 14, 1133, 100_000,
+     1 / 40, 40),
+    ("County [4096, 14], every row 1/128 kept", 4096, 14, 78, 1133, 100_000,
+     1 / 128, None),
+)
+AB_KINDS = ("k1-k3", "k4", "k6", "k7", "k8")
 
 
-def ab_k4_k7(dev, kinds) -> dict:
-    """The A/B's K4 and K7 inputs, {label: (kernel, inputs)}: K7 at AB_K7
-    (k7_seeded, one hop, as scaled's, rents' and hospital's hoisted
-    histograms; per row at scaled's density of about 12 referrers a row;
-    hospital's shapes also with its counts crowded into few cells),
-    K4 at AB_K4 (k4_seeded)."""
+def ab_seeded(dev, kinds) -> dict:
+    """The A/B's seeded K4, K6, K7 and K8 inputs, {label: (kernel,
+    inputs)}: K7 at AB_K7 (k7_seeded, one hop, as scaled's, rents' and
+    hospital's hoisted histograms; per row at scaled's density of about 12
+    referrers a row; hospital's shapes also with its counts crowded into
+    few cells), K4 at AB_K4 (k4_seeded), K6 at AB_K6 (k6_inputs; the dense
+    shape with about 24 referrers a slot, as flights' 100 flights over
+    2,376 rows) and K8 at AB_K8 (k8_seeded)."""
     out = {}
+    if "k6" in kinds:
+        for label, B, V, N, lists, kept in AB_K6:
+            k6 = k6_inputs(dev, B, V, N, lists=lists,
+                           per_slot=0 if lists else 24)
+            if lists:
+                k6["cnt"].fill_(kept)
+            out["K6 " + label] = ("maybe_swap_ext", k6)
+    if "k8" in kinds:
+        for label, B, E, Vc, V, R, density, live in AB_K8:
+            out["K8 " + label] = ("sa_ext_term", k8_seeded(
+                dev, B, E, Vc, V, R, density=density, live=live))
     if "k7" in kinds:
         for label, G, V, R, per_row, density, skew in AB_K7:
             out["K7 " + label] = ("referrer_hist", k7_seeded(
@@ -1142,10 +1250,17 @@ def ab_k4_k7(dev, kinds) -> dict:
     return out
 
 
-def time_ab_k4_k7(ops, kernel: str, inp: dict) -> dict:
-    """One A/B turn of K4 or K7 on `inp`: checked against the plain version,
-    then ms (cuda_ms) and device_ms (graph_ms), with the library call beside
-    them (K7: torch.bincount, events only; K4: index_add_, both)."""
+def time_ab_seeded(ops, kernel: str, inp: dict) -> dict:
+    """One A/B turn of K4, K6, K7 or K8 on `inp`: checked against the plain
+    version, then ms (cuda_ms) and device_ms (graph_ms), with the library
+    call beside them (K7: torch.bincount, events only; K4: zeros and
+    index_add_, both; K6 and K8 have none)."""
+    if kernel in ("maybe_swap_ext", "sa_ext_term"):
+        (check_k6 if kernel == "maybe_swap_ext" else check_k8)(ops, inp)
+        fn = getattr(ops, kernel)
+        call = lambda: fn(**inp)  # noqa: E731
+        return dict(ms=cuda_ms(call), device_ms=graph_ms(call),
+                    library_ms=None, library_device_ms=None)
     if kernel == "referrer_hist":
         check_k7(ops, inp)
         fn = lambda: ops.referrer_hist(**inp)  # noqa: E731
@@ -1156,6 +1271,7 @@ def time_ab_k4_k7(ops, kernel: str, inp: dict) -> dict:
     check_k4(ops, inp)
     fn = lambda: ops.gauss_suffstats(**inp)  # noqa: E731
     lib = k4_library(inp)
+    check_k4_library(ops, inp, lib)
     return dict(ms=cuda_ms(fn), device_ms=graph_ms(fn),
                 library_ms=cuda_ms(lib), library_device_ms=graph_ms(lib))
 
@@ -1164,12 +1280,14 @@ def time_ab_k4_k7(ops, kernel: str, inp: dict) -> dict:
 HOSPITAL_PATH = dict(rows=1000, repeat=100, batch=4096)
 
 
-def hospital_census(device="cuda", path: dict = HOSPITAL_PATH) -> dict:
-    """K7's inputs at every shape of the hospital path's launch census,
-    {label: ("referrer_hist", inputs)}: the path run as chip_smoke.py runs
-    it (`path`; init_state, Engine.initialize, Engine.run, with
-    this checkout's package and its launch counts set to 0 just before),
-    then `k7_census_inputs` on its state."""
+def hospital_census(kinds=("k7", "k8"), device="cuda",
+                    path: dict = HOSPITAL_PATH) -> dict:
+    """K7's and K8's inputs (of those in `kinds`) at every shape of the
+    hospital path's launch census, {label: (kernel, inputs)}: the path run
+    as chip_smoke.py runs it (`path`; init_state, Engine.initialize,
+    Engine.run, with this checkout's package and its launch counts set to
+    0 just before), then `k7_census_inputs` and `k8_census_inputs` on its
+    state."""
     from . import ops
     from .engine.compile import init_state
     from .engine.smc import Engine
@@ -1182,11 +1300,79 @@ def hospital_census(device="cuda", path: dict = HOSPITAL_PATH) -> dict:
     arenas, params, gen = eng.initialize(1, arenas, params)
     arenas, params, gen = eng.run(gen, arenas, params)
     out = {}
-    for r, cid, k in k7_census_inputs(eng, arenas, params, ops.census(),
-                                      path["batch"]):
-        G = k.get("cap") or k["w"].shape[0]
-        out[f"K7 hospital census {cid} {r['mode']} {r['rows']} [{G}, "
-            f"{k['V']}] ({r['launches']} launches)"] = ("referrer_hist", k)
+    census = ops.census()
+    if "k7" in kinds:
+        for r, cid, k in k7_census_inputs(eng, arenas, params, census,
+                                          path["batch"]):
+            G = k.get("cap") or k["w"].shape[0]
+            out[f"K7 hospital census {cid} {r['mode']} {r['rows']} [{G}, "
+                f"{k['V']}] ({r['launches']} launches)"] = ("referrer_hist",
+                                                            k)
+    if "k8" in kinds:
+        for r, cid, k in k8_census_inputs(eng, arenas, params, census,
+                                          path["batch"]):
+            out[f"K8 hospital census {cid} {r['rows']} [{k['w'].shape[0]}, "
+                f"{k['SA'].shape[0]}] ({r['launches']} launches, "
+                f"{int(k['w'].sum())} kept)"] = ("sa_ext_term", k)
+    return out
+
+
+# K6's route sweep: (B, V, N, form, kept): lists holding 24 referrers (as
+# flights' slots) or N, the dense form about 24 a slot
+K6_ROUTE_GRID = [(B, V, N, form, kept) for B in (1, 64) for V in (241, 4096)
+                 for N, form, kept in (
+                     (32, "list", 24), (256, "list", 24),
+                     (4096, "list", 24), (256, "list", 256),
+                     (1024, "list", 1024), (2048, "list", 2048),
+                     (4096, "list", 4096), (256, "dense", 24),
+                     (1024, "dense", 24), (2376, "dense", 24))]
+K8_SPLITS = (1, 25, 49, 98, 196, 264, 391, 782)  # K8's splits at one row
+K8_SPLITS_ROWS = (1, 2, 4, 8)  # and at 4,096 rows
+
+
+def route_sweep(ops, dev, census: dict = None) -> dict:
+    """Device ms (graph_ms) of each of K6's routes at each K6_ROUTE_GRID
+    shape (k6_inputs), and of K8 at each K8_SPLITS split count at AB_K8's
+    one-row shapes and each K8_SPLITS_ROWS count at its batched ones and
+    at the K8 entries of `census` ({label: (kernel, inputs)}, as
+    hospital_census gives them), each checked against its plain version
+    first (ops.maybe_swap_ext's `route`, ops.sa_ext_term's `splits`). The
+    plans' K6 cut-over (_K6_WARP_MAX_DENSE) and K8 split counts come from
+    it."""
+    out = {}
+    for B, V, N, form, kept in K6_ROUTE_GRID:
+        lists = form == "list"
+        k6 = k6_inputs(dev, B, V, N, lists=lists,
+                       per_slot=0 if lists else kept)
+        if lists:
+            k6["cnt"].fill_(kept)
+        row = dict(plan=ops.maybe_swap_ext_plan(B, V, N,
+                                                not lists)["route"])
+        for route in ops.K6_ROUTES:
+            check_k6(ops, k6, route=route)
+            row[route] = graph_ms(lambda: ops.maybe_swap_ext(**k6,
+                                                             route=route))
+        key = f"K6 B={B} V={V} N={N} {form} of {kept}"
+        out[key] = row
+        print(f"routes {key}: " + " ".join(
+            f"{r} {row[r]:.4f}" for r in ops.K6_ROUTES)
+            + f" plan {row['plan']}", flush=True)
+    k8s = [("K8 " + label, k8_seeded(dev, B, E, Vc, V, R, density=density,
+                                     live=live))
+           for label, B, E, Vc, V, R, density, live in AB_K8]
+    k8s += [(label, k) for label, (kernel, k) in (census or {}).items()
+            if kernel == "sa_ext_term"]
+    for label, k8 in k8s:
+        (B, R), E = k8["w"].shape, k8["SA"].shape[0]
+        row = dict(plan=ops.sa_ext_term_plan(B, E, R)["splits"])
+        for S in K8_SPLITS if B == 1 else K8_SPLITS_ROWS:
+            check_k8(ops, k8, splits=S)
+            row[S] = graph_ms(lambda: ops.sa_ext_term(**k8, splits=S))
+        out[label] = row
+        print(f"routes {label}: " + " ".join(
+            f"S={S} {t:.4f}" for S, t in row.items() if S != "plan")
+            + f" plan S={row['plan']}", flush=True)
+        del k8
     return out
 
 
@@ -1203,15 +1389,20 @@ def main(argv=None) -> int:
                          "shape and over PATH_GRID_R x PATH_GRID_K in both "
                          "modes, with the last tree's kernels")
     ap.add_argument("--census", choices=("hospital",), default=None,
-                    help="also time K7 at every shape of the hospital "
-                         "path's launch census, on inputs from its state "
-                         "(runs the path first, about 4 minutes)")
+                    help="also time K7 and K8 (those in --kernels) at every "
+                         "shape of the hospital path's launch census, on "
+                         "inputs from its state (runs the path first, about "
+                         "4 minutes)")
+    ap.add_argument("--routes", action="store_true",
+                    help="also time each of K6's routes over K6_ROUTE_GRID "
+                         "and K8 at each of K8_SPLITS splits over AB_K8's "
+                         "one-row shapes, with the last tree's kernels")
     a = ap.parse_args(argv)
     kinds = a.kernels.split(",")
     if not set(kinds) <= set(AB_KINDS) or (a.paths and "k1-k3" not in kinds) \
-            or (a.census and "k7" not in kinds):
+            or (a.census and not {"k7", "k8"} & set(kinds)):
         ap.error(f"--kernels takes {AB_KINDS}; --paths needs k1-k3; "
-                 f"--census needs k7")
+                 f"--census needs k7 or k8")
     if not torch.cuda.is_available():
         print("kernel_bench: no CUDA device available", file=sys.stderr)
         return 1
@@ -1247,12 +1438,13 @@ def main(argv=None) -> int:
                 * 1e3,
                 "inv_cdf_sample": k2_bytes(R, inp["logits"].shape[1])
                 / HBM_BYTES_PER_S * 1e3}
-    k47 = ab_k4_k7(dev, kinds)
-    if a.census:
-        k47.update(hospital_census())
-    for s, (k, inp) in k47.items():
-        nbytes = k7_bytes(inp) if k == "referrer_hist" else k4_bytes(inp)
-        bounds[s] = {k: nbytes / HBM_BYTES_PER_S * 1e3}
+    seeded = ab_seeded(dev, kinds)
+    census = hospital_census(kinds) if a.census else {}
+    seeded.update(census)
+    count_bytes = {"referrer_hist": k7_bytes, "gauss_suffstats": k4_bytes,
+                   "maybe_swap_ext": k6_bytes, "sa_ext_term": k8_bytes}
+    for s, (k, inp) in seeded.items():
+        bounds[s] = {k: count_bytes[k](inp) / HBM_BYTES_PER_S * 1e3}
     turns = []
 
     def log(tree, s, k, times):
@@ -1278,8 +1470,8 @@ def main(argv=None) -> int:
                 dict(ms=times["ms"], device_ms=times["device_ms"]))
             log(a.trees[t], s, "inv_cdf_sample",
                 dict(ms=times["k2_ms"], device_ms=times["k2_device_ms"]))
-        for s, (k, inp) in k47.items():
-            log(a.trees[t], s, k, time_ab_k4_k7(ops, k, inp))
+        for s, (k, inp) in seeded.items():
+            log(a.trees[t], s, k, time_ab_seeded(ops, k, inp))
     summary = {}
     for tree in a.trees:
         for s, kb in bounds.items():
@@ -1336,12 +1528,13 @@ def main(argv=None) -> int:
                     print(f"paths {s}: " + " ".join(
                         f"{p} {paths[s][p]:.4f}" for p in ops.K1_PATHS)
                         + f" plan {paths[s]['plan']['path']}", flush=True)
+    routes = route_sweep(tree_ops[-1], dev, census) if a.routes else {}
     if a.out:
         os.makedirs(a.out, exist_ok=True)
         with open(os.path.join(a.out, "kernel_ab.json"), "w") as f:
             json.dump(dict(card=torch.cuda.get_device_name(0), turns=turns,
                            summary=summary, launch_floor_ms=floor,
-                           yardsticks=yard, paths=paths),
+                           yardsticks=yard, paths=paths, routes=routes),
                       f, indent=1)
     return 0
 

@@ -34,8 +34,8 @@ only for tensors on the CPU; for CUDA tensors it launches its kernel or
 raises. `LAUNCHES` counts kernel launches (plain calls are not counted);
 `LAUNCHES_BY_SHAPE` splits the same launches into those over one row
 ("r1", the sequential loops) and over more ("rn", the batched phases);
-`LAUNCH_CENSUS` splits K1's, K2's, K3's, K7's and K8's further by mode and
-row length.
+`LAUNCH_CENSUS` splits K1's, K2's, K3's, K6's, K7's and K8's further by
+mode and row length.
 Each kernel takes a launch plan (path and geometry: threads, tiles,
 cluster, shared memory, grid) from a function of its shapes alone,
 `enum_logsumexp_plan`, `inv_cdf_plan`, `obs_gather_plan`,
@@ -78,13 +78,15 @@ _SOURCES = {
 }
 LAUNCHES = {name: 0 for name in _SOURCES}
 LAUNCHES_BY_SHAPE = {name: {"r1": 0, "rn": 0} for name in _SOURCES}
-# K1's, K2's, K3's, K7's and K8's launches by (mode, "r1" or "rn", K): K1's
-# mode is "fk" or "choice", K2's is None, K3's the launch's vocabularies
-# ("V1,V2,..."), K7's "hoisted" or "rows", K8's SA's shape ("ExVcxV"); K is
-# the row length the kernel was given (K7: the histogram's V; K8: the
-# referrer axis R)
+# K1's, K2's, K3's, K6's, K7's and K8's launches by (mode, "r1" or "rn", K):
+# K1's mode is "fk" or "choice", K2's is None, K3's the launch's
+# vocabularies ("V1,V2,..."), K6's its referrers' form and axis ("list,N"
+# or "dense,N"), K7's "hoisted" or "rows", K8's SA's shape ("ExVcxV"); K is
+# the row length the kernel was given (K6: the options V; K7: the
+# histogram's V; K8: the referrer axis R)
 LAUNCH_CENSUS = {"enum_logsumexp": {}, "inv_cdf_sample": {},
-                 "obs_gather_sum": {}, "referrer_hist": {}, "sa_ext_term": {}}
+                 "obs_gather_sum": {}, "maybe_swap_ext": {},
+                 "referrer_hist": {}, "sa_ext_term": {}}
 SMEM_MAX = 232448  # shared memory one block may use on an H100 (227 KB)
 N_SMS = 132        # streaming multiprocessors of an H100 SXM
 _GRID_Y_MAX = 65535
@@ -192,12 +194,12 @@ def build_kernels(force: bool = False) -> float:
             "gauss_ext_term": [P, I64, P, I64, I32, P, P, P, P, P, P, I64,
                                F32, P, I64, I64, I32, I64, P],
             "maybe_swap_ext": [P, P, P, P, P, P, P, I64, P, P, I64, P, I64,
-                               P, I64, I64, I32, I64, I64, P],
+                               P, I64, I64, I32, I32, I64, I64, P],
             "referrer_hist": [I32, ctypes.POINTER(I64), ctypes.POINTER(I64),
                               I32, P, I64, P, P, I64, I64, I64, I32, I64, I64,
                               I64, I64, I32, P],
-            "sa_ext_term": [P, I64, I64, I64, P, P, I64, P, I64, P, I64, I32,
-                            I32, I64, I64, P],
+            "sa_ext_term": [P, I64, I64, I64, P, P, I64, P, I64, P, P, I64,
+                            I32, I64, I64, I64, I32, I64, P],
         }
         for name in _SOURCES:
             lib = ctypes.CDLL(os.path.join(BUILD_DIR, f"lib{name}.so"))
@@ -674,19 +676,50 @@ def gauss_ext_term(values, tbl, idx, slot, n, sz, szz, pre0, coef: float):
 # ---------------------------------------------------------------- K6
 
 _K6_THREADS = 512
-_K6_OPTIONS = _K6_THREADS * 8  # options a block owns (8 a thread)
+_K6_OPTIONS = _K6_THREADS * 8  # options a block-route block owns (8 a thread)
+_K6_WARP_OPTIONS = 32 * 2      # options a warp owns on the warp route
+_K6_WARP_MAX_WARPS = 8
+# the longest dense source axis the warp route takes (a warp reads 256
+# entries a step; a list stops at its count, a dense walk reads all N):
+# from kernel_bench.py --routes on an H100 (PERF.md)
+_K6_WARP_MAX_DENSE = 256
+K6_ROUTES = ("block", "warp")  # the C entry's route numbers
 
 
-def maybe_swap_ext_plan(B: int, V: int) -> dict:
-    """K6's launch for B rows of V options: one 512-thread block a row and
-    group of up to 4,096 options, dict(threads, grid=(B, groups))."""
-    B, V = int(B), int(V)
-    if B < 0 or V < 1:
-        raise ValueError(f"maybe_swap_ext: B = {B}, V = {V} out of range")
-    groups = -(-V // _K6_OPTIONS)
+def maybe_swap_ext_plan(B: int, V: int, N: int, dense: bool = False,
+                        route=None) -> dict:
+    """K6's launch for B rows of V options over a referrer axis of N
+    entries (each row's list, or with `dense` the source axis every row
+    walks whole): dict(route, threads, grid=(B, option groups)). `route`
+    forces one of K6_ROUTES (tests, and the route sweep in kernel_bench);
+    by default "warp" for lists and for dense axes of at most
+    _K6_WARP_MAX_DENSE (256) entries, else "block". On an H100 the warp
+    route took one row of a list of 24 in 0.0037 device ms against the
+    block route's 0.0078, at any N up to 4,096, and full lists of 256 to
+    4,096 in about 0.37x the block route's time; a dense axis of 1,024
+    took it 0.0187 against 0.0076 (PERF.md).
+
+    "block": one 512-thread block a row and group of up to 4,096 options.
+    "warp": a warp a row and 64 options (2 a lane), min(8, ceil(V / 64))
+    warps a block, each group 64 options a warp."""
+    B, V, N = int(B), int(V), int(N)
+    if B < 0 or V < 1 or N < 0:
+        raise ValueError(f"maybe_swap_ext: B = {B}, V = {V}, N = {N} out of "
+                         f"range")
+    if route is None:
+        route = "block" if dense and N > _K6_WARP_MAX_DENSE else "warp"
+    if route == "warp":
+        warps = min(_K6_WARP_MAX_WARPS, -(-V // _K6_WARP_OPTIONS))
+        threads, per = 32 * warps, _K6_WARP_OPTIONS * warps
+    elif route == "block":
+        threads, per = _K6_THREADS, _K6_OPTIONS
+    else:
+        raise ValueError(f"maybe_swap_ext: route {route!r} is not one of "
+                         f"{K6_ROUTES}")
+    groups = -(-V // per)
     if groups > _GRID_Y_MAX:
         raise ValueError(f"maybe_swap_ext: V = {V} options exceed the grid")
-    return dict(threads=_K6_THREADS, grid=(B, groups))
+    return dict(route=route, threads=threads, grid=(B, groups))
 
 
 def maybe_swap_ext_plain(obs, st, p, lc, lens, member, t=None, alive=None,
@@ -727,11 +760,12 @@ def maybe_swap_ext_plain(obs, st, p, lc, lens, member, t=None, alive=None,
 
 
 def maybe_swap_ext(obs, st, p, lc, lens, member, t=None, alive=None,
-                   slot=None, cnt=None):
+                   slot=None, cnt=None, route=None):
     """K6, as maybe_swap_ext_plain. Dense form: t, obs [N] int32, alive [N]
     bool, st [N] int8, slot [B] int32. List form: cnt [B] int32, obs
     [B, N] int32, st [B, N] int8. Both: p [1 or B, N] f32, lc [B] int32,
-    lens [L] int32, member [L, V] bool -> [B, V] f32."""
+    lens [L] int32, member [L, V] bool -> [B, V] f32. `route` forces a
+    route of maybe_swap_ext_plan."""
     if not _route(obs, "maybe_swap_ext"):
         return maybe_swap_ext_plain(obs, st, p, lc, lens, member, t=t,
                                     alive=alive, slot=slot, cnt=cnt)
@@ -757,14 +791,15 @@ def maybe_swap_ext(obs, st, p, lc, lens, member, t=None, alive=None,
                  if dense else obs.shape[0] == cnt.shape[0] == B)
     if not ok:
         raise ValueError("maybe_swap_ext: shapes do not agree")
-    plan = maybe_swap_ext_plan(B, V)
+    plan = maybe_swap_ext_plan(B, V, N, dense, route)
     out = torch.empty((B, V), dtype=torch.float32, device=obs.device)
     rc = _fn("maybe_swap_ext")(
         _ptr(t), _ptr(alive), _ptr(slot), _ptr(cnt), _ptr(obs), _ptr(st),
         _ptr(p), p.shape[0], _ptr(lc), _ptr(lens), L, _ptr(member), V,
-        _ptr(out), B, N, plan["threads"], *plan["grid"], _stream(obs))
+        _ptr(out), B, N, K6_ROUTES.index(plan["route"]), plan["threads"],
+        *plan["grid"], _stream(obs))
     _check(rc, "maybe_swap_ext")
-    _count("maybe_swap_ext", B)
+    _count("maybe_swap_ext", B, V, f"{'dense' if dense else 'list'},{N}")
     return out
 
 
@@ -916,23 +951,49 @@ def referrer_hist(val, w, V: int, cap: int = None, hops=None):
 # ---------------------------------------------------------------- K8
 
 _K8_THREADS = 256
+_K8_GROUP = 128       # options a block owns (4 a lane)
+# fewest referrers a split, and the blocks a launch aims at (3 an SM):
+# from kernel_bench.py --routes on an H100 (PERF.md)
+_K8_MIN_PER = 256
+_K8_BLOCKS = 3 * N_SMS
+_K8_MERGE_THREADS = 256
 
 
-def sa_ext_term_plan(B: int, E: int) -> dict:
-    """K8's launch for B rows of E options: one 256-thread block a row and
-    group of options, each option owned by `tpo` threads (the largest power
-    of two up to 32 that the block can spare, 256 // tpo options a block):
-    dict(threads, tpo, grid=(B, groups))."""
-    B, E = int(B), int(E)
-    if B < 0 or E < 1:
-        raise ValueError(f"sa_ext_term: B = {B}, E = {E} out of range")
-    tpo = 1
-    while tpo < 32 and 2 * tpo * min(E, _K8_THREADS) <= _K8_THREADS:
-        tpo *= 2
-    groups = -(-E // (_K8_THREADS // tpo))
+def sa_ext_term_plan(B: int, E: int, R: int, splits=None) -> dict:
+    """K8's launch for B rows of E options over R referrers: dict(threads,
+    splits, per, groups, grid, scratch, merge_grid).
+
+    Each row's referrer axis is split over `splits` (S) blocks of `per`
+    referrers (a multiple of 16, at least _K8_MIN_PER = 256) so that the
+    launch gives the card three blocks an SM: S = ceil(396 / (B * groups)),
+    fewer where R is short; at one row of 100,000 that is 391 blocks of
+    256 referrers, from 396 rows on one block a row (splitting 4,096 rows
+    further cost more in blocks and merging than it saved, PERF.md). Options go in groups of
+    128 a block. grid = (B, S, groups). Where S > 1 each block writes its
+    partial sums into a [B, S, E] float64 scratch (`scratch` its elements,
+    0 when S is 1), and a merge launch of `merge_grid` blocks of 256
+    threads, a warp an output, sums them in a fixed order. `splits` forces
+    S (tests, and the split sweep in kernel_bench)."""
+    B, E, R = int(B), int(E), int(R)
+    if B < 0 or E < 1 or R < 0:
+        raise ValueError(f"sa_ext_term: B = {B}, E = {E}, R = {R} out of "
+                         f"range")
+    groups = -(-E // _K8_GROUP)
     if groups > _GRID_Y_MAX:
         raise ValueError(f"sa_ext_term: E = {E} options exceed the grid")
-    return dict(threads=_K8_THREADS, tpo=tpo, grid=(B, groups))
+    if splits is None:
+        want = -(-_K8_BLOCKS // max(1, B * groups))
+        splits = max(1, min(want, -(-R // _K8_MIN_PER)))
+    splits = max(1, int(splits))
+    per = max(16, -(-(-(-R // splits)) // 16) * 16)
+    splits = max(1, -(-R // per))
+    if splits > _GRID_Y_MAX:
+        raise ValueError(f"sa_ext_term: {splits} splits exceed the grid")
+    warps = _K8_MERGE_THREADS // 32
+    return dict(threads=_K8_THREADS, splits=splits, per=per, groups=groups,
+                grid=(B, splits, groups),
+                scratch=B * splits * E if splits > 1 else 0,
+                merge_grid=-(-B * E // warps) if splits > 1 else 0)
 
 
 def sa_ext_term_plain(SA, rv, val, w):
@@ -955,10 +1016,10 @@ def sa_ext_term_plain(SA, rv, val, w):
     return H @ SA.reshape(E, -1).T
 
 
-def sa_ext_term(SA, rv, val, w):
+def sa_ext_term(SA, rv, val, w, splits=None):
     """K8. SA [E, Vc, V] f32, rv and val each [1 or B, R] int32 (a [1, R]
     side beside a [B, R] one is expanded to [B, R]), w [B, R] bool -> [B,
-    E] f32, as sa_ext_term_plain."""
+    E] f32, as sa_ext_term_plain. `splits` forces the plan's split count."""
     if not _route(w, "sa_ext_term"):
         return sa_ext_term_plain(SA, rv, val, w)
     SA = SA.contiguous()
@@ -977,11 +1038,17 @@ def sa_ext_term(SA, rv, val, w):
     val = val.to(torch.int32).contiguous()
     if not all(x.is_cuda for x in (SA, rv, val)):
         raise ValueError("sa_ext_term: every input must be on the card")
-    plan = sa_ext_term_plan(B, E)
+    if Vc * V > 2 ** 31 - 1:
+        raise ValueError("sa_ext_term: Vc * V must stay below 2^31")
+    plan = sa_ext_term_plan(B, E, R, splits)
     out = torch.empty((B, E), dtype=torch.float32, device=w.device)
+    part = torch.empty((plan["scratch"],), dtype=torch.float64,
+                       device=w.device) if plan["scratch"] else None
     rc = _fn("sa_ext_term")(
         _ptr(SA), E, Vc, V, _ptr(rv), _ptr(val), rv.shape[0], _ptr(w), R,
-        _ptr(out), B, plan["threads"], plan["tpo"], *plan["grid"], _stream(w))
+        _ptr(out), _ptr(part), B, plan["threads"], plan["splits"],
+        plan["per"], plan["groups"], _K8_MERGE_THREADS, plan["merge_grid"],
+        _stream(w))
     _check(rc, "sa_ext_term")
     _count("sa_ext_term", B, R, f"{E}x{Vc}x{V}")
     return out

@@ -32,10 +32,17 @@ counterparts (CPU), and CUDA kernels against the plain versions (card only).
      5,125, on rows of a length that is no multiple of 16 and on inputs
      that start at an odd offset.
 
-The launch plans of K1, K2, K3, K4 and K7 (path or route, geometry and
-tile sizes, a function of the shapes alone) are checked here for legal
-geometry on the H100, and K1's and K7's plans for the path or route they
-give each shape the main path launches them at.
+The launch plans of K1-K8 (path or route, geometry, tile sizes and
+splits, a function of the shapes alone) are checked here for legal
+geometry on the H100, and K1's, K6's, K7's and K8's plans for the path,
+route or split they give each shape the main path launches them at.
+K6 is checked on the card on both its routes (which give the same bits)
+at the flights path's lists of 0 to 256 referrers, counts past the list,
+the dense form, V from 1 to 4,097, shared and per-row p, 1,000 referrers
+in one slot and 64 rows; K8 at one row of 100,000 with 0% to 100% kept,
+R = 100,001, masks at odd byte addresses, pairs out of range, [1, R]
+beside [B, R], 4,096 rows, forced split counts, and two launches giving
+the same bits.
 
 The CUDA tests carry the `cuda` marker and skip where no card is present;
 run them on the card with `python -m pytest -m cuda tests/test_torch_kernels.py`.
@@ -673,17 +680,67 @@ def test_k6_wrapper_takes_plain_version_on_cpu_without_counting():
 @pytest.mark.parametrize("B,V", [(1, 2), (1, 300), (1, 4096), (1, 4097),
                                  (64, 4096), (0, 27), (3, 100_000)])
 def test_k6_plan_covers_its_options(B, V):
-    plan = ops.maybe_swap_ext_plan(B, V)
-    gx, gy = plan["grid"]
-    assert plan["threads"] == 512 and gx == B
-    assert gy * 4096 >= V > (gy - 1) * 4096
+    """Each route's option groups cover V with no group left empty: the
+    block route 4,096 options a 512-thread block, the warp route 64 a warp
+    and min(8, ceil(V / 64)) warps a block."""
+    for route in ops.K6_ROUTES:
+        plan = ops.maybe_swap_ext_plan(B, V, 256, route=route)
+        gx, gy = plan["grid"]
+        assert plan["route"] == route and gx == B and 1 <= gy <= 65535
+        if route == "block":
+            assert plan["threads"] == 512
+            per = 4096
+        else:
+            warps = min(8, -(-V // 64))
+            assert plan["threads"] == 32 * warps
+            per = 64 * warps
+        assert gy * per >= V > (gy - 1) * per
+
+
+@pytest.mark.parametrize("B,V,N,dense,route", [
+    (1, 241, 256, False, "warp"),     # the flights path: a list of 256
+    (1, 222, 256, False, "warp"),
+    (1, 241, 2376, True, "block"),    # the dense form over 2,376 rows
+    (1, 241, 4096, False, "warp"),    # a long list stops at its count
+    (64, 4096, 50_000, True, "block"),
+    (1, 2, 0, False, "warp"),         # no referrer axis at all
+    (4096, 241, 256, False, "warp"),  # many rows of short lists
+    (1, 241, 256, True, "warp"),      # the dense cut-over, both sides
+    (1, 241, 257, True, "block"),
+    (1, 4097, 32, False, "warp"),     # more options than a block owns
+])
+def test_k6_plan_routes_by_form_and_referrer_axis(B, V, N, dense, route):
+    plan = ops.maybe_swap_ext_plan(B, V, N, dense)
+    assert plan["route"] == route
+    assert (dense and N > ops._K6_WARP_MAX_DENSE) == (route == "block")
 
 
 def test_k6_plan_refuses_what_it_cannot_launch():
     with pytest.raises(ValueError):
-        ops.maybe_swap_ext_plan(1, 0)
+        ops.maybe_swap_ext_plan(1, 0, 256)
     with pytest.raises(ValueError):
-        ops.maybe_swap_ext_plan(1, 4096 * 65536)
+        ops.maybe_swap_ext_plan(1, 4096 * 65536, 5000)
+    with pytest.raises(ValueError):
+        ops.maybe_swap_ext_plan(1, 512 * 65536, 256)
+    with pytest.raises(ValueError):
+        ops.maybe_swap_ext_plan(1, 10, 256, route="thread")
+    with pytest.raises(ValueError):
+        ops.maybe_swap_ext_plan(1, 10, -1)
+
+
+def test_k6_census_keys_by_form_axis_rows_and_options():
+    ops.reset_counts()
+    try:
+        for rows, V, mode in [(1, 241, "list,256"), (1, 241, "list,256"),
+                              (1, 222, "list,256"), (1, 241, "dense,2376")]:
+            ops._count("maybe_swap_ext", rows, V, mode)
+        got = [(r["mode"], r["rows"], r["K"], r["launches"])
+               for r in ops.census() if r["kernel"] == "maybe_swap_ext"]
+        assert got[0] == ("list,256", "r1", 241, 2)
+        assert sorted(got[1:]) == [("dense,2376", "r1", 241, 1),
+                                   ("list,256", "r1", 222, 1)]
+    finally:
+        ops.reset_counts()
 
 
 @pytest.mark.cuda
@@ -722,6 +779,74 @@ def test_k6_cuda_matches_plain(card, case):
         n = (k6["alive"] & (k6["t"] == k6["slot"][0])).sum()
         want = torch.where(k6["member"][lc[0]], 0.0, -1000.0) * n
         torch.testing.assert_close(out[0], want.float(), rtol=1e-6, atol=0)
+
+
+def _k6_both_routes(k6):
+    """K6 on each route, each held to the plain version (check_k6), and the
+    two routes' outputs, which must be the same bits (the same float terms
+    added in double in referrer order)."""
+    from pclean_tpu_torch.kernel_bench import check_k6
+
+    outs = []
+    for route in ops.K6_ROUTES:
+        check_k6(ops, k6, route=route)
+        outs.append(ops.maybe_swap_ext(**k6, route=route))
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
+    return outs[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kept", [0, 1, 23, 31, 32, 33, 256])
+def test_k6_cuda_short_lists(card, kept):
+    """The flights path's form: one Flight slot against its list of 256,
+    `kept` of them its referrers, V = 241 (the warp route's shape)."""
+    from pclean_tpu_torch.kernel_bench import k6_inputs
+
+    k6 = k6_inputs(card, 1, 241, 256, seed=kept, lists=True)
+    k6["cnt"].fill_(kept)
+    assert ops.maybe_swap_ext_plan(1, 241, 256, False)["route"] == "warp"
+    out = _k6_both_routes(k6)
+    if kept == 0:
+        assert float(out.abs().sum()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    "cnt_past_N", "dense_2376", "V1", "V32", "V241", "V4096", "V4097",
+    "p_shared", "p_rows", "crowded_list", "crowded_dense", "B64"])
+def test_k6_cuda_routes_match_plain(card, case):
+    from pclean_tpu_torch.kernel_bench import k6_inputs
+
+    B, V, N, lists, shared_p, per_slot = 1, 241, 256, True, False, 0
+    if case.startswith("V"):
+        V = int(case[1:])
+    elif case in ("dense_2376", "crowded_dense"):
+        N, lists, per_slot = 2376, False, 24
+    elif case == "p_shared":
+        B, shared_p = 8, True
+    elif case == "p_rows":
+        B = 8
+    elif case == "crowded_list":
+        N = 1024
+    elif case == "B64":
+        B = 64
+    elif case == "cnt_past_N":
+        B = 4
+    k6 = k6_inputs(card, B, V, N, seed=11, lists=lists, shared_p=shared_p,
+                   per_slot=per_slot)
+    if case == "cnt_past_N":
+        k6["cnt"] = torch.tensor([N + 1, N + 300, 2 ** 30, N], device=card,
+                                 dtype=torch.int32)
+    elif case == "crowded_list":     # 1,000 referrers: four warp steps
+        k6["cnt"].fill_(1000)
+    elif case == "crowded_dense":    # one slot holding 1,000 of 2,376 rows
+        k6["t"][:1000] = k6["slot"][0]
+        k6["alive"][:1000] = True
+    out = _k6_both_routes(k6)
+    if case == "cnt_past_N":         # a count past the list reads it whole
+        full = dict(k6, cnt=torch.full_like(k6["cnt"], N))
+        assert torch.equal(out, ops.maybe_swap_ext(**full))
 
 
 # ---------------------------------------------------------------- K7 / K8
@@ -891,16 +1016,63 @@ def test_k7_plan_routes_by_counts_a_cell(R, G, V, per_row, route):
     assert (plan["load"] >= ops._K7_LOAD_MIN) == (route == "private")
 
 
-@pytest.mark.parametrize("E,tpo", [(1, 32), (8, 32), (9, 16), (14, 16),
-                                   (78, 2), (128, 2), (129, 1), (300, 1)])
-def test_k8_plan_gives_each_option_its_threads(E, tpo):
-    plan = ops.sa_ext_term_plan(4096, E)
-    assert plan["tpo"] == tpo and plan["threads"] == 256
-    opts = 256 // tpo
-    assert plan["grid"][0] == 4096
-    assert plan["grid"][1] * opts >= E > (plan["grid"][1] - 1) * opts
+@pytest.mark.parametrize("E,groups", [(1, 1), (8, 1), (9, 1), (14, 1),
+                                      (78, 1), (128, 1), (129, 2), (300, 3)])
+def test_k8_plan_gives_each_option_its_threads(E, groups):
+    """Options go in groups of 128 a block (4 a lane of its warps), one
+    group a grid index, at one row and at 4,096 rows."""
+    for B in (1, 4096):
+        plan = ops.sa_ext_term_plan(B, E, 100_000)
+        assert plan["threads"] == 256 and plan["groups"] == groups
+        assert plan["grid"] == (B, plan["splits"], groups)
+        assert groups * 128 >= E > (groups - 1) * 128
     with pytest.raises(ValueError):
-        ops.sa_ext_term_plan(1, 0)
+        ops.sa_ext_term_plan(1, 0, 100)
+
+
+@pytest.mark.parametrize("B,E,R", [
+    (1, 14, 100_000), (1, 78, 100_000), (4096, 14, 100_000),
+    (4096, 78, 100_000), (1, 14, 100_001), (64, 14, 5000), (8, 14, 1),
+    (8, 14, 0), (3, 300, 70_001), (1, 5, 511), (132, 20, 100_000),
+    (65_536, 14, 256), (1, 1, 2 ** 24)])
+def test_k8_plan_splits_the_referrer_axis(B, E, R):
+    plan = ops.sa_ext_term_plan(B, E, R)
+    S, per = plan["splits"], plan["per"]
+    gx, gy, gz = plan["grid"]
+    assert (gx, gy, gz) == (B, S, plan["groups"])
+    assert 1 <= gy <= 65535 and 1 <= gz <= 65535
+    assert per % 16 == 0 and per >= 16
+    assert S * per >= R > (S - 1) * per or (R == 0 and S == 1)
+    # splits only as far as needed to give the card three blocks an SM
+    assert S == 1 or B * gz * (S - 1) < 3 * ops.N_SMS
+    assert S == 1 or per >= ops._K8_MIN_PER - 15
+    if S > 1:
+        assert plan["scratch"] == B * S * E
+        assert plan["merge_grid"] * 8 >= B * E > (plan["merge_grid"] - 1) * 8
+    else:
+        assert plan["scratch"] == 0 and plan["merge_grid"] == 0
+
+
+@pytest.mark.parametrize("B,E,splits,per,scratch", [
+    (1, 14, 391, 256, 391 * 14),     # County, one row (67 launches a run)
+    (1, 78, 391, 256, 391 * 78),     # Measure, one row (6)
+    (4096, 14, 1, 100_000, 0),       # County, batched (6)
+    (4096, 78, 1, 100_000, 0),       # Measure, batched (1)
+])
+def test_k8_plan_hospital_census_shapes(B, E, splits, per, scratch):
+    """The hospital path's four census shapes (R = 100,000 Records): one
+    row fills the card with 391 blocks of 256 referrers and a merge
+    launch; 4,096 rows take one block a row and write out directly."""
+    plan = ops.sa_ext_term_plan(B, E, 100_000)
+    assert (plan["splits"], plan["per"], plan["scratch"]) == \
+        (splits, per, scratch)
+    assert plan["grid"] == (B, splits, 1)
+
+
+def test_k8_plan_refuses_splits_past_the_grid():
+    assert ops.sa_ext_term_plan(1, 14, 100_000, splits=7)["splits"] == 7
+    with pytest.raises(ValueError):
+        ops.sa_ext_term_plan(1, 14, 10 ** 7, splits=70_000)
 
 
 def _to_lists(w, val, R):
@@ -1050,3 +1222,85 @@ def test_k8_cuda_matches_plain(card, case):
     if case == "crowded":
         assert float(out[0].abs().sum()) == 0.0
         assert float(out[1].abs().min()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kept", [0.0, 0.026, 0.112, 1.0])
+def test_k8_cuda_one_row(card, kept):
+    """One row of 100,000 Records at the hospital path's County shape with
+    0%, 2.6% (Measure's share), 11% (County's) and every Record kept: the
+    split over 391 blocks and the merge launch; two launches give the same
+    bits."""
+    from pclean_tpu_torch.kernel_bench import check_k8, k8_seeded
+
+    k8 = k8_seeded(card, B=1, E=14, Vc=78, V=1133, R=100_000,
+                   density=kept)
+    assert ops.sa_ext_term_plan(1, 14, 100_000)["splits"] == 391
+    check_k8(ops, k8)
+    a, b = ops.sa_ext_term(**k8), ops.sa_ext_term(**k8)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    if kept == 0.0:
+        assert float(a.abs().sum()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    "R100001", "odd_offset", "odd_offset_rows", "out_of_range",
+    "pairs_1_beside_B", "B4096", "deterministic", "splits", "E32", "E33",
+    "E300"])
+def test_k8_cuda_split_edges(card, case):
+    from pclean_tpu_torch.kernel_bench import check_k8, k8_seeded
+
+    if case == "R100001":     # the last split ends inside a 16-byte word
+        k8 = k8_seeded(card, B=3, E=14, Vc=78, V=1133, R=100_001,
+                       density=0.05)
+        k8["w"][:, -1] = True
+    elif case.startswith("odd_offset"):   # w at an odd byte address
+        B, R, lead = (1, 100_000, 13) if case == "odd_offset" else \
+            (5, 100_003, 7)
+        k8 = k8_seeded(card, B=B, E=14, Vc=78, V=1133, R=R, density=0.05)
+        flat = torch.zeros((lead + B * R,), dtype=torch.bool, device=card)
+        flat[lead:] = k8["w"].reshape(-1)
+        flat[:lead] = True                 # bytes before the mask: not read
+        k8["w"] = flat[lead:].view(B, R)
+        assert k8["w"].data_ptr() % 2 == 1 and k8["w"].is_contiguous()
+    elif case == "out_of_range":   # pairs out of range are dropped
+        k8 = k8_seeded(card, B=4, E=14, Vc=78, V=1133, R=20_000,
+                       rows_pairs=4, density=0.2)
+        k8["rv"][1] = 78
+        k8["val"][2] = -1
+        k8["rv"][3, ::2] = -7
+    elif case == "pairs_1_beside_B":   # rv [1, R] beside val [B, R]
+        k8 = k8_seeded(card, B=64, E=78, Vc=14, V=1133, R=20_000,
+                       density=0.05)
+        val_b = k8["val"].expand(64, -1).clone()
+        both = ops.sa_ext_term(**dict(k8, val=val_b))
+        torch.cuda.synchronize()
+        assert torch.equal(both, ops.sa_ext_term(**k8))
+        k8["val"] = val_b
+    elif case == "B4096":
+        k8 = k8_seeded(card, B=4096, E=78, Vc=14, V=1133, R=100_000,
+                       density=1 / 40)
+        assert ops.sa_ext_term_plan(4096, 78, 100_000)["splits"] == 1
+    elif case == "deterministic":   # 64 rows split 5 ways, then merged
+        k8 = k8_seeded(card, B=64, E=14, Vc=78, V=1133, R=100_000,
+                       density=0.1)
+        runs = [ops.sa_ext_term(**k8) for _ in range(3)]
+        torch.cuda.synchronize()
+        assert all(torch.equal(runs[0], r) for r in runs[1:])
+    elif case.startswith("E"):   # one option a lane, or more; option groups
+        k8 = k8_seeded(card, B=3, E=int(case[1:]), Vc=14, V=1133, R=20_000,
+                       density=0.1)
+    else:   # any split count gives the same function
+        k8 = k8_seeded(card, B=2, E=14, Vc=78, V=1133, R=100_000,
+                       density=0.112)
+        for S in (1, 7, 196, 391):
+            check_k8(ops, k8, splits=S)
+        k8["w"][1, 50_000:] = False     # a split with nothing kept
+        check_k8(ops, k8, splits=4)
+    check_k8(ops, k8)
+    out = ops.sa_ext_term(**k8)
+    if case == "out_of_range":
+        assert float(out[1:3].abs().sum()) == 0.0
+        assert float(out[0].abs().min()) > 0
