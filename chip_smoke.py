@@ -395,7 +395,7 @@ def bench_flights_k6(ops, eng, arenas, params, census, floor) -> dict:
             field=field, rows=r["rows"], launches=r["launches"], V=V, N=N,
             form=form, max_abs_err=kb.check_k6(ops, k6), bytes=nbytes,
             bound_ms=nbytes / kb.HBM_BYTES_PER_S * 1e3, floor_ms=floor,
-            plan=ops.maybe_swap_ext_plan(B, V, N, "cnt" not in k6),
+            plan=ops.maybe_swap_ext_plan(B, V, "cnt" not in k6),
             **kb.time_k6(ops, k6)))
         x = shapes[-1]
         print(f"maybe_swap_ext {x['field']} {x['rows']} ({x['launches']} "

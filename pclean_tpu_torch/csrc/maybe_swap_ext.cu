@@ -22,25 +22,25 @@
 // launch is a latency chain: a few dependent global loads, a block scan
 // and the option loop.
 //
-// Design: two routes, picked by ops.maybe_swap_ext_plan from (B, V, N).
-//   * block (long lists and the dense form): one block of 512 threads a
-//     row and up to 4,096 options (grid (B, option groups)). The block
-//     walks its referrer axis in chunks of 2,048 (four consecutive entries
-//     a thread), keeps the referrers by a block prefix scan, so their order
-//     stays the referrer order, and stages each kept referrer's code, state
-//     and two log terms in shared memory; then each thread adds the chunk's
-//     kept referrers, in that order, into the sums of its eight options
+// Design: two routes, one for each form (ops.maybe_swap_ext_plan).
+//   * block (the dense form): one block of 512 threads a row and up to
+//     4,096 options (grid (B, option groups)). The block walks the source
+//     axis in chunks of 2,048 (four consecutive entries a thread), keeps
+//     the row's referrers by a block prefix scan, so their order stays the
+//     referrer order, and stages each kept referrer's code, state and two
+//     log terms in shared memory; then each thread adds the chunk's kept
+//     referrers, in that order, into the sums of its eight options
 //     (registers, in double: a crowded slot of a thousand referrers drifts
 //     by up to 1e-4 of its sum in sequential float adds, so a float
 //     accumulator would fail the tolerance below where torch's pairwise
 //     sums do not).
-//   * warp (short lists, such as the flights path's 23 kept of 256): a
+//   * warp (the list form, such as the flights path's 23 kept of 256): a
 //     warp serves a row and 64 options (2 a lane), a block of up to 8
 //     warps, grid (B, option groups of 64 x warps); each warp walks the
-//     row itself, so there is no __syncthreads. A one-row launch there is
-//     a latency chain, so every independent load is issued at once before
-//     anything depends on it: cnt, lc, slot, and 64 entries of obs, st
-//     and p (2 a lane, masked by cnt afterwards: a load past cnt stays
+//     row's list itself, so there is no __syncthreads. A one-row launch
+//     there is a latency chain, so every independent load is issued at
+//     once before anything depends on it: cnt, lc, and 64 entries of obs,
+//     st and p (2 a lane, masked by cnt afterwards: a load past cnt stays
 //     inside the row's N entries); then lens and the member row, which
 //     depend on lc alone, arrive while the step's terms are made, and the
 //     next 64 entries load while this step's are summed.
@@ -49,12 +49,11 @@
 //     and log p go into the warp's shared-memory list at its rank (a
 //     __popc of the vote), so the list keeps the referrer order. Then each
 //     lane adds the list, in that order and without a branch, into its two
-//     options' double sums, with the block route's terms (log p - log len
-//     subtracted in float, as the block route and the plain version do),
-//     so the two routes give the same bits. The sums are not rewritten as
-//     a presum of the log p terms plus corrections at the observed
-//     options: with two options a lane it would save one double add a
-//     referrer, and a p of 0 would turn it into -inf + inf.
+//     options' double sums, with the block route's float terms (log p -
+//     log len subtracted in float, as the plain version does). The sums
+//     are not rewritten as a presum of the log p terms plus corrections at
+//     the observed options: with two options a lane it would save one
+//     double add a referrer, and a p of 0 would turn it into -inf + inf.
 // The terms are the plain version's float terms; the two agree to 1e-5 of
 // each cell's sum of |terms|, not bit for bit.
 
@@ -68,7 +67,7 @@ constexpr int kChunk = kThreads * kPerThread;    // referrers a chunk
 constexpr int kMaxTiles = 8;                     // options a thread owns
 constexpr int kOptions = kThreads * kMaxTiles;   // options a block owns
 constexpr int kWarps = kThreads / 32;
-// the warp route
+// the warp route (list form)
 constexpr int kLaneOpt = 2;                      // options a lane owns
 constexpr int kWarpOpt = 32 * kLaneOpt;          // options a warp owns
 constexpr int kStep = 2;                         // entries a lane loads a step
@@ -78,12 +77,12 @@ __device__ __forceinline__ int64_t clamp64(int64_t x, int64_t hi) {
   return x < 0 ? 0 : (x >= hi ? hi - 1 : x);
 }
 
-template <bool kList>
+// Block route (dense form): block (b, y) owns options a0 + 512 k + tid
+// (k < 8), a0 = 4,096 y, and walks the whole source axis.
 __global__ void __launch_bounds__(kThreads)
 maybe_swap_ext_kernel(const int32_t* __restrict__ t,
                       const bool* __restrict__ alive,
                       const int32_t* __restrict__ slot,
-                      const int32_t* __restrict__ cnt,
                       const int32_t* __restrict__ obs,
                       const int8_t* __restrict__ st,
                       const float* __restrict__ p, int64_t p_rows,
@@ -100,11 +99,7 @@ maybe_swap_ext_kernel(const int32_t* __restrict__ t,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int64_t b = blockIdx.x;
   const int64_t a0 = (int64_t)blockIdx.y * kOptions;
-  const int32_t s = kList ? 0 : __ldg(slot + b);
-  // entries to walk: the whole axis (dense) or the row's list
-  const int64_t n = kList ? (int64_t)min(max(__ldg(cnt + b), 0), (int)N) : N;
-  const int32_t* orow = obs + (kList ? b * N : 0);
-  const int8_t* srow = st + (kList ? b * N : 0);
+  const int32_t s = __ldg(slot + b);
   const int64_t l = clamp64(__ldg(lc + b), L);
   const float loglen = logf((float)__ldg(lens + l));
   const float* prow = p + (p_rows == 1 ? 0 : b * N);
@@ -119,7 +114,7 @@ maybe_swap_ext_kernel(const int32_t* __restrict__ t,
     mem[k] = a < V ? mrow[a] : false;
   }
 
-  for (int64_t base = 0; base < n; base += kChunk) {
+  for (int64_t base = 0; base < N; base += kChunk) {
     const int64_t r0 = base + (int64_t)tid * kPerThread;
     bool keep[kPerThread];
     int mine = 0;
@@ -127,8 +122,8 @@ maybe_swap_ext_kernel(const int32_t* __restrict__ t,
     for (int j = 0; j < kPerThread; ++j) {
       const int64_t r = r0 + j;
       bool k = false;
-      if (r < n && (kList || (alive[r] && __ldg(t + r) == s))) {
-        const int8_t sr = srow[r];
+      if (r < N && alive[r] && __ldg(t + r) == s) {
+        const int8_t sr = st[r];
         k = sr == 1 || sr == 2;
       }
       keep[j] = k;
@@ -159,11 +154,11 @@ maybe_swap_ext_kernel(const int32_t* __restrict__ t,
     for (int j = 0; j < kPerThread; ++j) {
       if (!keep[j]) continue;
       const int64_t r = r0 + j;
-      const int8_t sr = srow[r];
+      const int8_t sr = st[r];
       sh_kind[off] = sr;
       if (sr == 1) {
         const float pr = __ldg(prow + r);
-        sh_obs[off] = __ldg(orow + r);
+        sh_obs[off] = __ldg(obs + r);
         sh_same[off] = log1pf(-pr);
         sh_diff[off] = logf(pr) - loglen;
       }
@@ -192,14 +187,11 @@ maybe_swap_ext_kernel(const int32_t* __restrict__ t,
   }
 }
 
-// Warp route: warp k of block (b, y) owns options a0 + lane + 32 i
-// (i < 2), a0 = (y * warps + k) * 64, and walks row b's entries itself.
-template <bool kList>
+// Warp route (list form): warp k of block (b, y) owns options
+// a0 + lane + 32 i (i < 2), a0 = (y * warps + k) * 64, and walks row b's
+// list itself.
 __global__ void __launch_bounds__(32 * kMaxRouteWarps)
-maybe_swap_ext_warp(const int32_t* __restrict__ t,
-                    const bool* __restrict__ alive,
-                    const int32_t* __restrict__ slot,
-                    const int32_t* __restrict__ cnt,
+maybe_swap_ext_warp(const int32_t* __restrict__ cnt,
                     const int32_t* __restrict__ obs,
                     const int8_t* __restrict__ st,
                     const float* __restrict__ p, int64_t p_rows,
@@ -214,18 +206,17 @@ maybe_swap_ext_warp(const int32_t* __restrict__ t,
   const int64_t a0 =
       ((int64_t)blockIdx.y * (blockDim.x >> 5) + warp) * kWarpOpt;
   if (a0 >= V) return;  // the whole warp: no block barrier follows
-  const int32_t* orow = obs + (kList ? b * N : 0);
-  const int8_t* srow = st + (kList ? b * N : 0);
+  const int32_t* orow = obs + b * N;
+  const int8_t* srow = st + b * N;
   const float* prow = p + (p_rows == 1 ? 0 : b * N);
-  // the independent loads: the row's count or slot, its list code, and
-  // the first step's entries
-  const int32_t c_or_s = kList ? __ldg(cnt + b) : __ldg(slot + b);
+  // the independent loads: the row's count, its list code, and the first
+  // step's entries
+  const int32_t c = __ldg(cnt + b);
   const int32_t lcb = __ldg(lc + b);
   struct Step {   // a lane's entries base + 32 j + lane of one step
     int32_t o[kStep];
     int8_t sv[kStep];
     float pv[kStep];
-    bool live[kStep];
   };
   auto load = [&](Step& x, int64_t base) {
 #pragma unroll
@@ -235,7 +226,6 @@ maybe_swap_ext_warp(const int32_t* __restrict__ t,
       x.o[j] = in ? __ldg(orow + r) : 0;
       x.sv[j] = in ? srow[r] : (int8_t)0;
       x.pv[j] = in ? __ldg(prow + r) : 0.5f;
-      x.live[j] = in && (kList || (alive[r] && __ldg(t + r) == c_or_s));
     }
   };
   Step cur, nxt;
@@ -250,9 +240,8 @@ maybe_swap_ext_warp(const int32_t* __restrict__ t,
     const int64_t a = a0 + lane + 32 * i;
     miss[i] = a < V ? !mrow[a] : false;
   }
-  // entries to walk: the whole axis (dense) or the row's list
-  const int64_t n =
-      kList ? (int64_t)min(max(c_or_s, 0), (int)N) : N;
+  // entries to walk: the row's list
+  const int64_t n = (int64_t)min(max(c, 0), (int)N);
   const int rel = (int)(a0 + lane);   // option i of this lane: rel + 32 i
   const uint32_t below = (1u << lane) - 1u;
   int2* code = sh_code[warp];
@@ -269,7 +258,7 @@ maybe_swap_ext_warp(const int32_t* __restrict__ t,
     for (int j = 0; j < kStep; ++j) {
       const int64_t r = base + 32 * j + lane;
       const int8_t sj = cur.sv[j];
-      const bool keep = cur.live[j] && r < n && (sj == 1 || sj == 2);
+      const bool keep = r < n && (sj == 1 || sj == 2);
       const uint32_t m = __ballot_sync(0xffffffffu, keep);
       if (m == 0u) continue;
       if (keep) {
@@ -314,11 +303,12 @@ maybe_swap_ext_warp(const int32_t* __restrict__ t,
 // int32, obs [B, N] int32, st [B, N] int8. Both: p [p_rows, N] f32
 // (p_rows 1 or B), lc [B] int32, lens [L] int32, member [L, V] bool, out
 // [B, V] f32, on the device and contiguous. The plan
-// (ops.maybe_swap_ext_plan) is launched as given: route 0 (block) with 512
-// threads a block and grid (B, option groups of 4,096), or route 1 (warp)
-// with 32-256 threads a block and grid (B, option groups of 64 for each
-// warp). Returns cudaErrorInvalidValue for a plan or shape that does not
-// fit, else cudaGetLastError() after the launch.
+// (ops.maybe_swap_ext_plan) is launched as given: the dense form on the
+// block route, 512 threads a block and grid (B, option groups of 4,096);
+// the list form on the warp route, 32-256 threads a block and grid (B,
+// option groups of 64 for each warp). Returns cudaErrorInvalidValue for a
+// plan or shape that does not fit, else cudaGetLastError() after the
+// launch.
 extern "C" int pclean_maybe_swap_ext(const int32_t* t, const bool* alive,
                                      const int32_t* slot, const int32_t* cnt,
                                      const int32_t* obs, const int8_t* st,
@@ -326,7 +316,7 @@ extern "C" int pclean_maybe_swap_ext(const int32_t* t, const bool* alive,
                                      const int32_t* lc, const int32_t* lens,
                                      int64_t L, const bool* member, int64_t V,
                                      float* out, int64_t B, int64_t N,
-                                     int route, int threads, int64_t grid_x,
+                                     int threads, int64_t grid_x,
                                      int64_t grid_y, void* stream) {
   const bool list = cnt != nullptr;
   if (L < 1 || V < 1 || N < 0 || N > (1 << 30) ||
@@ -334,32 +324,20 @@ extern "C" int pclean_maybe_swap_ext(const int32_t* t, const bool* alive,
       (!list && (t == nullptr || alive == nullptr || slot == nullptr)))
     return (int)cudaErrorInvalidValue;
   if (B <= 0) return (int)cudaGetLastError();
-  const bool warp = route == 1;
   const int64_t per_block =
-      warp ? (int64_t)(threads / 32) * kWarpOpt : (int64_t)kOptions;
-  if ((route != 0 && route != 1) || grid_x != B || grid_y < 1 ||
-      grid_y > 65535 || grid_y * per_block < V ||
-      (warp ? (threads < 32 || threads > 32 * kMaxRouteWarps ||
+      list ? (int64_t)(threads / 32) * kWarpOpt : (int64_t)kOptions;
+  if (grid_x != B || grid_y < 1 || grid_y > 65535 || grid_y * per_block < V ||
+      (list ? (threads < 32 || threads > 32 * kMaxRouteWarps ||
                threads % 32 != 0)
             : threads != kThreads))
     return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)grid_x, (unsigned)grid_y);
   cudaStream_t s = (cudaStream_t)stream;
-  if (warp && list)
-    maybe_swap_ext_warp<true><<<grid, threads, 0, s>>>(
-        t, alive, slot, cnt, obs, st, p, p_rows, lc, lens, L, member, V, out,
-        N);
-  else if (warp)
-    maybe_swap_ext_warp<false><<<grid, threads, 0, s>>>(
-        t, alive, slot, cnt, obs, st, p, p_rows, lc, lens, L, member, V, out,
-        N);
-  else if (list)
-    maybe_swap_ext_kernel<true><<<grid, kThreads, 0, s>>>(
-        t, alive, slot, cnt, obs, st, p, p_rows, lc, lens, L, member, V, out,
-        N);
+  if (list)
+    maybe_swap_ext_warp<<<grid, threads, 0, s>>>(
+        cnt, obs, st, p, p_rows, lc, lens, L, member, V, out, N);
   else
-    maybe_swap_ext_kernel<false><<<grid, kThreads, 0, s>>>(
-        t, alive, slot, cnt, obs, st, p, p_rows, lc, lens, L, member, V, out,
-        N);
+    maybe_swap_ext_kernel<<<grid, kThreads, 0, s>>>(
+        t, alive, slot, obs, st, p, p_rows, lc, lens, L, member, V, out, N);
   return (int)cudaGetLastError();
 }

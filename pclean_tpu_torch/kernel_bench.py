@@ -30,11 +30,9 @@ against its plain version; `--kernels k4,k6,k7,k8` (any of them) times
 only those, with no model to build. With --paths it also times each of
 K1's paths at each of those shapes and over an R x K grid in both modes
 (the last tree's kernels; PERF.md takes the plan's cut-overs from that
-table); with --routes each of K6's routes over K6_ROUTE_GRID and K8 at
-each of K8_SPLITS splits at one row (the last tree's kernels; the K6
-cut-over and K8's split count come from it). With --census hospital it
-first runs chip_smoke.py's hospital path (HOSPITAL_PATH: 100,000 rows, B
-= 4,096, one sweep) with this checkout's package, then times K7 and K8
+table). With --census hospital it first runs chip_smoke.py's hospital
+path (HOSPITAL_PATH: 100,000 rows, B = 4,096, one sweep) with this
+checkout's package, then times K7 and K8
 (those in --kernels) in the turns at every shape of that run's launch
 census too, on inputs from its state (`k7_census_inputs`,
 `k8_census_inputs`): the hospital's Records crowd into its few live
@@ -700,12 +698,11 @@ def k6_inputs(dev, B: int, V: int, N: int, L: int = 64, seed: int = 0,
     return k6
 
 
-def check_k6(ops, k6: dict, **force) -> float:
+def check_k6(ops, k6: dict) -> float:
     """Within 1e-5 of each cell's sum of |terms| (+1e-6) of the plain
-    version (the same f32 terms, summed in another order). `force` goes to
-    the kernel's wrapper alone (route=). Returns the largest
-    |difference|."""
-    got = ops.maybe_swap_ext(**k6, **force)
+    version (the same f32 terms, summed in another order). Returns the
+    largest |difference|."""
+    got = ops.maybe_swap_ext(**k6)
     want = ops.maybe_swap_ext_plain(**k6)
     mag = ops.maybe_swap_ext_plain(**k6, absolute=True)
     torch.cuda.synchronize()
@@ -1037,12 +1034,11 @@ def check_k7(ops, k7: dict) -> float:
     return float((got - want).abs().max())
 
 
-def check_k8(ops, k8: dict, **force) -> float:
+def check_k8(ops, k8: dict) -> float:
     """Within 1e-5 of each cell's sum of |terms| (+1e-6) of the plain
     version (the same terms summed in double in a fixed order, against an
-    f32 histogram-times-SA product). `force` goes to the kernel's wrapper
-    alone (splits=). Returns the largest |difference|."""
-    got = ops.sa_ext_term(**k8, **force)
+    f32 histogram-times-SA product). Returns the largest |difference|."""
+    got = ops.sa_ext_term(**k8)
     want = ops.sa_ext_term_plain(**k8)
     mag = ops.sa_ext_term_plain(**dict(k8, SA=k8["SA"].abs()))
     torch.cuda.synchronize()
@@ -1317,65 +1313,6 @@ def hospital_census(kinds=("k7", "k8"), device="cuda",
     return out
 
 
-# K6's route sweep: (B, V, N, form, kept): lists holding 24 referrers (as
-# flights' slots) or N, the dense form about 24 a slot
-K6_ROUTE_GRID = [(B, V, N, form, kept) for B in (1, 64) for V in (241, 4096)
-                 for N, form, kept in (
-                     (32, "list", 24), (256, "list", 24),
-                     (4096, "list", 24), (256, "list", 256),
-                     (1024, "list", 1024), (2048, "list", 2048),
-                     (4096, "list", 4096), (256, "dense", 24),
-                     (1024, "dense", 24), (2376, "dense", 24))]
-K8_SPLITS = (1, 25, 49, 98, 196, 264, 391, 782)  # K8's splits at one row
-K8_SPLITS_ROWS = (1, 2, 4, 8)  # and at 4,096 rows
-
-
-def route_sweep(ops, dev, census: dict = None) -> dict:
-    """Device ms (graph_ms) of each of K6's routes at each K6_ROUTE_GRID
-    shape (k6_inputs), and of K8 at each K8_SPLITS split count at AB_K8's
-    one-row shapes and each K8_SPLITS_ROWS count at its batched ones and
-    at the K8 entries of `census` ({label: (kernel, inputs)}, as
-    hospital_census gives them), each checked against its plain version
-    first (ops.maybe_swap_ext's `route`, ops.sa_ext_term's `splits`). The
-    plans' K6 cut-over (_K6_WARP_MAX_DENSE) and K8 split counts come from
-    it."""
-    out = {}
-    for B, V, N, form, kept in K6_ROUTE_GRID:
-        lists = form == "list"
-        k6 = k6_inputs(dev, B, V, N, lists=lists,
-                       per_slot=0 if lists else kept)
-        if lists:
-            k6["cnt"].fill_(kept)
-        row = dict(plan=ops.maybe_swap_ext_plan(B, V, N,
-                                                not lists)["route"])
-        for route in ops.K6_ROUTES:
-            check_k6(ops, k6, route=route)
-            row[route] = graph_ms(lambda: ops.maybe_swap_ext(**k6,
-                                                             route=route))
-        key = f"K6 B={B} V={V} N={N} {form} of {kept}"
-        out[key] = row
-        print(f"routes {key}: " + " ".join(
-            f"{r} {row[r]:.4f}" for r in ops.K6_ROUTES)
-            + f" plan {row['plan']}", flush=True)
-    k8s = [("K8 " + label, k8_seeded(dev, B, E, Vc, V, R, density=density,
-                                     live=live))
-           for label, B, E, Vc, V, R, density, live in AB_K8]
-    k8s += [(label, k) for label, (kernel, k) in (census or {}).items()
-            if kernel == "sa_ext_term"]
-    for label, k8 in k8s:
-        (B, R), E = k8["w"].shape, k8["SA"].shape[0]
-        row = dict(plan=ops.sa_ext_term_plan(B, E, R)["splits"])
-        for S in K8_SPLITS if B == 1 else K8_SPLITS_ROWS:
-            check_k8(ops, k8, splits=S)
-            row[S] = graph_ms(lambda: ops.sa_ext_term(**k8, splits=S))
-        out[label] = row
-        print(f"routes {label}: " + " ".join(
-            f"S={S} {t:.4f}" for S, t in row.items() if S != "plan")
-            + f" plan S={row['plan']}", flush=True)
-        del k8
-    return out
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--trees", nargs="+", required=True)
@@ -1393,10 +1330,6 @@ def main(argv=None) -> int:
                          "shape of the hospital path's launch census, on "
                          "inputs from its state (runs the path first, about "
                          "4 minutes)")
-    ap.add_argument("--routes", action="store_true",
-                    help="also time each of K6's routes over K6_ROUTE_GRID "
-                         "and K8 at each of K8_SPLITS splits over AB_K8's "
-                         "one-row shapes, with the last tree's kernels")
     a = ap.parse_args(argv)
     kinds = a.kernels.split(",")
     if not set(kinds) <= set(AB_KINDS) or (a.paths and "k1-k3" not in kinds) \
@@ -1439,8 +1372,7 @@ def main(argv=None) -> int:
                 "inv_cdf_sample": k2_bytes(R, inp["logits"].shape[1])
                 / HBM_BYTES_PER_S * 1e3}
     seeded = ab_seeded(dev, kinds)
-    census = hospital_census(kinds) if a.census else {}
-    seeded.update(census)
+    seeded.update(hospital_census(kinds) if a.census else {})
     count_bytes = {"referrer_hist": k7_bytes, "gauss_suffstats": k4_bytes,
                    "maybe_swap_ext": k6_bytes, "sa_ext_term": k8_bytes}
     for s, (k, inp) in seeded.items():
@@ -1528,13 +1460,12 @@ def main(argv=None) -> int:
                     print(f"paths {s}: " + " ".join(
                         f"{p} {paths[s][p]:.4f}" for p in ops.K1_PATHS)
                         + f" plan {paths[s]['plan']['path']}", flush=True)
-    routes = route_sweep(tree_ops[-1], dev, census) if a.routes else {}
     if a.out:
         os.makedirs(a.out, exist_ok=True)
         with open(os.path.join(a.out, "kernel_ab.json"), "w") as f:
             json.dump(dict(card=torch.cuda.get_device_name(0), turns=turns,
                            summary=summary, launch_floor_ms=floor,
-                           yardsticks=yard, paths=paths, routes=routes),
+                           yardsticks=yard, paths=paths),
                       f, indent=1)
     return 0
 

@@ -31,7 +31,11 @@ replaces, its bound on the H100 and its design):
 
 Each has a plain PyTorch version here. A wrapper takes the plain version
 only for tensors on the CPU; for CUDA tensors it launches its kernel or
-raises. `LAUNCHES` counts kernel launches (plain calls are not counted);
+raises. `LAUNCHES` counts the wrapper calls that launch a kernel, one a
+call (plain calls are not counted): a call is one launch of its kernel,
+except that K7's wrapper zeroes its output with a PyTorch fill first and
+K8's, where the plan splits a row's referrers (S > 1, as at one row),
+adds a second launch that merges the splits;
 `LAUNCHES_BY_SHAPE` splits the same launches into those over one row
 ("r1", the sequential loops) and over more ("rn", the batched phases);
 `LAUNCH_CENSUS` splits K1's, K2's, K3's, K6's, K7's and K8's further by
@@ -194,7 +198,7 @@ def build_kernels(force: bool = False) -> float:
             "gauss_ext_term": [P, I64, P, I64, I32, P, P, P, P, P, P, I64,
                                F32, P, I64, I64, I32, I64, P],
             "maybe_swap_ext": [P, P, P, P, P, P, P, I64, P, P, I64, P, I64,
-                               P, I64, I64, I32, I32, I64, I64, P],
+                               P, I64, I64, I32, I64, I64, P],
             "referrer_hist": [I32, ctypes.POINTER(I64), ctypes.POINTER(I64),
                               I32, P, I64, P, P, I64, I64, I64, I32, I64, I64,
                               I64, I64, I32, P],
@@ -676,46 +680,29 @@ def gauss_ext_term(values, tbl, idx, slot, n, sz, szz, pre0, coef: float):
 # ---------------------------------------------------------------- K6
 
 _K6_THREADS = 512
-_K6_OPTIONS = _K6_THREADS * 8  # options a block-route block owns (8 a thread)
-_K6_WARP_OPTIONS = 32 * 2      # options a warp owns on the warp route
+_K6_OPTIONS = _K6_THREADS * 8  # options a dense-form block owns (8 a thread)
+_K6_WARP_OPTIONS = 32 * 2      # options a warp owns in list form (2 a lane)
 _K6_WARP_MAX_WARPS = 8
-# the longest dense source axis the warp route takes (a warp reads 256
-# entries a step; a list stops at its count, a dense walk reads all N):
-# from kernel_bench.py --routes on an H100 (PERF.md)
-_K6_WARP_MAX_DENSE = 256
-K6_ROUTES = ("block", "warp")  # the C entry's route numbers
 
 
-def maybe_swap_ext_plan(B: int, V: int, N: int, dense: bool = False,
-                        route=None) -> dict:
-    """K6's launch for B rows of V options over a referrer axis of N
-    entries (each row's list, or with `dense` the source axis every row
-    walks whole): dict(route, threads, grid=(B, option groups)). `route`
-    forces one of K6_ROUTES (tests, and the route sweep in kernel_bench);
-    by default "warp" for lists and for dense axes of at most
-    _K6_WARP_MAX_DENSE (256) entries, else "block". On an H100 the warp
-    route took one row of a list of 24 in 0.0037 device ms against the
-    block route's 0.0078, at any N up to 4,096, and full lists of 256 to
-    4,096 in about 0.37x the block route's time; a dense axis of 1,024
-    took it 0.0187 against 0.0076 (PERF.md).
+def maybe_swap_ext_plan(B: int, V: int, dense: bool = False) -> dict:
+    """K6's launch for B rows of V options, the referrers in list form
+    (each row's own list) or with `dense` the source axis every row walks
+    whole: dict(route, threads, grid=(B, option groups)). The route goes
+    by the form alone (the sweep behind it is in PERF.md §6):
 
-    "block": one 512-thread block a row and group of up to 4,096 options.
-    "warp": a warp a row and 64 options (2 a lane), min(8, ceil(V / 64))
-    warps a block, each group 64 options a warp."""
-    B, V, N = int(B), int(V), int(N)
-    if B < 0 or V < 1 or N < 0:
-        raise ValueError(f"maybe_swap_ext: B = {B}, V = {V}, N = {N} out of "
-                         f"range")
-    if route is None:
-        route = "block" if dense and N > _K6_WARP_MAX_DENSE else "warp"
-    if route == "warp":
-        warps = min(_K6_WARP_MAX_WARPS, -(-V // _K6_WARP_OPTIONS))
-        threads, per = 32 * warps, _K6_WARP_OPTIONS * warps
-    elif route == "block":
-        threads, per = _K6_THREADS, _K6_OPTIONS
+    "warp" (lists): a warp a row and 64 options (2 a lane), min(8,
+    ceil(V / 64)) warps a block; each warp stops at its row's count.
+    "block" (dense): one 512-thread block a row and group of up to 4,096
+    options, walking the whole axis with a block scan."""
+    B, V = int(B), int(V)
+    if B < 0 or V < 1:
+        raise ValueError(f"maybe_swap_ext: B = {B}, V = {V} out of range")
+    if dense:
+        route, threads, per = "block", _K6_THREADS, _K6_OPTIONS
     else:
-        raise ValueError(f"maybe_swap_ext: route {route!r} is not one of "
-                         f"{K6_ROUTES}")
+        warps = min(_K6_WARP_MAX_WARPS, -(-V // _K6_WARP_OPTIONS))
+        route, threads, per = "warp", 32 * warps, _K6_WARP_OPTIONS * warps
     groups = -(-V // per)
     if groups > _GRID_Y_MAX:
         raise ValueError(f"maybe_swap_ext: V = {V} options exceed the grid")
@@ -760,12 +747,11 @@ def maybe_swap_ext_plain(obs, st, p, lc, lens, member, t=None, alive=None,
 
 
 def maybe_swap_ext(obs, st, p, lc, lens, member, t=None, alive=None,
-                   slot=None, cnt=None, route=None):
+                   slot=None, cnt=None):
     """K6, as maybe_swap_ext_plain. Dense form: t, obs [N] int32, alive [N]
     bool, st [N] int8, slot [B] int32. List form: cnt [B] int32, obs
     [B, N] int32, st [B, N] int8. Both: p [1 or B, N] f32, lc [B] int32,
-    lens [L] int32, member [L, V] bool -> [B, V] f32. `route` forces a
-    route of maybe_swap_ext_plan."""
+    lens [L] int32, member [L, V] bool -> [B, V] f32."""
     if not _route(obs, "maybe_swap_ext"):
         return maybe_swap_ext_plain(obs, st, p, lc, lens, member, t=t,
                                     alive=alive, slot=slot, cnt=cnt)
@@ -791,13 +777,12 @@ def maybe_swap_ext(obs, st, p, lc, lens, member, t=None, alive=None,
                  if dense else obs.shape[0] == cnt.shape[0] == B)
     if not ok:
         raise ValueError("maybe_swap_ext: shapes do not agree")
-    plan = maybe_swap_ext_plan(B, V, N, dense, route)
+    plan = maybe_swap_ext_plan(B, V, dense)
     out = torch.empty((B, V), dtype=torch.float32, device=obs.device)
     rc = _fn("maybe_swap_ext")(
         _ptr(t), _ptr(alive), _ptr(slot), _ptr(cnt), _ptr(obs), _ptr(st),
         _ptr(p), p.shape[0], _ptr(lc), _ptr(lens), L, _ptr(member), V,
-        _ptr(out), B, N, K6_ROUTES.index(plan["route"]), plan["threads"],
-        *plan["grid"], _stream(obs))
+        _ptr(out), B, N, plan["threads"], *plan["grid"], _stream(obs))
     _check(rc, "maybe_swap_ext")
     _count("maybe_swap_ext", B, V, f"{'dense' if dense else 'list'},{N}")
     return out
@@ -953,13 +938,13 @@ def referrer_hist(val, w, V: int, cap: int = None, hops=None):
 _K8_THREADS = 256
 _K8_GROUP = 128       # options a block owns (4 a lane)
 # fewest referrers a split, and the blocks a launch aims at (3 an SM):
-# from kernel_bench.py --routes on an H100 (PERF.md)
+# from a sweep of split counts on an H100 (PERF.md §6)
 _K8_MIN_PER = 256
 _K8_BLOCKS = 3 * N_SMS
 _K8_MERGE_THREADS = 256
 
 
-def sa_ext_term_plan(B: int, E: int, R: int, splits=None) -> dict:
+def sa_ext_term_plan(B: int, E: int, R: int) -> dict:
     """K8's launch for B rows of E options over R referrers: dict(threads,
     splits, per, groups, grid, scratch, merge_grid).
 
@@ -968,12 +953,11 @@ def sa_ext_term_plan(B: int, E: int, R: int, splits=None) -> dict:
     launch gives the card three blocks an SM: S = ceil(396 / (B * groups)),
     fewer where R is short; at one row of 100,000 that is 391 blocks of
     256 referrers, from 396 rows on one block a row (splitting 4,096 rows
-    further cost more in blocks and merging than it saved, PERF.md). Options go in groups of
-    128 a block. grid = (B, S, groups). Where S > 1 each block writes its
+    further cost more in blocks and merging than it saved, PERF.md §6).
+    Options go in groups of 128 a block. grid = (B, S, groups). Where S > 1 each block writes its
     partial sums into a [B, S, E] float64 scratch (`scratch` its elements,
     0 when S is 1), and a merge launch of `merge_grid` blocks of 256
-    threads, a warp an output, sums them in a fixed order. `splits` forces
-    S (tests, and the split sweep in kernel_bench)."""
+    threads, a warp an output, sums them in a fixed order."""
     B, E, R = int(B), int(E), int(R)
     if B < 0 or E < 1 or R < 0:
         raise ValueError(f"sa_ext_term: B = {B}, E = {E}, R = {R} out of "
@@ -981,14 +965,10 @@ def sa_ext_term_plan(B: int, E: int, R: int, splits=None) -> dict:
     groups = -(-E // _K8_GROUP)
     if groups > _GRID_Y_MAX:
         raise ValueError(f"sa_ext_term: E = {E} options exceed the grid")
-    if splits is None:
-        want = -(-_K8_BLOCKS // max(1, B * groups))
-        splits = max(1, min(want, -(-R // _K8_MIN_PER)))
-    splits = max(1, int(splits))
+    want = -(-_K8_BLOCKS // max(1, B * groups))
+    splits = max(1, min(want, -(-R // _K8_MIN_PER)))
     per = max(16, -(-(-(-R // splits)) // 16) * 16)
     splits = max(1, -(-R // per))
-    if splits > _GRID_Y_MAX:
-        raise ValueError(f"sa_ext_term: {splits} splits exceed the grid")
     warps = _K8_MERGE_THREADS // 32
     return dict(threads=_K8_THREADS, splits=splits, per=per, groups=groups,
                 grid=(B, splits, groups),
@@ -1016,10 +996,10 @@ def sa_ext_term_plain(SA, rv, val, w):
     return H @ SA.reshape(E, -1).T
 
 
-def sa_ext_term(SA, rv, val, w, splits=None):
+def sa_ext_term(SA, rv, val, w):
     """K8. SA [E, Vc, V] f32, rv and val each [1 or B, R] int32 (a [1, R]
     side beside a [B, R] one is expanded to [B, R]), w [B, R] bool -> [B,
-    E] f32, as sa_ext_term_plain. `splits` forces the plan's split count."""
+    E] f32, as sa_ext_term_plain."""
     if not _route(w, "sa_ext_term"):
         return sa_ext_term_plain(SA, rv, val, w)
     SA = SA.contiguous()
@@ -1040,7 +1020,7 @@ def sa_ext_term(SA, rv, val, w, splits=None):
         raise ValueError("sa_ext_term: every input must be on the card")
     if Vc * V > 2 ** 31 - 1:
         raise ValueError("sa_ext_term: Vc * V must stay below 2^31")
-    plan = sa_ext_term_plan(B, E, R, splits)
+    plan = sa_ext_term_plan(B, E, R)
     out = torch.empty((B, E), dtype=torch.float32, device=w.device)
     part = torch.empty((plan["scratch"],), dtype=torch.float64,
                        device=w.device) if plan["scratch"] else None

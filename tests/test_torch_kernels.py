@@ -36,13 +36,14 @@ The launch plans of K1-K8 (path or route, geometry, tile sizes and
 splits, a function of the shapes alone) are checked here for legal
 geometry on the H100, and K1's, K6's, K7's and K8's plans for the path,
 route or split they give each shape the main path launches them at.
-K6 is checked on the card on both its routes (which give the same bits)
-at the flights path's lists of 0 to 256 referrers, counts past the list,
-the dense form, V from 1 to 4,097, shared and per-row p, 1,000 referrers
-in one slot and 64 rows; K8 at one row of 100,000 with 0% to 100% kept,
-R = 100,001, masks at odd byte addresses, pairs out of range, [1, R]
-beside [B, R], 4,096 rows, forced split counts, and two launches giving
-the same bits.
+K6 is checked on the card on the route of each form (warp for lists,
+block for the dense form) at the flights path's lists of 0 to 256
+referrers, counts past the list, the dense form, V from 1 to 4,097,
+shared and per-row p, 1,000 referrers in one slot and 64 rows; K8 at one
+row of 100,000 with 0% to 100% kept, R = 100,001, masks at odd byte
+addresses, pairs out of range, [1, R] beside [B, R], 4,096 rows, the
+split counts the plan gives 1 to 396 rows, and two launches giving the
+same bits.
 
 The CUDA tests carry the `cuda` marker and skip where no card is present;
 run them on the card with `python -m pytest -m cuda tests/test_torch_kernels.py`.
@@ -680,14 +681,14 @@ def test_k6_wrapper_takes_plain_version_on_cpu_without_counting():
 @pytest.mark.parametrize("B,V", [(1, 2), (1, 300), (1, 4096), (1, 4097),
                                  (64, 4096), (0, 27), (3, 100_000)])
 def test_k6_plan_covers_its_options(B, V):
-    """Each route's option groups cover V with no group left empty: the
-    block route 4,096 options a 512-thread block, the warp route 64 a warp
+    """Each form's option groups cover V with no group left empty: the
+    dense form 4,096 options a 512-thread block, the list form 64 a warp
     and min(8, ceil(V / 64)) warps a block."""
-    for route in ops.K6_ROUTES:
-        plan = ops.maybe_swap_ext_plan(B, V, 256, route=route)
+    for dense in (True, False):
+        plan = ops.maybe_swap_ext_plan(B, V, dense)
         gx, gy = plan["grid"]
-        assert plan["route"] == route and gx == B and 1 <= gy <= 65535
-        if route == "block":
+        assert gx == B and 1 <= gy <= 65535
+        if dense:
             assert plan["threads"] == 512
             per = 4096
         else:
@@ -697,35 +698,35 @@ def test_k6_plan_covers_its_options(B, V):
         assert gy * per >= V > (gy - 1) * per
 
 
-@pytest.mark.parametrize("B,V,N,dense,route", [
-    (1, 241, 256, False, "warp"),     # the flights path: a list of 256
-    (1, 222, 256, False, "warp"),
-    (1, 241, 2376, True, "block"),    # the dense form over 2,376 rows
-    (1, 241, 4096, False, "warp"),    # a long list stops at its count
-    (64, 4096, 50_000, True, "block"),
-    (1, 2, 0, False, "warp"),         # no referrer axis at all
-    (4096, 241, 256, False, "warp"),  # many rows of short lists
-    (1, 241, 256, True, "warp"),      # the dense cut-over, both sides
-    (1, 241, 257, True, "block"),
-    (1, 4097, 32, False, "warp"),     # more options than a block owns
+@pytest.mark.parametrize("B,V,dense,route", [
+    (1, 241, False, "warp"),      # the flights path: a list of 256
+    (1, 222, False, "warp"),
+    (1, 241, True, "block"),      # the dense form over 2,376 rows
+    (64, 4096, True, "block"),
+    (64, 4096, False, "warp"),    # long lists stay on the warp route
+    (1, 2, False, "warp"),        # one atom and the dummy
+    (4096, 241, False, "warp"),   # many rows of short lists
+    (1, 1, True, "block"),
+    (1, 4097, True, "block"),     # more options than a block owns
+    (1, 4097, False, "warp"),
 ])
-def test_k6_plan_routes_by_form_and_referrer_axis(B, V, N, dense, route):
-    plan = ops.maybe_swap_ext_plan(B, V, N, dense)
+def test_k6_plan_routes_by_form(B, V, dense, route):
+    plan = ops.maybe_swap_ext_plan(B, V, dense)
     assert plan["route"] == route
-    assert (dense and N > ops._K6_WARP_MAX_DENSE) == (route == "block")
+    assert plan["threads"] == (512 if dense else 32 * min(8, -(-V // 64)))
 
 
 def test_k6_plan_refuses_what_it_cannot_launch():
     with pytest.raises(ValueError):
-        ops.maybe_swap_ext_plan(1, 0, 256)
+        ops.maybe_swap_ext_plan(1, 0)
     with pytest.raises(ValueError):
-        ops.maybe_swap_ext_plan(1, 4096 * 65536, 5000)
+        ops.maybe_swap_ext_plan(-1, 10)
     with pytest.raises(ValueError):
-        ops.maybe_swap_ext_plan(1, 512 * 65536, 256)
+        ops.maybe_swap_ext_plan(1, 4096 * 65536, True)
     with pytest.raises(ValueError):
-        ops.maybe_swap_ext_plan(1, 10, 256, route="thread")
-    with pytest.raises(ValueError):
-        ops.maybe_swap_ext_plan(1, 10, -1)
+        ops.maybe_swap_ext_plan(1, 512 * 65536)
+    assert ops.maybe_swap_ext_plan(1, 4096 * 65535, True)["grid"] == \
+        (1, 65535)
 
 
 def test_k6_census_keys_by_form_axis_rows_and_options():
@@ -781,32 +782,18 @@ def test_k6_cuda_matches_plain(card, case):
         torch.testing.assert_close(out[0], want.float(), rtol=1e-6, atol=0)
 
 
-def _k6_both_routes(k6):
-    """K6 on each route, each held to the plain version (check_k6), and the
-    two routes' outputs, which must be the same bits (the same float terms
-    added in double in referrer order)."""
-    from pclean_tpu_torch.kernel_bench import check_k6
-
-    outs = []
-    for route in ops.K6_ROUTES:
-        check_k6(ops, k6, route=route)
-        outs.append(ops.maybe_swap_ext(**k6, route=route))
-    torch.cuda.synchronize()
-    assert torch.equal(outs[0], outs[1])
-    return outs[0]
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("kept", [0, 1, 23, 31, 32, 33, 256])
 def test_k6_cuda_short_lists(card, kept):
     """The flights path's form: one Flight slot against its list of 256,
     `kept` of them its referrers, V = 241 (the warp route's shape)."""
-    from pclean_tpu_torch.kernel_bench import k6_inputs
+    from pclean_tpu_torch.kernel_bench import check_k6, k6_inputs
 
     k6 = k6_inputs(card, 1, 241, 256, seed=kept, lists=True)
     k6["cnt"].fill_(kept)
-    assert ops.maybe_swap_ext_plan(1, 241, 256, False)["route"] == "warp"
-    out = _k6_both_routes(k6)
+    assert ops.maybe_swap_ext_plan(1, 241)["route"] == "warp"
+    check_k6(ops, k6)
+    out = ops.maybe_swap_ext(**k6)
     if kept == 0:
         assert float(out.abs().sum()) == 0.0
 
@@ -816,7 +803,7 @@ def test_k6_cuda_short_lists(card, kept):
     "cnt_past_N", "dense_2376", "V1", "V32", "V241", "V4096", "V4097",
     "p_shared", "p_rows", "crowded_list", "crowded_dense", "B64"])
 def test_k6_cuda_routes_match_plain(card, case):
-    from pclean_tpu_torch.kernel_bench import k6_inputs
+    from pclean_tpu_torch.kernel_bench import check_k6, k6_inputs
 
     B, V, N, lists, shared_p, per_slot = 1, 241, 256, True, False, 0
     if case.startswith("V"):
@@ -843,7 +830,8 @@ def test_k6_cuda_routes_match_plain(card, case):
     elif case == "crowded_dense":    # one slot holding 1,000 of 2,376 rows
         k6["t"][:1000] = k6["slot"][0]
         k6["alive"][:1000] = True
-    out = _k6_both_routes(k6)
+    check_k6(ops, k6)
+    out = ops.maybe_swap_ext(**k6)
     if case == "cnt_past_N":         # a count past the list reads it whole
         full = dict(k6, cnt=torch.full_like(k6["cnt"], N))
         assert torch.equal(out, ops.maybe_swap_ext(**full))
@@ -1069,10 +1057,18 @@ def test_k8_plan_hospital_census_shapes(B, E, splits, per, scratch):
     assert plan["grid"] == (B, splits, 1)
 
 
-def test_k8_plan_refuses_splits_past_the_grid():
-    assert ops.sa_ext_term_plan(1, 14, 100_000, splits=7)["splits"] == 7
+def test_k8_plan_stays_inside_the_grid():
+    """However long the referrer axis, one row splits into at most three
+    blocks an SM (longer splits, not more of them); options past the grid
+    and empty shapes are refused."""
+    for R in (10 ** 7, 2 ** 31 - 1):
+        plan = ops.sa_ext_term_plan(1, 14, R)
+        assert plan["splits"] <= 3 * ops.N_SMS and plan["per"] % 16 == 0
+        assert plan["splits"] * plan["per"] >= R
     with pytest.raises(ValueError):
-        ops.sa_ext_term_plan(1, 14, 10 ** 7, splits=70_000)
+        ops.sa_ext_term_plan(1, 128 * 65536, 100)
+    with pytest.raises(ValueError):
+        ops.sa_ext_term_plan(1, 14, -1)
 
 
 def _to_lists(w, val, R):
@@ -1292,13 +1288,15 @@ def test_k8_cuda_split_edges(card, case):
     elif case.startswith("E"):   # one option a lane, or more; option groups
         k8 = k8_seeded(card, B=3, E=int(case[1:]), Vc=14, V=1133, R=20_000,
                        density=0.1)
-    else:   # any split count gives the same function
+    else:   # split counts the plan gives: 391, 196, 7, 3 and 1
+        for B, S in ((1, 391), (2, 196), (64, 7), (132, 3), (396, 1)):
+            k8 = k8_seeded(card, B=B, E=14, Vc=78, V=1133, R=100_000,
+                           density=0.112)
+            assert ops.sa_ext_term_plan(B, 14, 100_000)["splits"] == S
+            check_k8(ops, k8)
         k8 = k8_seeded(card, B=2, E=14, Vc=78, V=1133, R=100_000,
                        density=0.112)
-        for S in (1, 7, 196, 391):
-            check_k8(ops, k8, splits=S)
-        k8["w"][1, 50_000:] = False     # a split with nothing kept
-        check_k8(ops, k8, splits=4)
+        k8["w"][1, 50_000:] = False     # splits with nothing kept
     check_k8(ops, k8)
     out = ops.sa_ext_term(**k8)
     if case == "out_of_range":
