@@ -28,7 +28,7 @@ It drives the port only (never jax, never pclean_tpu), in order:
      occupancy, peak device memory (and what was allocated before the
      path) and each kernel's launches on that run, split into one-row
      (r1) and batched (rn) launches, and the launch census of K1, K2, K3,
-     K6, K7 and K8 by (mode, r1 or rn, row length K);
+     K5, K6, K7 and K8 by (mode, r1 or rn, row length K);
   5. right after each path, on its state, K7 and K8 at every shape of its
      census (kernel_bench.k7_census_inputs, k8_census_inputs: hoisted
      histograms over every source row, per-row histograms and composed terms
@@ -54,10 +54,13 @@ It drives the port only (never jax, never pclean_tpu), in order:
      County capacity 4,096, batch_rows 256, 1 sweep, rejuv_frequency 500,
      with the counts set to 0 just before it and read just after: the same
      report; then K4 and K5 at its shapes (K4 over the 50,000 Obs rows into
-     County's 4,096 slots, K5 over 256 County rows and 51 states,
-     kernel_bench.rents_inputs; K4's library call is one index_add_ of the
-     stacked [R, 3] statistics, K5 has none; where one K4 call's host time
-     goes, kernel_bench.k4_call_split) and K7 as in step 5;
+     County's 4,096 slots, K5 over 256 County rows and 51 states from the
+     env coordinates, kernel_bench.rents_inputs; K4's library call is one
+     zeroed buffer and index_add_ of its outputs, K5 has none; where one K4
+     call's host time goes, kernel_bench.k4_call_split), K5 at every shape
+     of its launch census over every batch of County's sweep
+     (kernel_bench.k5_census_inputs; two launches bit-equal) and K7 as in
+     step 5;
   7. runs the flights path end to end (pclean_tpu_torch/workloads/
      flights.py, the port's copy of experiments/flights.py on its seeded
      synthetic flights tables) at the source's 2,376 rows, 100 flights, 38
@@ -163,7 +166,7 @@ SOURCES = {
     "gauss_suffstats": ("pclean_tpu_torch/csrc/gauss_suffstats.cu",
                         "pclean_tpu/engine/propose.py:1348"),
     "gauss_ext_term": ("pclean_tpu_torch/csrc/gauss_ext_term.cu",
-                       "pclean_tpu/engine/propose.py:856"),
+                       "pclean_tpu/engine/propose.py:850"),
     "maybe_swap_ext": ("pclean_tpu_torch/csrc/maybe_swap_ext.cu",
                        "pclean_tpu/engine/propose.py:683"),
     "referrer_hist": ("pclean_tpu_torch/csrc/referrer_hist.cu",
@@ -331,11 +334,17 @@ def bench_k3_shapes(ops, dev, census, B: int) -> list:
     return out
 
 
-def bench_rents_kernels(ops, cm, arenas, params, obs_dev, floor) -> list:
+def bench_rents_kernels(ops, cm, arenas, params, obs_dev, census,
+                        floor) -> tuple:
     """K4 and K5 at the shapes the rents path launches them at
-    (kernel_bench.rents_inputs on the rents state): checked against their
-    plain versions, timed beside their plain versions, K4's library call,
-    the bytes bound and the launch floor."""
+    (kernel_bench.rents_inputs on the rents state; K5 on the first B live
+    County slots, from the env coordinates): checked against their plain
+    versions, timed beside their plain versions, K4's library call, the
+    bytes bound and the launch floor. Then K5 at every shape of the path's
+    launch census, over every batch of County's sweep (kernel_bench.
+    k5_census_inputs), each checked against its plain version and for two
+    launches giving the same bits. Returns (the kernels-line entries, K5's
+    census shapes)."""
     from pclean_tpu_torch import kernel_bench as kb
 
     inp = kb.rents_inputs(cm, arenas, params, obs_dev, RENTS["batch"])
@@ -346,13 +355,15 @@ def bench_rents_kernels(ops, cm, arenas, params, obs_dev, floor) -> list:
     nbytes = {"gauss_suffstats": kb.k4_bytes(inp["k4"]),
               "gauss_ext_term": kb.k5_bytes(inp["k5"])}
     k4, k5 = inp["k4"], inp["k5"]
-    B, A = k5["idx"].shape
+    B, A = k5["full"]
+    C = k5["tbl"].shape[1]
     shapes = {"gauss_suffstats": f"R = {k4['z'].shape[0]} referrers, cap "
                                  f"{k4['cap']}, C {k4['C']}",
-              "gauss_ext_term": f"out [{B}, {A}], C {k5['tbl'].shape[1]}, "
-                                f"E {k5['tbl'].shape[0]}"}
+              "gauss_ext_term": f"out [{B}, {A}], C {C}, E "
+                                f"{k5['tbl'].shape[0]}, env axes "
+                                f"{list(k5['env_shape'])}"}
     plans = {"gauss_suffstats": ops.gauss_suffstats_plan(k4["z"].shape[0]),
-             "gauss_ext_term": ops.gauss_ext_term_plan(B, A)}
+             "gauss_ext_term": ops.gauss_ext_term_plan(B, A, C)}
     out = []
     for name in RENTS_KERNELS:
         out.append(dict(
@@ -370,8 +381,25 @@ def bench_rents_kernels(ops, cm, arenas, params, obs_dev, floor) -> list:
               f"{k['plan']} library device {k.get('library_device_ms')} ms "
               f"call split {k.get('call_split')}", flush=True)
     del inp
+    k5_shapes = []
+    for r, batches in kb.k5_census_inputs(cm, arenas, params, obs_dev,
+                                          census, RENTS["batch"]):
+        errs = [kb.check_k5(ops, x) for x in batches]
+        nb = [kb.k5_bytes(x) for x in batches]
+        k5_shapes.append(dict(
+            shape=f"{r['mode']} {r['rows']} C {r['K']}", rows=r["rows"],
+            launches=r["launches"], batches=len(batches),
+            max_abs_err=max(errs), bytes=max(nb),
+            bound_ms=max(nb) / kb.HBM_BYTES_PER_S * 1e3,
+            plan=ops.gauss_ext_term_plan(*batches[0]["full"], r["K"])))
+        x = k5_shapes[-1]
+        print(f"gauss_ext_term census {x['shape']} ({x['launches']} "
+              f"launches): {x['batches']} batches of County's sweep checked, "
+              f"max_abs_err {x['max_abs_err']:.3g}, two launches bit-equal, "
+              f"plan {x['plan']}", flush=True)
+        del batches
     torch.cuda.empty_cache()
-    return out
+    return out, k5_shapes
 
 
 def bench_flights_k6(ops, eng, arenas, params, census, floor) -> dict:
@@ -787,9 +815,11 @@ def main() -> int:
                                          clean, query, RENTS["rows"])
     report["rents"] = dict(rn, compile_s=compile_s, f1_floor=RENTS_F1_FLOOR)
     phase("rents kernel checks")
-    kernels += bench_rents_kernels(ops, cm, arenas, params, eng.obs_dev,
-                                   floor)
-    add("rents", {k["name"]: [k] for k in kernels[-2:]})
+    rk, k5_shapes = bench_rents_kernels(ops, cm, arenas, params,
+                                        eng.obs_dev, rn["census"], floor)
+    kernels += rk
+    add("rents", {k["name"]: [k] for k in rk})
+    add("rents", {"gauss_ext_term": k5_shapes})
     add("rents", bench_k7_k8_census(ops, eng, arenas, params, rn["census"],
                                     RENTS["batch"], "rents", floor))
     del cm, dirty, clean, query, arenas, params, eng

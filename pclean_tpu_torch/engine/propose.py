@@ -24,7 +24,7 @@ broadcasts). Eight hot spots go through the hand kernels of ops.py:
   * K4 gauss_suffstats: the per-segment sufficient statistics behind a
     closed-form Gaussian external (referrer_histograms);
   * K5 gauss_ext_term: that external's term for every row and option of a
-    latent block (_ext_gauss_term);
+    latent block, from the env coordinates (_ext_gauss_term);
   * K6 maybe_swap_ext: a MaybeSwap external whose `val` is the block's
     innermost enumerated value, summed over each row's referrers for every
     option (_ext_swap_term; the flights Flight time block);
@@ -723,9 +723,11 @@ class BlockTracer:
         frozen) the whole external is
             -(Szz - 2 mu_c Sz_c + n_c mu_c^2) / (2 s^2) summed over c
         plus the mean-independent normalisation and Jacobian terms pre0.
-        K5 gathers mu_c = value[tbl[env, c]] and reduces over c for every
-        (row, option). None (dense path) unless the structure matches and
-        the hoisted statistics are there."""
+        K5 folds the env coordinates into the key table's row, gathers
+        mu_c = value[tbl[row, c]] and reduces over c for every (row,
+        option), one launch from the coordinates to the term. None (dense
+        path) unless the structure matches and the hoisted statistics are
+        there."""
         pre = self.ext_hists.get((path, ext_id))
         if not (isinstance(pre, tuple) and pre[0] == "gauss"):
             return None
@@ -740,16 +742,17 @@ class BlockTracer:
         order = tuple(knode.arg_ids.index(a) for a in env_args + ref_args)
         env_shape, tbl = gauss_key_table(cm, src, mnode.key_id, order)
         full = self._full(depth)
-        # row-major position of the env tuple in tbl's leading axes
-        idx = torch.zeros(full, dtype=torch.long, device=cm.device)
-        for a, n in zip(env_args, env_shape):
-            idx = idx * n + self.aligned(inv[a], depth).long().clamp(0, n - 1)
+        # the env coordinates as they are; K5 folds them into the key
+        # table's row (a shape beyond it gets them folded here, one
+        # coordinate over the table's rows)
+        k5 = ops.gauss_ext_term_inputs(
+            [self.aligned(inv[a], depth) for a in env_args], env_shape, full,
+            cm.device)
         pk = cm.canon(src, mnode.param_id)
         out = ops.gauss_ext_term(
             self.params[pk[0]][pk[1]]["value"], cm.use(tbl),
-            idx.reshape(self.B, -1).to(torch.int32),
-            self.row_slot.to(torch.int32), n_g, sz_g, szz_g, pre0,
-            -0.5 * (1.0 / (kern.std * kern.std)))
+            slot=self.row_slot, n=n_g, sz=sz_g, szz=szz_g, pre0=pre0,
+            coef=-0.5 * (1.0 / (kern.std * kern.std)), **k5)
         return out.reshape(full)
 
     def _ext_swap_term(self, kern, ext: ChoiceNode, src: ClassID,

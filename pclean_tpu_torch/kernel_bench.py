@@ -20,16 +20,21 @@ row and at the batch shape for every entry of `k1_shapes`. Every turn
 checks K1 in both modes, K2 and K3 against their plain versions before it
 times them. The turns also time K4 at 50,000 seeded referrers into
 [4,096, 5] (AB_K4, beside its library call: a zeroed buffer and one
-index_add_ of n, sz, szz and pre0, k4_library), K6 at the flights path's
-four list shapes and its dense shape (AB_K6), K7 at AB_K7's shapes
-(scaled's, rents' and hospital's hoisted histograms, one row and 4,096
-rows of V = 5,125, and hospital's shapes with their counts crowded into
-few cells) and K8 at AB_K8's (the hospital census shapes' sizes on seeded
-inputs, and a batch whose every row holds referrers), each checked
-against its plain version; `--kernels k4,k6,k7,k8` (any of them) times
-only those, with no model to build. With --paths it also times each of
-K1's paths at each of those shapes and over an R x K grid in both modes
-(the last tree's kernels; PERF.md takes the plan's cut-overs from that
+index_add_ of n, sz, szz and pre0, k4_library), K5 at AB_K5 (the rents
+path's County batch [256, 51] with C = 5, one row, C = 1 and 17, and
+4,096 rows, seeded; each twice: the whole step from the env coordinates
+to the term, which for a tree whose K5 takes a row index includes its
+caller's torch build of that index, and the kernel alone on a prebuilt
+index, k5_ab_call), K6 at the flights path's four list shapes and its
+dense shape (AB_K6), K7 at AB_K7's shapes (scaled's, rents' and
+hospital's hoisted histograms, one row and 4,096 rows of V = 5,125, and
+hospital's shapes with their counts crowded into few cells) and K8 at
+AB_K8's (the hospital census shapes' sizes on seeded inputs, and a batch
+whose every row holds referrers), each checked against its plain
+version; `--kernels k4,k5,k6,k7,k8` (any of them) times only those,
+with no model to build. With --paths it also times each of K1's paths
+at each of those shapes and over an R x K grid in both modes (the last
+tree's kernels; PERF.md takes the plan's cut-overs from that
 table). With --census hospital it first runs chip_smoke.py's hospital
 path (HOSPITAL_PATH: 100,000 rows, B = 4,096, one sweep) with this
 checkout's package, then times K7 and K8
@@ -49,10 +54,13 @@ torch.logsumexp over the same rows, and the launch floor
 K4 and K5 (the rents path's Gaussian statistics and external term) take
 their inputs from the rents model's own state (`rents_inputs`): K4 over
 every Obs row into County's slots, K5 over a County batch of B rows and
-the state axis. K6 (the flights path's MaybeSwap external) takes its
-inputs from the flights model's state (`flights_inputs`): one Flight slot
-against its referrers, for each of the four time fields, and at every
-shape of a path's launch census (`k6_census_inputs`); `k6_inputs` draws
+the state axis, from the env coordinates as the tracer holds them; and
+K5 at every shape of the rents path's launch census, over every batch of
+County's sweep (`k5_census_inputs`); `k5_seeded` draws seeded inputs of
+the County block's form for the A/B. K6 (the flights path's MaybeSwap
+external) takes its inputs from the flights model's state
+(`flights_inputs`): one Flight slot against its referrers, for each of
+the four time fields, and at every shape of a path's launch census (`k6_census_inputs`); `k6_inputs` draws
 seeded inputs of any shape for the card tests and the A/B. K7 and K8 (the
 referrer histograms and the hospital's composed stateavg term) take
 theirs from a path's state at every shape of its launch census
@@ -340,43 +348,91 @@ def rents_inputs(cm, arenas, params, obs_dev, B: int) -> dict:
     """K4's and K5's inputs at the shapes the rents path launches them at,
     from the rents model's state: K4 over every Obs row into County's
     slots (propose.gauss_stats_inputs); K5 over the first B live County
-    slots and every state, with the statistics K4 makes of that state, the
-    indexed Mean's values and the key table in the order _ext_gauss_term
-    reads it (idx[b, a] = the row-major position of (state a, slot b's
-    county key)). Returns dict(k4=..., k5=...)."""
+    slots and every state, with the statistics K4 makes of that state,
+    the indexed Mean's values, the key table in the order _ext_gauss_term
+    reads it and its env coordinates as the tracer holds them
+    (rents_k5_coords). Returns dict(k4=..., k5=...)."""
     from . import ops
-    from .engine.propose import (gauss_key_table, gauss_mean_lookup,
-                                 gauss_stats_inputs)
+    from .engine.propose import gauss_stats_inputs
     from .engine.refresh import refresh
 
     node, kern, inv = gauss_external(cm)
-    src = node.path[-1][0]
     rel = refresh(cm, arenas, obs_dev)
     cap = cm.layouts["County"].capacity
     k4 = gauss_stats_inputs(cm, arenas, params, rel, obs_dev, cap, node,
                             kern, inv)
     n, sz, szz, pre0 = ops.gauss_suffstats_plain(**k4)
+    slots = torch.nonzero(rel["County"]["alive"])[:B, 0]
+    k5 = dict(rents_k5_coords(cm, arenas, params, slots, node, kern, inv),
+              n=n, sz=sz, szz=szz, pre0=pre0)
+    return dict(k4=k4, k5=k5)
+
+
+def rents_k5_coords(cm, arenas, params, slots, node, kern, inv) -> dict:
+    """K5's inputs but the statistics for the County rows `slots` (int64,
+    as the tracer's row_slot): the Mean's values, the key table with its
+    env axes first (gauss_key_table), and the env coordinates as
+    BlockTracer.aligned gives them at depth 1: the enumerated state
+    arange(A) as [1, A] int64, and the row's own key, the arena column
+    taken at the slots (clamped, as the tracer takes it) as [B, 1]."""
+    from .engine.propose import gauss_key_table, gauss_mean_lookup
+
+    src = node.path[-1][0]
     mnode, knode = gauss_mean_lookup(cm, src, kern)
     env = [a for a in knode.arg_ids if a in inv]
     ref = [a for a in knode.arg_ids if a not in inv]
     order = tuple(knode.arg_ids.index(a) for a in env + ref)
     env_shape, tbl = gauss_key_table(cm, src, mnode.key_id, order)
-    slots = torch.nonzero(rel["County"]["alive"])[:B, 0]
-    A = cm.domain("County", cm.cls("County").names["state"]).size
-    idx = torch.zeros((len(slots), A), dtype=torch.long, device=cm.device)
     state_vid = cm.cls("County").names["state"]
-    for a, size in zip(env, env_shape):
+    A = cm.domain("County", state_vid).size
+    coords = []
+    for a in env:
         if inv[a] == state_vid:  # the enumerated axis
-            v = torch.arange(A, device=cm.device)[None, :]
+            coords.append(torch.arange(A, device=cm.device)[None, :])
         else:
-            v = arenas["County"]["values"][inv[a]][slots][:, None].long()
-        idx = idx * size + v.clamp(0, size - 1)
+            coords.append(take(arenas["County"]["values"][inv[a]],
+                               slots)[:, None])
     pv = cm.canon(src, mnode.param_id)
-    k5 = dict(values=params[pv[0]][pv[1]]["value"], tbl=cm.use(tbl),
-              idx=idx.to(torch.int32), slot=slots.to(torch.int32), n=n,
-              sz=sz, szz=szz, pre0=pre0,
-              coef=-0.5 * (1.0 / (kern.std * kern.std)))
-    return dict(k4=k4, k5=k5)
+    return dict(values=params[pv[0]][pv[1]]["value"], tbl=cm.use(tbl),
+                coords=tuple(coords), env_shape=tuple(env_shape),
+                slot=slots, full=(len(slots), A),
+                coef=-0.5 * (1.0 / (kern.std * kern.std)))
+
+
+def k5_census_inputs(cm, arenas, params, obs_dev, census: list,
+                     B: int) -> list:
+    """K5's inputs at every shape of the rents path's launch census
+    (ops.census() rows of gauss_ext_term: route and output "coords,BxA",
+    r1 or rn, C), from its state: for a batched shape every batch of
+    County's sweep (slots bi * B + arange(B) up to the capacity, the last
+    padded past it as the sweep pads it), for a one-row shape the first
+    live slot. Returns [(census row, [inputs, ...])]."""
+    from .engine.refresh import refresh
+
+    node, kern, inv = gauss_external(cm)
+    rel = refresh(cm, arenas, obs_dev)
+    cap = cm.layouts["County"].capacity
+    base = rents_inputs(cm, arenas, params, obs_dev, 1)["k5"]
+    stats = {k: base[k] for k in ("n", "sz", "szz", "pre0")}
+    out = []
+    for r in census:
+        if r["kernel"] != "gauss_ext_term":
+            continue
+        route, shape = r["mode"].split(",")
+        rows, A = (int(x) for x in shape.split("x"))
+        require(route == "coords" and A == base["full"][1]
+                and r["K"] == base["tbl"].shape[1]
+                and rows == (1 if r["rows"] == "r1" else B),
+                f"K5 census shape {r} is not the County block's")
+        if r["rows"] == "r1":
+            batches = [torch.nonzero(rel["County"]["alive"])[:1, 0]]
+        else:
+            batches = [bi * B + torch.arange(B, device=cm.device)
+                       for bi in range(-(-cap // B))]
+        out.append((r, [dict(rents_k5_coords(cm, arenas, params, sl, node,
+                                             kern, inv), **stats)
+                        for sl in batches]))
+    return out
 
 
 def check_k4(ops, k4: dict) -> float:
@@ -402,15 +458,27 @@ def check_k4(ops, k4: dict) -> float:
 def check_k5(ops, k5: dict) -> float:
     """Within 2^-20 * |coef| * (|sum szz| + 2 |sum mu sz| + |sum mu^2 n|)
     + 1e-5 of the plain version (the three f32 sums in another order, then
-    subtracted). Returns the largest |difference|."""
+    subtracted), and two launches bit-equal (a fixed order). Returns the
+    largest |difference|."""
     got = ops.gauss_ext_term(**k5)
+    again = ops.gauss_ext_term(**k5)
+    torch.cuda.synchronize()
+    require(torch.equal(got, again), "K5 differs between two launches")
+    return k5_error(k5, got)
+
+
+def k5_error(k5: dict, got) -> float:
+    """The largest |got - this checkout's plain version| on k5 (got
+    reshaped to the output shape), failing beyond check_k5's tolerance."""
+    from . import ops
+
     want = ops.gauss_ext_term_plain(**k5)
-    a_szz, a_sz, a_n = ops.gauss_ext_term_parts(
-        k5["values"], k5["tbl"], k5["idx"], k5["slot"], k5["n"], k5["sz"],
-        k5["szz"])
+    part = {k: k5[k] for k in ("values", "tbl", "coords", "env_shape",
+                               "slot", "n", "sz", "szz", "full") if k in k5}
+    a_szz, a_sz, a_n = ops.gauss_ext_term_parts(**part)
     scale = abs(k5["coef"]) * (a_szz.abs() + 2 * a_sz.abs() + a_n.abs())
     torch.cuda.synchronize()
-    d = (got - want).abs()
+    d = (got.reshape(want.shape) - want).abs()
     require(bool((d <= 2.0 ** -20 * scale + 1e-5).all()),
             f"K5 differs by {float(d.max())}")
     return float(d.max())
@@ -424,22 +492,103 @@ def k4_bytes(k4: dict) -> int:
 
 
 def k5_bytes(k5: dict) -> int:
-    """K5's bytes on these inputs: idx and out [B, A], the slots, each key
-    table row and Mean value the batch touches, and the B slots' statistics
-    (3 C + 1 floats), each once."""
-    idx, tbl = k5["idx"], k5["tbl"]
-    B, A = idx.shape
+    """K5's bytes on these inputs: each coordinate's own elements (not its
+    broadcast), the slots and out [full], each key table row and Mean value
+    the batch touches, and the distinct slots' statistics (3 C + 1
+    floats), each once."""
+    from . import ops
+
+    tbl, slot = k5["tbl"], k5["slot"]
+    full = tuple(k5.get("full") or ())
+    rows = ops.gauss_key_rows(k5["coords"], k5["env_shape"], full,
+                              tbl.device)
+    rows = torch.unique(rows.clamp(0, tbl.shape[0] - 1))
     C = tbl.shape[1]
-    rows = torch.unique(idx.long().clamp(0, tbl.shape[0] - 1))
-    vals = torch.unique(tbl[rows].long())
-    nslot = int(torch.unique(k5["slot"]).numel())
-    return (2 * B * A * 4 + B * 4 + int(rows.numel()) * C * 4
-            + int(vals.numel()) * 4 + nslot * (3 * C + 1) * 4)
+    vals = torch.unique(tbl[rows].long().clamp(0, k5["values"].shape[0] - 1))
+    nslot = int(torch.unique(slot.long().clamp(0, k5["n"].shape[0] - 1))
+                .numel())
+    coords = sum(e.numel() * e.element_size() for e in k5["coords"])
+    out = 1
+    for x in full:
+        out *= x
+    return (coords + slot.numel() * slot.element_size() + out * 4
+            + int(rows.numel()) * C * 4 + int(vals.numel()) * 4
+            + nslot * (3 * C + 1) * 4)
+
+
+def k5_seeded(dev, B: int, A: int, C: int, keys: int = 1500,
+              cap: int = 4096, seed: int = 0) -> dict:
+    """Seeded K5 inputs shaped as the rents County block: the state axis
+    [1, A] int64 and a county key of `keys` per row [B, 1] int32 as the
+    env coordinates (env_shape (A, keys)), the rents key table's form (row
+    r's C entries point at values r * C to r * C + C - 1: a Mean per
+    (state, county key, room type)), seeded values, int64 slots drawn from
+    `cap`, and the statistics K4 makes of 50,000 seeded referrers
+    (k4_seeded)."""
+    from . import ops
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    E = A * keys
+    n, sz, szz, pre0 = ops.gauss_suffstats_plain(**k4_seeded(dev, 50_000,
+                                                             cap, C))
+    values = torch.randn((E * C,), generator=g, device=dev) * 1000 + 1500
+    tbl = torch.arange(E * C, device=dev, dtype=torch.int32).reshape(E, C)
+    key = torch.randint(0, keys, (B, 1), generator=g, device=dev,
+                        dtype=torch.int32)
+    slot = torch.randperm(cap, generator=g, device=dev)[:B] if B <= cap \
+        else torch.randint(0, cap, (B,), generator=g, device=dev)
+    return dict(values=values, tbl=tbl,
+                coords=(torch.arange(A, device=dev)[None, :], key),
+                env_shape=(A, keys), slot=slot, n=n, sz=sz, szz=szz,
+                pre0=pre0, coef=-0.5 / 150.0 ** 2, full=(B, A))
+
+
+def k5_parent_index(k5: dict):
+    """The row index as the parent's caller built it before K5 took the
+    coordinates (engine/propose.py's torch.zeros, then idx * n_i +
+    clamp(e_i) for each env axis): [B, A] int64."""
+    idx = torch.zeros(k5["full"], dtype=torch.long, device=k5["tbl"].device)
+    for e, n in zip(k5["coords"], k5["env_shape"]):
+        idx = idx * n + e.long().clamp(0, n - 1)
+    return idx.reshape(k5["full"][0], -1)
+
+
+def k5_ab_call(ops, k5: dict, part: str):
+    """One tree's K5 `part` on k5, as a call: "step", everything from the
+    env coordinates to the term (a tree whose K5 takes the row index: its
+    caller's torch build of the index, the int32 casts and the launch; a
+    tree whose K5 takes the coordinates: the one call), or "kernel", the
+    kernel alone on the same prebuilt int32 index and slots (as one
+    coordinate over the table's rows where K5 takes coordinates)."""
+    import inspect
+
+    legacy = "idx" in inspect.signature(ops.gauss_ext_term).parameters
+    if part == "step" and not legacy:
+        return lambda: ops.gauss_ext_term(**k5)
+    full, B = tuple(k5["full"]), k5["full"][0]
+    vt = (k5["values"], k5["tbl"])
+    stats = (k5["n"], k5["sz"], k5["szz"], k5["pre0"], k5["coef"])
+    if part == "step":
+        def step():
+            idx = k5_parent_index(k5)
+            return ops.gauss_ext_term(*vt, idx.to(torch.int32),
+                                      k5["slot"].to(torch.int32),
+                                      *stats).reshape(full)
+        return step
+    idx = k5_parent_index(k5).to(torch.int32)
+    slot = k5["slot"].to(torch.int32)
+    if legacy:
+        return lambda: ops.gauss_ext_term(*vt, idx, slot, *stats)
+    return lambda: ops.gauss_ext_term(*vt, (idx,), (k5["tbl"].shape[0],),
+                                      slot, *stats, full=(B, idx.shape[1]),
+                                      route="index")
 
 
 def time_k45(ops, inp: dict) -> dict:
     """{kernel: {ms, device_ms, plain_ms, library_ms}} of K4 and K5 on
-    rents_inputs (ms, plain_ms, library_ms: cuda_ms; device_ms: graph_ms).
+    rents_inputs (ms, plain_ms, library_ms: cuda_ms; device_ms: graph_ms;
+    K5 from the env coordinates to the term, one launch).
     K4's library call: k4_library, a zeroed buffer and one index_add_ of
     n, sz, szz and pre0 (checked against the plain version first); K5 has
     none."""
@@ -1213,17 +1362,28 @@ AB_K8 = (  # K8's seeded shapes in the A/B: (label, B, E, Vc, V, R, density,
     ("County [4096, 14], every row 1/128 kept", 4096, 14, 78, 1133, 100_000,
      1 / 128, None),
 )
-AB_KINDS = ("k1-k3", "k4", "k6", "k7", "k8")
+AB_K5 = (  # K5's seeded shapes in the A/B: (label, B, A, C): the rents
+    # path's census shape (a County batch of 256 rows over 51 states, C =
+    # 5, two env axes), one row, C = 1 and 17 (the generic loop) and 4,096
+    # rows
+    ("rents census [256, 51] C 5", 256, 51, 5),
+    ("one row [1, 51] C 5", 1, 51, 5),
+    ("[256, 51] C 1", 256, 51, 1),
+    ("[256, 51] C 17", 256, 51, 17),
+    ("[4096, 51] C 5", 4096, 51, 5),
+)
+AB_KINDS = ("k1-k3", "k4", "k5", "k6", "k7", "k8")
 
 
 def ab_seeded(dev, kinds) -> dict:
-    """The A/B's seeded K4, K6, K7 and K8 inputs, {label: (kernel,
-    inputs)}: K7 at AB_K7 (k7_seeded, one hop, as scaled's, rents' and
-    hospital's hoisted histograms; per row at scaled's density of about 12
-    referrers a row; hospital's shapes also with its counts crowded into
-    few cells), K4 at AB_K4 (k4_seeded), K6 at AB_K6 (k6_inputs; the dense
-    shape with about 24 referrers a slot, as flights' 100 flights over
-    2,376 rows) and K8 at AB_K8 (k8_seeded)."""
+    """The A/B's seeded K4-K8 inputs, {label: (kernel, inputs)}: K7 at
+    AB_K7 (k7_seeded, one hop, as scaled's, rents' and hospital's hoisted
+    histograms; per row at scaled's density of about 12 referrers a row;
+    hospital's shapes also with its counts crowded into few cells), K4 at
+    AB_K4 (k4_seeded), K5 at AB_K5 (k5_seeded; each shape twice, the step
+    from the env coordinates and the kernel alone, k5_ab_call), K6 at
+    AB_K6 (k6_inputs; the dense shape with about 24 referrers a slot, as
+    flights' 100 flights over 2,376 rows) and K8 at AB_K8 (k8_seeded)."""
     out = {}
     if "k6" in kinds:
         for label, B, V, N, lists, kept in AB_K6:
@@ -1243,14 +1403,27 @@ def ab_seeded(dev, kinds) -> dict:
     if "k4" in kinds:
         label, R, cap, C = AB_K4
         out["K4 " + label] = ("gauss_suffstats", k4_seeded(dev, R, cap, C))
+    if "k5" in kinds:
+        for label, B, A, C in AB_K5:
+            k5 = k5_seeded(dev, B, A, C)
+            for part in ("step", "kernel"):
+                out[f"K5 {part} {label}"] = ("gauss_ext_term",
+                                             dict(k5=k5, part=part))
     return out
 
 
 def time_ab_seeded(ops, kernel: str, inp: dict) -> dict:
-    """One A/B turn of K4, K6, K7 or K8 on `inp`: checked against the plain
-    version, then ms (cuda_ms) and device_ms (graph_ms), with the library
-    call beside them (K7: torch.bincount, events only; K4: zeros and
-    index_add_, both; K6 and K8 have none)."""
+    """One A/B turn of K4, K5, K6, K7 or K8 on `inp`: checked against the
+    plain version, then ms (cuda_ms) and device_ms (graph_ms), with the
+    library call beside them (K7: torch.bincount, events only; K4: zeros
+    and index_add_, both; K5, K6 and K8 have none). K5's `inp` is dict(k5,
+    part): the tree's whole step from the env coordinates, or its kernel
+    alone on a prebuilt index (k5_ab_call)."""
+    if kernel == "gauss_ext_term":
+        call = k5_ab_call(ops, inp["k5"], inp["part"])
+        k5_error(inp["k5"], call())
+        return dict(ms=cuda_ms(call), device_ms=graph_ms(call),
+                    library_ms=None, library_device_ms=None)
     if kernel in ("maybe_swap_ext", "sa_ext_term"):
         (check_k6 if kernel == "maybe_swap_ext" else check_k8)(ops, inp)
         fn = getattr(ops, kernel)
@@ -1374,6 +1547,7 @@ def main(argv=None) -> int:
     seeded = ab_seeded(dev, kinds)
     seeded.update(hospital_census(kinds) if a.census else {})
     count_bytes = {"referrer_hist": k7_bytes, "gauss_suffstats": k4_bytes,
+                   "gauss_ext_term": lambda inp: k5_bytes(inp["k5"]),
                    "maybe_swap_ext": k6_bytes, "sa_ext_term": k8_bytes}
     for s, (k, inp) in seeded.items():
         bounds[s] = {k: count_bytes[k](inp) / HBM_BYTES_PER_S * 1e3}

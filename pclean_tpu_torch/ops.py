@@ -15,7 +15,8 @@ replaces, its bound on the H100 and its design):
                        a latent class's referrers (propose.py
                        referrer_histograms' gauss_stats scatters);
   K5 gauss_ext_term  — the closed-form Gaussian external of a latent block
-                       from those statistics (propose.py _ext_gauss_term);
+                       from the env coordinates and those statistics
+                       (propose.py _ext_gauss_term);
   K6 maybe_swap_ext  — a MaybeSwap external summed over each row's
                        referrers for every option of its enumerated value
                        (propose.py _ext_terms' dense path, the flights
@@ -38,8 +39,8 @@ K8's, where the plan splits a row's referrers (S > 1, as at one row),
 adds a second launch that merges the splits;
 `LAUNCHES_BY_SHAPE` splits the same launches into those over one row
 ("r1", the sequential loops) and over more ("rn", the batched phases);
-`LAUNCH_CENSUS` splits K1's, K2's, K3's, K6's, K7's and K8's further by
-mode and row length.
+`LAUNCH_CENSUS` splits K1's, K2's, K3's, K5's, K6's, K7's and K8's further
+by mode and row length.
 Each kernel takes a launch plan (path and geometry: threads, tiles,
 cluster, shared memory, grid) from a function of its shapes alone,
 `enum_logsumexp_plan`, `inv_cdf_plan`, `obs_gather_plan`,
@@ -58,6 +59,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 import os
 import shutil
 import subprocess
@@ -82,15 +84,17 @@ _SOURCES = {
 }
 LAUNCHES = {name: 0 for name in _SOURCES}
 LAUNCHES_BY_SHAPE = {name: {"r1": 0, "rn": 0} for name in _SOURCES}
-# K1's, K2's, K3's, K6's, K7's and K8's launches by (mode, "r1" or "rn", K):
-# K1's mode is "fk" or "choice", K2's is None, K3's the launch's
-# vocabularies ("V1,V2,..."), K6's its referrers' form and axis ("list,N"
-# or "dense,N"), K7's "hoisted" or "rows", K8's SA's shape ("ExVcxV"); K is
-# the row length the kernel was given (K6: the options V; K7: the
+# K1's, K2's, K3's, K5's, K6's, K7's and K8's launches by (mode, "r1" or
+# "rn", K): K1's mode is "fk" or "choice", K2's is None, K3's the launch's
+# vocabularies ("V1,V2,..."), K5's its route and output ("coords,BxA" or
+# "index,BxA"), K6's its referrers' form and axis ("list,N" or "dense,N"),
+# K7's "hoisted" or "rows", K8's SA's shape ("ExVcxV"); K is the row length
+# the kernel was given (K5: the groups C; K6: the options V; K7: the
 # histogram's V; K8: the referrer axis R)
 LAUNCH_CENSUS = {"enum_logsumexp": {}, "inv_cdf_sample": {},
-                 "obs_gather_sum": {}, "maybe_swap_ext": {},
-                 "referrer_hist": {}, "sa_ext_term": {}}
+                 "obs_gather_sum": {}, "gauss_ext_term": {},
+                 "maybe_swap_ext": {}, "referrer_hist": {},
+                 "sa_ext_term": {}}
 SMEM_MAX = 232448  # shared memory one block may use on an H100 (227 KB)
 N_SMS = 132        # streaming multiprocessors of an H100 SXM
 _GRID_Y_MAX = 65535
@@ -195,8 +199,10 @@ def build_kernels(force: bool = False) -> float:
                                I64, I32, I32, I32, I64, I32, I64, I64, P],
             "gauss_suffstats": [P, P, P, P, P, F32, P, P, P, P, I64, I64, I32,
                                 I32, I64, P],
-            "gauss_ext_term": [P, I64, P, I64, I32, P, P, P, P, P, P, I64,
-                               F32, P, I64, I64, I32, I64, P],
+            "gauss_ext_term": [I32, ctypes.POINTER(I64),
+                               ctypes.POINTER(I64), ctypes.POINTER(I64), P,
+                               I64, P, I64, I32, P, I32, P, P, P, P, I64, F32,
+                               P, I32, I64, I32, P],
             "maybe_swap_ext": [P, P, P, P, P, P, P, I64, P, P, I64, P, I64,
                                P, I64, I64, I32, I64, I64, P],
             "referrer_hist": [I32, ctypes.POINTER(I64), ctypes.POINTER(I64),
@@ -547,13 +553,13 @@ def obs_gather_sum(mats, obs: torch.Tensor, word: torch.Tensor) -> torch.Tensor:
 
 # ---------------------------------------------------------------- K4
 
-_K45_THREADS = 256
+_K4_THREADS = 256
 
 
 def gauss_suffstats_plan(R: int) -> dict:
     """K4's launch over R referrers: one thread a referrer, dict(threads,
     grid)."""
-    return dict(threads=_K45_THREADS, grid=max(1, -(-int(R) // _K45_THREADS)))
+    return dict(threads=_K4_THREADS, grid=max(1, -(-int(R) // _K4_THREADS)))
 
 
 def gauss_suffstats_plain(t, rv, w, z, ld, const: float, cap: int, C: int):
@@ -608,72 +614,191 @@ def gauss_suffstats(t, rv, w, z, ld, const: float, cap: int, C: int):
 
 # ---------------------------------------------------------------- K5
 
+K5_MAX_AXES = 4   # env coordinates the kernel folds
+K5_MAX_RANK = 4   # the output's axes it takes: B and up to 3 option axes
+_K5_FIXED_C = 8   # C a template parameter up to here, else a generic loop
+# warps a block (ceil(A / 32) warps a row): 1 to 8 time alike at the rents
+# batch [256, 51] and 2 to 8 at [4,096, 51] (1 is slower there), C = 5, on
+# an H100 (PERF.md §6, scripts/k5_probe.py); 2 give the rents batch 256
+# blocks for the 132 SMs
+_K5_WARPS = 2
+K5_ROUTES = ("coords", "index")
 
-def gauss_ext_term_plan(B: int, A: int) -> dict:
-    """K5's launch over B rows of A options: one thread an output, dict(
-    threads, grid)."""
-    return dict(threads=_K45_THREADS,
-                grid=max(1, -(-int(B) * int(A) // _K45_THREADS)))
+
+def gauss_ext_term_plan(B: int, A: int, C: int) -> dict:
+    """K5's launch over B rows of A options and C groups: a warp for each
+    row and 32 of its options (`chunks` = ceil(A / 32) warps a row),
+    _K5_WARPS warps a block (fewer when the launch has fewer), the kernel
+    instantiated for C up to 8 (`fixed_c` = C: table words and values
+    loaded flat over the warp's options and staged in shared memory) or
+    the generic loop (`fixed_c` = 0: each lane its own option's groups):
+    dict(threads, chunks, grid, fixed_c)."""
+    B, A, C = int(B), int(A), int(C)
+    if B < 0 or A < 1 or C < 1:
+        raise ValueError(f"gauss_ext_term: B = {B}, A = {A}, C = {C} out "
+                         f"of range")
+    chunks = -(-A // 32)
+    warps = B * chunks
+    if warps > 2 ** 31 - 1:   # the kernel counts warps in 32 bits
+        raise ValueError(f"gauss_ext_term: [{B}, {A}] exceeds the grid")
+    per = max(1, min(_K5_WARPS, warps))
+    return dict(threads=32 * per, chunks=chunks,
+                grid=max(1, -(-warps // per)),
+                fixed_c=C if C <= _K5_FIXED_C else 0)
 
 
-def gauss_ext_term_parts(values, tbl, idx, slot, n, sz, szz):
-    """The three sums of the closed form, [B, A] each: sum_c szz[s_b, c],
-    sum_c mu sz[s_b, c] and sum_c mu^2 n[s_b, c] with mu = values[tbl[idx,
-    c]] (gathers clamped)."""
+def gauss_key_rows(coords, env_shape, full, device=None):
+    """[full] int64: each output's row of the key table, sum over axes i of
+    clamp(coords[i], 0, env_shape[i] - 1) * (row-major stride of axis i),
+    each coordinate broadcast to `full`; zeros where there is no axis."""
+    dev = coords[0].device if coords else device
+    rows = torch.zeros(tuple(full), dtype=torch.long, device=dev)
+    stride = 1
+    for e, n in reversed(list(zip(coords, env_shape))):
+        rows = rows + e.long().clamp(0, n - 1) * stride
+        stride *= int(n)
+    return rows
+
+
+def gauss_ext_term_inputs(coords, env_shape, full, device=None) -> dict:
+    """The coordinate arguments of gauss_ext_term for the block shape
+    `full` = (B,) + option axes: the coordinates as given (route "coords")
+    where the kernel takes them (at most K5_MAX_AXES axes, an output of
+    rank at most K5_MAX_RANK), else the key-table row of each output
+    folded here (gauss_key_rows) as one coordinate [B, A] over the table's
+    E rows (route "index"); the caller reshapes the result to `full`."""
+    coords, env_shape, full = tuple(coords), tuple(env_shape), tuple(full)
+    if len(coords) <= K5_MAX_AXES and len(full) <= K5_MAX_RANK:
+        return dict(coords=coords, env_shape=env_shape, full=full,
+                    route="coords")
+    rows = gauss_key_rows(coords, env_shape, full, device)
+    return dict(coords=(rows.reshape(full[0], -1),),
+                env_shape=(math.prod(env_shape),),
+                full=(full[0], rows[0].numel()), route="index")
+
+
+def gauss_ext_term_parts(values, tbl, coords, env_shape, slot, n, sz, szz,
+                         full=None):
+    """The three sums of the closed form, each of the output's shape
+    (`full`, default the coordinates' broadcast with (B,)): sum_c
+    szz[s_b, c], sum_c mu sz[s_b, c] and sum_c mu^2 n[s_b, c] with mu =
+    values[tbl[row, c]], row the key-table row of the coordinates
+    (gauss_key_rows; every gather clamped)."""
+    full = _k5_full(coords, slot, full)
     s = slot.long().clamp(0, n.shape[0] - 1)
-    rows = tbl[idx.long().clamp(0, tbl.shape[0] - 1)]             # [B, A, C]
-    mu = values[rows.long().clamp(0, values.shape[0] - 1)]
-    a_szz = szz[s].sum(-1)[:, None].expand(idx.shape)
-    a_sz = (mu * sz[s][:, None, :]).sum(-1)
-    a_n = (mu * mu * n[s][:, None, :]).sum(-1)
+    rows = gauss_key_rows(coords, env_shape, full, tbl.device)
+    t = tbl[rows.clamp(0, tbl.shape[0] - 1)]                     # [*, C]
+    mu = values[t.long().clamp(0, values.shape[0] - 1)]
+    lead = (len(s),) + (1,) * (len(full) - 1)
+    a_szz = szz[s].sum(-1).reshape(lead).expand(full)
+    a_sz = (mu * sz[s].reshape(lead + (-1,))).sum(-1)
+    a_n = (mu * mu * n[s].reshape(lead + (-1,))).sum(-1)
     return a_szz, a_sz, a_n
 
 
-def gauss_ext_term_plain(values, tbl, idx, slot, n, sz, szz, pre0,
-                         coef: float):
-    """coef * (sum szz - 2 sum mu sz + sum mu^2 n) + pre0[slot] -> [B, A],
-    the formula of pclean_tpu.engine.propose._ext_gauss_term."""
-    a_szz, a_sz, a_n = gauss_ext_term_parts(values, tbl, idx, slot, n, sz,
-                                            szz)
+def gauss_ext_term_plain(values, tbl, coords, env_shape, slot, n, sz, szz,
+                         pre0, coef: float, full=None, route="coords"):
+    """coef * (sum szz - 2 sum mu sz + sum mu^2 n) + pre0[slot], the
+    formula of pclean_tpu.engine.propose._ext_gauss_term, over the output
+    shape (`full`, default the coordinates' broadcast with (B,)). `route`
+    only labels the kernel's census and is ignored here."""
+    full = _k5_full(coords, slot, full)
+    a_szz, a_sz, a_n = gauss_ext_term_parts(values, tbl, coords, env_shape,
+                                            slot, n, sz, szz, full)
     s = slot.long().clamp(0, n.shape[0] - 1)
-    return coef * (a_szz - 2.0 * a_sz + a_n) + pre0[s][:, None]
+    lead = (len(s),) + (1,) * (len(full) - 1)
+    return coef * (a_szz - 2.0 * a_sz + a_n) + pre0[s].reshape(lead)
 
 
-def gauss_ext_term(values, tbl, idx, slot, n, sz, szz, pre0, coef: float):
-    """K5. values [I] f32, tbl [E, C] int32, idx [B, A] int32, slot [B]
-    int32, n, sz, szz [cap, C] f32, pre0 [cap] f32, coef = -1/(2 std^2) ->
-    [B, A] f32, as gauss_ext_term_plain."""
-    if not _route(idx, "gauss_ext_term"):
-        return gauss_ext_term_plain(values, tbl, idx, slot, n, sz, szz, pre0,
-                                    coef)
-    values = values.contiguous()
-    tbl = tbl.to(torch.int32).contiguous()
-    idx = idx.to(torch.int32).contiguous()
-    slot = slot.to(torch.int32).contiguous()
+def _k5_full(coords, slot, full):
+    if full is not None:
+        return tuple(full)
+    rank = max([1] + [c.dim() for c in coords])
+    return tuple(torch.broadcast_shapes(
+        *[c.shape for c in coords], (slot.shape[0],) + (1,) * (rank - 1)))
+
+
+def gauss_ext_term(values, tbl, coords, env_shape, slot, n, sz, szz, pre0,
+                   coef: float, full=None, route: str = "coords"):
+    """K5, as gauss_ext_term_plain: values [I] f32, tbl [E, C] int32 (E =
+    the product of env_shape), coords a tuple of up to K5_MAX_AXES int32
+    or int64 tensors, each broadcastable to the output shape `full` (B,) +
+    up to 3 option axes (default the coordinates' broadcast with (B,)),
+    coordinate i on the table's axis of env_shape[i]; slot [B] int32 or
+    int64; n, sz, szz [cap, C] f32, pre0 [cap] f32, coef = -1/(2 std^2) ->
+    [full] f32. The coordinates are read through their own strides, never
+    copied. `route` names the caller's route in the launch census:
+    "coords", or "index" where the caller folded the coordinates itself
+    into one over (E,) (gauss_ext_term_inputs)."""
+    if not _route(slot, "gauss_ext_term"):
+        return gauss_ext_term_plain(values, tbl, coords, env_shape, slot, n,
+                                    sz, szz, pre0, coef, full=full)
+    coords, env_shape = tuple(coords), tuple(int(x) for x in env_shape)
+    values, tbl, slot = values.contiguous(), tbl.contiguous(), \
+        slot.contiguous()
     n, sz, szz, pre0 = (x.contiguous() for x in (n, sz, szz, pre0))
     _need(values, torch.float32, "gauss_ext_term values", 1)
     _need(tbl, torch.int32, "gauss_ext_term tbl", 2)
-    _need(idx, torch.int32, "gauss_ext_term idx", 2)
-    _need(slot, torch.int32, "gauss_ext_term slot", 1)
+    if slot.dtype not in (torch.int32, torch.int64) or slot.dim() != 1:
+        raise ValueError("gauss_ext_term: slot must be an int32 or int64 "
+                         "vector")
     for x, nm in ((n, "n"), (sz, "sz"), (szz, "szz")):
         _need(x, torch.float32, f"gauss_ext_term {nm}", 2)
     _need(pre0, torch.float32, "gauss_ext_term pre0", 1)
-    B, A = idx.shape
-    cap, C = n.shape
-    if not (slot.shape[0] == B and tbl.shape[1] == C
-            and sz.shape == n.shape == szz.shape and pre0.shape[0] == cap):
+    full = _k5_full(coords, slot, full)
+    B = slot.shape[0]
+    (E, C), cap = tbl.shape, n.shape[0]
+    if route not in K5_ROUTES or (route == "index" and len(coords) != 1):
+        raise ValueError(f"gauss_ext_term: route {route!r} is not coords, "
+                         f"or index with one coordinate")
+    if len(coords) != len(env_shape) or len(coords) > K5_MAX_AXES \
+            or not 1 <= len(full) <= K5_MAX_RANK:
+        raise ValueError(f"gauss_ext_term: {len(coords)} coordinates over "
+                         f"{len(env_shape)} axes and an output of rank "
+                         f"{len(full)}: the kernel takes up to "
+                         f"{K5_MAX_AXES} axes and rank {K5_MAX_RANK} (fold "
+                         f"the rest with gauss_ext_term_inputs)")
+    if not (full[0] == B and math.prod(env_shape) == E
+            and min(env_shape, default=1) >= 1
+            and sz.shape == n.shape == szz.shape == (cap, C)
+            and pre0.shape[0] == cap):
         raise ValueError("gauss_ext_term: shapes do not agree")
-    if not all(x.is_cuda for x in (values, tbl, slot, n, sz, szz, pre0)):
+    views = []
+    for e in coords:
+        if e.dtype not in (torch.int32, torch.int64):
+            raise ValueError(f"gauss_ext_term: coordinates must be int32 or "
+                             f"int64, got {e.dtype}")
+        try:
+            views.append(e.expand(full))
+        except RuntimeError as err:
+            raise ValueError(f"gauss_ext_term: a coordinate of shape "
+                             f"{tuple(e.shape)} does not broadcast to "
+                             f"{full}") from err
+    if not all(x.is_cuda for x in (values, tbl, n, sz, szz, pre0) + coords):
         raise ValueError("gauss_ext_term: every input must be on the card")
-    plan = gauss_ext_term_plan(B, A)
-    out = torch.empty((B, A), dtype=torch.float32, device=idx.device)
+    out = torch.empty(full, dtype=torch.float32, device=slot.device)
+    if out.numel() == 0:
+        return out
+    A = out.numel() // B
+    plan = gauss_ext_term_plan(B, A, C)
+    pad = K5_MAX_RANK - len(full)
+    dims = (ctypes.c_int64 * K5_MAX_RANK)(full[0], *([1] * pad), *full[1:])
+    k = len(views)
+    ptrs = (ctypes.c_int64 * max(1, k))(*[v.data_ptr() for v in views])
+    meta, row = [], 1
+    for v, ni in reversed(list(zip(views, env_shape))):
+        st = v.stride()
+        meta = [int(v.dtype == torch.int64), ni, row, st[0], *([0] * pad),
+                *st[1:]] + meta
+        row *= ni
+    meta = (ctypes.c_int64 * max(1, len(meta)))(*meta)
     rc = _fn("gauss_ext_term")(
-        _ptr(values), values.shape[0], _ptr(tbl), tbl.shape[0], C, _ptr(idx),
-        _ptr(slot), _ptr(n), _ptr(sz), _ptr(szz), _ptr(pre0), cap,
-        float(coef), _ptr(out), B, A, plan["threads"], plan["grid"],
-        _stream(idx))
+        k, ptrs, meta, dims, _ptr(values), values.shape[0], _ptr(tbl), E, C,
+        _ptr(slot), int(slot.dtype == torch.int64), _ptr(n), _ptr(sz),
+        _ptr(szz), _ptr(pre0), cap, float(coef), _ptr(out), plan["threads"],
+        plan["grid"], plan["fixed_c"], _stream(slot))
     _check(rc, "gauss_ext_term")
-    _count("gauss_ext_term", B)
+    _count("gauss_ext_term", B, C, f"{route},{B}x{A}")
     return out
 
 

@@ -16,8 +16,14 @@ counterparts (CPU), and CUDA kernels against the plain versions (card only).
      kernels to the plain versions (kernel_bench.check_k4 / check_k5) at
      the rents shapes and the edges: all referrers dead, none at all, a
      group with no referrers, slots and groups out of range, C = 1, one
-     slot taking 20,000 referrers, 65,536 slots, 300,000 referrers, and
-     one row for K5.
+     slot taking 20,000 referrers, 65,536 slots, 300,000 referrers; K5
+     from the env coordinates at one row, A = 1, 4,096 rows, C = 1, 5, 8
+     and 17 (the generic loop), coordinates out of range on each axis,
+     int64 coordinates and slots, three coordinates over a rank-4 output,
+     the by-shape route's folded index, two launches bit-equal, and the
+     inputs it refuses. On the CPU, K5's coordinate fold against the
+     caller's old index build (bit-equal), the by-shape route and the
+     plan's geometry.
   K7 referrer_hist and K8 sa_ext_term — the hospital path's referrer
      histograms and composed stateavg term: their plain versions against
      Python loops over the referrers (numpy) here, and on the card the
@@ -159,7 +165,7 @@ def test_gauss_wrappers_take_plain_version_on_cpu_without_counting():
     assert n[:, 0].tolist() == [1.0, 2.0] and pre0.tolist() == [1.0, 2.0]
     out = ops.gauss_ext_term(torch.ones(3), torch.zeros((2, 1),
                                                         dtype=torch.int32),
-                             torch.zeros((1, 2), dtype=torch.int32),
+                             (torch.zeros((1, 2), dtype=torch.int32),), (2,),
                              torch.zeros(1, dtype=torch.int32), n, sz, szz,
                              pre0, -0.5)
     # -0.5 * (1 - 2 * 1 + 1) + 1 for slot 0's single referrer at z = mu = 1
@@ -172,9 +178,164 @@ def test_gauss_wrappers_take_plain_version_on_cpu_without_counting():
 def test_gauss_plans_cover_their_work(R, B, A):
     p4 = ops.gauss_suffstats_plan(R)
     assert p4["threads"] == 256 and p4["grid"] * 256 >= R >= (p4["grid"] - 1) * 256
-    p5 = ops.gauss_ext_term_plan(B, A)
-    assert p5["threads"] == 256 and p5["grid"] * 256 >= B * A
-    assert (p5["grid"] - 1) * 256 < B * A
+    p5 = ops.gauss_ext_term_plan(B, A, 5)
+    per = p5["threads"] // 32
+    assert p5["chunks"] * 32 >= A > (p5["chunks"] - 1) * 32
+    assert p5["grid"] * per >= B * p5["chunks"] > (p5["grid"] - 1) * per
+
+
+def _parent_index(coords, env_shape, full):
+    """The row index as the caller built it before K5 took the env
+    coordinates (torch.zeros, then idx * n_i + clamp(e_i) for each axis)."""
+    idx = torch.zeros(full, dtype=torch.long)
+    for e, n in zip(coords, env_shape):
+        idx = idx * n + e.long().clamp(0, n - 1)
+    return idx
+
+
+def _k5_case(dev, B, A, C, case, seed=12, cap=4096, keys=180):
+    """K5 inputs of the rents County block's form: the state axis [1, A]
+    int64 and a county key [B, 1] int32 (env_shape (A, keys)), int32
+    slots, the statistics of 50,000 seeded referrers. `case` varies it:
+    "out_of_range" (coordinates out of range on both axes, a slot and a
+    table entry too), "int64" (int64 key and slots), "rank4" (three
+    coordinates over an output [B, 3, A, 2] whose last axis no coordinate
+    varies along), "index" (the by-shape route's one coordinate over the
+    table's rows)."""
+    rng = np.random.default_rng(seed)
+    E, I = A * keys, A * keys * C
+    k4 = _k4_inputs(dev, rng, 50_000, cap, C)
+    n, sz, szz, pre0 = ops.gauss_suffstats_plain(**k4)
+    values = torch.as_tensor(rng.normal(1500, 1000, I).astype(np.float32),
+                             device=dev)
+    tbl = torch.as_tensor(rng.integers(0, I, (E, C)).astype(np.int32),
+                          device=dev)
+    state = torch.arange(A, device=dev)[None, :]
+    key = torch.as_tensor(rng.integers(0, keys, (B, 1)).astype(np.int32),
+                          device=dev)
+    slot = torch.as_tensor(rng.choice(cap, B, replace=B > cap)
+                           .astype(np.int32), device=dev)
+    coords, env_shape, full = (state, key), (A, keys), (B, A)
+    if case == "out_of_range":   # gathers clamp like the JAX package's
+        key[0, 0] = keys + 5
+        key[-1, 0] = -3
+        state = state.clone()
+        state[0, -1] = A + 2
+        state[0, 0] = -1
+        coords = (state, key)
+        slot[-1] = cap + 1
+        tbl[0, 0] = -4
+    elif case == "int64":
+        coords, slot = (state, key.long()), slot.long()
+    elif case == "rank4":
+        third = torch.as_tensor(rng.integers(0, 3, (B, 3, 1, 1)),
+                                device=dev)
+        coords = (third, state[:, None, :, None], key[:, :, None, None])
+        env_shape, full = (3, A, keys // 3), (B, 3, A, 2)
+        key.clamp_(max=keys // 3 - 1)
+        tbl = tbl[:3 * A * (keys // 3)].contiguous()
+    elif case == "index":
+        idx = _parent_index([c.cpu() for c in coords], env_shape, full)
+        coords, env_shape = (idx.reshape(B, -1).to(dev, torch.int32),), (E,)
+    return dict(values=values, tbl=tbl, coords=coords, env_shape=env_shape,
+                slot=slot, n=n, sz=sz, szz=szz, pre0=pre0,
+                coef=-0.5 / 150.0 ** 2, full=full,
+                route="index" if case == "index" else "coords")
+
+
+@pytest.mark.parametrize("case", ["rents", "out_of_range", "int64",
+                                  "rank4"])
+def test_k5_fold_matches_the_parent_index_build(case):
+    """The key-table row of every output (gauss_key_rows, the sum the
+    kernel computes) equals the caller's old torch.zeros / multiply / add
+    build bit for bit, on coordinates out of range on each axis, broadcast
+    axes, int32 and int64 coordinates and int64 slots; and the plain
+    version on the coordinates equals it on that index as one coordinate
+    over the table's rows, bit for bit."""
+    B = 16
+    k5 = _k5_case(torch.device("cpu"), B, 51, 5, case)
+    rows = ops.gauss_key_rows(k5["coords"], k5["env_shape"], k5["full"])
+    want = _parent_index(k5["coords"], k5["env_shape"], k5["full"])
+    assert rows.dtype == torch.long and torch.equal(rows, want)
+    if case == "out_of_range":
+        assert int(rows.min()) >= 0
+        assert int(rows.max()) < k5["tbl"].shape[0]
+    got = ops.gauss_ext_term_plain(**k5)
+    idx = dict(k5, coords=(want.reshape(B, -1).to(torch.int32),),
+               env_shape=(k5["tbl"].shape[0],), full=None)
+    assert torch.equal(got.reshape(B, -1), ops.gauss_ext_term_plain(**idx))
+    assert tuple(got.shape) == tuple(k5["full"])
+    # and the plain version is the closed form of the old formula
+    s = k5["slot"].long().clamp(0, k5["n"].shape[0] - 1)
+    mu = k5["values"][k5["tbl"][want].long().clamp(
+        0, k5["values"].shape[0] - 1)]
+    shape = (B,) + (1,) * (len(k5["full"]) - 1) + (-1,)
+    ref = k5["coef"] * (k5["szz"][s].sum(-1).reshape(shape[:-1])
+                        - 2 * (mu * k5["sz"][s].reshape(shape)).sum(-1)
+                        + (mu * mu * k5["n"][s].reshape(shape)).sum(-1)) \
+        + k5["pre0"][s].reshape(shape[:-1])
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-2)
+
+
+@pytest.mark.parametrize("axes,rank", [(5, 2), (6, 3), (2, 5)])
+def test_k5_by_shape_route_folds_what_the_kernel_does_not_take(axes, rank):
+    """More than K5_MAX_AXES env axes, or an output of rank above
+    K5_MAX_RANK: gauss_ext_term_inputs folds the coordinates into one over
+    the table's E rows and the output [B, A] (route "index"), and the
+    plain version gives the same terms as on the coordinates themselves;
+    within the kernel's reach the coordinates pass as given."""
+    g = torch.Generator().manual_seed(axes * 10 + rank)
+    B, C = 6, 3
+    full = (B,) + (2,) * (rank - 1)
+    env_shape = tuple(range(2, 2 + axes))
+    E = int(np.prod(env_shape))
+    coords = []
+    for i, n in enumerate(env_shape):   # axis i varies along i % rank
+        shape = [1] * rank
+        shape[i % rank] = full[i % rank]
+        coords.append(torch.randint(-1, n + 1, tuple(shape), generator=g,
+                                    dtype=torch.int32 if i % 2 else
+                                    torch.int64))
+    k = ops.gauss_ext_term_inputs(coords, env_shape, full)
+    assert k["route"] == "index" and len(k["coords"]) == 1
+    assert k["env_shape"] == (E,) and k["full"] == (B, int(np.prod(full[1:])))
+    assert torch.equal(k["coords"][0].reshape(full),
+                       _parent_index(coords, env_shape, full))
+    rest = dict(values=torch.randn(E * C, generator=g),
+                tbl=torch.randint(0, E * C, (E, C), generator=g,
+                                  dtype=torch.int32),
+                slot=torch.arange(B), n=torch.rand((8, C), generator=g),
+                sz=torch.randn((8, C), generator=g),
+                szz=torch.rand((8, C), generator=g),
+                pre0=torch.randn(8, generator=g), coef=-0.3)
+    want = ops.gauss_ext_term_plain(coords=coords, env_shape=env_shape,
+                                    full=full, **rest)
+    got = ops.gauss_ext_term(**k, **rest)     # the CPU: plain version
+    assert torch.equal(got.reshape(full), want)
+    if rank <= ops.K5_MAX_RANK:
+        within = ops.gauss_ext_term_inputs(coords[:4], env_shape[:4], full)
+        assert within["route"] == "coords" and within["full"] == full
+        assert all(a is b for a, b in zip(within["coords"], coords[:4]))
+
+
+@pytest.mark.parametrize("C", [1, 5, 17])
+@pytest.mark.parametrize("B,A", [(256, 51), (1, 51), (1, 1), (4096, 51)])
+def test_k5_plan_geometry(B, A, C):
+    """A warp a row and 32 options, ceil(A / 32) warps a row, whole warps
+    in blocks of at most 256 threads that cover the launch's warps with
+    less than a block over, C a template parameter up to 8; the rents
+    County batch [256, 51] gives the card at least a block an SM."""
+    p = ops.gauss_ext_term_plan(B, A, C)
+    per = p["threads"] // 32
+    assert p["threads"] % 32 == 0 and 32 <= p["threads"] <= 256
+    assert p["chunks"] == -(-A // 32)
+    warps = B * p["chunks"]
+    assert p["grid"] * per >= warps > (p["grid"] - 1) * per
+    assert p["fixed_c"] == (C if C <= 8 else 0)
+    if (B, A) == (256, 51):
+        assert p["grid"] >= ops.N_SMS
+    if warps < ops._K5_WARPS:
+        assert per == warps      # no idle warp in a one-row launch
 
 
 def test_census_counts_launches_by_mode_rows_and_length():
@@ -581,30 +742,56 @@ def test_k4_cuda_matches_plain(card, case):
     (1, 51, 5, "rents"),     # one row
     (256, 51, 1, "rents"),   # C = 1
     (256, 51, 5, "out_of_range"),
+    (256, 51, 17, "rents"),  # the generic loop
+    (256, 1, 5, "rents"),    # A = 1
+    (1, 1, 5, "rents"),
+    (4096, 51, 5, "rents"),  # 4,096 rows
+    (256, 51, 8, "int64"),   # the largest template C; int64 key and slots
+    (64, 51, 5, "rank4"),    # three coordinates over [B, 3, A, 2]
+    (256, 51, 5, "index"),   # the by-shape route's one coordinate
 ])
 def test_k5_cuda_matches_plain(card, B, A, C, case):
+    """K5 from the env coordinates against its plain version within
+    check_k5's tolerance, two launches bit-equal (check_k5), one launch a
+    call, counted in the census under its route, output and C."""
     from pclean_tpu_torch.kernel_bench import check_k5
 
-    rng = np.random.default_rng(12)
-    cap, E, I = 4096, 51 * 180, 51 * 180 * C
-    k4 = _k4_inputs(card, rng, 50_000, cap, C)
-    n, sz, szz, pre0 = ops.gauss_suffstats_plain(**k4)
-    values = torch.as_tensor(rng.normal(1500, 1000, I).astype(np.float32),
-                             device=card)
-    tbl = torch.as_tensor(rng.integers(0, I, (E, C)).astype(np.int32),
-                          device=card)
-    key = rng.integers(0, 180, B)
-    idx = torch.as_tensor((np.arange(A)[None, :] * 180 + key[:, None])
-                          .astype(np.int32), device=card)
-    slot = torch.as_tensor(rng.choice(cap, B, replace=False).astype(np.int32),
-                           device=card)
-    if case == "out_of_range":   # gathers clamp like the JAX package's
-        idx[0, 0] = E + 5
-        slot[-1] = cap + 1
-        tbl[0, 0] = -4
-    k5 = dict(values=values, tbl=tbl, idx=idx, slot=slot, n=n, sz=sz,
-              szz=szz, pre0=pre0, coef=-0.5 / 150.0 ** 2)
+    k5 = _k5_case(card, B, A, C, case)
+    ops.reset_counts()
     check_k5(ops, k5)
+    A_out = int(np.prod(k5["full"][1:]))
+    assert ops.LAUNCHES["gauss_ext_term"] == 2
+    assert ops.LAUNCH_CENSUS["gauss_ext_term"] == {
+        (f"{k5['route']},{B}x{A_out}", "r1" if B == 1 else "rn", C): 2}
+
+
+@pytest.mark.cuda
+def test_k5_cuda_census_shape_bits_and_refusals(card):
+    """At the rents census shape the kernel's output is bit-equal over
+    launches and over the int32 and int64 forms of the same coordinates
+    and slots (the fold reads both exactly); inputs it does not take raise
+    on the card, with no launch: five coordinates, an output of rank 5,
+    int16 coordinates, a coordinate that does not broadcast, and a table
+    whose rows are not the product of the env axes."""
+    k5 = _k5_case(card, 256, 51, 5, "rents")
+    a = ops.gauss_ext_term(**k5)
+    wide = dict(k5, coords=tuple(c.long() for c in k5["coords"]),
+                slot=k5["slot"].long())
+    torch.cuda.synchronize()
+    assert torch.equal(a, ops.gauss_ext_term(**k5))
+    assert torch.equal(a, ops.gauss_ext_term(**wide))
+    state, key = k5["coords"]
+    ops.reset_counts()
+    bad = [dict(k5, coords=(state, key) * 2 + (key,),
+                env_shape=k5["env_shape"] * 2 + (1,)),
+           dict(k5, full=(256, 51, 1, 1, 1)),
+           dict(k5, coords=(state, key.to(torch.int16))),
+           dict(k5, coords=(state, key[:7])),
+           dict(k5, env_shape=(51, 179))]
+    for kw in bad:
+        with pytest.raises(ValueError):
+            ops.gauss_ext_term(**kw)
+    assert ops.LAUNCHES["gauss_ext_term"] == 0
 
 
 # ---------------------------------------------------------------- K6

@@ -16,7 +16,9 @@ from the same pclean_tpu_torch.workloads.rents.synth tables at a small size
     version): rtol 1e-5 and, per row, atol |sum_c szz| * 2^-22 / (2 *
     150^2) + 1e-5 (the closed form subtracts sums of order n * z^2 in f32,
     summed in another order); the port's closed form against its own dense
-    per-referrer path at the same tolerance;
+    per-referrer path at the same tolerance; the County block hands K5
+    its env coordinates as they are (no index built) and
+    kernel_bench's K5 census inputs rebuild them from the state;
   * Obs- and County-block sampled values fed the JAX package's uniform
     pool: bit-equal;
   * the Mean recompute: counts equal, sums rtol 1e-6, and the posterior
@@ -313,6 +315,75 @@ def test_county_closed_form_matches_dense_path(st):
         assert torch.equal(res_c.env[v], res_d.env[v]), v
 
 
+def test_county_block_passes_env_coordinates_to_k5(st):
+    """The County block hands K5 its env coordinates as the tracer holds
+    them (route "coords": the enumerated state [1, A] and the row's county
+    key [B, 1], the int64 row slots), builds no key-table index itself, and
+    kernel_bench.rents_k5_coords (the chip run's census inputs) rebuilds
+    the same coordinates from the state."""
+    from pclean_tpu_torch import kernel_bench as kb
+
+    slots = _county_slots(st)
+    _hj, ht = st.hists("County")
+    pool = torch.rand((len(slots), 8), generator=torch.Generator()
+                      .manual_seed(3))
+    n = tprop._draw_bound(st.cm_t, "County", st.cm_t.cls("County").plans[0])
+    with mock.patch.object(ops, "gauss_ext_term",
+                           wraps=ops.gauss_ext_term) as spy, \
+            mock.patch.object(ops, "gauss_key_rows",
+                              wraps=ops.gauss_key_rows) as fold:
+        st.port_block("County", slots, pool[:, :n], ht)
+    assert spy.call_count == 1
+    kw = spy.call_args.kwargs
+    assert kw["route"] == "coords" and kw["slot"].dtype == torch.int64
+    # the only fold is the plain version's, inside the wrapper on the CPU
+    assert fold.call_count == 1
+    A = st.cm_t.domain("County", st.cm_t.cls("County").names["state"]).size
+    assert kw["full"] == (len(slots), A)
+    assert sorted(tuple(c.shape) for c in kw["coords"]) == [(1, A),
+                                                          (len(slots), 1)]
+    node, kern, inv = kb.gauss_external(st.cm_t)
+    want = kb.rents_k5_coords(st.cm_t, st.at, st.pt,
+                              torch.as_tensor(slots).long(), node, kern, inv)
+    assert want["env_shape"] == tuple(kw["env_shape"])
+    assert torch.equal(want["slot"], kw["slot"])
+    for a, b in zip(want["coords"], kw["coords"]):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_k5_census_inputs_cover_every_batch(st):
+    """kernel_bench.k5_census_inputs (the chip run's K5 check at every
+    census shape of the rents path) gives a batched County shape every
+    batch of the sweep, the last padded past the capacity, and a one-row
+    shape the first live slot, each of the census row's output and C."""
+    from pclean_tpu_torch import kernel_bench as kb
+
+    cm = st.cm_t
+    cap = cm.layouts["County"].capacity
+    A = cm.domain("County", cm.cls("County").names["state"]).size
+    _hj, ht = st.hists("County")
+    C = [v for v in ht.values() if isinstance(v, tuple)][0][1].shape[1]
+    census = [dict(kernel="gauss_ext_term", mode=f"coords,{B}x{A}",
+                   rows="rn", K=C, launches=3),
+              dict(kernel="gauss_ext_term", mode=f"coords,1x{A}",
+                   rows="r1", K=C, launches=1),
+              dict(kernel="referrer_hist", mode="hoisted", rows="rn", K=9,
+                   launches=1)]
+    out = kb.k5_census_inputs(cm, st.at, st.pt, st.eng_t.obs_dev, census, B)
+    assert [r["rows"] for r, _ in out] == ["rn", "r1"]
+    rn, r1 = out[0][1], out[1][1]
+    assert len(rn) == -(-cap // B) and len(r1) == 1
+    assert torch.equal(torch.cat([x["slot"] for x in rn]),
+                       torch.arange(len(rn) * B))
+    assert int(r1[0]["slot"][0]) == int(
+        torch.nonzero(st.rt["County"]["alive"])[0, 0])
+    for x in rn + r1:
+        got = ops.gauss_ext_term(**x)       # the CPU: plain version
+        assert tuple(got.shape) == x["full"] and x["full"][1] == A
+        assert bool(torch.isfinite(got).all())
+        assert kb.k5_bytes(x) > 0
+
+
 def test_obs_block_matches_jax(st):
     slots = np.sort(np.random.default_rng(1).choice(1000, B, replace=False))
     keys = jax.random.split(jax.random.PRNGKey(5), len(slots))
@@ -378,7 +449,8 @@ def test_gauss_kernel_plain_versions_on_edges():
     tbl = torch.randint(0, 40, (9, C), generator=g, dtype=torch.int32)
     idx = torch.randint(0, 9, (1, 7), generator=g, dtype=torch.int32)
     slot = torch.tensor([3], dtype=torch.int32)
-    out = ops.gauss_ext_term(values, tbl, idx, slot, n, sz, szz, pre0, -0.1)
+    out = ops.gauss_ext_term(values, tbl, (idx,), (9,), slot, n, sz, szz,
+                             pre0, -0.1)
     mu = values[tbl[idx[0].long()].long()]                        # [7, C]
     want = -0.1 * (szz[3].sum() - 2 * (mu * sz[3]).sum(-1)
                    + (mu * mu * n[3]).sum(-1)) + pre0[3]
