@@ -6,7 +6,7 @@
 
 It drives the port only (never jax, never pclean_tpu), in order:
   1. prints the card's name and power limit (nvidia-smi);
-  2. builds the eight CUDA kernels from pclean_tpu_torch/csrc/ (one nvcc per
+  2. builds the nine CUDA kernels from pclean_tpu_torch/csrc/ (one nvcc per
      source, in parallel) and prints the build time and ptxas's registers,
      shared memory, stack frame and spills for each compiled function;
   3. checks the tracer's CUDA path against its CPU path (plain versions) on
@@ -70,15 +70,27 @@ It drives the port only (never jax, never pclean_tpu), in order:
      against its referrer list or the Obs rows, for the time field of
      each census vocabulary, kernel_bench.k6_census_inputs; the plan names
      its route: warp or block);
-  8. runs the hospital path end to end (pclean_tpu_torch/workloads/
-     hospital.py, the port's copy of experiments/hospital.py on its seeded
-     synthetic hospital tables) at the source's config: 1,000 rows tiled
-     100 times, capacities of experiments/hospital.py, MH, 1 sweep,
-     batch_rows 4096 (bench.py:238-239): the same report, then K7 and K8
-     as in step 5 (K7's library call is one torch.bincount, K8 has none);
+  8. runs the hospital model's three paths end to end (pclean_tpu_torch/
+     workloads/hospital.py, the port's copy of experiments/hospital.py on
+     its seeded synthetic hospital tables, capacities of
+     experiments/hospital.py, 1 sweep), each followed by K7 and K8 as in
+     step 5 (K7's library call is one torch.bincount, K8 has none):
+       - hospital: the source's config, 1,000 rows tiled 100 times, MH,
+         batch_rows 4096 (bench.py:238-239);
+       - hospital_pg1024: bench.py:245-247's configuration, 1,000 rows
+         tiled 100 times, batch_rows 4096, particle Gibbs with 1,024
+         particles; the model passes the exact-Gibbs audit, so every row
+         is the collapsed one-draw SMC; prints the init log-ML;
+       - hospital_pg16_vmapped: scripts/pg_measurements.py's (b), 1,000
+         rows, batch_rows 64, 16 particles with collapse_exact_pg off: the
+         written-out particle path (64 x 16 particle-rows a step) with K9
+         resampling between the two Record blocks and drawing the final
+         particle; prints the init log-ML; then K9 at every shape of its
+         launch census (kernel_bench.k9_census_inputs: seeded weights,
+         half the rows spread so that they resample);
   9. prints, for each kernel, how many shapes were checked and the worst
-     error, then the `kernels` JSON line (K1-K8; `launches` summed over
-     the four paths, with each path's own beside it; `max_abs_err` the
+     error, then the `kernels` JSON line (K1-K9; `launches` summed over
+     the six paths, with each path's own beside it; `max_abs_err` the
      worst over every shape checked; the times those of the shape named in
      `shape`; every shape's numbers in chip_smoke.json under --out), then
      the card line, then the result.
@@ -97,14 +109,21 @@ of each cell's sum of |terms| (atomics add in any order); K5 within 2^-20 *
 subtract); K6 within 1e-5 of each cell's sum of |terms| + 1e-6 (the same
 terms summed in another order); K7 bit-equal (integer counts); K8 within
 1e-5 of each cell's sum of |terms| + 1e-6 (double sums in a fixed order
-against an f32 histogram-times-SA product). It fails (non-zero exit, no
-result line) if there is no card, a kernel does not build, launch or agree,
-K1-K3 were not launched on the scaled path, K4 and K5 not on the rents
-path, K1, K2 and K6 not on the flights path or K1-K3, K7 and K8 not on the
-hospital path, the scaled F1 < SCALED_F1_FLOOR, the rents F1 <
-RENTS_F1_FLOOR, the flights F1 < FLIGHTS_F1_FLOOR, the hospital F1 <
-HOSPITAL_F1_FLOOR, or any phase raises.
+against an f32 histogram-times-SA product); K9 (kernel_bench.check_k9):
+rows whose ESS lies within 1e-6 P of P / 2 are left out, on the others the
+resampling decision is equal, ws_out and lml within 1e-6 of max(1,
+|logsumexp|), and the picks equal but on <= 1e-2 of them (at 100 or more),
+each within 1e-4 of the total from a CDF boundary (exact fixed-point
+prefix sums against torch.cumsum's f32 ones, K2's rule). It fails
+(non-zero exit, no result line) if there is no card, a kernel does not
+build, launch or agree, K1-K3 were not launched on the scaled path, K4 and
+K5 not on the rents path, K1, K2 and K6 not on the flights path, K1-K3, K7
+and K8 not on the hospital or the hospital_pg1024 path, K1-K3 and K9 in
+both its modes not on the hospital_pg16_vmapped path, a PG path's log-ML
+is not finite, a path's F1 is below its floor (F1_FLOORS: scaled, rents,
+flights, hospital, and the two PG paths'), or any phase raises.
 """
+import math
 import json
 import os
 import subprocess
@@ -137,12 +156,32 @@ FLIGHTS = dict(rows=2376, flights=100, websites=38, sweeps=5)
 # seeds 0-2) reached F1 1.0, 0.9934 and 1.0 (scripts/flights_jax_floor.py);
 # the floor is the lowest less 0.03
 FLIGHTS_F1_FLOOR = 0.9933812949640289 - 0.03
-HOSPITAL = dict(rows=1000, repeat=100, batch=4096)
+# the hospital model's paths: MH and the collapsed PG path at bench.py's
+# 100,000 rows, the written-out PG path at 1,000
+HOSPITAL_PATHS = {
+    "hospital": dict(rows=1000, repeat=100, batch=4096),
+    "hospital_pg1024": dict(rows=1000, repeat=100, batch=4096,
+                            particles=1024),
+    "hospital_pg16_vmapped": dict(rows=1000, repeat=1, batch=64,
+                                  particles=16, collapse_exact_pg=False),
+}
 # pclean_tpu on the CPU on the same hospital tables (MH, 1 sweep, seeds 0-2,
 # at 5,000 rows and B = 256: 100,000 rows at B = 4096 do not fit a CPU host)
 # reached F1 0.99945, 0.99931 and 0.99931 (scripts/hospital_jax_floor.py);
 # the floor is the lowest less 0.03
 HOSPITAL_F1_FLOOR = 0.9993136582017845 - 0.03
+# pclean_tpu's PG path on the same tables (scripts/hospital_pg_jax_floor.py,
+# seeds 0-2, 1 sweep), the lowest less 0.03: collapsed P = 1,024 at 5,000
+# rows and B = 256 reached F1 0.99931, 0.99959 and 0.99931; the written-out
+# P = 16 path at hospital_pg16_vmapped's own configuration 0.9265, 0.9744
+# and 0.9191 (its F1 trails the collapsed path's, VERDICT.md:132-147, so it
+# is held to its own runs)
+PG1024_F1_FLOOR = 0.9993136582017845 - 0.03
+PG16_F1_FLOOR = 0.9191270860077023 - 0.03
+F1_FLOORS = {"scaled": SCALED_F1_FLOOR, "rents": RENTS_F1_FLOOR,
+             "flights": FLIGHTS_F1_FLOOR, "hospital": HOSPITAL_F1_FLOOR,
+             "hospital_pg1024": PG1024_F1_FLOOR,
+             "hospital_pg16_vmapped": PG16_F1_FLOOR}
 # K1-K3 are checked at every census shape holding at least this share of
 # a path's one-row, or of its batched, launches of the kernel; K7 and K8 at
 # every census shape
@@ -173,13 +212,19 @@ SOURCES = {
                       "pclean_tpu/engine/propose.py:1399"),
     "sa_ext_term": ("pclean_tpu_torch/csrc/sa_ext_term.cu",
                     "pclean_tpu/engine/propose.py:801"),
+    "pg_resample": ("pclean_tpu_torch/csrc/pg_resample.cu",
+                    "pclean_tpu/engine/particles.py:131"),
 }
 SCALED_KERNELS = ("enum_logsumexp", "inv_cdf_sample", "obs_gather_sum")
 RENTS_KERNELS = ("gauss_suffstats", "gauss_ext_term")
 FLIGHTS_KERNELS = ("enum_logsumexp", "inv_cdf_sample", "maybe_swap_ext")
 HOSPITAL_KERNELS = ("enum_logsumexp", "inv_cdf_sample", "obs_gather_sum",
                     "referrer_hist", "sa_ext_term")
-PATHS = ("scaled", "rents", "flights", "hospital")
+NEED = {"scaled": SCALED_KERNELS, "rents": RENTS_KERNELS,
+        "flights": FLIGHTS_KERNELS, "hospital": HOSPITAL_KERNELS,
+        "hospital_pg1024": HOSPITAL_KERNELS,
+        "hospital_pg16_vmapped": SCALED_KERNELS + ("pg_resample",)}
+PATHS = tuple(NEED)
 
 
 def bench_kernels(ops, cm, dev):
@@ -505,17 +550,58 @@ def bench_k7_k8_census(ops, eng, arenas, params, census, B: int, path: str,
 
 
 def k7_k8_entry(name: str, shapes: list) -> dict:
-    """K7's or K8's kernels-line entry: the numbers of the hospital path's
-    batched shape that moves the most bytes (K7: its largest hoisted
-    histogram; K8: the County or Measure sweep)."""
+    """K7's or K8's kernels-line entry: the numbers of the 100,000-row
+    hospital_pg1024 path's batched shape that moves the most bytes (K7:
+    its largest hoisted histogram; K8: the County or Measure sweep)."""
     top = max((r for r in shapes
-               if r["path"] == "hospital" and r["rows"] == "rn"),
+               if r["path"] == "hospital_pg1024" and r["rows"] == "rn"),
               key=lambda r: r["bytes"])
     return dict({key: top[key] for key in (
         "max_abs_err", "ms", "device_ms", "plain_ms", "library_ms",
         "library_device_ms", "bytes", "bound_ms", "floor_ms", "plan",
         "shape")}, name=name, route="cuda", source=SOURCES[name][0],
         replaces=SOURCES[name][1], bound_by="bytes")
+
+
+def bench_k9_census(ops, dev, census, B: int, path: str, floor) -> list:
+    """K9 at every shape of a path's launch census (mode, P, one row or B
+    rows), on seeded weights (kernel_bench.k9_census_inputs): checked
+    against its plain version (kernel_bench.check_k9), timed beside it,
+    with the bytes bound and the launch floor."""
+    from pclean_tpu_torch import kernel_bench as kb
+
+    out = []
+    for r, k9 in kb.k9_census_inputs(dev, census, B):
+        R, P = k9["ws"].shape
+        nbytes = kb.k9_bytes(R, P, r["mode"])
+        out.append(dict(
+            kb.check_k9(ops, k9), path=path, mode=r["mode"], rows=r["rows"],
+            launches=r["launches"], shape=f"{r['mode']} ws [{R}, {P}]",
+            bytes=nbytes, bound_ms=nbytes / kb.HBM_BYTES_PER_S * 1e3,
+            floor_ms=floor, plan=ops.pg_resample_plan(R, P),
+            **kb.time_k9(ops, k9)))
+        x = out[-1]
+        print(f"pg_resample {path} {x['shape']} ({x['launches']} launches):"
+              f" max_abs_err {x['max_abs_err']:.3g} mismatch rate "
+              f"{x['mismatch_rate']:.3g} kernel {x['ms']:.4f} ms (device "
+              f"{x['device_ms']:.4f} ms) plain {x['plain_ms']:.4f} ms bound "
+              f"{x['bound_ms']:.6f} ms floor {floor:.4f} ms plan "
+              f"{x['plan']}", flush=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+def k9_entry(shapes: list) -> dict:
+    """K9's kernels-line entry: the numbers of its batched resample shape
+    (the written-out path's [B, P] between the Record blocks)."""
+    top = max(shapes, key=lambda r: (r["rows"] == "rn",
+                                     r["mode"] == "resample", r["bytes"]))
+    return dict({key: top[key] for key in (
+        "max_abs_err", "ms", "device_ms", "plain_ms", "library_ms",
+        "library_device_ms", "bytes", "bound_ms", "floor_ms", "plan",
+        "shape")}, name="pg_resample", route="cuda",
+        source=SOURCES["pg_resample"][0],
+        replaces=SOURCES["pg_resample"][1], bound_by="bytes")
 
 
 def ptxas_lines(ops) -> dict:
@@ -702,10 +788,14 @@ def run_path(ops, name, cm, config, dirty, clean, query, rows):
                phase_times=eng.phase_times,
                max_memory_allocated=torch.cuda.max_memory_allocated(),
                memory_allocated_at_start=at_start, launches=launches,
-               launches_by_shape=by_shape, census=census)
+               launches_by_shape=by_shape, census=census,
+               log_ml=float(eng.log_ml), particles=config.num_particles,
+               pg=not config.use_mh_instead_of_pg)
     print(f"{name} path ({rows} rows, B={config.batch_rows}): init "
           f"{init_s:.2f} s, sweep {sweep_s:.2f} s, rows-cleaned/s "
-          f"{rep['rows_cleaned_per_s']:.1f}", flush=True)
+          f"{rep['rows_cleaned_per_s']:.1f}"
+          + (f", PG P={config.num_particles}, init log-ML {rep['log_ml']}"
+             if rep["pg"] else ""), flush=True)
     print(f"{name} phases (wall s): {eng.phase_times}")
     print(f"{name} F1 {res['f1']:.4f} precision {res['precision']:.4f} "
           f"recall {res['recall']:.4f}; occupancy {occ}; "
@@ -845,41 +935,47 @@ def main() -> int:
     del cm, dirty, clean, query, arenas, params, eng
     torch.cuda.empty_cache()
 
-    # the hospital path (100,000 rows, B = 4096), then K7 and K8 at its
-    # shapes
-    phase("hospital path")
-    t = time.time()
-    cm, config, dirty, clean, query, _sweeps = hospital.setup(
-        **HOSPITAL, device="cuda")
-    compile_s = time.time() - t
-    rows = HOSPITAL["rows"] * HOSPITAL["repeat"]
-    print(f"hospital compile_model: {compile_s:.2f} s, capacities "
-          f"{ {c: cm.layouts[c].capacity for c in cm.model.class_order} }, "
-          f"composed SA tensors "
-          f"{[a.shape for a in cm._ext_sa_cache.values()]}", flush=True)
-    hp, (arenas, params, eng) = run_path(ops, "hospital", cm, config, dirty,
-                                         clean, query, rows)
-    report["hospital"] = dict(hp, compile_s=compile_s,
-                              f1_floor=HOSPITAL_F1_FLOOR)
-    phase("hospital kernel checks")
-    add("hospital", bench_k7_k8_census(ops, eng, arenas, params,
-                                       hp["census"], BATCH, "hospital",
-                                       floor))
-    del cm, dirty, clean, query, arenas, params, eng
-    torch.cuda.empty_cache()
+    # the hospital model's paths: MH, collapsed PG at 100,000 rows and the
+    # written-out PG path, each with K7 and K8 at its census shapes
+    runs = {"scaled": sc, "rents": rn, "flights": fl}
+    for path, cfg in HOSPITAL_PATHS.items():
+        phase(f"{path} path")
+        t = time.time()
+        cm, config, dirty, clean, query, _sweeps = hospital.setup(
+            **cfg, device="cuda")
+        compile_s = time.time() - t
+        rows = cfg["rows"] * cfg["repeat"]
+        print(f"{path} compile_model: {compile_s:.2f} s, capacities "
+              f"{ {c: cm.layouts[c].capacity for c in cm.model.class_order} }"
+              f", exact Gibbs {cm.exact_gibbs_ok}, composed SA tensors "
+              f"{[a.shape for a in cm._ext_sa_cache.values()]}", flush=True)
+        hp, (arenas, params, eng) = run_path(ops, path, cm, config, dirty,
+                                             clean, query, rows)
+        runs[path] = hp
+        report[path] = dict(hp, compile_s=compile_s,
+                            f1_floor=F1_FLOORS[path])
+        phase(f"{path} kernel checks")
+        add(path, bench_k7_k8_census(ops, eng, arenas, params, hp["census"],
+                                     cfg["batch"], path, floor))
+        del cm, dirty, clean, query, arenas, params, eng
+        torch.cuda.empty_cache()
 
-    # K1-K3 at every path's census shapes, on seeded inputs: last, so that
-    # the CUDA graphs they are timed in leave nothing behind in a path's
-    # peak memory
-    runs = {"scaled": sc, "rents": rn, "flights": fl, "hospital": hp}
-    for path, B in (("scaled", BATCH), ("rents", RENTS["batch"]),
-                    ("flights", 1), ("hospital", BATCH)):
+    # K1-K3 and K9 at every path's census shapes, on seeded inputs: last, so
+    # that the CUDA graphs they are timed in leave nothing behind in a
+    # path's peak memory
+    batch = dict({p: c["batch"] for p, c in HOSPITAL_PATHS.items()},
+                 scaled=BATCH, rents=RENTS["batch"], flights=1)
+    for path in PATHS:
         phase(f"{path} K1-K3 census shapes")
+        B = batch[path]
         add(path, bench_k1_shapes(ops, dev, runs[path]["census"], B))
         add(path, {"obs_gather_sum": bench_k3_shapes(
             ops, dev, runs[path]["census"], B)})
+        add(path, {"pg_resample": bench_k9_census(
+            ops, dev, runs[path]["census"], B, path, floor)})
     kernels += [k7_k8_entry(name, checked[name])
                 for name in ("referrer_hist", "sa_ext_term")]
+    kernels.append(k9_entry(checked["pg_resample"]))
     phase("done")
 
     for k in kernels:
@@ -899,20 +995,18 @@ def main() -> int:
         print(f"{k['name']}: {len(shapes)} shapes checked on "
               f"{sorted({r['path'] for r in shapes})}, worst max_abs_err "
               f"{k['max_abs_err']:.3g}", flush=True)
-    for path, need in (("scaled", SCALED_KERNELS), ("rents", RENTS_KERNELS),
-                       ("flights", FLIGHTS_KERNELS),
-                       ("hospital", HOSPITAL_KERNELS)):
+    for path, need in NEED.items():
         missing = [k for k in need if runs[path]["launches"][k] <= 0]
         require(not missing, f"kernels never launched on the {path} path: "
                 f"{missing}")
-    require(sc["f1"] >= SCALED_F1_FLOOR,
-            f"scaled F1 {sc['f1']} < {SCALED_F1_FLOOR}")
-    require(rn["f1"] >= RENTS_F1_FLOOR,
-            f"rents F1 {rn['f1']} < {RENTS_F1_FLOOR}")
-    require(fl["f1"] >= FLIGHTS_F1_FLOOR,
-            f"flights F1 {fl['f1']} < {FLIGHTS_F1_FLOOR}")
-    require(hp["f1"] >= HOSPITAL_F1_FLOOR,
-            f"hospital F1 {hp['f1']} < {HOSPITAL_F1_FLOOR}")
+        require(runs[path]["f1"] >= F1_FLOORS[path],
+                f"{path} F1 {runs[path]['f1']} < {F1_FLOORS[path]}")
+        require(not runs[path]["pg"] or math.isfinite(runs[path]["log_ml"]),
+                f"{path} log-ML {runs[path]['log_ml']} is not finite")
+    k9_modes = {r["mode"] for r in runs["hospital_pg16_vmapped"]["census"]
+                if r["kernel"] == "pg_resample"}
+    require(k9_modes == set(ops.K9_MODES),
+            f"K9 launched in modes {k9_modes} on hospital_pg16_vmapped")
     report["total_s"] = time.time() - t0
     report["kernels"] = kernels
     if out_dir:
@@ -921,9 +1015,8 @@ def main() -> int:
             json.dump(report, f, indent=1, default=str)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "library_device_ms", "launches_scaled",
-            "launches_rents", "launches_flights", "launches_hospital",
-            "launches_r1", "ms_r1",
+            "library_ms", "library_device_ms",
+            *(f"launches_{p}" for p in PATHS), "launches_r1", "ms_r1",
             "device_ms_r1", "plain_ms_r1", "bound_ms_r1", "library_ms_r1",
             "floor_ms", "shape", "shapes_checked")
     print(json.dumps({"kernels": [{k: kk[k] for k in keys if k in kk}

@@ -24,12 +24,18 @@ slots. The JAX package's `scan_sweep_all` fuses those per-class segments
 into one XLA dispatch with the same semantics; eager torch has no dispatch
 to save, so it has no twin here.
 
+Particle Gibbs (use_mh_instead_of_pg=False, num_particles = P > 1) rides
+the same drivers with engine/particles.py's row bodies: `pg_row_step` in
+the batched segments, `pg_init_step` / `pg_rejuv_step` in the sequential
+loops and the replays; `Engine.log_ml` accumulates each observed class's
+init log-ML, each row once, and restarts at the next class. MH-mode init on a model that fails the exact-Gibbs audit runs
+the reference's two fresh particles the same way (P = 2, not collapsed).
+
 JAX's `vmap` over rows becomes the explicit batch axis of the BlockTracer,
-and its `lax.scan` bodies become Python loops over batches or rows. The
-particle-Gibbs drivers and sharding are not ported yet: `sweep` and
-`initialize` raise for configs that need them. Randomness comes from one
-torch.Generator per call (`key`), so runs are reproducible per seed but do
-not reproduce the JAX package's key streams.
+and its `lax.scan` bodies become Python loops over batches or rows.
+Sharding is not ported yet. Randomness comes from one torch.Generator per
+call (`key`), so runs are reproducible per seed but do not reproduce the
+JAX package's key streams.
 """
 from __future__ import annotations
 
@@ -69,6 +75,9 @@ class InferenceConfig:
     scan_segment: int = 512  # sequential ramp segment (scan_init)
     batch_segment_rows: int = 16384
     exact_gibbs_accept: bool = True
+    # PG on an audit-passing model collapses to one exact draw a row
+    # (engine/particles.py); False forces the written-out particle path
+    collapse_exact_pg: bool = True
 
 
 def _obs_device(cm: CompiledModel):
@@ -150,6 +159,21 @@ def _birthy(births, B, device):
     return out
 
 
+def exclude_rows(eng, cid: ClassID, arenas: dict, rel: dict, slots, valid):
+    """Each of the rows `slots` [B] excluded from its own copy of the frozen
+    snapshot by an exact point delta (the batch axis written out: per-row
+    leaves), and which of them are live and valid. Returns (rel, alive
+    [B])."""
+    cm = eng.cm
+    if cm.layouts[cid].observed:
+        rel = row_delta(cm, rel, arenas, eng.obs_dev, cid, slots, -1,
+                        dense=True, props=False)
+        return rel, take(arenas[cid]["alive"], slots) & valid
+    if cm.layouts[cid].fk_vertices:
+        rel = latent_row_delta(cm, rel, arenas, cid, slots, -1, dense=True)
+    return rel, _rtake(rel[cid]["alive"], slots[:, None])[:, 0] & valid
+
+
 def mh_row_step(eng, cid: ClassID, arenas: dict, rel: dict, params: dict,
                 slots, gen, valid, ext_hists=None, ref_comp=None, cand=None,
                 pools=None):
@@ -163,20 +187,11 @@ def mh_row_step(eng, cid: ClassID, arenas: dict, rel: dict, params: dict,
     cm = eng.cm
     slots = _slots(cm, slots)
     B = int(slots.shape[0])
-    if cm.layouts[cid].observed:
-        rel = row_delta(cm, rel, arenas, eng.obs_dev, cid, slots, -1,
-                        dense=True, props=False)
-    elif cm.layouts[cid].fk_vertices:
-        rel = latent_row_delta(cm, rel, arenas, cid, slots, -1, dense=True)
+    rel, alive = exclude_rows(eng, cid, arenas, rel, slots, valid)
     env_p, births, w_p = eng._propose(cid, arenas, rel, params, slots, gen,
                                       False, ext_hists=ext_hists,
                                       ref_comp=ref_comp, cand=cand,
                                       pools=pools)
-    if cm.layouts[cid].observed:
-        alive = take(arenas[cid]["alive"], slots)
-    else:
-        alive = _rtake(rel[cid]["alive"], slots[:, None])[:, 0]
-    alive = alive & valid
     birthy = _birthy(births, B, cm.device)
     if eng.exact_accept:
         accept = alive
@@ -330,6 +345,8 @@ class Engine:
         # wall seconds per phase of the last initialize() (by class) and
         # sweep ("sweep:<class>")
         self.phase_times: dict = {}
+        # the last PG (or two-particle MH) initialize()'s log-ML estimate
+        self.log_ml = torch.zeros((), device=dev)
 
     def _gen(self, key) -> torch.Generator:
         if isinstance(key, torch.Generator):
@@ -338,15 +355,19 @@ class Engine:
         g.manual_seed(int(key))
         return g
 
-    def _check_supported(self):
-        cfg = self.config
-        if not cfg.use_mh_instead_of_pg and cfg.num_particles > 1:
-            raise NotImplementedError(
-                "particle Gibbs is not ported yet (use_mh_instead_of_pg)")
-        if not self.exact_accept and cfg.num_particles > 1:
-            raise NotImplementedError(
-                "two-particle MH init for models failing the exact-Gibbs "
-                "audit is not ported yet")
+    @property
+    def _collapsed(self) -> bool:
+        """PG collapses to one exact draw a row (particles.py)."""
+        return self.exact_accept and self.config.collapse_exact_pg
+
+    def _pg_seg(self, P: int) -> int:
+        """Rows a sequential PG segment (smc.py:1103-1106): the collapsed
+        form costs one enumeration a row whatever P; the written-out one
+        P, so its segment shrinks with P."""
+        seg = self.config.scan_segment
+        if self._collapsed:
+            return min(seg, 512)
+        return max(1, min(seg, seg * 8 // max(1, P)))
 
     def arena_occupancy(self, arenas) -> dict:
         """{latent class: (live rows, capacity)}."""
@@ -499,22 +520,33 @@ class Engine:
     # ------------------------------------------------ sequential replay
 
     def _replay_chunk(self, cid: ClassID, arenas, params, idx, gen,
-                      rejuv: bool):
+                      rejuv: bool, pg_P: Optional[int] = None):
         """Incorporate the rows `idx` one at a time (smc.py:817-917): each
         row proposes against the relational state carried by exact point
         deltas (observed classes) or a fresh exclude-refresh (latent
-        classes)."""
+        classes). pg_P replays each row as a P-particle SMC (pg_init_step,
+        pg_rejuv_step). Returns (arenas, the init rows' summed log-ML)."""
+        from .particles import pg_init_step, pg_rejuv_step
+
         cm = self.cm
         # observed classes carry rel by exact point deltas; latent-class
         # replays are rare and recompute with the row excluded
         incr = cm.layouts[cid].observed
         rel = refresh(cm, arenas, self.obs_dev) if incr else None
+        lml = torch.zeros((), device=cm.device)
         for s in idx:
             s = int(s)
             if rejuv:
                 relx = row_delta(cm, rel, arenas, self.obs_dev, cid, s, -1) \
                     if incr else refresh(cm, arenas, self.obs_dev,
                                          exclude_cid=cid, exclude_slot=s)
+                if pg_P:
+                    arenas = pg_rejuv_step(self, cid, arenas, relx, params,
+                                           s, gen, pg_P)
+                    if incr:
+                        rel = row_delta(cm, relx, arenas, self.obs_dev, cid,
+                                        s, +1)
+                    continue
                 st = torch.tensor([s], device=cm.device)
                 alive = take(arenas[cid]["alive"], st) \
                     if cm.layouts[cid].observed else take(relx[cid]["alive"],
@@ -534,20 +566,31 @@ class Engine:
                     rel = row_delta(cm, relx, arenas, self.obs_dev, cid, s, +1)
             else:
                 relx = rel if incr else refresh(cm, arenas, self.obs_dev)
-                env2, births, _w = self._propose(cid, arenas, relx, params,
-                                                 [s], gen, False)
-                arenas = apply_row(cm, cid, arenas, s, env2, births,
-                                   accept=True, mark_alive=True)
+                if pg_P:
+                    arenas, w = pg_init_step(self, cid, arenas, relx, params,
+                                             s, gen, pg_P)
+                    lml = lml + w.sum()
+                else:
+                    env2, births, _w = self._propose(cid, arenas, relx,
+                                                     params, [s], gen, False)
+                    arenas = apply_row(cm, cid, arenas, s, env2, births,
+                                       accept=True, mark_alive=True)
                 if incr:
                     rel = row_delta(cm, relx, arenas, self.obs_dev, cid, s, +1)
-        return arenas
+        return arenas, lml
 
     def replay_rows(self, cid: ClassID, arenas, params, idx, gen,
-                    rejuv: bool):
-        """Sequentially replay the flagged (entity-birthing) rows."""
+                    rejuv: bool, pg_P: Optional[int] = None):
+        """Sequentially replay the flagged (entity-birthing) rows; with
+        pg_P as P-particle SMC, the init rows' log-ML added to
+        Engine.log_ml (rejuvenation rows add none)."""
         if len(idx) == 0:
             return arenas
-        return self._replay_chunk(cid, arenas, params, idx, gen, rejuv)
+        arenas, lml = self._replay_chunk(cid, arenas, params, idx, gen,
+                                         rejuv, pg_P)
+        if pg_P and not rejuv:
+            self.log_ml = self.log_ml + lml
+        return arenas
 
     def _replay_alloc_step(self, cid: ClassID, arenas, params, slots, gen):
         """ONE batched init pass over deferred rows with in-batch birth
@@ -555,14 +598,15 @@ class Engine:
         refresh, value-identical births dedupe onto one slot; chained
         births and free-pool overflow stay for the sequential replay.
 
-        Returns (arenas, still [R])."""
+        Returns (arenas, still [R], the applied rows' summed proposal
+        weight: their collapsed-PG log-ML)."""
         cm = self.cm
         cap = cm.layouts[cid].capacity
         slots = _slots(cm, slots)
         rel = refresh(cm, arenas, self.obs_dev)
         valid = slots < cap
         statics: list = []
-        env2, birthy, chained, tb, _w = init_row_step_alloc(
+        env2, birthy, chained, tb, w = init_row_step_alloc(
             self, cid, arenas, rel, params, slots, gen, valid, statics)
         arenas2, env2, overflow = _alloc_births(
             cm, arenas, rel, env2, tb, statics, birthy & ~chained)
@@ -570,56 +614,71 @@ class Engine:
         ok = valid & ~still
         arenas = _apply_batch(cm, cid, arenas2, slots, env2, ok,
                               mark_alive=True)
-        return arenas, still
+        return arenas, still, torch.where(ok, w, torch.zeros_like(w)).sum()
 
     def replay_rows_alloc(self, cid: ClassID, arenas, params, idx, gen,
-                          chunk: int = 1024):
+                          chunk: int = 1024, pg: bool = False):
         """Batched-allocation replay of deferred init rows in chunks of
         `chunk`; returns (arenas, remaining_idx) with the chained/overflow
-        rows left for the exact sequential replay."""
+        rows left for the exact sequential replay. With pg the applied
+        rows' log-ML is added to Engine.log_ml (collapsed-PG init)."""
         n = len(idx)
         if n == 0:
             return arenas, idx
         remaining = []
         for i in range(0, n, chunk):
             part = np.asarray(idx[i:i + chunk], np.int64)
-            arenas, still = self._replay_alloc_step(cid, arenas, params,
-                                                    part, gen)
+            arenas, still, lml = self._replay_alloc_step(cid, arenas, params,
+                                                         part, gen)
+            if pg:
+                self.log_ml = self.log_ml + lml
             st = still.cpu().numpy()
             remaining.extend(int(s) for s in part[st])
         return arenas, np.asarray(remaining, np.int64)
 
     # ------------------------------------------------------ scan drivers
 
-    def scan_init(self, cid: ClassID, num_rows: int):
+    def scan_init(self, cid: ClassID, num_rows: int,
+                  pg_P: Optional[int] = None):
         """The sequential init program (smc.py:1023-1083) as a Python loop:
         run(arenas, params, base, gen) incorporates `seg` rows from `base`,
         carrying rel by exact point deltas and resampling parameters every
-        rejuv_frequency rows. Returns (run, seg)."""
-        seg = min(self.config.scan_segment, num_rows)
+        rejuv_frequency rows; returns (arenas, params, the rows' summed
+        log-ML). pg_P makes it scan_init_pg (smc.py:1085-1149): each row a
+        P-particle SMC (pg_init_step), in segments of _pg_seg(P) rows.
+        Returns (run, seg)."""
+        seg = min(self._pg_seg(pg_P) if pg_P else self.config.scan_segment,
+                  num_rows)
         cm = self.cm
         R = self.config.rejuv_frequency
+        from .particles import pg_init_step
 
         def run(arenas, params, base, gen):
             rel = refresh(cm, arenas, self.obs_dev)
+            lml = torch.zeros((), device=cm.device)
             for off in range(seg):
                 slot = base + off
                 if slot >= num_rows:
                     break
-                env2, births, _w = self._propose(cid, arenas, rel, params,
-                                                 [slot], gen, False)
-                arenas = apply_row(cm, cid, arenas, slot, env2, births,
-                                   accept=True, mark_alive=True)
+                if pg_P:
+                    arenas, w = pg_init_step(self, cid, arenas, rel, params,
+                                             slot, gen, pg_P)
+                    lml = lml + w.sum()
+                else:
+                    env2, births, _w = self._propose(cid, arenas, rel, params,
+                                                     [slot], gen, False)
+                    arenas = apply_row(cm, cid, arenas, slot, env2, births,
+                                       accept=True, mark_alive=True)
                 rel = row_delta(cm, rel, arenas, self.obs_dev, cid, slot, +1)
                 if (slot + 1) % R == 0:
                     arenas, params = resample_all(cm, arenas, params,
                                                   self.obs_dev, gen, rel=rel)
-            return arenas, params
+            return arenas, params, lml
 
         return run, seg
 
     def _sweep_segment(self, cid: ClassID, arenas, params, base: int, gen,
-                       seg: int, pools=None):
+                       seg: int, pools=None, pg_P: Optional[int] = None):
         """One class's MH rejuvenation over `seg` row slots from `base`, one
         row at a time (smc.py:1332-1429), with the relational state carried
         by class kind:
@@ -631,7 +690,11 @@ class Engine:
         Dead slots propose and are rejected by the accept mask; the explicit
         MH comparison runs where exact_accept is False; resample_all runs
         every rejuv_frequency slots. `pools`: optional per-row lists of
-        per-block injected uniform pools [1, n]."""
+        per-block injected uniform pools [1, n]. pg_P rejuvenates each row
+        by P-particle conditional SMC instead (pg_rejuv_step), as
+        scan_sweep_class_pg does (smc.py:1151-1208)."""
+        from .particles import pg_rejuv_step
+
         cm = self.cm
         cap = cm.layouts[cid].capacity
         R = self.config.rejuv_frequency
@@ -656,24 +719,30 @@ class Engine:
                 rel = relc
             else:
                 rel = latent_row_delta(cm, relcar, arenas, cid, slot, -1)
-            env_p, births_p, w_p = self._propose(
-                cid, arenas, rel, params, st, gen, False, ext_hists=hists,
-                ref_comp=comp, pools=None if pools is None else pools[off])
-            alive = take(arenas[cid]["alive"] if observed
-                         else rel[cid]["alive"], st)
-            if self.exact_accept:
-                accept = alive
-            else:
-                _e, _b, w_r = self._propose(cid, arenas, rel, params, st, gen,
-                                            True, ext_hists=hists,
-                                            ref_comp=comp)
-                u = torch.rand((1,), generator=gen, device=cm.device)
-                accept = (torch.log(u) < (w_p - w_r)) & alive
             if hops:
                 old_fks = {fkv: take(arenas[cid]["values"][fkv], st)
                            for fkv in fkvs}
-            arenas = apply_row(cm, cid, arenas, slot, env_p, births_p,
-                               accept=accept, mark_alive=False)
+            if pg_P:
+                arenas = pg_rejuv_step(self, cid, arenas, rel, params, slot,
+                                       gen, pg_P, ext_hists=hists,
+                                       ref_comp=comp)
+            else:
+                env_p, births_p, w_p = self._propose(
+                    cid, arenas, rel, params, st, gen, False,
+                    ext_hists=hists, ref_comp=comp,
+                    pools=None if pools is None else pools[off])
+                alive = take(arenas[cid]["alive"] if observed
+                             else rel[cid]["alive"], st)
+                if self.exact_accept:
+                    accept = alive
+                else:
+                    _e, _b, w_r = self._propose(cid, arenas, rel, params, st,
+                                                gen, True, ext_hists=hists,
+                                                ref_comp=comp)
+                    u = torch.rand((1,), generator=gen, device=cm.device)
+                    accept = (torch.log(u) < (w_p - w_r)) & alive
+                arenas = apply_row(cm, cid, arenas, slot, env_p, births_p,
+                                   accept=accept, mark_alive=False)
             if observed:
                 # re-add the row's (possibly rewritten) contributions
                 relcar = row_delta(cm, rel, arenas, self.obs_dev, cid, slot,
@@ -688,26 +757,42 @@ class Engine:
                                               self.obs_dev, gen, rel=relcar)
         return arenas, params
 
-    def scan_sweep_class(self, cid: ClassID):
+    def scan_sweep_class(self, cid: ClassID, pg_P: Optional[int] = None):
         """A segment of one class's sequential rejuvenation sweep
         (smc.py:1431-1447): run(arenas, params, base, gen) sweeps `seg` row
-        slots from `base`. Returns (run, seg)."""
-        seg = min(self.config.scan_segment, self.cm.layouts[cid].capacity)
+        slots from `base`. pg_P makes it scan_sweep_class_pg (smc.py:
+        1151-1208): P-particle CSMC a row, in segments of _pg_seg(P) rows.
+        Returns (run, seg)."""
+        seg = min(self._pg_seg(pg_P) if pg_P else self.config.scan_segment,
+                  self.cm.layouts[cid].capacity)
 
         def run(arenas, params, base, gen):
-            return self._sweep_segment(cid, arenas, params, base, gen, seg)
+            return self._sweep_segment(cid, arenas, params, base, gen, seg,
+                                       pg_P=pg_P)
 
         return run, seg
 
     def scan_init_batched(self, cid: ClassID, num_rows: int, B: int,
-                          kc: Optional[dict] = None):
+                          kc: Optional[dict] = None,
+                          pg_P: Optional[int] = None):
         """Batched init segment (smc.py:1210-1330): run(arenas, params,
         base, gen) proposes seg_b batches of B rows, each against the
         carried snapshot, defers birthing rows (flags), carries rel by
         batched point deltas and resamples every max(1, rejuv_frequency//B)
-        batches. Returns (run, nb, seg_b)."""
+        batches; returns (arenas, params, flags, log_ml). pg_P runs each
+        row as a P-particle SMC: collapsed, init_row_step's proposal with
+        its weight as the row's log-ML; written out, pg_row_step. log_ml
+        sums the applied (not deferred) rows'. Returns (run, nb, seg_b)."""
+        from .particles import pg_row_step
+
         nb = (num_rows + B - 1) // B
         seg_b = max(1, min(self.config.batch_segment_rows, num_rows) // B)
+        vmapped = bool(pg_P) and not self._collapsed
+        if vmapped:
+            # B x P particle-rows a batch: the segment shrinks by 8 / P as
+            # in the JAX package (smc.py:1243), unclamped, so for P < 8 it
+            # grows instead
+            seg_b = max(1, seg_b * 8 // pg_P)
         seg_b = min(seg_b, nb)
         cm = self.cm
         R = max(1, self.config.rejuv_frequency // B)
@@ -716,13 +801,22 @@ class Engine:
             rel = refresh(cm, arenas, self.obs_dev)
             cand = build_cand(cm, rel, kc) if kc else None
             flags = []
+            lml = torch.zeros((), device=cm.device)
             for i in range(seg_b):
                 bi = base + i
                 slots = bi * B + torch.arange(B, device=cm.device)
                 if bi < nb:
-                    env2, ok, birthy, _w = init_row_step(
-                        self, cid, arenas, rel, params, slots, gen,
-                        slots < num_rows, cand=cand)
+                    if vmapped:
+                        env2, ok, birthy, w = pg_row_step(
+                            self, cid, arenas, rel, params, slots, gen,
+                            slots < num_rows, pg_P, False, cand=cand)
+                    else:
+                        env2, ok, birthy, w = init_row_step(
+                            self, cid, arenas, rel, params, slots, gen,
+                            slots < num_rows, cand=cand)
+                    if pg_P:
+                        lml = lml + torch.where(ok, w,
+                                                torch.zeros_like(w)).sum()
                     old = arenas
                     arenas = _apply_batch(cm, cid, arenas, slots, env2, ok,
                                           mark_alive=True)
@@ -735,21 +829,29 @@ class Engine:
                 if ((bi + 1) % R) == 0:
                     arenas, params = resample_all(cm, arenas, params,
                                                   self.obs_dev, gen, rel=rel)
-            return arenas, params, torch.cat(flags)
+            return arenas, params, torch.cat(flags), lml
 
         return run, nb, seg_b
 
     def scan_sweep_class_batched(self, cid: ClassID, B: int,
-                                 kc: Optional[dict] = None):
+                                 kc: Optional[dict] = None,
+                                 pg_P: Optional[int] = None):
         """One class's batched blocked-Gibbs sweep segment (smc.py:
         1566-1671): run(arenas, params, base, gen) sweeps seg_b batches of B
-        slots with mh_row_step, carrying rel by batched point deltas
-        (leaf latent classes keep the segment-entry snapshot), with the
-        referrer histograms, referrer lists and candidate axes built once
-        per segment. Returns (run, nb, seg_b)."""
+        slots with mh_row_step, or with pg_P P-particle CSMC (pg_row_step,
+        retained), carrying rel by batched point deltas (leaf latent
+        classes keep the segment-entry snapshot), with the referrer
+        histograms, referrer lists and candidate axes built once per
+        segment. Returns (run, nb, seg_b)."""
+        from .particles import pg_row_step
+
         cap = self.cm.layouts[cid].capacity
         nb = (cap + B - 1) // B
         seg_b = max(1, min(self.config.batch_segment_rows, cap) // B)
+        if pg_P and not self._collapsed:
+            # the written-out particle path: as in scan_init_batched
+            # (smc.py:1588), unclamped for P < 8
+            seg_b = max(1, seg_b * 8 // pg_P)
         seg_b = min(seg_b, nb)
         cm = self.cm
         R = max(1, self.config.rejuv_frequency // B)
@@ -770,10 +872,16 @@ class Engine:
                 bi = base + i
                 slots = bi * B + torch.arange(B, device=cm.device)
                 if bi < nb:
-                    env2, accept, birthy = mh_row_step(
-                        self, cid, arenas, rel, params, slots, gen,
-                        slots < cap, ext_hists=hists, ref_comp=comp,
-                        cand=cand)
+                    if pg_P:
+                        env2, accept, birthy, _lml = pg_row_step(
+                            self, cid, arenas, rel, params, slots, gen,
+                            slots < cap, pg_P, True, ext_hists=hists,
+                            ref_comp=comp, cand=cand)
+                    else:
+                        env2, accept, birthy = mh_row_step(
+                            self, cid, arenas, rel, params, slots, gen,
+                            slots < cap, ext_hists=hists, ref_comp=comp,
+                            cand=cand)
                     old = arenas
                     arenas = _apply_batch(cm, cid, arenas, slots, env2,
                                           accept, mark_alive=False)
@@ -801,28 +909,38 @@ class Engine:
             return self.config.reporting_frequency
         return progress
 
-    def _init_batched(self, cid, spec, gen, arenas, params, progress):
+    def _init_batched(self, cid, spec, gen, arenas, params, progress,
+                      pg_P: Optional[int] = None):
         """One observed class's batched initialization (smc.py:1682-1825):
         sequential ramp, batched segments with per-segment compact
         candidate axes, per-segment replay of deferred rows (batched
-        allocation first, then sequential). Wall seconds per phase land in
-        self.phase_times."""
+        allocation first, then sequential). pg_P runs every stage as a
+        P-particle SMC and adds each row's log-ML to self.log_ml once.
+        Wall seconds per phase land in self.phase_times."""
         cfg = self.config
         B = cfg.batch_rows
-        _run, nb, seg_b = self.scan_init_batched(cid, spec.num_rows, B)
-        ramp = ((max(B, 512) + B - 1) // B) * B
+        _run, nb, seg_b = self.scan_init_batched(cid, spec.num_rows, B,
+                                                 pg_P=pg_P)
+        # the batched birth allocator replays the written-out PG path's
+        # deferred rows as exact sequential SMC instead, which the longer
+        # ramp keeps few (smc.py:1726-1730)
+        alloc = not pg_P or self._collapsed
+        base_ramp = 512 if alloc else 2048
+        ramp = ((max(B, base_ramp) + B - 1) // B) * B
         ramp = ramp if spec.num_rows >= 2 * ramp else 0
         t = {"ramp": 0.0, "batched": 0.0, "replay_alloc": 0.0,
              "replay_seq": 0.0, "replayed_alloc_rows": 0,
              "replayed_seq_rows": 0}
         t0 = time.time()
         if ramp:
-            rrun, rseg = self.scan_init(cid, spec.num_rows)
+            rrun, rseg = self.scan_init(cid, spec.num_rows, pg_P=pg_P)
             lcm = math.lcm(B, rseg)
             ramp = ((ramp + lcm - 1) // lcm) * lcm
             done0 = 0
             while done0 < ramp:
-                arenas, params = rrun(arenas, params, done0, gen)
+                arenas, params, lml = rrun(arenas, params, done0, gen)
+                if pg_P:
+                    self.log_ml = self.log_ml + lml
                 done0 += rseg
             self._sync()
         t["ramp"] = time.time() - t0
@@ -830,9 +948,11 @@ class Engine:
         for base in range(ramp // B, nb, seg_b):
             kc = self._kc(arenas)
             run, _nb, _sb = self.scan_init_batched(cid, spec.num_rows, B,
-                                                   kc=kc)
+                                                   kc=kc, pg_P=pg_P)
             tb = time.time()
-            arenas, params, fl = run(arenas, params, base, gen)
+            arenas, params, fl, lml = run(arenas, params, base, gen)
+            if pg_P:
+                self.log_ml = self.log_ml + lml
             lo = base * B
             hi = min((base + seg_b) * B, spec.num_rows)
             idx = np.flatnonzero(fl.cpu().numpy()[: hi - lo]) + lo
@@ -840,16 +960,17 @@ class Engine:
             if idx.size:
                 n_total = idx.size
                 tr = time.time()
-                t["replayed_alloc_rows"] += int(idx.size)
-                arenas, idx = self.replay_rows_alloc(cid, arenas, params,
-                                                     idx, gen)
-                self._sync()
+                if alloc:
+                    t["replayed_alloc_rows"] += int(idx.size)
+                    arenas, idx = self.replay_rows_alloc(
+                        cid, arenas, params, idx, gen, pg=bool(pg_P))
+                    self._sync()
                 t["replay_alloc"] += time.time() - tr
                 tr = time.time()
                 if len(idx):
                     t["replayed_seq_rows"] += int(len(idx))
                     arenas = self.replay_rows(cid, arenas, params, idx, gen,
-                                              rejuv=False)
+                                              rejuv=False, pg_P=pg_P)
                     self._sync()
                 t["replay_seq"] += time.time() - tr
                 self._kc_note(n_total)
@@ -858,19 +979,24 @@ class Engine:
                 print(f"Initialized ~{hi} of {spec.num_rows} rows for {cid}")
         if progress:
             print(f"Initialized {spec.num_rows} rows for {cid} "
-                  f"(batched B={B}, {n_replayed} replayed)")
+                  f"(batched B={B}, {n_replayed} replayed"
+                  + (f", PG P={pg_P}" if pg_P else "") + ")")
         self.phase_times[cid] = t
         return arenas, params
 
-    def _init_sequential(self, cid, spec, gen, arenas, params, progress):
+    def _init_sequential(self, cid, spec, gen, arenas, params, progress,
+                         pg_P: Optional[int] = None):
         """One observed class's sequential initialization at batch_rows=1
-        (smc.py:1891-1909): scan_init over every row in segments; wall
+        (smc.py:1891-1909): scan_init over every row in segments (with
+        pg_P, scan_init_pg's P-particle rows, smc.py:1862-1877); wall
         seconds in self.phase_times[cid]."""
-        run, seg = self.scan_init(cid, spec.num_rows)
+        run, seg = self.scan_init(cid, spec.num_rows, pg_P=pg_P)
         t0 = time.time()
         done = 0
         while done < spec.num_rows:
-            arenas, params = run(arenas, params, done, gen)
+            arenas, params, lml = run(arenas, params, done, gen)
+            if pg_P:
+                self.log_ml = self.log_ml + lml
             done += seg
             if progress and (done // progress) != ((done - seg) // progress):
                 print(f"Initialized ~{min(done, spec.num_rows)} of "
@@ -880,38 +1006,58 @@ class Engine:
                                  "rows": spec.num_rows}
         return arenas, params
 
+    def _pg_P(self, init: bool) -> Optional[int]:
+        """Particles a row in PG mode (use_mh_instead_of_pg False and
+        num_particles > 1), else None; at init also 2 for MH mode on a model
+        that fails the exact-Gibbs audit, which runs the reference's two
+        fresh particles (smc.py:1834-1845, infer_config.jl:11-13)."""
+        cfg = self.config
+        if cfg.num_particles <= 1:
+            return None
+        if not cfg.use_mh_instead_of_pg:
+            return cfg.num_particles
+        return 2 if init and not self.exact_accept else None
+
     def initialize(self, key, arenas, params, progress: Optional[int] = None):
         """initialize_trace (inference.jl:3-57): the sequential scan_init at
-        batch_rows=1, else the batched MH path. `key`: a torch.Generator or
-        an int seed. Returns (arenas, params, generator)."""
-        self._check_supported()
+        batch_rows=1, else the batched path; P-particle SMC rows where
+        _pg_P says so, with self.log_ml restarted at each observed class,
+        as the JAX package does (smc.py:1855-1881): it ends as the last
+        class's log-ML. `key`: a torch.Generator or an int seed. Returns
+        (arenas, params, generator)."""
         gen = self._gen(key)
         progress = self._progress(progress)
+        pg_P = self._pg_P(init=True)
         init = self._init_sequential if self.config.batch_rows <= 1 \
             else self._init_batched
         for spec in self.cm.obs_specs:
+            if pg_P:
+                self.log_ml = torch.zeros((), device=self.device)
             arenas, params = init(spec.class_id, spec, gen, arenas, params,
-                                  progress)
+                                  progress, pg_P=pg_P)
         self._check_arena_pressure(arenas)
         return arenas, params, gen
 
     def sweep(self, key, arenas, params, progress: Optional[int] = None):
         """pgibbs_sweep! (inference.jl:60-81): at batch_rows=1 every class's
         sequential sweep in declaration order (smc.py:1997-2010), else
-        per-class segmented batched MH sweeps (the JAX package's
-        _sweep_batched_segmented branch)."""
-        self._check_supported()
+        per-class segmented batched sweeps (the JAX package's
+        _sweep_batched_segmented branch); MH rows, or P-particle CSMC rows
+        in PG mode."""
         gen = self._gen(key)
         progress = self._progress(progress)
+        pg_P = self._pg_P(init=False)
         if self.config.batch_rows <= 1:
-            return self._sweep_sequential(gen, arenas, params, progress)
-        return self._sweep_batched_segmented(gen, arenas, params, progress)
+            return self._sweep_sequential(gen, arenas, params, progress,
+                                          pg_P)
+        return self._sweep_batched_segmented(gen, arenas, params, progress,
+                                             pg_P)
 
-    def _sweep_sequential(self, gen, arenas, params, progress):
+    def _sweep_sequential(self, gen, arenas, params, progress, pg_P=None):
         """Every class's scan_sweep_class segments over all its row slots,
         in declaration order; wall seconds in self.phase_times."""
         for cid in self.cm.model.class_order:
-            run, seg = self.scan_sweep_class(cid)
+            run, seg = self.scan_sweep_class(cid, pg_P=pg_P)
             cap = self.cm.layouts[cid].capacity
             t0 = time.time()
             for base in range(0, cap, seg):
@@ -923,19 +1069,23 @@ class Engine:
                 print(f"{cid}: sweep done")
         return arenas, params, gen
 
-    def _sweep_batched_segmented(self, gen, arenas, params, progress):
-        """Per-class segmented batched rejuvenation sweep; deferred entity-
-        birthing rows replay sequentially with the same semantics."""
+    def _sweep_batched_segmented(self, gen, arenas, params, progress,
+                                 pg_P=None):
+        """Per-class segmented batched rejuvenation sweep (MH rows, or
+        P-particle CSMC with pg_P); deferred entity-birthing rows replay
+        sequentially with the same semantics."""
         B = self.config.batch_rows
         for cid in self.cm.model.class_order:
-            _run, nb, seg_b = self.scan_sweep_class_batched(cid, B)
+            _run, nb, seg_b = self.scan_sweep_class_batched(cid, B,
+                                                            pg_P=pg_P)
             cap = self.cm.layouts[cid].capacity
             parts = []
             t = {"batched": 0.0, "replay_seq": 0.0, "replayed_seq_rows": 0}
             tb = time.time()
             for base in range(0, nb, seg_b):
                 kc = self._kc(arenas)
-                run, _nb, _sb = self.scan_sweep_class_batched(cid, B, kc=kc)
+                run, _nb, _sb = self.scan_sweep_class_batched(cid, B, kc=kc,
+                                                              pg_P=pg_P)
                 arenas, params, fl = run(arenas, params, base, gen)
                 parts.append(fl.cpu().numpy())
             t["batched"] = time.time() - tb
@@ -943,14 +1093,15 @@ class Engine:
             if idx.size:
                 tr = time.time()
                 arenas = self.replay_rows(cid, arenas, params, idx, gen,
-                                          rejuv=True)
+                                          rejuv=True, pg_P=pg_P)
                 self._kc_note(idx.size)
                 self._sync()
                 t["replay_seq"] = time.time() - tr
                 t["replayed_seq_rows"] = int(idx.size)
             self.phase_times[f"sweep:{cid}"] = t
             if progress:
-                print(f"{cid}: sweep done (batched, segmented)")
+                print(f"{cid}: sweep done (batched, segmented"
+                      + (f", PG P={pg_P}" if pg_P else "") + ")")
         return arenas, params, gen
 
     def run(self, key, arenas, params, progress: Optional[int] = None):

@@ -30,13 +30,15 @@ dense shape (AB_K6), K7 at AB_K7's shapes (scaled's, rents' and
 hospital's hoisted histograms, one row and 4,096 rows of V = 5,125, and
 hospital's shapes with their counts crowded into few cells) and K8 at
 AB_K8's (the hospital census shapes' sizes on seeded inputs, and a batch
-whose every row holds referrers), each checked against its plain
-version; `--kernels k4,k5,k6,k7,k8` (any of them) times only those,
-with no model to build. With --paths it also times each of K1's paths
+whose every row holds referrers) and K9 at AB_K9's (the
+hospital_pg16_vmapped path's census shapes, seeded), each checked against
+its plain version; `--kernels k4,k5,k6,k7,k8,k9` (any of them) times only
+those, with no model to build. With --paths it also times each of K1's paths
 at each of those shapes and over an R x K grid in both modes (the last
 tree's kernels; PERF.md takes the plan's cut-overs from that
-table). With --census hospital it first runs chip_smoke.py's hospital
-path (HOSPITAL_PATH: 100,000 rows, B = 4,096, one sweep) with this
+table). With --census hospital it first runs the hospital workload at
+bench.py's configuration (HOSPITAL_PATH: 100,000 rows, B = 4,096, MH, one
+sweep; chip_smoke.py runs it with PG as hospital_pg1024) with this
 checkout's package, then times K7 and K8
 (those in --kernels) in the turns at every shape of that run's launch
 census too, on inputs from its state (`k7_census_inputs`,
@@ -66,7 +68,9 @@ referrer histograms and the hospital's composed stateavg term) take
 theirs from a path's state at every shape of its launch census
 (`k7_census_inputs`, `k8_census_inputs`); `k7_seeded` and `k8_seeded` draw
 seeded inputs for the card tests, and `k3_seeded` K3's at any shape of a
-census. K7's yardstick is one torch.bincount of the kept
+census. K9 (the particle resampling) takes seeded weights at every shape
+of a path's launch census (`k9_census_inputs`, `k9_inputs`, half the rows
+spread so that they resample). K7's yardstick is one torch.bincount of the kept
 cells, which reads its input's maximum back to the host and so is timed by
 events only.
 """
@@ -1256,6 +1260,110 @@ def time_k8(ops, k8: dict) -> dict:
                 library_ms=None, library_device_ms=None)
 
 
+# K9: how close to a CDF boundary (as a share of the row's total) a pick
+# that differs from the plain version's may lie, the share of picks that
+# may differ, and how close to P / 2 an ESS may lie whose decision differs
+K9_BOUNDARY = 1e-4
+K9_MAX_MISMATCH = 1e-2
+K9_ESS_EDGE = 1e-6
+
+
+def k9_inputs(dev, R: int, P: int, mode: str, retained: bool = False,
+              seed: int = 0) -> dict:
+    """Seeded K9 inputs: R rows of P log weights around -30, every other
+    row spread (sd 6: ESS < P / 2, the row resamples) and the others flat
+    (sd 0.05: it keeps its particles), and the mode's uniforms."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    sd = torch.where(torch.arange(R, device=dev) % 2 == 0, 6.0, 0.05)
+    ws = torch.randn((R, P), generator=g, device=dev) * sd[:, None] - 30.0
+    shape = (R,) if mode == "final" else (R, P)
+    return dict(ws=ws, u=torch.rand(shape, generator=g, device=dev),
+                mode=mode, retained=retained)
+
+
+def k9_census_inputs(dev, census: list, B: int) -> list:
+    """[(census row, inputs)] for every shape of a path's K9 launch census
+    (its mode, P and one row or B rows), on seeded inputs (k9_inputs;
+    resample shapes with the retained particle)."""
+    return [(r, k9_inputs(dev, B if r["rows"] == "rn" else 1, r["K"],
+                          r["mode"], retained=r["mode"] == "resample"))
+            for r in census if r["kernel"] == "pg_resample"]
+
+
+def check_k9(ops, k9: dict) -> dict:
+    """K9 against its plain version on the same inputs. Rows whose ESS lies
+    within K9_ESS_EDGE * P of P / 2 (f64 ESS of the weights) may decide
+    either way and are left out; on the others the decision is equal,
+    ws_out and lml lie within 1e-6 of max(1, |logsumexp|) of the plain
+    version's, and the picks (sel, j) are equal except on at most
+    K9_MAX_MISMATCH of them (where there are 100 or more), each with its
+    threshold within K9_BOUNDARY of a CDF boundary (the kernel's exact
+    fixed-point prefix sums against torch.cumsum's f32 ones). Returns
+    dict(max_abs_err, mismatch_rate, edge_rows)."""
+    ws, u, mode, retained = k9["ws"], k9["u"], k9["mode"], k9["retained"]
+    got = ops.pg_resample(ws, u, mode, retained)
+    want = ops.pg_resample_plain(ws, u, mode, retained)
+    torch.cuda.synchronize()
+    R, P = ws.shape
+    w64 = ws.double()
+    lse = torch.logsumexp(w64, -1)
+    ess = torch.exp(2 * lse - torch.logsumexp(2 * w64, -1))
+    keep = (ess - P / 2.0).abs() > K9_ESS_EDGE * P
+    tol = 1e-6 * lse.abs().clamp(min=1.0)
+    d_lml = (got[-1] - want[-1]).double().abs()
+    require(bool((d_lml <= tol)[keep].all()),
+            f"K9 {mode} lml differs by {float(d_lml[keep].max())}")
+    err = float(d_lml[keep].max()) if bool(keep.any()) else 0.0
+    c = torch.cumsum(torch.exp(w64 - w64.amax(-1, keepdim=True)), -1)
+    if mode == "final":
+        pick_g, pick_w = got[0][:, None], want[0][:, None]
+        ub = ((1.0 - u.double()) * c[:, -1])[:, None]
+        on = keep[:, None]
+    else:
+        d_w = (got[1] - want[1]).double().abs()
+        require(bool((d_w <= tol[:, None])[keep].all()),
+                f"K9 ws_out differs by {float(d_w[keep].max())}")
+        err = max(err, float(d_w[keep].max()) if bool(keep.any()) else 0.0)
+        pick_g, pick_w = got[0], want[0]
+        ub = (1.0 - u.double()) * c[:, -1:]
+        resampled = want[1] == 0
+        on = keep[:, None] & resampled
+        # rows that keep their particles pick themselves, bit for bit
+        require(bool((pick_g == pick_w)[keep[:, None] & ~resampled].all()),
+                "K9: a row that keeps its particles moved one")
+        if retained:
+            require(bool((got[0][:, 0] == torch.arange(R, device=ws.device)
+                          * P).all()), "K9: the retained particle moved")
+    gap = (c[:, None, :] - ub[:, :, None]).abs().amin(-1) / c[:, -1:]
+    diff = (pick_g != pick_w) & on
+    n = int(on.sum())
+    rate = int(diff.sum()) / max(1, n)
+    require(bool((gap[diff] <= K9_BOUNDARY).all()),
+            "K9 picks differ away from a CDF boundary")
+    require(n < 100 or rate <= K9_MAX_MISMATCH,
+            f"K9 picks differ on {rate:.3g} of draws")
+    return dict(max_abs_err=err, mismatch_rate=rate,
+                edge_rows=int((~keep).sum()))
+
+
+def k9_bytes(R: int, P: int, mode: str) -> int:
+    """K9's bytes: resample reads ws and u and writes sel (int64) and
+    ws_out, 20 bytes a particle, and lml, 4 a row; final reads ws, 4 bytes
+    a particle, and u, and writes j (int64) and lml, 16 bytes a row."""
+    return R * P * 20 + R * 4 if mode == "resample" else R * P * 4 + R * 16
+
+
+def time_k9(ops, k9: dict) -> dict:
+    """K9 on these inputs: ms and plain_ms (cuda_ms), device_ms
+    (graph_ms); no single PyTorch call computes it (library_ms None)."""
+    args = (k9["ws"], k9["u"], k9["mode"], k9["retained"])
+    fn = lambda: ops.pg_resample(*args)  # noqa: E731
+    return dict(ms=cuda_ms(fn), device_ms=graph_ms(fn),
+                plain_ms=cuda_ms(lambda: ops.pg_resample_plain(*args)),
+                library_ms=None, library_device_ms=None)
+
+
 def kernel_bytes(inp: dict) -> dict:
     """Bytes each kernel must move on these inputs (each input read once,
     each output written once; for K3 only the M rows the batch observes)."""
@@ -1372,7 +1480,16 @@ AB_K5 = (  # K5's seeded shapes in the A/B: (label, B, A, C): the rents
     ("[256, 51] C 17", 256, 51, 17),
     ("[4096, 51] C 5", 4096, 51, 5),
 )
-AB_KINDS = ("k1-k3", "k4", "k5", "k6", "k7", "k8")
+AB_K9 = (  # K9's shapes in the A/B: (label, R, P, mode): the
+    # hospital_pg16_vmapped path's census (B = 64 rows and one row of 16
+    # particles) and one row of 1,024
+    ("resample [64, 16]", 64, 16, "resample"),
+    ("final [64, 16]", 64, 16, "final"),
+    ("resample [1, 16]", 1, 16, "resample"),
+    ("final [1, 16]", 1, 16, "final"),
+    ("resample [1, 1024]", 1, 1024, "resample"),
+)
+AB_KINDS = ("k1-k3", "k4", "k5", "k6", "k7", "k8", "k9")
 
 
 def ab_seeded(dev, kinds) -> dict:
@@ -1383,8 +1500,13 @@ def ab_seeded(dev, kinds) -> dict:
     AB_K4 (k4_seeded), K5 at AB_K5 (k5_seeded; each shape twice, the step
     from the env coordinates and the kernel alone, k5_ab_call), K6 at
     AB_K6 (k6_inputs; the dense shape with about 24 referrers a slot, as
-    flights' 100 flights over 2,376 rows) and K8 at AB_K8 (k8_seeded)."""
+    flights' 100 flights over 2,376 rows), K8 at AB_K8 (k8_seeded) and K9
+    at AB_K9 (k9_inputs, resample with the retained particle)."""
     out = {}
+    if "k9" in kinds:
+        for label, R, P, mode in AB_K9:
+            out["K9 " + label] = ("pg_resample", k9_inputs(
+                dev, R, P, mode, retained=mode == "resample"))
     if "k6" in kinds:
         for label, B, V, N, lists, kept in AB_K6:
             k6 = k6_inputs(dev, B, V, N, lists=lists,
@@ -1418,7 +1540,12 @@ def time_ab_seeded(ops, kernel: str, inp: dict) -> dict:
     library call beside them (K7: torch.bincount, events only; K4: zeros
     and index_add_, both; K5, K6 and K8 have none). K5's `inp` is dict(k5,
     part): the tree's whole step from the env coordinates, or its kernel
-    alone on a prebuilt index (k5_ab_call)."""
+    alone on a prebuilt index (k5_ab_call). K9 has no library call."""
+    if kernel == "pg_resample":
+        check_k9(ops, inp)
+        t = time_k9(ops, inp)
+        t.pop("plain_ms")
+        return t
     if kernel == "gauss_ext_term":
         call = k5_ab_call(ops, inp["k5"], inp["part"])
         k5_error(inp["k5"], call())
@@ -1445,7 +1572,8 @@ def time_ab_seeded(ops, kernel: str, inp: dict) -> dict:
                 library_ms=cuda_ms(lib), library_device_ms=graph_ms(lib))
 
 
-# chip_smoke.py's hospital path, whose launch census --census replays
+# bench.py's hospital configuration, whose launch census --census replays
+# (chip_smoke.py's hospital_pg1024 path runs it with PG, the same shapes)
 HOSPITAL_PATH = dict(rows=1000, repeat=100, batch=4096)
 
 
@@ -1453,7 +1581,7 @@ def hospital_census(kinds=("k7", "k8"), device="cuda",
                     path: dict = HOSPITAL_PATH) -> dict:
     """K7's and K8's inputs (of those in `kinds`) at every shape of the
     hospital path's launch census, {label: (kernel, inputs)}: the path run
-    as chip_smoke.py runs it (`path`; init_state, Engine.initialize,
+    as chip_smoke.py runs its paths (`path`; init_state, Engine.initialize,
     Engine.run, with this checkout's package and its launch counts set to
     0 just before), then `k7_census_inputs` and `k8_census_inputs` on its
     state."""
@@ -1548,7 +1676,9 @@ def main(argv=None) -> int:
     seeded.update(hospital_census(kinds) if a.census else {})
     count_bytes = {"referrer_hist": k7_bytes, "gauss_suffstats": k4_bytes,
                    "gauss_ext_term": lambda inp: k5_bytes(inp["k5"]),
-                   "maybe_swap_ext": k6_bytes, "sa_ext_term": k8_bytes}
+                   "maybe_swap_ext": k6_bytes, "sa_ext_term": k8_bytes,
+                   "pg_resample": lambda inp: k9_bytes(*inp["ws"].shape,
+                                                       inp["mode"])}
     for s, (k, inp) in seeded.items():
         bounds[s] = {k: count_bytes[k](inp) / HBM_BYTES_PER_S * 1e3}
     turns = []

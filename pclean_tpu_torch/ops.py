@@ -1,6 +1,7 @@
 """The port's hand-written CUDA kernels: build, bind, plain versions, counts.
 
-Eight kernels carry the block enumeration of the port's paths (sources
+Nine kernels carry the block enumeration and the particle resampling of
+the port's paths (sources
 in pclean_tpu_torch/csrc/, each with a header note on the JAX computation it
 replaces, its bound on the H100 and its design):
 
@@ -28,7 +29,11 @@ replaces, its bound on the H100 and its design):
   K8 sa_ext_term     — the composed AddTypos external (word = table[env
                        option, referrer value], the hospital stateavg)
                        summed over each row's referrers (propose.py
-                       _ext_hist_term's composed case).
+                       _ext_hist_term's composed case);
+  K9 pg_resample     — a particle-Gibbs row's ESS-adaptive multinomial
+                       resampling with retain-first, or its final
+                       categorical, and the log-ML increment
+                       (particles.py propose_row_pg).
 
 Each has a plain PyTorch version here. A wrapper takes the plain version
 only for tensors on the CPU; for CUDA tensors it launches its kernel or
@@ -39,13 +44,14 @@ K8's, where the plan splits a row's referrers (S > 1, as at one row),
 adds a second launch that merges the splits;
 `LAUNCHES_BY_SHAPE` splits the same launches into those over one row
 ("r1", the sequential loops) and over more ("rn", the batched phases);
-`LAUNCH_CENSUS` splits K1's, K2's, K3's, K5's, K6's, K7's and K8's further
-by mode and row length.
+`LAUNCH_CENSUS` splits K1's, K2's, K3's, K5's, K6's, K7's, K8's and K9's
+further by mode and row length.
 Each kernel takes a launch plan (path and geometry: threads, tiles,
 cluster, shared memory, grid) from a function of its shapes alone,
 `enum_logsumexp_plan`, `inv_cdf_plan`, `obs_gather_plan`,
 `gauss_suffstats_plan`, `gauss_ext_term_plan`, `maybe_swap_ext_plan`,
-`referrer_hist_plan` and `sa_ext_term_plan`; the C entry points launch
+`referrer_hist_plan`, `sa_ext_term_plan` and `pg_resample_plan`; the C
+entry points launch
 the plan they are given, so the plan the CPU tests check is the one
 launched.
 
@@ -68,7 +74,7 @@ import time
 
 import torch
 
-from .utils import chase, logsumexp
+from .utils import chase, effective_sample_size, log_normalize, logsumexp
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_HERE, "_build")
@@ -81,6 +87,7 @@ _SOURCES = {
     "maybe_swap_ext": "maybe_swap_ext.cu",
     "referrer_hist": "referrer_hist.cu",
     "sa_ext_term": "sa_ext_term.cu",
+    "pg_resample": "pg_resample.cu",
 }
 LAUNCHES = {name: 0 for name in _SOURCES}
 LAUNCHES_BY_SHAPE = {name: {"r1": 0, "rn": 0} for name in _SOURCES}
@@ -88,13 +95,14 @@ LAUNCHES_BY_SHAPE = {name: {"r1": 0, "rn": 0} for name in _SOURCES}
 # "rn", K): K1's mode is "fk" or "choice", K2's is None, K3's the launch's
 # vocabularies ("V1,V2,..."), K5's its route and output ("coords,BxA" or
 # "index,BxA"), K6's its referrers' form and axis ("list,N" or "dense,N"),
-# K7's "hoisted" or "rows", K8's SA's shape ("ExVcxV"); K is the row length
-# the kernel was given (K5: the groups C; K6: the options V; K7: the
-# histogram's V; K8: the referrer axis R)
+# K7's "hoisted" or "rows", K8's SA's shape ("ExVcxV"), K9's "resample" or
+# "final"; K is the row length the kernel was given (K5: the groups C; K6:
+# the options V; K7: the histogram's V; K8: the referrer axis R; K9: the
+# particles P)
 LAUNCH_CENSUS = {"enum_logsumexp": {}, "inv_cdf_sample": {},
                  "obs_gather_sum": {}, "gauss_ext_term": {},
                  "maybe_swap_ext": {}, "referrer_hist": {},
-                 "sa_ext_term": {}}
+                 "sa_ext_term": {}, "pg_resample": {}}
 SMEM_MAX = 232448  # shared memory one block may use on an H100 (227 KB)
 N_SMS = 132        # streaming multiprocessors of an H100 SXM
 _GRID_Y_MAX = 65535
@@ -210,6 +218,7 @@ def build_kernels(force: bool = False) -> float:
                               I64, I64, I32, P],
             "sa_ext_term": [P, I64, I64, I64, P, P, I64, P, I64, P, P, I64,
                             I32, I64, I64, I64, I32, I64, P],
+            "pg_resample": [P, P, P, P, P, I64, I32, I32, I32, I32, I32, P],
         }
         for name in _SOURCES:
             lib = ctypes.CDLL(os.path.join(BUILD_DIR, f"lib{name}.so"))
@@ -1157,3 +1166,98 @@ def sa_ext_term(SA, rv, val, w):
     _check(rc, "sa_ext_term")
     _count("sa_ext_term", B, R, f"{E}x{Vc}x{V}")
     return out
+
+
+# ---------------------------------------------------------------- K9
+
+K9_MODES = ("resample", "final")
+_K9_MAX_P = 16384        # 12 P bytes of shared memory stay under SMEM_MAX
+_K9_MAX_THREADS = 256
+
+
+def pg_resample_plan(R: int, P: int) -> dict:
+    """K9's launch for R rows of P particles: one block a row, a warp for
+    every 32 particles up to 8 warps (a thread owns a contiguous chunk of
+    ceil(P / threads) particles), the row's weights and prefix sums in
+    12 P bytes of dynamic shared memory: dict(threads, smem, grid)."""
+    R, P = int(R), int(P)
+    if R < 0 or R > 2 ** 31 - 1 or not 1 <= P <= _K9_MAX_P:
+        raise ValueError(f"pg_resample: R = {R}, P = {P} out of range "
+                         f"(P <= {_K9_MAX_P})")
+    threads = min(_K9_MAX_THREADS, 32 * -(-P // 32))
+    return dict(threads=threads, smem=12 * P, grid=R)
+
+
+def pg_resample_plain(ws: torch.Tensor, u: torch.Tensor,
+                      mode: str = "resample", retained: bool = False):
+    """pclean_tpu.engine.particles.propose_row_pg's resampling for rows of
+    particle log weights ws [R, P], with injected uniforms in place of JAX's
+    Gumbel noise; draws by K2's inverse-CDF rule (inv_cdf_sample_plain).
+
+    mode "resample" (u [R, P]): every particle draws an ancestor from
+    categorical(ws) with its own uniform, particle 0 keeps itself where
+    `retained`, and rows whose ESS < P / 2 resample. Returns (sel [R, P]
+    int64, ws_out [R, P], lml [R]): sel indexes the flattened [R * P]
+    particle axis (r * P + ancestor; r * P + i where the row does not
+    resample), ws_out is 0 where it resamples, else ws, and lml is the
+    row's log-ML increment logsumexp(ws) - log P where it resamples,
+    else 0.
+    mode "final" (u [R]): (j [R] int64, lml [R]): one draw from
+    categorical(ws) as an index of the flattened axis, and logsumexp(ws) -
+    log P."""
+    if mode not in K9_MODES:
+        raise ValueError(f"pg_resample: mode {mode!r} is not one of "
+                         f"{K9_MODES}")
+    R, P = ws.shape
+    lse = logsumexp(ws, dim=-1)
+    inc = lse - math.log(P)
+    m = torch.amax(ws, dim=-1, keepdim=True)
+    c = torch.cumsum(torch.exp(ws - m), dim=-1)
+    base = torch.arange(R, device=ws.device)[:, None] * P
+    if mode == "final":
+        ub = ((1.0 - u) * c[:, -1])[:, None]
+        j = torch.searchsorted(c, ub.contiguous()).clamp(max=P - 1)
+        return (base + j)[:, 0], inc
+    ub = (1.0 - u) * c[:, -1:]
+    idx = torch.searchsorted(c, ub.contiguous()).clamp(max=P - 1)
+    if retained:
+        idx[:, 0] = 0
+    ess = effective_sample_size(log_normalize(ws))
+    do = ess < P / 2.0
+    ar = torch.arange(P, device=ws.device)[None, :]
+    sel = base + torch.where(do[:, None], idx, ar)
+    return (sel, torch.where(do[:, None], torch.zeros_like(ws), ws),
+            torch.where(do, inc, torch.zeros_like(inc)))
+
+
+def pg_resample(ws: torch.Tensor, u: torch.Tensor, mode: str = "resample",
+                retained: bool = False):
+    """K9. ws [R, P] f32 and u [R, P] ("resample") or [R] ("final") f32 in
+    [0, 1) -> as pg_resample_plain."""
+    if not _route(ws, "pg_resample"):
+        return pg_resample_plain(ws, u, mode, retained)
+    if mode not in K9_MODES:
+        raise ValueError(f"pg_resample: mode {mode!r} is not one of "
+                         f"{K9_MODES}")
+    final = mode == "final"
+    ws = ws.contiguous()
+    u = u.contiguous()
+    _need(ws, torch.float32, "pg_resample ws", 2)
+    _need(u, torch.float32, "pg_resample u", 1 if final else 2)
+    R, P = ws.shape
+    if tuple(u.shape) != ((R,) if final else (R, P)):
+        raise ValueError(f"pg_resample: u {tuple(u.shape)} does not fit ws "
+                         f"{(R, P)} in {mode} mode")
+    if not u.is_cuda:
+        raise ValueError("pg_resample: u must be on the card")
+    plan = pg_resample_plan(R, P)
+    idx = torch.empty((R,) if final else (R, P), dtype=torch.int64,
+                      device=ws.device)
+    ws_out = None if final else torch.empty_like(ws)
+    lml = torch.empty((R,), dtype=torch.float32, device=ws.device)
+    rc = _fn("pg_resample")(_ptr(ws), _ptr(u), _ptr(idx), _ptr(ws_out),
+                            _ptr(lml), R, P, int(final), int(bool(retained)),
+                            plan["threads"], plan["smem"], _stream(ws))
+    _check(rc, "pg_resample")
+    _count("pg_resample", R, P, mode)
+    return (idx, lml) if final else (idx, ws_out, lml)

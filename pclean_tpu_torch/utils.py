@@ -45,6 +45,17 @@ def logsumexp(logits: torch.Tensor, dim: int = -1,
     return out
 
 
+def log_normalize(logits: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """logits - logsumexp(logits): normalized log-probabilities."""
+    return logits - logsumexp(logits, dim=dim, keepdim=True)
+
+
+def effective_sample_size(log_normalized_weights: torch.Tensor,
+                          dim: int = -1) -> torch.Tensor:
+    """ESS of normalized log weights (reference row_inference.jl:82-85)."""
+    return torch.exp(-logsumexp(2.0 * log_normalized_weights, dim=dim))
+
+
 def take(x: torch.Tensor, idx) -> torch.Tensor:
     """x[idx] along dim 0 with out-of-range indices clamped (JAX gather)."""
     if not torch.is_tensor(idx):

@@ -196,8 +196,9 @@ def setup(rows=2376, flights=100, websites=38, seed=0, missing=0.03,
     ds = ObservedDataset(query, dirty)
     sweeps = 5 if sweeps is None else sweeps
     if particles:
-        raise NotImplementedError("particle Gibbs is not ported yet")
-    cfg.setdefault("use_mh_instead_of_pg", True)
+        cfg.update(use_mh_instead_of_pg=False, num_particles=particles)
+    else:
+        cfg.setdefault("use_mh_instead_of_pg", True)
     config = InferenceConfig(num_iters=sweeps, batch_rows=batch, **cfg)
     cm = compile_model(model, [ds], capacities=capacities or CAPACITIES,
                        device=device)

@@ -293,8 +293,9 @@ def setup(rows=1000, repeat=1, sweeps=None, batch=1, particles=None, seed=7,
     ds = ObservedDataset(query, dirty)
     sweeps = 1 if sweeps is None else sweeps
     if particles:
-        raise NotImplementedError("particle Gibbs is not ported yet")
-    cfg.setdefault("use_mh_instead_of_pg", True)
+        cfg.update(use_mh_instead_of_pg=False, num_particles=particles)
+    else:
+        cfg.setdefault("use_mh_instead_of_pg", True)
     config = InferenceConfig(num_iters=sweeps, batch_rows=batch, **cfg)
     cm = compile_model(model, [ds], capacities=CAPACITIES, device=device)
     return cm, config, dirty, clean, query, sweeps

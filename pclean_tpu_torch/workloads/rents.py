@@ -178,7 +178,7 @@ def setup(rows=50_000, states=51, counties=1500, seed=7, missing=0.0,
     sweeps = 1 if sweeps is None else sweeps
     cfg.setdefault("rejuv_frequency", 500)
     if particles:
-        raise NotImplementedError("particle Gibbs is not ported yet")
+        cfg.update(use_mh_instead_of_pg=False, num_particles=particles)
     config = InferenceConfig(num_iters=sweeps, batch_rows=batch, **cfg)
     cm = compile_model(model, [ds], capacities=CAPACITIES, device=device)
     return cm, config, dirty, clean, query, sweeps

@@ -145,7 +145,7 @@ def setup(rows=None, counties=1000, hospitals=8000, names=2000, zips=500,
     sweeps = 1 if sweeps is None else sweeps
     cfg.setdefault("rejuv_frequency", 500)
     if particles:
-        raise NotImplementedError("particle Gibbs is not ported yet")
+        cfg.update(use_mh_instead_of_pg=False, num_particles=particles)
     config = InferenceConfig(num_iters=sweeps, batch_rows=batch, **cfg)
     # Explicit capacities from the generator's own entity counts (1.4x,
     # rounded to 64), as the JAX workload sets them: the auto_capacities

@@ -38,7 +38,15 @@ counterparts (CPU), and CUDA kernels against the plain versions (card only).
      5,125, on rows of a length that is no multiple of 16 and on inputs
      that start at an odd offset.
 
-The launch plans of K1-K8 (path or route, geometry, tile sizes and
+  K9 pg_resample — particle Gibbs's resampling; its plain version is held
+     to a numpy reference of pclean_tpu.engine.particles in
+     tests/test_torch_pg.py, and here on the card the kernel to the plain
+     version (kernel_bench.check_k9) in both modes, with and without the
+     retained particle, at the written-out path's shapes and the edges:
+     P = 2, 1,000 (no multiple of 32), 1,024 and 16,384 (dynamic shared
+     memory past 48 KB), 4,096 rows, all-equal and NEG_INF weights.
+
+The launch plans of K1-K9 (path or route, geometry, tile sizes and
 splits, a function of the shapes alone) are checked here for legal
 geometry on the H100, and K1's, K6's, K7's and K8's plans for the path,
 route or split they give each shape the main path launches them at.
@@ -1489,3 +1497,43 @@ def test_k8_cuda_split_edges(card, case):
     if case == "out_of_range":
         assert float(out[1:3].abs().sum()) == 0.0
         assert float(out[0].abs().min()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,P", [(1, 2), (64, 16), (1, 16), (1, 1024),
+                                 (4096, 2), (3, 1000), (2, 16384)])
+def test_k9_cuda_matches_plain(card, R, P):
+    from pclean_tpu_torch.kernel_bench import check_k9, k9_inputs
+
+    for retained in (False, True):
+        for mode in ops.K9_MODES:
+            check_k9(ops, k9_inputs(card, R, P, mode, retained))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["equal", "neg_inf"])
+def test_k9_cuda_edges(card, case):
+    """All-equal weights (ESS = P: no row resamples) and rows whose
+    particles but one are NEG_INF (ESS = 1: every row with P > 2
+    resamples, and every draw lands on the one live particle)."""
+    from pclean_tpu_torch.kernel_bench import check_k9
+
+    R, P = 8, 64
+    ws = torch.full((R, P), -3.0, device=card)
+    if case == "neg_inf":
+        ws.fill_(-1e30)
+        ws[torch.arange(R), torch.arange(R) * 7] = -5.0
+    u = torch.rand((R, P), device=card)
+    for retained in (False, True):
+        check_k9(ops, dict(ws=ws, u=u, mode="resample", retained=retained))
+        sel, ws_out, lml = ops.pg_resample(ws, u, "resample", retained)
+        torch.cuda.synchronize()
+        if case == "equal":
+            assert torch.equal(ws_out, ws)
+            assert float(lml.abs().max()) == 0.0
+        else:
+            live = torch.arange(R, device=card) * (P + 7)
+            keep = sel if not retained else sel[:, 1:]
+            assert bool((keep == live[:, None]).all())
+    check_k9(ops, dict(ws=ws, u=u[:, 0].contiguous(), mode="final",
+                       retained=False))
