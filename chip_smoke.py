@@ -3,12 +3,18 @@
     python3 chip_smoke.py            # the full run (one card)
     python3 chip_smoke.py --out DIR  # also write the details to
                                      # DIR/chip_smoke.json
+    python3 chip_smoke.py --trace    # the trace phase alone (below)
 
 It drives the port only (never jax, never pclean_tpu), in order:
   1. prints the card's name and power limit (nvidia-smi);
-  2. builds the nine CUDA kernels from pclean_tpu_torch/csrc/ (one nvcc per
-     source, in parallel) and prints the build time and ptxas's registers,
-     shared memory, stack frame and spills for each compiled function;
+  2. builds the eleven CUDA kernels from pclean_tpu_torch/csrc/ (one nvcc
+     per source, in parallel) and prints the build time and ptxas's
+     registers, shared memory, stack frame and spills for each compiled
+     function; measures the launch floor and one dependent L2 load (K10's
+     probe); runs the scaled workload's CPU config (512 rows, B = 8) at the
+     default fused_dispatch_rows through init and one sweep, which must
+     take the fused order (every class's batches, then every class's
+     deferred rows) and reach F1 0.5;
   3. checks the tracer's CUDA path against its CPU path (plain versions) on
      small inputs: same state, same injected uniforms, for the scaled
      workload's Record block, the rents workload's County block (K4's
@@ -88,8 +94,24 @@ It drives the port only (never jax, never pclean_tpu), in order:
          particle; prints the init log-ML; then K9 at every shape of its
          launch census (kernel_bench.k9_census_inputs: seeded weights,
          half the rows spread so that they resample);
+  8b. after every path, on its final state, K10 row_delta and K11
+     row_write (the one-row loops' relational delta and row write): a
+     shadow run of 256 rows of every class kind the path's census shows
+     it swept (kernel_bench.shadow_rows: the kernels on one copy of the
+     carry under torch.cuda.set_sync_debug_mode("error"), the plain
+     versions on a CPU copy, every leaf bit-equal), then each timed at
+     every shape of the census beside its bytes bound and its
+     dependent-load bound (kernel_bench.time_k10, time_k11); and the trace
+     phase (trace_sections, at most about 20 s in all): torch.profiler
+     over one hospital ramp row, one hospital batched init segment and
+     one rents Obs batch from fresh states of those paths' models, where
+     their inits start, and one flights Obs sweep row on the flights
+     path's final state, printing each one's kernel launches, host syncs
+     (the runtime's synchronize calls, and those PyTorch's sync debug
+     mode flags), device-to-host copies, wall and device busy ms and the
+     card's idle share;
   9. prints, for each kernel, how many shapes were checked and the worst
-     error, then the `kernels` JSON line (K1-K9; `launches` summed over
+     error, then the `kernels` JSON line (K1-K11; `launches` summed over
      the six paths, with each path's own beside it; `max_abs_err` the
      worst over every shape checked; the times those of the shape named in
      `shape`; every shape's numbers in chip_smoke.json under --out), then
@@ -114,12 +136,14 @@ rows whose ESS lies within 1e-6 P of P / 2 are left out, on the others the
 resampling decision is equal, ws_out and lml within 1e-6 of max(1,
 |logsumexp|), and the picks equal but on <= 1e-2 of them (at 100 or more),
 each within 1e-4 of the total from a CDF boundary (exact fixed-point
-prefix sums against torch.cumsum's f32 ones, K2's rule). It fails
+prefix sums against torch.cumsum's f32 ones, K2's rule); K10 and K11
+bit-equal (integer state and copied values). It fails
 (non-zero exit, no result line) if there is no card, a kernel does not
 build, launch or agree, K1-K3 were not launched on the scaled path, K4 and
 K5 not on the rents path, K1, K2 and K6 not on the flights path, K1-K3, K7
 and K8 not on the hospital or the hospital_pg1024 path, K1-K3 and K9 in
-both its modes not on the hospital_pg16_vmapped path, a PG path's log-ML
+both its modes not on the hospital_pg16_vmapped path, K10 or K11 not on
+any path, a shadow run differs or waits for the card, a PG path's log-ML
 is not finite, a path's F1 is below its floor (F1_FLOORS: scaled, rents,
 flights, hospital, and the two PG paths'), or any phase raises.
 """
@@ -214,16 +238,26 @@ SOURCES = {
                     "pclean_tpu/engine/propose.py:801"),
     "pg_resample": ("pclean_tpu_torch/csrc/pg_resample.cu",
                     "pclean_tpu/engine/particles.py:131"),
+    "row_delta": ("pclean_tpu_torch/csrc/row_delta.cu",
+                  "pclean_tpu/engine/refresh.py:209"),
+    "row_write": ("pclean_tpu_torch/csrc/row_write.cu",
+                  "pclean_tpu/engine/smc.py:173"),
 }
 SCALED_KERNELS = ("enum_logsumexp", "inv_cdf_sample", "obs_gather_sum")
 RENTS_KERNELS = ("gauss_suffstats", "gauss_ext_term")
 FLIGHTS_KERNELS = ("enum_logsumexp", "inv_cdf_sample", "maybe_swap_ext")
 HOSPITAL_KERNELS = ("enum_logsumexp", "inv_cdf_sample", "obs_gather_sum",
                     "referrer_hist", "sa_ext_term")
-NEED = {"scaled": SCALED_KERNELS, "rents": RENTS_KERNELS,
-        "flights": FLIGHTS_KERNELS, "hospital": HOSPITAL_KERNELS,
-        "hospital_pg1024": HOSPITAL_KERNELS,
-        "hospital_pg16_vmapped": SCALED_KERNELS + ("pg_resample",)}
+# K10 and K11: every path runs one-row loops (a ramp, replays or B = 1
+# sweeps)
+ROW_KERNELS = ("row_delta", "row_write")
+NEED = {"scaled": SCALED_KERNELS + ROW_KERNELS,
+        "rents": RENTS_KERNELS + ROW_KERNELS,
+        "flights": FLIGHTS_KERNELS + ROW_KERNELS,
+        "hospital": HOSPITAL_KERNELS + ROW_KERNELS,
+        "hospital_pg1024": HOSPITAL_KERNELS + ROW_KERNELS,
+        "hospital_pg16_vmapped": SCALED_KERNELS + ("pg_resample",)
+        + ROW_KERNELS}
 PATHS = tuple(NEED)
 
 
@@ -604,6 +638,55 @@ def k9_entry(shapes: list) -> dict:
         replaces=SOURCES["pg_resample"][1], bound_by="bytes")
 
 
+def bench_rows(ops, eng, arenas, params, census, path, floor, lat) -> dict:
+    """K10 and K11 after a path, on its final state: the shadow run
+    (kernel_bench.shadow_rows: SHADOW_ROWS rows of every class kind the
+    path's census shows it swept, the kernels on one copy of the carry and
+    the plain versions on a CPU copy, every leaf bit-equal), then each
+    kernel at every shape of the path's census (time_k10, time_k11).
+    Returns ({kernel: [one dict per shape]}, the shadow runs); a shape's
+    max_abs_err is 0 (every shadow run bit-equal, or the run fails)."""
+    from pclean_tpu_torch import kernel_bench as kb
+    from pclean_tpu_torch.kernel_bench import require
+
+    shadows = []
+    for cid, kind in kb.row_kinds(census):
+        r = kb.shadow_rows(ops, eng, arenas, params, cid, kind)
+        shadows.append(r)
+        print(f"{path} shadow {cid} {kind}: {r['rows']} rows, "
+              f"{r['launches']} launches, {r['hop_entries']} hop entries, "
+              f"mismatching leaves {r['mismatches']}", flush=True)
+        require(not r["mismatches"], f"{path}: K10/K11 differ from their "
+                f"plain versions on {cid} ({kind}): {r['mismatches']}")
+    out = {"row_delta": kb.time_k10(ops, eng, arenas, params, census, floor,
+                                    lat),
+           "row_write": kb.time_k11(ops, eng, arenas, params, census, floor,
+                                    lat)}
+    for rows in out.values():
+        for r in rows:
+            r.update(path=path, rows="r1", max_abs_err=0.0)
+    torch.cuda.empty_cache()
+    return out, shadows
+
+
+def row_entry(name: str, shapes: list) -> dict:
+    """K10's or K11's kernels-line entry: the numbers of the shape that
+    launched most on one path. Its bound is the larger of the bytes bound
+    and the dependent-load bound (the rounds of loads the function needs,
+    each an operation that cannot start before the one it waits for ends:
+    one L2 latency a round); bound_by names the one that binds."""
+    top = max(shapes, key=lambda r: r["launches"])
+    dep = top["dep_bound_ms"] > top["bound_ms"]
+    return dict({key: top[key] for key in (
+        "max_abs_err", "ms", "device_ms", "plain_ms", "library_ms",
+        "library_device_ms", "bytes", "floor_ms", "dep_loads",
+        "dep_bound_ms")}, shape=f"{top['path']} {top['shape']}", name=name,
+        route="cuda", source=SOURCES[name][0], replaces=SOURCES[name][1],
+        bytes_bound_ms=top["bound_ms"],
+        bound_ms=max(top["bound_ms"], top["dep_bound_ms"]),
+        bound_by="operations" if dep else "bytes")
+
+
 def ptxas_lines(ops) -> dict:
     """Per kernel source, the ptxas -v lines of each compiled function:
     registers, shared memory, stack frame and spills."""
@@ -753,6 +836,219 @@ def small_device_check(dev, workload="scaled"):
     return worst, launched
 
 
+TRACE_N = 16   # a one-row (one-batch) section: 1 + TRACE_N rows less 1 row
+
+
+def _trace(fn) -> dict:
+    """fn() once under torch.profiler (CPU and CUDA activities), ending in a
+    synchronize: its wall ms, device ops (kernels, copies and fills),
+    host syncs (the runtime's synchronize calls, less the closing one),
+    device-to-host copies and device busy ms (the union of the device
+    ops' intervals)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    spans, syncs, d2h, launches = [], 0, 0, 0
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            spans.append((e.start_ns(), e.end_ns()))
+            d2h += "DtoH" in name
+        elif name in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+                      "cudaEventSynchronize"):
+            syncs += 1
+        elif name in ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                      "cuLaunchKernel", "cuLaunchKernelEx"):
+            launches += 1
+    busy, end = 0, None
+    for a, b in sorted(spans):
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return dict(wall_ms=wall, device_ops=len(spans), launches=launches,
+                syncs=syncs - 1, d2h=d2h, busy_ms=busy / 1e6)
+
+
+def _trace_per(big: dict, small: dict, n: int) -> dict:
+    """One step's share: (big - small) / n for every count and time, and
+    the device's idle share of that step's wall time."""
+    out = {k: (big[k] - small[k]) / n for k in big if k != "sync_sites"}
+    out["sync_sites"] = big["sync_sites"]
+    out["idle_share"] = 1.0 - out["busy_ms"] / out["wall_ms"] \
+        if out["wall_ms"] > 0 else None
+    return out
+
+
+def trace_sections(path, cm, config, state=None) -> dict:
+    """The trace phase's sections of a path, each section's loop started
+    from one state and its result dropped, each run once to warm up, then
+    under _trace:
+      hospital: one ramp row (scan_init, 1 + TRACE_N rows less 1 row, over
+        TRACE_N) and one batched init segment (scan_init_batched at its B,
+        batch_segment_rows // B batches, whole), from init_state, where
+        the path's init starts (the batched segment without the ramp's
+        rows before it);
+      flights: one Obs sweep row (_sweep_segment, as the ramp row) on the
+        path's state `state` (arenas, params) after its sweeps, or, where
+        none is given, after an Engine.initialize of the path's rows;
+      rents: one Obs init batch at its B (scan_init_batched, 3 batches less
+        1, over 2), from init_state.
+    Returns {section: counts and times, with the idle share}."""
+    import dataclasses
+    from pclean_tpu_torch.engine.compile import init_state
+    from pclean_tpu_torch.engine.smc import Engine
+
+    eng = Engine(cm, dataclasses.replace(config), device=cm.device)
+    gen = torch.Generator(device=cm.device)
+    gen.manual_seed(0)
+    if state is not None:
+        arenas, params = state
+    else:
+        arenas, params = init_state(cm, 0, device=cm.device)
+        if path == "flights":
+            arenas, params, _g = eng.initialize(1, arenas, params)
+    cid = cm.obs_specs[0].class_id
+    n_rows = cm.obs_specs[0].num_rows
+    B = config.batch_rows
+
+    def rows(k):
+        if path == "flights":
+            return lambda: eng._sweep_segment(cid, arenas, params, 0, gen, k)
+        eng.config.scan_segment = k
+        run, _seg = eng.scan_init(cid, n_rows)
+        return lambda: run(arenas, params, 0, gen)
+
+    def batches(k):
+        eng.config.batch_segment_rows = k * B
+        run, _nb, _sb = eng.scan_init_batched(cid, n_rows, B)
+        return lambda: run(arenas, params, 0, gen)
+
+    def measured(fn):
+        fn()
+        out = _trace(fn)
+        # the syncs PyTorch itself flags (its sync debug mode), outside the
+        # profiler
+        import warnings
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+                torch.cuda.set_sync_debug_mode(0)
+                torch.cuda.synchronize()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        flagged = [w for w in caught if "synchroniz" in str(w.message)]
+        out["flagged_syncs"] = len(flagged)
+        # where they come from: the Python line of each, most frequent first
+        sites: dict = {}
+        for w in flagged:
+            site = f"{os.path.relpath(w.filename, HERE)}:{w.lineno}"
+            sites[site] = sites.get(site, 0) + 1
+        out["sync_sites"] = sorted(sites.items(), key=lambda kv: -kv[1])[:8]
+        return out
+
+    out = {}
+    if path in ("hospital", "flights"):
+        label = "ramp row" if path == "hospital" else "Obs sweep row"
+        small, big = measured(rows(1)), measured(rows(1 + TRACE_N))
+        out[f"{path} {label}"] = _trace_per(big, small, TRACE_N)
+    if path == "hospital":
+        seg = measured(batches(config.batch_segment_rows // B))
+        seg["idle_share"] = 1.0 - seg["busy_ms"] / seg["wall_ms"]
+        out["hospital batched segment"] = seg
+    if path == "rents":
+        small, big = measured(batches(1)), measured(batches(3))
+        out["rents Obs batch"] = _trace_per(big, small, 2)
+    for name, r in out.items():
+        print(f"trace {name}: wall {r['wall_ms']:.3f} ms, device busy "
+              f"{r['busy_ms']:.3f} ms, idle share {r['idle_share']:.4f}, "
+              f"device ops {r['device_ops']:.1f}, kernel launches "
+              f"{r['launches']:.1f}, host syncs {r['syncs']:.1f}, "
+              f"device-to-host copies {r['d2h']:.1f} (under the profiler); "
+              f"syncs flagged by the sync debug mode {r['flagged_syncs']:.1f}"
+              f", from {r['sync_sites']}", flush=True)
+    del arenas, params, eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def trace_only() -> int:
+    """`--trace`: the trace phase alone, on the MH hospital, flights and
+    rents paths' models (compiled here; the only inference is the flights
+    init its sweep row starts from); prints each section and, last, the
+    trace as one JSON object."""
+    from pclean_tpu_torch import ops
+    from pclean_tpu_torch.workloads import flights, hospital, rents
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    print(f"card: {card_line()}", flush=True)
+    ops.build_kernels()
+    setups = {"hospital": lambda: hospital.setup(
+                  **HOSPITAL_PATHS["hospital"], device="cuda"),
+              "flights": lambda: flights.setup(**FLIGHTS, device="cuda"),
+              "rents": lambda: rents.setup(
+                  rows=RENTS["rows"], states=RENTS["states"],
+                  counties=RENTS["counties"], batch=RENTS["batch"],
+                  device="cuda")}
+    trace = {}
+    for path, setup in setups.items():
+        cm, config, *_rest = setup()
+        t = time.time()
+        trace.update(trace_sections(path, cm, config))
+        print(f"trace {path}: {time.time() - t:.2f} s", flush=True)
+        del cm, config, _rest
+    print(json.dumps({"trace": trace}))
+    return 0
+
+
+def fused_order_check() -> dict:
+    """The fused order of a small batched MH sweep on the card
+    (Engine._sweep_batched_fused: every class's batches, then every
+    class's deferred rows, K10 and K11 in the replays): the scaled
+    workload's CPU config (512 rows, B = 8) at the default
+    fused_dispatch_rows, init and one sweep. Fails unless every class took
+    the fused order and the F1 reaches 0.5."""
+    from pclean_tpu_torch import ops
+    from pclean_tpu_torch.analysis import evaluate_accuracy_device
+    from pclean_tpu_torch.engine.compile import init_state
+    from pclean_tpu_torch.engine.smc import Engine
+    from pclean_tpu_torch.kernel_bench import require
+    from pclean_tpu_torch.workloads import scaled
+
+    cm, config, dirty, clean, query, _s = scaled.setup(
+        rows=512, hospitals=48, counties=12, names=24, zips=32, batch=8,
+        device="cuda")
+    arenas, params = init_state(cm, 0, device="cuda")
+    eng = Engine(cm, config, device="cuda")
+    arenas, params, gen = eng.initialize(1, arenas, params)
+    before = dict(ops.LAUNCHES)
+    arenas, params, gen = eng.run(gen, arenas, params)
+    launched = {k: ops.LAUNCHES[k] - before[k] for k in ROW_KERNELS}
+    f1 = evaluate_accuracy_device(cm, arenas, params, dirty, clean,
+                                  query)["f1"]
+    sweep = {k: v for k, v in eng.phase_times.items()
+             if k.startswith("sweep:")}
+    print(f"fused order check (scaled, 512 rows, B = 8): F1 {f1:.4f}, "
+          f"phases {sweep}, K10/K11 launches in the sweep {launched}",
+          flush=True)
+    require(sweep and all(v.get("order") == "fused" for v in sweep.values()),
+            f"the small sweep did not take the fused order: {sweep}")
+    require(f1 >= 0.5, f"fused order check: F1 {f1}")
+    return dict(f1=f1, phases=sweep, launches=launched)
+
+
 def run_path(ops, name, cm, config, dirty, clean, query, rows):
     """One workload's main path, with every launch count set to 0 just
     before it and read just after: init_state, Engine.initialize,
@@ -835,7 +1131,12 @@ def main() -> int:
     report = {"card": card, "build_s": build_s, "torch": torch.__version__,
               "cuda": torch.version.cuda, "ptxas": ptxas}
     floor = kb.launch_floor_ms()
-    for wl in PATHS:
+    lat = kb.l2_latency_ms()
+    report["l2_latency_ms"] = lat
+    print(f"launch floor {floor:.4f} ms, one dependent L2 load {lat:.6f} ms",
+          flush=True)
+    report["fused_order_check"] = fused_order_check()
+    for wl in ("scaled", "rents", "flights", "hospital"):
         err, launched = small_device_check(dev, wl)
         report[f"small_check_{wl}_max_abs_err"] = err
         print(f"tracer cuda-vs-cpu check on the small {wl} config: max "
@@ -852,6 +1153,13 @@ def main() -> int:
         print(f"[{time.time() - t0:.1f} s] {what}", flush=True)
 
     report["phase_s"] = {}
+    report["trace"] = {}
+    report["shadow"] = {}
+
+    def row_checks(path, eng, arenas, params, census):
+        res, report["shadow"][path] = bench_rows(ops, eng, arenas, params,
+                                                 census, path, floor, lat)
+        add(path, res)
     # the scaled path, K7 and K8 at its census shapes while its state
     # lives, then K1-K3 on the model's own matrices
     phase("scaled path")
@@ -870,6 +1178,7 @@ def main() -> int:
     phase("scaled kernel checks")
     add("scaled", bench_k7_k8_census(ops, eng, arenas, params, sc["census"],
                                      BATCH, "scaled", floor))
+    row_checks("scaled", eng, arenas, params, sc["census"])
     del arenas, params, eng
     torch.cuda.empty_cache()
     kernels = bench_kernels(ops, cm, dev)
@@ -912,6 +1221,9 @@ def main() -> int:
     add("rents", {"gauss_ext_term": k5_shapes})
     add("rents", bench_k7_k8_census(ops, eng, arenas, params, rn["census"],
                                     RENTS["batch"], "rents", floor))
+    row_checks("rents", eng, arenas, params, rn["census"])
+    phase("rents trace")
+    report["trace"].update(trace_sections("rents", cm, config))
     del cm, dirty, clean, query, arenas, params, eng
     torch.cuda.empty_cache()
 
@@ -932,6 +1244,10 @@ def main() -> int:
     kernels.append(bench_flights_k6(ops, eng, arenas, params, fl["census"],
                                     floor))
     add("flights", {"maybe_swap_ext": kernels[-1].pop("shapes")})
+    row_checks("flights", eng, arenas, params, fl["census"])
+    phase("flights trace")
+    report["trace"].update(trace_sections("flights", cm, config,
+                                          (arenas, params)))
     del cm, dirty, clean, query, arenas, params, eng
     torch.cuda.empty_cache()
 
@@ -957,6 +1273,10 @@ def main() -> int:
         phase(f"{path} kernel checks")
         add(path, bench_k7_k8_census(ops, eng, arenas, params, hp["census"],
                                      cfg["batch"], path, floor))
+        row_checks(path, eng, arenas, params, hp["census"])
+        if path == "hospital":
+            phase("hospital trace")
+            report["trace"].update(trace_sections("hospital", cm, config))
         del cm, dirty, clean, query, arenas, params, eng
         torch.cuda.empty_cache()
 
@@ -976,6 +1296,7 @@ def main() -> int:
     kernels += [k7_k8_entry(name, checked[name])
                 for name in ("referrer_hist", "sa_ext_term")]
     kernels.append(k9_entry(checked["pg_resample"]))
+    kernels += [row_entry(name, checked[name]) for name in ROW_KERNELS]
     phase("done")
 
     for k in kernels:
@@ -1015,7 +1336,8 @@ def main() -> int:
             json.dump(report, f, indent=1, default=str)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "library_device_ms",
+            "library_ms", "library_device_ms", "dep_loads", "dep_bound_ms",
+            "bytes_bound_ms",
             *(f"launches_{p}" for p in PATHS), "launches_r1", "ms_r1",
             "device_ms_r1", "plain_ms_r1", "bound_ms_r1", "library_ms_r1",
             "floor_ms", "shape", "shapes_checked")
@@ -1029,4 +1351,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(trace_only() if "--trace" in sys.argv[1:] else main())

@@ -1,0 +1,87 @@
+// Typed loads and stores through the 64-bit words of a K10 / K11 plan.
+//
+// A plan is an array of int64 words passed by value as one kernel
+// argument (a struct of up to 32 KB on Hopper with CUDA >= 12.1): device
+// pointers, lengths and dtype codes side by side, so no table lives in
+// device memory and no host-to-device copy precedes a launch. The dtype
+// codes are ops._DT's.
+#pragma once
+
+#include <stdint.h>
+
+#define PCLEAN_DT_BOOL 0
+#define PCLEAN_DT_I8 1
+#define PCLEAN_DT_U8 2
+#define PCLEAN_DT_I16 3
+#define PCLEAN_DT_I32 4
+#define PCLEAN_DT_I64 5
+#define PCLEAN_DT_F32 6
+#define PCLEAN_DT_F64 7
+
+__device__ __forceinline__ bool pclean_dt_float(int64_t dt) {
+  return dt == PCLEAN_DT_F32 || dt == PCLEAN_DT_F64;
+}
+
+// p[i] as an integer (a float truncates toward zero, as torch's .to does).
+__device__ __forceinline__ int64_t pclean_ld_i(int64_t p, int64_t dt,
+                                               int64_t i) {
+  switch (dt) {
+    case PCLEAN_DT_BOOL:
+    case PCLEAN_DT_U8:
+      return reinterpret_cast<const uint8_t*>(p)[i];
+    case PCLEAN_DT_I8:
+      return reinterpret_cast<const int8_t*>(p)[i];
+    case PCLEAN_DT_I16:
+      return reinterpret_cast<const int16_t*>(p)[i];
+    case PCLEAN_DT_I32:
+      return reinterpret_cast<const int32_t*>(p)[i];
+    case PCLEAN_DT_I64:
+      return reinterpret_cast<const int64_t*>(p)[i];
+    case PCLEAN_DT_F32:
+      return (int64_t)reinterpret_cast<const float*>(p)[i];
+    default:
+      return (int64_t)reinterpret_cast<const double*>(p)[i];
+  }
+}
+
+__device__ __forceinline__ double pclean_ld_f(int64_t p, int64_t dt,
+                                              int64_t i) {
+  if (dt == PCLEAN_DT_F32) return reinterpret_cast<const float*>(p)[i];
+  if (dt == PCLEAN_DT_F64) return reinterpret_cast<const double*>(p)[i];
+  return (double)pclean_ld_i(p, dt, i);
+}
+
+// p[i] = v for an integer v (narrowed as a C cast; bool keeps v != 0).
+__device__ __forceinline__ void pclean_st_i(int64_t p, int64_t dt, int64_t i,
+                                            int64_t v) {
+  switch (dt) {
+    case PCLEAN_DT_BOOL:
+      reinterpret_cast<uint8_t*>(p)[i] = v != 0;
+      break;
+    case PCLEAN_DT_U8:
+      reinterpret_cast<uint8_t*>(p)[i] = (uint8_t)v;
+      break;
+    case PCLEAN_DT_I8:
+      reinterpret_cast<int8_t*>(p)[i] = (int8_t)v;
+      break;
+    case PCLEAN_DT_I16:
+      reinterpret_cast<int16_t*>(p)[i] = (int16_t)v;
+      break;
+    case PCLEAN_DT_I32:
+      reinterpret_cast<int32_t*>(p)[i] = (int32_t)v;
+      break;
+    case PCLEAN_DT_I64:
+      reinterpret_cast<int64_t*>(p)[i] = v;
+      break;
+    case PCLEAN_DT_F32:
+      reinterpret_cast<float*>(p)[i] = (float)v;
+      break;
+    default:
+      reinterpret_cast<double*>(p)[i] = (double)v;
+  }
+}
+
+// take()'s clamp of an index into [0, n).
+__device__ __forceinline__ int64_t pclean_clamp(int64_t i, int64_t n) {
+  return i < 0 ? 0 : (i >= n ? n - 1 : i);
+}

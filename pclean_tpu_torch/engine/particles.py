@@ -32,7 +32,7 @@ from .. import ops
 from ..model.ir import ClassID
 from ..utils import take
 from .propose import Birth, BlockTracer
-from .smc import _birthy, _slots, apply_row, exclude_rows
+from .smc import _birthy, _slots, exclude_rows
 
 
 def _rel_rows(rel: dict, rows: torch.Tensor) -> dict:
@@ -189,29 +189,30 @@ def pg_row_step(eng, cid: ClassID, arenas: dict, rel: dict, params: dict,
     return env, acc & alive & ~birthy, birthy & alive, lml
 
 
-def pg_init_step(eng, cid: ClassID, arenas: dict, rel: dict, params: dict,
-                 slot: int, gen, P: int):
-    """Incorporate one fresh row by P-particle SMC against `rel`, the
-    current relational state (particles.py:199-216). Returns (arenas,
-    log_ml [1])."""
-    env, births, lml, _acc = propose_row_pg(eng, cid, arenas, rel, params,
-                                            [slot], gen, P, False)
-    arenas = apply_row(eng.cm, cid, arenas, slot, env, births, accept=True,
-                       mark_alive=True)
-    return arenas, lml
+def pg_init_step(eng, car, rel: dict, params: dict, slot, gen, P: int):
+    """Incorporate one fresh row `slot` (a one-element index tensor) of
+    the carry's class by P-particle SMC against `rel`, the current
+    relational state (particles.py:199-216), written into the carry's
+    arenas in place (K11, ops.row_write). Returns log_ml [1]."""
+    st = _slots(eng.cm, slot)
+    env, births, lml, _acc = propose_row_pg(eng, car.cid, car.arenas, rel,
+                                            params, st, gen, P, False)
+    ops.row_write(car, st, env, births, mark_alive=True)
+    return lml
 
 
-def pg_rejuv_step(eng, cid: ClassID, arenas: dict, rel: dict, params: dict,
-                  slot: int, gen, P: int, ext_hists=None, ref_comp=None):
-    """CSMC rejuvenation of one row with P particles, particle 0 retained,
-    against `rel` with the row excluded (particles.py:219-237); the final
-    selection is by weight (row_inference.jl:164). Returns arenas."""
-    cm = eng.cm
+def pg_rejuv_step(eng, car, rel: dict, params: dict, slot, gen, P: int,
+                  ext_hists=None, ref_comp=None) -> None:
+    """CSMC rejuvenation of one row `slot` (a one-element index tensor) of
+    the carry's class with P particles, particle 0 retained, against `rel`
+    with the row excluded (particles.py:219-237); the final selection is
+    by weight (row_inference.jl:164). Written into the carry's arenas in
+    place (K11, ops.row_write)."""
+    cm, cid, arenas = eng.cm, car.cid, car.arenas
     st = _slots(cm, slot)
     env, births, _lml, acc = propose_row_pg(
         eng, cid, arenas, rel, params, st, gen, P, True, ext_hists=ext_hists,
         ref_comp=ref_comp)
     alive = take(arenas[cid]["alive"] if cm.layouts[cid].observed
                  else rel[cid]["alive"], st)
-    return apply_row(cm, cid, arenas, slot, env, births, accept=alive & acc,
-                     mark_alive=False)
+    ops.row_write(car, st, env, births, alive & acc)

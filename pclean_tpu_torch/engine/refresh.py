@@ -134,6 +134,10 @@ def _fk_delta(cm: CompiledModel, rel: dict, arenas: dict, cid: ClassID,
 
 
 def _slot_tensor(cm, slot) -> torch.Tensor:
+    """A slot tensor stays on its device; anything else goes to the
+    model's."""
+    if torch.is_tensor(slot):
+        return slot.long()
     return torch.as_tensor(slot, device=cm.device).long()
 
 
@@ -196,7 +200,7 @@ def hop_move(cm: CompiledModel, rel: dict, arenas: dict, cid: ClassID,
     for (fkv, suffix, (tc, tv)), (gcnt, gcode) in hop_hists:
         g = take(gcnt, slot)
         gc = take(gcode, slot)
-        of = torch.as_tensor(old_fks[fkv], device=cm.device).reshape(1)
+        of = torch.as_tensor(old_fks[fkv], device=slot.device).reshape(1)
         nf = take(arenas[cid]["values"][fkv], slot)
         for (hc, fv) in suffix:
             of = take(arenas[hc]["values"][fv], of)

@@ -14,7 +14,10 @@ inference.jl / row_inference.jl. With batch_rows > 1 (the batched path):
     Metropolis-within-Gibbs rule, B rows at a time
     (`_sweep_batched_segmented` -> `scan_sweep_class_batched` ->
     `mh_row_step`), with parameter + Pitman-Yor resampling interleaved
-    (`resample_all`).
+    (`resample_all`); where the classes' capacities sum to at most
+    fused_dispatch_rows, in the JAX package's fused order
+    (`_sweep_batched_fused`: every class's batches, then every class's
+    deferred rows).
 
 With batch_rows = 1 (the reference-exact sequential path, smc.py:1023-1083
 and 1332-1447): `initialize` runs `scan_init` over every row, and `sweep`
@@ -23,6 +26,16 @@ order, one row slot at a time, with `resample_all` every rejuv_frequency
 slots. The JAX package's `scan_sweep_all` fuses those per-class segments
 into one XLA dispatch with the same semantics; eager torch has no dispatch
 to save, so it has no twin here.
+
+Every one-row loop (scan_init's segments, _sweep_segment, _replay_chunk
+and the PG one-row steps they call) copies the leaves it writes once at
+its segment's entry (`own_carry`) and updates them in place through the
+hand kernels K10 (`ops.row_delta`, the row's relational delta) and K11
+(`ops.row_write`, its values and births), whose arguments are bound to
+that carry once a segment (`ops.RowCarry`), the row's slot a view of a
+per-segment `arange` on the device, so neither waits for the card; the
+out-of-place `apply_row` and refresh's point deltas stay for the batched
+path and as those kernels' plain versions.
 
 Particle Gibbs (use_mh_instead_of_pg=False, num_particles = P > 1) rides
 the same drivers with engine/particles.py's row bodies: `pg_row_step` in
@@ -48,13 +61,14 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import ops
 from ..model.ir import ClassID
 from ..utils import (index_set_drop, resolve_device, scatter_add_drop, take)
 from .compile import CompiledModel
 from .gibbs_params import resample_all
 from .propose import BlockTracer, _rtake, build_cand, referrer_histograms
 from .refresh import (batch_latent_delta, batch_obs_delta, hop_histograms,
-                      hop_move, latent_row_delta, refresh, row_delta)
+                      latent_row_delta, refresh, row_delta)
 
 
 @dataclass
@@ -74,6 +88,10 @@ class InferenceConfig:
     batch_rows: int = 1
     scan_segment: int = 512  # sequential ramp segment (scan_init)
     batch_segment_rows: int = 16384
+    # an MH sweep at batch_rows > 1 whose classes' capacities sum to at
+    # most this takes the fused order (Engine._sweep_batched_fused): every
+    # class's batches, then every class's deferred rows
+    fused_dispatch_rows: int = 8192
     exact_gibbs_accept: bool = True
     # PG on an audit-passing model collapses to one exact draw a row
     # (engine/particles.py); False forces the written-out particle path
@@ -90,6 +108,11 @@ def _obs_device(cm: CompiledModel):
 
 
 def _slots(cm, s) -> torch.Tensor:
+    """Row slots as an int64 vector: a tensor stays where it is (the plain
+    versions of K10 and K11 run on a CPU copy of a card's state), anything
+    else goes to the model's device."""
+    if torch.is_tensor(s):
+        return s.long().reshape(-1)
     return torch.as_tensor(s, device=cm.device).long().reshape(-1)
 
 
@@ -99,7 +122,7 @@ def apply_row(cm: CompiledModel, cid: ClassID, arenas: dict, slot, env2: dict,
     scatters; row_inference.jl:169-185). Births of deeper classes are
     applied in list order, as sampled."""
     slot = _slots(cm, slot)
-    accept = torch.as_tensor(accept, device=cm.device).reshape(-1)
+    accept = torch.as_tensor(accept, device=slot.device).reshape(-1)
     lay = cm.layouts[cid]
     vals = dict(arenas[cid]["values"])
     for vid in lay.store:
@@ -128,6 +151,38 @@ def apply_row(cm: CompiledModel, cid: ClassID, arenas: dict, slot, env2: dict,
         out[b.target_class] = {"values": bvals,
                                "alive": out[b.target_class]["alive"]}
     return out
+
+
+def own_carry(cm: CompiledModel, cid: ClassID, arenas: dict, rel=None):
+    """The leaves a one-row loop of class cid writes in place (K10 and K11,
+    ops.row_delta and ops.row_write), copied once at its segment's entry,
+    so that the caller's arenas and every snapshot taken from them come
+    out of the segment unchanged: the value columns and alive bits of cid
+    and of every class its fks reach (where its births land), and of `rel`
+    every latent class's refcount, alive, total and nrows and every prop
+    pair. Every other leaf stays shared. A rel that refresh() has just
+    built for the loop is its own already: pass only a snapshot that
+    something else holds. Returns (arenas, rel)."""
+    reach = [cid]
+    for c in reach:
+        for fkv in cm.layouts[c].fk_vertices:
+            tc = cm.node(c, fkv).target_class
+            if tc not in reach:
+                reach.append(tc)
+    out = dict(arenas)
+    for c in reach:
+        out[c] = {"values": {v: x.clone()
+                             for v, x in arenas[c]["values"].items()},
+                  "alive": arenas[c]["alive"].clone()}
+    if rel is not None:
+        rel = {c: {**r, "prop": dict(r["prop"])} if cm.layouts[c].observed
+               else {"alive": r["alive"].clone(),
+                     "refcount": r["refcount"].clone(),
+                     "total": r["total"].clone(), "nrows": r["nrows"].clone(),
+                     "prop": {tv: (code.clone(), cnt.clone())
+                              for tv, (code, cnt) in r["prop"].items()}}
+               for c, r in rel.items()}
+    return out, rel
 
 
 def _apply_batch(cm: CompiledModel, cid: ClassID, arenas: dict, slots,
@@ -529,54 +584,51 @@ class Engine:
         from .particles import pg_init_step, pg_rejuv_step
 
         cm = self.cm
+        obs = self.obs_dev
         # observed classes carry rel by exact point deltas; latent-class
         # replays are rare and recompute with the row excluded
         incr = cm.layouts[cid].observed
-        rel = refresh(cm, arenas, self.obs_dev) if incr else None
+        arenas, _r = own_carry(cm, cid, arenas)
+        car = ops.RowCarry(cm, cid, arenas,
+                           refresh(cm, arenas, obs) if incr else None, obs)
+        rel = car.rel
+        slots = torch.as_tensor(np.asarray(idx, np.int64), device=cm.device)
         lml = torch.zeros((), device=cm.device)
-        for s in idx:
-            s = int(s)
+        for i, s in enumerate(idx):
+            st = slots[i:i + 1]
             if rejuv:
-                relx = row_delta(cm, rel, arenas, self.obs_dev, cid, s, -1) \
-                    if incr else refresh(cm, arenas, self.obs_dev,
-                                         exclude_cid=cid, exclude_slot=s)
-                if pg_P:
-                    arenas = pg_rejuv_step(self, cid, arenas, relx, params,
-                                           s, gen, pg_P)
-                    if incr:
-                        rel = row_delta(cm, relx, arenas, self.obs_dev, cid,
-                                        s, +1)
-                    continue
-                st = torch.tensor([s], device=cm.device)
-                alive = take(arenas[cid]["alive"], st) \
-                    if cm.layouts[cid].observed else take(relx[cid]["alive"],
-                                                          st)
-                env_p, births_p, w_p = self._propose(cid, arenas, relx,
-                                                     params, st, gen, False)
-                if self.exact_accept:
-                    accept = alive
-                else:
-                    _e, _b, w_r = self._propose(cid, arenas, relx, params,
-                                                st, gen, True)
-                    u = torch.rand((1,), generator=gen, device=cm.device)
-                    accept = (torch.log(u) < (w_p - w_r)) & alive
-                arenas = apply_row(cm, cid, arenas, s, env_p, births_p,
-                                   accept=accept, mark_alive=False)
                 if incr:
-                    rel = row_delta(cm, relx, arenas, self.obs_dev, cid, s, +1)
-            else:
-                relx = rel if incr else refresh(cm, arenas, self.obs_dev)
+                    ops.row_delta(car, st, -1)
+                    relx = rel
+                else:
+                    relx = refresh(cm, arenas, obs, exclude_cid=cid,
+                                   exclude_slot=int(s))
                 if pg_P:
-                    arenas, w = pg_init_step(self, cid, arenas, relx, params,
-                                             s, gen, pg_P)
-                    lml = lml + w.sum()
+                    pg_rejuv_step(self, car, relx, params, st, gen, pg_P)
+                else:
+                    alive = take(arenas[cid]["alive"] if incr
+                                 else relx[cid]["alive"], st)
+                    env_p, births_p, w_p = self._propose(
+                        cid, arenas, relx, params, st, gen, False)
+                    if self.exact_accept:
+                        accept = alive
+                    else:
+                        _e, _b, w_r = self._propose(cid, arenas, relx, params,
+                                                    st, gen, True)
+                        u = torch.rand((1,), generator=gen, device=cm.device)
+                        accept = (torch.log(u) < (w_p - w_r)) & alive
+                    ops.row_write(car, st, env_p, births_p, accept)
+            else:
+                relx = rel if incr else refresh(cm, arenas, obs)
+                if pg_P:
+                    lml = lml + pg_init_step(self, car, relx, params, st,
+                                             gen, pg_P).sum()
                 else:
                     env2, births, _w = self._propose(cid, arenas, relx,
-                                                     params, [s], gen, False)
-                    arenas = apply_row(cm, cid, arenas, s, env2, births,
-                                       accept=True, mark_alive=True)
-                if incr:
-                    rel = row_delta(cm, relx, arenas, self.obs_dev, cid, s, +1)
+                                                     params, st, gen, False)
+                    ops.row_write(car, st, env2, births, mark_alive=True)
+            if incr:
+                ops.row_delta(car, st, +1)
         return arenas, lml
 
     def replay_rows(self, cid: ClassID, arenas, params, idx, gen,
@@ -654,22 +706,24 @@ class Engine:
         from .particles import pg_init_step
 
         def run(arenas, params, base, gen):
+            arenas, _r = own_carry(cm, cid, arenas)
             rel = refresh(cm, arenas, self.obs_dev)
+            car = ops.RowCarry(cm, cid, arenas, rel, self.obs_dev)
+            slots = base + torch.arange(seg, device=cm.device)
             lml = torch.zeros((), device=cm.device)
             for off in range(seg):
                 slot = base + off
                 if slot >= num_rows:
                     break
+                st = slots[off:off + 1]
                 if pg_P:
-                    arenas, w = pg_init_step(self, cid, arenas, rel, params,
-                                             slot, gen, pg_P)
-                    lml = lml + w.sum()
+                    lml = lml + pg_init_step(self, car, rel, params, st, gen,
+                                             pg_P).sum()
                 else:
                     env2, births, _w = self._propose(cid, arenas, rel, params,
-                                                     [slot], gen, False)
-                    arenas = apply_row(cm, cid, arenas, slot, env2, births,
-                                       accept=True, mark_alive=True)
-                rel = row_delta(cm, rel, arenas, self.obs_dev, cid, slot, +1)
+                                                     st, gen, False)
+                    ops.row_write(car, st, env2, births, mark_alive=True)
+                ops.row_delta(car, st, +1)
                 if (slot + 1) % R == 0:
                     arenas, params = resample_all(cm, arenas, params,
                                                   self.obs_dev, gen, rel=rel)
@@ -700,32 +754,33 @@ class Engine:
         R = self.config.rejuv_frequency
         leaf = self._leaf_latent(cid)
         observed = cm.layouts[cid].observed
-        relc = refresh(cm, arenas, self.obs_dev)
+        obs = self.obs_dev
+        relc = refresh(cm, arenas, obs)
         hists = self._ext_hists(cid, arenas, params, rel=relc)
         comp = self._ref_comp(cid, arenas, relc)
         hops = [] if (observed or leaf) else \
-            hop_histograms(cm, cid, arenas, self.obs_dev)
-        fkvs = cm.layouts[cid].fk_vertices
-        relcar = relc
+            hop_histograms(cm, cid, arenas, obs)
+        # the segment's own copies of what K10 and K11 write; the snapshots
+        # above keep the caller's
+        arenas, rel = own_carry(cm, cid, arenas, None if leaf else relc)
+        if leaf:
+            rel = relc
+        car = ops.RowCarry(cm, cid, arenas, rel, obs, hops)
+        mode = "obs" if observed else "latent"
+        old_fk = torch.empty((len(cm.layouts[cid].fk_vertices),),
+                             dtype=torch.int64, device=cm.device) \
+            if hops else None
+        slots = base + torch.arange(seg, device=cm.device)
         for off in range(seg):
             slot = base + off
             if slot >= cap:
                 break
-            st = torch.tensor([slot], device=cm.device)
-            if observed:
-                rel = row_delta(cm, relcar, arenas, self.obs_dev, cid, slot,
-                                -1)
-            elif leaf:
-                rel = relc
-            else:
-                rel = latent_row_delta(cm, relcar, arenas, cid, slot, -1)
-            if hops:
-                old_fks = {fkv: take(arenas[cid]["values"][fkv], st)
-                           for fkv in fkvs}
+            st = slots[off:off + 1]
+            if not leaf:   # the row excluded from the carried state
+                ops.row_delta(car, st, -1, mode, save_fk=old_fk)
             if pg_P:
-                arenas = pg_rejuv_step(self, cid, arenas, rel, params, slot,
-                                       gen, pg_P, ext_hists=hists,
-                                       ref_comp=comp)
+                pg_rejuv_step(self, car, rel, params, st, gen, pg_P,
+                              ext_hists=hists, ref_comp=comp)
             else:
                 env_p, births_p, w_p = self._propose(
                     cid, arenas, rel, params, st, gen, False,
@@ -741,20 +796,15 @@ class Engine:
                                                 ref_comp=comp)
                     u = torch.rand((1,), generator=gen, device=cm.device)
                     accept = (torch.log(u) < (w_p - w_r)) & alive
-                arenas = apply_row(cm, cid, arenas, slot, env_p, births_p,
-                                   accept=accept, mark_alive=False)
-            if observed:
-                # re-add the row's (possibly rewritten) contributions
-                relcar = row_delta(cm, rel, arenas, self.obs_dev, cid, slot,
-                                   +1)
-            elif not leaf:
-                relcar = latent_row_delta(cm, rel, arenas, cid, slot, +1)
-                if hops:
-                    relcar = hop_move(cm, relcar, arenas, cid, slot,
-                                      old_fks, hops)
+                ops.row_write(car, st, env_p, births_p, accept)
+            if not leaf:
+                # re-add the row's (possibly rewritten) contributions; a
+                # latent row also moves its referrers' propagated
+                # observations from its old fk targets (hop_move)
+                ops.row_delta(car, st, +1, mode, old_fk=old_fk)
             if (slot + 1) % R == 0:
-                arenas, params = resample_all(cm, arenas, params,
-                                              self.obs_dev, gen, rel=relcar)
+                arenas, params = resample_all(cm, arenas, params, obs, gen,
+                                              rel=rel)
         return arenas, params
 
     def scan_sweep_class(self, cid: ClassID, pg_P: Optional[int] = None):
@@ -835,14 +885,17 @@ class Engine:
 
     def scan_sweep_class_batched(self, cid: ClassID, B: int,
                                  kc: Optional[dict] = None,
-                                 pg_P: Optional[int] = None):
+                                 pg_P: Optional[int] = None,
+                                 whole: bool = False):
         """One class's batched blocked-Gibbs sweep segment (smc.py:
         1566-1671): run(arenas, params, base, gen) sweeps seg_b batches of B
         slots with mh_row_step, or with pg_P P-particle CSMC (pg_row_step,
         retained), carrying rel by batched point deltas (leaf latent
         classes keep the segment-entry snapshot), with the referrer
         histograms, referrer lists and candidate axes built once per
-        segment. Returns (run, nb, seg_b)."""
+        segment. `whole`: one segment of all the class's batches (the
+        fused order's class pass, smc.py:1496-1546). Returns (run, nb,
+        seg_b)."""
         from .particles import pg_row_step
 
         cap = self.cm.layouts[cid].capacity
@@ -852,7 +905,7 @@ class Engine:
             # the written-out particle path: as in scan_init_batched
             # (smc.py:1588), unclamped for P < 8
             seg_b = max(1, seg_b * 8 // pg_P)
-        seg_b = min(seg_b, nb)
+        seg_b = nb if whole else min(seg_b, nb)
         cm = self.cm
         R = max(1, self.config.rejuv_frequency // B)
         leaf = self._leaf_latent(cid)
@@ -1040,16 +1093,22 @@ class Engine:
 
     def sweep(self, key, arenas, params, progress: Optional[int] = None):
         """pgibbs_sweep! (inference.jl:60-81): at batch_rows=1 every class's
-        sequential sweep in declaration order (smc.py:1997-2010), else
-        per-class segmented batched sweeps (the JAX package's
-        _sweep_batched_segmented branch); MH rows, or P-particle CSMC rows
-        in PG mode."""
+        sequential sweep in declaration order (smc.py:1997-2010); else, for
+        an MH sweep whose classes' capacities sum to at most
+        fused_dispatch_rows, the fused order (_sweep_batched_fused,
+        smc.py:2011-2036), and otherwise per-class segmented batched sweeps
+        (the JAX package's _sweep_batched_segmented branch); MH rows, or
+        P-particle CSMC rows in PG mode."""
         gen = self._gen(key)
         progress = self._progress(progress)
         pg_P = self._pg_P(init=False)
         if self.config.batch_rows <= 1:
             return self._sweep_sequential(gen, arenas, params, progress,
                                           pg_P)
+        total_cap = sum(self.cm.layouts[c].capacity
+                        for c in self.cm.model.class_order)
+        if not pg_P and total_cap <= self.config.fused_dispatch_rows:
+            return self._sweep_batched_fused(gen, arenas, params, progress)
         return self._sweep_batched_segmented(gen, arenas, params, progress,
                                              pg_P)
 
@@ -1067,6 +1126,39 @@ class Engine:
                                                 "rows": cap}
             if progress:
                 print(f"{cid}: sweep done")
+        return arenas, params, gen
+
+    def _sweep_batched_fused(self, gen, arenas, params, progress):
+        """The fused order of a small batched MH sweep (scan_sweep_all_batched
+        and its dispatch, smc.py:1481-1564, 2011-2036): every class in
+        declaration order sweeps all its batches as one segment on the full
+        candidate axis, and only then are every class's deferred
+        (entity-birthing) rows replayed, class by class. Wall seconds in
+        self.phase_times["sweep:<class>"], with "order": "fused"."""
+        B = self.config.batch_rows
+        flags = {}
+        for cid in self.cm.model.class_order:
+            run, _nb, _sb = self.scan_sweep_class_batched(cid, B, whole=True)
+            tb = time.time()
+            arenas, params, fl = run(arenas, params, 0, gen)
+            flags[cid] = fl
+            self.phase_times[f"sweep:{cid}"] = {
+                "order": "fused", "batched": time.time() - tb,
+                "replay_seq": 0.0, "replayed_seq_rows": 0}
+        for cid in self.cm.model.class_order:
+            cap = self.cm.layouts[cid].capacity
+            idx = np.flatnonzero(flags[cid].cpu().numpy()[:cap])
+            if idx.size:
+                tr = time.time()
+                arenas = self.replay_rows(cid, arenas, params, idx, gen,
+                                          rejuv=True)
+                self._kc_note(idx.size)
+                self._sync()
+                t = self.phase_times[f"sweep:{cid}"]
+                t["replay_seq"] = time.time() - tr
+                t["replayed_seq_rows"] = int(idx.size)
+        if progress:
+            print("sweep done (fused, batched)")
         return arenas, params, gen
 
     def _sweep_batched_segmented(self, gen, arenas, params, progress,

@@ -1416,6 +1416,388 @@ def time_kernels(ops, inp: dict, plain: bool = True,
     return res
 
 
+# ------------------------------------------------------------- K10, K11
+#
+# K10 (the one-row relational delta) and K11 (the one-row write) are
+# checked in a shadow run on each path's final state: the kernels on one
+# copy of the loop's carry, the plain versions on a CPU copy, over rows of
+# every class kind the path swept, bit for bit (`shadow_rows`); and timed
+# at every shape of the path's census (`time_k10`, `time_k11`) beside
+# their bytes bound and their dependent-load bound: the chain of dependent
+# loads a call makes (`k10_dep_loads`, `k11_dep_loads`, counted from the
+# plan) times the latency of one load that hits L2 (`l2_latency_ms`, K10's
+# probe). No single PyTorch call computes either.
+
+SHADOW_ROWS = 256
+
+
+def row_state(cm, seed: int = 0, oob: float = 0.05, device="cuda"):
+    """A seeded arena state of cm's model (numpy, then torch on `device`):
+    every fk column uniform over its target's slots with a share `oob` of
+    out-of-range values (the target's capacity), other int columns in
+    [0, 4), float columns in [0, 1), alive bits with probability 0.8."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for cid in cm.model.class_order:
+        lay = cm.layouts[cid]
+        cap = lay.capacity
+        vals = {}
+        for vid, dt in lay.store.items():
+            if vid in lay.fk_vertices:
+                tcap = cm.layouts[cm.node(cid, vid).target_class].capacity
+                v = rng.integers(0, tcap, cap)
+                v[rng.random(cap) < oob] = tcap
+            elif dt == "i":
+                v = rng.integers(0, 4, cap)
+            else:
+                v = rng.random(cap)
+            vals[vid] = torch.as_tensor(
+                v.astype(np.int32 if dt == "i" else np.float32),
+                device=device)
+        out[cid] = {"values": vals, "alive": torch.as_tensor(
+            rng.random(cap) < 0.8, device=device)}
+    return out
+
+
+def _tree_map(x, fn):
+    if isinstance(x, dict):
+        return {k: _tree_map(v, fn) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_tree_map(v, fn) for v in x)
+    return fn(x) if torch.is_tensor(x) else x
+
+
+def _births_to(births, dev):
+    from .engine.propose import Birth
+    return [Birth(b.fk_vid, b.target_class, b.is_new.to(dev),
+                  b.slot.to(dev), {k: v.to(dev) for k, v in b.values.items()},
+                  depth=b.depth) for b in births]
+
+
+def row_kinds(census: list) -> list:
+    """The (class, kind) pairs a path's K10 and K11 census shows it swept:
+    "init" (K11 marking alive, then K10 +1: the ramp and init replays) for
+    every observed class K10 added rows of, "obs" (K10 -1, K11, K10 +1)
+    where it also removed them, "latent" (K10 -1 saving the fks, K11,
+    K10 +1 with the hop entries where it had them) for every latent class
+    K10 removed rows of, "leaf" (K11 alone) for a class only K11 wrote."""
+    modes: dict = {}
+    for r in census:
+        if r["kernel"] == "row_delta":
+            parts = r["mode"].split(" ")
+            modes.setdefault(parts[0], set()).add((parts[1], parts[-1]))
+        elif r["kernel"] == "row_write":
+            modes.setdefault(r["mode"], set())
+    out = []
+    for cid, ms in modes.items():
+        if ("obs", "+1") in ms:
+            out.append((cid, "init"))
+        if ("obs", "-1") in ms:
+            out.append((cid, "obs"))
+        if ("latent", "-1") in ms:
+            out.append((cid, "latent"))
+        if not ms:
+            out.append((cid, "leaf"))
+    return out
+
+
+def row_cases(eng, arenas, params, rel, cid, n: int, seed: int = 0):
+    """n rows of class cid in the form the loops give K10 and K11: one
+    real proposal (Engine._propose of one live slot) fixes env2's vertices
+    and dtypes and the births' classes and vertices; each row gets a slot
+    (live slots first, then dead ones), env2 values drawn from its
+    columns' own values, births at seeded slots of their class (one in
+    twenty -1), seeded is_new and accept bits. Returns [(slot [1], env2,
+    births, accept [1])] on the card."""
+    from .engine.propose import Birth
+
+    cm, dev = eng.cm, eng.cm.device
+    rng = np.random.default_rng(seed)
+    cap = cm.layouts[cid].capacity
+    alive = (arenas[cid]["alive"] if cm.layouts[cid].observed
+             else rel[cid]["alive"]).cpu().numpy()
+    order = np.concatenate([np.flatnonzero(alive), np.flatnonzero(~alive)])
+    slots = order[np.arange(n) % len(order)]
+    hists = None if cm.layouts[cid].observed else \
+        eng._ext_hists(cid, arenas, params, rel)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    st = torch.as_tensor(slots[:1], device=dev)
+    env2, births, _w = eng._propose(cid, arenas, rel, params, st, gen, False,
+                                    ext_hists=hists,
+                                    ref_comp=eng._ref_comp(cid, arenas, rel))
+
+    def draw(col, like):
+        c = col.cpu().numpy()
+        return torch.as_tensor(c[rng.integers(0, len(c), 1)],
+                               device=dev).to(like.dtype)
+
+    out = []
+    for s in slots:
+        e = {v: draw(arenas[cid]["values"][v], x) if v in
+             arenas[cid]["values"] else x for v, x in env2.items()}
+        bs = []
+        for b in births:
+            tc = b.target_class
+            bcap = cm.layouts[tc].capacity
+            bslot = -1 if rng.random() < 0.05 else int(rng.integers(0, bcap))
+            bs.append(Birth(
+                b.fk_vid, tc, torch.as_tensor([rng.random() < 0.5],
+                                              device=dev),
+                torch.as_tensor([bslot], device=dev).to(b.slot.dtype),
+                {tv: draw(arenas[tc]["values"][tv], v)
+                 if tv in arenas[tc]["values"] else v
+                 for tv, v in b.values.items()}, depth=b.depth))
+        out.append((torch.as_tensor([int(s)], device=dev), e, bs,
+                    torch.as_tensor([rng.random() < 0.8], device=dev)))
+    return out
+
+
+def shadow_rows(ops, eng, arenas, params, cid, kind: str,
+                n: int = SHADOW_ROWS, seed: int = 0) -> dict:
+    """K10 and K11 on one copy of class cid's carry (smc.own_carry) over n
+    rows (row_cases) in the loop order of `kind` (row_kinds), under
+    torch.cuda.set_sync_debug_mode("error") (a call that makes the host
+    wait for the card raises), the plain versions on a CPU copy of the
+    same carry, then every leaf of the two compared bit for bit. Returns
+    dict(class, kind, rows, launches, mismatches: the leaves that
+    differ)."""
+    from .engine.refresh import hop_histograms, refresh
+    from .engine.smc import own_carry
+
+    cm = eng.cm
+    rel = refresh(cm, arenas, eng.obs_dev)
+    cases = row_cases(eng, arenas, params, rel, cid, n, seed)
+    hops = hop_histograms(cm, cid, arenas, eng.obs_dev) \
+        if kind == "latent" else []
+    n_fk = len(cm.layouts[cid].fk_vertices)
+    a_dev, r_dev = own_carry(cm, cid, arenas, rel)
+    cpu = lambda t: t.cpu()  # noqa: E731
+    a_cpu, r_cpu = _tree_map(a_dev, cpu), _tree_map(r_dev, cpu)
+    car_dev = ops.RowCarry(cm, cid, a_dev, r_dev, eng.obs_dev, hops)
+    car_cpu = ops.RowCarry(cm, cid, a_cpu, r_cpu, _tree_map(eng.obs_dev, cpu),
+                           _tree_map(hops, cpu))
+    mode = "obs" if cm.layouts[cid].observed else "latent"
+    fk_dev = torch.zeros((max(n_fk, 1),), dtype=torch.int64,
+                         device=cm.device)
+    fk_cpu = fk_dev.cpu()
+    cases_cpu = [(s.cpu(), _tree_map(env2, cpu), _births_to(births, "cpu"),
+                  acc.cpu()) for s, env2, births, acc in cases]
+    before = ops.LAUNCHES["row_delta"] + ops.LAUNCHES["row_write"]
+    torch.cuda.synchronize()
+    # the kernels' calls may not wait for the card (CPU ops never do)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for case, case_cpu in zip(cases, cases_cpu):
+            for (s, e, b, acc), (car, fk) in ((case, (car_dev, fk_dev)),
+                                              (case_cpu, (car_cpu, fk_cpu))):
+                if kind in ("obs", "latent"):
+                    ops.row_delta(car, s, -1, mode,
+                                  save_fk=fk if kind == "latent" else None)
+                if kind == "init":
+                    ops.row_write(car, s, e, b, mark_alive=True)
+                else:
+                    ops.row_write(car, s, e, b, acc)
+                if kind != "leaf":
+                    ops.row_delta(car, s, +1, mode, old_fk=fk)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    launches = ops.LAUNCHES["row_delta"] + ops.LAUNCHES["row_write"] - before
+    bad = []
+    for name, x, y in _leaves(a_dev, a_cpu, "arenas") + \
+            _leaves(r_dev, r_cpu, "rel"):
+        if not torch.equal(x.cpu(), y):
+            bad.append(name)
+    return dict(cls=cid, kind=kind, rows=n, launches=launches,
+                hop_entries=len(hops), mismatches=bad)
+
+
+def _leaves(x, y, path):
+    if isinstance(x, dict):
+        return [leaf for k in x for leaf in _leaves(x[k], y[k],
+                                                     f"{path}.{k}")]
+    if isinstance(x, (list, tuple)):
+        return [leaf for i, (u, v) in enumerate(zip(x, y))
+                for leaf in _leaves(u, v, f"{path}[{i}]")]
+    return [(path, x, y)] if torch.is_tensor(x) else []
+
+
+def l2_latency_ms() -> float:
+    """Device ms of one dependent load that hits L2: K10's probe (one
+    thread following a random cycle through 2^20 int32 in L2) at 257
+    steps less at 1, over 256 (graph_ms)."""
+    from . import ops
+
+    ops.build_kernels()
+    n = 1 << 20
+    perm = torch.randperm(n, generator=torch.Generator().manual_seed(0))
+    nxt = torch.empty(n, dtype=torch.int32)
+    nxt[perm] = perm.roll(-1).to(torch.int32)
+    nxt, out = nxt.cuda(), torch.zeros(1, dtype=torch.int32, device="cuda")
+    probe = ops._libs["chase_probe"]
+
+    def run(k):
+        return lambda: ops._check(probe(ops._ptr(nxt), k, ops._ptr(out),
+                                        ops._stream(nxt)), "chase_probe")
+
+    return (graph_ms(run(257)) - graph_ms(run(1))) / 256
+
+
+def k10_dep_loads(plan: dict) -> int:
+    """The rounds of dependent loads one K10 call needs at least, counted
+    from what the function needs, not from the order the kernel loads in:
+    the slot; then the fk tree, one round a level (a node's fk value needs
+    only its parent's t); then one round of refcount and alive loads (they
+    need only t; a parent's flip reaches its children as arithmetic for
+    their dd); and one more round for each later update of a leaf that an
+    earlier one updated (a node of a target class an earlier node also
+    reaches, a chain of an earlier chain's target, a hop entry's new target
+    after its old one), whose read must see that store. A propagated chain:
+    the slot, its hops, then its count and code; a hop entry: the slot,
+    then its first fk column (the saved old fk beside it), the suffix's
+    hops, then its old and its new target's count and code."""
+    depth = []
+    for nd in plan["nodes"]:
+        depth.append(1 + (depth[nd["parent"]] if nd["parent"] >= 0 else 0))
+    classes = [nd["tc"] for nd in plan["nodes"]]
+    tree = 1 + max(depth, default=0) + (1 if depth else 0) \
+        + len(classes) - len(set(classes))
+    groups: dict = {}
+    for e in plan["props"]:
+        groups.setdefault(e["target"], []).append(e)
+    chains = []
+    for g in groups.values():
+        if "chain" in g[0]:
+            chains.append(1 + max(len(e["chain"]) for e in g) + 1
+                          + len(g) - 1)
+        else:
+            chains.append(2 + max(len(e["suffix"]) for e in g) + 2
+                          + 2 * (len(g) - 1))
+    return max([tree] + chains)
+
+
+def k10_bytes(plan: dict) -> int:
+    """K10's bytes: one element of every leaf its plan names read once
+    (slot, alive bit, fk values, obs codes and states, hop histograms),
+    and the leaves it updates written once (each node's refcount, alive,
+    total and nrows; each chain's count and code, a hop entry's at its old
+    and its new target)."""
+    size = {"alive": 1, "refcount": 4, "total": 8, "nrows": 8}
+    n = 8 + 1
+    for nd in plan["nodes"]:
+        n += 4 + 2 * sum(size.values())
+    for e in plan["props"]:
+        hops = e.get("chain", e.get("suffix", ()))
+        n += 4 * len(hops) * (1 if "chain" in e else 2) + 2 * 4
+        n += (1 + 4) if "chain" in e else (4 + 4 + 4 + 8)
+        n += 2 * 2 * 4 * (1 if "chain" in e else 2)
+    return n
+
+
+def k11_dep_loads(writes: list) -> int:
+    """The rounds of dependent loads one K11 call needs at least: every
+    write's slot, masks and value are read side by side, then stored (the
+    writes into one column apply in order, stores that need no load)."""
+    return 1 if writes else 0
+
+
+def k11_bytes(writes: list) -> int:
+    """K11's bytes: each write's slot, masks and value read once and its
+    element written once."""
+    n = 0
+    for dst, src, s, ma, mb in writes:
+        n += dst.element_size() + s.element_size()
+        n += sum(t.element_size() for t in (src, ma, mb) if t is not None)
+    return n
+
+
+def time_k10(ops, eng, arenas, params, census: list, floor: float,
+             lat: float) -> list:
+    """K10 at every shape of a path's census (class, mode, sign), on a
+    copy of the carry of the path's state at its first live slot: ms and
+    plain_ms (cuda_ms; the plain version on the card's tensors), device_ms
+    (graph_ms: the call has no sync, so it can be captured), the bytes
+    bound, the dependent loads and their bound, the launch floor."""
+    from .engine.refresh import hop_histograms, refresh
+    from .engine.smc import own_carry
+
+    cm = eng.cm
+    out = []
+    rel0 = refresh(cm, arenas, eng.obs_dev)
+    for r in census:
+        if r["kernel"] != "row_delta":
+            continue
+        parts = r["mode"].split(" ")
+        cid, sign, mode = parts[0], int(parts[-1]), parts[1]
+        hop = "hop" in parts
+        a, rel = own_carry(cm, cid, arenas, rel0)
+        alive = (a[cid]["alive"] if mode == "obs" else rel[cid]["alive"])
+        s = torch.nonzero(alive)[:1].reshape(1)
+        hops = hop_histograms(cm, cid, arenas, eng.obs_dev) if hop else None
+        fk = torch.zeros((max(1, len(cm.layouts[cid].fk_vertices)),),
+                         dtype=torch.int64, device=cm.device)
+        save = fk if mode == "latent" and sign < 0 else None
+        args = (ops.RowCarry(cm, cid, a, rel, eng.obs_dev, hops), s, sign,
+                mode, save, fk if hop else None)
+        fn = lambda: ops.row_delta(*args)  # noqa: E731
+        plan = ops.row_delta_plan(cm, cid, mode, hop)
+        nbytes, dep = k10_bytes(plan), k10_dep_loads(plan)
+        out.append(dict(
+            shape=r["mode"], K=r["K"], launches=r["launches"],
+            ms=cuda_ms(fn), device_ms=graph_ms(fn),
+            plain_ms=cuda_ms(lambda: ops.row_delta_plain(*args)),
+            library_ms=None, library_device_ms=None, bytes=nbytes,
+            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, dep_loads=dep,
+            dep_bound_ms=dep * lat, floor_ms=floor,
+            nodes=len(plan["nodes"]), chains=len(plan["props"])))
+        x = out[-1]
+        print(f"row_delta {x['shape']} ({x['launches']} launches): kernel "
+              f"{x['ms']:.4f} ms (device {x['device_ms']:.4f} ms) plain "
+              f"{x['plain_ms']:.4f} ms bound {x['bound_ms']:.7f} ms "
+              f"(bytes), {dep} dependent loads {x['dep_bound_ms']:.4f} ms, "
+              f"floor {floor:.4f} ms", flush=True)
+    return out
+
+
+def time_k11(ops, eng, arenas, params, census: list, floor: float,
+             lat: float) -> list:
+    """K11 at every shape of a path's census (class, births), on one
+    synthetic row of that class (row_cases) and a copy of the arenas:
+    as time_k10."""
+    from .engine.refresh import refresh
+    from .engine.smc import own_carry
+
+    cm = eng.cm
+    out = []
+    rel = refresh(cm, arenas, eng.obs_dev)
+    for r in census:
+        if r["kernel"] != "row_write":
+            continue
+        cid = r["mode"]
+        s, env2, births, acc = row_cases(eng, arenas, params, rel, cid, 1)[0]
+        a, _r = own_carry(cm, cid, arenas)
+        car = ops.RowCarry(cm, cid, a)
+        args = (car, s, env2, births, acc)
+        fn = lambda: ops.row_write(*args)  # noqa: E731
+        writes = ops.row_write_writes(car, s, env2, births, acc, False)
+        nbytes, dep = k11_bytes(writes), k11_dep_loads(writes)
+        out.append(dict(
+            shape=f"{cid} births {len(births)}", K=r["K"],
+            launches=r["launches"], ms=cuda_ms(fn), device_ms=graph_ms(fn),
+            plain_ms=cuda_ms(lambda: ops.row_write_plain(*args)),
+            library_ms=None, library_device_ms=None, bytes=nbytes,
+            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, dep_loads=dep,
+            dep_bound_ms=dep * lat, floor_ms=floor, writes=len(writes)))
+        x = out[-1]
+        print(f"row_write {x['shape']} ({x['launches']} launches, "
+              f"{len(writes)} writes): kernel {x['ms']:.4f} ms (device "
+              f"{x['device_ms']:.4f} ms) plain {x['plain_ms']:.4f} ms bound "
+              f"{x['bound_ms']:.7f} ms (bytes), {dep} dependent loads "
+              f"{x['dep_bound_ms']:.4f} ms, floor {floor:.4f} ms",
+              flush=True)
+    return out
+
+
 def _load_tree_ops(tree: str, alias: str):
     """The `ops` module of the pclean_tpu_torch package under `tree`,
     imported as package `alias` (so several trees load side by side, each

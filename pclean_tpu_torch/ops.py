@@ -1,7 +1,8 @@
 """The port's hand-written CUDA kernels: build, bind, plain versions, counts.
 
-Nine kernels carry the block enumeration and the particle resampling of
-the port's paths (sources
+Eleven kernels carry the block enumeration, the particle resampling and
+the one-row loops' relational delta and row write of the port's paths
+(sources
 in pclean_tpu_torch/csrc/, each with a header note on the JAX computation it
 replaces, its bound on the H100 and its design):
 
@@ -33,7 +34,15 @@ replaces, its bound on the H100 and its design):
   K9 pg_resample     — a particle-Gibbs row's ESS-adaptive multinomial
                        resampling with retain-first, or its final
                        categorical, and the log-ML increment
-                       (particles.py propose_row_pg).
+                       (particles.py propose_row_pg);
+  K10 row_delta      — one row's relational delta, in place: reference
+                       counts, alive bits, totals and live counts down the
+                       fk tree, propagated observations, a latent row's
+                       hop moves (refresh.py row_delta, latent_row_delta,
+                       hop_move);
+  K11 row_write      — one row's accepted values, alive bit and births
+                       written into the arenas, in place (smc.py
+                       apply_row).
 
 Each has a plain PyTorch version here. A wrapper takes the plain version
 only for tensors on the CPU; for CUDA tensors it launches its kernel or
@@ -53,7 +62,10 @@ cluster, shared memory, grid) from a function of its shapes alone,
 `referrer_hist_plan`, `sa_ext_term_plan` and `pg_resample_plan`; the C
 entry points launch
 the plan they are given, so the plan the CPU tests check is the one
-launched.
+launched. K10's and K11's plans (`row_delta_plan`, built once a class and
+cached on the model; K11's from a row's writes) travel by value as the
+kernel's argument, bound to the pointers of a loop segment's carry
+(`RowCarry`) once, so no table lives on the card.
 
 Build: one `nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared` per
 source, all started together, into pclean_tpu_torch/_build/ (listed in
@@ -74,7 +86,8 @@ import time
 
 import torch
 
-from .utils import chase, effective_sample_size, log_normalize, logsumexp
+from .utils import (chase, effective_sample_size, log_normalize, logsumexp,
+                    take)
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_HERE, "_build")
@@ -88,21 +101,26 @@ _SOURCES = {
     "referrer_hist": "referrer_hist.cu",
     "sa_ext_term": "sa_ext_term.cu",
     "pg_resample": "pg_resample.cu",
+    "row_delta": "row_delta.cu",
+    "row_write": "row_write.cu",
 }
 LAUNCHES = {name: 0 for name in _SOURCES}
 LAUNCHES_BY_SHAPE = {name: {"r1": 0, "rn": 0} for name in _SOURCES}
-# K1's, K2's, K3's, K5's, K6's, K7's and K8's launches by (mode, "r1" or
-# "rn", K): K1's mode is "fk" or "choice", K2's is None, K3's the launch's
-# vocabularies ("V1,V2,..."), K5's its route and output ("coords,BxA" or
-# "index,BxA"), K6's its referrers' form and axis ("list,N" or "dense,N"),
-# K7's "hoisted" or "rows", K8's SA's shape ("ExVcxV"), K9's "resample" or
-# "final"; K is the row length the kernel was given (K5: the groups C; K6:
-# the options V; K7: the histogram's V; K8: the referrer axis R; K9: the
-# particles P)
+# K1's, K2's, K3's and K5-K11's launches by (mode, "r1" or "rn", K): K1's
+# mode is "fk" or "choice", K2's is None, K3's the launch's vocabularies
+# ("V1,V2,..."), K5's its route and output ("coords,BxA" or "index,BxA"),
+# K6's its referrers' form and axis ("list,N" or "dense,N"), K7's
+# "hoisted" or "rows", K8's SA's shape ("ExVcxV"), K9's "resample" or
+# "final", K10's "class mode sign" (mode "obs", "obs noprops", "latent" or
+# "latent hop"), K11's class; K is the row length the kernel was given
+# (K5: the groups C; K6: the options V; K7: the histogram's V; K8: the
+# referrer axis R; K9: the particles P; K10: the plan's fk nodes; K11: the
+# row's births)
 LAUNCH_CENSUS = {"enum_logsumexp": {}, "inv_cdf_sample": {},
                  "obs_gather_sum": {}, "gauss_ext_term": {},
                  "maybe_swap_ext": {}, "referrer_hist": {},
-                 "sa_ext_term": {}, "pg_resample": {}}
+                 "sa_ext_term": {}, "pg_resample": {}, "row_delta": {},
+                 "row_write": {}}
 SMEM_MAX = 232448  # shared memory one block may use on an H100 (227 KB)
 N_SMS = 132        # streaming multiprocessors of an H100 SXM
 _GRID_Y_MAX = 65535
@@ -155,8 +173,9 @@ def _stale(name: str, out: str) -> bool:
     """True when lib<name>.so is missing or older than its sources."""
     if not os.path.exists(out):
         return True
-    srcs = [os.path.join(_HERE, "csrc", _SOURCES[name]),
-            os.path.join(_HERE, "csrc", "common.cuh")]
+    csrc = os.path.join(_HERE, "csrc")
+    srcs = [os.path.join(csrc, _SOURCES[name])] + [
+        os.path.join(csrc, f) for f in os.listdir(csrc) if f.endswith(".cuh")]
     return os.path.getmtime(out) < max(os.path.getmtime(p) for p in srcs)
 
 
@@ -169,7 +188,7 @@ def build_kernels(force: bool = False) -> float:
     and renames it into place, so processes sharing a checkout never load a
     half-written library."""
     with _lock:
-        if len(_libs) == len(_SOURCES) and not force:
+        if all(n in _libs for n in _SOURCES) and not force:
             return 0.0
         t0 = time.time()
         os.makedirs(BUILD_DIR, exist_ok=True)
@@ -219,6 +238,8 @@ def build_kernels(force: bool = False) -> float:
             "sa_ext_term": [P, I64, I64, I64, P, P, I64, P, I64, P, P, I64,
                             I32, I64, I64, I64, I32, I64, P],
             "pg_resample": [P, P, P, P, P, I64, I32, I32, I32, I32, I32, P],
+            "row_delta": [P, I32, P, I32, P, P, P],
+            "row_write": [P, I32, P],
         }
         for name in _SOURCES:
             lib = ctypes.CDLL(os.path.join(BUILD_DIR, f"lib{name}.so"))
@@ -226,6 +247,11 @@ def build_kernels(force: bool = False) -> float:
             fn.restype = ctypes.c_int
             fn.argtypes = argtypes[name]
             _libs[name] = fn
+            if name == "row_delta":   # K10's latency yardstick
+                probe = lib.pclean_chase_probe
+                probe.restype = ctypes.c_int
+                probe.argtypes = [P, I32, P, P]
+                _libs["chase_probe"] = probe
         return time.time() - t0
 
 
@@ -1261,3 +1287,379 @@ def pg_resample(ws: torch.Tensor, u: torch.Tensor, mode: str = "resample",
     _check(rc, "pg_resample")
     _count("pg_resample", R, P, mode)
     return (idx, lml) if final else (idx, ws_out, lml)
+
+
+# ---------------------------------------------------------------- K10, K11
+
+# dtype codes of the row kernels' plans (csrc/row_words.cuh)
+_DT = {torch.bool: 0, torch.int8: 1, torch.uint8: 2, torch.int16: 3,
+       torch.int32: 4, torch.int64: 5, torch.float32: 6, torch.float64: 7}
+K10_MODES = ("obs", "latent")
+# the words of K10's plan (csrc/row_delta.cu): a header with each chain
+# lane's (first entry, entries), then a node's and a chain's fixed-size
+# records
+K10_HEAD, K10_NODE, K10_MAX_HOPS = 8 + 64, 12, 6
+K10_PROP = 17 + 3 * K10_MAX_HOPS
+K10_MAX_NODES, K10_MAX_PROPS = 24, 32
+K10_WORDS = K10_HEAD + K10_NODE * K10_MAX_NODES + K10_PROP * K10_MAX_PROPS
+K11_HEAD, K11_WRITE, K11_MAX_WRITES = 2 + 64, 12, 64
+K11_WORDS = K11_HEAD + K11_WRITE * K11_MAX_WRITES
+# bytes of kernel parameters a launch may pass on Hopper with CUDA >= 12.1
+PARAM_MAX = 32764
+K10_PARAM_BYTES = 8 * K10_WORDS + 32   # the plan, slot, sign, save / old
+K11_PARAM_BYTES = 8 * K11_WORDS
+
+
+class RowCarry:
+    """The carry of one segment of a one-row loop of class cid, which the
+    loop owns (smc.own_carry): its arenas and relational state `rel`, the
+    observed columns `obs` and the segment's hop histograms `hops`, updated
+    in place by K10 (row_delta) and K11 (row_write). On the card each
+    plan's argument words are bound to these leaves at its first launch
+    from the carry and reused by every later row: no leaf may be replaced
+    while the carry lives (the loops only write into them)."""
+
+    def __init__(self, cm, cid, arenas, rel=None, obs=None, hops=None):
+        self.cm, self.cid = cm, cid
+        self.arenas, self.rel, self.obs = arenas, rel, obs
+        self.hops = list(hops or ())
+        self.k10 = {}   # (mode, hop) -> the plan's bound words
+        self.k11 = {}   # a row's structure -> (bound words, write order)
+
+
+def _leaf(g, car: RowCarry):
+    """The tensor a plan's pointer word names: ("a", class, vid) an arena
+    column, ("alive", class) an arena's alive, ("r", class, key) a
+    relational leaf, ("p", class, vid, 0 or 1) a prop's code or count,
+    ("o", class, vid, 0 or 1) an observed column's codes or state, ("h", i,
+    0 or 1) hop entry i's count or code histogram."""
+    k = g[0]
+    if k == "a":
+        return car.arenas[g[1]]["values"][g[2]]
+    if k == "alive":
+        return car.arenas[g[1]]["alive"]
+    if k == "r":
+        return car.rel[g[1]][g[2]]
+    if k == "p":
+        return car.rel[g[1]]["prop"][g[2]][g[3]]
+    if k == "o":
+        return car.obs[g[1]][g[2]][g[3]]
+    return car.hops[g[1]][1][g[2]]
+
+
+def row_delta_plan(cm, cid, mode: str, hop: bool = False) -> dict:
+    """K10's plan for one row of class cid, built on the host once and
+    cached on cm:
+      nodes: refresh._fk_delta's recursion flattened in its DFS order, each
+        dict(tc = the target class, col = the (class, fk vid) column read
+        for t, parent = the parent node or -1, root = the index of a root's
+        fk among cid's fk vertices, else -1);
+      props: in obs mode, the class's propagated-observation chains
+        (refresh.propagated_obs_specs: dict(ov, chain, target = (tc, tv),
+        lane)); with hop (latent mode), the hop histogram entries
+        (dict(fkv, root, suffix, target, hist = the entry's index in
+        refresh.hop_histograms' list, lane)); entries of one target share
+        a lane (0-31 of the kernel's second warp), in order, and the list
+        holds each lane's entries together;
+      words: the static words of the kernel's argument, and slots: for
+        each pointer word, (leaf, its word, the word of its length or -1,
+        the word of its dtype or -1, the dtype it must have or None, the
+        length it must have or None)."""
+    cache = cm.__dict__.setdefault("_row_plans", {})
+    key = ("k10", cid, mode, bool(hop))
+    if key in cache:
+        return cache[key]
+    from .engine.refresh import propagated_obs_specs
+
+    if mode not in K10_MODES:
+        raise ValueError(f"row_delta: mode {mode!r} is not one of {K10_MODES}")
+    lay = cm.layouts[cid]
+    if lay.observed != (mode == "obs") or (hop and mode != "latent"):
+        raise ValueError(f"row_delta: mode {mode!r} (hop {hop}) does not fit "
+                         f"class {cid!r}")
+    nodes = []
+
+    def walk(tc, col, parent, root):
+        i = len(nodes)
+        nodes.append(dict(tc=tc, col=col, parent=parent, root=root))
+        for fkv2 in cm.layouts[tc].fk_vertices:
+            walk(cm.node(tc, fkv2).target_class, (tc, fkv2), i, -1)
+
+    for r, fkv in enumerate(lay.fk_vertices):
+        walk(cm.node(cid, fkv).target_class, (cid, fkv), -1, r)
+    entries = []
+    if mode == "obs":
+        entries = [dict(ov=ov, chain=chain, target=tgt)
+                   for (src, ov, chain, tgt) in propagated_obs_specs(cm)
+                   if src == cid]
+    elif hop:
+        for (src, ov, chain, tgt) in propagated_obs_specs(cm):
+            for k, (hop_cid, fkv) in enumerate(chain):
+                if hop_cid == cid:
+                    entries.append(dict(fkv=fkv, suffix=chain[k + 1:],
+                                        root=lay.fk_vertices.index(fkv),
+                                        target=tgt, hist=len(entries)))
+    groups: dict = {}
+    for e in entries:
+        e["lane"] = groups.setdefault(e["target"], len(groups)) % 32
+    entries.sort(key=lambda e: e["lane"])
+    hops_of = [e["chain"] if "chain" in e else e["suffix"] for e in entries]
+    if len(nodes) > K10_MAX_NODES or len(entries) > K10_MAX_PROPS or \
+            any(len(h) > K10_MAX_HOPS for h in hops_of):
+        raise ValueError(
+            f"row_delta: class {cid!r} has {len(nodes)} fk nodes and "
+            f"{len(entries)} chains (at most {K10_MAX_NODES} and "
+            f"{K10_MAX_PROPS}, chains of at most {K10_MAX_HOPS} hops)")
+    words = [0] * (K10_HEAD + K10_NODE * len(nodes)
+                   + (K10_PROP * len(entries) if entries else 0))
+    if entries:   # the chains' records start after every node's room
+        words += [0] * (K10_NODE * (K10_MAX_NODES - len(nodes)))
+    slots = []
+    words[0] = {"obs": 0, "latent": 1}[mode] + (1 if hop else 0)
+    words[1], words[2], words[3] = len(nodes), len(entries), lay.capacity
+    for j, e in enumerate(entries):
+        words[9 + 2 * e["lane"]] += 1
+        if words[9 + 2 * e["lane"]] == 1:
+            words[8 + 2 * e["lane"]] = j
+    slots.append((("alive", cid) if mode == "obs" else ("r", cid, "alive"),
+                  4, 5, 6, torch.bool, lay.capacity))
+    for i, nd in enumerate(nodes):
+        b = K10_HEAD + K10_NODE * i
+        cap = cm.layouts[nd["tc"]].capacity
+        words[b + 3], words[b + 4], words[b + 7] = nd["parent"], nd["root"], \
+            cap
+        slots += [(("a",) + nd["col"], b, b + 1, b + 2, None, None),
+                  (("r", nd["tc"], "refcount"), b + 5, -1, -1, torch.int32,
+                   cap),
+                  (("r", nd["tc"], "alive"), b + 6, -1, -1, torch.bool, cap),
+                  (("r", nd["tc"], "total"), b + 8, -1, b + 9, None, 1),
+                  (("r", nd["tc"], "nrows"), b + 10, -1, b + 11, None, 1)]
+    for j, (e, chain) in enumerate(zip(entries, hops_of)):
+        b = K10_HEAD + K10_NODE * K10_MAX_NODES + K10_PROP * j
+        tc, tv = e["target"]
+        cap_t = cm.layouts[tc].capacity
+        words[b], words[b + 5], words[b + 16] = e["lane"], cap_t, len(chain)
+        slots += [(("p", tc, tv, 0), b + 1, -1, b + 2, None, cap_t),
+                  (("p", tc, tv, 1), b + 3, -1, b + 4, None, cap_t)]
+        if "chain" in e:
+            slots += [(("o", cid, e["ov"], 0), b + 6, b + 7, b + 8, None,
+                       None),
+                      (("o", cid, e["ov"], 1), b + 9, b + 10, b + 11, None,
+                       None)]
+        else:
+            slots += [(("h", e["hist"], 0), b + 6, b + 7, b + 8, None, None),
+                      (("h", e["hist"], 1), b + 9, b + 10, b + 11, None,
+                       None),
+                      (("a", cid, e["fkv"]), b + 12, b + 13, b + 14, None,
+                       None)]
+            words[b + 15] = e["root"]
+        for h, col in enumerate(chain):
+            hb = b + 17 + 3 * h
+            slots.append((("a",) + col, hb, hb + 1, hb + 2, None, None))
+    plan = dict(cid=cid, mode=mode, hop=bool(hop), nodes=nodes,
+                props=entries, words=words, slots=slots,
+                n_roots=len(lay.fk_vertices))
+    cache[key] = plan
+    return plan
+
+
+def _k10_words(plan: dict, car: RowCarry):
+    """The plan's words with the carry's pointers, as a ctypes array, every
+    leaf checked."""
+    words = list(plan["words"])
+    for g, pw, lw, dw, dtype, n in plan["slots"]:
+        t = _leaf(g, car)
+        if not t.is_cuda or t.dim() > 1 or not t.is_contiguous() or \
+                t.dtype not in _DT or \
+                (dtype is not None and t.dtype != dtype) or \
+                (n is not None and t.numel() != n):
+            raise ValueError(f"row_delta: leaf {g} is {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+        words[pw] = t.data_ptr()
+        if lw >= 0:
+            words[lw] = t.numel()
+        if dw >= 0:
+            words[dw] = _DT[t.dtype]
+    return (ctypes.c_int64 * len(words))(*words)
+
+
+def _into_rel(rel: dict, new: dict) -> None:
+    """Copy every leaf of `new` that is not rel's own tensor into rel's."""
+    for c, r in new.items():
+        o = rel[c]
+        for k in ("refcount", "alive", "total", "nrows"):
+            if r[k] is not o[k]:
+                o[k].copy_(r[k])
+        for tv, pair in r["prop"].items():
+            for x, y in zip(o["prop"][tv], pair):
+                if x is not y:
+                    x.copy_(y)
+
+
+def row_delta_plain(car: RowCarry, slot, sign: int, mode: str = "obs",
+                    save_fk=None, old_fk=None) -> None:
+    """K10's plain version, with its in-place contract: the carry's rel ±
+    one row `slot` (a one-element index tensor) of its class, its leaves
+    updated in place. mode "obs": refresh.row_delta; "latent":
+    refresh.latent_row_delta, then, on +1 where the carry has hop
+    histograms, refresh.hop_move from the old fk values `old_fk` [the
+    class's fk vertices]. `save_fk` receives the row's fk values before
+    the delta."""
+    from .engine import refresh as rf
+
+    cm, cid, arenas = car.cm, car.cid, car.arenas
+    s = slot.reshape(()).long()
+    fkvs = cm.layouts[cid].fk_vertices
+    if save_fk is not None and fkvs:
+        save_fk[:len(fkvs)] = torch.stack(
+            [take(arenas[cid]["values"][v], s) for v in fkvs]).long()
+    if mode == "obs":
+        new = rf.row_delta(cm, car.rel, arenas, car.obs, cid, s, sign)
+    elif mode == "latent":
+        new = rf.latent_row_delta(cm, car.rel, arenas, cid, s, sign)
+        if sign == 1 and car.hops:
+            new = rf.hop_move(cm, new, arenas, cid, s,
+                              {v: old_fk[i] for i, v in enumerate(fkvs)},
+                              car.hops)
+    else:
+        raise ValueError(f"row_delta: mode {mode!r} is not one of {K10_MODES}")
+    _into_rel(car.rel, new)
+
+
+def _need_index(t: torch.Tensor, name: str) -> None:
+    if not t.is_cuda or t.numel() != 1 or t.dtype not in _DT:
+        raise ValueError(f"{name}: expected a one-element index on the card, "
+                         f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def row_delta(car: RowCarry, slot, sign: int, mode: str = "obs",
+              save_fk=None, old_fk=None) -> None:
+    """K10: row_delta_plain's in-place delta in one launch, the row's slot
+    read on the card (an int64 one-element tensor, so the host never waits
+    for it), the hop entries moved on a latent +1 where the carry has
+    them. On CPU tensors the plain version; on CUDA ones the kernel or an
+    error. Counted in LAUNCH_CENSUS by ("class mode[ hop] sign", r1, the
+    plan's fk nodes)."""
+    if not _route(slot, "row_delta"):
+        return row_delta_plain(car, slot, sign, mode, save_fk, old_fk)
+    if sign not in (1, -1):
+        raise ValueError(f"row_delta: sign {sign} is not +1 or -1")
+    hop = mode == "latent" and sign == 1 and bool(car.hops)
+    plan = row_delta_plan(car.cm, car.cid, mode, hop)
+    if hop and old_fk is None:
+        raise ValueError("row_delta: hop entries move from old_fk")
+    _need_index(slot, "row_delta slot")
+    if slot.dtype != torch.int64:
+        raise ValueError("row_delta: the slot must be int64")
+    for name, t in (("save_fk", save_fk), ("old_fk", old_fk)):
+        if t is not None and (not t.is_cuda or t.dtype != torch.int64 or
+                              not t.is_contiguous() or
+                              t.numel() < plan["n_roots"]):
+            raise ValueError(f"row_delta: {name} must be int64 [>= "
+                             f"{plan['n_roots']}] on the card")
+    arr = car.k10.get((mode, hop))
+    if arr is None:
+        if hop and len(car.hops) != len(plan["props"]):
+            raise ValueError("row_delta: hop entries do not fit the plan")
+        arr = car.k10[(mode, hop)] = _k10_words(plan, car)
+    rc = _fn("row_delta")(arr, len(arr), _ptr(slot), int(sign),
+                          _ptr(save_fk), _ptr(old_fk), _stream(slot))
+    _check(rc, "row_delta")
+    _count("row_delta", 1, len(plan["nodes"]),
+           f"{car.cid} {mode}{' hop' if hop else ''} {sign:+d}")
+
+
+def row_write_plain(car: RowCarry, slot, env2: dict, births, accept=None,
+                    mark_alive: bool = False) -> None:
+    """K11's plain version, with its in-place contract: smc.apply_row's
+    writes of one row (values [1]) into the carry's arenas' own leaves;
+    `accept` None means True."""
+    from .engine.smc import apply_row
+
+    new = apply_row(car.cm, car.cid, car.arenas, slot, env2, births,
+                    True if accept is None else accept, mark_alive)
+    for c, a in new.items():
+        o = car.arenas[c]
+        for v, x in a["values"].items():
+            if x is not o["values"][v]:
+                o["values"][v].copy_(x)
+        if a["alive"] is not o["alive"]:
+            o["alive"].copy_(a["alive"])
+
+
+def row_write_writes(car: RowCarry, slot, env2: dict, births, accept,
+                     mark_alive: bool) -> list:
+    """apply_row's writes in its order: (destination column, value or None
+    for True, slot, mask or None, second mask or None)."""
+    lay = car.cm.layouts[car.cid]
+    vals = car.arenas[car.cid]["values"]
+    out = [(vals[v], env2[v], slot, accept, None) for v in lay.store
+           if v in env2]
+    if mark_alive:
+        out.append((car.arenas[car.cid]["alive"], None, slot, None, None))
+    for b in births:
+        bvals = car.arenas[b.target_class]["values"]
+        out += [(bvals[tv], val, b.slot, accept, b.is_new)
+                for tv, val in b.values.items() if tv in bvals]
+    return out
+
+
+def _k11_words(writes: list):
+    """K11's words for a row's writes, as a ctypes array, with the write
+    order (one lane a destination column, each lane's writes together, in
+    order): the destination columns bound, each write's value, slot and
+    mask pointers left for row_write to set."""
+    if len(writes) > K11_MAX_WRITES:
+        raise ValueError(f"row_write: {len(writes)} writes (at most "
+                         f"{K11_MAX_WRITES})")
+    lanes: dict = {}
+    lane = [lanes.setdefault(w[0].data_ptr(), len(lanes)) % 32
+            for w in writes]
+    order = sorted(range(len(writes)), key=lane.__getitem__)
+    words = [len(writes), 0] + [0] * 64
+    for j, i in enumerate(order):
+        words[3 + 2 * lane[i]] += 1
+        if words[3 + 2 * lane[i]] == 1:
+            words[2 + 2 * lane[i]] = j
+    for i in order:
+        dst = writes[i][0]
+        if not dst.is_cuda or dst.dim() != 1 or not dst.is_contiguous() or \
+                dst.dtype not in _DT:
+            raise ValueError(f"row_write: column {dst.dtype} "
+                             f"{tuple(dst.shape)} on {dst.device}")
+        words += [lane[i], dst.data_ptr(), _DT[dst.dtype], dst.numel()] + \
+            [0] * 8
+    return (ctypes.c_int64 * len(words))(*words), order
+
+
+def row_write(car: RowCarry, slot, env2: dict, births, accept=None,
+              mark_alive: bool = False) -> None:
+    """K11: row_write_plain's writes in one launch, in place, every index
+    and mask read on the card. The words of a row of one structure (its
+    value vertices, births, mask) are bound to the carry's columns once;
+    each row sets only its values', slots' and masks' pointers. On CPU
+    tensors the plain version; on CUDA ones the kernel or an error.
+    Counted in LAUNCH_CENSUS by (class, r1, births)."""
+    if not _route(slot, "row_write"):
+        return row_write_plain(car, slot, env2, births, accept, mark_alive)
+    if isinstance(accept, bool):
+        accept = None if accept else torch.zeros((1,), dtype=torch.bool,
+                                                 device=slot.device)
+    writes = row_write_writes(car, slot, env2, births, accept, mark_alive)
+    key = (bool(mark_alive), accept is None, tuple(env2),
+           tuple((b.target_class, tuple(b.values)) for b in births))
+    bound = car.k11.get(key)
+    if bound is None:
+        bound = car.k11[key] = _k11_words(writes)
+    arr, order = bound
+    w = K11_HEAD + 4
+    for i in order:
+        for t, name in zip(writes[i][1:], ("value", "slot", "mask", "mask")):
+            if t is not None:
+                _need_index(t, f"row_write {name}")
+                arr[w], arr[w + 1] = t.data_ptr(), _DT[t.dtype]
+            w += 2
+        w += K11_WRITE - 8
+    rc = _fn("row_write")(arr, len(arr), _stream(slot))
+    _check(rc, "row_write")
+    _count("row_write", 1, len(births), car.cid)

@@ -51,8 +51,7 @@ B = 16
 
 def hospital_pair(rows=ROWS, batch=B):
     """The hospital model through both packages on the same synth tables
-    (the JAX side on the segmented batched drivers, the only ones the port
-    has)."""
+    (both on the segmented batched drivers, fused_dispatch_rows=0)."""
     dirty, clean = thospital.synth(rows)
     assert possibilities_from(dirty) == thospital.possibilities(dirty)
     model = jhospital.build_model(possibilities_from(dirty))
@@ -63,7 +62,7 @@ def hospital_pair(rows=ROWS, batch=B):
                                  use_mh_instead_of_pg=True,
                                  fused_dispatch_rows=0)
     cm_t, cfg_t, dirty_t, clean_t, q_t, _ = thospital.setup(
-        rows=rows, batch=batch, device="cpu")
+        rows=rows, batch=batch, device="cpu", fused_dispatch_rows=0)
     assert dirty == dirty_t and clean == clean_t
     return (cm_j, cfg_j, q_j), (cm_t, cfg_t, q_t), dirty, clean
 

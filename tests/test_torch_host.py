@@ -130,12 +130,12 @@ def composed(ns, n_rows=30):
 
 def scaled_pair(batch=8, size=SMALL, **cfg):
     """The scaled CPU config (or the entity counts `size`) through both
-    packages (JAX side forced onto the segmented batched drivers, the only
-    ones the port has)."""
+    packages, both on the segmented batched drivers (fused_dispatch_rows=0;
+    tests/test_torch_fused_sweep.py holds the fused order)."""
     cm_j, cfg_j, dirty, clean, q_j, _ = jscaled.setup(
         **size, batch=batch, fused_dispatch_rows=0, **cfg)
     cm_t, cfg_t, dirty_t, clean_t, q_t, _ = tscaled.setup(
-        **size, batch=batch, device="cpu", **cfg)
+        **size, batch=batch, device="cpu", fused_dispatch_rows=0, **cfg)
     assert dirty == dirty_t and clean == clean_t
     return (cm_j, cfg_j, q_j), (cm_t, cfg_t, q_t), dirty, clean
 

@@ -1537,3 +1537,155 @@ def test_k9_cuda_edges(card, case):
             assert bool((keep == live[:, None]).all())
     check_k9(ops, dict(ws=ws, u=u[:, 0].contiguous(), mode="final",
                        retained=False))
+
+
+# ---------------------------------------------------------------- K10, K11
+
+
+def _chain_model(device):
+    """tests/test_torch_host.py's chain model (Record -> Hospital -> County,
+    the state observed two hops down) through the port alone: the one
+    model whose latent sweep has hop entries to move."""
+    import pclean_tpu_torch.dists as d
+    from pclean_tpu_torch.engine.compile import compile_model
+    from pclean_tpu_torch.model.builder import ModelBuilder
+    from pclean_tpu_torch.model.query import ObservedDataset, Query
+
+    states = ["al", "ak", "az"]
+    names = ["memorial hospital", "st vincent", "county general", "mercy"]
+    b = ModelBuilder()
+    with b.cls("County") as c:
+        c.learned("props", d.Proportions())
+        c.choice("state", d.ChooseProportionally(states, d.ParamRef("props")))
+    with b.cls("Hospital") as c:
+        c.fk("loc", "County")
+        c.choice("name", d.StringPrior(3, 30, names))
+    with b.cls("Record") as c:
+        c.fk("hosp", "Hospital")
+        c.choice("name_obs", d.AddTypos(d.Ref("hosp.name")))
+    model = b.finish()
+    q = Query.build(model, "Record", [("name", "hosp.name", "name_obs"),
+                                      ("state", "hosp.loc.state")])
+    ds = ObservedDataset(q, {"name": [names[i % 4] for i in range(24)],
+                             "state": [states[i % 3] for i in range(24)]})
+    return compile_model(model, [ds], capacities={"County": 12,
+                                                  "Hospital": 12},
+                         device=device)
+
+
+def _row_model(which, dev):
+    """(engine, seeded arenas, params) of a model for K10 and K11 on the
+    card: the hospital workload (240 rows), the flights workload (300
+    rows) or the chain model."""
+    from pclean_tpu_torch.engine.compile import init_state
+    from pclean_tpu_torch.engine.smc import Engine, InferenceConfig
+    from pclean_tpu_torch.kernel_bench import row_state
+    from pclean_tpu_torch.workloads import flights, hospital
+
+    if which == "hospital":
+        cm, cfg = hospital.setup(rows=240, batch=16, device=dev)[:2]
+    elif which == "flights":
+        cm, cfg = flights.setup(rows=300, flights=12, websites=8,
+                                capacities={"Flight": 16,
+                                            "TrackingWebsite": 16},
+                                device=dev)[:2]
+    else:
+        cm, cfg = _chain_model(dev), InferenceConfig()
+    _a, params = init_state(cm, 0, device=dev)
+    return Engine(cm, cfg, device=dev), row_state(cm, 7, device=dev), params
+
+
+def _kinds(cm):
+    out = []
+    for cid in cm.model.class_order:
+        lay = cm.layouts[cid]
+        out += ([(cid, "init"), (cid, "obs")] if lay.observed else
+                [(cid, "latent" if lay.fk_vertices else "leaf")])
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["hospital", "flights", "chain"])
+def test_k10_k11_cuda_match_plain(card, which):
+    """K10 and K11 on a copy of each class's carry, the plain versions on
+    a CPU copy (kernel_bench.shadow_rows: 64 rows of every kind, live and
+    dead slots, fks out of range, births at slot -1), bit-equal."""
+    from pclean_tpu_torch.kernel_bench import shadow_rows
+
+    eng, arenas, params = _row_model(which, card)
+    for cid, kind in _kinds(eng.cm):
+        r = shadow_rows(ops, eng, arenas, params, cid, kind, n=64, seed=3)
+        assert r["launches"] > 0 and r["mismatches"] == [], r
+    if which == "chain":
+        h = shadow_rows(ops, eng, arenas, params, "Hospital", "latent", n=64)
+        assert h["hop_entries"] > 0 and h["mismatches"] == [], h
+
+
+@pytest.mark.cuda
+def test_k10_k11_cuda_edges_and_no_host_sync(card):
+    """Slots -1, the capacity and past it, a birth at -1 and at its class's
+    capacity, on the chain model (hop entries) and the flights model
+    (propagated chains), every K10 mode and K11, under
+    torch.cuda.set_sync_debug_mode("error"): bit-equal to the plain
+    versions on a CPU copy, and no call waits for the card."""
+    from pclean_tpu_torch.engine.propose import Birth
+    from pclean_tpu_torch.engine.refresh import hop_histograms, refresh
+    from pclean_tpu_torch.engine.smc import own_carry
+    from pclean_tpu_torch.kernel_bench import _leaves, _tree_map
+
+    for which in ("chain", "flights"):
+        eng, arenas, _p = _row_model(which, card)
+        cm = eng.cm
+        for cid in cm.model.class_order:
+            lay = cm.layouts[cid]
+            if not lay.fk_vertices:
+                continue
+            mode = "obs" if lay.observed else "latent"
+            rel = refresh(cm, arenas, eng.obs_dev)
+            hops = [] if lay.observed else \
+                hop_histograms(cm, cid, arenas, eng.obs_dev)
+            a, r = own_carry(cm, cid, arenas, rel)
+            cpu = lambda t: t.cpu()  # noqa: E731
+            car = ops.RowCarry(cm, cid, a, r, eng.obs_dev, hops)
+            ac, rc_ = _tree_map(a, cpu), _tree_map(r, cpu)
+            car_c = ops.RowCarry(cm, cid, ac, rc_,
+                                 _tree_map(eng.obs_dev, cpu),
+                                 _tree_map(hops, cpu))
+            fk = torch.zeros((len(lay.fk_vertices),), dtype=torch.int64,
+                             device=card)
+            fkc = fk.cpu()
+            cap = lay.capacity
+            fkv = lay.fk_vertices[0]
+            tc = cm.node(cid, fkv).target_class
+            tcap = cm.layouts[tc].capacity
+            tv = next(iter(cm.layouts[tc].store))
+            slots = [torch.tensor([s], device=card)
+                     for s in (-1, 0, cap - 1, cap, cap + 5)]
+            births = [Birth(fkv, tc, torch.tensor([True], device=card),
+                            torch.tensor([bs], device=card),
+                            {tv: torch.tensor([1], device=card)})
+                      for bs in (-1, tcap, tcap - 1)]
+            env2 = {fkv: torch.tensor([tcap - 1], device=card)}
+            acc = torch.tensor([True], device=card)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                for s in slots:
+                    ops.row_delta(car, s, -1, mode,
+                                  save_fk=fk if mode == "latent" else None)
+                    ops.row_write(car, s, env2, births, acc)
+                    ops.row_delta(car, s, +1, mode, old_fk=fk)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            for s in slots:
+                sc = s.cpu()
+                ops.row_delta(car_c, sc, -1, mode,
+                              save_fk=fkc if mode == "latent" else None)
+                ops.row_write(car_c, sc, _tree_map(env2, cpu),
+                              [Birth(b.fk_vid, b.target_class, b.is_new.cpu(),
+                                     b.slot.cpu(), _tree_map(b.values, cpu))
+                               for b in births], acc.cpu())
+                ops.row_delta(car_c, sc, +1, mode, old_fk=fkc)
+            for name, x, y in _leaves(a, ac, "arenas") + _leaves(r, rc_,
+                                                                 "rel"):
+                assert torch.equal(x.cpu(), y), f"{which} {cid}: {name}"

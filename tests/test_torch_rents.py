@@ -33,9 +33,10 @@ from the same pclean_tpu_torch.workloads.rents.synth tables at a small size
     range +- 0.02, at 2,000 rows (at 1,000 one seed's F1 spreads over
     0.86-0.92 in both packages, so a 3-seed range test flips on noise).
 
-The JAX side takes the segmented batched drivers (fused_dispatch_rows=0),
-the only ones the port has. The port alone also runs rents with 5% missing
-rents (which pclean_tpu's tracer cannot sample, see synth).
+Both packages take the segmented batched drivers (fused_dispatch_rows=0;
+tests/test_torch_fused_sweep.py holds the fused order). The port alone
+also runs rents with 5% missing rents (which pclean_tpu's tracer cannot
+sample, see synth).
 """
 from unittest import mock
 
@@ -88,7 +89,7 @@ def rents_pair(rows=SMALL["rows"], missing=0.0):
                                  use_mh_instead_of_pg=True,
                                  fused_dispatch_rows=0)
     cm_t, cfg_t, dirty_t, clean_t, q_t, _ = trents.setup(
-        **kw, missing=missing, batch=B, device="cpu")
+        **kw, missing=missing, batch=B, device="cpu", fused_dispatch_rows=0)
     assert dirty == dirty_t and clean == clean_t
     return (cm_j, cfg_j, q_j), (cm_t, cfg_t, q_t), dirty, clean
 

@@ -11,8 +11,8 @@ sweep defers to the sequential replay (rows whose proposal births an
 entity): the JAX package's through the `replay_rows(..., rejuv=True)`
 calls of its _sweep_batched_segmented (the flags of
 scan_sweep_class_batched), the port's as phase_times' replayed_seq_rows.
-The JAX side takes the segmented batched drivers (fused_dispatch_rows=0),
-the only ones the port has.
+Both packages take the segmented batched drivers (fused_dispatch_rows=0;
+tests/test_torch_fused_sweep.py holds the fused order).
 """
 from unittest import mock
 
