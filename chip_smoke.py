@@ -7,7 +7,7 @@
 
 It drives the port only (never jax, never pclean_tpu), in order:
   1. prints the card's name and power limit (nvidia-smi);
-  2. builds the eleven CUDA kernels from pclean_tpu_torch/csrc/ (one nvcc
+  2. builds the thirteen CUDA kernels from pclean_tpu_torch/csrc/ (one nvcc
      per source, in parallel) and prints the build time and ptxas's
      registers, shared memory, stack frame and spills for each compiled
      function; measures the launch floor and one dependent L2 load (K10's
@@ -106,12 +106,33 @@ It drives the port only (never jax, never pclean_tpu), in order:
      over one hospital ramp row, one hospital batched init segment and
      one rents Obs batch from fresh states of those paths' models, where
      their inits start, and one flights Obs sweep row on the flights
-     path's final state, printing each one's kernel launches, host syncs
-     (the runtime's synchronize calls, and those PyTorch's sync debug
-     mode flags), device-to-host copies, wall and device busy ms and the
-     card's idle share;
-  9. prints, for each kernel, how many shapes were checked and the worst
-     error, then the `kernels` JSON line (K1-K11; `launches` summed over
+     path's final state (the one-row sections: one replay of the row
+     step's CUDA graph), printing each one's kernel launches, device ops
+     (a replay's graph nodes), host syncs (the runtime's synchronize
+     calls, and those PyTorch's sync debug mode flags), device-to-host
+     copies, wall ms with and without the profiler, device busy ms, the
+     card's idle share under the profiler and the busy ms over the wall
+     ms without it (two runs: a ratio, no idle share);
+  8c. after the flights and the hospital paths, on their states, the
+     graph-against-eager phase (graph_checks): GRAPH_ROWS rows of each
+     one-row loop kind the path runs (the MH and collapsed PG ramps from
+     a fresh state, observed, latent-with-hops and leaf sweeps, replay
+     chunks, the written-out PG replay and sweep), once eager with the
+     kernels and once as replays of the captured row step from the same
+     state and generator state: every carry and params leaf, the log-ML,
+     the generator state and the launch counts bit-equal. Every path also
+     prints, for each one-row loop kind, its segments (a replay chunk is
+     one), the rows it replayed and ran eagerly and the captures it made
+     with their seconds;
+  9. after all six paths, K12 fk_score and K13 choice_score at every
+     shape of the paths' launch census (class, enumeration rows, slots or
+     options; seeded inputs of that shape, K13's rows in states 0, 1 and
+     2 in turn, and again with every row observed and with a static code)
+     against their plain versions, timed beside them, torch.logsumexp
+     over the record and the bytes bound (bench_score_shapes); then
+     prints, for each kernel, how many
+     shapes were checked and the worst error, the run's seconds, then the
+     `kernels` JSON line (K1-K13; `launches` summed over
      the six paths, with each path's own beside it; `max_abs_err` the
      worst over every shape checked; the times those of the shape named in
      `shape`; every shape's numbers in chip_smoke.json under --out), then
@@ -137,13 +158,18 @@ resampling decision is equal, ws_out and lml within 1e-6 of max(1,
 |logsumexp|), and the picks equal but on <= 1e-2 of them (at 100 or more),
 each within 1e-4 of the total from a CDF boundary (exact fixed-point
 prefix sums against torch.cumsum's f32 ones, K2's rule); K10 and K11
-bit-equal (integer state and copied values). It fails
+bit-equal (integer state and copied values); K12 and K13 record
+bit-equal (the same float operations, one rounding each) and logZ within
+K1's rule. It fails
 (non-zero exit, no result line) if there is no card, a kernel does not
 build, launch or agree, K1-K3 were not launched on the scaled path, K4 and
-K5 not on the rents path, K1, K2 and K6 not on the flights path, K1-K3, K7
+K5 not on the rents path, K2 and K6 not on the flights path, K1-K3, K7
 and K8 not on the hospital or the hospital_pg1024 path, K1-K3 and K9 in
 both its modes not on the hospital_pg16_vmapped path, K10 or K11 not on
-any path, a shadow run differs or waits for the card, a PG path's log-ML
+any path, K12 or K13 not on any path but hospital_pg16_vmapped, a shadow
+run differs or waits for the card, a graph replay differs from the eager
+row or a graphed loop kind ran a row after its first eagerly, a PG
+path's log-ML
 is not finite, a path's F1 is below its floor (F1_FLOORS: scaled, rents,
 flights, hospital, and the two PG paths'), or any phase raises.
 """
@@ -242,20 +268,29 @@ SOURCES = {
                   "pclean_tpu/engine/refresh.py:209"),
     "row_write": ("pclean_tpu_torch/csrc/row_write.cu",
                   "pclean_tpu/engine/smc.py:173"),
+    "fk_score": ("pclean_tpu_torch/csrc/fk_score.cu",
+                 "pclean_tpu/engine/propose.py:521"),
+    "choice_score": ("pclean_tpu_torch/csrc/choice_score.cu",
+                     "pclean_tpu/engine/propose.py:454"),
 }
 SCALED_KERNELS = ("enum_logsumexp", "inv_cdf_sample", "obs_gather_sum")
 RENTS_KERNELS = ("gauss_suffstats", "gauss_ext_term")
 FLIGHTS_KERNELS = ("enum_logsumexp", "inv_cdf_sample", "maybe_swap_ext")
+# K12 and K13: the one-row blocks' score glue, on every path with a ramp
+# or B = 1 sweeps (the written-out PG path's one-row rows are its replays,
+# which its batched sweep may leave empty)
+SCORE_KERNELS = ("fk_score", "choice_score")
 HOSPITAL_KERNELS = ("enum_logsumexp", "inv_cdf_sample", "obs_gather_sum",
                     "referrer_hist", "sa_ext_term")
 # K10 and K11: every path runs one-row loops (a ramp, replays or B = 1
 # sweeps)
 ROW_KERNELS = ("row_delta", "row_write")
-NEED = {"scaled": SCALED_KERNELS + ROW_KERNELS,
-        "rents": RENTS_KERNELS + ROW_KERNELS,
-        "flights": FLIGHTS_KERNELS + ROW_KERNELS,
-        "hospital": HOSPITAL_KERNELS + ROW_KERNELS,
-        "hospital_pg1024": HOSPITAL_KERNELS + ROW_KERNELS,
+NEED = {"scaled": SCALED_KERNELS + ROW_KERNELS + SCORE_KERNELS,
+        "rents": RENTS_KERNELS + ROW_KERNELS + SCORE_KERNELS,
+        # every flights row is a one-row step: K12/K13 in place of K1
+        "flights": FLIGHTS_KERNELS[1:] + ROW_KERNELS + SCORE_KERNELS,
+        "hospital": HOSPITAL_KERNELS + ROW_KERNELS + SCORE_KERNELS,
+        "hospital_pg1024": HOSPITAL_KERNELS + ROW_KERNELS + SCORE_KERNELS,
         "hospital_pg16_vmapped": SCALED_KERNELS + ("pg_resample",)
         + ROW_KERNELS}
 PATHS = tuple(NEED)
@@ -687,6 +722,146 @@ def row_entry(name: str, shapes: list) -> dict:
         bound_by="operations" if dep else "bytes")
 
 
+def bench_score_shapes(ops, dev, runs: dict, floor) -> dict:
+    """K12 and K13 at every shape of every path's launch census (class,
+    enumeration rows R, slots or options K), on seeded inputs of that
+    shape (kernel_bench.k12_inputs, k13_inputs): checked against the plain
+    version (record bit-equal, logZ within K1's rule), timed beside it and
+    torch.logsumexp over the record (the logsumexp alone), with the bytes
+    bound of the timed inputs. K13 is timed with its rows' states 0, 1, 2
+    in turn (one row: 0, which reads the enum logits) and also checked
+    with every row observed (the delta) and with the static code of a
+    choice with no observation (kernel_bench.K13_CHECKS). Each distinct
+    (R, K) once, with its launches on every path. Returns {kernel: [one
+    dict per shape]}."""
+    from pclean_tpu_torch import kernel_bench as kb
+
+    out = {}
+    for name, make, nbytes in (("fk_score", kb.k12_inputs, kb.k12_bytes),
+                               ("choice_score", kb.k13_inputs,
+                                kb.k13_bytes)):
+        shapes: dict = {}
+        for path, r in runs.items():
+            for c in kb.score_census(r["census"], name):
+                sh = shapes.setdefault((c["R"], c["K"]), dict(
+                    R=c["R"], K=c["K"], classes=set(), launches_by_path={}))
+                sh["classes"].add(c["mode"].rsplit(" ", 1)[0])
+                lp = sh["launches_by_path"]
+                lp[path] = lp.get(path, 0) + c["launches"]
+        out[name] = []
+        for (R, K), sh in sorted(shapes.items()):
+            inp = make(dev, R, K)
+            b = nbytes(inp)
+            err = kb.check_score(ops, name, inp)
+            if name == "choice_score":
+                for state in kb.K13_CHECKS:
+                    err = max(err, kb.check_score(
+                        ops, name, make(dev, R, K, state=state)))
+            x = dict(shape=f"R {R}, K {K} ({', '.join(sorted(sh['classes']))})",
+                     rows="r1", R=R, K=K,
+                     launches=sum(sh["launches_by_path"].values()),
+                     launches_by_path=sh["launches_by_path"],
+                     max_abs_err=err, bytes=b,
+                     bound_ms=b / kb.HBM_BYTES_PER_S * 1e3, floor_ms=floor,
+                     plan=(ops.fk_score_plan(R, K) if name == "fk_score"
+                           else ops.choice_score_plan(R, K)),
+                     **kb.time_score(ops, name, inp))
+            out[name].append(x)
+            print(f"{name} {x['shape']} ({x['launches']} launches "
+                  f"{x['launches_by_path']}): max_abs_err "
+                  f"{x['max_abs_err']:.3g} kernel {x['ms']:.4f} ms (device "
+                  f"{x['device_ms']:.4f} ms) plain {x['plain_ms']:.4f} ms "
+                  f"torch.logsumexp {x['library_ms']:.4f} ms (device "
+                  f"{x['library_device_ms']:.4f} ms) bound "
+                  f"{x['bound_ms']:.7f} ms floor {floor:.4f} ms plan "
+                  f"{x['plan']}", flush=True)
+            del inp
+    torch.cuda.empty_cache()
+    return out
+
+
+def score_entry(name: str, shapes: list) -> dict:
+    """K12's or K13's kernels-line entry: the numbers of the census shape
+    launched most over the six paths."""
+    top = max(shapes, key=lambda r: r["launches"])
+    return dict({key: top[key] for key in (
+        "max_abs_err", "ms", "device_ms", "plain_ms", "library_ms",
+        "library_device_ms", "bytes", "bound_ms", "floor_ms", "plan",
+        "shape")}, name=name, route="cuda", source=SOURCES[name][0],
+        replaces=SOURCES[name][1], bound_by="bytes")
+
+
+GRAPH_ROWS = 64   # rows of each loop kind the graph-against-eager phase runs
+
+
+def graph_checks(path, eng, cm, state) -> list:
+    """The graph-against-eager phase of a path, on its model and final
+    state (the ramps from a fresh init_state): GRAPH_ROWS rows of each
+    loop kind the path's configuration runs or graphs
+    (kernel_bench.graph_against_eager): once every row eager with the
+    kernels, once as replays of the captured row step, from the same state
+    and generator state. hospital: the MH ramp, the observed (Record),
+    latent-with-hops and leaf sweeps, and replay chunks (init and
+    rejuvenation); hospital_pg1024: the collapsed PG ramp, sweep and
+    replay; hospital_pg16_vmapped: the written-out PG replay chunk and
+    sweep; flights: its Obs sweep and a leaf sweep. Fails unless every
+    leaf, the log-ML, the generator state and the launch counts are
+    bit-equal and every row after the first was a replay."""
+    from pclean_tpu_torch import kernel_bench as kb
+    from pclean_tpu_torch.engine.compile import init_state
+    from pclean_tpu_torch.engine.refresh import hop_histograms
+    from pclean_tpu_torch.kernel_bench import require
+
+    arenas, params = state
+    obs = cm.obs_specs[0].class_id
+    pg0, pg = eng._pg_P(True), eng._pg_P(False)
+    n = GRAPH_ROWS
+    todo = []
+    if path in ("hospital", "hospital_pg1024"):
+        todo.append(("ramp", obs, True, "fresh"))
+    if path in ("hospital", "hospital_pg1024", "hospital_pg16_vmapped",
+                "flights"):
+        todo.append(("sweep", obs, True, "state"))
+    if path in ("hospital", "hospital_pg1024", "hospital_pg16_vmapped"):
+        todo.append(("replay", obs, True, "state"))
+        todo.append(("replay", obs, False, "state"))
+    if path in ("hospital", "flights"):
+        latents = [c for c in cm.model.class_order
+                   if not cm.layouts[c].observed]
+        withfk = [c for c in latents if cm.layouts[c].fk_vertices]
+        hops = [c for c in withfk
+                if hop_histograms(cm, c, arenas, eng.obs_dev)]
+        leaf = [c for c in latents if not cm.layouts[c].fk_vertices]
+        for c in (hops or withfk)[:1] + leaf[:1]:
+            todo.append(("sweep", c, True, "state"))
+    out = []
+    for loop, cid, rejuv, where in todo:
+        if where == "fresh":
+            a, p = init_state(cm, 0, device=cm.device)
+        else:
+            a, p = arenas, params
+        rows = min(n, cm.layouts[cid].capacity)
+        t = time.time()
+        r = kb.graph_against_eager(eng, a, p, loop, cid, rows,
+                                   pg_P=pg0 if loop == "ramp" or not rejuv
+                                   else pg, rejuv=rejuv)
+        r["s"] = time.time() - t
+        out.append(r)
+        st = r["stats"]
+        print(f"{path} graph against eager: {r['kind']} ({cid}), {rows} "
+              f"rows: {st['replayed']} replayed, {st['eager']} eager, "
+              f"{st['captures']} capture(s) in {st['capture_s']:.3f} s, "
+              f"{r['launches']} launches, mismatches {r['mismatches']} "
+              f"({r['s']:.2f} s)", flush=True)
+        require(not r["mismatches"], f"{path}: graph replays differ from the "
+                f"eager rows in {r['kind']}: {r['mismatches']}")
+        require(st["replayed"] == rows - 1 and st["captures"] == 1,
+                f"{path}: {r['kind']} did not replay its rows: {st}")
+        del a, p
+    torch.cuda.empty_cache()
+    return out
+
+
 def ptxas_lines(ops) -> dict:
     """Per kernel source, the ptxas -v lines of each compiled function:
     registers, shared memory, stack frame and spills."""
@@ -836,15 +1011,19 @@ def small_device_check(dev, workload="scaled"):
     return worst, launched
 
 
-TRACE_N = 16   # a one-row (one-batch) section: 1 + TRACE_N rows less 1 row
+TRACE_N = 16   # a batched section: 1 + TRACE_N batches less 1 batch
+# a graphed one-row section: 2 + TRACE_GRAPH_N rows less 2 rows (the
+# warm-up row and the capture in both), so TRACE_GRAPH_N replays
+TRACE_GRAPH_N = 128
 
 
 def _trace(fn) -> dict:
     """fn() once under torch.profiler (CPU and CUDA activities), ending in a
-    synchronize: its wall ms, device ops (kernels, copies and fills),
-    host syncs (the runtime's synchronize calls, less the closing one),
-    device-to-host copies and device busy ms (the union of the device
-    ops' intervals)."""
+    synchronize: its wall ms, device ops (kernels, copies and fills; in a
+    CUDA graph's replay, its nodes), host syncs (the runtime's synchronize
+    calls, less the closing one), device-to-host copies and device busy ms
+    (the union of the device ops' intervals); and fn() three more times
+    without the profiler, the least wall ms (wall_plain_ms)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -854,6 +1033,14 @@ def _trace(fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t) * 1e3
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t) * 1e3)
+    wall_plain = min(walls)
     spans, syncs, d2h, launches = [], 0, 0, 0
     for e in prof.profiler.kineto_results.events():
         name = e.name()
@@ -874,26 +1061,43 @@ def _trace(fn) -> dict:
         elif b > end:
             busy += b - end
             end = b
-    return dict(wall_ms=wall, device_ops=len(spans), launches=launches,
-                syncs=syncs - 1, d2h=d2h, busy_ms=busy / 1e6)
+    return dict(wall_ms=wall, wall_plain_ms=wall_plain,
+                device_ops=len(spans), launches=launches, syncs=syncs - 1,
+                d2h=d2h, busy_ms=busy / 1e6)
+
+
+def _shares(r: dict) -> dict:
+    """r with the device's idle share of the wall time under the profiler
+    (idle_share) and, as a ratio of two runs, the busy time under the
+    profiler over the wall time without it (busy_over_plain_wall): no idle
+    share, since the two come from different runs. Each None where its
+    wall is not above the busy time (a difference of two walls can come
+    out below it: the runs' one-off costs, such as a graph's capture,
+    differ more than the step)."""
+    def ratio(wall):
+        return r["busy_ms"] / wall if wall > r["busy_ms"] else None
+    busy = ratio(r["wall_ms"])
+    r["idle_share"] = None if busy is None else 1.0 - busy
+    r["busy_over_plain_wall"] = ratio(r["wall_plain_ms"])
+    return r
 
 
 def _trace_per(big: dict, small: dict, n: int) -> dict:
-    """One step's share: (big - small) / n for every count and time, and
-    the device's idle share of that step's wall time."""
+    """One step's share: (big - small) / n for every count and time, with
+    _shares."""
     out = {k: (big[k] - small[k]) / n for k in big if k != "sync_sites"}
     out["sync_sites"] = big["sync_sites"]
-    out["idle_share"] = 1.0 - out["busy_ms"] / out["wall_ms"] \
-        if out["wall_ms"] > 0 else None
-    return out
+    return _shares(out)
 
 
 def trace_sections(path, cm, config, state=None) -> dict:
     """The trace phase's sections of a path, each section's loop started
     from one state and its result dropped, each run once to warm up, then
     under _trace:
-      hospital: one ramp row (scan_init, 1 + TRACE_N rows less 1 row, over
-        TRACE_N) and one batched init segment (scan_init_batched at its B,
+      hospital: one ramp row (scan_init, 2 + TRACE_GRAPH_N rows less 2
+        rows, over TRACE_GRAPH_N: one replay of the captured row step; the
+        warm-up row and the capture are in both) and one batched init
+        segment (scan_init_batched at its B,
         batch_segment_rows // B batches, whole), from init_state, where
         the path's init starts (the batched segment without the ramp's
         rows before it);
@@ -907,6 +1111,8 @@ def trace_sections(path, cm, config, state=None) -> dict:
     from pclean_tpu_torch.engine.compile import init_state
     from pclean_tpu_torch.engine.smc import Engine
 
+    # the profiler's first use sets up its tracing: not inside a section
+    _trace(lambda: torch.zeros((1,), device=cm.device).add_(1.0))
     eng = Engine(cm, dataclasses.replace(config), device=cm.device)
     gen = torch.Generator(device=cm.device)
     gen.manual_seed(0)
@@ -920,11 +1126,16 @@ def trace_sections(path, cm, config, state=None) -> dict:
     n_rows = cm.obs_specs[0].num_rows
     B = config.batch_rows
 
+    # a row alone: no resample_all inside the traced rows (the eager rows
+    # of earlier runs traced 17 rows of 50)
+    eng1 = Engine(cm, dataclasses.replace(config, rejuv_frequency=10 ** 6),
+                  device=cm.device)
+
     def rows(k):
         if path == "flights":
-            return lambda: eng._sweep_segment(cid, arenas, params, 0, gen, k)
-        eng.config.scan_segment = k
-        run, _seg = eng.scan_init(cid, n_rows)
+            return lambda: eng1._sweep_segment(cid, arenas, params, 0, gen, k)
+        eng1.config.scan_segment = k
+        run, _seg = eng1.scan_init(cid, n_rows)
         return lambda: run(arenas, params, 0, gen)
 
     def batches(k):
@@ -960,24 +1171,31 @@ def trace_sections(path, cm, config, state=None) -> dict:
     out = {}
     if path in ("hospital", "flights"):
         label = "ramp row" if path == "hospital" else "Obs sweep row"
-        small, big = measured(rows(1)), measured(rows(1 + TRACE_N))
-        out[f"{path} {label}"] = _trace_per(big, small, TRACE_N)
+        small = measured(rows(2))
+        big = measured(rows(2 + TRACE_GRAPH_N))
+        out[f"{path} {label}"] = _trace_per(big, small, TRACE_GRAPH_N)
     if path == "hospital":
         seg = measured(batches(config.batch_segment_rows // B))
-        seg["idle_share"] = 1.0 - seg["busy_ms"] / seg["wall_ms"]
-        out["hospital batched segment"] = seg
+        out["hospital batched segment"] = _shares(seg)
     if path == "rents":
         small, big = measured(batches(1)), measured(batches(3))
         out["rents Obs batch"] = _trace_per(big, small, 2)
+    def f4(x):
+        return "n/a" if x is None else f"{x:.4f}"
+
     for name, r in out.items():
-        print(f"trace {name}: wall {r['wall_ms']:.3f} ms, device busy "
-              f"{r['busy_ms']:.3f} ms, idle share {r['idle_share']:.4f}, "
-              f"device ops {r['device_ops']:.1f}, kernel launches "
+        print(f"trace {name}: wall {r['wall_ms']:.3f} ms (without the "
+              f"profiler {r['wall_plain_ms']:.3f} ms), device busy "
+              f"{r['busy_ms']:.3f} ms, idle share {f4(r['idle_share'])} "
+              f"(busy under the profiler over the wall without it "
+              f"{f4(r['busy_over_plain_wall'])}), "
+              f"device ops (graph nodes) {r['device_ops']:.1f}, kernel "
+              f"launches "
               f"{r['launches']:.1f}, host syncs {r['syncs']:.1f}, "
               f"device-to-host copies {r['d2h']:.1f} (under the profiler); "
               f"syncs flagged by the sync debug mode {r['flagged_syncs']:.1f}"
               f", from {r['sync_sites']}", flush=True)
-    del arenas, params, eng
+    del arenas, params, eng, eng1
     torch.cuda.empty_cache()
     return out
 
@@ -1058,8 +1276,11 @@ def run_path(ops, name, cm, config, dirty, clean, query, rows):
     from pclean_tpu_torch.engine.compile import init_state
     from pclean_tpu_torch.engine.smc import Engine
 
+    from pclean_tpu_torch.engine import row_graph
+
     torch.cuda.reset_peak_memory_stats()
     ops.reset_counts()
+    row_graph.reset_stats()
     torch.cuda.synchronize()
     at_start = torch.cuda.memory_allocated()
     t = time.time()
@@ -1075,6 +1296,7 @@ def run_path(ops, name, cm, config, dirty, clean, query, rows):
     launches = dict(ops.LAUNCHES)
     by_shape = {k: dict(v) for k, v in ops.LAUNCHES_BY_SHAPE.items()}
     census = ops.census()
+    loops = {k: dict(v) for k, v in row_graph.STATS.items()}
     res = evaluate_accuracy_device(cm, arenas, params, dirty, clean, query)
     occ = eng.arena_occupancy(arenas)
     rep = dict(rows=rows, batch_rows=config.batch_rows, init_s=init_s,
@@ -1086,7 +1308,7 @@ def run_path(ops, name, cm, config, dirty, clean, query, rows):
                memory_allocated_at_start=at_start, launches=launches,
                launches_by_shape=by_shape, census=census,
                log_ml=float(eng.log_ml), particles=config.num_particles,
-               pg=not config.use_mh_instead_of_pg)
+               pg=not config.use_mh_instead_of_pg, loops=loops)
     print(f"{name} path ({rows} rows, B={config.batch_rows}): init "
           f"{init_s:.2f} s, sweep {sweep_s:.2f} s, rows-cleaned/s "
           f"{rep['rows_cleaned_per_s']:.1f}"
@@ -1099,6 +1321,10 @@ def run_path(ops, name, cm, config, dirty, clean, query, rows):
           f"allocated before the path {at_start})")
     print(f"{name} launches: {launches}; by shape (r1 = one row, rn = "
           f"more): {by_shape}", flush=True)
+    for kind, st in sorted(loops.items()):
+        print(f"{name} one-row loop {kind}: {st['segments']} segments, "
+              f"{st['replayed']} rows replayed, {st['eager']} eager, "
+              f"{st['captures']} captures in {st['capture_s']:.4f} s")
     for r in census:
         print(f"{name} census {r['kernel']} {r['mode'] or '-'} {r['rows']} "
               f"K={r['K']}: {r['launches']} ({100 * r['share']:.1f}%)")
@@ -1155,6 +1381,7 @@ def main() -> int:
     report["phase_s"] = {}
     report["trace"] = {}
     report["shadow"] = {}
+    report["graph_checks"] = {}
 
     def row_checks(path, eng, arenas, params, census):
         res, report["shadow"][path] = bench_rows(ops, eng, arenas, params,
@@ -1245,6 +1472,9 @@ def main() -> int:
                                     floor))
     add("flights", {"maybe_swap_ext": kernels[-1].pop("shapes")})
     row_checks("flights", eng, arenas, params, fl["census"])
+    phase("flights graph against eager")
+    report["graph_checks"]["flights"] = graph_checks("flights", eng, cm,
+                                                     (arenas, params))
     phase("flights trace")
     report["trace"].update(trace_sections("flights", cm, config,
                                           (arenas, params)))
@@ -1274,6 +1504,9 @@ def main() -> int:
         add(path, bench_k7_k8_census(ops, eng, arenas, params, hp["census"],
                                      cfg["batch"], path, floor))
         row_checks(path, eng, arenas, params, hp["census"])
+        phase(f"{path} graph against eager")
+        report["graph_checks"][path] = graph_checks(path, eng, cm,
+                                                    (arenas, params))
         if path == "hospital":
             phase("hospital trace")
             report["trace"].update(trace_sections("hospital", cm, config))
@@ -1293,10 +1526,15 @@ def main() -> int:
             ops, dev, runs[path]["census"], B)})
         add(path, {"pg_resample": bench_k9_census(
             ops, dev, runs[path]["census"], B, path, floor)})
+    phase("K12 and K13 census shapes")
+    score = bench_score_shapes(ops, dev, runs, floor)
+    for name, rows in score.items():
+        checked[name] += [dict(r, path="all") for r in rows]
     kernels += [k7_k8_entry(name, checked[name])
                 for name in ("referrer_hist", "sa_ext_term")]
     kernels.append(k9_entry(checked["pg_resample"]))
     kernels += [row_entry(name, checked[name]) for name in ROW_KERNELS]
+    kernels += [score_entry(name, score[name]) for name in SCORE_KERNELS]
     phase("done")
 
     for k in kernels:
@@ -1314,7 +1552,7 @@ def main() -> int:
             + [r.get("max_abs_err_other_mode", 0.0) for r in shapes])
         k["shapes"] = shapes
         print(f"{k['name']}: {len(shapes)} shapes checked on "
-              f"{sorted({r['path'] for r in shapes})}, worst max_abs_err "
+              f"{sorted({str(r['path']) for r in shapes})}, worst max_abs_err "
               f"{k['max_abs_err']:.3g}", flush=True)
     for path, need in NEED.items():
         missing = [k for k in need if runs[path]["launches"][k] <= 0]
@@ -1329,6 +1567,8 @@ def main() -> int:
     require(k9_modes == set(ops.K9_MODES),
             f"K9 launched in modes {k9_modes} on hospital_pg16_vmapped")
     report["total_s"] = time.time() - t0
+    print(f"chip_smoke: {report['total_s']:.1f} s from the build to here",
+          flush=True)
     report["kernels"] = kernels
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)

@@ -88,8 +88,22 @@ class CompiledModel:
         self.exact_gibbs_ok: bool = True
         # (cid, vid) -> bool [V] host truth tables (truth_table)
         self._truth: dict = {}
+        # (value, dtype) -> 0-d device constant (`const`)
+        self._consts: dict = {}
 
     # -- helpers -------------------------------------------------------------
+
+    def const(self, value, dtype=None) -> torch.Tensor:
+        """The 0-d device tensor torch.tensor(value, dtype=dtype) of a host
+        constant, made once per model: a row step reads it without copying
+        from the host, which a CUDA graph's capture does not allow.
+        Callers only read it."""
+        key = (type(value), value, dtype)
+        hit = self._consts.get(key)
+        if hit is None:
+            hit = torch.tensor(value, dtype=dtype, device=self.device)
+            self._consts[key] = hit
+        return hit
 
     def cls(self, cid: ClassID) -> PClass:
         return self.model.classes[cid]

@@ -49,6 +49,7 @@ class DistKernel:
 
     def __init__(self, cm):
         self._use = cm.use
+        self._const = cm.const
         self.device = cm.device
 
     def enum_logits(self, ctx):  # -> [*, V]
@@ -335,7 +336,7 @@ class _MaybeSwapK(DistKernel):
             return ctx.pstate(*self.param_key)["value"][0]
         if self.prob_vid is not None:
             return ctx.value(self.prob_vid)
-        return torch.tensor(self.static_prob, device=self.device)
+        return self._const(self.static_prob)
 
     def _loglen(self, ctx):
         if self.dynamic_opts:

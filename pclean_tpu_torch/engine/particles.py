@@ -124,7 +124,9 @@ def smc_particles(eng, cid: ClassID, arenas: dict, rel: dict, params: dict,
 
     ar = torch.arange(R, device=dev)
     n_fresh = P - 1 if retained else P
-    rows_f = ar.repeat_interleave(n_fresh)
+    # each row's index n_fresh times (an expand: repeat_interleave would
+    # ask the card for the output's length)
+    rows_f = ar[:, None].expand(R, n_fresh).reshape(-1)
     slots_f, rel_f = slots[rows_f], _rel_rows(rel, rows_f)
     obs_f = eng._obs_row_slices(cid, slots_f, rel_f)
     obs_r = eng._obs_row_slices(cid, slots, rel) if retained else None

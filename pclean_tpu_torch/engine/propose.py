@@ -182,9 +182,15 @@ class BlockTracer:
     def _st(self, st, code: int, depth: int):
         """(state == code) aligned to rank 1 + depth; static ints fold."""
         if isinstance(st, int):
-            return torch.tensor(st == code, device=self.cm.device) \
-                .reshape((1,) * (1 + depth))
+            return self.cm.const(st == code).reshape((1,) * (1 + depth))
         return self._row(st == code, depth)
+
+    def _f32(self, x):
+        """A kernel's scalar (a Python number or a tensor) as float32 on
+        the device; a number as the model's cached constant."""
+        if torch.is_tensor(x):
+            return x.to(device=self.cm.device, dtype=torch.float32)
+        return self.cm.const(float(x), torch.float32)
 
     def aligned(self, vid: VertexID, depth: int):
         d, val = self.env[vid]
@@ -214,18 +220,24 @@ class BlockTracer:
         tbl = self.cm.use(self.cm.tables[self.cm.canon(self.cid, vid)])
         return _tbl_get(tbl, [value_of(a) for a in node.arg_ids])
 
+    def _py_sd(self, tc: ClassID):
+        """The class's Pitman-Yor (strength, discount): the parameters'
+        device scalars where params["__py__"] holds them, else the class's
+        constants (Python numbers)."""
+        py = self.params.get("__py__", {}).get(tc)
+        if py is not None:
+            return py["strength"], py["discount"]
+        c = self.cm.cls(tc)
+        return c.py_strength, c.py_discount
+
     def py_logprobs(self, tc: ClassID):
         """Pitman-Yor prior over candidate slots + fresh row
         (trace.jl:53-61, block_proposal.jl:86-96). With per-row rel leaves
         the results carry the batch axis: existing [B, cap], new [B]."""
-        c = self.cm.cls(tc)
         r = self.rel[tc]
-        py = self.params.get("__py__", {}).get(tc)
-        if py is not None:
-            s, d = py["strength"], py["discount"]
-        else:
-            s = torch.tensor(c.py_strength, device=self.cm.device)
-            d = torch.tensor(c.py_discount, device=self.cm.device)
+        s, d = self._py_sd(tc)
+        if not torch.is_tensor(s):
+            s, d = self.cm.const(s), self.cm.const(d)
         total = r["total"].to(torch.float32)
         logden = torch.log(total + s)
         cnt = r["refcount"].to(torch.float32)
@@ -400,8 +412,7 @@ class BlockTracer:
                 term = torch.where(
                     self._st(st, 1, depth), kern.obs_logdensity(ctx, ova),
                     torch.where(self._st(st, 2, depth),
-                                torch.as_tensor(miss, device=self.cm.device,
-                                                dtype=torch.float32), zero))
+                                self._f32(miss), zero))
                 val = torch.where(self._st(st, 1, depth), ova.to(drawn.dtype)
                                   if torch.is_tensor(drawn) else ova, drawn)
             else:
@@ -425,9 +436,10 @@ class BlockTracer:
             obs_ld = kern.obs_logdensity(ctx, ova).to(torch.float32)
             obs_ld = obs_ld.reshape(tuple(obs_ld.shape) + (1,) *
                                     max(0, 1 + depth - obs_ld.dim()))
+        if ov is not None and self.B > 1:   # (one row: K13 builds them)
             ar = torch.arange(V, device=self.cm.device)
             delta = torch.where(ar == ova[..., None], obs_ld[..., None],
-                                torch.tensor(NINF, device=self.cm.device))
+                                self.cm.const(NINF))
             logits = torch.where(self._st(st, 1, depth)[..., None], delta,
                                  enum)
         else:
@@ -441,6 +453,18 @@ class BlockTracer:
             self.score_plan(step.rest, depth + 1, mode, ctx_key))
         del self._enum_axis[vid]
         self.axes.pop()
+        if self.B == 1:
+            # one row: the delta, the children and the logsumexp in one
+            # K13 launch
+            if ov is None:
+                obs_ld = ova = st = None
+            elif torch.is_tensor(st):
+                st = self._row(st, depth)
+            rec, logz = ops.choice_score(enum, children, full, obs_ld, ova,
+                                         0 if st is None else st,
+                                         cls=self.cid)
+            self.records[(vid, ctx_key)] = rec.reshape(full + (V,))
+            return logz.reshape(full)
         total = (logits + children).expand(full + (V,))
         self.records[(vid, ctx_key)] = total
         _rec, logz = ops.enum_logsumexp(total.reshape(-1, V).contiguous())
@@ -451,7 +475,10 @@ class BlockTracer:
         tc = fknode.target_class
         cap = self.cm.layouts[tc].capacity
         comp = self.cand.get(tc)
-        py_exist_full, py_new = self.py_logprobs(tc)
+        # one row on the full candidate axis: K12 computes the prior itself
+        one_row = comp is None and self.B == 1
+        if not one_row:
+            py_exist_full, py_new = self.py_logprobs(tc)
         dev = self.cm.device
         if comp is not None:
             idx, _invm, nc = comp
@@ -462,13 +489,15 @@ class BlockTracer:
             slot_ids = torch.clamp(idx, max=cap - 1)
             py_exist = torch.where(pos < nc, _rtake(py_exist_full,
                                                     slot_ids[None, :]),
-                                   torch.tensor(NINF, device=dev))
+                                   self.cm.const(NINF))
         else:
             K = cap
             slot_ids = torch.arange(K, device=dev)
-            py_exist = py_exist_full.reshape((-1, K))
+            if not one_row:
+                py_exist = py_exist_full
         full = self._full(depth)
-        py_exist = py_exist.reshape((py_exist.shape[0],) + (1,) * depth + (K,))
+        if not one_row:
+            py_exist = py_exist.reshape((-1,) + (1,) * depth + (K,))
 
         self.axes.append(K)
         self.env[vid] = (depth + 1, slot_ids.reshape((1,) * (1 + depth) + (K,)))
@@ -477,7 +506,6 @@ class BlockTracer:
             self.score_plan(step.rest, depth + 1, {**mode, vid: "E"},
                             ctx_key + ((vid, "E"),)))
         self.axes.pop()
-        exist = py_exist + ch_e
 
         self.env[vid] = (depth, torch.zeros((1,) * (1 + depth),
                                             dtype=torch.long, device=dev))
@@ -487,11 +515,18 @@ class BlockTracer:
         ch_n = self._mm_flush(
             self.score_plan(step.rest, depth, {**mode, vid: "N"},
                             ctx_key + ((vid, "N"),)))
-        new = self._row(py_new, depth) + ch_n
-
-        rec, logz = ops.enum_logsumexp(
-            exist.expand(full + (K,)).reshape(-1, K).contiguous(),
-            new.expand(full).reshape(-1).contiguous())
+        if one_row:
+            r = self.rel[tc]
+            s, d = self._py_sd(tc)
+            rec, logz = ops.fk_score(r["refcount"], r["alive"], r["total"],
+                                     r["nrows"], s, d, ch_e, ch_n, full,
+                                     cls=tc)
+        else:
+            exist = py_exist + ch_e
+            new = self._row(py_new, depth) + ch_n
+            rec, logz = ops.enum_logsumexp(
+                exist.expand(full + (K,)).reshape(-1, K).contiguous(),
+                new.expand(full).reshape(-1).contiguous())
         self.records[(vid, ctx_key)] = rec.reshape(full + (K + 1,))
         del self.env[vid]
         return logz.reshape(full)
@@ -606,8 +641,7 @@ class BlockTracer:
                     term = obs_t
                 else:
                     st = st.reshape(shape)
-                    miss_t = torch.as_tensor(kern.missing_logdensity(ctx),
-                                             dtype=torch.float32, device=dev)
+                    miss_t = self._f32(kern.missing_logdensity(ctx))
                     zero = torch.zeros((), device=dev)
                     term = torch.where(st == 1, obs_t,
                                        torch.where(st == 2, miss_t, zero))
@@ -1326,8 +1360,7 @@ def _lookup(cm: CompiledModel, params: dict, cid: ClassID,
         return val
     truth = cm.use(cm.truth_table(cid, node.gate_id))
     gate = take(truth, value_of(node.gate_id))
-    return torch.where(gate, torch.tensor(node.gate_value, dtype=val.dtype,
-                                          device=val.device), val)
+    return torch.where(gate, cm.const(node.gate_value, val.dtype), val)
 
 
 def _fk(cm: CompiledModel, cid: ClassID, vid: VertexID) -> ForeignKeyNode:

@@ -35,7 +35,12 @@ hand kernels K10 (`ops.row_delta`, the row's relational delta) and K11
 that carry once a segment (`ops.RowCarry`), the row's slot a view of a
 per-segment `arange` on the device, so neither waits for the card; the
 out-of-place `apply_row` and refresh's point deltas stay for the batched
-path and as those kernels' plain versions.
+path and as those kernels' plain versions. On the card each segment's
+row step is one CUDA graph (row_graph.RowGraph): the first row eager, the
+rest replays, the slot a buffer on the card that the step advances, the
+parameters a copy owned by the segment (row_graph.own_params) into which
+resample_all's values are written. A latent class's replay chunk stays
+eager: each row refreshes with the row excluded by a host index.
 
 Particle Gibbs (use_mh_instead_of_pg=False, num_particles = P > 1) rides
 the same drivers with engine/particles.py's row bodies: `pg_row_step` in
@@ -69,6 +74,8 @@ from .gibbs_params import resample_all
 from .propose import BlockTracer, _rtake, build_cand, referrer_histograms
 from .refresh import (batch_latent_delta, batch_obs_delta, hop_histograms,
                       latent_row_delta, refresh, row_delta)
+from . import row_graph
+from .row_graph import RowGraph, copy_params, own_params
 
 
 @dataclass
@@ -572,64 +579,134 @@ class Engine:
             w = w + logZ + res.weight
         return env2, births, w
 
+    def _init_row(self, car, rel, params, st, gen) -> None:
+        """One fresh row of the carry's class proposed against `rel` and
+        written into the carry, marked alive (K11)."""
+        env2, births, _w = self._propose(car.cid, car.arenas, rel, params, st,
+                                         gen, False)
+        ops.row_write(car, st, env2, births, mark_alive=True)
+
+    def _mh_row(self, car, rel, params, st, gen, alive, **kw) -> None:
+        """One row's MH rejuvenation against `rel` (the row excluded): the
+        proposal, the explicit MH comparison where exact_accept is False
+        (the retained values scored, one uniform), and the write into the
+        carry (K11). `kw`: _propose's hoisted inputs (and a test's
+        injected pools, which the retained scoring does not draw from)."""
+        cid, arenas = car.cid, car.arenas
+        env_p, births_p, w_p = self._propose(cid, arenas, rel, params, st,
+                                             gen, False, **kw)
+        if self.exact_accept:
+            accept = alive
+        else:
+            kw.pop("pools", None)
+            _e, _b, w_r = self._propose(cid, arenas, rel, params, st, gen,
+                                        True, **kw)
+            u = torch.rand((1,), generator=gen, device=self.cm.device)
+            accept = (torch.log(u) < (w_p - w_r)) & alive
+        ops.row_write(car, st, env_p, births_p, accept)
+
     # ------------------------------------------------ sequential replay
 
     def _replay_chunk(self, cid: ClassID, arenas, params, idx, gen,
-                      rejuv: bool, pg_P: Optional[int] = None):
+                      rejuv: bool, pg_P: Optional[int] = None,
+                      graph: bool = True):
         """Incorporate the rows `idx` one at a time (smc.py:817-917): each
         row proposes against the relational state carried by exact point
         deltas (observed classes) or a fresh exclude-refresh (latent
         classes). pg_P replays each row as a P-particle SMC (pg_init_step,
-        pg_rejuv_step). Returns (arenas, the init rows' summed log-ML)."""
+        pg_rejuv_step). An observed class's rows run as replays of one
+        captured row step on the card (row_graph.RowGraph; graph=False:
+        eagerly); a latent class's stay eager, since each refreshes with
+        its row excluded by a host index. Returns (arenas, the init rows'
+        summed log-ML)."""
         from .particles import pg_init_step, pg_rejuv_step
 
         cm = self.cm
         obs = self.obs_dev
-        # observed classes carry rel by exact point deltas; latent-class
-        # replays are rare and recompute with the row excluded
-        incr = cm.layouts[cid].observed
-        arenas, _r = own_carry(cm, cid, arenas)
-        car = ops.RowCarry(cm, cid, arenas,
-                           refresh(cm, arenas, obs) if incr else None, obs)
-        rel = car.rel
-        slots = torch.as_tensor(np.asarray(idx, np.int64), device=cm.device)
+        if not cm.layouts[cid].observed:
+            return self._replay_latent(cid, arenas, params, idx, gen, rejuv,
+                                       pg_P)
+        # observed classes carry rel by exact point deltas
         lml = torch.zeros((), device=cm.device)
+        arenas, _r = own_carry(cm, cid, arenas)
+        car = ops.RowCarry(cm, cid, arenas, refresh(cm, arenas, obs), obs)
+        rel = car.rel
+
+        def step(st):
+            if rejuv:
+                ops.row_delta(car, st, -1)
+                if pg_P:
+                    pg_rejuv_step(self, car, rel, params, st, gen, pg_P)
+                else:
+                    self._mh_row(car, rel, params, st, gen,
+                                 take(arenas[cid]["alive"], st))
+            elif pg_P:
+                lml.add_(pg_init_step(self, car, rel, params, st, gen,
+                                      pg_P).sum())
+            else:
+                self._init_row(car, rel, params, st, gen)
+            ops.row_delta(car, st, +1)
+
+        rg = RowGraph(step, cm.device,
+                      self._loop_kind("replay", cid, pg_P, rejuv),
+                      table=idx, gen=gen, graph=graph)
+        for _s in idx:
+            rg.row()
+        rg.close()
+        return arenas, lml
+
+    def _replay_latent(self, cid: ClassID, arenas, params, idx, gen,
+                       rejuv: bool, pg_P):
+        """_replay_chunk's rows of a latent class, eagerly: each proposes
+        against a fresh refresh (with the row excluded where it
+        rejuvenates), whose host index and compactions wait for the card.
+        Counted as eager rows in row_graph.STATS."""
+        from .particles import pg_init_step, pg_rejuv_step
+
+        cm = self.cm
+        obs = self.obs_dev
+        row_graph.note_eager(self._loop_kind("replay", cid, pg_P, rejuv),
+                             len(idx))
+        lml = torch.zeros((), device=cm.device)
+        arenas, _r = own_carry(cm, cid, arenas)
+        car = ops.RowCarry(cm, cid, arenas, None, obs)
+        slots = torch.as_tensor(np.asarray(idx, np.int64), device=cm.device)
         for i, s in enumerate(idx):
             st = slots[i:i + 1]
             if rejuv:
-                if incr:
-                    ops.row_delta(car, st, -1)
-                    relx = rel
-                else:
-                    relx = refresh(cm, arenas, obs, exclude_cid=cid,
-                                   exclude_slot=int(s))
+                relx = refresh(cm, arenas, obs, exclude_cid=cid,
+                               exclude_slot=int(s))
                 if pg_P:
                     pg_rejuv_step(self, car, relx, params, st, gen, pg_P)
                 else:
-                    alive = take(arenas[cid]["alive"] if incr
-                                 else relx[cid]["alive"], st)
-                    env_p, births_p, w_p = self._propose(
-                        cid, arenas, relx, params, st, gen, False)
-                    if self.exact_accept:
-                        accept = alive
-                    else:
-                        _e, _b, w_r = self._propose(cid, arenas, relx, params,
-                                                    st, gen, True)
-                        u = torch.rand((1,), generator=gen, device=cm.device)
-                        accept = (torch.log(u) < (w_p - w_r)) & alive
-                    ops.row_write(car, st, env_p, births_p, accept)
+                    self._mh_row(car, relx, params, st, gen,
+                                 take(relx[cid]["alive"], st))
             else:
-                relx = rel if incr else refresh(cm, arenas, obs)
+                relx = refresh(cm, arenas, obs)
                 if pg_P:
                     lml = lml + pg_init_step(self, car, relx, params, st,
                                              gen, pg_P).sum()
                 else:
-                    env2, births, _w = self._propose(cid, arenas, relx,
-                                                     params, st, gen, False)
-                    ops.row_write(car, st, env2, births, mark_alive=True)
-            if incr:
-                ops.row_delta(car, st, +1)
+                    self._init_row(car, relx, params, st, gen)
         return arenas, lml
+
+    def _loop_kind(self, loop: str, cid: ClassID, pg_P, rejuv=True) -> str:
+        """A one-row loop's kind, as row_graph.STATS names it: the loop,
+        the class kind (obs, latent, leaf; init for rows incorporated),
+        then "pg" (collapsed) or "pg written", or "mh" where the explicit
+        MH comparison runs."""
+        lay = self.cm.layouts[cid]
+        if not rejuv:
+            ck = "init"
+        elif lay.observed:
+            ck = "obs"
+        else:
+            ck = "latent" if lay.fk_vertices else "leaf"
+        if pg_P:
+            tail = " pg" if self._collapsed else " pg written"
+        else:
+            tail = "" if (self.exact_accept or not rejuv) else " mh"
+        return f"{loop}{tail}" if loop == "ramp" else f"{loop} {ck}{tail}"
 
     def replay_rows(self, cid: ClassID, arenas, params, idx, gen,
                     rejuv: bool, pg_P: Optional[int] = None):
@@ -698,41 +775,50 @@ class Engine:
         rejuv_frequency rows; returns (arenas, params, the rows' summed
         log-ML). pg_P makes it scan_init_pg (smc.py:1085-1149): each row a
         P-particle SMC (pg_init_step), in segments of _pg_seg(P) rows.
-        Returns (run, seg)."""
+        The rows after a segment's first are replays of its captured row
+        step on the card (row_graph.RowGraph; run(..., graph=False): every
+        row eager). Returns (run, seg)."""
         seg = min(self._pg_seg(pg_P) if pg_P else self.config.scan_segment,
                   num_rows)
         cm = self.cm
         R = self.config.rejuv_frequency
         from .particles import pg_init_step
 
-        def run(arenas, params, base, gen):
+        def run(arenas, params, base, gen, graph=True):
             arenas, _r = own_carry(cm, cid, arenas)
+            params = own_params(params)
             rel = refresh(cm, arenas, self.obs_dev)
             car = ops.RowCarry(cm, cid, arenas, rel, self.obs_dev)
-            slots = base + torch.arange(seg, device=cm.device)
             lml = torch.zeros((), device=cm.device)
+
+            def step(st):
+                if pg_P:
+                    lml.add_(pg_init_step(self, car, rel, params, st, gen,
+                                          pg_P).sum())
+                else:
+                    self._init_row(car, rel, params, st, gen)
+                ops.row_delta(car, st, +1)
+
+            rg = RowGraph(step, cm.device,
+                          self._loop_kind("ramp", cid, pg_P, False),
+                          base=base, gen=gen, graph=graph)
             for off in range(seg):
                 slot = base + off
                 if slot >= num_rows:
                     break
-                st = slots[off:off + 1]
-                if pg_P:
-                    lml = lml + pg_init_step(self, car, rel, params, st, gen,
-                                             pg_P).sum()
-                else:
-                    env2, births, _w = self._propose(cid, arenas, rel, params,
-                                                     st, gen, False)
-                    ops.row_write(car, st, env2, births, mark_alive=True)
-                ops.row_delta(car, st, +1)
+                rg.row()
                 if (slot + 1) % R == 0:
-                    arenas, params = resample_all(cm, arenas, params,
-                                                  self.obs_dev, gen, rel=rel)
+                    _a, new = resample_all(cm, arenas, params, self.obs_dev,
+                                           gen, rel=rel)
+                    copy_params(params, new)
+            rg.close()
             return arenas, params, lml
 
         return run, seg
 
     def _sweep_segment(self, cid: ClassID, arenas, params, base: int, gen,
-                       seg: int, pools=None, pg_P: Optional[int] = None):
+                       seg: int, pools=None, pg_P: Optional[int] = None,
+                       graph: bool = True):
         """One class's MH rejuvenation over `seg` row slots from `base`, one
         row at a time (smc.py:1332-1429), with the relational state carried
         by class kind:
@@ -746,7 +832,9 @@ class Engine:
         every rejuv_frequency slots. `pools`: optional per-row lists of
         per-block injected uniform pools [1, n]. pg_P rejuvenates each row
         by P-particle conditional SMC instead (pg_rejuv_step), as
-        scan_sweep_class_pg does (smc.py:1151-1208)."""
+        scan_sweep_class_pg does (smc.py:1151-1208). On the card the rows
+        after the segment's first are replays of its captured row step
+        (row_graph.RowGraph), unless `pools` are injected or graph=False."""
         from .particles import pg_rejuv_step
 
         cm = self.cm
@@ -766,45 +854,45 @@ class Engine:
         if leaf:
             rel = relc
         car = ops.RowCarry(cm, cid, arenas, rel, obs, hops)
+        params = own_params(params)
         mode = "obs" if observed else "latent"
         old_fk = torch.empty((len(cm.layouts[cid].fk_vertices),),
                              dtype=torch.int64, device=cm.device) \
             if hops else None
-        slots = base + torch.arange(seg, device=cm.device)
-        for off in range(seg):
-            slot = base + off
-            if slot >= cap:
-                break
-            st = slots[off:off + 1]
+        pool_i = [0]
+
+        def step(st):
             if not leaf:   # the row excluded from the carried state
                 ops.row_delta(car, st, -1, mode, save_fk=old_fk)
             if pg_P:
                 pg_rejuv_step(self, car, rel, params, st, gen, pg_P,
                               ext_hists=hists, ref_comp=comp)
             else:
-                env_p, births_p, w_p = self._propose(
-                    cid, arenas, rel, params, st, gen, False,
-                    ext_hists=hists, ref_comp=comp,
-                    pools=None if pools is None else pools[off])
-                alive = take(arenas[cid]["alive"] if observed
-                             else rel[cid]["alive"], st)
-                if self.exact_accept:
-                    accept = alive
-                else:
-                    _e, _b, w_r = self._propose(cid, arenas, rel, params, st,
-                                                gen, True, ext_hists=hists,
-                                                ref_comp=comp)
-                    u = torch.rand((1,), generator=gen, device=cm.device)
-                    accept = (torch.log(u) < (w_p - w_r)) & alive
-                ops.row_write(car, st, env_p, births_p, accept)
+                self._mh_row(car, rel, params, st, gen,
+                             take(arenas[cid]["alive"] if observed
+                                  else rel[cid]["alive"], st),
+                             ext_hists=hists, ref_comp=comp,
+                             pools=None if pools is None
+                             else pools[pool_i[0]])
             if not leaf:
                 # re-add the row's (possibly rewritten) contributions; a
                 # latent row also moves its referrers' propagated
                 # observations from its old fk targets (hop_move)
                 ops.row_delta(car, st, +1, mode, old_fk=old_fk)
+
+        # injected uniform pools are a host input of each row: eager
+        rg = RowGraph(step, cm.device, self._loop_kind("sweep", cid, pg_P),
+                      base=base, gen=gen, graph=graph and pools is None)
+        for off in range(seg):
+            slot = base + off
+            if slot >= cap:
+                break
+            pool_i[0] = off
+            rg.row()
             if (slot + 1) % R == 0:
-                arenas, params = resample_all(cm, arenas, params, obs, gen,
-                                              rel=rel)
+                _a, new = resample_all(cm, arenas, params, obs, gen, rel=rel)
+                copy_params(params, new)
+        rg.close()
         return arenas, params
 
     def scan_sweep_class(self, cid: ClassID, pg_P: Optional[int] = None):
@@ -816,9 +904,9 @@ class Engine:
         seg = min(self._pg_seg(pg_P) if pg_P else self.config.scan_segment,
                   self.cm.layouts[cid].capacity)
 
-        def run(arenas, params, base, gen):
+        def run(arenas, params, base, gen, graph=True):
             return self._sweep_segment(cid, arenas, params, base, gen, seg,
-                                       pg_P=pg_P)
+                                       pg_P=pg_P, graph=graph)
 
         return run, seg
 

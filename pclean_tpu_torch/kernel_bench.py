@@ -72,7 +72,12 @@ census. K9 (the particle resampling) takes seeded weights at every shape
 of a path's launch census (`k9_census_inputs`, `k9_inputs`, half the rows
 spread so that they resample). K7's yardstick is one torch.bincount of the kept
 cells, which reads its input's maximum back to the host and so is timed by
-events only.
+events only. K12 and K13 (the one-row score glue) take seeded inputs at
+every shape of a path's census (`score_census`, `k12_inputs`,
+`k13_inputs`), checked by `check_score` and timed by `time_score` beside
+torch.logsumexp over the record. `graph_against_eager` runs rows of a
+one-row loop once eagerly and once as replays of its CUDA graph and
+compares every leaf bit for bit.
 """
 from __future__ import annotations
 
@@ -1796,6 +1801,191 @@ def time_k11(ops, eng, arenas, params, census: list, floor: float,
               f"{x['dep_bound_ms']:.4f} ms, floor {floor:.4f} ms",
               flush=True)
     return out
+
+
+def score_census(census: list, kernel: str) -> list:
+    """K12's or K13's census rows (kernel "fk_score" or "choice_score"),
+    each with its enumeration rows R (from the mode "class R")."""
+    return [dict(r, R=int(r["mode"].split(" ")[-1])) for r in census
+            if r["kernel"] == kernel]
+
+
+def k12_inputs(dev, R: int, K: int, seed: int = 0) -> dict:
+    """Seeded K12 inputs of R enumeration rows and K slots: refcounts 0-5
+    with a fifth of the slots dead, total and nrows int64 as refresh keeps
+    them, strength and discount device scalars, children [1, R, K] (a
+    tenth NEG_INF) and new_children [1, R] (R = 1: [1, K] and [1])."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    full = (1,) if R == 1 else (1, R)
+    refc = torch.randint(0, 6, (K,), generator=g, device=dev,
+                         dtype=torch.int32)
+    alive = torch.rand((K,), generator=g, device=dev) >= 0.2
+    ch = torch.randn(full + (K,), generator=g, device=dev) * 2.0
+    ch = torch.where(torch.rand(full + (K,), generator=g, device=dev) < 0.1,
+                     torch.full_like(ch, -1e30), ch)
+    nch = torch.randn(full, generator=g, device=dev)
+    return dict(args=(refc, alive, (refc * alive).sum(), alive.sum(),
+                      torch.full((), 1.5, device=dev),
+                      torch.full((), 0.25, device=dev), ch, nch, full),
+                R=R, K=K)
+
+
+# K13's further checks at a census shape, beside the default inputs: every
+# row observed (the delta branch alone) and a choice with no observation
+# (the static code 0)
+K13_CHECKS = (1, "static")
+
+
+def k13_inputs(dev, R: int, V: int, seed: int = 0, state="rows") -> dict:
+    """Seeded K13 inputs of R enumeration rows and V options: enum and
+    children [1, R, V], obs_ld [1, R] and the observed code on the batch
+    axis. `state`: "rows", an int8 flag per enumeration row, 0, 1, 2 in
+    turn (0 unobserved and 2 missing read the enum logits, 1 the delta;
+    one row: 0); an int, that flag on every row (on the batch axis);
+    "static", no observation and the static code 0."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    full = (1,) if R == 1 else (1, R)
+    en = torch.randn(full + (V,), generator=g, device=dev)
+    ch = torch.randn(full + (V,), generator=g, device=dev)
+    ld = torch.randn(full, generator=g, device=dev) - 2.0
+    lead = (1,) * len(full)
+    obs = torch.randint(0, V, lead, generator=g, device=dev,
+                        dtype=torch.int32)
+    if state == "static":
+        ld, obs, st = None, None, 0
+    elif state == "rows":
+        st = (torch.arange(R, device=dev) % 3).to(torch.int8).reshape(full)
+    else:
+        st = torch.full(lead, int(state), dtype=torch.int8, device=dev)
+    return dict(args=(en, ch, full, ld, obs, st), R=R, K=V)
+
+
+def k12_bytes(inp: dict) -> int:
+    """K12's bytes: refcount, alive, total, nrows, strength, discount, the
+    children and new children read once, the record [R, K + 1] and logZ
+    written once."""
+    refc, alive, tot, nr, s, d, ch, nch, _full = inp["args"]
+    R, K = inp["R"], inp["K"]
+    n = sum(t.numel() * t.element_size() for t in (refc, alive, tot, nr, s,
+                                                   d, ch, nch))
+    return n + 4 * R * (K + 1) + 4 * R
+
+
+def k13_bytes(inp: dict) -> int:
+    """K13's bytes on these inputs: the children and the state read once;
+    the enum logits only of the rows not in state 1 (k13_inputs gives them
+    one [V] row each), obs_ld of the rows in state 1 and the observed code
+    (one, on the batch axis) where any row is; the record [R, V] and logZ
+    written once."""
+    en, ch, full, ld, obs, st = inp["args"]
+    R, V = inp["R"], inp["K"]
+    if obs is None:
+        seen = 0
+    elif torch.is_tensor(st):
+        seen = int((st.expand(full) == 1).sum())
+    else:
+        seen = R if st == 1 else 0
+    n = ch.numel() * ch.element_size() + (R - seen) * V * en.element_size()
+    if torch.is_tensor(st):
+        n += st.numel() * st.element_size()
+    if seen:
+        n += seen * ld.element_size() + obs.numel() * obs.element_size()
+    return n + 4 * R * V + 4 * R
+
+
+def time_score(ops, kernel: str, inp: dict) -> dict:
+    """K12 or K13 on these inputs beside its plain version and the library
+    call of its logsumexp alone (torch.logsumexp over the record): ms
+    (cuda_ms) and device_ms (graph_ms) of each."""
+    fn, plain = (ops.fk_score, ops.fk_score_plain) if kernel == "fk_score" \
+        else (ops.choice_score, ops.choice_score_plain)
+    args = inp["args"]
+    rec, _z = plain(*args)
+    lib = lambda: torch.logsumexp(rec, dim=1)  # noqa: E731
+    call = lambda: fn(*args)  # noqa: E731
+    return dict(ms=cuda_ms(call), device_ms=graph_ms(call),
+                plain_ms=cuda_ms(lambda: plain(*args)),
+                library_ms=cuda_ms(lib), library_device_ms=graph_ms(lib))
+
+
+def check_score(ops, kernel: str, inp: dict) -> float:
+    """K12 or K13 against its plain version on the card: record bit-equal,
+    logZ within K1's rule (check_k1). Returns max |dlogZ|."""
+    fn, plain = (ops.fk_score, ops.fk_score_plain) if kernel == "fk_score" \
+        else (ops.choice_score, ops.choice_score_plain)
+    r0, z0 = plain(*inp["args"])
+    r1, z1 = fn(*inp["args"])
+    torch.cuda.synchronize()
+    require(torch.equal(r0, r1), f"{kernel} record differs from the plain "
+            f"version at R = {inp['R']}, K = {inp['K']}")
+    d = (z1 - z0).abs()
+    scale = torch.maximum(z0.abs(), r0.amax(-1).abs())
+    require(bool(((d <= 1e-6 * scale) | (z1 == z0)).all()),
+            f"{kernel} logZ err {float(d.max())}")
+    return float(d.max())
+
+
+LOOPS = ("ramp", "sweep", "replay")
+
+
+def graph_against_eager(eng, arenas, params, loop: str, cid, rows: int,
+                        pg_P=None, rejuv: bool = True, seed: int = 0) -> dict:
+    """`rows` rows of one one-row loop (`loop`: "ramp", scan_init's run
+    from row 0; "sweep", _sweep_segment from slot 0; "replay",
+    _replay_chunk of the first `rows` slots, `rejuv` or not) of class
+    cid, twice from the same state and generator state: once every row
+    eager with the kernels (graph=False), once as replays of the captured
+    row step. Every carry leaf, params leaf and output (the log-ML) and the
+    generator's final state must be bit-equal, and the launch counts of
+    the two runs equal (a row step that waited for the card could not be
+    captured: the capture raises). Returns dict(kind, rows, mismatches,
+    launches, stats: the graphed run's row_graph.STATS entry)."""
+    import copy
+
+    from . import ops
+    from .engine import row_graph
+
+    cm = eng.cm
+    out, counts, gens = [], [], []
+    g = torch.Generator(device=cm.device)
+    g.manual_seed(seed)
+    state = g.get_state()
+    stats = None
+    for graph in (False, True):
+        g.set_state(state)
+        row_graph.reset_stats()
+        before = ops.snapshot()
+        e = copy.copy(eng)
+        e.config = copy.copy(eng.config)
+        if loop == "ramp":
+            e.config.scan_segment = rows
+            run, _seg = e.scan_init(cid, rows, pg_P=pg_P)
+            res = run(arenas, params, 0, g, graph=graph)
+        elif loop == "sweep":
+            res = e._sweep_segment(cid, arenas, params, 0, g, rows,
+                                   pg_P=pg_P, graph=graph)
+        else:
+            res = e._replay_chunk(cid, arenas, params,
+                                  np.arange(rows, dtype=np.int64), g,
+                                  rejuv, pg_P, graph=graph)
+        if cm.device.type == "cuda":
+            torch.cuda.synchronize()
+        out.append(res)
+        counts.append(ops.counts_since(before)["launches"])
+        gens.append(g.get_state())
+        stats = dict(next(iter(row_graph.STATS.values()), {}),
+                     kind=next(iter(row_graph.STATS), None))
+    bad = [name for name, x, y in _leaves(out[0], out[1], "out")
+           if not torch.equal(x, y)]
+    if not torch.equal(gens[0], gens[1]):
+        bad.append("generator state")
+    if counts[0] != counts[1]:
+        bad.append(f"launch counts {counts[0]} != {counts[1]}")
+    return dict(kind=stats["kind"], loop=loop, cls=cid, rows=rows,
+                mismatches=bad, launches=sum(counts[1].values()),
+                stats=stats)
 
 
 def _load_tree_ops(tree: str, alias: str):

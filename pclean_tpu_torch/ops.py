@@ -1,8 +1,8 @@
 """The port's hand-written CUDA kernels: build, bind, plain versions, counts.
 
-Eleven kernels carry the block enumeration, the particle resampling and
-the one-row loops' relational delta and row write of the port's paths
-(sources
+Thirteen kernels carry the block enumeration, the particle resampling
+and the one-row loops' relational delta, row write and score glue of the
+port's paths (sources
 in pclean_tpu_torch/csrc/, each with a header note on the JAX computation it
 replaces, its bound on the H100 and its design):
 
@@ -42,7 +42,13 @@ replaces, its bound on the H100 and its design):
                        hop_move);
   K11 row_write      — one row's accepted values, alive bit and births
                        written into the arenas, in place (smc.py
-                       apply_row).
+                       apply_row);
+  K12 fk_score       — one row's foreign-key record [R, K+1] and logZ with
+                       its Pitman-Yor prior (propose.py score_fk with
+                       py_logprobs, B = 1);
+  K13 choice_score   — one row's enumerable-choice record [R, V] and logZ
+                       from its enum logits, observation and children
+                       (propose.py score_choice, B = 1).
 
 Each has a plain PyTorch version here. A wrapper takes the plain version
 only for tensors on the CPU; for CUDA tensors it launches its kernel or
@@ -53,8 +59,11 @@ K8's, where the plan splits a row's referrers (S > 1, as at one row),
 adds a second launch that merges the splits;
 `LAUNCHES_BY_SHAPE` splits the same launches into those over one row
 ("r1", the sequential loops) and over more ("rn", the batched phases);
-`LAUNCH_CENSUS` splits K1's, K2's, K3's, K5's, K6's, K7's, K8's and K9's
-further by mode and row length.
+`LAUNCH_CENSUS` splits K1's, K2's, K3's and K5-K13's further by mode and
+row length. Inside a captured CUDA graph (engine/row_graph.py) a wrapper
+runs once, at the capture; the graph then adds the captured step's counts
+once for each replay (`snapshot`, `add_counts`), so the counts are
+launches on the card either way.
 Each kernel takes a launch plan (path and geometry: threads, tiles,
 cluster, shared memory, grid) from a function of its shapes alone,
 `enum_logsumexp_plan`, `inv_cdf_plan`, `obs_gather_plan`,
@@ -86,8 +95,8 @@ import time
 
 import torch
 
-from .utils import (chase, effective_sample_size, log_normalize, logsumexp,
-                    take)
+from .utils import (NEG_INF, chase, effective_sample_size, log_normalize,
+                    logsumexp, take)
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_HERE, "_build")
@@ -103,6 +112,8 @@ _SOURCES = {
     "pg_resample": "pg_resample.cu",
     "row_delta": "row_delta.cu",
     "row_write": "row_write.cu",
+    "fk_score": "fk_score.cu",
+    "choice_score": "choice_score.cu",
 }
 LAUNCHES = {name: 0 for name in _SOURCES}
 LAUNCHES_BY_SHAPE = {name: {"r1": 0, "rn": 0} for name in _SOURCES}
@@ -115,12 +126,14 @@ LAUNCHES_BY_SHAPE = {name: {"r1": 0, "rn": 0} for name in _SOURCES}
 # "latent hop"), K11's class; K is the row length the kernel was given
 # (K5: the groups C; K6: the options V; K7: the histogram's V; K8: the
 # referrer axis R; K9: the particles P; K10: the plan's fk nodes; K11: the
-# row's births)
+# row's births; K12: the slots; K13: the options), and K12's and K13's mode
+# is "class R" (K12 the target class, K13 the proposing one; R the
+# enumeration rows of the record)
 LAUNCH_CENSUS = {"enum_logsumexp": {}, "inv_cdf_sample": {},
                  "obs_gather_sum": {}, "gauss_ext_term": {},
                  "maybe_swap_ext": {}, "referrer_hist": {},
                  "sa_ext_term": {}, "pg_resample": {}, "row_delta": {},
-                 "row_write": {}}
+                 "row_write": {}, "fk_score": {}, "choice_score": {}}
 SMEM_MAX = 232448  # shared memory one block may use on an H100 (227 KB)
 N_SMS = 132        # streaming multiprocessors of an H100 SXM
 _GRID_Y_MAX = 65535
@@ -144,6 +157,45 @@ def _count(name: str, rows: int, K=None, mode=None) -> None:
     if name in LAUNCH_CENSUS:
         key = (mode, shape, K)
         LAUNCH_CENSUS[name][key] = LAUNCH_CENSUS[name].get(key, 0) + 1
+
+
+def snapshot() -> dict:
+    """A copy of every launch count (LAUNCHES, LAUNCHES_BY_SHAPE,
+    LAUNCH_CENSUS)."""
+    return dict(launches=dict(LAUNCHES),
+                by_shape={k: dict(v) for k, v in LAUNCHES_BY_SHAPE.items()},
+                census={k: dict(v) for k, v in LAUNCH_CENSUS.items()})
+
+
+def counts_since(before: dict) -> dict:
+    """The launch counts added since `before` (a snapshot), as a snapshot
+    of differences."""
+    now = snapshot()
+    return dict(
+        launches={k: v - before["launches"][k]
+                  for k, v in now["launches"].items()},
+        by_shape={k: {s: n - before["by_shape"][k][s] for s, n in v.items()}
+                  for k, v in now["by_shape"].items()},
+        census={k: {key: n - before["census"][k].get(key, 0)
+                    for key, n in v.items()}
+                for k, v in now["census"].items()})
+
+
+def add_counts(delta: dict, times: int = 1) -> None:
+    """Add `times` copies of the counts `delta` (counts_since) to every
+    launch count: a captured CUDA graph's step, once for each replay (or
+    -1 to take back what its capture counted)."""
+    for k, n in delta["launches"].items():
+        LAUNCHES[k] += times * n
+    for k, v in delta["by_shape"].items():
+        for s, n in v.items():
+            LAUNCHES_BY_SHAPE[k][s] += times * n
+    for k, v in delta["census"].items():
+        c = LAUNCH_CENSUS[k]
+        for key, n in v.items():
+            c[key] = c.get(key, 0) + times * n
+            if c[key] == 0:
+                del c[key]
 
 
 def census() -> list:
@@ -240,6 +292,10 @@ def build_kernels(force: bool = False) -> float:
             "pg_resample": [P, P, P, P, P, I64, I32, I32, I32, I32, I32, P],
             "row_delta": [P, I32, P, I32, P, P, P],
             "row_write": [P, I32, P],
+            "fk_score": [P, P, I32, P, I32, P, I32, P, P, F32, F32, P, P,
+                         I32, P, P, P, P, P, I64, I32, I32, I64, P],
+            "choice_score": [P, P, P, P, I32, P, I32, I32, I32, P, P, P, P,
+                             P, P, P, P, I64, I32, I32, I64, P],
         }
         for name in _SOURCES:
             lib = ctypes.CDLL(os.path.join(BUILD_DIR, f"lib{name}.so"))
@@ -1663,3 +1719,200 @@ def row_write(car: RowCarry, slot, env2: dict, births, accept=None,
     rc = _fn("row_write")(arr, len(arr), _stream(slot))
     _check(rc, "row_write")
     _count("row_write", 1, len(births), car.cid)
+
+
+# ---------------------------------------------------------------- K12, K13
+
+_K12_MAX_DIMS = 8   # enumeration axes of a record (csrc/score_rows.cuh)
+NINF = float(NEG_INF)
+_INDEX_DT = (torch.int8, torch.int16, torch.int32, torch.int64)
+
+
+def _score_plan(R: int, K: int, mode: str) -> dict:
+    p = enum_logsumexp_plan(R, K, mode)
+    if p["path"] == "split":
+        p = enum_logsumexp_plan(R, K, mode, path="block")
+    return p
+
+
+def fk_score_plan(R: int, K: int) -> dict:
+    """K12's launch for R rows of K slots: K1's plan at (R, K) in fk mode
+    (a warp a row up to 512 slots, else a block a row of up to 16 warps),
+    where K1 splits a row over a cluster its block path. dict(path,
+    threads, rows, cluster, grid)."""
+    return _score_plan(R, K, "fk")
+
+
+def choice_score_plan(R: int, V: int) -> dict:
+    """K13's launch for R rows of V options: K1's plan at (R, V) in choice
+    mode, as fk_score_plan."""
+    return _score_plan(R, V, "choice")
+
+
+def _strided(t: torch.Tensor, shape: tuple, name: str, dtypes):
+    """The strides of t broadcast to `shape` (no copy), as a ctypes int64
+    array: 0 on an axis it broadcasts over."""
+    if t.dtype not in dtypes or not t.is_cuda:
+        raise ValueError(f"{name}: {t.dtype} on {t.device} (expected "
+                         f"{dtypes} on the card)")
+    st = t.expand(shape).stride()
+    return (ctypes.c_int64 * max(1, len(st)))(*st)
+
+
+def _score_rows(full) -> tuple:
+    full = tuple(int(n) for n in full)
+    if not 1 <= len(full) <= _K12_MAX_DIMS:
+        raise ValueError(f"score kernels: {len(full)} row axes (1 to "
+                         f"{_K12_MAX_DIMS})")
+    return full, math.prod(full)
+
+
+def fk_score_plain(refcount, alive, total, nrows, strength, discount,
+                   children, new_children, full):
+    """K12's plain version, the tracer's own arithmetic for one row
+    (BlockTracer.py_logprobs, score_fk's adds and enum_logsumexp_plain):
+    existing = log(max(refcount - d, 1e-30)) - log(total + s) where the
+    slot is alive and referenced, else NEG_INF; new = log(d nrows + s) -
+    log(total + s); children [.., K] and new_children [..] broadcast to
+    `full` (the enumeration rows, batch axis first) added. s and d:
+    device scalars or the class's constants. Returns (record [R, K + 1],
+    logZ [R])."""
+    dev = children.device
+    s = strength if torch.is_tensor(strength) else \
+        torch.full((), float(strength), device=dev)
+    d = discount if torch.is_tensor(discount) else \
+        torch.full((), float(discount), device=dev)
+    full = tuple(full)
+    K = int(refcount.shape[-1])
+    logden = torch.log(total.to(torch.float32) + s)
+    cnt = refcount.to(torch.float32)
+    live = alive & (refcount > 0)
+    ld = logden[..., None] if logden.dim() else logden
+    existing = torch.where(live, torch.log(torch.clamp(cnt - d, min=1e-30))
+                           - ld, torch.full_like(cnt, NINF))
+    new = torch.log(d * nrows.to(torch.float32) + s) - logden
+    depth = len(full) - 1
+    exist = existing.reshape((-1,) + (1,) * depth + (K,)) + children
+    new = new.reshape(-1)
+    new = new.reshape((new.shape[0],) + (1,) * depth) + new_children
+    return enum_logsumexp_plain(
+        exist.expand(full + (K,)).reshape(-1, K).contiguous(),
+        new.expand(full).reshape(-1).contiguous())
+
+
+def fk_score(refcount, alive, total, nrows, strength, discount, children,
+             new_children, full, cls=None):
+    """K12: fk_score_plain in one launch for one row: refcount [K] int32
+    and alive [K] bool (or [1, K]), total and nrows one element (int32,
+    int64 or float32), strength and discount device float32 scalars or
+    Python numbers (kernel arguments), children [.., K] and new_children
+    [..] float32 read in place with their broadcast strides over `full`.
+    Returns (record [R, K + 1], logZ [R]). On CPU tensors the plain
+    version; on CUDA ones the kernel or an error. Counted in
+    LAUNCH_CENSUS by ("cls R", r1, K), `cls` the target class."""
+    if not _route(children, "fk_score"):
+        return fk_score_plain(refcount, alive, total, nrows, strength,
+                              discount, children, new_children, full)
+    full, R = _score_rows(full)
+    K = int(refcount.shape[-1])
+    refcount, alive = refcount.reshape(-1), alive.reshape(-1)
+    _need(refcount, torch.int32, "fk_score refcount", 1)
+    _need(alive, torch.bool, "fk_score alive", 1)
+    if alive.numel() != K or K < 1:
+        raise ValueError(f"fk_score: alive {alive.numel()} != refcount {K}")
+    cnts = []
+    for name, t in (("total", total), ("nrows", nrows)):
+        if t.numel() != 1 or t.dtype not in (torch.int32, torch.int64,
+                                             torch.float32) or not t.is_cuda:
+            raise ValueError(f"fk_score: {name} must be one int or float "
+                             f"element on the card")
+        cnts += [_ptr(t), _DT[t.dtype]]
+    sd = []
+    for name, v in (("strength", strength), ("discount", discount)):
+        if torch.is_tensor(v):
+            if v.numel() != 1 or v.dtype != torch.float32 or not v.is_cuda:
+                raise ValueError(f"fk_score: {name} must be one float32 "
+                                 f"element on the card")
+            sd.append((_ptr(v), 0.0))
+        else:
+            sd.append((None, float(v)))
+    chs = _strided(children, full + (K,), "fk_score children",
+                   (torch.float32,))
+    ncs = _strided(new_children, full, "fk_score new_children",
+                   (torch.float32,))
+    plan = fk_score_plan(R, K)
+    rec = torch.empty((R, K + 1), dtype=torch.float32, device=children.device)
+    logz = torch.empty((R,), dtype=torch.float32, device=children.device)
+    rc = _fn("fk_score")(
+        _ptr(refcount), _ptr(alive), K, *cnts, sd[0][0], sd[1][0], sd[0][1],
+        sd[1][1], _ptr(children), _ptr(new_children), len(full),
+        (ctypes.c_int64 * len(full))(*full), chs, ncs, _ptr(rec), _ptr(logz),
+        R, plan["threads"], plan["rows"], plan["grid"][0],
+        _stream(children))
+    _check(rc, "fk_score")
+    _count("fk_score", 1, K, f"{cls} {R}")
+    return rec, logz
+
+
+def choice_score_plain(enum, children, full, obs_ld=None, obs=None,
+                       state=0):
+    """K13's plain version, score_choice's own arithmetic for one row:
+    where the state is 1 the logits are the observation's delta (obs_ld at
+    the option `obs`, NEG_INF elsewhere), otherwise enum [.., V]; the
+    children [.., V] added; the record [R, V] and logZ [R] over the
+    enumeration rows `full` (enum_logsumexp_plain in choice mode). `state`
+    a static code or a per-row tensor aligned like obs; obs None: no
+    observation."""
+    V = int(enum.shape[-1])
+    dev = enum.device
+    full = tuple(full)
+    if obs is not None:
+        ar = torch.arange(V, device=dev)
+        delta = torch.where(ar == obs[..., None], obs_ld[..., None],
+                            torch.full((), NINF, device=dev))
+        st1 = state == 1 if torch.is_tensor(state) else torch.full(
+            (1,) * len(full), state == 1, dtype=torch.bool, device=dev)
+        logits = torch.where(st1[..., None], delta, enum)
+    else:
+        logits = enum
+    total = (logits + children).expand(full + (V,))
+    return enum_logsumexp_plain(total.reshape(-1, V).contiguous())
+
+
+def choice_score(enum, children, full, obs_ld=None, obs=None, state=0,
+                 cls=None):
+    """K13: choice_score_plain in one launch for one row: enum and
+    children [.., V] float32, obs_ld float32 and obs (int8-int64) over the
+    rows, state a static code or an int8 tensor over the rows, each read in
+    place with its broadcast strides over `full`. Returns (record [R, V],
+    logZ [R]). On CPU tensors the plain version; on CUDA ones the kernel
+    or an error. Counted in LAUNCH_CENSUS by ("cls R", r1, V)."""
+    if not _route(enum, "choice_score"):
+        return choice_score_plain(enum, children, full, obs_ld, obs, state)
+    full, R = _score_rows(full)
+    V = int(enum.shape[-1])
+    ens = _strided(enum, full + (V,), "choice_score enum", (torch.float32,))
+    chs = _strided(children, full + (V,), "choice_score children",
+                   (torch.float32,))
+    lds = obss = None
+    if obs is not None:
+        lds = _strided(obs_ld, full, "choice_score obs_ld", (torch.float32,))
+        obss = _strided(obs, full, "choice_score obs", _INDEX_DT)
+    code, sts = 0, None
+    if torch.is_tensor(state):
+        sts = _strided(state, full, "choice_score state", (torch.int8,))
+    else:
+        code = int(state)
+    plan = choice_score_plan(R, V)
+    rec = torch.empty((R, V), dtype=torch.float32, device=enum.device)
+    logz = torch.empty((R,), dtype=torch.float32, device=enum.device)
+    rc = _fn("choice_score")(
+        _ptr(enum), _ptr(children), _ptr(obs_ld if obs is not None else None),
+        _ptr(obs), _DT[obs.dtype] if obs is not None else 0,
+        _ptr(state if sts is not None else None), code, V, len(full),
+        (ctypes.c_int64 * len(full))(*full), ens, chs, lds, obss, sts,
+        _ptr(rec), _ptr(logz), R, plan["threads"], plan["rows"],
+        plan["grid"][0], _stream(enum))
+    _check(rc, "choice_score")
+    _count("choice_score", 1, V, f"{cls} {R}")
+    return rec, logz
