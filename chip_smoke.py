@@ -7,7 +7,7 @@
 
 It drives the port only (never jax, never pclean_tpu), in order:
   1. prints the card's name and power limit (nvidia-smi);
-  2. builds the thirteen CUDA kernels from pclean_tpu_torch/csrc/ (one nvcc
+  2. builds the fifteen CUDA kernels from pclean_tpu_torch/csrc/ (one nvcc
      per source, in parallel) and prints the build time and ptxas's
      registers, shared memory, stack frame and spills for each compiled
      function; measures the launch floor and one dependent L2 load (K10's
@@ -28,8 +28,8 @@ It drives the port only (never jax, never pclean_tpu), in order:
      sweep with resample_all), evaluate_accuracy_device — at the entity
      counts of experiments/scaled.py (8,000 hospitals, 1,000 counties,
      2,000 names, 500 zips, typo 0.05, capacities Hospital 11,264 and
-     County 1,472, batch_rows 4096, 1 sweep) with the rows cut from the
-     source's 1,000,000 to 100,000 so the run fits its time limit; prints
+     County 1,472, batch_rows 4096, 1 sweep) at the source's 1,000,000
+     rows (bench.py:265-266); prints
      init s, sweep s, rows-cleaned/s, F1, precision, recall, arena
      occupancy, peak device memory (and what was allocated before the
      path) and each kernel's launches on that run, split into one-row
@@ -101,13 +101,21 @@ It drives the port only (never jax, never pclean_tpu), in order:
      carry under torch.cuda.set_sync_debug_mode("error"), the plain
      versions on a CPU copy, every leaf bit-equal), then each timed at
      every shape of the census beside its bytes bound and its
-     dependent-load bound (kernel_bench.time_k10, time_k11); and the trace
-     phase (trace_sections, at most about 20 s in all): torch.profiler
+     dependent-load bound (kernel_bench.time_k10, time_k11); K14
+     rel_scatter and K15 batch_write (the relational scatters and the
+     batched row write): refresh and every latent class's hop histograms
+     on the path's state on the card against their plain versions on a
+     CPU copy, under the sync debug mode's "error"
+     (kernel_bench.check_rel_state), then each at every shape of the
+     path's census on seeded inputs of that shape (kernel_bench.
+     k14_inputs, k15_inputs), bit-equal (rel_checks); and the trace
+     phase (trace_sections, at most about 30 s in all): torch.profiler
      over one hospital ramp row, one hospital batched init segment and
      one rents Obs batch from fresh states of those paths' models, where
-     their inits start, and one flights Obs sweep row on the flights
-     path's final state (the one-row sections: one replay of the row
-     step's CUDA graph), printing each one's kernel launches, device ops
+     their inits start, one flights Obs sweep row on the flights path's
+     final state and one scaled latent replay row on the scaled path's
+     (the one-row sections: one replay of the row step's CUDA graph),
+     printing each one's kernel launches, device ops
      (a replay's graph nodes), host syncs (the runtime's synchronize
      calls, and those PyTorch's sync debug mode flags), device-to-host
      copies, wall ms with and without the profiler, device busy ms, the
@@ -117,7 +125,8 @@ It drives the port only (never jax, never pclean_tpu), in order:
      graph-against-eager phase (graph_checks): GRAPH_ROWS rows of each
      one-row loop kind the path runs (the MH and collapsed PG ramps from
      a fresh state, observed, latent-with-hops and leaf sweeps, replay
-     chunks, the written-out PG replay and sweep), once eager with the
+     chunks of the observed and of a latent class, the written-out PG
+     replay and sweep), once eager with the
      kernels and once as replays of the captured row step from the same
      state and generator state: every carry and params leaf, the log-ML,
      the generator state and the launch counts bit-equal. Every path also
@@ -129,10 +138,14 @@ It drives the port only (never jax, never pclean_tpu), in order:
      options; seeded inputs of that shape, K13's rows in states 0, 1 and
      2 in turn, and again with every row observed and with a static code)
      against their plain versions, timed beside them, torch.logsumexp
-     over the record and the bytes bound (bench_score_shapes); then
-     prints, for each kernel, how many
+     over the record and the bytes bound (bench_score_shapes); K14 and
+     K15 timed at every census shape holding >= SHAPE_SHARE of a path's
+     launches, beside their plain versions, the library call of the
+     count alone (index_add_; K15: index_copy_ of one column) and the
+     bytes bound (bench_rel_shapes); then prints, for each kernel, how
+     many
      shapes were checked and the worst error, the run's seconds, then the
-     `kernels` JSON line (K1-K13; `launches` summed over
+     `kernels` JSON line (K1-K15; `launches` summed over
      the six paths, with each path's own beside it; `max_abs_err` the
      worst over every shape checked; the times those of the shape named in
      `shape`; every shape's numbers in chip_smoke.json under --out), then
@@ -160,17 +173,18 @@ each within 1e-4 of the total from a CDF boundary (exact fixed-point
 prefix sums against torch.cumsum's f32 ones, K2's rule); K10 and K11
 bit-equal (integer state and copied values); K12 and K13 record
 bit-equal (the same float operations, one rounding each) and logZ within
-K1's rule. It fails
+K1's rule; K14 and K15 bit-equal (integer atomics, copied values). It
+fails
 (non-zero exit, no result line) if there is no card, a kernel does not
 build, launch or agree, K1-K3 were not launched on the scaled path, K4 and
 K5 not on the rents path, K2 and K6 not on the flights path, K1-K3, K7
 and K8 not on the hospital or the hospital_pg1024 path, K1-K3 and K9 in
 both its modes not on the hospital_pg16_vmapped path, K10 or K11 not on
-any path, K12 or K13 not on any path but hospital_pg16_vmapped, a shadow
-run differs or waits for the card, a graph replay differs from the eager
-row or a graphed loop kind ran a row after its first eagerly, a PG
-path's log-ML
-is not finite, a path's F1 is below its floor (F1_FLOORS: scaled, rents,
+any path, K12 or K13 not on any path but hospital_pg16_vmapped, K14 not
+on any path or K15 not on a batched one, a shadow run or the state check
+of K14 differs or waits for the card, a graph replay differs from the
+eager row or a graphed loop kind ran a row after its first eagerly, a PG
+path's log-ML is not finite, a path's F1 is below its floor (F1_FLOORS: scaled, rents,
 flights, hospital, and the two PG paths'), or any phase raises.
 """
 import math
@@ -186,7 +200,7 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
-ROWS = 100_000
+ROWS = 1_000_000
 BATCH = 4096
 SCALED = dict(counties=1000, hospitals=8000, names=2000, zips=500,
               typo=0.05)
@@ -194,7 +208,8 @@ SCALED = dict(counties=1000, hospitals=8000, names=2000, zips=500,
 # entity counts scaled alike, B = 256, seeds 0-2: 100,000 rows at B = 4096
 # do not fit a CPU host) reached F1 0.8463, 0.8443 and 0.8451
 # (scripts/scaled_jax_floor.py); the floor is the lowest less 0.03. F1 rises
-# with the rows (0.75-0.76 at 8,000), so the 100,000-row path clears it
+# with the rows (0.75-0.76 at 8,000), so the 1,000,000-row path clears it;
+# pclean_tpu cannot run 1,000,000 rows on a CPU host
 SCALED_F1_FLOOR = 0.8443223443223444 - 0.03
 RENTS = dict(rows=50_000, states=51, counties=1500, batch=256)
 # pclean_tpu on the CPU on the same rents tables (B = 256, seeds 0-2) reached
@@ -272,6 +287,10 @@ SOURCES = {
                  "pclean_tpu/engine/propose.py:521"),
     "choice_score": ("pclean_tpu_torch/csrc/choice_score.cu",
                      "pclean_tpu/engine/propose.py:454"),
+    "rel_scatter": ("pclean_tpu_torch/csrc/rel_scatter.cu",
+                    "pclean_tpu/engine/refresh.py:418"),
+    "batch_write": ("pclean_tpu_torch/csrc/batch_write.cu",
+                    "pclean_tpu/engine/smc.py:210"),
 }
 SCALED_KERNELS = ("enum_logsumexp", "inv_cdf_sample", "obs_gather_sum")
 RENTS_KERNELS = ("gauss_suffstats", "gauss_ext_term")
@@ -285,14 +304,21 @@ HOSPITAL_KERNELS = ("enum_logsumexp", "inv_cdf_sample", "obs_gather_sum",
 # K10 and K11: every path runs one-row loops (a ramp, replays or B = 1
 # sweeps)
 ROW_KERNELS = ("row_delta", "row_write")
-NEED = {"scaled": SCALED_KERNELS + ROW_KERNELS + SCORE_KERNELS,
-        "rents": RENTS_KERNELS + ROW_KERNELS + SCORE_KERNELS,
+# K14 and K15: every refresh and batched delta, every batched row write
+# (the flights path has no batched step: its refreshes alone)
+REL_KERNELS = ("rel_scatter", "batch_write")
+NEED = {"scaled": SCALED_KERNELS + ROW_KERNELS + SCORE_KERNELS
+        + REL_KERNELS,
+        "rents": RENTS_KERNELS + ROW_KERNELS + SCORE_KERNELS + REL_KERNELS,
         # every flights row is a one-row step: K12/K13 in place of K1
-        "flights": FLIGHTS_KERNELS[1:] + ROW_KERNELS + SCORE_KERNELS,
-        "hospital": HOSPITAL_KERNELS + ROW_KERNELS + SCORE_KERNELS,
-        "hospital_pg1024": HOSPITAL_KERNELS + ROW_KERNELS + SCORE_KERNELS,
+        "flights": FLIGHTS_KERNELS[1:] + ROW_KERNELS + SCORE_KERNELS
+        + REL_KERNELS[:1],
+        "hospital": HOSPITAL_KERNELS + ROW_KERNELS + SCORE_KERNELS
+        + REL_KERNELS,
+        "hospital_pg1024": HOSPITAL_KERNELS + ROW_KERNELS + SCORE_KERNELS
+        + REL_KERNELS,
         "hospital_pg16_vmapped": SCALED_KERNELS + ("pg_resample",)
-        + ROW_KERNELS}
+        + ROW_KERNELS + REL_KERNELS}
 PATHS = tuple(NEED)
 
 
@@ -791,6 +817,104 @@ def score_entry(name: str, shapes: list) -> dict:
         replaces=SOURCES[name][1], bound_by="bytes")
 
 
+def rel_checks(ops, eng, arenas, census, path: str) -> tuple:
+    """K14 and K15 after a path, on its state: refresh and every latent
+    class's hop histograms on the card against the plain versions on a CPU
+    copy (kernel_bench.check_rel_state, under the sync debug mode's
+    "error"), then each kernel at every shape of the path's launch census
+    on seeded inputs of that shape (kernel_bench.k14_inputs, k15_inputs),
+    against its plain version: every output bit-equal (integer atomics and
+    copied values). Returns ({kernel: [one dict per shape]}, the state
+    check)."""
+    from pclean_tpu_torch import kernel_bench as kb
+    from pclean_tpu_torch.kernel_bench import require
+
+    dev = eng.cm.device
+    st = kb.check_rel_state(ops, eng, arenas)
+    print(f"{path} K14 on its state (refresh and hop histograms): "
+          f"{st['launches']} launches, mismatching leaves "
+          f"{st['mismatches']}", flush=True)
+    require(not st["mismatches"], f"{path}: K14 differs from its plain "
+            f"version on the path's state: {st['mismatches']}")
+    out = {"rel_scatter": [], "batch_write": []}
+    for c in census:
+        if c["kernel"] not in out:
+            continue
+        if c["kernel"] == "rel_scatter":
+            kb.check_k14(ops, kb.k14_inputs(dev, c["mode"], c["K"]))
+        else:
+            kb.check_k15(ops, kb.k15_inputs(dev, c["mode"], c["K"]))
+        out[c["kernel"]].append(dict(shape=c["mode"], K=c["K"],
+                                     rows=c["rows"], launches=c["launches"],
+                                     max_abs_err=0.0, path=path))
+    print(f"{path} K14/K15 census shapes checked bit-equal: "
+          f"{ {k: len(v) for k, v in out.items()} }", flush=True)
+    torch.cuda.empty_cache()
+    return out, st
+
+
+def bench_rel_shapes(ops, dev, checked: dict, floor) -> dict:
+    """K14 and K15 timed at every census shape that holds >= SHAPE_SHARE of
+    a path's launches of the kernel (each distinct shape once, with its
+    launches on every path; every shape was checked after its path), on
+    seeded inputs: kernel ms and device ms, the plain version, the library
+    call of the count alone (K14: index_add_; K15: index_copy_ of one
+    column), the bytes bound (kernel_bench.k14_bytes, k15_bytes) and the
+    launch floor. Returns {kernel: [one dict per shape]}."""
+    from pclean_tpu_torch import kernel_bench as kb
+
+    out = {}
+    for name in REL_KERNELS:
+        shapes: dict = {}
+        by_path: dict = {}
+        for r in checked[name]:
+            by_path.setdefault(r["path"], []).append(r)
+        for path, rows in by_path.items():
+            total = sum(r["launches"] for r in rows)
+            for r in rows:
+                sh = shapes.setdefault((r["shape"], r["K"]), dict(
+                    launches_by_path={}, timed=False))
+                sh["launches_by_path"][path] = r["launches"]
+                sh["timed"] |= r["launches"] >= SHAPE_SHARE * total
+        out[name] = []
+        for (mode, K), sh in sorted(shapes.items()):
+            if not sh["timed"]:
+                continue
+            if name == "rel_scatter":
+                inp = kb.k14_inputs(dev, mode, K)
+                b, t = kb.k14_bytes(inp), kb.time_k14(ops, inp)
+            else:
+                inp = kb.k15_inputs(dev, mode, K)
+                b, t = kb.k15_bytes(inp), kb.time_k15(ops, inp)
+            x = dict(shape=f"{mode} K={K}", K=K, max_abs_err=0.0,
+                     launches=sum(sh["launches_by_path"].values()),
+                     launches_by_path=sh["launches_by_path"], bytes=b,
+                     bound_ms=b / kb.HBM_BYTES_PER_S * 1e3, floor_ms=floor,
+                     **t)
+            out[name].append(x)
+            print(f"{name} {x['shape']} ({x['launches']} launches "
+                  f"{x['launches_by_path']}): kernel {x['ms']:.4f} ms "
+                  f"(device {x['device_ms']:.4f} ms) plain "
+                  f"{x['plain_ms']:.4f} ms library {x['library_ms']:.4f} ms "
+                  f"(device {x['library_device_ms']:.4f} ms) bound "
+                  f"{x['bound_ms']:.6f} ms floor {floor:.4f} ms",
+                  flush=True)
+            del inp
+        torch.cuda.empty_cache()
+    return out
+
+
+def rel_entry(name: str, shapes: list) -> dict:
+    """K14's or K15's kernels-line entry: the numbers of the timed shape
+    launched most over the six paths."""
+    top = max(shapes, key=lambda r: r["launches"])
+    return dict({key: top[key] for key in (
+        "max_abs_err", "ms", "device_ms", "plain_ms", "library_ms",
+        "library_device_ms", "bytes", "bound_ms", "floor_ms", "shape")},
+        name=name, route="cuda", source=SOURCES[name][0],
+        replaces=SOURCES[name][1], bound_by="bytes")
+
+
 GRAPH_ROWS = 64   # rows of each loop kind the graph-against-eager phase runs
 
 
@@ -804,8 +928,10 @@ def graph_checks(path, eng, cm, state) -> list:
     latent-with-hops and leaf sweeps, and replay chunks (init and
     rejuvenation); hospital_pg1024: the collapsed PG ramp, sweep and
     replay; hospital_pg16_vmapped: the written-out PG replay chunk and
-    sweep; flights: its Obs sweep and a leaf sweep. Fails unless every
-    leaf, the log-ML, the generator state and the launch counts are
+    sweep; flights: its Obs sweep and a leaf sweep; and on every path a
+    latent class's replay chunks (rejuvenation and init: MH, the explicit
+    MH comparison on flights, collapsed or written-out PG). Fails unless
+    every leaf, the log-ML, the generator state and the launch counts are
     bit-equal and every row after the first was a replay."""
     from pclean_tpu_torch import kernel_bench as kb
     from pclean_tpu_torch.engine.compile import init_state
@@ -825,15 +951,20 @@ def graph_checks(path, eng, cm, state) -> list:
     if path in ("hospital", "hospital_pg1024", "hospital_pg16_vmapped"):
         todo.append(("replay", obs, True, "state"))
         todo.append(("replay", obs, False, "state"))
+    latents = [c for c in cm.model.class_order
+               if not cm.layouts[c].observed]
+    withfk = [c for c in latents if cm.layouts[c].fk_vertices]
     if path in ("hospital", "flights"):
-        latents = [c for c in cm.model.class_order
-                   if not cm.layouts[c].observed]
-        withfk = [c for c in latents if cm.layouts[c].fk_vertices]
         hops = [c for c in withfk
                 if hop_histograms(cm, c, arenas, eng.obs_dev)]
         leaf = [c for c in latents if not cm.layouts[c].fk_vertices]
         for c in (hops or withfk)[:1] + leaf[:1]:
             todo.append(("sweep", c, True, "state"))
+    # a latent class's replay rows: each refreshes the carry (K14), its row
+    # excluded by the slot buffer where it rejuvenates
+    for c in (withfk or latents)[:1]:
+        todo.append(("replay", c, True, "state"))
+        todo.append(("replay", c, False, "state"))
     out = []
     for loop, cid, rejuv, where in todo:
         if where == "fresh":
@@ -1105,7 +1236,12 @@ def trace_sections(path, cm, config, state=None) -> dict:
         path's state `state` (arenas, params) after its sweeps, or, where
         none is given, after an Engine.initialize of the path's rows;
       rents: one Obs init batch at its B (scan_init_batched, 3 batches less
-        1, over 2), from init_state.
+        1, over 2), from init_state;
+      scaled: one latent replay row (_replay_chunk of the first latent
+        class with fks, rejuvenating, as the ramp row: one replay of the
+        captured row step, which refreshes the carry with its row
+        excluded) on the path's state `state`, or, where none is given,
+        after an Engine.initialize of the path's rows.
     Returns {section: counts and times, with the idle share}."""
     import dataclasses
     from pclean_tpu_torch.engine.compile import init_state
@@ -1120,7 +1256,7 @@ def trace_sections(path, cm, config, state=None) -> dict:
         arenas, params = state
     else:
         arenas, params = init_state(cm, 0, device=cm.device)
-        if path == "flights":
+        if path in ("flights", "scaled"):
             arenas, params, _g = eng.initialize(1, arenas, params)
     cid = cm.obs_specs[0].class_id
     n_rows = cm.obs_specs[0].num_rows
@@ -1134,6 +1270,12 @@ def trace_sections(path, cm, config, state=None) -> dict:
     def rows(k):
         if path == "flights":
             return lambda: eng1._sweep_segment(cid, arenas, params, 0, gen, k)
+        if path == "scaled":
+            lat = [c for c in cm.model.class_order
+                   if not cm.layouts[c].observed and cm.layouts[c].fk_vertices]
+            return lambda: eng1._replay_chunk(
+                lat[0], arenas, params, np.arange(k, dtype=np.int64), gen,
+                True)
         eng1.config.scan_segment = k
         run, _seg = eng1.scan_init(cid, n_rows)
         return lambda: run(arenas, params, 0, gen)
@@ -1169,8 +1311,9 @@ def trace_sections(path, cm, config, state=None) -> dict:
         return out
 
     out = {}
-    if path in ("hospital", "flights"):
-        label = "ramp row" if path == "hospital" else "Obs sweep row"
+    if path in ("hospital", "flights", "scaled"):
+        label = {"hospital": "ramp row", "flights": "Obs sweep row",
+                 "scaled": "latent replay row"}[path]
         small = measured(rows(2))
         big = measured(rows(2 + TRACE_GRAPH_N))
         out[f"{path} {label}"] = _trace_per(big, small, TRACE_GRAPH_N)
@@ -1201,19 +1344,21 @@ def trace_sections(path, cm, config, state=None) -> dict:
 
 
 def trace_only() -> int:
-    """`--trace`: the trace phase alone, on the MH hospital, flights and
-    rents paths' models (compiled here; the only inference is the flights
-    init its sweep row starts from); prints each section and, last, the
-    trace as one JSON object."""
+    """`--trace`: the trace phase alone, on the scaled, MH hospital,
+    flights and rents paths' models (compiled here; the only inference is
+    the scaled and flights inits their rows start from); prints each
+    section and, last, the trace as one JSON object."""
     from pclean_tpu_torch import ops
-    from pclean_tpu_torch.workloads import flights, hospital, rents
+    from pclean_tpu_torch.workloads import flights, hospital, rents, scaled
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     print(f"card: {card_line()}", flush=True)
     ops.build_kernels()
-    setups = {"hospital": lambda: hospital.setup(
+    setups = {"scaled": lambda: scaled.setup(
+                  rows=ROWS, batch=BATCH, device="cuda", **SCALED),
+              "hospital": lambda: hospital.setup(
                   **HOSPITAL_PATHS["hospital"], device="cuda"),
               "flights": lambda: flights.setup(**FLIGHTS, device="cuda"),
               "rents": lambda: rents.setup(
@@ -1382,10 +1527,14 @@ def main() -> int:
     report["trace"] = {}
     report["shadow"] = {}
     report["graph_checks"] = {}
+    report["rel_state"] = {}
 
     def row_checks(path, eng, arenas, params, census):
         res, report["shadow"][path] = bench_rows(ops, eng, arenas, params,
                                                  census, path, floor, lat)
+        add(path, res)
+        res, report["rel_state"][path] = rel_checks(ops, eng, arenas, census,
+                                                    path)
         add(path, res)
     # the scaled path, K7 and K8 at its census shapes while its state
     # lives, then K1-K3 on the model's own matrices
@@ -1406,6 +1555,9 @@ def main() -> int:
     add("scaled", bench_k7_k8_census(ops, eng, arenas, params, sc["census"],
                                      BATCH, "scaled", floor))
     row_checks("scaled", eng, arenas, params, sc["census"])
+    phase("scaled trace")
+    report["trace"].update(trace_sections("scaled", cm, config,
+                                          (arenas, params)))
     del arenas, params, eng
     torch.cuda.empty_cache()
     kernels = bench_kernels(ops, cm, dev)
@@ -1530,11 +1682,14 @@ def main() -> int:
     score = bench_score_shapes(ops, dev, runs, floor)
     for name, rows in score.items():
         checked[name] += [dict(r, path="all") for r in rows]
+    phase("K14 and K15 census shapes")
+    rel = bench_rel_shapes(ops, dev, checked, floor)
     kernels += [k7_k8_entry(name, checked[name])
                 for name in ("referrer_hist", "sa_ext_term")]
     kernels.append(k9_entry(checked["pg_resample"]))
     kernels += [row_entry(name, checked[name]) for name in ROW_KERNELS]
     kernels += [score_entry(name, score[name]) for name in SCORE_KERNELS]
+    kernels += [rel_entry(name, rel[name]) for name in REL_KERNELS]
     phase("done")
 
     for k in kernels:

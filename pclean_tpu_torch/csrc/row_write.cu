@@ -7,10 +7,10 @@
 // row where `accept`, its alive bit where the loop marks it, and each
 // birth's values at the birth's slot where accept & is_new, in list order.
 // Each write is dst[slot] = src converted to dst's dtype (torch's .to), or
-// True for the alive bit, and is dropped where slot lies outside [0, len)
-// (the port's index_set_drop drops negative slots too; JAX's .at[].set
-// drops out-of-range ones and writes cur[slot] back where the mask is
-// false, the same arena).
+// True for the alive bit, with JAX's mode="drop" rule: a slot in
+// [-len, -1] wraps to slot + len, the rest outside [0, len) drop (JAX's
+// .at[].set writes cur[slot] back where the mask is false, the same
+// arena).
 //
 // Bound on the H100: neither bytes (tens) nor operations; the chain of
 // dependent loads of one write: the slot and the masks, then the value,
@@ -49,12 +49,13 @@ __global__ void row_write_kernel(const __grid_constant__ K11Plan plan) {
     const int64_t* wr = plan.w + K11_HEAD + K11_WRITE * j;
     // the slot, the masks and the value are loaded together, one round
     // trip, before anything depends on them
-    const int64_t s = pclean_ld_i(wr[6], wr[7], 0);
+    const int64_t s0 = pclean_ld_i(wr[6], wr[7], 0);
     const bool ma = mask_ok(wr[8], wr[9]), mb = mask_ok(wr[10], wr[11]);
     const bool fsrc = pclean_dt_float(wr[5]);
     const double vf = wr[4] != 0 && fsrc ? pclean_ld_f(wr[4], wr[5], 0) : 0.0;
     const int64_t vi = wr[4] == 0 ? 1
                        : (fsrc ? 0 : pclean_ld_i(wr[4], wr[5], 0));
+    const int64_t s = s0 < 0 ? s0 + wr[3] : s0;
     if (s < 0 || s >= wr[3] || !ma || !mb) continue;
     const int64_t dst = wr[1], ddt = wr[2];
     if (!fsrc || wr[4] == 0)

@@ -26,7 +26,8 @@ def mean_suffstats(cm: CompiledModel, cid: ClassID, vid: VertexID,
     """{"counts" int32, "sums" f32} [I, S] of a Mean parameter: for each
     site s (an AddNoise/TransformedGaussian node whose mean is the parameter
     or a lookup of it) and each live row, one count and backward(value) at
-    the row's index (gibbs_params.py:123-146; out-of-range keys drop)."""
+    the row's index (gibbs_params.py:123-146; keys follow mode="drop":
+    [-I, -1] wraps, the rest out of [0, I) drops)."""
     meta = cm.param_meta[(cid, vid)]
     c = cm.cls(cid)
     cap = cm.layouts[cid].capacity
@@ -46,7 +47,9 @@ def mean_suffstats(cm: CompiledModel, cid: ClassID, vid: VertexID,
             pl = c.nodes[mv]
             assert isinstance(pl, ParamLookupNode) and pl.param_id == vid
             keyv = row_value(cm, arenas, params, cid, pl.key_id, slots).long()
-        # keys out of [0, I) drop, as the JAX scatter's mode="drop" does
+        # JAX's counts.at[keyv, si] with mode="drop": keys in [-I, -1]
+        # wrap to keyv + I, the rest out of [0, I) drop
+        keyv = torch.where(keyv < 0, keyv + I, keyv)
         cell = torch.where((keyv >= 0) & (keyv < I), keyv * S + si,
                            torch.full_like(keyv, I * S))
         counts = scatter_add_drop(counts, cell, alive.to(torch.int32))
@@ -61,8 +64,8 @@ def prob_suffstats(cm: CompiledModel, cid: ClassID, vid: VertexID,
     sites (gibbs_params.py:79-121): a live row whose observation is present
     counts a head where it differs from val (a swap) and a tail where it
     equals it, at the row's index; missing observations and rows whose
-    lookup gate is true (the parameter is bypassed) count nothing; keys out
-    of [0, I) drop."""
+    lookup gate is true (the parameter is bypassed) count nothing; keys
+    follow mode="drop" (utils.drop_index)."""
     c = cm.cls(cid)
     cap = cm.layouts[cid].capacity
     I = cm.param_meta[(cid, vid)]["num_indices"]

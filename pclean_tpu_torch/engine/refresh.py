@@ -23,6 +23,14 @@ leaves carry the batch axis first: [B, cap] and [B].
 
 `obs_arrays` maps observed class -> {vid: (codes [N], state [N])} device
 tensors (Engine.obs_dev).
+
+`refresh`, `hop_histograms`, the batched deltas and `_cascade` scatter
+through K14 (ops.rel_scatter, ops.rel_cascade) into buffers each call
+owns (fresh zeros, or a copy of the leaf it updates), with JAX's
+mode="drop" rule inside the kernel, so none of them waits for the card;
+their plain versions run on the CPU. The one-row deltas (`_fk_delta`
+with dense=False, `row_delta`, `latent_row_delta`, `hop_move`) are K10's
+plain versions and keep utils' drop helpers.
 """
 from __future__ import annotations
 
@@ -30,7 +38,9 @@ from typing import Optional
 
 import torch
 
+from .. import ops
 from ..model.ir import ClassID, ForeignKeyNode, SubmodelNode, VertexID
+from ..ops import scatter_side
 from ..utils import scatter_add_drop, scatter_max_drop, take
 from .compile import CompiledModel
 
@@ -171,16 +181,12 @@ def hop_histograms(cm: CompiledModel, cid: ClassID, arenas: dict,
             if hop_cid != cid:
                 continue
             codes, state = obs_arrays[src][ov]
-            mask = arenas[src]["alive"] & (state == 1)
-            t = torch.arange(cm.layouts[src].capacity, device=cm.device)
-            for (hc, fv) in chain[:k]:
-                t = take(arenas[hc]["values"][fv], t)
-            gcnt = scatter_add_drop(
-                torch.zeros((cap,), dtype=torch.int32, device=cm.device), t,
-                mask.to(torch.int32))
-            gcode = scatter_max_drop(
-                torch.zeros((cap,), dtype=codes.dtype, device=cm.device), t,
-                torch.where(mask, codes, torch.zeros_like(codes)))
+            gcnt = torch.zeros((cap,), dtype=torch.int32, device=cm.device)
+            gcode = torch.zeros((cap,), dtype=codes.dtype, device=cm.device)
+            ops.rel_scatter("prop", gcnt, gcode, [scatter_side(
+                [arenas[hc]["values"][fv] for (hc, fv) in chain[:k]],
+                alive=arenas[src]["alive"], state=state, code=codes)],
+                cm.layouts[src].capacity)
             out.append(((fkv, chain[k + 1:], (tc, tv)), (gcnt, gcode)))
     return out
 
@@ -290,30 +296,53 @@ def _cascade(cm: CompiledModel, rel: dict, arenas: dict, pend: dict) -> None:
     """Apply pending refcount deltas per latent class and cascade the
     aliveness flips down the fk graph (in place on the copied rel).
 
-    `pend` maps latent class -> [cap] int32 refcount delta. Classes are
-    processed in reverse declaration order: a class's fk targets are always
-    earlier-declared, so every delta a class receives is accumulated before
-    that class is visited — the batched twin of _fk_delta's recursion."""
+    `pend` maps latent class -> [cap] int32 refcount delta, a buffer the
+    caller owns. Classes are processed in reverse declaration order: a
+    class's fk targets are always earlier-declared, so every delta a class
+    receives is accumulated before that class is visited — the batched
+    twin of _fk_delta's recursion. One K14 cascade launch a class
+    (ops.rel_cascade), in that order: its flips land in place in the
+    pending deltas of its fk targets, which later launches read."""
     for tc in reversed(cm.model.class_order):
         d = pend.get(tc)
         if d is None or cm.layouts[tc].observed:
             continue  # refresh keeps observed-class refcounts at zero
         r = rel[tc]
-        rc = r["refcount"] + d
-        alive = rc > 0
-        flip = alive.to(torch.int32) - r["alive"].to(torch.int32)
+        fks = [(arenas[tc]["values"][fkv2],
+                _pend(cm, pend, cm.node(tc, fkv2).target_class))
+               for fkv2 in cm.layouts[tc].fk_vertices]
+        rc, alive, acc = ops.rel_cascade(d, r["refcount"], r["alive"], fks,
+                                         cls=tc)
         rel[tc] = {**r,
                    "refcount": rc,
                    "alive": alive,
-                   "total": r["total"] + torch.sum(d),
-                   "nrows": r["nrows"] + torch.sum(flip)}
-        for fkv2 in cm.layouts[tc].fk_vertices:
-            tc2 = cm.node(tc, fkv2).target_class
-            t2 = arenas[tc]["values"][fkv2]
-            zero = torch.zeros((cm.layouts[tc2].capacity,), dtype=torch.int32,
+                   "total": r["total"] + acc[0],
+                   "nrows": r["nrows"] + acc[1]}
+
+
+def _pend(cm: CompiledModel, pend: dict, tc: ClassID) -> torch.Tensor:
+    """tc's pending refcount delta, a zeroed buffer at first use."""
+    if tc not in pend:
+        pend[tc] = torch.zeros((cm.layouts[tc].capacity,), dtype=torch.int32,
                                device=cm.device)
-            d2 = scatter_add_drop(zero, t2, flip)
-            pend[tc2] = pend.get(tc2, zero) + d2
+    return pend[tc]
+
+
+def _move(cnt, code, old: dict, new: dict, n: int, slots, src_len: int):
+    """A propagated observation's batched move (JAX's cnt1 =
+    cnt.at[old].add(-w_old); code1 = where(cnt1 > 0, code, 0); cnt2 =
+    cnt1.at[new].add(w_new); code2 = code1.at[new].max(where(w_new > 0,
+    code, 0))): two K14 launches around the where, which must see every
+    subtract and precede every add. `old`, `new`: scatter_side keywords.
+    Returns (code2, cnt2), new tensors."""
+    cnt = cnt.clone()
+    ops.rel_scatter("delta", cnt, None, [scatter_side(**old, sign=-1)], n,
+                    slots, src_len=src_len)
+    code = torch.where(cnt > 0, code,
+                       torch.zeros((), dtype=code.dtype, device=code.device))
+    ops.rel_scatter("delta", cnt, code, [scatter_side(**new, sign=1)], n,
+                    slots, src_len=src_len)
+    return code, cnt
 
 
 def batch_obs_delta(cm: CompiledModel, rel: dict, old_arenas: dict,
@@ -325,47 +354,38 @@ def batch_obs_delta(cm: CompiledModel, rel: dict, old_arenas: dict,
     per step. Per-row weights are the old/new aliveness, so an unchanged row
     cancels exactly and a fresh row purely adds. Exact for refcounts,
     aliveness and counts; propagated codes rely on the observed-equality
-    agreement invariant (cnt == 0 <=> code == 0)."""
+    agreement invariant (cnt == 0 <=> code == 0). Each fk's old and new
+    sides are one K14 launch into the target's pending delta; each
+    propagated chain two (_move)."""
     assert cm.layouts[cid].observed
     rel = _copy_rel(rel)
     slots = _slot_tensor(cm, slots)
-    w_old = take(old_arenas[cid]["alive"], slots)
-    w_new = take(arenas[cid]["alive"], slots)
+    n, cap = int(slots.shape[0]), cm.layouts[cid].capacity
+    old_a, new_a = old_arenas[cid]["alive"], arenas[cid]["alive"]
     pend: dict = {}
     for fkv in cm.layouts[cid].fk_vertices:
         tc = cm.node(cid, fkv).target_class
-        cap_tc = cm.layouts[tc].capacity
-        t_old = take(old_arenas[cid]["values"][fkv], slots)
-        t_new = take(arenas[cid]["values"][fkv], slots)
-        zero = torch.zeros((cap_tc,), dtype=torch.int32, device=cm.device)
-        d = scatter_add_drop(zero, t_new, w_new.to(torch.int32))
-        d = scatter_add_drop(d, t_old, -w_old.to(torch.int32))
-        pend[tc] = pend.get(tc, zero) + d
+        ops.rel_scatter("delta", _pend(cm, pend, tc), None, [
+            scatter_side([arenas[cid]["values"][fkv]], alive=new_a),
+            scatter_side([old_arenas[cid]["values"][fkv]], alive=old_a,
+                         sign=-1)], n, slots, src_len=cap)
     _cascade(cm, rel, arenas, pend)
 
     for (src, ov, chain, (tc, tv)) in propagated_obs_specs(cm):
         if src != cid:
             continue
         codes, state = obs_arrays[cid][ov]
-        st = take(state, slots) == 1
-        sm_old = (w_old & st).to(torch.int32)
-        sm_new = (w_new & st).to(torch.int32)
-        t_old, t_new = slots, slots
-        for (hop_cid, fkv) in chain:
-            src_o = old_arenas if hop_cid == cid else arenas
-            t_old = take(src_o[hop_cid]["values"][fkv], t_old)
-            t_new = take(arenas[hop_cid]["values"][fkv], t_new)
-        code, cnt = rel[tc]["prop"][tv]
-        cval = take(codes, slots).to(code.dtype)
-        zero = torch.zeros((), dtype=code.dtype, device=code.device)
-        cnt1 = scatter_add_drop(cnt, t_old, -sm_old)
         # agreement invariant: cnt == 0 <=> code == 0, so the global reset
         # only touches targets this batch emptied
-        code1 = torch.where(cnt1 > 0, code, zero)
-        cnt2 = scatter_add_drop(cnt1, t_new, sm_new)
-        code2 = scatter_max_drop(code1, t_new,
-                                 torch.where(sm_new > 0, cval, zero))
-        rel[tc]["prop"][tv] = (code2, cnt2)
+        old_hops = [(old_arenas if hc == cid else arenas)[hc]["values"][fv]
+                    for (hc, fv) in chain]
+        new_hops = [arenas[hc]["values"][fv] for (hc, fv) in chain]
+        code, cnt = rel[tc]["prop"][tv]
+        rel[tc]["prop"][tv] = _move(
+            cnt, code,
+            dict(hops=old_hops, alive=old_a, state=state),
+            dict(hops=new_hops, alive=new_a, state=state, code=codes),
+            n, slots, cap)
     return rel
 
 
@@ -375,57 +395,51 @@ def batch_latent_delta(cm: CompiledModel, rel: dict, old_arenas: dict,
     whose fk columns were (possibly) rewritten: reference-count deltas with
     cascaded aliveness flips, plus the referrer groups' propagated
     observations moved from old to new chain targets via the per-segment
-    hop_histograms."""
+    hop_histograms, through K14 as batch_obs_delta."""
     assert not cm.layouts[cid].observed
     rel = _copy_rel(rel)
     slots = _slot_tensor(cm, slots)
+    n, cap = int(slots.shape[0]), cm.layouts[cid].capacity
     # a latent row's own rewrite never changes its own aliveness (driven by
     # referrers), so old/new weight are both its current liveness
-    w = take(rel[cid]["alive"], slots).to(torch.int32)
+    w = rel[cid]["alive"]
     pend: dict = {}
     for fkv in cm.layouts[cid].fk_vertices:
         tc = cm.node(cid, fkv).target_class
-        cap_tc = cm.layouts[tc].capacity
-        t_old = take(old_arenas[cid]["values"][fkv], slots)
-        t_new = take(arenas[cid]["values"][fkv], slots)
-        zero = torch.zeros((cap_tc,), dtype=torch.int32, device=cm.device)
-        d = scatter_add_drop(zero, t_new, w)
-        d = scatter_add_drop(d, t_old, -w)
-        pend[tc] = pend.get(tc, zero) + d
+        ops.rel_scatter("delta", _pend(cm, pend, tc), None, [
+            scatter_side([arenas[cid]["values"][fkv]], alive=w),
+            scatter_side([old_arenas[cid]["values"][fkv]], alive=w,
+                         sign=-1)], n, slots, src_len=cap)
     _cascade(cm, rel, arenas, pend)
 
     for (fkv, suffix, (tc, tv)), (gcnt, gcode) in hop_hists:
-        g = take(gcnt, slots)
-        gc = take(gcode, slots)
-        of = take(old_arenas[cid]["values"][fkv], slots)
-        nf = take(arenas[cid]["values"][fkv], slots)
-        for (hc, fv) in suffix:
-            of = take(arenas[hc]["values"][fv], of)
-            nf = take(arenas[hc]["values"][fv], nf)
+        tail = [arenas[hc]["values"][fv] for (hc, fv) in suffix]
         code, cnt = rel[tc]["prop"][tv]
-        zero = torch.zeros((), dtype=code.dtype, device=code.device)
-        cnt1 = scatter_add_drop(cnt, of, -g)
-        code1 = torch.where(cnt1 > 0, code, zero)
-        cnt2 = scatter_add_drop(cnt1, nf, g)
-        code2 = scatter_max_drop(code1, nf, torch.where(g > 0, gc, zero))
-        rel[tc]["prop"][tv] = (code2, cnt2)
+        rel[tc]["prop"][tv] = _move(
+            cnt, code,
+            dict(hops=[old_arenas[cid]["values"][fkv]] + tail, weight=gcnt),
+            dict(hops=[arenas[cid]["values"][fkv]] + tail, weight=gcnt,
+                 code=gcode),
+            n, slots, cap)
     return rel
 
 
 def refresh(cm: CompiledModel, arenas: dict, obs_arrays: dict,
             exclude_cid: Optional[ClassID] = None,
             exclude_slot=None) -> dict:
-    """Recompute relational state from the arenas (see module docstring)."""
+    """Recompute relational state from the arenas (see module docstring).
+    `exclude_slot` (with exclude_cid): an int, or an int64 [1] tensor on
+    the model's device, which K14 reads on the card (so a captured row
+    step can exclude its own row). Each direct reference's counts and each
+    propagated chain are one K14 launch into buffers of this call."""
     rel: dict = {}
     drefs = direct_references(cm)
     dev = cm.device
 
-    def live_mask(cid):
-        alive = rel[cid]["alive"] if cid in rel else arenas[cid]["alive"]
-        if exclude_cid == cid and exclude_slot is not None:
-            alive = alive & (torch.arange(alive.shape[0], device=dev)
-                             != exclude_slot)
-        return alive
+    def live(cid):
+        return rel[cid]["alive"] if cid in rel else arenas[cid]["alive"]
+
+    excl = exclude_slot if exclude_cid is not None else None
 
     for cid in reversed(cm.model.class_order):
         lay = cm.layouts[cid]
@@ -442,10 +456,10 @@ def refresh(cm: CompiledModel, arenas: dict, obs_arrays: dict,
             continue
         refcount = torch.zeros((C,), dtype=torch.int32, device=dev)
         for (src, fkv) in drefs[cid]:
-            src_alive = live_mask(src)
-            fk_col = arenas[src]["values"][fkv]
-            refcount = scatter_add_drop(refcount, fk_col,
-                                        src_alive.to(torch.int32))
+            ops.rel_scatter("refcount", refcount, None, [scatter_side(
+                [arenas[src]["values"][fkv]], alive=live(src),
+                exclude=src == exclude_cid)], cm.layouts[src].capacity,
+                exclude=excl)
         alive = refcount > 0
         rel[cid] = {"alive": alive,
                     "refcount": refcount,
@@ -453,24 +467,22 @@ def refresh(cm: CompiledModel, arenas: dict, obs_arrays: dict,
                     "nrows": torch.sum(alive.to(torch.int32)),
                     "prop": {}}
 
-    # Propagated observations (multi-hop gathers, scatter into target class).
+    # Propagated observations (multi-hop gathers, scatter into target
+    # class): a target vertex reached by several chains accumulates them
+    # all in its own buffers (the codes are >= 0, so the max over them is
+    # JAX's maximum of the per-chain maxima)
     for (src, ov, chain, (tc, tv)) in propagated_obs_specs(cm):
         codes, state = obs_arrays[src][ov]
-        mask = live_mask(src) & (state == 1)
-        target = torch.arange(cm.layouts[src].capacity, device=dev)
-        for (hop_cid, fkv) in chain:
-            target = take(arenas[hop_cid]["values"][fkv], target)
         cap_t = cm.layouts[tc].capacity
-        cnt = scatter_add_drop(torch.zeros((cap_t,), dtype=torch.int32,
-                                           device=dev),
-                               target, mask.to(torch.int32))
-        code = scatter_max_drop(torch.zeros((cap_t,), dtype=codes.dtype,
-                                            device=dev),
-                                target, torch.where(mask, codes,
-                                                    torch.zeros_like(codes)))
         prev = rel[tc]["prop"].get(tv)
-        if prev is not None:
-            code = torch.maximum(code, prev[0])
-            cnt = cnt + prev[1]
+        if prev is None:
+            prev = (torch.zeros((cap_t,), dtype=codes.dtype, device=dev),
+                    torch.zeros((cap_t,), dtype=torch.int32, device=dev))
+        code, cnt = prev
+        ops.rel_scatter("prop", cnt, code, [scatter_side(
+            [arenas[hc]["values"][fv] for (hc, fv) in chain],
+            alive=live(src), state=state, code=codes,
+            exclude=src == exclude_cid)], cm.layouts[src].capacity,
+            exclude=excl)
         rel[tc]["prop"][tv] = (code, cnt)
     return rel

@@ -55,14 +55,6 @@ def _stats(kind: str) -> dict:
                                        captures=0, capture_s=0.0))
 
 
-def note_eager(kind: str, rows: int) -> None:
-    """Count `rows` rows of a loop kind that runs eagerly by its own rule
-    (outside a RowGraph), as one segment."""
-    st = _stats(kind)
-    st["segments"] += 1
-    st["eager"] += rows
-
-
 def own_params(params: dict) -> dict:
     """A copy of every tensor leaf of params, taken once at a loop segment's
     entry: the segment writes resampled values into it in place

@@ -39,8 +39,12 @@ path and as those kernels' plain versions. On the card each segment's
 row step is one CUDA graph (row_graph.RowGraph): the first row eager, the
 rest replays, the slot a buffer on the card that the step advances, the
 parameters a copy owned by the segment (row_graph.own_params) into which
-resample_all's values are written. A latent class's replay chunk stays
-eager: each row refreshes with the row excluded by a host index.
+resample_all's values are written. A latent class's replay row
+refreshes the carry (K14), its own row excluded by the slot buffer on the
+card, as JAX's non-incremental replay body does. The batched steps write
+their rows through K15 (`_apply_batch`) and carry rel by K14's scatters
+(refresh.batch_obs_delta, batch_latent_delta), so neither compacts on the
+host.
 
 Particle Gibbs (use_mh_instead_of_pg=False, num_particles = P > 1) rides
 the same drivers with engine/particles.py's row bodies: `pg_row_step` in
@@ -68,13 +72,13 @@ import torch
 
 from .. import ops
 from ..model.ir import ClassID
-from ..utils import (index_set_drop, resolve_device, scatter_add_drop, take)
+from ..utils import (index_set_drop, index_set_where, resolve_device,
+                     scatter_add_drop, take)
 from .compile import CompiledModel
 from .gibbs_params import resample_all
 from .propose import BlockTracer, _rtake, build_cand, referrer_histograms
 from .refresh import (batch_latent_delta, batch_obs_delta, hop_histograms,
                       latent_row_delta, refresh, row_delta)
-from . import row_graph
 from .row_graph import RowGraph, copy_params, own_params
 
 
@@ -126,8 +130,8 @@ def _slots(cm, s) -> torch.Tensor:
 def apply_row(cm: CompiledModel, cid: ClassID, arenas: dict, slot, env2: dict,
               births, accept, mark_alive: bool) -> dict:
     """Write one accepted proposal (values [1]) into the arenas (masked
-    scatters; row_inference.jl:169-185). Births of deeper classes are
-    applied in list order, as sampled."""
+    scatters with mode="drop"; row_inference.jl:169-185). Births of deeper
+    classes are applied in list order, as sampled."""
     slot = _slots(cm, slot)
     accept = torch.as_tensor(accept, device=slot.device).reshape(-1)
     lay = cm.layouts[cid]
@@ -136,9 +140,9 @@ def apply_row(cm: CompiledModel, cid: ClassID, arenas: dict, slot, env2: dict,
         if vid not in env2:
             continue
         cur = vals[vid]
-        new = env2[vid].reshape(-1).to(cur.dtype)
-        vals[vid] = index_set_drop(cur, slot,
-                                   torch.where(accept, new, take(cur, slot)))
+        vals[vid] = index_set_where(cur, slot,
+                                    env2[vid].reshape(-1).to(cur.dtype),
+                                    accept)
     alive = arenas[cid]["alive"]
     if mark_alive:
         alive = index_set_drop(alive, slot, True)
@@ -152,9 +156,8 @@ def apply_row(cm: CompiledModel, cid: ClassID, arenas: dict, slot, env2: dict,
             if tv not in bvals:
                 continue
             cur = bvals[tv]
-            nv = val.reshape(-1).to(cur.dtype)
-            bvals[tv] = index_set_drop(cur, bslot,
-                                       torch.where(ok, nv, take(cur, bslot)))
+            bvals[tv] = index_set_where(cur, bslot,
+                                        val.reshape(-1).to(cur.dtype), ok)
         out[b.target_class] = {"values": bvals,
                                "alive": out[b.target_class]["alive"]}
     return out
@@ -195,20 +198,21 @@ def own_carry(cm: CompiledModel, cid: ClassID, arenas: dict, rel=None):
 def _apply_batch(cm: CompiledModel, cid: ClassID, arenas: dict, slots,
                  env2: dict, ok, mark_alive: bool) -> dict:
     """Scatter a batch of accepted row proposals (env2 values [B]); `ok`
-    masks rows deferred to replay. Out-of-range slots drop."""
+    masks rows deferred to replay. Slots follow mode="drop". Out of place,
+    as in JAX: the columns it writes are copied, then written by K15
+    (ops.batch_write) in one launch; the caller's arenas stay as they
+    were (the batched deltas read them as the old state)."""
     slots = _slots(cm, slots)
     lay = cm.layouts[cid]
     vals = dict(arenas[cid]["values"])
-    for vid in lay.store:
-        if vid not in env2:
-            continue
-        cur = vals[vid]
-        new = env2[vid].to(cur.dtype)
-        vals[vid] = index_set_drop(cur, slots,
-                                   torch.where(ok, new, take(cur, slots)))
+    vids = [vid for vid in lay.store if vid in env2]
+    for vid in vids:
+        vals[vid] = vals[vid].clone()
     alive = arenas[cid]["alive"]
     if mark_alive:
-        alive = index_set_drop(alive, slots, ok | take(alive, slots))
+        alive = alive.clone()
+    ops.batch_write([vals[v] for v in vids], [env2[v] for v in vids], slots,
+                    ok, alive if mark_alive else None, cls=cid)
     out = dict(arenas)
     out[cid] = {"values": vals, "alive": alive}
     return out
@@ -579,11 +583,12 @@ class Engine:
             w = w + logZ + res.weight
         return env2, births, w
 
-    def _init_row(self, car, rel, params, st, gen) -> None:
+    def _init_row(self, car, rel, params, st, gen, pools=None) -> None:
         """One fresh row of the carry's class proposed against `rel` and
-        written into the carry, marked alive (K11)."""
+        written into the carry, marked alive (K11). `pools`: a test's
+        injected uniform pools."""
         env2, births, _w = self._propose(car.cid, car.arenas, rel, params, st,
-                                         gen, False)
+                                         gen, False, pools=pools)
         ops.row_write(car, st, env2, births, mark_alive=True)
 
     def _mh_row(self, car, rel, params, st, gen, alive, **kw) -> None:
@@ -609,85 +614,69 @@ class Engine:
 
     def _replay_chunk(self, cid: ClassID, arenas, params, idx, gen,
                       rejuv: bool, pg_P: Optional[int] = None,
-                      graph: bool = True):
+                      graph: bool = True, pools=None):
         """Incorporate the rows `idx` one at a time (smc.py:817-917): each
         row proposes against the relational state carried by exact point
-        deltas (observed classes) or a fresh exclude-refresh (latent
-        classes). pg_P replays each row as a P-particle SMC (pg_init_step,
-        pg_rejuv_step). An observed class's rows run as replays of one
-        captured row step on the card (row_graph.RowGraph; graph=False:
-        eagerly); a latent class's stay eager, since each refreshes with
-        its row excluded by a host index. Returns (arenas, the init rows'
-        summed log-ML)."""
+        deltas (observed classes) or, as JAX's non-incremental body, a
+        refresh of the carry (latent classes; with the row excluded where
+        it rejuvenates, the slot read on the card). pg_P replays each row
+        as a P-particle SMC (pg_init_step, pg_rejuv_step). The rows run as
+        replays of one captured row step on the card (row_graph.RowGraph;
+        graph=False: eagerly). `pools`: per-row lists of per-block
+        injected uniform pools [1, n] of the MH proposal (tests; the rows
+        then run eagerly). Returns (arenas, the init rows' summed
+        log-ML)."""
         from .particles import pg_init_step, pg_rejuv_step
 
         cm = self.cm
         obs = self.obs_dev
-        if not cm.layouts[cid].observed:
-            return self._replay_latent(cid, arenas, params, idx, gen, rejuv,
-                                       pg_P)
-        # observed classes carry rel by exact point deltas
+        observed = cm.layouts[cid].observed
         lml = torch.zeros((), device=cm.device)
         arenas, _r = own_carry(cm, cid, arenas)
-        car = ops.RowCarry(cm, cid, arenas, refresh(cm, arenas, obs), obs)
-        rel = car.rel
+        # observed classes carry rel by exact point deltas; latent ones
+        # refresh from the carry each row
+        car = ops.RowCarry(cm, cid, arenas,
+                           refresh(cm, arenas, obs) if observed else None,
+                           obs)
+        pool_i = [0]
 
         def step(st):
+            if observed:
+                rel = car.rel
+                if rejuv:
+                    ops.row_delta(car, st, -1)
+            elif rejuv:
+                rel = refresh(cm, arenas, obs, exclude_cid=cid,
+                              exclude_slot=st)
+            else:
+                rel = refresh(cm, arenas, obs)
             if rejuv:
-                ops.row_delta(car, st, -1)
                 if pg_P:
                     pg_rejuv_step(self, car, rel, params, st, gen, pg_P)
                 else:
                     self._mh_row(car, rel, params, st, gen,
-                                 take(arenas[cid]["alive"], st))
+                                 take((arenas if observed else rel)[cid]
+                                      ["alive"], st),
+                                 pools=None if pools is None
+                                 else pools[pool_i[0]])
             elif pg_P:
                 lml.add_(pg_init_step(self, car, rel, params, st, gen,
                                       pg_P).sum())
             else:
-                self._init_row(car, rel, params, st, gen)
-            ops.row_delta(car, st, +1)
+                self._init_row(car, rel, params, st, gen,
+                               pools=None if pools is None
+                               else pools[pool_i[0]])
+            if observed:
+                ops.row_delta(car, st, +1)
 
+        # injected uniform pools are a host input of each row: eager
         rg = RowGraph(step, cm.device,
                       self._loop_kind("replay", cid, pg_P, rejuv),
-                      table=idx, gen=gen, graph=graph)
-        for _s in idx:
+                      table=idx, gen=gen, graph=graph and pools is None)
+        for i in range(len(idx)):
+            pool_i[0] = i
             rg.row()
         rg.close()
-        return arenas, lml
-
-    def _replay_latent(self, cid: ClassID, arenas, params, idx, gen,
-                       rejuv: bool, pg_P):
-        """_replay_chunk's rows of a latent class, eagerly: each proposes
-        against a fresh refresh (with the row excluded where it
-        rejuvenates), whose host index and compactions wait for the card.
-        Counted as eager rows in row_graph.STATS."""
-        from .particles import pg_init_step, pg_rejuv_step
-
-        cm = self.cm
-        obs = self.obs_dev
-        row_graph.note_eager(self._loop_kind("replay", cid, pg_P, rejuv),
-                             len(idx))
-        lml = torch.zeros((), device=cm.device)
-        arenas, _r = own_carry(cm, cid, arenas)
-        car = ops.RowCarry(cm, cid, arenas, None, obs)
-        slots = torch.as_tensor(np.asarray(idx, np.int64), device=cm.device)
-        for i, s in enumerate(idx):
-            st = slots[i:i + 1]
-            if rejuv:
-                relx = refresh(cm, arenas, obs, exclude_cid=cid,
-                               exclude_slot=int(s))
-                if pg_P:
-                    pg_rejuv_step(self, car, relx, params, st, gen, pg_P)
-                else:
-                    self._mh_row(car, relx, params, st, gen,
-                                 take(relx[cid]["alive"], st))
-            else:
-                relx = refresh(cm, arenas, obs)
-                if pg_P:
-                    lml = lml + pg_init_step(self, car, relx, params, st,
-                                             gen, pg_P).sum()
-                else:
-                    self._init_row(car, relx, params, st, gen)
         return arenas, lml
 
     def _loop_kind(self, loop: str, cid: ClassID, pg_P, rejuv=True) -> str:

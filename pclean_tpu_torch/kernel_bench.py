@@ -77,7 +77,14 @@ every shape of a path's census (`score_census`, `k12_inputs`,
 `k13_inputs`), checked by `check_score` and timed by `time_score` beside
 torch.logsumexp over the record. `graph_against_eager` runs rows of a
 one-row loop once eagerly and once as replays of its CUDA graph and
-compares every leaf bit for bit.
+compares every leaf bit for bit. K14 and K15 (the relational scatters and
+the batched row write) take seeded inputs of every shape of a path's
+census, rebuilt from its census mode (`k14_inputs`, `k15_inputs`),
+checked bit-equal against the plain versions on a CPU copy
+(`check_k14`, `check_k15`) and timed beside one `index_add_` (K14) or
+`index_copy_` of one column (K15) (`time_k14`, `time_k15`);
+`check_rel_state` holds refresh and the hop histograms on a path's state
+to their plain versions.
 """
 from __future__ import annotations
 
@@ -1925,6 +1932,319 @@ def check_score(ops, kernel: str, inp: dict) -> float:
     require(bool(((d <= 1e-6 * scale) | (z1 == z0)).all()),
             f"{kernel} logZ err {float(d.max())}")
     return float(d.max())
+
+
+# ---------------------------------------------------------------- K14, K15
+
+_TD = {"b": torch.bool, "i8": torch.int8, "u8": torch.uint8,
+       "i16": torch.int16, "i32": torch.int32, "i64": torch.int64,
+       "f32": torch.float32, "f64": torch.float64}
+
+
+def k14_parse(mode: str) -> dict:
+    """The spec a K14 census mode names (ops._k14_sig; cascade: "cascade
+    class fks=F")."""
+    parts = mode.split(" ")
+    if parts[0] == "cascade":
+        return dict(kind="cascade", fks=int(parts[-1].split("=")[1]))
+    sides = []
+    for sd in parts[3].split("/"):
+        head, hops = sd.split(":")
+        sides.append(dict(sign=int(head[:2]), f=head[2:], hops=[
+            (int(h.rstrip("q")), h.endswith("q")) for h in hops.split(",")
+            if h]))
+    return dict(kind=parts[0], n=int(parts[1][2:]), src=int(parts[2][4:]),
+                sides=sides, code=parts[4], slots="idx" in parts[5:])
+
+
+def k14_inputs(dev, mode: str, C: int, seed: int = 0) -> dict:
+    """Seeded inputs of the K14 spec `mode` into C targets (numpy, then
+    `dev`): fk columns uniform over the next class (the last over the
+    targets) with 5% out of range, alive bits 0.8, states 0-2, weights
+    0-3, codes 0-49, counts 0-5 (a delta updates a carried count) or 0,
+    distinct source slots with 1% out of range, the excluded slot a
+    tensor; cascade: deltas -2-2, refcounts 0-4, fk columns into a class
+    of max(64, C / 4) slots. dict(kind, mode, C, args: ops.rel_scatter's
+    or ops.rel_cascade's arguments)."""
+    rng = np.random.default_rng(seed)
+    sp = k14_parse(mode)
+
+    def t(x, dt):
+        return torch.as_tensor(x, device=dev).to(dt)
+
+    def col(n, hi, q=False):
+        v = rng.integers(0, hi, n)
+        v[rng.random(n) < 0.05] = hi
+        return t(v, torch.int64 if q else torch.int32)
+
+    if sp["kind"] == "cascade":
+        C2 = max(64, C // 4)
+        fks = [(col(C, C2), t(np.zeros(C2), torch.int32))
+               for _ in range(sp["fks"])]
+        rc = rng.integers(0, 5, C)
+        return dict(kind="cascade", mode=mode, C=C, args=(
+            t(rng.integers(-2, 3, C), torch.int32), t(rc, torch.int32),
+            t(rc > 0, torch.bool), fks))
+    n, src = sp["n"], sp["src"]
+    code = None if sp["code"] == "-" else \
+        t(rng.integers(0, 50, C), _TD[sp["code"]])
+    cnt = t(rng.integers(0, 6, C) if sp["kind"] == "delta"
+            else np.zeros(C), torch.int32)
+    slots = None
+    if sp["slots"]:
+        v = rng.permutation(max(src, n))[:n]
+        v[rng.random(n) < 0.01] = src + 3
+        slots = t(v, torch.int64)
+    exclude = None
+    sides = []
+    from . import ops
+    for sd in sp["sides"]:
+        f = sd["f"]
+        lens = [h[0] for h in sd["hops"]]
+        hops = [col(L, (lens[j + 1] if j + 1 < len(lens) else C), q)
+                for j, (L, q) in enumerate(sd["hops"])]
+        if "x" in f:
+            exclude = t([src // 2], torch.int64)
+        sides.append(ops.scatter_side(
+            hops,
+            alive=t(rng.random(src) < 0.8, torch.bool) if "a" in f else None,
+            state=t(rng.integers(0, 3, src), torch.int8) if "s" in f
+            else None,
+            weight=t(rng.integers(0, 4, src), torch.int32) if "w" in f
+            else None,
+            code=t(rng.integers(0, 50, src), code.dtype) if "c" in f
+            else None,
+            sign=sd["sign"], exclude="x" in f))
+    return dict(kind=sp["kind"], mode=mode, C=C, args=(
+        sp["kind"], cnt, code, sides, n, slots, exclude, src))
+
+
+def _k14_call(ops, inp: dict, plain: bool = False):
+    fn = (ops.rel_cascade_plain if plain else ops.rel_cascade) \
+        if inp["kind"] == "cascade" else \
+        (ops.rel_scatter_plain if plain else ops.rel_scatter)
+    return fn(*inp["args"])
+
+
+def _k14_outputs(inp: dict, res) -> list:
+    """The tensors one K14 call writes: cnt and code (scatter), or the new
+    refcount, alive, sums and every pending delta (cascade)."""
+    if inp["kind"] == "cascade":
+        return list(res) + [p for _c, p in inp["args"][3]]
+    return [x for x in inp["args"][1:3] if x is not None]
+
+
+def check_k14(ops, inp: dict) -> float:
+    """K14 on a copy of the inputs on the card against its plain version
+    on a CPU copy: every output bit-equal (integer atomics are exact in
+    any order). Returns 0.0 (or fails)."""
+    dev_in = _tree_map(inp, lambda x: x.clone())
+    cpu_in = _tree_map(inp, lambda x: x.cpu())
+    got = _k14_outputs(dev_in, _k14_call(ops, dev_in))
+    want = _k14_outputs(cpu_in, _k14_call(ops, cpu_in, plain=True))
+    torch.cuda.synchronize()
+    for i, (g, w) in enumerate(zip(got, want)):
+        require(torch.equal(g.cpu(), w), f"rel_scatter differs from its "
+                f"plain version at {inp['mode']}, C = {inp['C']} (output "
+                f"{i})")
+    return 0.0
+
+
+def k14_bytes(inp: dict) -> int:
+    """K14's bytes: each input element read once (the slots, each side's
+    per-source factors and hop columns at the sources they are read at,
+    the counts and codes it updates, a cascade's deltas, refcounts, alive
+    bits, fk columns and pending deltas) and each output element written
+    once."""
+    if inp["kind"] == "cascade":
+        d, rc, alive, fks = inp["args"]
+        C = d.shape[0]
+        n = C * (4 + 4 + 1) + C * (4 + 1) + 16
+        for c, p in fks:
+            n += C * c.element_size() + 2 * 4 * p.shape[0]
+        return n
+    _k, cnt, code, sides, n_src, slots, _x, _s = inp["args"]
+    C = cnt.shape[0]
+    n = 2 * C * (4 + (code.element_size() if code is not None else 0))
+    n += 8 * n_src if slots is not None else 0
+    for sd in sides:
+        for key in ("alive", "state", "weight", "code"):
+            if sd[key] is not None:
+                n += n_src * sd[key].element_size()
+        n += sum(n_src * h.element_size() for h in sd["hops"])
+    return n
+
+
+def time_k14(ops, inp: dict) -> dict:
+    """K14 on a copy of these inputs (in place, so the calls accumulate)
+    beside its plain version on the card and the library call of its
+    count alone: one index_add_ of the first side's weights at its
+    targets, precomputed (the sign and the drop rule applied), into a
+    buffer one longer: ms (cuda_ms) and device_ms (graph_ms) of each."""
+    from .utils import drop_index
+    x = _tree_map(inp, lambda t: t.clone())
+    call = lambda: _k14_call(ops, x)  # noqa: E731
+    y = _tree_map(inp, lambda t: t.clone())
+    if inp["kind"] == "cascade":
+        d, rc, alive, fks = inp["args"]
+        c, p = fks[0] if fks else (torch.arange(d.shape[0], device=d.device),
+                                   torch.zeros_like(d))
+        flip = (rc + d > 0).to(torch.int32) - alive.to(torch.int32)
+        idx, w, buf = drop_index(c, p.shape[0]), flip, \
+            torch.zeros(p.shape[0] + 1, dtype=torch.int32, device=d.device)
+    else:
+        _k, cnt, _c, sides, n, slots, exclude, src = inp["args"]
+        sd = sides[0]
+        s = torch.arange(n, device=cnt.device) if slots is None else \
+            slots.clamp(0, src - 1)
+        m = torch.ones((n,), dtype=torch.bool, device=cnt.device)
+        if sd["alive"] is not None:
+            m = m & sd["alive"][s]
+        if sd["state"] is not None:
+            m = m & (sd["state"][s] == 1)
+        w = m.to(torch.int32) * sd["sign"]
+        if sd["weight"] is not None:
+            w = w * sd["weight"][s]
+        t = s
+        for h in sd["hops"]:
+            t = take(h, t)
+        idx, buf = drop_index(t, cnt.shape[0]), \
+            torch.zeros(cnt.shape[0] + 1, dtype=torch.int32,
+                        device=cnt.device)
+    lib = lambda: buf.index_add_(0, idx, w)  # noqa: E731
+    return dict(ms=cuda_ms(call), device_ms=graph_ms(call),
+                plain_ms=cuda_ms(lambda: _k14_call(ops, y, plain=True)),
+                library_ms=cuda_ms(lib), library_device_ms=graph_ms(lib))
+
+
+def k15_parse(mode: str) -> dict:
+    """The columns a K15 census mode names ("class cap=C dst<src,...[,
+    alive]")."""
+    parts = mode.split(" ")
+    cols, alive = [], False
+    for c in parts[2].split(","):
+        if c == "alive":
+            alive = True
+        elif c:
+            d, s = c.split("<")
+            cols.append((_TD[d], _TD[s]))
+    return dict(cls=parts[0], cap=int(parts[1][4:]), cols=cols, alive=alive)
+
+
+def k15_inputs(dev, mode: str, B: int, seed: int = 0) -> dict:
+    """Seeded inputs of the K15 census mode `mode` at B rows: columns of
+    the census's capacity and dtypes (ints 0-99, floats in [0, 1)), values
+    [B] of their dtypes (ints 0-199, floats in [0, 4)), distinct slots
+    (those past the capacity drop, as in a class's last batch), the first
+    -1 where the last slot is free (it wraps), ok bits 0.8. dict(mode, B,
+    args: ops.batch_write's arguments)."""
+    rng = np.random.default_rng(seed)
+    sp = k15_parse(mode)
+    cap = sp["cap"]
+
+    def t(x, dt):
+        return torch.as_tensor(x, device=dev).to(dt)
+
+    def draw(n, dt, hi, fhi):
+        return t(rng.random(n) * fhi if dt.is_floating_point
+                 else rng.integers(0, hi, n), dt)
+
+    cols = [draw(cap, d, 100, 1.0) for d, _s in sp["cols"]]
+    vals = [draw(B, s, 200, 4.0) for _d, s in sp["cols"]]
+    v = rng.permutation(max(cap, B) + max(1, B // 64))[:B]
+    if cap - 1 not in v:
+        v[0] = -1
+    alive = t(rng.random(cap) < 0.5, torch.bool) if sp["alive"] else None
+    return dict(mode=mode, B=B, args=(
+        cols, vals, t(v, torch.int64), t(rng.random(B) < 0.8, torch.bool),
+        alive))
+
+
+def check_k15(ops, inp: dict) -> float:
+    """K15 on a copy of the inputs on the card against its plain version
+    on a CPU copy: every column and the alive bits bit-equal. Returns 0.0
+    (or fails)."""
+    dev_in = _tree_map(inp["args"], lambda x: x.clone())
+    cpu_in = _tree_map(inp["args"], lambda x: x.cpu())
+    ops.batch_write(*dev_in)
+    ops.batch_write_plain(*cpu_in)
+    torch.cuda.synchronize()
+    for i, (g, w) in enumerate(zip(
+            dev_in[0] + [dev_in[4]], cpu_in[0] + [cpu_in[4]])):
+        if g is not None:
+            require(torch.equal(g.cpu(), w), f"batch_write differs from "
+                    f"its plain version at {inp['mode']}, B = {inp['B']} "
+                    f"(column {i})")
+    return 0.0
+
+
+def k15_bytes(inp: dict) -> int:
+    """K15's bytes: the slots, the ok bits and every value read once, one
+    element of each column (and the alive bits) written a row the ok
+    bits keep and the drop rule leaves in range."""
+    cols, vals, slots, ok, alive = inp["args"]
+    B = slots.shape[0]
+    n = B * (8 + 1) + sum(B * v.element_size() for v in vals)
+    cap = cols[0].shape[0] if cols else alive.shape[0]
+    s = torch.where(slots < 0, slots + cap, slots)
+    kept = int((ok & (s >= 0) & (s < cap)).sum())
+    n += kept * (sum(c.element_size() for c in cols)
+                 + (1 if alive is not None else 0))
+    return n
+
+
+def time_k15(ops, inp: dict) -> dict:
+    """K15 on a copy of these inputs beside its plain version on the card
+    and the library call of one column's write: one index_copy_ of the
+    first column's kept values at their slots (precomputed): ms (cuda_ms)
+    and device_ms (graph_ms) of each."""
+    x = _tree_map(inp["args"], lambda t: t.clone())
+    y = _tree_map(inp["args"], lambda t: t.clone())
+    cols, vals, slots, ok, _alive = x
+    cap = cols[0].shape[0] if cols else 1
+    s = torch.where(slots < 0, slots + cap, slots)
+    keep = torch.nonzero(ok & (s >= 0) & (s < cap))[:, 0]
+    lib_col = cols[0].clone() if cols else torch.zeros(1)
+    li, lv = s[keep], (vals[0][keep].to(lib_col.dtype) if cols
+                       else torch.zeros(0))
+    lib = lambda: lib_col.index_copy_(0, li, lv)  # noqa: E731
+    call = lambda: ops.batch_write(*x)  # noqa: E731
+    return dict(ms=cuda_ms(call), device_ms=graph_ms(call),
+                plain_ms=cuda_ms(lambda: ops.batch_write_plain(*y)),
+                library_ms=cuda_ms(lib), library_device_ms=graph_ms(lib))
+
+
+def check_rel_state(ops, eng, arenas) -> dict:
+    """refresh (K14's refcount and prop specs) and each latent class's
+    hop_histograms on a path's state on the card, against the plain
+    versions on a CPU copy of the same state: every leaf bit-equal, under
+    torch.cuda.set_sync_debug_mode("error"), so no launch waits for the
+    card. Returns dict(launches, mismatches)."""
+    import copy
+
+    from .engine.refresh import hop_histograms, refresh
+
+    cm = eng.cm
+    cm_cpu = copy.copy(cm)   # the same model, its buffers made on the CPU
+    cm_cpu.device = torch.device("cpu")
+    cpu = lambda t: t.cpu()  # noqa: E731
+    a_cpu, obs_cpu = _tree_map(arenas, cpu), _tree_map(eng.obs_dev, cpu)
+    latents = [c for c in cm.model.class_order
+               if not cm.layouts[c].observed and cm.layouts[c].fk_vertices]
+    before = ops.LAUNCHES["rel_scatter"]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = [refresh(cm, arenas, eng.obs_dev)] + \
+            [hop_histograms(cm, c, arenas, eng.obs_dev) for c in latents]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    launches = ops.LAUNCHES["rel_scatter"] - before
+    want = [refresh(cm_cpu, a_cpu, obs_cpu)] + \
+        [hop_histograms(cm_cpu, c, a_cpu, obs_cpu) for c in latents]
+    bad = [name for name, x, y in _leaves(got, want, "rel")
+           if not torch.equal(x.cpu(), y)]
+    return dict(launches=launches, mismatches=bad)
 
 
 LOOPS = ("ramp", "sweep", "replay")

@@ -1,8 +1,8 @@
 """The port's hand-written CUDA kernels: build, bind, plain versions, counts.
 
-Thirteen kernels carry the block enumeration, the particle resampling
-and the one-row loops' relational delta, row write and score glue of the
-port's paths (sources
+Fifteen kernels carry the block enumeration, the particle resampling,
+the one-row loops' relational delta, row write and score glue, and the
+batched relational scatters and row writes of the port's paths (sources
 in pclean_tpu_torch/csrc/, each with a header note on the JAX computation it
 replaces, its bound on the H100 and its design):
 
@@ -48,7 +48,15 @@ replaces, its bound on the H100 and its design):
                        py_logprobs, B = 1);
   K13 choice_score   — one row's enumerable-choice record [R, V] and logZ
                        from its enum logits, observation and children
-                       (propose.py score_choice, B = 1).
+                       (propose.py score_choice, B = 1);
+  K14 rel_scatter    — one relational scatter with JAX's mode="drop" rule
+                       inside the kernel: reference counts and propagated
+                       observations along fk chains, the batched deltas'
+                       old and new sides, a class's cascade (refresh.py
+                       refresh, hop_histograms, batch_obs_delta,
+                       batch_latent_delta, _cascade);
+  K15 batch_write    — a batch of accepted rows written into a class's
+                       columns and alive bits (smc.py _apply_batch).
 
 Each has a plain PyTorch version here. A wrapper takes the plain version
 only for tensors on the CPU; for CUDA tensors it launches its kernel or
@@ -59,7 +67,7 @@ K8's, where the plan splits a row's referrers (S > 1, as at one row),
 adds a second launch that merges the splits;
 `LAUNCHES_BY_SHAPE` splits the same launches into those over one row
 ("r1", the sequential loops) and over more ("rn", the batched phases);
-`LAUNCH_CENSUS` splits K1's, K2's, K3's and K5-K13's further by mode and
+`LAUNCH_CENSUS` splits K1's, K2's, K3's and K5-K15's further by mode and
 row length. Inside a captured CUDA graph (engine/row_graph.py) a wrapper
 runs once, at the capture; the graph then adds the captured step's counts
 once for each replay (`snapshot`, `add_counts`), so the counts are
@@ -74,7 +82,9 @@ the plan they are given, so the plan the CPU tests check is the one
 launched. K10's and K11's plans (`row_delta_plan`, built once a class and
 cached on the model; K11's from a row's writes) travel by value as the
 kernel's argument, bound to the pointers of a loop segment's carry
-(`RowCarry`) once, so no table lives on the card.
+(`RowCarry`) once, so no table lives on the card. K14's and K15's words
+(pointers, dtypes, lengths; a thread a source or a (column, row) pair)
+are built at each call, also by value.
 
 Build: one `nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared` per
 source, all started together, into pclean_tpu_torch/_build/ (listed in
@@ -95,8 +105,9 @@ import time
 
 import torch
 
-from .utils import (NEG_INF, chase, effective_sample_size, log_normalize,
-                    logsumexp, take)
+from .utils import (NEG_INF, chase, effective_sample_size,
+                    index_set_where, log_normalize, logsumexp,
+                    scatter_add_drop, scatter_max_drop, take)
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_HERE, "_build")
@@ -114,6 +125,8 @@ _SOURCES = {
     "row_write": "row_write.cu",
     "fk_score": "fk_score.cu",
     "choice_score": "choice_score.cu",
+    "rel_scatter": "rel_scatter.cu",
+    "batch_write": "batch_write.cu",
 }
 LAUNCHES = {name: 0 for name in _SOURCES}
 LAUNCHES_BY_SHAPE = {name: {"r1": 0, "rn": 0} for name in _SOURCES}
@@ -128,12 +141,15 @@ LAUNCHES_BY_SHAPE = {name: {"r1": 0, "rn": 0} for name in _SOURCES}
 # referrer axis R; K9: the particles P; K10: the plan's fk nodes; K11: the
 # row's births; K12: the slots; K13: the options), and K12's and K13's mode
 # is "class R" (K12 the target class, K13 the proposing one; R the
-# enumeration rows of the record)
+# enumeration rows of the record); K14's mode is the spec's signature
+# (_k14_sig: kind, sources, sides; "cascade class fks=F" in cascade mode)
+# and K its target length C, K15's "class cap=C columns" and K its rows B
 LAUNCH_CENSUS = {"enum_logsumexp": {}, "inv_cdf_sample": {},
                  "obs_gather_sum": {}, "gauss_ext_term": {},
                  "maybe_swap_ext": {}, "referrer_hist": {},
                  "sa_ext_term": {}, "pg_resample": {}, "row_delta": {},
-                 "row_write": {}, "fk_score": {}, "choice_score": {}}
+                 "row_write": {}, "fk_score": {}, "choice_score": {},
+                 "rel_scatter": {}, "batch_write": {}}
 SMEM_MAX = 232448  # shared memory one block may use on an H100 (227 KB)
 N_SMS = 132        # streaming multiprocessors of an H100 SXM
 _GRID_Y_MAX = 65535
@@ -296,6 +312,8 @@ def build_kernels(force: bool = False) -> float:
                          I32, P, P, P, P, P, I64, I32, I32, I64, P],
             "choice_score": [P, P, P, P, I32, P, I32, I32, I32, P, P, P, P,
                              P, P, P, P, I64, I32, I32, I64, P],
+            "rel_scatter": [P, I32, P],
+            "batch_write": [P, I32, P],
         }
         for name in _SOURCES:
             lib = ctypes.CDLL(os.path.join(BUILD_DIR, f"lib{name}.so"))
@@ -1916,3 +1934,278 @@ def choice_score(enum, children, full, obs_ld=None, obs=None, state=0,
     _check(rc, "choice_score")
     _count("choice_score", 1, V, f"{cls} {R}")
     return rec, logz
+
+
+# ---------------------------------------------------------------- K14, K15
+
+# K14's plan (csrc/rel_scatter.cu): a header, then each side's fixed-size
+# record with its chain of up to K14_MAX_HOPS columns; cascade mode's fk
+# records follow the header
+K14_MAX_HOPS, K14_MAX_SIDES, K14_MAX_FKS = 4, 2, 8
+K14_HEAD, K14_SIDE = 16, 16 + 3 * K14_MAX_HOPS
+K14_KINDS = ("refcount", "prop", "delta", "cascade")
+_K14_CODE_DT = (torch.int32, torch.int64, torch.float32)
+# K15's plan (csrc/batch_write.cu): a header, then one record a column
+K15_HEAD, K15_COL, K15_MAX_COLS = 8, 6, 48
+_SHORT = {torch.bool: "b", torch.int8: "i8", torch.uint8: "u8",
+          torch.int16: "i16", torch.int32: "i32", torch.int64: "i64",
+          torch.float32: "f32", torch.float64: "f64"}
+
+
+def scatter_side(hops=(), alive=None, state=None, weight=None, code=None,
+                 sign: int = 1, exclude: bool = False) -> dict:
+    """One side of a K14 scatter: the fk columns followed from each
+    source slot s to its target (none: the target is s), the weight's
+    factors at s (alive [bool], state == 1, s != the excluded slot where
+    `exclude`, times an integer weight), the code source read at s where
+    the weight is > 0, and the sign the weight is added with."""
+    return dict(hops=list(hops), alive=alive, state=state, weight=weight,
+                code=code, sign=int(sign), exclude=bool(exclude))
+
+
+def _k14_sig(kind, n, src_len, sides, code, slots, exclude) -> str:
+    """K14's LAUNCH_CENSUS mode: the kind, sources, source length, each
+    side (sign, factors a = alive, s = state, x = exclusion, w = weight,
+    c = code; each hop column's length, q where it is int64), the code's
+    dtype and `idx` where the sources are slots."""
+    parts = []
+    for sd in sides:
+        f = "".join(k for k, on in (
+            ("a", sd["alive"] is not None), ("s", sd["state"] is not None),
+            ("x", sd["exclude"] and exclude is not None),
+            ("w", sd["weight"] is not None),
+            ("c", sd["code"] is not None and code is not None)) if on)
+        hops = ",".join(f"{h.shape[0]}{'q' if h.dtype == torch.int64 else ''}"
+                        for h in sd["hops"])
+        parts.append(f"{sd['sign']:+d}{f}:{hops}")
+    return (f"{kind} n={n} src={src_len} {'/'.join(parts)} "
+            f"{_SHORT[code.dtype] if code is not None else '-'}"
+            f"{' idx' if slots is not None else ''}")
+
+
+def rel_scatter_plain(kind: str, cnt, code, sides, n: int, slots=None,
+                      exclude=None, src_len=None) -> None:
+    """K14's plain version, in place: for each of n sources, its slot s
+    (i, or slots[i] clamped into [0, src_len) as take() clamps it), and for
+    each side in order, w = its factors at s, t = its fk chain followed
+    from s; cnt.at[t].add(sign w, mode="drop") and, where the side and the
+    call have a code, code.at[t].max(w > 0 ? code source[s] : 0,
+    mode="drop") (utils.scatter_add_drop, scatter_max_drop)."""
+    dev = cnt.device
+    if slots is None:
+        s = torch.arange(n, device=dev)
+    else:
+        s = slots.long().reshape(-1).clamp(0, src_len - 1)
+    for sd in sides:
+        m = torch.ones((n,), dtype=torch.bool, device=dev)
+        if sd["alive"] is not None:
+            m = m & take(sd["alive"], s)
+        if sd["state"] is not None:
+            m = m & (take(sd["state"], s) == 1)
+        if sd["exclude"] and exclude is not None:
+            m = m & (s != exclude)
+        w = m.to(torch.int32)
+        if sd["weight"] is not None:
+            w = w * take(sd["weight"], s).to(torch.int32)
+        t = s
+        for col in sd["hops"]:
+            t = take(col, t)
+        cnt.copy_(scatter_add_drop(cnt, t, sd["sign"] * w))
+        if code is not None and sd["code"] is not None:
+            v = torch.where(w > 0, take(sd["code"], s).to(code.dtype),
+                            torch.zeros((), dtype=code.dtype, device=dev))
+            code.copy_(scatter_max_drop(code, t, v))
+
+
+def _k14_vec(t, name: str, n=None, dtypes=None) -> None:
+    if not t.is_cuda or t.dim() != 1 or not t.is_contiguous() or \
+            t.dtype not in _DT or (dtypes is not None and
+                                   t.dtype not in dtypes) or \
+            (n is not None and t.shape[0] != n):
+        raise ValueError(f"rel_scatter: {name} is {t.dtype} "
+                         f"{tuple(t.shape)} on {t.device} (expected a "
+                         f"contiguous 1-d tensor on the card"
+                         f"{'' if n is None else f' of {n}'}"
+                         f"{'' if dtypes is None else f', {dtypes}'})")
+
+
+def rel_scatter(kind: str, cnt, code, sides, n: int, slots=None,
+                exclude=None, src_len=None) -> None:
+    """K14: rel_scatter_plain's scatters in one launch, in place on cnt
+    (int32 [C]) and code ([C] int32, int64 or float32, or None), which the
+    caller owns, with the drop rule inside the kernel. `sides`: one or two
+    scatter_side()s; `slots`: int64 [n] source slots, or None for sources
+    0..n-1; `exclude`: the excluded source slot, an int or an int64 [1]
+    tensor on the card (read there, so the host never waits for it).
+    On CPU tensors the plain version; on CUDA ones the kernel or an error.
+    Counted in LAUNCH_CENSUS by (the spec's signature, r1 or rn, C)."""
+    if src_len is None:
+        src_len = n
+    if not _route(cnt, "rel_scatter"):
+        return rel_scatter_plain(kind, cnt, code, sides, n, slots, exclude,
+                                 src_len)
+    if kind not in K14_KINDS[:3]:
+        raise ValueError(f"rel_scatter: kind {kind!r} is not one of "
+                         f"{K14_KINDS[:3]}")
+    if not 1 <= len(sides) <= K14_MAX_SIDES or n < 0 or src_len < 1:
+        raise ValueError(f"rel_scatter: {len(sides)} sides, n {n}, source "
+                         f"length {src_len}")
+    _k14_vec(cnt, "cnt", dtypes=(torch.int32,))
+    C = cnt.shape[0]
+    if code is not None:
+        _k14_vec(code, "code", C, _K14_CODE_DT)
+    words = [0] * (K14_HEAD + K14_SIDE * len(sides))
+    words[1], words[4], words[5], words[8] = n, src_len, cnt.data_ptr(), C
+    if slots is not None:
+        _k14_vec(slots, "slots", n, (torch.int64,))
+        words[2], words[3] = slots.data_ptr(), _DT[slots.dtype]
+    if code is not None:
+        words[6], words[7] = code.data_ptr(), _DT[code.dtype]
+    if torch.is_tensor(exclude):
+        if not exclude.is_cuda or exclude.dtype != torch.int64 or \
+                exclude.numel() != 1:
+            raise ValueError("rel_scatter: exclude must be an int64 [1] "
+                             "tensor on the card")
+        words[9] = exclude.data_ptr()
+    elif exclude is not None:
+        words[10], words[11] = int(exclude), 1
+    words[12] = len(sides)
+    keep = []   # contiguous copies stay alive until the launch is queued
+    for k, sd in enumerate(sides):
+        b = K14_HEAD + K14_SIDE * k
+        if sd["sign"] not in (1, -1) or len(sd["hops"]) > K14_MAX_HOPS:
+            raise ValueError(f"rel_scatter: sign {sd['sign']}, "
+                             f"{len(sd['hops'])} hops (at most "
+                             f"{K14_MAX_HOPS})")
+        words[b], words[b + 1] = sd["sign"], len(sd["hops"])
+        for j, (key, dts) in enumerate((
+                ("alive", (torch.bool,)), ("state", _INDEX_DT),
+                ("weight", _INDEX_DT), ("code", _DT))):
+            t = sd[key]
+            if t is None:
+                continue
+            t = t.contiguous()
+            keep.append(t)
+            _k14_vec(t, key, src_len, tuple(dts))
+            w = (2, 3, 5, 7)[j]
+            words[b + w] = t.data_ptr()
+            if key != "alive":
+                words[b + w + 1] = _DT[t.dtype]
+        words[b + 9] = int(sd["exclude"])
+        for j, h in enumerate(sd["hops"]):
+            _k14_vec(h, "hop column", src_len if j == 0 else None,
+                     _INDEX_DT)
+            words[b + 16 + 3 * j: b + 19 + 3 * j] = \
+                [h.data_ptr(), _DT[h.dtype], h.shape[0]]
+    arr = (ctypes.c_int64 * len(words))(*words)
+    rc = _fn("rel_scatter")(arr, len(arr), _stream(cnt))
+    _check(rc, "rel_scatter")
+    _count("rel_scatter", n, C,
+           _k14_sig(kind, n, src_len, sides, code, slots, exclude))
+
+
+def rel_cascade_plain(d, refcount, alive, fks):
+    """K14's cascade mode, plain: one latent class's pending refcount
+    delta d applied (_cascade's body): returns (refcount + d, its > 0,
+    int64 [2] = (sum of d, sum of the alive flips)); each (fk column,
+    pending delta of its target class) in `fks` gets the flips scattered
+    in place (mode="drop")."""
+    rc = refcount + d
+    now = rc > 0
+    flip = now.to(torch.int32) - alive.to(torch.int32)
+    for col, pend in fks:
+        pend.copy_(scatter_add_drop(pend, col, flip))
+    return rc, now, torch.stack([torch.sum(d), torch.sum(flip)])
+
+
+def rel_cascade(d, refcount, alive, fks, cls=None):
+    """K14 in cascade mode: rel_cascade_plain in one launch, refcount and
+    alive written into new tensors (torch.empty), the sums into a zeroed
+    int64 [2] by atomics, the flips into each pending delta in place. On
+    CPU tensors the plain version; on CUDA ones the kernel or an error.
+    Counted in LAUNCH_CENSUS by ("cascade cls fks", r1 or rn, C)."""
+    if not _route(d, "rel_cascade"):
+        return rel_cascade_plain(d, refcount, alive, fks)
+    _k14_vec(d, "d", dtypes=(torch.int32,))
+    C = d.shape[0]
+    _k14_vec(refcount, "refcount", C, (torch.int32,))
+    _k14_vec(alive, "alive", C, (torch.bool,))
+    if len(fks) > K14_MAX_FKS:
+        raise ValueError(f"rel_cascade: {len(fks)} fk columns (at most "
+                         f"{K14_MAX_FKS})")
+    rc = torch.empty_like(refcount)
+    now = torch.empty_like(alive)
+    acc = torch.zeros((2,), dtype=torch.int64, device=d.device)
+    words = [1, C, d.data_ptr(), refcount.data_ptr(), alive.data_ptr(),
+             rc.data_ptr(), now.data_ptr(), acc.data_ptr(), len(fks)] + \
+        [0] * (K14_HEAD - 9)
+    for col, pend in fks:
+        _k14_vec(col, "fk column", C, _INDEX_DT)
+        _k14_vec(pend, "pending delta", dtypes=(torch.int32,))
+        words += [col.data_ptr(), _DT[col.dtype], pend.data_ptr(),
+                  pend.shape[0]]
+    arr = (ctypes.c_int64 * len(words))(*words)
+    rc_ = _fn("rel_scatter")(arr, len(arr), _stream(d))
+    _check(rc_, "rel_scatter")
+    _count("rel_scatter", C, C, f"cascade {cls} fks={len(fks)}")
+    return rc, now, acc
+
+
+def batch_write_plain(cols, vals, slots, ok, alive=None) -> None:
+    """K15's plain version, in place: smc._apply_batch's writes of a batch
+    of B rows: each column cols[c] at slots where ok takes vals[c] [B]
+    converted to its dtype (torch's .to), and alive, where given, True
+    there; slots follow mode="drop" (utils.index_set_where)."""
+    for col, v in zip(cols, vals):
+        col.copy_(index_set_where(col, slots, v.reshape(-1).to(col.dtype),
+                                  ok))
+    if alive is not None:
+        alive.copy_(index_set_where(alive, slots, True, ok))
+
+
+def batch_write(cols, vals, slots, ok, alive=None, cls=None) -> None:
+    """K15: batch_write_plain's writes in one launch, in place on columns
+    the caller owns (the batched drivers' copies), every index and mask
+    read on the card and the drop rule inside the kernel. slots int64 [B],
+    ok bool [B], vals [B] of any dtype of ops._DT. On CPU tensors the plain
+    version; on CUDA ones the kernel or an error. Counted in LAUNCH_CENSUS
+    by ("cls cap=C dst<src,...[,alive]", r1 or rn, B)."""
+    if not _route(slots, "batch_write"):
+        return batch_write_plain(cols, vals, slots, ok, alive)
+    B = slots.shape[0] if slots.dim() == 1 else -1
+    if not slots.is_cuda or slots.dtype != torch.int64 or B < 0 or \
+            not slots.is_contiguous():
+        raise ValueError(f"batch_write: slots must be int64 [B] on the "
+                         f"card, got {slots.dtype} {tuple(slots.shape)}")
+    if not ok.is_cuda or ok.dtype != torch.bool or ok.shape != (B,):
+        raise ValueError(f"batch_write: ok must be bool [{B}] on the card")
+    ok = ok.contiguous()
+    dsts = list(cols) + ([alive] if alive is not None else [])
+    if len(dsts) > K15_MAX_COLS:
+        raise ValueError(f"batch_write: {len(dsts)} columns (at most "
+                         f"{K15_MAX_COLS})")
+    srcs = [v.reshape(-1).contiguous() for v in vals] + \
+        ([None] if alive is not None else [])
+    words = [len(dsts), B, slots.data_ptr(), ok.data_ptr()] + \
+        [0] * (K15_HEAD - 4)
+    sig = []
+    for dst, src in zip(dsts, srcs):
+        if not dst.is_cuda or dst.dim() != 1 or not dst.is_contiguous() or \
+                dst.dtype not in _DT:
+            raise ValueError(f"batch_write: column {dst.dtype} "
+                             f"{tuple(dst.shape)} on {dst.device}")
+        if src is not None and (not src.is_cuda or src.shape != (B,) or
+                                src.dtype not in _DT):
+            raise ValueError(f"batch_write: values {src.dtype} "
+                             f"{tuple(src.shape)} on {src.device} (expected "
+                             f"[{B}] on the card)")
+        words += [dst.data_ptr(), _DT[dst.dtype], dst.shape[0],
+                  0 if src is None else src.data_ptr(),
+                  0 if src is None else _DT[src.dtype], 0]
+        sig.append("alive" if src is None
+                   else f"{_SHORT[dst.dtype]}<{_SHORT[src.dtype]}")
+    arr = (ctypes.c_int64 * len(words))(*words)
+    rc = _fn("batch_write")(arr, len(arr), _stream(slots))
+    _check(rc, "batch_write")
+    cap = dsts[0].shape[0] if dsts else 0
+    _count("batch_write", B, B, f"{cls} cap={cap} {','.join(sig)}")
