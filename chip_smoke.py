@@ -7,7 +7,7 @@
 
 It drives the port only (never jax, never pclean_tpu), in order:
   1. prints the card's name and power limit (nvidia-smi);
-  2. builds the fifteen CUDA kernels from pclean_tpu_torch/csrc/ (one nvcc
+  2. builds the nineteen CUDA kernels from pclean_tpu_torch/csrc/ (one nvcc
      per source, in parallel) and prints the build time and ptxas's
      registers, shared memory, stack frame and spills for each compiled
      function; measures the launch floor and one dependent L2 load (K10's
@@ -133,6 +133,17 @@ It drives the port only (never jax, never pclean_tpu), in order:
      prints, for each one-row loop kind, its segments (a replay chunk is
      one), the rows it replayed and ran eagerly and the captures it made
      with their seconds;
+  8d. after every path, K16 fk_sample, K17 choice_sample, K18 row_gather
+     and K19 branch_select (the block proposal's sample pass and row
+     lookups) at every shape of the path's census holding >= SHAPE_SHARE
+     of its launches of the kernel, on seeded inputs of that shape
+     (kernel_bench.sample_inputs), against their plain versions on the
+     card, bit-equal, the plain versions drawing with K2 (the kernels'
+     draw is K2's own, csrc/inv_cdf.cuh); where they draw, K2 on the
+     picked logits against the fully plain draw within K2's allowance
+     (sample_checks); the trace phase also counts, for each of its
+     sections, the device ops each port function issued in one eager run
+     (a graphed row's warm-up row; ops_by_function);
   9. after all six paths, K12 fk_score and K13 choice_score at every
      shape of the paths' launch census (class, enumeration rows, slots or
      options; seeded inputs of that shape, K13's rows in states 0, 1 and
@@ -142,10 +153,14 @@ It drives the port only (never jax, never pclean_tpu), in order:
      K15 timed at every census shape holding >= SHAPE_SHARE of a path's
      launches, beside their plain versions, the library call of the
      count alone (index_add_; K15: index_copy_ of one column) and the
-     bytes bound (bench_rel_shapes); then prints, for each kernel, how
-     many
+     bytes bound (bench_rel_shapes); K16-K19 timed at their most
+     launched one-row and batched census shapes holding >= SHAPE_SHARE of
+     a path's launches and at the largest, beside their plain versions, the library call (K18: torch.take of the
+     leaf at the final indices; K19: torch.where of one pair; K16 and K17
+     none) and the bytes bound (bench_sample_shapes); then prints, for
+     each kernel, how many
      shapes were checked and the worst error, the run's seconds, then the
-     `kernels` JSON line (K1-K15; `launches` summed over
+     `kernels` JSON line (K1-K19; `launches` summed over
      the six paths, with each path's own beside it; `max_abs_err` the
      worst over every shape checked; the times those of the shape named in
      `shape`; every shape's numbers in chip_smoke.json under --out), then
@@ -173,15 +188,20 @@ each within 1e-4 of the total from a CDF boundary (exact fixed-point
 prefix sums against torch.cumsum's f32 ones, K2's rule); K10 and K11
 bit-equal (integer state and copied values); K12 and K13 record
 bit-equal (the same float operations, one rounding each) and logZ within
-K1's rule; K14 and K15 bit-equal (integer atomics, copied values). It
+K1's rule; K14 and K15 bit-equal (integer atomics, copied values); K16-K19
+bit-equal to their plain versions drawing with K2 (integers and copied
+values), and K2 against the fully plain draw as above. It
 fails
 (non-zero exit, no result line) if there is no card, a kernel does not
-build, launch or agree, K1-K3 were not launched on the scaled path, K4 and
-K5 not on the rents path, K2 and K6 not on the flights path, K1-K3, K7
-and K8 not on the hospital or the hospital_pg1024 path, K1-K3 and K9 in
-both its modes not on the hospital_pg16_vmapped path, K10 or K11 not on
+build, launch or agree, K1 and K3 were not launched on the scaled path,
+K4 and K5 not on the rents path, K6 not on the flights path, K1, K3, K7
+and K8 not on the hospital or the hospital_pg1024 path, K1, K3 and K9 in
+both its modes not on the hospital_pg16_vmapped path (K2's draw runs
+inside K16 and K17 on every path; K2 itself draws the MaybeSwap prior
+only), K10 or K11 not on
 any path, K12 or K13 not on any path but hospital_pg16_vmapped, K14 not
-on any path or K15 not on a batched one, a shadow run or the state check
+on any path or K15 not on a batched one, K16-K19 not on every path, a
+shadow run or the state check
 of K14 differs or waits for the card, a graph replay differs from the
 eager row or a graphed loop kind ran a row after its first eagerly, a PG
 path's log-ML is not finite, a path's F1 is below its floor (F1_FLOORS: scaled, rents,
@@ -291,6 +311,14 @@ SOURCES = {
                     "pclean_tpu/engine/refresh.py:418"),
     "batch_write": ("pclean_tpu_torch/csrc/batch_write.cu",
                     "pclean_tpu/engine/smc.py:210"),
+    "fk_sample": ("pclean_tpu_torch/csrc/fk_sample.cu",
+                  "pclean_tpu/engine/propose.py:1026"),
+    "choice_sample": ("pclean_tpu_torch/csrc/choice_sample.cu",
+                      "pclean_tpu/engine/propose.py:981"),
+    "row_gather": ("pclean_tpu_torch/csrc/row_gather.cu",
+                   "pclean_tpu/engine/propose.py:1410"),
+    "branch_select": ("pclean_tpu_torch/csrc/branch_select.cu",
+                      "pclean_tpu/engine/propose.py:1093"),
 }
 SCALED_KERNELS = ("enum_logsumexp", "inv_cdf_sample", "obs_gather_sum")
 RENTS_KERNELS = ("gauss_suffstats", "gauss_ext_term")
@@ -307,18 +335,30 @@ ROW_KERNELS = ("row_delta", "row_write")
 # K14 and K15: every refresh and batched delta, every batched row write
 # (the flights path has no batched step: its refreshes alone)
 REL_KERNELS = ("rel_scatter", "batch_write")
-NEED = {"scaled": SCALED_KERNELS + ROW_KERNELS + SCORE_KERNELS
-        + REL_KERNELS,
-        "rents": RENTS_KERNELS + ROW_KERNELS + SCORE_KERNELS + REL_KERNELS,
+# K16-K19: every block's sample pass and row lookups, on every path (K2's
+# draw runs inside K16 and K17, so only flights, whose MaybeSwap prior
+# draws through K2 itself, still needs K2)
+SAMPLE_KERNELS = ("fk_sample", "choice_sample", "row_gather",
+                  "branch_select")
+
+
+def _no_k2(names):
+    return tuple(n for n in names if n != "inv_cdf_sample")
+
+
+NEED = {"scaled": _no_k2(SCALED_KERNELS) + ROW_KERNELS + SCORE_KERNELS
+        + REL_KERNELS + SAMPLE_KERNELS,
+        "rents": RENTS_KERNELS + ROW_KERNELS + SCORE_KERNELS + REL_KERNELS
+        + SAMPLE_KERNELS,
         # every flights row is a one-row step: K12/K13 in place of K1
         "flights": FLIGHTS_KERNELS[1:] + ROW_KERNELS + SCORE_KERNELS
-        + REL_KERNELS[:1],
-        "hospital": HOSPITAL_KERNELS + ROW_KERNELS + SCORE_KERNELS
-        + REL_KERNELS,
-        "hospital_pg1024": HOSPITAL_KERNELS + ROW_KERNELS + SCORE_KERNELS
-        + REL_KERNELS,
-        "hospital_pg16_vmapped": SCALED_KERNELS + ("pg_resample",)
-        + ROW_KERNELS + REL_KERNELS}
+        + REL_KERNELS[:1] + SAMPLE_KERNELS,
+        "hospital": _no_k2(HOSPITAL_KERNELS) + ROW_KERNELS + SCORE_KERNELS
+        + REL_KERNELS + SAMPLE_KERNELS,
+        "hospital_pg1024": _no_k2(HOSPITAL_KERNELS) + ROW_KERNELS
+        + SCORE_KERNELS + REL_KERNELS + SAMPLE_KERNELS,
+        "hospital_pg16_vmapped": _no_k2(SCALED_KERNELS) + ("pg_resample",)
+        + ROW_KERNELS + REL_KERNELS + SAMPLE_KERNELS}
 PATHS = tuple(NEED)
 
 
@@ -915,6 +955,141 @@ def rel_entry(name: str, shapes: list) -> dict:
         replaces=SOURCES[name][1], bound_by="bytes")
 
 
+def sample_checks(ops, dev, census, path: str) -> dict:
+    """K16-K19 after a path: every census shape holding >= SHAPE_SHARE of
+    the path's launches of the kernel, on seeded inputs of that shape
+    (kernel_bench.sample_inputs, from the fields the wrapper recorded in
+    ops.CENSUS_FIELDS), against the plain version on the card
+    (kernel_bench.check_sample: bit-equal, the plain version drawing with
+    K2; where they draw, K2 on the picked logits against the fully plain
+    draw within K2's allowance). Returns {kernel: [one dict per shape]}."""
+    from pclean_tpu_torch import kernel_bench as kb
+
+    out = {name: [] for name in SAMPLE_KERNELS}
+    for c in census:
+        if c["kernel"] not in out or c["share"] < SHAPE_SHARE:
+            continue
+        r = kb.check_sample(ops, kb.sample_inputs(
+            dev, c["kernel"], ops.CENSUS_FIELDS[c["kernel"]][c["mode"]],
+            c["K"]))
+        out[c["kernel"]].append(dict(
+            shape=c["mode"], K=c["K"], rows=c["rows"], launches=c["launches"],
+            share=c["share"], path=path, max_abs_err=r["max_abs_err"],
+            k2_mismatch_rate=r.get("mismatch_rate")))
+    print(f"{path} K16-K19 census shapes checked bit-equal: "
+          f"{ {k: len(v) for k, v in out.items()} }", flush=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+# K16-K19 are timed at their most launched one-row and batched census
+# shapes and at the largest of each form
+SAMPLE_TIMED = {"r1": 5, "rn": 3}
+# K17's pick mode, which no path launches (every record the six paths pick
+# from is constant along its ancestor axes, so BlockTracer._pick takes a
+# view), checked and timed at one row and at 4,096 rows all the same
+SAMPLE_PICK = tuple(dict(form="pick", dtype=torch.int32, B=B, d=1)
+                    for B in (1, 4096))
+
+
+def bench_sample_shapes(ops, dev, checked: dict, floor) -> dict:
+    """K16-K19 timed, among the distinct census shapes checked (each holds
+    >= SHAPE_SHARE of a path's launches), at the SAMPLE_TIMED most
+    launched one-row and batched ones and at the largest of each form (K16
+    drawn or retained and its mask form, K17 draw or retained; the most
+    logits, options, slots or pairs, then the most rows), and K17 at
+    SAMPLE_PICK (checked bit-equal first), on seeded inputs: kernel ms and
+    device ms, the plain version (its own draw), the library call (K17's
+    pick mode torch.take of the record at the clamped ancestor positions,
+    K18 torch.take of the leaf at the final indices, K19 torch.where of
+    one pair; K16 and K17's draw and retained modes none), the bytes bound
+    (kernel_bench.sample_bytes) and the launch floor. Returns {kernel:
+    [one dict per shape]}."""
+    from pclean_tpu_torch import kernel_bench as kb
+
+    out = {}
+    for name in SAMPLE_KERNELS:
+        fields = ops.CENSUS_FIELDS[name]
+        shapes: dict = {}
+        for r in checked[name]:
+            sh = shapes.setdefault((r["shape"], r["K"]),
+                                   dict(launches_by_path={}, rows=r["rows"]))
+            sh["launches_by_path"][r["path"]] = r["launches"]
+        ranked = sorted(shapes.items(), key=lambda kv: -sum(
+            kv[1]["launches_by_path"].values()))
+        top = [kv for rows, n in SAMPLE_TIMED.items()
+               for kv in [x for x in ranked if x[1]["rows"] == rows][:n]]
+
+        def form(kv):
+            f = fields[kv[0][0]]
+            return f.get("form"), f.get("mask")
+
+        for fm in sorted({form(kv) for kv in ranked}, key=str):
+            big = max((kv for kv in ranked if form(kv) == fm),
+                      key=lambda kv: (kv[0][1], fields[kv[0][0]].get("B", 0)))
+            if big not in top:
+                top.append(big)
+        todo = [(f"{mode} K={K}", fields[mode], K, sh["rows"],
+                 sh["launches_by_path"]) for (mode, K), sh in top]
+        if name == "choice_sample":
+            todo += [(f"pick i32 B={f['B']} d={f['d']} K=1 (no path "
+                      f"launches it)", f, 1, "r1" if f["B"] == 1 else "rn",
+                      {}) for f in SAMPLE_PICK]
+        out[name] = []
+        for shape, f, K, rows, by_path in todo:
+            inp = kb.sample_inputs(dev, name, f, K)
+            err = kb.check_sample(ops, inp)["max_abs_err"] \
+                if f.get("form") == "pick" else 0.0
+            b = kb.sample_bytes(inp)
+            x = dict(shape=shape, K=K, rows=rows, max_abs_err=err,
+                     launches=sum(by_path.values()), launches_by_path=by_path,
+                     bytes=b, bound_ms=b / kb.HBM_BYTES_PER_S * 1e3,
+                     floor_ms=floor, pick=f.get("form") == "pick",
+                     **kb.time_sample(ops, inp))
+            out[name].append(x)
+            lib = "none" if x["library_ms"] is None else \
+                f"{x['library_ms']:.4f} ms (device " \
+                f"{x['library_device_ms']:.4f} ms)"
+            print(f"{name} {x['shape']} ({x['launches']} launches "
+                  f"{x['launches_by_path']}): kernel {x['ms']:.4f} ms "
+                  f"(device {x['device_ms']:.4f} ms) plain "
+                  f"{x['plain_ms']:.4f} ms library {lib} bound "
+                  f"{x['bound_ms']:.6f} ms floor {floor:.4f} ms", flush=True)
+            del inp
+        print(f"{name}: timed {len(todo)} shapes, {len(top)} of "
+              f"{len(shapes)} checked census shapes (the most launched "
+              f"one-row and batched ones, the largest of each form)",
+              flush=True)
+        torch.cuda.empty_cache()
+    return out
+
+
+def sample_entry(name: str, shapes: list) -> dict:
+    """K16's-K19's kernels-line entry: the numbers of the timed shape
+    launched most over the six paths, (as *_rn) those of the batched
+    shape launched most and, for K17, (as *_pick) those of its pick mode
+    at one row (SAMPLE_PICK), beside its library call."""
+    pick = [r for r in shapes if r["pick"]]
+    shapes = [r for r in shapes if not r["pick"]]
+    top = max(shapes, key=lambda r: r["launches"])
+    out = dict({key: top[key] for key in (
+        "max_abs_err", "ms", "device_ms", "plain_ms", "library_ms",
+        "library_device_ms", "bytes", "bound_ms", "floor_ms", "shape")},
+        name=name, route="cuda", source=SOURCES[name][0],
+        replaces=SOURCES[name][1], bound_by="bytes")
+    rn = [r for r in shapes if r["rows"] == "rn"]
+    if rn:
+        b = max(rn, key=lambda r: r["launches"])
+        out.update({f"{key}_rn": b[key] for key in (
+            "shape", "ms", "device_ms", "plain_ms", "library_ms",
+            "bound_ms")})
+    if pick:
+        out.update({f"{key}_pick": pick[0][key] for key in (
+            "shape", "max_abs_err", "ms", "device_ms", "plain_ms",
+            "library_ms", "library_device_ms", "bound_ms")})
+    return out
+
+
 GRAPH_ROWS = 64   # rows of each loop kind the graph-against-eager phase runs
 
 
@@ -1050,8 +1225,7 @@ def small_device_check(dev, workload="scaled"):
     from pclean_tpu_torch.workloads import flights, hospital, rents, scaled
 
     if workload == "scaled":
-        mod, need = scaled, ("enum_logsumexp", "inv_cdf_sample",
-                             "obs_gather_sum")
+        mod, need = scaled, ("enum_logsumexp", "obs_gather_sum")
         small = dict(rows=512, hospitals=48, counties=12, names=24, zips=32,
                      batch=8)
     elif workload == "rents":
@@ -1137,6 +1311,9 @@ def small_device_check(dev, workload="scaled"):
                     f"{workload} {cid}: sampled vertex {v} differs")
         worst = max(worst, float(dz.max()))
     launched = {k: v - before[k] for k, v in ops.LAUNCHES.items()}
+    # the sample pass's kernels (rents' County block has no foreign key)
+    need = need + (SAMPLE_KERNELS if workload != "rents"
+                   else ("choice_sample",))
     require(all(launched[k] > 0 for k in need),
             f"{workload} small check: kernels not launched: {launched}")
     return worst, launched
@@ -1197,6 +1374,80 @@ def _trace(fn) -> dict:
                 d2h=d2h, busy_ms=busy / 1e6)
 
 
+# ATen calls that issue no device work: views, allocations, metadata
+_NOT_DEVICE = {"empty", "empty_like", "empty_strided", "new_empty",
+               "new_empty_strided", "view", "_unsafe_view", "reshape",
+               "expand", "as_strided", "slice", "select", "unsqueeze",
+               "squeeze", "permute", "t", "transpose", "detach", "alias",
+               "unbind", "split", "split_with_sizes", "lift_fresh",
+               "set_", "resize_", "record_stream", "is_nonzero",
+               "sym_size", "sym_stride", "sym_numel", "_reshape_alias",
+               "view_as", "expand_as", "narrow", "chunk", "diagonal",
+               "unfold", "movedim", "flatten", "unflatten"}
+
+
+def ops_by_function(fn) -> dict:
+    """fn() once, with every device op it issues attributed to the
+    innermost function of the port's package on the Python stack: each
+    ATen call that touches a CUDA tensor and is not a view or an
+    allocation (a TorchDispatchMode), and each hand-kernel launch
+    (ops._count, named "launch <kernel>"). Frames of utils.py count for
+    their caller; a call inside ops.py counts as ops.<function> (a
+    wrapper's own torch calls). Returns dict(total, launches, by_function
+    [(function, ops), most first], by_kernel {kernel: launches})."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_flatten
+
+    from pclean_tpu_torch import ops
+
+    pkg = os.path.dirname(os.path.abspath(ops.__file__)) + os.sep
+    counts: dict = {}
+    kernels: dict = {}
+
+    def site(skip_ops: bool) -> str:
+        f = sys._getframe(2)
+        while f is not None:
+            name = f.f_code.co_filename
+            if name.startswith(pkg) and not name.endswith("utils.py") and \
+                    not (skip_ops and name.endswith("ops.py")):
+                mod = os.path.relpath(name, pkg)[:-3].replace(os.sep, ".")
+                return f"{mod}.{f.f_code.co_name}"
+            f = f.f_back
+        return "(outside the package)"
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            name = func.overloadpacket.__name__
+            if name not in _NOT_DEVICE and not getattr(func, "is_view",
+                                                       False):
+                flat = tree_flatten((args, kwargs, out))[0]
+                if any(torch.is_tensor(x) and x.is_cuda for x in flat):
+                    k = site(False)
+                    counts[k] = counts.get(k, 0) + 1
+            return out
+
+    base = ops._count
+
+    def counted(name, *args, **kwargs):
+        k = site(True)
+        counts[k] = counts.get(k, 0) + 1
+        kernels[name] = kernels.get(name, 0) + 1
+        return base(name, *args, **kwargs)
+
+    torch.cuda.synchronize()
+    ops._count = counted
+    try:
+        with Count():
+            fn()
+    finally:
+        ops._count = base
+    torch.cuda.synchronize()
+    return dict(total=sum(counts.values()), launches=sum(kernels.values()),
+                by_function=sorted(counts.items(), key=lambda kv: -kv[1]),
+                by_kernel=kernels)
+
+
 def _shares(r: dict) -> dict:
     """r with the device's idle share of the wall time under the profiler
     (idle_share) and, as a ratio of two runs, the busy time under the
@@ -1216,7 +1467,8 @@ def _shares(r: dict) -> dict:
 def _trace_per(big: dict, small: dict, n: int) -> dict:
     """One step's share: (big - small) / n for every count and time, with
     _shares."""
-    out = {k: (big[k] - small[k]) / n for k in big if k != "sync_sites"}
+    out = {k: (big[k] - small[k]) / n for k in big
+           if k not in ("sync_sites", "eager_row")}
     out["sync_sites"] = big["sync_sites"]
     return _shares(out)
 
@@ -1267,18 +1519,19 @@ def trace_sections(path, cm, config, state=None) -> dict:
     eng1 = Engine(cm, dataclasses.replace(config, rejuv_frequency=10 ** 6),
                   device=cm.device)
 
-    def rows(k):
+    def rows(k, graph=True):
         if path == "flights":
-            return lambda: eng1._sweep_segment(cid, arenas, params, 0, gen, k)
+            return lambda: eng1._sweep_segment(cid, arenas, params, 0, gen, k,
+                                               graph=graph)
         if path == "scaled":
             lat = [c for c in cm.model.class_order
                    if not cm.layouts[c].observed and cm.layouts[c].fk_vertices]
             return lambda: eng1._replay_chunk(
                 lat[0], arenas, params, np.arange(k, dtype=np.int64), gen,
-                True)
+                True, graph=graph)
         eng1.config.scan_segment = k
         run, _seg = eng1.scan_init(cid, n_rows)
-        return lambda: run(arenas, params, 0, gen)
+        return lambda: run(arenas, params, 0, gen, graph=graph)
 
     def batches(k):
         eng.config.batch_segment_rows = k * B
@@ -1317,8 +1570,15 @@ def trace_sections(path, cm, config, state=None) -> dict:
         small = measured(rows(2))
         big = measured(rows(2 + TRACE_GRAPH_N))
         out[f"{path} {label}"] = _trace_per(big, small, TRACE_GRAPH_N)
+        # the device ops of one eager row (a replay's warm-up row), by
+        # the port function that issued them
+        eager = rows(1, graph=False)
+        eager()
+        out[f"{path} {label}"]["eager_row"] = ops_by_function(eager)
     if path == "hospital":
-        seg = measured(batches(config.batch_segment_rows // B))
+        seg_fn = batches(config.batch_segment_rows // B)
+        seg = measured(seg_fn)
+        seg["eager_row"] = ops_by_function(seg_fn)
         out["hospital batched segment"] = _shares(seg)
     if path == "rents":
         small, big = measured(batches(1)), measured(batches(3))
@@ -1327,6 +1587,12 @@ def trace_sections(path, cm, config, state=None) -> dict:
         return "n/a" if x is None else f"{x:.4f}"
 
     for name, r in out.items():
+        e = r.get("eager_row")
+        if e is not None:
+            print(f"trace {name}: one eager run issues {e['total']} device "
+                  f"ops ({e['launches']} hand-kernel launches "
+                  f"{e['by_kernel']}); by function: {e['by_function'][:30]}",
+                  flush=True)
         print(f"trace {name}: wall {r['wall_ms']:.3f} ms (without the "
               f"profiler {r['wall_plain_ms']:.3f} ms), device busy "
               f"{r['busy_ms']:.3f} ms, idle share {f4(r['idle_share'])} "
@@ -1355,6 +1621,7 @@ def trace_only() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     print(f"card: {card_line()}", flush=True)
+    print(f"package: {os.path.dirname(ops.__file__)}", flush=True)
     ops.build_kernels()
     setups = {"scaled": lambda: scaled.setup(
                   rows=ROWS, batch=BATCH, device="cuda", **SCALED),
@@ -1536,6 +1803,7 @@ def main() -> int:
         res, report["rel_state"][path] = rel_checks(ops, eng, arenas, census,
                                                     path)
         add(path, res)
+        add(path, sample_checks(ops, dev, census, path))
     # the scaled path, K7 and K8 at its census shapes while its state
     # lives, then K1-K3 on the model's own matrices
     phase("scaled path")
@@ -1684,12 +1952,15 @@ def main() -> int:
         checked[name] += [dict(r, path="all") for r in rows]
     phase("K14 and K15 census shapes")
     rel = bench_rel_shapes(ops, dev, checked, floor)
+    phase("K16-K19 census shapes")
+    sample = bench_sample_shapes(ops, dev, checked, floor)
     kernels += [k7_k8_entry(name, checked[name])
                 for name in ("referrer_hist", "sa_ext_term")]
     kernels.append(k9_entry(checked["pg_resample"]))
     kernels += [row_entry(name, checked[name]) for name in ROW_KERNELS]
     kernels += [score_entry(name, score[name]) for name in SCORE_KERNELS]
     kernels += [rel_entry(name, rel[name]) for name in REL_KERNELS]
+    kernels += [sample_entry(name, sample[name]) for name in SAMPLE_KERNELS]
     phase("done")
 
     for k in kernels:
@@ -1735,7 +2006,11 @@ def main() -> int:
             "bytes_bound_ms",
             *(f"launches_{p}" for p in PATHS), "launches_r1", "ms_r1",
             "device_ms_r1", "plain_ms_r1", "bound_ms_r1", "library_ms_r1",
-            "floor_ms", "shape", "shapes_checked")
+            "shape_rn", "ms_rn", "device_ms_rn", "plain_ms_rn",
+            "library_ms_rn", "bound_ms_rn", "shape_pick", "ms_pick",
+            "device_ms_pick", "plain_ms_pick", "library_ms_pick",
+            "library_device_ms_pick", "bound_ms_pick", "floor_ms", "shape",
+            "shapes_checked")
     print(json.dumps({"kernels": [{k: kk[k] for k in keys if k in kk}
                                   for kk in kernels]}))
     print(card)

@@ -12,11 +12,10 @@ Where the JAX tracer runs one row under `vmap`, this tracer carries the
 batch axis explicitly: `row_slot` is [B] and every value at enumeration
 depth d has rank 1 + d — the batch axis first (size B, or 1 when the value
 is the same for every row), then the d enumeration axes (size 1 where it
-broadcasts). Eight hot spots go through the hand kernels of ops.py:
+broadcasts). Eleven hot spots go through the hand kernels of ops.py:
 
   * K1 enum_logsumexp: score_fk's record [.., K+1] + logZ, and
     score_choice's logZ;
-  * K2 inv_cdf_sample: every categorical draw of the sample pass;
   * K3 obs_gather_sum: the statically observed AddTypos columns of one
     enumeration context, deferred and summed in one launch at the
     context's flush (the JAX package's _matmul_obs_term/_mm_flush frames,
@@ -34,7 +33,14 @@ broadcasts). Eight hot spots go through the hand kernels of ops.py:
     (_ext_hist_term);
   * K8 sa_ext_term: the composed AddTypos external (word = table[option,
     referrer value], the hospital model's stateavg) summed over each row's
-    referrers (_ext_hist_term).
+    referrers (_ext_hist_term);
+  * K16 fk_sample, K17 choice_sample: the sample pass's foreign-key and
+    choice steps, each one launch (the record picked at the ancestors,
+    the draw, K2's own from csrc/inv_cdf.cuh, or the retained value, the
+    full-arena guard, the free slot and the working alive mask's write);
+  * K18 row_gather: every row_value gather through an fk chain;
+  * K19 branch_select: a foreign key's existing/fresh select over its
+    subtree.
 
 The sample pass draws its uniforms from a per-block pool [B, n]
 (propose.py:897-904); callers may inject the pool, which is how the tests
@@ -898,8 +904,9 @@ class BlockTracer:
         self._pool_i = 0
         env2 = {v: val.reshape(self.B) for v, val in self.env0.items()}
         births: list[Birth] = []
-        alive2 = {c: self.rel[c]["alive"] for c in self.cm.model.class_order}
-        state = _SampleState(env2, births, alive2,
+        # each target class's working alive mask, [B, cap], copied from the
+        # relational state by its first fk in the block (K16)
+        state = _SampleState(env2, births, {},
                              torch.zeros((self.B,), device=self.cm.device),
                              torch.ones((self.B,), dtype=torch.bool,
                                         device=self.cm.device))
@@ -907,13 +914,17 @@ class BlockTracer:
             self.sample_step(step, state, anc=(), mode={}, ctx_key=())
         return BlockResult(env2, state.extra_w, births)
 
-    def _pick(self, rec, anc):
-        """rec at each row's chosen ancestor positions: [B, ...rest]."""
-        rec = rec.expand((self.B,) + tuple(rec.shape[1:]))
-        if not anc:
-            return rec
-        bidx = torch.arange(self.B, device=self.cm.device)
-        return rec[(bidx,) + tuple(a.long() for a in anc)]
+    def _pick(self, rec, anc, vid):
+        """A recorded value [B or 1, a_1..a_d] at each row's chosen ancestor
+        positions: [B]. A view where the record is the same along every
+        ancestor axis (a statically observed value, a prior draw that
+        does not depend on them), else one K17 launch in pick mode."""
+        full = rec.expand((self.B,) + tuple(rec.shape[1:]))
+        if all(st == 0 or n == 1 for st, n in zip(full.stride()[1:],
+                                                    full.shape[1:])):
+            return full[(slice(None),) + (0,) * len(anc)]
+        return ops.choice_sample(rec, anc, self.B, mode="pick",
+                                 label=f"{self.cid}.{vid}")
 
     def _forced(self, vid: VertexID):
         """Retained value of a vertex: the stored row value, via fk chains."""
@@ -967,22 +978,23 @@ class BlockTracer:
             # observed everywhere, or a score-pass prior draw: reuse the
             # recorded value at the chosen ancestor branch
             tag = "so" if _static_obs(state_flag) else "ne"
-            st.env2[vid] = self._pick(self.records[(tag, vid, ctx_key)], anc)
+            st.env2[vid] = self._pick(self.records[(tag, vid, ctx_key)], anc,
+                                      vid)
             for ch in step.rest.steps:
                 self.sample_step(ch, st, anc, mode, ctx_key)
             return
-        logits = self._pick(self.records[(vid, ctx_key)], anc)  # [B, V]
+        # the record [B or 1, ancestors..., V] picked and drawn (or the
+        # retained value checked against it) in one K17 launch
+        rec = self.records[(vid, ctx_key)]
+        label = f"{self.cid}.{vid}"
         if self.force_retained:
-            rv = self._forced(vid).long()
-            dummy = self.cm.dummy_code.get(self.cm.canon(self.cid, vid))
-            if dummy is None:
-                chosen = rv
-            else:
-                valid = bgather(logits, rv[:, None])[:, 0] > NINF / 2
-                chosen = torch.where(valid, rv, torch.full_like(rv, dummy))
+            chosen = ops.choice_sample(
+                rec, anc, self.B, rv=self._forced(vid),
+                dummy=self.cm.dummy_code.get(self.cm.canon(self.cid, vid)),
+                mode="retained", label=label)
         else:
-            chosen = ops.inv_cdf_sample(logits.contiguous(), self._unif())
-        chosen = chosen.to(torch.int32)
+            chosen = ops.choice_sample(rec, anc, self.B, u=self._unif(),
+                                       mode="draw", label=label)
         st.env2[vid] = chosen
         for ch in step.rest.steps:
             self.sample_step(ch, st, anc + (chosen,), mode, ctx_key)
@@ -992,48 +1004,33 @@ class BlockTracer:
         tc = fknode.target_class
         cap = self.cm.layouts[tc].capacity
         comp = self.cand.get(tc)
-        dev = self.cm.device
-        logits = self._pick(self.records[(vid, ctx_key)], anc)  # [B, K+1]
-        K = int(logits.shape[-1]) - 1
-        retained_dead = torch.zeros((self.B,), dtype=torch.bool, device=dev)
-        if self.force_retained:
-            rv = self._forced(vid).long()
-            alive_rv = _rtake(self.rel[tc]["alive"], rv[:, None])[:, 0] & \
-                (_rtake(self.rel[tc]["refcount"], rv[:, None])[:, 0] > 0)
-            rpos = take(comp[1], rv).long() if comp is not None else rv
-            chosen = torch.where(alive_rv, rpos, torch.full_like(rpos, K))
-            retained_dead = ~alive_rv
-        else:
-            chosen = ops.inv_cdf_sample(logits.contiguous(),
-                                        self._unif()).long()
-        is_new = chosen == K
-        # full-arena guard: with no free slot, fall back to the best-scoring
-        # existing candidate instead of overwriting a live row
-        a2 = st.alive2[tc]
-        has_free = ~torch.all(a2, dim=-1)
-        fallback = torch.argmax(logits[:, :K], dim=-1)
-        chosen = torch.where(is_new & ~has_free, fallback, chosen)
-        is_new = is_new & has_free
-        effective_new = is_new & st.gate
-        c_exist = torch.clamp(chosen, max=K - 1)  # compact POSITION
-        c_exist_slot = torch.clamp(take(comp[0], c_exist), max=cap - 1) \
-            if comp is not None else c_exist
-        # fresh slot: first free slot of the row's working alive mask; a
-        # retained-dead fk re-births in its old slot
-        free = torch.argmin(a2.to(torch.int32), dim=-1).expand(self.B)
-        slot = torch.where(retained_dead, rv, free) if self.force_retained \
-            else free
-        a2 = a2.expand(self.B, cap).clone()
-        bidx = torch.arange(self.B, device=dev)
-        a2[bidx, slot] = a2[bidx, slot] | effective_new
-        st.alive2[tc] = a2
-        final = torch.where(is_new, slot, c_exist_slot).to(torch.int32)
+        r = self.rel[tc]
+        # the record [B, ancestors..., K + 1] picked, drawn (or the retained
+        # slot placed), the full-arena guard, the free slot and the alive
+        # write into the class's working mask, in one K16 launch; the
+        # class's first fk of the block copies the mask into a buffer of
+        # its own
+        own = st.alive2.get(tc)
+        mask_in = r["alive"] if own is None else own
+        if own is None:
+            own = torch.empty((self.B, cap), dtype=torch.bool,
+                              device=self.cm.device)
+        kw = dict(rv=self._forced(vid), rel_alive=r["alive"],
+                  rel_refcount=r["refcount"]) if self.force_retained \
+            else dict(u=self._unif())
+        ints, flags = ops.fk_sample(
+            self.records[(vid, ctx_key)], anc, st.gate, mask_in, own,
+            comp=None if comp is None else comp[:2], label=f"{self.cid}>{tc}",
+            **kw)
+        st.alive2[tc] = own
+        final, c_exist, c_exist_slot, slot = ints.unbind(0)
+        is_new, effective_new = flags.unbind(0)
         st.env2[vid] = final
 
         # children: existing branch (copy mode at the chosen candidate),
         # then the fresh branch, and select per row
         env_keep = dict(st.env2)
-        st.env2[vid] = c_exist_slot.to(torch.int32)
+        st.env2[vid] = c_exist_slot
         for ch in step.rest.steps:
             self.sample_step(ch, st, anc + (c_exist,), {**mode, vid: "E"},
                              ctx_key + ((vid, "E"),))
@@ -1046,17 +1043,20 @@ class BlockTracer:
                 st.env2.pop(w, None)
         st.env2[vid] = final
         outer_gate = st.gate
-        st.gate = st.gate & is_new
+        st.gate = effective_new   # the gate & is_new
         st.fk_depth += 1
         for ch in step.rest.steps:
             self.sample_step(ch, st, anc, {**mode, vid: "N"},
                              ctx_key + ((vid, "N"),))
         st.fk_depth -= 1
         st.gate = outer_gate
-        for w in sub:
-            if w in exist_vals and w in st.env2:
-                ev, nv = exist_vals[w], st.env2[w]
-                st.env2[w] = torch.where(is_new, nv, ev.to(nv.dtype))
+        # the subtree's (fresh, existing) pairs selected in one K19 launch
+        sel = [w for w in sub if w in exist_vals and w in st.env2]
+        if sel:
+            outs = ops.branch_select(is_new, [(st.env2[w], exist_vals[w])
+                                              for w in sel])
+            for w, o in zip(sel, outs):
+                st.env2[w] = o
         st.env2[vid] = final
 
         raw = self.node(vid)
@@ -1067,8 +1067,8 @@ class BlockTracer:
             sv = vmap.get(tv)
             if sv is not None and sv in st.env2:
                 values[tv] = st.env2[sv]
-        st.births.append(Birth(vid, tc, effective_new, slot.to(torch.int32),
-                               values, depth=st.fk_depth))
+        st.births.append(Birth(vid, tc, effective_new, slot, values,
+                               depth=st.fk_depth))
 
     def _subtree_vids(self, step: Step) -> list[VertexID]:
         out = []
@@ -1319,32 +1319,54 @@ def referrer_histograms(cm: CompiledModel, cid: ClassID, arenas: dict,
     return out
 
 
+def _row_chain(cm: CompiledModel, cls: ClassID, vid: VertexID) -> tuple:
+    """(hops, leaf class, leaf vertex, leaf node) of row_value: the fk
+    columns (class, fk vertex) a SubmodelNode chain follows from class cls
+    and the node it ends at; built once a (class, vertex) and cached on
+    the model."""
+    cache = cm.__dict__.setdefault("_row_chains", {})
+    key = (cls, vid)
+    if key not in cache:
+        hops = []
+        c, v = cls, vid
+        node = cm.node(c, v)
+        while isinstance(node, SubmodelNode):
+            fknode = cm.node(c, node.fk_id)
+            assert isinstance(fknode, ForeignKeyNode), \
+                "row_value must start from a class whose fks are raw"
+            hops.append((c, node.fk_id))
+            c, v = fknode.target_class, node.sub_id
+            node = cm.node(c, v)
+        cache[key] = (hops, c, v, node)
+    return cache[key]
+
+
 def row_value(cm: CompiledModel, arenas: dict, params: dict, cls: ClassID,
               vid: VertexID, slot):
     """Value of vertex `vid` of class `cls` at row(s) `slot` (any shape):
     gathers through submodel fk chains and recomputes deterministic nodes
-    (dependency_tracking.jl:239-258 re-derived through the indirection)."""
-    node = cm.node(cls, vid)
+    (dependency_tracking.jl:239-258 re-derived through the indirection).
+    A chain's gathers are one K18 launch; a Compute or ParamLookup node at
+    its end is computed by torch from its arguments, each gathered so."""
+    hops, lc, lv, node = _row_chain(cm, cls, vid)
     slot = torch.as_tensor(slot, device=cm.device)
-    if isinstance(node, SubmodelNode):
-        fknode = cm.node(cls, node.fk_id)
-        assert isinstance(fknode, ForeignKeyNode), \
-            "row_value must start from a class whose fks are raw"
-        t = take(arenas[cls]["values"][node.fk_id], slot)
-        return row_value(cm, arenas, params, fknode.target_class,
-                         node.sub_id, t)
+    cols = [arenas[c]["values"][f] for c, f in hops]
+    label = f"{cls}.{vid}"
     if isinstance(node, (ChoiceNode, ForeignKeyNode)):
-        return take(arenas[cls]["values"][vid], slot)
+        return ops.row_gather(slot, cols, arenas[lc]["values"][lv],
+                              label=label)
+    if cols:   # the rows of class lc the chain reaches
+        slot = ops.row_gather(slot, cols[:-1], cols[-1], label=label)
     if isinstance(node, ComputeNode):
         if node.kind == "tensor":
-            return node.fn(*[row_value(cm, arenas, params, cls, a, slot)
+            return node.fn(*[row_value(cm, arenas, params, lc, a, slot)
                              for a in node.arg_ids])
-        tbl = cm.use(cm.tables[cm.canon(cls, vid)])
-        return _tbl_get(tbl, [row_value(cm, arenas, params, cls, a, slot)
+        tbl = cm.use(cm.tables[cm.canon(lc, lv)])
+        return _tbl_get(tbl, [row_value(cm, arenas, params, lc, a, slot)
                               for a in node.arg_ids])
     if isinstance(node, ParamLookupNode):
-        return _lookup(cm, params, cls, node, lambda a: row_value(
-            cm, arenas, params, cls, a, slot))
+        return _lookup(cm, params, lc, node, lambda a: row_value(
+            cm, arenas, params, lc, a, slot))
     raise TypeError(type(node))
 
 

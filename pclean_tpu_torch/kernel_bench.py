@@ -84,7 +84,13 @@ checked bit-equal against the plain versions on a CPU copy
 (`check_k14`, `check_k15`) and timed beside one `index_add_` (K14) or
 `index_copy_` of one column (K15) (`time_k14`, `time_k15`);
 `check_rel_state` holds refresh and the hop histograms on a path's state
-to their plain versions.
+to their plain versions. K16-K19 (the sample pass and row lookups) take
+seeded inputs of every shape of a path's census, rebuilt from the fields
+its wrapper recorded (`ops.CENSUS_FIELDS`; `sample_inputs`:
+`k16_inputs`-`k19_inputs`), checked bit-equal against the plain versions
+drawing with K2 (`check_sample`) and timed beside the plain versions and,
+for K17's pick mode, K18 and K19, torch.take of the record or the leaf
+and torch.where of one pair (`time_sample`, `sample_bytes`).
 """
 from __future__ import annotations
 
@@ -2668,3 +2674,300 @@ def main(argv=None) -> int:
 
 if __name__ == "__main__":
     sys.exit(main())
+
+
+# ------------------------------------------------------------ K16-K19
+
+SAMPLE_KERNELS = ("fk_sample", "choice_sample", "row_gather",
+                  "branch_select")
+_ANC_AXIS = 3   # each ancestor axis of a seeded record
+
+
+def _seeded_rec(rng, B: int, d: int, V: int, dead: float = 0.3):
+    """A float32 record [B, 3 x d, V] of normal logits with a share `dead`
+    at NEG_INF (at least one live entry a row), and d ancestors [B]."""
+    x = rng.standard_normal((B,) + (_ANC_AXIS,) * d + (V,)) \
+        .astype(np.float32) * 2
+    x[rng.random(x.shape) < dead] = -1e30
+    live = rng.integers(0, V, x.shape[:-1])
+    np.put_along_axis(x, live[..., None], 1.0, axis=-1)
+    anc = [rng.integers(0, _ANC_AXIS, B).astype(np.int32) for _ in range(d)]
+    return x, anc
+
+
+def k16_inputs(dev, f: dict, K1: int, seed: int = 0) -> dict:
+    """Seeded inputs of a K16 census shape (its ops.CENSUS_FIELDS `f`) at
+    K + 1 = K1 logits: a record [B, 3 x d, K1] (30% of it NEG_INF),
+    ancestors in [0, 3), uniforms, a gate 0.8; the working mask in the
+    shape's form, 60% alive: shared, the class's [cap] mask and a separate
+    [B, cap] buffer; own, a [B, cap] mask and the buffer; inplace, the
+    buffer itself; in the last two one row in ten (and the first) full, so
+    the full-arena guard takes the argmax; the retained form's stored
+    slots (2% past cap) and relational alive (0.7) and refcounts (0-3);
+    comp: the live slots first, padded with cap, and its inverse.
+    dict(mode, args, kwargs)."""
+    rng = np.random.default_rng(seed)
+    B, cap, K = f["B"], f["cap"], K1 - 1
+    rec, anc = _seeded_rec(rng, B, f["d"], K1)
+
+    def t(x, dt):
+        return torch.as_tensor(np.ascontiguousarray(x), device=dev).to(dt)
+
+    if f["mask"] == "shared":
+        mask_in = t(rng.random(cap) < 0.6, torch.bool)
+        mask_out = torch.zeros((B, cap), dtype=torch.bool, device=dev)
+    else:
+        mask = rng.random((B, cap)) < 0.6
+        full = rng.random(B) < 0.1
+        full[0] = True
+        mask[full] = True
+        mask_in = t(mask, torch.bool)
+        mask_out = mask_in if f["mask"] == "inplace" else \
+            torch.zeros((B, cap), dtype=torch.bool, device=dev)
+    kw = dict(comp=None)
+    if f["comp"]:
+        live = np.flatnonzero(rng.random(cap) < 0.7)[:K]
+        idx = np.full(K, cap, np.int64)
+        idx[:len(live)] = live
+        inv = np.full(cap, K, np.int64)
+        inv[live] = np.arange(len(live))
+        kw["comp"] = (t(idx, torch.int64), t(inv, torch.int64))
+    if f["form"] == "retained":
+        rv = rng.integers(0, cap, B)
+        rv[rng.random(B) < 0.02] = cap + 1
+        kw.update(rv=t(rv, torch.int32),
+                  rel_alive=t(rng.random(cap) < 0.7, torch.bool),
+                  rel_refcount=t(rng.integers(0, 4, cap), torch.int32))
+    else:
+        kw["u"] = t(rng.random(B), torch.float32)
+    return dict(mode=f, kernel="fk_sample", args=(
+        t(rec, torch.float32), tuple(t(a, torch.int32) for a in anc),
+        t(rng.random(B) < 0.8, torch.bool), mask_in, mask_out), kwargs=kw)
+
+
+def k17_inputs(dev, f: dict, V: int, seed: int = 0) -> dict:
+    """Seeded inputs of a K17 census shape (its ops.CENSUS_FIELDS `f`):
+    draw and retained, a record
+    [B, 3 x d, V] (30% NEG_INF), uniforms or stored values in [0, V + 2)
+    (past the options: clamped) with the dummy code V - 1; pick, a record
+    [B, 3 x d] of the census dtype. dict(mode, args, kwargs)."""
+    rng = np.random.default_rng(seed)
+    B, d = f["B"], f["d"]
+
+    def t(x, dt):
+        return torch.as_tensor(np.ascontiguousarray(x), device=dev).to(dt)
+
+    if f["form"] == "pick":
+        rec = rng.integers(0, 100, (B,) + (_ANC_AXIS,) * d) \
+            if not f["dtype"].is_floating_point else \
+            rng.random((B,) + (_ANC_AXIS,) * d)
+        anc = [rng.integers(0, _ANC_AXIS, B) for _ in range(d)]
+        return dict(mode=f, kernel="choice_sample", args=(
+            t(rec, f["dtype"]), tuple(t(a, torch.int32) for a in anc), B),
+            kwargs=dict(mode="pick"))
+    rec, anc = _seeded_rec(rng, B, d, V)
+    kw = dict(mode=f["form"])
+    if f["form"] == "retained":
+        kw.update(rv=t(rng.integers(0, V + 2, B), torch.int32),
+                  dummy=V - 1)
+    else:
+        kw["u"] = t(rng.random(B), torch.float32)
+    return dict(mode=f, kernel="choice_sample", args=(
+        t(rec, torch.float32), tuple(t(a, torch.int32) for a in anc), B),
+        kwargs=kw)
+
+
+def k18_inputs(dev, f: dict, N: int, seed: int = 0) -> dict:
+    """Seeded inputs of a K18 census shape (its ops.CENSUS_FIELDS `f`) at
+    N slots: each hop column of
+    the census's dtype and length with values over the next column (2%
+    past it), the leaf of its dtype (ints 0-99, floats in [0, 4)), slots
+    int32 [N] over the first column (1% past it). dict(mode, args)."""
+    rng = np.random.default_rng(seed)
+    cols = f["cols"]
+
+    def t(x, dt):
+        return torch.as_tensor(np.ascontiguousarray(x), device=dev).to(dt)
+
+    out = []
+    for j, (dt, n) in enumerate(cols):
+        if j + 1 < len(cols):
+            hi = cols[j + 1][1]
+            v = rng.integers(0, hi, n)
+            v[rng.random(n) < 0.02] = hi + 1
+        else:
+            v = rng.random(n) * 4 if dt.is_floating_point \
+                else rng.integers(0, 100, n)
+        out.append(t(v, dt))
+    s = rng.integers(0, cols[0][1], N)
+    s[rng.random(N) < 0.01] = cols[0][1] + 2
+    return dict(mode=f, kernel="row_gather",
+                args=(t(s, torch.int32), out[:-1], out[-1]))
+
+
+def k19_inputs(dev, f: dict, n_pairs: int, seed: int = 0) -> dict:
+    """Seeded inputs of a K19 census shape (its ops.CENSUS_FIELDS `f`):
+    is_new 0.5 over B rows, each
+    pair's values [B] of its dtypes (ints 0-99, floats in [-4, 4),
+    bools 0.5). dict(mode, args)."""
+    rng = np.random.default_rng(seed)
+    B = f["B"]
+
+    def draw(dt):
+        if dt == torch.bool:
+            v = rng.random(B) < 0.5
+        elif dt.is_floating_point:
+            v = rng.random(B) * 8 - 4
+        else:
+            v = rng.integers(0, 100, B)
+        return torch.as_tensor(v, device=dev).to(dt)
+
+    return dict(mode=f, kernel="branch_select", args=(
+        torch.as_tensor(rng.random(B) < 0.5, device=dev),
+        [(draw(a), draw(b)) for a, b in f["pairs"]]))
+
+
+def sample_inputs(dev, kernel: str, f: dict, K: int, seed: int = 0):
+    """Seeded inputs of a K16-K19 census shape: `f` its fields
+    (ops.CENSUS_FIELDS[kernel][mode]), K its census K."""
+    return {"fk_sample": k16_inputs, "choice_sample": k17_inputs,
+            "row_gather": k18_inputs, "branch_select": k19_inputs}[kernel](
+        dev, f, K, seed)
+
+
+def _sample_call(ops, inp: dict, plain: bool = False, draw=None):
+    """One K16-K19 call on `inp` (the plain version with `plain`, its draw
+    `draw` where it draws); returns the tensors it wrote."""
+    k, a = inp["kernel"], inp["args"]
+    if k == "fk_sample":
+        if plain:
+            out = ops.fk_sample_plain(*a, draw=draw, **inp["kwargs"])
+        else:
+            out = ops.fk_sample(*a, **inp["kwargs"])
+        return list(out) + [a[4]]
+    if k == "choice_sample":
+        if plain:
+            r = ops.choice_sample_plain(*a, draw=draw, **inp["kwargs"])
+        else:
+            r = ops.choice_sample(*a, **inp["kwargs"])
+        return [r]
+    if k == "row_gather":
+        return [(ops.row_gather_plain if plain else ops.row_gather)(*a)]
+    return (ops.branch_select_plain if plain else ops.branch_select)(*a)
+
+
+def _clone_inputs(inp: dict) -> dict:
+    """`inp` with each distinct tensor cloned once (K16's in-place mask
+    stays one tensor)."""
+    seen: dict = {}
+
+    def clone(t):
+        if id(t) not in seen:
+            seen[id(t)] = t.clone()
+        return seen[id(t)]
+
+    return _tree_map(inp, clone)
+
+
+def check_sample(ops, inp: dict) -> dict:
+    """K16-K19 on a copy of the inputs against the plain version on
+    another copy, on the card: every output bit-equal, the plain version
+    of K16 and K17 drawing with K2 (ops.inv_cdf_sample: the kernels' draw
+    is K2's own). Where they draw, K2 on the picked logits against the
+    fully plain draw (torch.cumsum) within K2's stated allowance
+    (check_k2). Returns dict(max_abs_err 0.0, and check_k2's numbers)."""
+    a, b = _clone_inputs(inp), _clone_inputs(inp)
+    got = _sample_call(ops, a)
+    want = _sample_call(ops, b, plain=True, draw=ops.inv_cdf_sample)
+    torch.cuda.synchronize()
+    for i, (g, w) in enumerate(zip(got, want)):
+        require(g.dtype == w.dtype and g.shape == w.shape and
+                torch.equal(g, w), f"{inp['kernel']} differs from its plain "
+                f"version at {inp['mode']} (output {i})")
+    out = dict(max_abs_err=0.0)
+    kw = inp.get("kwargs", {})
+    if kw.get("u") is not None:
+        rec, anc = inp["args"][0], inp["args"][1]
+        B = kw["u"].shape[0]
+        out.update(check_k2(ops, ops.pick_plain(rec, anc, B).contiguous(),
+                            kw["u"]))
+        out["max_abs_err"] = 0.0
+    return out
+
+
+def sample_bytes(inp: dict) -> int:
+    """K16-K19's bytes: each input element read once and each output
+    written once (K16: a drawn row's logits, the mask row, and the mask
+    row written where it is copied; K17: a drawn row's logits, else a
+    value a row; K18: a slot, an entry of each hop column and of the leaf,
+    the output; K19: the is_new bits and each pair's two values and
+    output)."""
+    k, a = inp["kernel"], inp["args"]
+    kw = inp.get("kwargs", {})
+    if k == "fk_sample":
+        rec, anc, gate, mi, mo = a
+        B, cap, K1 = gate.shape[0], mo.shape[-1], rec.shape[-1]
+        n = B * (1 + 4 * len(anc) + 4 * 4 + 2)
+        n += B * (K1 * 4 + 4) if kw.get("u") is not None else B * (4 + 1 + 4)
+        n += mi.numel() + (mo.numel() if mi.data_ptr() != mo.data_ptr()
+                           else B)
+        return n
+    if k == "choice_sample":
+        rec, anc, B = a
+        n = B * 4 * len(anc)
+        if kw["mode"] == "draw":
+            return n + B * (rec.shape[-1] * 4 + 4 + 4)
+        if kw["mode"] == "retained":
+            return n + B * (4 + 4 + 4)
+        return n + 2 * B * rec.element_size()
+    if k == "row_gather":
+        s, hops, leaf = a
+        N = s.numel()
+        return N * (s.element_size() + sum(h.element_size() for h in hops)
+                    + 2 * leaf.element_size())
+    is_new, pairs = a
+    B = is_new.shape[0]
+    return B + sum(B * (2 * nv.element_size() + ev.element_size())
+                   for nv, ev in pairs)
+
+
+def sample_library(inp: dict):
+    """The one PyTorch call computing the same function, where there is
+    one: K17's pick mode torch.take of the record at each row's clamped
+    ancestor position (the flat indices precomputed); K18 torch.take of
+    the leaf at the final indices (one hop, precomputed); K19 torch.where
+    of the first pair; K16 and K17's draw and retained modes none."""
+    k, a = inp["kernel"], inp["args"]
+    if k == "choice_sample" and inp["kwargs"]["mode"] == "pick":
+        rec, anc, B = a
+        st = rec.contiguous().expand((B,) + tuple(rec.shape[1:])).stride()
+        idx = torch.arange(B, device=rec.device) * st[0]
+        for i, x in enumerate(anc):
+            idx = idx + x.long().clamp(0, rec.shape[1 + i] - 1) * st[1 + i]
+        return lambda: torch.take(rec, idx)
+    if k == "row_gather":
+        s, hops, leaf = a
+        t = s.long()
+        for h in hops:
+            t = h[t.clamp(0, h.shape[0] - 1)].long()
+        t = t.clamp(0, leaf.shape[0] - 1)
+        return lambda: torch.take(leaf, t)
+    if k == "branch_select":
+        is_new, pairs = a
+        nv, ev = pairs[0]
+        ev = ev.to(nv.dtype)
+        return lambda: torch.where(is_new, nv, ev)
+    return None
+
+
+def time_sample(ops, inp: dict) -> dict:
+    """A K16-K19 call on a copy of these inputs beside its plain version
+    (its own draw, torch.cumsum) and the library call: ms (cuda_ms) and
+    device_ms (graph_ms) of each; library None where there is none."""
+    x, y = _clone_inputs(inp), _clone_inputs(inp)
+    call = lambda: _sample_call(ops, x)  # noqa: E731
+    lib = sample_library(x)
+    return dict(ms=cuda_ms(call), device_ms=graph_ms(call),
+                plain_ms=cuda_ms(lambda: _sample_call(ops, y, plain=True)),
+                library_ms=None if lib is None else cuda_ms(lib),
+                library_device_ms=None if lib is None else graph_ms(lib))

@@ -1,8 +1,9 @@
 """The port's hand-written CUDA kernels: build, bind, plain versions, counts.
 
-Fifteen kernels carry the block enumeration, the particle resampling,
-the one-row loops' relational delta, row write and score glue, and the
-batched relational scatters and row writes of the port's paths (sources
+Nineteen kernels carry the block enumeration, the particle resampling,
+the one-row loops' relational delta, row write and score glue, the
+batched relational scatters and row writes, and the block proposal's
+sample pass and row lookups of the port's paths (sources
 in pclean_tpu_torch/csrc/, each with a header note on the JAX computation it
 replaces, its bound on the H100 and its design):
 
@@ -56,7 +57,20 @@ replaces, its bound on the H100 and its design):
                        refresh, hop_histograms, batch_obs_delta,
                        batch_latent_delta, _cascade);
   K15 batch_write    — a batch of accepted rows written into a class's
-                       columns and alive bits (smc.py _apply_batch).
+                       columns and alive bits (smc.py _apply_batch);
+  K16 fk_sample      — a foreign key's sample step for every row: the
+                       record picked at the ancestors, the draw (K2's, from
+                       csrc/inv_cdf.cuh) or the retained slot, the
+                       full-arena guard, the free slot and the working
+                       alive mask's write (propose.py sample_fk);
+  K17 choice_sample  — a choice's sample step for every row: the draw, the
+                       retained value with the dummy code, or a recorded
+                       value picked at the ancestors (propose.py
+                       sample_choice, _pick);
+  K18 row_gather     — a vertex's stored value at any slots through its fk
+                       chain (propose.py row_value's gathers);
+  K19 branch_select  — a foreign key's existing/fresh select over its
+                       subtree's values (propose.py sample_fk's where).
 
 Each has a plain PyTorch version here. A wrapper takes the plain version
 only for tensors on the CPU; for CUDA tensors it launches its kernel or
@@ -67,7 +81,7 @@ K8's, where the plan splits a row's referrers (S > 1, as at one row),
 adds a second launch that merges the splits;
 `LAUNCHES_BY_SHAPE` splits the same launches into those over one row
 ("r1", the sequential loops) and over more ("rn", the batched phases);
-`LAUNCH_CENSUS` splits K1's, K2's, K3's and K5-K15's further by mode and
+`LAUNCH_CENSUS` splits K1's, K2's, K3's and K5-K19's further by mode and
 row length. Inside a captured CUDA graph (engine/row_graph.py) a wrapper
 runs once, at the capture; the graph then adds the captured step's counts
 once for each replay (`snapshot`, `add_counts`), so the counts are
@@ -84,7 +98,7 @@ cached on the model; K11's from a row's writes) travel by value as the
 kernel's argument, bound to the pointers of a loop segment's carry
 (`RowCarry`) once, so no table lives on the card. K14's and K15's words
 (pointers, dtypes, lengths; a thread a source or a (column, row) pair)
-are built at each call, also by value.
+are built at each call, also by value, and so are K16's-K19's.
 
 Build: one `nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared` per
 source, all started together, into pclean_tpu_torch/_build/ (listed in
@@ -127,6 +141,10 @@ _SOURCES = {
     "choice_score": "choice_score.cu",
     "rel_scatter": "rel_scatter.cu",
     "batch_write": "batch_write.cu",
+    "fk_sample": "fk_sample.cu",
+    "choice_sample": "choice_sample.cu",
+    "row_gather": "row_gather.cu",
+    "branch_select": "branch_select.cu",
 }
 LAUNCHES = {name: 0 for name in _SOURCES}
 LAUNCHES_BY_SHAPE = {name: {"r1": 0, "rn": 0} for name in _SOURCES}
@@ -143,13 +161,31 @@ LAUNCHES_BY_SHAPE = {name: {"r1": 0, "rn": 0} for name in _SOURCES}
 # is "class R" (K12 the target class, K13 the proposing one; R the
 # enumeration rows of the record); K14's mode is the spec's signature
 # (_k14_sig: kind, sources, sides; "cascade class fks=F" in cascade mode)
-# and K its target length C, K15's "class cap=C columns" and K its rows B
+# and K its target length C, K15's "class cap=C columns" and K its rows B;
+# K16's "class>target form mask B=.. cap=..[ comp] d=.." (form drawn or
+# retained; mask the working mask's form: shared, the class's [cap] mask
+# copied into the tracer's buffer, own, per-row [B, cap] relational
+# leaves copied likewise, or inplace, that buffer itself) and K the
+# record's K + 1; K17's "class.vertex form dtype B=..
+# d=.." (form draw, retained or pick) and K the options V (1 in pick mode);
+# K18's "class.vertex dtype:length,..." (its hop columns, then its leaf)
+# and K the slots; K19's "B=.. new<existing,..." and K the pairs
 LAUNCH_CENSUS = {"enum_logsumexp": {}, "inv_cdf_sample": {},
                  "obs_gather_sum": {}, "gauss_ext_term": {},
                  "maybe_swap_ext": {}, "referrer_hist": {},
                  "sa_ext_term": {}, "pg_resample": {}, "row_delta": {},
                  "row_write": {}, "fk_score": {}, "choice_score": {},
-                 "rel_scatter": {}, "batch_write": {}}
+                 "rel_scatter": {}, "batch_write": {}, "fk_sample": {},
+                 "choice_sample": {}, "row_gather": {},
+                 "branch_select": {}}
+# the fields each K16-K19 census mode was formatted from, by kernel and
+# mode (K16: form, mask, B, cap, comp, d; K17: form, dtype, B, d; K18:
+# cols, a (dtype, length) a hop column, then the leaf's; K19: B, pairs of
+# (new, existing) dtypes): kernel_bench rebuilds a census shape's inputs
+# from them. A mode names the same fields in every run, so reset_counts
+# keeps them (a graph captured before it replays its modes after it)
+CENSUS_FIELDS = {"fk_sample": {}, "choice_sample": {}, "row_gather": {},
+                 "branch_select": {}}
 SMEM_MAX = 232448  # shared memory one block may use on an H100 (227 KB)
 N_SMS = 132        # streaming multiprocessors of an H100 SXM
 _GRID_Y_MAX = 65535
@@ -166,13 +202,15 @@ def reset_counts() -> None:
         census.clear()
 
 
-def _count(name: str, rows: int, K=None, mode=None) -> None:
+def _count(name: str, rows: int, K=None, mode=None, fields=None) -> None:
     shape = "r1" if rows == 1 else "rn"
     LAUNCHES[name] += 1
     LAUNCHES_BY_SHAPE[name][shape] += 1
     if name in LAUNCH_CENSUS:
         key = (mode, shape, K)
         LAUNCH_CENSUS[name][key] = LAUNCH_CENSUS[name].get(key, 0) + 1
+    if fields is not None:
+        CENSUS_FIELDS[name][mode] = fields
 
 
 def snapshot() -> dict:
@@ -314,6 +352,10 @@ def build_kernels(force: bool = False) -> float:
                              P, P, P, P, I64, I32, I32, I64, P],
             "rel_scatter": [P, I32, P],
             "batch_write": [P, I32, P],
+            "fk_sample": [P, I32, P],
+            "choice_sample": [P, I32, P],
+            "row_gather": [P, I32, P],
+            "branch_select": [P, I32, P],
         }
         for name in _SOURCES:
             lib = ctypes.CDLL(os.path.join(BUILD_DIR, f"lib{name}.so"))
@@ -2209,3 +2251,415 @@ def batch_write(cols, vals, slots, ok, alive=None, cls=None) -> None:
     _check(rc, "batch_write")
     cap = dsts[0].shape[0] if dsts else 0
     _count("batch_write", B, B, f"{cls} cap={cap} {','.join(sig)}")
+
+
+# ---------------------------------------------------------------- K16-K19
+
+# the plans' word counts and limits (csrc/fk_sample.cu, choice_sample.cu,
+# row_gather.cu, branch_select.cu)
+K16_WORDS, K17_WORDS = 40, 32
+K17_MODES = ("draw", "retained", "pick")
+K18_MAX_DIMS, K18_MAX_HOPS = 8, 4
+K18_WORDS = 24 + 3 * K18_MAX_HOPS + 5
+K19_HEAD, K19_PAIR, K19_MAX_PAIRS = 4, 8, 64
+_MAX_ANC = 3   # ancestor axes of a record the sample kernels take
+
+
+def pick_plain(rec, anc, B: int):
+    """rec at each row's ancestor positions (BlockTracer._pick): rec [B or
+    1, a_1..a_d, ...] and d index tensors [B] -> [B, ...], each index
+    clamped into its axis as JAX's gather clamps it."""
+    rec = rec.expand((B,) + tuple(rec.shape[1:]))
+    if not anc:
+        return rec
+    bidx = torch.arange(B, device=rec.device)
+    return rec[(bidx,) + tuple(a.long().reshape(-1).clamp(0, rec.shape[1 + i] - 1)
+                               for i, a in enumerate(anc))]
+
+
+def _rec_words(rec, anc, B: int, name: str, tail: int) -> tuple:
+    """(rec, words 5-19 of a K16/K17 plan): the record's pointer, its
+    ancestor axes, the strides (in elements) of rec expanded to B rows
+    and the ancestors' pointers and dtypes. `tail` is the number of axes
+    after the ancestor axes (1: a row of logits, 0: one value); a row of
+    logits must have stride 1 (else the record is made contiguous)."""
+    if len(anc) > _MAX_ANC or rec.dim() != 1 + len(anc) + tail:
+        raise ValueError(f"{name}: a record of {rec.dim()} axes with "
+                         f"{len(anc)} ancestors (at most {_MAX_ANC})")
+    if not rec.is_cuda or rec.dtype not in _DT or rec.shape[0] not in (1, B):
+        raise ValueError(f"{name}: record {rec.dtype} {tuple(rec.shape)} on "
+                         f"{rec.device} (expected [1 or {B}, ...] on the card)")
+    if tail and rec.stride(-1) != 1:
+        rec = rec.contiguous()
+    st = rec.expand((B,) + tuple(rec.shape[1:])).stride()
+    words = [rec.data_ptr(), len(anc), st[0], 0, 0, 0, 1, 1, 1,
+             0, 0, 0, 0, 0, 0]
+    for d, a in enumerate(anc):
+        if not a.is_cuda or a.dtype not in _INDEX_DT or a.numel() != B or \
+                not a.reshape(-1).is_contiguous():
+            raise ValueError(f"{name}: ancestor {d} is {a.dtype} "
+                             f"{tuple(a.shape)} on {a.device} (expected "
+                             f"[{B}] integers on the card)")
+        words[3 + d], words[6 + d] = st[1 + d], rec.shape[1 + d]
+        words[9 + d], words[12 + d] = a.data_ptr(), _DT[a.dtype]
+    return rec, words
+
+
+def _vec_words(t, B: int, name: str, dtypes) -> list:
+    """[pointer, stride] of a [B] vector (a pool column may be strided)."""
+    if t is None:
+        return [0, 0]
+    if not t.is_cuda or t.dtype not in dtypes or t.numel() != B or \
+            t.dim() > 2:
+        raise ValueError(f"{name}: {t.dtype} {tuple(t.shape)} on "
+                         f"{t.device} (expected [{B}] of {dtypes} on the "
+                         f"card)")
+    return [t.data_ptr(), t.reshape(-1).stride(0) if B > 1 else 1]
+
+
+def fk_sample_plain(rec, anc, gate, mask_in, mask_out, u=None, rv=None,
+                    rel_alive=None, rel_refcount=None, comp=None,
+                    draw=None):
+    """K16's plain version, BlockTracer.sample_fk's body before its
+    children: the record [B or 1, a_1..a_d, K + 1] picked at the ancestors,
+    the draw at u [B] (`draw`, default inv_cdf_sample_plain) or, with rv
+    [B] (the stored slots), the retained form; the full-arena guard and
+    the first free slot of mask_in ([cap] or [B or 1, cap]); mask_out
+    [B, cap] gets mask_in (unless it is mask_in) and each fresh, gated
+    row's bit. Returns (int32 [4, B]: final, c_exist, c_exist_slot, slot;
+    bool [2, B]: is_new, effective_new)."""
+    from .engine.propose import _rtake
+
+    B = int(gate.shape[0])
+    cap = int(mask_out.shape[-1])
+    logits = pick_plain(rec, anc, B)
+    K = int(logits.shape[-1]) - 1
+    dead = None
+    if rv is not None:
+        rv = rv.long().reshape(B)
+        live = _rtake(rel_alive, rv[:, None])[:, 0] & \
+            (_rtake(rel_refcount, rv[:, None])[:, 0] > 0)
+        rpos = take(comp[1], rv).long() if comp is not None else rv
+        chosen = torch.where(live, rpos, torch.full_like(rpos, K))
+        dead = ~live
+    else:
+        chosen = (draw or inv_cdf_sample_plain)(
+            logits.contiguous(), u.reshape(-1).contiguous()).long()
+    is_new = chosen == K
+    a2 = mask_in.reshape(-1, cap).expand(B, cap)
+    has_free = ~torch.all(a2, dim=-1)
+    fallback = torch.argmax(logits[:, :K], dim=-1)
+    chosen = torch.where(is_new & ~has_free, fallback, chosen)
+    is_new = is_new & has_free
+    eff = is_new & gate
+    c_exist = torch.clamp(chosen, max=K - 1)
+    c_slot = torch.clamp(take(comp[0], c_exist), max=cap - 1) \
+        if comp is not None else c_exist
+    free = torch.argmin(a2.to(torch.int32), dim=-1)
+    slot = torch.where(dead, rv, free) if dead is not None else free
+    if mask_out.data_ptr() != mask_in.data_ptr():
+        mask_out.copy_(a2)
+    ok = eff & (slot >= 0) & (slot < cap)
+    bidx = torch.arange(B, device=gate.device)
+    s = slot.clamp(0, cap - 1)
+    mask_out[bidx, s] = mask_out[bidx, s] | ok
+    final = torch.where(is_new, slot, c_slot)
+    return (torch.stack([final, c_exist.long(), c_slot.long(), slot])
+            .to(torch.int32), torch.stack([is_new, eff]))
+
+
+def fk_sample(rec, anc, gate, mask_in, mask_out, u=None, rv=None,
+              rel_alive=None, rel_refcount=None, comp=None, label=None):
+    """K16: fk_sample_plain in one launch, one 512-thread block a row (the
+    draw is K2's own, csrc/inv_cdf.cuh, so it gives K2's index): rec a
+    float32 record [B or 1, a_1..a_d, K + 1] (d <= 3, any strides, the
+    last 1) read in place at the int ancestors anc [B]; u float32 [B] (a
+    pool column, any stride) for the drawn form, or rv [B] (ints) with
+    rel_alive (bool) and rel_refcount (int32), each [cap] or [B or 1, cap],
+    for the retained form; comp (idx, inv) int index vectors or None; gate
+    bool [B]; mask_in bool [cap] or [B or 1, cap], mask_out a contiguous
+    bool [B, cap] the caller owns (mask_in itself: in place). Outputs in
+    torch.empty buffers. On CPU tensors the plain version; on CUDA ones
+    the kernel or an error. Counted in LAUNCH_CENSUS by (`label` form
+    mask B=.. cap=..[ comp] d=.., r1 or rn, K + 1), mask shared (mask_in
+    [cap] or [1, cap]), own ([B, cap]) or inplace; its fields in
+    CENSUS_FIELDS."""
+    if not _route(gate, "fk_sample"):
+        return fk_sample_plain(rec, anc, gate, mask_in, mask_out, u, rv,
+                               rel_alive, rel_refcount, comp)
+    B = int(gate.shape[0])
+    if gate.dtype != torch.bool or gate.dim() != 1 or \
+            not gate.is_contiguous():
+        raise ValueError("fk_sample: gate must be a contiguous bool [B]")
+    if rec.dtype != torch.float32:
+        raise ValueError(f"fk_sample: the record is {rec.dtype}, not float32")
+    rec, rw = _rec_words(rec, anc, B, "fk_sample", 1)
+    K1 = int(rec.shape[-1])
+    if K1 < 2:
+        raise ValueError("fk_sample: a record of K + 1 >= 2 entries")
+    cap = int(mask_out.shape[-1])
+    if mask_out.dtype != torch.bool or mask_out.shape != (B, cap) or \
+            not mask_out.is_contiguous() or not mask_out.is_cuda:
+        raise ValueError(f"fk_sample: mask_out must be a contiguous bool "
+                         f"[{B}, {cap}] on the card")
+
+    def rows(t, name, dtype):
+        """[pointer, row stride] of a [cap] or [B or 1, cap] leaf."""
+        if not t.is_cuda or t.dtype != dtype or t.shape[-1] != cap or \
+                t.dim() > 2 or (t.dim() == 2 and t.shape[0] not in (1, B)) \
+                or not t.is_contiguous():
+            raise ValueError(f"fk_sample: {name} is {t.dtype} "
+                             f"{tuple(t.shape)} (expected contiguous "
+                             f"{dtype} [cap] or [B or 1, {cap}])")
+        return [t.data_ptr(), cap if t.dim() == 2 and t.shape[0] == B
+                and B > 1 else 0]
+
+    mi = rows(mask_in, "mask_in", torch.bool)
+    if mi[0] == mask_out.data_ptr():
+        if mi[1] != cap and B > 1:
+            raise ValueError("fk_sample: in place needs mask_in [B, cap]")
+        mask = "inplace"
+    else:
+        mask = "shared" if mask_in.dim() == 1 or mask_in.shape[0] == 1 \
+            else "own"
+    words = [B, K1, cap, 0, 0] + rw
+    if rv is None:
+        if u is None:
+            raise ValueError("fk_sample: the drawn form needs u")
+        plan = _inv_cdf_plan(K1)
+        words[3], words[4] = plan["tile"], plan["smem"]
+        words += _vec_words(u, B, "fk_sample u", (torch.float32,)) + [0, 0]
+        words += [0, 0, 0, 0]
+        form = "drawn"
+    else:
+        rv = rv.reshape(-1).contiguous()
+        words += [0, 0] + [_vec_words(rv, B, "fk_sample rv", _INDEX_DT)[0],
+                           _DT[rv.dtype]]
+        words += rows(rel_alive, "rel_alive", torch.bool) + \
+            rows(rel_refcount, "rel_refcount", torch.int32)
+        form = "retained"
+    if comp is not None:
+        idx, inv = comp[0], comp[1]
+        for t, name in ((idx, "comp idx"), (inv, "comp inv")):
+            if not t.is_cuda or t.dtype not in _INDEX_DT or t.dim() != 1 \
+                    or not t.is_contiguous():
+                raise ValueError(f"fk_sample: {name} must be a contiguous "
+                                 f"int vector on the card")
+        words += [idx.data_ptr(), _DT[idx.dtype], idx.shape[0],
+                  inv.data_ptr(), _DT[inv.dtype], inv.shape[0]]
+    else:
+        words += [0] * 6
+    ints = torch.empty((4, B), dtype=torch.int32, device=gate.device)
+    flags = torch.empty((2, B), dtype=torch.bool, device=gate.device)
+    words += [gate.data_ptr()] + mi + [mask_out.data_ptr(), ints.data_ptr(),
+                                       flags.data_ptr()]
+    assert len(words) == K16_WORDS, len(words)
+    arr = (ctypes.c_int64 * K16_WORDS)(*words)
+    rc = _fn("fk_sample")(arr, K16_WORDS, _stream(gate))
+    _check(rc, "fk_sample")
+    f = dict(form=form, mask=mask, B=B, cap=cap, comp=comp is not None,
+             d=len(anc))
+    _count("fk_sample", B, K1,
+           f"{label} {form} {mask} B={B} cap={cap}"
+           f"{' comp' if comp is not None else ''} d={len(anc)}", f)
+    return ints, flags
+
+
+def choice_sample_plain(rec, anc, B: int, u=None, rv=None, dummy=None,
+                        mode: str = "draw", draw=None):
+    """K17's plain version, BlockTracer.sample_choice's step: the record
+    picked at the ancestors (pick_plain), then in draw mode the draw at u
+    (`draw`, default inv_cdf_sample_plain) and in retained mode rv, or
+    `dummy` where the choice has one and the logit at rv is <= NEG_INF /
+    2, each int32 [B]; in pick mode the picked value itself, [B] of the
+    record's dtype."""
+    r = pick_plain(rec, anc, B)
+    if mode == "pick":
+        return r
+    if mode == "retained":
+        rv = rv.long().reshape(B)
+        if dummy is None:
+            chosen = rv
+        else:
+            from .utils import bgather
+            valid = bgather(r, rv[:, None])[:, 0] > NINF / 2
+            chosen = torch.where(valid, rv, torch.full_like(rv, dummy))
+    elif mode == "draw":
+        chosen = (draw or inv_cdf_sample_plain)(r.contiguous(),
+                                                u.reshape(-1).contiguous())
+    else:
+        raise ValueError(f"choice_sample: mode {mode!r} is not one of "
+                         f"{K17_MODES}")
+    return chosen.to(torch.int32)
+
+
+def choice_sample(rec, anc, B: int, u=None, rv=None, dummy=None,
+                  mode: str = "draw", label=None):
+    """K17: choice_sample_plain in one launch. Draw mode: rec a float32
+    record [B or 1, a_1..a_d, V] (d <= 3, the last stride 1) read in place
+    at the int ancestors anc [B], u float32 [B] (any stride), one 512-
+    thread block a row with K2's own draw (csrc/inv_cdf.cuh); retained
+    mode: rv [B] ints, a thread a row; pick mode: rec [B or 1, a_1..a_d]
+    of any dtype, a thread a row copying the picked value. Output int32
+    [B] (pick: the record's dtype) from torch.empty. On CPU tensors the
+    plain version; on CUDA ones the kernel or an error. Counted in
+    LAUNCH_CENSUS by (`label` mode dtype B=.. d=.., r1 or rn, V; pick:
+    1)."""
+    if not _route(rec, "choice_sample"):
+        return choice_sample_plain(rec, anc, B, u, rv, dummy, mode)
+    if mode not in K17_MODES:
+        raise ValueError(f"choice_sample: mode {mode!r} is not one of "
+                         f"{K17_MODES}")
+    pick = mode == "pick"
+    if not pick and rec.dtype != torch.float32:
+        raise ValueError(f"choice_sample: the record is {rec.dtype}, not "
+                         f"float32")
+    rec, rw = _rec_words(rec, anc, B, "choice_sample", 0 if pick else 1)
+    V = 1 if pick else int(rec.shape[-1])
+    words = [B, V, K17_MODES.index(mode), 0, 0] + rw
+    if mode == "draw":
+        plan = _inv_cdf_plan(V)
+        words[3], words[4] = plan["tile"], plan["smem"]
+        words += _vec_words(u, B, "choice_sample u", (torch.float32,))
+    else:
+        words += [0, 0]
+    if mode == "retained":
+        rv = rv.reshape(-1).contiguous()
+        words += [_vec_words(rv, B, "choice_sample rv", _INDEX_DT)[0],
+                  _DT[rv.dtype]]
+    else:
+        words += [0, 0]
+    words += [0 if dummy is None else int(dummy), int(dummy is not None)]
+    out = torch.empty((B,), dtype=rec.dtype if pick else torch.int32,
+                      device=rec.device)
+    words += [out.data_ptr(), out.element_size()]
+    words += [0] * (K17_WORDS - len(words))
+    arr = (ctypes.c_int64 * K17_WORDS)(*words)
+    rc = _fn("choice_sample")(arr, K17_WORDS, _stream(rec))
+    _check(rc, "choice_sample")
+    _count("choice_sample", B, V,
+           f"{label} {mode} {_SHORT[rec.dtype]} B={B} d={len(anc)}",
+           dict(form=mode, dtype=rec.dtype, B=B, d=len(anc)))
+    return out
+
+
+def row_gather_plain(slot, hops, leaf):
+    """K18's plain version, row_value's gathers: t = slot, then t =
+    take(col, t) for each hop column, then take(leaf, t) (every index
+    clamped into its column)."""
+    t = slot
+    for col in hops:
+        t = take(col, t)
+    return take(leaf, t)
+
+
+def row_gather_mode(label, hops, leaf) -> str:
+    """K18's LAUNCH_CENSUS mode: the label (class.vertex) and each hop
+    column's and the leaf's dtype:length."""
+    return f"{label} " + ",".join(f"{_SHORT[c.dtype]}:{c.shape[0]}"
+                                  for c in list(hops) + [leaf])
+
+
+def row_gather(slot, hops, leaf, label=None):
+    """K18: row_gather_plain in one launch, a thread a slot: slot an int
+    tensor of any shape and strides (up to 8 axes where it is not
+    contiguous), hops up to 4 contiguous int columns, leaf a contiguous
+    column of any dtype of _DT; returns slot's shape in the leaf's dtype
+    (torch.empty). On CPU tensors the plain version; on CUDA ones the
+    kernel or an error. Counted in LAUNCH_CENSUS by (row_gather_mode, r1
+    or rn, the slot count)."""
+    if not _route(leaf, "row_gather"):
+        return row_gather_plain(slot, hops, leaf)
+    if not torch.is_tensor(slot):
+        slot = torch.as_tensor(slot, device=leaf.device)
+    if not slot.is_cuda or slot.dtype not in _INDEX_DT + (torch.uint8,):
+        raise ValueError(f"row_gather: slots {slot.dtype} on {slot.device} "
+                         f"(expected integers on the card)")
+    if len(hops) > K18_MAX_HOPS:
+        raise ValueError(f"row_gather: {len(hops)} hops (at most "
+                         f"{K18_MAX_HOPS})")
+    for c, name in [(h, "hop column") for h in hops] + [(leaf, "leaf")]:
+        if not c.is_cuda or c.dim() != 1 or not c.is_contiguous() or \
+                c.dtype not in _DT or c.shape[0] < 1 or \
+                (name != "leaf" and c.dtype not in _INDEX_DT):
+            raise ValueError(f"row_gather: {name} {c.dtype} "
+                             f"{tuple(c.shape)} on {c.device}")
+    contig = slot.is_contiguous()
+    if not contig and slot.dim() > K18_MAX_DIMS:
+        slot, contig = slot.contiguous(), True
+    N = slot.numel()
+    words = [N, slot.dim(), slot.data_ptr(), _DT[slot.dtype], int(contig)]
+    sizes = list(slot.shape) + [1] * (K18_MAX_DIMS - slot.dim())
+    strides = list(slot.stride()) + [0] * (K18_MAX_DIMS - slot.dim())
+    words += sizes + strides + [len(hops)]
+    for h in range(K18_MAX_HOPS):
+        words += [hops[h].data_ptr(), _DT[hops[h].dtype], hops[h].shape[0]] \
+            if h < len(hops) else [0, 0, 0]
+    out = torch.empty(tuple(slot.shape), dtype=leaf.dtype, device=leaf.device)
+    words += [leaf.data_ptr(), _DT[leaf.dtype], leaf.shape[0],
+              out.data_ptr(), leaf.element_size()]
+    words += [0] * (K18_WORDS - len(words))
+    arr = (ctypes.c_int64 * K18_WORDS)(*words)
+    rc = _fn("row_gather")(arr, K18_WORDS, _stream(leaf))
+    _check(rc, "row_gather")
+    _count("row_gather", N, N, row_gather_mode(label, hops, leaf),
+           dict(cols=[(c.dtype, int(c.shape[0]))
+                      for c in list(hops) + [leaf]]))
+    return out
+
+
+def branch_select_plain(is_new, pairs) -> list:
+    """K19's plain version, sample_fk's select over its subtree:
+    torch.where(is_new, new, existing.to(new's dtype)) for each (new,
+    existing) pair."""
+    return [torch.where(is_new, nv, ev.to(nv.dtype)) for nv, ev in pairs]
+
+
+def branch_select(is_new, pairs) -> list:
+    """K19: branch_select_plain in one launch for up to K19_MAX_PAIRS pairs
+    (more: a launch each K19_MAX_PAIRS), a thread a (pair, row): is_new a
+    contiguous bool [B], each value a tensor of B or 1 elements (at most
+    one axis) of any dtype of _DT; each output a [B] tensor of the new
+    value's dtype (torch.empty). On CPU tensors the plain version; on
+    CUDA ones the kernel or an error. Counted in LAUNCH_CENSUS by ("B=..
+    new<existing,...", r1 or rn, the pairs)."""
+    if not _route(is_new, "branch_select"):
+        return branch_select_plain(is_new, pairs)
+    B = int(is_new.shape[0]) if is_new.dim() == 1 else -1
+    if B < 0 or is_new.dtype != torch.bool or not is_new.is_contiguous():
+        raise ValueError(f"branch_select: is_new must be a contiguous bool "
+                         f"[B], got {is_new.dtype} {tuple(is_new.shape)}")
+    outs = []
+    for j0 in range(0, len(pairs), K19_MAX_PAIRS):
+        chunk = pairs[j0:j0 + K19_MAX_PAIRS]
+        words = [len(chunk), B, is_new.data_ptr(), 0]
+        sig, keep, dts = [], [], []
+        for nv, ev in chunk:
+            row = []
+            for t in (nv, ev):
+                if not torch.is_tensor(t) or not t.is_cuda or \
+                        t.dtype not in _DT or t.numel() not in (1, B) or \
+                        t.dim() > 1:
+                    raise ValueError(
+                        f"branch_select: a value {getattr(t, 'dtype', t)} "
+                        f"{tuple(getattr(t, 'shape', ()))} (expected [{B}] "
+                        f"or one element on the card)")
+                t = t.reshape(-1)
+                n = t.numel()
+                if n > 1 and t.stride(0) == 0:   # one value broadcast
+                    n = 1
+                elif not t.is_contiguous():
+                    t = t.contiguous()
+                    keep.append(t)
+                row += [t.data_ptr(), _DT[t.dtype], n]
+            out = torch.empty((B,), dtype=nv.dtype, device=is_new.device)
+            outs.append(out)
+            words += row + [out.data_ptr(), 0]
+            sig.append(f"{_SHORT[nv.dtype]}<{_SHORT[ev.dtype]}")
+            dts.append((nv.dtype, ev.dtype))
+        arr = (ctypes.c_int64 * len(words))(*words)
+        rc = _fn("branch_select")(arr, len(words), _stream(is_new))
+        _check(rc, "branch_select")
+        _count("branch_select", B, len(chunk), f"B={B} {','.join(sig)}",
+               dict(B=B, pairs=dts))
+    return outs
