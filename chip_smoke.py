@@ -7,7 +7,7 @@
 
 It drives the port only (never jax, never pclean_tpu), in order:
   1. prints the card's name and power limit (nvidia-smi);
-  2. builds the nineteen CUDA kernels from pclean_tpu_torch/csrc/ (one nvcc
+  2. builds the twenty-one CUDA kernels from pclean_tpu_torch/csrc/ (one nvcc
      per source, in parallel) and prints the build time and ptxas's
      registers, shared memory, stack frame and spills for each compiled
      function; measures the launch floor and one dependent L2 load (K10's
@@ -143,7 +143,15 @@ It drives the port only (never jax, never pclean_tpu), in order:
      picked logits against the fully plain draw within K2's allowance
      (sample_checks); the trace phase also counts, for each of its
      sections, the device ops each port function issued in one eager run
-     (a graphed row's warm-up row; ops_by_function);
+     (a graphed row's warm-up row; ops_by_function), and those of the
+     score pass (SCORE_PASS);
+  8e. after every path, K20 level_sum and K21 py_prior (the score pass's
+     accumulation glue: a level's terms summed, a batched foreign key's
+     prior and children) at every shape of the path's census holding >=
+     SHAPE_SHARE of its launches of the kernel, on seeded inputs of that
+     shape (kernel_bench.level_inputs: K20's program and operand kinds,
+     shapes and dtypes as the census recorded them), against their plain
+     versions on the card, bit-equal (level_checks);
   9. after all six paths, K12 fk_score and K13 choice_score at every
      shape of the paths' launch census (class, enumeration rows, slots or
      options; seeded inputs of that shape, K13's rows in states 0, 1 and
@@ -157,10 +165,13 @@ It drives the port only (never jax, never pclean_tpu), in order:
      launched one-row and batched census shapes holding >= SHAPE_SHARE of
      a path's launches and at the largest, beside their plain versions, the library call (K18: torch.take of the
      leaf at the final indices; K19: torch.where of one pair; K16 and K17
-     none) and the bytes bound (bench_sample_shapes); then prints, for
+     none) and the bytes bound (bench_sample_shapes); K20 and K21 likewise
+     at their most launched one-row and batched shapes and the largest,
+     beside their plain versions and the bytes bound, no library call
+     (bench_level_shapes); then prints, for
      each kernel, how many
      shapes were checked and the worst error, the run's seconds, then the
-     `kernels` JSON line (K1-K19; `launches` summed over
+     `kernels` JSON line (K1-K21; `launches` summed over
      the six paths, with each path's own beside it; `max_abs_err` the
      worst over every shape checked; the times those of the shape named in
      `shape`; every shape's numbers in chip_smoke.json under --out), then
@@ -190,7 +201,8 @@ bit-equal (integer state and copied values); K12 and K13 record
 bit-equal (the same float operations, one rounding each) and logZ within
 K1's rule; K14 and K15 bit-equal (integer atomics, copied values); K16-K19
 bit-equal to their plain versions drawing with K2 (integers and copied
-values), and K2 against the fully plain draw as above. It
+values), and K2 against the fully plain draw as above; K20 and K21
+bit-equal (the same float operations, one rounding each). It
 fails
 (non-zero exit, no result line) if there is no card, a kernel does not
 build, launch or agree, K1 and K3 were not launched on the scaled path,
@@ -200,7 +212,8 @@ both its modes not on the hospital_pg16_vmapped path (K2's draw runs
 inside K16 and K17 on every path; K2 itself draws the MaybeSwap prior
 only), K10 or K11 not on
 any path, K12 or K13 not on any path but hospital_pg16_vmapped, K14 not
-on any path or K15 not on a batched one, K16-K19 not on every path, a
+on any path or K15 not on a batched one, K16-K19 not on every path, K20
+not on every path or K21 not on a path with batched steps, a
 shadow run or the state check
 of K14 differs or waits for the card, a graph replay differs from the
 eager row or a graphed loop kind ran a row after its first eagerly, a PG
@@ -319,6 +332,10 @@ SOURCES = {
                    "pclean_tpu/engine/propose.py:1410"),
     "branch_select": ("pclean_tpu_torch/csrc/branch_select.cu",
                       "pclean_tpu/engine/propose.py:1093"),
+    "level_sum": ("pclean_tpu_torch/csrc/level_sum.cu",
+                  "pclean_tpu/engine/propose.py:383"),
+    "py_prior": ("pclean_tpu_torch/csrc/py_prior.cu",
+                 "pclean_tpu/engine/propose.py:241"),
 }
 SCALED_KERNELS = ("enum_logsumexp", "inv_cdf_sample", "obs_gather_sum")
 RENTS_KERNELS = ("gauss_suffstats", "gauss_ext_term")
@@ -342,23 +359,29 @@ SAMPLE_KERNELS = ("fk_sample", "choice_sample", "row_gather",
                   "branch_select")
 
 
+# K20 and K21: the score pass's accumulation glue, every level's terms on
+# every path, and a batched foreign key's prior and children (every path
+# but flights, whose every row is a one-row step: K12 there)
+LEVEL_KERNELS = ("level_sum", "py_prior")
+
+
 def _no_k2(names):
     return tuple(n for n in names if n != "inv_cdf_sample")
 
 
 NEED = {"scaled": _no_k2(SCALED_KERNELS) + ROW_KERNELS + SCORE_KERNELS
-        + REL_KERNELS + SAMPLE_KERNELS,
+        + REL_KERNELS + SAMPLE_KERNELS + LEVEL_KERNELS,
         "rents": RENTS_KERNELS + ROW_KERNELS + SCORE_KERNELS + REL_KERNELS
-        + SAMPLE_KERNELS,
+        + SAMPLE_KERNELS + LEVEL_KERNELS,
         # every flights row is a one-row step: K12/K13 in place of K1
         "flights": FLIGHTS_KERNELS[1:] + ROW_KERNELS + SCORE_KERNELS
-        + REL_KERNELS[:1] + SAMPLE_KERNELS,
+        + REL_KERNELS[:1] + SAMPLE_KERNELS + LEVEL_KERNELS[:1],
         "hospital": _no_k2(HOSPITAL_KERNELS) + ROW_KERNELS + SCORE_KERNELS
-        + REL_KERNELS + SAMPLE_KERNELS,
+        + REL_KERNELS + SAMPLE_KERNELS + LEVEL_KERNELS,
         "hospital_pg1024": _no_k2(HOSPITAL_KERNELS) + ROW_KERNELS
-        + SCORE_KERNELS + REL_KERNELS + SAMPLE_KERNELS,
+        + SCORE_KERNELS + REL_KERNELS + SAMPLE_KERNELS + LEVEL_KERNELS,
         "hospital_pg16_vmapped": _no_k2(SCALED_KERNELS) + ("pg_resample",)
-        + ROW_KERNELS + REL_KERNELS + SAMPLE_KERNELS}
+        + ROW_KERNELS + REL_KERNELS + SAMPLE_KERNELS + LEVEL_KERNELS}
 PATHS = tuple(NEED)
 
 
@@ -933,10 +956,10 @@ def bench_rel_shapes(ops, dev, checked: dict, floor) -> dict:
                      **t)
             out[name].append(x)
             print(f"{name} {x['shape']} ({x['launches']} launches "
-                  f"{x['launches_by_path']}): kernel {x['ms']:.4f} ms "
-                  f"(device {x['device_ms']:.4f} ms) plain "
-                  f"{x['plain_ms']:.4f} ms library {x['library_ms']:.4f} ms "
-                  f"(device {x['library_device_ms']:.4f} ms) bound "
+                  f"{x['launches_by_path']}): kernel {_ms(x['ms'])} "
+                  f"(device {_ms(x['device_ms'])}) plain "
+                  f"{_ms(x['plain_ms'])} library {_ms(x['library_ms'])} "
+                  f"(device {_ms(x['library_device_ms'])}) bound "
                   f"{x['bound_ms']:.6f} ms floor {floor:.4f} ms",
                   flush=True)
             del inp
@@ -944,10 +967,18 @@ def bench_rel_shapes(ops, dev, checked: dict, floor) -> dict:
     return out
 
 
+def _ms(x) -> str:
+    """A time for the log: "not timed" where a call launches nothing (a
+    CUDA graph of it would be empty)."""
+    return "not timed" if x is None else f"{x:.4f} ms"
+
+
 def rel_entry(name: str, shapes: list) -> dict:
     """K14's or K15's kernels-line entry: the numbers of the timed shape
-    launched most over the six paths."""
-    top = max(shapes, key=lambda r: r["launches"])
+    launched most over the six paths (among those whose call launches
+    work)."""
+    top = max((r for r in shapes if r["ms"] is not None),
+              key=lambda r: r["launches"])
     return dict({key: top[key] for key in (
         "max_abs_err", "ms", "device_ms", "plain_ms", "library_ms",
         "library_device_ms", "bytes", "bound_ms", "floor_ms", "shape")},
@@ -1065,7 +1096,7 @@ def bench_sample_shapes(ops, dev, checked: dict, floor) -> dict:
 
 
 def sample_entry(name: str, shapes: list) -> dict:
-    """K16's-K19's kernels-line entry: the numbers of the timed shape
+    """K16's-K21's kernels-line entry: the numbers of the timed shape
     launched most over the six paths, (as *_rn) those of the batched
     shape launched most and, for K17, (as *_pick) those of its pick mode
     at one row (SAMPLE_PICK), beside its library call."""
@@ -1087,6 +1118,86 @@ def sample_entry(name: str, shapes: list) -> dict:
         out.update({f"{key}_pick": pick[0][key] for key in (
             "shape", "max_abs_err", "ms", "device_ms", "plain_ms",
             "library_ms", "library_device_ms", "bound_ms")})
+    return out
+
+
+def level_checks(ops, dev, census, path: str) -> dict:
+    """K20 and K21 after a path: every census shape holding >= SHAPE_SHARE
+    of the path's launches of the kernel, on seeded inputs of that shape
+    (kernel_bench.level_inputs, from the fields the wrapper recorded in
+    ops.CENSUS_FIELDS: K20's program, operand kinds, shapes and dtypes),
+    against the plain version on the card, bit-equal
+    (kernel_bench.check_level). Returns {kernel: [one dict per shape]}."""
+    from pclean_tpu_torch import kernel_bench as kb
+
+    out = {name: [] for name in LEVEL_KERNELS}
+    for c in census:
+        if c["kernel"] not in out or c["share"] < SHAPE_SHARE:
+            continue
+        kb.check_level(ops, kb.level_inputs(
+            dev, c["kernel"], ops.CENSUS_FIELDS[c["kernel"]][c["mode"]],
+            c["K"]))
+        out[c["kernel"]].append(dict(
+            shape=c["mode"], K=c["K"], rows=c["rows"], launches=c["launches"],
+            share=c["share"], path=path, max_abs_err=0.0))
+    print(f"{path} K20/K21 census shapes checked bit-equal: "
+          f"{ {k: len(v) for k, v in out.items()} }", flush=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+# K20 and K21 are timed at their most launched one-row and batched census
+# shapes and at the largest
+LEVEL_TIMED = {"r1": 4, "rn": 3}
+
+
+def bench_level_shapes(ops, dev, checked: dict, floor) -> dict:
+    """K20 and K21 timed, among the distinct census shapes checked (each
+    holds >= SHAPE_SHARE of a path's launches), at the LEVEL_TIMED most
+    launched one-row and batched ones and at the largest (the most
+    outputs), on seeded inputs: kernel ms and device ms, the plain
+    version, the bytes bound (kernel_bench.level_bytes) and the launch
+    floor; no PyTorch call computes either function (library none).
+    Returns {kernel: [one dict per shape]}."""
+    from pclean_tpu_torch import kernel_bench as kb
+
+    out = {}
+    for name in LEVEL_KERNELS:
+        fields = ops.CENSUS_FIELDS[name]
+        shapes: dict = {}
+        for r in checked[name]:
+            sh = shapes.setdefault((r["shape"], r["K"]),
+                                   dict(launches_by_path={}, rows=r["rows"]))
+            sh["launches_by_path"][r["path"]] = r["launches"]
+        ranked = sorted(shapes.items(), key=lambda kv: -sum(
+            kv[1]["launches_by_path"].values()))
+        top = [kv for rows, n in LEVEL_TIMED.items()
+               for kv in [x for x in ranked if x[1]["rows"] == rows][:n]]
+        if ranked:
+            big = max(ranked, key=lambda kv: kv[0][1])
+            if big not in top:
+                top.append(big)
+        out[name] = []
+        for (mode, K), sh in top:
+            inp = kb.level_inputs(dev, name, fields[mode], K)
+            b = kb.level_bytes(inp)
+            x = dict(shape=f"{mode} K={K}", K=K, rows=sh["rows"],
+                     pick=False, max_abs_err=kb.check_level(ops, inp),
+                     launches=sum(sh["launches_by_path"].values()),
+                     launches_by_path=sh["launches_by_path"], bytes=b,
+                     bound_ms=b / kb.HBM_BYTES_PER_S * 1e3, floor_ms=floor,
+                     **kb.time_level(ops, inp))
+            out[name].append(x)
+            print(f"{name} {x['shape']} ({x['launches']} launches "
+                  f"{x['launches_by_path']}): kernel {x['ms']:.4f} ms "
+                  f"(device {x['device_ms']:.4f} ms) plain "
+                  f"{x['plain_ms']:.4f} ms library none bound "
+                  f"{x['bound_ms']:.6f} ms floor {floor:.4f} ms", flush=True)
+            del inp
+        print(f"{name}: timed {len(top)} of {len(shapes)} checked census "
+              f"shapes (the most launched one-row and batched ones, the "
+              f"largest)", flush=True)
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1386,6 +1497,13 @@ _NOT_DEVICE = {"empty", "empty_like", "empty_strided", "new_empty",
                "unfold", "movedim", "flatten", "unflatten"}
 
 
+# the score pass's functions (engine/propose.py), this tree's and the
+# parent's, so that a parent's checkout traced with this script sums them
+# alike; py_logprobs, the batched fk's prior, is counted beside them
+SCORE_PASS = ("score_plan", "score_step", "score_choice", "score_fk",
+              "_gather_obs_term", "_mm_flush", "_level_sum")
+
+
 def ops_by_function(fn) -> dict:
     """fn() once, with every device op it issues attributed to the
     innermost function of the port's package on the Python stack: each
@@ -1394,7 +1512,9 @@ def ops_by_function(fn) -> dict:
     (ops._count, named "launch <kernel>"). Frames of utils.py count for
     their caller; a call inside ops.py counts as ops.<function> (a
     wrapper's own torch calls). Returns dict(total, launches, by_function
-    [(function, ops), most first], by_kernel {kernel: launches})."""
+    [(function, ops), most first], by_kernel {kernel: launches},
+    score_pass: the ops of SCORE_PASS's functions, py_logprobs: those of
+    BlockTracer.py_logprobs)."""
     from torch.utils._python_dispatch import TorchDispatchMode
     from torch.utils._pytree import tree_flatten
 
@@ -1443,9 +1563,15 @@ def ops_by_function(fn) -> dict:
     finally:
         ops._count = base
     torch.cuda.synchronize()
+    def of(names):
+        return sum(n for f, n in counts.items()
+                   if f.startswith("engine.propose.")
+                   and f.rsplit(".", 1)[1] in names)
+
     return dict(total=sum(counts.values()), launches=sum(kernels.values()),
                 by_function=sorted(counts.items(), key=lambda kv: -kv[1]),
-                by_kernel=kernels)
+                by_kernel=kernels, score_pass=of(SCORE_PASS),
+                py_logprobs=of(("py_logprobs",)))
 
 
 def _shares(r: dict) -> dict:
@@ -1591,8 +1717,10 @@ def trace_sections(path, cm, config, state=None) -> dict:
         if e is not None:
             print(f"trace {name}: one eager run issues {e['total']} device "
                   f"ops ({e['launches']} hand-kernel launches "
-                  f"{e['by_kernel']}); by function: {e['by_function'][:30]}",
-                  flush=True)
+                  f"{e['by_kernel']}); the score pass {e['score_pass']} "
+                  f"({', '.join(SCORE_PASS)}), py_logprobs "
+                  f"{e['py_logprobs']}; by function: "
+                  f"{e['by_function'][:30]}", flush=True)
         print(f"trace {name}: wall {r['wall_ms']:.3f} ms (without the "
               f"profiler {r['wall_plain_ms']:.3f} ms), device busy "
               f"{r['busy_ms']:.3f} ms, idle share {f4(r['idle_share'])} "
@@ -1804,6 +1932,7 @@ def main() -> int:
                                                     path)
         add(path, res)
         add(path, sample_checks(ops, dev, census, path))
+        add(path, level_checks(ops, dev, census, path))
     # the scaled path, K7 and K8 at its census shapes while its state
     # lives, then K1-K3 on the model's own matrices
     phase("scaled path")
@@ -1954,6 +2083,8 @@ def main() -> int:
     rel = bench_rel_shapes(ops, dev, checked, floor)
     phase("K16-K19 census shapes")
     sample = bench_sample_shapes(ops, dev, checked, floor)
+    phase("K20 and K21 census shapes")
+    level = bench_level_shapes(ops, dev, checked, floor)
     kernels += [k7_k8_entry(name, checked[name])
                 for name in ("referrer_hist", "sa_ext_term")]
     kernels.append(k9_entry(checked["pg_resample"]))
@@ -1961,6 +2092,7 @@ def main() -> int:
     kernels += [score_entry(name, score[name]) for name in SCORE_KERNELS]
     kernels += [rel_entry(name, rel[name]) for name in REL_KERNELS]
     kernels += [sample_entry(name, sample[name]) for name in SAMPLE_KERNELS]
+    kernels += [sample_entry(name, level[name]) for name in LEVEL_KERNELS]
     phase("done")
 
     for k in kernels:

@@ -105,6 +105,23 @@ class CompiledModel:
             self._consts[key] = hit
         return hit
 
+    def arange(self, n: int) -> torch.Tensor:
+        """torch.arange(n) on the model's device (int64), made once per
+        model: the values of an option or candidate axis, which a row step
+        reads without a launch of its own. Callers only read it. Made
+        outside a CUDA graph's capture (the eager row before it), so that
+        it never lives in a graph's memory pool."""
+        key = ("arange", int(n))
+        hit = self._consts.get(key)
+        if hit is None:
+            if self.device.type == "cuda" and \
+                    torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(f"arange({n}) first asked for inside a "
+                                   f"CUDA graph's capture")
+            hit = torch.arange(int(n), device=self.device)
+            self._consts[key] = hit
+        return hit
+
     def cls(self, cid: ClassID) -> PClass:
         return self.model.classes[cid]
 

@@ -12,14 +12,26 @@ Where the JAX tracer runs one row under `vmap`, this tracer carries the
 batch axis explicitly: `row_slot` is [B] and every value at enumeration
 depth d has rank 1 + d — the batch axis first (size B, or 1 when the value
 is the same for every row), then the d enumeration axes (size 1 where it
-broadcasts). Eleven hot spots go through the hand kernels of ops.py:
+broadcasts). The score pass builds each level (everything between two
+logsumexps) as a postfix sum program over its terms, and fifteen hot
+spots go through the hand kernels of ops.py:
 
+  * K20 level_sum: a level's sum in one launch, in the order of the eager
+    expression (score_plan's running sum, a step's `term + rest`): dense
+    terms (a child's logZ, an external's term, an observation's
+    log-density), copy mode's equality terms, the non-enumerable branch's
+    observed terms and, at one row, the level's deferred AddTypos columns;
   * K1 enum_logsumexp: score_fk's record [.., K+1] + logZ, and
     score_choice's logZ;
-  * K3 obs_gather_sum: the statically observed AddTypos columns of one
-    enumeration context, deferred and summed in one launch at the
-    context's flush (the JAX package's _matmul_obs_term/_mm_flush frames,
-    as a gather-accumulate instead of a one-hot contraction);
+  * K21 py_prior: a batched foreign key's Pitman-Yor prior through its
+    compaction, plus its children: K1's two inputs;
+  * K3 obs_gather_sum: over B > 1 rows, the statically observed AddTypos
+    columns of one level, deferred and summed in one launch at the
+    level's end, its output one dense term of K20 (the JAX package's
+    _matmul_obs_term/_mm_flush frames, as a gather-accumulate instead of
+    a one-hot contraction);
+  * K12 fk_score, K13 choice_score: at one row, a foreign key's or an
+    enumerable choice's record and logZ from K20's children;
   * K4 gauss_suffstats: the per-segment sufficient statistics behind a
     closed-form Gaussian external (referrer_histograms);
   * K5 gauss_ext_term: that external's term for every row and option of a
@@ -127,6 +139,16 @@ class _Ctx:
         return self.t.params[cid][vid]
 
 
+class _Level:
+    """A level being scored: its operands (ops.level_dense, level_eq,
+    level_sel, level_gather) and its deferred AddTypos columns (depth, M,
+    obs, word), which _level_sum adds at its end."""
+
+    def __init__(self):
+        self.operands: list = []
+        self.gathers: list = []
+
+
 class BlockTracer:
     def __init__(self, cm: CompiledModel, cid: ClassID, arenas: dict,
                  rel: dict, params: dict, obs_arrays: dict, obs_row: dict,
@@ -157,7 +179,8 @@ class BlockTracer:
         self.ref_comp = ref_comp or {}
         # {target class: (idx [Kc], inv [cap], nc)} compact candidate axes
         self.cand = cand or {}
-        self._mm_frames: list[list] = []
+        # the levels being scored, innermost last (_level_sum)
+        self._levels: list[_Level] = []
         # vids enumerated by score_choice whose option axis is live: vid ->
         # the depth of their children (K6 reads the innermost one)
         self._enum_axis: dict[VertexID, int] = {}
@@ -238,21 +261,15 @@ class BlockTracer:
 
     def py_logprobs(self, tc: ClassID):
         """Pitman-Yor prior over candidate slots + fresh row
-        (trace.jl:53-61, block_proposal.jl:86-96). With per-row rel leaves
-        the results carry the batch axis: existing [B, cap], new [B]."""
+        (trace.jl:53-61, block_proposal.jl:86-96; ops.py_logprobs_plain,
+        the arithmetic K21 and K12 carry). With per-row rel leaves the
+        results carry the batch axis: existing [B, cap], new [B]."""
         r = self.rel[tc]
         s, d = self._py_sd(tc)
         if not torch.is_tensor(s):
             s, d = self.cm.const(s), self.cm.const(d)
-        total = r["total"].to(torch.float32)
-        logden = torch.log(total + s)
-        cnt = r["refcount"].to(torch.float32)
-        live = r["alive"] & (r["refcount"] > 0)
-        ld = logden[..., None] if logden.dim() else logden
-        existing = torch.where(live, torch.log(torch.clamp(cnt - d, min=1e-30))
-                               - ld, torch.full_like(cnt, NINF))
-        new = torch.log(d * r["nrows"].to(torch.float32) + s) - logden
-        return existing, new
+        return ops.py_logprobs_plain(r["refcount"], r["alive"], r["total"],
+                                     r["nrows"], s, d)
 
     def _taint_from_args(self, vid: VertexID, node) -> None:
         if isinstance(node, ParamLookupNode):
@@ -275,37 +292,60 @@ class BlockTracer:
         return True
 
     def _gather_obs_term(self, kern, node: ChoiceNode, vid: VertexID,
-                         depth: int, ov):
+                         depth: int, ov) -> bool:
         """Defer a statically observed AddTypos term M[obs[b], word[k]]
-        whose word is the same for every row to the enclosing frame, where
-        _mm_flush sums the frame's columns with one K3 launch. Returns None
-        (score it directly) otherwise."""
+        whose word is the same for every row to the enclosing level, which
+        adds the level's columns at its end (_level_sum: in K20 at one
+        row, through one K3 launch over B rows). Returns False (score it
+        directly) otherwise."""
         from .kernels import _AddTyposK
 
         if not isinstance(kern, _AddTyposK) or depth == 0 \
-                or not self._mm_frames or not self._args_untainted(vid, node):
-            return None
+                or not self._levels or not self._args_untainted(vid, node):
+            return False
         ctx = _Ctx(self, depth, remap=self._arg_remap(vid, node))
         word = ctx.value(kern.node.arg_ids["word"])
         if word.shape[0] != 1:
-            return None
-        self._mm_frames[-1].append((depth, self.cm.use(kern.M), ov, word))
-        return torch.zeros((1,) * (1 + depth), device=self.cm.device)
+            return False
+        self._levels[-1].gathers.append((depth, self.cm.use(kern.M), ov,
+                                         word))
+        return True
 
-    def _mm_push(self):
-        self._mm_frames.append([])
+    def _operand(self, o: dict) -> int:
+        """Add an operand to the innermost level; returns its index."""
+        ops_ = self._levels[-1].operands
+        ops_.append(o)
+        return len(ops_) - 1
 
-    def _mm_flush(self, total):
-        """Add this frame's deferred observed-column terms to `total`: one
-        K3 launch per frame depth over all its columns."""
-        frame = self._mm_frames.pop()
-        if not frame:
-            return total
+    def _dense(self, x) -> list:
+        """The code pushing a dense term."""
+        return [(ops.LEVEL_PUSH, self._operand(ops.level_dense(x)))]
+
+    def _level_sum(self, depth: int, score):
+        """One level (the terms between two logsumexps): score() builds
+        its postfix code (score_plan's), then the level's deferred AddTypos
+        columns are added at its end, each frame depth's in one sum from 0
+        (at one row K20's gathers; over B rows one K3 launch over the
+        columns, its output a dense term), and the whole sums in one K20
+        launch (ops.level_sum) into a buffer [B or 1, axes...] of the
+        eager sum's shape. A level without terms is a constant 0."""
+        lvl = _Level()
+        self._levels.append(lvl)
+        code = score()
+        self._levels.pop()
         by_depth: dict[int, list] = {}
-        for ent in frame:
+        for ent in lvl.gathers:
             by_depth.setdefault(ent[0], []).append(ent)
-        for depth, ents in by_depth.items():
-            axes = tuple(self.axes[:depth])
+        for d, ents in by_depth.items():
+            axes = tuple(self.axes[:d])
+            if self.B == 1:
+                code.append((ops.LEVEL_ZERO, 0))
+                for _d, M, ov, word in ents:
+                    lvl.operands.append(ops.level_gather(
+                        M, self._row(ov, d), word, (1,) + axes))
+                    code.append((ops.LEVEL_ADDOP, len(lvl.operands) - 1))
+                code.append((ops.LEVEL_ADD, 0))
+                continue
             K = int(np.prod(axes))
             mats = [e[1] for e in ents]
             obs = torch.stack([e[2].reshape(-1).expand(self.B)
@@ -313,31 +353,46 @@ class BlockTracer:
             word = torch.stack([e[3].expand((1,) + axes).reshape(K)
                                 for e in ents]).to(torch.int32)
             out = ops.obs_gather_sum(mats, obs.contiguous(), word.contiguous())
-            total = total + out.reshape((self.B,) + axes)
-        return total
+            lvl.operands.append(ops.level_dense(
+                out.reshape((self.B,) + axes)))
+            code.append((ops.LEVEL_ADDOP, len(lvl.operands) - 1))
+        if not lvl.operands:
+            return self.cm.const(0.0, torch.float32).reshape(
+                (1,) * (1 + depth))
+        return ops.level_sum(ops.level_program(code), lvl.operands,
+                             1 + depth, B=self.B, label=self.cid)
 
     # ------------------------------------------------------------- scoring
 
-    def score_plan(self, plan: Plan, depth: int, mode: dict, ctx_key: tuple):
-        total = torch.zeros((1,) * (1 + depth), device=self.cm.device)
+    def score_plan(self, plan: Plan, depth: int, mode: dict,
+                   ctx_key: tuple) -> list:
+        """The postfix code of the plan's sum (ops.level_sum's program):
+        total = 0, then total + each step's value in order."""
+        code = [(ops.LEVEL_ZERO, 0)]
         for step in plan.steps:
-            total = total + self.score_step(step, depth, mode, ctx_key)
-        return total
+            code += self.score_step(step, depth, mode, ctx_key)
+            code.append((ops.LEVEL_ADD, 0))
+        return code
 
-    def score_step(self, step: Step, depth: int, mode: dict, ctx_key: tuple):
+    def score_step(self, step: Step, depth: int, mode: dict,
+                   ctx_key: tuple) -> list:
+        """The code pushing one step's value: its term (an operand of the
+        level) plus its rest's sum, or a child level's logZ."""
         vid = step.idx
         node = self.node(vid)
         if isinstance(node, ParameterNode):
             return self.score_plan(step.rest, depth, mode, ctx_key)
         if isinstance(node, ExternalLikelihoodNode):
-            return self.score_external(step, depth, mode, ctx_key)
+            return self._dense(self.score_external(step, depth, mode,
+                                                   ctx_key))
         if isinstance(node, (ComputeNode, ParamLookupNode)):
             self.env[vid] = (depth, self.compute_value(
                 vid, node, lambda a: self.aligned(a, depth)))
             self._taint_from_args(vid, node)
             return self.score_plan(step.rest, depth, mode, ctx_key)
         if isinstance(node, ForeignKeyNode):
-            return self.score_fk(step, vid, node, depth, mode, ctx_key)
+            return self._dense(self.score_fk(step, vid, node, depth, mode,
+                                             ctx_key))
         if isinstance(node, SubmodelNode):
             fmode = mode.get(node.fk_id)
             assert fmode in ("E", "N"), "submodel step outside its fk context"
@@ -349,7 +404,8 @@ class BlockTracer:
             if fmode == "N":
                 sub = node.subnode
                 if isinstance(sub, ForeignKeyNode):
-                    return self.score_fk(step, vid, sub, depth, mode, ctx_key)
+                    return self._dense(self.score_fk(step, vid, sub, depth,
+                                                     mode, ctx_key))
                 if isinstance(sub, (ComputeNode, ParamLookupNode)):
                     self.env[vid] = (depth, self.compute_value(
                         vid, sub, lambda a: self.aligned(a, depth)))
@@ -364,22 +420,30 @@ class BlockTracer:
             self.env[vid] = (depth, val)
             if node.fk_id in self.taint:
                 self.taint.add(vid)
-            term = torch.zeros((1,) * (1 + depth), device=self.cm.device)
             ov, st = self.obs_of(vid)
+            term = None
             if ov is not None:
-                ova = self._row(ov, depth)
                 dom = self.cm.domain(self.cid, vid)
-                if dom is not None and dom.kind == FLOAT:
-                    eq = torch.abs(val - ova) <= 1e-6 * torch.clamp(
-                        torch.abs(ova), min=1.0)
-                else:
-                    eq = val == ova
-                zero = torch.zeros((), device=self.cm.device)
-                term = torch.where(self._st(st, 1, depth),
-                                   torch.where(eq, zero, NINF), zero)
-            return term + self.score_plan(step.rest, depth, mode, ctx_key)
+                term = self._operand(ops.level_eq(
+                    val, self._row(ov, depth), self._st_code(st, depth),
+                    dom is not None and dom.kind == FLOAT))
+            return self._term_plus_rest(term, step, depth, mode, ctx_key)
         assert isinstance(node, ChoiceNode)
         return self.score_choice(step, vid, node, depth, mode, ctx_key)
+
+    def _term_plus_rest(self, term, step: Step, depth: int, mode: dict,
+                        ctx_key: tuple) -> list:
+        """The code of `term + score_plan(rest)`: the rest's sum, then the
+        term (an operand's index) added. With no term (None: the parent's
+        0 + the rest's sum) the rest's sum alone, bit for bit, since a
+        plan's sum starts from +0 and so is never -0."""
+        code = self.score_plan(step.rest, depth, mode, ctx_key)
+        return code if term is None else code + [(ops.LEVEL_ADDOP, term)]
+
+    def _st_code(self, st, depth: int):
+        """An observation state for a level operand: a static int as it
+        is, a per-row state as rank 1 + depth."""
+        return st if isinstance(st, int) else self._row(st, depth)
 
     def _arg_remap(self, vid: VertexID, node: ChoiceNode):
         canon = self.cm.node(*self.cm.canon(self.cid, vid))
@@ -394,15 +458,17 @@ class BlockTracer:
         ov, st = self.obs_of(vid)
         full = self._full(depth)
         if _static_obs(st):
-            # observed in every dataset row: the value IS ov
-            term = self._gather_obs_term(kern, node, vid, depth, ov)
-            if term is None:
-                term = kern.obs_logdensity(ctx, self._row(ov, depth))
+            # observed in every dataset row: the value IS ov (a deferred
+            # AddTypos term is 0 here and added at the level's end)
+            term = None
+            if not self._gather_obs_term(kern, node, vid, depth, ov):
+                term = self._operand(ops.level_dense(
+                    kern.obs_logdensity(ctx, self._row(ov, depth))))
             val = self._row(ov, depth)
             self.records[("so", vid, ctx_key)] = val.expand(full)
             self.env[vid] = (depth, val)
             self.taint.add(vid)
-            return term + self.score_plan(step.rest, depth, mode, ctx_key)
+            return self._term_plus_rest(term, step, depth, mode, ctx_key)
         if not kern.enumerable:
             # prior draw now, so observed descendants score against it
             # (block_proposal.jl:56-66); recorded for the sample pass
@@ -411,18 +477,16 @@ class BlockTracer:
             else:
                 drawn = kern.sample_prior(ctx, self._gen if
                                           kern.prior_needs_key else None)
-            zero = torch.zeros((), device=self.cm.device)
+            term = None
             if ov is not None:
                 ova = self._row(ov, depth)
                 miss = kern.missing_logdensity(ctx)
-                term = torch.where(
-                    self._st(st, 1, depth), kern.obs_logdensity(ctx, ova),
-                    torch.where(self._st(st, 2, depth),
-                                self._f32(miss), zero))
+                term = self._operand(ops.level_sel(
+                    kern.obs_logdensity(ctx, ova), self._f32(miss),
+                    self._st_code(st, depth)))
                 val = torch.where(self._st(st, 1, depth), ova.to(drawn.dtype)
                                   if torch.is_tensor(drawn) else ova, drawn)
             else:
-                term = torch.zeros((1,) * (1 + depth), device=self.cm.device)
                 val = drawn
             val = torch.as_tensor(val, device=self.cm.device)
             val = val.reshape(tuple(val.shape) + (1,) *
@@ -430,7 +494,7 @@ class BlockTracer:
             self.records[("ne", vid, ctx_key)] = val.expand(full)
             self.env[vid] = (depth, val)
             self.taint.add(vid)
-            return term + self.score_plan(step.rest, depth, mode, ctx_key)
+            return self._term_plus_rest(term, step, depth, mode, ctx_key)
         V = kern.V
         enum = torch.as_tensor(kern.enum_logits(ctx), dtype=torch.float32,
                                device=self.cm.device)
@@ -451,12 +515,11 @@ class BlockTracer:
         else:
             logits = enum
         self.axes.append(V)
-        self.env[vid] = (depth + 1, torch.arange(V, device=self.cm.device)
+        self.env[vid] = (depth + 1, self.cm.arange(V)
                          .reshape((1,) * (1 + depth) + (V,)))
         self._enum_axis[vid] = depth + 1
-        self._mm_push()
-        children = self._mm_flush(
-            self.score_plan(step.rest, depth + 1, mode, ctx_key))
+        children = self._level_sum(depth + 1, lambda: self.score_plan(
+            step.rest, depth + 1, mode, ctx_key))
         del self._enum_axis[vid]
         self.axes.pop()
         if self.B == 1:
@@ -470,69 +533,56 @@ class BlockTracer:
                                          0 if st is None else st,
                                          cls=self.cid)
             self.records[(vid, ctx_key)] = rec.reshape(full + (V,))
-            return logz.reshape(full)
+            return self._dense(logz.reshape(full))
         total = (logits + children).expand(full + (V,))
         self.records[(vid, ctx_key)] = total
         _rec, logz = ops.enum_logsumexp(total.reshape(-1, V).contiguous())
-        return logz.reshape(full)
+        return self._dense(logz.reshape(full))
 
     def score_fk(self, step: Step, vid: VertexID, fknode: ForeignKeyNode,
                  depth: int, mode: dict, ctx_key: tuple):
         tc = fknode.target_class
         cap = self.cm.layouts[tc].capacity
         comp = self.cand.get(tc)
-        # one row on the full candidate axis: K12 computes the prior itself
-        one_row = comp is None and self.B == 1
-        if not one_row:
-            py_exist_full, py_new = self.py_logprobs(tc)
-        dev = self.cm.device
         if comp is not None:
             idx, _invm, nc = comp
             K = int(idx.shape[0])
-            pos = torch.arange(K, device=dev)
-            # pad positions clamp their gathers to a real slot; the mask
+            # pad positions clamp their gathers to a real slot; the prior
             # makes them unselectable regardless of what they scored
             slot_ids = torch.clamp(idx, max=cap - 1)
-            py_exist = torch.where(pos < nc, _rtake(py_exist_full,
-                                                    slot_ids[None, :]),
-                                   self.cm.const(NINF))
         else:
             K = cap
-            slot_ids = torch.arange(K, device=dev)
-            if not one_row:
-                py_exist = py_exist_full
+            slot_ids = self.cm.arange(K)
         full = self._full(depth)
-        if not one_row:
-            py_exist = py_exist.reshape((-1,) + (1,) * depth + (K,))
 
         self.axes.append(K)
         self.env[vid] = (depth + 1, slot_ids.reshape((1,) * (1 + depth) + (K,)))
-        self._mm_push()
-        ch_e = self._mm_flush(
-            self.score_plan(step.rest, depth + 1, {**mode, vid: "E"},
-                            ctx_key + ((vid, "E"),)))
+        ch_e = self._level_sum(depth + 1, lambda: self.score_plan(
+            step.rest, depth + 1, {**mode, vid: "E"}, ctx_key + ((vid, "E"),)))
         self.axes.pop()
 
-        self.env[vid] = (depth, torch.zeros((1,) * (1 + depth),
-                                            dtype=torch.long, device=dev))
+        self.env[vid] = (depth, self.cm.const(0, torch.long).reshape(
+            (1,) * (1 + depth)))
         # the N branch scores at the caller's depth but its terms belong to
         # this fk's "new" logit only
-        self._mm_push()
-        ch_n = self._mm_flush(
-            self.score_plan(step.rest, depth, {**mode, vid: "N"},
-                            ctx_key + ((vid, "N"),)))
-        if one_row:
-            r = self.rel[tc]
-            s, d = self._py_sd(tc)
+        ch_n = self._level_sum(depth, lambda: self.score_plan(
+            step.rest, depth, {**mode, vid: "N"}, ctx_key + ((vid, "N"),)))
+        r = self.rel[tc]
+        s, d = self._py_sd(tc)
+        if comp is None and self.B == 1:
+            # one row on the full candidate axis: the prior, the children
+            # and the logsumexp in one K12 launch
             rec, logz = ops.fk_score(r["refcount"], r["alive"], r["total"],
                                      r["nrows"], s, d, ch_e, ch_n, full,
                                      cls=tc)
         else:
-            exist = py_exist + ch_e
-            new = self._row(py_new, depth) + ch_n
-            rec, logz = ops.enum_logsumexp(
-                exist.expand(full + (K,)).reshape(-1, K).contiguous(),
-                new.expand(full).reshape(-1).contiguous())
+            # the prior through the compaction and the children, K1's
+            # inputs, in one K21 launch
+            exist, new = ops.py_prior(
+                r["refcount"], r["alive"], r["total"], r["nrows"], s, d,
+                None if comp is None else (idx, nc), ch_e, ch_n, full,
+                cls=tc)
+            rec, logz = ops.enum_logsumexp(exist, new)
         self.records[(vid, ctx_key)] = rec.reshape(full + (K + 1,))
         del self.env[vid]
         return logz.reshape(full)
@@ -883,9 +933,8 @@ class BlockTracer:
         it they are drawn from `gen`."""
         self._root_plan = plan
         self._gen = gen
-        self._mm_push()
-        logZ = self._mm_flush(self.score_plan(plan, 0, {}, ()))
-        assert not self._mm_frames, "unbalanced sibling-fusion frames"
+        logZ = self._level_sum(0, lambda: self.score_plan(plan, 0, {}, ()))
+        assert not self._levels, "unbalanced levels"
         res = self.sample(pool)
         return logZ.expand(self.B), res
 

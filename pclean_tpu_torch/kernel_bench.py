@@ -82,7 +82,9 @@ the batched row write) take seeded inputs of every shape of a path's
 census, rebuilt from its census mode (`k14_inputs`, `k15_inputs`),
 checked bit-equal against the plain versions on a CPU copy
 (`check_k14`, `check_k15`) and timed beside one `index_add_` (K14) or
-`index_copy_` of one column (K15) (`time_k14`, `time_k15`);
+`index_copy_` of one column (K15) (`time_k14`, `time_k15`; a call
+that launches nothing, or a library write with no kept value, is not
+timed: its CUDA graph would be empty);
 `check_rel_state` holds refresh and the hop histograms on a path's state
 to their plain versions. K16-K19 (the sample pass and row lookups) take
 seeded inputs of every shape of a path's census, rebuilt from the fields
@@ -90,7 +92,11 @@ its wrapper recorded (`ops.CENSUS_FIELDS`; `sample_inputs`:
 `k16_inputs`-`k19_inputs`), checked bit-equal against the plain versions
 drawing with K2 (`check_sample`) and timed beside the plain versions and,
 for K17's pick mode, K18 and K19, torch.take of the record or the leaf
-and torch.where of one pair (`time_sample`, `sample_bytes`).
+and torch.where of one pair (`time_sample`, `sample_bytes`). K20 and K21
+(the score pass's level sum and a batched fk's prior) likewise
+(`level_inputs`: `k20_inputs` from the recorded program and operands,
+`k21_inputs`), checked bit-equal against the plain versions on the card
+(`check_level`) and timed beside them (`time_level`, `level_bytes`).
 """
 from __future__ import annotations
 
@@ -2203,21 +2209,30 @@ def time_k15(ops, inp: dict) -> dict:
     """K15 on a copy of these inputs beside its plain version on the card
     and the library call of one column's write: one index_copy_ of the
     first column's kept values at their slots (precomputed): ms (cuda_ms)
-    and device_ms (graph_ms) of each."""
+    and device_ms (graph_ms) of each. A call that launches nothing (no
+    rows, or no column and no alive bits) is not timed, and neither is a
+    library call with no kept value to write (a CUDA graph of it would be
+    empty): those times are None."""
     x = _tree_map(inp["args"], lambda t: t.clone())
     y = _tree_map(inp["args"], lambda t: t.clone())
-    cols, vals, slots, ok, _alive = x
-    cap = cols[0].shape[0] if cols else 1
-    s = torch.where(slots < 0, slots + cap, slots)
-    keep = torch.nonzero(ok & (s >= 0) & (s < cap))[:, 0]
-    lib_col = cols[0].clone() if cols else torch.zeros(1)
-    li, lv = s[keep], (vals[0][keep].to(lib_col.dtype) if cols
-                       else torch.zeros(0))
-    lib = lambda: lib_col.index_copy_(0, li, lv)  # noqa: E731
+    cols, vals, slots, ok, alive = x
+    out = dict(ms=None, device_ms=None, plain_ms=None, library_ms=None,
+               library_device_ms=None)
+    if slots.shape[0] == 0 or (not cols and alive is None):
+        return out
     call = lambda: ops.batch_write(*x)  # noqa: E731
-    return dict(ms=cuda_ms(call), device_ms=graph_ms(call),
-                plain_ms=cuda_ms(lambda: ops.batch_write_plain(*y)),
-                library_ms=cuda_ms(lib), library_device_ms=graph_ms(lib))
+    out.update(ms=cuda_ms(call), device_ms=graph_ms(call),
+               plain_ms=cuda_ms(lambda: ops.batch_write_plain(*y)))
+    if cols:
+        cap = cols[0].shape[0]
+        s = torch.where(slots < 0, slots + cap, slots)
+        keep = torch.nonzero(ok & (s >= 0) & (s < cap))[:, 0]
+        if keep.numel():
+            lib_col = cols[0].clone()
+            li, lv = s[keep], vals[0][keep].to(lib_col.dtype)
+            lib = lambda: lib_col.index_copy_(0, li, lv)  # noqa: E731
+            out.update(library_ms=cuda_ms(lib), library_device_ms=graph_ms(lib))
+    return out
 
 
 def check_rel_state(ops, eng, arenas) -> dict:
@@ -2971,3 +2986,188 @@ def time_sample(ops, inp: dict) -> dict:
                 plain_ms=cuda_ms(lambda: _sample_call(ops, y, plain=True)),
                 library_ms=None if lib is None else cuda_ms(lib),
                 library_device_ms=None if lib is None else graph_ms(lib))
+
+
+# ---------------------------------------------------------------- K20, K21
+
+LEVEL_KERNELS = ("level_sum", "py_prior")
+
+
+def k20_inputs(dev, f: dict, seed: int = 0) -> dict:
+    """Seeded inputs of a K20 census shape (its ops.CENSUS_FIELDS `f`: the
+    program, rank, output shape and each operand's kind and references):
+    every reference a tensor of its recorded (aligned) shape and dtype:
+    dense terms and log-densities normal (sd 2, 10% NEG_INF), values and
+    observations ints 0-3 (FLOAT columns: observations normal, sd 50, and
+    values at 0, 1e-7 or 1e-3 of max(1, |obs|) from them), states 0-2,
+    gather codes in [-1, V + 1] (clamped), matrices [V, V] normal.
+    dict(mode, args: ops.level_sum's (prog, operands, rank))."""
+    from . import ops
+
+    rng = np.random.default_rng(seed)
+
+    def t(x, dt):
+        return torch.as_tensor(np.ascontiguousarray(x), device=dev).to(dt)
+
+    def normal(shape):
+        x = rng.normal(0.0, 2.0, shape).astype(np.float32)
+        x[rng.random(shape) < 0.1] = -1e30
+        return t(x, torch.float32)
+
+    operands = []
+    for o in f["ops"]:
+        refs = {n: (shape, dt) for n, shape, dt in o["refs"]}
+        k = o["kind"]
+        if k == "dense":
+            operands.append(dict(kind=k, x=normal(refs["x"][0])))
+            continue
+        st = o["state"]
+        if "state" in refs:
+            shape, dt = refs["state"]
+            st = t(rng.integers(0, 3, shape), dt)
+        if k == "eq":
+            (vs, vdt), (os_, odt) = refs["val"], refs["obs"]
+            if o["float"]:
+                ov = rng.normal(0, 50, os_).astype(np.float32)
+                jit = rng.choice([0.0, 1e-7, 1e-3], np.broadcast_shapes(
+                    vs, os_)).astype(np.float32)
+                v = (ov + jit * np.maximum(np.abs(ov), 1.0)).astype(
+                    np.float32)
+                v = v[tuple(slice(0, n) for n in vs)]
+                operands.append(ops.level_eq(t(v, vdt), t(ov, odt), st,
+                                             True))
+            else:
+                operands.append(ops.level_eq(
+                    t(rng.integers(0, 4, vs), vdt),
+                    t(rng.integers(0, 4, os_), odt), st, False))
+        elif k == "sel":
+            operands.append(ops.level_sel(normal(refs["obs_ld"][0]),
+                                          normal(refs["miss"][0]), st))
+        else:
+            V = o["V"]
+            (os_, odt), (ws, wdt) = refs["obs"], refs["word"]
+            M = t(rng.normal(0, 1, (V, V)).astype(np.float32),
+                  torch.float32)
+            operands.append(ops.level_gather(
+                M, t(rng.integers(-1, V + 2, os_), odt),
+                t(rng.integers(-1, V + 2, ws), wdt), o["shape"]))
+    return dict(mode=f, kernel="level_sum",
+                args=(list(f["prog"]), operands, f["rank"]))
+
+
+def k21_inputs(dev, f: dict, K: int, seed: int = 0) -> dict:
+    """Seeded inputs of a K21 census shape (its ops.CENSUS_FIELDS `f`) at
+    K candidates: refcounts 0-5 and alive bits 0.7 over cap slots (per
+    row where the shape's leaves are), totals and nrows from them in the
+    census dtypes, compaction (the live slots of the first row first,
+    ascending, padded with cap; nc of them real), children [full, K] and
+    new_children [full] normal (10% NEG_INF), the Pitman-Yor strength and
+    discount device scalars or numbers as the shape took them.
+    dict(mode, args: ops.py_prior's arguments)."""
+    rng = np.random.default_rng(seed)
+    B, cap, full = f["B"], f["cap"], tuple(f["full"])
+
+    def t(x, dt):
+        return torch.as_tensor(np.ascontiguousarray(x), device=dev).to(dt)
+
+    lead = (B,) if f["per_row"] else ()
+    refc = rng.integers(0, 6, lead + (cap,))
+    alive = rng.random(lead + (cap,)) < 0.7
+    total, nrows = (refc * alive).sum(-1), alive.sum(-1)
+    comp = None
+    if f["comp"]:
+        first = (refc.reshape(-1, cap)[0] > 0) & alive.reshape(-1, cap)[0]
+        live = np.flatnonzero(first)[:K]
+        idx = np.full(K, cap, np.int64)
+        idx[:len(live)] = live
+        comp = (t(idx, torch.int64), t(np.int64(len(live)), torch.int64))
+    ch = rng.normal(0.0, 2.0, full + (K,)).astype(np.float32)
+    ch[rng.random(ch.shape) < 0.1] = -1e30
+    nch = rng.normal(0.0, 2.0, full).astype(np.float32)
+    s, d = float(rng.uniform(0.5, 3.0)), float(rng.uniform(0.0, 0.6))
+    if f["sd"]:
+        s, d = t(np.float32(s), torch.float32), t(np.float32(d),
+                                                  torch.float32)
+    tdt, ndt = f["counts"]
+    return dict(mode=f, kernel="py_prior", args=(
+        t(refc, torch.int32), t(alive, torch.bool), t(total, tdt),
+        t(nrows, ndt), s, d, comp, t(ch, torch.float32),
+        t(nch, torch.float32), full))
+
+
+def level_inputs(dev, kernel: str, f: dict, K: int, seed: int = 0):
+    """Seeded inputs of a K20 or K21 census shape: `f` its fields
+    (ops.CENSUS_FIELDS[kernel][mode]), K its census K."""
+    if kernel == "level_sum":
+        return k20_inputs(dev, f, seed)
+    return k21_inputs(dev, f, K, seed)
+
+
+def _level_call(ops, inp: dict, plain: bool = False):
+    a = inp["args"]
+    if inp["kernel"] == "level_sum":
+        return [(ops.level_sum_plain if plain else ops.level_sum)(*a)]
+    return list((ops.py_prior_plain if plain else ops.py_prior)(*a))
+
+
+def check_level(ops, inp: dict) -> float:
+    """K20 or K21 on these inputs against its plain version on the card:
+    every output bit-equal (the same float operations, one rounding
+    each). Returns 0.0 (or fails)."""
+    got = _level_call(ops, inp)
+    want = _level_call(ops, inp, plain=True)
+    torch.cuda.synchronize()
+    for i, (g, w) in enumerate(zip(got, want)):
+        require(g.shape == w.shape and torch.equal(g, w),
+                f"{inp['kernel']} differs from its plain version at "
+                f"{inp['mode'].get('shape', inp['mode'])} (output {i})")
+    return 0.0
+
+
+def level_bytes(inp: dict) -> int:
+    """K20's and K21's bytes: each input element read once, each output
+    written once. K20: every reference's own elements (it is read at
+    stride 0 along the axes it broadcasts over), the distinct matrix
+    entries each gather reads (counted on these codes), the output [N];
+    K21: the leaves at the K candidate slots (per row where they are per
+    row: refcount 4 and alive 1 byte a slot), totals and nrows, the
+    compaction's indices, the children and new_children, exist [R, K] and
+    new [R]."""
+    from . import ops
+
+    a = inp["args"]
+    if inp["kernel"] == "level_sum":
+        prog, operands, rank = a
+        shape = ops.level_shape(operands, rank)
+        n = 4 * int(np.prod(shape))
+        for o in operands:
+            for key in ("x", "val", "obs", "state", "obs_ld", "miss",
+                        "word"):
+                x = o.get(key)
+                if torch.is_tensor(x):
+                    n += x.numel() * x.element_size()
+            if o["kind"] == "gather":
+                V = o["M"].shape[0]
+                cell = (o["obs"].long().clamp(0, V - 1) * V
+                        + o["word"].long().clamp(0, V - 1))
+                n += 4 * int(torch.unique(cell.expand(o["shape"])).numel())
+        return n
+    refc, alive, total, nrows, _s, _d, comp, ch, nch, full = a
+    R, K = int(np.prod(full)), int(ch.shape[-1])
+    rows = refc.shape[0] if refc.dim() == 2 else 1
+    n = rows * K * 5 + total.numel() * total.element_size() \
+        + nrows.numel() * nrows.element_size()
+    if comp is not None:
+        n += comp[0].numel() * comp[0].element_size() + 8
+    n += 4 * (ch.numel() + nch.numel()) + 4 * (R * K + R)
+    return n
+
+
+def time_level(ops, inp: dict) -> dict:
+    """K20 or K21 on these inputs beside its plain version: ms (cuda_ms)
+    and device_ms (graph_ms) of each; no PyTorch call computes either
+    function alone (library None)."""
+    call = lambda: _level_call(ops, inp)  # noqa: E731
+    return dict(ms=cuda_ms(call), device_ms=graph_ms(call),
+                plain_ms=cuda_ms(lambda: _level_call(ops, inp, plain=True)),
+                library_ms=None, library_device_ms=None)

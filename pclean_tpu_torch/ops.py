@@ -1,9 +1,10 @@
 """The port's hand-written CUDA kernels: build, bind, plain versions, counts.
 
-Nineteen kernels carry the block enumeration, the particle resampling,
+Twenty-one kernels carry the block enumeration, the particle resampling,
 the one-row loops' relational delta, row write and score glue, the
-batched relational scatters and row writes, and the block proposal's
-sample pass and row lookups of the port's paths (sources
+batched relational scatters and row writes, the block proposal's sample
+pass and row lookups, and the score pass's accumulation glue of the
+port's paths (sources
 in pclean_tpu_torch/csrc/, each with a header note on the JAX computation it
 replaces, its bound on the H100 and its design):
 
@@ -70,7 +71,16 @@ replaces, its bound on the H100 and its design):
   K18 row_gather     — a vertex's stored value at any slots through its fk
                        chain (propose.py row_value's gathers);
   K19 branch_select  — a foreign key's existing/fresh select over its
-                       subtree's values (propose.py sample_fk's where).
+                       subtree's values (propose.py sample_fk's where);
+  K20 level_sum      — one enumeration level's additive terms (dense
+                       terms, copy-mode equalities, non-enumerable
+                       observed terms, at one row the deferred AddTypos
+                       gathers) summed in the parent's eager order from a
+                       postfix program (propose.py score_plan, score_step,
+                       score_choice, _mm_flush);
+  K21 py_prior       — a batched foreign key's Pitman-Yor prior through
+                       its compaction plus its children: K1's two inputs
+                       (propose.py py_logprobs and score_fk's adds).
 
 Each has a plain PyTorch version here. A wrapper takes the plain version
 only for tensors on the CPU; for CUDA tensors it launches its kernel or
@@ -81,7 +91,7 @@ K8's, where the plan splits a row's referrers (S > 1, as at one row),
 adds a second launch that merges the splits;
 `LAUNCHES_BY_SHAPE` splits the same launches into those over one row
 ("r1", the sequential loops) and over more ("rn", the batched phases);
-`LAUNCH_CENSUS` splits K1's, K2's, K3's and K5-K19's further by mode and
+`LAUNCH_CENSUS` splits K1's, K2's, K3's and K5-K21's further by mode and
 row length. Inside a captured CUDA graph (engine/row_graph.py) a wrapper
 runs once, at the capture; the graph then adds the captured step's counts
 once for each replay (`snapshot`, `add_counts`), so the counts are
@@ -98,7 +108,9 @@ cached on the model; K11's from a row's writes) travel by value as the
 kernel's argument, bound to the pointers of a loop segment's carry
 (`RowCarry`) once, so no table lives on the card. K14's and K15's words
 (pointers, dtypes, lengths; a thread a source or a (column, row) pair)
-are built at each call, also by value, and so are K16's-K19's.
+are built at each call, also by value, and so are K16's-K21's (K20's a
+level's references, operands and program, `level_plan`; K21's
+`py_prior_words`).
 
 Build: one `nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared` per
 source, all started together, into pclean_tpu_torch/_build/ (listed in
@@ -108,6 +120,7 @@ ctypes. Nothing is built or loaded when the module is imported.
 """
 from __future__ import annotations
 
+import array
 import ctypes
 import functools
 import math
@@ -145,10 +158,12 @@ _SOURCES = {
     "choice_sample": "choice_sample.cu",
     "row_gather": "row_gather.cu",
     "branch_select": "branch_select.cu",
+    "level_sum": "level_sum.cu",
+    "py_prior": "py_prior.cu",
 }
 LAUNCHES = {name: 0 for name in _SOURCES}
 LAUNCHES_BY_SHAPE = {name: {"r1": 0, "rn": 0} for name in _SOURCES}
-# K1's, K2's, K3's and K5-K11's launches by (mode, "r1" or "rn", K): K1's
+# K1's, K2's, K3's and K5-K21's launches by (mode, "r1" or "rn", K): K1's
 # mode is "fk" or "choice", K2's is None, K3's the launch's vocabularies
 # ("V1,V2,..."), K5's its route and output ("coords,BxA" or "index,BxA"),
 # K6's its referrers' form and axis ("list,N" or "dense,N"), K7's
@@ -169,7 +184,12 @@ LAUNCHES_BY_SHAPE = {name: {"r1": 0, "rn": 0} for name in _SOURCES}
 # record's K + 1; K17's "class.vertex form dtype B=..
 # d=.." (form draw, retained or pick) and K the options V (1 in pick mode);
 # K18's "class.vertex dtype:length,..." (its hop columns, then its leaf)
-# and K the slots; K19's "B=.. new<existing,..." and K the pairs
+# and K the slots; K19's "B=.. new<existing,..." and K the pairs; K20's
+# "class d=depth B=.. out=shape kinds" (kinds the count of each operand
+# kind, a dense, b copy-mode equality, c non-enumerable observed term, d
+# gather) and K the output's size, r1 or rn by the tracer's B; K21's
+# "target full=rows cap=..[ comp][ rows]" (rows: per-row leaves) and K
+# the candidates
 LAUNCH_CENSUS = {"enum_logsumexp": {}, "inv_cdf_sample": {},
                  "obs_gather_sum": {}, "gauss_ext_term": {},
                  "maybe_swap_ext": {}, "referrer_hist": {},
@@ -177,15 +197,18 @@ LAUNCH_CENSUS = {"enum_logsumexp": {}, "inv_cdf_sample": {},
                  "row_write": {}, "fk_score": {}, "choice_score": {},
                  "rel_scatter": {}, "batch_write": {}, "fk_sample": {},
                  "choice_sample": {}, "row_gather": {},
-                 "branch_select": {}}
-# the fields each K16-K19 census mode was formatted from, by kernel and
+                 "branch_select": {}, "level_sum": {}, "py_prior": {}}
+# the fields each K16-K21 census mode was formatted from, by kernel and
 # mode (K16: form, mask, B, cap, comp, d; K17: form, dtype, B, d; K18:
 # cols, a (dtype, length) a hop column, then the leaf's; K19: B, pairs of
-# (new, existing) dtypes): kernel_bench rebuilds a census shape's inputs
+# (new, existing) dtypes; K20: the first such level's program, rank,
+# shape and operands' kinds, codes and references, _level_fields; K21: B,
+# full, cap, comp, per_row, sd, counts): kernel_bench rebuilds a census
+# shape's inputs
 # from them. A mode names the same fields in every run, so reset_counts
 # keeps them (a graph captured before it replays its modes after it)
 CENSUS_FIELDS = {"fk_sample": {}, "choice_sample": {}, "row_gather": {},
-                 "branch_select": {}}
+                 "branch_select": {}, "level_sum": {}, "py_prior": {}}
 SMEM_MAX = 232448  # shared memory one block may use on an H100 (227 KB)
 N_SMS = 132        # streaming multiprocessors of an H100 SXM
 _GRID_Y_MAX = 65535
@@ -356,6 +379,8 @@ def build_kernels(force: bool = False) -> float:
             "choice_sample": [P, I32, P],
             "row_gather": [P, I32, P],
             "branch_select": [P, I32, P],
+            "level_sum": [P, I32, P],
+            "py_prior": [P, I32, P],
         }
         for name in _SOURCES:
             lib = ctypes.CDLL(os.path.join(BUILD_DIR, f"lib{name}.so"))
@@ -1809,10 +1834,11 @@ def choice_score_plan(R: int, V: int) -> dict:
     return _score_plan(R, V, "choice")
 
 
-def _strided(t: torch.Tensor, shape: tuple, name: str, dtypes):
+def _strided(t: torch.Tensor, shape: tuple, name: str, dtypes,
+             card: bool = True):
     """The strides of t broadcast to `shape` (no copy), as a ctypes int64
     array: 0 on an axis it broadcasts over."""
-    if t.dtype not in dtypes or not t.is_cuda:
+    if t.dtype not in dtypes or (card and not t.is_cuda):
         raise ValueError(f"{name}: {t.dtype} on {t.device} (expected "
                          f"{dtypes} on the card)")
     st = t.expand(shape).stride()
@@ -1836,28 +1862,10 @@ def fk_score_plain(refcount, alive, total, nrows, strength, discount,
     log(total + s); children [.., K] and new_children [..] broadcast to
     `full` (the enumeration rows, batch axis first) added. s and d:
     device scalars or the class's constants. Returns (record [R, K + 1],
-    logZ [R])."""
-    dev = children.device
-    s = strength if torch.is_tensor(strength) else \
-        torch.full((), float(strength), device=dev)
-    d = discount if torch.is_tensor(discount) else \
-        torch.full((), float(discount), device=dev)
-    full = tuple(full)
-    K = int(refcount.shape[-1])
-    logden = torch.log(total.to(torch.float32) + s)
-    cnt = refcount.to(torch.float32)
-    live = alive & (refcount > 0)
-    ld = logden[..., None] if logden.dim() else logden
-    existing = torch.where(live, torch.log(torch.clamp(cnt - d, min=1e-30))
-                           - ld, torch.full_like(cnt, NINF))
-    new = torch.log(d * nrows.to(torch.float32) + s) - logden
-    depth = len(full) - 1
-    exist = existing.reshape((-1,) + (1,) * depth + (K,)) + children
-    new = new.reshape(-1)
-    new = new.reshape((new.shape[0],) + (1,) * depth) + new_children
-    return enum_logsumexp_plain(
-        exist.expand(full + (K,)).reshape(-1, K).contiguous(),
-        new.expand(full).reshape(-1).contiguous())
+    logZ [R]): K21's plain version without a compaction, then K1's."""
+    return enum_logsumexp_plain(*py_prior_plain(
+        refcount, alive, total, nrows, strength, discount, None, children,
+        new_children, full))
 
 
 def fk_score(refcount, alive, total, nrows, strength, discount, children,
@@ -2663,3 +2671,519 @@ def branch_select(is_new, pairs) -> list:
         _count("branch_select", B, len(chunk), f"B={B} {','.join(sig)}",
                dict(B=B, pairs=dts))
     return outs
+
+
+# ---------------------------------------------------------------- K20, K21
+
+# K20's program (csrc/level_sum.cu): a postfix sum over a stack of floats,
+# one (opcode, argument) pair a step: ZERO pushes 0, PUSH i pushes operand
+# i, ADD pops b and a and pushes a + b, ADDOP i adds operand i to the top
+LEVEL_ZERO, LEVEL_PUSH, LEVEL_ADD, LEVEL_ADDOP = range(4)
+K20_KINDS = ("dense", "eq", "sel", "gather")
+# the plan's word counts and limits: a header, the tensor references
+# (pointer, dtype, strides over the output's axes), the operands (kind,
+# three references, two arguments) and the program
+K20_MAX_DIMS = 8
+K20_HEAD, K20_REF, K20_OP = 16, 2 + K20_MAX_DIMS, 6
+K20_MAX_REFS, K20_MAX_OPS, K20_MAX_PROG, K20_MAX_STACK = 128, 64, 384, 32
+K20_WORDS = (K20_HEAD + K20_REF * K20_MAX_REFS + K20_OP * K20_MAX_OPS
+             + K20_MAX_PROG)
+K20_OUT = 2 + K20_MAX_DIMS   # the header's word of the output's pointer
+assert 8 * K20_WORDS <= PARAM_MAX
+K21_WORDS = 64
+
+
+def level_dense(x) -> dict:
+    """A level operand (a): a float32 tensor added as it is (a child's
+    logZ, an external's term, an observation's log-density)."""
+    return dict(kind="dense", x=x)
+
+
+def level_eq(val, obs, state, is_float: bool) -> dict:
+    """A level operand (b), copy mode's equality term: where state == 1,
+    0 if val equals obs (exactly, or |val - obs| <= 1e-6 max(1, |obs|)
+    where `is_float`), else NEG_INF; 0 elsewhere. `state` a static code
+    or a tensor."""
+    return dict(kind="eq", val=val, obs=obs, state=state,
+                float=bool(is_float))
+
+
+def level_sel(obs_ld, miss, state) -> dict:
+    """A level operand (c), a non-enumerable observed choice's term:
+    state == 1 ? obs_ld : (state == 2 ? miss : 0), `state` a static code or
+    a tensor."""
+    return dict(kind="sel", obs_ld=obs_ld, miss=miss, state=state)
+
+
+def level_gather(M, obs, word, shape) -> dict:
+    """A level operand (d), a deferred AddTypos column M[obs, word], each
+    code clamped into [0, V) (K3's gather), over `shape` (the frame's
+    enumeration rows, (B,) + axes: the shape of K3's output)."""
+    return dict(kind="gather", M=M, obs=obs, word=word, shape=tuple(shape))
+
+
+def level_program(code) -> list:
+    """A level's postfix code with each PUSH i directly followed by ADD
+    folded into ADDOP i (the same sum: a + b rounds as b + a)."""
+    out = []
+    for op in code:
+        if op[0] == LEVEL_ADD and out and out[-1][0] == LEVEL_PUSH:
+            out[-1] = (LEVEL_ADDOP, out[-1][1])
+        else:
+            out.append(op)
+    return out
+
+
+def level_stack(prog) -> int:
+    """The most values the program holds at once; raises where it does
+    not leave exactly one."""
+    n = top = 0
+    for op, _a in prog:
+        if op == LEVEL_ZERO or op == LEVEL_PUSH:
+            n += 1
+            top = max(top, n)
+        elif op == LEVEL_ADD:
+            n -= 1
+        if n < 1:
+            raise ValueError("level_sum: the program pops an empty stack")
+    if n != 1:
+        raise ValueError(f"level_sum: the program leaves {n} values")
+    return top
+
+
+def _level_tensors(o: dict) -> list:
+    """(name, tensor) of an operand's tensor references, in the kernel's
+    reference order."""
+    k = o["kind"]
+    names = {"dense": ("x",), "eq": ("val", "obs", "state"),
+             "sel": ("obs_ld", "miss", "state"),
+             "gather": ("obs", "word")}[k]
+    return [(n, o[n]) for n in names if torch.is_tensor(o.get(n))]
+
+
+def _aligned(shape, rank: int, what: str) -> tuple:
+    shape = tuple(shape)
+    if len(shape) > rank:
+        raise ValueError(f"level_sum: {what} of rank {len(shape)} in a "
+                         f"level of rank {rank}")
+    return (1,) * (rank - len(shape)) + shape
+
+
+def _grow(out: list, shape, rank: int, what: str) -> None:
+    """Broadcast the running output shape `out` with `shape`, aligned to
+    the right at `rank` axes as torch aligns it; raises where the two do
+    not broadcast."""
+    for i, n in enumerate(_aligned(shape, rank, what)):
+        if n != 1 and n != out[i]:
+            if out[i] != 1:
+                raise ValueError(f"level_sum: {what} of {tuple(shape)} in "
+                                 f"a level of {tuple(out)}")
+            out[i] = n
+
+
+def level_shape(operands, rank: int) -> tuple:
+    """The level's output shape: the broadcast of (1,) * rank and every
+    operand's shape (a gather's declared shape, else its tensors'), each
+    aligned to the right as torch broadcasts: the shape of the eager sum."""
+    out = [1] * rank
+    for o in operands:
+        if o["kind"] == "gather":
+            _grow(out, o["shape"], rank, "a gather")
+        for n, t in _level_tensors(o):
+            _grow(out, t.shape, rank, n)
+    return tuple(out)
+
+
+def _state_is(state, code: int, dev):
+    if torch.is_tensor(state):
+        return state == code
+    return torch.full((), state == code, dtype=torch.bool, device=dev)
+
+
+def _level_value(o: dict, dev):
+    """An operand's value, by the tracer's own torch ops."""
+    k = o["kind"]
+    zero = torch.zeros((), device=dev)
+    if k == "dense":
+        return o["x"]
+    if k == "eq":
+        val, ov = o["val"], o["obs"]
+        if o["float"]:
+            eq = torch.abs(val - ov) <= 1e-6 * torch.clamp(torch.abs(ov),
+                                                            min=1.0)
+        else:
+            eq = val == ov
+        return torch.where(_state_is(o["state"], 1, dev),
+                           torch.where(eq, zero, NINF), zero)
+    if k == "sel":
+        return torch.where(_state_is(o["state"], 1, dev), o["obs_ld"],
+                           torch.where(_state_is(o["state"], 2, dev),
+                                       o["miss"], zero))
+    M = o["M"]
+    V = M.shape[0]
+    g = M[o["obs"].long().clamp(0, V - 1), o["word"].long().clamp(0, V - 1)]
+    return g.expand(o["shape"])
+
+
+def level_sum_plain(prog, operands, rank: int):
+    """K20's plain version: the program evaluated with torch ops, each
+    operand by the tracer's own expression (the eager where chains and
+    gathers), each step one torch add: the parent's nested eager sum,
+    bit for bit. Returns a tensor of level_shape(operands, rank)."""
+    dev = _level_device(operands)
+    stack = []
+    for op, a in prog:
+        if op == LEVEL_ZERO:
+            stack.append(torch.zeros((1,) * rank, device=dev))
+        elif op == LEVEL_PUSH:
+            stack.append(_level_value(operands[a], dev))
+        elif op == LEVEL_ADD:
+            b = stack.pop()
+            stack[-1] = stack[-1] + b
+        elif op == LEVEL_ADDOP:
+            stack[-1] = stack[-1] + _level_value(operands[a], dev)
+        else:
+            raise ValueError(f"level_sum: opcode {op}")
+    if len(stack) != 1:
+        raise ValueError(f"level_sum: the program leaves {len(stack)} values")
+    out = stack[0]
+    shape = level_shape(operands, rank)
+    if tuple(out.shape) != shape:
+        raise ValueError(f"level_sum: sum of shape {tuple(out.shape)}, "
+                         f"operands of {shape}")
+    return out
+
+
+def _level_device(operands):
+    for o in operands:
+        for _n, t in _level_tensors(o):
+            return t.device
+    raise ValueError("level_sum: no operand tensor to take a device from")
+
+
+def level_kinds(operands) -> str:
+    """K20's census word for its operand kinds: the count of each kind
+    present, as "a2b1d3" (a dense, b eq, c sel, d gather; the zero counts
+    left out, "-" for none)."""
+    n = [0] * len(K20_KINDS)
+    for o in operands:
+        n[K20_KINDS.index(o["kind"])] += 1
+    return "".join(f"{'abcd'[i]}{c}" for i, c in enumerate(n) if c) or "-"
+
+
+def _level_fields(prog, operands, rank: int, shape) -> dict:
+    """The fields kernel_bench rebuilds a K20 census shape's seeded inputs
+    from: the program, the output shape and each operand's kind, static
+    code, float flag, matrix size and references' (name, aligned shape,
+    dtype)."""
+    ops_ = []
+    for o in operands:
+        refs = [(n, _aligned(t.shape, rank, n), t.dtype)
+                for n, t in _level_tensors(o)]
+        ops_.append(dict(
+            kind=o["kind"], refs=refs,
+            state=None if torch.is_tensor(o.get("state")) else o.get("state"),
+            float=o.get("float", False),
+            V=int(o["M"].shape[0]) if o["kind"] == "gather" else 0,
+            shape=o.get("shape")))
+    return dict(prog=tuple(prog), rank=rank, shape=tuple(shape), ops=ops_)
+
+
+def level_plan(prog, operands, rank: int, card: bool = True) -> tuple:
+    """K20's plan for the level and its output shape: (words, shape). The
+    words, packed: the header (output size, rank, sizes, the output's
+    pointer at K20_OUT, 0 until the caller allocates the output, counts),
+    each tensor reference's (pointer, dtype code, strides over the
+    output), each operand's (kind, references, static code or matrix,
+    flag or V), the program's (opcode << 32 | argument). Refuses what the
+    kernel does not take: dtypes, rank, counts, a program that does not
+    leave one value or nests deeper than K20_MAX_STACK, and, with `card`,
+    tensors off the card."""
+    prog = list(prog)
+    if not 1 <= rank <= K20_MAX_DIMS:
+        raise ValueError(f"level_sum: rank {rank} (1 to {K20_MAX_DIMS})")
+    if len(prog) > K20_MAX_PROG or len(operands) > K20_MAX_OPS:
+        raise ValueError(f"level_sum: {len(prog)} steps and "
+                         f"{len(operands)} operands (at most "
+                         f"{K20_MAX_PROG} and {K20_MAX_OPS})")
+    if level_stack(prog) > K20_MAX_STACK:
+        raise ValueError(f"level_sum: the program nests deeper than "
+                         f"{K20_MAX_STACK}")
+    for op, a in prog:
+        if op in (LEVEL_PUSH, LEVEL_ADDOP) and not 0 <= a < len(operands):
+            raise ValueError(f"level_sum: operand {a} of {len(operands)}")
+    out = [1] * rank   # the output shape, grown reference by reference
+    refs: list = []
+    pad = [0] * (K20_MAX_DIMS - rank)
+
+    def ref(t, name, dtypes):
+        if not torch.is_tensor(t) or (card and not t.is_cuda) or \
+                t.dtype not in dtypes:
+            raise ValueError(
+                f"level_sum: {name} is {getattr(t, 'dtype', type(t))} on "
+                f"{getattr(t, 'device', None)} (expected {dtypes}"
+                f"{' on the card' if card else ''})")
+        _grow(out, t.shape, rank, name)
+        # its strides over the output: 0 on an axis it broadcasts over
+        lead = rank - t.dim()
+        refs.extend([t.data_ptr(), _DT[t.dtype]] + [0] * lead
+                    + [0 if n == 1 else x for n, x in zip(t.shape,
+                                                          t.stride())]
+                    + pad)
+        return len(refs) // K20_REF - 1
+
+    ints = _INDEX_DT + (torch.bool, torch.uint8)
+    opw = []
+    for o in operands:
+        k = o["kind"]
+        if k == "dense":
+            w = [0, ref(o["x"], "a dense term", (torch.float32,)), -1, -1,
+                 0, 0]
+        elif k == "eq":
+            st = o["state"]
+            vdt = (torch.float32,) + ints
+            r0 = ref(o["val"], "an equality's value", vdt)
+            r1 = ref(o["obs"], "an equality's observation", vdt)
+            r2 = ref(st, "a state", ints) if torch.is_tensor(st) else -1
+            fl = 1 if o["float"] else (
+                2 if o["val"].is_floating_point()
+                or o["obs"].is_floating_point() else 0)
+            w = [1, r0, r1, r2, 0 if torch.is_tensor(st) else int(st), fl]
+        elif k == "sel":
+            st = o["state"]
+            r0 = ref(o["obs_ld"], "an observation's log-density",
+                     (torch.float32,))
+            r1 = ref(o["miss"], "a missing log-density", (torch.float32,))
+            r2 = ref(st, "a state", ints) if torch.is_tensor(st) else -1
+            w = [2, r0, r1, r2, 0 if torch.is_tensor(st) else int(st), 0]
+        elif k == "gather":
+            M = o["M"]
+            if not ((M.is_cuda or not card) and M.dtype == torch.float32
+                    and M.dim() == 2 and M.shape[0] == M.shape[1]
+                    and M.is_contiguous()):
+                raise ValueError("level_sum: a gather's matrix must be a "
+                                 "contiguous square float32 on the card")
+            _grow(out, o["shape"], rank, "a gather")
+            w = [3, ref(o["obs"], "a gather's code", _INDEX_DT),
+                 ref(o["word"], "a gather's word", _INDEX_DT), -1,
+                 M.data_ptr(), int(M.shape[0])]
+        else:
+            raise ValueError(f"level_sum: operand kind {k!r} is not one of "
+                             f"{K20_KINDS}")
+        opw += w
+    shape = tuple(out)
+    n_refs = len(refs) // K20_REF
+    if n_refs > K20_MAX_REFS:
+        raise ValueError(f"level_sum: {n_refs} tensors (at most "
+                         f"{K20_MAX_REFS})")
+    words = [math.prod(shape), rank] + list(shape) + \
+        [1] * (K20_MAX_DIMS - rank) + [0, n_refs, len(operands), len(prog)]
+    words += [0] * (K20_HEAD - len(words))
+    return words + refs + opw + [(op << 32) | a for op, a in prog], shape
+
+
+def level_sum(prog, operands, rank: int, B: int = 1, label=None):
+    """K20: a level's terms summed in one launch, a thread an output
+    element: `prog` the postfix program (level_program) over `operands`
+    (level_dense, level_eq, level_sel, level_gather; each tensor read in
+    place with its broadcast strides over the output, aligned to the right
+    at `rank` axes), the output a float32 torch.empty buffer of
+    level_shape(operands, rank). Dense terms and the log-densities are
+    float32, codes and values any dtype of _DT, states integers, each
+    gather's matrix a contiguous float32 [V, V]. On CPU tensors the plain
+    version; on CUDA ones the kernel or an error. Counted in LAUNCH_CENSUS
+    by ("label d=depth B=.. out=shape kinds", r1 or rn by B, the output
+    size); its fields in CENSUS_FIELDS."""
+    dev = _level_device(operands)
+    if dev.type == "cpu":
+        return level_sum_plain(prog, operands, rank)
+    if dev.type != "cuda":
+        raise RuntimeError(f"level_sum: no kernel for device {dev}")
+    words, shape = level_plan(prog, operands, rank)
+    out = torch.empty(shape, dtype=torch.float32, device=dev)
+    words[K20_OUT] = out.data_ptr()
+    words = array.array("q", words)
+    rc = _fn("level_sum")(words.buffer_info()[0], len(words), _stream(out))
+    _check(rc, "level_sum")
+    mode = (f"{label} d={rank - 1} B={B} out={'x'.join(map(str, shape))} "
+            f"{level_kinds(operands)}")
+    fields = None if mode in CENSUS_FIELDS["level_sum"] else \
+        _level_fields(prog, operands, rank, shape)
+    _count("level_sum", B, out.numel(), mode, fields)
+    return out
+
+
+def py_logprobs_plain(refcount, alive, total, nrows, s, d):
+    """The Pitman-Yor prior over a class's slots and a fresh row
+    (trace.jl:53-61, block_proposal.jl:86-96), s and d float32 tensors:
+    existing [cap] (or [B, cap] with per-row leaves), new [] (or [B])."""
+    logden = torch.log(total.to(torch.float32) + s)
+    cnt = refcount.to(torch.float32)
+    live = alive & (refcount > 0)
+    ld = logden[..., None] if logden.dim() else logden
+    existing = torch.where(live, torch.log(torch.clamp(cnt - d, min=1e-30))
+                           - ld, torch.full_like(cnt, NINF))
+    new = torch.log(d * nrows.to(torch.float32) + s) - logden
+    return existing, new
+
+
+def py_prior_plain(refcount, alive, total, nrows, strength, discount, comp,
+                   children, new_children, full):
+    """K21's plain version, the batched score_fk's own arithmetic
+    (BlockTracer.py_logprobs, the compaction's select and the adds): the
+    Pitman-Yor prior of every candidate slot, log(max(refcount - d,
+    1e-30)) - log(total + s) where alive and referenced, else NEG_INF,
+    through the compaction `comp` = (idx [Kc], nc) where given (pads past
+    nc NEG_INF), plus the children [.., K]; the fresh row's log(d nrows +
+    s) - log(total + s) plus new_children [..]. Leaves [cap] or per row
+    [B, cap] (total and nrows then [B]); s and d device scalars or
+    numbers. Returns K1's inputs (exist [R, K], new [R]) over the
+    enumeration rows `full`."""
+    from .engine.propose import _rtake
+
+    dev = children.device
+    full = tuple(full)
+    depth = len(full) - 1
+    s, d = (v if torch.is_tensor(v) else torch.tensor(float(v), device=dev)
+            for v in (strength, discount))
+    existing, new = py_logprobs_plain(refcount, alive, total, nrows, s, d)
+    cap = int(refcount.shape[-1])
+    if comp is not None:
+        idx, nc = comp
+        K = int(idx.shape[0])
+        pos = torch.arange(K, device=dev)
+        slot_ids = torch.clamp(idx, max=cap - 1)
+        existing = torch.where(pos < nc, _rtake(existing, slot_ids[None, :]),
+                               torch.full((), NINF, device=dev))
+    else:
+        K = cap
+    exist = existing.reshape((-1,) + (1,) * depth + (K,)) + children
+    new = new.reshape(-1)
+    new = new.reshape((new.shape[0],) + (1,) * depth) + new_children
+    return (exist.expand(full + (K,)).reshape(-1, K).contiguous(),
+            new.expand(full).reshape(-1).contiguous())
+
+
+def _f32_bits(x: float) -> int:
+    import struct
+    return struct.unpack("<i", struct.pack("<f", float(x)))[0]
+
+
+def py_prior_words(refcount, alive, total, nrows, strength, discount,
+                   comp, children, new_children, full, exist, new,
+                   card: bool = True) -> list:
+    """K21's plan (csrc/py_prior.cu's word indices) for writing exist
+    [R, K] and new [R] (contiguous float32); refuses what the kernel does
+    not take, and, with `card`, tensors off the card."""
+    def on(t):
+        return t.is_cuda or not card
+
+    full, R = _score_rows(full)
+    B = full[0]
+    cap = int(refcount.shape[-1])
+    for t, name, dt in ((refcount, "refcount", torch.int32),
+                        (alive, "alive", torch.bool)):
+        if not on(t) or t.dtype != dt or t.shape[-1] != cap or \
+                t.dim() > 2 or (t.dim() == 2 and t.shape[0] not in (1, B)) \
+                or not t.is_contiguous():
+            raise ValueError(f"py_prior: {name} is {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device} (expected a "
+                             f"contiguous {dt} [cap] or [B or 1, cap] on "
+                             f"the card)")
+    per_row = refcount.dim() == 2 and refcount.shape[0] == B and B > 1
+    if per_row != (alive.dim() == 2 and alive.shape[0] == B and B > 1):
+        raise ValueError("py_prior: refcount and alive must both be per "
+                         "row or both shared")
+    words = [0] * K21_WORDS
+    words[0:4] = [refcount.data_ptr(), alive.data_ptr(),
+                  cap if per_row else 0, cap]
+    for j, (t, name) in enumerate(((total, "total"), (nrows, "nrows"))):
+        if not on(t) or t.dtype not in (torch.int32, torch.int64,
+                                            torch.float32) or \
+                t.numel() not in (1, B) or t.dim() > 1:
+            raise ValueError(f"py_prior: {name} must be one int or float "
+                             f"element, or [B], on the card")
+        words[4 + 3 * j: 7 + 3 * j] = [t.data_ptr(), _DT[t.dtype],
+                                       1 if t.numel() > 1 else 0]
+    for j, (v, name) in enumerate(((strength, "strength"),
+                                   (discount, "discount"))):
+        if torch.is_tensor(v):
+            if v.numel() != 1 or v.dtype != torch.float32 or not on(v):
+                raise ValueError(f"py_prior: {name} must be one float32 "
+                                 f"element on the card")
+            words[10 + 2 * j] = v.data_ptr()
+        else:
+            words[11 + 2 * j] = _f32_bits(v)
+    if comp is not None:
+        idx, nc = comp
+        for t, name in ((idx, "comp idx"), (nc, "comp nc")):
+            if not torch.is_tensor(t) or not on(t) or \
+                    t.dtype not in _INDEX_DT:
+                raise ValueError(f"py_prior: {name} must be an int tensor "
+                                 f"on the card")
+        if idx.dim() != 1 or not idx.is_contiguous() or nc.numel() != 1:
+            raise ValueError("py_prior: comp must be (idx [Kc] contiguous, "
+                             "nc one element)")
+        K = int(idx.shape[0])
+        words[14:18] = [idx.data_ptr(), _DT[idx.dtype], nc.data_ptr(),
+                        _DT[nc.dtype]]
+    else:
+        K = cap
+    if K < 1:
+        raise ValueError("py_prior: no candidate slot")
+    chs = _strided(children, full + (K,), "py_prior children",
+                   (torch.float32,), card)
+    ncs = _strided(new_children, full, "py_prior new_children",
+                   (torch.float32,), card)
+    for t, n in ((exist, R * K), (new, R)):
+        if t.dtype != torch.float32 or not t.is_contiguous() or \
+                t.numel() != n:
+            raise ValueError("py_prior: the outputs must be contiguous "
+                             "float32 [R, K] and [R]")
+    nd = len(full)
+    words[18:24] = [children.data_ptr(), new_children.data_ptr(),
+                    exist.data_ptr(), new.data_ptr(), R, K]
+    words[24] = nd
+    words[25:25 + nd] = list(full)
+    words[33:33 + nd] = list(chs)[:nd]
+    words[41] = chs[nd]
+    words[42:42 + nd] = list(ncs)[:nd]
+    return words
+
+
+def py_prior(refcount, alive, total, nrows, strength, discount, comp,
+             children, new_children, full, cls=None):
+    """K21: py_prior_plain in one launch, a thread an entry of K1's two
+    inputs: refcount int32 and alive bool [cap] or [B or 1, cap]
+    (contiguous), total and nrows one element or [B] (int32, int64 or
+    float32), strength and discount device float32 scalars or numbers,
+    comp None or (idx int [Kc] contiguous, nc an int scalar on the card),
+    children [.., K] and new_children [..] float32 read in place with
+    their broadcast strides over `full` (<= 8 axes, the batch axis
+    first). Returns (exist [R, K], new [R]) float32 in torch.empty
+    buffers. On CPU tensors the plain version; on CUDA ones the kernel or
+    an error. Counted in LAUNCH_CENSUS by ("cls full=.. cap=..[ comp][
+    rows]", r1 or rn, K); its fields in CENSUS_FIELDS."""
+    if not _route(children, "py_prior"):
+        return py_prior_plain(refcount, alive, total, nrows, strength,
+                              discount, comp, children, new_children, full)
+    full, R = _score_rows(full)
+    K = int(comp[0].shape[0]) if comp is not None else \
+        int(refcount.shape[-1])
+    exist = torch.empty((R, K), dtype=torch.float32, device=children.device)
+    new = torch.empty((R,), dtype=torch.float32, device=children.device)
+    words = py_prior_words(refcount, alive, total, nrows, strength,
+                           discount, comp, children, new_children, full,
+                           exist, new)
+    arr = (ctypes.c_int64 * K21_WORDS)(*words)
+    rc = _fn("py_prior")(arr, K21_WORDS, _stream(children))
+    _check(rc, "py_prior")
+    B, cap, per_row = full[0], int(refcount.shape[-1]), words[2] != 0
+    mode = (f"{cls} full={'x'.join(map(str, full))} cap={cap}"
+            f"{' comp' if comp is not None else ''}"
+            f"{' rows' if per_row else ''}")
+    _count("py_prior", B, K, mode,
+           dict(B=B, full=full, cap=cap, comp=comp is not None,
+                per_row=per_row, sd=torch.is_tensor(strength),
+                counts=(total.dtype, nrows.dtype)))
+    return exist, new

@@ -1,0 +1,822 @@
+"""The score pass's accumulation glue: K20 level_sum and K21 py_prior.
+
+CPU: level_sum_plain against the parent's nested eager expression, which
+each test writes out itself (score_plan's `total = zeros; total = total +
+step`, a step `term + score_plan(rest)`, copy mode's and the
+non-enumerable branch's where chains, _mm_flush's K3 sum added last), bit
+for bit on seeded term lists of every operand kind: dense terms, copy-mode
+equality on an int and on a FLOAT column, non-enumerable observed terms,
+the states 0, 1 and 2 static and per row, deferred AddTypos gathers, depth
+0 to 2. K20's and K21's plans, read word by word as the kernels read them
+(a Python reading through the tensors' addresses), against the plain
+versions. py_prior_plain against pclean_tpu's py_logprobs plus the
+children (its BlockTracer method, the compaction's select and the adds),
+within the score pass's tolerance (rtol 1e-5, atol 1e-5: two libraries'
+logs), with and without compaction, with [cap] and [B, cap] leaves.
+One-row and batched blocks of the scaled, flights and hospital (240-row
+synth) models through the new path against pclean_tpu's tracer under its
+uniform pools, as test_one_row_blocks_through_k12_k13_match_jax holds
+them, with the tracer seen calling K20 and K21 (their plain versions on
+the CPU).
+
+Card (`cuda` marker; `python -m pytest -m cuda
+tests/test_torch_level_kernels.py` on the H100): K20 and K21 against their
+plain versions on the card, bit-equal (the same float operations, one
+rounding each), at every operand kind and the paths' shapes; their
+refusals; graphed hospital and flights rows bit-equal to their eager rows
+with K20 launched inside the graph. The JAX package is imported inside the
+CPU tests only.
+"""
+import ctypes
+from types import SimpleNamespace
+from unittest import mock
+
+import numpy as np
+import pytest
+import torch
+
+from pclean_tpu_torch import ops
+from pclean_tpu_torch.utils import NEG_INF
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+NINF = float(NEG_INF)
+AXES = (3, 4)   # the enumeration axes of a seeded level at depth 1 and 2
+
+
+# ------------------------------------------------------- seeded levels
+
+
+def _state(rng, B, rank, static):
+    """A state operand: the static code, or int8 per-row codes 0-2."""
+    if static is not None:
+        return static
+    return torch.as_tensor(rng.integers(0, 3, (B,) + (1,) * (rank - 1))
+                           .astype(np.int8))
+
+
+def _dense(rng, B, rank):
+    """A float32 term varying over a random subset of the level's axes."""
+    full = (B,) + AXES[:rank - 1]
+    shape = tuple(n if rng.random() < 0.6 else 1 for n in full)
+    x = rng.normal(0.0, 2.0, shape).astype(np.float32)
+    x[rng.random(shape) < 0.1] = NINF
+    return torch.as_tensor(x)
+
+
+def _term(rng, kind, B, rank, static=None, is_float=False):
+    """One seeded operand of `kind` and its value as the parent's eager
+    code computed it (copy mode: propose.py score_step; the non-enumerable
+    branch: score_choice; a static observation's log-density: dense)."""
+    zero = torch.zeros(())
+    st = _state(rng, B, rank, static)
+    st1 = torch.full((1,) * rank, st == 1) if isinstance(st, int) \
+        else st == 1
+    st2 = torch.full((1,) * rank, st == 2) if isinstance(st, int) \
+        else st == 2
+    if kind == "dense":
+        x = _dense(rng, B, rank)
+        return ops.level_dense(x), x
+    if kind == "eq":
+        ova_shape = (B,) + (1,) * (rank - 1)
+        full = (B,) + AXES[:rank - 1]
+        if is_float:
+            ova = torch.as_tensor(rng.normal(0, 50, ova_shape)
+                                  .astype(np.float32))
+            jit = rng.choice([0.0, 1e-7, 1e-3], full).astype(np.float32)
+            val = ova + torch.as_tensor(jit) * torch.clamp(ova.abs(),
+                                                           min=1.0)
+            eq = torch.abs(val - ova) <= 1e-6 * torch.clamp(torch.abs(ova),
+                                                           min=1.0)
+        else:
+            ova = torch.as_tensor(rng.integers(0, 4, ova_shape))
+            val = torch.as_tensor(rng.integers(0, 4, full).astype(np.int32))
+            eq = val == ova
+        ref = torch.where(st1, torch.where(eq, zero, NINF), zero)
+        return ops.level_eq(val, ova, st, is_float), ref
+    if kind == "sel":
+        obs_ld = _dense(rng, B, rank)
+        miss = torch.tensor(float(rng.normal(0, 3)), dtype=torch.float32) \
+            if rng.random() < 0.5 else _dense(rng, B, rank)
+        ref = torch.where(st1, obs_ld, torch.where(st2, miss, zero))
+        return ops.level_sel(obs_ld, miss, st), ref
+    raise ValueError(kind)
+
+
+def _plan(rng, B, rank, nest, kinds, statics, floats, ops_, terms):
+    """A seeded plan: its postfix code (as BlockTracer.score_plan builds
+    it) and its value as the parent's score_plan computed it."""
+    code = [(ops.LEVEL_ZERO, 0)]
+    total = torch.zeros((1,) * rank)
+    for _ in range(int(rng.integers(1, 4))):
+        # a level of a few dozen operands at most, as the paths' are
+        what = "leaf" if len(ops_) >= 24 or not nest else rng.choice(
+            ["leaf", "term", "plan"])
+        kind = str(rng.choice(kinds))
+        if what == "leaf" and kind == "dense":
+            o, v = _term(rng, "dense", B, rank)
+            ops_.append(o)
+            code += [(ops.LEVEL_PUSH, len(ops_) - 1)]
+            step = v
+        elif what in ("leaf", "term"):
+            o, v = _term(rng, kind, B, rank, statics[rng.integers(
+                len(statics))], bool(rng.choice(floats)))
+            ops_.append(o)
+            i = len(ops_) - 1
+            terms.append(kind)
+            rest_code, rest = _plan(rng, B, rank, nest - 1, kinds,
+                                    statics, floats, ops_, terms) \
+                if what == "term" else ([(ops.LEVEL_ZERO, 0)],
+                                        torch.zeros((1,) * rank))
+            code += rest_code + [(ops.LEVEL_ADDOP, i)]
+            step = v + rest
+        else:
+            sub_code, step = _plan(rng, B, rank, nest - 1, kinds, statics,
+                                   floats, ops_, terms)
+            code += sub_code
+        code.append((ops.LEVEL_ADD, 0))
+        total = total + step
+    return code, total
+
+
+def _gathers(rng, rank, n, ops_, code, total):
+    """n deferred AddTypos columns of a one-row level (_mm_flush's frame):
+    K3's plain sum (from 0, in column order) added to the total last, as
+    the parent's _mm_flush did; the code K20 gets for them."""
+    axes = AXES[:rank - 1]
+    K = int(np.prod(axes))
+    mats, obs, words = [], [], []
+    code.append((ops.LEVEL_ZERO, 0))
+    for _ in range(n):
+        V = int(rng.integers(3, 9))
+        M = torch.as_tensor(rng.normal(0, 1, (V, V)).astype(np.float32))
+        ov = torch.as_tensor(rng.integers(-1, V + 2, (1,)))  # clamped
+        word_shape = (1,) + tuple(a if rng.random() < 0.7 else 1
+                                  for a in axes)
+        word = torch.as_tensor(rng.integers(0, V + 1, word_shape))
+        mats.append(M)
+        obs.append(ov)
+        words.append(word)
+        ops_.append(ops.level_gather(M, ov.reshape((1,) * rank), word,
+                                     (1,) + axes))
+        code.append((ops.LEVEL_ADDOP, len(ops_) - 1))
+    code.append((ops.LEVEL_ADD, 0))
+    ob = torch.stack([o.reshape(-1).expand(1) for o in obs],
+                     dim=1).to(torch.int32)
+    wd = torch.stack([w.expand((1,) + axes).reshape(K)
+                      for w in words]).to(torch.int32)
+    out = ops.obs_gather_sum_plain(mats, ob, wd)
+    return total + out.reshape((1,) + axes)
+
+
+LEVEL_CASES = {
+    "dense d0": dict(depth=0, kinds=["dense"], B=3),
+    "dense d2 nested": dict(depth=2, kinds=["dense"], B=2, nest=3),
+    "eq int per-row": dict(depth=1, kinds=["eq"], B=4, statics=[None]),
+    "eq float per-row": dict(depth=1, kinds=["eq"], B=4, statics=[None],
+                             floats=[True]),
+    "eq static 0 1 2": dict(depth=2, kinds=["eq"], B=2, statics=[0, 1, 2],
+                            floats=[False, True]),
+    "sel per-row": dict(depth=1, kinds=["sel"], B=5, statics=[None]),
+    "sel static 0 1 2": dict(depth=0, kinds=["sel"], B=3,
+                             statics=[0, 1, 2]),
+    "mixed d1": dict(depth=1, kinds=["dense", "eq", "sel"], B=3,
+                     statics=[None, 1, 2], floats=[False, True], nest=2),
+    "mixed d2": dict(depth=2, kinds=["dense", "eq", "sel"], B=2,
+                     statics=[None, 0, 1], floats=[False, True], nest=3),
+    "gathers d1 one row": dict(depth=1, kinds=["dense", "eq"], B=1,
+                               gathers=3),
+    "gathers d2 one row": dict(depth=2, kinds=["dense", "sel", "eq"], B=1,
+                               statics=[None, 1], gathers=10, nest=2),
+}
+
+
+def _level(case, seed=0):
+    """(program, operands, rank, the parent's eager value) of a case."""
+    c = LEVEL_CASES[case]
+    rng = np.random.default_rng(seed)
+    rank = 1 + c["depth"]
+    ops_, terms = [], []
+    code, total = _plan(rng, c["B"], rank, c.get("nest", 1), c["kinds"],
+                        c.get("statics", [None]), c.get("floats", [False]),
+                        ops_, terms)
+    if c.get("gathers"):
+        total = _gathers(rng, rank, c["gathers"], ops_, code, total)
+    return ops.level_program(code), ops_, rank, total
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("case", list(LEVEL_CASES))
+def test_level_sum_plain_is_the_parents_eager_sum(case, seed):
+    """Bit-equal, of the eager sum's shape; the CPU wrapper takes the plain
+    version and launches nothing."""
+    prog, operands, rank, want = _level(case, seed)
+    before = dict(ops.LAUNCHES)
+    got = ops.level_sum(prog, operands, rank, B=LEVEL_CASES[case]["B"])
+    assert ops.LAUNCHES == before
+    assert got.shape == want.shape == ops.level_shape(operands, rank)
+    assert got.dtype == torch.float32
+    assert torch.equal(got, want), (got - want).abs().max()
+    # every PUSH followed by ADD is folded
+    assert all(not (a[0] == ops.LEVEL_PUSH and b[0] == ops.LEVEL_ADD)
+               for a, b in zip(prog, prog[1:]))
+
+
+def test_level_program_and_stack():
+    P, Z, A, O = ops.LEVEL_PUSH, ops.LEVEL_ZERO, ops.LEVEL_ADD, \
+        ops.LEVEL_ADDOP
+    code = [(Z, 0), (Z, 0), (P, 0), (A, 0), (O, 1), (A, 0), (P, 2), (A, 0)]
+    prog = ops.level_program(code)
+    assert prog == [(Z, 0), (Z, 0), (O, 0), (O, 1), (A, 0), (O, 2)]
+    assert ops.level_stack(prog) == 2
+    with pytest.raises(ValueError):
+        ops.level_stack([(Z, 0), (Z, 0)])
+    with pytest.raises(ValueError):
+        ops.level_stack([(A, 0)])
+
+
+# ------------------------------------------- the plans, read as the card
+
+
+_CT = {0: ctypes.c_uint8, 1: ctypes.c_int8, 2: ctypes.c_uint8,
+       3: ctypes.c_int16, 4: ctypes.c_int32, 5: ctypes.c_int64,
+       6: ctypes.c_float, 7: ctypes.c_double}
+
+
+def _ld(ptr, dt, i):
+    ct = _CT[int(dt)]
+    v = ct.from_address(int(ptr) + int(i) * ctypes.sizeof(ct)).value
+    return np.float32(v) if dt == 6 else v
+
+
+def _read_k20(words):
+    """csrc/level_sum.cu's kernel, written out in Python over the plan:
+    every output element from its coordinates, each reference at its
+    strides, float32 arithmetic (one rounding a step)."""
+    N, rank = words[0], words[1]
+    sizes = words[2:2 + rank]
+    n_refs, n_ops, n_prog = words[11], words[12], words[13]
+    refs = [words[16 + 10 * r: 26 + 10 * r] for r in range(n_refs)]
+    base = 16 + 10 * n_refs
+    opw = [words[base + 6 * i: base + 6 * i + 6] for i in range(n_ops)]
+    prog = words[base + 6 * n_ops: base + 6 * n_ops + n_prog]
+    out = np.zeros(N, np.float32)
+
+    def at(r, coord):
+        rf = refs[r]
+        return _ld(rf[0], rf[1], sum(c * s for c, s in zip(coord,
+                                                             rf[2:])))
+
+    def operand(o, coord):
+        kind = o[0]
+        if kind == 0:
+            return at(o[1], coord)
+        st = int(at(o[3], coord)) if o[3] >= 0 and kind != 3 else o[4]
+        if kind == 1:
+            if st != 1:
+                return np.float32(0)
+            v, ov = at(o[1], coord), at(o[2], coord)
+            if o[5] == 1:
+                v, ov = np.float32(v), np.float32(ov)
+                eq = abs(v - ov) <= np.float32(1e-6) * max(abs(ov),
+                                                           np.float32(1))
+            elif o[5] == 2:
+                eq = np.float32(v) == np.float32(ov)
+            else:
+                eq = int(v) == int(ov)
+            return np.float32(0) if eq else np.float32(NINF)
+        if kind == 2:
+            return at(o[1], coord) if st == 1 else (
+                at(o[2], coord) if st == 2 else np.float32(0))
+        V = o[5]
+        a = min(max(int(at(o[1], coord)), 0), V - 1)
+        b = min(max(int(at(o[2], coord)), 0), V - 1)
+        return _ld(o[4], 6, a * V + b)
+
+    for idx in range(N):
+        coord = np.unravel_index(idx, sizes)
+        stack = []
+        for w in prog:
+            op, arg = w >> 32, w & 0xffffffff
+            if op == ops.LEVEL_ZERO:
+                stack.append(np.float32(0))
+            elif op == ops.LEVEL_PUSH:
+                stack.append(np.float32(operand(opw[arg], coord)))
+            elif op == ops.LEVEL_ADD:
+                b = stack.pop()
+                stack[-1] = np.float32(stack[-1] + b)
+            else:
+                stack[-1] = np.float32(stack[-1] + operand(opw[arg], coord))
+        out[idx] = stack[0]
+    return out.reshape(sizes)
+
+
+@pytest.mark.parametrize("case", list(LEVEL_CASES))
+def test_k20_plan_read_as_the_kernel_reads_it(case):
+    prog, operands, rank, want = _level(case, 3)
+    words, shape = ops.level_plan(prog, operands, rank, card=False)
+    assert shape == tuple(want.shape) and len(words) <= ops.K20_WORDS
+    assert words[ops.K20_OUT] == 0   # the caller's output goes here
+    got = _read_k20(words)
+    np.testing.assert_array_equal(got, want.numpy())
+
+
+def test_k20_plan_refuses_what_the_kernel_does_not_take():
+    prog, operands, rank, _want = _level("mixed d1", 0)
+    with pytest.raises(ValueError):   # off the card
+        ops.level_plan(prog, operands, rank)
+    bad = [dict(o) for o in operands]
+    i = next(j for j, o in enumerate(bad) if o["kind"] == "dense")
+    bad[i]["x"] = bad[i]["x"].double()
+    with pytest.raises(ValueError):
+        ops.level_plan(prog, bad, rank, card=False)
+    with pytest.raises(ValueError):   # a program leaving two values
+        ops.level_plan(prog + [(ops.LEVEL_ZERO, 0)], operands, rank,
+                       card=False)
+    with pytest.raises(ValueError):
+        ops.level_plan([(ops.LEVEL_PUSH, len(operands))], operands, rank,
+                       card=False)
+    deep = [(ops.LEVEL_ZERO, 0)] * (ops.K20_MAX_STACK + 1) + \
+        [(ops.LEVEL_ADD, 0)] * ops.K20_MAX_STACK
+    with pytest.raises(ValueError):
+        ops.level_plan(deep, operands, rank, card=False)
+    many = [ops.level_dense(torch.zeros(1))] * (ops.K20_MAX_OPS + 1)
+    with pytest.raises(ValueError):
+        ops.level_plan([(ops.LEVEL_ZERO, 0)], many, 1, card=False)
+    clash = [ops.level_dense(torch.zeros(1, 3)),
+             ops.level_dense(torch.zeros(1, 4))]
+    with pytest.raises(ValueError):   # operands that do not broadcast
+        ops.level_plan([(ops.LEVEL_ZERO, 0), (ops.LEVEL_ADDOP, 0),
+                        (ops.LEVEL_ADDOP, 1)], clash, 2, card=False)
+
+
+# ------------------------------------------------------------------ K21
+
+
+def _prior_inputs(seed, B, cap, full, comp=None, per_row=False, py=True,
+                  bcast=False):
+    """numpy-seeded K21 inputs: refcounts 0-5, 30% dead; per-row leaves
+    [B, cap] with totals and nrows [B], else [cap] and scalars; comp: Kc
+    candidates (live slots first, ascending, padded with cap), nc of them
+    real; children [full..., K] (or broadcast over the rows) and
+    new_children [full...]."""
+    rng = np.random.default_rng(seed)
+    lead = (B,) if per_row else ()
+    refc = rng.integers(0, 6, lead + (cap,)).astype(np.int32)
+    alive = rng.random(lead + (cap,)) >= 0.3
+    total = (refc * alive).sum(-1).astype(np.int64)
+    nrows = alive.sum(-1).astype(np.int64)
+    K = cap
+    idx = nc = None
+    if comp is not None:
+        K = comp
+        live = np.flatnonzero((refc.reshape(-1, cap)[0] > 0)
+                              & alive.reshape(-1, cap)[0])
+        n = min(len(live), K - 2)
+        idx = np.full(K, cap, np.int64)
+        idx[:n] = live[:n]
+        nc = np.int64(n)
+    ch_shape = ((1,) * len(full) + (K,)) if bcast else tuple(full) + (K,)
+    ch = rng.normal(0.0, 2.0, ch_shape).astype(np.float32)
+    ch[rng.random(ch_shape) < 0.1] = NINF
+    nch = rng.normal(0.0, 2.0, tuple(full)).astype(np.float32)
+    s, d = np.float32(rng.uniform(0.5, 3.0)), np.float32(rng.uniform(0, 0.6))
+    return dict(refcount=refc, alive=alive, total=total, nrows=nrows,
+                idx=idx, nc=nc, children=ch, new_children=nch,
+                full=tuple(full), strength=s, discount=d, py=py)
+
+
+def _prior_torch(inp, dev="cpu"):
+    t = lambda x: torch.as_tensor(np.asarray(x), device=dev)  # noqa: E731
+    s, d = (t(inp["strength"]), t(inp["discount"])) if inp["py"] else \
+        (float(inp["strength"]), float(inp["discount"]))
+    comp = None if inp["idx"] is None else (t(inp["idx"]), t(inp["nc"]))
+    return (t(inp["refcount"]), t(inp["alive"]), t(inp["total"]),
+            t(inp["nrows"]), s, d, comp, t(inp["children"]),
+            t(inp["new_children"]), inp["full"])
+
+
+def _prior_jax(inp):
+    """pclean_tpu's BlockTracer.py_logprobs on each row's leaves (the
+    tracer runs one row under vmap), score_fk's compaction select, and
+    the children added: (exist [R, K], new [R])."""
+    import jax.numpy as jnp
+    from pclean_tpu.engine import propose as jprop
+
+    full = inp["full"]
+    B, depth = full[0], len(full) - 1
+    rows = []
+    for b in range(B):
+        pick = (lambda x: x[b]) if inp["refcount"].ndim == 2 else \
+            (lambda x: x)
+        rel = {"T": {k: jnp.asarray(pick(inp[k]))
+                     for k in ("refcount", "alive", "total", "nrows")}}
+        params = {"__py__": {"T": {
+            "strength": jnp.asarray(inp["strength"]),
+            "discount": jnp.asarray(inp["discount"])}}} if inp["py"] else {}
+        cm = SimpleNamespace(cls=lambda tc: SimpleNamespace(
+            py_strength=float(inp["strength"]),
+            py_discount=float(inp["discount"])))
+        ex, new = jprop.BlockTracer.py_logprobs(
+            SimpleNamespace(cm=cm, rel=rel, params=params), "T")
+        if inp["idx"] is not None:
+            cap = inp["refcount"].shape[-1]
+            K = len(inp["idx"])
+            slot_ids = jnp.minimum(jnp.asarray(inp["idx"]), cap - 1)
+            ex = jnp.where(jnp.arange(K) < inp["nc"], ex[slot_ids], NINF)
+        K = ex.shape[-1]
+        ch = np.broadcast_to(inp["children"], full + (K,))[b]
+        nch = np.broadcast_to(inp["new_children"], full)[b]
+        rows.append((np.asarray(ex + ch).reshape(-1, K),
+                     np.asarray(new + nch).reshape(-1)))
+    return (np.concatenate([r[0] for r in rows]),
+            np.concatenate([r[1] for r in rows]))
+
+
+PRIOR_CASES = {
+    "shared": dict(B=4, cap=40, full=(4,)),
+    "shared rows": dict(B=3, cap=30, full=(3, 2, 2)),
+    "comp": dict(B=4, cap=50, full=(4,), comp=24),
+    "comp per-row": dict(B=3, cap=40, full=(3,), comp=20, per_row=True),
+    "per-row": dict(B=3, cap=33, full=(3, 2), per_row=True),
+    "broadcast children": dict(B=5, cap=20, full=(5, 3), bcast=True),
+    "no __py__": dict(B=2, cap=30, full=(2,), py=False, comp=12),
+    "one row comp": dict(B=1, cap=64, full=(1,), comp=16),
+}
+
+
+@pytest.mark.parametrize("case", list(PRIOR_CASES))
+def test_py_prior_plain_matches_jax_py_logprobs(case):
+    inp = _prior_inputs(5, **PRIOR_CASES[case])
+    before = dict(ops.LAUNCHES)
+    exist, new = ops.py_prior(*_prior_torch(inp))
+    assert ops.LAUNCHES == before   # CPU: the plain version
+    ej, nj = _prior_jax(inp)
+    assert exist.shape == ej.shape and new.shape == nj.shape
+    np.testing.assert_allclose(exist.numpy(), ej, **TOL)
+    np.testing.assert_allclose(new.numpy(), nj, **TOL)
+    # NEG_INF entries (dead or padded slots) exactly
+    np.testing.assert_array_equal(exist.numpy() <= NINF / 2, ej <= NINF / 2)
+
+
+def _read_k21(words):
+    """csrc/py_prior.cu's kernel, written out in Python over the plan."""
+    R, K, nd = words[22], words[23], words[24]
+    sizes = words[25:25 + nd]
+    chs, chk, ncs = words[33:33 + nd], words[41], words[42:42 + nd]
+
+    def scalar(ptr, bits):
+        if ptr:
+            return _ld(ptr, 6, 0)
+        return np.frombuffer(np.int32(bits).tobytes(), np.float32)[0]
+
+    s, d = scalar(words[10], words[11]), scalar(words[12], words[13])
+    exist = np.zeros((R, K), np.float32)
+    new = np.zeros(R, np.float32)
+    f = np.float32
+    for r in range(R):
+        coord = np.unravel_index(r, sizes)
+        b = coord[0]
+        och = sum(c * x for c, x in zip(coord, chs))
+        onch = sum(c * x for c, x in zip(coord, ncs))
+        total = f(_ld(words[4], words[5], b * words[6]))
+        logden = np.log(f(total + s))
+        nv = f(_ld(words[7], words[8], b * words[9]))
+        new[r] = f(f(np.log(f(f(d * nv) + s)) - logden)
+                   + _ld(words[19], 6, onch))
+        for k in range(K):
+            slot, ok = k, True
+            if words[14]:
+                ok = k < _ld(words[16], words[17], 0)
+                slot = min(max(_ld(words[14], words[15], k), 0),
+                           words[3] - 1)
+            prior = f(NINF)
+            if ok:
+                at = b * words[2] + slot
+                cnt = _ld(words[0], 4, at)
+                if _ld(words[1], 0, at) and cnt > 0:
+                    prior = f(np.log(max(f(f(cnt) - d), f(1e-30))) - logden)
+            exist[r, k] = f(prior + _ld(words[18], 6, och + k * chk))
+    return exist, new
+
+
+@pytest.mark.parametrize("case", list(PRIOR_CASES))
+def test_k21_plan_read_as_the_kernel_reads_it(case):
+    """The plan's layout: the Python reading of csrc/py_prior.cu over the
+    words against the plain version (numpy's log against torch's: rtol
+    1e-6; NEG_INF entries exactly)."""
+    inp = _prior_inputs(7, **PRIOR_CASES[case])
+    args = _prior_torch(inp)
+    want_e, want_n = ops.py_prior_plain(*args)
+    e, n = torch.empty_like(want_e), torch.empty_like(want_n)
+    words = ops.py_prior_words(*args, e, n, card=False)
+    assert len(words) == ops.K21_WORDS
+    got_e, got_n = _read_k21(words)
+    np.testing.assert_allclose(got_e, want_e.numpy(), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(got_n, want_n.numpy(), rtol=1e-6, atol=1e-6)
+    np.testing.assert_array_equal(got_e <= NINF / 2,
+                                  want_e.numpy() <= NINF / 2)
+
+
+def test_k21_words_refuse_what_the_kernel_does_not_take():
+    inp = _prior_inputs(1, B=3, cap=20, full=(3,), comp=8)
+    args = list(_prior_torch(inp))
+    e, n = torch.empty((3, 8)), torch.empty(3)
+    with pytest.raises(ValueError):    # off the card
+        ops.py_prior_words(*args, e, n)
+    bad = list(args)
+    bad[0] = bad[0].long()
+    with pytest.raises(ValueError):
+        ops.py_prior_words(*bad, e, n, card=False)
+    bad = list(args)
+    bad[7] = bad[7].double()
+    with pytest.raises(ValueError):
+        ops.py_prior_words(*bad, e, n, card=False)
+    with pytest.raises(ValueError):    # outputs of another size
+        ops.py_prior_words(*args, torch.empty((3, 9)), n, card=False)
+    bad = list(args)
+    bad[9] = (1,) * 9
+    with pytest.raises(ValueError):
+        ops.py_prior_words(*bad, e, n, card=False)
+
+
+# ------------------------------------- the card's census inputs (CPU)
+
+
+@pytest.mark.parametrize("case", list(LEVEL_CASES))
+def test_k20_bench_inputs_rebuild_the_census_shape(case):
+    """kernel_bench's K20 inputs, which the card's census check and timing
+    use, from the fields the wrapper records: the same program, operand
+    kinds, static codes, reference shapes and dtypes; the plain version
+    runs on them; the bytes bound counts every reference and the output."""
+    from pclean_tpu_torch import kernel_bench as kb
+
+    prog, operands, rank, _want = _level(case, 4)
+    shape = ops.level_shape(operands, rank)
+    f = ops._level_fields(prog, operands, rank, shape)
+    inp = kb.level_inputs("cpu", "level_sum", f, int(np.prod(shape)))
+    prog2, ops2, rank2 = inp["args"]
+    assert prog2 == list(prog) and rank2 == rank
+    assert ops._level_fields(prog2, ops2, rank2, shape) == f
+    out = ops.level_sum_plain(*inp["args"])
+    assert tuple(out.shape) == shape
+    assert kb.level_bytes(inp) >= 4 * out.numel() + sum(
+        t.numel() * t.element_size() for o in ops2
+        for _n, t in ops._level_tensors(o))
+
+
+@pytest.mark.parametrize("case", ["shared", "comp per-row", "no __py__"])
+def test_k21_bench_inputs_rebuild_the_census_shape(case):
+    from pclean_tpu_torch import kernel_bench as kb
+
+    c = PRIOR_CASES[case]
+    f = dict(B=c["B"], full=c["full"], cap=c["cap"],
+             comp=c.get("comp") is not None,
+             per_row=c.get("per_row", False), sd=c.get("py", True),
+             counts=(torch.int64, torch.int32))
+    K = c.get("comp") or c["cap"]
+    inp = kb.level_inputs("cpu", "py_prior", f, K)
+    refc, alive, total, nrows, s, d, comp, ch, nch, full = inp["args"]
+    assert refc.shape == ((c["B"],) if f["per_row"] else ()) + (c["cap"],)
+    assert (comp is not None) == f["comp"] and torch.is_tensor(s) == f["sd"]
+    assert total.dtype == torch.int64 and nrows.dtype == torch.int32
+    exist, new = ops.py_prior_plain(*inp["args"])
+    R = int(np.prod(full))
+    assert exist.shape == (R, K) and new.shape == (R,)
+    assert kb.level_bytes(inp) > 4 * (R * K + R)
+
+
+# ---------------------------------------------------- blocks against JAX
+
+
+def _spies():
+    """Spies on the K20 and K21 entries the tracer calls (on the CPU they
+    take the plain versions)."""
+    return (mock.patch.object(ops, "level_sum", wraps=ops.level_sum),
+            mock.patch.object(ops, "py_prior", wraps=ops.py_prior))
+
+
+@pytest.fixture(scope="module")
+def scaled_pair():
+    from test_torch_host import scaled_pair as build
+    from test_torch_propose import Pair
+
+    (cm_j, cfg_j, _q), (cm_t, cfg_t, _qt), _d, _c = build()
+    return Pair(cm_j, cfg_j, cm_t, cfg_t)
+
+
+@pytest.mark.parametrize("n", [1, 12])
+def test_scaled_blocks_through_k20_k21_match_jax(scaled_pair, n):
+    """The scaled Record block (a batched fk level through K21 at n > 1,
+    K12 at one row; its candidate axis compacted at n > 1) and a latent
+    Hospital block, one row and n rows."""
+    import jax
+
+    lsum, prior = _spies()
+    with lsum as ls, prior as pp:
+        slots = np.sort(np.random.default_rng(n).choice(512, n,
+                                                        replace=False))
+        keys = jax.random.split(jax.random.PRNGKey(3 + n), n)
+        scaled_pair.block("Record", 0, slots, keys,
+                          cand={"Hospital": 64} if n > 1 else None)
+        cap = scaled_pair.cm_t.layouts["Hospital"].capacity
+        live = np.flatnonzero(scaled_pair.rt["Hospital"]["alive"].numpy())
+        hs = np.concatenate([live[:n - 1], [cap - 1]]) if n > 1 \
+            else live[:1]
+        scaled_pair.block("Hospital", 0, hs,
+                          jax.random.split(jax.random.PRNGKey(9), len(hs)))
+    assert ls.call_count > 0
+    assert (pp.call_count > 0) == (n > 1)
+
+
+@pytest.fixture(scope="module")
+def hospital_pair():
+    from test_torch_hospital import hospital_pair as build
+    from test_torch_propose import Pair
+
+    (cm_j, cfg_j, _q), (cm_t, cfg_t, _qt), _d, _c = build()
+    return Pair(cm_j, cfg_j, cm_t, cfg_t)
+
+
+@pytest.mark.parametrize("n", [1, 16])
+def test_hospital_record_blocks_through_k20_k21_match_jax(hospital_pair, n):
+    """Both hospital Record blocks in plan order (the second reads the
+    first's Hospital for the stateavg), one row and a batch of 16: the
+    deferred AddTypos gathers through K20 at one row (through K3 over the
+    batch, its output a dense operand), the batched fk levels through
+    K21."""
+    import jax
+    from test_torch_hospital import _chain
+
+    lsum, prior = _spies()
+    with lsum as ls, prior as pp:
+        slots = np.sort(np.random.default_rng(n).choice(240, n,
+                                                        replace=False))
+        _chain(hospital_pair, "Record", slots,
+               jax.random.split(jax.random.PRNGKey(21 + n), n))
+    kinds = {o["kind"] for c in ls.call_args_list for o in c.args[1]}
+    assert "dense" in kinds and ("gather" in kinds) == (n == 1)
+    assert (pp.call_count > 0) == (n > 1)
+
+
+@pytest.fixture(scope="module")
+def flights_pair():
+    from test_torch_flights import flights_pair as build
+    from test_torch_propose import Pair
+
+    (cm_j, cfg_j, _q), (cm_t, cfg_t, _qt), _d, _c = build()
+    return Pair(cm_j, cfg_j, cm_t, cfg_t, sweep=True)
+
+
+@pytest.mark.parametrize("cid,n", [("Obs", 1), ("Obs", 8), ("Flight", 1)])
+def test_flights_blocks_through_k20_match_jax(flights_pair, cid, n):
+    """Every flights Obs block in plan order (the copy-mode equalities of
+    its observed flight and website columns, its observed times'
+    non-enumerable terms with their missing cells: K20's eq and sel
+    operands) and the Flight blocks, one row and a batch of 8. The port's
+    score-pass prior draws (MaybeSwap's swaps) come from torch's global
+    generator here, the JAX package's from its keys: the two agree where
+    neither swaps, and the generator is seeded so that the test does not
+    depend on the tests run before it in the process."""
+    import jax
+    from test_torch_hospital import _chain
+
+    lsum, _prior = _spies()
+    cap = flights_pair.cm_t.layouts[cid].capacity
+    slots = np.sort(np.random.default_rng(n).choice(min(cap, 300), n,
+                                                    replace=False))
+    torch.manual_seed(0)
+    with lsum as ls:
+        _chain(flights_pair, cid, slots,
+               jax.random.split(jax.random.PRNGKey(n), n))
+    kinds = {o["kind"] for c in ls.call_args_list for o in c.args[1]}
+    assert kinds >= ({"eq", "sel", "dense"} if cid == "Obs" else {"dense"})
+
+
+# ------------------------------------------------------------------ card
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the H100)")
+    ops.build_kernels()
+    return torch.device("cuda")
+
+
+def _to(operands, dev):
+    out = []
+    for o in operands:
+        out.append({k: v.to(dev) if torch.is_tensor(v) else v
+                    for k, v in o.items()})
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(LEVEL_CASES))
+def test_k20_cuda_matches_plain(card, case):
+    for seed in range(3):
+        prog, operands, rank, _want = _level(case, seed)
+        operands = _to(operands, card)
+        before = ops.LAUNCHES["level_sum"]
+        got = ops.level_sum(prog, operands, rank, B=2, label="test")
+        assert ops.LAUNCHES["level_sum"] == before + 1
+        want = ops.level_sum_plain(prog, operands, rank)
+        torch.cuda.synchronize()
+        assert got.shape == want.shape and torch.equal(got, want), case
+
+
+@pytest.mark.cuda
+def test_k20_cuda_at_a_batched_level(card):
+    """A level over 4,096 rows and 1,472 candidates (a batched fk's E
+    branch: K3's output and copy-mode equalities per candidate)."""
+    rng = np.random.default_rng(0)
+    B, K = 4096, 1472
+    k3 = torch.as_tensor(rng.normal(0, 1, (B, K)).astype(np.float32))
+    val = torch.as_tensor(rng.integers(0, 50, (1, K)).astype(np.int32))
+    ov = torch.as_tensor(rng.integers(0, 50, (B, 1)))
+    st = torch.as_tensor(rng.integers(0, 3, (B, 1)).astype(np.int8))
+    operands = _to([ops.level_eq(val, ov, st, False), ops.level_dense(k3)],
+                   card)
+    Z, A, O = ops.LEVEL_ZERO, ops.LEVEL_ADD, ops.LEVEL_ADDOP
+    prog = [(Z, 0), (Z, 0), (O, 0), (A, 0), (O, 1)]
+    got = ops.level_sum(prog, operands, 2, B=B, label="test")
+    want = ops.level_sum_plain(prog, operands, 2)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_k20_cuda_refuses_what_it_does_not_take(card):
+    prog, operands, rank, _w = _level("mixed d1", 0)
+    operands = _to(operands, card)
+    i = max(j for j, o in enumerate(operands) if o["kind"] == "dense")
+    assert i > 0
+    bad = [dict(o) for o in operands]
+    bad[i] = ops.level_dense(operands[i]["x"].double())
+    with pytest.raises(ValueError):
+        ops.level_sum(prog, bad, rank)
+    with pytest.raises(ValueError):
+        ops.level_sum(prog, operands, ops.K20_MAX_DIMS + 1)
+    mixed = [dict(o) for o in operands]
+    mixed[i] = ops.level_dense(operands[i]["x"].cpu())  # one on the CPU
+    with pytest.raises(ValueError):
+        ops.level_sum(prog, mixed, rank)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(PRIOR_CASES) + ["scaled"])
+def test_k21_cuda_matches_plain(card, case):
+    kw = PRIOR_CASES.get(case, dict(B=4096, cap=11264, full=(4096,)))
+    inp = _prior_inputs(3, **kw)
+    args = _prior_torch(inp, card)
+    before = ops.LAUNCHES["py_prior"]
+    e1, n1 = ops.py_prior(*args, cls="T")
+    assert ops.LAUNCHES["py_prior"] == before + 1
+    e0, n0 = ops.py_prior_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(e0, e1) and torch.equal(n0, n1), case
+
+
+@pytest.mark.cuda
+def test_k21_cuda_refuses_what_it_does_not_take(card):
+    inp = _prior_inputs(1, B=3, cap=20, full=(3,), comp=8)
+    args = list(_prior_torch(inp, card))
+    args[0] = args[0].long()
+    with pytest.raises(ValueError):
+        ops.py_prior(*args)
+    args = list(_prior_torch(inp, card))
+    args[1] = args[1].cpu()
+    with pytest.raises(ValueError):
+        ops.py_prior(*args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["hospital", "flights"])
+def test_graphed_rows_through_k20_bit_equal_to_eager(card, which):
+    """A hospital ramp and a flights sweep of 24 rows, once eager with the
+    kernels and once as replays of the captured row step: every leaf
+    bit-equal, the launch counts equal, K20 among them."""
+    from pclean_tpu_torch.engine import smc as tsmc
+    from pclean_tpu_torch.engine.compile import init_state
+    from pclean_tpu_torch.kernel_bench import graph_against_eager
+    from pclean_tpu_torch.workloads import flights, hospital
+
+    if which == "hospital":
+        cm, cfg = hospital.setup(rows=240, batch=16, device=card)[:2]
+    else:
+        cm, cfg = flights.setup(rows=300, flights=12, websites=8,
+                                capacities={"Flight": 16,
+                                            "TrackingWebsite": 16},
+                                device=card)[:2]
+    arenas, params = init_state(cm, 0, device=card)
+    eng = tsmc.Engine(cm, cfg, device=card)
+    obs = cm.obs_specs[0].class_id
+    before = ops.LAUNCHES["level_sum"]
+    if which == "hospital":
+        r = graph_against_eager(eng, arenas, params, "ramp", obs, 24)
+    else:
+        arenas, params, _g = eng.initialize(1, arenas, params)
+        r = graph_against_eager(eng, arenas, params, "sweep", obs, 24)
+    assert r["mismatches"] == [], r
+    assert r["stats"]["captures"] == 1 and r["stats"]["replayed"] == 23
+    assert ops.LAUNCHES["level_sum"] > before

@@ -139,8 +139,7 @@ def run_block(pair, cid, plan_idx, slots, keys, monkeypatch, retained=False,
                            {}, st, force_retained=retained, cand=ct)
     tr._root_plan = plan_t
     tr._gen = None
-    tr._mm_push()
-    tr._mm_flush(tr.score_plan(plan_t, 0, {}, ()))
+    tr._level_sum(0, lambda: tr.score_plan(plan_t, 0, {}, ()))
     if dummy_vid is not None:
         _poison(tr.records, dummy_vid, tr._forced(dummy_vid), False)
     res = tr.sample(pool)
