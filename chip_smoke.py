@@ -7,7 +7,7 @@
 
 It drives the port only (never jax, never pclean_tpu), in order:
   1. prints the card's name and power limit (nvidia-smi);
-  2. builds the twenty-one CUDA kernels from pclean_tpu_torch/csrc/ (one nvcc
+  2. builds the twenty-three CUDA kernels from pclean_tpu_torch/csrc/ (one nvcc
      per source, in parallel) and prints the build time and ptxas's
      registers, shared memory, stack frame and spills for each compiled
      function; measures the launch floor and one dependent L2 load (K10's
@@ -152,6 +152,15 @@ It drives the port only (never jax, never pclean_tpu), in order:
      shape (kernel_bench.level_inputs: K20's program and operand kinds,
      shapes and dtypes as the census recorded them), against their plain
      versions on the card, bit-equal (level_checks);
+  8f. after every path, K22 gamma_draw and K23 py_resample (the parameter
+     resampling: every Proportions and Prob draw of a resample_all, and
+     every latent class's Pitman-Yor MH) at every shape of the path's
+     census holding >= SHAPE_SHARE of its launches, on seeded inputs of
+     that shape (kernel_bench.k22_inputs, k23_inputs), against their
+     plain versions on the card on the same seed buffer, bit-equal, K22's
+     count of differing draws reported (param_checks); the trace phase's
+     eager runs also tally the parameter resampling's device ops
+     (PARAM_MODULES);
   9. after all six paths, K12 fk_score and K13 choice_score at every
      shape of the paths' launch census (class, enumeration rows, slots or
      options; seeded inputs of that shape, K13's rows in states 0, 1 and
@@ -168,10 +177,19 @@ It drives the port only (never jax, never pclean_tpu), in order:
      none) and the bytes bound (bench_sample_shapes); K20 and K21 likewise
      at their most launched one-row and batched shapes and the largest,
      beside their plain versions and the bytes bound, no library call
-     (bench_level_shapes); then prints, for
+     (bench_level_shapes); K22 and K23 at every census shape checked,
+     beside their plain versions, K22's library call
+     (torch._standard_gamma at the same alphas) and the bound, the larger
+     of the bytes and the operations the inputs need (bench_param_shapes);
+     then the limits phase (limits_phase): workloads/limits.py's
+     synthetic model, past every old single-launch limit, through
+     compile, init and one sweep on the card, each wrapper's first call
+     past its old limit held to its plain version on those inputs, K10 and
+     K11 shadow rows of every class kind, the relational state and a
+     seeded 260-operand level through K20's stages; then prints, for
      each kernel, how many
      shapes were checked and the worst error, the run's seconds, then the
-     `kernels` JSON line (K1-K21; `launches` summed over
+     `kernels` JSON line (K1-K23; `launches` summed over
      the six paths, with each path's own beside it; `max_abs_err` the
      worst over every shape checked; the times those of the shape named in
      `shape`; every shape's numbers in chip_smoke.json under --out), then
@@ -201,8 +219,9 @@ bit-equal (integer state and copied values); K12 and K13 record
 bit-equal (the same float operations, one rounding each) and logZ within
 K1's rule; K14 and K15 bit-equal (integer atomics, copied values); K16-K19
 bit-equal to their plain versions drawing with K2 (integers and copied
-values), and K2 against the fully plain draw as above; K20 and K21
-bit-equal (the same float operations, one rounding each). It
+values), and K2 against the fully plain draw as above; K20, K21, K22 and
+K23 bit-equal (the same float operations and Philox stream, one rounding
+each); every split or raised launch of the limits phase bit-equal. It
 fails
 (non-zero exit, no result line) if there is no card, a kernel does not
 build, launch or agree, K1 and K3 were not launched on the scaled path,
@@ -213,7 +232,10 @@ inside K16 and K17 on every path; K2 itself draws the MaybeSwap prior
 only), K10 or K11 not on
 any path, K12 or K13 not on any path but hospital_pg16_vmapped, K14 not
 on any path or K15 not on a batched one, K16-K19 not on every path, K20
-not on every path or K21 not on a path with batched steps, a
+not on every path or K21 not on a path with batched steps, K22 or K23
+not on every path, one of the six paths calling a wrapper past a single
+launch's limit (ops.SPLITS: none passes one), a limits-phase wrapper never
+called past its old limit or its model's F1 below LIMITS_F1_FLOOR, a
 shadow run or the state check
 of K14 differs or waits for the card, a graph replay differs from the
 eager row or a graphed loop kind ran a row after its first eagerly, a PG
@@ -336,6 +358,10 @@ SOURCES = {
                   "pclean_tpu/engine/propose.py:383"),
     "py_prior": ("pclean_tpu_torch/csrc/py_prior.cu",
                  "pclean_tpu/engine/propose.py:241"),
+    "gamma_draw": ("pclean_tpu_torch/csrc/gamma_draw.cu",
+                   "pclean_tpu/dists/params.py:104"),
+    "py_resample": ("pclean_tpu_torch/csrc/py_resample.cu",
+                    "pclean_tpu/engine/gibbs_params.py:174"),
 }
 SCALED_KERNELS = ("enum_logsumexp", "inv_cdf_sample", "obs_gather_sum")
 RENTS_KERNELS = ("gauss_suffstats", "gauss_ext_term")
@@ -363,6 +389,9 @@ SAMPLE_KERNELS = ("fk_sample", "choice_sample", "row_gather",
 # every path, and a batched foreign key's prior and children (every path
 # but flights, whose every row is a one-row step: K12 there)
 LEVEL_KERNELS = ("level_sum", "py_prior")
+# K22 and K23: the parameter resampling, every resample_all on every path
+# (each path has learned parameters and latent Pitman-Yor classes)
+PARAM_KERNELS = ("gamma_draw", "py_resample")
 
 
 def _no_k2(names):
@@ -370,18 +399,21 @@ def _no_k2(names):
 
 
 NEED = {"scaled": _no_k2(SCALED_KERNELS) + ROW_KERNELS + SCORE_KERNELS
-        + REL_KERNELS + SAMPLE_KERNELS + LEVEL_KERNELS,
+        + REL_KERNELS + SAMPLE_KERNELS + LEVEL_KERNELS + PARAM_KERNELS,
         "rents": RENTS_KERNELS + ROW_KERNELS + SCORE_KERNELS + REL_KERNELS
-        + SAMPLE_KERNELS + LEVEL_KERNELS,
+        + SAMPLE_KERNELS + LEVEL_KERNELS + PARAM_KERNELS,
         # every flights row is a one-row step: K12/K13 in place of K1
         "flights": FLIGHTS_KERNELS[1:] + ROW_KERNELS + SCORE_KERNELS
-        + REL_KERNELS[:1] + SAMPLE_KERNELS + LEVEL_KERNELS[:1],
+        + REL_KERNELS[:1] + SAMPLE_KERNELS + LEVEL_KERNELS[:1]
+        + PARAM_KERNELS,
         "hospital": _no_k2(HOSPITAL_KERNELS) + ROW_KERNELS + SCORE_KERNELS
-        + REL_KERNELS + SAMPLE_KERNELS + LEVEL_KERNELS,
+        + REL_KERNELS + SAMPLE_KERNELS + LEVEL_KERNELS + PARAM_KERNELS,
         "hospital_pg1024": _no_k2(HOSPITAL_KERNELS) + ROW_KERNELS
-        + SCORE_KERNELS + REL_KERNELS + SAMPLE_KERNELS + LEVEL_KERNELS,
+        + SCORE_KERNELS + REL_KERNELS + SAMPLE_KERNELS + LEVEL_KERNELS
+        + PARAM_KERNELS,
         "hospital_pg16_vmapped": _no_k2(SCALED_KERNELS) + ("pg_resample",)
-        + ROW_KERNELS + REL_KERNELS + SAMPLE_KERNELS + LEVEL_KERNELS}
+        + ROW_KERNELS + REL_KERNELS + SAMPLE_KERNELS + LEVEL_KERNELS
+        + PARAM_KERNELS}
 PATHS = tuple(NEED)
 
 
@@ -1201,6 +1233,173 @@ def bench_level_shapes(ops, dev, checked: dict, floor) -> dict:
     return out
 
 
+def param_checks(ops, dev, census, path: str) -> dict:
+    """K22 and K23 after a path: every census shape holding >= SHAPE_SHARE
+    of the path's launches of the kernel, on seeded inputs of that shape
+    (kernel_bench.k22_inputs, k23_inputs, from the fields the wrapper
+    recorded in ops.CENSUS_FIELDS: K22's descriptors, K23's capacities),
+    against the plain version on the card on the same seed buffer,
+    bit-equal (kernel_bench.check_k22: the count of elements whose draw
+    differs, which must be 0; check_k23, out of place and in place).
+    Returns {kernel: [one dict per shape]}."""
+    from pclean_tpu_torch import kernel_bench as kb
+
+    out = {name: [] for name in PARAM_KERNELS}
+    for c in census:
+        if c["kernel"] not in out or c["share"] < SHAPE_SHARE:
+            continue
+        f = ops.CENSUS_FIELDS[c["kernel"]][c["mode"]]
+        r = kb.check_k22(ops, kb.k22_inputs(dev, f)) \
+            if c["kernel"] == "gamma_draw" else \
+            kb.check_k23(ops, kb.k23_inputs(dev, f))
+        out[c["kernel"]].append(dict(
+            shape=c["mode"], K=c["K"], rows=c["rows"], launches=c["launches"],
+            share=c["share"], path=path, max_abs_err=r["max_abs_err"],
+            differ=r.get("differ", 0)))
+    print(f"{path} K22/K23 census shapes checked bit-equal: "
+          f"{ {k: len(v) for k, v in out.items()} }", flush=True)
+    return out
+
+
+def bench_param_shapes(ops, dev, checked: dict, floor) -> dict:
+    """K22 and K23 timed at each distinct census shape checked (a call
+    shape: its descriptors or classes), on seeded inputs: kernel ms and
+    device ms, the plain version, K22's library call (torch._standard_gamma
+    at the same alphas: one PyTorch call drawing the same gammas), and the
+    bound: the larger of the bytes over 3.35 TB/s and the operations the
+    inputs need (K22: its draws' rounds on this stream; K23: three scores
+    of every counted slot) over 67 TFLOP/s (kernel_bench.k22_bounds,
+    k23_bounds). Returns {kernel: [one dict per shape]}."""
+    from pclean_tpu_torch import kernel_bench as kb
+
+    out = {}
+    for name in PARAM_KERNELS:
+        shapes: dict = {}
+        for r in checked[name]:
+            sh = shapes.setdefault(r["shape"], dict(launches_by_path={},
+                                                    rows=r["rows"]))
+            sh["launches_by_path"][r["path"]] = r["launches"]
+        out[name] = []
+        for mode, sh in sorted(shapes.items(), key=lambda kv: -sum(
+                kv[1]["launches_by_path"].values())):
+            f = ops.CENSUS_FIELDS[name][mode]
+            if name == "gamma_draw":
+                inp = kb.k22_inputs(dev, f)
+                x = dict(kb.k22_bounds(inp), **kb.time_k22(ops, inp))
+            else:
+                inp = kb.k23_inputs(dev, f)
+                x = dict(kb.k23_bounds(inp), **kb.time_k23(ops, inp))
+            x.update(shape=mode, rows=sh["rows"], max_abs_err=0.0,
+                     launches=sum(sh["launches_by_path"].values()),
+                     launches_by_path=sh["launches_by_path"],
+                     floor_ms=floor, pick=False)
+            out[name].append(x)
+            lib = "none" if x["library_ms"] is None else \
+                f"{x['library_ms']:.4f} ms (device " \
+                f"{x['library_device_ms']:.4f} ms)"
+            print(f"{name} {mode} ({x['launches']} launches "
+                  f"{x['launches_by_path']}): kernel {x['ms']:.4f} ms "
+                  f"(device {x['device_ms']:.4f} ms) plain "
+                  f"{x['plain_ms']:.4f} ms library {lib} bound "
+                  f"{x['bound_ms']:.6f} ms ({x['bound_by']}: {x['bytes']} "
+                  f"bytes, {x['flops']} flops) floor {floor:.4f} ms",
+                  flush=True)
+    return out
+
+
+def param_entry(name: str, shapes: list) -> dict:
+    """K22's or K23's kernels-line entry: the numbers of the timed shape
+    launched most over the six paths, with its bound and what binds it."""
+    top = max(shapes, key=lambda r: r["launches"])
+    return dict({key: top[key] for key in (
+        "max_abs_err", "ms", "device_ms", "plain_ms", "library_ms",
+        "library_device_ms", "bytes", "flops", "bound_ms", "bound_by",
+        "floor_ms", "shape")}, name=name, route="cuda",
+        source=SOURCES[name][0], replaces=SOURCES[name][1])
+
+
+# the synthetic model past every old single-launch limit (workloads/
+# limits.py) on the card: its rows and batch, and its F1 floor (the CPU
+# runs of both packages reach 1.0 on its tables, tests/test_torch_limits.py)
+LIMITS = dict(rows=512, batch=64)
+LIMITS_F1_FLOOR = 0.9
+# the wrappers a limits run must call past their old limits, and each
+# one's kernel (K7 hoisted chains, K14 sides, K15 columns, K17 ancestor
+# axes, K18 hops, K20 levels; K10's larger block and K11's split writes
+# run in the shadow rows)
+LIMIT_WRAPPERS = ("row_gather", "referrer_hist", "rel_scatter",
+                  "batch_write", "choice_sample", "level_sum")
+# and the wrappers that must have split or raised on its run (ops.SPLITS)
+LIMIT_SPLITS = LIMIT_WRAPPERS + ("row_delta", "row_write")
+
+
+def limits_phase(ops, dev) -> dict:
+    """workloads/limits.py's synthetic model, past every old limit, on the
+    card: compile -> init_state -> Engine.initialize -> one sweep ->
+    evaluate_accuracy_device (run_path: the counts set to 0 before it and
+    read after), the first call of each wrapper past its old limit
+    recorded (kernel_bench.LimitCalls) and then held, split or raised, to
+    its plain version on copies of those very inputs, bit-equal; K10 and
+    K11 in shadow runs of every class kind (Record's plan in K10's larger
+    block, Wide's rows past K11's 64 writes); refresh and the hop
+    histograms through K14's folds against the CPU (check_rel_state); a
+    seeded level of 260 operands nesting 40 deep through K20's stages.
+    Fails where a wrapper was not called past its limit or did not split
+    (LIMIT_SPLITS), a check differs, or the F1 is below LIMITS_F1_FLOOR."""
+    from pclean_tpu_torch import kernel_bench as kb
+    from pclean_tpu_torch.kernel_bench import require
+    from pclean_tpu_torch.workloads import limits
+
+    t = time.time()
+    cm, config, dirty, clean, query, _s = limits.setup(**LIMITS,
+                                                       device="cuda")
+    compile_s = time.time() - t
+    with kb.LimitCalls(ops) as rec:
+        rep, (arenas, params, eng) = run_path(ops, "limits", cm, config,
+                                              dirty, clean, query,
+                                              LIMITS["rows"])
+    missing = [w for w in LIMIT_WRAPPERS if w not in rec.calls] + \
+        [w for w in LIMIT_SPLITS if w not in rep["splits"]]
+    require(not missing, f"limits: never called past the old limit: "
+            f"{missing}")
+    replay = rec.replay()
+    plan = ops.row_delta_plan(cm, "Record", "obs")
+    shadow = {}
+    for cid in cm.model.class_order:
+        lay = cm.layouts[cid]
+        kinds = (["init", "obs"] if lay.observed else
+                 ["latent" if lay.fk_vertices else "leaf"])
+        for kind in kinds:
+            r = kb.shadow_rows(ops, eng, arenas, params, cid, kind, n=16,
+                               seed=3)
+            require(r["launches"] > 0 and r["mismatches"] == [],
+                    f"limits shadow rows {cid} {kind}: {r}")
+            shadow[f"{cid} {kind}"] = r["launches"]
+    rs = kb.check_rel_state(ops, eng, arenas)
+    require(rs["mismatches"] == [], f"limits rel state: {rs}")
+    prog, operands = kb.split_level(np.random.default_rng(2))
+    operands = kb._tree_map(operands, lambda x: x.to(dev))
+    before = ops.LAUNCHES["level_sum"]
+    got = ops.level_sum(prog, operands, 2, B=3, label="seeded")
+    stages = ops.LAUNCHES["level_sum"] - before
+    want = ops.level_sum_plain(prog, operands, 2)
+    torch.cuda.synchronize()
+    require(torch.equal(got, want) and stages > 1,
+            f"limits: the seeded split level differs ({stages} stages)")
+    require(rep["f1"] >= LIMITS_F1_FLOOR,
+            f"limits F1 {rep['f1']} < {LIMITS_F1_FLOOR}")
+    out = dict(rep, compile_s=compile_s, replay=replay, shadow=shadow,
+               rel_state_launches=rs["launches"], k10_tier=plan["tier"],
+               k10_nodes=len(plan["nodes"]), seeded_level_stages=stages)
+    print(f"limits: every wrapper past its old limit equal to its plain "
+          f"version {replay}; K10 Record plan tier {plan['tier']} "
+          f"({len(plan['nodes'])} fk-tree nodes, chains "
+          f"{sorted(len(e['chain']) for e in plan['props'])}); shadow "
+          f"rows {shadow}; rel state {rs['launches']} K14 launches; seeded "
+          f"level {stages} K20 stages; F1 {rep['f1']:.4f}", flush=True)
+    return out
+
+
 GRAPH_ROWS = 64   # rows of each loop kind the graph-against-eager phase runs
 
 
@@ -1502,6 +1701,10 @@ _NOT_DEVICE = {"empty", "empty_like", "empty_strided", "new_empty",
 # alike; py_logprobs, the batched fk's prior, is counted beside them
 SCORE_PASS = ("score_plan", "score_step", "score_choice", "score_fk",
               "_gather_obs_term", "_mm_flush", "_level_sum")
+# the parameter resampling's modules (resample_all and the conjugate
+# draws, this tree's and the parent's: its pitman_yor_score, resample_py
+# and sample_gamma's rejection loop count for these), tallied alike
+PARAM_MODULES = ("engine.gibbs_params.", "dists.params.")
 
 
 def ops_by_function(fn) -> dict:
@@ -1514,7 +1717,7 @@ def ops_by_function(fn) -> dict:
     wrapper's own torch calls). Returns dict(total, launches, by_function
     [(function, ops), most first], by_kernel {kernel: launches},
     score_pass: the ops of SCORE_PASS's functions, py_logprobs: those of
-    BlockTracer.py_logprobs)."""
+    BlockTracer.py_logprobs, param_resampling: those of PARAM_MODULES)."""
     from torch.utils._python_dispatch import TorchDispatchMode
     from torch.utils._pytree import tree_flatten
 
@@ -1571,7 +1774,9 @@ def ops_by_function(fn) -> dict:
     return dict(total=sum(counts.values()), launches=sum(kernels.values()),
                 by_function=sorted(counts.items(), key=lambda kv: -kv[1]),
                 by_kernel=kernels, score_pass=of(SCORE_PASS),
-                py_logprobs=of(("py_logprobs",)))
+                py_logprobs=of(("py_logprobs",)),
+                param_resampling=sum(n for f, n in counts.items()
+                                     if f.startswith(PARAM_MODULES)))
 
 
 def _shares(r: dict) -> dict:
@@ -1719,7 +1924,9 @@ def trace_sections(path, cm, config, state=None) -> dict:
                   f"ops ({e['launches']} hand-kernel launches "
                   f"{e['by_kernel']}); the score pass {e['score_pass']} "
                   f"({', '.join(SCORE_PASS)}), py_logprobs "
-                  f"{e['py_logprobs']}; by function: "
+                  f"{e['py_logprobs']}, the parameter resampling "
+                  f"{e.get('param_resampling')} ({', '.join(PARAM_MODULES)})"
+                  f"; by function: "
                   f"{e['by_function'][:30]}", flush=True)
         print(f"trace {name}: wall {r['wall_ms']:.3f} ms (without the "
               f"profiler {r['wall_plain_ms']:.3f} ms), device busy "
@@ -1810,8 +2017,10 @@ def fused_order_check() -> dict:
 def run_path(ops, name, cm, config, dirty, clean, query, rows):
     """One workload's main path, with every launch count set to 0 just
     before it and read just after: init_state, Engine.initialize,
-    Engine.run, evaluate_accuracy_device. Returns its report (and the
-    state, for the kernel inputs drawn from it)."""
+    Engine.run, evaluate_accuracy_device; the report's `splits` are the
+    wrapper calls that went past a single launch's limit (ops.SPLITS).
+    Returns its report (and the state, for the kernel inputs drawn from
+    it)."""
     from pclean_tpu_torch.analysis import evaluate_accuracy_device
     from pclean_tpu_torch.engine.compile import init_state
     from pclean_tpu_torch.engine.smc import Engine
@@ -1848,7 +2057,8 @@ def run_path(ops, name, cm, config, dirty, clean, query, rows):
                memory_allocated_at_start=at_start, launches=launches,
                launches_by_shape=by_shape, census=census,
                log_ml=float(eng.log_ml), particles=config.num_particles,
-               pg=not config.use_mh_instead_of_pg, loops=loops)
+               pg=not config.use_mh_instead_of_pg, loops=loops,
+               splits=dict(ops.SPLITS))
     print(f"{name} path ({rows} rows, B={config.batch_rows}): init "
           f"{init_s:.2f} s, sweep {sweep_s:.2f} s, rows-cleaned/s "
           f"{rep['rows_cleaned_per_s']:.1f}"
@@ -1860,7 +2070,8 @@ def run_path(ops, name, cm, config, dirty, clean, query, rows):
           f"max_memory_allocated {rep['max_memory_allocated']} (of which "
           f"allocated before the path {at_start})")
     print(f"{name} launches: {launches}; by shape (r1 = one row, rn = "
-          f"more): {by_shape}", flush=True)
+          f"more): {by_shape}; calls past a single launch's limit: "
+          f"{rep['splits']}", flush=True)
     for kind, st in sorted(loops.items()):
         print(f"{name} one-row loop {kind}: {st['segments']} segments, "
               f"{st['replayed']} rows replayed, {st['eager']} eager, "
@@ -1933,6 +2144,7 @@ def main() -> int:
         add(path, res)
         add(path, sample_checks(ops, dev, census, path))
         add(path, level_checks(ops, dev, census, path))
+        add(path, param_checks(ops, dev, census, path))
     # the scaled path, K7 and K8 at its census shapes while its state
     # lives, then K1-K3 on the model's own matrices
     phase("scaled path")
@@ -2085,6 +2297,10 @@ def main() -> int:
     sample = bench_sample_shapes(ops, dev, checked, floor)
     phase("K20 and K21 census shapes")
     level = bench_level_shapes(ops, dev, checked, floor)
+    phase("K22 and K23 census shapes")
+    param = bench_param_shapes(ops, dev, checked, floor)
+    phase("limits")
+    report["limits"] = limits_phase(ops, dev)
     kernels += [k7_k8_entry(name, checked[name])
                 for name in ("referrer_hist", "sa_ext_term")]
     kernels.append(k9_entry(checked["pg_resample"]))
@@ -2093,6 +2309,7 @@ def main() -> int:
     kernels += [rel_entry(name, rel[name]) for name in REL_KERNELS]
     kernels += [sample_entry(name, sample[name]) for name in SAMPLE_KERNELS]
     kernels += [sample_entry(name, level[name]) for name in LEVEL_KERNELS]
+    kernels += [param_entry(name, param[name]) for name in PARAM_KERNELS]
     phase("done")
 
     for k in kernels:
@@ -2109,10 +2326,15 @@ def main() -> int:
             [k["max_abs_err"]] + [r["max_abs_err"] for r in shapes]
             + [r.get("max_abs_err_other_mode", 0.0) for r in shapes])
         k["shapes"] = shapes
+        if k["name"] == "gamma_draw":   # draws that differ (checks need 0)
+            k["differ"] = sum(r.get("differ", 0) for r in shapes)
         print(f"{k['name']}: {len(shapes)} shapes checked on "
               f"{sorted({str(r['path']) for r in shapes})}, worst max_abs_err "
               f"{k['max_abs_err']:.3g}", flush=True)
     for path, need in NEED.items():
+        # none of the six paths passes an old limit, so none splits
+        require(not runs[path]["splits"], f"{path} split "
+                f"{runs[path]['splits']}")
         missing = [k for k in need if runs[path]["launches"][k] <= 0]
         require(not missing, f"kernels never launched on the {path} path: "
                 f"{missing}")
@@ -2142,7 +2364,7 @@ def main() -> int:
             "library_ms_rn", "bound_ms_rn", "shape_pick", "ms_pick",
             "device_ms_pick", "plain_ms_pick", "library_ms_pick",
             "library_device_ms_pick", "bound_ms_pick", "floor_ms", "shape",
-            "shapes_checked")
+            "shapes_checked", "differ")
     print(json.dumps({"kernels": [{k: kk[k] for k in keys if k in kk}
                                   for kk in kernels]}))
     print(card)

@@ -28,31 +28,29 @@
 #include "inv_cdf.cuh"
 #include "row_words.cuh"
 
-#define K17_WORDS 32
 #define K17_THREADS 256
 
 namespace {
 
 using namespace pclean_draw;
 
+// Word indices of the plan (ops.choice_sample); from kAxes, each ancestor
+// axis's stride, size, pointer and dtype (ops._rec_words).
+enum {
+  kB = 0, kV, kMode, kTile, kSmem, kRec, kNd, kRecB, kU, kUStride, kRv,
+  kRvDt, kDummy, kHasDummy, kOut, kEsize, kAxes
+};
+
+#define K17_MAX_ANC 7
+#define K17_WORDS (kAxes + 4 * K17_MAX_ANC)
+
 struct K17Plan {
   int64_t w[K17_WORDS];
 };
 
-// Word indices of the plan (ops.choice_sample).
-enum {
-  kB = 0, kV, kMode, kTile, kSmem, kRec, kNd, kRecB, kRecS0, kRecS1 = 9,
-  kRecS2 = 10, kRecN0 = 11, kAnc0 = 14, kAncDt0 = 17, kU = 20, kUStride,
-  kRv, kRvDt, kDummy, kHasDummy, kOut, kEsize
-};
-
 // The element offset of row b's record entry (its first logit).
 __device__ __forceinline__ int64_t rec_offset(const int64_t* w, int64_t b) {
-  int64_t off = b * w[kRecB];
-  for (int d = 0; d < w[kNd]; ++d)
-    off += pclean_clamp(pclean_ld_i(w[kAnc0 + d], w[kAncDt0 + d], b),
-                        w[kRecN0 + d]) * w[kRecS0 + d];
-  return off;
+  return pclean_rec_offset(w + kAxes, w[kNd], w[kRecB], b);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -111,7 +109,7 @@ extern "C" int pclean_choice_sample(const int64_t* words, int n_words,
   for (int i = 0; i < K17_WORDS; ++i) p.w[i] = words[i];
   const int64_t B = p.w[kB], mode = p.w[kMode];
   if (B < 0 || mode < 0 || mode > 2 || p.w[kV] < 1 || p.w[kNd] < 0 ||
-      p.w[kNd] > 3 || p.w[kRec] == 0 || p.w[kOut] == 0 ||
+      p.w[kNd] > K17_MAX_ANC || p.w[kRec] == 0 || p.w[kOut] == 0 ||
       (mode == 0 && p.w[kU] == 0) || (mode == 1 && p.w[kRv] == 0) ||
       (mode == 2 && p.w[kEsize] != 1 && p.w[kEsize] != 2 &&
        p.w[kEsize] != 4 && p.w[kEsize] != 8))

@@ -34,23 +34,24 @@
 #include "inv_cdf.cuh"
 #include "row_words.cuh"
 
-#define K16_WORDS 40
-
 namespace {
 
 using namespace pclean_draw;
 
-struct K16Plan {
-  int64_t w[K16_WORDS];
+// Word indices of the plan (ops.fk_sample); from kAxes, each ancestor
+// axis's stride, size, pointer and dtype (ops._rec_words).
+enum {
+  kB = 0, kK1, kCap, kTile, kSmem, kRec, kNd, kRecB, kU, kUStride, kRv,
+  kRvDt, kRelAlive, kRelAliveS, kRelRc, kRelRcS, kCompIdx, kCompIdxDt,
+  kCompIdxN, kCompInv, kCompInvDt, kCompInvN, kGate, kMaskIn, kMaskInS,
+  kMaskOut, kInts, kFlags, kAxes
 };
 
-// Word indices of the plan (ops.fk_sample).
-enum {
-  kB = 0, kK1, kCap, kTile, kSmem, kRec, kNd, kRecB, kRecS0, kRecS1 = 9,
-  kRecS2 = 10, kRecN0 = 11, kAnc0 = 14, kAncDt0 = 17, kU = 20, kUStride,
-  kRv, kRvDt, kRelAlive, kRelAliveS, kRelRc, kRelRcS, kCompIdx, kCompIdxDt,
-  kCompIdxN, kCompInv, kCompInvDt, kCompInvN, kGate, kMaskIn, kMaskInS,
-  kMaskOut, kInts, kFlags
+#define K16_MAX_ANC 7
+#define K16_WORDS (kAxes + 4 * K16_MAX_ANC)
+
+struct K16Plan {
+  int64_t w[K16_WORDS];
 };
 
 // Block min of an int64 (every thread gets it). sh: >= 33 values.
@@ -105,11 +106,8 @@ __global__ void __launch_bounds__(kThreads)
   const int64_t b = blockIdx.x, B = w[kB], K = w[kK1] - 1, cap = w[kCap];
   const int tid = threadIdx.x;
 
-  int64_t off = b * w[kRecB];
-  for (int d = 0; d < w[kNd]; ++d)
-    off += pclean_clamp(pclean_ld_i(w[kAnc0 + d], w[kAncDt0 + d], b),
-                        w[kRecN0 + d]) * w[kRecS0 + d];
-  const float* x = reinterpret_cast<const float*>(w[kRec]) + off;
+  const float* x = reinterpret_cast<const float*>(w[kRec]) +
+                   pclean_rec_offset(w + kAxes, w[kNd], w[kRecB], b);
 
   int64_t chosen, rv = 0;
   bool dead = false;
@@ -193,7 +191,7 @@ extern "C" int pclean_fk_sample(const int64_t* words, int n_words,
   const bool drawn = p.w[kRv] == 0;
   int smem = 0;
   if (B < 0 || p.w[kK1] < 2 || p.w[kCap] < 1 || p.w[kNd] < 0 ||
-      p.w[kNd] > 3 || p.w[kRec] == 0 || p.w[kGate] == 0 ||
+      p.w[kNd] > K16_MAX_ANC || p.w[kRec] == 0 || p.w[kGate] == 0 ||
       p.w[kMaskIn] == 0 || p.w[kMaskOut] == 0 || p.w[kInts] == 0 ||
       p.w[kFlags] == 0 || (drawn && p.w[kU] == 0) ||
       (!drawn && (p.w[kRelAlive] == 0 || p.w[kRelRc] == 0)))

@@ -154,8 +154,10 @@ __global__ void __launch_bounds__(K14_THREADS)
     const int rc = reinterpret_cast<const int*>(h[3])[i] + (int)d;
     const int was = reinterpret_cast<const uint8_t*>(h[4])[i] != 0;
     const int now = rc > 0;
-    reinterpret_cast<int*>(h[5])[i] = rc;
-    reinterpret_cast<uint8_t*>(h[6])[i] = (uint8_t)now;
+    if (h[5] != 0) {   // a later group's launch writes only its flips
+      reinterpret_cast<int*>(h[5])[i] = rc;
+      reinterpret_cast<uint8_t*>(h[6])[i] = (uint8_t)now;
+    }
     flip = now - was;
     if (flip != 0)
       for (int f = 0; f < (int)h[8]; ++f) {
@@ -164,6 +166,7 @@ __global__ void __launch_bounds__(K14_THREADS)
         if (t >= 0) atomicAdd(reinterpret_cast<int*>(fk[2]) + t, (int)flip);
       }
   }
+  if (h[7] == 0) return;   // block-uniform: no barrier is skipped by half
   const long long sd = block_sum(d, sh), sf = block_sum(flip, sh);
   if (threadIdx.x == 0) {
     unsigned long long* acc = reinterpret_cast<unsigned long long*>(h[7]);
@@ -184,7 +187,9 @@ __global__ void __launch_bounds__(K14_THREADS)
 // length)]. Cascade mode (words[0] = 1): [1, C, d (int32), refcount
 // (int32), alive (bool), refcount out, alive out, acc (int64 [2]), fks,
 // 0 x 7], then each fk (column, dtype, pending delta (int32), its
-// length). 256 threads a block. Returns cudaErrorInvalidValue for a plan
+// length); refcount out, alive out and acc all 0: only the flips are
+// scattered (the later launches of a class with more than K14_MAX_FKS fk
+// columns, ops.cascade_groups). 256 threads a block. Returns cudaErrorInvalidValue for a plan
 // it does not take, else cudaGetLastError() after the launch.
 extern "C" int pclean_rel_scatter(const int64_t* words, int n_words,
                                   void* stream) {

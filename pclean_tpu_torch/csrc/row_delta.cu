@@ -36,7 +36,8 @@
 // dependent global accesses in one thread, each a round trip to L2.
 //
 // Design: two warps, one launch a row, the plan passed by value (no device
-// table, no copy before the launch). Warp 0's lane 0 walks the fk tree in
+// table, no copy before the launch) in the smaller of two parameter blocks
+// that holds it. Warp 0's lane 0 walks the fk tree in
 // DFS order, so a class reached by two paths sees the first subtree's
 // flips before the second subtree's bump. The propagated chains (or hop
 // entries) run on warp 1 beside it, a warp of its own so that it does not
@@ -55,17 +56,19 @@
 
 #define K10_HEAD (8 + 64)   // 8 words, then (start, count) for 32 lanes
 #define K10_NODE 12
-#define K10_MAX_HOPS 6
-#define K10_PROP (17 + 3 * K10_MAX_HOPS)
-#define K10_MAX_NODES 24
-#define K10_MAX_PROPS 32
-#define K10_WORDS (K10_HEAD + K10_NODE * K10_MAX_NODES + \
-                   K10_PROP * K10_MAX_PROPS)
+// The two parameter blocks (ops.K10_TIERS; word 7 of a plan names its
+// tier): fk-tree nodes, hops a chain and chains. Tier 0 (24, 6, 32) holds
+// every class of the repository's workloads in 11.8 KB; tier 1 (64, 16,
+// 48) holds deeper and wider models in 31.7 KB.
+#define K10_PROP(HOPS) (17 + 3 * (HOPS))
+#define K10_WORDS(NODES, HOPS, PROPS) \
+  (K10_HEAD + K10_NODE * (NODES) + K10_PROP(HOPS) * (PROPS))
 
 namespace {
 
+template <int NODES, int HOPS, int PROPS>
 struct K10Plan {
-  int64_t w[K10_WORDS];
+  int64_t w[K10_WORDS(NODES, HOPS, PROPS)];
 };
 
 // One chain's target from its start t: its fk columns followed in turn.
@@ -78,18 +81,19 @@ __device__ __forceinline__ int64_t follow(const int64_t* pr, int64_t t) {
   return t;
 }
 
-__global__ void row_delta_kernel(const __grid_constant__ K10Plan plan,
-                                 const int64_t* __restrict__ slot, int sign,
-                                 int64_t* __restrict__ save_fk,
-                                 const int64_t* __restrict__ old_fk) {
+template <int NODES, int HOPS, int PROPS>
+__global__ void row_delta_kernel(
+    const __grid_constant__ K10Plan<NODES, HOPS, PROPS> plan,
+    const int64_t* __restrict__ slot, int sign,
+    int64_t* __restrict__ save_fk, const int64_t* __restrict__ old_fk) {
   const int64_t* w = plan.w;
   const int64_t mode = w[0], n_nodes = w[1], n_props = w[2], cap0 = w[3];
   const int64_t s = *slot;
   const bool m = s >= 0 && s < cap0 &&
                  pclean_ld_i(w[4], w[6], pclean_clamp(s, w[5])) != 0;
   if (threadIdx.x == 0) {
-    int64_t t[K10_MAX_NODES];
-    int flip[K10_MAX_NODES];
+    int64_t t[NODES];
+    int flip[NODES];
     const int d0 = sign * (int)m;
     for (int64_t i = 0; i < n_nodes; ++i) {
       const int64_t* nd = w + K10_HEAD + K10_NODE * i;
@@ -119,8 +123,7 @@ __global__ void row_delta_kernel(const __grid_constant__ K10Plan plan,
   const int lane = threadIdx.x - 32;
   const int64_t first = w[8 + 2 * lane], count = w[9 + 2 * lane];
   for (int64_t j = first; j < first + count; ++j) {
-    const int64_t* pr =
-        w + K10_HEAD + K10_NODE * K10_MAX_NODES + K10_PROP * j;
+    const int64_t* pr = w + K10_HEAD + K10_NODE * NODES + K10_PROP(HOPS) * j;
     const int64_t code = pr[1], code_dt = pr[2], cnt = pr[3], cnt_dt = pr[4];
     const int64_t cap_t = pr[5];
     if (mode == 0) {
@@ -159,31 +162,44 @@ __global__ void row_delta_kernel(const __grid_constant__ K10Plan plan,
   }
 }
 
+template <int NODES, int HOPS, int PROPS>
+int launch(const int64_t* words, int n_words, const int64_t* slot, int sign,
+           int64_t* save_fk, const int64_t* old_fk, cudaStream_t stream) {
+  constexpr int W = K10_WORDS(NODES, HOPS, PROPS);
+  if (n_words > W || words[1] > NODES || words[2] > PROPS)
+    return (int)cudaErrorInvalidValue;
+  K10Plan<NODES, HOPS, PROPS> plan;
+  for (int i = 0; i < W; ++i) plan.w[i] = i < n_words ? words[i] : 0;
+  row_delta_kernel<NODES, HOPS, PROPS><<<1, 64, 0, stream>>>(
+      plan, slot, sign, save_fk, old_fk);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // words: the plan (ops.row_delta_plan's words with this call's pointers,
-// n_words <= K10_WORDS); slot: one int64 on the card; sign +1 or -1;
-// save_fk: int64 [roots] written with the row's root fk values, or null;
-// old_fk: int64 [roots] read by hop mode, else null. One block of 64
-// threads. Returns cudaErrorInvalidValue for a plan it does not take, else
-// cudaGetLastError() after the launch.
+// at most its tier's K10_WORDS; word 7 the tier, 0 or 1); slot: one int64
+// on the card; sign +1 or -1; save_fk: int64 [roots] written with the
+// row's root fk values, or null; old_fk: int64 [roots] read by hop mode,
+// else null. One block of 64 threads. Returns cudaErrorInvalidValue for a
+// plan it does not take, else cudaGetLastError() after the launch.
 extern "C" int pclean_row_delta(const int64_t* words, int n_words,
                                 const int64_t* slot, int sign,
                                 int64_t* save_fk, const int64_t* old_fk,
                                 void* stream) {
-  if (n_words < K10_HEAD || n_words > K10_WORDS || slot == nullptr ||
-      (sign != 1 && sign != -1))
+  if (n_words < K10_HEAD || slot == nullptr || (sign != 1 && sign != -1))
     return (int)cudaErrorInvalidValue;
   const int64_t mode = words[0], n_nodes = words[1], n_props = words[2];
-  if (mode < 0 || mode > 2 || n_nodes < 0 || n_nodes > K10_MAX_NODES ||
-      n_props < 0 || n_props > K10_MAX_PROPS ||
+  if (mode < 0 || mode > 2 || n_nodes < 0 || n_props < 0 ||
       (mode == 2 && (old_fk == nullptr || sign != 1)))
     return (int)cudaErrorInvalidValue;
-  K10Plan plan;
-  for (int i = 0; i < K10_WORDS; ++i) plan.w[i] = i < n_words ? words[i] : 0;
-  row_delta_kernel<<<1, 64, 0, (cudaStream_t)stream>>>(plan, slot, sign,
-                                                       save_fk, old_fk);
-  return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (words[7] == 0)
+    return launch<24, 6, 32>(words, n_words, slot, sign, save_fk, old_fk, st);
+  if (words[7] == 1)
+    return launch<64, 16, 48>(words, n_words, slot, sign, save_fk, old_fk,
+                              st);
+  return (int)cudaErrorInvalidValue;
 }
 
 // The yardstick of K10's dependent-load bound (kernel_bench.l2_latency_ms):

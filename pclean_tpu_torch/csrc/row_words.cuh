@@ -85,3 +85,19 @@ __device__ __forceinline__ void pclean_st_i(int64_t p, int64_t dt, int64_t i,
 __device__ __forceinline__ int64_t pclean_clamp(int64_t i, int64_t n) {
   return i < 0 ? 0 : (i >= n ? n - 1 : i);
 }
+
+// The element offset of row b's entry in a record picked at ancestor
+// positions (K16, K17): b * row_stride + sum over the nd axes of
+// clamp(anc_d[b], size_d) * stride_d, axis d's words at
+// axes[4 d .. 4 d + 3] (stride, size, pointer, dtype; ops._rec_words).
+__device__ __forceinline__ int64_t pclean_rec_offset(const int64_t* axes,
+                                                     int64_t nd,
+                                                     int64_t row_stride,
+                                                     int64_t b) {
+  int64_t off = b * row_stride;
+  for (int64_t d = 0; d < nd; ++d) {
+    const int64_t* ax = axes + 4 * d;
+    off += pclean_clamp(pclean_ld_i(ax[2], ax[3], b), ax[1]) * ax[0];
+  }
+  return off;
+}

@@ -80,6 +80,9 @@ class CompiledModel:
         self.layouts: dict[ClassID, ClassLayout] = {}
         self.obs_specs: list[ObsSpec] = []
         self.param_meta: dict[tuple[ClassID, VertexID], dict] = {}
+        # each parameter's prior constants as a host table (dists/params.py
+        # prior_table), uploaded once by use() where resample_all draws
+        self.priors: dict[tuple[ClassID, VertexID], np.ndarray] = {}
         self.lm: Optional[CharBigramLM] = None
         # id(host array) -> (host array, device tensor): each large host
         # table is uploaded once and reused by every step (`use`)
@@ -684,6 +687,7 @@ def _collect_param_meta(cm: CompiledModel) -> None:
             elif not isinstance(node.spec, P.Prob):
                 raise TypeError(f"{type(node.spec).__name__} parameters are "
                                 "not ported yet")
+            cm.priors[(cid, vid)] = P.prior_table(node.spec, meta)
             cm.param_meta[(cid, vid)] = meta
 
 

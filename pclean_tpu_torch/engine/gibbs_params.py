@@ -6,18 +6,34 @@ the conjugate resample_value! of the reference (choose_proportionally.jl:
 Sufficient statistics are recomputed from the arenas as dense masked
 reductions in plain torch ops right before each resample, for the three
 families: Proportions, Prob (MaybeSwap sites, with the gated-lookup mask)
-and Mean. Every draw takes an explicit torch.Generator.
+and Mean. resample_all draws one seed from its torch.Generator (on the
+card, so nothing waits for the host) and makes every Proportions and
+Prob draw of the call in one K22 launch (ops.gamma_draw) and every latent
+class's Pitman-Yor MH in one K23 launch (ops.py_resample), both on the
+counter-based stream of that seed; Mean draws stay torch.randn. The
+priors' constants are the compiled model's tables (CompiledModel.priors,
+uploaded once by CompiledModel.use).
+
+The order rule: JAX resamples the parameters one after another, each
+parameter's statistics reduced from the values drawn before it. A K22
+launch draws after all of its parameters' statistics are reduced, so
+where a parameter's statistics read a learned parameter (stats_reads)
+that the pending launch would draw, that launch goes first and a new one
+starts (draw_stages): the statistics see the same values as in JAX's
+loop, and a model without such a read takes one launch.
 """
 from __future__ import annotations
 
 import torch
 
+from .. import ops
 from ..dists import params as P
 from ..dists.core import MaybeSwap
-from ..model.ir import ChoiceNode, ClassID, ParamLookupNode, VertexID
-from ..utils import sample_gamma, scatter_add_drop, take
+from ..model.ir import (ChoiceNode, ClassID, ComputeNode, ParameterNode,
+                        ParamLookupNode, VertexID)
+from ..utils import scatter_add_drop, take
 from .compile import CompiledModel
-from .propose import _RowCtx, row_value
+from .propose import _row_chain, _RowCtx, row_value
 from .refresh import refresh
 
 
@@ -105,26 +121,20 @@ def prob_suffstats(cm: CompiledModel, cid: ClassID, vid: VertexID,
     return {"heads": heads, "tails": tails}
 
 
-def recompute_and_resample(cm: CompiledModel, cid: ClassID, vid: VertexID,
-                           arenas: dict, rel: dict, params: dict,
-                           obs_dev: dict, gen: torch.Generator) -> dict:
-    """Resample one parameter from its conjugate posterior, with sufficient
-    statistics freshly reduced from the arenas."""
+def suffstats(cm: CompiledModel, cid: ClassID, vid: VertexID, arenas: dict,
+              rel: dict, params: dict, obs_dev: dict) -> dict:
+    """One parameter's sufficient statistics, freshly reduced from the
+    arenas: {"counts"} [1, V] of a Proportions, {"heads", "tails"} of a
+    Prob, {"counts", "sums"} of a Mean."""
     meta = cm.param_meta[(cid, vid)]
     spec = meta["spec"]
     c = cm.cls(cid)
     lay = cm.layouts[cid]
     alive = arenas[cid]["alive"] if lay.observed else rel[cid]["alive"]
-    state = params[cid][vid]
     if isinstance(spec, P.Mean):
-        state = {**state, **mean_suffstats(cm, cid, vid, arenas, params,
-                                           alive)}
-        stds = [s for (_w, s) in meta["sites"]] or [1.0]
-        return P.resample_mean(gen, state, spec, stds)
+        return mean_suffstats(cm, cid, vid, arenas, params, alive)
     if isinstance(spec, P.Prob):
-        state = {**state, **prob_suffstats(cm, cid, vid, arenas, params,
-                                           obs_dev, alive)}
-        return P.resample_prob(gen, state, spec)
+        return prob_suffstats(cm, cid, vid, arenas, params, obs_dev, alive)
     if not isinstance(spec, P.Proportions):
         raise TypeError(f"{type(spec).__name__} is not ported yet")
     # the unique choice node drawing from these proportions
@@ -136,7 +146,113 @@ def recompute_and_resample(cm: CompiledModel, cid: ClassID, vid: VertexID,
     counts = scatter_add_drop(
         torch.zeros((nopt,), dtype=torch.int32, device=cm.device), vals,
         ok.to(torch.int32))[None, :]
-    return P.resample_proportions(gen, {**state, "counts": counts}, spec)
+    return {"counts": counts}
+
+
+def _vertex_params(cm: CompiledModel, cls: ClassID, vid: VertexID) -> set:
+    """The learned parameters (canonical (class, vertex)) that row_value of
+    vertex `vid` of class `cls` reads: a ParamLookup's parameter, through
+    Compute nodes' arguments and lookups' keys and gates."""
+    _hops, lc, lv, node = _row_chain(cm, cls, vid)
+    if isinstance(node, ParameterNode):
+        return {cm.canon(lc, lv)}
+    if isinstance(node, ComputeNode):
+        args = list(node.arg_ids)
+        out = set()
+    elif isinstance(node, ParamLookupNode):
+        args = [a for a in (node.key_id, node.gate_id) if a is not None]
+        out = {cm.canon(lc, node.param_id)}
+    else:
+        return set()
+    for a in args:
+        out |= _vertex_params(cm, lc, a)
+    return out
+
+
+def stats_reads(cm: CompiledModel, cid: ClassID, vid: VertexID) -> set:
+    """The learned parameters that a parameter's statistics read: through
+    every argument of its sites (the MaybeSwap or Gaussian nodes that use
+    it) but the parameter itself, and its lookups' keys and gates. A
+    Proportions' counts read only its choice's stored values."""
+    spec = cm.param_meta[(cid, vid)]["spec"]
+    if not isinstance(spec, (P.Prob, P.Mean)):
+        return set()
+    c = cm.cls(cid)
+    slot = "prob" if isinstance(spec, P.Prob) else "mean"
+    out = set()
+    for n in c.nodes:
+        if not isinstance(n, ChoiceNode):
+            continue
+        pv = n.arg_ids.get(slot)
+        if pv is None:
+            continue
+        pl = c.nodes[pv]
+        if pv == vid:
+            args = []
+        elif isinstance(pl, ParamLookupNode) and pl.param_id == vid:
+            args = [a for a in (pl.key_id, pl.gate_id) if a is not None]
+        else:
+            continue
+        args += [a for k, a in n.arg_ids.items() if k != slot]
+        for a in args:
+            out |= _vertex_params(cm, cid, a)
+    return out
+
+
+def draw_stages(cm: CompiledModel) -> list:
+    """resample_all's parameters in cm.param_meta's order (JAX's loop
+    order), cut into stages: one K22 launch draws a stage's Proportions
+    and Prob values after the stage's statistics are reduced, so a stage
+    ends before a parameter whose statistics read a value that launch
+    draws. Each statistic then sees the values drawn before it, as in
+    JAX's loop. A Mean is drawn at once and ends no stage. Built once a
+    model."""
+    cache = cm.__dict__.get("_draw_stages")
+    if cache is None:
+        cache, pending = [[]], set()
+        for key, meta in cm.param_meta.items():
+            if stats_reads(cm, *key) & pending:
+                cache.append([])
+                pending = set()
+            cache[-1].append(key)
+            if not isinstance(meta["spec"], P.Mean):
+                pending.add(cm.canon(*key))
+        cm.__dict__["_draw_stages"] = cache
+    return cache
+
+
+def param_draw(cm: CompiledModel, cid: ClassID, vid: VertexID, state: dict,
+               gen: torch.Generator) -> tuple:
+    """One parameter's conjugate posterior draw from `state` (its leaves
+    with fresh statistics): (leaf, value) of a Mean, drawn here
+    (torch.randn), or (leaf, K22 descriptor) of a Proportions or Prob,
+    whose value a gamma_draw launch makes."""
+    meta = cm.param_meta[(cid, vid)]
+    spec = meta["spec"]
+    prior = cm.use(cm.priors[(cid, vid)])
+    if isinstance(spec, P.Mean):
+        stds = [s for (_w, s) in meta["sites"]] or [1.0]
+        return "value", P.resample_mean(gen, state, spec, stds,
+                                        prior)["value"]
+    if isinstance(spec, P.Prob):
+        return "value", P.prob_desc(prior, state["heads"], state["tails"])
+    return "log_value", P.proportions_desc(prior, state["counts"].shape[0],
+                                           state["counts"])
+
+
+def recompute_and_resample(cm: CompiledModel, cid: ClassID, vid: VertexID,
+                           arenas: dict, rel: dict, params: dict,
+                           obs_dev: dict, gen: torch.Generator) -> dict:
+    """Resample one parameter from its conjugate posterior, with sufficient
+    statistics freshly reduced from the arenas: resample_all's draw
+    (param_draw) for one parameter, a Proportions or Prob in a K22 launch
+    of its own."""
+    state = {**params[cid][vid],
+             **suffstats(cm, cid, vid, arenas, rel, params, obs_dev)}
+    leaf, x = param_draw(cm, cid, vid, state, gen)
+    if not torch.is_tensor(x):
+        (x,) = ops.gamma_draw([x], ops.draw_seed(gen, cm.device))
+    return {**state, leaf: x}
 
 
 def pitman_yor_score(strength, discount, sizes, alive):
@@ -159,47 +275,49 @@ def pitman_yor_score(strength, discount, sizes, alive):
     return torch.sum(torch.where(alive, term_new + inner, zero))
 
 
-def resample_py(cm: CompiledModel, cid: ClassID, rel: dict, py_state: dict,
-                gen: torch.Generator):
-    """MH over (strength, discount) (trace.jl:80-108): strength proposed
-    from Gamma(1,1) (an independence proposal whose density cancels against
-    the implicit Gamma(1,1) prior), discount from Uniform(0,1)."""
-    sizes = rel[cid]["refcount"]
-    alive = rel[cid]["alive"] & (sizes > 0)
-    s0 = py_state["strength"]
-    d0 = py_state["discount"]
-    dev = sizes.device
-    old = pitman_yor_score(s0, d0, sizes, alive)
-    s_prop = sample_gamma(gen, torch.ones((), device=dev))
-    new = pitman_yor_score(s_prop, d0, sizes, alive)
-    alpha = new + (-s0) - old - (-s_prop)
-    u = torch.rand((3,), generator=gen, device=dev)
-    acc = torch.log(u[0]) < alpha
-    s1 = torch.where(acc, s_prop, s0)
-    cur = torch.where(acc, new, old)
-    d_prop = u[1]
-    new2 = pitman_yor_score(s1, d_prop, sizes, alive)
-    acc2 = torch.log(u[2]) < (new2 - cur)
-    d1 = torch.where(acc2, d_prop, d0)
-    return {"strength": s1, "discount": d1}
-
-
 def resample_all(cm: CompiledModel, arenas: dict, params: dict, obs_dev: dict,
-                 gen: torch.Generator, rel=None):
+                 gen: torch.Generator, rel=None, out=None):
     """Resample every learned parameter and the per-class Pitman-Yor
-    hyperparameters (inference.jl:40-47). `rel`: the caller's carried
-    relational state, which skips a full refresh."""
+    hyperparameters (inference.jl:40-47), with no host sync: for each
+    stage of draw_stages (one for every model the port ships), one seed
+    from `gen`, each parameter's statistics by its scatters and its draw
+    (param_draw), one K22 launch for the stage's Proportions and Prob
+    draws; then one K23 launch for every latent class's (strength,
+    discount) MH (gibbs_params.py:174-197) on the last seed. `rel`: the
+    caller's carried relational state, which skips a full refresh.
+    `out`: parameters whose leaves K22 and K23 draw into in place (a
+    one-row loop's own copy, row_graph.own_params, which its captured
+    graph reads); else they draw into new tensors."""
     if rel is None:
         rel = refresh(cm, arenas, obs_dev)
     new_params = {c: dict(v) for c, v in params.items()}
-    for (cid, vid) in cm.param_meta:
-        new_params[cid][vid] = recompute_and_resample(
-            cm, cid, vid, arenas, rel, new_params, obs_dev, gen)
+    for stage in draw_stages(cm):
+        seed = ops.draw_seed(gen, cm.device)
+        descs, outs, dests = [], [], []
+        for cid, vid in stage:
+            state = {**new_params[cid][vid], **suffstats(
+                cm, cid, vid, arenas, rel, new_params, obs_dev)}
+            leaf, x = param_draw(cm, cid, vid, state, gen)
+            if torch.is_tensor(x):
+                new_params[cid][vid] = {**state, leaf: x}
+                continue
+            descs.append(x)
+            outs.append(None if out is None else out[cid][vid][leaf])
+            dests.append((cid, vid, leaf, state))
+        for (cid, vid, leaf, state), v in zip(
+                dests, ops.gamma_draw(descs, seed, outs)):
+            new_params[cid][vid] = {**state, leaf: v}
     py = dict(new_params.get("__py__", {}))
-    for cid in cm.model.class_order:
-        if cm.layouts[cid].observed or cid not in py:
-            continue
-        py[cid] = resample_py(cm, cid, rel, py[cid], gen)
+    cids = [cid for cid in cm.model.class_order
+            if not cm.layouts[cid].observed and cid in py]
+    classes = [ops.py_class(rel[cid]["refcount"], rel[cid]["alive"],
+                            py[cid]["strength"], py[cid]["discount"])
+               for cid in cids]
+    sd = ops.py_resample(classes, seed, None if out is None else [
+        (out["__py__"][cid]["strength"], out["__py__"][cid]["discount"])
+        for cid in cids])
+    for cid, (s1, d1) in zip(cids, sd):
+        py[cid] = {"strength": s1, "discount": d1}
     if py:
         new_params["__py__"] = py
     return arenas, new_params

@@ -25,11 +25,12 @@ step. On the CPU, and where the caller asks for the eager step (graph=
 False: the graph-against-eager checks on the card), the step is simply
 called. The loops keep their counters on the host (slot bounds, the
 resample every rejuv_frequency rows) and run resample_all eagerly between
-replays; resample_all returns new parameter tensors (gibbs_params keeps
-JAX's out-of-place shape), whose values `copy_params` writes into the
-leaves the graph reads. Launch counts: a wrapper runs once, at the
-capture; the graph adds the captured step's counts for each replay
-(ops.add_counts), so ops.LAUNCHES counts launches on the card.
+replays: its K22 and K23 draws land in the segment's own parameter
+leaves (resample_all's `out`), which the graph reads, and `copy_params`
+writes the rest of its new tensors (the counts, a Mean's draw) into
+them. Launch counts: a wrapper runs once, at the capture; the graph adds
+the captured step's counts for each replay (ops.add_counts), so
+ops.LAUNCHES counts launches on the card.
 """
 from __future__ import annotations
 
@@ -57,8 +58,9 @@ def _stats(kind: str) -> dict:
 
 def own_params(params: dict) -> dict:
     """A copy of every tensor leaf of params, taken once at a loop segment's
-    entry: the segment writes resampled values into it in place
-    (copy_params), and the caller's params come out unchanged."""
+    entry: the segment's resample_all draws into it in place (out=) and
+    copy_params writes the rest, and the caller's params come out
+    unchanged."""
     if isinstance(params, dict):
         return {k: own_params(v) for k, v in params.items()}
     return params.clone() if torch.is_tensor(params) else params

@@ -39,7 +39,8 @@ path and as those kernels' plain versions. On the card each segment's
 row step is one CUDA graph (row_graph.RowGraph): the first row eager, the
 rest replays, the slot a buffer on the card that the step advances, the
 parameters a copy owned by the segment (row_graph.own_params) into which
-resample_all's values are written. A latent class's replay row
+resample_all draws in place (its K22 and K23 outputs) and whose other
+leaves copy_params writes. A latent class's replay row
 refreshes the carry (K14), its own row excluded by the slot buffer on the
 card, as JAX's non-incremental replay body does. The batched steps write
 their rows through K15 (`_apply_batch`) and carry rel by K14's scatters
@@ -798,7 +799,7 @@ class Engine:
                 rg.row()
                 if (slot + 1) % R == 0:
                     _a, new = resample_all(cm, arenas, params, self.obs_dev,
-                                           gen, rel=rel)
+                                           gen, rel=rel, out=params)
                     copy_params(params, new)
             rg.close()
             return arenas, params, lml
@@ -879,7 +880,8 @@ class Engine:
             pool_i[0] = off
             rg.row()
             if (slot + 1) % R == 0:
-                _a, new = resample_all(cm, arenas, params, obs, gen, rel=rel)
+                _a, new = resample_all(cm, arenas, params, obs, gen, rel=rel,
+                                       out=params)
                 copy_params(params, new)
         rg.close()
         return arenas, params

@@ -3171,3 +3171,275 @@ def time_level(ops, inp: dict) -> dict:
     return dict(ms=cuda_ms(call), device_ms=graph_ms(call),
                 plain_ms=cuda_ms(lambda: _level_call(ops, inp, plain=True)),
                 library_ms=None, library_device_ms=None)
+
+
+# ------------------------------------------------------------- K22, K23
+
+# floating-point operations of one K22 gamma draw round (Box-Muller's log,
+# sqrt and cos, the Marsaglia-Tsang test's mul/adds and log, the boost's
+# pow counted as one each) and of one K23 slot term (two logs, four
+# lgammas, the mul/adds), for the operations bound against the card's
+# float32 rate outside the tensor cores (67 TFLOP/s)
+K22_ROUND_FLOPS = 20
+K23_TERM_FLOPS = 16
+F32_FLOPS_PER_S = 67e12
+
+
+def k22_inputs(dev, f: dict, seed: int = 0) -> dict:
+    """Seeded inputs of a K22 census shape (its ops.CENSUS_FIELDS `f`:
+    each descriptor's mode, rows, width, counts or not): priors in [0.05,
+    3) ([10, 50] for a Beta pair), counts 0-40, a seed buffer. dict(mode,
+    descs, seed)."""
+    from . import ops
+
+    rng = np.random.default_rng(seed)
+    descs = []
+    for mode, rows, width, counts in f["descs"]:
+        base = rng.uniform(0.05, 3.0, width).astype(np.float32)
+        if mode == "beta":
+            base = np.asarray([10.0, 50.0], np.float32)
+        cnt = torch.as_tensor(rng.integers(0, 40, (rows, width)),
+                              device=dev).to(torch.int32) if counts else None
+        descs.append(ops.gamma_desc(mode, torch.as_tensor(base, device=dev),
+                                    rows, width, cnt))
+    seed_t = torch.as_tensor([int(rng.integers(0, 2 ** 62))], device=dev)
+    return dict(mode=ops.gamma_draw_mode(descs), descs=descs, seed=seed_t)
+
+
+def _k22_alpha(descs):
+    from . import ops
+
+    return torch.cat([ops._desc_alpha(d).reshape(-1) for d in descs])
+
+
+def check_k22(ops, inp: dict) -> dict:
+    """K22 against its plain version on the card, on the same seed buffer:
+    every output bit-equal. Returns dict(max_abs_err 0.0, differ: the
+    elements whose draw differs, 0, which is what the check requires)."""
+    got = ops.gamma_draw(inp["descs"], inp["seed"])
+    want = ops.gamma_draw_plain(inp["descs"], inp["seed"])
+    torch.cuda.synchronize()
+    differ = sum(int((g != w).sum()) for g, w in zip(got, want))
+    require(differ == 0, f"gamma_draw differs from its plain version at "
+            f"{inp['mode']} ({differ} elements)")
+    return dict(max_abs_err=0.0, differ=differ)
+
+
+def k22_bounds(inp: dict) -> dict:
+    """K22's bytes (each prior entry and count read once, each output
+    written once, the seed) and operations (K22_ROUND_FLOPS a round, the
+    rounds these inputs take: counted by the plain version's rounds on
+    the card), and the bound, the larger of bytes / 3.35 TB/s and
+    operations / 67 TFLOP/s."""
+    from . import ops
+
+    n, flops = 8, 0
+    for d in inp["descs"]:
+        R, W = d["rows"], d["width"]
+        n += d["base"].numel() * 4 + (R * W * 4 if d["counts"] is not None
+                                      else 0)
+        n += 4 * (R if d["mode"] == "beta" else R * W)
+    alpha = _k22_alpha(inp["descs"])
+    elem = torch.arange(alpha.numel(), device=alpha.device)
+    rounds = gamma_rounds(ops, alpha, elem, inp["seed"])
+    flops = K22_ROUND_FLOPS * int(rounds.sum())
+    ms = 1e3 * max(n / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S)
+    return dict(bytes=n, flops=flops, bound_ms=ms,
+                bound_by="bytes" if n / HBM_BYTES_PER_S >=
+                flops / F32_FLOPS_PER_S else "operations",
+                mean_rounds=float(rounds.float().mean()))
+
+
+def gamma_rounds(ops, alpha, elem, seed):
+    """The rounds each gamma draw takes on this stream (the first that
+    accepts, 1-based; GAMMA_ROUNDS where none does), from the plain
+    version's rounds (ops.gamma_trials)."""
+    ok = ops.gamma_trials(alpha, elem, seed)[2]
+    return torch.where(ok.any(0), ok.to(torch.int8).argmax(0) + 1,
+                       torch.full_like(elem, ops.GAMMA_ROUNDS))
+
+
+def time_k22(ops, inp: dict) -> dict:
+    """K22 beside its plain version and torch._standard_gamma at the same
+    alphas (one PyTorch call drawing the same gammas, no normalisation):
+    ms (cuda_ms) and device_ms (graph_ms) of each."""
+    call = lambda: ops.gamma_draw(inp["descs"], inp["seed"])  # noqa: E731
+    alpha = _k22_alpha(inp["descs"])
+    lib = lambda: torch._standard_gamma(alpha)  # noqa: E731
+    return dict(ms=cuda_ms(call), device_ms=graph_ms(call),
+                plain_ms=cuda_ms(lambda: ops.gamma_draw_plain(
+                    inp["descs"], inp["seed"])),
+                library_ms=cuda_ms(lib), library_device_ms=graph_ms(lib))
+
+
+def k23_inputs(dev, f: dict, seed: int = 0) -> dict:
+    """Seeded inputs of a K23 census shape (its fields: each class's cap):
+    refcounts 0-8 (30% 0), alive 0.75, strength 0.1 + Gamma(1),
+    discount in [0, 0.9), a seed buffer. dict(mode, classes, seed)."""
+    from . import ops
+
+    rng = np.random.default_rng(seed)
+    classes = []
+    for cap in f["caps"]:
+        rc = rng.integers(0, 9, cap).astype(np.int32)
+        rc[rng.random(cap) < 0.3] = 0
+        t = lambda x, dt=None: torch.as_tensor(x, device=dev)  # noqa: E731
+        classes.append(ops.py_class(
+            t(rc), t(rng.random(cap) < 0.75),
+            t(np.float32(rng.gamma(1.0) + 0.1)),
+            t(np.float32(rng.random() * 0.9))))
+    seed_t = torch.as_tensor([int(rng.integers(0, 2 ** 62))], device=dev)
+    return dict(mode=f"classes={len(f['caps'])} cap={max(f['caps'])}",
+                classes=classes, seed=seed_t)
+
+
+def check_k23(ops, inp: dict) -> dict:
+    """K23 against its plain version on the card, on the same seed buffer,
+    out of place and in place (into copies of the leaves): every (s1, d1)
+    bit-equal. Returns dict(max_abs_err 0.0)."""
+    want = ops.py_resample_plain(inp["classes"], inp["seed"])
+    got = ops.py_resample(inp["classes"], inp["seed"])
+    leaves = [(c["strength"].clone(), c["discount"].clone())
+              for c in inp["classes"]]
+    classes = [dict(c, strength=s, discount=d)
+               for c, (s, d) in zip(inp["classes"], leaves)]
+    ins = ops.py_resample(classes, inp["seed"], outs=leaves)
+    torch.cuda.synchronize()
+    for k, ((a, b), (c, d), (e, g)) in enumerate(zip(got, want, ins)):
+        require(torch.equal(a, c) and torch.equal(b, d) and
+                torch.equal(e, c) and torch.equal(g, d),
+                f"py_resample differs from its plain version at "
+                f"{inp['mode']} (class {k})")
+    return dict(max_abs_err=0.0)
+
+
+def k23_bounds(inp: dict) -> dict:
+    """K23's bytes (refcount 4 and alive 1 byte a slot, the four scalars)
+    and operations (three scores of K23_TERM_FLOPS a counted slot, these
+    inputs' counted slots), and the bound."""
+    n, terms = 8, 0
+    for c in inp["classes"]:
+        n += c["refcount"].numel() * 5 + 16
+        terms += int((c["alive"] & (c["refcount"] > 0)).sum())
+    flops = 3 * K23_TERM_FLOPS * terms
+    ms = 1e3 * max(n / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S)
+    return dict(bytes=n, flops=flops, bound_ms=ms,
+                bound_by="bytes" if n / HBM_BYTES_PER_S >=
+                flops / F32_FLOPS_PER_S else "operations")
+
+
+def time_k23(ops, inp: dict) -> dict:
+    """K23 beside its plain version: ms and device_ms of each; no PyTorch
+    call computes the function (library None)."""
+    call = lambda: ops.py_resample(inp["classes"], inp["seed"])  # noqa
+    return dict(ms=cuda_ms(call), device_ms=graph_ms(call),
+                plain_ms=cuda_ms(lambda: ops.py_resample_plain(
+                    inp["classes"], inp["seed"])),
+                library_ms=None, library_device_ms=None)
+
+
+# ------------------------------------------------------ the split limits
+
+
+def split_level(rng, n_ops: int = 260, depth: int = 40, B: int = 3,
+                V: int = 5) -> tuple:
+    """(prog, operands) of a seeded level past K20's single launch: n_ops
+    operands (dense [B, V] and [B, 1] terms and gathers of seeded [6, 6]
+    matrices) whose program nests `depth` deep, then adds every operand
+    (level_program folds the adds), rank 2."""
+    from . import ops
+
+    operands = []
+    for i in range(n_ops):
+        if i % 3 == 2:
+            M = torch.tensor(rng.normal(size=(6, 6)).astype(np.float32))
+            operands.append(ops.level_gather(
+                M, torch.tensor(rng.integers(0, 6, (B, 1))),
+                torch.tensor(rng.integers(0, 6, (1, V))), (B, V)))
+        else:
+            shape = (B, V) if i % 3 == 0 else (B, 1)
+            operands.append(ops.level_dense(torch.tensor(
+                rng.normal(size=shape).astype(np.float32))))
+    Z, P, A = ops.LEVEL_ZERO, ops.LEVEL_PUSH, ops.LEVEL_ADD
+    code = [(Z, 0)]
+    for k in range(depth):
+        code += [(Z, 0), (P, k)]
+    code += [(A, 0)] * (2 * depth)
+    for k in range(n_ops):
+        code += [(P, k), (A, 0)]
+    return ops.level_program(code), operands
+
+
+class LimitCalls:
+    """Records, while active, the first call of each K7, K14, K15, K16,
+    K17, K18 and K20 wrapper that went past its kernel's single-launch
+    limit (the call that added to ops.SPLITS), its inputs as they were
+    before the call, so that `replay` can hold each split or raised
+    launch to its plain version at the model's own shapes. Calls inside
+    a CUDA graph capture are not recorded (a copy there would live in the
+    graph's memory pool)."""
+
+    WRAPPERS = ("row_gather", "referrer_hist", "rel_scatter", "batch_write",
+                "fk_sample", "choice_sample", "level_sum")
+
+    def __init__(self, ops):
+        self.ops, self.calls, self._real = ops, {}, {}
+
+    def __enter__(self):
+        o = self
+        self._real = {}
+
+        def wrap(name, real):
+            def call(*a, **kw):
+                if name in o.calls or torch.cuda.is_current_stream_capturing():
+                    return real(*a, **kw)
+                before = o.ops.SPLITS.get(name, 0)
+                inputs = _clone_inputs((a, kw))
+                out = real(*a, **kw)
+                if o.ops.SPLITS.get(name, 0) > before:
+                    o.calls[name] = inputs
+                return out
+            return call
+
+        for name in self.WRAPPERS:
+            self._real[name] = getattr(self.ops, name)
+            setattr(self.ops, name, wrap(name, self._real[name]))
+        return self
+
+    def __exit__(self, *exc):
+        for name, real in self._real.items():
+            setattr(self.ops, name, real)
+        return False
+
+    def replay(self) -> dict:
+        """Each recorded call on the card against its plain version on
+        copies of its inputs: {kernel: dict(launches, max_abs_err 0.0)},
+        every output bit-equal (K16/K17 through check_sample: their plain
+        versions draw with K2)."""
+        o, out = self.ops, {}
+        for name, (a, kw) in self.calls.items():
+            before = o.LAUNCHES[name]
+            if name in ("fk_sample", "choice_sample"):
+                args = a if name == "fk_sample" else a[:3]
+                kwa = dict(kw) if name == "fk_sample" else \
+                    dict(kw, **dict(zip(("u", "rv", "dummy", "mode"),
+                                        a[3:])))
+                kwa.pop("label", None)
+                check_sample(o, dict(kernel=name, mode="limits",
+                                     args=args, kwargs=kwa))
+            else:
+                x, y = _clone_inputs((a, kw)), _clone_inputs((a, kw))
+                kw_plain = {k: v for k, v in y[1].items()
+                            if k not in ("label", "cls", "B")}
+                got = getattr(o, name)(*x[0], **x[1])
+                want = getattr(o, name + "_plain")(*y[0], **kw_plain)
+                if name in ("rel_scatter", "batch_write"):   # in place
+                    got, want = x, y
+                torch.cuda.synchronize()
+                bad = [p for p, g, w in _leaves(got, want, name)
+                       if not torch.equal(g, w)]
+                require(not bad, f"{name} past its old limit differs from "
+                        f"its plain version: {bad}")
+            out[name] = dict(launches=o.LAUNCHES[name] - before,
+                             max_abs_err=0.0)
+        return out

@@ -1,10 +1,10 @@
 """The port's hand-written CUDA kernels: build, bind, plain versions, counts.
 
-Twenty-one kernels carry the block enumeration, the particle resampling,
+Twenty-three kernels carry the block enumeration, the particle resampling,
 the one-row loops' relational delta, row write and score glue, the
 batched relational scatters and row writes, the block proposal's sample
-pass and row lookups, and the score pass's accumulation glue of the
-port's paths (sources
+pass and row lookups, the score pass's accumulation glue and the
+parameter resampling of the port's paths (sources
 in pclean_tpu_torch/csrc/, each with a header note on the JAX computation it
 replaces, its bound on the H100 and its design):
 
@@ -80,7 +80,16 @@ replaces, its bound on the H100 and its design):
                        score_choice, _mm_flush);
   K21 py_prior       — a batched foreign key's Pitman-Yor prior through
                        its compaction plus its children: K1's two inputs
-                       (propose.py py_logprobs and score_fk's adds).
+                       (propose.py py_logprobs and score_fk's adds);
+  K22 gamma_draw     — every Proportions and Prob draw of a parameter
+                       resample: Gamma(alpha, 1) on a counter-based
+                       Philox stream, Dirichlet rows and Beta pairs
+                       (dists/params.py, gibbs_params.py's conjugate
+                       draws; jax.random.gamma, dirichlet, beta);
+  K23 py_resample    — the Pitman-Yor hyperparameter MH of every latent
+                       class: the EPPF's scans and three scores, two
+                       accepts (pclean_tpu's gibbs_params.py
+                       resample_py, pitman_yor_score).
 
 Each has a plain PyTorch version here. A wrapper takes the plain version
 only for tensors on the CPU; for CUDA tensors it launches its kernel or
@@ -91,7 +100,7 @@ K8's, where the plan splits a row's referrers (S > 1, as at one row),
 adds a second launch that merges the splits;
 `LAUNCHES_BY_SHAPE` splits the same launches into those over one row
 ("r1", the sequential loops) and over more ("rn", the batched phases);
-`LAUNCH_CENSUS` splits K1's, K2's, K3's and K5-K21's further by mode and
+`LAUNCH_CENSUS` splits K1's, K2's, K3's and K5-K23's further by mode and
 row length. Inside a captured CUDA graph (engine/row_graph.py) a wrapper
 runs once, at the capture; the graph then adds the captured step's counts
 once for each replay (`snapshot`, `add_counts`), so the counts are
@@ -108,9 +117,19 @@ cached on the model; K11's from a row's writes) travel by value as the
 kernel's argument, bound to the pointers of a loop segment's carry
 (`RowCarry`) once, so no table lives on the card. K14's and K15's words
 (pointers, dtypes, lengths; a thread a source or a (column, row) pair)
-are built at each call, also by value, and so are K16's-K21's (K20's a
+are built at each call, also by value, and so are K16's-K23's (K20's a
 level's references, operands and program, `level_plan`; K21's
-`py_prior_words`).
+`py_prior_words`; K22's descriptors, K23's classes).
+
+Fixed limits split or raise, never fall back to a plain version (each
+split in a plan function the CPU tests read): K11's writes, K15's columns
+and K14's cascade fk columns go in launches of at most the limit
+(`row_write_chunks`, `batch_write_chunks`, `cascade_groups`); chains
+longer than K7, K14 or K18 follow are folded first by K18 launches into
+buffers the call owns (`chain_folds`, `fold_chain`); a K20 level past one
+launch is cut at subexpressions whose sums the next stage pushes
+(`level_stages`); K10 takes the larger of two parameter blocks
+(`K10_TIERS`, `k10_tier`) and K16/K17 up to `_MAX_ANC` ancestor axes.
 
 Build: one `nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared` per
 source, all started together, into pclean_tpu_torch/_build/ (listed in
@@ -160,10 +179,18 @@ _SOURCES = {
     "branch_select": "branch_select.cu",
     "level_sum": "level_sum.cu",
     "py_prior": "py_prior.cu",
+    "gamma_draw": "gamma_draw.cu",
+    "py_resample": "py_resample.cu",
 }
 LAUNCHES = {name: 0 for name in _SOURCES}
 LAUNCHES_BY_SHAPE = {name: {"r1": 0, "rn": 0} for name in _SOURCES}
-# K1's, K2's, K3's and K5-K21's launches by (mode, "r1" or "rn", K): K1's
+# the calls that went past a kernel's single-launch limit, by wrapper: a
+# row's writes, a batch's columns or a cascade's fk columns in more than
+# one launch, a chain folded by K18 first, a level in stages, K10's larger
+# block, K16/K17 past three ancestor axes (no path of the repository's
+# workloads makes one; workloads/limits.py makes each)
+SPLITS: dict = {}
+# K1's, K2's, K3's and K5-K23's launches by (mode, "r1" or "rn", K): K1's
 # mode is "fk" or "choice", K2's is None, K3's the launch's vocabularies
 # ("V1,V2,..."), K5's its route and output ("coords,BxA" or "index,BxA"),
 # K6's its referrers' form and axis ("list,N" or "dense,N"), K7's
@@ -189,7 +216,9 @@ LAUNCHES_BY_SHAPE = {name: {"r1": 0, "rn": 0} for name in _SOURCES}
 # kind, a dense, b copy-mode equality, c non-enumerable observed term, d
 # gather) and K the output's size, r1 or rn by the tracer's B; K21's
 # "target full=rows cap=..[ comp][ rows]" (rows: per-row leaves) and K
-# the candidates
+# the candidates; K22's gamma_draw_mode (descriptors, elements, widest
+# row) and K the elements; K23's "classes=.. cap=.." (the largest) and K
+# that cap
 LAUNCH_CENSUS = {"enum_logsumexp": {}, "inv_cdf_sample": {},
                  "obs_gather_sum": {}, "gauss_ext_term": {},
                  "maybe_swap_ext": {}, "referrer_hist": {},
@@ -197,18 +226,20 @@ LAUNCH_CENSUS = {"enum_logsumexp": {}, "inv_cdf_sample": {},
                  "row_write": {}, "fk_score": {}, "choice_score": {},
                  "rel_scatter": {}, "batch_write": {}, "fk_sample": {},
                  "choice_sample": {}, "row_gather": {},
-                 "branch_select": {}, "level_sum": {}, "py_prior": {}}
+                 "branch_select": {}, "level_sum": {}, "py_prior": {},
+                 "gamma_draw": {}, "py_resample": {}}
 # the fields each K16-K21 census mode was formatted from, by kernel and
 # mode (K16: form, mask, B, cap, comp, d; K17: form, dtype, B, d; K18:
 # cols, a (dtype, length) a hop column, then the leaf's; K19: B, pairs of
 # (new, existing) dtypes; K20: the first such level's program, rank,
 # shape and operands' kinds, codes and references, _level_fields; K21: B,
-# full, cap, comp, per_row, sd, counts): kernel_bench rebuilds a census
-# shape's inputs
-# from them. A mode names the same fields in every run, so reset_counts
+# full, cap, comp, per_row, sd, counts; K22: each descriptor's (mode,
+# rows, width, counts or not); K23: each class's cap): kernel_bench
+# rebuilds a census shape's inputs from them. A mode names the same fields in every run, so reset_counts
 # keeps them (a graph captured before it replays its modes after it)
 CENSUS_FIELDS = {"fk_sample": {}, "choice_sample": {}, "row_gather": {},
-                 "branch_select": {}, "level_sum": {}, "py_prior": {}}
+                 "branch_select": {}, "level_sum": {}, "py_prior": {},
+                 "gamma_draw": {}, "py_resample": {}}
 SMEM_MAX = 232448  # shared memory one block may use on an H100 (227 KB)
 N_SMS = 132        # streaming multiprocessors of an H100 SXM
 _GRID_Y_MAX = 65535
@@ -217,7 +248,12 @@ _libs: dict = {}
 BUILD_LOG: dict = {}
 
 
+def _split(name: str) -> None:
+    SPLITS[name] = SPLITS.get(name, 0) + 1
+
+
 def reset_counts() -> None:
+    SPLITS.clear()
     for k in LAUNCHES:
         LAUNCHES[k] = 0
         LAUNCHES_BY_SHAPE[k] = {"r1": 0, "rn": 0}
@@ -381,6 +417,8 @@ def build_kernels(force: bool = False) -> float:
             "branch_select": [P, I32, P],
             "level_sum": [P, I32, P],
             "py_prior": [P, I32, P],
+            "gamma_draw": [P, I32, P],
+            "py_resample": [P, I32, P],
         }
         for name in _SOURCES:
             lib = ctypes.CDLL(os.path.join(BUILD_DIR, f"lib{name}.so"))
@@ -1191,9 +1229,10 @@ def referrer_hist_plain(val, w, V: int, cap: int = None, hops=None):
 
 def referrer_hist(val, w, V: int, cap: int = None, hops=None):
     """K7, as referrer_hist_plain. Hoisted (hops: the chain's fk columns,
-    the first [N], then each target class's column): val [N] int32, w [N]
-    bool -> [cap, V]. Per row (hops None): w [B, R] bool, val [1 or B, R]
-    int32 -> [B, V]."""
+    the first [N], then each target class's column; a chain of more than
+    _K7_MAX_HOPS columns first folded by K18, fold_chain, into a column
+    [N] the call owns): val [N] int32, w [N] bool -> [cap, V]. Per row
+    (hops None): w [B, R] bool, val [1 or B, R] int32 -> [B, V]."""
     if not _route(w, "referrer_hist"):
         return referrer_hist_plain(val, w, V, cap=cap, hops=hops)
     per_row = hops is None
@@ -1212,10 +1251,13 @@ def referrer_hist(val, w, V: int, cap: int = None, hops=None):
         _need(val, torch.int32, "referrer_hist val", 1)
         G, R, rows = int(cap), w.shape[0], 1
         hop_t = [h.to(torch.int32).contiguous() for h in hops]
-        if not 1 <= len(hop_t) <= _K7_MAX_HOPS or val.shape[0] != R \
-                or hop_t[0].shape != (R,):
-            raise ValueError("referrer_hist: 1 to 8 hop columns, the first "
-                             "as long as val and w")
+        if not hop_t or val.shape[0] != R or hop_t[0].shape != (R,):
+            raise ValueError("referrer_hist: hop columns, the first as long "
+                             "as val and w")
+        if len(hop_t) > _K7_MAX_HOPS:   # a long chain in stages (K18)
+            first, rest = fold_chain(hop_t[0], hop_t[1:], _K7_MAX_HOPS - 1,
+                                     caller="referrer_hist")
+            hop_t = [first.contiguous()] + rest
         for h in hop_t:
             _need(h, torch.int32, "referrer_hist hop", 1)
     if not all(x.is_cuda for x in [val] + hop_t):
@@ -1439,15 +1481,26 @@ K10_MODES = ("obs", "latent")
 # the words of K10's plan (csrc/row_delta.cu): a header with each chain
 # lane's (first entry, entries), then a node's and a chain's fixed-size
 # records
-K10_HEAD, K10_NODE, K10_MAX_HOPS = 8 + 64, 12, 6
-K10_PROP = 17 + 3 * K10_MAX_HOPS
-K10_MAX_NODES, K10_MAX_PROPS = 24, 32
-K10_WORDS = K10_HEAD + K10_NODE * K10_MAX_NODES + K10_PROP * K10_MAX_PROPS
+K10_HEAD, K10_NODE = 8 + 64, 12
+# the plan's two parameter blocks (csrc/row_delta.cu; word 7 names the
+# tier): (fk-tree nodes, hops a chain, chains). A class's fk-tree nodes
+# read each other's flips and its chains run beside them in one launch,
+# so a model past tier 0 takes the larger block rather than a split
+K10_TIERS = ((24, 6, 32), (64, 16, 48))
+
+
+def k10_words(tier: int) -> int:
+    nodes, hops, props = K10_TIERS[tier]
+    return K10_HEAD + K10_NODE * nodes + (17 + 3 * hops) * props
+
+
+K10_WORDS = k10_words(0)
 K11_HEAD, K11_WRITE, K11_MAX_WRITES = 2 + 64, 12, 64
 K11_WORDS = K11_HEAD + K11_WRITE * K11_MAX_WRITES
 # bytes of kernel parameters a launch may pass on Hopper with CUDA >= 12.1
 PARAM_MAX = 32764
-K10_PARAM_BYTES = 8 * K10_WORDS + 32   # the plan, slot, sign, save / old
+# the larger block with the slot, sign and save / old pointers
+K10_PARAM_BYTES = 8 * k10_words(len(K10_TIERS) - 1) + 32
 K11_PARAM_BYTES = 8 * K11_WORDS
 
 
@@ -1465,7 +1518,8 @@ class RowCarry:
         self.arenas, self.rel, self.obs = arenas, rel, obs
         self.hops = list(hops or ())
         self.k10 = {}   # (mode, hop) -> the plan's bound words
-        self.k11 = {}   # a row's structure -> (bound words, write order)
+        self.k11 = {}   # a row's structure -> [(first write, (bound
+        #                 words, write order))], one entry a launch
 
 
 def _leaf(g, car: RowCarry):
@@ -1486,6 +1540,22 @@ def _leaf(g, car: RowCarry):
     if k == "o":
         return car.obs[g[1]][g[2]][g[3]]
     return car.hops[g[1]][1][g[2]]
+
+
+def k10_tier(nodes: int, chains: int, hops: int, cid=None) -> int:
+    """The smallest of K10's parameter blocks (K10_TIERS) that holds a
+    plan of `nodes` fk-tree nodes and `chains` propagated-observation
+    chains (or hop entries) of at most `hops` hops; raises, naming the
+    model's feature, where none does."""
+    for tier, (n, h, p) in enumerate(K10_TIERS):
+        if nodes <= n and chains <= p and hops <= h:
+            return tier
+    n, h, p = K10_TIERS[-1]
+    raise ValueError(
+        f"row_delta: class {cid!r} reaches {nodes} classes through its fk "
+        f"tree and has {chains} propagated-observation chains of up to "
+        f"{hops} hops; K10 takes at most {n} fk-tree nodes and {p} chains "
+        f"of {h} hops")
 
 
 def row_delta_plan(cm, cid, mode: str, hop: bool = False) -> dict:
@@ -1545,19 +1615,18 @@ def row_delta_plan(cm, cid, mode: str, hop: bool = False) -> dict:
         e["lane"] = groups.setdefault(e["target"], len(groups)) % 32
     entries.sort(key=lambda e: e["lane"])
     hops_of = [e["chain"] if "chain" in e else e["suffix"] for e in entries]
-    if len(nodes) > K10_MAX_NODES or len(entries) > K10_MAX_PROPS or \
-            any(len(h) > K10_MAX_HOPS for h in hops_of):
-        raise ValueError(
-            f"row_delta: class {cid!r} has {len(nodes)} fk nodes and "
-            f"{len(entries)} chains (at most {K10_MAX_NODES} and "
-            f"{K10_MAX_PROPS}, chains of at most {K10_MAX_HOPS} hops)")
+    tier = k10_tier(len(nodes), len(entries),
+                    max(map(len, hops_of), default=0), cid)
+    max_nodes, max_hops, _p = K10_TIERS[tier]
+    prop_w = 17 + 3 * max_hops
     words = [0] * (K10_HEAD + K10_NODE * len(nodes)
-                   + (K10_PROP * len(entries) if entries else 0))
+                   + (prop_w * len(entries) if entries else 0))
     if entries:   # the chains' records start after every node's room
-        words += [0] * (K10_NODE * (K10_MAX_NODES - len(nodes)))
+        words += [0] * (K10_NODE * (max_nodes - len(nodes)))
     slots = []
     words[0] = {"obs": 0, "latent": 1}[mode] + (1 if hop else 0)
     words[1], words[2], words[3] = len(nodes), len(entries), lay.capacity
+    words[7] = tier
     for j, e in enumerate(entries):
         words[9 + 2 * e["lane"]] += 1
         if words[9 + 2 * e["lane"]] == 1:
@@ -1576,7 +1645,7 @@ def row_delta_plan(cm, cid, mode: str, hop: bool = False) -> dict:
                   (("r", nd["tc"], "total"), b + 8, -1, b + 9, None, 1),
                   (("r", nd["tc"], "nrows"), b + 10, -1, b + 11, None, 1)]
     for j, (e, chain) in enumerate(zip(entries, hops_of)):
-        b = K10_HEAD + K10_NODE * K10_MAX_NODES + K10_PROP * j
+        b = K10_HEAD + K10_NODE * max_nodes + prop_w * j
         tc, tv = e["target"]
         cap_t = cm.layouts[tc].capacity
         words[b], words[b + 5], words[b + 16] = e["lane"], cap_t, len(chain)
@@ -1598,7 +1667,7 @@ def row_delta_plan(cm, cid, mode: str, hop: bool = False) -> dict:
             hb = b + 17 + 3 * h
             slots.append((("a",) + col, hb, hb + 1, hb + 2, None, None))
     plan = dict(cid=cid, mode=mode, hop=bool(hop), nodes=nodes,
-                props=entries, words=words, slots=slots,
+                props=entries, words=words, slots=slots, tier=tier,
                 n_roots=len(lay.fk_vertices))
     cache[key] = plan
     return plan
@@ -1698,6 +1767,8 @@ def row_delta(car: RowCarry, slot, sign: int, mode: str = "obs",
                               t.numel() < plan["n_roots"]):
             raise ValueError(f"row_delta: {name} must be int64 [>= "
                              f"{plan['n_roots']}] on the card")
+    if plan["tier"] > 0:
+        _split("row_delta")
     arr = car.k10.get((mode, hop))
     if arr is None:
         if hop and len(car.hops) != len(plan["props"]):
@@ -1745,14 +1816,25 @@ def row_write_writes(car: RowCarry, slot, env2: dict, births, accept,
     return out
 
 
+def row_write_chunks(n: int) -> list:
+    """K11's launches for a row of n writes: the (first, end) write ranges
+    of each, in order, at most K11_MAX_WRITES a launch. Launches queue in
+    order on one stream, so the writes still apply in list order, and a
+    write's value, slot and masks are inputs no write changes: the split
+    writes what one launch would."""
+    return [(i, min(n, i + K11_MAX_WRITES))
+            for i in range(0, max(n, 1), K11_MAX_WRITES)]
+
+
 def _k11_words(writes: list):
-    """K11's words for a row's writes, as a ctypes array, with the write
-    order (one lane a destination column, each lane's writes together, in
-    order): the destination columns bound, each write's value, slot and
-    mask pointers left for row_write to set."""
+    """K11's words for a row's writes (at most K11_MAX_WRITES), as a
+    ctypes array, with the write order (one lane a destination column,
+    each lane's writes together, in order): the destination columns
+    bound, each write's value, slot and mask pointers left for row_write
+    to set."""
     if len(writes) > K11_MAX_WRITES:
         raise ValueError(f"row_write: {len(writes)} writes (at most "
-                         f"{K11_MAX_WRITES})")
+                         f"{K11_MAX_WRITES} a launch)")
     lanes: dict = {}
     lane = [lanes.setdefault(w[0].data_ptr(), len(lanes)) % 32
             for w in writes]
@@ -1775,12 +1857,13 @@ def _k11_words(writes: list):
 
 def row_write(car: RowCarry, slot, env2: dict, births, accept=None,
               mark_alive: bool = False) -> None:
-    """K11: row_write_plain's writes in one launch, in place, every index
-    and mask read on the card. The words of a row of one structure (its
+    """K11: row_write_plain's writes in place, every index and mask read
+    on the card, in one launch a row_write_chunks range (one for a row of
+    up to K11_MAX_WRITES writes). The words of a row of one structure (its
     value vertices, births, mask) are bound to the carry's columns once;
     each row sets only its values', slots' and masks' pointers. On CPU
     tensors the plain version; on CUDA ones the kernel or an error.
-    Counted in LAUNCH_CENSUS by (class, r1, births)."""
+    Counted in LAUNCH_CENSUS by (class, r1, births), once a launch."""
     if not _route(slot, "row_write"):
         return row_write_plain(car, slot, env2, births, accept, mark_alive)
     if isinstance(accept, bool):
@@ -1791,19 +1874,24 @@ def row_write(car: RowCarry, slot, env2: dict, births, accept=None,
            tuple((b.target_class, tuple(b.values)) for b in births))
     bound = car.k11.get(key)
     if bound is None:
-        bound = car.k11[key] = _k11_words(writes)
-    arr, order = bound
-    w = K11_HEAD + 4
-    for i in order:
-        for t, name in zip(writes[i][1:], ("value", "slot", "mask", "mask")):
-            if t is not None:
-                _need_index(t, f"row_write {name}")
-                arr[w], arr[w + 1] = t.data_ptr(), _DT[t.dtype]
-            w += 2
-        w += K11_WRITE - 8
-    rc = _fn("row_write")(arr, len(arr), _stream(slot))
-    _check(rc, "row_write")
-    _count("row_write", 1, len(births), car.cid)
+        bound = car.k11[key] = [
+            (lo, _k11_words(writes[lo:hi]))
+            for lo, hi in row_write_chunks(len(writes))]
+    if len(bound) > 1:
+        _split("row_write")
+    for lo, (arr, order) in bound:
+        w = K11_HEAD + 4
+        for i in order:
+            for t, name in zip(writes[lo + i][1:],
+                               ("value", "slot", "mask", "mask")):
+                if t is not None:
+                    _need_index(t, f"row_write {name}")
+                    arr[w], arr[w + 1] = t.data_ptr(), _DT[t.dtype]
+                w += 2
+            w += K11_WRITE - 8
+        rc = _fn("row_write")(arr, len(arr), _stream(slot))
+        _check(rc, "row_write")
+        _count("row_write", 1, len(births), car.cid)
 
 
 # ---------------------------------------------------------------- K12, K13
@@ -2084,7 +2172,9 @@ def rel_scatter(kind: str, cnt, code, sides, n: int, slots=None,
     """K14: rel_scatter_plain's scatters in one launch, in place on cnt
     (int32 [C]) and code ([C] int32, int64 or float32, or None), which the
     caller owns, with the drop rule inside the kernel. `sides`: one or two
-    scatter_side()s; `slots`: int64 [n] source slots, or None for sources
+    scatter_side()s (a side's chain of more than K14_MAX_HOPS columns
+    first folded by K18, fold_chain, into a column over the sources that
+    the call owns); `slots`: int64 [n] source slots, or None for sources
     0..n-1; `exclude`: the excluded source slot, an int or an int64 [1]
     tensor on the card (read there, so the host never waits for it).
     On CPU tensors the plain version; on CUDA ones the kernel or an error.
@@ -2121,12 +2211,18 @@ def rel_scatter(kind: str, cnt, code, sides, n: int, slots=None,
         words[10], words[11] = int(exclude), 1
     words[12] = len(sides)
     keep = []   # contiguous copies stay alive until the launch is queued
+    run = []    # the sides as launched (long chains folded)
     for k, sd in enumerate(sides):
         b = K14_HEAD + K14_SIDE * k
-        if sd["sign"] not in (1, -1) or len(sd["hops"]) > K14_MAX_HOPS:
-            raise ValueError(f"rel_scatter: sign {sd['sign']}, "
-                             f"{len(sd['hops'])} hops (at most "
-                             f"{K14_MAX_HOPS})")
+        if sd["sign"] not in (1, -1):
+            raise ValueError(f"rel_scatter: sign {sd['sign']}")
+        if len(sd["hops"]) > K14_MAX_HOPS:   # a long chain in stages (K18)
+            _k14_vec(sd["hops"][0], "hop column", src_len, _INDEX_DT)
+            first, rest = fold_chain(sd["hops"][0], sd["hops"][1:],
+                                     K14_MAX_HOPS - 1, caller="rel_scatter")
+            sd = dict(sd, hops=[first] + rest)
+            keep.append(first)
+        run.append(sd)
         words[b], words[b + 1] = sd["sign"], len(sd["hops"])
         for j, (key, dts) in enumerate((
                 ("alive", (torch.bool,)), ("state", _INDEX_DT),
@@ -2151,7 +2247,7 @@ def rel_scatter(kind: str, cnt, code, sides, n: int, slots=None,
     rc = _fn("rel_scatter")(arr, len(arr), _stream(cnt))
     _check(rc, "rel_scatter")
     _count("rel_scatter", n, C,
-           _k14_sig(kind, n, src_len, sides, code, slots, exclude))
+           _k14_sig(kind, n, src_len, run, code, slots, exclude))
 
 
 def rel_cascade_plain(d, refcount, alive, fks):
@@ -2169,36 +2265,53 @@ def rel_cascade_plain(d, refcount, alive, fks):
 
 
 def rel_cascade(d, refcount, alive, fks, cls=None):
-    """K14 in cascade mode: rel_cascade_plain in one launch, refcount and
-    alive written into new tensors (torch.empty), the sums into a zeroed
-    int64 [2] by atomics, the flips into each pending delta in place. On
-    CPU tensors the plain version; on CUDA ones the kernel or an error.
-    Counted in LAUNCH_CENSUS by ("cascade cls fks", r1 or rn, C)."""
+    """K14 in cascade mode: rel_cascade_plain in one launch a
+    cascade_groups range of fk columns (one for up to K14_MAX_FKS),
+    refcount and alive written into new tensors (torch.empty), the sums
+    into a zeroed int64 [2] by atomics, the flips into each pending delta
+    in place. On CPU tensors the plain version; on CUDA ones the kernel or
+    an error. Counted in LAUNCH_CENSUS by ("cascade cls fks", r1 or rn,
+    C), once a launch."""
     if not _route(d, "rel_cascade"):
         return rel_cascade_plain(d, refcount, alive, fks)
     _k14_vec(d, "d", dtypes=(torch.int32,))
     C = d.shape[0]
     _k14_vec(refcount, "refcount", C, (torch.int32,))
     _k14_vec(alive, "alive", C, (torch.bool,))
-    if len(fks) > K14_MAX_FKS:
-        raise ValueError(f"rel_cascade: {len(fks)} fk columns (at most "
-                         f"{K14_MAX_FKS})")
-    rc = torch.empty_like(refcount)
-    now = torch.empty_like(alive)
-    acc = torch.zeros((2,), dtype=torch.int64, device=d.device)
-    words = [1, C, d.data_ptr(), refcount.data_ptr(), alive.data_ptr(),
-             rc.data_ptr(), now.data_ptr(), acc.data_ptr(), len(fks)] + \
-        [0] * (K14_HEAD - 9)
     for col, pend in fks:
         _k14_vec(col, "fk column", C, _INDEX_DT)
         _k14_vec(pend, "pending delta", dtypes=(torch.int32,))
-        words += [col.data_ptr(), _DT[col.dtype], pend.data_ptr(),
-                  pend.shape[0]]
-    arr = (ctypes.c_int64 * len(words))(*words)
-    rc_ = _fn("rel_scatter")(arr, len(arr), _stream(d))
-    _check(rc_, "rel_scatter")
-    _count("rel_scatter", C, C, f"cascade {cls} fks={len(fks)}")
+    rc = torch.empty_like(refcount)
+    now = torch.empty_like(alive)
+    acc = torch.zeros((2,), dtype=torch.int64, device=d.device)
+    groups = cascade_groups(len(fks))
+    if len(groups) > 1:
+        _split("rel_cascade")
+    for k, (lo, hi) in enumerate(groups):
+        # the first launch writes the refcount, alive and sums; the later
+        # ones only scatter their group's flips (the same flips: every
+        # launch reads d, refcount and alive, which none writes)
+        out = [rc.data_ptr(), now.data_ptr(), acc.data_ptr()] if k == 0 \
+            else [0, 0, 0]
+        words = [1, C, d.data_ptr(), refcount.data_ptr(),
+                 alive.data_ptr()] + out + [hi - lo] + [0] * (K14_HEAD - 9)
+        for col, pend in fks[lo:hi]:
+            words += [col.data_ptr(), _DT[col.dtype], pend.data_ptr(),
+                      pend.shape[0]]
+        arr = (ctypes.c_int64 * len(words))(*words)
+        rc_ = _fn("rel_scatter")(arr, len(arr), _stream(d))
+        _check(rc_, "rel_scatter")
+        _count("rel_scatter", C, C, f"cascade {cls} fks={hi - lo}")
     return rc, now, acc
+
+
+def cascade_groups(n: int) -> list:
+    """K14's cascade launches for a class with n fk columns: the (first,
+    end) fk ranges of each, in order, at most K14_MAX_FKS a launch (one
+    launch for a class with none). Integer scatters are order-free, so the
+    split adds what one launch would."""
+    return [(i, min(n, i + K14_MAX_FKS))
+            for i in range(0, max(n, 1), K14_MAX_FKS)]
 
 
 def batch_write_plain(cols, vals, slots, ok, alive=None) -> None:
@@ -2213,13 +2326,25 @@ def batch_write_plain(cols, vals, slots, ok, alive=None) -> None:
         alive.copy_(index_set_where(alive, slots, True, ok))
 
 
+def batch_write_chunks(n: int) -> list:
+    """K15's launches for n destination columns (the alive bit counted as
+    one): the (first, end) column ranges of each, in order, at most
+    K15_MAX_COLS a launch. Each column is written by exactly one launch,
+    from inputs no launch changes, so the split writes what one launch
+    would."""
+    return [(i, min(n, i + K15_MAX_COLS))
+            for i in range(0, max(n, 1), K15_MAX_COLS)]
+
+
 def batch_write(cols, vals, slots, ok, alive=None, cls=None) -> None:
-    """K15: batch_write_plain's writes in one launch, in place on columns
-    the caller owns (the batched drivers' copies), every index and mask
-    read on the card and the drop rule inside the kernel. slots int64 [B],
-    ok bool [B], vals [B] of any dtype of ops._DT. On CPU tensors the plain
-    version; on CUDA ones the kernel or an error. Counted in LAUNCH_CENSUS
-    by ("cls cap=C dst<src,...[,alive]", r1 or rn, B)."""
+    """K15: batch_write_plain's writes in place on columns the caller owns
+    (the batched drivers' copies), every index and mask read on the card
+    and the drop rule inside the kernel, in one launch a batch_write_chunks
+    range of columns (one for up to K15_MAX_COLS). slots int64 [B], ok
+    bool [B], vals [B] of any dtype of ops._DT. On CPU tensors the plain
+    version; on CUDA ones the kernel or an error. Counted in
+    LAUNCH_CENSUS by ("cls cap=C dst<src,...[,alive]", r1 or rn, B), once
+    a launch."""
     if not _route(slots, "batch_write"):
         return batch_write_plain(cols, vals, slots, ok, alive)
     B = slots.shape[0] if slots.dim() == 1 else -1
@@ -2231,14 +2356,9 @@ def batch_write(cols, vals, slots, ok, alive=None, cls=None) -> None:
         raise ValueError(f"batch_write: ok must be bool [{B}] on the card")
     ok = ok.contiguous()
     dsts = list(cols) + ([alive] if alive is not None else [])
-    if len(dsts) > K15_MAX_COLS:
-        raise ValueError(f"batch_write: {len(dsts)} columns (at most "
-                         f"{K15_MAX_COLS})")
     srcs = [v.reshape(-1).contiguous() for v in vals] + \
         ([None] if alive is not None else [])
-    words = [len(dsts), B, slots.data_ptr(), ok.data_ptr()] + \
-        [0] * (K15_HEAD - 4)
-    sig = []
+    recs, sig = [], []
     for dst, src in zip(dsts, srcs):
         if not dst.is_cuda or dst.dim() != 1 or not dst.is_contiguous() or \
                 dst.dtype not in _DT:
@@ -2249,28 +2369,42 @@ def batch_write(cols, vals, slots, ok, alive=None, cls=None) -> None:
             raise ValueError(f"batch_write: values {src.dtype} "
                              f"{tuple(src.shape)} on {src.device} (expected "
                              f"[{B}] on the card)")
-        words += [dst.data_ptr(), _DT[dst.dtype], dst.shape[0],
-                  0 if src is None else src.data_ptr(),
-                  0 if src is None else _DT[src.dtype], 0]
+        recs.append([dst.data_ptr(), _DT[dst.dtype], dst.shape[0],
+                     0 if src is None else src.data_ptr(),
+                     0 if src is None else _DT[src.dtype], 0])
         sig.append("alive" if src is None
                    else f"{_SHORT[dst.dtype]}<{_SHORT[src.dtype]}")
-    arr = (ctypes.c_int64 * len(words))(*words)
-    rc = _fn("batch_write")(arr, len(arr), _stream(slots))
-    _check(rc, "batch_write")
     cap = dsts[0].shape[0] if dsts else 0
-    _count("batch_write", B, B, f"{cls} cap={cap} {','.join(sig)}")
+    chunks = batch_write_chunks(len(dsts))
+    if len(chunks) > 1:
+        _split("batch_write")
+    for lo, hi in chunks:
+        words = [hi - lo, B, slots.data_ptr(), ok.data_ptr()] + \
+            [0] * (K15_HEAD - 4)
+        for r in recs[lo:hi]:
+            words += r
+        arr = (ctypes.c_int64 * len(words))(*words)
+        rc = _fn("batch_write")(arr, len(arr), _stream(slots))
+        _check(rc, "batch_write")
+        _count("batch_write", B, B, f"{cls} cap={cap} {','.join(sig[lo:hi])}")
 
 
 # ---------------------------------------------------------------- K16-K19
 
 # the plans' word counts and limits (csrc/fk_sample.cu, choice_sample.cu,
 # row_gather.cu, branch_select.cu)
-K16_WORDS, K17_WORDS = 40, 32
+# ancestor axes of a record the sample kernels take: a record has at most
+# K20_MAX_DIMS axes, the rows and the drawn axis among them; each axis's
+# words (stride, size, pointer, dtype) sit at the end of a K16/K17 plan,
+# from word K16_X / K17_X
+_MAX_ANC, _ANC_WORDS = 7, 4
+K16_X, K17_X = 28, 16
+K16_WORDS = K16_X + _ANC_WORDS * _MAX_ANC
+K17_WORDS = K17_X + _ANC_WORDS * _MAX_ANC
 K17_MODES = ("draw", "retained", "pick")
 K18_MAX_DIMS, K18_MAX_HOPS = 8, 4
 K18_WORDS = 24 + 3 * K18_MAX_HOPS + 5
 K19_HEAD, K19_PAIR, K19_MAX_PAIRS = 4, 8, 64
-_MAX_ANC = 3   # ancestor axes of a record the sample kernels take
 
 
 def pick_plain(rec, anc, B: int):
@@ -2286,11 +2420,13 @@ def pick_plain(rec, anc, B: int):
 
 
 def _rec_words(rec, anc, B: int, name: str, tail: int) -> tuple:
-    """(rec, words 5-19 of a K16/K17 plan): the record's pointer, its
-    ancestor axes, the strides (in elements) of rec expanded to B rows
-    and the ancestors' pointers and dtypes. `tail` is the number of axes
-    after the ancestor axes (1: a row of logits, 0: one value); a row of
-    logits must have stride 1 (else the record is made contiguous)."""
+    """(rec, words 5-7 of a K16/K17 plan, the ancestor axes' words,
+    _ANC_WORDS an axis, zero-padded to _MAX_ANC axes): the record's
+    pointer, its ancestor count and row stride, then each axis's stride
+    (in elements, of rec expanded to B rows), size, and its ancestor's
+    pointer and dtype. `tail` is the number of axes after the ancestor
+    axes (1: a row of logits, 0: one value); a row of logits must have
+    stride 1 (else the record is made contiguous)."""
     if len(anc) > _MAX_ANC or rec.dim() != 1 + len(anc) + tail:
         raise ValueError(f"{name}: a record of {rec.dim()} axes with "
                          f"{len(anc)} ancestors (at most {_MAX_ANC})")
@@ -2300,17 +2436,18 @@ def _rec_words(rec, anc, B: int, name: str, tail: int) -> tuple:
     if tail and rec.stride(-1) != 1:
         rec = rec.contiguous()
     st = rec.expand((B,) + tuple(rec.shape[1:])).stride()
-    words = [rec.data_ptr(), len(anc), st[0], 0, 0, 0, 1, 1, 1,
-             0, 0, 0, 0, 0, 0]
+    axes = [0] * (_ANC_WORDS * _MAX_ANC)
     for d, a in enumerate(anc):
         if not a.is_cuda or a.dtype not in _INDEX_DT or a.numel() != B or \
                 not a.reshape(-1).is_contiguous():
             raise ValueError(f"{name}: ancestor {d} is {a.dtype} "
                              f"{tuple(a.shape)} on {a.device} (expected "
                              f"[{B}] integers on the card)")
-        words[3 + d], words[6 + d] = st[1 + d], rec.shape[1 + d]
-        words[9 + d], words[12 + d] = a.data_ptr(), _DT[a.dtype]
-    return rec, words
+        if d == 3:
+            _split(name)
+        axes[_ANC_WORDS * d:_ANC_WORDS * (d + 1)] = [
+            st[1 + d], rec.shape[1 + d], a.data_ptr(), _DT[a.dtype]]
+    return rec, [rec.data_ptr(), len(anc), st[0]], axes
 
 
 def _vec_words(t, B: int, name: str, dtypes) -> list:
@@ -2380,7 +2517,7 @@ def fk_sample(rec, anc, gate, mask_in, mask_out, u=None, rv=None,
               rel_alive=None, rel_refcount=None, comp=None, label=None):
     """K16: fk_sample_plain in one launch, one 512-thread block a row (the
     draw is K2's own, csrc/inv_cdf.cuh, so it gives K2's index): rec a
-    float32 record [B or 1, a_1..a_d, K + 1] (d <= 3, any strides, the
+    float32 record [B or 1, a_1..a_d, K + 1] (d <= 7, any strides, the
     last 1) read in place at the int ancestors anc [B]; u float32 [B] (a
     pool column, any stride) for the drawn form, or rv [B] (ints) with
     rel_alive (bool) and rel_refcount (int32), each [cap] or [B or 1, cap],
@@ -2401,7 +2538,7 @@ def fk_sample(rec, anc, gate, mask_in, mask_out, u=None, rv=None,
         raise ValueError("fk_sample: gate must be a contiguous bool [B]")
     if rec.dtype != torch.float32:
         raise ValueError(f"fk_sample: the record is {rec.dtype}, not float32")
-    rec, rw = _rec_words(rec, anc, B, "fk_sample", 1)
+    rec, rw, rx = _rec_words(rec, anc, B, "fk_sample", 1)
     K1 = int(rec.shape[-1])
     if K1 < 2:
         raise ValueError("fk_sample: a record of K + 1 >= 2 entries")
@@ -2461,7 +2598,8 @@ def fk_sample(rec, anc, gate, mask_in, mask_out, u=None, rv=None,
     flags = torch.empty((2, B), dtype=torch.bool, device=gate.device)
     words += [gate.data_ptr()] + mi + [mask_out.data_ptr(), ints.data_ptr(),
                                        flags.data_ptr()]
-    assert len(words) == K16_WORDS, len(words)
+    assert len(words) == K16_X, len(words)
+    words += rx
     arr = (ctypes.c_int64 * K16_WORDS)(*words)
     rc = _fn("fk_sample")(arr, K16_WORDS, _stream(gate))
     _check(rc, "fk_sample")
@@ -2504,7 +2642,7 @@ def choice_sample_plain(rec, anc, B: int, u=None, rv=None, dummy=None,
 def choice_sample(rec, anc, B: int, u=None, rv=None, dummy=None,
                   mode: str = "draw", label=None):
     """K17: choice_sample_plain in one launch. Draw mode: rec a float32
-    record [B or 1, a_1..a_d, V] (d <= 3, the last stride 1) read in place
+    record [B or 1, a_1..a_d, V] (d <= 7, the last stride 1) read in place
     at the int ancestors anc [B], u float32 [B] (any stride), one 512-
     thread block a row with K2's own draw (csrc/inv_cdf.cuh); retained
     mode: rv [B] ints, a thread a row; pick mode: rec [B or 1, a_1..a_d]
@@ -2522,7 +2660,7 @@ def choice_sample(rec, anc, B: int, u=None, rv=None, dummy=None,
     if not pick and rec.dtype != torch.float32:
         raise ValueError(f"choice_sample: the record is {rec.dtype}, not "
                          f"float32")
-    rec, rw = _rec_words(rec, anc, B, "choice_sample", 0 if pick else 1)
+    rec, rw, rx = _rec_words(rec, anc, B, "choice_sample", 0 if pick else 1)
     V = 1 if pick else int(rec.shape[-1])
     words = [B, V, K17_MODES.index(mode), 0, 0] + rw
     if mode == "draw":
@@ -2541,7 +2679,8 @@ def choice_sample(rec, anc, B: int, u=None, rv=None, dummy=None,
     out = torch.empty((B,), dtype=rec.dtype if pick else torch.int32,
                       device=rec.device)
     words += [out.data_ptr(), out.element_size()]
-    words += [0] * (K17_WORDS - len(words))
+    assert len(words) == K17_X, len(words)
+    words += rx
     arr = (ctypes.c_int64 * K17_WORDS)(*words)
     rc = _fn("choice_sample")(arr, K17_WORDS, _stream(rec))
     _check(rc, "choice_sample")
@@ -2568,14 +2707,53 @@ def row_gather_mode(label, hops, leaf) -> str:
                                   for c in list(hops) + [leaf])
 
 
+def chain_folds(n: int, most: int) -> list:
+    """How a chain of n gathers (t = col[t] for each column in turn, from
+    the running indices t) is cut for a kernel that follows at most `most`
+    of them: the (first, end) column ranges that K18 launches fold into
+    the running indices first, in order, each at most K18_MAX_HOPS + 1
+    columns (K18's hops and its leaf); the kernel follows the columns from
+    the last end on. [] where n <= most. Every gather clamps its index
+    into its column, in a fold as in the kernel, so the folded chain
+    reaches the same targets."""
+    if most < 1:
+        raise ValueError(f"chain_folds: a kernel that follows {most} columns")
+    out, lo = [], 0
+    while n - lo > most:
+        hi = lo + min(K18_MAX_HOPS + 1, n - lo - most)
+        out.append((lo, hi))
+        lo = hi
+    return out
+
+
+def fold_chain(start, cols, most: int, label=None,
+               caller: str = "row_gather") -> tuple:
+    """(start', cols'): the chain of gathers `cols` from the indices
+    `start` (a tensor), its first columns folded by chain_folds into
+    start' through K18 (row_gather, into buffers of start's shape that the
+    call owns), so that cols' holds at most `most`; start' reaches the
+    same targets through cols' as start does through cols."""
+    cols, lo = list(cols), 0
+    folds = chain_folds(len(cols), most)
+    if folds and start.device.type == "cuda":
+        _split(caller)
+    for lo, hi in folds:
+        start = row_gather(start, cols[lo:hi - 1], cols[hi - 1], label=label)
+        lo = hi
+    return start, cols[lo:]
+
+
 def row_gather(slot, hops, leaf, label=None):
     """K18: row_gather_plain in one launch, a thread a slot: slot an int
     tensor of any shape and strides (up to 8 axes where it is not
-    contiguous), hops up to 4 contiguous int columns, leaf a contiguous
-    column of any dtype of _DT; returns slot's shape in the leaf's dtype
-    (torch.empty). On CPU tensors the plain version; on CUDA ones the
-    kernel or an error. Counted in LAUNCH_CENSUS by (row_gather_mode, r1
-    or rn, the slot count)."""
+    contiguous), hops contiguous int columns, leaf a contiguous column of
+    any dtype of _DT; returns slot's shape in the leaf's dtype
+    (torch.empty). A chain of more than K18_MAX_HOPS hops runs in stages
+    (fold_chain): each earlier launch follows K18_MAX_HOPS hops and the
+    next column as its leaf into a buffer of slot's shape. On CPU tensors
+    the plain version; on CUDA ones the kernel or an error. Counted in
+    LAUNCH_CENSUS by (row_gather_mode, r1 or rn, the slot count), once a
+    launch."""
     if not _route(leaf, "row_gather"):
         return row_gather_plain(slot, hops, leaf)
     if not torch.is_tensor(slot):
@@ -2584,8 +2762,9 @@ def row_gather(slot, hops, leaf, label=None):
         raise ValueError(f"row_gather: slots {slot.dtype} on {slot.device} "
                          f"(expected integers on the card)")
     if len(hops) > K18_MAX_HOPS:
-        raise ValueError(f"row_gather: {len(hops)} hops (at most "
-                         f"{K18_MAX_HOPS})")
+        slot, rest = fold_chain(slot, list(hops) + [leaf], K18_MAX_HOPS + 1,
+                                label)
+        hops, leaf = rest[:-1], rest[-1]
     for c, name in [(h, "hop column") for h in hops] + [(leaf, "leaf")]:
         if not c.is_cuda or c.dim() != 1 or not c.is_contiguous() or \
                 c.dtype not in _DT or c.shape[0] < 1 or \
@@ -2848,10 +3027,105 @@ def level_sum_plain(prog, operands, rank: int):
         raise ValueError(f"level_sum: the program leaves {len(stack)} values")
     out = stack[0]
     shape = level_shape(operands, rank)
-    if tuple(out.shape) != shape:
+    if _aligned(out.shape, rank, "the sum") != shape:
         raise ValueError(f"level_sum: sum of shape {tuple(out.shape)}, "
                          f"operands of {shape}")
-    return out
+    return out.reshape(shape)
+
+
+def _refs_of(o: dict) -> int:
+    return len(_level_tensors(o))
+
+
+@functools.lru_cache(maxsize=256)
+def _level_cuts(prog: tuple, refs: tuple) -> tuple:
+    """level_stages' cuts for a program over operands of refs[i] tensor
+    references each: ((stage program, stage operands), ...), a stage's
+    operands ("o", i) an operand of the level or ("s", k) stage k's
+    output, the last stage the level's sum."""
+    prog, srcs, stages = list(prog), [("o", i) for i in range(len(refs))], []
+
+    def nref(src):
+        return refs[src[1]] if src[0] == "o" else 1
+
+    def fits(p, used):
+        return (len(p) <= K20_MAX_PROG and len(used) <= K20_MAX_OPS
+                and sum(nref(srcs[i]) for i in used) <= K20_MAX_REFS)
+
+    def stage(p):
+        used = sorted({a for op, a in p if op in (LEVEL_PUSH, LEVEL_ADDOP)})
+        at = {i: k for k, i in enumerate(used)}
+        return (tuple((op, at.get(a, 0) if op in (LEVEL_PUSH, LEVEL_ADDOP)
+                       else 0) for op, a in p),
+                tuple(srcs[i] for i in used))
+
+    if fits(prog, range(len(refs))) and level_stack(prog) <= K20_MAX_STACK:
+        return ((tuple(prog), tuple(srcs)),)   # one launch, as it is
+    while True:
+        used = {a for op, a in prog if op in (LEVEL_PUSH, LEVEL_ADDOP)}
+        if fits(prog, used) and level_stack(prog) <= K20_MAX_STACK:
+            return tuple(stages) + (stage(prog),)
+        # the longest subexpression (a run of steps that leaves one value
+        # on the values below it) that fits one launch on its own
+        best, depth = None, 0
+        for i, (op, _a) in enumerate(prog):
+            if op in (LEVEL_ZERO, LEVEL_PUSH):
+                cur = top = depth
+                seen, nr = set(), 0
+                for e in range(i, min(len(prog), i + K20_MAX_PROG)):
+                    o, a = prog[e]
+                    cur += 1 if o in (LEVEL_ZERO, LEVEL_PUSH) else \
+                        (-1 if o == LEVEL_ADD else 0)
+                    if cur <= depth:
+                        break
+                    top = max(top, cur)
+                    if o in (LEVEL_PUSH, LEVEL_ADDOP) and a not in seen:
+                        seen.add(a)
+                        nr += nref(srcs[a])
+                    if top - depth > K20_MAX_STACK or \
+                            len(seen) > K20_MAX_OPS or nr > K20_MAX_REFS:
+                        break
+                    if cur == depth + 1 and e > i and \
+                            (best is None or e + 1 - i > best[1] - best[0]):
+                        best = (i, e + 1)
+            depth += 1 if op in (LEVEL_ZERO, LEVEL_PUSH) else \
+                (-1 if op == LEVEL_ADD else 0)
+        if best is None:
+            raise ValueError("level_sum: the level has no part that fits "
+                             "one launch")
+        i, e = best
+        stages.append(stage(prog[i:e]))
+        srcs.append(("s", len(stages) - 1))
+        prog[i:e] = [(LEVEL_PUSH, len(srcs) - 1)]
+
+
+def level_stages(prog, operands) -> list:
+    """K20's launches for a level: [(program, operands)], each within one
+    launch's limits (K20_MAX_PROG steps, K20_MAX_OPS operands,
+    K20_MAX_REFS tensor references, a stack of K20_MAX_STACK), in order; a
+    stage's operand ("o", i) is the level's operand i and ("s", k) the
+    output of stage k, added as a dense term. One stage where the level
+    fits one launch. A longer level is cut at its longest subexpression
+    that fits (a run of steps that leaves one value above the values
+    below it), which a launch sums into a buffer the next stage pushes in
+    its place, again until the rest fits: every element's additions keep
+    the level's order, one rounding a step, so the sum is bit-equal to
+    one launch's (or the eager expression's)."""
+    return [(list(p), list(o)) for p, o in
+            _level_cuts(tuple(map(tuple, prog)),
+                        tuple(_refs_of(o) for o in operands))]
+
+
+def level_sum_split_plain(prog, operands, rank: int):
+    """level_sum_plain through level_stages' cuts: each stage's sum by
+    level_sum_plain, pushed as a dense term into the next (the split
+    evaluation, bit-equal to level_sum_plain)."""
+    outs = []
+    for p, srcs in level_stages(prog, operands):
+        ops_ = [operands[i] if k == "o" else level_dense(outs[i])
+                for k, i in srcs]
+        outs.append(level_sum_plain(p, ops_, rank))
+    return outs[-1]
 
 
 def _level_device(operands):
@@ -2984,7 +3258,8 @@ def level_plan(prog, operands, rank: int, card: bool = True) -> tuple:
 
 def level_sum(prog, operands, rank: int, B: int = 1, label=None):
     """K20: a level's terms summed in one launch, a thread an output
-    element: `prog` the postfix program (level_program) over `operands`
+    element (a level past one launch's limits in level_stages' launches,
+    each stage's sum in a buffer the call owns): `prog` the postfix program (level_program) over `operands`
     (level_dense, level_eq, level_sel, level_gather; each tensor read in
     place with its broadcast strides over the output, aligned to the right
     at `rank` axes), the output a float32 torch.empty buffer of
@@ -2999,18 +3274,27 @@ def level_sum(prog, operands, rank: int, B: int = 1, label=None):
         return level_sum_plain(prog, operands, rank)
     if dev.type != "cuda":
         raise RuntimeError(f"level_sum: no kernel for device {dev}")
-    words, shape = level_plan(prog, operands, rank)
-    out = torch.empty(shape, dtype=torch.float32, device=dev)
-    words[K20_OUT] = out.data_ptr()
-    words = array.array("q", words)
-    rc = _fn("level_sum")(words.buffer_info()[0], len(words), _stream(out))
-    _check(rc, "level_sum")
-    mode = (f"{label} d={rank - 1} B={B} out={'x'.join(map(str, shape))} "
-            f"{level_kinds(operands)}")
-    fields = None if mode in CENSUS_FIELDS["level_sum"] else \
-        _level_fields(prog, operands, rank, shape)
-    _count("level_sum", B, out.numel(), mode, fields)
-    return out
+    outs = []
+    stages = level_stages(prog, operands)
+    if len(stages) > 1:
+        _split("level_sum")
+    for p, srcs in stages:
+        ops_ = [operands[i] if k == "o" else level_dense(outs[i])
+                for k, i in srcs]
+        words, shape = level_plan(p, ops_, rank)
+        out = torch.empty(shape, dtype=torch.float32, device=dev)
+        words[K20_OUT] = out.data_ptr()
+        words = array.array("q", words)
+        rc = _fn("level_sum")(words.buffer_info()[0], len(words),
+                              _stream(out))
+        _check(rc, "level_sum")
+        mode = (f"{label} d={rank - 1} B={B} "
+                f"out={'x'.join(map(str, shape))} {level_kinds(ops_)}")
+        fields = None if mode in CENSUS_FIELDS["level_sum"] else \
+            _level_fields(p, ops_, rank, shape)
+        _count("level_sum", B, out.numel(), mode, fields)
+        outs.append(out)
+    return outs[-1]
 
 
 def py_logprobs_plain(refcount, alive, total, nrows, s, d):
@@ -3187,3 +3471,394 @@ def py_prior(refcount, alive, total, nrows, strength, discount, comp,
                 per_row=per_row, sd=torch.is_tensor(strength),
                 counts=(total.dtype, nrows.dtype)))
     return exist, new
+
+
+# ---------------------------------------------------------------- K22, K23
+
+# the Philox stream and the gamma draw (csrc/gamma.cuh): streams of the
+# counter's last word, the rounds a gamma draw may take, the modes of a
+# K22 descriptor and the plans' word counts and limits (csrc/gamma_draw.cu,
+# py_resample.cu)
+GAMMA_ROUNDS = 16
+GAMMA_STREAM, PY_GAMMA_STREAM, PY_UNIFORM_STREAM = 0, 1, 2
+K22_MODES = ("gamma", "dirichlet_log", "beta")
+K22_HEAD, K22_DESC, K22_MAX_DESC = 8, 16, 64
+K23_HEAD, K23_CLASS, K23_MAX_CLASSES = 4, 12, 64
+_M32 = 0xFFFFFFFF
+_TWO_PI = 2.0 * math.pi
+
+
+def draw_seed(gen: torch.Generator, device) -> torch.Tensor:
+    """One 64-bit seed of the Philox stream, an int64 [1] drawn from `gen`
+    on `device` (no host sync; a registered generator's draw can be
+    captured)."""
+    return torch.randint(0, 2 ** 63 - 1, (1,), generator=gen,
+                         device=device, dtype=torch.int64)
+
+
+def _mulhilo(a, m: int):
+    """(hi, lo) 32-bit words of a * m, a an int64 tensor of 32-bit values
+    and m a 32-bit constant, from 16-bit halves so nothing overflows."""
+    a_lo, a_hi = a & 0xFFFF, a >> 16
+    m_lo, m_hi = m & 0xFFFF, m >> 16
+    mid = a_lo * m_hi + a_hi * m_lo
+    lo = a_lo * m_lo + ((mid & 0xFFFF) << 16)
+    return (a_hi * m_hi + (mid >> 16) + (lo >> 32)) & _M32, lo & _M32
+
+
+def philox_plain(c0, c1, c2, c3, k0, k1) -> tuple:
+    """Philox4x32-10 (csrc/gamma.cuh's philox) of counters (c0..c3) under
+    key (k0, k1), every word a 32-bit value in an int64 tensor."""
+    for r in range(10):
+        if r:
+            k0 = (k0 + 0x9E3779B9) & _M32
+            k1 = (k1 + 0xBB67AE85) & _M32
+        hi0, lo0 = _mulhilo(c0, 0xD2511F53)
+        hi1, lo1 = _mulhilo(c2, 0xCD9E8D57)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def _unit(x):
+    """gamma.cuh's unit: a word's top 24 bits times 2^-24, in [0, 1)."""
+    return (x >> 8).to(torch.float32) * 2.0 ** -24
+
+
+def _open_unit(x):
+    """gamma.cuh's open_unit: (2 (top 23 bits) + 1) 2^-24, in (0, 1)."""
+    return (((x >> 9) << 1) | 1).to(torch.float32) * 2.0 ** -24
+
+
+def _stream_draw(seed, elem, rounds, stream: int) -> tuple:
+    """The Philox blocks of elements `elem` (int64 [N]) at rounds
+    `rounds` (int64 [R, 1] or a number) of `stream`, under the seed
+    (int64 [1]): four int64 tensors of 32-bit words."""
+    k0, k1 = seed & _M32, (seed >> 32) & _M32
+    c2 = torch.as_tensor(rounds, device=elem.device).expand(
+        torch.broadcast_shapes(torch.as_tensor(rounds).shape, elem.shape))
+    e = elem.expand(c2.shape)
+    return philox_plain(e & _M32, e >> 32, c2, torch.full_like(e, stream),
+                        k0, k1)
+
+
+def gamma_trials(alpha, elem, seed, stream: int = GAMMA_STREAM) -> tuple:
+    """Every one of the GAMMA_ROUNDS Marsaglia-Tsang rounds of csrc/
+    gamma.cuh's draw_gamma at once, in torch ops: (d [N], d v [R, N],
+    accepted [R, N], boost uniforms [R, N]) for float32 alpha [N] at
+    elements `elem` (int64 [N]) of `stream` under the seed (int64 [1])."""
+    alpha = alpha.to(torch.float32).reshape(-1)
+    a = torch.where(alpha < 1.0, alpha + 1.0, alpha)
+    d = a - 1.0 / 3.0
+    c = 1.0 / torch.sqrt(9.0 * d)
+    rounds = torch.arange(GAMMA_ROUNDS, device=alpha.device)[:, None]
+    w0, w1, w2, w3 = _stream_draw(seed, elem.reshape(1, -1), rounds, stream)
+    x = torch.sqrt(-2.0 * torch.log(_open_unit(w0))) * \
+        torch.cos(_TWO_PI * _unit(w1))
+    t = 1.0 + c * x
+    v = t * t * t
+    logv = torch.log(torch.where(v > 0, v, torch.ones_like(v)))
+    rhs = 0.5 * x * x + d - d * v + d * logv
+    ok = (v > 0) & (torch.log(_open_unit(w2)) < rhs)
+    return d, d * v, ok, _open_unit(w3)
+
+
+def gamma_plain(alpha, elem, seed, stream: int = GAMMA_STREAM):
+    """csrc/gamma.cuh's draw_gamma in torch ops, bit for bit on the card:
+    Gamma(alpha, 1) of float32 alpha [N], element `elem` (int64 [N]) of
+    `stream` under the seed (int64 [1]), Marsaglia-Tsang with the alpha <
+    1 boost, every round drawn at once (gamma_trials) and the first that
+    accepts kept (none: d, with the last round's boost uniform)."""
+    alpha = alpha.to(torch.float32).reshape(-1)
+    d, dv, ok, ub = gamma_trials(alpha, elem, seed, stream)
+    first = ok.to(torch.int8).argmax(0, keepdim=True)
+    hit = ok.any(0)
+    out = torch.where(hit, dv.gather(0, first)[0], d)
+    ub = torch.where(hit, ub.gather(0, first)[0], ub[-1])
+    return torch.where(alpha < 1.0, out * torch.pow(ub, 1.0 / alpha), out)
+
+
+def _pow2(n: int) -> int:
+    return 1 << max(0, int(n) - 1).bit_length()
+
+
+def tree_sum_plain(x):
+    """The kernels' fixed-order sum along the last axis: x padded with
+    zeros to the next power of two P, then x[:h] + x[h:2h] for h = P / 2,
+    ..., 1 (K22's row sums, K23's scores)."""
+    P = _pow2(x.shape[-1])
+    if P > x.shape[-1]:
+        x = torch.cat([x, x.new_zeros(x.shape[:-1] + (P - x.shape[-1],))],
+                      -1)
+    while x.shape[-1] > 1:
+        h = x.shape[-1] // 2
+        x = x[..., :h] + x[..., h:]
+    return x[..., 0]
+
+
+def gamma_desc(mode: str, base, rows: int, width: int, counts=None) -> dict:
+    """One K22 descriptor: `rows` rows of `width` Gamma(alpha) draws,
+    alpha[i, j] = base[j] (base float32 [width], or [1] for every j) +
+    counts[i, j] (an int32 or int64 [rows, width] tensor, any strides, or
+    None), then by mode: "gamma" the draws [rows, width];
+    "dirichlet_log" log(g / its row's tree sum) [rows, width] (Dirichlet
+    rows); "beta" g[:, 0] / (g[:, 0] + g[:, 1]) [rows] (width 2)."""
+    if mode not in K22_MODES:
+        raise ValueError(f"gamma_draw: mode {mode!r} is not one of "
+                         f"{K22_MODES}")
+    if counts is not None and counts.dim() == 1:
+        counts = counts.reshape(1, -1)
+    return dict(mode=mode, base=base, rows=int(rows), width=int(width),
+                counts=counts)
+
+
+def gamma_out_shape(dc) -> tuple:
+    return (dc["rows"],) if dc["mode"] == "beta" else \
+        (dc["rows"], dc["width"])
+
+
+def _desc_alpha(dc):
+    base = dc["base"].to(torch.float32).reshape(-1)
+    alpha = base.expand(dc["rows"], dc["width"]) if base.numel() == 1 else \
+        base[None, :].expand(dc["rows"], dc["width"])
+    if dc["counts"] is not None:
+        alpha = alpha + dc["counts"].to(torch.float32)
+    return alpha
+
+
+def gamma_draw_plain(descs, seed, outs=None) -> list:
+    """K22's plain version: every descriptor's draws on the one stream of
+    `seed` (int64 [1]; a descriptor's element (i, j) is the counter's
+    element (the earlier descriptors' elements) + i width + j), its row
+    sums by tree_sum_plain; returns each descriptor's output (written into
+    outs[k] where given)."""
+    res, elem0 = [], 0
+    for k, dc in enumerate(descs):
+        R, W = dc["rows"], dc["width"]
+        alpha = _desc_alpha(dc)
+        elem = torch.arange(elem0, elem0 + R * W, device=alpha.device)
+        g = gamma_plain(alpha.reshape(-1), elem, seed).reshape(R, W)
+        elem0 += R * W
+        if dc["mode"] == "gamma":
+            out = g
+        else:
+            s = tree_sum_plain(g)
+            out = torch.log(g / s[:, None]) if dc["mode"] == "dirichlet_log" \
+                else g[:, 0] / s
+        if outs is not None and outs[k] is not None:
+            outs[k].copy_(out)
+            out = outs[k]
+        res.append(out)
+    return res
+
+
+def gamma_draw_mode(descs) -> str:
+    """K22's LAUNCH_CENSUS mode: the descriptors, elements and widest
+    row of a call."""
+    return (f"descs={len(descs)} elems="
+            f"{sum(d['rows'] * d['width'] for d in descs)} "
+            f"width={max(d['width'] for d in descs)}")
+
+
+def gamma_draw(descs, seed, outs=None) -> list:
+    """K22: gamma_draw_plain's draws in one launch a K22_MAX_DESC
+    descriptors (one for a resample_all), a block a row, the seed read on
+    the card. Outputs in torch.empty buffers, or in outs[k] (a contiguous
+    float32 tensor of the output's shape: a parameter leaf, written in
+    place). On CPU tensors the plain version; on CUDA ones the kernel or an
+    error. Counted in LAUNCH_CENSUS by (gamma_draw_mode, r1 or rn by the
+    rows, the elements)."""
+    if not descs:
+        return []
+    if not _route(seed, "gamma_draw"):
+        return gamma_draw_plain(descs, seed, outs)
+    if seed.dtype != torch.int64 or seed.numel() != 1:
+        raise ValueError("gamma_draw: the seed must be an int64 [1] on the "
+                         "card")
+    dev = seed.device
+    recs, res, elem0, g0, rows0 = [], [], 0, 0, 0
+    for k, dc in enumerate(descs):
+        R, W = dc["rows"], dc["width"]
+        if R < 0 or W < 1 or (dc["mode"] == "beta" and W != 2):
+            raise ValueError(f"gamma_draw: {R} rows of {W} ({dc['mode']})")
+        base = dc["base"]
+        if not base.is_cuda or base.dtype != torch.float32 or \
+                not base.is_contiguous() or base.numel() not in (1, W):
+            raise ValueError(f"gamma_draw: base {base.dtype} "
+                             f"{tuple(base.shape)} on {base.device}")
+        cnt = dc["counts"]
+        cw = [0, 0, 0, 0]
+        if cnt is not None:
+            if not cnt.is_cuda or cnt.dtype not in (torch.int32, torch.int64) \
+                    or tuple(cnt.shape) != (R, W):
+                raise ValueError(f"gamma_draw: counts {cnt.dtype} "
+                                 f"{tuple(cnt.shape)} (expected int [{R}, "
+                                 f"{W}] on the card)")
+            cw = [cnt.data_ptr(), _DT[cnt.dtype], cnt.stride(0),
+                  cnt.stride(1)]
+        shape = gamma_out_shape(dc)
+        out = outs[k] if outs is not None and outs[k] is not None else \
+            torch.empty(shape, dtype=torch.float32, device=dev)
+        if not out.is_cuda or out.dtype != torch.float32 or \
+                tuple(out.shape) != shape or not out.is_contiguous():
+            raise ValueError(f"gamma_draw: output {out.dtype} "
+                             f"{tuple(out.shape)} (expected float32 {shape})")
+        res.append(out)
+        P = _pow2(W)
+        recs.append([K22_MODES.index(dc["mode"]), R, W, P, base.data_ptr(),
+                     0 if base.numel() == 1 else 1] + cw +
+                    [out.data_ptr(), 1 if dc["mode"] == "beta" else W,
+                     elem0, g0, 0, rows0])
+        elem0 += R * W
+        g0 += R * W
+        rows0 += R
+    # the tree sums' room after every g
+    t0 = g0
+    for r in recs:
+        r[14] = t0
+        t0 += r[1] * (r[3] // 2)
+    scratch = torch.empty((max(t0, 1),), dtype=torch.float32, device=dev)
+    for lo in range(0, len(recs), K22_MAX_DESC):
+        chunk = recs[lo:lo + K22_MAX_DESC]
+        first = chunk[0][15]
+        words = [len(chunk), seed.data_ptr(), scratch.data_ptr(),
+                 sum(r[1] for r in chunk)] + [0] * (K22_HEAD - 4)
+        for r in chunk:
+            words += r[:15] + [r[15] - first]
+        arr = (ctypes.c_int64 * len(words))(*words)
+        rc = _fn("gamma_draw")(arr, len(arr), _stream(seed))
+        _check(rc, "gamma_draw")
+        sub = descs[lo:lo + K22_MAX_DESC]
+        _count("gamma_draw", words[3], sum(d["rows"] * d["width"]
+                                           for d in sub),
+               gamma_draw_mode(sub),
+               dict(descs=[(d["mode"], d["rows"], d["width"],
+                            d["counts"] is not None) for d in sub]))
+    return res
+
+
+def py_class(refcount, alive, strength, discount) -> dict:
+    """One K23 class: its reference counts (int32 [cap]), relational alive
+    bits (bool [cap]) and Pitman-Yor (strength, discount) (float32
+    scalars)."""
+    return dict(refcount=refcount, alive=alive, strength=strength,
+                discount=discount)
+
+
+def py_score_plain(nb, jn, szf, on, s, d):
+    """K23's score(s, d) from the scans (n_before, j, sizes as float32
+    [cap], on the counted slots): every slot's term by the kernel's
+    ops, summed by tree_sum_plain."""
+    zero = torch.zeros((), device=szf.device)
+    tn = torch.log(torch.clamp(jn * d + s, min=1e-30)) - torch.log(nb + s)
+    inner = (torch.lgamma(torch.clamp(szf - d, min=1e-30))
+             - torch.lgamma(1.0 - d)) \
+        - (torch.lgamma(nb + szf + s) - torch.lgamma(nb + 1.0 + s))
+    inner = torch.where(szf > 1, inner, zero)
+    return tree_sum_plain(torch.where(on, tn + inner, zero))
+
+
+def py_resample_plain(classes, seed, outs=None, scores=None) -> list:
+    """K23's plain version, pclean_tpu's resample_py for every class on
+    the stream of `seed` (int64 [1]; class k draws its Gamma(1, 1) at
+    element k of stream PY_GAMMA_STREAM and u0, u1, u2 from element k of
+    PY_UNIFORM_STREAM): the scans as integer cumsums, the scores by
+    py_score_plain, the two accepts. Returns [(s1, d1)] (written into
+    outs[k] where given). `scores`: a list that receives each class's
+    dict(old, new, new2, alpha, log_u0, log_u2, acc, acc2)."""
+    res = []
+    for k, c in enumerate(classes):
+        rc, al = c["refcount"], c["alive"]
+        dev = rc.device
+        on = al & (rc > 0)
+        sz = torch.where(on, rc.long(), torch.zeros((), dtype=torch.long,
+                                                    device=dev))
+        nb = (torch.cumsum(sz, 0) - sz).to(torch.float32)
+        jn = torch.cumsum(on.long(), 0).to(torch.float32)
+        szf = sz.to(torch.float32)
+        s0 = c["strength"].to(torch.float32).reshape(())
+        d0 = c["discount"].to(torch.float32).reshape(())
+        elem = torch.full((1,), k, dtype=torch.int64, device=dev)
+        sp = gamma_plain(torch.ones((1,), device=dev), elem, seed,
+                         PY_GAMMA_STREAM).reshape(())
+        w = _stream_draw(seed, elem, 0, PY_UNIFORM_STREAM)
+        u0, u1, u2 = (_unit(x).reshape(()) for x in w[:3])
+        old = py_score_plain(nb, jn, szf, on, s0, d0)
+        new = py_score_plain(nb, jn, szf, on, sp, d0)
+        alpha = new + (-s0) - old - (-sp)
+        acc = torch.log(u0) < alpha
+        s1 = torch.where(acc, sp, s0)
+        cur = torch.where(acc, new, old)
+        new2 = py_score_plain(nb, jn, szf, on, s1, u1)
+        acc2 = torch.log(u2) < (new2 - cur)
+        d1 = torch.where(acc2, u1, d0)
+        if scores is not None:
+            scores.append(dict(old=old, new=new, new2=new2, alpha=alpha,
+                               log_u0=torch.log(u0), log_u2=torch.log(u2),
+                               cur=cur, acc=acc, acc2=acc2, s_prop=sp,
+                               d_prop=u1))
+        if outs is not None and outs[k] is not None:
+            outs[k][0].copy_(s1)
+            outs[k][1].copy_(d1)
+            s1, d1 = outs[k]
+        res.append((s1, d1))
+    return res
+
+
+def py_resample(classes, seed, outs=None) -> list:
+    """K23: py_resample_plain in one launch a K23_MAX_CLASSES classes, a
+    block a class, the seed read on the card; (s1, d1) written into
+    outs[k] = (strength, discount) where given (the parameter leaves
+    themselves: in place), else into torch.empty scalars. On CPU tensors
+    the plain version; on CUDA ones the kernel or an error. Counted in
+    LAUNCH_CENSUS by ("classes=.. cap=<largest>", r1 or rn by the
+    classes, the largest cap)."""
+    if not classes:
+        return []
+    if not _route(seed, "py_resample"):
+        return py_resample_plain(classes, seed, outs)
+    if seed.dtype != torch.int64 or seed.numel() != 1:
+        raise ValueError("py_resample: the seed must be an int64 [1] on the "
+                         "card")
+    dev = seed.device
+    recs, res, off = [], [], 0
+    for k, c in enumerate(classes):
+        rc, al = c["refcount"], c["alive"]
+        cap = int(rc.shape[0]) if rc.dim() == 1 else -1
+        if cap < 1 or not rc.is_cuda or rc.dtype != torch.int32 or \
+                not rc.is_contiguous() or al.dtype != torch.bool or \
+                tuple(al.shape) != (cap,) or not al.is_contiguous():
+            raise ValueError(f"py_resample: refcount {rc.dtype} "
+                             f"{tuple(rc.shape)} and alive {al.dtype} "
+                             f"{tuple(al.shape)} (expected int32 and bool "
+                             f"[cap] on the card)")
+        sd = [c["strength"], c["discount"]]
+        if outs is not None and outs[k] is not None:
+            o = list(outs[k])
+        else:
+            o = [torch.empty((), dtype=torch.float32, device=dev)
+                 for _ in range(2)]
+        for t in sd + o:
+            if not torch.is_tensor(t) or not t.is_cuda or \
+                    t.dtype != torch.float32 or t.numel() != 1:
+                raise ValueError("py_resample: strength and discount must "
+                                 "be float32 scalars on the card")
+        P = _pow2(cap)
+        recs.append([rc.data_ptr(), al.data_ptr(), cap, P,
+                     sd[0].data_ptr(), sd[1].data_ptr(), o[0].data_ptr(),
+                     o[1].data_ptr(), k, off, 0, 0])
+        off += 3 * cap + 2 * P
+        res.append(tuple(o))
+    scratch = torch.empty((off,), dtype=torch.float32, device=dev)
+    for lo in range(0, len(recs), K23_MAX_CLASSES):
+        chunk = recs[lo:lo + K23_MAX_CLASSES]
+        words = [len(chunk), seed.data_ptr(), scratch.data_ptr(), 0]
+        for r in chunk:
+            words += r
+        arr = (ctypes.c_int64 * len(words))(*words)
+        rc_ = _fn("py_resample")(arr, len(arr), _stream(seed))
+        _check(rc_, "py_resample")
+        cap = max(r[2] for r in chunk)
+        _count("py_resample", len(chunk), cap,
+               f"classes={len(chunk)} cap={cap}",
+               dict(caps=[r[2] for r in chunk]))
+    return res

@@ -156,33 +156,3 @@ def index_set_where(target: torch.Tensor, idx: torch.Tensor, vals,
     pad = _padded(target)
     new = torch.where(ok, _vals(target, idx, vals), pad[idx])
     return pad.index_copy_(0, idx, new)[:n]
-
-
-def sample_gamma(gen: torch.Generator, alpha: torch.Tensor) -> torch.Tensor:
-    """Gamma(alpha, 1) draws from an explicit generator (Marsaglia-Tsang with
-    the alpha < 1 boost); torch's own gamma sampler takes no generator."""
-    alpha = alpha.to(torch.float32)
-    boost = alpha < 1.0
-    a = torch.where(boost, alpha + 1.0, alpha)
-    d = a - 1.0 / 3.0
-    c = 1.0 / torch.sqrt(9.0 * d)
-    out = torch.zeros_like(a)
-    todo = torch.ones_like(a, dtype=torch.bool)
-    while bool(todo.any()):
-        x = torch.randn(a.shape, generator=gen, device=a.device)
-        u = torch.rand(a.shape, generator=gen, device=a.device)
-        v = (1.0 + c * x) ** 3
-        ok = (v > 0) & (torch.log(u.clamp_min(1e-38)) <
-                        0.5 * x * x + d - d * v +
-                        d * torch.log(v.clamp_min(1e-38)))
-        take_ = todo & ok
-        out = torch.where(take_, d * v, out)
-        todo = todo & ~ok
-    u = torch.rand(a.shape, generator=gen, device=a.device)
-    return torch.where(boost, out * u.clamp_min(1e-38) ** (1.0 / alpha), out)
-
-
-def sample_dirichlet(gen: torch.Generator, conc: torch.Tensor) -> torch.Tensor:
-    """Dirichlet(conc) along the last axis, from gamma draws."""
-    g = sample_gamma(gen, conc)
-    return g / g.sum(dim=-1, keepdim=True)

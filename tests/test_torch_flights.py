@@ -31,8 +31,14 @@ tolerances:
     draws: mean and variance within 4 standard errors of Beta(a + heads,
     b + tails);
   * accuracy on the same state: the same counts;
-  * whole runs at batch_rows 1: F1 over 3 seeds within pclean_tpu's own
-    3-seed range +- 0.02;
+  * whole runs at batch_rows 1, 8 seeds of each package: the port's mean
+    F1 within 0.02 of pclean_tpu's mean, and each of the port's F1 within
+    pclean_tpu's range +- 0.02 (at 200 rows and 2 sweeps both packages'
+    F1 is 0.886 on most seeds and dips to 0.65-0.83 on a quarter to a
+    third of them, so a window of three seeds of one stream does not hold
+    another stream: pclean_tpu's own seeds 4, 7, 9, 10 and 14 fall below
+    the window of its seeds 0-2; the mean binds a shift of the whole
+    distribution harder than that window did);
   * a toy model's MaybeSwap externals with static options and a static
     prob, and with a learned unindexed Prob: the latent block through K6's
     plain version against pclean_tpu's dense path (rtol 1e-5, same
@@ -410,7 +416,7 @@ def test_flights_f1_within_jax_seed_spread():
     (cm_j, cfg_j, q_j), (cm_t, cfg_t, q_t), dirty, clean = flights_pair(
         rows=200, sweeps=2)
     f_j, f_t = [], []
-    for seed in range(3):
+    for seed in range(8):
         a, p = jcompile.init_state(cm_j, jax.random.PRNGKey(seed))
         eng = jsmc.Engine(cm_j, cfg_j)
         a, p, k = eng.initialize(jax.random.PRNGKey(seed + 1), a, p)
@@ -427,6 +433,7 @@ def test_flights_f1_within_jax_seed_spread():
                                           "sweep:Flight", "sweep:Obs"}
     lo, hi = min(f_j) - 0.02, max(f_j) + 0.02
     assert all(lo <= f <= hi for f in f_t), (f_t, f_j)
+    assert abs(np.mean(f_t) - np.mean(f_j)) <= 0.02, (f_t, f_j)
 
 
 # ------------------------------------------------- the other MaybeSwap forms

@@ -474,8 +474,14 @@ def test_k14_k15_refuse_what_they_do_not_take(card):
     cnt = cnt.to(torch.int32)
     with pytest.raises(ValueError):
         ops.rel_scatter("prop", cnt, None, [ops.scatter_side([col])] * 3, 8)
-    with pytest.raises(ValueError):
-        ops.rel_scatter("prop", cnt, None, [ops.scatter_side([col] * 5)], 8)
+    # a side past K14_MAX_HOPS hops is no longer refused: its chain is
+    # folded by K18 first (ops.fold_chain), equal to the plain version
+    want = cnt.cpu()
+    ops.rel_scatter_plain("prop", want, None,
+                          [ops.scatter_side([col.cpu()] * 5)], 8)
+    ops.rel_scatter("prop", cnt, None, [ops.scatter_side([col] * 5)], 8)
+    torch.cuda.synchronize()
+    assert torch.equal(cnt.cpu(), want)
     with pytest.raises(ValueError):
         ops.rel_scatter("prop", cnt, None, [ops.scatter_side(
             [col], exclude=True)], 8, exclude=torch.zeros(

@@ -58,7 +58,7 @@ def _fake_jax(cm, arenas, params, obs_dev, key, rel=None):
     return arenas, {**params, "__py__": py}
 
 
-def _fake_torch(cm, arenas, params, obs_dev, gen, rel=None):
+def _fake_torch(cm, arenas, params, obs_dev, gen, rel=None, out=None):
     if rel is None:
         rel = trefresh.refresh(cm, arenas, obs_dev)
     py = {c: {"strength": v["strength"] * 0.5
@@ -171,10 +171,11 @@ def test_same_seed_twice_is_bit_equal(which):
 
 @pytest.mark.parametrize("loop", ["ramp", "sweep"])
 def test_params_leaves_keep_their_storage(monkeypatch, loop):
-    """resample_all runs inside the segment (rejuv_frequency 7) and hands
-    back new tensors; the loop copies their values into the leaves its
-    step reads, whose storage stays the same, and returns them, leaving
-    the caller's params as they were."""
+    """resample_all runs inside the segment (rejuv_frequency 7), draws
+    into the leaves the step reads (out=) and hands back new tensors for
+    the rest; the loop copies those into the leaves, whose storage stays
+    the same, and returns them, leaving the caller's params as they
+    were."""
     cm, cfg = _small_scaled()
     arenas, params = init_state(cm, 0, device="cpu")
     eng = tsmc.Engine(cm, cfg, device="cpu")
@@ -183,9 +184,9 @@ def test_params_leaves_keep_their_storage(monkeypatch, loop):
     seen = []
     real = tsmc.resample_all
 
-    def spy(cm_, arenas_, params_, obs, gen_, rel=None):
+    def spy(cm_, arenas_, params_, obs, gen_, rel=None, out=None):
         seen.append({k: t.data_ptr() for k, t in _flat(params_)})
-        return real(cm_, arenas_, params_, obs, gen_, rel=rel)
+        return real(cm_, arenas_, params_, obs, gen_, rel=rel, out=out)
 
     monkeypatch.setattr(tsmc, "resample_all", spy)
     before = {k: t.clone() for k, t in _flat(params)}
