@@ -172,11 +172,14 @@ It drives the port only (never jax, never pclean_tpu), in order:
      count alone (index_add_; K15: index_copy_ of one column) and the
      bytes bound (bench_rel_shapes); K16-K19 timed at their most
      launched one-row and batched census shapes holding >= SHAPE_SHARE of
-     a path's launches and at the largest, beside their plain versions, the library call (K18: torch.take of the
-     leaf at the final indices; K19: torch.where of one pair; K16 and K17
-     none) and the bytes bound (bench_sample_shapes); K20 and K21 likewise
-     at their most launched one-row and batched shapes and the largest,
-     beside their plain versions and the bytes bound, no library call
+     a path's launches and at the largest, beside their plain versions,
+     the library call (K18 of one chain: torch.take of the leaf at the
+     final indices, none for a group of chains; K19: torch.where of one
+     pair; K16 and K17 none) and the bytes bound, and K18 as one chain at
+     one slot and at 1,000,000 beside torch.take (SAMPLE_SINGLE)
+     (bench_sample_shapes); K20 and K21 likewise at their most launched
+     one-row and batched shapes and each path's largest, beside their
+     plain versions and the bytes bound, no library call
      (bench_level_shapes); K22 and K23 at every census shape checked,
      beside their plain versions, K22's library call
      (torch._standard_gamma at the same alphas) and the bound, the larger
@@ -1053,6 +1056,11 @@ SAMPLE_TIMED = {"r1": 5, "rn": 3}
 # view), checked and timed at one row and at 4,096 rows all the same
 SAMPLE_PICK = tuple(dict(form="pick", dtype=torch.int32, B=B, d=1)
                     for B in (1, 4096))
+# K18 as one chain, beside torch.take (the one PyTorch call computing the
+# same gather), with their host sides: an int32 leaf of 1,000,000 entries
+# (scaled's Record columns) at one slot and at 1,000,000
+SAMPLE_SINGLE = tuple((dict(cols=[(torch.int32, 1_000_000)]), K)
+                      for K in (1, 1_000_000))
 
 
 def bench_sample_shapes(ops, dev, checked: dict, floor) -> dict:
@@ -1060,12 +1068,14 @@ def bench_sample_shapes(ops, dev, checked: dict, floor) -> dict:
     >= SHAPE_SHARE of a path's launches), at the SAMPLE_TIMED most
     launched one-row and batched ones and at the largest of each form (K16
     drawn or retained and its mask form, K17 draw or retained; the most
-    logits, options, slots or pairs, then the most rows), and K17 at
-    SAMPLE_PICK (checked bit-equal first), on seeded inputs: kernel ms and
+    logits, options, slots or pairs, then the most rows), K17 at
+    SAMPLE_PICK and K18 at SAMPLE_SINGLE (checked bit-equal first), on
+    seeded inputs: kernel ms and
     device ms, the plain version (its own draw), the library call (K17's
     pick mode torch.take of the record at the clamped ancestor positions,
     K18 torch.take of the leaf at the final indices, K19 torch.where of
-    one pair; K16 and K17's draw and retained modes none), the bytes bound
+    one pair, none for a K18 group of chains; K16 and K17's draw and
+    retained modes none), the bytes bound
     (kernel_bench.sample_bytes) and the launch floor. Returns {kernel:
     [one dict per shape]}."""
     from pclean_tpu_torch import kernel_bench as kb
@@ -1098,16 +1108,20 @@ def bench_sample_shapes(ops, dev, checked: dict, floor) -> dict:
             todo += [(f"pick i32 B={f['B']} d={f['d']} K=1 (no path "
                       f"launches it)", f, 1, "r1" if f["B"] == 1 else "rn",
                       {}) for f in SAMPLE_PICK]
+        if name == "row_gather":
+            todo += [(f"single i32:1000000 K={K} (one chain)", f, K,
+                      "r1" if K == 1 else "rn", {}) for f, K in SAMPLE_SINGLE]
         out[name] = []
         for shape, f, K, rows, by_path in todo:
             inp = kb.sample_inputs(dev, name, f, K)
-            err = kb.check_sample(ops, inp)["max_abs_err"] \
-                if f.get("form") == "pick" else 0.0
+            extra = f.get("form") == "pick" or shape.startswith("single")
+            err = kb.check_sample(ops, inp)["max_abs_err"] if extra else 0.0
             b = kb.sample_bytes(inp)
             x = dict(shape=shape, K=K, rows=rows, max_abs_err=err,
                      launches=sum(by_path.values()), launches_by_path=by_path,
                      bytes=b, bound_ms=b / kb.HBM_BYTES_PER_S * 1e3,
                      floor_ms=floor, pick=f.get("form") == "pick",
+                     single=shape.startswith("single"),
                      **kb.time_sample(ops, inp))
             out[name].append(x)
             lib = "none" if x["library_ms"] is None else \
@@ -1130,10 +1144,12 @@ def bench_sample_shapes(ops, dev, checked: dict, floor) -> dict:
 def sample_entry(name: str, shapes: list) -> dict:
     """K16's-K21's kernels-line entry: the numbers of the timed shape
     launched most over the six paths, (as *_rn) those of the batched
-    shape launched most and, for K17, (as *_pick) those of its pick mode
-    at one row (SAMPLE_PICK), beside its library call."""
+    shape launched most, for K17 (as *_pick) those of its pick mode at one
+    row (SAMPLE_PICK) and for K18 (as single) those of one chain at one
+    slot and at 1,000,000 (SAMPLE_SINGLE), beside their library call."""
     pick = [r for r in shapes if r["pick"]]
-    shapes = [r for r in shapes if not r["pick"]]
+    single = [r for r in shapes if r.get("single")]
+    shapes = [r for r in shapes if not r["pick"] and not r.get("single")]
     top = max(shapes, key=lambda r: r["launches"])
     out = dict({key: top[key] for key in (
         "max_abs_err", "ms", "device_ms", "plain_ms", "library_ms",
@@ -1150,6 +1166,10 @@ def sample_entry(name: str, shapes: list) -> dict:
         out.update({f"{key}_pick": pick[0][key] for key in (
             "shape", "max_abs_err", "ms", "device_ms", "plain_ms",
             "library_ms", "library_device_ms", "bound_ms")})
+    if single:
+        out["single"] = [{key: r[key] for key in (
+            "shape", "max_abs_err", "ms", "device_ms", "plain_ms",
+            "library_ms", "library_device_ms", "bound_ms")} for r in single]
     return out
 
 
@@ -1186,8 +1206,8 @@ LEVEL_TIMED = {"r1": 4, "rn": 3}
 def bench_level_shapes(ops, dev, checked: dict, floor) -> dict:
     """K20 and K21 timed, among the distinct census shapes checked (each
     holds >= SHAPE_SHARE of a path's launches), at the LEVEL_TIMED most
-    launched one-row and batched ones and at the largest (the most
-    outputs), on seeded inputs: kernel ms and device ms, the plain
+    launched one-row and batched ones and at each path's largest (the
+    most outputs), on seeded inputs: kernel ms and device ms, the plain
     version, the bytes bound (kernel_bench.level_bytes) and the launch
     floor; no PyTorch call computes either function (library none).
     Returns {kernel: [one dict per shape]}."""
@@ -1205,8 +1225,9 @@ def bench_level_shapes(ops, dev, checked: dict, floor) -> dict:
             kv[1]["launches_by_path"].values()))
         top = [kv for rows, n in LEVEL_TIMED.items()
                for kv in [x for x in ranked if x[1]["rows"] == rows][:n]]
-        if ranked:
-            big = max(ranked, key=lambda kv: kv[0][1])
+        for path in sorted({r["path"] for r in checked[name]}):
+            mine = [kv for kv in ranked if path in kv[1]["launches_by_path"]]
+            big = max(mine, key=lambda kv: kv[0][1])
             if big not in top:
                 top.append(big)
         out[name] = []
@@ -1227,8 +1248,8 @@ def bench_level_shapes(ops, dev, checked: dict, floor) -> dict:
                   f"{x['bound_ms']:.6f} ms floor {floor:.4f} ms", flush=True)
             del inp
         print(f"{name}: timed {len(top)} of {len(shapes)} checked census "
-              f"shapes (the most launched one-row and batched ones, the "
-              f"largest)", flush=True)
+              f"shapes (the most launched one-row and batched ones, each "
+              f"path's largest)", flush=True)
         torch.cuda.empty_cache()
     return out
 
@@ -2363,8 +2384,8 @@ def main() -> int:
             "shape_rn", "ms_rn", "device_ms_rn", "plain_ms_rn",
             "library_ms_rn", "bound_ms_rn", "shape_pick", "ms_pick",
             "device_ms_pick", "plain_ms_pick", "library_ms_pick",
-            "library_device_ms_pick", "bound_ms_pick", "floor_ms", "shape",
-            "shapes_checked", "differ")
+            "library_device_ms_pick", "bound_ms_pick", "single", "floor_ms",
+            "shape", "shapes_checked", "differ")
     print(json.dumps({"kernels": [{k: kk[k] for k in keys if k in kk}
                                   for kk in kernels]}))
     print(card)

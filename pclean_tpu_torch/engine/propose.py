@@ -50,7 +50,10 @@ spots go through the hand kernels of ops.py:
     choice steps, each one launch (the record picked at the ancestors,
     the draw, K2's own from csrc/inv_cdf.cuh, or the retained value, the
     full-arena guard, the free slot and the working alive mask's write);
-  * K18 row_gather: every row_value gather through an fk chain;
+  * K18 row_gather: row_value's gathers through fk chains, a Compute or
+    ParamLookup node's arguments in one launch, and a foreign key's
+    copy-mode reads (copy_groups) in one launch at its slots, in the
+    score and the sample pass;
   * K19 branch_select: a foreign key's existing/fresh select over its
     subtree.
 
@@ -187,6 +190,10 @@ class BlockTracer:
         self._pool = None
         self._pool_i = 0
         self._gen = None
+        # each foreign key's copy group gathered at its slots, by (fk,
+        # depth), in the score and the sample pass (_copy_value)
+        self._copies: dict = {}
+        self._copies_sample: dict = {}
 
     def _unif(self):
         """Next uniform [B] from the per-block pool (sample pass only)."""
@@ -238,6 +245,24 @@ class BlockTracer:
 
     def row_value(self, cls: ClassID, vid: VertexID, slot):
         return row_value(self.cm, self.arenas, self.params, cls, vid, slot)
+
+    def _copy_value(self, cache: dict, node: SubmodelNode, depth: int,
+                    src, slot):
+        """A copy-mode vertex's value: its target vertex node.sub_id at the
+        fk's slots `slot`. The first copy-mode read of a foreign key at a
+        depth gathers the fk's whole copy group (copy_groups) at those
+        slots in one K18 launch (row_values); later reads at the same depth
+        are served from `cache` while the env entry the slots come from,
+        `src`, is the same object."""
+        key = (node.fk_id, depth)
+        hit = cache.get(key)
+        if hit is None or hit[0] is not src:
+            tc = _fk(self.cm, self.cid, node.fk_id).target_class
+            subs = copy_groups(self.cm, self.cid, self._root_plan)[node.fk_id]
+            vals = row_values(self.cm, self.arenas, self.params, tc, subs,
+                              slot, label=f"{self.cid}>{tc} copy")
+            hit = cache[key] = (src, dict(zip(subs, vals)))
+        return hit[1][node.sub_id]
 
     def compute_value(self, vid: VertexID, node, value_of):
         """Value of a Compute/ParamLookup node given an arg resolver."""
@@ -414,9 +439,9 @@ class BlockTracer:
                 assert isinstance(sub, ChoiceNode)
                 return self.score_choice(step, vid, sub, depth, mode, ctx_key)
             # copy mode: gather from the candidate rows; observed -> equality
-            fknode = _fk(self.cm, self.cid, node.fk_id)
-            slot = self.aligned(node.fk_id, depth)
-            val = self.row_value(fknode.target_class, node.sub_id, slot)
+            val = self._copy_value(self._copies, node, depth,
+                                   self.env[node.fk_id][1],
+                                   self.aligned(node.fk_id, depth))
             self.env[vid] = (depth, val)
             if node.fk_id in self.taint:
                 self.taint.add(vid)
@@ -1009,9 +1034,9 @@ class BlockTracer:
                     return
                 assert isinstance(sub, ChoiceNode)
                 return self.sample_choice(step, vid, sub, st, anc, mode, ctx_key)
-            fknode = _fk(self.cm, self.cid, node.fk_id)
-            st.env2[vid] = self.row_value(fknode.target_class, node.sub_id,
-                                          st.env2[node.fk_id])
+            slot = st.env2[node.fk_id]
+            st.env2[vid] = self._copy_value(self._copies_sample, node, 0,
+                                            slot, slot)
             for ch in step.rest.steps:
                 self.sample_step(ch, st, anc, mode, ctx_key)
             return
@@ -1149,6 +1174,36 @@ def _draw_bound(cm: CompiledModel, cid: ClassID, plan: Plan) -> int:
         return n + walk_plan(step.rest, sub_mult)
 
     return walk_plan(plan, 1)
+
+
+def copy_groups(cm: CompiledModel, cid: ClassID, plan: Plan) -> dict:
+    """{fk vertex: (target vertex, ...)}: the copy-mode reads of class
+    cid's block `plan`, grouped by the foreign key they read through. A
+    SubmodelNode step whose chain passes fk vertices A, B, ... (outermost
+    first) is read in copy mode at the first of them in mode "E" (the rest
+    before it "N"; score_step, sample_step): under A its target vertex is
+    the outer node's sub_id, under B the inner node's, and so on. Every
+    read of a group is at its fk's slot tensor, so the tracer gathers a
+    group in one K18 launch; a target vertex read by two steps is listed
+    once. Built once a (class, plan) and cached on the model."""
+    cache = cm.__dict__.setdefault("_copy_groups", {})
+    key = (cid, id(plan))
+    if key not in cache or cache[key][0] is not plan:
+        groups: dict = {}
+
+        def walk(p: Plan):
+            for step in p.steps:
+                n = cm.node(cid, step.idx)
+                while isinstance(n, SubmodelNode):
+                    subs = groups.setdefault(n.fk_id, [])
+                    if n.sub_id not in subs:
+                        subs.append(n.sub_id)
+                    n = n.subnode
+                walk(step.rest)
+
+        walk(plan)
+        cache[key] = (plan, {k: tuple(v) for k, v in groups.items()})
+    return cache[key][1]
 
 
 class _SampleState:
@@ -1394,29 +1449,85 @@ def row_value(cm: CompiledModel, arenas: dict, params: dict, cls: ClassID,
               vid: VertexID, slot):
     """Value of vertex `vid` of class `cls` at row(s) `slot` (any shape):
     gathers through submodel fk chains and recomputes deterministic nodes
-    (dependency_tracking.jl:239-258 re-derived through the indirection).
-    A chain's gathers are one K18 launch; a Compute or ParamLookup node at
-    its end is computed by torch from its arguments, each gathered so."""
-    hops, lc, lv, node = _row_chain(cm, cls, vid)
-    slot = torch.as_tensor(slot, device=cm.device)
-    cols = [arenas[c]["values"][f] for c, f in hops]
-    label = f"{cls}.{vid}"
-    if isinstance(node, (ChoiceNode, ForeignKeyNode)):
-        return ops.row_gather(slot, cols, arenas[lc]["values"][lv],
-                              label=label)
-    if cols:   # the rows of class lc the chain reaches
-        slot = ops.row_gather(slot, cols[:-1], cols[-1], label=label)
-    if isinstance(node, ComputeNode):
+    (dependency_tracking.jl:239-258 re-derived through the indirection):
+    row_values of one vertex."""
+    return row_values(cm, arenas, params, cls, (vid,), slot,
+                      label=f"{cls}.{vid}")[0]
+
+
+def _value_specs(cm: CompiledModel, cls: ClassID, vids: tuple) -> tuple:
+    """(chains, trees) of row_values: the fk-chain gathers the vertices'
+    values read at one slot tensor, each chain ((class, fk vertex) hop
+    columns, (class, vertex) leaf column), distinct; and per vertex the
+    tree evaluating it from them: ("g", chain) a gathered value, ("fn",
+    node, class, vertex, args) a Compute node, ("lookup", node, class,
+    {arg: tree}) a ParamLookup. A Compute or ParamLookup node's arguments
+    are gathered from the rows its chain reaches, so each is a chain of
+    the node's hops then the argument's own. Built once a (class,
+    vertices) and cached on the model."""
+    cache = cm.__dict__.setdefault("_value_specs", {})
+    key = (cls, vids)
+    if key not in cache:
+        chains: list = []
+
+        def spec(c0, v0, prefix):
+            hops, lc, lv, node = _row_chain(cm, c0, v0)
+            hops = tuple(prefix) + tuple(hops)
+            if isinstance(node, (ChoiceNode, ForeignKeyNode)):
+                ch = (hops, (lc, lv))
+                if ch not in chains:
+                    chains.append(ch)
+                return ("g", chains.index(ch))
+            if isinstance(node, ComputeNode):
+                return ("fn", node, lc, lv,
+                        [spec(lc, a, hops) for a in node.arg_ids])
+            if isinstance(node, ParamLookupNode):
+                args = [node.key_id] + ([node.gate_id]
+                                        if node.gate_id is not None else [])
+                return ("lookup", node, lc,
+                        {a: spec(lc, a, hops) for a in args})
+            raise TypeError(type(node))
+
+        trees = [spec(cls, v, ()) for v in vids]
+        cache[key] = (tuple(chains), trees)
+    return cache[key]
+
+
+def _eval_value(cm: CompiledModel, params: dict, tree, vals: list):
+    """A vertex's value from its _value_specs tree and the gathered
+    chains' values, by row_value's own torch ops."""
+    kind = tree[0]
+    if kind == "g":
+        return vals[tree[1]]
+    if kind == "fn":
+        _k, node, lc, lv, args = tree
+        xs = [_eval_value(cm, params, a, vals) for a in args]
         if node.kind == "tensor":
-            return node.fn(*[row_value(cm, arenas, params, lc, a, slot)
-                             for a in node.arg_ids])
-        tbl = cm.use(cm.tables[cm.canon(lc, lv)])
-        return _tbl_get(tbl, [row_value(cm, arenas, params, lc, a, slot)
-                              for a in node.arg_ids])
-    if isinstance(node, ParamLookupNode):
-        return _lookup(cm, params, lc, node, lambda a: row_value(
-            cm, arenas, params, lc, a, slot))
-    raise TypeError(type(node))
+            return node.fn(*xs)
+        return _tbl_get(cm.use(cm.tables[cm.canon(lc, lv)]), xs)
+    _k, node, lc, args = tree
+    return _lookup(cm, params, lc, node,
+                   lambda a: _eval_value(cm, params, args[a], vals))
+
+
+def row_values(cm: CompiledModel, arenas: dict, params: dict, cls: ClassID,
+               vids, slot, label=None) -> list:
+    """Values of vertices `vids` of class `cls` at row(s) `slot` (any
+    shape), each as row_value gives it: every fk-chain gather they read
+    (_value_specs: a Choice or ForeignKey leaf's chain; a Compute or
+    ParamLookup node's arguments, each through the node's chain) from the
+    one slot tensor in one K18 launch (ops.row_gather, or
+    ops.row_gather_group for more than one chain), then the Compute and
+    ParamLookup nodes by torch from the gathered values."""
+    chains, trees = _value_specs(cm, cls, tuple(vids))
+    slot = torch.as_tensor(slot, device=cm.device)
+    cols = [([arenas[c]["values"][f] for c, f in hops],
+             arenas[leaf[0]]["values"][leaf[1]]) for hops, leaf in chains]
+    if len(cols) == 1:
+        vals = [ops.row_gather(slot, cols[0][0], cols[0][1], label=label)]
+    else:
+        vals = ops.row_gather_group(slot, cols, label=label) if cols else []
+    return [_eval_value(cm, params, t, vals) for t in trees]
 
 
 def _lookup(cm: CompiledModel, params: dict, cid: ClassID,

@@ -30,10 +30,17 @@ dense shape (AB_K6), K7 at AB_K7's shapes (scaled's, rents' and
 hospital's hoisted histograms, one row and 4,096 rows of V = 5,125, and
 hospital's shapes with their counts crowded into few cells) and K8 at
 AB_K8's (the hospital census shapes' sizes on seeded inputs, and a batch
-whose every row holds referrers) and K9 at AB_K9's (the
-hospital_pg16_vmapped path's census shapes, seeded), each checked against
-its plain version; `--kernels k4,k5,k6,k7,k8,k9` (any of them) times only
-those, with no model to build. With --paths it also times each of K1's paths
+whose every row holds referrers), K9 at AB_K9's (the
+hospital_pg16_vmapped path's census shapes, seeded), K18 at AB_K18's
+(one chain at one slot and at 1,000,000 beside torch.take, a copy group
+of five as one group launch or a launch a chain) and K20 at AB_K20's
+(one output, rents' [256, 4,096, 2] with one add and with its own
+program) and AB_K20_GATHERS' (the hospital Record block's one-row level
+of 512 candidates and 11 gathers), each checked against its plain
+version, K18 and K20 also
+with their host microseconds a call back to back (host_us);
+`--kernels k4,k5,k6,k7,k8,k9,k18,k20` (any of them) times only those,
+with no model to build. With --paths it also times each of K1's paths
 at each of those shapes and over an R x K grid in both modes (the last
 tree's kernels; PERF.md takes the plan's cut-overs from that
 table). With --census hospital it first runs the hospital workload at
@@ -104,8 +111,10 @@ import argparse
 import importlib
 import importlib.util
 import json
+import math
 import os
 import sys
+import time
 
 import numpy as np
 import torch
@@ -2402,7 +2411,128 @@ AB_K9 = (  # K9's shapes in the A/B: (label, R, P, mode): the
     ("final [1, 16]", 1, 16, "final"),
     ("resample [1, 1024]", 1, 1024, "resample"),
 )
-AB_KINDS = ("k1-k3", "k4", "k5", "k6", "k7", "k8", "k9")
+AB_K18 = (  # K18's shapes in the A/B: (label, slots, chains, leaf
+    # length): one chain (an int32 leaf of 1,000,000, scaled's Record
+    # columns) at one slot and at every slot, beside torch.take; a copy
+    # group as the flights Obs block reads its Flight candidates (five
+    # int32 leaves of 160 at 160 slots, and at one slot as its sample pass
+    # does), one call a chain where the tree has no group form
+    ("one chain i32:1000000 at 1 slot", 1, 1, 1_000_000),
+    ("one chain i32:1000000 at 1000000 slots", 1_000_000, 1, 1_000_000),
+    ("copy group 5 x i32:160 at 160 slots", 160, 5, 160),
+    ("copy group 5 x i32:160 at 1 slot", 1, 5, 160),
+)
+AB_K20 = (  # K20's levels in the A/B: (label, output shape, the dense
+    # term's shape, the program's depth): one output (the most launched
+    # one-row shape), rents' [256, 4,096, 2] as one add and with rents'
+    # own program (five zeros pushed, the term added at depth 4: the
+    # nested sums of its County block's level, a stack of 5)
+    ("one output a1", (1,), (1,), 1),
+    ("[256, 4096, 2] a1", (256, 4096, 2), (256, 4096, 2), 1),
+    ("[256, 4096, 2] a1 rents' program", (256, 4096, 2), (256, 4096, 2),
+     5),
+)
+AB_K20_GATHERS = (  # (label, candidates, gathers, V): the hospital Record
+    # block's one-row level over its 512 Hospital candidates with its 11
+    # deferred AddTypos columns (K3's gathers at one row), a graphed ramp
+    # row's slowest K20 launch
+    ("one row [1, 512] 11 gathers", 512, 11, 1133),
+)
+AB_KINDS = ("k1-k3", "k4", "k5", "k6", "k7", "k8", "k9", "k18", "k20")
+
+
+def host_us(fn, n: int = 2000) -> float:
+    """Wall microseconds a call, n calls enqueued back to back and then a
+    synchronize: the host's time a call wherever it exceeds the
+    device's."""
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) / n * 1e6
+
+
+def k18_ab_inputs(dev, N: int, chains: int, n: int, seed: int = 0):
+    """K18's A/B inputs: slots int32 [N] over [0, n) (1% past it) and
+    `chains` int32 leaves of n entries (0-99), a chain each."""
+    rng = np.random.default_rng(seed)
+    s = rng.integers(0, n, N)
+    s[rng.random(N) < 0.01] = n + 2
+    leaves = [torch.as_tensor(rng.integers(0, 100, n), dtype=torch.int32,
+                              device=dev) for _ in range(chains)]
+    return dict(slot=torch.as_tensor(s, dtype=torch.int32, device=dev),
+                chains=[([], leaf) for leaf in leaves])
+
+
+def k18_ab_call(ops, inp):
+    """The tree's gathers of inp's chains: one row_gather_group call where
+    the tree has the group form and there is more than one chain, else one
+    row_gather call a chain."""
+    s, chains = inp["slot"], inp["chains"]
+    if len(chains) > 1 and hasattr(ops, "row_gather_group"):
+        return lambda: ops.row_gather_group(s, chains, label="ab")
+    return lambda: [ops.row_gather(s, h, leaf, label="ab")
+                    for h, leaf in chains]
+
+
+def k20_ab_bytes(inp: dict) -> int:
+    """An A/B K20 level's bytes (level_bytes' count, defined here for the
+    A/B, which runs before the rest of the module): each reference's
+    elements, each gather's distinct matrix entries, the output."""
+    from . import ops
+
+    n = 4 * math.prod(ops.level_shape(inp["operands"], inp["rank"]))
+    for o in inp["operands"]:
+        n += sum(t.numel() * t.element_size()
+                 for _n, t in ops._level_tensors(o))
+        if o["kind"] == "gather":
+            V = o["M"].shape[0]
+            cell = o["obs"].long().clamp(0, V - 1) * V + \
+                o["word"].long().clamp(0, V - 1)
+            n += 4 * int(torch.unique(cell.expand(o["shape"])).numel())
+    return n
+
+
+def k20_gather_inputs(dev, K: int, n: int, V: int, seed: int = 0):
+    """K20's A/B one-row gather level: n AddTypos columns M_i[obs_i,
+    word_i[k]] over [1, K] candidates (M_i [V, V] normal, the codes int32
+    in [0, V)), the code as the tracer writes a one-row level's deferred
+    columns after an empty plan (ZERO, ZERO, ADDOP each, ADD)."""
+    from . import ops
+
+    rng = np.random.default_rng(seed)
+
+    def t(x):
+        return torch.as_tensor(x, device=dev)
+
+    operands = [ops.level_gather(
+        t(rng.normal(0, 1, (V, V)).astype(np.float32)),
+        t(rng.integers(0, V, (1, 1)).astype(np.int32)),
+        t(rng.integers(0, V, (1, K)).astype(np.int32)), (1, K))
+        for _ in range(n)]
+    prog = [(ops.LEVEL_ZERO, 0)] * 2 + [(ops.LEVEL_ADDOP, i)
+                                        for i in range(n)] + \
+        [(ops.LEVEL_ADD, 0)]
+    return dict(prog=prog, operands=operands, rank=2)
+
+
+def k20_ab_inputs(dev, shape, x_shape, depth: int, seed: int = 0):
+    """K20's A/B level over an output of `shape` (rank len(shape)): one
+    dense float32 term of x_shape added to `depth` nested zeros, the code
+    as the tracer writes it (ZERO x depth, ADD, PUSH, ADD x (depth - 1);
+    depth 1: ZERO, PUSH, ADD), which each tree's level_program folds."""
+    from . import ops
+
+    rng = np.random.default_rng(seed)
+    x = torch.as_tensor(rng.normal(0, 2, x_shape).astype(np.float32),
+                        device=dev)
+    Z, A, P = ops.LEVEL_ZERO, ops.LEVEL_ADD, ops.LEVEL_PUSH
+    prog = [(Z, 0), (P, 0), (A, 0)] if depth == 1 else \
+        [(Z, 0)] * depth + [(A, 0), (P, 0)] + [(A, 0)] * (depth - 1)
+    return dict(prog=prog, operands=[ops.level_dense(x)], rank=len(shape))
 
 
 def ab_seeded(dev, kinds) -> dict:
@@ -2416,6 +2546,17 @@ def ab_seeded(dev, kinds) -> dict:
     flights' 100 flights over 2,376 rows), K8 at AB_K8 (k8_seeded) and K9
     at AB_K9 (k9_inputs, resample with the retained particle)."""
     out = {}
+    if "k18" in kinds:
+        for label, N, chains, n in AB_K18:
+            out["K18 " + label] = ("row_gather",
+                                   k18_ab_inputs(dev, N, chains, n))
+    if "k20" in kinds:
+        for label, shape, x_shape, depth in AB_K20:
+            out["K20 " + label] = ("level_sum",
+                                   k20_ab_inputs(dev, shape, x_shape, depth))
+        for label, K, n, V in AB_K20_GATHERS:
+            out["K20 " + label] = ("level_sum",
+                                   k20_gather_inputs(dev, K, n, V))
     if "k9" in kinds:
         for label, R, P, mode in AB_K9:
             out["K9 " + label] = ("pg_resample", k9_inputs(
@@ -2453,7 +2594,39 @@ def time_ab_seeded(ops, kernel: str, inp: dict) -> dict:
     library call beside them (K7: torch.bincount, events only; K4: zeros
     and index_add_, both; K5, K6 and K8 have none). K5's `inp` is dict(k5,
     part): the tree's whole step from the env coordinates, or its kernel
-    alone on a prebuilt index (k5_ab_call). K9 has no library call."""
+    alone on a prebuilt index (k5_ab_call). K9 has no library call. K18
+    (k18_ab_call: one group launch, or a launch a chain) and K20, checked
+    bit-equal to the plain versions, add host_us, each beside its library
+    call where there is one (K18 one chain: torch.take of the leaf at the
+    clamped slots; K18 a group of five, and K20: none)."""
+    if kernel == "row_gather":
+        call = k18_ab_call(ops, inp)
+        got = call()
+        s, chains = inp["slot"], inp["chains"]
+        want = [ops.row_gather_plain(s, h, leaf) for h, leaf in chains]
+        torch.cuda.synchronize()
+        require(all(torch.equal(g, w) for g, w in zip(got, want)),
+                "K18 differs from its plain version in the A/B")
+        lib = None
+        if len(chains) == 1:
+            leaf = chains[0][1]
+            t = s.long().clamp(0, leaf.shape[0] - 1)
+            lib = lambda: torch.take(leaf, t)  # noqa: E731
+        return dict(ms=cuda_ms(call), device_ms=graph_ms(call),
+                    host_us=host_us(call),
+                    library_ms=None if lib is None else cuda_ms(lib),
+                    library_device_ms=None if lib is None else graph_ms(lib),
+                    library_host_us=None if lib is None else host_us(lib))
+    if kernel == "level_sum":   # the code as the tree's tracer folds it
+        args = (ops.level_program(inp["prog"]), inp["operands"], inp["rank"])
+        call = lambda: ops.level_sum(*args, B=1, label="ab")  # noqa: E731
+        got, want = call(), ops.level_sum_plain(*args)
+        torch.cuda.synchronize()
+        require(torch.equal(got, want), "K20 differs from its plain version "
+                "in the A/B")
+        return dict(ms=cuda_ms(call), device_ms=graph_ms(call),
+                    host_us=host_us(call), library_ms=None,
+                    library_device_ms=None)
     if kernel == "pg_resample":
         check_k9(ops, inp)
         t = time_k9(ops, inp)
@@ -2591,7 +2764,10 @@ def main(argv=None) -> int:
                    "gauss_ext_term": lambda inp: k5_bytes(inp["k5"]),
                    "maybe_swap_ext": k6_bytes, "sa_ext_term": k8_bytes,
                    "pg_resample": lambda inp: k9_bytes(*inp["ws"].shape,
-                                                       inp["mode"])}
+                                                       inp["mode"]),
+                   "row_gather": lambda inp: inp["slot"].numel() * (
+                       4 + 8 * len(inp["chains"])),
+                   "level_sum": k20_ab_bytes}
     for s, (k, inp) in seeded.items():
         bounds[s] = {k: count_bytes[k](inp) / HBM_BYTES_PER_S * 1e3}
     turns = []
@@ -2632,6 +2808,9 @@ def main(argv=None) -> int:
                 dev_ms = [r["device_ms"] for r in rows]
                 summary[f"{tree} {s} {k}"] = dict(
                     ms=[r["ms"] for r in rows], device_ms=dev_ms,
+                    host_us=[r.get("host_us") for r in rows],
+                    library_host_us=[r.get("library_host_us")
+                                     for r in rows],
                     library_ms=[r.get("library_ms") for r in rows],
                     library_device_ms=[r.get("library_device_ms")
                                        for r in rows],
@@ -2641,6 +2820,8 @@ def main(argv=None) -> int:
                       for x in xs]
     for key, v in summary.items():
         print(f"{key}: ms {fmt(v['ms'])} device_ms {fmt(v['device_ms'])} "
+              f"host_us {fmt(v['host_us'])} library host_us "
+              f"{fmt(v['library_host_us'])} "
               f"library ms {fmt(v['library_ms'])} library device_ms "
               f"{fmt(v['library_device_ms'])} bound {v['bound_ms']:.5f} ms "
               f"share of bound (device) {v['share_of_bound']:.3f}")
@@ -2793,31 +2974,43 @@ def k17_inputs(dev, f: dict, V: int, seed: int = 0) -> dict:
 
 
 def k18_inputs(dev, f: dict, N: int, seed: int = 0) -> dict:
-    """Seeded inputs of a K18 census shape (its ops.CENSUS_FIELDS `f`) at
-    N slots: each hop column of
-    the census's dtype and length with values over the next column (2%
-    past it), the leaf of its dtype (ints 0-99, floats in [0, 4)), slots
-    int32 [N] over the first column (1% past it). dict(mode, args)."""
+    """Seeded inputs of a K18 census shape (its ops.CENSUS_FIELDS `f`: the
+    launch's distinct columns `cols` and its chains over them, or one
+    chain through every column where `chains` is absent) at N slots: each
+    column that is some chain's hop of the census's dtype and length with
+    values over the column each chain reads next (2% past it), a leaf of
+    its dtype (ints 0-99, floats in [0, 4)), slots int32 [N] over the
+    first chain's first column (1% past it). dict(mode, args: (slot,
+    chains))."""
     rng = np.random.default_rng(seed)
     cols = f["cols"]
+    chains = f.get("chains") or [(tuple(range(len(cols) - 1)),
+                                  len(cols) - 1)]
+    nxt = {}
+    for hops, leaf in chains:
+        for a, b in zip(hops, hops[1:] + (leaf,)):
+            nxt.setdefault(a, cols[b][1])
 
     def t(x, dt):
         return torch.as_tensor(np.ascontiguousarray(x), device=dev).to(dt)
 
     out = []
     for j, (dt, n) in enumerate(cols):
-        if j + 1 < len(cols):
-            hi = cols[j + 1][1]
+        if j in nxt:
+            hi = nxt[j]
             v = rng.integers(0, hi, n)
             v[rng.random(n) < 0.02] = hi + 1
         else:
             v = rng.random(n) * 4 if dt.is_floating_point \
                 else rng.integers(0, 100, n)
         out.append(t(v, dt))
-    s = rng.integers(0, cols[0][1], N)
-    s[rng.random(N) < 0.01] = cols[0][1] + 2
-    return dict(mode=f, kernel="row_gather",
-                args=(t(s, torch.int32), out[:-1], out[-1]))
+    hops0, leaf0 = chains[0]
+    n0 = cols[(hops0 + (leaf0,))[0]][1]
+    s = rng.integers(0, n0, N)
+    s[rng.random(N) < 0.01] = n0 + 2
+    return dict(mode=f, kernel="row_gather", args=(
+        t(s, torch.int32), [([out[j] for j in hops], out[leaf])
+                            for hops, leaf in chains]))
 
 
 def k19_inputs(dev, f: dict, n_pairs: int, seed: int = 0) -> dict:
@@ -2866,8 +3059,13 @@ def _sample_call(ops, inp: dict, plain: bool = False, draw=None):
         else:
             r = ops.choice_sample(*a, **inp["kwargs"])
         return [r]
-    if k == "row_gather":
-        return [(ops.row_gather_plain if plain else ops.row_gather)(*a)]
+    if k == "row_gather":   # one chain through row_gather, as row_value
+        s, chains = a
+        if plain:
+            return ops.row_gather_group_plain(s, chains)
+        if len(chains) == 1:
+            return [ops.row_gather(s, *chains[0])]
+        return ops.row_gather_group(s, chains)
     return (ops.branch_select_plain if plain else ops.branch_select)(*a)
 
 
@@ -2914,9 +3112,9 @@ def sample_bytes(inp: dict) -> int:
     """K16-K19's bytes: each input element read once and each output
     written once (K16: a drawn row's logits, the mask row, and the mask
     row written where it is copied; K17: a drawn row's logits, else a
-    value a row; K18: a slot, an entry of each hop column and of the leaf,
-    the output; K19: the is_new bits and each pair's two values and
-    output)."""
+    value a row; K18: a slot, an entry of each distinct hop column, and
+    each chain's leaf entry and output; K19: the is_new bits and each
+    pair's two values and output)."""
     k, a = inp["kernel"], inp["args"]
     kw = inp.get("kwargs", {})
     if k == "fk_sample":
@@ -2936,10 +3134,11 @@ def sample_bytes(inp: dict) -> int:
             return n + B * (4 + 4 + 4)
         return n + 2 * B * rec.element_size()
     if k == "row_gather":
-        s, hops, leaf = a
-        N = s.numel()
-        return N * (s.element_size() + sum(h.element_size() for h in hops)
-                    + 2 * leaf.element_size())
+        s, chains = a
+        hops = {id(h): h for hs, _l in chains for h in hs}
+        return s.numel() * (s.element_size() + sum(
+            h.element_size() for h in hops.values()) + sum(
+            2 * leaf.element_size() for _h, leaf in chains))
     is_new, pairs = a
     B = is_new.shape[0]
     return B + sum(B * (2 * nv.element_size() + ev.element_size())
@@ -2949,9 +3148,10 @@ def sample_bytes(inp: dict) -> int:
 def sample_library(inp: dict):
     """The one PyTorch call computing the same function, where there is
     one: K17's pick mode torch.take of the record at each row's clamped
-    ancestor position (the flat indices precomputed); K18 torch.take of
-    the leaf at the final indices (one hop, precomputed); K19 torch.where
-    of the first pair; K16 and K17's draw and retained modes none."""
+    ancestor position (the flat indices precomputed); K18 of one chain
+    torch.take of the leaf at the final indices (the hops precomputed), of
+    a group none; K19 torch.where of the first pair; K16 and K17's draw
+    and retained modes none."""
     k, a = inp["kernel"], inp["args"]
     if k == "choice_sample" and inp["kwargs"]["mode"] == "pick":
         rec, anc, B = a
@@ -2961,7 +3161,10 @@ def sample_library(inp: dict):
             idx = idx + x.long().clamp(0, rec.shape[1 + i] - 1) * st[1 + i]
         return lambda: torch.take(rec, idx)
     if k == "row_gather":
-        s, hops, leaf = a
+        s, chains = a
+        if len(chains) > 1:
+            return None
+        hops, leaf = chains[0]
         t = s.long()
         for h in hops:
             t = h[t.clamp(0, h.shape[0] - 1)].long()

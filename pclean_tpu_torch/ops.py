@@ -68,8 +68,10 @@ replaces, its bound on the H100 and its design):
                        retained value with the dummy code, or a recorded
                        value picked at the ancestors (propose.py
                        sample_choice, _pick);
-  K18 row_gather     — a vertex's stored value at any slots through its fk
-                       chain (propose.py row_value's gathers);
+  K18 row_gather     — a group of vertices' stored values at one slot
+                       tensor through their fk chains (propose.py
+                       row_value's gathers, a foreign key's copy-mode
+                       reads);
   K19 branch_select  — a foreign key's existing/fresh select over its
                        subtree's values (propose.py sample_fk's where);
   K20 level_sum      — one enumeration level's additive terms (dense
@@ -117,9 +119,13 @@ cached on the model; K11's from a row's writes) travel by value as the
 kernel's argument, bound to the pointers of a loop segment's carry
 (`RowCarry`) once, so no table lives on the card. K14's and K15's words
 (pointers, dtypes, lengths; a thread a source or a (column, row) pair)
-are built at each call, also by value, and so are K16's-K23's (K20's a
-level's references, operands and program, `level_plan`; K21's
-`py_prior_words`; K22's descriptors, K23's classes).
+are built at each call, also by value, and so are K16's, K17's, K19's and
+K21-K23's (K21's `py_prior_words`; K22's descriptors, K23's classes).
+K18's (a group's hop-column tree and chains, `row_gather_plan`,
+`row_gather_words`) and K20's (a level's references, operands and
+program, `level_plan`) are built once a call structure (dtypes, shapes,
+strides, labels) and kept, each call writing only its pointers into
+them (`_K18_PLANS`, `_K20_PLANS`).
 
 Fixed limits split or raise, never fall back to a plain version (each
 split in a plan function the CPU tests read): K11's writes, K15's columns
@@ -186,9 +192,10 @@ LAUNCHES = {name: 0 for name in _SOURCES}
 LAUNCHES_BY_SHAPE = {name: {"r1": 0, "rn": 0} for name in _SOURCES}
 # the calls that went past a kernel's single-launch limit, by wrapper: a
 # row's writes, a batch's columns or a cascade's fk columns in more than
-# one launch, a chain folded by K18 first, a level in stages, K10's larger
-# block, K16/K17 past three ancestor axes (no path of the repository's
-# workloads makes one; workloads/limits.py makes each)
+# one launch, a chain folded by K18 first or a K18 group in more than one
+# launch, a level in stages, K10's larger block, K16/K17 past three
+# ancestor axes (no path of the repository's workloads makes one;
+# workloads/limits.py makes each)
 SPLITS: dict = {}
 # K1's, K2's, K3's and K5-K23's launches by (mode, "r1" or "rn", K): K1's
 # mode is "fk" or "choice", K2's is None, K3's the launch's vocabularies
@@ -445,7 +452,14 @@ def _check(rc: int, name: str) -> None:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: error {rc}")
 
 
+# the current stream's handle as an int, without building a torch Stream
+# object (a few microseconds of host time a launch)
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
 def _stream(t: torch.Tensor):
+    if _RAW_STREAM is not None:
+        return _RAW_STREAM(t.get_device())
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
@@ -2402,8 +2416,20 @@ K16_X, K17_X = 28, 16
 K16_WORDS = K16_X + _ANC_WORDS * _MAX_ANC
 K17_WORDS = K17_X + _ANC_WORDS * _MAX_ANC
 K17_MODES = ("draw", "retained", "pick")
+# K18's plan (csrc/row_gather.cu): a header (the slot tensor's count,
+# rank, pointer, dtype, contiguity, sizes and strides; the counts of nodes
+# and chains; the class), the class's node slots for the group's
+# hop-column tree (a node's column, dtype, length and parent: 0 the slot, k
+# node k - 1) and its chain slots (a chain's node, the leaf's pointer and
+# length, the output's pointer, the element size). The classes, (nodes,
+# chains) each, are the kernel's instantiations: the smallest that holds a
+# launch takes it. A chain follows at most K18_MAX_HOPS hops, longer ones
+# fold first
 K18_MAX_DIMS, K18_MAX_HOPS = 8, 4
-K18_WORDS = 24 + 3 * K18_MAX_HOPS + 5
+K18_CLASSES = ((2, 4), (4, 8), (8, 16))
+K18_MAX_NODES, K18_MAX_CHAINS = K18_CLASSES[-1]
+K18_HEAD, K18_NODE, K18_CHAIN = 24, 4, 5
+K18_WORDS = K18_HEAD + K18_NODE * K18_MAX_NODES + K18_CHAIN * K18_MAX_CHAINS
 K19_HEAD, K19_PAIR, K19_MAX_PAIRS = 4, 8, 64
 
 
@@ -2700,11 +2726,77 @@ def row_gather_plain(slot, hops, leaf):
     return take(leaf, t)
 
 
-def row_gather_mode(label, hops, leaf) -> str:
-    """K18's LAUNCH_CENSUS mode: the label (class.vertex) and each hop
-    column's and the leaf's dtype:length."""
-    return f"{label} " + ",".join(f"{_SHORT[c.dtype]}:{c.shape[0]}"
-                                  for c in list(hops) + [leaf])
+def _chain_spec(chains) -> tuple:
+    """(columns, spec) of a group of chains [(hops, leaf)]: the distinct
+    column tensors in order of first use (by identity) and each chain as
+    (hop column indices, leaf column index) into them."""
+    cols, seen, spec = [], {}, []
+    for hops, leaf in chains:
+        ids = []
+        for c in (*hops, leaf):
+            j = seen.get(id(c))
+            if j is None:
+                j = seen[id(c)] = len(cols)
+                cols.append(c)
+            ids.append(j)
+        spec.append((tuple(ids[:-1]), ids[-1]))
+    return cols, tuple(spec)
+
+
+@functools.lru_cache(maxsize=1024)
+def row_gather_plan(spec: tuple) -> tuple:
+    """K18's launches for a group of chains from one slot tensor, `spec`
+    each chain's (hop column ids, leaf column id) (_chain_spec): ((nodes,
+    leaves), ...), a launch each, in order. nodes ((column id, parent),
+    ...) is the hop-column tree the kernel walks, node j's parent 0 (the
+    slot) or k (node k - 1, an earlier one): chains that start with the
+    same hops share their nodes; leaves ((chain, node, leaf column id),
+    ...). A launch holds at most K18_MAX_NODES nodes and K18_MAX_CHAINS
+    chains; the next chain that would pass either starts a new launch.
+    Raises for a chain of more than K18_MAX_HOPS hops (the caller folds
+    it first)."""
+    out, nodes, leaves, index = [], [], [], {}
+    for g, (hops, leaf) in enumerate(spec):
+        if len(hops) > K18_MAX_HOPS:
+            raise ValueError(f"row_gather_plan: a chain of {len(hops)} hops "
+                             f"(at most {K18_MAX_HOPS})")
+        new = sum(hops[:k] not in index for k in range(1, len(hops) + 1))
+        if len(leaves) == K18_MAX_CHAINS or \
+                len(nodes) + new > K18_MAX_NODES:
+            out.append((tuple(nodes), tuple(leaves)))
+            nodes, leaves, index = [], [], {}
+        parent = 0
+        for k in range(1, len(hops) + 1):
+            if hops[:k] not in index:
+                nodes.append((hops[k - 1], parent))
+                index[hops[:k]] = len(nodes)
+            parent = index[hops[:k]]
+        leaves.append((g, parent, leaf))
+    if leaves:
+        out.append((tuple(nodes), tuple(leaves)))
+    return tuple(out)
+
+
+def row_gather_group_plain(slot, chains) -> list:
+    """K18's plain version over a group of chains [(hops, leaf)] from one
+    slot tensor, as the kernel walks it: each node of row_gather_plan's
+    hop-column tree taken once from its parent's indices, each chain's
+    leaf taken at its node (chains of more than K18_MAX_HOPS hops by
+    row_gather_plain). Chain by chain, row_gather_plain's values."""
+    out = [None] * len(chains)
+    short = [g for g, (hops, _l) in enumerate(chains)
+             if len(hops) <= K18_MAX_HOPS]
+    for g, (hops, leaf) in enumerate(chains):
+        if len(hops) > K18_MAX_HOPS:
+            out[g] = row_gather_plain(slot, hops, leaf)
+    cols, spec = _chain_spec([chains[g] for g in short])
+    for nodes, leaves in row_gather_plan(spec):
+        t = [slot]
+        for col, parent in nodes:
+            t.append(take(cols[col], t[parent]))
+        for g, node, leaf in leaves:
+            out[short[g]] = take(cols[leaf], t[node])
+    return out
 
 
 def chain_folds(n: int, most: int) -> list:
@@ -2744,55 +2836,200 @@ def fold_chain(start, cols, most: int, label=None,
 
 
 def row_gather(slot, hops, leaf, label=None):
-    """K18: row_gather_plain in one launch, a thread a slot: slot an int
-    tensor of any shape and strides (up to 8 axes where it is not
-    contiguous), hops contiguous int columns, leaf a contiguous column of
-    any dtype of _DT; returns slot's shape in the leaf's dtype
-    (torch.empty). A chain of more than K18_MAX_HOPS hops runs in stages
-    (fold_chain): each earlier launch follows K18_MAX_HOPS hops and the
-    next column as its leaf into a buffer of slot's shape. On CPU tensors
-    the plain version; on CUDA ones the kernel or an error. Counted in
-    LAUNCH_CENSUS by (row_gather_mode, r1 or rn, the slot count), once a
-    launch."""
-    if not _route(leaf, "row_gather"):
+    """K18 for one chain: row_gather_plain in one launch (row_gather_group's
+    kernel with a group of one): slot an int tensor of any shape and
+    strides (up to 8 axes where it is not contiguous), hops contiguous int
+    columns, leaf a contiguous column of any dtype of _DT; returns slot's
+    shape in the leaf's dtype (torch.empty). A chain of more than
+    K18_MAX_HOPS hops runs in stages (fold_chain): each earlier launch
+    follows K18_MAX_HOPS hops and the next column as its leaf into a
+    buffer of slot's shape. On CPU tensors the plain version; on CUDA ones
+    the kernel or an error. Counted in LAUNCH_CENSUS by ("label
+    dtype:length,..." of each hop column and the leaf, r1 or rn, the slot
+    count), once a launch."""
+    if not leaf.is_cuda and not _route(leaf, "row_gather"):
         return row_gather_plain(slot, hops, leaf)
-    if not torch.is_tensor(slot):
+    if not isinstance(slot, torch.Tensor):
         slot = torch.as_tensor(slot, device=leaf.device)
-    if not slot.is_cuda or slot.dtype not in _INDEX_DT + (torch.uint8,):
-        raise ValueError(f"row_gather: slots {slot.dtype} on {slot.device} "
-                         f"(expected integers on the card)")
     if len(hops) > K18_MAX_HOPS:
         slot, rest = fold_chain(slot, list(hops) + [leaf], K18_MAX_HOPS + 1,
                                 label)
         hops, leaf = rest[:-1], rest[-1]
-    for c, name in [(h, "hop column") for h in hops] + [(leaf, "leaf")]:
+    return _k18_launch(slot, [*hops, leaf], _single_spec(len(hops)),
+                       label)[0]
+
+
+@functools.lru_cache(maxsize=None)
+def _single_spec(hops: int) -> tuple:
+    """_chain_spec's spec of one chain of `hops` hop columns and a leaf,
+    each its own column."""
+    return ((tuple(range(hops)), hops),)
+
+
+def row_gather_group(slot, chains, label=None) -> list:
+    """K18 over a group of chains [(hops, leaf)] from one slot tensor (a
+    foreign key's copy-mode vertices, a Compute leaf's arguments): the
+    chains of row_gather_plan's launches, one launch for up to
+    K18_MAX_CHAINS chains over at most K18_MAX_NODES distinct hop prefixes,
+    each hop column loaded once a slot; a chain of more than K18_MAX_HOPS
+    hops by its own row_gather (folded). Returns each chain's values, of
+    slot's shape in its leaf's dtype, in order. On CPU tensors the plain
+    version (row_gather_group_plain); on CUDA ones the kernel or an error.
+    Counted in LAUNCH_CENSUS by ("label chain;chain;...", r1 or rn, the
+    slot count), each chain as row_gather's ("dtype:length,..."), once a
+    launch."""
+    out, short = [None] * len(chains), []
+    for g, (hops, leaf) in enumerate(chains):
+        if len(hops) > K18_MAX_HOPS:
+            out[g] = row_gather(slot, hops, leaf, label=label)
+        else:
+            short.append(g)
+    if short:
+        sub = [chains[g] for g in short]
+        if _route(sub[0][1], "row_gather"):
+            if not isinstance(slot, torch.Tensor):
+                slot = torch.as_tensor(slot, device=sub[0][1].device)
+            vals = _k18_launch(slot, *_chain_spec(sub), label)
+        else:
+            vals = row_gather_group_plain(slot, sub)
+        for g, v in zip(short, vals):
+            out[g] = v
+    return out
+
+
+# K18's and K20's launch plans by the call's structure (dtypes, shapes,
+# strides, labels; not the pointers, which a call patches in): a batched
+# driver replaces the columns it writes out of place, so the pointers
+# change from batch to batch where the structure does not
+_PLAN_CACHE_MAX = 4096
+_K18_PLANS: dict = {}
+
+
+def _k18_launch(slot, cols, spec, label) -> list:
+    """K18's launches for a group of chains of at most K18_MAX_HOPS hops on
+    the card, `cols` and `spec` as _chain_spec gives them: the plans from
+    _K18_PLANS (built and checked by _k18_entry at the structure's first
+    call), each call writing only the slot's, columns' and outputs'
+    pointers into the prebuilt words."""
+    if slot.dim() > K18_MAX_DIMS and not slot.is_contiguous():
+        slot = slot.contiguous()
+    key = (label, spec, slot.dtype, slot.shape, slot.stride(),
+           slot.get_device(),
+           tuple((c.dtype, c.shape, c.stride(), c.get_device())
+                 for c in cols))
+    ent = _K18_PLANS.get(key)
+    if ent is None:
+        ent = _k18_entry(slot, cols, spec, label)
+        if len(_K18_PLANS) >= _PLAN_CACHE_MAX:
+            _K18_PLANS.clear()
+        _K18_PLANS[key] = ent
+    shape, dev, N, outputs, launches = ent
+    if len(launches) > 1:   # a group past one launch's class
+        _split("row_gather")
+    outs = [None] * len(spec)
+    for dt, idx, size, strides in outputs:
+        if len(idx) == 1:
+            outs[idx[0]] = torch.empty(shape, dtype=dt, device=dev)
+            continue
+        # one buffer for the chains of one dtype, each output 16-byte
+        # aligned in it
+        views = torch.empty(size, dtype=dt, device=dev).as_strided(
+            (len(idx),) + shape, strides).unbind(0)
+        for g, v in zip(idx, views):
+            outs[g] = v
+    cp = [c.data_ptr() for c in cols]
+    op = [o.data_ptr() for o in outs]
+    sp, stream, fn = slot.data_ptr(), _stream(slot), _fn("row_gather")
+    for words, addr, n, cpos, opos, mode, fields in launches:
+        words[2] = sp
+        for pos, j in cpos:
+            words[pos] = cp[j]
+        for pos, g in opos:
+            words[pos] = op[g]
+        _check(fn(addr, n, stream), "row_gather")
+        _count("row_gather", N, N, mode, fields)
+    return outs
+
+
+def row_gather_words(slot, cols, nodes, leaves) -> tuple:
+    """One K18 launch's plan: (words, column pointer positions [(word,
+    column)], output pointer positions [(word, chain)]): the header, the
+    smallest K18_CLASSES class's node slots and chain slots that hold the
+    launch (the unused ones 0), every pointer 0; `cols` as _chain_spec
+    gives them, `nodes` and `leaves` one launch of row_gather_plan."""
+    cls = next(i for i, (n, c) in enumerate(K18_CLASSES)
+               if len(nodes) <= n and len(leaves) <= c)
+    most_nodes, most_chains = K18_CLASSES[cls]
+    contig = slot.is_contiguous()
+    words = [slot.numel(), slot.dim(), 0, _DT[slot.dtype], int(contig)]
+    words += list(slot.shape) + [1] * (K18_MAX_DIMS - slot.dim())
+    words += list(slot.stride()) + [0] * (K18_MAX_DIMS - slot.dim())
+    words += [len(nodes), len(leaves), cls]
+    cpos, opos = [], []
+    for col, parent in nodes:
+        c = cols[col]
+        cpos.append((len(words), col))
+        words += [0, _DT[c.dtype], int(c.shape[0]), parent]
+    words += [0] * (K18_HEAD + K18_NODE * most_nodes - len(words))
+    for g, node, lc in leaves:
+        c = cols[lc]
+        cpos.append((len(words) + 1, lc))
+        opos.append((len(words) + 3, g))
+        words += [node, 0, int(c.shape[0]), 0, c.element_size()]
+    words += [0] * (K18_HEAD + K18_NODE * most_nodes
+                    + K18_CHAIN * most_chains - len(words))
+    return words, cpos, opos
+
+
+def _k18_entry(slot, cols, spec, label) -> tuple:
+    """A _K18_PLANS entry: (slot's shape, device, slot count, the outputs
+    [(dtype, the chains of that dtype, their buffer's elements, the
+    strides of its [chains, *shape] view)], [(words as an array.array, its
+    address, its length, column and output pointer positions, census
+    mode, census fields)] a launch); raises for what the kernel does not
+    take."""
+    if not slot.is_cuda or slot.dtype not in _INDEX_DT + (torch.uint8,):
+        raise ValueError(f"row_gather: slots {slot.dtype} on {slot.device} "
+                         f"(expected integers on the card)")
+    hop_cols = {j for hops, _l in spec for j in hops}
+    for j, c in enumerate(cols):
+        name = "hop column" if j in hop_cols else "leaf"
         if not c.is_cuda or c.dim() != 1 or not c.is_contiguous() or \
                 c.dtype not in _DT or c.shape[0] < 1 or \
                 (name != "leaf" and c.dtype not in _INDEX_DT):
             raise ValueError(f"row_gather: {name} {c.dtype} "
                              f"{tuple(c.shape)} on {c.device}")
-    contig = slot.is_contiguous()
-    if not contig and slot.dim() > K18_MAX_DIMS:
-        slot, contig = slot.contiguous(), True
     N = slot.numel()
-    words = [N, slot.dim(), slot.data_ptr(), _DT[slot.dtype], int(contig)]
-    sizes = list(slot.shape) + [1] * (K18_MAX_DIMS - slot.dim())
-    strides = list(slot.stride()) + [0] * (K18_MAX_DIMS - slot.dim())
-    words += sizes + strides + [len(hops)]
-    for h in range(K18_MAX_HOPS):
-        words += [hops[h].data_ptr(), _DT[hops[h].dtype], hops[h].shape[0]] \
-            if h < len(hops) else [0, 0, 0]
-    out = torch.empty(tuple(slot.shape), dtype=leaf.dtype, device=leaf.device)
-    words += [leaf.data_ptr(), _DT[leaf.dtype], leaf.shape[0],
-              out.data_ptr(), leaf.element_size()]
-    words += [0] * (K18_WORDS - len(words))
-    arr = (ctypes.c_int64 * K18_WORDS)(*words)
-    rc = _fn("row_gather")(arr, K18_WORDS, _stream(leaf))
-    _check(rc, "row_gather")
-    _count("row_gather", N, N, row_gather_mode(label, hops, leaf),
-           dict(cols=[(c.dtype, int(c.shape[0]))
-                      for c in list(hops) + [leaf]]))
-    return out
+    launches = []
+    for nodes, leaves in row_gather_plan(spec):
+        words, cpos, opos = row_gather_words(slot, cols, nodes, leaves)
+        words = array.array("q", words)
+        local: dict = {}
+        chains = []
+        for g, _node, _lc in leaves:
+            hops, leaf = spec[g]
+            chains.append((tuple(local.setdefault(j, len(local))
+                                 for j in hops),
+                           local.setdefault(leaf, len(local))))
+        fields = dict(cols=[(cols[j].dtype, int(cols[j].shape[0]))
+                            for j in local], chains=chains)
+        mode = f"{label} " + ";".join(
+            ",".join(f"{_SHORT[cols[j].dtype]}:{cols[j].shape[0]}"
+                     for j in spec[g][0] + (spec[g][1],))
+            for g, _node, _lc in leaves)
+        launches.append((words, words.buffer_info()[0], len(words), cpos,
+                         opos, mode, fields))
+    by_dtype: dict = {}
+    for g, (_hops, leaf) in enumerate(spec):
+        key = cols[leaf].dtype if N else g   # (an empty group: one each)
+        by_dtype.setdefault(key, []).append(g)
+    inner = [math.prod(slot.shape[d + 1:]) for d in range(slot.dim())]
+    outputs = []
+    for idx in by_dtype.values():
+        c = cols[spec[idx[0]][1]]
+        pad = -(-N * c.element_size() // 16) * 16 // c.element_size()
+        outputs.append((c.dtype, idx, pad * len(idx), (pad, *inner)))
+    return tuple(slot.shape), slot.device, N, outputs, launches
 
 
 def branch_select_plain(is_new, pairs) -> list:
@@ -2860,14 +3097,32 @@ def branch_select(is_new, pairs) -> list:
 LEVEL_ZERO, LEVEL_PUSH, LEVEL_ADD, LEVEL_ADDOP = range(4)
 K20_KINDS = ("dense", "eq", "sel", "gather")
 # the plan's word counts and limits: a header, the tensor references
-# (pointer, dtype, strides over the output's axes), the operands (kind,
-# three references, two arguments) and the program
+# (pointer, dtype, strides over the output's merged axes), the operands
+# (kind, three references, two arguments) and the program
 K20_MAX_DIMS = 8
-K20_HEAD, K20_REF, K20_OP = 16, 2 + K20_MAX_DIMS, 6
+K20_HEAD, K20_REF, K20_OP = 32, 2 + K20_MAX_DIMS, 6
 K20_MAX_REFS, K20_MAX_OPS, K20_MAX_PROG, K20_MAX_STACK = 128, 64, 384, 32
 K20_WORDS = (K20_HEAD + K20_REF * K20_MAX_REFS + K20_OP * K20_MAX_OPS
              + K20_MAX_PROG)
-K20_OUT = 2 + K20_MAX_DIMS   # the header's word of the output's pointer
+# the header's words (csrc/level_sum.cu): the element count, the merged
+# rank and sizes, the output's pointer, the counts, the threads a row of
+# the innermost axis, the rows, the threads, the divisor word of the
+# threads a row and of each outer axis, the instantiation
+K20_OUT = 2 + K20_MAX_DIMS
+_K20_KERNEL = K20_OUT + 8 + K20_MAX_DIMS - 1
+# the instantiations, (stack depth, 32-bit indices, elements a thread takes
+# along the innermost axis), by the header's last word: a program no
+# deeper than 2, 4 or 8 keeps its stack in registers, the last takes the
+# rest and 64-bit indices. A level of at least K20_WIDE elements takes 8
+# elements a thread where its stack is at most 4 deep, else 4 (fewer
+# threads walk the program, 16-byte loads and stores: rents' [256, 4,096,
+# 2] level); a smaller one 1 (a one-row level's gathers wait on dependent
+# loads, so more threads wait together: on an H100, [1, 512] with 11
+# gathers took 0.0206 device ms at 4 elements a thread against 0.0144 a
+# thread an element, PERF.md)
+K20_KERNELS = ((2, True, 1), (4, True, 1), (8, True, 1), (2, True, 8),
+               (4, True, 8), (8, True, 4), (K20_MAX_STACK, False, 4))
+K20_WIDE = 1 << 16
 assert 8 * K20_WORDS <= PARAM_MAX
 K21_WORDS = 64
 
@@ -2903,11 +3158,16 @@ def level_gather(M, obs, word, shape) -> dict:
 
 def level_program(code) -> list:
     """A level's postfix code with each PUSH i directly followed by ADD
-    folded into ADDOP i (the same sum: a + b rounds as b + a)."""
+    folded into ADDOP i (the same sum: a + b rounds as b + a), and each
+    ZERO, ZERO, ADD into ZERO (+0 + +0 is +0): the same bits, a shallower
+    stack."""
     out = []
     for op in code:
         if op[0] == LEVEL_ADD and out and out[-1][0] == LEVEL_PUSH:
             out[-1] = (LEVEL_ADDOP, out[-1][1])
+        elif op[0] == LEVEL_ADD and len(out) > 1 and \
+                out[-1][0] == out[-2][0] == LEVEL_ZERO:
+            out.pop()
         else:
             out.append(op)
     return out
@@ -3250,51 +3510,206 @@ def level_plan(prog, operands, rank: int, card: bool = True) -> tuple:
     if n_refs > K20_MAX_REFS:
         raise ValueError(f"level_sum: {n_refs} tensors (at most "
                          f"{K20_MAX_REFS})")
-    words = [math.prod(shape), rank] + list(shape) + \
-        [1] * (K20_MAX_DIMS - rank) + [0, n_refs, len(operands), len(prog)]
+    sizes, strides = level_axes(shape, [refs[K20_REF * r + 2:
+                                              K20_REF * r + 2 + rank]
+                                         for r in range(n_refs)])
+    N, m = math.prod(shape), len(sizes)
+    rows = N // sizes[-1] if N else 0
+    narrow = max([N, rows * sizes[-1]] + [sum((n - 1) * x for n, x in
+                                              zip(sizes, st))
+                                          for st in strides]) < 2 ** 31
+    depth = level_stack(prog)
+    elems = (8 if depth <= 4 else 4) if N >= K20_WIDE else 1
+    kernel = next(i for i, (d, nar, e) in enumerate(K20_KERNELS)
+                  if depth <= d and (not nar or narrow and e == elems))
+    tpr = -(-sizes[-1] // K20_KERNELS[kernel][2])
+    words = [N, m] + sizes + [1] * (K20_MAX_DIMS - m) + \
+        [0, n_refs, len(operands), len(prog), tpr, rows, rows * tpr,
+         _divider(tpr)] + [_divider(n) for n in sizes[:-1]] + \
+        [0] * (K20_MAX_DIMS - m) + [kernel]
     words += [0] * (K20_HEAD - len(words))
+    for r, st in enumerate(strides):
+        refs[K20_REF * r + 2:K20_REF * (r + 1)] = st + [0] * (K20_MAX_DIMS - m)
     return words + refs + opw + [(op << 32) | a for op, a in prog], shape
 
 
+def level_axes(shape, strides) -> tuple:
+    """(sizes, strides): the output's axes merged for K20, the size-1 axes
+    dropped and each axis folded into the one outside it where every
+    reference walks the two as one (its outer stride = inner stride x
+    inner size; the output is contiguous), so the innermost axis is as
+    long as the references allow; `strides` each reference's strides over
+    `shape`, returned over the merged axes. One axis of 1 where the
+    output is one element."""
+    axes = [d for d, n in enumerate(shape) if n != 1]
+    if not axes:
+        return [1], [[0] for _ in strides]
+    sizes = [shape[axes[0]]]
+    out = [[st[axes[0]]] for st in strides]
+    for d in axes[1:]:
+        n = shape[d]
+        if all(o[-1] == st[d] * n for o, st in zip(out, strides)):
+            sizes[-1] *= n
+            for o, st in zip(out, strides):
+                o[-1] = st[d]
+        else:
+            sizes.append(n)
+            for o, st in zip(out, strides):
+                o.append(st[d])
+    return sizes, out
+
+
+def _divider(d: int) -> int:
+    """The word csrc/level_sum.cu divides an n < 2^31 by d with: magic |
+    shift << 32, n / d = (umulhi(n, magic) + n) >> shift (PyTorch's
+    IntDivider)."""
+    d = max(d, 1)   # (an empty level's words: no thread divides)
+    shift = (d - 1).bit_length()
+    return (((1 << 32) * ((1 << shift) - d)) // d + 1) | (shift << 32)
+
+
 def level_sum(prog, operands, rank: int, B: int = 1, label=None):
-    """K20: a level's terms summed in one launch, a thread an output
-    element (a level past one launch's limits in level_stages' launches,
-    each stage's sum in a buffer the call owns): `prog` the postfix program (level_program) over `operands`
+    """K20: a level's terms summed in one launch, 1, 4 or 8 consecutive
+    output elements a thread (K20_KERNELS; a level past one launch's
+    limits in level_stages' launches, each stage's sum in a buffer the
+    call owns): `prog` the postfix program (level_program) over `operands`
     (level_dense, level_eq, level_sel, level_gather; each tensor read in
     place with its broadcast strides over the output, aligned to the right
     at `rank` axes), the output a float32 torch.empty buffer of
     level_shape(operands, rank). Dense terms and the log-densities are
     float32, codes and values any dtype of _DT, states integers, each
-    gather's matrix a contiguous float32 [V, V]. On CPU tensors the plain
-    version; on CUDA ones the kernel or an error. Counted in LAUNCH_CENSUS
-    by ("label d=depth B=.. out=shape kinds", r1 or rn by B, the output
-    size); its fields in CENSUS_FIELDS."""
-    dev = _level_device(operands)
-    if dev.type == "cpu":
-        return level_sum_plain(prog, operands, rank)
-    if dev.type != "cuda":
-        raise RuntimeError(f"level_sum: no kernel for device {dev}")
-    outs = []
-    stages = level_stages(prog, operands)
+    gather's matrix a contiguous float32 [V, V]. The plan is built once a
+    structure (_K20_PLANS: the program, each operand's kind, static code
+    and flag, every tensor's dtype, shape and strides, the label and B) and
+    each call writes only the tensors' and the outputs' pointers into it.
+    On CPU tensors the plain version; on CUDA ones the kernel or an error.
+    Counted in LAUNCH_CENSUS by ("label d=depth B=.. out=shape kinds", r1
+    or rn by B, the output size); its fields in CENSUS_FIELDS."""
+    key, ptrs = _level_key(prog, operands, rank, B, label)
+    ent = _K20_PLANS.get(key)
+    if ent is None:
+        dev = _level_device(operands)
+        if dev.type == "cpu":
+            return level_sum_plain(prog, operands, rank)
+        if dev.type != "cuda":
+            raise RuntimeError(f"level_sum: no kernel for device {dev}")
+        ent = _k20_entry(prog, operands, rank, B, label)
+        if len(_K20_PLANS) >= _PLAN_CACHE_MAX:
+            _K20_PLANS.clear()
+        _K20_PLANS[key] = ent
+    dev, stages = ent
     if len(stages) > 1:
         _split("level_sum")
-    for p, srcs in stages:
-        ops_ = [operands[i] if k == "o" else level_dense(outs[i])
-                for k, i in srcs]
-        words, shape = level_plan(p, ops_, rank)
+    outs, fn = [], _fn("level_sum")
+    for words, addr, n, pos, shape, N, mode, fields in stages:
         out = torch.empty(shape, dtype=torch.float32, device=dev)
+        for at, src in pos:
+            words[at] = ptrs[src] if src >= 0 else outs[~src].data_ptr()
         words[K20_OUT] = out.data_ptr()
-        words = array.array("q", words)
-        rc = _fn("level_sum")(words.buffer_info()[0], len(words),
-                              _stream(out))
-        _check(rc, "level_sum")
-        mode = (f"{label} d={rank - 1} B={B} "
-                f"out={'x'.join(map(str, shape))} {level_kinds(ops_)}")
-        fields = None if mode in CENSUS_FIELDS["level_sum"] else \
-            _level_fields(p, ops_, rank, shape)
-        _count("level_sum", B, out.numel(), mode, fields)
+        _check(fn(addr, n, _stream(out)), "level_sum")
+        _count("level_sum", B, N, mode, fields)
         outs.append(out)
     return outs[-1]
+
+
+# an operand's tensor references by kind, in the plan's order
+# (_level_tensors)
+_LEVEL_REFS = {"dense": ("x",), "eq": ("val", "obs", "state"),
+               "sel": ("obs_ld", "miss", "state"), "gather": ("obs", "word")}
+_K20_PLANS: dict = {}
+
+
+def _level_key(prog, operands, rank: int, B: int, label) -> tuple:
+    """(key, pointers): a K20 call's structure (the program, rank, B,
+    label, each operand's kind, static states and flag, and every tensor's
+    dtype, shape, strides and device index, -1 on the CPU) and its
+    tensors' pointers in the plan's order (each operand's references, then
+    a gather's matrix). A CPU level's key names no entry: it takes the
+    plain version."""
+    sig, ptrs = [], []
+    for o in operands:
+        k = o["kind"]
+        row = [k]
+        for n in _LEVEL_REFS.get(k, ()):
+            t = o[n]
+            if isinstance(t, torch.Tensor):
+                row.append((t.dtype, t.shape, t.stride(), t.get_device()))
+                ptrs.append(t.data_ptr())
+            else:
+                row.append(t)
+        if k == "eq":
+            row.append(o["float"])
+        elif k == "gather":
+            M = o["M"]
+            row += [(M.dtype, M.shape, M.stride(), M.get_device()),
+                    o["shape"]]
+            ptrs.append(M.data_ptr())
+        sig.append(tuple(row))
+    return (label, B, rank, tuple(prog), tuple(sig)), ptrs
+
+
+def _k20_entry(prog, operands, rank: int, B: int, label,
+               card: bool = True) -> tuple:
+    """A _K20_PLANS entry: (device, [(words as an array.array, its address,
+    its length, the pointer positions [(word, source)], the output shape,
+    its size, census mode, census fields)] a stage of level_stages), a
+    source >= 0 the call's pointer (_level_key's order) and ~k stage k's
+    output; raises for what the kernel does not take (level_plan)."""
+    dev = _level_device(operands)
+    first, n = [], 0   # each operand's first pointer
+    for o in operands:
+        first.append(n)
+        n += len(_level_tensors(o)) + (o["kind"] == "gather")
+    stages, shapes = [], []
+    for p, srcs in level_stages(prog, operands):
+        ops_, pos, r = [], [], 0
+        for k, i in srcs:
+            if k == "o":
+                o = operands[i]
+                ops_.append(o)
+                nr = len(_level_tensors(o))
+                pos += [(K20_HEAD + K20_REF * (r + j), first[i] + j)
+                        for j in range(nr)]
+                r += nr
+            else:   # an earlier stage's sum, a dense term
+                ops_.append(level_dense(torch.empty(shapes[i], device=dev)))
+                pos.append((K20_HEAD + K20_REF * r, ~i))
+                r += 1
+        words, shape = level_plan(p, ops_, rank, card=card)
+        for j, (k, i) in enumerate(srcs):
+            if k == "o" and operands[i]["kind"] == "gather":
+                pos.append((K20_HEAD + K20_REF * r + K20_OP * j + 4,
+                            first[i] + len(_level_tensors(operands[i]))))
+        words = array.array("q", words)
+        mode = (f"{label} d={rank - 1} B={B} "
+                f"out={'x'.join(map(str, shape))} {level_kinds(ops_)}")
+        stages.append((words, words.buffer_info()[0], len(words), pos,
+                       shape, math.prod(shape), mode,
+                       _level_fields(p, ops_, rank, shape)))
+        shapes.append(shape)
+    return dev, stages
+
+
+def level_words(prog, operands, rank: int, B: int = 1, label=None,
+                card: bool = True) -> list:
+    """Each stage's K20 words as a call takes them from _K20_PLANS, with
+    these operands' pointers written in (the outputs' 0): a call of a
+    cached structure patches exactly these words, which equal a fresh
+    level_plan's."""
+    key, ptrs = _level_key(prog, operands, rank, B, label)
+    key = (card,) + key
+    ent = _K20_PLANS.get(key)
+    if ent is None:
+        ent = _K20_PLANS[key] = _k20_entry(prog, operands, rank, B, label,
+                                           card=card)
+    out = []
+    for words, _addr, _n, pos, *_rest in ent[1]:
+        w = list(words)
+        for at, src in pos:
+            w[at] = ptrs[src] if src >= 0 else 0
+        w[K20_OUT] = 0
+        out.append(w)
+    return out
 
 
 def py_logprobs_plain(refcount, alive, total, nrows, s, d):

@@ -8,8 +8,10 @@ for bit on seeded term lists of every operand kind: dense terms, copy-mode
 equality on an int and on a FLOAT column, non-enumerable observed terms,
 the states 0, 1 and 2 static and per row, deferred AddTypos gathers, depth
 0 to 2. K20's and K21's plans, read word by word as the kernels read them
-(a Python reading through the tensors' addresses), against the plain
-versions. py_prior_plain against pclean_tpu's py_logprobs plus the
+(a Python reading through the tensors' addresses: K20's merged axes,
+divisors and elements a thread), against the plain versions; K20's plan
+cached by the level's structure taking new tensors' pointers, word for
+word a fresh plan's; the axis merging and the divisors. py_prior_plain against pclean_tpu's py_logprobs plus the
 children (its BlockTracer method, the compaction's select and the adds),
 within the score pass's tolerance (rtol 1e-5, atol 1e-5: two libraries'
 logs), with and without compaction, with [cap] and [B, cap] leaves.
@@ -22,7 +24,8 @@ the CPU).
 Card (`cuda` marker; `python -m pytest -m cuda
 tests/test_torch_level_kernels.py` on the H100): K20 and K21 against their
 plain versions on the card, bit-equal (the same float operations, one
-rounding each), at every operand kind and the paths' shapes; their
+rounding each), at every operand kind and the paths' shapes, K20 at every
+instantiation (stack depths 1-12, merged and unmerged axes); their
 refusals; graphed hospital and flights rows bit-equal to their eager rows
 with K20 launched inside the graph. The JAX package is imported inside the
 CPU tests only.
@@ -228,6 +231,28 @@ def test_level_program_and_stack():
     prog = ops.level_program(code)
     assert prog == [(Z, 0), (Z, 0), (O, 0), (O, 1), (A, 0), (O, 2)]
     assert ops.level_stack(prog) == 2
+    # rents' County level: five zeros nested, the term at the fourth
+    rents = [(Z, 0)] * 5 + [(A, 0), (P, 0), (A, 0), (A, 0), (A, 0), (A, 0)]
+    assert ops.level_program(rents) == [(Z, 0)] * 4 + [(O, 0)] + \
+        [(A, 0)] * 3
+    assert ops.level_stack(ops.level_program(rents)) == 4
+    # the folds keep the bits, a -0 and a NaN term included
+    x = torch.tensor([-0.0, 1.5, float("nan"), -3.0])
+    for c in (rents, code, [(Z, 0), (Z, 0), (A, 0), (Z, 0), (A, 0),
+                            (P, 0), (A, 0)]):
+        got = ops.level_sum_plain(ops.level_program(c),
+                                  [ops.level_dense(x)] * 3, 1)
+        stack = []   # the code as written, one torch add a step
+        for op, a in c:
+            if op == Z:
+                stack.append(torch.zeros(1))
+            elif op == P:
+                stack.append(x)
+            else:   # ADDOP adds the term, ADD the value above
+                b = x if op == O else stack.pop()
+                stack[-1] = stack[-1] + b
+        assert torch.equal(got.view(torch.int32),
+                           stack[0].expand(4).view(torch.int32))
     with pytest.raises(ValueError):
         ops.level_stack([(Z, 0), (Z, 0)])
     with pytest.raises(ValueError):
@@ -248,33 +273,49 @@ def _ld(ptr, dt, i):
     return np.float32(v) if dt == 6 else v
 
 
+def _divide(n, word):
+    """csrc/level_sum.cu's divide: (umulhi(n, magic) + n) >> shift."""
+    magic, shift = word & 0xffffffff, word >> 32
+    return (((n * magic) >> 32) + n) >> shift
+
+
 def _read_k20(words):
     """csrc/level_sum.cu's kernel, written out in Python over the plan:
-    every output element from its coordinates, each reference at its
-    strides, float32 arithmetic (one rounding a step)."""
+    each thread's place from its index by the plan's divisors (the merged
+    axes, the instantiation's elements a thread along the innermost), each
+    reference's offset from the coordinates and its innermost stride as a
+    step, float32 arithmetic (one rounding a step); the instantiation
+    holds the program's depth."""
     N, rank = words[0], words[1]
     sizes = words[2:2 + rank]
     n_refs, n_ops, n_prog = words[11], words[12], words[13]
-    refs = [words[16 + 10 * r: 26 + 10 * r] for r in range(n_refs)]
-    base = 16 + 10 * n_refs
+    tpr, rows, threads, div_tpr = words[14], words[15], words[16], words[17]
+    divs, kernel = words[18:25], words[25]
+    E = ops.K20_KERNELS[kernel][2]
+    assert threads == rows * tpr and rows * sizes[-1] == N
+    refs = [words[32 + 10 * r: 42 + 10 * r] for r in range(n_refs)]
+    base = 32 + 10 * n_refs
     opw = [words[base + 6 * i: base + 6 * i + 6] for i in range(n_ops)]
     prog = words[base + 6 * n_ops: base + 6 * n_ops + n_prog]
-    out = np.zeros(N, np.float32)
+    assert ops.level_stack([(w >> 32, w & 0xffffffff) for w in prog]) <= \
+        ops.K20_KERNELS[kernel][0]
+    out = np.full(N, np.nan, np.float32)
 
-    def at(r, coord):
+    def at(r, coord, c):
         rf = refs[r]
-        return _ld(rf[0], rf[1], sum(c * s for c, s in zip(coord,
-                                                             rf[2:])))
+        off = sum(x * st for x, st in zip(coord, rf[2:])) + \
+            c * rf[2 + rank - 1]
+        return _ld(rf[0], rf[1], off)
 
-    def operand(o, coord):
+    def operand(o, coord, c):
         kind = o[0]
         if kind == 0:
-            return at(o[1], coord)
-        st = int(at(o[3], coord)) if o[3] >= 0 and kind != 3 else o[4]
+            return at(o[1], coord, c)
+        st = int(at(o[3], coord, c)) if o[3] >= 0 and kind != 3 else o[4]
         if kind == 1:
             if st != 1:
                 return np.float32(0)
-            v, ov = at(o[1], coord), at(o[2], coord)
+            v, ov = at(o[1], coord, c), at(o[2], coord, c)
             if o[5] == 1:
                 v, ov = np.float32(v), np.float32(ov)
                 eq = abs(v - ov) <= np.float32(1e-6) * max(abs(ov),
@@ -285,29 +326,41 @@ def _read_k20(words):
                 eq = int(v) == int(ov)
             return np.float32(0) if eq else np.float32(NINF)
         if kind == 2:
-            return at(o[1], coord) if st == 1 else (
-                at(o[2], coord) if st == 2 else np.float32(0))
+            return at(o[1], coord, c) if st == 1 else (
+                at(o[2], coord, c) if st == 2 else np.float32(0))
         V = o[5]
-        a = min(max(int(at(o[1], coord)), 0), V - 1)
-        b = min(max(int(at(o[2], coord)), 0), V - 1)
+        a = min(max(int(at(o[1], coord, c)), 0), V - 1)
+        b = min(max(int(at(o[2], coord, c)), 0), V - 1)
         return _ld(o[4], 6, a * V + b)
 
-    for idx in range(N):
-        coord = np.unravel_index(idx, sizes)
-        stack = []
-        for w in prog:
-            op, arg = w >> 32, w & 0xffffffff
-            if op == ops.LEVEL_ZERO:
-                stack.append(np.float32(0))
-            elif op == ops.LEVEL_PUSH:
-                stack.append(np.float32(operand(opw[arg], coord)))
-            elif op == ops.LEVEL_ADD:
-                b = stack.pop()
-                stack[-1] = np.float32(stack[-1] + b)
-            else:
-                stack[-1] = np.float32(stack[-1] + operand(opw[arg], coord))
-        out[idx] = stack[0]
-    return out.reshape(sizes)
+    for t in range(threads):
+        row = _divide(t, div_tpr)
+        assert row == t // tpr
+        c0 = (t - row * tpr) * E
+        first = row * sizes[-1] + c0
+        coord = [0] * (rank - 1)
+        for d in range(rank - 2, 0, -1):
+            q = _divide(row, divs[d])
+            assert q == row // sizes[d]
+            coord[d], row = row - q * sizes[d], q
+        if rank > 1:
+            coord[0] = row
+        for j in range(min(E, sizes[-1] - c0)):
+            stack = []
+            for w in prog:
+                op, arg = w >> 32, w & 0xffffffff
+                if op == ops.LEVEL_ZERO:
+                    stack.append(np.float32(0))
+                elif op == ops.LEVEL_PUSH:
+                    stack.append(np.float32(operand(opw[arg], coord, c0 + j)))
+                elif op == ops.LEVEL_ADD:
+                    b = stack.pop()
+                    stack[-1] = np.float32(stack[-1] + b)
+                else:
+                    stack[-1] = np.float32(stack[-1] + operand(
+                        opw[arg], coord, c0 + j))
+            out[first + j] = stack[0]
+    return out
 
 
 @pytest.mark.parametrize("case", list(LEVEL_CASES))
@@ -317,7 +370,63 @@ def test_k20_plan_read_as_the_kernel_reads_it(case):
     assert shape == tuple(want.shape) and len(words) <= ops.K20_WORDS
     assert words[ops.K20_OUT] == 0   # the caller's output goes here
     got = _read_k20(words)
-    np.testing.assert_array_equal(got, want.numpy())
+    np.testing.assert_array_equal(got.reshape(shape), want.numpy())
+
+
+@pytest.mark.parametrize("case", list(LEVEL_CASES))
+def test_k20_cached_plan_takes_new_tensors(case):
+    """The plan a call takes from the structure cache (level_words: the
+    words built at the structure's first call, the call's pointers written
+    in) equals a fresh level_plan of the new tensors, word for word; the
+    same level at another B or label is another entry."""
+    prog, operands, rank, _want = _level(case, 5)
+    first = ops.level_words(prog, operands, rank, B=7, label="cache",
+                            card=False)
+    fresh = [{k: v.clone() if torch.is_tensor(v) else v for k, v in o.items()}
+             for o in operands]   # the same structure, new storage
+    got = ops.level_words(prog, fresh, rank, B=7, label="cache", card=False)
+    want, _shape = ops.level_plan(prog, fresh, rank, card=False)
+    assert len(got) == 1 and got[0] == want
+    assert first[0] != want   # the pointers moved
+    n = len(ops._K20_PLANS)
+    ops.level_words(prog, fresh, rank, B=8, label="cache", card=False)
+    assert len(ops._K20_PLANS) == n + 1
+
+
+def test_k20_merges_axes_every_reference_walks_as_one():
+    """level_axes: size-1 axes dropped, an axis folded into the one outside
+    it where every reference's outer stride is its inner stride times the
+    inner size (a broadcast reference's 0 and 0 included)."""
+    A = ops.level_axes
+    # rents' [256, 4,096, 2]: a [1, 4096, 2] term and a per-row [256, 1, 1]
+    assert A((256, 4096, 2), [[0, 2, 1], [1, 0, 0]]) == \
+        ([256, 8192], [[0, 1], [1, 0]])
+    assert A((1, 64), [[0, 1], [0, 0]]) == ([64], [[1], [0]])
+    assert A((1, 1), [[0, 0]]) == ([1], [[0]])
+    assert A((3, 4, 5), [[0, 5, 1], [20, 5, 1], [0, 0, 0]]) == \
+        ([3, 20], [[0, 1], [20, 1], [0, 0]])
+    assert A((3, 4, 5), [[0, 0, 1], [0, 1, 0]]) == \
+        ([3, 4, 5], [[0, 0, 1], [0, 1, 0]])
+    # the instantiation: 8 elements a thread for a wide shallow level
+    Z, A, P = ops.LEVEL_ZERO, ops.LEVEL_ADD, ops.LEVEL_PUSH
+    for shape, code, want in (
+            ((256, 4096, 2), [(Z, 0), (P, 0), (A, 0)], (2, True, 8)),
+            ((256, 4096, 2), [(Z, 0)] * 5 + [(A, 0), (P, 0)] + [(A, 0)] * 4,
+             (4, True, 8)),
+            ((256, 4096, 2), [(Z, 0)] * 6 + [(P, 0)] + [(A, 0)] * 6,
+             (8, True, 4)),
+            ((1, 512), [(Z, 0), (P, 0), (A, 0)], (2, True, 1)),
+            ((4, 5), [(Z, 0)] * 6 + [(P, 0)] + [(A, 0)] * 6, (8, True, 1)),
+            ((4, 5), [(Z, 0)] * 10 + [(P, 0)] + [(A, 0)] * 10,
+             (ops.K20_MAX_STACK, False, 4))):
+        words, _s = ops.level_plan(ops.level_program(code),
+                                   [ops.level_dense(torch.zeros(shape))],
+                                   len(shape), card=False)
+        assert ops.K20_KERNELS[words[ops._K20_KERNEL]] == want, shape
+    for d in (1, 2, 3, 7, 64, 1000, 4097, 2 ** 20 + 3):
+        w = ops._divider(d)
+        for n in (0, 1, d - 1, d, d + 1, 5 * d + 3, 2 ** 31 - 1):
+            assert _divide(n, w) == n // d
 
 
 def test_k20_plan_refuses_what_the_kernel_does_not_take():
@@ -743,6 +852,44 @@ def test_k20_cuda_at_a_batched_level(card):
     want = ops.level_sum_plain(prog, operands, 2)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [1, 3, 4, 7, 12])
+@pytest.mark.parametrize("shape", [(64, 301, 2), (128, 301, 2), (1, 1, 1),
+                                   (5, 3, 7)])
+def test_k20_cuda_every_instantiation(card, depth, shape):
+    """Programs of depth 1-12 (the register stacks of 2, 4 and 8 and the
+    local stack) over levels whose axes merge ([64, 301, 2] -> [64, 602])
+    or do not, ragged against 4 and 8 elements a thread (from K20_WIDE
+    elements; 1 below), one output: bit-equal to the
+    plain version, the instantiation the one the depth asks for."""
+    rng = np.random.default_rng(depth)
+    B, K, V = shape
+    t = lambda x: torch.as_tensor(x, device=card)  # noqa: E731
+    operands = [
+        ops.level_dense(t(rng.normal(0, 2, (1, K, V)).astype(np.float32))),
+        ops.level_dense(t(rng.normal(0, 2, (B, 1, 1)).astype(np.float32))),
+        ops.level_eq(t(rng.integers(0, 3, (1, K, V)).astype(np.int32)),
+                     t(rng.integers(0, 3, (B, 1, 1))),
+                     t(rng.integers(0, 3, (B, 1, 1)).astype(np.int8)), False),
+        ops.level_sel(t(rng.normal(0, 2, (B, K, V)).astype(np.float32)),
+                      t(np.float32(-3.5)), 2)]
+    P, Z, A, O = ops.LEVEL_PUSH, ops.LEVEL_ZERO, ops.LEVEL_ADD, \
+        ops.LEVEL_ADDOP
+    prog = [(Z, 0)] + [(P, k % 4) for k in range(depth - 1)] + \
+        [(O, 3), (O, 2)] + [(A, 0)] * (depth - 1) + [(O, 1)]
+    assert ops.level_stack(prog) == depth
+    words, _shape = ops.level_plan(prog, operands, 3)
+    d, narrow, e = ops.K20_KERNELS[words[ops._K20_KERNEL]]
+    assert narrow and d >= depth or (depth > 8 and not narrow)
+    assert e == ((8 if depth <= 4 else 4) if B * K * V >= ops.K20_WIDE
+                 else 1) or not narrow
+    assert words[1] == (1 if B * K * V == 1 else 2)   # [B, K x V]
+    got = ops.level_sum(prog, operands, 3, B=B, label="test")
+    want = ops.level_sum_plain(prog, operands, 3)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and torch.equal(got, want)
 
 
 @pytest.mark.cuda
