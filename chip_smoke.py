@@ -116,7 +116,8 @@ It drives the port only (never jax, never pclean_tpu), in order:
      final state and one scaled latent replay row on the scaled path's
      (the one-row sections: one replay of the row step's CUDA graph),
      printing each one's kernel launches, device ops
-     (a replay's graph nodes), host syncs (the runtime's synchronize
+     (a replay's graph nodes, its K20 nodes and K12/K13 launches beside
+     them), host syncs (the runtime's synchronize
      calls, and those PyTorch's sync debug mode flags), device-to-host
      copies, wall ms with and without the profiler, device busy ms, the
      card's idle share under the profiler and the busy ms over the wall
@@ -162,11 +163,15 @@ It drives the port only (never jax, never pclean_tpu), in order:
      eager runs also tally the parameter resampling's device ops
      (PARAM_MODULES);
   9. after all six paths, K12 fk_score and K13 choice_score at every
-     shape of the paths' launch census (class, enumeration rows, slots or
-     options; seeded inputs of that shape, K13's rows in states 0, 1 and
+     shape of the paths' launch census holding >= SHAPE_SHARE of a path's
+     launches (enumeration rows, slots or options, and each fused child
+     level's shape and operand kinds) and at the most launched shape of
+     every other (R, K) (seeded inputs of that shape, the
+     levels rebuilt from ops.CENSUS_FIELDS, K13's rows in states 0, 1 and
      2 in turn, and again with every row observed and with a static code)
-     against their plain versions, timed beside them, torch.logsumexp
-     over the record and the bytes bound (bench_score_shapes); K14 and
+     against their plain versions on both geometries (the plan's and the
+     other: ops.score_spread), timed beside them, torch.logsumexp over
+     the record and the bytes bound (bench_score_shapes); K14 and
      K15 timed at every census shape holding >= SHAPE_SHARE of a path's
      launches, beside their plain versions, the library call of the
      count alone (index_add_; K15: index_copy_ of one column) and the
@@ -182,7 +187,8 @@ It drives the port only (never jax, never pclean_tpu), in order:
      plain versions and the bytes bound, no library call
      (bench_level_shapes); K22 and K23 at every census shape checked,
      beside their plain versions, K22's library call
-     (torch._standard_gamma at the same alphas) and the bound, the larger
+     (torch._standard_gamma at the same alphas, and
+     torch._sample_dirichlet over the same rows) and the bound, the larger
      of the bytes and the operations the inputs need (bench_param_shapes);
      then the limits phase (limits_phase): workloads/limits.py's
      synthetic model, past every old single-launch limit, through
@@ -847,55 +853,82 @@ def row_entry(name: str, shapes: list) -> dict:
 
 
 def bench_score_shapes(ops, dev, runs: dict, floor) -> dict:
-    """K12 and K13 at every shape of every path's launch census (class,
-    enumeration rows R, slots or options K), on seeded inputs of that
-    shape (kernel_bench.k12_inputs, k13_inputs): checked against the plain
-    version (record bit-equal, logZ within K1's rule), timed beside it and
-    torch.logsumexp over the record (the logsumexp alone), with the bytes
-    bound of the timed inputs. K13 is timed with its rows' states 0, 1, 2
-    in turn (one row: 0, which reads the enum logits) and also checked
-    with every row observed (the delta) and with the static code of a
-    choice with no observation (kernel_bench.K13_CHECKS). Each distinct
-    (R, K) once, with its launches on every path. Returns {kernel: [one
-    dict per shape]}."""
+    """K12 and K13 at every shape of a path's launch census holding >=
+    SHAPE_SHARE of its launches of the kernel (R, slots or options K, and
+    each fused child level's shape and operand kinds: the mode less its
+    class), and at the most launched shape of every (R, K) that no such
+    shape covers (marked "[rare]"), on seeded inputs of that shape
+    (kernel_bench.k12_inputs, k13_inputs: the child levels rebuilt from
+    ops.CENSUS_FIELDS): checked
+    against the plain version (record bit-equal, logZ within K1's rule),
+    timed beside it and torch.logsumexp over the record (the logsumexp
+    alone), with the bytes bound of the timed inputs (the levels' bytes
+    included), and the other geometry's device ms beside the plan's (a
+    plan's K1 geometry where it spreads the slots, else "slots":
+    ops.score_spread).
+    K13 is timed with its rows' states 0, 1, 2 in turn (one row: 0, which
+    reads the enum logits) and also checked with every row observed (the
+    delta) and with the static code of a choice with no observation
+    (kernel_bench.K13_CHECKS). Each distinct shape once, with its
+    launches on every path. Returns {kernel: [one dict per shape]}."""
     from pclean_tpu_torch import kernel_bench as kb
 
     out = {}
     for name, make, nbytes in (("fk_score", kb.k12_inputs, kb.k12_bytes),
                                ("choice_score", kb.k13_inputs,
                                 kb.k13_bytes)):
-        shapes: dict = {}
+        every: dict = {}
         for path, r in runs.items():
             for c in kb.score_census(r["census"], name):
-                sh = shapes.setdefault((c["R"], c["K"]), dict(
-                    R=c["R"], K=c["K"], classes=set(), launches_by_path={}))
-                sh["classes"].add(c["mode"].rsplit(" ", 1)[0])
+                sh = every.setdefault((c["R"], c["K"], c["shape"]), dict(
+                    R=c["R"], K=c["K"], classes=set(), launches_by_path={},
+                    fields=ops.CENSUS_FIELDS[name][c["mode"]], share=0.0))
+                sh["classes"].add(c["mode"].split(" ", 1)[0])
                 lp = sh["launches_by_path"]
                 lp[path] = lp.get(path, 0) + c["launches"]
+                sh["share"] = max(sh["share"], c["share"])
+        shapes = {k: sh for k, sh in every.items()
+                  if sh["share"] >= SHAPE_SHARE}
+        for k, sh in sorted(every.items(), key=lambda kv: -sum(
+                kv[1]["launches_by_path"].values())):
+            if not any(j[:2] == k[:2] for j in shapes):
+                shapes[k] = dict(sh, rare=True)
         out[name] = []
-        for (R, K), sh in sorted(shapes.items()):
-            inp = make(dev, R, K)
+        mode = "fk" if name == "fk_score" else "choice"
+        for (R, K, shape), sh in sorted(shapes.items()):
+            inp = make(dev, R, K, fields=sh["fields"])
             b = nbytes(inp)
+            spread = ops.score_spread(R)
+            plan = (ops.fk_score_plan if name == "fk_score"
+                    else ops.choice_score_plan)(R, K, spread)
+            alt = "slots" if plan["path"] != "slots" else \
+                ops.enum_logsumexp_plan(R, K, mode)["path"].replace(
+                    "split", "block")
+            alt_fn = kb._score_fns(ops, name, alt)[0]
             err = kb.check_score(ops, name, inp)
+            err = max(err, kb.check_score(ops, name, inp, path=alt))
             if name == "choice_score":
                 for state in kb.K13_CHECKS:
-                    err = max(err, kb.check_score(
-                        ops, name, make(dev, R, K, state=state)))
-            x = dict(shape=f"R {R}, K {K} ({', '.join(sorted(sh['classes']))})",
+                    err = max(err, kb.check_score(ops, name, make(
+                        dev, R, K, state=state, fields=sh["fields"])))
+            x = dict(shape=f"R {R}, K {K}, {shape} "
+                     f"({', '.join(sorted(sh['classes']))})"
+                     + (" [rare]" if sh.get("rare") else ""),
                      rows="r1", R=R, K=K,
                      launches=sum(sh["launches_by_path"].values()),
                      launches_by_path=sh["launches_by_path"],
                      max_abs_err=err, bytes=b,
                      bound_ms=b / kb.HBM_BYTES_PER_S * 1e3, floor_ms=floor,
-                     plan=(ops.fk_score_plan(R, K) if name == "fk_score"
-                           else ops.choice_score_plan(R, K)),
+                     plan=plan, spread=spread, alt_path=alt,
+                     alt_device_ms=kb.graph_ms(lambda: alt_fn(*inp["args"])),
                      **kb.time_score(ops, name, inp))
             out[name].append(x)
             print(f"{name} {x['shape']} ({x['launches']} launches "
                   f"{x['launches_by_path']}): max_abs_err "
                   f"{x['max_abs_err']:.3g} kernel {x['ms']:.4f} ms (device "
-                  f"{x['device_ms']:.4f} ms) plain {x['plain_ms']:.4f} ms "
-                  f"torch.logsumexp {x['library_ms']:.4f} ms (device "
+                  f"{x['device_ms']:.4f} ms; {alt} "
+                  f"{x['alt_device_ms']:.4f} ms) plain {x['plain_ms']:.4f} "
+                  f"ms torch.logsumexp {x['library_ms']:.4f} ms (device "
                   f"{x['library_device_ms']:.4f} ms) bound "
                   f"{x['bound_ms']:.7f} ms floor {floor:.4f} ms plan "
                   f"{x['plan']}", flush=True)
@@ -1285,8 +1318,10 @@ def param_checks(ops, dev, census, path: str) -> dict:
 def bench_param_shapes(ops, dev, checked: dict, floor) -> dict:
     """K22 and K23 timed at each distinct census shape checked (a call
     shape: its descriptors or classes), on seeded inputs: kernel ms and
-    device ms, the plain version, K22's library call (torch._standard_gamma
-    at the same alphas: one PyTorch call drawing the same gammas), and the
+    device ms, the plain version, K22's library calls (torch._standard_gamma
+    at the same alphas: one PyTorch call drawing the same gammas; and
+    torch._sample_dirichlet over each descriptor's rows, the same
+    Dirichlet rows or Beta pairs, kernel_bench.dirichlet_library), and the
     bound: the larger of the bytes over 3.35 TB/s and the operations the
     inputs need (K22: its draws' rounds on this stream; K23: three scores
     of every counted slot) over 67 TFLOP/s (kernel_bench.k22_bounds,
@@ -1318,6 +1353,10 @@ def bench_param_shapes(ops, dev, checked: dict, floor) -> dict:
             lib = "none" if x["library_ms"] is None else \
                 f"{x['library_ms']:.4f} ms (device " \
                 f"{x['library_device_ms']:.4f} ms)"
+            if x.get("dirichlet_ms") is not None:
+                lib += (f"; torch._sample_dirichlet x "
+                        f"{x['dirichlet_calls']} {x['dirichlet_ms']:.4f} ms "
+                        f"(device {x['dirichlet_device_ms']:.4f} ms)")
             print(f"{name} {mode} ({x['launches']} launches "
                   f"{x['launches_by_path']}): kernel {x['ms']:.4f} ms "
                   f"(device {x['device_ms']:.4f} ms) plain "
@@ -1349,7 +1388,7 @@ LIMITS_F1_FLOOR = 0.9
 # axes, K18 hops, K20 levels; K10's larger block and K11's split writes
 # run in the shadow rows)
 LIMIT_WRAPPERS = ("row_gather", "referrer_hist", "rel_scatter",
-                  "batch_write", "choice_sample", "level_sum")
+                  "batch_write", "choice_sample", "level_sum", "fk_score")
 # and the wrappers that must have split or raised on its run (ops.SPLITS)
 LIMIT_SPLITS = LIMIT_WRAPPERS + ("row_delta", "row_write")
 
@@ -1949,6 +1988,12 @@ def trace_sections(path, cm, config, state=None) -> dict:
                   f"{e.get('param_resampling')} ({', '.join(PARAM_MODULES)})"
                   f"; by function: "
                   f"{e['by_function'][:30]}", flush=True)
+            k = e["by_kernel"]
+            r["k20_nodes"] = k.get("level_sum", 0)
+            print(f"trace {name}: K20 nodes {r['k20_nodes']} of "
+                  f"{r['device_ops']:.1f} device ops (graph nodes), beside "
+                  f"K12 {k.get('fk_score', 0)} and K13 "
+                  f"{k.get('choice_score', 0)}", flush=True)
         print(f"trace {name}: wall {r['wall_ms']:.3f} ms (without the "
               f"profiler {r['wall_plain_ms']:.3f} ms), device busy "
               f"{r['busy_ms']:.3f} ms, idle share {f4(r['idle_share'])} "

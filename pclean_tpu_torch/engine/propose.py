@@ -31,7 +31,8 @@ spots go through the hand kernels of ops.py:
     _matmul_obs_term/_mm_flush frames, as a gather-accumulate instead of
     a one-hot contraction);
   * K12 fk_score, K13 choice_score: at one row, a foreign key's or an
-    enumerable choice's record and logZ from K20's children;
+    enumerable choice's record and logZ, its child levels (handed over
+    unsummed, ops.Level) summed in the same launch by K20's own code;
   * K4 gauss_suffstats: the per-segment sufficient statistics behind a
     closed-form Gaussian external (referrer_histograms);
   * K5 gauss_ext_term: that external's term for every row and option of a
@@ -346,14 +347,17 @@ class BlockTracer:
         """The code pushing a dense term."""
         return [(ops.LEVEL_PUSH, self._operand(ops.level_dense(x)))]
 
-    def _level_sum(self, depth: int, score):
+    def _level_sum(self, depth: int, score, fuse: bool = False):
         """One level (the terms between two logsumexps): score() builds
         its postfix code (score_plan's), then the level's deferred AddTypos
         columns are added at its end, each frame depth's in one sum from 0
         (at one row K20's gathers; over B rows one K3 launch over the
         columns, its output a dense term), and the whole sums in one K20
         launch (ops.level_sum) into a buffer [B or 1, axes...] of the
-        eager sum's shape. A level without terms is a constant 0."""
+        eager sum's shape. With `fuse` at one row (the level's only reader
+        is K12 or K13) the level itself, unsummed (ops.Level): the score
+        kernel sums it in its own launch. A level without terms is a
+        constant 0."""
         lvl = _Level()
         self._levels.append(lvl)
         code = score()
@@ -384,8 +388,11 @@ class BlockTracer:
         if not lvl.operands:
             return self.cm.const(0.0, torch.float32).reshape(
                 (1,) * (1 + depth))
-        return ops.level_sum(ops.level_program(code), lvl.operands,
-                             1 + depth, B=self.B, label=self.cid)
+        prog = ops.level_program(code)
+        if fuse and self.B == 1:
+            return ops.Level(prog, lvl.operands, 1 + depth, self.cid)
+        return ops.level_sum(prog, lvl.operands, 1 + depth, B=self.B,
+                             label=self.cid)
 
     # ------------------------------------------------------------- scoring
 
@@ -544,12 +551,12 @@ class BlockTracer:
                          .reshape((1,) * (1 + depth) + (V,)))
         self._enum_axis[vid] = depth + 1
         children = self._level_sum(depth + 1, lambda: self.score_plan(
-            step.rest, depth + 1, mode, ctx_key))
+            step.rest, depth + 1, mode, ctx_key), fuse=True)
         del self._enum_axis[vid]
         self.axes.pop()
         if self.B == 1:
-            # one row: the delta, the children and the logsumexp in one
-            # K13 launch
+            # one row: the children's level, the delta and the logsumexp
+            # in one K13 launch
             if ov is None:
                 obs_ld = ova = st = None
             elif torch.is_tensor(st):
@@ -579,11 +586,15 @@ class BlockTracer:
             K = cap
             slot_ids = self.cm.arange(K)
         full = self._full(depth)
+        # one row on the full candidate axis: both children's levels go
+        # unsummed into K12
+        fuse = comp is None and self.B == 1
 
         self.axes.append(K)
         self.env[vid] = (depth + 1, slot_ids.reshape((1,) * (1 + depth) + (K,)))
         ch_e = self._level_sum(depth + 1, lambda: self.score_plan(
-            step.rest, depth + 1, {**mode, vid: "E"}, ctx_key + ((vid, "E"),)))
+            step.rest, depth + 1, {**mode, vid: "E"}, ctx_key + ((vid, "E"),)),
+            fuse)
         self.axes.pop()
 
         self.env[vid] = (depth, self.cm.const(0, torch.long).reshape(
@@ -591,12 +602,13 @@ class BlockTracer:
         # the N branch scores at the caller's depth but its terms belong to
         # this fk's "new" logit only
         ch_n = self._level_sum(depth, lambda: self.score_plan(
-            step.rest, depth, {**mode, vid: "N"}, ctx_key + ((vid, "N"),)))
+            step.rest, depth, {**mode, vid: "N"}, ctx_key + ((vid, "N"),)),
+            fuse)
         r = self.rel[tc]
         s, d = self._py_sd(tc)
-        if comp is None and self.B == 1:
-            # one row on the full candidate axis: the prior, the children
-            # and the logsumexp in one K12 launch
+        if fuse:
+            # the children's levels, the prior and the logsumexp in one
+            # K12 launch
             rec, logz = ops.fk_score(r["refcount"], r["alive"], r["total"],
                                      r["nrows"], s, d, ch_e, ch_n, full,
                                      cls=tc)

@@ -108,6 +108,7 @@ and torch.where of one pair (`time_sample`, `sample_bytes`). K20 and K21
 from __future__ import annotations
 
 import argparse
+import functools
 import importlib
 import importlib.util
 import json
@@ -1495,6 +1496,8 @@ def row_state(cm, seed: int = 0, oob: float = 0.05, device="cuda"):
 def _tree_map(x, fn):
     if isinstance(x, dict):
         return {k: _tree_map(v, fn) for k, v in x.items()}
+    if isinstance(x, tuple) and hasattr(x, "_fields"):   # ops.Level
+        return type(x)(*(_tree_map(v, fn) for v in x))
     if isinstance(x, (list, tuple)):
         return type(x)(_tree_map(v, fn) for v in x)
     return fn(x) if torch.is_tensor(x) else x
@@ -1833,26 +1836,44 @@ def time_k11(ops, eng, arenas, params, census: list, floor: float,
 
 def score_census(census: list, kernel: str) -> list:
     """K12's or K13's census rows (kernel "fk_score" or "choice_score"),
-    each with its enumeration rows R (from the mode "class R")."""
-    return [dict(r, R=int(r["mode"].split(" ")[-1])) for r in census
+    each with its enumeration rows R (from the mode "class R ...") and
+    its mode without the class (`shape`: R and the child levels' shapes
+    and kinds)."""
+    return [dict(r, R=int(r["mode"].split(" ")[1]),
+                 shape=r["mode"].split(" ", 1)[1]) for r in census
             if r["kernel"] == kernel]
 
 
-def k12_inputs(dev, R: int, K: int, seed: int = 0) -> dict:
+def _bench_level(dev, f: dict, seed: int):
+    """A seeded child level from its census fields (k20_inputs)."""
+    from . import ops
+
+    prog, operands, rank = k20_inputs(dev, f, seed)["args"]
+    return ops.Level(prog, operands, rank, "bench")
+
+
+def k12_inputs(dev, R: int, K: int, seed: int = 0, fields=None) -> dict:
     """Seeded K12 inputs of R enumeration rows and K slots: refcounts 0-5
     with a fifth of the slots dead, total and nrows int64 as refresh keeps
-    them, strength and discount device scalars, children [1, R, K] (a
-    tenth NEG_INF) and new_children [1, R] (R = 1: [1, K] and [1])."""
+    them, strength and discount device scalars; the children: with a
+    census shape's `fields` (ops.CENSUS_FIELDS) its two levels rebuilt
+    seeded (_bench_level: its program, operand kinds, shapes and dtypes)
+    over its rows `full`, else tensors ch_e [1, R, K] (a tenth NEG_INF)
+    and ch_n [1, R] (R = 1: [1, K] and [1])."""
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
-    full = (1,) if R == 1 else (1, R)
+    full = tuple(fields["full"]) if fields else ((1,) if R == 1 else (1, R))
     refc = torch.randint(0, 6, (K,), generator=g, device=dev,
                          dtype=torch.int32)
     alive = torch.rand((K,), generator=g, device=dev) >= 0.2
-    ch = torch.randn(full + (K,), generator=g, device=dev) * 2.0
-    ch = torch.where(torch.rand(full + (K,), generator=g, device=dev) < 0.1,
-                     torch.full_like(ch, -1e30), ch)
-    nch = torch.randn(full, generator=g, device=dev)
+    if fields:
+        ch = _bench_level(dev, fields["level_e"], seed + 1)
+        nch = _bench_level(dev, fields["level_n"], seed + 2)
+    else:
+        ch = torch.randn(full + (K,), generator=g, device=dev) * 2.0
+        ch = torch.where(torch.rand(full + (K,), generator=g, device=dev)
+                         < 0.1, torch.full_like(ch, -1e30), ch)
+        nch = torch.randn(full, generator=g, device=dev)
     return dict(args=(refc, alive, (refc * alive).sum(), alive.sum(),
                       torch.full((), 1.5, device=dev),
                       torch.full((), 0.25, device=dev), ch, nch, full),
@@ -1865,18 +1886,23 @@ def k12_inputs(dev, R: int, K: int, seed: int = 0) -> dict:
 K13_CHECKS = (1, "static")
 
 
-def k13_inputs(dev, R: int, V: int, seed: int = 0, state="rows") -> dict:
-    """Seeded K13 inputs of R enumeration rows and V options: enum and
-    children [1, R, V], obs_ld [1, R] and the observed code on the batch
-    axis. `state`: "rows", an int8 flag per enumeration row, 0, 1, 2 in
-    turn (0 unobserved and 2 missing read the enum logits, 1 the delta;
-    one row: 0); an int, that flag on every row (on the batch axis);
-    "static", no observation and the static code 0."""
+def k13_inputs(dev, R: int, V: int, seed: int = 0, state="rows",
+               fields=None) -> dict:
+    """Seeded K13 inputs of R enumeration rows and V options: enum [1, R,
+    V], obs_ld [1, R] and the observed code on the batch axis; the
+    children: with a census shape's `fields` its level rebuilt seeded
+    (_bench_level) over its rows `full`, else a tensor [1, R, V].
+    `state`: "rows", an int8 flag per enumeration row, 0, 1, 2 in turn (0
+    unobserved and 2 missing read the enum logits, 1 the delta; one row:
+    0); an int, that flag on every row (on the batch axis); "static", no
+    observation and the static code 0."""
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
-    full = (1,) if R == 1 else (1, R)
+    full = tuple(fields["full"]) if fields else ((1,) if R == 1 else (1, R))
     en = torch.randn(full + (V,), generator=g, device=dev)
     ch = torch.randn(full + (V,), generator=g, device=dev)
+    if fields:
+        ch = _bench_level(dev, fields["level"], seed + 1)
     ld = torch.randn(full, generator=g, device=dev) - 2.0
     lead = (1,) * len(full)
     obs = torch.randint(0, V, lead, generator=g, device=dev,
@@ -1890,23 +1916,36 @@ def k13_inputs(dev, R: int, V: int, seed: int = 0, state="rows") -> dict:
     return dict(args=(en, ch, full, ld, obs, st), R=R, K=V)
 
 
+def child_bytes(x) -> int:
+    """A child's bytes read once: a tensor's elements, or a fused level's
+    (each reference's elements and each gather's distinct matrix entries,
+    as level_bytes counts them, without an output)."""
+    from . import ops
+
+    if not isinstance(x, ops.Level):
+        return x.numel() * x.element_size()
+    shape = ops.level_shape(x.operands, x.rank)
+    inp = dict(kernel="level_sum", args=(x.prog, x.operands, x.rank))
+    return level_bytes(inp) - 4 * int(np.prod(shape))
+
+
 def k12_bytes(inp: dict) -> int:
-    """K12's bytes: refcount, alive, total, nrows, strength, discount, the
-    children and new children read once, the record [R, K + 1] and logZ
+    """K12's bytes: refcount, alive, total, nrows, strength, discount and
+    the children (child_bytes) read once, the record [R, K + 1] and logZ
     written once."""
     refc, alive, tot, nr, s, d, ch, nch, _full = inp["args"]
     R, K = inp["R"], inp["K"]
     n = sum(t.numel() * t.element_size() for t in (refc, alive, tot, nr, s,
-                                                   d, ch, nch))
-    return n + 4 * R * (K + 1) + 4 * R
+                                                   d))
+    return n + child_bytes(ch) + child_bytes(nch) + 4 * R * (K + 1) + 4 * R
 
 
 def k13_bytes(inp: dict) -> int:
-    """K13's bytes on these inputs: the children and the state read once;
-    the enum logits only of the rows not in state 1 (k13_inputs gives them
-    one [V] row each), obs_ld of the rows in state 1 and the observed code
-    (one, on the batch axis) where any row is; the record [R, V] and logZ
-    written once."""
+    """K13's bytes on these inputs: the children (child_bytes) and the
+    state read once; the enum logits only of the rows not in state 1
+    (k13_inputs gives them one [V] row each), obs_ld of the rows in state
+    1 and the observed code (one, on the batch axis) where any row is;
+    the record [R, V] and logZ written once."""
     en, ch, full, ld, obs, st = inp["args"]
     R, V = inp["R"], inp["K"]
     if obs is None:
@@ -1915,7 +1954,7 @@ def k13_bytes(inp: dict) -> int:
         seen = int((st.expand(full) == 1).sum())
     else:
         seen = R if st == 1 else 0
-    n = ch.numel() * ch.element_size() + (R - seen) * V * en.element_size()
+    n = child_bytes(ch) + (R - seen) * V * en.element_size()
     if torch.is_tensor(st):
         n += st.numel() * st.element_size()
     if seen:
@@ -1923,12 +1962,23 @@ def k13_bytes(inp: dict) -> int:
     return n + 4 * R * V + 4 * R
 
 
-def time_score(ops, kernel: str, inp: dict) -> dict:
-    """K12 or K13 on these inputs beside its plain version and the library
-    call of its logsumexp alone (torch.logsumexp over the record): ms
-    (cuda_ms) and device_ms (graph_ms) of each."""
+def _score_fns(ops, kernel: str, path=None):
+    """(the wrapper, its plain version); with `path`, the launch with its
+    geometry forced (ops._fk_score, ops._choice_score)."""
     fn, plain = (ops.fk_score, ops.fk_score_plain) if kernel == "fk_score" \
         else (ops.choice_score, ops.choice_score_plain)
+    if path is not None:
+        forced = ops._fk_score if kernel == "fk_score" else ops._choice_score
+        fn = functools.partial(forced, path=path)
+    return fn, plain
+
+
+def time_score(ops, kernel: str, inp: dict, path=None) -> dict:
+    """K12 or K13 on these inputs (the child levels summed in the launch;
+    `path` forces one of ops.SCORE_PATHS) beside its plain version and the
+    library call of its logsumexp alone (torch.logsumexp over the record):
+    ms (cuda_ms) and device_ms (graph_ms) of each."""
+    fn, plain = _score_fns(ops, kernel, path)
     args = inp["args"]
     rec, _z = plain(*args)
     lib = lambda: torch.logsumexp(rec, dim=1)  # noqa: E731
@@ -1938,11 +1988,11 @@ def time_score(ops, kernel: str, inp: dict) -> dict:
                 library_ms=cuda_ms(lib), library_device_ms=graph_ms(lib))
 
 
-def check_score(ops, kernel: str, inp: dict) -> float:
-    """K12 or K13 against its plain version on the card: record bit-equal,
-    logZ within K1's rule (check_k1). Returns max |dlogZ|."""
-    fn, plain = (ops.fk_score, ops.fk_score_plain) if kernel == "fk_score" \
-        else (ops.choice_score, ops.choice_score_plain)
+def check_score(ops, kernel: str, inp: dict, path=None) -> float:
+    """K12 or K13 against its plain version on the card (`path` forces
+    one of ops.SCORE_PATHS): record bit-equal, logZ within K1's rule
+    (check_k1). Returns max |dlogZ|."""
+    fn, plain = _score_fns(ops, kernel, path)
     r0, z0 = plain(*inp["args"])
     r1, z1 = fn(*inp["args"])
     torch.cuda.synchronize()
@@ -2438,7 +2488,22 @@ AB_K20_GATHERS = (  # (label, candidates, gathers, V): the hospital Record
     # row's slowest K20 launch
     ("one row [1, 512] 11 gathers", 512, 11, 1133),
 )
-AB_KINDS = ("k1-k3", "k4", "k5", "k6", "k7", "k8", "k9", "k18", "k20")
+AB_SCORE = (  # K12's and K13's levels in the A/B: (label, kernel, slots or
+    # options, gathers of the child level, the gathers' V): the hospital
+    # Record block's K12 into its 512 Hospital candidates, whose child
+    # level carries 11 deferred AddTypos columns (a graphed ramp row's
+    # slowest level), and a K13 of 23 options with its one-gather level
+    # (hospital's Measure name); each as the parent's pair (K20, then the
+    # score kernel on its sum) and, where the tree has ops.Level, fused
+    ("K12 hospital Record [1, 512] 11 gathers", "fk_score", 512, 11, 1133),
+    ("K13 [1, 23] 1 gather", "choice_score", 23, 1, 1133),
+)
+AB_K22 = (  # K22's shapes in the A/B: (label, descriptors (mode, rows,
+    # width, counts)): rents' County Proportions, one Dirichlet row of 51
+    ("rents [1, 51] Dirichlet", (("dirichlet_log", 1, 51, True),)),
+)
+AB_KINDS = ("k1-k3", "k4", "k5", "k6", "k7", "k8", "k9", "k12", "k13",
+            "k18", "k20", "k22")
 
 
 def host_us(fn, n: int = 2000) -> float:
@@ -2476,24 +2541,6 @@ def k18_ab_call(ops, inp):
         return lambda: ops.row_gather_group(s, chains, label="ab")
     return lambda: [ops.row_gather(s, h, leaf, label="ab")
                     for h, leaf in chains]
-
-
-def k20_ab_bytes(inp: dict) -> int:
-    """An A/B K20 level's bytes (level_bytes' count, defined here for the
-    A/B, which runs before the rest of the module): each reference's
-    elements, each gather's distinct matrix entries, the output."""
-    from . import ops
-
-    n = 4 * math.prod(ops.level_shape(inp["operands"], inp["rank"]))
-    for o in inp["operands"]:
-        n += sum(t.numel() * t.element_size()
-                 for _n, t in ops._level_tensors(o))
-        if o["kind"] == "gather":
-            V = o["M"].shape[0]
-            cell = o["obs"].long().clamp(0, V - 1) * V + \
-                o["word"].long().clamp(0, V - 1)
-            n += 4 * int(torch.unique(cell.expand(o["shape"])).numel())
-    return n
 
 
 def k20_gather_inputs(dev, K: int, n: int, V: int, seed: int = 0):
@@ -2535,6 +2582,77 @@ def k20_ab_inputs(dev, shape, x_shape, depth: int, seed: int = 0):
     return dict(prog=prog, operands=[ops.level_dense(x)], rank=len(shape))
 
 
+def score_ab_inputs(dev, kernel: str, K: int, n: int, V: int,
+                    seed: int = 0) -> dict:
+    """An A/B score call's inputs, as the tracer makes them at one row:
+    K12's leaves and counts (k12_inputs) with ch_e the [1, K] level of n
+    deferred gathers (k20_gather_inputs) and ch_n [1] two dense terms;
+    K13's enum, observation and per-row state (k13_inputs) with the
+    [1, K] gather level. The levels as (prog, operands, rank): each tree
+    folds the program (level_program) and makes its own Level."""
+    rng = np.random.default_rng(seed)
+    lv = k20_gather_inputs(dev, K, n, V, seed)
+    e = (lv["prog"], lv["operands"], 2)
+    if kernel == "choice_score":
+        inp = k13_inputs(dev, 1, K, seed)
+        return dict(kernel=kernel, head=inp["args"][:1],
+                    tail=inp["args"][2:], levels=[e], R=1, K=K)
+    from . import ops
+
+    inp = k12_inputs(dev, 1, K, seed)
+    x = [torch.as_tensor(rng.normal(0, 2, (1,)).astype(np.float32),
+                         device=dev) for _ in range(2)]
+    Z, O = ops.LEVEL_ZERO, ops.LEVEL_ADDOP
+    nl = ([(Z, 0), (O, 0), (O, 1)], [ops.level_dense(t) for t in x], 1)
+    return dict(kernel=kernel, head=inp["args"][:6], tail=inp["args"][8:],
+                levels=[e, nl], R=1, K=K)
+
+
+def score_ab_call(ops, inp: dict, fused: bool):
+    """The tree's call of an A/B score input: the parent's pair (each
+    level summed by K20, then the score kernel on the sums) or, fused,
+    the levels handed to the score kernel (None where the tree has no
+    ops.Level)."""
+    if fused and not hasattr(ops, "Level"):
+        return None
+    fn = getattr(ops, inp["kernel"])
+    lvs = [(ops.level_program(p), o, r) for p, o, r in inp["levels"]]
+    if fused:
+        lvs = [ops.Level(p, o, r, "ab") for p, o, r in lvs]
+        return lambda: fn(*inp["head"], *lvs, *inp["tail"])
+    return lambda: fn(*inp["head"], *[ops.level_sum(p, o, r, B=1,
+                                                    label="ab")
+                                      for p, o, r in lvs], *inp["tail"])
+
+
+def score_ab_bytes(inp: dict) -> int:
+    """An A/B score call's bytes: the kernel's own inputs and outputs and
+    its child levels' (k12_bytes, k13_bytes: each reference once, each
+    gather's distinct matrix entries once)."""
+    from . import ops
+
+    lvs = [ops.Level(ops.level_program(p), o, r, "ab")
+           for p, o, r in inp["levels"]]
+    args = tuple(inp["head"]) + tuple(lvs) + tuple(inp["tail"])
+    f = k12_bytes if inp["kernel"] == "fk_score" else k13_bytes
+    return f(dict(args=args, R=inp["R"], K=inp["K"]))
+
+
+def dirichlet_library(descs):
+    """The PyTorch calls drawing the same Dirichlet rows or Beta pairs as
+    a K22 call (torch._sample_dirichlet over each descriptor's alphas, a
+    Beta pair as a two-entry row; no log, which K22 also takes in
+    dirichlet_log mode), and how many calls that is; None where a
+    descriptor draws plain gammas."""
+    from . import ops
+
+    if any(d["mode"] == "gamma" for d in descs):
+        return None, 0
+    alphas = [ops._desc_alpha(d).contiguous() for d in descs]
+    return (lambda: [torch._sample_dirichlet(a) for a in alphas]), \
+        len(alphas)
+
+
 def ab_seeded(dev, kinds) -> dict:
     """The A/B's seeded K4-K8 inputs, {label: (kernel, inputs)}: K7 at
     AB_K7 (k7_seeded, one hop, as scaled's, rents' and hospital's hoisted
@@ -2546,6 +2664,15 @@ def ab_seeded(dev, kinds) -> dict:
     flights' 100 flights over 2,376 rows), K8 at AB_K8 (k8_seeded) and K9
     at AB_K9 (k9_inputs, resample with the retained particle)."""
     out = {}
+    for label, kernel, K, n, V in AB_SCORE:
+        if f"k{12 if kernel == 'fk_score' else 13}" in kinds:
+            inp = score_ab_inputs(dev, kernel, K, n, V)
+            for form in ("pair", "fused"):
+                out[f"{label} {form}"] = (kernel, dict(inp, form=form))
+    if "k22" in kinds:
+        for label, descs in AB_K22:
+            out["K22 " + label] = ("gamma_draw",
+                                   k22_inputs(dev, dict(descs=descs)))
     if "k18" in kinds:
         for label, N, chains, n in AB_K18:
             out["K18 " + label] = ("row_gather",
@@ -2617,6 +2744,32 @@ def time_ab_seeded(ops, kernel: str, inp: dict) -> dict:
                     library_ms=None if lib is None else cuda_ms(lib),
                     library_device_ms=None if lib is None else graph_ms(lib),
                     library_host_us=None if lib is None else host_us(lib))
+    if kernel in ("fk_score", "choice_score"):
+        call = score_ab_call(ops, inp, inp["form"] == "fused")
+        if call is None:
+            return None
+        r1, z1 = call()
+        pl = [ops.level_sum_plain(ops.level_program(p), o, r)
+              for p, o, r in inp["levels"]]
+        r0, z0 = getattr(ops, kernel + "_plain")(*inp["head"], *pl,
+                                                 *inp["tail"])
+        torch.cuda.synchronize()
+        d = (z1 - z0).abs()
+        scale = torch.maximum(z0.abs(), r0.amax(-1).abs())
+        require(torch.equal(r1, r0) and bool(((d <= 1e-6 * scale)
+                                              | (z1 == z0)).all()),
+                f"{kernel} {inp['form']} differs from its plain version in "
+                f"the A/B")
+        return dict(ms=cuda_ms(call), device_ms=graph_ms(call),
+                    host_us=host_us(call), library_ms=None,
+                    library_device_ms=None)
+    if kernel == "gamma_draw":
+        check_k22(ops, inp)
+        t = time_k22(ops, inp)
+        t.pop("plain_ms")
+        t["host_us"] = host_us(lambda: ops.gamma_draw(inp["descs"],
+                                                      inp["seed"]))
+        return t
     if kernel == "level_sum":   # the code as the tree's tracer folds it
         args = (ops.level_program(inp["prog"]), inp["operands"], inp["rank"])
         call = lambda: ops.level_sum(*args, B=1, label="ab")  # noqa: E731
@@ -2767,7 +2920,13 @@ def main(argv=None) -> int:
                                                        inp["mode"]),
                    "row_gather": lambda inp: inp["slot"].numel() * (
                        4 + 8 * len(inp["chains"])),
-                   "level_sum": k20_ab_bytes}
+                   "level_sum": lambda inp: level_bytes(dict(
+                       kernel="level_sum", args=(inp["prog"],
+                                                 inp["operands"],
+                                                 inp["rank"]))),
+                   "fk_score": score_ab_bytes,
+                   "choice_score": score_ab_bytes,
+                   "gamma_draw": lambda inp: k22_bounds(inp)["bytes"]}
     for s, (k, inp) in seeded.items():
         bounds[s] = {k: count_bytes[k](inp) / HBM_BYTES_PER_S * 1e3}
     turns = []
@@ -2796,7 +2955,9 @@ def main(argv=None) -> int:
             log(a.trees[t], s, "inv_cdf_sample",
                 dict(ms=times["k2_ms"], device_ms=times["k2_device_ms"]))
         for s, (k, inp) in seeded.items():
-            log(a.trees[t], s, k, time_ab_seeded(ops, k, inp))
+            times = time_ab_seeded(ops, k, inp)
+            if times is not None:   # (a form the tree does not have)
+                log(a.trees[t], s, k, times)
     summary = {}
     for tree in a.trees:
         for s, kb in bounds.items():
@@ -2808,6 +2969,8 @@ def main(argv=None) -> int:
                 dev_ms = [r["device_ms"] for r in rows]
                 summary[f"{tree} {s} {k}"] = dict(
                     ms=[r["ms"] for r in rows], device_ms=dev_ms,
+                    dirichlet_device_ms=[r.get("dirichlet_device_ms")
+                                         for r in rows],
                     host_us=[r.get("host_us") for r in rows],
                     library_host_us=[r.get("library_host_us")
                                      for r in rows],
@@ -2823,7 +2986,8 @@ def main(argv=None) -> int:
               f"host_us {fmt(v['host_us'])} library host_us "
               f"{fmt(v['library_host_us'])} "
               f"library ms {fmt(v['library_ms'])} library device_ms "
-              f"{fmt(v['library_device_ms'])} bound {v['bound_ms']:.5f} ms "
+              f"{fmt(v['library_device_ms'])} _sample_dirichlet device_ms "
+              f"{fmt(v['dirichlet_device_ms'])} bound {v['bound_ms']:.5f} ms "
               f"share of bound (device) {v['share_of_bound']:.3f}")
     # yardsticks (never called by the port), and with --paths K1's paths
     k1_all = dict(k1s, **{"fk K=%d R=%d" % (shapes[s]["K"], shapes[s]["B"]):
@@ -2867,9 +3031,6 @@ def main(argv=None) -> int:
                       f, indent=1)
     return 0
 
-
-if __name__ == "__main__":
-    sys.exit(main())
 
 
 # ------------------------------------------------------------ K16-K19
@@ -3463,16 +3624,25 @@ def gamma_rounds(ops, alpha, elem, seed):
 
 
 def time_k22(ops, inp: dict) -> dict:
-    """K22 beside its plain version and torch._standard_gamma at the same
-    alphas (one PyTorch call drawing the same gammas, no normalisation):
-    ms (cuda_ms) and device_ms (graph_ms) of each."""
+    """K22 beside its plain version, torch._standard_gamma at the same
+    alphas (one PyTorch call drawing the same gammas, no normalisation)
+    and torch._sample_dirichlet over each descriptor's rows
+    (dirichlet_library: a Dirichlet row or a Beta pair normalised as K22
+    does, without its log; dirichlet_calls of them, None where a
+    descriptor draws plain gammas): ms (cuda_ms) and device_ms (graph_ms)
+    of each."""
     call = lambda: ops.gamma_draw(inp["descs"], inp["seed"])  # noqa: E731
     alpha = _k22_alpha(inp["descs"])
     lib = lambda: torch._standard_gamma(alpha)  # noqa: E731
+    dirichlet, n = dirichlet_library(inp["descs"])
     return dict(ms=cuda_ms(call), device_ms=graph_ms(call),
                 plain_ms=cuda_ms(lambda: ops.gamma_draw_plain(
                     inp["descs"], inp["seed"])),
-                library_ms=cuda_ms(lib), library_device_ms=graph_ms(lib))
+                library_ms=cuda_ms(lib), library_device_ms=graph_ms(lib),
+                dirichlet_ms=None if dirichlet is None else
+                cuda_ms(dirichlet),
+                dirichlet_device_ms=None if dirichlet is None else
+                graph_ms(dirichlet), dirichlet_calls=n)
 
 
 def k23_inputs(dev, f: dict, seed: int = 0) -> dict:
@@ -3574,16 +3744,17 @@ def split_level(rng, n_ops: int = 260, depth: int = 40, B: int = 3,
 
 
 class LimitCalls:
-    """Records, while active, the first call of each K7, K14, K15, K16,
-    K17, K18 and K20 wrapper that went past its kernel's single-launch
-    limit (the call that added to ops.SPLITS), its inputs as they were
+    """Records, while active, the first call of each K7, K12, K14, K15,
+    K16, K17, K18 and K20 wrapper that went past its kernel's single-launch
+    limit (the call that added to ops.SPLITS; K12's: a child level cut
+    into stages), its inputs as they were
     before the call, so that `replay` can hold each split or raised
     launch to its plain version at the model's own shapes. Calls inside
     a CUDA graph capture are not recorded (a copy there would live in the
     graph's memory pool)."""
 
     WRAPPERS = ("row_gather", "referrer_hist", "rel_scatter", "batch_write",
-                "fk_sample", "choice_sample", "level_sum")
+                "fk_sample", "choice_sample", "level_sum", "fk_score")
 
     def __init__(self, ops):
         self.ops, self.calls, self._real = ops, {}, {}
@@ -3618,7 +3789,8 @@ class LimitCalls:
         """Each recorded call on the card against its plain version on
         copies of its inputs: {kernel: dict(launches, max_abs_err 0.0)},
         every output bit-equal (K16/K17 through check_sample: their plain
-        versions draw with K2)."""
+        versions draw with K2; K12's logZ within K1's rule,
+        check_score)."""
         o, out = self.ops, {}
         for name, (a, kw) in self.calls.items():
             before = o.LAUNCHES[name]
@@ -3630,6 +3802,10 @@ class LimitCalls:
                 kwa.pop("label", None)
                 check_sample(o, dict(kernel=name, mode="limits",
                                      args=args, kwargs=kwa))
+            elif name == "fk_score":   # its levels' stages by K20 first
+                full = a[8]
+                check_score(o, name, dict(args=a[:9], R=int(np.prod(full)),
+                                          K=int(a[0].shape[-1])))
             else:
                 x, y = _clone_inputs((a, kw)), _clone_inputs((a, kw))
                 kw_plain = {k: v for k, v in y[1].items()
@@ -3646,3 +3822,7 @@ class LimitCalls:
             out[name] = dict(launches=o.LAUNCHES[name] - before,
                              max_abs_err=0.0)
         return out
+
+
+if __name__ == "__main__":
+    sys.exit(main())

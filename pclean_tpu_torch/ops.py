@@ -46,11 +46,13 @@ replaces, its bound on the H100 and its design):
                        written into the arenas, in place (smc.py
                        apply_row);
   K12 fk_score       — one row's foreign-key record [R, K+1] and logZ with
-                       its Pitman-Yor prior (propose.py score_fk with
-                       py_logprobs, B = 1);
+                       its Pitman-Yor prior, its two child levels summed
+                       in the same launch by K20's code (propose.py
+                       score_fk with py_logprobs and score_plan, B = 1);
   K13 choice_score   — one row's enumerable-choice record [R, V] and logZ
-                       from its enum logits, observation and children
-                       (propose.py score_choice, B = 1);
+                       from its enum logits, observation and child level,
+                       summed in the same launch (propose.py score_choice
+                       and score_plan, B = 1);
   K14 rel_scatter    — one relational scatter with JAX's mode="drop" rule
                        inside the kernel: reference counts and propagated
                        observations along fk chains, the batched deltas'
@@ -122,10 +124,14 @@ kernel's argument, bound to the pointers of a loop segment's carry
 are built at each call, also by value, and so are K16's, K17's, K19's and
 K21-K23's (K21's `py_prior_words`; K22's descriptors, K23's classes).
 K18's (a group's hop-column tree and chains, `row_gather_plan`,
-`row_gather_words`) and K20's (a level's references, operands and
-program, `level_plan`) are built once a call structure (dtypes, shapes,
-strides, labels) and kept, each call writing only its pointers into
-them (`_K18_PLANS`, `_K20_PLANS`).
+`row_gather_words`), K20's (a level's references, operands and
+program, `level_plan`) and K12's and K13's (their head words and their
+child levels' `level_plan` words over the record, `fk_score_words`,
+`choice_score_words`; the geometry `fk_score_plan`, `choice_score_plan`
+from the rows, `score_spread`) are built once a call structure
+(dtypes, shapes, strides, labels) and kept, each call writing only its
+pointers into them (`_K18_PLANS`, `_K20_PLANS`, `_K12_PLANS`,
+`_K13_PLANS`).
 
 Fixed limits split or raise, never fall back to a plain version (each
 split in a plan function the CPU tests read): K11's writes, K15's columns
@@ -134,8 +140,11 @@ and K14's cascade fk columns go in launches of at most the limit
 longer than K7, K14 or K18 follow are folded first by K18 launches into
 buffers the call owns (`chain_folds`, `fold_chain`); a K20 level past one
 launch is cut at subexpressions whose sums the next stage pushes
-(`level_stages`); K10 takes the larger of two parameter blocks
-(`K10_TIERS`, `k10_tier`) and K16/K17 up to `_MAX_ANC` ancestor axes.
+(`level_stages`), and a K12/K13 child level so cut has its earlier
+stages summed by K20, as has a K12 ch_n whose words do not fit one
+parameter block beside ch_e's (`score_fusion`); K10 takes the larger of
+two parameter blocks (`K10_TIERS`, `k10_tier`) and K16/K17 up to
+`_MAX_ANC` ancestor axes.
 
 Build: one `nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared` per
 source, all started together, into pclean_tpu_torch/_build/ (listed in
@@ -146,6 +155,7 @@ ctypes. Nothing is built or loaded when the module is imported.
 from __future__ import annotations
 
 import array
+import collections
 import ctypes
 import functools
 import math
@@ -208,7 +218,8 @@ SPLITS: dict = {}
 # referrer axis R; K9: the particles P; K10: the plan's fk nodes; K11: the
 # row's births; K12: the slots; K13: the options), and K12's and K13's mode
 # is "class R" (K12 the target class, K13 the proposing one; R the
-# enumeration rows of the record); K14's mode is the spec's signature
+# enumeration rows of the record) and each child level's own output shape
+# and kinds ("shape kinds"; K12 "e=shape kinds n=shape kinds"); K14's mode is the spec's signature
 # (_k14_sig: kind, sources, sides; "cascade class fks=F" in cascade mode)
 # and K its target length C, K15's "class cap=C columns" and K its rows B;
 # K16's "class>target form mask B=.. cap=..[ comp] d=.." (form drawn or
@@ -235,8 +246,10 @@ LAUNCH_CENSUS = {"enum_logsumexp": {}, "inv_cdf_sample": {},
                  "choice_sample": {}, "row_gather": {},
                  "branch_select": {}, "level_sum": {}, "py_prior": {},
                  "gamma_draw": {}, "py_resample": {}}
-# the fields each K16-K21 census mode was formatted from, by kernel and
-# mode (K16: form, mask, B, cap, comp, d; K17: form, dtype, B, d; K18:
+# the fields each K12, K13 and K16-K23 census mode was formatted from, by
+# kernel and mode (K12: R, K, full, sd, the counts' dtypes and each child
+# level's _level_fields; K13: R, K, full, obs's dtype, the state, the
+# level's _level_fields; K16: form, mask, B, cap, comp, d; K17: form, dtype, B, d; K18:
 # cols, a (dtype, length) a hop column, then the leaf's; K19: B, pairs of
 # (new, existing) dtypes; K20: the first such level's program, rank,
 # shape and operands' kinds, codes and references, _level_fields; K21: B,
@@ -244,7 +257,8 @@ LAUNCH_CENSUS = {"enum_logsumexp": {}, "inv_cdf_sample": {},
 # rows, width, counts or not); K23: each class's cap): kernel_bench
 # rebuilds a census shape's inputs from them. A mode names the same fields in every run, so reset_counts
 # keeps them (a graph captured before it replays its modes after it)
-CENSUS_FIELDS = {"fk_sample": {}, "choice_sample": {}, "row_gather": {},
+CENSUS_FIELDS = {"fk_score": {}, "choice_score": {}, "fk_sample": {},
+                 "choice_sample": {}, "row_gather": {},
                  "branch_select": {}, "level_sum": {}, "py_prior": {},
                  "gamma_draw": {}, "py_resample": {}}
 SMEM_MAX = 232448  # shared memory one block may use on an H100 (227 KB)
@@ -412,10 +426,8 @@ def build_kernels(force: bool = False) -> float:
             "pg_resample": [P, P, P, P, P, I64, I32, I32, I32, I32, I32, P],
             "row_delta": [P, I32, P, I32, P, P, P],
             "row_write": [P, I32, P],
-            "fk_score": [P, P, I32, P, I32, P, I32, P, P, F32, F32, P, P,
-                         I32, P, P, P, P, P, I64, I32, I32, I64, P],
-            "choice_score": [P, P, P, P, I32, P, I32, I32, I32, P, P, P, P,
-                             P, P, P, P, I64, I32, I32, I64, P],
+            "fk_score": [P, I32, I32, I32, I64, I64, P],
+            "choice_score": [P, I32, I32, I32, I64, I64, P],
             "rel_scatter": [P, I32, P],
             "batch_write": [P, I32, P],
             "fk_sample": [P, I32, P],
@@ -1914,45 +1926,182 @@ _K12_MAX_DIMS = 8   # enumeration axes of a record (csrc/score_rows.cuh)
 NINF = float(NEG_INF)
 _INDEX_DT = (torch.int8, torch.int16, torch.int32, torch.int64)
 
-
-def _score_plan(R: int, K: int, mode: str) -> dict:
-    p = enum_logsumexp_plan(R, K, mode)
-    if p["path"] == "split":
-        p = enum_logsumexp_plan(R, K, mode, path="block")
-    return p
-
-
-def fk_score_plan(R: int, K: int) -> dict:
-    """K12's launch for R rows of K slots: K1's plan at (R, K) in fk mode
-    (a warp a row up to 512 slots, else a block a row of up to 16 warps),
-    where K1 splits a row over a cluster its block path. dict(path,
-    threads, rows, cluster, grid)."""
-    return _score_plan(R, K, "fk")
+Level = collections.namedtuple("Level", "prog operands rank label")
+Level.__doc__ = """A one-row level handed unsummed to its only reader, K12 or
+K13 (BlockTracer._level_sum at B = 1): its postfix program
+(level_program), operands (level_dense, level_eq, level_sel,
+level_gather) and rank, aligned as level_sum takes them; `label` names
+the K20 launches of its earlier stages where level_stages cuts it."""
 
 
-def choice_score_plan(R: int, V: int) -> dict:
-    """K13's launch for R rows of V options: K1's plan at (R, V) in choice
-    mode, as fk_score_plan."""
-    return _score_plan(R, V, "choice")
+def level_value(x):
+    """A child as the score kernels' plain versions take it: a tensor as
+    it is, a Level summed by level_sum_split_plain (level_sum_plain through
+    level_stages' cuts: bit-equal to K20's launches of it)."""
+    if isinstance(x, Level):
+        return level_sum_split_plain(x.prog, x.operands, x.rank)
+    return x
 
 
-def _strided(t: torch.Tensor, shape: tuple, name: str, dtypes,
-             card: bool = True):
-    """The strides of t broadcast to `shape` (no copy), as a ctypes int64
-    array: 0 on an axis it broadcasts over."""
-    if t.dtype not in dtypes or (card and not t.is_cuda):
-        raise ValueError(f"{name}: {t.dtype} on {t.device} (expected "
-                         f"{dtypes} on the card)")
-    st = t.expand(shape).stride()
-    return (ctypes.c_int64 * max(1, len(st)))(*st)
+def as_level(x, rank: int) -> Level:
+    """A child as the score kernels take it on the card: a Level as it is;
+    a tensor (a constant 0, or a level K20 summed first) a one-step level
+    reading it (PUSH 0 of one dense term: the same value)."""
+    if isinstance(x, Level):
+        return x
+    return Level([(LEVEL_PUSH, 0)], [level_dense(x)], rank, None)
 
 
-def _score_rows(full) -> tuple:
-    full = tuple(int(n) for n in full)
-    if not 1 <= len(full) <= _K12_MAX_DIMS:
-        raise ValueError(f"score kernels: {len(full)} row axes (1 to "
-                         f"{_K12_MAX_DIMS})")
-    return full, math.prod(full)
+def score_spread(R: int) -> bool:
+    """Whether a score kernel gives each slot of its child level a thread
+    of its own (the "slots" path of fk_score_plan): at one row. A thread
+    that takes several slots evaluates their levels one after another,
+    each a chain of dependent loads through the program's walk, so the
+    loads of its slots do not overlap as the plain loads of K1's loop do.
+    On an H100 80GB HBM3 at 700.00 W (chip_smoke.py's K12/K13 census
+    shapes timed on both geometries, PERF.md §6), at one row the slots
+    path won at every shape longer than a warp (a constant child over 222
+    options 0.0029 against 0.0056 device ms on K1's warp plan, a one-term
+    level over 7,735 0.0050 against 0.0159 on its block plan, the
+    11-gather level over 512 slots 0.0158 against 0.1352) and tied up to
+    32 (0.0027-0.0035); over 4,096 rows of 2 options K1's warp plan held
+    (0.0070 against 0.0073). No census shape has a level with a gather
+    over more than one row, so none is measured there."""
+    return R == 1
+
+
+def _score_plan(R: int, K: int, mode: str, spread: bool, path) -> dict:
+    if path is None and spread:
+        path = "slots"
+    if path != "slots":
+        p = enum_logsumexp_plan(R, K, mode, path)
+        if p["path"] == "split":
+            p = enum_logsumexp_plan(R, K, mode, path="block")
+        return p
+    if R > _GRID_Y_MAX:
+        raise ValueError(f"score kernels: R = {R} rows exceed the slots "
+                         f"path's grid")
+    threads = min(SCORE_MAX_THREADS, 32 * max(1, -(-K // 32)))
+    cluster = min(SCORE_MAX_CLUSTER, -(-K // threads))
+    return dict(path="slots", threads=threads, rows=1, cluster=cluster,
+                grid=(cluster, R))
+
+
+def fk_score_plan(R: int, K: int, spread: bool = False, path=None) -> dict:
+    """K12's launch for R rows of K slots, dict(path, threads, rows,
+    cluster, grid). Without `spread` (score_spread false): K1's plan at
+    (R, K) in fk mode (a warp a row up to 512 slots, else a block a row
+    of up to 16 warps; where K1 splits a row over a cluster, its block
+    path). With it: "slots", a thread a slot in a block of up to
+    SCORE_MAX_THREADS, past that a cluster of up to SCORE_MAX_CLUSTER such
+    blocks a row (grid (cluster, R)), the threads looping past 8,192
+    slots. `path` forces one of SCORE_PATHS (kernel_bench)."""
+    return _score_plan(int(R), int(K), "fk", spread, path)
+
+
+def choice_score_plan(R: int, V: int, spread: bool = False,
+                      path=None) -> dict:
+    """K13's launch for R rows of V options: as fk_score_plan, K1's plan
+    in choice mode without `spread`."""
+    return _score_plan(int(R), int(V), "choice", spread, path)
+
+
+def score_fusion(levels) -> dict:
+    """How a score kernel takes its child levels (K13: [children]; K12:
+    [ch_e, ch_n]; Levels or tensors): dict(stages: each level's K20
+    launches before the score kernel, 0 where level_stages does not cut
+    it, else all its stages but the last, whose sum the kernel takes in;
+    n_first: K12's ch_n summed by K20 first, all its stages, where the two
+    levels' words do not fit K12's largest parameter block with the head;
+    words: the plan's word count; split: any K20 launch before the
+    kernel). Each such call is counted in SPLITS under the score kernel;
+    none on the six paths."""
+    head = K13_HEAD if len(levels) == 1 else K12_HEAD
+    stages, last = [], []
+    for x in levels:
+        if isinstance(x, Level):
+            cut = level_stages(x.prog, x.operands)
+            p, srcs = cut[-1]
+            refs = sum(_refs_of(x.operands[i]) if k == "o" else 1
+                       for k, i in srcs)
+            stages.append(len(cut) - 1)
+            last.append(K20_HEAD + K20_REF * refs + K20_OP * len(srcs)
+                        + len(p))
+        else:
+            stages.append(0)
+            last.append(K20_HEAD + K20_REF + K20_OP + 1)
+    n_first = len(levels) == 2 and head + sum(last) > K12_WORDS
+    if n_first:
+        stages[1] = len(level_stages(levels[1].prog, levels[1].operands))
+        last[1] = K20_HEAD + K20_REF + K20_OP + 1
+    return dict(stages=stages, n_first=n_first, words=head + sum(last),
+                split=any(stages) or n_first)
+
+
+def _fuse_prepare(x, rank: int, whole: bool = False) -> Level:
+    """A child ready for the score kernel on the card: a tensor as a
+    one-step level; a level level_stages cuts, its earlier stages summed by
+    K20 (level_sum, at B = 1) and its last stage taking their sums as
+    dense terms, the rest of level_sum_split_plain's order; with `whole`
+    all of it summed by K20 first."""
+    if not isinstance(x, Level):
+        return as_level(x, rank)
+    if whole:
+        return as_level(_level_sum_stages(x, len(level_stages(
+            x.prog, x.operands)))[-1], rank)
+    cut = level_stages(x.prog, x.operands)
+    if len(cut) == 1:
+        return x
+    outs = _level_sum_stages(x, len(cut) - 1)
+    p, srcs = cut[-1]
+    return Level(p, [x.operands[i] if k == "o" else level_dense(outs[i])
+                     for k, i in srcs], x.rank, x.label)
+
+
+def _level_sum_stages(lv: Level, n: int) -> list:
+    """The sums of level_stages' first n stages of lv, each a K20 launch."""
+    outs = []
+    for p, srcs in level_stages(lv.prog, lv.operands)[:n]:
+        ops_ = [lv.operands[i] if k == "o" else level_dense(outs[i])
+                for k, i in srcs]
+        outs.append(level_sum(p, ops_, lv.rank, B=1, label=lv.label))
+    return outs
+
+
+def _level_positions(operands, base: int, src: int) -> list:
+    """[(word, pointer source)] of a level's plan at word `base`: each
+    operand's tensor references, then a gather's matrix, in _level_key's
+    pointer order from source `src`."""
+    pos, r = [], 0
+    n_refs = sum(_refs_of(o) for o in operands)
+    for i, o in enumerate(operands):
+        nr = _refs_of(o)
+        pos += [(base + K20_HEAD + K20_REF * (r + j), src + j)
+                for j in range(nr)]
+        r += nr
+        src += nr
+        if o["kind"] == "gather":
+            pos.append((base + K20_HEAD + K20_REF * n_refs + K20_OP * i + 4,
+                        src))
+            src += 1
+    return pos
+
+
+def _tsig(t):
+    """A tensor argument's structure in a plan cache key."""
+    if not torch.is_tensor(t):
+        return t
+    return (t.dtype, tuple(t.shape), t.stride(), t.get_device())
+
+
+def _score_mode(cls, R: int, levels) -> str:
+    """K12's or K13's census mode: "cls R", then each child level's own
+    output shape and operand kinds (level_kinds; K12's ch_e after "e=",
+    ch_n after "n=")."""
+    tags = ("",) if len(levels) == 1 else ("e=", "n=")
+    return " ".join([f"{cls} {R}"] + [
+        f"{t}{'x'.join(map(str, level_shape(lv.operands, lv.rank)))} "
+        f"{level_kinds(lv.operands)}" for t, lv in zip(tags, levels)])
 
 
 def fk_score_plain(refcount, alive, total, nrows, strength, discount,
@@ -1962,66 +2111,188 @@ def fk_score_plain(refcount, alive, total, nrows, strength, discount,
     existing = log(max(refcount - d, 1e-30)) - log(total + s) where the
     slot is alive and referenced, else NEG_INF; new = log(d nrows + s) -
     log(total + s); children [.., K] and new_children [..] broadcast to
-    `full` (the enumeration rows, batch axis first) added. s and d:
-    device scalars or the class's constants. Returns (record [R, K + 1],
-    logZ [R]): K21's plain version without a compaction, then K1's."""
+    `full` (the enumeration rows, batch axis first) added, each a tensor
+    or a Level (summed first by level_value: K20's plain version). s and
+    d: device scalars or the class's constants. Returns (record [R, K +
+    1], logZ [R]): K21's plain version without a compaction, then K1's."""
     return enum_logsumexp_plain(*py_prior_plain(
-        refcount, alive, total, nrows, strength, discount, None, children,
-        new_children, full))
+        refcount, alive, total, nrows, strength, discount, None,
+        level_value(children), level_value(new_children), full))
+
+
+def fk_score_words(refcount, alive, total, nrows, strength, discount,
+                   ch_e: Level, ch_n: Level, full, rec, logz, plan: dict,
+                   card: bool = True) -> list:
+    """K12's plan (csrc/fk_score.cu): the head (the leaves' and counts'
+    pointers and dtype codes, strength and discount as device pointers or
+    float bits, the outputs, R, the geometry, the instantiation, where
+    ch_n's words start), then ch_e's level words over [full..., K] and
+    ch_n's over [full] (level_plan, fused). Refuses what the kernel does
+    not take, and, with `card`, tensors off the card."""
+    full, R = _score_rows(full)
+    K = int(refcount.shape[-1])
+    refcount, alive = refcount.reshape(-1), alive.reshape(-1)
+    for t, name, dt in ((refcount, "refcount", torch.int32),
+                        (alive, "alive", torch.bool)):
+        if t.dtype != dt or not t.is_contiguous() or t.numel() != K or \
+                (card and not t.is_cuda):
+            raise ValueError(f"fk_score: {name} is {t.dtype} "
+                             f"{tuple(t.shape)} (expected a contiguous {dt}"
+                             f" [{K}] on the card)")
+    if K < 1:
+        raise ValueError("fk_score: no slot")
+    h = [0] * K12_HEAD
+    h[0:3] = [refcount.data_ptr(), alive.data_ptr(), K]
+    for j, (name, t) in enumerate((("total", total), ("nrows", nrows))):
+        if t.numel() != 1 or t.dtype not in (torch.int32, torch.int64,
+                                             torch.float32) or \
+                (card and not t.is_cuda):
+            raise ValueError(f"fk_score: {name} must be one int or float "
+                             f"element on the card")
+        h[3 + 2 * j: 5 + 2 * j] = [t.data_ptr(), _DT[t.dtype]]
+    for j, (name, v) in enumerate((("strength", strength),
+                                   ("discount", discount))):
+        if torch.is_tensor(v):
+            if v.numel() != 1 or v.dtype != torch.float32 or \
+                    (card and not v.is_cuda):
+                raise ValueError(f"fk_score: {name} must be one float32 "
+                                 f"element on the card")
+            h[7 + 2 * j] = v.data_ptr()
+        else:
+            h[8 + 2 * j] = _f32_bits(v)
+    we, _s = level_plan(ch_e.prog, ch_e.operands, ch_e.rank, card,
+                        shape=full + (K,), fused=True)
+    wn, _s = level_plan(ch_n.prog, ch_n.operands, ch_n.rank, card,
+                        shape=full, fused=True)
+    if K12_HEAD + len(we) + len(wn) > K12_WORDS:
+        raise ValueError(f"fk_score: {K12_HEAD + len(we) + len(wn)} words "
+                         f"(at most {K12_WORDS}; score_fusion sums ch_n "
+                         f"first)")
+    h[11:19] = [rec.data_ptr(), logz.data_ptr(), R,
+                SCORE_PATHS.index(plan["path"]),
+                32 if plan["path"] == "warp" else plan["threads"],
+                plan["cluster"], max(we[_K20_KERNEL], wn[_K20_KERNEL]),
+                K12_HEAD + len(we)]
+    return h + we + wn
+
+
+def _child_key(x) -> tuple:
+    """(key, pointers) of a score kernel's child as it is handed in: a
+    Level's _level_key at one row, or a tensor's structure and pointer (a
+    one-step dense level, as_level: the same pointer)."""
+    if isinstance(x, Level):
+        return _level_key(x.prog, x.operands, x.rank, 1, x.label)
+    return ("tensor", _tsig(x)), [x.data_ptr()]
+
+
+def _fused_children(levels, ranks, fus: dict, ptrs: list, name: str):
+    """The children as the score kernel takes them and their pointers:
+    as handed in (as_level) where score_fusion cuts nothing; else the
+    split counted, the K20 launches of score_fusion's stages made
+    (_fuse_prepare), and the pointers of what they leave."""
+    if not fus["split"]:
+        return [as_level(x, r) for x, r in zip(levels, ranks)], ptrs
+    _split(name)
+    whole = [False, fus["n_first"]]
+    lvs = [_fuse_prepare(x, r, w) for x, r, w in zip(levels, ranks, whole)]
+    return lvs, [_level_key(lv.prog, lv.operands, lv.rank, 1, None)[1]
+                 for lv in lvs]
 
 
 def fk_score(refcount, alive, total, nrows, strength, discount, children,
              new_children, full, cls=None):
-    """K12: fk_score_plain in one launch for one row: refcount [K] int32
-    and alive [K] bool (or [1, K]), total and nrows one element (int32,
-    int64 or float32), strength and discount device float32 scalars or
-    Python numbers (kernel arguments), children [.., K] and new_children
-    [..] float32 read in place with their broadcast strides over `full`.
-    Returns (record [R, K + 1], logZ [R]). On CPU tensors the plain
-    version; on CUDA ones the kernel or an error. Counted in
-    LAUNCH_CENSUS by ("cls R", r1, K), `cls` the target class."""
-    if not _route(children, "fk_score"):
+    """K12: fk_score_plain in one launch for one row, the child levels
+    summed in it: refcount [K] int32 and alive [K] bool (or [1, K]), total
+    and nrows one element (int32, int64 or float32), strength and
+    discount device float32 scalars or Python numbers (words), children
+    [.., K] and new_children [..]: Levels (evaluated in the launch, their
+    tensors read in place) or float32 tensors (a one-step level). Returns
+    (record [R, K + 1], logZ [R]). score_fusion's K20 launches first where
+    a level is cut or ch_n does not fit (counted in SPLITS). The plan,
+    with score_fusion's decision, is built once a structure of the call
+    as handed in (_K12_PLANS) and each call writes its pointers into it.
+    On CPU tensors the plain version; on CUDA ones the kernel or an
+    error. Counted in LAUNCH_CENSUS by ("cls R e=shape kinds n=shape
+    kinds", r1, K), `cls` the target class; its fields in
+    CENSUS_FIELDS."""
+    if not _route(refcount, "fk_score"):
         return fk_score_plain(refcount, alive, total, nrows, strength,
                               discount, children, new_children, full)
+    return _fk_score(refcount, alive, total, nrows, strength, discount,
+                     children, new_children, full, cls)
+
+
+def _fk_score(refcount, alive, total, nrows, strength, discount, children,
+              new_children, full, cls=None, path=None):
+    """fk_score's launch on the card; `path` forces one of SCORE_PATHS
+    (kernel_bench and chip_smoke check and time the other geometry): such
+    a plan is built for the call and not kept."""
     full, R = _score_rows(full)
+    ke, pe = _child_key(children)
+    kn, pn = _child_key(new_children)
+    key = (cls, full, _tsig(refcount), _tsig(alive), _tsig(total),
+           _tsig(nrows), _tsig(strength), _tsig(discount), ke, kn)
+    dev = refcount.device
     K = int(refcount.shape[-1])
-    refcount, alive = refcount.reshape(-1), alive.reshape(-1)
-    _need(refcount, torch.int32, "fk_score refcount", 1)
-    _need(alive, torch.bool, "fk_score alive", 1)
-    if alive.numel() != K or K < 1:
-        raise ValueError(f"fk_score: alive {alive.numel()} != refcount {K}")
-    cnts = []
-    for name, t in (("total", total), ("nrows", nrows)):
-        if t.numel() != 1 or t.dtype not in (torch.int32, torch.int64,
-                                             torch.float32) or not t.is_cuda:
-            raise ValueError(f"fk_score: {name} must be one int or float "
-                             f"element on the card")
-        cnts += [_ptr(t), _DT[t.dtype]]
-    sd = []
-    for name, v in (("strength", strength), ("discount", discount)):
-        if torch.is_tensor(v):
-            if v.numel() != 1 or v.dtype != torch.float32 or not v.is_cuda:
-                raise ValueError(f"fk_score: {name} must be one float32 "
-                                 f"element on the card")
-            sd.append((_ptr(v), 0.0))
-        else:
-            sd.append((None, float(v)))
-    chs = _strided(children, full + (K,), "fk_score children",
-                   (torch.float32,))
-    ncs = _strided(new_children, full, "fk_score new_children",
-                   (torch.float32,))
-    plan = fk_score_plan(R, K)
-    rec = torch.empty((R, K + 1), dtype=torch.float32, device=children.device)
-    logz = torch.empty((R,), dtype=torch.float32, device=children.device)
-    rc = _fn("fk_score")(
-        _ptr(refcount), _ptr(alive), K, *cnts, sd[0][0], sd[1][0], sd[0][1],
-        sd[1][1], _ptr(children), _ptr(new_children), len(full),
-        (ctypes.c_int64 * len(full))(*full), chs, ncs, _ptr(rec), _ptr(logz),
-        R, plan["threads"], plan["rows"], plan["grid"][0],
-        _stream(children))
+    rec = torch.empty((R, K + 1), dtype=torch.float32, device=dev)
+    logz = torch.empty((R,), dtype=torch.float32, device=dev)
+    ent = _K12_PLANS.get(key) if path is None else None
+    fus = ent[-1] if ent is not None else score_fusion(
+        [children, new_children])
+    if ent is None or fus["split"]:
+        (ch_e, ch_n), (pe, pn) = _fused_children(
+            [children, new_children], [len(full) + 1, len(full)], fus,
+            [pe, pn], "fk_score")
+    if ent is None:
+        ent = _k12_entry(refcount, alive, total, nrows, strength, discount,
+                         ch_e, ch_n, full, rec, logz, cls, fus, len(pe),
+                         path)
+        if path is None:
+            if len(_K12_PLANS) >= _PLAN_CACHE_MAX:
+                _K12_PLANS.clear()
+            _K12_PLANS[key] = ent
+    arr, addr, n, pos, plan, mode, fields, _fus = ent
+    ptrs = [refcount.data_ptr(), alive.data_ptr(), total.data_ptr(),
+            nrows.data_ptr(),
+            strength.data_ptr() if torch.is_tensor(strength) else 0,
+            discount.data_ptr() if torch.is_tensor(discount) else 0,
+            rec.data_ptr(), logz.data_ptr()] + pe + pn
+    for at, src in pos:
+        arr[at] = ptrs[src]
+    rc = _fn("fk_score")(addr, n, plan["threads"], plan["rows"],
+                         *plan["grid"], _stream(rec))
     _check(rc, "fk_score")
-    _count("fk_score", 1, K, f"{cls} {R}")
+    _count("fk_score", 1, K, mode, fields)
     return rec, logz
+
+
+def _k12_entry(refcount, alive, total, nrows, strength, discount, ch_e,
+               ch_n, full, rec, logz, cls, fus: dict, n_pe: int,
+               path) -> tuple:
+    """A _K12_PLANS entry: (words as an array.array, its address, its
+    length, the pointer positions [(word, source)], the plan, the census
+    mode and fields, score_fusion's decision); sources index the call's
+    pointers (the head's 8, then ch_e's n_pe, then ch_n's)."""
+    R, K = math.prod(full), int(refcount.shape[-1])
+    plan = fk_score_plan(R, K, score_spread(R), path)
+    words = fk_score_words(refcount, alive, total, nrows, strength,
+                           discount, ch_e, ch_n, full, rec, logz, plan)
+    pos = [(0, 0), (1, 1), (3, 2), (5, 3), (11, 6), (12, 7)]
+    pos += [(7, 4)] if torch.is_tensor(strength) else []
+    pos += [(9, 5)] if torch.is_tensor(discount) else []
+    pos += _level_positions(ch_e.operands, K12_HEAD, 8)
+    pos += _level_positions(ch_n.operands, words[18], 8 + n_pe)
+    arr = array.array("q", words)
+    fields = dict(R=R, K=K, full=full, sd=torch.is_tensor(strength),
+                  counts=(total.dtype, nrows.dtype),
+                  level_e=_level_fields(ch_e.prog, ch_e.operands, ch_e.rank,
+                                        level_shape(ch_e.operands,
+                                                    ch_e.rank)),
+                  level_n=_level_fields(ch_n.prog, ch_n.operands, ch_n.rank,
+                                        level_shape(ch_n.operands,
+                                                    ch_n.rank)))
+    return (arr, arr.buffer_info()[0], len(arr), pos, plan,
+            _score_mode(cls, R, [ch_e, ch_n]), fields, fus)
 
 
 def choice_score_plain(enum, children, full, obs_ld=None, obs=None,
@@ -2029,10 +2300,12 @@ def choice_score_plain(enum, children, full, obs_ld=None, obs=None,
     """K13's plain version, score_choice's own arithmetic for one row:
     where the state is 1 the logits are the observation's delta (obs_ld at
     the option `obs`, NEG_INF elsewhere), otherwise enum [.., V]; the
-    children [.., V] added; the record [R, V] and logZ [R] over the
+    children [.., V] (a tensor, or a Level summed first by level_value:
+    K20's plain version) added; the record [R, V] and logZ [R] over the
     enumeration rows `full` (enum_logsumexp_plain in choice mode). `state`
     a static code or a per-row tensor aligned like obs; obs None: no
     observation."""
+    children = level_value(children)
     V = int(enum.shape[-1])
     dev = enum.device
     full = tuple(full)
@@ -2049,43 +2322,147 @@ def choice_score_plain(enum, children, full, obs_ld=None, obs=None,
     return enum_logsumexp_plain(total.reshape(-1, V).contiguous())
 
 
+def _strided(t: torch.Tensor, shape: tuple, name: str, dtypes,
+             card: bool = True) -> list:
+    """The strides of t broadcast to `shape` (no copy): 0 on an axis it
+    broadcasts over."""
+    if t.dtype not in dtypes or (card and not t.is_cuda):
+        raise ValueError(f"{name}: {t.dtype} on {t.device} (expected "
+                         f"{dtypes} on the card)")
+    return list(t.expand(shape).stride())
+
+
+def _score_rows(full) -> tuple:
+    full = tuple(int(n) for n in full)
+    if not 1 <= len(full) <= _K12_MAX_DIMS:
+        raise ValueError(f"score kernels: {len(full)} row axes (1 to "
+                         f"{_K12_MAX_DIMS})")
+    return full, math.prod(full)
+
+
+def choice_score_words(enum, children: Level, full, obs_ld, obs, state,
+                       rec, logz, plan: dict, card: bool = True) -> list:
+    """K13's plan (csrc/choice_score.cu): the head (enum's, obs_ld's,
+    obs's and the state's pointers, obs's dtype code, the static code, V,
+    the row axes, the outputs, R, the geometry, the instantiation, enum's
+    option stride, the row axes' sizes and each operand's strides over
+    them), then the level's words over [full..., V] (level_plan, fused).
+    Refuses what the kernel does not take, and, with `card`, tensors off
+    the card."""
+    full, R = _score_rows(full)
+    nd = len(full)
+    V = int(enum.shape[-1])
+    h = [0] * K13_HEAD
+    ens = _strided(enum, full + (V,), "choice_score enum", (torch.float32,),
+                   card)
+    h[0] = enum.data_ptr()
+    h[15] = ens[nd]
+    h[16:16 + nd] = list(full)
+    h[24:24 + nd] = ens[:nd]
+    if obs is not None:
+        h[1] = obs_ld.data_ptr()
+        h[2], h[3] = obs.data_ptr(), _DT[obs.dtype]
+        h[32:32 + nd] = _strided(obs_ld, full, "choice_score obs_ld",
+                                 (torch.float32,), card)
+        h[40:40 + nd] = _strided(obs, full, "choice_score obs", _INDEX_DT,
+                                 card)
+    if torch.is_tensor(state):
+        h[4] = state.data_ptr()
+        h[48:48 + nd] = _strided(state, full, "choice_score state",
+                                 (torch.int8,), card)
+    else:
+        h[5] = int(state)
+    lw, _s = level_plan(children.prog, children.operands, children.rank,
+                        card, shape=full + (V,), fused=True)
+    h[6:15] = [V, nd, rec.data_ptr(), logz.data_ptr(), R,
+               SCORE_PATHS.index(plan["path"]),
+               32 if plan["path"] == "warp" else plan["threads"],
+               plan["cluster"], lw[_K20_KERNEL]]
+    return h + lw
+
+
 def choice_score(enum, children, full, obs_ld=None, obs=None, state=0,
                  cls=None):
-    """K13: choice_score_plain in one launch for one row: enum and
-    children [.., V] float32, obs_ld float32 and obs (int8-int64) over the
-    rows, state a static code or an int8 tensor over the rows, each read in
+    """K13: choice_score_plain in one launch for one row, the child level
+    summed in it: enum [.., V] float32, children a Level (evaluated in the
+    launch, its tensors read in place) or a float32 tensor [.., V] (a
+    one-step level), obs_ld float32 and obs (int8-int64) over the rows,
+    state a static code or an int8 tensor over the rows, each read in
     place with its broadcast strides over `full`. Returns (record [R, V],
-    logZ [R]). On CPU tensors the plain version; on CUDA ones the kernel
-    or an error. Counted in LAUNCH_CENSUS by ("cls R", r1, V)."""
+    logZ [R]). A level level_stages cuts has its earlier stages summed by
+    K20 first (counted in SPLITS). The plan, with score_fusion's
+    decision, is built once a structure of the call as handed in
+    (_K13_PLANS) and each call writes its pointers into it. On CPU
+    tensors the plain version; on CUDA ones the kernel or an error.
+    Counted in LAUNCH_CENSUS by ("cls R shape kinds", r1, V); its fields
+    in CENSUS_FIELDS."""
     if not _route(enum, "choice_score"):
         return choice_score_plain(enum, children, full, obs_ld, obs, state)
+    return _choice_score(enum, children, full, obs_ld, obs, state, cls)
+
+
+def _choice_score(enum, children, full, obs_ld=None, obs=None, state=0,
+                  cls=None, path=None):
+    """choice_score's launch on the card; `path` as _fk_score's."""
     full, R = _score_rows(full)
+    kl, pl = _child_key(children)
+    if obs is None:
+        obs_ld = None
+    key = (cls, full, _tsig(enum), _tsig(obs_ld), _tsig(obs), _tsig(state),
+           kl)
     V = int(enum.shape[-1])
-    ens = _strided(enum, full + (V,), "choice_score enum", (torch.float32,))
-    chs = _strided(children, full + (V,), "choice_score children",
-                   (torch.float32,))
-    lds = obss = None
-    if obs is not None:
-        lds = _strided(obs_ld, full, "choice_score obs_ld", (torch.float32,))
-        obss = _strided(obs, full, "choice_score obs", _INDEX_DT)
-    code, sts = 0, None
-    if torch.is_tensor(state):
-        sts = _strided(state, full, "choice_score state", (torch.int8,))
-    else:
-        code = int(state)
-    plan = choice_score_plan(R, V)
     rec = torch.empty((R, V), dtype=torch.float32, device=enum.device)
     logz = torch.empty((R,), dtype=torch.float32, device=enum.device)
-    rc = _fn("choice_score")(
-        _ptr(enum), _ptr(children), _ptr(obs_ld if obs is not None else None),
-        _ptr(obs), _DT[obs.dtype] if obs is not None else 0,
-        _ptr(state if sts is not None else None), code, V, len(full),
-        (ctypes.c_int64 * len(full))(*full), ens, chs, lds, obss, sts,
-        _ptr(rec), _ptr(logz), R, plan["threads"], plan["rows"],
-        plan["grid"][0], _stream(enum))
+    ent = _K13_PLANS.get(key) if path is None else None
+    fus = ent[-1] if ent is not None else score_fusion([children])
+    if ent is None or fus["split"]:
+        (ch,), (pl,) = _fused_children([children], [len(full) + 1], fus,
+                                       [pl], "choice_score")
+    if ent is None:
+        ent = _k13_entry(enum, ch, full, obs_ld, obs, state, rec, logz, cls,
+                         fus, path)
+        if path is None:
+            if len(_K13_PLANS) >= _PLAN_CACHE_MAX:
+                _K13_PLANS.clear()
+            _K13_PLANS[key] = ent
+    arr, addr, n, pos, plan, mode, fields, _fus = ent
+    ptrs = [enum.data_ptr(), 0 if obs is None else obs_ld.data_ptr(),
+            0 if obs is None else obs.data_ptr(),
+            state.data_ptr() if torch.is_tensor(state) else 0,
+            rec.data_ptr(), logz.data_ptr()] + pl
+    for at, src in pos:
+        arr[at] = ptrs[src]
+    rc = _fn("choice_score")(addr, n, plan["threads"], plan["rows"],
+                             *plan["grid"], _stream(rec))
     _check(rc, "choice_score")
-    _count("choice_score", 1, V, f"{cls} {R}")
+    _count("choice_score", 1, V, mode, fields)
     return rec, logz
+
+
+def _k13_entry(enum, ch, full, obs_ld, obs, state, rec, logz, cls,
+               fus: dict, path) -> tuple:
+    """A _K13_PLANS entry, as _k12_entry's; sources index the call's
+    pointers (the head's 6, then the level's)."""
+    R, V = math.prod(full), int(enum.shape[-1])
+    plan = choice_score_plan(R, V, score_spread(R), path)
+    words = choice_score_words(enum, ch, full, obs_ld, obs, state, rec,
+                               logz, plan)
+    pos = [(0, 0), (8, 4), (9, 5)]
+    pos += [(1, 1), (2, 2)] if obs is not None else []
+    pos += [(4, 3)] if torch.is_tensor(state) else []
+    pos += _level_positions(ch.operands, K13_HEAD, 6)
+    arr = array.array("q", words)
+    fields = dict(R=R, K=V, full=full,
+                  obs=None if obs is None else obs.dtype,
+                  state="rows" if torch.is_tensor(state) else int(state),
+                  level=_level_fields(ch.prog, ch.operands, ch.rank,
+                                      level_shape(ch.operands, ch.rank)))
+    return (arr, arr.buffer_info()[0], len(arr), pos, plan,
+            _score_mode(cls, R, [ch]), fields, fus)
+
+
+_K12_PLANS: dict = {}
+_K13_PLANS: dict = {}
 
 
 # ---------------------------------------------------------------- K14, K15
@@ -3123,6 +3500,21 @@ _K20_KERNEL = K20_OUT + 8 + K20_MAX_DIMS - 1
 K20_KERNELS = ((2, True, 1), (4, True, 1), (8, True, 1), (2, True, 8),
                (4, True, 8), (8, True, 4), (K20_MAX_STACK, False, 4))
 K20_WIDE = 1 << 16
+# a level fused into K12 or K13 (csrc/level_eval.cuh inside csrc/fk_score.cu
+# and choice_score.cu): an element a thread, its instantiations (stack
+# depth, 32-bit indices) by the score kernel's head's kernel word
+SCORE_KERNELS = ((2, True), (4, True), (8, True), (K20_MAX_STACK, False))
+# the score kernels' geometries (fk_score_plan): K1's warp and block paths,
+# or a thread a slot over a block or a cluster of blocks a row
+SCORE_PATHS = ("warp", "block", "slots")
+SCORE_MAX_THREADS = 1024
+SCORE_MAX_CLUSTER = 8    # the portable cluster size
+# the heads' words (csrc/fk_score.cu, choice_score.cu; the levels' words
+# follow) and the plans' largest parameter blocks: K13's head and one
+# level; K12's head and two levels in at most PARAM_MAX bytes
+K12_HEAD, K13_HEAD = 32, 64
+K12_WORDS = PARAM_MAX // 8
+K13_WORDS = K13_HEAD + K20_WORDS
 assert 8 * K20_WORDS <= PARAM_MAX
 K21_WORDS = 64
 
@@ -3423,7 +3815,8 @@ def _level_fields(prog, operands, rank: int, shape) -> dict:
     return dict(prog=tuple(prog), rank=rank, shape=tuple(shape), ops=ops_)
 
 
-def level_plan(prog, operands, rank: int, card: bool = True) -> tuple:
+def level_plan(prog, operands, rank: int, card: bool = True, shape=None,
+               fused: bool = False) -> tuple:
     """K20's plan for the level and its output shape: (words, shape). The
     words, packed: the header (output size, rank, sizes, the output's
     pointer at K20_OUT, 0 until the caller allocates the output, counts),
@@ -3432,7 +3825,11 @@ def level_plan(prog, operands, rank: int, card: bool = True) -> tuple:
     flag or V), the program's (opcode << 32 | argument). Refuses what the
     kernel does not take: dtypes, rank, counts, a program that does not
     leave one value or nests deeper than K20_MAX_STACK, and, with `card`,
-    tensors off the card."""
+    tensors off the card. `shape`: the output the program is evaluated
+    over, a shape the level broadcasts to (a fused level: the record's
+    [full..., K]), else the level's own. `fused`: a level K12 or K13 runs
+    in its own launch (csrc/level_eval.cuh), an element a thread, its
+    instantiation word one of SCORE_KERNELS."""
     prog = list(prog)
     if not 1 <= rank <= K20_MAX_DIMS:
         raise ValueError(f"level_sum: rank {rank} (1 to {K20_MAX_DIMS})")
@@ -3446,7 +3843,9 @@ def level_plan(prog, operands, rank: int, card: bool = True) -> tuple:
     for op, a in prog:
         if op in (LEVEL_PUSH, LEVEL_ADDOP) and not 0 <= a < len(operands):
             raise ValueError(f"level_sum: operand {a} of {len(operands)}")
-    out = [1] * rank   # the output shape, grown reference by reference
+    # the output shape, grown reference by reference (from the target's)
+    out = [1] * rank if shape is None else list(_aligned(shape, rank,
+                                                         "the output"))
     refs: list = []
     pad = [0] * (K20_MAX_DIMS - rank)
 
@@ -3505,6 +3904,9 @@ def level_plan(prog, operands, rank: int, card: bool = True) -> tuple:
             raise ValueError(f"level_sum: operand kind {k!r} is not one of "
                              f"{K20_KINDS}")
         opw += w
+    if shape is not None and tuple(out) != tuple(shape):
+        raise ValueError(f"level_sum: a level of {tuple(out)} does not "
+                         f"broadcast to {tuple(shape)}")
     shape = tuple(out)
     n_refs = len(refs) // K20_REF
     if n_refs > K20_MAX_REFS:
@@ -3519,10 +3921,16 @@ def level_plan(prog, operands, rank: int, card: bool = True) -> tuple:
                                               zip(sizes, st))
                                           for st in strides]) < 2 ** 31
     depth = level_stack(prog)
-    elems = (8 if depth <= 4 else 4) if N >= K20_WIDE else 1
-    kernel = next(i for i, (d, nar, e) in enumerate(K20_KERNELS)
-                  if depth <= d and (not nar or narrow and e == elems))
-    tpr = -(-sizes[-1] // K20_KERNELS[kernel][2])
+    if fused:
+        kernel = next(i for i, (d, nar) in enumerate(SCORE_KERNELS)
+                      if depth <= d and (not nar or narrow))
+        elems = 1
+    else:
+        elems = (8 if depth <= 4 else 4) if N >= K20_WIDE else 1
+        kernel = next(i for i, (d, nar, e) in enumerate(K20_KERNELS)
+                      if depth <= d and (not nar or narrow and e == elems))
+        elems = K20_KERNELS[kernel][2]
+    tpr = -(-sizes[-1] // elems)
     words = [N, m] + sizes + [1] * (K20_MAX_DIMS - m) + \
         [0, n_refs, len(operands), len(prog), tpr, rows, rows * tpr,
          _divider(tpr)] + [_divider(n) for n in sizes[:-1]] + \

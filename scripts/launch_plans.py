@@ -1,11 +1,16 @@
-"""K18's and K20's launches of small CPU runs of the six paths, counted.
+"""K12's, K13's, K18's and K20's launches of small CPU runs of the six
+paths, counted.
 
 On the CPU the wrappers run their plain versions and count nothing; this
 script counts the launches the card would make for the same calls: a
 row_gather call one launch and one a fold (ops.chain_folds), a
 row_gather_group call (where the package has one) one launch a launch of
 ops.row_gather_plan for its chains of at most K18_MAX_HOPS hops, a
-level_sum call one launch a stage (ops.level_stages). It runs the
+level_sum call one launch a stage (ops.level_stages), a fk_score or
+choice_score call one launch, and, where the package fuses the child
+levels into it (ops.score_fusion), the K20 launches of a level's earlier
+stages or of a ch_n summed first; a fused level counts no K20 launch of
+its own. It runs the
 package of the checkout it is started from (the working directory is put
 first on sys.path), so a parent's checkout counts the parent's calls:
 
@@ -16,9 +21,9 @@ rents 4,000 rows B = 256, flights 600 rows one sweep, hospital 240 rows B
 = 64, its collapsed PG form at P = 64 and its written-out form at B = 16,
 P = 16): init and one sweep. Per one proposal of every block of the
 hospital model's Record and the flights model's Obs class at one row and
-at 16: K18 and K20 launches (a one-row proposal is a graphed ramp or
-sweep row's proposal). The ratio of two checkouts' counts a path scales
-the card's census of that path.
+at 16: K12, K13, K18 and K20 launches (a one-row proposal is a graphed
+ramp or sweep row's proposal). The ratio of two checkouts' counts a path
+scales the card's census of that path.
 """
 from __future__ import annotations
 
@@ -38,7 +43,7 @@ from pclean_tpu_torch.engine.smc import Engine  # noqa: E402
 from pclean_tpu_torch.workloads import (flights, hospital, rents,  # noqa
                                         scaled)
 
-COUNT = {"row_gather": 0, "level_sum": 0}
+COUNT = {"row_gather": 0, "level_sum": 0, "fk_score": 0, "choice_score": 0}
 
 
 def _spy() -> None:
@@ -70,6 +75,20 @@ def _spy() -> None:
         return ls(prog, operands, rank, B, label)
 
     ops.level_sum = level_sum
+
+    def score(name, levels):
+        real = getattr(ops, name)
+
+        def call(*a, **kw):
+            COUNT[name] += 1
+            if hasattr(ops, "score_fusion"):   # a fused package's K20s
+                COUNT["level_sum"] += sum(ops.score_fusion(
+                    levels(a))["stages"])
+            return real(*a, **kw)
+        setattr(ops, name, call)
+
+    score("fk_score", lambda a: list(a[6:8]))
+    score("choice_score", lambda a: [a[1]])
 
 
 PATHS = {

@@ -1,11 +1,12 @@
-"""Time the hospital paths' init and sweeps of two or more checkouts in
+"""Time chip_smoke.py's paths' init and sweeps of two or more checkouts in
 turns on one card.
 
 Each tree in --trees is a directory holding a checkout of the repository
 (its chip_smoke.py and pclean_tpu_torch/, for example a `git archive`
 unpacked under _tree/). In the order --turns gives (indices into
---trees), a fresh process in that tree runs each path of its
-chip_smoke.HOSPITAL_PATHS named in --paths: init_state and
+--trees), a fresh process in that tree runs each path named in --paths
+(scaled, rents, flights or one of HOSPITAL_PATHS, each built as the
+tree's chip_smoke.py builds it): init_state and
 Engine.initialize, timed, then --sweeps sweeps (Engine.sweep), each timed
 alone, with Engine.phase_times after each and, where the tree has it, the
 one-row loops' counts of that sweep (engine/row_graph.STATS: segments,
@@ -40,6 +41,26 @@ def card_line() -> str:
         check=True).stdout.strip()
 
 
+def setup(cs, path: str):
+    """A path's model as chip_smoke.py builds it (cs: the tree's
+    chip_smoke module): workloads.<name>.setup's tuple."""
+    from pclean_tpu_torch.workloads import flights, hospital, rents, scaled
+
+    if path in cs.HOSPITAL_PATHS:
+        return hospital.setup(**cs.HOSPITAL_PATHS[path], device="cuda")
+    if path == "scaled":
+        return scaled.setup(rows=cs.ROWS, batch=cs.BATCH, device="cuda",
+                            **cs.SCALED)
+    if path == "rents":
+        r = cs.RENTS
+        return rents.setup(rows=r["rows"], states=r["states"],
+                           counties=r["counties"], batch=r["batch"],
+                           device="cuda")
+    if path == "flights":
+        return flights.setup(**cs.FLIGHTS, device="cuda")
+    raise SystemExit(f"sweep_turns: no path {path!r}")
+
+
 def worker(paths: list, sweeps: int, settle: str) -> None:
     """In a tree (the working directory): each path's init and sweeps, one
     JSON line a path."""
@@ -49,7 +70,6 @@ def worker(paths: list, sweeps: int, settle: str) -> None:
     from pclean_tpu_torch import ops
     from pclean_tpu_torch.engine.compile import init_state
     from pclean_tpu_torch.engine.smc import Engine
-    from pclean_tpu_torch.workloads import hospital
 
     try:
         from pclean_tpu_torch.engine import row_graph
@@ -58,8 +78,7 @@ def worker(paths: list, sweeps: int, settle: str) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     ops.build_kernels()
     for path in paths:
-        cm, config, *_rest = hospital.setup(**cs.HOSPITAL_PATHS[path],
-                                            device="cuda")
+        cm, config, *_rest = setup(cs, path)
         if row_graph is not None:
             row_graph.reset_stats()
         torch.cuda.synchronize()

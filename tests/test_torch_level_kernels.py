@@ -279,27 +279,18 @@ def _divide(n, word):
     return (((n * magic) >> 32) + n) >> shift
 
 
-def _read_k20(words):
-    """csrc/level_sum.cu's kernel, written out in Python over the plan:
-    each thread's place from its index by the plan's divisors (the merged
-    axes, the instantiation's elements a thread along the innermost), each
-    reference's offset from the coordinates and its innermost stride as a
-    step, float32 arithmetic (one rounding a step); the instantiation
-    holds the program's depth."""
-    N, rank = words[0], words[1]
-    sizes = words[2:2 + rank]
+def _k20_element(words, coord, c):
+    """csrc/level_eval.cuh's evaluation of the plan's program at one
+    element (its coordinates on the outer merged axes and its position c
+    along the innermost), written out in Python: each reference's offset
+    from the coordinates and its innermost stride, float32 arithmetic (one
+    rounding a step)."""
+    rank = words[1]
     n_refs, n_ops, n_prog = words[11], words[12], words[13]
-    tpr, rows, threads, div_tpr = words[14], words[15], words[16], words[17]
-    divs, kernel = words[18:25], words[25]
-    E = ops.K20_KERNELS[kernel][2]
-    assert threads == rows * tpr and rows * sizes[-1] == N
     refs = [words[32 + 10 * r: 42 + 10 * r] for r in range(n_refs)]
     base = 32 + 10 * n_refs
     opw = [words[base + 6 * i: base + 6 * i + 6] for i in range(n_ops)]
     prog = words[base + 6 * n_ops: base + 6 * n_ops + n_prog]
-    assert ops.level_stack([(w >> 32, w & 0xffffffff) for w in prog]) <= \
-        ops.K20_KERNELS[kernel][0]
-    out = np.full(N, np.nan, np.float32)
 
     def at(r, coord, c):
         rf = refs[r]
@@ -333,33 +324,71 @@ def _read_k20(words):
         b = min(max(int(at(o[2], coord, c)), 0), V - 1)
         return _ld(o[4], 6, a * V + b)
 
+    stack = []
+    for w in prog:
+        op, arg = w >> 32, w & 0xffffffff
+        if op == ops.LEVEL_ZERO:
+            stack.append(np.float32(0))
+        elif op == ops.LEVEL_PUSH:
+            stack.append(np.float32(operand(opw[arg], coord, c)))
+        elif op == ops.LEVEL_ADD:
+            b = stack.pop()
+            stack[-1] = np.float32(stack[-1] + b)
+        else:
+            stack[-1] = np.float32(stack[-1] + operand(opw[arg], coord, c))
+    return stack[0]
+
+
+def _place(words, t, E):
+    """The kernel's place of thread t (E elements a thread): the outer
+    coordinates by the plan's divisors, the first element's position along
+    the innermost axis and its row-major index."""
+    rank, sizes = words[1], words[2:2 + words[1]]
+    tpr, div_tpr, divs = words[14], words[17], words[18:25]
+    row = _divide(t, div_tpr)
+    assert row == t // tpr
+    c0 = (t - row * tpr) * E
+    first = row * sizes[-1] + c0
+    coord = [0] * (rank - 1)
+    for d in range(rank - 2, 0, -1):
+        q = _divide(row, divs[d])
+        assert q == row // sizes[d]
+        coord[d], row = row - q * sizes[d], q
+    if rank > 1:
+        coord[0] = row
+    return coord, c0, first
+
+
+def read_level_at(words, n):
+    """A fused level's value at element n of its output (an element a
+    thread, as K12 and K13 evaluate it)."""
+    coord, c0, first = _place(words, n, 1)
+    assert first == n and words[14] == words[2 + words[1] - 1]
+    return _k20_element(words, coord, c0)
+
+
+def _read_k20(words):
+    """csrc/level_sum.cu's kernel, written out in Python over the plan:
+    each thread's place from its index by the plan's divisors (the merged
+    axes, the instantiation's elements a thread along the innermost), each
+    element evaluated as the kernel evaluates it (_k20_element); the
+    instantiation holds the program's depth."""
+    N, rank = words[0], words[1]
+    sizes = words[2:2 + rank]
+    n_refs, n_ops, n_prog = words[11], words[12], words[13]
+    tpr, rows, threads = words[14], words[15], words[16]
+    kernel = words[25]
+    E = ops.K20_KERNELS[kernel][2]
+    assert threads == rows * tpr and rows * sizes[-1] == N
+    base = 32 + 10 * n_refs + 6 * n_ops
+    prog = words[base: base + n_prog]
+    assert ops.level_stack([(w >> 32, w & 0xffffffff) for w in prog]) <= \
+        ops.K20_KERNELS[kernel][0]
+    out = np.full(N, np.nan, np.float32)
     for t in range(threads):
-        row = _divide(t, div_tpr)
-        assert row == t // tpr
-        c0 = (t - row * tpr) * E
-        first = row * sizes[-1] + c0
-        coord = [0] * (rank - 1)
-        for d in range(rank - 2, 0, -1):
-            q = _divide(row, divs[d])
-            assert q == row // sizes[d]
-            coord[d], row = row - q * sizes[d], q
-        if rank > 1:
-            coord[0] = row
+        coord, c0, first = _place(words, t, E)
         for j in range(min(E, sizes[-1] - c0)):
-            stack = []
-            for w in prog:
-                op, arg = w >> 32, w & 0xffffffff
-                if op == ops.LEVEL_ZERO:
-                    stack.append(np.float32(0))
-                elif op == ops.LEVEL_PUSH:
-                    stack.append(np.float32(operand(opw[arg], coord, c0 + j)))
-                elif op == ops.LEVEL_ADD:
-                    b = stack.pop()
-                    stack[-1] = np.float32(stack[-1] + b)
-                else:
-                    stack[-1] = np.float32(stack[-1] + operand(
-                        opw[arg], coord, c0 + j))
-            out[first + j] = stack[0]
+            out[first + j] = _k20_element(words, coord, c0 + j)
     return out
 
 
@@ -704,6 +733,24 @@ def _spies():
             mock.patch.object(ops, "py_prior", wraps=ops.py_prior))
 
 
+def _score_spies():
+    """Spies on K12 and K13, which take a one-row level unsummed."""
+    return (mock.patch.object(ops, "fk_score", wraps=ops.fk_score),
+            mock.patch.object(ops, "choice_score", wraps=ops.choice_score))
+
+
+def _level_kinds(ls, fk=None, ch=None) -> set:
+    """The operand kinds of the levels the tracer summed through K20 (the
+    level_sum spy) and, at one row, handed to K12 and K13 (ops.Level
+    arguments of their spies)."""
+    kinds = {o["kind"] for c in ls.call_args_list for o in c.args[1]}
+    fused = [x for c in (fk.call_args_list if fk else [])
+             for x in c.args[6:8]] + \
+        [c.args[1] for c in (ch.call_args_list if ch else [])]
+    return kinds | {o["kind"] for x in fused if isinstance(x, ops.Level)
+                    for o in x.operands}
+
+
 @pytest.fixture(scope="module")
 def scaled_pair():
     from test_torch_host import scaled_pair as build
@@ -750,19 +797,20 @@ def hospital_pair():
 def test_hospital_record_blocks_through_k20_k21_match_jax(hospital_pair, n):
     """Both hospital Record blocks in plan order (the second reads the
     first's Hospital for the stateavg), one row and a batch of 16: the
-    deferred AddTypos gathers through K20 at one row (through K3 over the
-    batch, its output a dense operand), the batched fk levels through
-    K21."""
+    deferred AddTypos gathers as level operands at one row (summed inside
+    the K12/K13 launch that reads them; through K3 over the batch, its
+    output a dense operand of K20), the batched fk levels through K21."""
     import jax
     from test_torch_hospital import _chain
 
     lsum, prior = _spies()
-    with lsum as ls, prior as pp:
+    fks, chs = _score_spies()
+    with lsum as ls, prior as pp, fks as fk, chs as ch:
         slots = np.sort(np.random.default_rng(n).choice(240, n,
                                                         replace=False))
         _chain(hospital_pair, "Record", slots,
                jax.random.split(jax.random.PRNGKey(21 + n), n))
-    kinds = {o["kind"] for c in ls.call_args_list for o in c.args[1]}
+    kinds = _level_kinds(ls, fk, ch)
     assert "dense" in kinds and ("gather" in kinds) == (n == 1)
     assert (pp.call_count > 0) == (n > 1)
 
@@ -781,7 +829,8 @@ def test_flights_blocks_through_k20_match_jax(flights_pair, cid, n):
     """Every flights Obs block in plan order (the copy-mode equalities of
     its observed flight and website columns, its observed times'
     non-enumerable terms with their missing cells: K20's eq and sel
-    operands) and the Flight blocks, one row and a batch of 8. The port's
+    operands, at one row inside the K12/K13 launch that reads them) and
+    the Flight blocks, one row and a batch of 8. The port's
     score-pass prior draws (MaybeSwap's swaps) come from torch's global
     generator here, the JAX package's from its keys: the two agree where
     neither swaps, and the generator is seeded so that the test does not
@@ -790,14 +839,15 @@ def test_flights_blocks_through_k20_match_jax(flights_pair, cid, n):
     from test_torch_hospital import _chain
 
     lsum, _prior = _spies()
+    fks, chs = _score_spies()
     cap = flights_pair.cm_t.layouts[cid].capacity
     slots = np.sort(np.random.default_rng(n).choice(min(cap, 300), n,
                                                     replace=False))
     torch.manual_seed(0)
-    with lsum as ls:
+    with lsum as ls, fks as fk, chs as ch:
         _chain(flights_pair, cid, slots,
                jax.random.split(jax.random.PRNGKey(n), n))
-    kinds = {o["kind"] for c in ls.call_args_list for o in c.args[1]}
+    kinds = _level_kinds(ls, fk, ch)
     assert kinds >= ({"eq", "sel", "dense"} if cid == "Obs" else {"dense"})
 
 

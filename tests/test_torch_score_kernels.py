@@ -324,6 +324,341 @@ def test_one_row_blocks_through_k12_k13_match_jax(which, blocks):
     assert ops.LAUNCHES == before
 
 
+# ------------------------------------------- the child level fused in
+
+AXES = (3, 4)   # test_torch_level_kernels' enumeration axes
+# seeded child levels (test_torch_level_kernels' generators: score_plan's
+# nested sums over dense terms, copy-mode equalities on int and FLOAT
+# columns, non-enumerable observed terms and deferred AddTypos gathers)
+FUSED_CASES = {
+    "dense": dict(depth=1, kinds=["dense"], nest=2),
+    "eq int": dict(depth=1, kinds=["eq"], statics=[None, 1]),
+    "eq float": dict(depth=2, kinds=["eq"], statics=[None, 1],
+                     floats=[True]),
+    "sel": dict(depth=1, kinds=["sel"], statics=[None, 0, 2]),
+    "gathers": dict(depth=1, kinds=["dense"], gathers=11),
+    "mixed": dict(depth=2, kinds=["dense", "eq", "sel"],
+                  statics=[None, 1, 2], floats=[False, True], gathers=3,
+                  nest=3),
+}
+
+
+def _seeded_level(case, seed, depth=None, dev="cpu"):
+    """A one-row child level of FUSED_CASES[case] at `depth` (the case's
+    own by default), rank 1 + depth over (1,) + AXES[:depth]: (ops.Level,
+    the parent's eager value of it)."""
+    from test_torch_level_kernels import _gathers, _plan, _to
+
+    c = FUSED_CASES[case]
+    depth = c["depth"] if depth is None else depth
+    rng = np.random.default_rng(seed)
+    rank = 1 + depth
+    ops_, terms = [], []
+    code, total = _plan(rng, 1, rank, c.get("nest", 1), c["kinds"],
+                        c.get("statics", [None]), c.get("floats", [False]),
+                        ops_, terms)
+    if c.get("gathers") and depth > 0:
+        total = _gathers(rng, rank, c["gathers"], ops_, code, total)
+    return ops.Level(ops.level_program(code), _to(ops_, dev), rank,
+                     "test"), total
+
+
+def _fused_args(kernel, case, seed, dev="cpu"):
+    """A fused call's arguments: K13 (enum, children, full, obs_ld, obs,
+    state) with its rows in states 0, 1, 2 in turn; K12 (refcount, alive,
+    total, nrows, s, d, ch_e, ch_n, full) with ch_n a level of the same
+    kinds one depth up. The record's rows are (1,) + AXES[:depth - 1],
+    its options or slots AXES[depth - 1]."""
+    lv, _want = _seeded_level(case, seed, dev=dev)
+    depth = lv.rank - 1
+    full, K = (1,) + AXES[:depth - 1], AXES[depth - 1]
+    if kernel == "choice":
+        inp = _choice_inputs(seed, K, full)
+        en, _ch, full, ld, ov, st = _choice_torch(inp, dev)
+        if full[1:]:   # a state per enumeration row
+            st = (torch.arange(int(np.prod(full))) % 3).to(
+                torch.int8).reshape(full).to(dev)
+        return en, lv, full, ld, ov, st
+    inp = _fk_inputs(seed, K, full)
+    args = list(_fk_torch(inp, dev))
+    ch_n, _w = _seeded_level("sel" if depth == 1 else case, seed + 7,
+                             depth=depth - 1, dev=dev)
+    args[6], args[7] = lv, ch_n
+    return tuple(args)
+
+
+def _pair(kernel, args):
+    """The parent's pair: K20's plain version of each child level, then
+    the score kernel's plain version on the sums."""
+    sums = [ops.level_sum_plain(x.prog, x.operands, x.rank)
+            if isinstance(x, ops.Level) else x for x in args]
+    return (ops.choice_score_plain if kernel == "choice"
+            else ops.fk_score_plain)(*sums)
+
+
+@pytest.mark.parametrize("kernel", ["choice", "fk"])
+@pytest.mark.parametrize("case", list(FUSED_CASES))
+def test_fused_plain_is_the_parents_pair(kernel, case):
+    """The fused plain versions (the level summed by level_value, then the
+    score arithmetic) bit-equal to the parent's K20-then-K12/K13 pair on
+    seeded levels of every operand kind; the level's sum bit-equal to the
+    parent's eager expression; on the CPU the wrapper is the plain
+    version and launches nothing."""
+    for seed in range(2):
+        args = _fused_args(kernel, case, seed)
+        lv, want = _seeded_level(case, seed)
+        assert torch.equal(ops.level_value(lv), want)
+        r0, z0 = _pair(kernel, args)
+        plain = ops.choice_score_plain if kernel == "choice" \
+            else ops.fk_score_plain
+        r1, z1 = plain(*args)
+        assert torch.equal(r1, r0) and torch.equal(z1, z0)
+        before = dict(ops.LAUNCHES)
+        r2, z2 = (ops.choice_score if kernel == "choice"
+                  else ops.fk_score)(*args)
+        assert ops.LAUNCHES == before
+        assert torch.equal(r2, r0) and torch.equal(z2, z0)
+
+
+def _f32(bits):
+    import struct
+    return np.float32(struct.unpack("<f", struct.pack("<i", bits))[0])
+
+
+def _read_k13(words):
+    """csrc/choice_score.cu written out in Python over its plan: each
+    row's state, observation and offsets from the head, each option's
+    logit and the child level evaluated at (r, v) as the kernel evaluates
+    it, one float32 add. Returns the record [R, V]."""
+    from test_torch_level_kernels import _ld, read_level_at
+
+    h, lv = words[:ops.K13_HEAD], words[ops.K13_HEAD:]
+    en, ld, obs, obs_dt, state, code, V, nd, _rec, _logz, R = h[:11]
+    es, sizes = h[15], h[16:16 + nd]
+    assert lv[0] == R * V
+
+    def off(first, r):
+        o = 0
+        for i in range(nd - 1, -1, -1):
+            o += (r % sizes[i]) * h[first + i]
+            r //= sizes[i]
+        return o
+
+    out = np.empty((R, V), np.float32)
+    for r in range(R):
+        c = int(_ld(state, 1, off(48, r))) if state else code
+        seen = obs != 0 and c == 1
+        for v in range(V):
+            if seen:
+                ov = int(_ld(obs, obs_dt, off(40, r)))
+                lg = _ld(ld, 6, off(32, r)) if v == ov else np.float32(NINF)
+            else:
+                lg = _ld(en, 6, off(24, r) + v * es)
+            out[r, v] = np.float32(lg + read_level_at(lv, r * V + v))
+    return out
+
+
+def _read_k12(words):
+    """csrc/fk_score.cu written out in Python over its plan: the prior of
+    each slot and the fresh row (torch's float32 log, as the plain version
+    on the CPU), ch_e evaluated at (r, k), ch_n at r, one float32 add
+    each. Returns the record [R, K + 1]."""
+    from test_torch_level_kernels import _ld, read_level_at
+
+    h = words[:ops.K12_HEAD]
+    refc, alive, K, tot, tdt, nr, ndt, sp, sb, dp, db = h[:11]
+    R, nl = h[13], h[18]
+    lve, lvn = words[ops.K12_HEAD:nl], words[nl:]
+    assert lve[0] == R * K and lvn[0] == R
+    f32 = lambda x: torch.tensor(x, dtype=torch.float32)  # noqa: E731
+    s = _ld(sp, 6, 0) if sp else _f32(sb)
+    d = _ld(dp, 6, 0) if dp else _f32(db)
+    logden = torch.log(f32(np.float32(_ld(tot, tdt, 0))) + f32(s))
+    out = np.empty((R, K + 1), np.float32)
+    for r in range(R):
+        fresh = torch.log(f32(d) * f32(np.float32(_ld(nr, ndt, 0)))
+                          + f32(s)) - logden
+        out[r, K] = np.float32(fresh.item() + read_level_at(lvn, r))
+        for k in range(K):
+            cnt = int(_ld(refc, 4, k))
+            if _ld(alive, 0, k) and cnt > 0:
+                ex = (torch.log(torch.clamp(f32(np.float32(cnt)) - f32(d),
+                                            min=1e-30)) - logden).item()
+            else:
+                ex = NINF
+            out[r, k] = np.float32(np.float32(ex)
+                                   + read_level_at(lve, r * K + k))
+    return out
+
+
+@pytest.mark.parametrize("kernel", ["choice", "fk"])
+@pytest.mark.parametrize("case", list(FUSED_CASES))
+def test_fused_plan_read_as_the_kernel_reads_it(kernel, case):
+    """K12's and K13's words (the head, then each level over the record's
+    shape, an element a thread), read word by word as the kernels read
+    them through the CPU tensors' addresses: the record bit-equal to the
+    parent's pair."""
+    args = _fused_args(kernel, case, 3)
+    want, _z = _pair(kernel, args)
+    if kernel == "choice":
+        en, lv, full, ld, ov, st = args
+        R, V = int(np.prod(full)), en.shape[-1]
+        rec, logz = torch.empty(R, V), torch.empty(R)
+        plan = ops.choice_score_plan(R, V, ops.score_spread(R))
+        words = ops.choice_score_words(en, lv, full, ld, ov, st, rec, logz,
+                                       plan, card=False)
+        assert len(words) <= ops.K13_WORDS
+        got = _read_k13(words)
+    else:
+        *head, ch_e, ch_n, full = args
+        R, K = int(np.prod(full)), head[0].shape[-1]
+        rec, logz = torch.empty(R, K + 1), torch.empty(R)
+        plan = ops.fk_score_plan(R, K, ops.score_spread(R))
+        words = ops.fk_score_words(*head, ch_e, ch_n, full, rec, logz, plan,
+                                   card=False)
+        assert len(words) <= ops.K12_WORDS
+        got = _read_k12(words)
+    np.testing.assert_array_equal(got, want.numpy())
+
+
+def _wide_level(rng, rank, n_ops=64):
+    """A level at the edge of one K20 launch: n_ops copy-mode equalities
+    with static states (two references each: 128 with 64), a program of
+    ~360 steps; its words are ~2,060, so two do not fit K12's block."""
+    shape = (1,) + AXES[:rank - 1]
+    operands = [ops.level_eq(
+        torch.as_tensor(rng.integers(0, 3, shape).astype(np.int32)),
+        torch.as_tensor(rng.integers(0, 3, (1,) * rank)), 1, False)
+        for _ in range(n_ops)]
+    Z, O, A = ops.LEVEL_ZERO, ops.LEVEL_ADDOP, ops.LEVEL_ADD
+    prog = [(Z, 0)] + [(O, i) for i in range(n_ops)] + [(Z, 0), (A, 0)] * 150
+    return ops.Level(prog, operands, rank, "wide")
+
+
+def test_fused_levels_past_one_launch_split_bit_equal():
+    """A one-row level past one K20 launch: its earlier stages summed by
+    K20 (level_stages), the last fused; a ch_e/ch_n pair too large for
+    one parameter block with K12's head: ch_n summed by K20 first, as one
+    dense term. Each bit-equal to the parent's sum, and each counted as a
+    split of the score kernel (score_fusion)."""
+    from pclean_tpu_torch import kernel_bench as kb
+
+    rng = np.random.default_rng(5)
+    prog, operands = kb.split_level(rng, n_ops=100, depth=40, B=1,
+                                    V=AXES[0])
+    lv = ops.Level(prog, operands, 2, "staged")
+    n = len(ops.level_stages(prog, operands))
+    assert n > 1 and ops.score_fusion([lv])["stages"] == [n - 1]
+    last = ops._fuse_prepare(lv, 2)   # its K20 stages: plain on the CPU
+    assert len(ops.level_stages(last.prog, last.operands)) == 1
+    assert torch.equal(ops.level_value(last), ops.level_value(lv))
+    en = torch.as_tensor(rng.normal(size=(1, AXES[0])).astype(np.float32))
+    r0, z0 = ops.choice_score_plain(en, ops.level_value(lv), (1,))
+    rec, logz = torch.empty(1, AXES[0]), torch.empty(1)
+    words = ops.choice_score_words(
+        en, last, (1,), None, None, 0, rec, logz,
+        ops.choice_score_plan(1, AXES[0], True), card=False)
+    np.testing.assert_array_equal(_read_k13(words), r0.numpy())
+    assert torch.equal(ops.choice_score(en, lv, (1,))[0], r0)
+    # the pair
+    ch_e, ch_n = _wide_level(rng, 2), _wide_level(rng, 1)
+    inp = _fk_inputs(6, AXES[0], (1,))
+    head = list(_fk_torch(inp))[:6]
+    fus = ops.score_fusion([ch_e, ch_n])
+    assert fus["n_first"] and fus["stages"] == [0, 1]
+    assert fus["words"] <= ops.K12_WORDS
+    assert ops.K12_HEAD + sum(len(ops.level_plan(
+        x.prog, x.operands, x.rank, card=False)[0]) for x in (ch_e, ch_n)) \
+        > ops.K12_WORDS
+    n1 = ops._fuse_prepare(ch_n, 1, whole=True)
+    assert len(n1.operands) == 1 and n1.operands[0]["kind"] == "dense"
+    assert torch.equal(ops.level_value(n1), ops.level_value(ch_n))
+    r0, _z = _pair("fk", head + [ch_e, ch_n, (1,)])
+    rec, logz = torch.empty(1, AXES[0] + 1), torch.empty(1)
+    words = ops.fk_score_words(*head, ch_e, n1, (1,), rec, logz,
+                               ops.fk_score_plan(1, AXES[0]), card=False)
+    assert len(words) == fus["words"]
+    np.testing.assert_array_equal(_read_k12(words), r0.numpy())
+    with pytest.raises(ValueError):   # both levels: past the block
+        ops.fk_score_words(*head, ch_e, ch_n, (1,), rec, logz,
+                           ops.fk_score_plan(1, AXES[0]), card=False)
+    assert torch.equal(ops.fk_score(*head, ch_e, ch_n, (1,))[0], r0)
+
+
+@pytest.mark.parametrize("K", [2, 8, 23, 512, 1472, 7735, 11264])
+def test_fused_geometry_follows_the_level(K):
+    """Which geometry a fused level gets: at one row a thread a slot
+    (score_spread), in a block of up to 1,024, a cluster of up to 8 such
+    blocks a row past that, grid (cluster, R); over more rows K1's
+    plan."""
+    for R in (1, 3, 4096):
+        assert ops.score_spread(R) == (R == 1)
+        for plan_fn, mode in ((ops.fk_score_plan, "fk"),
+                              (ops.choice_score_plan, "choice")):
+            k1 = ops.enum_logsumexp_plan(R, K, mode)
+            if k1["path"] == "split":
+                k1 = ops.enum_logsumexp_plan(R, K, mode, path="block")
+            assert plan_fn(R, K, False) == k1
+            p = plan_fn(R, K, True)
+            threads = min(1024, 32 * -(-K // 32))
+            assert p == dict(path="slots", threads=threads, rows=1,
+                             cluster=min(8, -(-K // threads)),
+                             grid=(min(8, -(-K // threads)), R))
+            assert p["threads"] * p["cluster"] >= min(K, 8192)
+
+
+def test_tracer_hands_one_row_levels_to_k12_k13():
+    """At one row every K12/K13 child that is not a constant is an
+    ops.Level (no K20 of its own); over B rows the tracer sums the same
+    levels by K20 and launches K1/K21 as before. Hospital's Record block
+    on the CPU (the plain versions)."""
+    from pclean_tpu_torch.engine.compile import init_state
+    from pclean_tpu_torch.engine.refresh import refresh
+    from pclean_tpu_torch.engine.smc import Engine
+    from pclean_tpu_torch.workloads import hospital
+
+    cm, cfg = hospital.setup(rows=60, batch=16, device="cpu")[:2]
+    eng = Engine(cm, cfg, device="cpu")
+    arenas, params = init_state(cm, 0, device="cpu")
+    rel = refresh(cm, arenas, eng.obs_dev)
+    seen = {"level_sum": [], "fk_score": [], "choice_score": []}
+
+    def spy(name):
+        real = getattr(ops, name)
+
+        def call(*a, **kw):
+            seen[name].append(a)
+            return real(*a, **kw)
+        return call
+
+    from unittest import mock
+    with mock.patch.object(ops, "level_sum", spy("level_sum")), \
+            mock.patch.object(ops, "fk_score", spy("fk_score")), \
+            mock.patch.object(ops, "choice_score", spy("choice_score")):
+        eng._propose("Record", arenas, rel, params, torch.arange(1),
+                     torch.Generator().manual_seed(1), False)
+        one = {k: list(v) for k, v in seen.items()}
+        for v in seen.values():
+            v.clear()
+        eng._propose("Record", arenas, rel, params, torch.arange(4),
+                     torch.Generator().manual_seed(1), False)
+    children = [a[1] for a in one["choice_score"]] + \
+        [x for a in one["fk_score"] for x in a[6:8]]
+    assert one["fk_score"] and one["choice_score"]
+    for x in children:
+        assert isinstance(x, ops.Level) or (x.numel() == 1
+                                            and float(x) == 0.0)
+    # the parent's 28 one-row K20 launches: 26 fed these 6 K12 and 14 K13
+    assert (len(one["fk_score"]), len(one["choice_score"])) == (6, 14)
+    assert sum(isinstance(x, ops.Level) for x in children) == 26
+    # the one-row K20 launches left: the root level of each of the
+    # Record class's two blocks
+    assert len(one["level_sum"]) == 2
+    assert all(a[2] == 1 for a in one["level_sum"])
+    assert not seen["fk_score"] and not seen["choice_score"]
+    assert seen["level_sum"]
+
+
 # ------------------------------------------------------------------ card
 
 
@@ -379,6 +714,83 @@ def test_k13_cuda_matches_plain(card, case):
     r1, z1 = ops.choice_score(*args)
     assert ops.LAUNCHES["choice_score"] == before + 1
     _check(r0, z0, r1, z1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", [None, "warp", "block", "slots"])
+@pytest.mark.parametrize("kernel", ["choice", "fk"])
+@pytest.mark.parametrize("case", list(FUSED_CASES))
+def test_fused_cuda_matches_plain(card, case, kernel, path):
+    """The fused K12 and K13 (the child levels summed in the launch) on
+    every geometry against the parent's pair on the card (K20's plain
+    version, then the score kernel's): record bit-equal, logZ within K1's
+    rule; one launch, no K20."""
+    from pclean_tpu_torch import kernel_bench as kb
+
+    name = "choice_score" if kernel == "choice" else "fk_score"
+    for seed in range(2):
+        args = _fused_args(kernel, case, seed, dev=card)
+        before = dict(ops.LAUNCHES)
+        r1, z1 = kb._score_fns(ops, name, path)[0](*args)
+        assert ops.LAUNCHES[name] == before[name] + 1
+        assert ops.LAUNCHES["level_sum"] == before["level_sum"]
+        r0, z0 = _pair(kernel, args)
+        _check(r0, z0, r1, z1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,n", [(23, 1), (512, 11), (1472, 1), (3000, 3),
+                                 (11264, 3)])
+@pytest.mark.parametrize("name", ["fk_score", "choice_score"])
+def test_fused_cuda_gather_levels(card, name, K, n):
+    """Heavy one-row levels (n deferred gathers over [1, K], as the
+    hospital and scaled paths make them) on the slots path, a cluster a
+    row past 1,024 slots, and on K1's plan: bit-equal to the pair the
+    parent launched (K20, then the score kernel on its sum)."""
+    from pclean_tpu_torch import kernel_bench as kb
+
+    inp = kb.score_ab_inputs(card, name, K, n, 1133)
+    plan = getattr(ops, name + "_plan")(1, K, True)
+    assert plan["path"] == "slots" and plan["cluster"] == min(8, -(-K // 1024))
+    for path in (None, "block"):
+        lvs = [ops.Level(ops.level_program(p), o, r, "t")
+               for p, o, r in inp["levels"]]
+        r1, z1 = kb._score_fns(ops, name, path)[0](*inp["head"], *lvs,
+                                                    *inp["tail"])
+        r0, z0 = kb.score_ab_call(ops, inp, fused=False)()
+        _check(r0, z0, r1, z1)
+
+
+@pytest.mark.cuda
+def test_fused_cuda_splits_bit_equal(card):
+    """A level past one launch (its earlier stages by K20, the last
+    fused) and a ch_e/ch_n pair past K12's parameter block (ch_n by K20
+    first), on the card: bit-equal to the plain versions, the K20 launches
+    and the splits counted."""
+    from pclean_tpu_torch import kernel_bench as kb
+    from test_torch_level_kernels import _to
+
+    rng = np.random.default_rng(5)
+    prog, operands = kb.split_level(rng, n_ops=100, depth=40, B=1,
+                                    V=AXES[0])
+    lv = ops.Level(prog, _to(operands, card), 2, "staged")
+    n = len(ops.level_stages(prog, operands))
+    en = torch.as_tensor(rng.normal(size=(1, AXES[0])).astype(np.float32),
+                         device=card)
+    before, split = dict(ops.LAUNCHES), ops.SPLITS.get("choice_score", 0)
+    r1, z1 = ops.choice_score(en, lv, (1,))
+    assert ops.LAUNCHES["level_sum"] - before["level_sum"] == n - 1
+    assert ops.SPLITS["choice_score"] == split + 1
+    _check(*ops.choice_score_plain(en, lv, (1,)), r1, z1)
+    ch_e, ch_n = (_wide_level(rng, 2), _wide_level(rng, 1))
+    ch_e = ops.Level(ch_e.prog, _to(ch_e.operands, card), 2, "wide")
+    ch_n = ops.Level(ch_n.prog, _to(ch_n.operands, card), 1, "wide")
+    head = list(_fk_torch(_fk_inputs(6, AXES[0], (1,)), card))[:6]
+    before, split = dict(ops.LAUNCHES), ops.SPLITS.get("fk_score", 0)
+    r1, z1 = ops.fk_score(*head, ch_e, ch_n, (1,))
+    assert ops.LAUNCHES["level_sum"] - before["level_sum"] == 1
+    assert ops.SPLITS["fk_score"] == split + 1
+    _check(*ops.fk_score_plain(*head, ch_e, ch_n, (1,)), r1, z1)
 
 
 @pytest.mark.cuda
