@@ -139,10 +139,12 @@ It drives the port only (never jax, never pclean_tpu), in order:
      lookups) at every shape of the path's census holding >= SHAPE_SHARE
      of its launches of the kernel, on seeded inputs of that shape
      (kernel_bench.sample_inputs), against their plain versions on the
-     card, bit-equal, the plain versions drawing with K2 (the kernels'
-     draw is K2's own, csrc/inv_cdf.cuh); where they draw, K2 on the
-     picked logits against the fully plain draw within K2's allowance
-     (sample_checks); the trace phase also counts, for each of its
+     card, bit-equal, the plain versions drawing with K2 (every geometry
+     of the kernels' draw gives K2's index, csrc/inv_cdf.cuh), K16 and
+     K17 (K17's group launches too) also in every draw geometry that
+     takes the shape (kernel_bench.draw_geometries); where they draw, K2
+     on the picked logits against the fully plain draw within K2's
+     allowance (sample_checks); the trace phase also counts, for each of its
      sections, the device ops each port function issued in one eager run
      (a graphed row's warm-up row; ops_by_function), and those of the
      score pass (SCORE_PASS);
@@ -177,7 +179,9 @@ It drives the port only (never jax, never pclean_tpu), in order:
      count alone (index_add_; K15: index_copy_ of one column) and the
      bytes bound (bench_rel_shapes); K16-K19 timed at their most
      launched one-row and batched census shapes holding >= SHAPE_SHARE of
-     a path's launches and at the largest, beside their plain versions,
+     a path's launches and at the largest, K16 and K17 in every draw
+     geometry that takes the shape side by side (device ms and host us,
+     kernel_bench.geometry_ms), beside their plain versions,
      the library call (K18 of one chain: torch.take of the leaf at the
      final indices, none for a group of chains; K19: torch.where of one
      pair; K16 and K17 none) and the bytes bound, and K18 as one chain at
@@ -1065,18 +1069,27 @@ def sample_checks(ops, dev, census, path: str) -> dict:
     from pclean_tpu_torch import kernel_bench as kb
 
     out = {name: [] for name in SAMPLE_KERNELS}
+    geoms = 0
     for c in census:
         if c["kernel"] not in out or c["share"] < SHAPE_SHARE:
             continue
-        r = kb.check_sample(ops, kb.sample_inputs(
+        inp = kb.sample_inputs(
             dev, c["kernel"], ops.CENSUS_FIELDS[c["kernel"]][c["mode"]],
-            c["K"]))
+            c["K"])
+        r = kb.check_sample(ops, inp)
+        checked = kb.draw_geometries(ops, inp)
+        for g in checked:
+            kb.check_sample(ops, inp, geometry=g)
+        geoms += len(checked)
         out[c["kernel"]].append(dict(
             shape=c["mode"], K=c["K"], rows=c["rows"], launches=c["launches"],
             share=c["share"], path=path, max_abs_err=r["max_abs_err"],
-            k2_mismatch_rate=r.get("mismatch_rate")))
+            k2_mismatch_rate=r.get("mismatch_rate"), geometries=checked))
+        del inp
     print(f"{path} K16-K19 census shapes checked bit-equal: "
-          f"{ {k: len(v) for k, v in out.items()} }", flush=True)
+          f"{ {k: len(v) for k, v in out.items()} }, K16/K17 also in "
+          f"every draw geometry that takes them ({geoms} checks)",
+          flush=True)
     torch.cuda.empty_cache()
     return out
 
@@ -1156,6 +1169,14 @@ def bench_sample_shapes(ops, dev, checked: dict, floor) -> dict:
                      floor_ms=floor, pick=f.get("form") == "pick",
                      single=shape.startswith("single"),
                      **kb.time_sample(ops, inp))
+            if kb.draw_geometries(ops, inp):   # K16, K17: side by side
+                x["geometries"] = kb.geometry_ms(ops, inp)
+                print(f"{name} {shape} by geometry (device ms / host us): "
+                      + " ".join(f"{g} {v['device_ms']:.4f} / "
+                                 f"{v['host_us']:.1f}"
+                                 for g, v in x["geometries"].items()
+                                 if g != "plan")
+                      + f" (plan {x['geometries']['plan']})", flush=True)
             out[name].append(x)
             lib = "none" if x["library_ms"] is None else \
                 f"{x['library_ms']:.4f} ms (device " \
@@ -1385,10 +1406,12 @@ LIMITS = dict(rows=512, batch=64)
 LIMITS_F1_FLOOR = 0.9
 # the wrappers a limits run must call past their old limits, and each
 # one's kernel (K7 hoisted chains, K14 sides, K15 columns, K17 ancestor
-# axes, K18 hops, K20 levels; K10's larger block and K11's split writes
+# axes and its group's members, K18 hops, K20 levels; K10's larger block
+# and K11's split writes
 # run in the shadow rows)
 LIMIT_WRAPPERS = ("row_gather", "referrer_hist", "rel_scatter",
-                  "batch_write", "choice_sample", "level_sum", "fk_score")
+                  "batch_write", "choice_sample", "choice_sample_group",
+                  "level_sum", "fk_score")
 # and the wrappers that must have split or raised on its run (ops.SPLITS)
 LIMIT_SPLITS = LIMIT_WRAPPERS + ("row_delta", "row_write")
 

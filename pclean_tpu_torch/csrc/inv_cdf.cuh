@@ -43,7 +43,21 @@
 // steps 1-3 with the scan carried across tiles, stopping at the tile that
 // holds the threshold. Both give the same index for the same row, and the
 // index does not depend on the row's address.
+//
+// K16 and K17 draw in the geometry ops.draw_plan picks for the row (K2
+// keeps draw_row): "block" and "stream" are draw_row above; "warp"
+// (draw_warp) is one warp a row with no block barrier, each lane a run of
+// the row's 16-byte words, the max and the exclusive scan of the lanes'
+// fixed-point sums by shuffles, then the warp walks the bracketing lane's
+// run 32 entries a step; "cluster" (draw_cluster) splits one row over a
+// thread-block cluster, the blocks' maxima and fixed-point totals meeting
+// in distributed shared memory, and the block whose slice brackets the
+// threshold walks it. All four take the same max, the same q = rn(p 2^32)
+// of the same expf, integer sums and the same double threshold, so each
+// returns the first entry whose exact prefix reaches it: K2's index.
 #pragma once
+
+#include <cooperative_groups.h>
 
 #include "common.cuh"
 
@@ -209,6 +223,225 @@ __device__ __forceinline__ void draw_row(const float* __restrict__ x,
     if (hit) *out = (int32_t)(t0 + walk(sp, lo, hi, start, ub));
     if (__syncthreads_or(hit)) return;
     carry += tile_total;
+  }
+}
+
+// ---------------------------------------------------------------- geometries
+
+namespace cg = cooperative_groups;
+
+// ops.DRAW_GEOMETRIES, in order
+enum { kGeomWarp = 0, kGeomBlock = 1, kGeomCluster = 2, kGeomStream = 3 };
+constexpr int kMaxCluster = 8;  // the portable cluster size
+constexpr unsigned kFull = 0xffffffffu;
+
+__device__ __forceinline__ float entry(const float4& v, int j) {
+  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
+}
+
+__device__ __forceinline__ u64 warp_scan_incl(u64 x) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const u64 y = __shfl_up_sync(kFull, x, o);
+    if (lane >= o) x += y;
+  }
+  return x;
+}
+
+// Rows of a warp-a-row launch a block takes: up to 16, fewer where B
+// rows would leave SMs without two blocks each (ops.draw_plan's rows).
+__host__ __device__ __forceinline__ int64_t warp_rows(int64_t B) {
+  const int64_t r = (B + 263) / 264;
+  return r < 1 ? 1 : r > kWarps ? kWarps : r;
+}
+
+constexpr int kWarpHold = 4;  // 16-byte words a lane loads at once
+
+// The max of m and the entries of word v (entries e .. e + 3) in [0, K).
+__device__ __forceinline__ float word_max(const float4& v, int64_t e,
+                                          int64_t K, float m) {
+  if (e >= 0 && e + 4 <= K)
+    return fmaxf(m, fmaxf(fmaxf(v.x, v.y), fmaxf(v.z, v.w)));
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    if (e + j >= 0 && e + j < K) m = fmaxf(m, entry(v, j));
+  return m;
+}
+
+// The sum of q over the entries of word v in [0, K).
+__device__ __forceinline__ u64 word_mass(const float4& v, int64_t e,
+                                         int64_t K, float m) {
+  u64 s = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    if (e + j >= 0 && e + j < K) s += quant(expf(entry(v, j) - m));
+  return s;
+}
+
+// The draw of x[0, K) at u by the 32 lanes of one warp (every lane calls
+// it and gets the index), no block barrier. The row is read as the 16-byte
+// words of its aligned grid (word w holds entries 4w - phase .. 4w - phase
+// + 3; an aligned word never leaves the allocation's 16-byte granules, and
+// entries outside [0, K) are left out); lane l owns the run of words [l cw,
+// (l + 1) cw), loaded kWarpHold at a time so that their loads overlap (a
+// run of at most kWarpHold words stays in registers for both passes).
+// Pass 1 takes the max, pass 2 each lane's sum of q (an L1 read again
+// where the run is longer), a shuffle scan places the runs, and the warp
+// walks the one run that brackets the threshold 32 entries a step, each
+// step a shuffle scan of the step's q's from the run's start.
+__device__ __forceinline__ int64_t draw_warp(const float* __restrict__ x,
+                                             int64_t K, float u) {
+  const int lane = threadIdx.x & 31;
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(x);
+  const int phase = (int)((addr >> 2) & 3);
+  const float4* a4 = reinterpret_cast<const float4*>(addr - 4 * phase);
+  const int64_t W = (K + phase + 3) >> 2;
+  const int64_t cw = (W + 31) >> 5;
+  const int64_t w0 = (int64_t)lane * cw < W ? (int64_t)lane * cw : W;
+  const int64_t w1 = w0 + cw < W ? w0 + cw : W;
+  const float one_minus_u = 1.0f - u;
+  float4 v[kWarpHold];
+  float m = -INFINITY;
+  for (int64_t w = w0; w < w1; w += kWarpHold) {
+#pragma unroll
+    for (int k = 0; k < kWarpHold; ++k)
+      if (w + k < w1) v[k] = __ldg(a4 + w + k);
+#pragma unroll
+    for (int k = 0; k < kWarpHold; ++k)
+      if (w + k < w1) m = word_max(v[k], 4 * (w + k) - phase, K, m);
+  }
+  m = pclean_warp_max(m);
+  u64 s = 0;
+  if (cw <= kWarpHold) {   // the run is still in v
+#pragma unroll
+    for (int k = 0; k < kWarpHold; ++k)
+      if (w0 + k < w1) s += word_mass(v[k], 4 * (w0 + k) - phase, K, m);
+  } else {
+    for (int64_t w = w0; w < w1; w += kWarpHold) {
+#pragma unroll
+      for (int k = 0; k < kWarpHold; ++k)
+        if (w + k < w1) v[k] = __ldg(a4 + w + k);
+#pragma unroll
+      for (int k = 0; k < kWarpHold; ++k)
+        if (w + k < w1) s += word_mass(v[k], 4 * (w + k) - phase, K, m);
+    }
+  }
+  const u64 incl = warp_scan_incl(s);
+  const u64 total = __shfl_sync(kFull, incl, 31);
+  const u64 start = incl - s;
+  const double ub = (double)one_minus_u * (double)total;
+  if (!(ub > 0.0)) return 0;
+  const unsigned hit = __ballot_sync(
+      kFull, (double)start < ub && ub <= (double)(start + s));
+  const int src = hit ? __ffs(hit) - 1 : 31;
+  u64 r = __shfl_sync(kFull, start, src);
+  const int64_t sw0 = (int64_t)src * cw < W ? (int64_t)src * cw : W;
+  const int64_t sw1 = sw0 + cw < W ? sw0 + cw : W;
+  const int64_t lo = 4 * sw0 - phase > 0 ? 4 * sw0 - phase : 0;
+  const int64_t hi = 4 * sw1 - phase < K ? 4 * sw1 - phase : K;
+  for (int64_t e0 = lo; e0 < hi; e0 += 32) {
+    const int64_t e = e0 + lane;
+    const u64 q = e < hi ? quant(expf(x[e] - m)) : 0ull;
+    const u64 c = warp_scan_incl(q);
+    const unsigned h = __ballot_sync(kFull, e < hi && (double)(r + c) >= ub);
+    if (h) return e0 + __ffs(h) - 1;
+    r += __shfl_sync(kFull, c, 31);
+  }
+  return hi - 1;
+}
+
+// The entries of one row a block of a cluster holds: a multiple of 4, so
+// every slice keeps the row's 16-byte phase (ops.draw_plan's slice).
+__host__ __device__ __forceinline__ int64_t cluster_slice(int64_t K, int C) {
+  return (((K + C - 1) / C) + 3) & ~(int64_t)3;
+}
+
+// barrier.cluster's phases: arrive (relaxed) early, wait before the first
+// write into another block's shared memory, so that every block of the
+// cluster has started.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// Each block's `v` into slot `rank` of `arr` in every block of the cluster
+// (thread 0 writes), then a cluster barrier (release, acquire): after it
+// every block reads all C values from its own shared memory.
+template <class T>
+__device__ __forceinline__ void cluster_share(cg::cluster_group& cl, T v,
+                                              T* arr) {
+  const unsigned C = cl.num_blocks(), rank = cl.block_rank();
+  if (threadIdx.x == 0)
+    for (unsigned j = 0; j < C; ++j) *cl.map_shared_rank(&arr[rank], j) = v;
+  cl.sync();
+}
+
+// Cluster-shared scratch of draw_cluster and the cluster reductions.
+struct ClusterSh {
+  float m[kMaxCluster];
+  u64 t[kMaxCluster];
+  int64_t i[kMaxCluster];
+  int64_t j[kMaxCluster];
+  int32_t drawn;
+};
+
+// The draw of x[0, K) at u by a cluster of C blocks of kThreads (every
+// thread of every block calls it, after cluster_arrive_relaxed): block r
+// loads its slice [r L, r L + L) of L = cluster_slice(K, C) entries into
+// buf4 (draw_row's steps 1-2 over the slice), the blocks' maxima meet in
+// distributed shared memory, then their fixed-point totals; the one thread
+// whose chunk brackets the threshold (thread 0 of rank 0 where the total
+// is 0) writes the index to *out, or, with kShare, into every block's
+// cs->drawn, read by every thread after the closing cluster barrier.
+template <bool kShare>
+__device__ __forceinline__ void draw_cluster(const float* __restrict__ x,
+                                             int64_t K, float u, float4* buf4,
+                                             float* shf, u64* shs,
+                                             ClusterSh* cs, int32_t* out) {
+  cg::cluster_group cl = cg::this_cluster();
+  const int C = (int)cl.num_blocks();
+  const int rank = (int)cl.block_rank();
+  const int64_t L = cluster_slice(K, C);
+  const int64_t lo = (int64_t)rank * L < K ? (int64_t)rank * L : K;
+  const int64_t n = (lo + L < K ? lo + L : K) - lo;
+  const float* xs = x + lo;
+  const int phase = (int)((reinterpret_cast<uintptr_t>(xs) >> 2) & 3);
+  float* sp = reinterpret_cast<float*>(buf4) + phase;
+  const float one_minus_u = 1.0f - u;
+  const float bm = pclean_block_max(load_row(xs, n, sp, (4 - phase) & 3), shf);
+  cluster_wait();
+  cluster_share(cl, bm, cs->m);
+  float m = -INFINITY;
+  for (int j = 0; j < C; ++j) m = fmaxf(m, cs->m[j]);
+  int64_t clo, chi;
+  const u64 s = chunk_mass(sp, n, m, &clo, &chi);
+  u64 bt;
+  const u64 start = block_scan_excl(s, shs, &bt);
+  cluster_share(cl, bt, cs->t);
+  u64 before = 0, total = 0;
+  for (int j = 0; j < C; ++j) {
+    if (j < rank) before += cs->t[j];
+    total += cs->t[j];
+  }
+  const double ub = (double)one_minus_u * (double)total;
+  int64_t idx = -1;
+  if (!(ub > 0.0)) {
+    if (rank == 0 && threadIdx.x == 0) idx = 0;
+  } else {
+    const u64 st = before + start;
+    if ((double)st < ub && ub <= (double)(st + s))
+      idx = lo + walk(sp, clo, chi, st, ub);
+  }
+  if (kShare) {
+    if (idx >= 0)
+      for (int j = 0; j < C; ++j)
+        *cl.map_shared_rank(&cs->drawn, j) = (int32_t)idx;
+    cl.sync();
+  } else if (idx >= 0) {
+    *out = (int32_t)idx;
   }
 }
 

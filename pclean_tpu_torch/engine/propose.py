@@ -191,6 +191,7 @@ class BlockTracer:
         self._pool = None
         self._pool_i = 0
         self._gen = None
+        self._grouped: dict = {}
         # each foreign key's copy group gathered at its slots, by (fk,
         # depth), in the score and the sample pass (_copy_value)
         self._copies: dict = {}
@@ -988,6 +989,20 @@ class BlockTracer:
             assert pool.shape == (self.B, n), (pool.shape, (self.B, n))
         self._pool = pool
         self._pool_i = 0
+        # the block's ancestor-free draws, in one K17 group launch before
+        # the walk: {(vid, ctx_key): (chosen [B], pool column)}
+        self._grouped = {}
+        if pool is not None and not self.force_retained:
+            static = frozenset(v for v, (_x, s) in self.obs_row.items()
+                               if _static_obs(s))
+            members = draw_groups(self.cm, self.cid, self._root_plan, static)
+            if members:
+                out = ops.choice_sample_group(
+                    [self.records[(v, ctx)] for v, ctx, _c in members],
+                    pool, [c for _v, _ctx, c in members],
+                    label=str(self.cid))
+                self._grouped = {(v, ctx): (out[i], c) for i, (v, ctx, c)
+                                 in enumerate(members)}
         env2 = {v: val.reshape(self.B) for v, val in self.env0.items()}
         births: list[Birth] = []
         # each target class's working alive mask, [B, cap], copied from the
@@ -1070,10 +1085,16 @@ class BlockTracer:
                 self.sample_step(ch, st, anc, mode, ctx_key)
             return
         # the record [B or 1, ancestors..., V] picked and drawn (or the
-        # retained value checked against it) in one K17 launch
+        # retained value checked against it) in one K17 launch, or drawn
+        # by the block's group launch (sample) where it has no ancestor
         rec = self.records[(vid, ctx_key)]
         label = f"{self.cid}.{vid}"
-        if self.force_retained:
+        grouped = None if anc else self._grouped.get((vid, ctx_key))
+        if grouped is not None:
+            chosen, col = grouped
+            assert self._pool_i == col, (vid, ctx_key, self._pool_i, col)
+            self._pool_i += 1
+        elif self.force_retained:
             chosen = ops.choice_sample(
                 rec, anc, self.B, rv=self._forced(vid),
                 dummy=self.cm.dummy_code.get(self.cm.canon(self.cid, vid)),
@@ -1215,6 +1236,74 @@ def copy_groups(cm: CompiledModel, cid: ClassID, plan: Plan) -> dict:
 
         walk(plan)
         cache[key] = (plan, {k: tuple(v) for k, v in groups.items()})
+    return cache[key][1]
+
+
+def draw_groups(cm: CompiledModel, cid: ClassID, plan: Plan,
+                static: frozenset = frozenset()) -> tuple:
+    """((vid, ctx_key, pool column), ...): the draw-mode choices of class
+    cid's block `plan` whose record has no ancestor axis, wherever the
+    sample pass reaches them (inside a foreign key's fresh branch too), in
+    walk order, each with the column of the block's uniform pool that
+    BlockTracer._unif hands it in that walk. The walk is sample_step's: a
+    foreign key takes a column, then its children in mode "E" (one more
+    ancestor axis), then in mode "N" (none more); a choice that is
+    observed in every row (its vid in `static`) or not enumerable is a
+    pick and takes none. The drawn form only (a retained pass draws
+    nothing). Built once a (class, plan, static) and cached on the model,
+    as copy_groups."""
+    cache = cm.__dict__.setdefault("_draw_groups", {})
+    key = (cid, id(plan), static)
+    if key in cache and cache[key][0] is plan:
+        return cache[key][1]
+    members: list = []
+    col = [0]
+
+    def rest(step, depth, mode, ctx):
+        for ch in step.rest.steps:
+            walk(ch, depth, mode, ctx)
+
+    def choice(step, vid, depth, mode, ctx):
+        kern = cm.kernels[cm.canon(cid, vid)]
+        if vid not in static and kern.enumerable:
+            if depth == 0:
+                members.append((vid, ctx, col[0]))
+            col[0] += 1
+            depth += 1
+        rest(step, depth, mode, ctx)
+
+    def fk(step, vid, depth, mode, ctx):
+        col[0] += 1
+        rest(step, depth + 1, {**mode, vid: "E"}, ctx + ((vid, "E"),))
+        rest(step, depth, {**mode, vid: "N"}, ctx + ((vid, "N"),))
+
+    def walk(step, depth, mode, ctx):
+        vid = step.idx
+        node = cm.node(cid, vid)
+        if isinstance(node, (ParameterNode, ExternalLikelihoodNode)):
+            return
+        if isinstance(node, (ComputeNode, ParamLookupNode)):
+            return rest(step, depth, mode, ctx)
+        if isinstance(node, ForeignKeyNode):
+            return fk(step, vid, depth, mode, ctx)
+        if isinstance(node, SubmodelNode):
+            fmode = mode.get(node.fk_id)
+            while fmode == "N" and isinstance(node.subnode, SubmodelNode):
+                node = node.subnode
+                fmode = mode.get(node.fk_id)
+            if fmode == "N":
+                sub = node.subnode
+                if isinstance(sub, ForeignKeyNode):
+                    return fk(step, vid, depth, mode, ctx)
+                if isinstance(sub, (ComputeNode, ParamLookupNode)):
+                    return rest(step, depth, mode, ctx)
+                return choice(step, vid, depth, mode, ctx)
+            return rest(step, depth, mode, ctx)
+        return choice(step, vid, depth, mode, ctx)
+
+    for step in plan.steps:
+        walk(step, 0, {}, ())
+    cache[key] = (plan, tuple(members))
     return cache[key][1]
 
 

@@ -2502,8 +2502,68 @@ AB_K22 = (  # K22's shapes in the A/B: (label, descriptors (mode, rows,
     # width, counts)): rents' County Proportions, one Dirichlet row of 51
     ("rents [1, 51] Dirichlet", (("dirichlet_log", 1, 51, True),)),
 )
+def _k16f(mask, B, cap):
+    return dict(form="drawn", mask=mask, B=B, cap=cap, comp=False, d=0)
+
+
+def _k17f(B, d=0):
+    return dict(form="draw", dtype=torch.float32, B=B, d=d)
+
+
+def _groupf(B, Vs, rows=None):
+    return dict(form="group", B=B, Vs=tuple(Vs),
+                rows=tuple(rows or (B,) * len(Vs)))
+
+
+# K16's and K17's shapes in the A/B and the geometry sweep, each (label,
+# fields, K): the census shapes of the six paths (PERF.md §6): one-row
+# draws at hospital's, flights', scaled's and rents' row lengths, the
+# batched [4,096, V] draws of scaled and rents, K16's one-row fks and its
+# [4,096, 11,265] draws on the shared and the own mask, and K17's group
+# shapes (a tree without the group mode launches a member at a time):
+# hospital's Record block (11 choices) and flights' Obs block at one
+# row, scaled's Record block at one row and at 4,096
+AB_K17 = (
+    ("one row V=14", _k17f(1), 14),
+    ("one row V=111", _k17f(1), 111),
+    ("one row V=241", _k17f(1), 241),
+    ("one row V=1766", _k17f(1), 1766),
+    ("one row V=1914", _k17f(1), 1914),
+    ("one row V=7735", _k17f(1), 7735),
+    ("one row V=2 d=1", _k17f(1, 1), 2),
+    ("[4096, 138]", _k17f(4096), 138),
+    ("[4096, 1914]", _k17f(4096), 1914),
+    ("[4096, 7735]", _k17f(4096), 7735),
+    ("[256, 1766]", _k17f(256), 1766),
+    ("group hospital Record one row", _groupf(
+        1, (14, 50, 75, 13, 99, 94, 102, 111, 23, 88, 8)), None),
+    ("group flights Obs one row", _groupf(1, (222, 238, 236, 241)), None),
+    ("group scaled Record one row", _groupf(1, (138, 7735, 1914)), None),
+    ("group scaled Record [4096]", _groupf(4096, (138, 7735, 1914)), None),
+)
+AB_K16 = (
+    ("one row 65 shared", _k16f("shared", 1, 64), 65),
+    ("one row 161 shared", _k16f("shared", 1, 160), 161),
+    ("one row 1473 shared", _k16f("shared", 1, 1472), 1473),
+    ("one row 4097 shared", _k16f("shared", 1, 4096), 4097),
+    ("one row 11265 shared", _k16f("shared", 1, 11264), 11265),
+    ("[256, 4097] own", _k16f("own", 256, 4096), 4097),
+    ("[4096, 11265] shared", _k16f("shared", 4096, 11264), 11265),
+    ("[4096, 11265] own", _k16f("own", 4096, 11264), 11265),
+)
+# and beside them, in the geometry sweep only, the row lengths and row
+# counts between the census shapes that draw_plan's thresholds fall in
+SWEEP_K17 = tuple((f"sweep [{B}, {V}]", _k17f(B), V) for B, V in (
+    (1, 32), (1, 64), (1, 128), (1, 384), (1, 512), (1, 1024), (1, 4096),
+    (1, 16384), (1, 70_001), (16, 111), (16, 1024), (256, 138),
+    (256, 512), (4096, 256), (4096, 512), (4096, 1024), (4096, 4096)))
+SWEEP_K16 = tuple((f"sweep {m} [{B}, {c + 1}]", _k16f(m, B, c), c + 1)
+                  for m, B, c in (("shared", 1, 512), ("shared", 1, 2048),
+                                  ("shared", 16, 1472), ("own", 256, 1472),
+                                  ("shared", 4096, 1472),
+                                  ("own", 4096, 4096)))
 AB_KINDS = ("k1-k3", "k4", "k5", "k6", "k7", "k8", "k9", "k12", "k13",
-            "k18", "k20", "k22")
+            "k16", "k17", "k18", "k20", "k22")
 
 
 def host_us(fn, n: int = 2000) -> float:
@@ -2664,6 +2724,12 @@ def ab_seeded(dev, kinds) -> dict:
     flights' 100 flights over 2,376 rows), K8 at AB_K8 (k8_seeded) and K9
     at AB_K9 (k9_inputs, resample with the retained particle)."""
     out = {}
+    for kind, kernel, shapes in (("k16", "fk_sample", AB_K16),
+                                 ("k17", "choice_sample", AB_K17)):
+        if kind in kinds:
+            for label, f, K in shapes:
+                out[f"K{kind[1:]} {label}"] = (kernel, sample_inputs(
+                    dev, kernel, f, K))
     for label, kernel, K, n, V in AB_SCORE:
         if f"k{12 if kernel == 'fk_score' else 13}" in kinds:
             inp = score_ab_inputs(dev, kernel, K, n, V)
@@ -2726,6 +2792,13 @@ def time_ab_seeded(ops, kernel: str, inp: dict) -> dict:
     bit-equal to the plain versions, add host_us, each beside its library
     call where there is one (K18 one chain: torch.take of the leaf at the
     clamped slots; K18 a group of five, and K20: none)."""
+    if kernel in ("fk_sample", "choice_sample"):
+        check_sample(ops, inp)
+        x = _clone_inputs(inp)
+        call = lambda: _sample_call(ops, x)  # noqa: E731
+        return dict(ms=cuda_ms(call), device_ms=graph_ms(call),
+                    host_us=host_us(call), library_ms=None,
+                    library_device_ms=None)
     if kernel == "row_gather":
         call = k18_ab_call(ops, inp)
         got = call()
@@ -2865,6 +2938,11 @@ def main(argv=None) -> int:
                     help="also time every path of K1's plan at every K1 "
                          "shape and over PATH_GRID_R x PATH_GRID_K in both "
                          "modes, with the last tree's kernels")
+    ap.add_argument("--geometries", action="store_true",
+                    help="also time K16 and K17 (those in --kernels) in "
+                         "every draw geometry that takes each A/B shape, "
+                         "with the last tree's kernels (draw_plan's "
+                         "thresholds come from it)")
     ap.add_argument("--census", choices=("hospital",), default=None,
                     help="also time K7 and K8 (those in --kernels) at every "
                          "shape of the hospital path's launch census, on "
@@ -2926,7 +3004,9 @@ def main(argv=None) -> int:
                                                  inp["rank"]))),
                    "fk_score": score_ab_bytes,
                    "choice_score": score_ab_bytes,
-                   "gamma_draw": lambda inp: k22_bounds(inp)["bytes"]}
+                   "gamma_draw": lambda inp: k22_bounds(inp)["bytes"],
+                   "fk_sample": sample_bytes,
+                   "choice_sample": sample_bytes}
     for s, (k, inp) in seeded.items():
         bounds[s] = {k: count_bytes[k](inp) / HBM_BYTES_PER_S * 1e3}
     turns = []
@@ -2999,6 +3079,22 @@ def main(argv=None) -> int:
     print(f"launch floor (one PyTorch op on one element): {floor:.4f} ms")
     for s, y in yard.items():
         print(f"{s}: torch.logsumexp device {y['library_device_ms']:.4f} ms")
+    geos = {}
+    if a.geometries:
+        sweep = dict(seeded)
+        for kind, kernel, shapes in (("k16", "fk_sample", SWEEP_K16),
+                                     ("k17", "choice_sample", SWEEP_K17)):
+            if kind in kinds:
+                for label, f, K in shapes:
+                    sweep[f"K{kind[1:]} {label}"] = (kernel, sample_inputs(
+                        dev, kernel, f, K))
+        for s, (k, inp) in sweep.items():
+            if k in ("fk_sample", "choice_sample"):
+                geos[s] = geometry_ms(tree_ops[-1], inp)
+                print(f"geometries {s}: " + " ".join(
+                    f"{g} {v['device_ms']:.4f} ms / {v['host_us']:.1f} us"
+                    for g, v in geos[s].items() if g != "plan")
+                    + f" plan {geos[s]['plan']}", flush=True)
     paths = {}
     if a.paths:
         ops = tree_ops[-1]
@@ -3027,7 +3123,7 @@ def main(argv=None) -> int:
         with open(os.path.join(a.out, "kernel_ab.json"), "w") as f:
             json.dump(dict(card=torch.cuda.get_device_name(0), turns=turns,
                            summary=summary, launch_floor_ms=floor,
-                           yardsticks=yard, paths=paths),
+                           yardsticks=yard, paths=paths, geometries=geos),
                       f, indent=1)
     return 0
 
@@ -3109,11 +3205,13 @@ def k17_inputs(dev, f: dict, V: int, seed: int = 0) -> dict:
     (past the options: clamped) with the dummy code V - 1; pick, a record
     [B, 3 x d] of the census dtype. dict(mode, args, kwargs)."""
     rng = np.random.default_rng(seed)
-    B, d = f["B"], f["d"]
+    B, d = f["B"], f.get("d", 0)
 
     def t(x, dt):
         return torch.as_tensor(np.ascontiguousarray(x), device=dev).to(dt)
 
+    if f["form"] == "group":
+        return k17_group_inputs(dev, f, seed)
     if f["form"] == "pick":
         rec = rng.integers(0, 100, (B,) + (_ANC_AXIS,) * d) \
             if not f["dtype"].is_floating_point else \
@@ -3132,6 +3230,24 @@ def k17_inputs(dev, f: dict, V: int, seed: int = 0) -> dict:
     return dict(mode=f, kernel="choice_sample", args=(
         t(rec, torch.float32), tuple(t(a, torch.int32) for a in anc), B),
         kwargs=kw)
+
+
+def k17_group_inputs(dev, f: dict, seed: int = 0) -> dict:
+    """Seeded inputs of a K17 group (fields form "group", B, Vs and each
+    record's rows): a record [rows_m, V_m] a member (_seeded_rec, 30%
+    NEG_INF), a pool [B, n + 3] of uniforms and the members' columns, a
+    shuffled subset. dict(mode, group True, args (recs, pool, cols))."""
+    rng = np.random.default_rng(seed)
+    B, Vs = f["B"], f["Vs"]
+    rows = f.get("rows") or (B,) * len(Vs)
+    recs = [torch.as_tensor(_seeded_rec(rng, r, 0, V)[0], device=dev)
+            for r, V in zip(rows, Vs)]
+    n = len(Vs) + 3
+    pool = torch.as_tensor(rng.random((B, n)).astype(np.float32),
+                           device=dev)
+    cols = [int(c) for c in rng.permutation(n)[:len(Vs)]]
+    return dict(mode=f, kernel="choice_sample", group=True,
+                args=(recs, pool, cols), kwargs={})
 
 
 def k18_inputs(dev, f: dict, N: int, seed: int = 0) -> dict:
@@ -3204,21 +3320,36 @@ def sample_inputs(dev, kernel: str, f: dict, K: int, seed: int = 0):
         dev, f, K, seed)
 
 
-def _sample_call(ops, inp: dict, plain: bool = False, draw=None):
+def _sample_call(ops, inp: dict, plain: bool = False, draw=None,
+                 geometry=None):
     """One K16-K19 call on `inp` (the plain version with `plain`, its draw
-    `draw` where it draws); returns the tensors it wrote."""
+    `draw` where it draws; K16's and K17's draws in `geometry`, else the
+    plan's); returns the tensors it wrote. A K17 group in a tree without
+    the group mode is a launch a member."""
     k, a = inp["kernel"], inp["args"]
+    geo = {} if geometry is None else dict(geometry=geometry)
     if k == "fk_sample":
         if plain:
             out = ops.fk_sample_plain(*a, draw=draw, **inp["kwargs"])
         else:
-            out = ops.fk_sample(*a, **inp["kwargs"])
+            out = ops.fk_sample(*a, **inp["kwargs"], **geo)
         return list(out) + [a[4]]
+    if k == "choice_sample" and inp.get("group"):
+        recs, pool, cols = a
+        B = pool.shape[0]
+        if plain:   # choice_sample_group_plain, in either tree
+            return [torch.stack([ops.choice_sample_plain(
+                r, (), B, u=pool[:, c], draw=draw)
+                for r, c in zip(recs, cols)])]
+        if not hasattr(ops, "choice_sample_group"):
+            return [ops.choice_sample(r, (), B, u=pool[:, c], mode="draw")
+                    for r, c in zip(recs, cols)]
+        return [ops.choice_sample_group(recs, pool, cols, **geo)]
     if k == "choice_sample":
         if plain:
             r = ops.choice_sample_plain(*a, draw=draw, **inp["kwargs"])
         else:
-            r = ops.choice_sample(*a, **inp["kwargs"])
+            r = ops.choice_sample(*a, **inp["kwargs"], **geo)
         return [r]
     if k == "row_gather":   # one chain through row_gather, as row_value
         s, chains = a
@@ -3243,24 +3374,38 @@ def _clone_inputs(inp: dict) -> dict:
     return _tree_map(inp, clone)
 
 
-def check_sample(ops, inp: dict) -> dict:
+def check_sample(ops, inp: dict, geometry=None) -> dict:
     """K16-K19 on a copy of the inputs against the plain version on
     another copy, on the card: every output bit-equal, the plain version
-    of K16 and K17 drawing with K2 (ops.inv_cdf_sample: the kernels' draw
-    is K2's own). Where they draw, K2 on the picked logits against the
-    fully plain draw (torch.cumsum) within K2's stated allowance
-    (check_k2). Returns dict(max_abs_err 0.0, and check_k2's numbers)."""
+    of K16 and K17 drawing with K2 (ops.inv_cdf_sample: every geometry of
+    the kernels' draw gives K2's index; `geometry` forces one). Where they
+    draw, K2 on the picked logits against the fully plain draw
+    (torch.cumsum) within K2's stated allowance (check_k2; a group's
+    members each, the worst kept). Returns dict(max_abs_err 0.0, and
+    check_k2's numbers)."""
     a, b = _clone_inputs(inp), _clone_inputs(inp)
-    got = _sample_call(ops, a)
+    got = _sample_call(ops, a, geometry=geometry)
     want = _sample_call(ops, b, plain=True, draw=ops.inv_cdf_sample)
+    if len(got) != len(want):   # a group as a launch a member
+        got = [torch.stack(got)]
     torch.cuda.synchronize()
     for i, (g, w) in enumerate(zip(got, want)):
         require(g.dtype == w.dtype and g.shape == w.shape and
                 torch.equal(g, w), f"{inp['kernel']} differs from its plain "
-                f"version at {inp['mode']} (output {i})")
+                f"version at {inp['mode']} (output {i}, geometry "
+                f"{geometry or 'planned'})")
     out = dict(max_abs_err=0.0)
     kw = inp.get("kwargs", {})
-    if kw.get("u") is not None:
+    if inp.get("group"):
+        recs, pool, cols = inp["args"]
+        B = pool.shape[0]
+        for r, c in zip(recs, cols):
+            k2 = check_k2(ops, r.expand(B, r.shape[1]).contiguous(),
+                          pool[:, c].contiguous())
+            if k2.get("mismatch_rate", 0) >= out.get("mismatch_rate", 0):
+                out.update(k2)
+        out["max_abs_err"] = 0.0
+    elif kw.get("u") is not None:
         rec, anc = inp["args"][0], inp["args"][1]
         B = kw["u"].shape[0]
         out.update(check_k2(ops, ops.pick_plain(rec, anc, B).contiguous(),
@@ -3278,6 +3423,10 @@ def sample_bytes(inp: dict) -> int:
     pair's two values and output)."""
     k, a = inp["kernel"], inp["args"]
     kw = inp.get("kwargs", {})
+    if inp.get("group"):   # a member's logits, its uniform and its index
+        recs, pool, _cols = a
+        B = pool.shape[0]
+        return sum(r.numel() * 4 + B * (4 + 4) for r in recs)
     if k == "fk_sample":
         rec, anc, gate, mi, mo = a
         B, cap, K1 = gate.shape[0], mo.shape[-1], rec.shape[-1]
@@ -3314,7 +3463,7 @@ def sample_library(inp: dict):
     a group none; K19 torch.where of the first pair; K16 and K17's draw
     and retained modes none."""
     k, a = inp["kernel"], inp["args"]
-    if k == "choice_sample" and inp["kwargs"]["mode"] == "pick":
+    if k == "choice_sample" and inp["kwargs"].get("mode") == "pick":
         rec, anc, B = a
         st = rec.contiguous().expand((B,) + tuple(rec.shape[1:])).stride()
         idx = torch.arange(B, device=rec.device) * st[0]
@@ -3339,17 +3488,65 @@ def sample_library(inp: dict):
     return None
 
 
-def time_sample(ops, inp: dict) -> dict:
-    """A K16-K19 call on a copy of these inputs beside its plain version
-    (its own draw, torch.cumsum) and the library call: ms (cuda_ms) and
-    device_ms (graph_ms) of each; library None where there is none."""
+def time_sample(ops, inp: dict, geometry=None) -> dict:
+    """A K16-K19 call on a copy of these inputs (K16's and K17's draws in
+    `geometry`, else the plan's) beside its plain version (its own draw,
+    torch.cumsum) and the library call: ms (cuda_ms) and device_ms
+    (graph_ms) of each; library None where there is none."""
     x, y = _clone_inputs(inp), _clone_inputs(inp)
-    call = lambda: _sample_call(ops, x)  # noqa: E731
+    call = lambda: _sample_call(ops, x, geometry=geometry)  # noqa: E731
     lib = sample_library(x)
     return dict(ms=cuda_ms(call), device_ms=graph_ms(call),
                 plain_ms=cuda_ms(lambda: _sample_call(ops, y, plain=True)),
                 library_ms=None if lib is None else cuda_ms(lib),
                 library_device_ms=None if lib is None else graph_ms(lib))
+
+
+def draw_geometries(ops, inp: dict) -> list:
+    """The geometries of ops.DRAW_GEOMETRIES that take `inp`'s K16 or K17
+    draw (K16 retained: its mask pass and argmax): every one, but a
+    stream only for rows of more than 4 logits (a drawn K16, a K17 draw
+    or a group whose every member has them) and a block only for rows
+    that fit its shared memory; [] for the other kernels and modes."""
+    k, a = inp["kernel"], inp["args"]
+    if k == "fk_sample":
+        lens = [a[0].shape[-1]] if inp["kwargs"].get("u") is not None \
+            else []
+    elif k == "choice_sample" and inp.get("group"):
+        lens = [r.shape[-1] for r in a[0]]
+    elif k == "choice_sample" and inp["kwargs"].get("mode") == "draw":
+        lens = [a[0].shape[-1]]
+    else:
+        return []
+    fits = (ops.SMEM_MAX - ops._K2_STATIC_SMEM) // 4 - 4
+    return [g for g in ops.DRAW_GEOMETRIES
+            if (g != "stream" or (lens and min(lens) > 4))
+            and (g != "block" or all(n <= fits for n in lens))]
+
+
+def geometry_ms(ops, inp: dict) -> dict:
+    """K16's or K17's call on `inp` in every geometry that takes it
+    (draw_geometries), each checked bit-equal to the plain version
+    drawing with K2 first: {geometry: dict(device_ms (graph_ms), host_us
+    (host_us))}, and the plan's own under "plan"."""
+    out = {}
+    for g in draw_geometries(ops, inp):
+        check_sample(ops, inp, geometry=g)
+        x = _clone_inputs(inp)
+        call = lambda: _sample_call(ops, x, geometry=g)  # noqa: E731
+        out[g] = dict(device_ms=graph_ms(call), host_us=host_us(call, 500))
+    a = inp["args"]
+    if inp["kernel"] == "fk_sample":
+        B, cap = a[2].shape[0], a[4].shape[-1]
+        K = a[0].shape[-1] if inp["kwargs"].get("u") is not None else 0
+        out["plan"] = ops.draw_plan(B, K, cap)["geometry"]
+    elif inp.get("group"):
+        B = a[1].shape[0]
+        out["plan"] = [ops.draw_plan(B, r.shape[-1])["geometry"]
+                       for r in a[0]]
+    else:
+        out["plan"] = ops.draw_plan(a[2], a[0].shape[-1])["geometry"]
+    return out
 
 
 # ---------------------------------------------------------------- K20, K21
@@ -3745,7 +3942,8 @@ def split_level(rng, n_ops: int = 260, depth: int = 40, B: int = 3,
 
 class LimitCalls:
     """Records, while active, the first call of each K7, K12, K14, K15,
-    K16, K17, K18 and K20 wrapper that went past its kernel's single-launch
+    K16, K17 (and its group mode), K18 and K20 wrapper that went past its
+    kernel's single-launch
     limit (the call that added to ops.SPLITS; K12's: a child level cut
     into stages), its inputs as they were
     before the call, so that `replay` can hold each split or raised
@@ -3754,7 +3952,8 @@ class LimitCalls:
     graph's memory pool)."""
 
     WRAPPERS = ("row_gather", "referrer_hist", "rel_scatter", "batch_write",
-                "fk_sample", "choice_sample", "level_sum", "fk_score")
+                "fk_sample", "choice_sample", "choice_sample_group",
+                "level_sum", "fk_score")
 
     def __init__(self, ops):
         self.ops, self.calls, self._real = ops, {}, {}
@@ -3793,8 +3992,13 @@ class LimitCalls:
         check_score)."""
         o, out = self.ops, {}
         for name, (a, kw) in self.calls.items():
-            before = o.LAUNCHES[name]
-            if name in ("fk_sample", "choice_sample"):
+            kernel = "choice_sample" if name == "choice_sample_group" \
+                else name
+            before = o.LAUNCHES[kernel]
+            if name == "choice_sample_group":   # K17's group, split
+                check_sample(o, dict(kernel=kernel, group=True,
+                                     mode="limits", args=a[:3], kwargs={}))
+            elif name in ("fk_sample", "choice_sample"):
                 args = a if name == "fk_sample" else a[:3]
                 kwa = dict(kw) if name == "fk_sample" else \
                     dict(kw, **dict(zip(("u", "rv", "dummy", "mode"),
@@ -3819,7 +4023,7 @@ class LimitCalls:
                        if not torch.equal(g, w)]
                 require(not bad, f"{name} past its old limit differs from "
                         f"its plain version: {bad}")
-            out[name] = dict(launches=o.LAUNCHES[name] - before,
+            out[name] = dict(launches=o.LAUNCHES[kernel] - before,
                              max_abs_err=0.0)
         return out
 

@@ -445,6 +445,11 @@ def build_kernels(force: bool = False) -> float:
             fn.restype = ctypes.c_int
             fn.argtypes = argtypes[name]
             _libs[name] = fn
+            if name == "choice_sample":   # K17's group mode
+                group = lib.pclean_choice_sample_group
+                group.restype = ctypes.c_int
+                group.argtypes = [P, I32, P]
+                _libs["choice_sample_group"] = group
             if name == "row_delta":   # K10's latency yardstick
                 probe = lib.pclean_chase_probe
                 probe.restype = ctypes.c_int
@@ -678,6 +683,106 @@ def inv_cdf_sample(logits: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     _check(rc, "inv_cdf_sample")
     _count("inv_cdf_sample", R, K)
     return idx
+
+
+# K16's and K17's draw geometries (csrc/inv_cdf.cuh), in the kernels' order
+DRAW_GEOMETRIES = ("warp", "block", "cluster", "stream")
+DRAW_WARP_SHORT = 256      # entries a warp row takes over rows or a mask
+DRAW_WARP_ROWS = 1024      # rows from which a warp row takes up to
+DRAW_WARP_MAX = 2048       # this many entries
+DRAW_CLUSTER_ROWS = 1      # rows a cluster launch takes at most
+DRAW_CLUSTER_MIN = 11265   # entries past which such a row takes a cluster
+DRAW_CLUSTER_SLICE = 1536  # entries a block of a cluster is planned for
+DRAW_MAX_CLUSTER = 8       # the portable cluster size
+DRAW_THREADS = 512         # a block row's threads
+
+
+def draw_plan(B: int, K: int, mask: int = 0, geometry=None) -> dict:
+    """K16's and K17's draw geometry for B rows of K logits (K16: also a
+    mask row of `mask` bytes, read as mask / 4 entries' worth of 16-byte
+    words): dict(geometry, threads, rows, blocks, cluster, tile, smem).
+    With n = max(K, ceil(mask / 4)):
+      warp:    n <= DRAW_WARP_SHORT where B > 1 or there is a mask (K16),
+               or B >= DRAW_WARP_ROWS and n <= DRAW_WARP_MAX: a warp a
+               row, min(16, ceil(B / 264)) rows a block (two blocks an SM
+               before a block takes more);
+      cluster: B <= DRAW_CLUSTER_ROWS and n > DRAW_CLUSTER_MIN: a cluster
+               of min(8, max(2, ceil(n / DRAW_CLUSTER_SLICE))) blocks of
+               512 over each row, each block a slice of K / cluster
+               logits (a multiple of 4) in shared memory;
+      block:   a block of 512 a row, the row in shared memory (K2's
+               inv_cdf_plan "smem");
+      stream:  K2's streamed tiles, for rows past shared memory.
+    The thresholds are kernel_bench's geometry sweep (`--kernels k16,k17
+    --geometries`: every geometry at the census shapes and between them)
+    on an NVIDIA H100 80GB HBM3 at 700.00 W (device ms a call): at one
+    row a block beats a warp for K17 (0.0024-0.0026 against 0.0026-0.0029
+    at 14-241 entries) and a warp beats a block for K16 up to 256 (0.0034
+    and 0.0037 against 0.0037 and 0.0038 at 65 and 161: its mask pass
+    needs no barrier); past 256 a block wins at one row (K17 0.0024
+    against 0.0030 at 384, K16 0.0041 against 0.0084 at 1,473); over 16
+    and 256 rows the two tie up to 256 (0.0027 and 0.0029 against 0.0028
+    and 0.0030) and a block wins past it (0.0032 against 0.0037 at 512);
+    over 4,096 rows a warp wins up to 2,048 (K17
+    0.0049 against 0.0306 at 138, 0.0197 against 0.0406 at 1,914) and a
+    block past it (0.0589 against 0.0662 at 4,096); a cluster beats a
+    block only past 11,265 at one row (K16 0.0083 against 0.0077 at
+    11,265, K17 0.0057 against 0.0066 at 16,384) and the stream past
+    shared memory (0.0066 against 0.0235 at 70,001), and loses wherever
+    several rows fill the card. `geometry` forces one (a cluster or a
+    stream only where the row takes it: a stream needs K > 4, its tile
+    the largest multiple of 4 below K up to K2's 16,384). smem: the
+    dynamic shared memory in bytes (0 for a warp row or K16's retained
+    form, whose plan the caller takes with K = 0)."""
+    return dict(_draw_plan(int(B), int(K), int(mask), geometry))
+
+
+@functools.lru_cache(maxsize=1024)
+def _draw_plan(B: int, K: int, mask: int, geometry) -> dict:
+    if K < 0 or K > _K2_MAX_K or B < 0:
+        raise ValueError(f"draw_plan: K must lie in [0, {_K2_MAX_K}]")
+    n = max(K, -(-mask // 4))
+    fits = (K + 4) * 4 <= SMEM_MAX - _K2_STATIC_SMEM
+    cluster = min(DRAW_MAX_CLUSTER, max(2, -(-n // DRAW_CLUSTER_SLICE)))
+    g = geometry
+    if g is None:
+        if (n <= DRAW_WARP_SHORT and (B > 1 or mask > 0)) or \
+                (B >= DRAW_WARP_ROWS and n <= DRAW_WARP_MAX):
+            g = "warp"
+        elif B <= DRAW_CLUSTER_ROWS and n > DRAW_CLUSTER_MIN and \
+                (cluster_slice(K, cluster) + 4) * 4 <= SMEM_MAX - \
+                _K2_STATIC_SMEM:
+            g = "cluster"
+        else:
+            g = "block" if fits or K == 0 else "stream"
+    if g not in DRAW_GEOMETRIES:
+        raise ValueError(f"draw_plan: geometry {g!r} is not one of "
+                         f"{DRAW_GEOMETRIES}")
+    tile, smem = max(K, 4), 0
+    if g == "block" and K:
+        if not fits:
+            raise ValueError(f"draw_plan: {K} logits do not fit one block")
+        smem = (K + 4) * 4
+    elif g == "stream":
+        tile = min(_K2_STREAM_TILE, (K - 1) // 4 * 4)
+        if tile < 4:
+            raise ValueError(f"draw_plan: {K} logits are too few to stream")
+        smem = (tile + 4) * 4
+    elif g == "cluster" and K:
+        smem = (cluster_slice(K, cluster) + 4) * 4
+    rows = min(16, max(1, -(-B // (2 * N_SMS)))) if g == "warp" else 1
+    threads = 32 * rows if g == "warp" else DRAW_THREADS
+    blocks = -(-B // rows) if g == "warp" else \
+        B * cluster if g == "cluster" else B
+    return dict(geometry=g, threads=threads, rows=rows, blocks=blocks,
+                cluster=cluster if g == "cluster" else 1, tile=tile,
+                smem=smem)
+
+
+def cluster_slice(K: int, C: int) -> int:
+    """The logits a block of a C-block cluster row holds (inv_cdf.cuh's
+    cluster_slice): ceil(K / C) rounded up to a multiple of 4."""
+    return (-(-K // C) + 3) // 4 * 4
 
 
 # ---------------------------------------------------------------- K3
@@ -2789,7 +2894,7 @@ def batch_write(cols, vals, slots, ok, alive=None, cls=None) -> None:
 # words (stride, size, pointer, dtype) sit at the end of a K16/K17 plan,
 # from word K16_X / K17_X
 _MAX_ANC, _ANC_WORDS = 7, 4
-K16_X, K17_X = 28, 16
+K16_X, K17_X = 29, 17
 K16_WORDS = K16_X + _ANC_WORDS * _MAX_ANC
 K17_WORDS = K17_X + _ANC_WORDS * _MAX_ANC
 K17_MODES = ("draw", "retained", "pick")
@@ -2917,9 +3022,11 @@ def fk_sample_plain(rec, anc, gate, mask_in, mask_out, u=None, rv=None,
 
 
 def fk_sample(rec, anc, gate, mask_in, mask_out, u=None, rv=None,
-              rel_alive=None, rel_refcount=None, comp=None, label=None):
-    """K16: fk_sample_plain in one launch, one 512-thread block a row (the
-    draw is K2's own, csrc/inv_cdf.cuh, so it gives K2's index): rec a
+              rel_alive=None, rel_refcount=None, comp=None, label=None,
+              geometry=None):
+    """K16: fk_sample_plain in one launch, a row a warp, a block or a
+    cluster (draw_plan of B, K + 1 and cap; `geometry` forces one; the
+    draw gives K2's index, csrc/inv_cdf.cuh): rec a
     float32 record [B or 1, a_1..a_d, K + 1] (d <= 7, any strides, the
     last 1) read in place at the int ancestors anc [B]; u float32 [B] (a
     pool column, any stride) for the drawn form, or rv [B] (ints) with
@@ -2970,12 +3077,12 @@ def fk_sample(rec, anc, gate, mask_in, mask_out, u=None, rv=None,
     else:
         mask = "shared" if mask_in.dim() == 1 or mask_in.shape[0] == 1 \
             else "own"
-    words = [B, K1, cap, 0, 0] + rw
+    plan = _draw_plan(B, K1 if rv is None else 0, cap, geometry)
+    words = [B, K1, cap, plan["tile"],
+             DRAW_GEOMETRIES.index(plan["geometry"])] + rw
     if rv is None:
         if u is None:
             raise ValueError("fk_sample: the drawn form needs u")
-        plan = _inv_cdf_plan(K1)
-        words[3], words[4] = plan["tile"], plan["smem"]
         words += _vec_words(u, B, "fk_sample u", (torch.float32,)) + [0, 0]
         words += [0, 0, 0, 0]
         form = "drawn"
@@ -3000,7 +3107,7 @@ def fk_sample(rec, anc, gate, mask_in, mask_out, u=None, rv=None,
     ints = torch.empty((4, B), dtype=torch.int32, device=gate.device)
     flags = torch.empty((2, B), dtype=torch.bool, device=gate.device)
     words += [gate.data_ptr()] + mi + [mask_out.data_ptr(), ints.data_ptr(),
-                                       flags.data_ptr()]
+                                       flags.data_ptr(), plan["cluster"]]
     assert len(words) == K16_X, len(words)
     words += rx
     arr = (ctypes.c_int64 * K16_WORDS)(*words)
@@ -3043,11 +3150,12 @@ def choice_sample_plain(rec, anc, B: int, u=None, rv=None, dummy=None,
 
 
 def choice_sample(rec, anc, B: int, u=None, rv=None, dummy=None,
-                  mode: str = "draw", label=None):
+                  mode: str = "draw", label=None, geometry=None):
     """K17: choice_sample_plain in one launch. Draw mode: rec a float32
     record [B or 1, a_1..a_d, V] (d <= 7, the last stride 1) read in place
-    at the int ancestors anc [B], u float32 [B] (any stride), one 512-
-    thread block a row with K2's own draw (csrc/inv_cdf.cuh); retained
+    at the int ancestors anc [B], u float32 [B] (any stride), in the
+    geometry draw_plan(B, V) gives (`geometry` forces one), K2's index
+    (csrc/inv_cdf.cuh); retained
     mode: rv [B] ints, a thread a row; pick mode: rec [B or 1, a_1..a_d]
     of any dtype, a thread a row copying the picked value. Output int32
     [B] (pick: the record's dtype) from torch.empty. On CPU tensors the
@@ -3065,10 +3173,11 @@ def choice_sample(rec, anc, B: int, u=None, rv=None, dummy=None,
                          f"float32")
     rec, rw, rx = _rec_words(rec, anc, B, "choice_sample", 0 if pick else 1)
     V = 1 if pick else int(rec.shape[-1])
-    words = [B, V, K17_MODES.index(mode), 0, 0] + rw
+    plan = _draw_plan(B, V, 0, geometry) if mode == "draw" else \
+        dict(tile=0, geometry="warp", cluster=1)
+    words = [B, V, K17_MODES.index(mode), plan["tile"],
+             DRAW_GEOMETRIES.index(plan["geometry"])] + rw
     if mode == "draw":
-        plan = _inv_cdf_plan(V)
-        words[3], words[4] = plan["tile"], plan["smem"]
         words += _vec_words(u, B, "choice_sample u", (torch.float32,))
     else:
         words += [0, 0]
@@ -3081,7 +3190,7 @@ def choice_sample(rec, anc, B: int, u=None, rv=None, dummy=None,
     words += [0 if dummy is None else int(dummy), int(dummy is not None)]
     out = torch.empty((B,), dtype=rec.dtype if pick else torch.int32,
                       device=rec.device)
-    words += [out.data_ptr(), out.element_size()]
+    words += [out.data_ptr(), out.element_size(), plan["cluster"]]
     assert len(words) == K17_X, len(words)
     words += rx
     arr = (ctypes.c_int64 * K17_WORDS)(*words)
@@ -3090,6 +3199,113 @@ def choice_sample(rec, anc, B: int, u=None, rv=None, dummy=None,
     _count("choice_sample", B, V,
            f"{label} {mode} {_SHORT[rec.dtype]} B={B} d={len(anc)}",
            dict(form=mode, dtype=rec.dtype, B=B, d=len(anc)))
+    return out
+
+
+# K17's group mode (csrc/choice_sample.cu): a header (members, B, the
+# pool's pointer and strides, the output's pointer), then each member's
+# record pointer and row stride, V, pool column, geometry, tile and
+# cluster size; at most K17_GROUP_MAX members a launch
+K17_GROUP_MAX, K17_GROUP_HEAD, K17_GROUP_MEMBER = 64, 6, 7
+
+
+def group_chunks(n: int) -> list:
+    """A group of n members as launches of at most K17_GROUP_MAX: [(lo,
+    hi), ...], as even as they go."""
+    k = max(1, -(-n // K17_GROUP_MAX))
+    cuts = [n * i // k for i in range(k + 1)]
+    return list(zip(cuts[:-1], cuts[1:]))
+
+
+def choice_sample_group_plain(recs, pool, cols, draw=None):
+    """K17's group mode, plain: member m's draw over its record recs[m]
+    [B or 1, V_m] at the pool column pool[:, cols[m]] (`draw`, default
+    inv_cdf_sample_plain), int32 [n, B]."""
+    B = int(pool.shape[0])
+    return torch.stack([choice_sample_plain(r, (), B, u=pool[:, c],
+                                            draw=draw)
+                        for r, c in zip(recs, cols)])
+
+
+def choice_sample_group_words(recs, pool, cols, out, geometry=None) -> list:
+    """K17's group plan for `out` [members, B] (int32): [(lo, hi, words),
+    ...] a launch of group_chunks, each launch's header (members, B, the
+    pool's pointer and strides, the pointer of out[lo]) and its members'
+    words (record pointer, row stride (0: one row for every b), V, pool
+    column, geometry, tile, cluster), every member in draw_plan(B, V)'s
+    geometry (`geometry` forces one). Raises for a record or a column the
+    kernel does not take; a record whose last stride is not 1 is made
+    contiguous, and the returned plan holds it (keep it until the
+    launch)."""
+    if pool.dtype != torch.float32 or pool.dim() != 2 or \
+            len(recs) != len(cols) or not recs:
+        raise ValueError(f"choice_sample_group: a float32 [B, n] pool and "
+                         f"one column a record, got {pool.dtype} "
+                         f"{tuple(pool.shape)}, {len(recs)} records, "
+                         f"{len(cols)} columns")
+    B, n_cols = int(pool.shape[0]), int(pool.shape[1])
+    members = []
+    for r, c in zip(recs, cols):
+        if r.device != pool.device or r.dtype != torch.float32 or \
+                r.dim() != 2 or r.shape[0] not in (1, B) or \
+                not 0 <= int(c) < n_cols:
+            raise ValueError(f"choice_sample_group: record {r.dtype} "
+                             f"{tuple(r.shape)} on {r.device} at column "
+                             f"{c} (expected float32 [1 or {B}, V] on "
+                             f"{pool.device}, a column of the pool's "
+                             f"{n_cols})")
+        if r.stride(-1) != 1:
+            r = r.contiguous()
+        V = int(r.shape[1])
+        plan = _draw_plan(B, V, 0, geometry)
+        members.append((r, [r.data_ptr(), r.stride(0) if r.shape[0] == B
+                            and B > 1 else 0, V, int(c),
+                            DRAW_GEOMETRIES.index(plan["geometry"]),
+                            plan["tile"], plan["cluster"]]))
+    launches = []
+    for lo, hi in group_chunks(len(members)):
+        words = [hi - lo, B, pool.data_ptr(), pool.stride(0),
+                 pool.stride(1), out.data_ptr() + lo * B * 4]
+        for _r, mw in members[lo:hi]:
+            words += mw
+        launches.append((lo, hi, words, [r for r, _w in members[lo:hi]]))
+    return launches
+
+
+def choice_sample_group(recs, pool, cols, label=None, geometry=None):
+    """K17's group mode: the draws of several draw-mode choices whose
+    records have no ancestor axis (propose.draw_groups) in one launch a
+    K17_GROUP_MAX members (group_chunks; more than one launch counted in
+    SPLITS): recs float32 [B or 1, V_m] each (the last stride 1), pool
+    float32 [B, n] (any strides), cols the pool column of each member;
+    each member drawn in the geometry draw_plan(B, V_m) gives
+    (`geometry` forces one for all), K2's index
+    (choice_sample_group_words). Output int32 [members, B] from
+    torch.empty. On CPU tensors the plain version; on CUDA ones the
+    kernel or an error. Each launch counted in LAUNCH_CENSUS under
+    choice_sample by (`label` group n=.. B=.. V=V_1,.., r1 or rn, the
+    sum of its V_m), its fields (form "group", B, Vs, each record's rows)
+    in CENSUS_FIELDS."""
+    if not _route(pool, "choice_sample_group"):
+        return choice_sample_group_plain(recs, pool, cols)
+    out = torch.empty((len(recs), int(pool.shape[0])), dtype=torch.int32,
+                      device=pool.device)
+    launches = choice_sample_group_words(recs, pool, cols, out, geometry)
+    if len(launches) > 1:
+        _split("choice_sample_group")
+    fn = _fn("choice_sample_group")
+    for _lo, _hi, words, kept in launches:
+        arr = (ctypes.c_int64 * len(words))(*words)
+        rc = fn(arr, len(words), _stream(pool))
+        _check(rc, "choice_sample_group")
+        B = words[1]
+        Vs = tuple(words[K17_GROUP_HEAD + K17_GROUP_MEMBER * i + 2]
+                   for i in range(words[0]))
+        _count("choice_sample", B, sum(Vs),
+               f"{label} group n={words[0]} B={B} V="
+               f"{','.join(map(str, Vs))}",
+               dict(form="group", B=B, Vs=Vs,
+                    rows=tuple(int(r.shape[0]) for r in kept)))
     return out
 
 

@@ -1,13 +1,15 @@
-"""K12's, K13's, K18's and K20's launches of small CPU runs of the six
-paths, counted.
+"""K12's, K13's, K16's, K17's, K18's and K20's launches of small CPU runs
+of the six paths, counted.
 
 On the CPU the wrappers run their plain versions and count nothing; this
 script counts the launches the card would make for the same calls: a
 row_gather call one launch and one a fold (ops.chain_folds), a
 row_gather_group call (where the package has one) one launch a launch of
 ops.row_gather_plan for its chains of at most K18_MAX_HOPS hops, a
-level_sum call one launch a stage (ops.level_stages), a fk_score or
-choice_score call one launch, and, where the package fuses the child
+level_sum call one launch a stage (ops.level_stages), a fk_score,
+choice_score, fk_sample or choice_sample call one launch, a
+choice_sample_group call (where the package has one: K17's group mode)
+one launch a launch of ops.group_chunks, and, where the package fuses the child
 levels into it (ops.score_fusion), the K20 launches of a level's earlier
 stages or of a ch_n summed first; a fused level counts no K20 launch of
 its own. It runs the
@@ -20,9 +22,9 @@ Per path (the six paths' models at small sizes: scaled 4,000 rows B = 256,
 rents 4,000 rows B = 256, flights 600 rows one sweep, hospital 240 rows B
 = 64, its collapsed PG form at P = 64 and its written-out form at B = 16,
 P = 16): init and one sweep. Per one proposal of every block of the
-hospital model's Record and the flights model's Obs class at one row and
-at 16: K12, K13, K18 and K20 launches (a one-row proposal is a graphed
-ramp or sweep row's proposal). The ratio of two checkouts' counts a path
+hospital model's Record, the flights model's Obs and the scaled model's
+Hospital class at one row and at 16: the same launches (a one-row
+proposal is a graphed ramp, sweep or replay row's proposal). The ratio of two checkouts' counts a path
 scales the card's census of that path.
 """
 from __future__ import annotations
@@ -43,7 +45,8 @@ from pclean_tpu_torch.engine.smc import Engine  # noqa: E402
 from pclean_tpu_torch.workloads import (flights, hospital, rents,  # noqa
                                         scaled)
 
-COUNT = {"row_gather": 0, "level_sum": 0, "fk_score": 0, "choice_score": 0}
+COUNT = {"row_gather": 0, "level_sum": 0, "fk_score": 0, "choice_score": 0,
+         "fk_sample": 0, "choice_sample": 0}
 
 
 def _spy() -> None:
@@ -89,6 +92,21 @@ def _spy() -> None:
 
     score("fk_score", lambda a: list(a[6:8]))
     score("choice_score", lambda a: [a[1]])
+    for name in ("fk_sample", "choice_sample"):
+        real = getattr(ops, name)
+
+        def sample(*a, _real=real, _name=name, **kw):
+            COUNT[_name] += 1
+            return _real(*a, **kw)
+        setattr(ops, name, sample)
+    if hasattr(ops, "choice_sample_group"):
+        csg = ops.choice_sample_group
+
+        def choice_sample_group(recs, pool, cols, label=None):
+            COUNT["choice_sample"] += len(ops.group_chunks(len(recs)))
+            return csg(recs, pool, cols, label)
+
+        ops.choice_sample_group = choice_sample_group
 
 
 PATHS = {
@@ -112,6 +130,9 @@ PROPOSALS = {   # (path, class): the one-row loops' proposing classes
     ("flights", "Obs"): lambda: flights.setup(
         rows=300, flights=12, websites=8,
         capacities={"Flight": 16, "TrackingWebsite": 16}, device="cpu"),
+    ("scaled", "Hospital"): lambda: scaled.setup(
+        rows=2000, counties=20, hospitals=160, names=40, zips=10,
+        batch=256, device="cpu"),
 }
 
 
