@@ -11,8 +11,10 @@ It drives the port only (never jax, never pclean_tpu), in order:
      per source, in parallel) and prints the build time and ptxas's
      registers, shared memory, stack frame and spills for each compiled
      function; measures the launch floor and one dependent L2 load (K10's
-     probe); runs the scaled workload's CPU config (512 rows, B = 8) at the
-     default fused_dispatch_rows through init and one sweep, which must
+     probe) and prints what a launch's parameter block costs by its size
+     and by the lines read of it (kernel_bench.param_block_ms); runs the
+     scaled workload's CPU config (512 rows, B = 8) at the default
+     fused_dispatch_rows through init and one sweep, which must
      take the fused order (every class's batches, then every class's
      deferred rows) and reach F1 0.5;
   3. checks the tracer's CUDA path against its CPU path (plain versions) on
@@ -177,16 +179,17 @@ It drives the port only (never jax, never pclean_tpu), in order:
      K15 timed at every census shape holding >= SHAPE_SHARE of a path's
      launches, beside their plain versions, the library call of the
      count alone (index_add_; K15: index_copy_ of one column) and the
-     bytes bound (bench_rel_shapes); K16-K19 timed at their most
+     bytes bound (bench_rel_shapes); K16-K18 timed at their most
      launched one-row and batched census shapes holding >= SHAPE_SHARE of
-     a path's launches and at the largest, K16 and K17 in every draw
+     a path's launches and at the largest, K19 at every one with its host
+     us a call back to back, K16 and K17 in every draw
      geometry that takes the shape side by side (device ms and host us,
      kernel_bench.geometry_ms), beside their plain versions,
      the library call (K18 of one chain: torch.take of the leaf at the
-     final indices, none for a group of chains; K19: torch.where of one
-     pair; K16 and K17 none) and the bytes bound, and K18 as one chain at
-     one slot and at 1,000,000 beside torch.take (SAMPLE_SINGLE)
-     (bench_sample_shapes); K20 and K21 likewise at their most launched
+     final indices, none for a group of chains; K19 of one pair:
+     torch.where; K16 and K17 none) and the bytes bound, and K18 as one
+     chain at one slot and at 1,000,000 beside torch.take
+     (SAMPLE_SINGLE) (bench_sample_shapes); K20 and K21 likewise at their most launched
      one-row and batched shapes and each path's largest, beside their
      plain versions and the bytes bound, no library call
      (bench_level_shapes); K22 and K23 at every census shape checked,
@@ -853,7 +856,10 @@ def row_entry(name: str, shapes: list) -> dict:
         route="cuda", source=SOURCES[name][0], replaces=SOURCES[name][1],
         bytes_bound_ms=top["bound_ms"],
         bound_ms=max(top["bound_ms"], top["dep_bound_ms"]),
-        bound_by="operations" if dep else "bytes")
+        bound_by="operations" if dep else "bytes",
+        timed=[{key: r[key] for key in (
+            "path", "shape", "launches", "device_ms", "dep_loads",
+            "dep_bound_ms")} for r in shapes])
 
 
 def bench_score_shapes(ops, dev, runs: dict, floor) -> dict:
@@ -1111,17 +1117,17 @@ SAMPLE_SINGLE = tuple((dict(cols=[(torch.int32, 1_000_000)]), K)
 
 def bench_sample_shapes(ops, dev, checked: dict, floor) -> dict:
     """K16-K19 timed, among the distinct census shapes checked (each holds
-    >= SHAPE_SHARE of a path's launches), at the SAMPLE_TIMED most
+    >= SHAPE_SHARE of a path's launches), K16-K18 at the SAMPLE_TIMED most
     launched one-row and batched ones and at the largest of each form (K16
     drawn or retained and its mask form, K17 draw or retained; the most
-    logits, options, slots or pairs, then the most rows), K17 at
-    SAMPLE_PICK and K18 at SAMPLE_SINGLE (checked bit-equal first), on
-    seeded inputs: kernel ms and
-    device ms, the plain version (its own draw), the library call (K17's
-    pick mode torch.take of the record at the clamped ancestor positions,
-    K18 torch.take of the leaf at the final indices, K19 torch.where of
-    one pair, none for a K18 group of chains; K16 and K17's draw and
-    retained modes none), the bytes bound
+    logits, options or slots, then the most rows), K19 at every one (with
+    its host microseconds a call back to back), K17 at SAMPLE_PICK and K18
+    at SAMPLE_SINGLE (checked bit-equal first), on seeded inputs: kernel
+    ms and device ms, the plain version (its own draw), the library call
+    (K17's pick mode torch.take of the record at the clamped ancestor
+    positions, K18 torch.take of the leaf at the final indices, K19 of one
+    pair torch.where; none for a K18 group of chains, K19 of more pairs,
+    K16 and K17's draw and retained modes), the bytes bound
     (kernel_bench.sample_bytes) and the launch floor. Returns {kernel:
     [one dict per shape]}."""
     from pclean_tpu_torch import kernel_bench as kb
@@ -1138,6 +1144,8 @@ def bench_sample_shapes(ops, dev, checked: dict, floor) -> dict:
             kv[1]["launches_by_path"].values()))
         top = [kv for rows, n in SAMPLE_TIMED.items()
                for kv in [x for x in ranked if x[1]["rows"] == rows][:n]]
+        if name == "branch_select":   # every shape checked
+            top = list(ranked)
 
         def form(kv):
             f = fields[kv[0][0]]
@@ -1169,6 +1177,9 @@ def bench_sample_shapes(ops, dev, checked: dict, floor) -> dict:
                      floor_ms=floor, pick=f.get("form") == "pick",
                      single=shape.startswith("single"),
                      **kb.time_sample(ops, inp))
+            if name == "branch_select":   # its host side, back to back
+                y = kb._clone_inputs(inp)
+                x["host_us"] = kb.host_us(lambda: kb._sample_call(ops, y))
             if kb.draw_geometries(ops, inp):   # K16, K17: side by side
                 x["geometries"] = kb.geometry_ms(ops, inp)
                 print(f"{name} {shape} by geometry (device ms / host us): "
@@ -1181,9 +1192,10 @@ def bench_sample_shapes(ops, dev, checked: dict, floor) -> dict:
             lib = "none" if x["library_ms"] is None else \
                 f"{x['library_ms']:.4f} ms (device " \
                 f"{x['library_device_ms']:.4f} ms)"
+            host = f" host {x['host_us']:.1f} us" if "host_us" in x else ""
             print(f"{name} {x['shape']} ({x['launches']} launches "
                   f"{x['launches_by_path']}): kernel {x['ms']:.4f} ms "
-                  f"(device {x['device_ms']:.4f} ms) plain "
+                  f"(device {x['device_ms']:.4f} ms){host} plain "
                   f"{x['plain_ms']:.4f} ms library {lib} bound "
                   f"{x['bound_ms']:.6f} ms floor {floor:.4f} ms", flush=True)
             del inp
@@ -1195,12 +1207,28 @@ def bench_sample_shapes(ops, dev, checked: dict, floor) -> dict:
     return out
 
 
+def _k19_short(shape: str) -> str:
+    """A K19 census shape ("B=.. new<existing,... K=..") with each run of
+    one pair's dtypes written once with its count."""
+    head, sig, tail = shape.split(" ")
+    runs = []
+    for p in sig.split(","):
+        if runs and runs[-1][0] == p:
+            runs[-1][1] += 1
+        else:
+            runs.append([p, 1])
+    return f"{head} " + ",".join(p if n == 1 else f"{p} x{n}"
+                                 for p, n in runs) + f" {tail}"
+
+
 def sample_entry(name: str, shapes: list) -> dict:
     """K16's-K21's kernels-line entry: the numbers of the timed shape
     launched most over the six paths, (as *_rn) those of the batched
     shape launched most, for K17 (as *_pick) those of its pick mode at one
-    row (SAMPLE_PICK) and for K18 (as single) those of one chain at one
-    slot and at 1,000,000 (SAMPLE_SINGLE), beside their library call."""
+    row (SAMPLE_PICK), for K18 (as single) those of one chain at one
+    slot and at 1,000,000 (SAMPLE_SINGLE), beside their library call, and
+    for K19 every census shape timed (timed) and (as *_one_pair) the one
+    pair launched most beside torch.where."""
     pick = [r for r in shapes if r["pick"]]
     single = [r for r in shapes if r.get("single")]
     shapes = [r for r in shapes if not r["pick"] and not r.get("single")]
@@ -1224,6 +1252,17 @@ def sample_entry(name: str, shapes: list) -> dict:
         out["single"] = [{key: r[key] for key in (
             "shape", "max_abs_err", "ms", "device_ms", "plain_ms",
             "library_ms", "library_device_ms", "bound_ms")} for r in single]
+    if name == "branch_select":   # every census shape, one pair's library
+        out["timed"] = [dict({key: r.get(key) for key in (
+            "launches", "device_ms", "host_us", "bound_ms",
+            "library_device_ms")}, shape=_k19_short(r["shape"]))
+            for r in shapes]
+        one = [r for r in shapes if r["library_ms"] is not None]
+        if one:
+            b = max(one, key=lambda r: r["launches"])
+            out.update({f"{key}_one_pair": b[key] for key in (
+                "shape", "ms", "device_ms", "library_ms",
+                "library_device_ms")})
     return out
 
 
@@ -2201,6 +2240,8 @@ def main() -> int:
     report["l2_latency_ms"] = lat
     print(f"launch floor {floor:.4f} ms, one dependent L2 load {lat:.6f} ms",
           flush=True)
+    report["param_blocks"] = kb.param_block_ms()
+    print(kb.param_block_lines(report["param_blocks"]), flush=True)
     report["fused_order_check"] = fused_order_check()
     for wl in ("scaled", "rents", "flights", "hospital"):
         err, launched = small_device_check(dev, wl)
@@ -2452,8 +2493,10 @@ def main() -> int:
             "shape_rn", "ms_rn", "device_ms_rn", "plain_ms_rn",
             "library_ms_rn", "bound_ms_rn", "shape_pick", "ms_pick",
             "device_ms_pick", "plain_ms_pick", "library_ms_pick",
-            "library_device_ms_pick", "bound_ms_pick", "single", "floor_ms",
-            "shape", "shapes_checked", "differ")
+            "library_device_ms_pick", "bound_ms_pick", "single",
+            "shape_one_pair", "ms_one_pair", "device_ms_one_pair",
+            "library_ms_one_pair", "library_device_ms_one_pair", "timed",
+            "floor_ms", "shape", "shapes_checked", "differ")
     print(json.dumps({"kernels": [{k: kk[k] for k in keys if k in kk}
                                   for kk in kernels]}))
     print(card)

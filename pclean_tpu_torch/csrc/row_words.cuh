@@ -22,6 +22,13 @@ __device__ __forceinline__ bool pclean_dt_float(int64_t dt) {
   return dt == PCLEAN_DT_F32 || dt == PCLEAN_DT_F64;
 }
 
+// Bytes of one element of dtype dt.
+__device__ __forceinline__ int pclean_dt_size(int64_t dt) {
+  return dt <= PCLEAN_DT_U8 ? 1
+         : dt == PCLEAN_DT_I16 ? 2
+         : (dt == PCLEAN_DT_I32 || dt == PCLEAN_DT_F32) ? 4 : 8;
+}
+
 // p[i] as an integer (a float truncates toward zero, as torch's .to does).
 __device__ __forceinline__ int64_t pclean_ld_i(int64_t p, int64_t dt,
                                                int64_t i) {

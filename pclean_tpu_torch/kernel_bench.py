@@ -36,11 +36,17 @@ hospital_pg16_vmapped path's census shapes, seeded), K18 at AB_K18's
 of five as one group launch or a launch a chain) and K20 at AB_K20's
 (one output, rents' [256, 4,096, 2] with one add and with its own
 program) and AB_K20_GATHERS' (the hospital Record block's one-row level
-of 512 candidates and 11 gathers), each checked against its plain
-version, K18 and K20 also
-with their host microseconds a call back to back (host_us);
-`--kernels k4,k5,k6,k7,k8,k9,k18,k20` (any of them) times only those,
-with no model to build. With --paths it also times each of K1's paths
+of 512 candidates and 11 gathers), K19 at AB_K19's (one row at every
+census count of pairs, beside torch.where at one pair, and the batched
+census shapes) and K10 at AB_K10's (the census classes of the six paths,
+both signs, on seeded states of small models of theirs, k10_ab_inputs),
+each checked against its plain version, K10 and K18-K20 also with their
+host microseconds a call back to back (host_us); with k10 or k19 the run
+also prints what a launch's parameter block costs by its size and by the
+lines read of it (param_block_ms, this checkout's probe);
+`--kernels k4,k5,k6,k7,k8,k9,k10,k18,k19,k20` (any of them) times only
+those, with no model to build but K10's small ones. With --paths it also
+times each of K1's paths
 at each of those shapes and over an R x K grid in both modes (the last
 tree's kernels; PERF.md takes the plan's cut-overs from that
 table). With --census hospital it first runs the hospital workload at
@@ -1684,20 +1690,15 @@ def k10_dep_loads(plan: dict) -> int:
     from what the function needs, not from the order the kernel loads in:
     the slot; then the fk tree, one round a level (a node's fk value needs
     only its parent's t); then one round of refcount and alive loads (they
-    need only t; a parent's flip reaches its children as arithmetic for
-    their dd); and one more round for each later update of a leaf that an
-    earlier one updated (a node of a target class an earlier node also
-    reaches, a chain of an earlier chain's target, a hop entry's new target
-    after its old one), whose read must see that store. A propagated chain:
-    the slot, its hops, then its count and code; a hop entry: the slot,
-    then its first fk column (the saved old fk beside it), the suffix's
-    hops, then its old and its new target's count and code."""
-    depth = []
-    for nd in plan["nodes"]:
-        depth.append(1 + (depth[nd["parent"]] if nd["parent"] >= 0 else 0))
-    classes = [nd["tc"] for nd in plan["nodes"]]
-    tree = 1 + max(depth, default=0) + (1 if depth else 0) \
-        + len(classes) - len(set(classes))
+    need only t; a parent's flip, and an earlier node's update of the same
+    index, reach a node as arithmetic). The chains of one (target class,
+    vertex), whose later updates must see the earlier ones' stores: a
+    propagated chain the slot, the longest chain's hops, its count and
+    code, and one round for each later chain; a hop entry the slot, its
+    first fk column (the saved old fk beside it), the longest suffix's
+    hops, its old and new targets' counts and codes at once, and one round
+    for each later entry."""
+    tree = 2 + max((nd["depth"] for nd in plan["nodes"]), default=-1)
     groups: dict = {}
     for e in plan["props"]:
         groups.setdefault(e["target"], []).append(e)
@@ -1707,9 +1708,76 @@ def k10_dep_loads(plan: dict) -> int:
             chains.append(1 + max(len(e["chain"]) for e in g) + 1
                           + len(g) - 1)
         else:
-            chains.append(2 + max(len(e["suffix"]) for e in g) + 2
-                          + 2 * (len(g) - 1))
+            chains.append(2 + max(len(e["suffix"]) for e in g) + 1
+                          + len(g) - 1)
     return max([tree] + chains)
+
+
+def k10_schedule_rounds(plan: dict) -> int:
+    """The rounds of dependent loads K10's schedule makes
+    (csrc/row_delta.cu), reported beside k10_dep_loads: the tree's as
+    there; a chain lane's the slot, then each of its entries in turn (an
+    entry's reads wait for the stores of the one before): a propagated
+    chain its hops (its state and codes beside the first) and its count
+    and code, a hop entry its first fk column (the histograms and the
+    saved old fk beside it), the suffix's hops and its old and new
+    targets' counts and codes at once."""
+    tree = 2 + max((nd["depth"] for nd in plan["nodes"]), default=-1)
+    lanes: dict = {}
+    for e in plan["props"]:
+        hops = len(e["chain"]) if "chain" in e else len(e["suffix"]) + 1
+        lanes[e["lane"]] = lanes.get(e["lane"], 1) + max(hops, 1) + 1
+    return max([tree] + list(lanes.values()))
+
+
+# K19's and K11's plans pass by value; what a parameter block's size costs
+# a launch (step 0 of the parameter blocks' sizes): the probe's sizes in
+# bytes (csrc/row_delta.cu pclean_param_probe; 8 is one word)
+PARAM_PROBE_BYTES = (8, 64, 512, 1024, 2048, 4096, 4128, 8192, 11840, 32000)
+
+
+# the lines a read of the probe's mode 1-3 touches
+PARAM_PROBE_LINES = (1, 2, 4, 8, 16, 32)
+
+
+def param_block_ms() -> dict:
+    """Device ms of one launch of a one-warp kernel with a
+    __grid_constant__ parameter block (graph_ms; csrc/row_delta.cu
+    pclean_param_probe): {"floor": the launch floor (one add_ on one
+    element) in the same run, "size": {bytes: ms reading one word, at
+    each size of PARAM_PROBE_BYTES}, "lines": {n: {"independent",
+    "divergent", "dependent": ms}}, n of PARAM_PROBE_LINES 64-byte lines
+    of a 4,096-byte block read by one lane one after another, by n lanes
+    in one instruction, or by one lane each read's address the one
+    before's value}."""
+    from . import ops
+
+    ops.build_kernels()
+    probe = ops._libs["param_probe"]
+    out = torch.zeros(32, dtype=torch.int64, device="cuda")
+
+    def run(nbytes, mode, n):
+        return lambda: ops._check(probe(nbytes, mode, n, ops._ptr(out),
+                                        ops._stream(out)), "param_probe")
+
+    res = {"floor": launch_floor_ms(),
+           "size": {n: graph_ms(run(n, 0, 1)) for n in PARAM_PROBE_BYTES}}
+    res["lines"] = {n: {way: graph_ms(run(4096, mode, n)) for mode, way in
+                        ((1, "independent"), (2, "divergent"),
+                         (3, "dependent"))}
+                    for n in PARAM_PROBE_LINES}
+    return res
+
+
+def param_block_lines(res: dict) -> str:
+    """param_block_ms's table as lines of text."""
+    return "\n".join(
+        [f"parameter block, one word read (bytes: device ms; floor, one "
+         f"add_: {res['floor']:.5f}): " + ", ".join(
+             f"{n}: {v:.5f}" for n, v in res["size"].items())]
+        + [f"parameter block, {n} lines read: " + ", ".join(
+            f"{way} {v:.5f}" for way, v in ways.items())
+           for n, ways in res["lines"].items()])
 
 
 def k10_bytes(plan: dict) -> int:
@@ -1778,6 +1846,7 @@ def time_k10(ops, eng, arenas, params, census: list, floor: float,
         fn = lambda: ops.row_delta(*args)  # noqa: E731
         plan = ops.row_delta_plan(cm, cid, mode, hop)
         nbytes, dep = k10_bytes(plan), k10_dep_loads(plan)
+        rounds = k10_schedule_rounds(plan)
         out.append(dict(
             shape=r["mode"], K=r["K"], launches=r["launches"],
             ms=cuda_ms(fn), device_ms=graph_ms(fn),
@@ -1785,13 +1854,15 @@ def time_k10(ops, eng, arenas, params, census: list, floor: float,
             library_ms=None, library_device_ms=None, bytes=nbytes,
             bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, dep_loads=dep,
             dep_bound_ms=dep * lat, floor_ms=floor,
-            nodes=len(plan["nodes"]), chains=len(plan["props"])))
+            schedule_rounds=rounds, nodes=len(plan["nodes"]),
+            chains=len(plan["props"])))
         x = out[-1]
         print(f"row_delta {x['shape']} ({x['launches']} launches): kernel "
               f"{x['ms']:.4f} ms (device {x['device_ms']:.4f} ms) plain "
               f"{x['plain_ms']:.4f} ms bound {x['bound_ms']:.7f} ms "
-              f"(bytes), {dep} dependent loads {x['dep_bound_ms']:.4f} ms, "
-              f"floor {floor:.4f} ms", flush=True)
+              f"(bytes), {dep} dependent loads {x['dep_bound_ms']:.4f} ms "
+              f"({rounds} in the kernel's schedule), floor {floor:.4f} ms",
+              flush=True)
     return out
 
 
@@ -2562,8 +2633,33 @@ SWEEP_K16 = tuple((f"sweep {m} [{B}, {c + 1}]", _k16f(m, B, c), c + 1)
                                   ("shared", 16, 1472), ("own", 256, 1472),
                                   ("shared", 4096, 1472),
                                   ("own", 4096, 4096)))
-AB_KINDS = ("k1-k3", "k4", "k5", "k6", "k7", "k8", "k9", "k12", "k13",
-            "k16", "k17", "k18", "k20", "k22")
+_I32, _F32 = torch.int32, torch.float32
+AB_K19 = (  # K19's census shapes in the A/B: (label, B, the pairs'
+    # (new, existing) dtypes): one row at every census count of pairs
+    # (flights' 3 and rents' 11 with their float pairs), pg16's [16, 2],
+    # scaled's [4,096, 7] and [4,096, 2], rents' [256, 11]
+    *((f"one row, {n} pairs", 1, [(_I32, _I32)] * n)
+      for n in (1, 2, 4, 7, 9, 25)),
+    ("one row, 3 pairs (flights)", 1, [(_I32, _I32)] * 2 + [(_F32, _F32)]),
+    ("one row, 11 pairs (rents)", 1,
+     [(_I32, _I32)] * 8 + [(_F32, _F32)] * 3),
+    ("[16, 2]", 16, [(_I32, _I32)] * 2),
+    ("[4096, 2]", 4096, [(_I32, _I32)] * 2),
+    ("[4096, 7]", 4096, [(_I32, _I32)] * 7),
+    ("[256, 11] (rents)", 256, [(_I32, _I32)] * 8 + [(_F32, _F32)] * 3),
+)
+AB_K10 = (  # K10's census classes in the A/B: (label, workload, class,
+    # setup's arguments), each at both signs in obs mode on a seeded state
+    ("hospital Record", "hospital", "Record", dict(rows=240, batch=16)),
+    ("flights Obs", "flights", "Obs", dict(rows=300, flights=12,
+                                           websites=8)),
+    ("scaled Record", "scaled", "Record", dict(rows=2000, counties=50,
+                                               hospitals=200, names=100,
+                                               zips=50)),
+    ("rents Obs", "rents", "Obs", dict(rows=1000, counties=100)),
+)
+AB_KINDS = ("k1-k3", "k4", "k5", "k6", "k7", "k8", "k9", "k10", "k12", "k13",
+            "k16", "k17", "k18", "k19", "k20", "k22")
 
 
 def host_us(fn, n: int = 2000) -> float:
@@ -2724,6 +2820,12 @@ def ab_seeded(dev, kinds) -> dict:
     flights' 100 flights over 2,376 rows), K8 at AB_K8 (k8_seeded) and K9
     at AB_K9 (k9_inputs, resample with the retained particle)."""
     out = {}
+    if "k19" in kinds:
+        for label, B, pairs in AB_K19:
+            out["K19 " + label] = ("branch_select", k19_inputs(
+                dev, dict(B=B, pairs=pairs), len(pairs)))
+    if "k10" in kinds:
+        out.update(k10_ab_inputs(dev))
     for kind, kernel, shapes in (("k16", "fk_sample", AB_K16),
                                  ("k17", "choice_sample", AB_K17)):
         if kind in kinds:
@@ -2781,6 +2883,57 @@ def ab_seeded(dev, kinds) -> dict:
     return out
 
 
+def k10_ab_inputs(dev) -> dict:
+    """K10's A/B inputs, {label: ("row_delta", inputs)}: each AB_K10 class
+    on a seeded state (row_state) of its model, built by this checkout's
+    package, at its first live slot, sign +1 and -1."""
+    import importlib as il
+
+    from .engine.refresh import refresh
+    from .engine.smc import Engine
+
+    out = {}
+    for label, wl, cid, kw in AB_K10:
+        cm, cfg = il.import_module(f"{__package__}.workloads.{wl}").setup(
+            **kw, device=dev)[:2]
+        obs = Engine(cm, cfg, device=dev).obs_dev
+        arenas = row_state(cm, 5, device=dev)
+        rel = refresh(cm, arenas, obs)
+        slot = torch.nonzero(arenas[cid]["alive"])[:1].reshape(1)
+        for sign in (1, -1):
+            out[f"K10 {label} obs {sign:+d}"] = ("row_delta", dict(
+                cm=cm, cid=cid, arenas=arenas, rel=rel, obs=obs, slot=slot,
+                sign=sign))
+    return out
+
+
+def k10_ab_call(ops, inp: dict, check: bool = True):
+    """A call of the tree's K10 on a copy of inp's carry (the model's
+    cached plans dropped first: each tree builds its own), checked
+    bit-equal against the plain version on a CPU copy after one call."""
+    from .engine.smc import own_carry
+
+    cm, cid = inp["cm"], inp["cid"]
+    cm.__dict__.pop("_row_plans", None)
+    a, r = own_carry(cm, cid, inp["arenas"], inp["rel"])
+    car = ops.RowCarry(cm, cid, a, r, inp["obs"])
+    s, sign = inp["slot"], inp["sign"]
+    if check:
+        cpu = lambda t: t.cpu()  # noqa: E731
+        ac, rc = _tree_map(a, cpu), _tree_map(r, cpu)
+        ops.row_delta(car, s, sign, "obs")
+        ops.row_delta_plain(ops.RowCarry(cm, cid, ac, rc,
+                                         _tree_map(inp["obs"], cpu)),
+                            s.cpu(), sign, "obs")
+        torch.cuda.synchronize()
+        bad = [n for n, x, y in _leaves(a, ac, "arenas") + _leaves(r, rc,
+                                                                  "rel")
+               if not torch.equal(x.cpu(), y)]
+        require(not bad, f"K10 differs from its plain version at {cid} "
+                f"{sign:+d}: {bad}")
+    return lambda: ops.row_delta(car, s, sign, "obs")
+
+
 def time_ab_seeded(ops, kernel: str, inp: dict) -> dict:
     """One A/B turn of K4, K5, K6, K7 or K8 on `inp`: checked against the
     plain version, then ms (cuda_ms) and device_ms (graph_ms), with the
@@ -2796,6 +2949,21 @@ def time_ab_seeded(ops, kernel: str, inp: dict) -> dict:
         check_sample(ops, inp)
         x = _clone_inputs(inp)
         call = lambda: _sample_call(ops, x)  # noqa: E731
+        return dict(ms=cuda_ms(call), device_ms=graph_ms(call),
+                    host_us=host_us(call), library_ms=None,
+                    library_device_ms=None)
+    if kernel == "branch_select":   # one pair: beside torch.where
+        check_sample(ops, inp)
+        x = _clone_inputs(inp)
+        call = lambda: _sample_call(ops, x)  # noqa: E731
+        lib = sample_library(x)
+        return dict(ms=cuda_ms(call), device_ms=graph_ms(call),
+                    host_us=host_us(call),
+                    library_ms=lib and cuda_ms(lib),
+                    library_device_ms=lib and graph_ms(lib),
+                    library_host_us=lib and host_us(lib))
+    if kernel == "row_delta":
+        call = k10_ab_call(ops, inp)
         return dict(ms=cuda_ms(call), device_ms=graph_ms(call),
                     host_us=host_us(call), library_ms=None,
                     library_device_ms=None)
@@ -2957,6 +3125,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("kernel_bench: no CUDA device available", file=sys.stderr)
         return 1
+    from . import ops as own
     from .workloads import scaled
 
     dev = torch.device("cuda")
@@ -3006,7 +3175,10 @@ def main(argv=None) -> int:
                    "choice_score": score_ab_bytes,
                    "gamma_draw": lambda inp: k22_bounds(inp)["bytes"],
                    "fk_sample": sample_bytes,
-                   "choice_sample": sample_bytes}
+                   "choice_sample": sample_bytes,
+                   "branch_select": sample_bytes,
+                   "row_delta": lambda inp: k10_bytes(own.row_delta_plan(
+                       inp["cm"], inp["cid"], "obs"))}
     for s, (k, inp) in seeded.items():
         bounds[s] = {k: count_bytes[k](inp) / HBM_BYTES_PER_S * 1e3}
     turns = []
@@ -3077,6 +3249,10 @@ def main(argv=None) -> int:
         lambda: torch.logsumexp(inp["logits"], dim=1)))
         for s, inp in k1_all.items()}
     print(f"launch floor (one PyTorch op on one element): {floor:.4f} ms")
+    blocks = {}
+    if {"k10", "k19"} & set(kinds):   # this checkout's probe
+        blocks = param_block_ms()
+        print(param_block_lines(blocks), flush=True)
     for s, y in yard.items():
         print(f"{s}: torch.logsumexp device {y['library_device_ms']:.4f} ms")
     geos = {}
@@ -3123,7 +3299,8 @@ def main(argv=None) -> int:
         with open(os.path.join(a.out, "kernel_ab.json"), "w") as f:
             json.dump(dict(card=torch.cuda.get_device_name(0), turns=turns,
                            summary=summary, launch_floor_ms=floor,
-                           yardsticks=yard, paths=paths, geometries=geos),
+                           yardsticks=yard, paths=paths, geometries=geos,
+                           param_blocks=blocks),
                       f, indent=1)
     return 0
 
@@ -3460,8 +3637,8 @@ def sample_library(inp: dict):
     one: K17's pick mode torch.take of the record at each row's clamped
     ancestor position (the flat indices precomputed); K18 of one chain
     torch.take of the leaf at the final indices (the hops precomputed), of
-    a group none; K19 torch.where of the first pair; K16 and K17's draw
-    and retained modes none."""
+    a group none; K19 of one pair torch.where, of more none; K16 and
+    K17's draw and retained modes none."""
     k, a = inp["kernel"], inp["args"]
     if k == "choice_sample" and inp["kwargs"].get("mode") == "pick":
         rec, anc, B = a
@@ -3480,9 +3657,8 @@ def sample_library(inp: dict):
             t = h[t.clamp(0, h.shape[0] - 1)].long()
         t = t.clamp(0, leaf.shape[0] - 1)
         return lambda: torch.take(leaf, t)
-    if k == "branch_select":
-        is_new, pairs = a
-        nv, ev = pairs[0]
+    if k == "branch_select" and len(a[1]) == 1:
+        is_new, ((nv, ev),) = a
         ev = ev.to(nv.dtype)
         return lambda: torch.where(is_new, nv, ev)
     return None

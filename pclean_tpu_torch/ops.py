@@ -121,8 +121,11 @@ cached on the model; K11's from a row's writes) travel by value as the
 kernel's argument, bound to the pointers of a loop segment's carry
 (`RowCarry`) once, so no table lives on the card. K14's and K15's words
 (pointers, dtypes, lengths; a thread a source or a (column, row) pair)
-are built at each call, also by value, and so are K16's, K17's, K19's and
+are built at each call, also by value, and so are K16's, K17's and
 K21-K23's (K21's `py_prior_words`; K22's descriptors, K23's classes).
+K19's are built once a call structure (`_K19_PLANS`: each pair's dtypes,
+lengths and broadcast), each call writing its pointers into them and
+taking its outputs as views of one allocation.
 K18's (a group's hop-column tree and chains, `row_gather_plan`,
 `row_gather_words`), K20's (a level's references, operands and
 program, `level_plan`) and K12's and K13's (their head words and their
@@ -142,9 +145,10 @@ buffers the call owns (`chain_folds`, `fold_chain`); a K20 level past one
 launch is cut at subexpressions whose sums the next stage pushes
 (`level_stages`), and a K12/K13 child level so cut has its earlier
 stages summed by K20, as has a K12 ch_n whose words do not fit one
-parameter block beside ch_e's (`score_fusion`); K10 takes the larger of
-two parameter blocks (`K10_TIERS`, `k10_tier`) and K16/K17 up to
-`_MAX_ANC` ancestor axes.
+parameter block beside ch_e's (`score_fusion`); K10 takes the smaller of
+two parameter blocks that holds its plan (`K10_TIERS`, `k10_tier`; the
+larger counted as a split), K19 up to 64 pairs a launch (`K19_MAX_PAIRS`;
+more, launches of 64) and K16/K17 up to `_MAX_ANC` ancestor axes.
 
 Build: one `nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared` per
 source, all started together, into pclean_tpu_torch/_build/ (listed in
@@ -203,7 +207,7 @@ LAUNCHES_BY_SHAPE = {name: {"r1": 0, "rn": 0} for name in _SOURCES}
 # the calls that went past a kernel's single-launch limit, by wrapper: a
 # row's writes, a batch's columns or a cascade's fk columns in more than
 # one launch, a chain folded by K18 first or a K18 group in more than one
-# launch, a level in stages, K10's larger block, K16/K17 past three
+# launch, a level in stages, K10's largest block, K16/K17 past three
 # ancestor axes (no path of the repository's workloads makes one;
 # workloads/limits.py makes each)
 SPLITS: dict = {}
@@ -450,11 +454,15 @@ def build_kernels(force: bool = False) -> float:
                 group.restype = ctypes.c_int
                 group.argtypes = [P, I32, P]
                 _libs["choice_sample_group"] = group
-            if name == "row_delta":   # K10's latency yardstick
+            if name == "row_delta":   # the yardsticks beside K10
                 probe = lib.pclean_chase_probe
                 probe.restype = ctypes.c_int
                 probe.argtypes = [P, I32, P, P]
                 _libs["chase_probe"] = probe
+                probe = lib.pclean_param_probe
+                probe.restype = ctypes.c_int
+                probe.argtypes = [I32, I32, I32, P, P]
+                _libs["param_probe"] = probe
         return time.time() - t0
 
 
@@ -1609,20 +1617,24 @@ def pg_resample(ws: torch.Tensor, u: torch.Tensor, mode: str = "resample",
 _DT = {torch.bool: 0, torch.int8: 1, torch.uint8: 2, torch.int16: 3,
        torch.int32: 4, torch.int64: 5, torch.float32: 6, torch.float64: 7}
 K10_MODES = ("obs", "latent")
-# the words of K10's plan (csrc/row_delta.cu): a header with each chain
-# lane's (first entry, entries), then a node's and a chain's fixed-size
-# records
-K10_HEAD, K10_NODE = 8 + 64, 12
-# the plan's two parameter blocks (csrc/row_delta.cu; word 7 names the
-# tier): (fk-tree nodes, hops a chain, chains). A class's fk-tree nodes
-# read each other's flips and its chains run beside them in one launch,
-# so a model past tier 0 takes the larger block rather than a split
+# the words of K10's plan (csrc/row_delta.cu): a header (from word
+# K10_LANES each chain lane's first entry + 1, a byte a lane), the tier's
+# room of node records and of counter records, then the chains' records;
+# a column's length and dtype share one word (length << 4 | dtype)
+K10_HEAD, K10_LANES, K10_NODE, K10_COUNTER = 14, 10, 6, 4
+# the plan's parameter blocks, by the tier (word 7) that names each:
+# (fk-tree nodes, hops a chain, chains). A class's fk-tree nodes read
+# each other's flips and its chains run beside them in one launch, so a
+# model past tier 0 takes tier 1 rather than a split. A block's size
+# costs a launch nothing (PERF.md section 3), so no smaller tier is kept
+# for the classes the paths sweep row by row
 K10_TIERS = ((24, 6, 32), (64, 16, 48))
 
 
 def k10_words(tier: int) -> int:
     nodes, hops, props = K10_TIERS[tier]
-    return K10_HEAD + K10_NODE * nodes + (17 + 3 * hops) * props
+    return K10_HEAD + (K10_NODE + K10_COUNTER) * nodes + \
+        (10 + 2 * hops) * props
 
 
 K10_WORDS = k10_words(0)
@@ -1630,7 +1642,7 @@ K11_HEAD, K11_WRITE, K11_MAX_WRITES = 2 + 64, 12, 64
 K11_WORDS = K11_HEAD + K11_WRITE * K11_MAX_WRITES
 # bytes of kernel parameters a launch may pass on Hopper with CUDA >= 12.1
 PARAM_MAX = 32764
-# the larger block with the slot, sign and save / old pointers
+# the largest block with the slot, sign and save / old pointers
 K10_PARAM_BYTES = 8 * k10_words(len(K10_TIERS) - 1) + 32
 K11_PARAM_BYTES = 8 * K11_WORDS
 
@@ -1674,7 +1686,7 @@ def _leaf(g, car: RowCarry):
 
 
 def k10_tier(nodes: int, chains: int, hops: int, cid=None) -> int:
-    """The smallest of K10's parameter blocks (K10_TIERS) that holds a
+    """The first of K10's parameter blocks (K10_TIERS) that holds a
     plan of `nodes` fk-tree nodes and `chains` propagated-observation
     chains (or hop entries) of at most `hops` hops; raises, naming the
     model's feature, where none does."""
@@ -1687,6 +1699,25 @@ def k10_tier(nodes: int, chains: int, hops: int, cid=None) -> int:
         f"tree and has {chains} propagated-observation chains of up to "
         f"{hops} hops; K10 takes at most {n} fk-tree nodes and {p} chains "
         f"of {h} hops")
+
+
+def k10_schedule(nodes: list) -> None:
+    """Phase A's and B's schedule of K10's tree (csrc/row_delta.cu), in
+    place on row_delta_plan's nodes (DFS order): each node's depth (the
+    level at which it reads its fk value, 1 at a root), prev and next (the
+    previous and next node of its target class, -1 where none) and round
+    (phase B's: after its parent's and its class's previous node's)."""
+    last: dict = {}
+    for i, nd in enumerate(nodes):
+        p = nd["parent"]
+        nd["depth"] = 1 + (nodes[p]["depth"] if p >= 0 else 0)
+        nd["prev"], nd["next"] = last.get(nd["tc"], -1), -1
+        if nd["prev"] >= 0:
+            nodes[nd["prev"]]["next"] = i
+        last[nd["tc"]] = i
+        nd["round"] = 1 + max(nodes[p]["round"] if p >= 0 else 0,
+                              nodes[nd["prev"]]["round"] if nd["prev"] >= 0
+                              else 0)
 
 
 def row_delta_plan(cm, cid, mode: str, hop: bool = False) -> dict:
@@ -1703,10 +1734,15 @@ def row_delta_plan(cm, cid, mode: str, hop: bool = False) -> dict:
         refresh.hop_histograms' list, lane)); entries of one target share
         a lane (0-31 of the kernel's second warp), in order, and the list
         holds each lane's entries together;
-      words: the static words of the kernel's argument, and slots: for
-        each pointer word, (leaf, its word, the word of its length or -1,
-        the word of its dtype or -1, the dtype it must have or None, the
-        length it must have or None)."""
+      nodes also carry k10_schedule's depth, prev, next and round;
+      counters: (target class, the mask of its nodes) for each target
+        class, whose total and nrows the kernel adds to once;
+      words: the static words of the kernel's argument (the counters'
+        records written at binding, _k10_words), and slots: for each
+        pointer word, (leaf, its word, the word that takes its dtype or
+        -1, the bit at which the dtype goes in that word, or None where
+        that word is the leaf's column word, length << 4 | dtype, the
+        dtype it must have or None, the length it must have or None)."""
     cache = cm.__dict__.setdefault("_row_plans", {})
     key = ("k10", cid, mode, bool(hop))
     if key in cache:
@@ -1749,79 +1785,112 @@ def row_delta_plan(cm, cid, mode: str, hop: bool = False) -> dict:
     tier = k10_tier(len(nodes), len(entries),
                     max(map(len, hops_of), default=0), cid)
     max_nodes, max_hops, _p = K10_TIERS[tier]
-    prop_w = 17 + 3 * max_hops
-    words = [0] * (K10_HEAD + K10_NODE * len(nodes)
-                   + (prop_w * len(entries) if entries else 0))
-    if entries:   # the chains' records start after every node's room
-        words += [0] * (K10_NODE * (max_nodes - len(nodes)))
+    k10_schedule(nodes)
+    prop_w, props0 = 10 + 2 * max_hops, \
+        K10_HEAD + (K10_NODE + K10_COUNTER) * max_nodes
+    words = [0] * (props0 + prop_w * len(entries))
     slots = []
     words[0] = {"obs": 0, "latent": 1}[mode] + (1 if hop else 0)
     words[1], words[2], words[3] = len(nodes), len(entries), lay.capacity
     words[7] = tier
-    for j, e in enumerate(entries):
-        words[9 + 2 * e["lane"]] += 1
-        if words[9 + 2 * e["lane"]] == 1:
-            words[8 + 2 * e["lane"]] = j
+    words[8] = max((nd["depth"] for nd in nodes), default=0)
+    words[9] = max((nd["round"] for nd in nodes), default=0)
     slots.append((("alive", cid) if mode == "obs" else ("r", cid, "alive"),
-                  4, 5, 6, torch.bool, lay.capacity))
+                  4, 5, None, torch.bool, lay.capacity))
+    counters: dict = {}
     for i, nd in enumerate(nodes):
         b = K10_HEAD + K10_NODE * i
         cap = cm.layouts[nd["tc"]].capacity
-        words[b + 3], words[b + 4], words[b + 7] = nd["parent"], nd["root"], \
-            cap
-        slots += [(("a",) + nd["col"], b, b + 1, b + 2, None, None),
-                  (("r", nd["tc"], "refcount"), b + 5, -1, -1, torch.int32,
+        words[b + 4] = cap
+        words[b + 5] = (nd["depth"] | nd["round"] << 8
+                        | (nd["parent"] + 1) << 16 | (nd["root"] + 1) << 24
+                        | (nd["prev"] + 1) << 32 | (nd["next"] + 1) << 40)
+        slots += [(("a",) + nd["col"], b, b + 1, None, None, None),
+                  (("r", nd["tc"], "refcount"), b + 2, -1, None, torch.int32,
                    cap),
-                  (("r", nd["tc"], "alive"), b + 6, -1, -1, torch.bool, cap),
-                  (("r", nd["tc"], "total"), b + 8, -1, b + 9, None, 1),
-                  (("r", nd["tc"], "nrows"), b + 10, -1, b + 11, None, 1)]
+                  (("r", nd["tc"], "alive"), b + 3, -1, None, torch.bool,
+                   cap)]
+        counters[nd["tc"]] = counters.get(nd["tc"], 0) | 1 << i
+    last: dict = {}
+    for j, e in enumerate(entries):   # each lane's entries, linked
+        if e["lane"] in last:
+            words[props0 + prop_w * last[e["lane"]] + 3] |= (j + 1) << 32
+        else:
+            words[K10_LANES + e["lane"] // 8] |= (j + 1) << 8 * (e["lane"]
+                                                                % 8)
+        last[e["lane"]] = j
     for j, (e, chain) in enumerate(zip(entries, hops_of)):
-        b = K10_HEAD + K10_NODE * max_nodes + prop_w * j
+        b = props0 + prop_w * j
         tc, tv = e["target"]
         cap_t = cm.layouts[tc].capacity
-        words[b], words[b + 5], words[b + 16] = e["lane"], cap_t, len(chain)
-        slots += [(("p", tc, tv, 0), b + 1, -1, b + 2, None, cap_t),
-                  (("p", tc, tv, 1), b + 3, -1, b + 4, None, cap_t)]
+        words[b + 2] = cap_t
+        words[b + 3] |= e["lane"] << 8 | e.get("root", 0) << 16 | \
+            len(chain) << 24
+        slots += [(("p", tc, tv, 0), b, b + 3, 0, None, cap_t),
+                  (("p", tc, tv, 1), b + 1, b + 3, 4, None, cap_t)]
         if "chain" in e:
-            slots += [(("o", cid, e["ov"], 0), b + 6, b + 7, b + 8, None,
+            slots += [(("o", cid, e["ov"], 0), b + 4, b + 5, None, None,
                        None),
-                      (("o", cid, e["ov"], 1), b + 9, b + 10, b + 11, None,
+                      (("o", cid, e["ov"], 1), b + 6, b + 7, None, None,
                        None)]
         else:
-            slots += [(("h", e["hist"], 0), b + 6, b + 7, b + 8, None, None),
-                      (("h", e["hist"], 1), b + 9, b + 10, b + 11, None,
-                       None),
-                      (("a", cid, e["fkv"]), b + 12, b + 13, b + 14, None,
+            slots += [(("h", e["hist"], 0), b + 4, b + 5, None, None, None),
+                      (("h", e["hist"], 1), b + 6, b + 7, None, None, None),
+                      (("a", cid, e["fkv"]), b + 8, b + 9, None, None,
                        None)]
-            words[b + 15] = e["root"]
         for h, col in enumerate(chain):
-            hb = b + 17 + 3 * h
-            slots.append((("a",) + col, hb, hb + 1, hb + 2, None, None))
+            hb = b + 10 + 2 * h
+            slots.append((("a",) + col, hb, hb + 1, None, None, None))
     plan = dict(cid=cid, mode=mode, hop=bool(hop), nodes=nodes,
                 props=entries, words=words, slots=slots, tier=tier,
+                counters=list(counters.items()),
                 n_roots=len(lay.fk_vertices))
     cache[key] = plan
     return plan
 
 
-def _k10_words(plan: dict, car: RowCarry):
+def _k10_words(plan: dict, car: RowCarry, card: bool = True):
     """The plan's words with the carry's pointers, as a ctypes array, every
-    leaf checked."""
+    leaf checked (on the card, or with card=False on the CPU, whose
+    addresses a CPU reading of the plan follows). Classes whose total and
+    nrows are the same two tensors share one counter record."""
     words = list(plan["words"])
-    for g, pw, lw, dw, dtype, n in plan["slots"]:
+    for g, pw, dw, shift, dtype, n in plan["slots"]:
         t = _leaf(g, car)
-        if not t.is_cuda or t.dim() > 1 or not t.is_contiguous() or \
-                t.dtype not in _DT or \
-                (dtype is not None and t.dtype != dtype) or \
-                (n is not None and t.numel() != n):
-            raise ValueError(f"row_delta: leaf {g} is {t.dtype} "
-                             f"{tuple(t.shape)} on {t.device}")
+        _k10_leaf(t, g, card, dtype, n)
         words[pw] = t.data_ptr()
-        if lw >= 0:
-            words[lw] = t.numel()
-        if dw >= 0:
-            words[dw] = _DT[t.dtype]
+        if dw >= 0 and shift is None:
+            words[dw] = t.numel() << 4 | _DT[t.dtype]
+        elif dw >= 0:
+            words[dw] |= _DT[t.dtype] << shift
+    base = K10_HEAD + K10_NODE * K10_TIERS[plan["tier"]][0]
+    owner: dict = {}
+    for tc, mask in plan["counters"]:
+        tot, nr = car.rel[tc]["total"], car.rel[tc]["nrows"]
+        for k, t in (("total", tot), ("nrows", nr)):
+            _k10_leaf(t, ("r", tc, k), card, None, 1)
+        pair = (tot.data_ptr(), nr.data_ptr())
+        if pair not in owner and not {p for q in owner for p in q} & \
+                set(pair):
+            b = base + K10_COUNTER * len(owner)
+            owner[pair] = b
+            words[b:b + 3] = [*pair, _DT[tot.dtype] | _DT[nr.dtype] << 4]
+        elif pair not in owner:
+            raise ValueError(f"row_delta: class {tc!r}'s total and nrows "
+                             f"share one tensor with another class's")
+        b = owner[pair]
+        m = (words[b + 3] & (1 << 64) - 1) | mask
+        words[b + 3] = m - (1 << 64) if m >= 1 << 63 else m
+    words[6] = len(owner)
     return (ctypes.c_int64 * len(words))(*words)
+
+
+def _k10_leaf(t, g, card: bool, dtype, n) -> None:
+    if t.is_cuda != card or t.dim() > 1 or not t.is_contiguous() or \
+            t.dtype not in _DT or (dtype is not None and t.dtype != dtype) \
+            or (n is not None and t.numel() != n):
+        raise ValueError(f"row_delta: leaf {g} is {t.dtype} "
+                         f"{tuple(t.shape)} on {t.device}")
 
 
 def _into_rel(rel: dict, new: dict) -> None:
@@ -1898,7 +1967,7 @@ def row_delta(car: RowCarry, slot, sign: int, mode: str = "obs",
                               t.numel() < plan["n_roots"]):
             raise ValueError(f"row_delta: {name} must be int64 [>= "
                              f"{plan['n_roots']}] on the card")
-    if plan["tier"] > 0:
+    if plan["tier"] == 1:   # the larger block
         _split("row_delta")
     arr = car.k10.get((mode, hop))
     if arr is None:
@@ -2912,7 +2981,11 @@ K18_CLASSES = ((2, 4), (4, 8), (8, 16))
 K18_MAX_NODES, K18_MAX_CHAINS = K18_CLASSES[-1]
 K18_HEAD, K18_NODE, K18_CHAIN = 24, 4, 5
 K18_WORDS = K18_HEAD + K18_NODE * K18_MAX_NODES + K18_CHAIN * K18_MAX_CHAINS
-K19_HEAD, K19_PAIR, K19_MAX_PAIRS = 4, 8, 64
+# K19's plan (csrc/branch_select.cu): a header (pairs, B, is_new), then
+# each pair's new, existing and output pointers and a word of dtypes and
+# broadcast bits; one parameter block of K19_MAX_PAIRS pairs (the
+# census's plans take 1-25), more pairs go in launches of that many
+K19_HEAD, K19_PAIR, K19_MAX_PAIRS = 3, 4, 64
 
 
 def pick_plain(rec, anc, B: int):
@@ -3632,53 +3705,136 @@ def branch_select_plain(is_new, pairs) -> list:
     return [torch.where(is_new, nv, ev.to(nv.dtype)) for nv, ev in pairs]
 
 
-def branch_select(is_new, pairs) -> list:
-    """K19: branch_select_plain in one launch for up to K19_MAX_PAIRS pairs
-    (more: a launch each K19_MAX_PAIRS), a thread a (pair, row): is_new a
-    contiguous bool [B], each value a tensor of B or 1 elements (at most
-    one axis) of any dtype of _DT; each output a [B] tensor of the new
-    value's dtype (torch.empty). On CPU tensors the plain version; on
-    CUDA ones the kernel or an error. Counted in LAUNCH_CENSUS by ("B=..
-    new<existing,...", r1 or rn, the pairs)."""
-    if not _route(is_new, "branch_select"):
-        return branch_select_plain(is_new, pairs)
+# K19's launch plans by the call's structure (is_new's and each value's
+# dtype, shape, stride and device; not the pointers, which a call writes
+# into the prebuilt words)
+_K19_PLANS: dict = {}
+
+
+def _k19_plan(is_new, pairs) -> tuple:
+    """The _K19_PLANS entry of this call's structure, built and checked by
+    _k19_entry at its first call."""
+    try:
+        key = (is_new.dtype, is_new.shape, is_new.stride(),
+               is_new.get_device(),
+               tuple((nv.dtype, nv.shape, nv.stride(), nv.is_cuda, ev.dtype,
+                      ev.shape, ev.stride(), ev.is_cuda)
+                     for nv, ev in pairs))
+    except AttributeError:   # (a value that is no tensor: _k19_entry says)
+        return _k19_entry(is_new, pairs)
+    ent = _K19_PLANS.get(key)
+    if ent is None:
+        ent = _k19_entry(is_new, pairs)
+        if len(_K19_PLANS) >= _PLAN_CACHE_MAX:
+            _K19_PLANS.clear()
+        _K19_PLANS[key] = ent
+    return ent
+
+
+def _k19_entry(is_new, pairs) -> tuple:
+    """A _K19_PLANS entry: (B, device, the bytes of the call's one output
+    allocation, its views [(dtype, byte offset, bytes, the pairs of that
+    dtype)], each output's byte offset, the values (2 j + side) a call
+    makes contiguous, [(words as an array.array, its address, its length,
+    the first pair, census mode, census fields, pairs)] a launch): the
+    outputs of one dtype are the rows of one [pairs, B] block, each block
+    on a 16-byte boundary, so each output is aligned to its dtype. Raises
+    for what the kernel does not take."""
     B = int(is_new.shape[0]) if is_new.dim() == 1 else -1
     if B < 0 or is_new.dtype != torch.bool or not is_new.is_contiguous():
         raise ValueError(f"branch_select: is_new must be a contiguous bool "
                          f"[B], got {is_new.dtype} {tuple(is_new.shape)}")
-    outs = []
+    card = is_new.is_cuda
+    flags, contig, sig, dts = [], [], [], []
+    for j, pair in enumerate(pairs):
+        bits = 0
+        for side, t in enumerate(pair):
+            if not torch.is_tensor(t) or t.is_cuda != card or \
+                    t.dtype not in _DT or t.numel() not in (1, B) or \
+                    t.dim() > 1:
+                raise ValueError(
+                    f"branch_select: a value {getattr(t, 'dtype', t)} "
+                    f"{tuple(getattr(t, 'shape', ()))} (expected [{B}] "
+                    f"or one element on {is_new.device})")
+            one = t.numel() == 1 or t.stride(0) == 0
+            if not one and t.stride(0) != 1:
+                contig.append(2 * j + side)
+            bits |= _DT[t.dtype] << (4 * side) | int(one) << (8 + side)
+        flags.append(bits)
+        sig.append(f"{_SHORT[pair[0].dtype]}<{_SHORT[pair[1].dtype]}")
+        dts.append((pair[0].dtype, pair[1].dtype))
+    by_dtype: dict = {}
+    for j, (nv, _ev) in enumerate(pairs):
+        by_dtype.setdefault(nv.dtype, []).append(j)
+    views, offs, size = [], [0] * len(pairs), 0
+    for dt, idx in by_dtype.items():
+        esize = torch.empty((), dtype=dt).element_size()
+        views.append((dt, size, B * esize * len(idx), idx))
+        for i, j in enumerate(idx):
+            offs[j] = size + i * B * esize
+        size += -(-B * esize * len(idx) // 16) * 16
+    launches = []
     for j0 in range(0, len(pairs), K19_MAX_PAIRS):
-        chunk = pairs[j0:j0 + K19_MAX_PAIRS]
-        words = [len(chunk), B, is_new.data_ptr(), 0]
-        sig, keep, dts = [], [], []
-        for nv, ev in chunk:
-            row = []
-            for t in (nv, ev):
-                if not torch.is_tensor(t) or not t.is_cuda or \
-                        t.dtype not in _DT or t.numel() not in (1, B) or \
-                        t.dim() > 1:
-                    raise ValueError(
-                        f"branch_select: a value {getattr(t, 'dtype', t)} "
-                        f"{tuple(getattr(t, 'shape', ()))} (expected [{B}] "
-                        f"or one element on the card)")
-                t = t.reshape(-1)
-                n = t.numel()
-                if n > 1 and t.stride(0) == 0:   # one value broadcast
-                    n = 1
-                elif not t.is_contiguous():
-                    t = t.contiguous()
-                    keep.append(t)
-                row += [t.data_ptr(), _DT[t.dtype], n]
-            out = torch.empty((B,), dtype=nv.dtype, device=is_new.device)
-            outs.append(out)
-            words += row + [out.data_ptr(), 0]
-            sig.append(f"{_SHORT[nv.dtype]}<{_SHORT[ev.dtype]}")
-            dts.append((nv.dtype, ev.dtype))
-        arr = (ctypes.c_int64 * len(words))(*words)
-        rc = _fn("branch_select")(arr, len(words), _stream(is_new))
-        _check(rc, "branch_select")
-        _count("branch_select", B, len(chunk), f"B={B} {','.join(sig)}",
-               dict(B=B, pairs=dts))
+        n = min(K19_MAX_PAIRS, len(pairs) - j0)
+        words = [n, B, 0]
+        for j in range(j0, j0 + n):
+            words += [0, 0, 0, flags[j]]
+        words = array.array("q", words)
+        launches.append((words, words.buffer_info()[0], len(words), j0,
+                         f"B={B} {','.join(sig[j0:j0 + n])}",
+                         dict(B=B, pairs=dts[j0:j0 + n]), n))
+    return B, is_new.device, size, views, offs, tuple(contig), launches
+
+
+def _k19_bind(ent: tuple, is_new, pairs) -> tuple:
+    """(the call's outputs, views of one allocation as the entry lays them
+    out; the values the words point at, which the caller keeps until the
+    launch), with this call's pointers written into the entry's words."""
+    B, dev, size, views, offs, contig, launches = ent
+    if contig:
+        vals = [t for pair in pairs for t in pair]
+        for i in contig:
+            vals[i] = vals[i].contiguous()
+        pairs = list(zip(vals[::2], vals[1::2]))
+    if len(views) == 1:   # one dtype: the rows of one [pairs, B] tensor
+        buf = torch.empty((len(pairs), B), dtype=views[0][0], device=dev)
+        outs = list(buf.unbind(0))
+    else:
+        buf = torch.empty((size,), dtype=torch.uint8, device=dev)
+        outs = [None] * len(pairs)
+        for dt, off, n_bytes, idx in views:
+            for j, v in zip(idx, buf.narrow(0, off, n_bytes).view(dt)
+                            .view(len(idx), B).unbind(0)):
+                outs[j] = v
+    base = buf.data_ptr()
+    nps = [nv.data_ptr() for nv, _ev in pairs]
+    eps = [ev.data_ptr() for _nv, ev in pairs]
+    for words, _a, _n, j0, _m, _f, n in launches:
+        words[2] = is_new.data_ptr()
+        words[K19_HEAD::K19_PAIR] = array.array("q", nps[j0:j0 + n])
+        words[K19_HEAD + 1::K19_PAIR] = array.array("q", eps[j0:j0 + n])
+        words[K19_HEAD + 2::K19_PAIR] = array.array(
+            "q", [base + o for o in offs[j0:j0 + n]])
+    return outs, pairs
+
+
+def branch_select(is_new, pairs) -> list:
+    """K19: branch_select_plain in one launch for up to K19_MAX_PAIRS pairs
+    (more: a launch each K19_MAX_PAIRS): is_new a contiguous bool [B], each
+    value a tensor of B or 1 elements (at most one axis) of any dtype of
+    _DT; each output a [B] tensor of the new value's dtype, all of a
+    call's outputs views of one allocation. The plan is cached by the
+    call's structure (_K19_PLANS). On CPU tensors the plain version; on
+    CUDA ones the kernel or an error. Counted in LAUNCH_CENSUS by ("B=..
+    new<existing,...", r1 or rn, the pairs)."""
+    if not _route(is_new, "branch_select"):
+        return branch_select_plain(is_new, pairs)
+    ent = _k19_plan(is_new, pairs)
+    outs, _vals = _k19_bind(ent, is_new, pairs)
+    fn, stream, B = _fn("branch_select"), _stream(is_new), ent[0]
+    for words, addr, n_words, _j0, mode, fields, n in ent[6]:
+        _check(fn(addr, n_words, stream), "branch_select")
+        _count("branch_select", B, n, mode, fields)
     return outs
 
 

@@ -1622,6 +1622,37 @@ def test_k10_k11_cuda_match_plain(card, which):
 
 
 @pytest.mark.cuda
+def test_k10_cuda_every_tier_and_mode(card):
+    """K10 against its plain version on the limits model's seeded state (a
+    fifth of its fk values out of range): every class with fks in obs,
+    latent and hop mode, the plans in both parameter blocks (S and C1-C8
+    in tier 0, C0 and Record in 1), S and T reached by many paths of one
+    tree (kernel_bench.shadow_rows, every leaf bit-equal)."""
+    from pclean_tpu_torch.engine.compile import init_state
+    from pclean_tpu_torch.engine.smc import Engine
+    from pclean_tpu_torch.kernel_bench import row_state, shadow_rows
+    from pclean_tpu_torch.workloads import limits
+
+    cm, cfg = limits.setup(rows=64, batch=8, device=card)[:2]
+    _a, params = init_state(cm, 0, device=card)
+    eng = Engine(cm, cfg, device=card)
+    arenas = row_state(cm, 9, oob=0.2, device=card)
+    tiers = set()
+    for cid in cm.model.class_order:
+        lay = cm.layouts[cid]
+        if not lay.fk_vertices:
+            continue
+        mode = "obs" if lay.observed else "latent"
+        for kind in (["init", "obs"] if lay.observed else ["latent"]):
+            r = shadow_rows(ops, eng, arenas, params, cid, kind, n=48,
+                            seed=5)
+            assert r["launches"] > 0 and r["mismatches"] == [], r
+        for hop in ((False,) if lay.observed else (False, True)):
+            tiers.add(ops.row_delta_plan(cm, cid, mode, hop)["tier"])
+    assert tiers == {0, 1}
+
+
+@pytest.mark.cuda
 def test_k10_k11_cuda_edges_and_no_host_sync(card):
     """Slots -1, the capacity and past it, a birth at -1 and at its class's
     capacity, on the chain model (hop entries) and the flights model

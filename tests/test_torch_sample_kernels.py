@@ -14,6 +14,8 @@ plain version) against pclean_tpu's on every vertex of every hospital
 class at slot tensors of rank 0-2. The `cuda` tests hold each kernel to
 its plain version on the card and skip without one.
 """
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -409,6 +411,97 @@ CARD_CASES = {   # (kernel, census fields, K)
 }
 
 
+_DTS = (torch.bool, torch.int8, torch.uint8, torch.int16, torch.int32,
+        torch.int64, torch.float32, torch.float64)
+_CT = (ctypes.c_uint8, ctypes.c_int8, ctypes.c_uint8, ctypes.c_int16,
+       ctypes.c_int32, ctypes.c_int64, ctypes.c_float, ctypes.c_double)
+
+
+def k19_pairs(n: int, B: int, seed: int = 0):
+    """is_new [B] and n pairs of every (new, existing) dtype combination
+    in turn (a float existing into an integer new truncates, into a bool
+    tests != 0), values in [0, 100); every third existing value one
+    element, every fifth new one broadcast by expand, every seventh
+    existing a strided view (copied by the wrapper)."""
+    rng = np.random.default_rng(seed)
+
+    def val(dt, k, j):
+        x = torch.as_tensor(rng.random(k) * 100).to(dt) if \
+            dt.is_floating_point else torch.as_tensor(
+                rng.integers(0, 100, k)).to(dt)
+        if j % 7 == 6 and k == B > 1:
+            x = torch.as_tensor(rng.integers(0, 100, 2 * B)).to(dt)[::2]
+        return x
+
+    pairs = []
+    for j in range(n):
+        nd, ed = _DTS[j % 8], _DTS[(j * 3 + 1) % 8]
+        nv = val(nd, 1, j).expand(B) if j % 5 == 4 else val(nd, B, j)
+        ev = val(ed, 1 if j % 3 == 2 else B, j)
+        pairs.append((nv, ev))
+    return torch.as_tensor(rng.random(B) < 0.5), pairs
+
+
+def _read_k19(words):
+    """csrc/branch_select.cu over bound words, through the CPU addresses
+    they hold: a thread a (pair, row), is_new, the new and the existing
+    value read, then the select converted to new's dtype."""
+    n, B, ip = words[0], words[1], words[2]
+    for j in range(n):
+        q = words[ops.K19_HEAD + ops.K19_PAIR * j:][:ops.K19_PAIR]
+        nd, ed = q[3] & 15, (q[3] >> 4) & 15
+        for b in range(B):
+            fresh = ctypes.c_uint8.from_address(ip + b).value
+            i = 0 if (q[3] >> (8 if fresh else 9)) & 1 else b
+            p, dt = (q[0], nd) if fresh else (q[1], ed)
+            c = _CT[dt]
+            v = c.from_address(p + i * ctypes.sizeof(c)).value
+            if nd == 0:
+                v = int(v != 0)
+            elif nd < 6:
+                bits = 8 * ctypes.sizeof(_CT[nd])
+                v = int(np.trunc(v)) & (1 << bits) - 1
+                if nd != 2 and v >= 1 << (bits - 1):
+                    v -= 1 << bits
+            else:
+                v = float(np.float32(v)) if nd == 6 else float(v)
+            c = _CT[nd]
+            c.from_address(q[2] + b * ctypes.sizeof(c)).value = v
+
+
+@pytest.mark.parametrize("B", [1, 5])
+@pytest.mark.parametrize("n", [1, 16, 17, 64, 65])
+def test_k19_plan_blocks_cache_and_views(n, B):
+    """K19's plan at 1-65 pairs: a launch of up to 64 pairs (65 pairs: 64
+    and 1), its words sized to its pairs; a second call of the same structure
+    takes the same cached plan; the outputs are views of one allocation,
+    each aligned to its dtype, none overlapping; the words, read as the
+    kernel reads them, give the plain version bit for bit."""
+    is_new, pairs = k19_pairs(n, B)
+    ent = ops._k19_plan(is_new, pairs)
+    launches = ent[6]
+    sizes = [min(ops.K19_MAX_PAIRS, n - j0)
+             for j0 in range(0, n, ops.K19_MAX_PAIRS)]
+    assert [w[0] for w, *_ in launches] == sizes
+    assert [len(w) for w, *_ in launches] == [
+        ops.K19_HEAD + ops.K19_PAIR * k for k in sizes]
+    again = k19_pairs(n, B, seed=1)
+    assert ops._k19_plan(*again) is ent
+    outs, _vals = ops._k19_bind(ent, is_new, pairs)
+    want = ops.branch_select_plain(is_new, pairs)
+    assert len({o.untyped_storage().data_ptr() for o in outs}) == 1
+    spans = sorted((o.data_ptr(), o.data_ptr() + B * o.element_size())
+                   for o in outs)
+    assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+    for o, w in zip(outs, want):
+        assert o.dtype == w.dtype and o.shape == (B,) and \
+            o.data_ptr() % o.element_size() == 0
+    for words, *_ in launches:
+        _read_k19(list(words))
+    for j, (o, w) in enumerate(zip(outs, want)):
+        assert torch.equal(o, w), (j, o, w)
+
+
 @pytest.mark.parametrize("mask", ["shared", "own", "inplace"])
 def test_k16_inputs_take_the_census_mask_form(mask):
     """kernel_bench's K16 inputs in each form of the working mask the
@@ -450,6 +543,25 @@ def test_sample_kernels_match_plain_on_card(card, case):
     kernel, fields, K = CARD_CASES[case]
     inp = kb.sample_inputs(card, kernel, fields, K)
     kb.check_sample(ops, inp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 16, 4096])
+@pytest.mark.parametrize("n", [1, 4, 5, 16, 17, 64, 65])
+def test_k19_every_block_matches_plain_on_card(card, n, B):
+    """K19 at 1-64 pairs in one launch (and 65 pairs in two), every
+    dtype pair, broadcast and strided values and float-to-int and
+    float-to-bool conversions, bit-equal to the plain version."""
+    is_new, pairs = k19_pairs(n, B, seed=n + B)
+    is_new = is_new.to(card)
+    pairs = [(nv.to(card) if nv.stride(0) != 0 or B == 1 else
+              nv[:1].to(card).expand(B), ev.to(card)) for nv, ev in pairs]
+    got = ops.branch_select(is_new, pairs)
+    again = ops.branch_select(is_new, pairs)
+    want = ops.branch_select_plain(is_new, pairs)
+    torch.cuda.synchronize()
+    for g, a, w in zip(got, again, want):
+        assert g.dtype == w.dtype and torch.equal(g, w) and torch.equal(a, w)
 
 
 @pytest.mark.cuda
