@@ -103,7 +103,8 @@ It drives the port only (never jax, never pclean_tpu), in order:
      carry under torch.cuda.set_sync_debug_mode("error"), the plain
      versions on a CPU copy, every leaf bit-equal), then each timed at
      every shape of the census beside its bytes bound and its
-     dependent-load bound (kernel_bench.time_k10, time_k11); K14
+     dependent-load bound (kernel_bench.time_k10, time_k11; K11 also its
+     host us a call back to back); K14
      rel_scatter and K15 batch_write (the relational scatters and the
      batched row write): refresh and every latent class's hop histograms
      on the path's state on the card against their plain versions on a
@@ -189,11 +190,12 @@ It drives the port only (never jax, never pclean_tpu), in order:
      final indices, none for a group of chains; K19 of one pair:
      torch.where; K16 and K17 none) and the bytes bound, and K18 as one
      chain at one slot and at 1,000,000 beside torch.take
-     (SAMPLE_SINGLE) (bench_sample_shapes); K20 and K21 likewise at their most launched
-     one-row and batched shapes and each path's largest, beside their
-     plain versions and the bytes bound, no library call
-     (bench_level_shapes); K22 and K23 at every census shape checked,
-     beside their plain versions, K22's library call
+     (SAMPLE_SINGLE) (bench_sample_shapes); K20 likewise at its most
+     launched one-row and batched shapes and each path's largest, K21 at
+     every census shape checked, beside their plain versions and the
+     bytes bound, no library call (bench_level_shapes); K22 and K23 at
+     every census shape checked, beside their plain versions, K22's
+     library call
      (torch._standard_gamma at the same alphas, and
      torch._sample_dirichlet over the same rows) and the bound, the larger
      of the bytes and the operations the inputs need (bench_param_shapes);
@@ -1279,31 +1281,32 @@ def level_checks(ops, dev, census, path: str) -> dict:
     for c in census:
         if c["kernel"] not in out or c["share"] < SHAPE_SHARE:
             continue
-        kb.check_level(ops, kb.level_inputs(
-            dev, c["kernel"], ops.CENSUS_FIELDS[c["kernel"]][c["mode"]],
-            c["K"]))
+        fields = ops.CENSUS_FIELDS[c["kernel"]][c["mode"]]
+        kb.check_level(ops, kb.level_inputs(dev, c["kernel"], fields,
+                                            c["K"]))
         out[c["kernel"]].append(dict(
             shape=c["mode"], K=c["K"], rows=c["rows"], launches=c["launches"],
-            share=c["share"], path=path, max_abs_err=0.0))
+            share=c["share"], path=path, max_abs_err=0.0,
+            **({"fields": fields} if c["kernel"] == "py_prior" else {})))
     print(f"{path} K20/K21 census shapes checked bit-equal: "
           f"{ {k: len(v) for k, v in out.items()} }", flush=True)
     torch.cuda.empty_cache()
     return out
 
 
-# K20 and K21 are timed at their most launched one-row and batched census
-# shapes and at the largest
+# K20 is timed at its most launched one-row and batched census shapes and
+# at the largest; K21 at every census shape checked
 LEVEL_TIMED = {"r1": 4, "rn": 3}
 
 
 def bench_level_shapes(ops, dev, checked: dict, floor) -> dict:
     """K20 and K21 timed, among the distinct census shapes checked (each
-    holds >= SHAPE_SHARE of a path's launches), at the LEVEL_TIMED most
-    launched one-row and batched ones and at each path's largest (the
-    most outputs), on seeded inputs: kernel ms and device ms, the plain
-    version, the bytes bound (kernel_bench.level_bytes) and the launch
-    floor; no PyTorch call computes either function (library none).
-    Returns {kernel: [one dict per shape]}."""
+    holds >= SHAPE_SHARE of a path's launches): K20 at the LEVEL_TIMED
+    most launched one-row and batched ones and at each path's largest (the
+    most outputs), K21 at every one; on seeded inputs: kernel ms and
+    device ms, the plain version, the bytes bound (kernel_bench.
+    level_bytes) and the launch floor; no PyTorch call computes either
+    function (library none). Returns {kernel: [one dict per shape]}."""
     from pclean_tpu_torch import kernel_bench as kb
 
     out = {}
@@ -1318,6 +1321,8 @@ def bench_level_shapes(ops, dev, checked: dict, floor) -> dict:
             kv[1]["launches_by_path"].values()))
         top = [kv for rows, n in LEVEL_TIMED.items()
                for kv in [x for x in ranked if x[1]["rows"] == rows][:n]]
+        if name == "py_prior":
+            top = list(ranked)
         for path in sorted({r["path"] for r in checked[name]}):
             mine = [kv for kv in ranked if path in kv[1]["launches_by_path"]]
             big = max(mine, key=lambda kv: kv[0][1])

@@ -58,6 +58,57 @@ __device__ __forceinline__ double pclean_ld_f(int64_t p, int64_t dt,
   return (double)pclean_ld_i(p, dt, i);
 }
 
+// The bits of p[0], sz bytes of it (1, 2, 4 or 8; 0 loads nothing), in one
+// predicated load: no branch on the dtype, so the lanes of a warp issue
+// their loads together whatever their dtypes (K11). pclean_bits_i and
+// pclean_bits_f decode them as pclean_ld_i and pclean_ld_f decode p[i].
+__device__ __forceinline__ uint64_t pclean_ld_bits(int64_t p, int sz) {
+  uint32_t v1 = 0, v2 = 0, v4 = 0;
+  uint64_t v8 = 0;
+  asm volatile(
+      "{\n\t"
+      ".reg .pred q1, q2, q4, q8;\n\t"
+      "setp.eq.s32 q1, %4, 1;\n\t"
+      "setp.eq.s32 q2, %4, 2;\n\t"
+      "setp.eq.s32 q4, %4, 4;\n\t"
+      "setp.eq.s32 q8, %4, 8;\n\t"
+      "@q1 ld.global.u8 %0, [%5];\n\t"
+      "@q2 ld.global.u16 %1, [%5];\n\t"
+      "@q4 ld.global.u32 %2, [%5];\n\t"
+      "@q8 ld.global.u64 %3, [%5];\n\t"
+      "}"
+      : "+r"(v1), "+r"(v2), "+r"(v4), "+l"(v8)
+      : "r"(sz), "l"(p));
+  return sz == 8 ? v8 : sz == 4 ? (uint64_t)v4
+                                : (sz == 2 ? (uint64_t)v2 : (uint64_t)v1);
+}
+
+// pclean_ld_bits' element of dtype dt as an integer (pclean_ld_i's
+// result: a float truncates toward zero).
+__device__ __forceinline__ int64_t pclean_bits_i(uint64_t v, int64_t dt) {
+  switch (dt) {
+    case PCLEAN_DT_I8:
+      return (int8_t)v;
+    case PCLEAN_DT_I16:
+      return (int16_t)v;
+    case PCLEAN_DT_I32:
+      return (int32_t)v;
+    case PCLEAN_DT_F32:
+      return (int64_t)__int_as_float((int)(uint32_t)v);
+    case PCLEAN_DT_F64:
+      return (int64_t)__longlong_as_double((long long)v);
+    default:   // bool, uint8 (zero-extended), int64
+      return (int64_t)v;
+  }
+}
+
+// ... and as a double (pclean_ld_f's result).
+__device__ __forceinline__ double pclean_bits_f(uint64_t v, int64_t dt) {
+  if (dt == PCLEAN_DT_F32) return __int_as_float((int)(uint32_t)v);
+  if (dt == PCLEAN_DT_F64) return __longlong_as_double((long long)v);
+  return (double)pclean_bits_i(v, dt);
+}
+
 // p[i] = v for an integer v (narrowed as a C cast; bool keeps v != 0).
 __device__ __forceinline__ void pclean_st_i(int64_t p, int64_t dt, int64_t i,
                                             int64_t v) {

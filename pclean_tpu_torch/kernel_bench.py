@@ -38,14 +38,18 @@ of five as one group launch or a launch a chain) and K20 at AB_K20's
 program) and AB_K20_GATHERS' (the hospital Record block's one-row level
 of 512 candidates and 11 gathers), K19 at AB_K19's (one row at every
 census count of pairs, beside torch.where at one pair, and the batched
-census shapes) and K10 at AB_K10's (the census classes of the six paths,
+census shapes), K10 at AB_K10's (the census classes of the six paths,
 both signs, on seeded states of small models of theirs, k10_ab_inputs),
-each checked against its plain version, K10 and K18-K20 also with their
-host microseconds a call back to back (host_us); with k10 or k19 the run
-also prints what a launch's parameter block costs by its size and by the
-lines read of it (param_block_ms, this checkout's probe);
-`--kernels k4,k5,k6,k7,k8,k9,k10,k18,k19,k20` (any of them) times only
-those, with no model to build but K10's small ones. With --paths it also
+K11 at one row of every class of the same models (k11_ab_inputs: each
+census shape, a class and its births) and K21 at AB_K21's shapes or,
+with --k21-shapes, at every census shape a chip_smoke.py run checked
+(k21_census_shapes), each checked against its plain version, K10, K11
+and K18-K21 also with their host microseconds a call back to back
+(host_us); with k10 or k19 the run also prints what a launch's parameter
+block costs by its size and by the lines read of it (param_block_ms,
+this checkout's probe); `--kernels k4,k5,k6,k7,k8,k9,k10,k11,k18,k19,
+k20,k21` (any of them) times only those, with no model to build but the
+small ones of K10 and K11. With --paths it also
 times each of K1's paths
 at each of those shapes and over an R x K grid in both modes (the last
 tree's kernels; PERF.md takes the plan's cut-overs from that
@@ -1805,6 +1809,16 @@ def k11_dep_loads(writes: list) -> int:
     return 1 if writes else 0
 
 
+def k11_schedule_rounds(writes: list) -> int:
+    """The rounds of dependent loads K11's launches make
+    (csrc/row_write.cu), reported beside k11_dep_loads: one a launch
+    (every group's slot and masks and every write's value side by side),
+    the launches one after another (ops.row_write_chunks)."""
+    from . import ops
+
+    return len(ops.row_write_chunks(len(writes))) if writes else 0
+
+
 def k11_bytes(writes: list) -> int:
     """K11's bytes: each write's slot, masks and value read once and its
     element written once."""
@@ -1888,19 +1902,23 @@ def time_k11(ops, eng, arenas, params, census: list, floor: float,
         fn = lambda: ops.row_write(*args)  # noqa: E731
         writes = ops.row_write_writes(car, s, env2, births, acc, False)
         nbytes, dep = k11_bytes(writes), k11_dep_loads(writes)
+        rounds = k11_schedule_rounds(writes)
         out.append(dict(
             shape=f"{cid} births {len(births)}", K=r["K"],
             launches=r["launches"], ms=cuda_ms(fn), device_ms=graph_ms(fn),
+            host_us=host_us(fn, 500),
             plain_ms=cuda_ms(lambda: ops.row_write_plain(*args)),
             library_ms=None, library_device_ms=None, bytes=nbytes,
             bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, dep_loads=dep,
-            dep_bound_ms=dep * lat, floor_ms=floor, writes=len(writes)))
+            dep_bound_ms=dep * lat, floor_ms=floor, writes=len(writes),
+            schedule_rounds=rounds))
         x = out[-1]
         print(f"row_write {x['shape']} ({x['launches']} launches, "
               f"{len(writes)} writes): kernel {x['ms']:.4f} ms (device "
-              f"{x['device_ms']:.4f} ms) plain {x['plain_ms']:.4f} ms bound "
-              f"{x['bound_ms']:.7f} ms (bytes), {dep} dependent loads "
-              f"{x['dep_bound_ms']:.4f} ms, floor {floor:.4f} ms",
+              f"{x['device_ms']:.4f} ms, host {x['host_us']:.1f} us a call) "
+              f"plain {x['plain_ms']:.4f} ms bound {x['bound_ms']:.7f} ms "
+              f"(bytes), {dep} dependent loads {x['dep_bound_ms']:.4f} ms "
+              f"({rounds} in the kernel's launches), floor {floor:.4f} ms",
               flush=True)
     return out
 
@@ -2658,8 +2676,24 @@ AB_K10 = (  # K10's census classes in the A/B: (label, workload, class,
                                                zips=50)),
     ("rents Obs", "rents", "Obs", dict(rows=1000, counties=100)),
 )
-AB_KINDS = ("k1-k3", "k4", "k5", "k6", "k7", "k8", "k9", "k10", "k12", "k13",
-            "k16", "k17", "k18", "k19", "k20", "k22")
+# K21's census shapes in the A/B without --k21-shapes: (label, fields, K)
+# as the wrapper records them (ops.CENSUS_FIELDS), scaled's Hospital level
+# over 4,096 rows with its leaves per row and shared, and its County's
+# [16, 128]
+_I64 = torch.int64
+AB_K21 = (
+    ("scaled Hospital [4096, 11264] rows", dict(
+        B=4096, full=(4096,), cap=11264, comp=False, per_row=True, sd=True,
+        counts=(_I64, _I64), ch="rows"), 11264),
+    ("scaled Hospital [4096, 11264] shared", dict(
+        B=4096, full=(4096,), cap=11264, comp=False, per_row=False, sd=True,
+        counts=(_I64, _I64), ch="rows"), 11264),
+    ("scaled County [16, 128]", dict(
+        B=16, full=(16,), cap=128, comp=False, per_row=True, sd=True,
+        counts=(_I64, _I64), ch="rows"), 128),
+)
+AB_KINDS = ("k1-k3", "k4", "k5", "k6", "k7", "k8", "k9", "k10", "k11", "k12",
+            "k13", "k16", "k17", "k18", "k19", "k20", "k21", "k22")
 
 
 def host_us(fn, n: int = 2000) -> float:
@@ -2809,7 +2843,7 @@ def dirichlet_library(descs):
         len(alphas)
 
 
-def ab_seeded(dev, kinds) -> dict:
+def ab_seeded(dev, kinds, k21_shapes=None) -> dict:
     """The A/B's seeded K4-K8 inputs, {label: (kernel, inputs)}: K7 at
     AB_K7 (k7_seeded, one hop, as scaled's, rents' and hospital's hoisted
     histograms; per row at scaled's density of about 12 referrers a row;
@@ -2818,14 +2852,22 @@ def ab_seeded(dev, kinds) -> dict:
     from the env coordinates and the kernel alone, k5_ab_call), K6 at
     AB_K6 (k6_inputs; the dense shape with about 24 referrers a slot, as
     flights' 100 flights over 2,376 rows), K8 at AB_K8 (k8_seeded) and K9
-    at AB_K9 (k9_inputs, resample with the retained particle)."""
+    at AB_K9 (k9_inputs, resample with the retained particle); K11 at
+    every class of AB_K10's models (k11_ab_inputs), K21 at `k21_shapes`
+    (k21_census_shapes) or AB_K21."""
     out = {}
     if "k19" in kinds:
         for label, B, pairs in AB_K19:
             out["K19 " + label] = ("branch_select", k19_inputs(
                 dev, dict(B=B, pairs=pairs), len(pairs)))
+    models = ab_models(dev) if {"k10", "k11"} & set(kinds) else {}
     if "k10" in kinds:
-        out.update(k10_ab_inputs(dev))
+        out.update(k10_ab_inputs(models))
+    if "k11" in kinds:
+        out.update(k11_ab_inputs(models))
+    if "k21" in kinds:
+        for label, f, K in k21_shapes or AB_K21:
+            out["K21 " + label] = ("py_prior", k21_inputs(dev, f, K))
     for kind, kernel, shapes in (("k16", "fk_sample", AB_K16),
                                  ("k17", "choice_sample", AB_K17)):
         if kind in kinds:
@@ -2883,28 +2925,103 @@ def ab_seeded(dev, kinds) -> dict:
     return out
 
 
-def k10_ab_inputs(dev) -> dict:
-    """K10's A/B inputs, {label: ("row_delta", inputs)}: each AB_K10 class
-    on a seeded state (row_state) of its model, built by this checkout's
-    package, at its first live slot, sign +1 and -1."""
+def ab_models(dev) -> dict:
+    """{workload: (cm, engine, seeded arenas, params, refresh)} of every
+    AB_K10 model, built by this checkout's package: K10's and K11's A/B
+    inputs."""
     import importlib as il
 
+    from .engine.compile import init_state
     from .engine.refresh import refresh
     from .engine.smc import Engine
 
     out = {}
-    for label, wl, cid, kw in AB_K10:
+    for _label, wl, _cid, kw in AB_K10:
         cm, cfg = il.import_module(f"{__package__}.workloads.{wl}").setup(
             **kw, device=dev)[:2]
-        obs = Engine(cm, cfg, device=dev).obs_dev
+        eng = Engine(cm, cfg, device=dev)
         arenas = row_state(cm, 5, device=dev)
-        rel = refresh(cm, arenas, obs)
+        out[wl] = (cm, eng, arenas, init_state(cm, 0, device=dev)[1],
+                   refresh(cm, arenas, eng.obs_dev))
+    return out
+
+
+def k10_ab_inputs(models: dict) -> dict:
+    """K10's A/B inputs, {label: ("row_delta", inputs)}: each AB_K10 class
+    on its model's seeded state (ab_models), at its first live slot, sign
+    +1 and -1."""
+    out = {}
+    for label, wl, cid, _kw in AB_K10:
+        cm, eng, arenas, _p, rel = models[wl]
+        obs = eng.obs_dev
         slot = torch.nonzero(arenas[cid]["alive"])[:1].reshape(1)
         for sign in (1, -1):
             out[f"K10 {label} obs {sign:+d}"] = ("row_delta", dict(
                 cm=cm, cid=cid, arenas=arenas, rel=rel, obs=obs, slot=slot,
                 sign=sign))
     return out
+
+
+def k11_ab_inputs(models: dict) -> dict:
+    """K11's A/B inputs, {label: ("row_write", inputs)}: one row
+    (row_cases: a real proposal's structure, seeded values, births and
+    accept bit) of every class of each AB_K10 model, on its seeded state
+    (ab_models), labelled by the census shape (class, births)."""
+    out = {}
+    for wl, (cm, eng, arenas, params, rel) in models.items():
+        for cid in cm.model.class_order:
+            s, env2, births, acc = row_cases(eng, arenas, params, rel, cid,
+                                             1, seed=1)[0]
+            out[f"K11 {wl} {cid} births {len(births)}"] = ("row_write", dict(
+                cm=cm, cid=cid, arenas=arenas, slot=s, env2=env2,
+                births=births, accept=acc))
+    return out
+
+
+def k11_ab_call(ops, inp: dict):
+    """A call of the tree's K11 on a copy of inp's arenas (smc.own_carry),
+    checked bit-equal against the plain version on a CPU copy after one
+    call."""
+    from .engine.smc import own_carry
+
+    cm, cid = inp["cm"], inp["cid"]
+    a, _r = own_carry(cm, cid, inp["arenas"])
+    cpu = lambda t: t.cpu()  # noqa: E731
+    ac = _tree_map(a, cpu)
+    args = (inp["slot"], inp["env2"], inp["births"], inp["accept"])
+    car = ops.RowCarry(cm, cid, a)
+    ops.row_write(car, *args)
+    ops.row_write_plain(ops.RowCarry(cm, cid, ac), args[0].cpu(),
+                        _tree_map(args[1], cpu), _births_to(args[2], "cpu"),
+                        args[3].cpu())
+    torch.cuda.synchronize()
+    bad = [n for n, x, y in _leaves(a, ac, "arenas")
+           if not torch.equal(x.cpu(), y)]
+    require(not bad, f"K11 differs from its plain version at {cid}: {bad}")
+    return lambda: ops.row_write(car, *args)
+
+
+def k21_census_shapes(path: str) -> list:
+    """K21's census shapes from a chip_smoke.json (--out): every distinct
+    (mode, K) checked on a path (each holds >= 1% of that path's K21
+    launches), as (label with its launches by path, fields, K), the
+    fields' dtypes read back from their names."""
+    with open(path) as f:
+        rep = json.load(f)
+    rows = next(k["shapes"] for k in rep["kernels"]
+                if k["name"] == "py_prior")
+    shapes: dict = {}
+    for r in rows:
+        if "fields" not in r:
+            continue
+        f = dict(r["fields"])
+        f["full"] = tuple(f["full"])
+        f["counts"] = tuple(getattr(torch, str(d).split(".")[-1])
+                            for d in f["counts"])
+        sh = shapes.setdefault((r["shape"], r["K"]), dict(f=f, by={}))
+        sh["by"][r["path"]] = r["launches"]
+    return [(f"{mode} K={K} {sh['by']}", sh["f"], K)
+            for (mode, K), sh in shapes.items()]
 
 
 def k10_ab_call(ops, inp: dict, check: bool = True):
@@ -2962,10 +3079,17 @@ def time_ab_seeded(ops, kernel: str, inp: dict) -> dict:
                     library_ms=lib and cuda_ms(lib),
                     library_device_ms=lib and graph_ms(lib),
                     library_host_us=lib and host_us(lib))
-    if kernel == "row_delta":
-        call = k10_ab_call(ops, inp)
+    if kernel in ("row_delta", "row_write"):
+        call = (k10_ab_call if kernel == "row_delta" else k11_ab_call)(ops,
+                                                                       inp)
         return dict(ms=cuda_ms(call), device_ms=graph_ms(call),
                     host_us=host_us(call), library_ms=None,
+                    library_device_ms=None)
+    if kernel == "py_prior":
+        check_level(ops, inp)
+        call = lambda: _level_call(ops, inp)  # noqa: E731
+        return dict(ms=cuda_ms(call), device_ms=graph_ms(call),
+                    host_us=host_us(call, 500), library_ms=None,
                     library_device_ms=None)
     if kernel == "row_gather":
         call = k18_ab_call(ops, inp)
@@ -3111,6 +3235,10 @@ def main(argv=None) -> int:
                          "every draw geometry that takes each A/B shape, "
                          "with the last tree's kernels (draw_plan's "
                          "thresholds come from it)")
+    ap.add_argument("--k21-shapes", default=None,
+                    help="a chip_smoke.json (chip_smoke.py --out): time K21 "
+                         "at every census shape it checked, in place of "
+                         "AB_K21")
     ap.add_argument("--census", choices=("hospital",), default=None,
                     help="also time K7 and K8 (those in --kernels) at every "
                          "shape of the hospital path's launch census, on "
@@ -3158,7 +3286,8 @@ def main(argv=None) -> int:
                 * 1e3,
                 "inv_cdf_sample": k2_bytes(R, inp["logits"].shape[1])
                 / HBM_BYTES_PER_S * 1e3}
-    seeded = ab_seeded(dev, kinds)
+    seeded = ab_seeded(dev, kinds, a.k21_shapes and k21_census_shapes(
+        a.k21_shapes))
     seeded.update(hospital_census(kinds) if a.census else {})
     count_bytes = {"referrer_hist": k7_bytes, "gauss_suffstats": k4_bytes,
                    "gauss_ext_term": lambda inp: k5_bytes(inp["k5"]),
@@ -3178,7 +3307,12 @@ def main(argv=None) -> int:
                    "choice_sample": sample_bytes,
                    "branch_select": sample_bytes,
                    "row_delta": lambda inp: k10_bytes(own.row_delta_plan(
-                       inp["cm"], inp["cid"], "obs"))}
+                       inp["cm"], inp["cid"], "obs")),
+                   "row_write": lambda inp: k11_bytes(own.row_write_writes(
+                       own.RowCarry(inp["cm"], inp["cid"], inp["arenas"]),
+                       inp["slot"], inp["env2"], inp["births"],
+                       inp["accept"], False)),
+                   "py_prior": level_bytes}
     for s, (k, inp) in seeded.items():
         bounds[s] = {k: count_bytes[k](inp) / HBM_BYTES_PER_S * 1e3}
     turns = []
@@ -3797,10 +3931,12 @@ def k21_inputs(dev, f: dict, K: int, seed: int = 0) -> dict:
     K candidates: refcounts 0-5 and alive bits 0.7 over cap slots (per
     row where the shape's leaves are), totals and nrows from them in the
     census dtypes, compaction (the live slots of the first row first,
-    ascending, padded with cap; nc of them real), children [full, K] and
-    new_children [full] normal (10% NEG_INF), the Pitman-Yor strength and
-    discount device scalars or numbers as the shape took them.
-    dict(mode, args: ops.py_prior's arguments)."""
+    ascending, padded with cap; nc of them real), children normal (10%
+    NEG_INF) in the shape's form (f["ch"]: [full, K] varying over the
+    rows, [1.., K] one row's, or [1..] one value) and new_children [full]
+    normal, the Pitman-Yor strength and discount device scalars or
+    numbers as the shape took them. dict(mode, args: ops.py_prior's
+    arguments)."""
     rng = np.random.default_rng(seed)
     B, cap, full = f["B"], f["cap"], tuple(f["full"])
 
@@ -3818,7 +3954,11 @@ def k21_inputs(dev, f: dict, K: int, seed: int = 0) -> dict:
         idx = np.full(K, cap, np.int64)
         idx[:len(live)] = live
         comp = (t(idx, torch.int64), t(np.int64(len(live)), torch.int64))
-    ch = rng.normal(0.0, 2.0, full + (K,)).astype(np.float32)
+    form = f.get("ch", "rows")
+    ones = (1,) * len(full)
+    ch = rng.normal(0.0, 2.0, full + (K,) if form == "rows" else
+                    ones + (K,) if form == "shared" else ones + (1,))
+    ch = ch.astype(np.float32)
     ch[rng.random(ch.shape) < 0.1] = -1e30
     nch = rng.normal(0.0, 2.0, full).astype(np.float32)
     s, d = float(rng.uniform(0.5, 3.0)), float(rng.uniform(0.0, 0.6))

@@ -117,7 +117,8 @@ cluster, shared memory, grid) from a function of its shapes alone,
 entry points launch
 the plan they are given, so the plan the CPU tests check is the one
 launched. K10's and K11's plans (`row_delta_plan`, built once a class and
-cached on the model; K11's from a row's writes) travel by value as the
+cached on the model; K11's `row_write_plan` from a row's structure: a
+table of index groups and three words a write) travel by value as the
 kernel's argument, bound to the pointers of a loop segment's carry
 (`RowCarry`) once, so no table lives on the card. K14's and K15's words
 (pointers, dtypes, lengths; a thread a source or a (column, row) pair)
@@ -267,6 +268,7 @@ CENSUS_FIELDS = {"fk_score": {}, "choice_score": {}, "fk_sample": {},
                  "gamma_draw": {}, "py_resample": {}}
 SMEM_MAX = 232448  # shared memory one block may use on an H100 (227 KB)
 N_SMS = 132        # streaming multiprocessors of an H100 SXM
+_SMS: dict = {}
 _GRID_Y_MAX = 65535
 _lock = threading.Lock()
 _libs: dict = {}
@@ -490,6 +492,19 @@ def _stream(t: torch.Tensor):
 
 def _ptr(t):
     return ctypes.c_void_p(t.data_ptr()) if t is not None else None
+
+
+def sm_count(device: torch.device) -> int:
+    """The streaming multiprocessors of `device`'s card, read once a card;
+    N_SMS (an H100 SXM's) for a plan read off the card."""
+    if device.type != "cuda":
+        return N_SMS
+    i = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    n = _SMS.get(i)
+    if n is None:
+        n = _SMS[i] = torch.cuda.get_device_properties(i).multi_processor_count
+    return n
 
 
 def _need(t: torch.Tensor, dtype, name: str, dim: int):
@@ -1638,8 +1653,19 @@ def k10_words(tier: int) -> int:
 
 
 K10_WORDS = k10_words(0)
-K11_HEAD, K11_WRITE, K11_MAX_WRITES = 2 + 64, 12, 64
-K11_WORDS = K11_HEAD + K11_WRITE * K11_MAX_WRITES
+# the words of K11's plan (csrc/row_write.cu): a header (writes, groups),
+# the groups' slot, first mask and second mask pointers and packed words
+# (length << 12 | second mask's dtype << 8 | first mask's << 4 | slot's),
+# then the writes' destinations, sources (0 for True) and packed words
+# (next write into the same column + 1 << 16 | group << 8 | source's
+# dtype << 4 | destination's), each field an array of its own
+K11_MAX_WRITES = K11_MAX_GROUPS = 64
+K11_HEAD = 2
+K11_G_SLOT, K11_G_MA, K11_G_MB, K11_G_PK = (K11_HEAD + K11_MAX_GROUPS * i
+                                            for i in range(4))
+K11_W_DST, K11_W_SRC, K11_W_PK = (K11_HEAD + 4 * K11_MAX_GROUPS
+                                  + K11_MAX_WRITES * i for i in range(3))
+K11_WORDS = K11_W_PK + K11_MAX_WRITES
 # bytes of kernel parameters a launch may pass on Hopper with CUDA >= 12.1
 PARAM_MAX = 32764
 # the largest block with the slot, sign and save / old pointers
@@ -1661,8 +1687,8 @@ class RowCarry:
         self.arenas, self.rel, self.obs = arenas, rel, obs
         self.hops = list(hops or ())
         self.k10 = {}   # (mode, hop) -> the plan's bound words
-        self.k11 = {}   # a row's structure -> [(first write, (bound
-        #                 words, write order))], one entry a launch
+        self.k11 = {}   # a row's structure -> its bound plan
+        #                 (row_write_plan)
 
 
 def _leaf(g, car: RowCarry):
@@ -1999,21 +2025,38 @@ def row_write_plain(car: RowCarry, slot, env2: dict, births, accept=None,
             o["alive"].copy_(a["alive"])
 
 
+def row_write_order(car: RowCarry, env2: dict, births,
+                    mark_alive: bool) -> list:
+    """apply_row's writes in its order, the one place that order is kept:
+    (index group, destination column, source vertex or None for True),
+    group 0 the row's values, 1 its alive bit, 2 + i birth i's values
+    (row_write_groups)."""
+    cid = car.cid
+    vals = car.arenas[cid]["values"]
+    out = [(0, vals[v], v) for v in car.cm.layouts[cid].store if v in env2]
+    if mark_alive:
+        out.append((1, car.arenas[cid]["alive"], None))
+    for i, b in enumerate(births):
+        bvals = car.arenas[b.target_class]["values"]
+        out += [(2 + i, bvals[tv], tv) for tv in b.values if tv in bvals]
+    return out
+
+
+def row_write_groups(slot, env2: dict, births, accept) -> tuple:
+    """row_write_order's groups' (slot, mask or None, second mask or None)
+    and the maps their source vertices are read from."""
+    idx = [(slot, accept, None), (slot, None, None)] + [
+        (b.slot, accept, b.is_new) for b in births]
+    return idx, [env2, None] + [b.values for b in births]
+
+
 def row_write_writes(car: RowCarry, slot, env2: dict, births, accept,
                      mark_alive: bool) -> list:
     """apply_row's writes in its order: (destination column, value or None
     for True, slot, mask or None, second mask or None)."""
-    lay = car.cm.layouts[car.cid]
-    vals = car.arenas[car.cid]["values"]
-    out = [(vals[v], env2[v], slot, accept, None) for v in lay.store
-           if v in env2]
-    if mark_alive:
-        out.append((car.arenas[car.cid]["alive"], None, slot, None, None))
-    for b in births:
-        bvals = car.arenas[b.target_class]["values"]
-        out += [(bvals[tv], val, b.slot, accept, b.is_new)
-                for tv, val in b.values.items() if tv in bvals]
-    return out
+    idx, src = row_write_groups(slot, env2, births, accept)
+    return [(dst, None if v is None else src[g][v]) + idx[g]
+            for g, dst, v in row_write_order(car, env2, births, mark_alive)]
 
 
 def row_write_chunks(n: int) -> list:
@@ -2026,70 +2069,107 @@ def row_write_chunks(n: int) -> list:
             for i in range(0, max(n, 1), K11_MAX_WRITES)]
 
 
-def _k11_words(writes: list):
-    """K11's words for a row's writes (at most K11_MAX_WRITES), as a
-    ctypes array, with the write order (one lane a destination column,
-    each lane's writes together, in order): the destination columns
-    bound, each write's value, slot and mask pointers left for row_write
-    to set."""
-    if len(writes) > K11_MAX_WRITES:
-        raise ValueError(f"row_write: {len(writes)} writes (at most "
-                         f"{K11_MAX_WRITES} a launch)")
-    lanes: dict = {}
-    lane = [lanes.setdefault(w[0].data_ptr(), len(lanes)) % 32
-            for w in writes]
-    order = sorted(range(len(writes)), key=lane.__getitem__)
-    words = [len(writes), 0] + [0] * 64
-    for j, i in enumerate(order):
-        words[3 + 2 * lane[i]] += 1
-        if words[3 + 2 * lane[i]] == 1:
-            words[2 + 2 * lane[i]] = j
-    for i in order:
-        dst = writes[i][0]
-        if not dst.is_cuda or dst.dim() != 1 or not dst.is_contiguous() or \
-                dst.dtype not in _DT:
+def row_write_plan(car: RowCarry, env2: dict, births, mark_alive: bool,
+                   card: bool = True) -> dict:
+    """K11's plan for a row of this structure (env2's vertices, the births'
+    classes and vertices, mark_alive), bound to the carry's columns:
+    row_write_order's writes, each in its index group (a launch group a
+    group and column length), cut into row_write_chunks' launches. Each
+    launch's words hold the destinations, each write's group, destination
+    dtype and link to the next write of the launch into the same column;
+    the groups' (launch group, group, length word), the writes' packed
+    words and their (group, source vertex) stay beside them for
+    row_write_fill. With `card`, columns off the card raise."""
+    order = row_write_order(car, env2, births, mark_alive)
+    dsts = [(g, dst) for g, dst, _v in order]
+    for _g, dst in dsts:
+        if (card and not dst.is_cuda) or dst.dim() != 1 or \
+                not dst.is_contiguous() or dst.dtype not in _DT:
             raise ValueError(f"row_write: column {dst.dtype} "
                              f"{tuple(dst.shape)} on {dst.device}")
-        words += [lane[i], dst.data_ptr(), _DT[dst.dtype], dst.numel()] + \
-            [0] * 8
-    return (ctypes.c_int64 * len(words))(*words), order
+    chunks = []
+    for lo, hi in row_write_chunks(len(dsts)):
+        part = dsts[lo:hi]
+        groups: dict = {}
+        for g, dst in part:
+            groups.setdefault((g, dst.numel()), len(groups))
+        words = (ctypes.c_int64 * K11_WORDS)()
+        words[0], words[1] = len(part), len(groups)
+        pks, later = [0] * len(part), {}
+        for j in range(len(part) - 1, -1, -1):
+            g, dst = part[j]
+            p = dst.data_ptr()
+            words[K11_W_DST + j] = p
+            pks[j] = later.get(p, 0) << 16 | \
+                groups[(g, dst.numel())] << 8 | _DT[dst.dtype]
+            later[p] = j + 1
+        chunks.append(dict(lo=lo, words=words, pk=pks, groups=[
+            (j, g, n << 12) for (g, n), j in groups.items()]))
+    return dict(src=[(g, v) for g, _dst, v in order], chunks=chunks)
+
+
+def _k11_in(t, name: str, card: bool) -> tuple:
+    """(pointer, dtype code) of a one-element input of K11, (0, 0) for
+    None."""
+    if t is None:
+        return 0, 0
+    if card:
+        _need_index(t, f"row_write {name}")
+    elif t.numel() != 1 or t.dtype not in _DT:
+        raise ValueError(f"row_write {name}: {t.dtype} {tuple(t.shape)}")
+    return t.data_ptr(), _DT[t.dtype]
+
+
+def row_write_fill(plan: dict, slot, env2: dict, births, accept,
+                   card: bool = True) -> list:
+    """A row's value, slot and mask pointers and their dtypes written into
+    row_write_plan's words (`accept` a one-element tensor or None for
+    True); returns each launch's words, in order."""
+    gin, vals = row_write_groups(slot, env2, births, accept)
+    srcs = [None if v is None else vals[g][v] for g, v in plan["src"]]
+    out = []
+    for c in plan["chunks"]:
+        words, lo = c["words"], c["lo"]
+        for j, g, lw in c["groups"]:
+            s, ma, mb = gin[g]
+            ps, ds = _k11_in(s, "slot", card)
+            pa, da = _k11_in(ma, "mask", card)
+            pb, db = _k11_in(mb, "mask", card)
+            words[K11_G_SLOT + j] = ps
+            words[K11_G_MA + j], words[K11_G_MB + j] = pa, pb
+            words[K11_G_PK + j] = lw | db << 8 | da << 4 | ds
+        for j, pk in enumerate(c["pk"]):
+            p, d = _k11_in(srcs[lo + j], "value", card)
+            words[K11_W_SRC + j], words[K11_W_PK + j] = p, pk | d << 4
+        out.append(words)
+    return out
 
 
 def row_write(car: RowCarry, slot, env2: dict, births, accept=None,
               mark_alive: bool = False) -> None:
     """K11: row_write_plain's writes in place, every index and mask read
     on the card, in one launch a row_write_chunks range (one for a row of
-    up to K11_MAX_WRITES writes). The words of a row of one structure (its
-    value vertices, births, mask) are bound to the carry's columns once;
-    each row sets only its values', slots' and masks' pointers. On CPU
-    tensors the plain version; on CUDA ones the kernel or an error.
-    Counted in LAUNCH_CENSUS by (class, r1, births), once a launch."""
+    up to K11_MAX_WRITES writes). The plan of a row of one structure (its
+    value vertices, births, mask) is bound to the carry's columns once
+    (row_write_plan); each row sets only its groups' slot and mask
+    pointers and its values' (row_write_fill). On CPU tensors the plain
+    version; on CUDA ones the kernel or an error. Counted in LAUNCH_CENSUS
+    by (class, r1, births), once a launch."""
     if not _route(slot, "row_write"):
         return row_write_plain(car, slot, env2, births, accept, mark_alive)
     if isinstance(accept, bool):
         accept = None if accept else torch.zeros((1,), dtype=torch.bool,
                                                  device=slot.device)
-    writes = row_write_writes(car, slot, env2, births, accept, mark_alive)
     key = (bool(mark_alive), accept is None, tuple(env2),
            tuple((b.target_class, tuple(b.values)) for b in births))
-    bound = car.k11.get(key)
-    if bound is None:
-        bound = car.k11[key] = [
-            (lo, _k11_words(writes[lo:hi]))
-            for lo, hi in row_write_chunks(len(writes))]
-    if len(bound) > 1:
+    plan = car.k11.get(key)
+    if plan is None:
+        plan = car.k11[key] = row_write_plan(car, env2, births, mark_alive)
+    launches = row_write_fill(plan, slot, env2, births, accept)
+    if len(launches) > 1:
         _split("row_write")
-    for lo, (arr, order) in bound:
-        w = K11_HEAD + 4
-        for i in order:
-            for t, name in zip(writes[lo + i][1:],
-                               ("value", "slot", "mask", "mask")):
-                if t is not None:
-                    _need_index(t, f"row_write {name}")
-                    arr[w], arr[w + 1] = t.data_ptr(), _DT[t.dtype]
-                w += 2
-            w += K11_WRITE - 8
-        rc = _fn("row_write")(arr, len(arr), _stream(slot))
+    for words in launches:
+        rc = _fn("row_write")(words, K11_WORDS, _stream(slot))
         _check(rc, "row_write")
         _count("row_write", 1, len(births), car.cid)
 
@@ -3889,6 +3969,15 @@ K12_WORDS = PARAM_MAX // 8
 K13_WORDS = K13_HEAD + K20_WORDS
 assert 8 * K20_WORDS <= PARAM_MAX
 K21_WORDS = 64
+# K21's plan (csrc/py_prior.cu): the vector word (K21_ROUTE: which loads
+# and stores move as 16-byte vectors: refcount and alive at slot k with no
+# compaction, the children contiguous along k, exist's rows, idx), the row
+# kernel's threads a row (K21_ROW_LOG: log2, at most the block's
+# K21_THREADS) and the kernel (K21_UNIT: the candidates a thread takes at
+# a time, 4 in the row kernel, 1 in the flat one)
+K21_ROUTE, K21_ROW_LOG, K21_UNIT = 50, 51, 52
+K21_LEAF_VEC, K21_CH_VEC, K21_EXIST_VEC, K21_IDX_VEC = 1, 2, 4, 8
+K21_THREADS = 256
 
 
 def level_dense(x) -> dict:
@@ -4552,8 +4641,13 @@ def py_prior_words(refcount, alive, total, nrows, strength, discount,
                    comp, children, new_children, full, exist, new,
                    card: bool = True) -> list:
     """K21's plan (csrc/py_prior.cu's word indices) for writing exist
-    [R, K] and new [R] (contiguous float32); refuses what the kernel does
-    not take, and, with `card`, tensors off the card."""
+    [R, K] and new [R] (contiguous float32), with its vector route
+    (K21_ROUTE: which loads and stores the addresses let move as 16-byte
+    vectors), its kernel (K21_UNIT: 4, the row kernel, where that gives
+    each of exist's card's SMs a block of K21_THREADS, else 1, the flat
+    one: a short call waits on one thread's chain of loads and logs) and
+    the row kernel's threads a row (K21_ROW_LOG); refuses what the kernel
+    does not take, and, with `card`, tensors off the card."""
     def on(t):
         return t.is_cuda or not card
 
@@ -4620,6 +4714,9 @@ def py_prior_words(refcount, alive, total, nrows, strength, discount,
             raise ValueError("py_prior: the outputs must be contiguous "
                              "float32 [R, K] and [R]")
     nd = len(full)
+    if R >= 1 << 31 or max(full) >= 1 << 32:
+        raise ValueError(f"py_prior: {R} rows over {full} (the kernel "
+                         f"takes fewer than 2^31 rows, axes below 2^32)")
     words[18:24] = [children.data_ptr(), new_children.data_ptr(),
                     exist.data_ptr(), new.data_ptr(), R, K]
     words[24] = nd
@@ -4627,22 +4724,46 @@ def py_prior_words(refcount, alive, total, nrows, strength, discount,
     words[33:33 + nd] = list(chs)[:nd]
     words[41] = chs[nd]
     words[42:42 + nd] = list(ncs)[:nd]
+    # the route: a vector where every row's address along k is 16-byte
+    # aligned (4-byte for alive's four bytes)
+    route = 0
+    if comp is None and refcount.data_ptr() % 16 == 0 and \
+            alive.data_ptr() % 4 == 0 and words[2] % 4 == 0:
+        route |= K21_LEAF_VEC
+    if chs[nd] == 1 and children.data_ptr() % 16 == 0 and all(
+            st % 4 == 0 for n, st in zip(full, chs) if n > 1):
+        route |= K21_CH_VEC
+    if K % 4 == 0 and exist.data_ptr() % 16 == 0:
+        route |= K21_EXIST_VEC
+    if comp is not None and comp[0].dtype in (torch.int32, torch.int64) \
+            and comp[0].data_ptr() % 16 == 0:
+        route |= K21_IDX_VEC
+    # the kernel by the call's size; the row kernel's threads a row:
+    # enough for its units of four, up to the block
+    spread = sm_count(exist.device) * K21_THREADS
+    words[K21_ROUTE] = route
+    words[K21_UNIT] = 4 if R * -(-K // 4) >= spread else 1
+    words[K21_ROW_LOG] = min(K21_THREADS.bit_length() - 1,
+                             (-(-K // 4) - 1).bit_length())
     return words
 
 
 def py_prior(refcount, alive, total, nrows, strength, discount, comp,
              children, new_children, full, cls=None):
-    """K21: py_prior_plain in one launch, a thread an entry of K1's two
-    inputs: refcount int32 and alive bool [cap] or [B or 1, cap]
-    (contiguous), total and nrows one element or [B] (int32, int64 or
-    float32), strength and discount device float32 scalars or numbers,
-    comp None or (idx int [Kc] contiguous, nc an int scalar on the card),
-    children [.., K] and new_children [..] float32 read in place with
-    their broadcast strides over `full` (<= 8 axes, the batch axis
-    first). Returns (exist [R, K], new [R]) float32 in torch.empty
+    """K21: py_prior_plain in one launch (py_prior_words' kernel: a row a
+    group of threads four candidates at a time, or a thread an entry),
+    into K1's two inputs: refcount int32 and alive
+    bool [cap] or [B or 1, cap] (contiguous), total and nrows one element
+    or [B] (int32, int64 or float32), strength and discount device float32
+    scalars or numbers, comp None or (idx int [Kc] contiguous, nc an int
+    scalar on the card), children [.., K] and new_children [..] float32
+    read in place with their broadcast strides over `full` (<= 8 axes, the
+    batch axis first). Returns (exist [R, K], new [R]) float32 in torch.empty
     buffers. On CPU tensors the plain version; on CUDA ones the kernel or
     an error. Counted in LAUNCH_CENSUS by ("cls full=.. cap=..[ comp][
-    rows]", r1 or rn, K); its fields in CENSUS_FIELDS."""
+    rows][ ch=shared or bcast]", r1 or rn, K): the children vary over the
+    rows unless ch= says they are one row's (shared) or one value
+    (bcast); its fields in CENSUS_FIELDS."""
     if not _route(children, "py_prior"):
         return py_prior_plain(refcount, alive, total, nrows, strength,
                               discount, comp, children, new_children, full)
@@ -4658,13 +4779,16 @@ def py_prior(refcount, alive, total, nrows, strength, discount, comp,
     rc = _fn("py_prior")(arr, K21_WORDS, _stream(children))
     _check(rc, "py_prior")
     B, cap, per_row = full[0], int(refcount.shape[-1]), words[2] != 0
+    ch = "bcast" if words[41] == 0 else (
+        "rows" if any(words[33:33 + len(full)]) else "shared")
     mode = (f"{cls} full={'x'.join(map(str, full))} cap={cap}"
             f"{' comp' if comp is not None else ''}"
-            f"{' rows' if per_row else ''}")
+            f"{' rows' if per_row else ''}"
+            f"{'' if ch == 'rows' else ' ch=' + ch}")
     _count("py_prior", B, K, mode,
            dict(B=B, full=full, cap=cap, comp=comp is not None,
                 per_row=per_row, sd=torch.is_tensor(strength),
-                counts=(total.dtype, nrows.dtype)))
+                counts=(total.dtype, nrows.dtype), ch=ch))
     return exist, new
 
 

@@ -1604,12 +1604,88 @@ def _kinds(cm):
     return out
 
 
+_K11_DTYPES = (torch.bool, torch.uint8, torch.int8, torch.int16,
+               torch.int32, torch.int64, torch.float32, torch.float64)
+
+
+def _k11_edges(eng, arenas, card, seed: int = 0) -> int:
+    """K11 on a copy of each class's carry (with fks), the plain version
+    on a CPU copy, bit-equal, over rows of mixed dtypes: the row's every
+    stored value and two births a fk, both of one class at one slot
+    (-1 to the capacity, int32 or int64, is_new drawn), so a row writes
+    more columns than a warp has lanes; sources of every dtype into int32
+    and float32 columns, the alive bit marked on every third row, under
+    torch.cuda.set_sync_debug_mode("error"). Returns the most writes a
+    row made."""
+    from pclean_tpu_torch.engine.propose import Birth
+    from pclean_tpu_torch.engine.smc import own_carry
+    from pclean_tpu_torch.kernel_bench import _leaves, _tree_map
+
+    cm = eng.cm
+    rng = np.random.default_rng(seed)
+    cpu = lambda t: t.cpu()  # noqa: E731
+
+    def val(hi):
+        dt = _K11_DTYPES[int(rng.integers(len(_K11_DTYPES)))]
+        x = torch.tensor([int(rng.integers(0, hi))])
+        return (x * 1.37 if dt.is_floating_point else x).to(dt)
+
+    most = 0
+    for cid in cm.model.class_order:
+        lay = cm.layouts[cid]
+        if not lay.fk_vertices:
+            continue
+        a, _r = own_carry(cm, cid, arenas)
+        ac = _tree_map(a, cpu)
+        car, car_c = ops.RowCarry(cm, cid, a), ops.RowCarry(cm, cid, ac)
+        cap = lay.capacity
+        rows = []
+        for r in range(12):
+            env2 = {v: val(6) for v in lay.store}
+            births = []
+            for fkv in lay.fk_vertices:
+                tc = cm.node(cid, fkv).target_class
+                tcap = cm.layouts[tc].capacity
+                bs = int(rng.integers(-1, tcap + 1))
+                sdt = torch.int32 if rng.random() < 0.5 else torch.int64
+                births += [Birth(fkv, tc, torch.tensor([rng.random() < 0.7]),
+                                 torch.tensor([bs], dtype=sdt),
+                                 {tv: val(4) for tv in cm.layouts[tc].store})
+                           for _ in range(2)]
+            slot = [int(rng.integers(0, cap)), -1, cap, cap - 1][r % 4]
+            rows.append((torch.tensor([slot]), env2, births,
+                         torch.tensor([rng.random() < 0.8]), r % 3 == 0))
+        for s, env2, births, acc, ma in rows:
+            most = max(most, len(ops.row_write_writes(car_c, s, env2, births,
+                                                      acc, ma)))
+        dev = [(s.to(card), _tree_map(env2, lambda t: t.to(card)),
+                [Birth(b.fk_vid, b.target_class, b.is_new.to(card),
+                       b.slot.to(card), _tree_map(b.values,
+                                                  lambda t: t.to(card)))
+                 for b in births], acc.to(card), ma)
+               for s, env2, births, acc, ma in rows]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for s, env2, births, acc, ma in dev:
+                ops.row_write(car, s, env2, births, acc, ma)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        for s, env2, births, acc, ma in rows:
+            ops.row_write(car_c, s, env2, births, acc, ma)
+        for name, x, y in _leaves(a, ac, "arenas"):
+            assert torch.equal(x.cpu(), y), f"{cid}: {name}"
+    return most
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("which", ["hospital", "flights", "chain"])
 def test_k10_k11_cuda_match_plain(card, which):
     """K10 and K11 on a copy of each class's carry, the plain versions on
     a CPU copy (kernel_bench.shadow_rows: 64 rows of every kind, live and
-    dead slots, fks out of range, births at slot -1), bit-equal."""
+    dead slots, fks out of range, births at slot -1), bit-equal; then
+    K11's edges (_k11_edges: two births of one class at one slot, mixed
+    dtypes, hospital's rows past a warp's lanes)."""
     from pclean_tpu_torch.kernel_bench import shadow_rows
 
     eng, arenas, params = _row_model(which, card)
@@ -1619,6 +1695,8 @@ def test_k10_k11_cuda_match_plain(card, which):
     if which == "chain":
         h = shadow_rows(ops, eng, arenas, params, "Hospital", "latent", n=64)
         assert h["hop_entries"] > 0 and h["mismatches"] == [], h
+    most = _k11_edges(eng, arenas, card, seed=4)
+    assert which != "hospital" or most > 32
 
 
 @pytest.mark.cuda
@@ -1658,7 +1736,8 @@ def test_k10_k11_cuda_edges_and_no_host_sync(card):
     capacity, on the chain model (hop entries) and the flights model
     (propagated chains), every K10 mode and K11, under
     torch.cuda.set_sync_debug_mode("error"): bit-equal to the plain
-    versions on a CPU copy, and no call waits for the card."""
+    versions on a CPU copy, and no call waits for the card; then K11's
+    edges on the hospital model (_k11_edges), rows past a warp's lanes."""
     from pclean_tpu_torch.engine.propose import Birth
     from pclean_tpu_torch.engine.refresh import hop_histograms, refresh
     from pclean_tpu_torch.engine.smc import own_carry
@@ -1720,3 +1799,7 @@ def test_k10_k11_cuda_edges_and_no_host_sync(card):
             for name, x, y in _leaves(a, ac, "arenas") + _leaves(r, rc_,
                                                                  "rel"):
                 assert torch.equal(x.cpu(), y), f"{which} {cid}: {name}"
+    # K11 past a warp's lanes, two births of one class at one slot, mixed
+    # dtypes, with no call waiting for the card
+    eng, arenas, _p = _row_model("hospital", card)
+    assert _k11_edges(eng, arenas, card, seed=6) > 32

@@ -491,12 +491,14 @@ def test_k20_plan_refuses_what_the_kernel_does_not_take():
 
 
 def _prior_inputs(seed, B, cap, full, comp=None, per_row=False, py=True,
-                  bcast=False):
+                  bcast=False, ch_k=False, idx32=False, unaligned=False):
     """numpy-seeded K21 inputs: refcounts 0-5, 30% dead; per-row leaves
     [B, cap] with totals and nrows [B], else [cap] and scalars; comp: Kc
-    candidates (live slots first, ascending, padded with cap), nc of them
-    real; children [full..., K] (or broadcast over the rows) and
-    new_children [full...]."""
+    candidates (live slots first, ascending, padded with cap; int32 with
+    idx32), nc of them real; children [full..., K] (broadcast over the
+    rows with bcast, over the candidates with ch_k) and new_children
+    [full...]; `unaligned`: _prior_torch puts refcount, alive and the
+    children 4 bytes (alive 1) past a 16-byte boundary."""
     rng = np.random.default_rng(seed)
     lead = (B,) if per_row else ()
     refc = rng.integers(0, 6, lead + (cap,)).astype(np.int32)
@@ -510,26 +512,38 @@ def _prior_inputs(seed, B, cap, full, comp=None, per_row=False, py=True,
         live = np.flatnonzero((refc.reshape(-1, cap)[0] > 0)
                               & alive.reshape(-1, cap)[0])
         n = min(len(live), K - 2)
-        idx = np.full(K, cap, np.int64)
+        idx = np.full(K, cap, np.int32 if idx32 else np.int64)
         idx[:n] = live[:n]
         nc = np.int64(n)
-    ch_shape = ((1,) * len(full) + (K,)) if bcast else tuple(full) + (K,)
+    ch_shape = ((1,) * len(full) if bcast else tuple(full)) + \
+        ((1,) if ch_k else (K,))
     ch = rng.normal(0.0, 2.0, ch_shape).astype(np.float32)
     ch[rng.random(ch_shape) < 0.1] = NINF
     nch = rng.normal(0.0, 2.0, tuple(full)).astype(np.float32)
     s, d = np.float32(rng.uniform(0.5, 3.0)), np.float32(rng.uniform(0, 0.6))
     return dict(refcount=refc, alive=alive, total=total, nrows=nrows,
                 idx=idx, nc=nc, children=ch, new_children=nch,
-                full=tuple(full), strength=s, discount=d, py=py)
+                full=tuple(full), strength=s, discount=d, py=py,
+                unaligned=unaligned)
 
 
 def _prior_torch(inp, dev="cpu"):
     t = lambda x: torch.as_tensor(np.asarray(x), device=dev)  # noqa: E731
+
+    def off(x):   # a contiguous copy one element past a 16-byte boundary
+        x = t(x)
+        if not inp["unaligned"]:
+            return x
+        buf = torch.empty(x.numel() + 16 // x.element_size(),
+                          dtype=x.dtype, device=dev)
+        base = (-buf.data_ptr() % 16) // x.element_size() + 1
+        return buf[base:base + x.numel()].view(x.shape).copy_(x)
+
     s, d = (t(inp["strength"]), t(inp["discount"])) if inp["py"] else \
         (float(inp["strength"]), float(inp["discount"]))
     comp = None if inp["idx"] is None else (t(inp["idx"]), t(inp["nc"]))
-    return (t(inp["refcount"]), t(inp["alive"]), t(inp["total"]),
-            t(inp["nrows"]), s, d, comp, t(inp["children"]),
+    return (off(inp["refcount"]), off(inp["alive"]), t(inp["total"]),
+            t(inp["nrows"]), s, d, comp, off(inp["children"]),
             t(inp["new_children"]), inp["full"])
 
 
@@ -579,6 +593,15 @@ PRIOR_CASES = {
     "broadcast children": dict(B=5, cap=20, full=(5, 3), bcast=True),
     "no __py__": dict(B=2, cap=30, full=(2,), py=False, comp=12),
     "one row comp": dict(B=1, cap=64, full=(1,), comp=16),
+    # the route's edges: every vector (K a multiple of 4, aligned); a tail
+    # of 1-3 candidates; children one value a row (stride 0 along k);
+    # leaves and children off a 16-byte boundary; a compaction of int32
+    # indices with a tail
+    "vectors": dict(B=3, cap=64, full=(3, 2), per_row=True),
+    "tail": dict(B=2, cap=39, full=(2, 3), per_row=True),
+    "children along k": dict(B=3, cap=24, full=(3, 2), ch_k=True),
+    "unaligned": dict(B=3, cap=48, full=(3,), per_row=True, unaligned=True),
+    "comp int32 tail": dict(B=3, cap=40, full=(3,), comp=22, idx32=True),
 }
 
 
@@ -597,10 +620,31 @@ def test_py_prior_plain_matches_jax_py_logprobs(case):
 
 
 def _read_k21(words):
-    """csrc/py_prior.cu's kernel, written out in Python over the plan."""
+    """csrc/py_prior.cu's kernels, written out in Python over the plan: in
+    the row kernel (words[K21_UNIT] 4) a row a group of
+    2^words[K21_ROW_LOG] threads (at most the block), the row's terms
+    once, then each thread's units of four candidates, each load and
+    store a vector where the route's word says (its address asserted
+    16-byte aligned, alive's four bytes 4-byte aligned), element by
+    element elsewhere and in a row's last unit of fewer than four; in the
+    flat kernel (1) an entry at a time."""
     R, K, nd = words[22], words[23], words[24]
     sizes = words[25:25 + nd]
     chs, chk, ncs = words[33:33 + nd], words[41], words[42:42 + nd]
+    route, tpr = words[ops.K21_ROUTE], 1 << words[ops.K21_ROW_LOG]
+    V = words[ops.K21_UNIT]
+    assert tpr <= ops.K21_THREADS and (tpr >= -(-K // 4) or
+                                       tpr == ops.K21_THREADS)
+    assert V == 4 or (V == 1 and R * (K + 1) < 1 << 31)
+    if V == 1:   # the flat kernel: the row's entries one by one
+        tpr = 1
+    idx, idt = words[14], words[15]
+    if route & ops.K21_LEAF_VEC:
+        assert not idx
+    isz = {4: 4, 5: 8}.get(idt, 0)
+
+    def vec(ptr, align=16):
+        assert ptr % align == 0, (ptr, align)
 
     def scalar(ptr, bits):
         if ptr:
@@ -621,38 +665,124 @@ def _read_k21(words):
         nv = f(_ld(words[7], words[8], b * words[9]))
         new[r] = f(f(np.log(f(f(d * nv) + s)) - logden)
                    + _ld(words[19], 6, onch))
-        for k in range(K):
-            slot, ok = k, True
-            if words[14]:
-                ok = k < _ld(words[16], words[17], 0)
-                slot = min(max(_ld(words[14], words[15], k), 0),
-                           words[3] - 1)
-            prior = f(NINF)
-            if ok:
-                at = b * words[2] + slot
-                cnt = _ld(words[0], 4, at)
-                if _ld(words[1], 0, at) and cnt > 0:
-                    prior = f(np.log(max(f(f(cnt) - d), f(1e-30))) - logden)
-            exist[r, k] = f(prior + _ld(words[18], 6, och + k * chk))
+        at0 = b * words[2]
+        nc = _ld(words[16], words[17], 0) if idx else K
+        for t in range(tpr):
+            for u in range(t, -(-K // V), tpr):
+                k0 = V * u
+                ks = range(k0, min(K, k0 + V))
+                full = len(ks) == 4
+                if idx and full and route & ops.K21_IDX_VEC:
+                    vec(idx + isz * k0)
+                if not idx:
+                    slots = list(ks)
+                else:
+                    # min(idx, cap - 1), then take()'s clamp at 0
+                    slots = [max(min(_ld(idx, idt, k), words[3] - 1), 0)
+                             for k in ks]
+                if full and route & ops.K21_LEAF_VEC:
+                    vec(words[0] + 4 * (at0 + k0))
+                    vec(words[1] + at0 + k0, 4)
+                if full and route & ops.K21_CH_VEC:
+                    assert chk == 1
+                    vec(words[18] + 4 * (och + k0))
+                if full and route & ops.K21_EXIST_VEC:
+                    vec(words[20] + 4 * (r * K + k0))
+                for k, slot in zip(ks, slots):
+                    prior = f(NINF)
+                    cnt = _ld(words[0], 4, at0 + slot)
+                    if k < nc and _ld(words[1], 0, at0 + slot) and cnt > 0:
+                        prior = f(np.log(max(f(f(cnt) - d), f(1e-30)))
+                                  - logden)
+                    exist[r, k] = f(prior + _ld(words[18], 6,
+                                                och + k * chk))
     return exist, new
 
 
-@pytest.mark.parametrize("case", list(PRIOR_CASES))
-def test_k21_plan_read_as_the_kernel_reads_it(case):
-    """The plan's layout: the Python reading of csrc/py_prior.cu over the
-    words against the plain version (numpy's log against torch's: rtol
-    1e-6; NEG_INF entries exactly)."""
+def _k21_plan_read(case, unit=None):
     inp = _prior_inputs(7, **PRIOR_CASES[case])
     args = _prior_torch(inp)
     want_e, want_n = ops.py_prior_plain(*args)
     e, n = torch.empty_like(want_e), torch.empty_like(want_n)
     words = ops.py_prior_words(*args, e, n, card=False)
     assert len(words) == ops.K21_WORDS
+    if unit is not None:   # the other kernel over the same plan
+        words[ops.K21_UNIT] = unit
     got_e, got_n = _read_k21(words)
     np.testing.assert_allclose(got_e, want_e.numpy(), rtol=1e-6, atol=1e-6)
     np.testing.assert_allclose(got_n, want_n.numpy(), rtol=1e-6, atol=1e-6)
     np.testing.assert_array_equal(got_e <= NINF / 2,
                                   want_e.numpy() <= NINF / 2)
+
+
+@pytest.mark.parametrize("case", list(PRIOR_CASES))
+def test_k21_plan_read_as_the_kernel_reads_it(case):
+    """The plan's layout: the Python reading of csrc/py_prior.cu over the
+    words, in the kernel the plan picks (the flat one at these sizes),
+    against the plain version (numpy's log against torch's: rtol 1e-6;
+    NEG_INF entries exactly)."""
+    _k21_plan_read(case)
+
+
+@pytest.mark.parametrize("case", list(PRIOR_CASES))
+def test_k21_row_kernel_plan_read_as_the_kernel_reads_it(case):
+    """As above, the row kernel forced (four candidates a thread, every
+    vector access asserted aligned)."""
+    _k21_plan_read(case, unit=4)
+
+
+_L, _C, _E, _I = (ops.K21_LEAF_VEC, ops.K21_CH_VEC, ops.K21_EXIST_VEC,
+                  ops.K21_IDX_VEC)
+K21_ROUTES = {"shared": _L | _C | _E, "vectors": _L | _C | _E, "tail": 0,
+              "children along k": _L | _E, "unaligned": _E,
+              "comp int32 tail": _I, "comp": _C | _E | _I, "per-row": 0}
+
+
+@pytest.mark.parametrize("case", list(K21_ROUTES))
+def test_k21_route_and_row_threads(case):
+    """The route py_prior_words picks at its edges (vectors only where
+    every row's address along k allows them; no leaf vectors through a
+    compaction, its int32 or int64 indices in vectors; children strided
+    along k, as stride 0 is, element by element); the flat kernel at these
+    small sizes, the row kernel's threads a row enough for its units of
+    four, at most the block."""
+    inp = _prior_inputs(2, **PRIOR_CASES[case])
+    args = _prior_torch(inp)
+    K = args[6][0].shape[0] if args[6] is not None else args[0].shape[-1]
+    R = int(np.prod(inp["full"]))
+    words = ops.py_prior_words(*args, torch.empty((R, K)), torch.empty(R),
+                               card=False)
+    assert words[ops.K21_ROUTE] == K21_ROUTES[case]
+    assert words[ops.K21_UNIT] == 1
+    assert 1 << words[ops.K21_ROW_LOG] == min(
+        ops.K21_THREADS, 1 << (-(-K // 4) - 1).bit_length())
+
+
+def test_k21_rows_on_one_grid_axis():
+    """Rows go along the grid's x axis only, a block 256 / a row's threads
+    of them, so 70,001 rows of 8 candidates in the row kernel (the work
+    fills the card) are 547 blocks of 128 rows (no 65,535 limit); rows
+    past 2^31 are refused, and a call of 2^33 entries takes the row
+    kernel."""
+    inp = _prior_inputs(3, B=70001, cap=8, full=(70001,))
+    args = _prior_torch(inp)
+    words = ops.py_prior_words(*args, torch.empty((70001, 8)),
+                               torch.empty(70001), card=False)
+    rows = ops.K21_THREADS >> words[ops.K21_ROW_LOG]
+    assert words[ops.K21_UNIT] == 4
+    assert rows == 128 and -(-70001 // rows) == 547
+    big = list(args)
+    big[7] = torch.zeros((1, 8)).expand(1 << 16, 1 << 15, 8)
+    big[8] = torch.zeros(()).expand(1 << 16, 1 << 15)
+    big[9] = (1 << 16, 1 << 15)
+    with pytest.raises(ValueError):
+        ops.py_prior_words(*big, torch.empty(0), torch.empty(0), card=False)
+    big[7] = torch.zeros((1, 8)).expand(1 << 16, 1 << 14, 8)
+    big[8] = torch.zeros(()).expand(1 << 16, 1 << 14)
+    big[9] = (1 << 16, 1 << 14)
+    out = (torch.empty((1 << 30, 8), device="meta"),   # no storage
+           torch.empty(1 << 30, device="meta"))
+    assert ops.py_prior_words(*big, *out, card=False)[ops.K21_UNIT] == 4
 
 
 def test_k21_words_refuse_what_the_kernel_does_not_take():
@@ -960,18 +1090,50 @@ def test_k20_cuda_refuses_what_it_does_not_take(card):
         ops.level_sum(prog, mixed, rank)
 
 
+# the card's own K21 cases: scaled's shape with shared and per-row leaves,
+# and more rows than a grid's y or z axis holds
+CARD_PRIOR_CASES = {
+    "scaled": dict(B=4096, cap=11264, full=(4096,)),
+    "scaled rows": dict(B=4096, cap=11264, full=(4096,), per_row=True),
+    "many rows": dict(B=70001, cap=8, full=(70001,), per_row=True),
+    "many rows tail": dict(B=66000, cap=7, full=(66000,), comp=5),
+}
+
+
+def _k21_forced(args, unit):
+    """K21 launched with its plan's kernel set to `unit` (1 the flat
+    kernel, 4 the row kernel) whatever the call's size: (exist, new)."""
+    comp, ch, full = args[6], args[7], args[9]
+    K = comp[0].shape[0] if comp is not None else args[0].shape[-1]
+    R = int(np.prod(full))
+    e = torch.empty((R, K), dtype=torch.float32, device=ch.device)
+    n = torch.empty((R,), dtype=torch.float32, device=ch.device)
+    words = ops.py_prior_words(*args, e, n)
+    words[ops.K21_UNIT] = unit
+    arr = (ctypes.c_int64 * ops.K21_WORDS)(*words)
+    ops._check(ops._fn("py_prior")(arr, ops.K21_WORDS, ops._stream(ch)),
+               "py_prior")
+    return e, n
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", list(PRIOR_CASES) + ["scaled"])
+@pytest.mark.parametrize("case", list(PRIOR_CASES) + list(CARD_PRIOR_CASES))
 def test_k21_cuda_matches_plain(card, case):
-    kw = PRIOR_CASES.get(case, dict(B=4096, cap=11264, full=(4096,)))
+    """The plan's kernel (flat or row, by the size) and each of the two
+    forced: every output bit-equal to the plain version."""
+    kw = PRIOR_CASES.get(case) or CARD_PRIOR_CASES[case]
     inp = _prior_inputs(3, **kw)
     args = _prior_torch(inp, card)
+    e0, n0 = ops.py_prior_plain(*args)
     before = ops.LAUNCHES["py_prior"]
     e1, n1 = ops.py_prior(*args, cls="T")
     assert ops.LAUNCHES["py_prior"] == before + 1
-    e0, n0 = ops.py_prior_plain(*args)
     torch.cuda.synchronize()
     assert torch.equal(e0, e1) and torch.equal(n0, n1), case
+    for unit in (1, 4):
+        e1, n1 = _k21_forced(args, unit)
+        torch.cuda.synchronize()
+        assert torch.equal(e0, e1) and torch.equal(n0, n1), (case, unit)
 
 
 @pytest.mark.cuda
