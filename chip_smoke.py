@@ -180,7 +180,9 @@ It drives the port only (never jax, never pclean_tpu), in order:
      K15 timed at every census shape holding >= SHAPE_SHARE of a path's
      launches, beside their plain versions, the library call of the
      count alone (index_add_; K15: index_copy_ of one column) and the
-     bytes bound (bench_rel_shapes); K16-K18 timed at their most
+     bytes bound, K14 with the route its plan takes (a thread a source or
+     a histogram in each block's shared memory, ops.rel_scatter_plan)
+     (bench_rel_shapes); K16-K18 timed at their most
      launched one-row and batched census shapes holding >= SHAPE_SHARE of
      a path's launches and at the largest, K19 at every one with its host
      us a call back to back, K16 and K17 in every draw
@@ -198,7 +200,10 @@ It drives the port only (never jax, never pclean_tpu), in order:
      library call
      (torch._standard_gamma at the same alphas, and
      torch._sample_dirichlet over the same rows) and the bound, the larger
-     of the bytes and the operations the inputs need (bench_param_shapes);
+     of the bytes and the operations the inputs need (K23: the
+     instructions the function needs, lgammaf's and logf's the shortest
+     path through their SASS as the kernels are built, a lower bound,
+     kernel_bench.k23_sass) (bench_param_shapes);
      then the limits phase (limits_phase): workloads/limits.py's
      synthetic model, past every old single-launch limit, through
      compile, init and one sweep on the card, each wrapper's first call
@@ -1026,6 +1031,7 @@ def bench_rel_shapes(ops, dev, checked: dict, floor) -> dict:
             if name == "rel_scatter":
                 inp = kb.k14_inputs(dev, mode, K)
                 b, t = kb.k14_bytes(inp), kb.time_k14(ops, inp)
+                t["plan"] = kb.k14_plan(ops, inp)
             else:
                 inp = kb.k15_inputs(dev, mode, K)
                 b, t = kb.k15_bytes(inp), kb.time_k15(ops, inp)
@@ -1040,8 +1046,8 @@ def bench_rel_shapes(ops, dev, checked: dict, floor) -> dict:
                   f"(device {_ms(x['device_ms'])}) plain "
                   f"{_ms(x['plain_ms'])} library {_ms(x['library_ms'])} "
                   f"(device {_ms(x['library_device_ms'])}) bound "
-                  f"{x['bound_ms']:.6f} ms floor {floor:.4f} ms",
-                  flush=True)
+                  f"{x['bound_ms']:.6f} ms floor {floor:.4f} ms plan "
+                  f"{x.get('plan')}", flush=True)
             del inp
         torch.cuda.empty_cache()
     return out
@@ -1374,7 +1380,8 @@ def param_checks(ops, dev, census, path: str) -> dict:
         out[c["kernel"]].append(dict(
             shape=c["mode"], K=c["K"], rows=c["rows"], launches=c["launches"],
             share=c["share"], path=path, max_abs_err=r["max_abs_err"],
-            differ=r.get("differ", 0)))
+            differ=r.get("differ", 0), **({} if c["kernel"] == "gamma_draw"
+                                         else dict(caps=f["caps"]))))
     print(f"{path} K22/K23 census shapes checked bit-equal: "
           f"{ {k: len(v) for k, v in out.items()} }", flush=True)
     return out
@@ -1388,9 +1395,11 @@ def bench_param_shapes(ops, dev, checked: dict, floor) -> dict:
     torch._sample_dirichlet over each descriptor's rows, the same
     Dirichlet rows or Beta pairs, kernel_bench.dirichlet_library), and the
     bound: the larger of the bytes over 3.35 TB/s and the operations the
-    inputs need (K22: its draws' rounds on this stream; K23: three scores
-    of every counted slot) over 67 TFLOP/s (kernel_bench.k22_bounds,
-    k23_bounds). Returns {kernel: [one dict per shape]}."""
+    inputs need (K22: its draws' rounds on this stream, over 67 TFLOP/s;
+    K23: the instructions the three scores of every counted slot need,
+    lgammaf and logf counted by the shortest path through their SASS,
+    over the card's issue rate) (kernel_bench.k22_bounds, k23_bounds).
+    Returns {kernel: [one dict per shape]}."""
     from pclean_tpu_torch import kernel_bench as kb
 
     out = {}
@@ -1409,7 +1418,7 @@ def bench_param_shapes(ops, dev, checked: dict, floor) -> dict:
                 x = dict(kb.k22_bounds(inp), **kb.time_k22(ops, inp))
             else:
                 inp = kb.k23_inputs(dev, f)
-                x = dict(kb.k23_bounds(inp), **kb.time_k23(ops, inp))
+                x = dict(kb.k23_bounds(inp, ops), **kb.time_k23(ops, inp))
             x.update(shape=mode, rows=sh["rows"], max_abs_err=0.0,
                      launches=sum(sh["launches_by_path"].values()),
                      launches_by_path=sh["launches_by_path"],
@@ -1427,7 +1436,9 @@ def bench_param_shapes(ops, dev, checked: dict, floor) -> dict:
                   f"(device {x['device_ms']:.4f} ms) plain "
                   f"{x['plain_ms']:.4f} ms library {lib} bound "
                   f"{x['bound_ms']:.6f} ms ({x['bound_by']}: {x['bytes']} "
-                  f"bytes, {x['flops']} flops) floor {floor:.4f} ms",
+                  f"bytes, {x['flops']} "
+                  f"{'flops' if name == 'gamma_draw' else 'instructions'}) "
+                  f"floor {floor:.4f} ms",
                   flush=True)
     return out
 

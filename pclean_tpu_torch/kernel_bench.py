@@ -118,12 +118,15 @@ and torch.where of one pair (`time_sample`, `sample_bytes`). K20 and K21
 from __future__ import annotations
 
 import argparse
+import ctypes
 import functools
 import importlib
 import importlib.util
 import json
 import math
 import os
+import re
+import subprocess
 import sys
 import time
 
@@ -2179,11 +2182,34 @@ def k14_inputs(dev, mode: str, C: int, seed: int = 0) -> dict:
         sp["kind"], cnt, code, sides, n, slots, exclude, src))
 
 
-def _k14_call(ops, inp: dict, plain: bool = False):
-    fn = (ops.rel_cascade_plain if plain else ops.rel_cascade) \
-        if inp["kind"] == "cascade" else \
-        (ops.rel_scatter_plain if plain else ops.rel_scatter)
-    return fn(*inp["args"])
+def k14_launch(ops, inp: dict, route: str, blocks=None) -> None:
+    """inp's scatter in one K14 launch on `route` ("thread" or "local")
+    with `blocks` (None: the route's own count, ops._k14_blocks): the
+    words rel_scatter passes (ops.k14_words) with their route words set,
+    launched as it launches them, not counted (the A/B's --routes and
+    the card tests' forced routes)."""
+    kind, cnt, code, sides, n, slots, exclude, src = inp["args"]
+    words, _keep, _run = ops.k14_words(kind, cnt, code, sides, n, slots,
+                                       exclude, src)
+    words[13] = ops.K14_ROUTES.index(route)
+    words[15] = blocks or ops._k14_blocks(route, n, ops.sm_count(cnt.device))
+    arr = (ctypes.c_int64 * len(words))(*words)
+    ops._check(ops._fn("rel_scatter")(arr, len(arr), ops._stream(cnt)),
+               "rel_scatter")
+
+
+def _k14_call(ops, inp: dict, plain: bool = False, route=None,
+              blocks=None):
+    """One K14 call on inp's arguments; `route` (and `blocks`) forces a
+    scatter's launch (k14_launch)."""
+    if inp["kind"] == "cascade":
+        fn = ops.rel_cascade_plain if plain else ops.rel_cascade
+        return fn(*inp["args"])
+    if plain:
+        return ops.rel_scatter_plain(*inp["args"])
+    if route is not None:
+        return k14_launch(ops, inp, route, blocks)
+    return ops.rel_scatter(*inp["args"])
 
 
 def _k14_outputs(inp: dict, res) -> list:
@@ -2194,20 +2220,32 @@ def _k14_outputs(inp: dict, res) -> list:
     return [x for x in inp["args"][1:3] if x is not None]
 
 
-def check_k14(ops, inp: dict) -> float:
-    """K14 on a copy of the inputs on the card against its plain version
-    on a CPU copy: every output bit-equal (integer atomics are exact in
-    any order). Returns 0.0 (or fails)."""
+def check_k14(ops, inp: dict, route=None, blocks=None) -> float:
+    """K14 on a copy of the inputs on the card (on the plan's route, or on
+    `route` with `blocks`, k14_launch) against its plain version on a CPU
+    copy: every output bit-equal (integer atomics are exact in any order).
+    Returns 0.0 (or fails)."""
     dev_in = _tree_map(inp, lambda x: x.clone())
     cpu_in = _tree_map(inp, lambda x: x.cpu())
-    got = _k14_outputs(dev_in, _k14_call(ops, dev_in))
+    got = _k14_outputs(dev_in, _k14_call(ops, dev_in, route=route,
+                                         blocks=blocks))
     want = _k14_outputs(cpu_in, _k14_call(ops, cpu_in, plain=True))
     torch.cuda.synchronize()
     for i, (g, w) in enumerate(zip(got, want)):
         require(torch.equal(g.cpu(), w), f"rel_scatter differs from its "
                 f"plain version at {inp['mode']}, C = {inp['C']} (output "
-                f"{i})")
+                f"{i}{', ' + route if route else ''})")
     return 0.0
+
+
+def k14_plan(ops, inp: dict):
+    """The launch rel_scatter_plan gives a scatter's inputs on this card
+    (None for a cascade)."""
+    if inp["kind"] == "cascade":
+        return None
+    _k, cnt, code, sides, n, slots = inp["args"][:6]
+    return ops.rel_scatter_plan(n, cnt.shape[0], sides, code, slots,
+                                ops.sm_count(cnt.device))
 
 
 def k14_bytes(inp: dict) -> int:
@@ -2591,6 +2629,38 @@ AB_K22 = (  # K22's shapes in the A/B: (label, descriptors (mode, rows,
     # width, counts)): rents' County Proportions, one Dirichlet row of 51
     ("rents [1, 51] Dirichlet", (("dirichlet_log", 1, 51, True),)),
 )
+AB_K14 = (  # K14's shapes in the A/B without --census-shapes: (census
+    # mode, C): scaled's refcount of its Records and of its Hospitals (the
+    # latent replay row's, excluding a slot), a propagated observation with
+    # a code over 1,000,000 sources, batched deltas, a cascade
+    ("refcount n=1000000 src=1000000 +1a:1000000 -", 11264),
+    ("refcount n=11264 src=11264 +1ax:11264 -", 1472),
+    ("prop n=1000000 src=1000000 +1asc:1000000,11264 i32", 11264),
+    ("delta n=4096 src=100000 -1as:100000,1000 - idx", 1000),
+    ("delta n=64 src=11264 +1wc:11264,1472 i32 idx", 1472),
+    ("cascade Hospital fks=2", 11264),
+)
+AB_K23 = (  # K23's shapes in the A/B without --census-shapes: (label,
+    # caps): scaled's Hospital and County, rents' County, six classes of
+    # 64-512 as hospital's
+    ("scaled [11264, 1472]", (11264, 1472)),
+    ("rents [4096]", (4096,)),
+    ("hospital-like [64, 128, 256, 512, 64, 128]", (64, 128, 256, 512, 64,
+                                                     128)),
+)
+# what --routes times beside the plans, with this checkout's kernels (the
+# launch words set by hand, k14_launch and k23_launch): K14 at each A/B
+# shape on both routes where the spec takes the histogram, and over
+# K14_ROUTE_GRID's refcounts (sources, sources a target), which set
+# ops.K14_HIST_MIN and K14_HIST_RATIO; K23 at each A/B shape of more than
+# 1,024 slots in clusters of CL blocks of T threads
+K14_ROUTE_GRID = tuple((n, r) for n in (2048, 8192, 32768, 65536, 262144,
+                                        1000000)
+                       for r in (8, 16, 32, 64, 256))
+K23_VARIANTS = ((16, 256), (8, 256), (16, 128), (16, 512), (16, 1024),
+                (8, 1024))
+
+
 def _k16f(mask, B, cap):
     return dict(form="drawn", mask=mask, B=B, cap=cap, comp=False, d=0)
 
@@ -2693,7 +2763,8 @@ AB_K21 = (
         counts=(_I64, _I64), ch="rows"), 128),
 )
 AB_KINDS = ("k1-k3", "k4", "k5", "k6", "k7", "k8", "k9", "k10", "k11", "k12",
-            "k13", "k16", "k17", "k18", "k19", "k20", "k21", "k22")
+            "k13", "k14", "k16", "k17", "k18", "k19", "k20", "k21", "k22",
+            "k23")
 
 
 def host_us(fn, n: int = 2000) -> float:
@@ -2843,7 +2914,30 @@ def dirichlet_library(descs):
         len(alphas)
 
 
-def ab_seeded(dev, kinds, k21_shapes=None) -> dict:
+def census_shapes(path: str, kernel: str) -> list:
+    """K14's or K23's census shapes from a chip_smoke.json (--out): every
+    distinct shape checked on a path that holds >= 1% of that path's
+    launches of the kernel, as (label with its launches by path, K14's
+    mode and C, or K23's caps)."""
+    with open(path) as f:
+        rep = json.load(f)
+    rows = next(k["shapes"] for k in rep["kernels"] if k["name"] == kernel)
+    totals: dict = {}
+    for r in rows:
+        totals[r["path"]] = totals.get(r["path"], 0) + r["launches"]
+    shapes: dict = {}
+    for r in rows:
+        if r["launches"] < 0.01 * totals[r["path"]]:
+            continue
+        key = (r["shape"], r["K"]) if kernel == "rel_scatter" else \
+            tuple(r["caps"])
+        shapes.setdefault(key, {})[r["path"]] = r["launches"]
+    return [(f"{k[0]} K={k[1]} {by}" if kernel == "rel_scatter"
+             else f"classes={len(k)} cap={max(k)} {by}", k)
+            for k, by in shapes.items()]
+
+
+def ab_seeded(dev, kinds, k21_shapes=None, census=None) -> dict:
     """The A/B's seeded K4-K8 inputs, {label: (kernel, inputs)}: K7 at
     AB_K7 (k7_seeded, one hop, as scaled's, rents' and hospital's hoisted
     histograms; per row at scaled's density of about 12 referrers a row;
@@ -2879,6 +2973,14 @@ def ab_seeded(dev, kinds, k21_shapes=None) -> dict:
             inp = score_ab_inputs(dev, kernel, K, n, V)
             for form in ("pair", "fused"):
                 out[f"{label} {form}"] = (kernel, dict(inp, form=form))
+    if "k14" in kinds:
+        for label, (mode, C) in census and census.get("rel_scatter") or \
+                [(f"{m} K={C}", (m, C)) for m, C in AB_K14]:
+            out["K14 " + label] = ("rel_scatter", k14_inputs(dev, mode, C))
+    if "k23" in kinds:
+        for label, caps in census and census.get("py_resample") or AB_K23:
+            out["K23 " + label] = ("py_resample", k23_inputs(
+                dev, dict(caps=list(caps))))
     if "k22" in kinds:
         for label, descs in AB_K22:
             out["K22 " + label] = ("gamma_draw",
@@ -3001,6 +3103,58 @@ def k11_ab_call(ops, inp: dict):
     return lambda: ops.row_write(car, *args)
 
 
+def variant_ms(ops, kernel: str, inp: dict) -> dict:
+    """K14 on each route that takes inp's spec, or K23 in every geometry
+    of K23_VARIANTS (a class of more than 1,024 slots), with this
+    checkout's kernels: each checked bit-equal to the plain version, then
+    device_ms (graph_ms) and host_us; the plan's own launch beside them."""
+    out = {}
+    if kernel == "rel_scatter":
+        if inp["kind"] == "cascade":
+            return out
+        _k, cnt, code, sides, n, slots = inp["args"][:6]
+        out["plan"] = k14_plan(ops, inp)
+        routes = ["thread"]
+        if ops._k14_hist_spec(sides, code, slots) and \
+                4 * cnt.shape[0] <= ops.K14_SMEM_MAX:
+            routes.append("local")
+        for route in routes:
+            check_k14(ops, inp, route)
+            x = _tree_map(inp, lambda t: t.clone())
+            call = lambda: k14_launch(ops, x, route)  # noqa: E731
+            out[route] = dict(device_ms=graph_ms(call),
+                              host_us=host_us(call, 500))
+    elif kernel == "py_resample":
+        caps = [c["refcount"].shape[0] for c in inp["classes"]]
+        out["plan"] = ops.py_resample_plan(caps)
+        for cl, th in K23_VARIANTS if max(caps) > 1024 else ():
+            check_k23(ops, inp, (cl, th))
+            call = lambda: k23_launch(ops, inp, cl, th)  # noqa: E731
+            out[f"cluster {cl} threads {th}"] = dict(
+                device_ms=graph_ms(call), host_us=host_us(call, 500))
+    return out
+
+
+def k14_route_grid(ops, dev) -> dict:
+    """Both K14 routes over K14_ROUTE_GRID's refcounts (k14_inputs: fk
+    uniform over C = sources / per target, 3/4 alive), each checked
+    bit-equal: {(n, per target): dict(thread, local device ms, plan's
+    route)}."""
+    out = {}
+    for n, r in K14_ROUTE_GRID:
+        C = n // r
+        if 4 * C > ops.K14_SMEM_MAX:
+            continue
+        inp = k14_inputs(dev, f"refcount n={n} src={n} +1a:{n} -", C)
+        row = dict(plan=k14_plan(ops, inp)["route"])
+        for route in ("thread", "local"):
+            check_k14(ops, inp, route)
+            x = _tree_map(inp, lambda t: t.clone())
+            row[route] = graph_ms(lambda: k14_launch(ops, x, route))
+        out[(n, r)] = row
+    return out
+
+
 def k21_census_shapes(path: str) -> list:
     """K21's census shapes from a chip_smoke.json (--out): every distinct
     (mode, K) checked on a path (each holds >= 1% of that path's K21
@@ -3084,6 +3238,19 @@ def time_ab_seeded(ops, kernel: str, inp: dict) -> dict:
                                                                        inp)
         return dict(ms=cuda_ms(call), device_ms=graph_ms(call),
                     host_us=host_us(call), library_ms=None,
+                    library_device_ms=None)
+    if kernel == "rel_scatter":   # in place: the calls accumulate
+        check_k14(ops, inp)
+        x = _tree_map(inp, lambda t: t.clone())
+        call = lambda: _k14_call(ops, x)  # noqa: E731
+        return dict(ms=cuda_ms(call), device_ms=graph_ms(call),
+                    host_us=host_us(call, 500), library_ms=None,
+                    library_device_ms=None)
+    if kernel == "py_resample":
+        check_k23(ops, inp)
+        call = lambda: ops.py_resample(inp["classes"], inp["seed"])  # noqa
+        return dict(ms=cuda_ms(call), device_ms=graph_ms(call),
+                    host_us=host_us(call, 500), library_ms=None,
                     library_device_ms=None)
     if kernel == "py_prior":
         check_level(ops, inp)
@@ -3239,6 +3406,16 @@ def main(argv=None) -> int:
                     help="a chip_smoke.json (chip_smoke.py --out): time K21 "
                          "at every census shape it checked, in place of "
                          "AB_K21")
+    ap.add_argument("--census-shapes", default=None,
+                    help="a chip_smoke.json (chip_smoke.py --out): time K14 "
+                         "and K23 at every census shape it checked that "
+                         "holds >= 1%% of a path's launches, in place of "
+                         "AB_K14 and AB_K23")
+    ap.add_argument("--routes", action="store_true",
+                    help="also time K14 on both routes at each A/B shape "
+                         "that takes them and over K14_ROUTE_GRID, and K23 "
+                         "in every geometry of K23_VARIANTS, with the last "
+                         "tree's kernels")
     ap.add_argument("--census", choices=("hospital",), default=None,
                     help="also time K7 and K8 (those in --kernels) at every "
                          "shape of the hospital path's launch census, on "
@@ -3287,7 +3464,9 @@ def main(argv=None) -> int:
                 "inv_cdf_sample": k2_bytes(R, inp["logits"].shape[1])
                 / HBM_BYTES_PER_S * 1e3}
     seeded = ab_seeded(dev, kinds, a.k21_shapes and k21_census_shapes(
-        a.k21_shapes))
+        a.k21_shapes), a.census_shapes and {
+            k: census_shapes(a.census_shapes, k)
+            for k in ("rel_scatter", "py_resample")})
     seeded.update(hospital_census(kinds) if a.census else {})
     count_bytes = {"referrer_hist": k7_bytes, "gauss_suffstats": k4_bytes,
                    "gauss_ext_term": lambda inp: k5_bytes(inp["k5"]),
@@ -3312,7 +3491,9 @@ def main(argv=None) -> int:
                        own.RowCarry(inp["cm"], inp["cid"], inp["arenas"]),
                        inp["slot"], inp["env2"], inp["births"],
                        inp["accept"], False)),
-                   "py_prior": level_bytes}
+                   "py_prior": level_bytes,
+                   "rel_scatter": k14_bytes,
+                   "py_resample": lambda inp: k23_bounds(inp)["bytes"]}
     for s, (k, inp) in seeded.items():
         bounds[s] = {k: count_bytes[k](inp) / HBM_BYTES_PER_S * 1e3}
     turns = []
@@ -3405,6 +3586,28 @@ def main(argv=None) -> int:
                     f"{g} {v['device_ms']:.4f} ms / {v['host_us']:.1f} us"
                     for g, v in geos[s].items() if g != "plan")
                     + f" plan {geos[s]['plan']}", flush=True)
+    routes = {}
+    if a.routes:
+        for s, (k, inp) in seeded.items():
+            if k in ("rel_scatter", "py_resample"):
+                routes[s] = variant_ms(tree_ops[-1], k, inp)
+                print(f"routes {s}: " + " ".join(
+                    f"{v} {r['device_ms']:.4f} ms / {r['host_us']:.1f} us"
+                    for v, r in routes[s].items() if v != "plan")
+                    + f" plan {routes[s].get('plan')}", flush=True)
+        if "k14" in kinds:
+            grid = k14_route_grid(tree_ops[-1], dev)
+            for (n, r), row in grid.items():
+                print(f"route grid refcount n={n} C={n // r} ({r} a "
+                      f"target): thread {row['thread']:.4f} local "
+                      f"{row['local']:.4f} ms plan {row['plan']}",
+                      flush=True)
+            routes["grid"] = {f"{n} {r}": row for (n, r), row in grid.items()}
+        if "k23" in kinds:
+            sass = k23_sass(tree_ops[-1])
+            print(f"K23 SASS shortest paths: lgammaf {sass['lgammaf']} logf "
+                  f"{sass['logf']} instructions (of {sass['all']})",
+                  flush=True)
     paths = {}
     if a.paths:
         ops = tree_ops[-1]
@@ -3434,7 +3637,7 @@ def main(argv=None) -> int:
             json.dump(dict(card=torch.cuda.get_device_name(0), turns=turns,
                            summary=summary, launch_floor_ms=floor,
                            yardsticks=yard, paths=paths, geometries=geos,
-                           param_blocks=blocks),
+                           routes=routes, param_blocks=blocks),
                       f, indent=1)
     return 0
 
@@ -4054,11 +4257,24 @@ def time_level(ops, inp: dict) -> dict:
 
 # floating-point operations of one K22 gamma draw round (Box-Muller's log,
 # sqrt and cos, the Marsaglia-Tsang test's mul/adds and log, the boost's
-# pow counted as one each) and of one K23 slot term (two logs, four
-# lgammas, the mul/adds), for the operations bound against the card's
+# pow counted as one each), for its operations bound against the card's
 # float32 rate outside the tensor cores (67 TFLOP/s)
 K22_ROUND_FLOPS = 20
-K23_TERM_FLOPS = 16
+# K23's operations are counted in instructions, those the function needs:
+# a counted slot's three scores take 5 logf (log(j d + s) at (s0, d0),
+# (s_prop, d0) and (s1, d_prop); log(n_before + s) at s0 and s_prop, s1
+# being one of them) and K23_ONE_OPS adds, multiplies, clamps and
+# subtractions around them (the three sums' adds among them); a slot of
+# size > 1 6 lgammaf more (lgamma(max(size - d, 1e-30)) at d0 and d_prop,
+# lgamma(n_before + size + s) and lgamma(n_before + 1 + s) at s0 and
+# s_prop) and K23_MORE_OPS around them; a class 2 lgammaf (lgamma(1 - d)
+# at d0 and d_prop) and 2 logf (the accepts). lgammaf and logf count the
+# instructions of the shortest path through their SASS (k23_sass), a
+# lower bound of any argument's path. The card issues 4 warp
+# instructions a clock on each SM: 132 x 128 lanes at its 1.98 GHz boost
+# clock (H100 SXM data sheet)
+K23_ONE_OPS, K23_MORE_OPS = 16, 20
+ISSUE_PER_S = 132 * 128 * 1.98e9
 F32_FLOPS_PER_S = 67e12
 
 
@@ -4179,17 +4395,39 @@ def k23_inputs(dev, f: dict, seed: int = 0) -> dict:
                 classes=classes, seed=seed_t)
 
 
-def check_k23(ops, inp: dict) -> dict:
+def k23_launch(ops, inp: dict, cluster: int, threads: int, outs=None):
+    """inp's classes in one K23 launch of clusters of `cluster` blocks of
+    `threads` threads: the words py_resample passes (ops.k23_classes)
+    with their geometry words set by hand, not counted (the A/B's
+    --routes). Returns each class's (s1, d1)."""
+    recs, res = ops.k23_classes(inp["classes"], inp["seed"], outs)
+    words = [len(recs), inp["seed"].data_ptr(), threads, cluster]
+    for r in recs:
+        words += r
+    arr = (ctypes.c_int64 * len(words))(*words)
+    ops._check(ops._fn("py_resample")(arr, len(arr),
+                                       ops._stream(inp["seed"])),
+               "py_resample")
+    return res
+
+
+def check_k23(ops, inp: dict, geometry=None) -> dict:
     """K23 against its plain version on the card, on the same seed buffer,
     out of place and in place (into copies of the leaves): every (s1, d1)
-    bit-equal. Returns dict(max_abs_err 0.0)."""
+    bit-equal; the plan's launches, or one launch in `geometry` (cluster,
+    threads; k23_launch). Returns dict(max_abs_err 0.0)."""
     want = ops.py_resample_plain(inp["classes"], inp["seed"])
-    got = ops.py_resample(inp["classes"], inp["seed"])
     leaves = [(c["strength"].clone(), c["discount"].clone())
               for c in inp["classes"]]
     classes = [dict(c, strength=s, discount=d)
                for c, (s, d) in zip(inp["classes"], leaves)]
-    ins = ops.py_resample(classes, inp["seed"], outs=leaves)
+    if geometry is None:
+        got = ops.py_resample(inp["classes"], inp["seed"])
+        ins = ops.py_resample(classes, inp["seed"], outs=leaves)
+    else:
+        got = k23_launch(ops, inp, *geometry)
+        ins = k23_launch(ops, dict(inp, classes=classes), *geometry,
+                         outs=leaves)
     torch.cuda.synchronize()
     for k, ((a, b), (c, d), (e, g)) in enumerate(zip(got, want, ins)):
         require(torch.equal(a, c) and torch.equal(b, d) and
@@ -4199,19 +4437,138 @@ def check_k23(ops, inp: dict) -> dict:
     return dict(max_abs_err=0.0)
 
 
-def k23_bounds(inp: dict) -> dict:
+# the probes whose SASS k23_sass reads: one lgammaf, one logf, and one
+# that only loads and stores
+K23_SASS_PROBES = r"""
+extern "C" __global__ void copy_probe(const float* x, float* y) {
+  y[threadIdx.x] = x[threadIdx.x];
+}
+extern "C" __global__ void lgammaf_probe(const float* x, float* y) {
+  y[threadIdx.x] = lgammaf(x[threadIdx.x]);
+}
+extern "C" __global__ void logf_probe(const float* x, float* y) {
+  y[threadIdx.x] = logf(x[threadIdx.x]);
+}
+"""
+
+
+def sass_paths(text: str) -> dict:
+    """Each function of a cuobjdump -sass listing: dict(shortest: the
+    fewest instructions on a path from its first to an EXIT, all: its
+    instructions but the trailing self-branch and NOPs). A predicated
+    BRA or EXIT may go either way; a CALL counts as one instruction (the
+    callee not entered) and an indirect branch ends a path, so
+    `shortest` is a lower bound of any run's instructions."""
+    import heapq
+
+    funcs, fn = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            fn = funcs.setdefault(m.group(1), [])
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+([^;]*);", line)
+        if fn is not None and m:
+            fn.append((int(m.group(1), 16), m.group(2).strip()))
+    out = {}
+    for name, ins in funcs.items():
+        while ins and (ins[-1][1] == "NOP" or ins[-1][1].startswith("BRA")
+                       and int(re.search(r"0x([0-9a-f]+)",
+                                         ins[-1][1]).group(1), 16)
+                       == ins[-1][0]):
+            ins.pop()
+        at = {a: i for i, (a, _t) in enumerate(ins)}
+        seen, heap, shortest = set(), [(1, 0)], None
+        while heap:   # d: the instructions up to and with the i-th
+            d, i = heapq.heappop(heap)
+            if i in seen or i >= len(ins):
+                continue
+            seen.add(i)
+            text_i = ins[i][1]
+            pred = re.match(r"@(!?)(U?P\w+)\s+", text_i)
+            op = text_i[pred.end():] if pred else text_i
+            always = pred is None or pred.group(2) in ("PT", "UPT") and \
+                not pred.group(1)
+            never = pred is not None and pred.group(2) in ("PT", "UPT") and \
+                bool(pred.group(1))
+            nxt = []
+            if op.startswith(("EXIT", "BRX", "JMX", "RET")) and not never:
+                shortest = d if shortest is None else min(shortest, d)
+                if always:
+                    continue
+                nxt.append(i + 1)
+            elif op.startswith(("BRA", "JMP")) and not never:
+                tgt = re.search(r"0x([0-9a-f]+)", op)
+                if tgt and int(tgt.group(1), 16) in at:
+                    nxt.append(at[int(tgt.group(1), 16)])
+                if not always:
+                    nxt.append(i + 1)
+            else:
+                nxt.append(i + 1)
+            for j in nxt:
+                heapq.heappush(heap, (d + 1, j))
+        out[name] = dict(shortest=shortest, all=len(ins))
+    return out
+
+
+def k23_sass(ops) -> dict:
+    """The instructions of one lgammaf and one logf as K23's kernel builds
+    them (nvcc with the kernels' architecture and -O3, into a cubin of
+    its own beside the libraries): each probe's shortest path (sass_paths)
+    less the copy probe's; `all`, their listings' lengths so. Read once a
+    process."""
+    if _K23_SASS:
+        return _K23_SASS
+    os.makedirs(ops.BUILD_DIR, exist_ok=True)
+    src = os.path.join(ops.BUILD_DIR, "k23_sass_probes.cu")
+    cubin = os.path.join(ops.BUILD_DIR, "k23_sass_probes.cubin")
+    with open(src, "w") as f:
+        f.write(K23_SASS_PROBES)
+    subprocess.run([ops._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+                    "-O3", "-cubin", "-o", cubin, src], check=True,
+                   capture_output=True)
+    tool = os.path.join(os.path.dirname(ops._nvcc()), "cuobjdump")
+    paths = sass_paths(subprocess.run([tool, "-sass", cubin],
+                                      capture_output=True, text=True,
+                                      check=True).stdout)
+    base = paths["copy_probe"]
+    _K23_SASS.update(
+        lgammaf=paths["lgammaf_probe"]["shortest"] - base["shortest"],
+        logf=paths["logf_probe"]["shortest"] - base["shortest"],
+        all=dict(lgammaf=paths["lgammaf_probe"]["all"] - base["all"],
+                 logf=paths["logf_probe"]["all"] - base["all"]))
+    return _K23_SASS
+
+
+_K23_SASS: dict = {}
+
+
+def k23_bounds(inp: dict, ops=None) -> dict:
     """K23's bytes (refcount 4 and alive 1 byte a slot, the four scalars)
-    and operations (three scores of K23_TERM_FLOPS a counted slot, these
-    inputs' counted slots), and the bound."""
-    n, terms = 8, 0
+    and operations (instructions the function needs, as counted above
+    K23_ONE_OPS), and the bound, the larger of bytes / 3.35 TB/s and
+    instructions / ISSUE_PER_S. Without `ops` (no compiler) the
+    operations are not counted."""
+    n, ones, more = 8, 0, 0
     for c in inp["classes"]:
         n += c["refcount"].numel() * 5 + 16
-        terms += int((c["alive"] & (c["refcount"] > 0)).sum())
-    flops = 3 * K23_TERM_FLOPS * terms
-    ms = 1e3 * max(n / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S)
-    return dict(bytes=n, flops=flops, bound_ms=ms,
-                bound_by="bytes" if n / HBM_BYTES_PER_S >=
-                flops / F32_FLOPS_PER_S else "operations")
+        on = c["alive"] & (c["refcount"] > 0)
+        ones += int(on.sum())
+        more += int((on & (c["refcount"] > 1)).sum())
+    ins = None
+    if ops is not None:
+        sass = k23_sass(ops)
+        lg, lo = sass["lgammaf"], sass["logf"]
+        ins = ones * (5 * lo + K23_ONE_OPS) + \
+            more * (6 * lg + K23_MORE_OPS) + \
+            (2 * lg + 2 * lo) * len(inp["classes"])
+    ops_s = 0.0 if ins is None else ins / ISSUE_PER_S
+    ms = 1e3 * max(n / HBM_BYTES_PER_S, ops_s)
+    return dict(bytes=n, flops=ins, instructions=ins, bound_ms=ms,
+                bytes_bound_ms=1e3 * n / HBM_BYTES_PER_S,
+                ops_bound_ms=None if ins is None else 1e3 * ops_s,
+                bound_by="bytes" if n / HBM_BYTES_PER_S >= ops_s
+                else "operations")
 
 
 def time_k23(ops, inp: dict) -> dict:

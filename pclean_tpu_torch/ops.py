@@ -113,7 +113,10 @@ Each kernel takes a launch plan (path and geometry: threads, tiles,
 cluster, shared memory, grid) from a function of its shapes alone,
 `enum_logsumexp_plan`, `inv_cdf_plan`, `obs_gather_plan`,
 `gauss_suffstats_plan`, `gauss_ext_term_plan`, `maybe_swap_ext_plan`,
-`referrer_hist_plan`, `sa_ext_term_plan` and `pg_resample_plan`; the C
+`referrer_hist_plan`, `sa_ext_term_plan`, `pg_resample_plan`,
+`rel_scatter_plan` (K14's route: a thread a source, or a histogram in
+each block's shared memory) and `py_resample_plan` (K23's
+threads, cluster and slots a thread); the C
 entry points launch
 the plan they are given, so the plan the CPU tests check is the one
 launched. K10's and K11's plans (`row_delta_plan`, built once a class and
@@ -121,7 +124,7 @@ cached on the model; K11's `row_write_plan` from a row's structure: a
 table of index groups and three words a write) travel by value as the
 kernel's argument, bound to the pointers of a loop segment's carry
 (`RowCarry`) once, so no table lives on the card. K14's and K15's words
-(pointers, dtypes, lengths; a thread a source or a (column, row) pair)
+(pointers, dtypes, lengths, K14's route)
 are built at each call, also by value, and so are K16's, K17's and
 K21-K23's (K21's `py_prior_words`; K22's descriptors, K23's classes).
 K19's are built once a call structure (`_K19_PLANS`: each pair's dtypes,
@@ -149,7 +152,10 @@ stages summed by K20, as has a K12 ch_n whose words do not fit one
 parameter block beside ch_e's (`score_fusion`); K10 takes the smaller of
 two parameter blocks that holds its plan (`K10_TIERS`, `k10_tier`; the
 larger counted as a split), K19 up to 64 pairs a launch (`K19_MAX_PAIRS`;
-more, launches of 64) and K16/K17 up to `_MAX_ANC` ancestor axes.
+more, launches of 64), K16/K17 up to `_MAX_ANC` ancestor axes and K23
+up to K23_MAX_CLASSES classes a launch, each class at most K23_MAX_ROUNDS
+slots a thread of its cluster (`py_resample_plan`: 134,217,728 slots; a
+larger class raises).
 
 Build: one `nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared` per
 source, all started together, into pclean_tpu_torch/_build/ (listed in
@@ -2728,6 +2734,16 @@ K14_MAX_HOPS, K14_MAX_SIDES, K14_MAX_FKS = 4, 2, 8
 K14_HEAD, K14_SIDE = 16, 16 + 3 * K14_MAX_HOPS
 K14_KINDS = ("refcount", "prop", "delta", "cascade")
 _K14_CODE_DT = (torch.int32, torch.int64, torch.float32)
+# K14's routes of scatter mode (csrc/rel_scatter.cu): a thread a source, or
+# a histogram in each block's shared memory (blocks of K14_HIST_THREADS,
+# K14_UNIT sources a thread a round of the grid-stride loop) for a
+# refcount-shaped spec: at least K14_HIST_MIN sources and K14_HIST_RATIO a
+# target, where the histogram was faster than a thread a source over
+# kernel_bench's K14_ROUTE_GRID (PERF.md section 6)
+K14_ROUTES = ("thread", "local")
+K14_THREADS, K14_HIST_THREADS, K14_UNIT = 256, 1024, 4
+K14_SMEM_MAX = SMEM_MAX - 1024   # a histogram block's dynamic shared memory
+K14_HIST_MIN, K14_HIST_RATIO = 1 << 15, 16
 # K15's plan (csrc/batch_write.cu): a header, then one record a column
 K15_HEAD, K15_COL, K15_MAX_COLS = 8, 6, 48
 _SHORT = {torch.bool: "b", torch.int8: "i8", torch.uint8: "u8",
@@ -2800,6 +2816,44 @@ def rel_scatter_plain(kind: str, cnt, code, sides, n: int, slots=None,
             code.copy_(scatter_max_drop(code, t, v))
 
 
+def _k14_hist_spec(sides, code, slots) -> bool:
+    """Whether the histogram route takes a spec: one side with no state,
+    weight or code, one int32 or int64 fk column, no slots."""
+    if len(sides) != 1 or slots is not None:
+        return False
+    sd = sides[0]
+    return len(sd["hops"]) == 1 and sd["state"] is None and \
+        sd["weight"] is None and (code is None or sd["code"] is None) and \
+        sd["hops"][0].dtype in (torch.int32, torch.int64)
+
+
+def _k14_blocks(route: str, n: int, sms: int = N_SMS) -> int:
+    """The blocks of K14's launch of n sources on `route`: a thread a
+    source, or min(sms, the blocks n sources fill) histogram blocks."""
+    if route == "thread":
+        return -(-n // K14_THREADS)
+    return max(1, min(sms, -(-n // (K14_HIST_THREADS * K14_UNIT))))
+
+
+def rel_scatter_plan(n: int, C: int, sides, code, slots=None,
+                     sms: int = N_SMS) -> dict:
+    """K14's launch of a scatter of n sources into C targets (`sides`:
+    scatter_side()s, `code`: the code tensor or None, `slots`: the
+    sources' slots or None). The route is "local" (a histogram in each
+    block's shared memory, blocks of K14_HIST_THREADS) for a
+    refcount-shaped spec (_k14_hist_spec) of at least K14_HIST_MIN
+    sources, K14_HIST_RATIO or more a target, whose C counts fit in a
+    block's shared memory; else "thread" (a thread a source).
+    Returns dict(route, blocks, threads, smem, launches)."""
+    local = _k14_hist_spec(sides, code, slots) and \
+        4 * C <= K14_SMEM_MAX and n >= K14_HIST_MIN and \
+        n >= K14_HIST_RATIO * C
+    route = "local" if local else "thread"
+    return dict(route=route, blocks=_k14_blocks(route, n, sms),
+                threads=K14_HIST_THREADS if local else K14_THREADS,
+                smem=4 * C if local else 0, launches=1)
+
+
 def _k14_vec(t, name: str, n=None, dtypes=None) -> None:
     if not t.is_cuda or t.dim() != 1 or not t.is_contiguous() or \
             t.dtype not in _DT or (dtypes is not None and
@@ -2822,6 +2876,7 @@ def rel_scatter(kind: str, cnt, code, sides, n: int, slots=None,
     the call owns); `slots`: int64 [n] source slots, or None for sources
     0..n-1; `exclude`: the excluded source slot, an int or an int64 [1]
     tensor on the card (read there, so the host never waits for it).
+    The launch is rel_scatter_plan's.
     On CPU tensors the plain version; on CUDA ones the kernel or an error.
     Counted in LAUNCH_CENSUS by (the spec's signature, r1 or rn, C)."""
     if src_len is None:
@@ -2829,6 +2884,24 @@ def rel_scatter(kind: str, cnt, code, sides, n: int, slots=None,
     if not _route(cnt, "rel_scatter"):
         return rel_scatter_plain(kind, cnt, code, sides, n, slots, exclude,
                                  src_len)
+    words, keep, run = k14_words(kind, cnt, code, sides, n, slots, exclude,
+                                 src_len)
+    plan = rel_scatter_plan(n, cnt.shape[0], run, code, slots,
+                            sm_count(cnt.device))
+    words[13] = K14_ROUTES.index(plan["route"])
+    words[15] = plan["blocks"]
+    arr = (ctypes.c_int64 * len(words))(*words)
+    rc = _fn("rel_scatter")(arr, len(arr), _stream(cnt))
+    _check(rc, "rel_scatter")
+    _count("rel_scatter", n, cnt.shape[0],
+           _k14_sig(kind, n, src_len, run, code, slots, exclude))
+
+
+def k14_words(kind: str, cnt, code, sides, n: int, slots, exclude,
+              src_len: int) -> tuple:
+    """rel_scatter's checks and plan words (csrc/rel_scatter.cu) but the
+    route (word 13) and its blocks (word 15): (words, the contiguous
+    copies and folded columns the launch reads, the sides as launched)."""
     if kind not in K14_KINDS[:3]:
         raise ValueError(f"rel_scatter: kind {kind!r} is not one of "
                          f"{K14_KINDS[:3]}")
@@ -2888,11 +2961,7 @@ def rel_scatter(kind: str, cnt, code, sides, n: int, slots=None,
                      _INDEX_DT)
             words[b + 16 + 3 * j: b + 19 + 3 * j] = \
                 [h.data_ptr(), _DT[h.dtype], h.shape[0]]
-    arr = (ctypes.c_int64 * len(words))(*words)
-    rc = _fn("rel_scatter")(arr, len(arr), _stream(cnt))
-    _check(rc, "rel_scatter")
-    _count("rel_scatter", n, C,
-           _k14_sig(kind, n, src_len, run, code, slots, exclude))
+    return words, keep, run
 
 
 def rel_cascade_plain(d, refcount, alive, fks):
@@ -4803,6 +4872,16 @@ GAMMA_STREAM, PY_GAMMA_STREAM, PY_UNIFORM_STREAM = 0, 1, 2
 K22_MODES = ("gamma", "dirichlet_log", "beta")
 K22_HEAD, K22_DESC, K22_MAX_DESC = 8, 16, 64
 K23_HEAD, K23_CLASS, K23_MAX_CLASSES = 4, 12, 64
+# K23's geometry (csrc/py_resample.cu): one block a class up to
+# K23_MAX_THREADS slots, past that a cluster of up to K23_CLUSTER blocks
+# (16, non-portable; 8 the portable size) of K23_MIN_THREADS to
+# K23_MAX_THREADS, then up to K23_MAX_SLOTS slots a thread in registers;
+# past that a thread's slots in rounds of K23_MAX_SLOTS, at most
+# K23_MAX_ROUNDS slots a thread (the rounds' bases in shared memory: a
+# class of up to 16 x 1,024 x 8,192 slots) (PERF.md section 6: the A/B of
+# these sizes)
+K23_MAX_THREADS, K23_MAX_CLUSTER, K23_MAX_SLOTS = 1024, 16, 16
+K23_CLUSTER, K23_MIN_THREADS, K23_MAX_ROUNDS = 16, 256, 8192
 _M32 = 0xFFFFFFFF
 _TWO_PI = 2.0 * math.pi
 
@@ -5123,23 +5202,75 @@ def py_resample_plain(classes, seed, outs=None, scores=None) -> list:
     return res
 
 
+def py_resample_plan(caps) -> list:
+    """K23's launches for classes of capacities `caps`: a launch a
+    K23_MAX_CLASSES of them in order, each sized for its largest class
+    (P, the next power of two): one block of T = max(P, 32) threads a
+    class where P <= K23_MAX_THREADS, else clusters of CL = min(
+    K23_CLUSTER, P / T) blocks of T = min(1,024, max(K23_MIN_THREADS, P /
+    K23_CLUSTER)), and P / (CL T) slots a thread (in registers up to
+    K23_MAX_SLOTS, in rounds of it past that; at most K23_MAX_ROUNDS, or
+    ValueError). Each launch a dict(lo, hi: its classes, threads,
+    cluster, slots: its most slots a thread, per_class: each class's
+    slots a thread, blocks)."""
+    out = []
+    for lo in range(0, len(caps), K23_MAX_CLASSES):
+        chunk = [int(c) for c in caps[lo:lo + K23_MAX_CLASSES]]
+        P = _pow2(max(chunk))
+        if P <= K23_MAX_THREADS:
+            T, CL = max(32, P), 1
+        else:
+            T = min(K23_MAX_THREADS, max(K23_MIN_THREADS, P // K23_CLUSTER))
+            CL = min(K23_CLUSTER, P // T)
+        per = [_pow2(c) // min(_pow2(c), CL * T) for c in chunk]
+        if max(per) > K23_MAX_ROUNDS:
+            raise ValueError(f"py_resample: a class of {max(chunk)} slots "
+                             f"is past {K23_MAX_ROUNDS} slots a thread of "
+                             f"{CL} blocks of {T}")
+        out.append(dict(lo=lo, hi=lo + len(chunk), threads=T, cluster=CL,
+                        slots=max(per), per_class=per,
+                        blocks=len(chunk) * CL))
+    return out
+
+
 def py_resample(classes, seed, outs=None) -> list:
-    """K23: py_resample_plain in one launch a K23_MAX_CLASSES classes, a
-    block a class, the seed read on the card; (s1, d1) written into
-    outs[k] = (strength, discount) where given (the parameter leaves
-    themselves: in place), else into torch.empty scalars. On CPU tensors
-    the plain version; on CUDA ones the kernel or an error. Counted in
-    LAUNCH_CENSUS by ("classes=.. cap=<largest>", r1 or rn by the
-    classes, the largest cap)."""
+    """K23: py_resample_plain in the launches of py_resample_plan (one for
+    up to K23_MAX_CLASSES classes), every slot in registers (in rounds
+    past K23_MAX_SLOTS a thread), the seed read on the card; (s1, d1)
+    written into outs[k] = (strength, discount)
+    where given (the parameter leaves themselves: in place), else into
+    torch.empty scalars. On CPU tensors the plain version; on CUDA ones
+    the kernel or an error. Counted in LAUNCH_CENSUS by ("classes=..
+    cap=<largest>", r1 or rn by the classes, the largest cap)."""
     if not classes:
         return []
     if not _route(seed, "py_resample"):
         return py_resample_plain(classes, seed, outs)
+    recs, res = k23_classes(classes, seed, outs)
+    for pl in py_resample_plan([r[2] for r in recs]):
+        chunk = recs[pl["lo"]:pl["hi"]]
+        words = [len(chunk), seed.data_ptr(), pl["threads"], pl["cluster"]]
+        for r in chunk:
+            words += r
+        arr = (ctypes.c_int64 * len(words))(*words)
+        rc_ = _fn("py_resample")(arr, len(arr), _stream(seed))
+        _check(rc_, "py_resample")
+        cap = max(r[2] for r in chunk)
+        _count("py_resample", len(chunk), cap,
+               f"classes={len(chunk)} cap={cap}",
+               dict(caps=[r[2] for r in chunk]))
+    return res
+
+
+def k23_classes(classes, seed, outs=None) -> tuple:
+    """py_resample's checks and each class's plan words
+    (csrc/py_resample.cu): (the classes' words, each class's (s1, d1)
+    outputs)."""
     if seed.dtype != torch.int64 or seed.numel() != 1:
         raise ValueError("py_resample: the seed must be an int64 [1] on the "
                          "card")
     dev = seed.device
-    recs, res, off = [], [], 0
+    recs, res = [], []
     for k, c in enumerate(classes):
         rc, al = c["refcount"], c["alive"]
         cap = int(rc.shape[0]) if rc.dim() == 1 else -1
@@ -5161,23 +5292,8 @@ def py_resample(classes, seed, outs=None) -> list:
                     t.dtype != torch.float32 or t.numel() != 1:
                 raise ValueError("py_resample: strength and discount must "
                                  "be float32 scalars on the card")
-        P = _pow2(cap)
-        recs.append([rc.data_ptr(), al.data_ptr(), cap, P,
+        recs.append([rc.data_ptr(), al.data_ptr(), cap, _pow2(cap),
                      sd[0].data_ptr(), sd[1].data_ptr(), o[0].data_ptr(),
-                     o[1].data_ptr(), k, off, 0, 0])
-        off += 3 * cap + 2 * P
+                     o[1].data_ptr(), k, 0, 0, 0])
         res.append(tuple(o))
-    scratch = torch.empty((off,), dtype=torch.float32, device=dev)
-    for lo in range(0, len(recs), K23_MAX_CLASSES):
-        chunk = recs[lo:lo + K23_MAX_CLASSES]
-        words = [len(chunk), seed.data_ptr(), scratch.data_ptr(), 0]
-        for r in chunk:
-            words += r
-        arr = (ctypes.c_int64 * len(words))(*words)
-        rc_ = _fn("py_resample")(arr, len(arr), _stream(seed))
-        _check(rc_, "py_resample")
-        cap = max(r[2] for r in chunk)
-        _count("py_resample", len(chunk), cap,
-               f"classes={len(chunk)} cap={cap}",
-               dict(caps=[r[2] for r in chunk]))
-    return res
+    return recs, res

@@ -409,9 +409,13 @@ def test_k22_cuda_alpha_grid_bit_equal(card):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("caps", [[64, 128, 256, 512, 64, 128],
-                                  [1, 2, 3], [11264], [8] * 70])
+                                  [1, 2, 3], [11264], [8] * 70, [1], [31],
+                                  [1024], [1025], [2048], [4096],
+                                  [11264, 1472], [16384], [16385],
+                                  [5, 16385, 64, 11264], [40, 700] * 32,
+                                  [262144], [262145], [5, 1000000, 64]])
 def test_k23_cuda_bit_equal_to_plain(card, caps):
-    rng = np.random.default_rng(len(caps))
+    rng = np.random.default_rng(len(caps) + max(caps))
     classes, copies = [], []
     for cap in caps:
         rc, al, s, d = _py_case(rng, cap)
@@ -423,7 +427,10 @@ def test_k23_cuda_bit_equal_to_plain(card, caps):
         copies.append((c["strength"].clone(), c["discount"].clone()))
     seed = torch.tensor([31337], dtype=torch.int64, device=card)
     want = ops.py_resample_plain(classes, seed)
+    before = ops.LAUNCHES["py_resample"]
     got = ops.py_resample(classes, seed)
+    assert ops.LAUNCHES["py_resample"] - before == len(
+        ops.py_resample_plan(caps))
     ins = ops.py_resample(classes, seed, outs=copies)   # in place
     torch.cuda.synchronize()
     for (a, b), (c, d), (e, f) in zip(got, want, ins):

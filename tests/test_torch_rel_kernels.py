@@ -29,11 +29,17 @@ Card (`cuda` marker; `python -m pytest -m cuda tests/test_torch_rel_kernels.py`
 on the H100): K14 and K15 against their plain versions at the paths'
 shape kinds and the edges (no hops, four hops, int64 columns, float and
 int64 codes, the excluded slot an int and a tensor, slots out of range and
-wrapping, cascade mode), bit-equal; the wrappers refuse what the kernels
-do not take; refresh, the batched deltas and _apply_batch on the card
-equal to the CPU under torch.cuda.set_sync_debug_mode("error"); a latent
+wrapping, cascade mode), bit-equal; K14's histogram route at 1,000,000
+sources into 11,264, int64 fk columns, C just under and over a block's
+shared memory, the exclusion an int and a tensor, every source into one
+target, none alive, all dropped, each forced into every route and block
+count that takes it; the wrappers refuse what the kernels do not take;
+refresh, the batched deltas and _apply_batch on the card equal to the
+CPU under torch.cuda.set_sync_debug_mode("error"); a latent
 replay chunk's graph replays bit-equal to its eager rows.
 """
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -431,23 +437,72 @@ K14_CASES = [
     ("cascade County fks=0", 1472),
     ("cascade Hospital fks=2", 11264),
 ]
+# the histogram route's edges (ops.rel_scatter_plan): scaled's refcount,
+# the exclusion (a tensor; an int below), an int64 fk column, C just under
+# and just over a block's shared memory (the latter on the thread route),
+# specs it does not take (codes of each dtype, two sides)
+_CL = ops.K14_SMEM_MAX // 4
+K14_HIST_CASES = [
+    ("refcount n=1000000 src=1000000 +1a:1000000 -", 11264),
+    ("refcount n=100000 src=100000 +1ax:100000 -", 1472),
+    ("refcount n=500000 src=500000 +1a:500000q -", 5000),
+    (f"refcount n={32 * _CL} src={32 * _CL} +1a:{32 * _CL} -", _CL),
+    (f"refcount n={32 * _CL + 128} src={32 * _CL + 128} "
+     f"+1a:{32 * _CL + 128} -", _CL + 1),
+    ("prop n=1000000 src=1000000 +1asc:1000000,11264 i32", 11264),
+    ("prop n=500000 src=500000 +1asxc:500000,11264 i64", 11264),
+    ("prop n=500000 src=500000 +1asc:500000,3000 f32", 3000),
+    ("delta n=200000 src=200000 -1a:200000/+1awc:200000 i32", 4000),
+]
+# (route, blocks) each histogram case is also forced into where it can be
+K14_FORCED = [("thread", None), ("local", None), ("local", 7)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mode,C", K14_CASES)
+@pytest.mark.parametrize("mode,C", K14_CASES + K14_HIST_CASES)
 def test_k14_cuda_matches_plain(card, mode, C):
     for seed in (0, 1):
         kb.check_k14(ops, kb.k14_inputs(card, mode, C, seed=seed))
+    if (mode, C) not in K14_HIST_CASES:
+        return
+    inp = kb.k14_inputs(card, mode, C, seed=2)
+    _k, cnt, code, sides, n, slots = inp["args"][:6]
+    local = ops._k14_hist_spec(sides, code, slots) and \
+        4 * C <= ops.K14_SMEM_MAX
+    for route, bl in K14_FORCED:
+        if route == "thread" or local:   # where the kernel takes the route
+            kb.check_k14(ops, inp, route=route, blocks=bl)
 
 
 @pytest.mark.cuda
-def test_k14_cuda_exclude_int_matches_plain(card):
-    inp = kb.k14_inputs(card, "prop n=5000 src=5000 +1asxc:5000,700 i32",
-                        300)
+@pytest.mark.parametrize("edit", ["one target", "none alive", "dropped"])
+def test_k14_cuda_histogram_edges_match_plain(card, edit):
+    inp = kb.k14_inputs(card, "refcount n=400000 src=400000 +1a:400000 -",
+                        5000, seed=3)
+    sd = inp["args"][3][0]
+    if edit == "one target":
+        sd["hops"][0].fill_(-2)   # wraps to C - 2
+    elif edit == "none alive":
+        sd["alive"].zero_()
+    else:
+        sd["hops"][0].fill_(5000)
+    assert kb.k14_plan(ops, inp)["route"] == "local"
+    for route, bl in K14_FORCED:
+        kb.check_k14(ops, inp, route=route, blocks=bl)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["prop n=5000 src=5000 +1asxc:5000,700 i32",
+                                  "refcount n=500000 src=500000 "
+                                  "+1ax:500000 -"])
+def test_k14_cuda_exclude_int_matches_plain(card, mode):
+    inp = kb.k14_inputs(card, mode, 300)
     args = list(inp["args"])
-    args[6] = 2500   # the excluded slot as an int, passed by value
+    args[6] = kb.k14_parse(mode)["n"] // 2   # the excluded slot as an int
     inp["args"] = tuple(args)
     kb.check_k14(ops, inp)
+    assert kb.k14_plan(ops, inp)["route"] == \
+        ("local" if mode.startswith("refcount") else "thread")
 
 
 K15_CASES = [
@@ -490,6 +545,18 @@ def test_k14_k15_refuse_what_they_do_not_take(card):
         ops.batch_write([col], [col], torch.zeros(8, dtype=torch.int32,
                                                   device=card),
                         torch.ones(8, dtype=torch.bool, device=card))
+    # the kernel refuses words that force the histogram route where its
+    # bins do not fit or onto a spec it does not take, or an unknown route
+    big = torch.zeros(ops.K14_SMEM_MAX // 4 + 1, dtype=torch.int32,
+                      device=card)
+    for c_, code, sd, route in (
+            (big, None, ops.scatter_side([col]), 1),
+            (cnt, col, ops.scatter_side([col], code=col), 1),
+            (cnt, None, ops.scatter_side([col]), 2)):
+        words = ops.k14_words("prop", c_, code, [sd], 8, None, None, 8)[0]
+        words[13], words[15] = route, 1
+        arr = (ctypes.c_int64 * len(words))(*words)
+        assert ops._fn("rel_scatter")(arr, len(arr), ops._stream(c_)) != 0
 
 
 def _card_model(dev):
