@@ -95,7 +95,9 @@ It drives the port only (never jax, never pclean_tpu), in order:
          resampling between the two Record blocks and drawing the final
          particle; prints the init log-ML; then K9 at every shape of its
          launch census (kernel_bench.k9_census_inputs: seeded weights,
-         half the rows spread so that they resample);
+         half the rows spread so that they resample), its group path
+         (P <= 32) bit-equal to its block path there, with its latency
+         bound (kernel_bench.k9_chain);
   8b. after every path, on its final state, K10 row_delta and K11
      row_write (the one-row loops' relational delta and row write): a
      shadow run of 256 rows of every class kind the path's census shows
@@ -200,7 +202,9 @@ It drives the port only (never jax, never pclean_tpu), in order:
      library call
      (torch._standard_gamma at the same alphas, and
      torch._sample_dirichlet over the same rows) and the bound, the larger
-     of the bytes and the operations the inputs need (K23: the
+     of the bytes and the operations the inputs need, K22 also its
+     latency bound (the launch floor, one L2 load and the dependent chain
+     of one draw and its row's sum, kernel_bench.k22_chain) (K23: the
      instructions the function needs, lgammaf's and logf's the shortest
      path through their SASS as the kernels are built, a lower bound,
      kernel_bench.k23_sass) (bench_param_shapes);
@@ -776,32 +780,64 @@ def k7_k8_entry(name: str, shapes: list) -> dict:
         replaces=SOURCES[name][1], bound_by="bytes")
 
 
-def bench_k9_census(ops, dev, census, B: int, path: str, floor) -> list:
+def bench_k9_census(ops, dev, census, B: int, path: str, floor,
+                    lat) -> list:
     """K9 at every shape of a path's launch census (mode, P, one row or B
     rows), on seeded weights (kernel_bench.k9_census_inputs): checked
-    against its plain version (kernel_bench.check_k9), timed beside it,
-    with the bytes bound and the launch floor."""
+    against its plain version (kernel_bench.check_k9), and at P <= 32
+    its group path bit-equal to its block path (kernel_bench.k9_launch
+    with the block's words: sel, ws_out and lml), timed beside the plain
+    version, with the bytes bound, the launch floor and the latency bound
+    (the floor, one L2 load and the dependent chain a row needs,
+    kernel_bench.k9_chain)."""
     from pclean_tpu_torch import kernel_bench as kb
+    from pclean_tpu_torch.kernel_bench import require
 
     out = []
     for r, k9 in kb.k9_census_inputs(dev, census, B):
         R, P = k9["ws"].shape
         nbytes = kb.k9_bytes(R, P, r["mode"])
+        plan = ops.pg_resample_plan(R, P)
+        if plan["group"]:
+            got = kb.k9_launch(ops, k9, plan)
+            block = kb.k9_launch(ops, k9, dict(
+                threads=32 * -(-P // 32), smem=12 * P, group=0))
+            torch.cuda.synchronize()
+            require(all(x is None and y is None or torch.equal(x, y)
+                        for x, y in zip(got, block)),
+                    f"K9's group path differs from its block path at "
+                    f"{r['mode']} [{R}, {P}]")
+        chain = kb.k9_chain(kb.k23_sass(ops), P, r["mode"])
         out.append(dict(
             kb.check_k9(ops, k9), path=path, mode=r["mode"], rows=r["rows"],
             launches=r["launches"], shape=f"{r['mode']} ws [{R}, {P}]",
             bytes=nbytes, bound_ms=nbytes / kb.HBM_BYTES_PER_S * 1e3,
-            floor_ms=floor, plan=ops.pg_resample_plan(R, P),
+            floor_ms=floor, plan=plan, chain=chain,
+            latency_bound_ms=kb.latency_bound_ms(chain, floor, lat),
             **kb.time_k9(ops, k9)))
         x = out[-1]
         print(f"pg_resample {path} {x['shape']} ({x['launches']} launches):"
               f" max_abs_err {x['max_abs_err']:.3g} mismatch rate "
               f"{x['mismatch_rate']:.3g} kernel {x['ms']:.4f} ms (device "
               f"{x['device_ms']:.4f} ms) plain {x['plain_ms']:.4f} ms bound "
-              f"{x['bound_ms']:.6f} ms floor {floor:.4f} ms plan "
-              f"{x['plan']}", flush=True)
+              f"{x['bound_ms']:.6f} ms latency bound "
+              f"{x['latency_bound_ms']:.6f} ms ({chain} instructions) floor "
+              f"{floor:.4f} ms plan {x['plan']}", flush=True)
     torch.cuda.empty_cache()
     return out
+
+
+def latency_entry(top: dict) -> dict:
+    """The kernels-line bound of K9's or K22's shape `top`: the larger of
+    its bytes or operations bound and its latency bound, bound_by
+    "operations" where the latency binds (K10's rule)."""
+    lat = top["latency_bound_ms"] > top["bound_ms"]
+    return dict(bytes_bound_ms=top["bound_ms"],
+                latency_bound_ms=top["latency_bound_ms"],
+                chain=top["chain"],
+                bound_ms=max(top["bound_ms"], top["latency_bound_ms"]),
+                bound_by="operations" if lat else top.get("bound_by",
+                                                          "bytes"))
 
 
 def k9_entry(shapes: list) -> dict:
@@ -811,10 +847,13 @@ def k9_entry(shapes: list) -> dict:
                                      r["mode"] == "resample", r["bytes"]))
     return dict({key: top[key] for key in (
         "max_abs_err", "ms", "device_ms", "plain_ms", "library_ms",
-        "library_device_ms", "bytes", "bound_ms", "floor_ms", "plan",
-        "shape")}, name="pg_resample", route="cuda",
+        "library_device_ms", "bytes", "floor_ms", "plan", "shape")},
+        name="pg_resample", route="cuda",
         source=SOURCES["pg_resample"][0],
-        replaces=SOURCES["pg_resample"][1], bound_by="bytes")
+        replaces=SOURCES["pg_resample"][1], **latency_entry(top),
+        timed=[{key: r[key] for key in (
+            "path", "shape", "launches", "device_ms", "latency_bound_ms")}
+            for r in shapes])
 
 
 def bench_rows(ops, eng, arenas, params, census, path, floor, lat) -> dict:
@@ -1387,7 +1426,7 @@ def param_checks(ops, dev, census, path: str) -> dict:
     return out
 
 
-def bench_param_shapes(ops, dev, checked: dict, floor) -> dict:
+def bench_param_shapes(ops, dev, checked: dict, floor, lat) -> dict:
     """K22 and K23 timed at each distinct census shape checked (a call
     shape: its descriptors or classes), on seeded inputs: kernel ms and
     device ms, the plain version, K22's library calls (torch._standard_gamma
@@ -1398,8 +1437,11 @@ def bench_param_shapes(ops, dev, checked: dict, floor) -> dict:
     inputs need (K22: its draws' rounds on this stream, over 67 TFLOP/s;
     K23: the instructions the three scores of every counted slot need,
     lgammaf and logf counted by the shortest path through their SASS,
-    over the card's issue rate) (kernel_bench.k22_bounds, k23_bounds).
-    Returns {kernel: [one dict per shape]}."""
+    over the card's issue rate) (kernel_bench.k22_bounds, k23_bounds);
+    K22 also its latency bound (the floor, one L2 load and the dependent
+    chain of a draw and its row's sum, kernel_bench.k22_chain) and its
+    geometry (ops.gamma_draw_plan). Returns {kernel: [one dict per
+    shape]}."""
     from pclean_tpu_torch import kernel_bench as kb
 
     out = {}
@@ -1415,7 +1457,14 @@ def bench_param_shapes(ops, dev, checked: dict, floor) -> dict:
             f = ops.CENSUS_FIELDS[name][mode]
             if name == "gamma_draw":
                 inp = kb.k22_inputs(dev, f)
-                x = dict(kb.k22_bounds(inp), **kb.time_k22(ops, inp))
+                chain = kb.k22_chain(kb.k23_sass(ops), inp["descs"])
+                x = dict(kb.k22_bounds(inp), **kb.time_k22(ops, inp),
+                         chain=chain, latency_bound_ms=kb.latency_bound_ms(
+                             chain, floor, lat),
+                         plan=[dict(threads=L["threads"],
+                                    parts=[p[2:] for p in L["parts"]])
+                               for L in ops.gamma_draw_plan(
+                                   [d[:3] for d in f["descs"]])])
             else:
                 inp = kb.k23_inputs(dev, f)
                 x = dict(kb.k23_bounds(inp, ops), **kb.time_k23(ops, inp))
@@ -1431,6 +1480,9 @@ def bench_param_shapes(ops, dev, checked: dict, floor) -> dict:
                 lib += (f"; torch._sample_dirichlet x "
                         f"{x['dirichlet_calls']} {x['dirichlet_ms']:.4f} ms "
                         f"(device {x['dirichlet_device_ms']:.4f} ms)")
+            lat_s = "" if name != "gamma_draw" else \
+                f" latency bound {x['latency_bound_ms']:.6f} ms " \
+                f"({x['chain']} instructions) plan {x['plan']}"
             print(f"{name} {mode} ({x['launches']} launches "
                   f"{x['launches_by_path']}): kernel {x['ms']:.4f} ms "
                   f"(device {x['device_ms']:.4f} ms) plain "
@@ -1438,7 +1490,7 @@ def bench_param_shapes(ops, dev, checked: dict, floor) -> dict:
                   f"{x['bound_ms']:.6f} ms ({x['bound_by']}: {x['bytes']} "
                   f"bytes, {x['flops']} "
                   f"{'flops' if name == 'gamma_draw' else 'instructions'}) "
-                  f"floor {floor:.4f} ms",
+                  f"floor {floor:.4f} ms{lat_s}",
                   flush=True)
     return out
 
@@ -1447,11 +1499,16 @@ def param_entry(name: str, shapes: list) -> dict:
     """K22's or K23's kernels-line entry: the numbers of the timed shape
     launched most over the six paths, with its bound and what binds it."""
     top = max(shapes, key=lambda r: r["launches"])
-    return dict({key: top[key] for key in (
+    out = dict({key: top[key] for key in (
         "max_abs_err", "ms", "device_ms", "plain_ms", "library_ms",
         "library_device_ms", "bytes", "flops", "bound_ms", "bound_by",
         "floor_ms", "shape")}, name=name, route="cuda",
         source=SOURCES[name][0], replaces=SOURCES[name][1])
+    if name == "gamma_draw":   # its latency bound, every shape's times
+        out.update(latency_entry(top), timed=[{key: r[key] for key in (
+            "shape", "launches", "device_ms", "library_device_ms",
+            "latency_bound_ms")} for r in shapes])
+    return out
 
 
 # the synthetic model past every old single-launch limit (workloads/
@@ -2432,7 +2489,7 @@ def main() -> int:
         add(path, {"obs_gather_sum": bench_k3_shapes(
             ops, dev, runs[path]["census"], B)})
         add(path, {"pg_resample": bench_k9_census(
-            ops, dev, runs[path]["census"], B, path, floor)})
+            ops, dev, runs[path]["census"], B, path, floor, lat)})
     phase("K12 and K13 census shapes")
     score = bench_score_shapes(ops, dev, runs, floor)
     for name, rows in score.items():
@@ -2444,7 +2501,7 @@ def main() -> int:
     phase("K20 and K21 census shapes")
     level = bench_level_shapes(ops, dev, checked, floor)
     phase("K22 and K23 census shapes")
-    param = bench_param_shapes(ops, dev, checked, floor)
+    param = bench_param_shapes(ops, dev, checked, floor, lat)
     phase("limits")
     report["limits"] = limits_phase(ops, dev)
     kernels += [k7_k8_entry(name, checked[name])
@@ -2503,7 +2560,7 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "library_device_ms", "dep_loads", "dep_bound_ms",
-            "bytes_bound_ms",
+            "bytes_bound_ms", "latency_bound_ms",
             *(f"launches_{p}" for p in PATHS), "launches_r1", "ms_r1",
             "device_ms_r1", "plain_ms_r1", "bound_ms_r1", "library_ms_r1",
             "shape_rn", "ms_rn", "device_ms_rn", "plain_ms_rn",

@@ -1411,6 +1411,42 @@ def time_k9(ops, k9: dict) -> dict:
                 library_ms=None, library_device_ms=None)
 
 
+def k9_launch(ops, k9: dict, plan: dict):
+    """k9's inputs in one K9 launch of `plan` (pg_resample_plan's dict,
+    its words set by hand: group 0 with 12 P bytes of shared memory takes
+    the block path at any P), not counted (the card tests' group against
+    block path). Returns (sel or j, ws_out or None, lml)."""
+    ws, u, mode, retained = k9["ws"], k9["u"], k9["mode"], k9["retained"]
+    R, P = ws.shape
+    final = mode == "final"
+    idx = torch.empty((R,) if final else (R, P), dtype=torch.int64,
+                      device=ws.device)
+    ws_out = None if final else torch.empty_like(ws)
+    lml = torch.empty((R,), dtype=torch.float32, device=ws.device)
+    ops._check(ops._fn("pg_resample")(
+        ops._ptr(ws), ops._ptr(u), ops._ptr(idx), ops._ptr(ws_out),
+        ops._ptr(lml), R, P, int(final), int(bool(retained)),
+        plan["threads"], plan["smem"], plan.get("group", 0),
+        ops._stream(ws)), "pg_resample")
+    return idx, ws_out, lml
+
+
+def k9_chain(sass: dict, P: int, mode: str) -> int:
+    """The instructions of the longest dependent chain one K9 row needs
+    (LATENCY_GLUE above): the max's levels (a shuffle and a max each) and
+    exp, then the longest of the branches that run side by side after
+    it: s1's levels (a shuffle and an add) and log (lse); the q scan's
+    levels (two shuffles and a 64-bit add, K9_SCAN_LEVEL) and one pick
+    (a compare a level and a count); in resample mode s2's levels and the
+    ESS test (a multiply, a division and a compare), log2 P levels each;
+    K9_GLUE for the adds and selects around them."""
+    lv = max(0, int(P) - 1).bit_length()
+    lse = 2 * lv + sass["logf"]
+    pick = K9_SCAN_LEVEL * lv + lv + 2
+    ess = 2 * lv + 2 + sass["fdiv"] if mode == "resample" else 0
+    return 2 * lv + sass["expf"] + max(lse, pick, ess) + K9_GLUE
+
+
 def kernel_bytes(inp: dict) -> dict:
     """Bytes each kernel must move on these inputs (each input read once,
     each output written once; for K3 only the M rows the batch observes)."""
@@ -2626,8 +2662,15 @@ AB_SCORE = (  # K12's and K13's levels in the A/B: (label, kernel, slots or
     ("K13 [1, 23] 1 gather", "choice_score", 23, 1, 1133),
 )
 AB_K22 = (  # K22's shapes in the A/B: (label, descriptors (mode, rows,
-    # width, counts)): rents' County Proportions, one Dirichlet row of 51
+    # width, counts)): the six paths' census shapes: rents' County
+    # Proportions, one Dirichlet row of 51; scaled's of 50; hospital's
+    # three Proportions of 23, 14 and 8 in one call; flights' 39 Beta pairs
     ("rents [1, 51] Dirichlet", (("dirichlet_log", 1, 51, True),)),
+    ("scaled [1, 50] Dirichlet", (("dirichlet_log", 1, 50, True),)),
+    ("hospital [1, 23] [1, 14] [1, 8] Dirichlet", (
+        ("dirichlet_log", 1, 23, True), ("dirichlet_log", 1, 14, True),
+        ("dirichlet_log", 1, 8, True))),
+    ("flights [39, 2] Beta", (("beta", 39, 2, True),)),
 )
 AB_K14 = (  # K14's shapes in the A/B without --census-shapes: (census
     # mode, C): scaled's refcount of its Records and of its Hospitals (the
@@ -3205,6 +3248,17 @@ def k10_ab_call(ops, inp: dict, check: bool = True):
     return lambda: ops.row_delta(car, s, sign, "obs")
 
 
+def ab_outputs(ops, kernel: str, inp: dict) -> list:
+    """K9's or K22's outputs on inp, on the host (the A/B holds every
+    tree's to the first tree's, bit for bit)."""
+    if kernel == "pg_resample":
+        got = ops.pg_resample(inp["ws"], inp["u"], inp["mode"],
+                              inp["retained"])
+    else:
+        got = ops.gamma_draw(inp["descs"], inp["seed"])
+    return [x.cpu() for x in got if x is not None]
+
+
 def time_ab_seeded(ops, kernel: str, inp: dict) -> dict:
     """One A/B turn of K4, K5, K6, K7 or K8 on `inp`: checked against the
     plain version, then ms (cuda_ms) and device_ms (graph_ms), with the
@@ -3301,6 +3355,8 @@ def time_ab_seeded(ops, kernel: str, inp: dict) -> dict:
         t.pop("plain_ms")
         t["host_us"] = host_us(lambda: ops.gamma_draw(inp["descs"],
                                                       inp["seed"]))
+        alpha = _k22_alpha(inp["descs"])
+        t["library_host_us"] = host_us(lambda: torch._standard_gamma(alpha))
         return t
     if kernel == "level_sum":   # the code as the tree's tracer folds it
         args = (ops.level_program(inp["prog"]), inp["operands"], inp["rank"])
@@ -3316,6 +3372,8 @@ def time_ab_seeded(ops, kernel: str, inp: dict) -> dict:
         check_k9(ops, inp)
         t = time_k9(ops, inp)
         t.pop("plain_ms")
+        t["host_us"] = host_us(lambda: ops.pg_resample(
+            inp["ws"], inp["u"], inp["mode"], inp["retained"]))
         return t
     if kernel == "gauss_ext_term":
         call = k5_ab_call(ops, inp["k5"], inp["part"])
@@ -3416,6 +3474,11 @@ def main(argv=None) -> int:
                          "that takes them and over K14_ROUTE_GRID, and K23 "
                          "in every geometry of K23_VARIANTS, with the last "
                          "tree's kernels")
+    ap.add_argument("--builds", default=None,
+                    help="also time one nvcc of each of these kernels' "
+                         "sources alone (comma-separated names, e.g. "
+                         "gamma_draw,pg_resample), every tree in the order "
+                         "of --turns (source_build_s)")
     ap.add_argument("--census", choices=("hospital",), default=None,
                     help="also time K7 and K8 (those in --kernels) at every "
                          "shape of the hospital path's launch census, on "
@@ -3438,6 +3501,13 @@ def main(argv=None) -> int:
                 for i, t in enumerate(a.trees)]
     for t, o in zip(a.trees, tree_ops):
         print(f"{t}: kernel build {o.build_kernels():.2f} s", flush=True)
+    builds = []
+    for t in [int(x) for x in a.turns.split(",")] if a.builds else ():
+        for name in a.builds.split(","):
+            sec = source_build_s(tree_ops[t], name)
+            builds.append(dict(tree=a.trees[t], kernel=name, s=sec))
+            print(f"build alone: {a.trees[t]} {name} {sec:.2f} s",
+                  flush=True)
     shapes, k1s, bounds = {}, {}, {}
     B = 4096
     if "k1-k3" in kinds:
@@ -3496,7 +3566,7 @@ def main(argv=None) -> int:
                    "py_resample": lambda inp: k23_bounds(inp)["bytes"]}
     for s, (k, inp) in seeded.items():
         bounds[s] = {k: count_bytes[k](inp) / HBM_BYTES_PER_S * 1e3}
-    turns = []
+    turns, same_outputs = [], {}
 
     def log(tree, s, k, times):
         turns.append(dict(tree=tree, shape=s, kernel=k, **times))
@@ -3525,6 +3595,41 @@ def main(argv=None) -> int:
             times = time_ab_seeded(ops, k, inp)
             if times is not None:   # (a form the tree does not have)
                 log(a.trees[t], s, k, times)
+            if k in ("pg_resample", "gamma_draw"):
+                same_outputs.setdefault(s, {})[a.trees[t]] = ab_outputs(
+                    ops, k, inp)
+    # K9 and K22 give every tree's kernel the same bits
+    for s, by_tree in same_outputs.items():
+        first = next(iter(by_tree.values()))
+        require(all(len(o) == len(first) and all(
+            torch.equal(x, y) for x, y in zip(o, first))
+            for o in by_tree.values()), f"{s}: the trees' outputs differ")
+        print(f"{s}: outputs bit-equal across {len(by_tree)} trees",
+              flush=True)
+    # K9's and K22's plans and latency bounds (this checkout's)
+    latency = {}
+    if {"k9", "k22"} & set(kinds):
+        floor, l2, sass = launch_floor_ms(), l2_latency_ms(), k23_sass(own)
+        print(f"SASS shortest paths (instructions): "
+              f"{ {k: v for k, v in sass.items() if k != 'all'} }",
+              flush=True)
+        for s, (k, inp) in seeded.items():
+            if k == "pg_resample":
+                R, P = inp["ws"].shape
+                chain = k9_chain(sass, P, inp["mode"])
+                plan = own.pg_resample_plan(R, P)
+            elif k == "gamma_draw":
+                chain = k22_chain(sass, inp["descs"])
+                plan = [dict(threads=L["threads"], rows=len(L["rows"]),
+                             parts=[p[2:] for p in L["parts"]])
+                        for L in own.gamma_draw_plan(
+                            [(d["mode"], d["rows"], d["width"])
+                             for d in inp["descs"]])]
+            else:
+                continue
+            latency[s] = dict(chain=chain, plan=plan, latency_bound_ms=(
+                latency_bound_ms(chain, floor, l2)), floor_ms=floor,
+                l2_ms=l2)
     summary = {}
     for tree in a.trees:
         for s, kb in bounds.items():
@@ -3545,7 +3650,8 @@ def main(argv=None) -> int:
                     library_device_ms=[r.get("library_device_ms")
                                        for r in rows],
                     bound_ms=kb[k],
-                    share_of_bound=kb[k] / float(np.median(dev_ms)))
+                    share_of_bound=kb[k] / float(np.median(dev_ms)),
+                    **latency.get(s, {}))
     fmt = lambda xs: [x if x is None else "%.4f" % x  # noqa: E731
                       for x in xs]
     for key, v in summary.items():
@@ -3555,7 +3661,10 @@ def main(argv=None) -> int:
               f"library ms {fmt(v['library_ms'])} library device_ms "
               f"{fmt(v['library_device_ms'])} _sample_dirichlet device_ms "
               f"{fmt(v['dirichlet_device_ms'])} bound {v['bound_ms']:.5f} ms "
-              f"share of bound (device) {v['share_of_bound']:.3f}")
+              f"share of bound (device) {v['share_of_bound']:.3f}"
+              + (f" latency bound {v['latency_bound_ms']:.5f} ms (chain "
+                 f"{v['chain']} instructions) plan {v['plan']}"
+                 if "latency_bound_ms" in v else ""))
     # yardsticks (never called by the port), and with --paths K1's paths
     k1_all = dict(k1s, **{"fk K=%d R=%d" % (shapes[s]["K"], shapes[s]["B"]):
                           shapes[s] for s in ("batch", "r1") if s in shapes})
@@ -3592,7 +3701,7 @@ def main(argv=None) -> int:
             if k in ("rel_scatter", "py_resample"):
                 routes[s] = variant_ms(tree_ops[-1], k, inp)
                 print(f"routes {s}: " + " ".join(
-                    f"{v} {r['device_ms']:.4f} ms / {r['host_us']:.1f} us"
+                    f"{v} {r['device_ms']:.5f} ms / {r['host_us']:.1f} us"
                     for v, r in routes[s].items() if v != "plan")
                     + f" plan {routes[s].get('plan')}", flush=True)
         if "k14" in kinds:
@@ -3637,7 +3746,8 @@ def main(argv=None) -> int:
             json.dump(dict(card=torch.cuda.get_device_name(0), turns=turns,
                            summary=summary, launch_floor_ms=floor,
                            yardsticks=yard, paths=paths, geometries=geos,
-                           routes=routes, param_blocks=blocks),
+                           routes=routes, param_blocks=blocks,
+                           builds=builds),
                       f, indent=1)
     return 0
 
@@ -4260,6 +4370,16 @@ def time_level(ops, inp: dict) -> dict:
 # pow counted as one each), for its operations bound against the card's
 # float32 rate outside the tensor cores (67 TFLOP/s)
 K22_ROUND_FLOPS = 20
+# K22's and K9's latency bounds (latency_bound_ms): the launch floor, one
+# L2 load and the instructions of the longest dependent chain the function
+# needs at one instruction a clock (a warp issues at most one a clock; the
+# H100's 1.98 GHz boost clock), each library function counted by the
+# shortest path through its SASS (k23_sass), the rest by hand: K22_GLUE
+# and K9_GLUE the multiplies, adds, conversions and compares between them,
+# K9_SCAN_LEVEL a level of the 64-bit scan (two shuffles and an add with
+# carry). A lower bound: a dependent instruction waits some clocks more
+K22_GLUE, K9_GLUE, K9_SCAN_LEVEL = 10, 6, 4
+CLOCK_HZ = 1.98e9
 # K23's operations are counted in instructions, those the function needs:
 # a counted slot's three scores take 5 logf (log(j d + s) at (s0, d0),
 # (s_prop, d0) and (s1, d_prop); log(n_before + s) at s0 and s_prop, s1
@@ -4352,6 +4472,52 @@ def gamma_rounds(ops, alpha, elem, seed):
                        torch.full_like(elem, ops.GAMMA_ROUNDS))
 
 
+def k22_chain(sass: dict, descs) -> int:
+    """The instructions of the longest dependent chain a K22 call needs
+    (LATENCY_GLUE above): one rejection round of an element (Philox, then
+    the Box-Muller log and square root beside its cos, then the log of v;
+    the log of the acceptance uniform runs beside them; K22_GLUE
+    multiplies and adds between them), then for a Dirichlet row or a Beta
+    pair its sum's log2 P levels (a shuffle and an add each) and the
+    division, and a Dirichlet row's log; the largest over the call's
+    descriptors."""
+    draw = sass["philox"] + max(sass["logf"] + sass["sqrt"],
+                                sass["cosf"]) + sass["logf"] + K22_GLUE
+    out = 0
+    for d in descs:
+        if d["mode"] == "gamma":
+            out = max(out, draw)
+            continue
+        lv = max(0, d["width"] - 1).bit_length()
+        out = max(out, draw + 2 * lv + sass["fdiv"] +
+                  (sass["logf"] if d["mode"] == "dirichlet_log" else 0))
+    return out
+
+
+def source_build_s(ops, name: str) -> float:
+    """Wall seconds of one nvcc of kernel `name`'s source alone, with the
+    flags ops.build_kernels gives it, into a file of its own under the
+    build directory (removed after)."""
+    os.makedirs(ops.BUILD_DIR, exist_ok=True)
+    out = os.path.join(ops.BUILD_DIR, f"timed_{name}.{os.getpid()}.so")
+    t0 = time.time()
+    subprocess.run([ops._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+                    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+                    "-Xptxas", "-v", "-I", os.path.join(ops._HERE, "csrc"),
+                    "-o", out,
+                    os.path.join(ops._HERE, "csrc", ops._SOURCES[name])],
+                   check=True, capture_output=True)
+    sec = time.time() - t0
+    os.remove(out)
+    return sec
+
+
+def latency_bound_ms(chain: int, floor_ms: float, l2_ms: float) -> float:
+    """The latency bound: the launch floor, one L2 load and `chain`
+    dependent instructions at one a clock (CLOCK_HZ)."""
+    return floor_ms + l2_ms + 1e3 * chain / CLOCK_HZ
+
+
 def time_k22(ops, inp: dict) -> dict:
     """K22 beside its plain version, torch._standard_gamma at the same
     alphas (one PyTorch call drawing the same gammas, no normalisation)
@@ -4437,11 +4603,31 @@ def check_k23(ops, inp: dict, geometry=None) -> dict:
     return dict(max_abs_err=0.0)
 
 
-# the probes whose SASS k23_sass reads: one lgammaf, one logf, and one
-# that only loads and stores
+# the probes whose SASS k23_sass reads: one lgammaf, one logf (K23), one
+# cosf, expf, correctly rounded square root and division, one Philox
+# block of csrc/gamma.cuh (K22's and K9's latency bounds), and one that
+# only loads and stores
 K23_SASS_PROBES = r"""
+#include "gamma.cuh"
 extern "C" __global__ void copy_probe(const float* x, float* y) {
   y[threadIdx.x] = x[threadIdx.x];
+}
+extern "C" __global__ void cosf_probe(const float* x, float* y) {
+  y[threadIdx.x] = cosf(x[threadIdx.x]);
+}
+extern "C" __global__ void expf_probe(const float* x, float* y) {
+  y[threadIdx.x] = expf(x[threadIdx.x]);
+}
+extern "C" __global__ void sqrt_probe(const float* x, float* y) {
+  y[threadIdx.x] = __fsqrt_rn(x[threadIdx.x]);
+}
+extern "C" __global__ void fdiv_probe(const float* x, float* y) {
+  y[threadIdx.x] = __fdiv_rn(x[threadIdx.x], y[threadIdx.x]);
+}
+extern "C" __global__ void philox_probe(const float* x, float* y) {
+  const uint64_t s = reinterpret_cast<const uint64_t*>(x)[threadIdx.x];
+  const pclean_gamma::Block b = pclean_gamma::draw(s, s >> 7, 0, 0);
+  y[threadIdx.x] = __uint_as_float(b.x ^ b.y ^ b.z ^ b.w);
 }
 extern "C" __global__ void lgammaf_probe(const float* x, float* y) {
   y[threadIdx.x] = lgammaf(x[threadIdx.x]);
@@ -4525,18 +4711,18 @@ def k23_sass(ops) -> dict:
     with open(src, "w") as f:
         f.write(K23_SASS_PROBES)
     subprocess.run([ops._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-                    "-O3", "-cubin", "-o", cubin, src], check=True,
-                   capture_output=True)
+                    "-O3", "-cubin", "-I", os.path.join(ops._HERE, "csrc"),
+                    "-o", cubin, src], check=True, capture_output=True)
     tool = os.path.join(os.path.dirname(ops._nvcc()), "cuobjdump")
     paths = sass_paths(subprocess.run([tool, "-sass", cubin],
                                       capture_output=True, text=True,
                                       check=True).stdout)
     base = paths["copy_probe"]
+    names = ("lgammaf", "logf", "cosf", "expf", "sqrt", "fdiv", "philox")
     _K23_SASS.update(
-        lgammaf=paths["lgammaf_probe"]["shortest"] - base["shortest"],
-        logf=paths["logf_probe"]["shortest"] - base["shortest"],
-        all=dict(lgammaf=paths["lgammaf_probe"]["all"] - base["all"],
-                 logf=paths["logf_probe"]["all"] - base["all"]))
+        {n: paths[n + "_probe"]["shortest"] - base["shortest"]
+         for n in names},
+        all={n: paths[n + "_probe"]["all"] - base["all"] for n in names})
     return _K23_SASS
 
 

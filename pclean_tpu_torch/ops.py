@@ -435,7 +435,8 @@ def build_kernels(force: bool = False) -> float:
                               I64, I64, I32, P],
             "sa_ext_term": [P, I64, I64, I64, P, P, I64, P, I64, P, P, I64,
                             I32, I64, I64, I64, I32, I64, P],
-            "pg_resample": [P, P, P, P, P, I64, I32, I32, I32, I32, I32, P],
+            "pg_resample": [P, P, P, P, P, I64, I32, I32, I32, I32, I32, I32,
+                            P],
             "row_delta": [P, I32, P, I32, P, P, P],
             "row_write": [P, I32, P],
             "fk_score": [P, I32, I32, I32, I64, I64, P],
@@ -1542,19 +1543,30 @@ def sa_ext_term(SA, rv, val, w):
 K9_MODES = ("resample", "final")
 _K9_MAX_P = 16384        # 12 P bytes of shared memory stay under SMEM_MAX
 _K9_MAX_THREADS = 256
+K9_GROUP_MAX = 32        # the group path takes rows of up to a warp's lanes
+K9_GROUP_WARPS = 8       # warps a block of the group path at most
 
 
 def pg_resample_plan(R: int, P: int) -> dict:
-    """K9's launch for R rows of P particles: one block a row, a warp for
-    every 32 particles up to 8 warps (a thread owns a contiguous chunk of
-    ceil(P / threads) particles), the row's weights and prefix sums in
-    12 P bytes of dynamic shared memory: dict(threads, smem, grid)."""
+    """K9's launch for R rows of P particles: dict(threads, smem, grid,
+    group). P <= K9_GROUP_MAX: the group path, a group of `group` =
+    _pow2(P) lanes a row (32 / group rows a warp), up to K9_GROUP_WARPS
+    warps a block, no shared memory. Wider rows: one block a row (group
+    0), a warp for every 32 particles up to 8 warps (a thread owns a
+    contiguous chunk of ceil(P / threads) particles), the row's weights
+    and prefix sums in 12 P bytes of dynamic shared memory."""
     R, P = int(R), int(P)
     if R < 0 or R > 2 ** 31 - 1 or not 1 <= P <= _K9_MAX_P:
         raise ValueError(f"pg_resample: R = {R}, P = {P} out of range "
                          f"(P <= {_K9_MAX_P})")
+    if P <= K9_GROUP_MAX:
+        G = _pow2(P)
+        per = 32 // G
+        warps = min(K9_GROUP_WARPS, max(1, -(-R // per)))
+        return dict(threads=32 * warps, smem=0, grid=-(-R // (per * warps)),
+                    group=G)
     threads = min(_K9_MAX_THREADS, 32 * -(-P // 32))
-    return dict(threads=threads, smem=12 * P, grid=R)
+    return dict(threads=threads, smem=12 * P, grid=R, group=0)
 
 
 def pg_resample_plain(ws: torch.Tensor, u: torch.Tensor,
@@ -1626,7 +1638,8 @@ def pg_resample(ws: torch.Tensor, u: torch.Tensor, mode: str = "resample",
     lml = torch.empty((R,), dtype=torch.float32, device=ws.device)
     rc = _fn("pg_resample")(_ptr(ws), _ptr(u), _ptr(idx), _ptr(ws_out),
                             _ptr(lml), R, P, int(final), int(bool(retained)),
-                            plan["threads"], plan["smem"], _stream(ws))
+                            plan["threads"], plan["smem"], plan["group"],
+                            _stream(ws))
     _check(rc, "pg_resample")
     _count("pg_resample", R, P, mode)
     return (idx, lml) if final else (idx, ws_out, lml)
@@ -4871,6 +4884,13 @@ GAMMA_ROUNDS = 16
 GAMMA_STREAM, PY_GAMMA_STREAM, PY_UNIFORM_STREAM = 0, 1, 2
 K22_MODES = ("gamma", "dirichlet_log", "beta")
 K22_HEAD, K22_DESC, K22_MAX_DESC = 8, 16, 64
+# K22's geometry (csrc/gamma_draw.cu): a row a block of the launch's widest
+# P = _pow2(width) threads (32 to K22_THREADS; P / K22_THREADS elements a
+# thread past that); a launch takes K22_MAX_DESC descriptors and
+# K22_MAX_ROWS rows, listed in its plan at word K22_ROWS_AT (PERF.md
+# section 6: a group of lanes a row measured no faster)
+K22_MAX_ROWS, K22_THREADS = 2048, 256
+K22_ROWS_AT = K22_HEAD + K22_DESC * K22_MAX_DESC
 K23_HEAD, K23_CLASS, K23_MAX_CLASSES = 4, 12, 64
 # K23's geometry (csrc/py_resample.cu): one block a class up to
 # K23_MAX_THREADS slots, past that a cluster of up to K23_CLUSTER blocks
@@ -5057,23 +5077,96 @@ def gamma_draw_mode(descs) -> str:
             f"width={max(d['width'] for d in descs)}")
 
 
-def gamma_draw(descs, seed, outs=None) -> list:
-    """K22: gamma_draw_plain's draws in one launch a K22_MAX_DESC
-    descriptors (one for a resample_all), a block a row, the seed read on
-    the card. Outputs in torch.empty buffers, or in outs[k] (a contiguous
-    float32 tensor of the output's shape: a parameter leaf, written in
-    place). On CPU tensors the plain version; on CUDA ones the kernel or an
-    error. Counted in LAUNCH_CENSUS by (gamma_draw_mode, r1 or rn by the
-    rows, the elements)."""
-    if not descs:
-        return []
-    if not _route(seed, "gamma_draw"):
-        return gamma_draw_plain(descs, seed, outs)
-    if seed.dtype != torch.int64 or seed.numel() != 1:
-        raise ValueError("gamma_draw: the seed must be an int64 [1] on the "
-                         "card")
-    dev = seed.device
-    recs, res, elem0, g0, rows0 = [], [], 0, 0, 0
+def gamma_draw_plan(shapes) -> list:
+    """K22's launches for descriptors of these (mode, rows, width): each
+    dict(parts, rows, threads). A part is (descriptor, first row, rows,
+    E), E = max(1, P / threads) elements a thread (P = _pow2(width));
+    `rows` lists the launch's rows (part, row in the part), a block each;
+    threads: the launch's widest P, 32 to K22_THREADS. A descriptor's
+    rows are cut into parts where a launch fills (K22_MAX_DESC parts,
+    K22_MAX_ROWS rows)."""
+    launches, cur = [], None
+
+    def flush():
+        if cur is None or not cur["parts"]:
+            return
+        T = min(K22_THREADS, max([32] + [
+            _pow2(shapes[k][2]) for k, _r, _n, _e in cur["parts"]]))
+        cur["parts"] = [(k, r, n, max(1, _pow2(shapes[k][2]) // T))
+                        for k, r, n, _e in cur["parts"]]
+        cur["threads"] = T
+        launches.append(cur)
+
+    for k, (mode, rows, width) in enumerate(shapes):
+        if mode not in K22_MODES or rows < 0 or width < 1 or \
+                (mode == "beta" and width != 2):
+            raise ValueError(f"gamma_draw: {rows} rows of {width} ({mode})")
+        r = 0
+        while r < rows:
+            room = 0 if cur is None else K22_MAX_ROWS - len(cur["rows"])
+            if room <= 0 or len(cur["parts"]) == K22_MAX_DESC:
+                flush()
+                cur = dict(parts=[], rows=[])
+                continue
+            take = min(rows - r, room)
+            cur["rows"] += [(len(cur["parts"]), i) for i in range(take)]
+            cur["parts"].append((k, r, take, 0))
+            r += take
+    flush()
+    return launches
+
+
+def gamma_draw_words(descs, launch: dict) -> tuple:
+    """One K22 launch's plan (gamma_draw_plan's `launch` over `descs`):
+    (words, pointer positions [(word, "seed" / "base" / "cnt" / "out",
+    descriptor, byte offset)]), every pointer 0: the header, a descriptor
+    a part (its counts, output and first element moved to the part's
+    first row), the unused descriptors 0, then the row table, int32
+    entries part + 64 row, two a word."""
+    words = [len(launch["parts"]), 0, len(launch["rows"]),
+             launch["threads"], 0, 0, 0, 0]
+    pos = [(1, "seed", None, 0)]
+    elem0, e = [], 0
+    for dc in descs:
+        elem0.append(e)
+        e += dc["rows"] * dc["width"]
+    for k, r0, rows, E in launch["parts"]:
+        dc = descs[k]
+        W, cnt = dc["width"], dc["counts"]
+        at = len(words)
+        cw = [0, 0, 0, 0]
+        if cnt is not None:
+            cw = [0, _DT[cnt.dtype], cnt.stride(0), cnt.stride(1)]
+            pos.append((at + 7, "cnt", k,
+                        r0 * cnt.stride(0) * cnt.element_size()))
+        ors = 1 if dc["mode"] == "beta" else W
+        pos += [(at + 5, "base", k, 0), (at + 11, "out", k, 4 * r0 * ors)]
+        words += [K22_MODES.index(dc["mode"]), rows, W, _pow2(W), E, 0,
+                  0 if dc["base"].numel() == 1 else 1] + cw + \
+            [0, ors, elem0[k] + r0 * W, 0, 0]
+    words += [0] * (K22_ROWS_AT - len(words))
+    ents = [p + 64 * i for p, i in launch["rows"]]
+    if len(ents) % 2:
+        ents.append(0)
+    words += [ents[i] | (ents[i + 1] << 32) for i in range(0, len(ents), 2)]
+    return words, pos
+
+
+_K22_PLANS: dict = {}
+
+
+def _k22_key(dc, out) -> tuple:
+    b, c = dc["base"], dc["counts"]
+    return (dc["mode"], dc["rows"], dc["width"], b.dtype, b.shape,
+            b.get_device(), b.is_contiguous(),
+            None if c is None else (c.dtype, c.shape, c.stride(),
+                                    c.get_device()),
+            None if out is None else (out.dtype, out.shape, out.get_device(),
+                                      out.is_contiguous()))
+
+
+def _k22_check(descs, outs) -> None:
+    """Raises for descriptors or outputs that K22 does not take."""
     for k, dc in enumerate(descs):
         R, W = dc["rows"], dc["width"]
         if R < 0 or W < 1 or (dc["mode"] == "beta" and W != 2):
@@ -5084,54 +5177,122 @@ def gamma_draw(descs, seed, outs=None) -> list:
             raise ValueError(f"gamma_draw: base {base.dtype} "
                              f"{tuple(base.shape)} on {base.device}")
         cnt = dc["counts"]
-        cw = [0, 0, 0, 0]
-        if cnt is not None:
-            if not cnt.is_cuda or cnt.dtype not in (torch.int32, torch.int64) \
-                    or tuple(cnt.shape) != (R, W):
-                raise ValueError(f"gamma_draw: counts {cnt.dtype} "
-                                 f"{tuple(cnt.shape)} (expected int [{R}, "
-                                 f"{W}] on the card)")
-            cw = [cnt.data_ptr(), _DT[cnt.dtype], cnt.stride(0),
-                  cnt.stride(1)]
+        if cnt is not None and (
+                not cnt.is_cuda or cnt.dtype not in (torch.int32, torch.int64)
+                or tuple(cnt.shape) != (R, W)):
+            raise ValueError(f"gamma_draw: counts {cnt.dtype} "
+                             f"{tuple(cnt.shape)} (expected int [{R}, "
+                             f"{W}] on the card)")
+        out = outs[k] if outs is not None else None
         shape = gamma_out_shape(dc)
-        out = outs[k] if outs is not None and outs[k] is not None else \
-            torch.empty(shape, dtype=torch.float32, device=dev)
-        if not out.is_cuda or out.dtype != torch.float32 or \
-                tuple(out.shape) != shape or not out.is_contiguous():
+        if out is not None and (
+                not out.is_cuda or out.dtype != torch.float32 or
+                tuple(out.shape) != shape or not out.is_contiguous()):
             raise ValueError(f"gamma_draw: output {out.dtype} "
                              f"{tuple(out.shape)} (expected float32 {shape})")
-        res.append(out)
-        P = _pow2(W)
-        recs.append([K22_MODES.index(dc["mode"]), R, W, P, base.data_ptr(),
-                     0 if base.numel() == 1 else 1] + cw +
-                    [out.data_ptr(), 1 if dc["mode"] == "beta" else W,
-                     elem0, g0, 0, rows0])
-        elem0 += R * W
-        g0 += R * W
-        rows0 += R
-    # the tree sums' room after every g
-    t0 = g0
-    for r in recs:
-        r[14] = t0
-        t0 += r[1] * (r[3] // 2)
-    scratch = torch.empty((max(t0, 1),), dtype=torch.float32, device=dev)
-    for lo in range(0, len(recs), K22_MAX_DESC):
-        chunk = recs[lo:lo + K22_MAX_DESC]
-        first = chunk[0][15]
-        words = [len(chunk), seed.data_ptr(), scratch.data_ptr(),
-                 sum(r[1] for r in chunk)] + [0] * (K22_HEAD - 4)
-        for r in chunk:
-            words += r[:15] + [r[15] - first]
-        arr = (ctypes.c_int64 * len(words))(*words)
-        rc = _fn("gamma_draw")(arr, len(arr), _stream(seed))
-        _check(rc, "gamma_draw")
-        sub = descs[lo:lo + K22_MAX_DESC]
-        _count("gamma_draw", words[3], sum(d["rows"] * d["width"]
-                                           for d in sub),
-               gamma_draw_mode(sub),
-               dict(descs=[(d["mode"], d["rows"], d["width"],
-                            d["counts"] is not None) for d in sub]))
+
+
+def _k22_entry(descs, outs) -> tuple:
+    """A _K22_PLANS entry for descriptors of this structure (checked by
+    _k22_check): (the outputs' buffer elements, [(offset, shape, strides)]
+    of each output the caller does not pass, else None), [(words as an
+    array.array, its address, its length, pointer positions, rows,
+    elements, census mode, census fields)] a launch)."""
+    layout, total = [], 0
+    for k, dc in enumerate(descs):
+        if outs is not None and outs[k] is not None:
+            layout.append(None)
+            continue
+        shape = gamma_out_shape(dc)
+        layout.append((total, shape, (shape[-1], 1)[-len(shape):]))
+        total += math.prod(shape)
+    launches = []
+    for launch in gamma_draw_plan(
+            [(d["mode"], d["rows"], d["width"]) for d in descs]):
+        words, pos = gamma_draw_words(descs, launch)
+        arr = array.array("q", words)
+        sub = [dict(descs[k], rows=n) for k, _r0, n, _e in launch["parts"]]
+        launches.append((arr, arr.buffer_info()[0], len(arr), pos,
+                         sum(d["rows"] for d in sub),
+                         sum(d["rows"] * d["width"] for d in sub),
+                         gamma_draw_mode(sub),
+                         dict(descs=[(d["mode"], d["rows"], d["width"],
+                                      d["counts"] is not None)
+                                     for d in sub])))
+    return total, layout, launches
+
+
+def gamma_draw(descs, seed, outs=None) -> list:
+    """K22: gamma_draw_plain's draws in one launch (gamma_draw_plan: a
+    block a row; another launch past K22_MAX_DESC descriptors or
+    K22_MAX_ROWS rows), the
+    seed read on the card. Outputs in views of one torch.empty buffer, or
+    in outs[k] (a contiguous float32 tensor of the output's shape: a
+    parameter leaf, written in place). The plan is built once for a call
+    structure (_K22_PLANS: modes, rows, widths, the tensors' kinds); a call
+    writes only its pointers into it. On CPU tensors the plain version; on
+    CUDA ones the kernel or an error. Counted in LAUNCH_CENSUS by
+    (gamma_draw_mode, r1 or rn by the rows, the elements)."""
+    if not descs:
+        return []
+    if not _route(seed, "gamma_draw"):
+        return gamma_draw_plain(descs, seed, outs)
+    if seed.dtype != torch.int64 or seed.numel() != 1:
+        raise ValueError("gamma_draw: the seed must be an int64 [1] on the "
+                         "card")
+    key = (seed.get_device(), tuple(
+        _k22_key(dc, None if outs is None else outs[k])
+        for k, dc in enumerate(descs)))
+    ent = _K22_PLANS.get(key)
+    if ent is None:
+        _k22_check(descs, outs)
+        ent = _k22_entry(descs, outs)
+        if len(_K22_PLANS) >= _PLAN_CACHE_MAX:
+            _K22_PLANS.clear()
+        _K22_PLANS[key] = ent
+    return _k22_run(descs, seed, outs, ent, True)
+
+
+def _k22_run(descs, seed, outs, ent, count: bool) -> list:
+    """A _K22_PLANS entry's launches for these descriptors (_k22_fill),
+    counted where `count`; returns the outputs."""
+    res, launches = _k22_fill(descs, seed, outs, ent)
+    fn, stream = _fn("gamma_draw"), _stream(seed)
+    for _words, addr, n, _pos, rows, elems, mode, fields in launches:
+        _check(fn(addr, n, stream), "gamma_draw")
+        if count:
+            _count("gamma_draw", rows, elems, mode, fields)
     return res
+
+
+def _k22_fill(descs, seed, outs, ent) -> tuple:
+    """The outputs of a _K22_PLANS entry's call (views of one new buffer
+    where outs does not give them; one output its own tensor), and its
+    launches with this call's pointers written into their words."""
+    total, layout, launches = ent
+    new = [lay for lay in layout if lay is not None]
+    if len(new) == 1:
+        buf = torch.empty(new[0][1], dtype=torch.float32, device=seed.device)
+    elif new:
+        buf = torch.empty((total,), dtype=torch.float32, device=seed.device)
+    res = []
+    for k, lay in enumerate(layout):
+        if lay is None:
+            res.append(outs[k])
+        elif len(new) == 1:
+            res.append(buf)
+        else:
+            res.append(buf.as_strided(lay[1], lay[2], lay[0]))
+    ptr = {"seed": seed.data_ptr()}
+    for k, dc in enumerate(descs):
+        ptr["base", k] = dc["base"].data_ptr()
+        ptr["out", k] = res[k].data_ptr()
+        if dc["counts"] is not None:
+            ptr["cnt", k] = dc["counts"].data_ptr()
+    for words, _addr, _n, pos, *_rest in launches:
+        for at, what, k, off in pos:
+            words[at] = (ptr[what] if k is None else ptr[what, k]) + off
+    return res, launches
 
 
 def py_class(refcount, alive, strength, discount) -> dict:

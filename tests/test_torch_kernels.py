@@ -1501,13 +1501,45 @@ def test_k8_cuda_split_edges(card, case):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("R,P", [(1, 2), (64, 16), (1, 16), (1, 1024),
-                                 (4096, 2), (3, 1000), (2, 16384)])
+                                 (4096, 2), (3, 1000), (2, 16384), (2, 16),
+                                 (3, 16), (64, 32), (5, 33)])
 def test_k9_cuda_matches_plain(card, R, P):
     from pclean_tpu_torch.kernel_bench import check_k9, k9_inputs
 
     for retained in (False, True):
         for mode in ops.K9_MODES:
             check_k9(ops, k9_inputs(card, R, P, mode, retained))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,P", [(1, 16), (64, 16), (2, 16), (3, 16),
+                                 (64, 32), (7, 1), (9, 5), (4096, 2),
+                                 (33, 31)])
+def test_k9_cuda_group_path_bit_equal_to_block_path(card, R, P):
+    """The group path (the plan's at P <= 32) against the block path on
+    the same inputs, the block's words set by hand
+    (kernel_bench.k9_launch): sel (or j), ws_out and lml bit-equal, in
+    both modes, with and without the retained particle, NEG_INF weights
+    among them; and a group of 32 lanes at P = 16 likewise."""
+    from pclean_tpu_torch.kernel_bench import k9_inputs, k9_launch
+
+    block = dict(threads=32 * -(-P // 32), smem=12 * P, group=0)
+    for retained in (False, True):
+        for mode in ops.K9_MODES:
+            k9 = k9_inputs(card, R, P, mode, retained, seed=R + P)
+            k9["ws"][::3, ::2] = NEG_INF
+            plan = ops.pg_resample_plan(R, P)
+            assert plan["group"] == ops._pow2(P)
+            runs = [k9_launch(ops, k9, plan), k9_launch(ops, k9, block)]
+            if P == 16:
+                runs.append(k9_launch(ops, k9, dict(plan, group=32)))
+            want = ops.pg_resample(k9["ws"], k9["u"], mode, retained)
+            torch.cuda.synchronize()
+            for got in runs:
+                for x, y in zip(got, runs[1]):
+                    assert (x is None and y is None) or torch.equal(x, y)
+            for x, y in zip(want, [t for t in runs[1] if t is not None]):
+                assert torch.equal(x, y)
 
 
 @pytest.mark.cuda

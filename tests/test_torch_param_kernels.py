@@ -376,6 +376,20 @@ K22_SHAPES = {
     "wide": [("gamma", 3, 700, False), ("dirichlet_log", 2, 1000, True),
              ("dirichlet_log", 5, 1, False), ("beta", 1, 2, False)],
     "many": [("dirichlet_log", 1, 3, True)] * 70,
+    # the census shapes: flights' 39 Beta pairs, scaled's and rents' one
+    # Dirichlet row, hospital's three
+    "flights_census": [("beta", 39, 2, True)],
+    "scaled": [("dirichlet_log", 1, 50, True)],
+    "rents": [("dirichlet_log", 1, 51, True)],
+    "hospital_census": [("dirichlet_log", 1, 23, True),
+                        ("dirichlet_log", 1, 14, True),
+                        ("dirichlet_log", 1, 8, True)],
+    # descriptors of mixed widths and modes in one launch: rows of 1 to
+    # 200 on blocks of 256, Beta pairs, plain gammas
+    "mixed": [("dirichlet_log", 1, 23, True), ("dirichlet_log", 2, 7, True),
+              ("beta", 5, 2, True), ("gamma", 1, 1, False),
+              ("dirichlet_log", 1, 64, True), ("dirichlet_log", 3, 200, True),
+              ("gamma", 2, 33, True)],
 }
 
 

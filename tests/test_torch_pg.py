@@ -474,12 +474,12 @@ def test_k9_plain_matches_numpy_particles(P, retained):
 
 
 def test_k9_plan_geometry():
-    assert ops.pg_resample_plan(64, 16) == dict(threads=32, smem=192,
-                                                grid=64)
+    assert ops.pg_resample_plan(64, 16) == dict(threads=256, smem=0,
+                                                grid=4, group=16)
     assert ops.pg_resample_plan(1, 1024) == dict(threads=256, smem=12288,
-                                                 grid=1)
-    assert ops.pg_resample_plan(4096, 2) == dict(threads=32, smem=24,
-                                                 grid=4096)
+                                                 grid=1, group=0)
+    assert ops.pg_resample_plan(4096, 2) == dict(threads=256, smem=0,
+                                                 grid=32, group=2)
     assert ops.pg_resample_plan(1, 16384)["smem"] == 196608
     for bad in ((1, 0), (1, 16385), (-1, 4)):
         with pytest.raises(ValueError):
