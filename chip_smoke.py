@@ -113,7 +113,8 @@ It drives the port only (never jax, never pclean_tpu), in order:
      CPU copy, under the sync debug mode's "error"
      (kernel_bench.check_rel_state), then each at every shape of the
      path's census on seeded inputs of that shape (kernel_bench.
-     k14_inputs, k15_inputs), bit-equal (rel_checks); and the trace
+     k14_inputs, k15_inputs), bit-equal, K15's also leaving the
+     caller's columns as they were (rel_checks); and the trace
      phase (trace_sections, at most about 30 s in all): torch.profiler
      over one hospital ramp row, one hospital batched init segment and
      one rents Obs batch from fresh states of those paths' models, where
@@ -169,6 +170,15 @@ It drives the port only (never jax, never pclean_tpu), in order:
      count of differing draws reported (param_checks); the trace phase's
      eager runs also tally the parameter resampling's device ops
      (PARAM_MODULES);
+  8g. after the hospital path, on its state: save_results into a
+     temporary directory, the reconstructed CSV read back through
+     io.read_csv at the path's rows and every inferred_<class>.csv at
+     the class's live entities (save_phase); a fresh init saved by
+     save_checkpoint, swept from the live state and, on a new Engine,
+     from load_checkpoint's state and generator, bit-equal
+     (checkpoint_phase); and `python -m pclean_tpu_torch.workloads.
+     hospital --rows 1000 --json` as a process of its own, one line of
+     experiments/common.py report's keys (runner_phase);
   9. after all six paths, K12 fk_score and K13 choice_score at every
      shape of the paths' launch census holding >= SHAPE_SHARE of a path's
      launches (enumeration rows, slots or options, and each fused child
@@ -180,11 +190,15 @@ It drives the port only (never jax, never pclean_tpu), in order:
      other: ops.score_spread), timed beside them, torch.logsumexp over
      the record and the bytes bound (bench_score_shapes); K14 and
      K15 timed at every census shape holding >= SHAPE_SHARE of a path's
-     launches, beside their plain versions, the library call of the
-     count alone (index_add_; K15: index_copy_ of one column) and the
-     bytes bound, K14 with the route its plan takes (a thread a source or
-     a histogram in each block's shared memory, ops.rel_scatter_plan)
-     (bench_rel_shapes); K16-K18 timed at their most
+     launches, beside their plain versions, the library call computing
+     the same function (index_add_ of the counts; K15: the out-of-place
+     torch.index_copy of every column and the alive bits) and the bytes
+     bound (K15's: every column read and written whole, and the batch),
+     K14 with the route its plan takes (a thread a source or a histogram
+     in each block's shared memory, ops.rel_scatter_plan), K15 beside its
+     parent's whole call on the same inputs (one clone() a column and the
+     scatter-only kernel, kernel_bench.k15_parent_call: device ms, events
+     and host us) (bench_rel_shapes); K16-K18 timed at their most
      launched one-row and batched census shapes holding >= SHAPE_SHARE of
      a path's launches and at the largest, K19 at every one with its host
      us a call back to back, K16 and K17 in every draw
@@ -264,7 +278,9 @@ not on every path, one of the six paths calling a wrapper past a single
 launch's limit (ops.SPLITS: none passes one), a limits-phase wrapper never
 called past its old limit or its model's F1 below LIMITS_F1_FLOOR, a
 shadow run or the state check
-of K14 differs or waits for the card, a graph replay differs from the
+of K14 differs or waits for the card, a path's K15 launches differ from
+its _apply_batch calls, a K15 call writes its caller's columns, the saved
+results, the resumed sweep or the runner's line do not hold as above, a graph replay differs from the
 eager row or a graphed loop kind ran a row after its first eagerly, a PG
 path's log-ML is not finite, a path's F1 is below its floor (F1_FLOORS: scaled, rents,
 flights, hospital, and the two PG paths'), or any phase raises.
@@ -1045,9 +1061,14 @@ def bench_rel_shapes(ops, dev, checked: dict, floor) -> dict:
     a path's launches of the kernel (each distinct shape once, with its
     launches on every path; every shape was checked after its path), on
     seeded inputs: kernel ms and device ms, the plain version, the library
-    call of the count alone (K14: index_add_; K15: index_copy_ of one
-    column), the bytes bound (kernel_bench.k14_bytes, k15_bytes) and the
-    launch floor. Returns {kernel: [one dict per shape]}."""
+    call computing the same function (K14: index_add_ of the counts; K15:
+    the out-of-place torch.index_copy of every column and the alive bits),
+    the bytes bound (kernel_bench.k14_bytes, k15_bytes: K15's now the
+    columns read and written whole, its parent's scatter-only bound
+    beside it) and the launch floor; K15 also the parent's whole call
+    (its clones and its scatter kernel, kernel_bench.k15_parent_call:
+    device ms, events, host us a call) on the same inputs. Returns
+    {kernel: [one dict per shape]}."""
     from pclean_tpu_torch import kernel_bench as kb
 
     out = {}
@@ -1074,6 +1095,8 @@ def bench_rel_shapes(ops, dev, checked: dict, floor) -> dict:
             else:
                 inp = kb.k15_inputs(dev, mode, K)
                 b, t = kb.k15_bytes(inp), kb.time_k15(ops, inp)
+                t["scatter_bound_ms"] = \
+                    kb.k15_scatter_bytes(inp) / kb.HBM_BYTES_PER_S * 1e3
             x = dict(shape=f"{mode} K={K}", K=K, max_abs_err=0.0,
                      launches=sum(sh["launches_by_path"].values()),
                      launches_by_path=sh["launches_by_path"], bytes=b,
@@ -1087,6 +1110,15 @@ def bench_rel_shapes(ops, dev, checked: dict, floor) -> dict:
                   f"(device {_ms(x['library_device_ms'])}) bound "
                   f"{x['bound_ms']:.6f} ms floor {floor:.4f} ms plan "
                   f"{x.get('plan')}", flush=True)
+            if name == "batch_write" and x["device_ms"] is not None:
+                print(f"batch_write {x['shape']}: the whole call's device "
+                      f"{x['device_ms']:.4f} ms against the parent's clones "
+                      f"+ K15 {x['parent_device_ms']:.4f} ms (events "
+                      f"{x['parent_ms']:.4f} ms); host {x['host_us']:.1f} "
+                      f"against {x['parent_host_us']:.1f} us a call; "
+                      f"{x['device_ms'] / x['bound_ms']:.2f}x the bound "
+                      f"{x['bound_ms']:.6f} ms (the parent's scatter-only "
+                      f"bound {x['scatter_bound_ms']:.6f} ms)", flush=True)
             del inp
         torch.cuda.empty_cache()
     return out
@@ -1101,12 +1133,15 @@ def _ms(x) -> str:
 def rel_entry(name: str, shapes: list) -> dict:
     """K14's or K15's kernels-line entry: the numbers of the timed shape
     launched most over the six paths (among those whose call launches
-    work)."""
+    work); K15's with its parent's whole call beside them."""
     top = max((r for r in shapes if r["ms"] is not None),
               key=lambda r: r["launches"])
+    extra = ("parent_ms", "parent_device_ms", "host_us", "parent_host_us",
+             "scatter_bound_ms") if name == "batch_write" else ()
     return dict({key: top[key] for key in (
         "max_abs_err", "ms", "device_ms", "plain_ms", "library_ms",
-        "library_device_ms", "bytes", "bound_ms", "floor_ms", "shape")},
+        "library_device_ms", "bytes", "bound_ms", "floor_ms", "shape")
+        + extra},
         name=name, route="cuda", source=SOURCES[name][0],
         replaces=SOURCES[name][1], bound_by="bytes")
 
@@ -2215,34 +2250,170 @@ def fused_order_check() -> dict:
     return dict(f1=f1, phases=sweep, launches=launched)
 
 
+# experiments/common.py report's keys: the runner's line holds them
+REPORT_KEYS = ("experiment", "elapsed_sec", "rows", "sweeps",
+               "rows_cleaned_per_sec", "f1", "errors", "changed", "cleaned",
+               "precision", "recall", "imputed", "correctly_imputed")
+RUNNER_ROWS = 1000
+
+
+def save_phase(cm, arenas, params, dirty, query, rows: int) -> dict:
+    """A path's final state through save_results (no timestamp) into a
+    temporary directory: the reconstructed CSV read back through
+    io.read_csv holds the dataset's columns at `rows` rows, and each
+    inferred_<class>.csv one row a live entity of the class
+    (observe.effective_entity_counts after the port's refresh)."""
+    import tempfile
+
+    from pclean_tpu_torch import io as tio
+    from pclean_tpu_torch.analysis import save_results
+    from pclean_tpu_torch.engine.smc import _obs_device
+    from pclean_tpu_torch.kernel_bench import require
+    from pclean_tpu_torch.model.query import ObservedDataset
+    from pclean_tpu_torch.observe import effective_entity_counts
+
+    ds = ObservedDataset(query, dirty)
+    live = effective_entity_counts(cm, arenas, _obs_device(cm))
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.time()
+        out = save_results(cm, arenas, params, tmp, "hospital", [ds],
+                           timestamp=False)
+        save_s = time.time() - t
+        files = sorted(os.listdir(out))
+        recon = tio.read_csv(os.path.join(
+            out, f"reconstructed_{query.class_id}.csv"))
+        require(list(recon) == list(ds.columns()) and
+                all(len(v) == rows for v in recon.values()),
+                f"reconstructed CSV: columns {list(recon)}, rows "
+                f"{ {k: len(v) for k, v in recon.items()} } (expected "
+                f"{rows})")
+        inferred = {}
+        for cid, n in live.items():
+            tab = tio.read_csv(os.path.join(out, f"inferred_{cid}.csv"))
+            inferred[cid] = len(tab["id"])
+        require(inferred == live, f"inferred tables' rows {inferred} "
+                f"against the live entities {live}")
+    print(f"save_results: {save_s:.2f} s, files {files}; reconstructed "
+          f"{rows} rows x {len(recon)} columns, inferred rows {inferred}",
+          flush=True)
+    return dict(save_s=save_s, files=files, rows=rows, inferred=inferred)
+
+
+def checkpoint_phase(cm, config) -> dict:
+    """A path's init from the seeds run_path uses, saved (save_checkpoint,
+    Engine.log_ml in its meta) into a temporary directory; then the sweep
+    run from the live state and, on a new Engine, from the loaded state
+    and generator (load_checkpoint): arenas, params and the generator's
+    state bit-equal between the two, and the loaded log-ML equal to the
+    saved one."""
+    import tempfile
+
+    from pclean_tpu_torch import kernel_bench as kb
+    from pclean_tpu_torch.engine.checkpoint import (load_checkpoint,
+                                                    save_checkpoint)
+    from pclean_tpu_torch.engine.compile import init_state
+    from pclean_tpu_torch.engine.smc import Engine
+    from pclean_tpu_torch.kernel_bench import require
+
+    dev = cm.device
+    arenas, params = init_state(cm, 0, device=dev)
+    eng = Engine(cm, config, device=dev)
+    arenas, params, gen = eng.initialize(1, arenas, params)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "state.npz")
+        t = time.time()
+        save_checkpoint(path, cm, arenas, params, gen,
+                        meta={"log_ml": eng.log_ml})
+        save_s, size = time.time() - t, os.path.getsize(path)
+        want = eng.run(gen, arenas, params)
+        t = time.time()
+        a2, p2, g2, meta = load_checkpoint(path, cm)
+        load_s = time.time() - t
+    got = Engine(cm, config, device=dev).run(g2, a2, p2)
+    bad = [p for p, x, y in kb._leaves(want[:2], got[:2], "state")
+           if not torch.equal(x, y)]
+    require(not bad, f"the resumed sweep differs from the uninterrupted "
+            f"one: {bad[:8]}")
+    require(torch.equal(want[2].get_state(), got[2].get_state()),
+            "the resumed sweep's generator state differs")
+    require(torch.equal(meta["log_ml"], eng.log_ml),
+            "the checkpoint's log-ML differs")
+    print(f"checkpoint: {size} bytes, save {save_s:.2f} s, load "
+          f"{load_s:.2f} s; the resumed sweep bit-equal to the "
+          f"uninterrupted one (arenas, params, generator state)", flush=True)
+    return dict(bytes=size, save_s=save_s, load_s=load_s, bit_equal=True)
+
+
+def runner_phase(rows: int = RUNNER_ROWS, extra=()) -> dict:
+    """`python -m pclean_tpu_torch.workloads.hospital --rows RUNNER_ROWS
+    --json` in a process of its own (the kernels this run built, the card):
+    exit 0 and one line on its standard output, report's keys, its F1 at
+    least hospital_pg16_vmapped's floor (the same 1,000 rows). `extra`:
+    more flags (--device cpu rehearses the phase without a card)."""
+    from pclean_tpu_torch.kernel_bench import require
+
+    cmd = [sys.executable, "-m", "pclean_tpu_torch.workloads.hospital",
+           "--rows", str(rows), "--json", *extra]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [HERE] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    t = time.time()
+    r = subprocess.run(cmd, cwd=HERE, env=env, capture_output=True,
+                       text=True, timeout=600)
+    wall = time.time() - t
+    lines = r.stdout.splitlines()
+    require(r.returncode == 0 and len(lines) == 1,
+            f"runner: exit {r.returncode}, {len(lines)} lines on stdout: "
+            f"{r.stdout[-2000:]} {r.stderr[-2000:]}")
+    line = json.loads(lines[0])
+    require(all(k in line for k in REPORT_KEYS) and line["rows"] == rows
+            and line["f1"] >= F1_FLOORS["hospital_pg16_vmapped"],
+            f"runner line {line}")
+    print(f"runner ({' '.join(cmd[1:])}): {wall:.1f} s in its own process; "
+          f"{lines[0]}", flush=True)
+    return dict(line, wall_s=wall)
+
+
 def run_path(ops, name, cm, config, dirty, clean, query, rows):
     """One workload's main path, with every launch count set to 0 just
     before it and read just after: init_state, Engine.initialize,
     Engine.run, evaluate_accuracy_device; the report's `splits` are the
-    wrapper calls that went past a single launch's limit (ops.SPLITS).
+    wrapper calls that went past a single launch's limit (ops.SPLITS), its
+    `apply_batch_calls` the batched row writes (smc._apply_batch, counted
+    around the path), each one K15 launch.
     Returns its report (and the state, for the kernel inputs drawn from
     it)."""
     from pclean_tpu_torch.analysis import evaluate_accuracy_device
     from pclean_tpu_torch.engine.compile import init_state
     from pclean_tpu_torch.engine.smc import Engine
 
-    from pclean_tpu_torch.engine import row_graph
+    from pclean_tpu_torch.engine import row_graph, smc
+
+    calls = {"apply_batch": 0}
+    real_apply = smc._apply_batch
+
+    def counted_apply(*a, **kw):
+        calls["apply_batch"] += 1
+        return real_apply(*a, **kw)
 
     torch.cuda.reset_peak_memory_stats()
     ops.reset_counts()
     row_graph.reset_stats()
     torch.cuda.synchronize()
     at_start = torch.cuda.memory_allocated()
-    t = time.time()
-    arenas, params = init_state(cm, 0, device="cuda")
-    eng = Engine(cm, config, device="cuda")
-    arenas, params, gen = eng.initialize(1, arenas, params)
-    torch.cuda.synchronize()
-    init_s = time.time() - t
-    t = time.time()
-    arenas, params, gen = eng.run(gen, arenas, params)
-    torch.cuda.synchronize()
-    sweep_s = time.time() - t
+    smc._apply_batch = counted_apply
+    try:
+        t = time.time()
+        arenas, params = init_state(cm, 0, device="cuda")
+        eng = Engine(cm, config, device="cuda")
+        arenas, params, gen = eng.initialize(1, arenas, params)
+        torch.cuda.synchronize()
+        init_s = time.time() - t
+        t = time.time()
+        arenas, params, gen = eng.run(gen, arenas, params)
+        torch.cuda.synchronize()
+        sweep_s = time.time() - t
+    finally:
+        smc._apply_batch = real_apply
     launches = dict(ops.LAUNCHES)
     by_shape = {k: dict(v) for k, v in ops.LAUNCHES_BY_SHAPE.items()}
     census = ops.census()
@@ -2259,7 +2430,7 @@ def run_path(ops, name, cm, config, dirty, clean, query, rows):
                launches_by_shape=by_shape, census=census,
                log_ml=float(eng.log_ml), particles=config.num_particles,
                pg=not config.use_mh_instead_of_pg, loops=loops,
-               splits=dict(ops.SPLITS))
+               splits=dict(ops.SPLITS), apply_batch_calls=calls["apply_batch"])
     print(f"{name} path ({rows} rows, B={config.batch_rows}): init "
           f"{init_s:.2f} s, sweep {sweep_s:.2f} s, rows-cleaned/s "
           f"{rep['rows_cleaned_per_s']:.1f}"
@@ -2272,7 +2443,8 @@ def run_path(ops, name, cm, config, dirty, clean, query, rows):
           f"allocated before the path {at_start})")
     print(f"{name} launches: {launches}; by shape (r1 = one row, rn = "
           f"more): {by_shape}; calls past a single launch's limit: "
-          f"{rep['splits']}", flush=True)
+          f"{rep['splits']}; _apply_batch calls {calls['apply_batch']} "
+          f"(K15 launches {launches['batch_write']})", flush=True)
     for kind, st in sorted(loops.items()):
         print(f"{name} one-row loop {kind}: {st['segments']} segments, "
               f"{st['replayed']} rows replayed, {st['eager']} eager, "
@@ -2472,6 +2644,13 @@ def main() -> int:
         report["graph_checks"][path] = graph_checks(path, eng, cm,
                                                     (arenas, params))
         if path == "hospital":
+            phase("hospital save_results")
+            report["save"] = save_phase(cm, arenas, params, dirty, query,
+                                        rows)
+            phase("hospital checkpoint and resume")
+            report["checkpoint"] = checkpoint_phase(cm, config)
+            phase("hospital runner")
+            report["runner"] = runner_phase()
             phase("hospital trace")
             report["trace"].update(trace_sections("hospital", cm, config))
         del cm, dirty, clean, query, arenas, params, eng
@@ -2538,6 +2717,11 @@ def main() -> int:
         # none of the six paths passes an old limit, so none splits
         require(not runs[path]["splits"], f"{path} split "
                 f"{runs[path]['splits']}")
+        require(runs[path]["launches"]["batch_write"]
+                == runs[path]["apply_batch_calls"],
+                f"{path}: {runs[path]['launches']['batch_write']} K15 "
+                f"launches for {runs[path]['apply_batch_calls']} "
+                f"_apply_batch calls")
         missing = [k for k in need if runs[path]["launches"][k] <= 0]
         require(not missing, f"kernels never launched on the {path} path: "
                 f"{missing}")

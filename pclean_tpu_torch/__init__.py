@@ -8,9 +8,12 @@ the block-enumeration hot spots as hand-written CUDA kernels for Hopper
 
 It imports torch, numpy and the standard library only: never jax and never
 pclean_tpu. Entry points run on the card unless the caller passes
-device="cpu".
+device="cpu". save_checkpoint and load_checkpoint live in
+pclean_tpu_torch.engine.checkpoint, as in the JAX package; each workload
+under pclean_tpu_torch.workloads runs from the command line
+(`python -m pclean_tpu_torch.workloads.hospital --json`).
 """
-from . import dists, utils
+from . import dists, io, utils
 from .dists import *  # noqa: F401,F403
 from .model.builder import ModelBuilder
 from .model.query import ObservedDataset, Query
@@ -26,7 +29,8 @@ def __getattr__(name):
         from .engine import smc
 
         return getattr(smc, name)
-    if name in ("evaluate_accuracy", "evaluate_accuracy_device"):
+    if name in ("evaluate_accuracy", "evaluate_accuracy_device",
+                "save_results"):
         from . import analysis
 
         return getattr(analysis, name)
@@ -35,5 +39,6 @@ def __getattr__(name):
 
 __all__ = ["ModelBuilder", "Query", "ObservedDataset", "compile_model",
            "init_state", "Engine", "InferenceConfig", "evaluate_accuracy",
-           "evaluate_accuracy_device", "dists", "utils"]
+           "evaluate_accuracy_device", "save_results", "dists", "io",
+           "utils"]
 __version__ = "0.1.0"

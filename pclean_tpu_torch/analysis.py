@@ -1,12 +1,15 @@
-"""Accuracy evaluation.
+"""Accuracy evaluation and result export.
 
 Counterpart of pclean_tpu/analysis.py (read_cell_values, evaluate_accuracy,
-evaluate_accuracy_device): cell-level repair scoring of the reference's
-analysis.jl:36-88. CSV export (save_results / save_tables) comes in a later
-slice.
+evaluate_accuracy_device, save_results, save_tables): cell-level repair
+scoring of the reference's analysis.jl:36-88 and its CSV export
+(analysis.jl:8-33).
 """
 from __future__ import annotations
 
+import csv
+import datetime
+import os
 from typing import Any, Optional
 
 import numpy as np
@@ -15,8 +18,10 @@ import torch
 from .domains import FLOAT
 from .engine.compile import CompiledModel
 from .engine.propose import row_value
-from .model.ir import ForeignKeyNode, strip_subnodes
-from .model.query import Query
+from .engine.refresh import refresh
+from .engine.smc import _obs_device
+from .model.ir import ChoiceNode, ComputeNode, ForeignKeyNode, strip_subnodes
+from .model.query import ObservedDataset, Query
 
 
 def read_cell_values(cm: CompiledModel, arenas: dict, params: dict,
@@ -154,3 +159,63 @@ def _eq(a: Any, b: Any) -> bool:
         except (TypeError, ValueError):
             return False
     return a == b
+
+
+def save_results(cm: CompiledModel, arenas: dict, params: dict,
+                 out_dir: str, name: str, datasets: list[ObservedDataset],
+                 timestamp: bool = True) -> str:
+    """save_results (analysis.jl:15-33): reconstructed flat CSV per observed
+    dataset + one CSV per latent class. Returns the directory written."""
+    if timestamp:
+        out_dir = os.path.join(out_dir,
+                               f"{name}-{datetime.datetime.now().isoformat()}")
+    else:
+        out_dir = os.path.join(out_dir, name)
+    os.makedirs(out_dir, exist_ok=True)
+    for ds in datasets:
+        q = ds.query
+        cols = ds.columns()
+        out = {}
+        for col, vals in cols.items():
+            if col in q.cleanmap:
+                out[col] = read_cell_values(cm, arenas, params, q.class_id,
+                                            q.cleanmap[col])[: len(vals)]
+            else:
+                out[col] = vals
+        _write_csv(os.path.join(out_dir, f"reconstructed_{q.class_id}.csv"),
+                   out)
+    save_tables(cm, arenas, params, out_dir)
+    return out_dir
+
+
+def save_tables(cm: CompiledModel, arenas: dict, params: dict,
+                out_dir: str) -> None:
+    """save_tables (analysis.jl:8-13): one CSV per latent class with its
+    named choice/compute/fk attributes for live rows (alive after the
+    port's refresh)."""
+    obs_classes = {s.class_id for s in cm.obs_specs}
+    rel = refresh(cm, arenas, _obs_device(cm))
+    for cid in cm.model.class_order:
+        if cid in obs_classes:
+            continue
+        c = cm.cls(cid)
+        alive = rel[cid]["alive"].cpu().numpy()
+        ids = [int(i) for i in np.flatnonzero(alive)]
+        out = {"id": ids}
+        for nm, vid in c.names.items():
+            node = c.nodes[vid]
+            if not isinstance(node, (ChoiceNode, ComputeNode, ForeignKeyNode)):
+                continue
+            vals = read_cell_values(cm, arenas, params, cid, vid)
+            out[nm] = [vals[i] for i in ids]
+        _write_csv(os.path.join(out_dir, f"inferred_{cid}.csv"), out)
+
+
+def _write_csv(path: str, cols: dict[str, list]) -> None:
+    keys = list(cols)
+    n = max((len(v) for v in cols.values()), default=0)
+    with open(path, "w", newline="", encoding="utf-8") as f:
+        w = csv.writer(f)
+        w.writerow(keys)
+        for i in range(n):
+            w.writerow([cols[k][i] if i < len(cols[k]) else "" for k in keys])

@@ -200,22 +200,22 @@ def _apply_batch(cm: CompiledModel, cid: ClassID, arenas: dict, slots,
                  env2: dict, ok, mark_alive: bool) -> dict:
     """Scatter a batch of accepted row proposals (env2 values [B]); `ok`
     masks rows deferred to replay. Slots follow mode="drop". Out of place,
-    as in JAX: the columns it writes are copied, then written by K15
-    (ops.batch_write) in one launch; the caller's arenas stay as they
-    were (the batched deltas read them as the old state)."""
+    as in JAX: K15 (ops.batch_write) copies every column it writes, and
+    the alive bits with mark_alive, and writes the rows into the copies in
+    one launch; the caller's arenas stay as they were (the batched deltas
+    read them as the old state)."""
     slots = _slots(cm, slots)
     lay = cm.layouts[cid]
     vals = dict(arenas[cid]["values"])
     vids = [vid for vid in lay.store if vid in env2]
-    for vid in vids:
-        vals[vid] = vals[vid].clone()
     alive = arenas[cid]["alive"]
-    if mark_alive:
-        alive = alive.clone()
-    ops.batch_write([vals[v] for v in vids], [env2[v] for v in vids], slots,
-                    ok, alive if mark_alive else None, cls=cid)
+    new, new_alive = ops.batch_write(
+        [vals[v] for v in vids], [env2[v] for v in vids], slots, ok,
+        alive if mark_alive else None, cls=cid)
+    vals.update(zip(vids, new))
     out = dict(arenas)
-    out[cid] = {"values": vals, "alive": alive}
+    out[cid] = {"values": vals,
+                "alive": new_alive if mark_alive else alive}
     return out
 
 

@@ -98,10 +98,12 @@ compares every leaf bit for bit. K14 and K15 (the relational scatters and
 the batched row write) take seeded inputs of every shape of a path's
 census, rebuilt from its census mode (`k14_inputs`, `k15_inputs`),
 checked bit-equal against the plain versions on a CPU copy
-(`check_k14`, `check_k15`) and timed beside one `index_add_` (K14) or
-`index_copy_` of one column (K15) (`time_k14`, `time_k15`; a call
-that launches nothing, or a library write with no kept value, is not
-timed: its CUDA graph would be empty);
+(`check_k14`, `check_k15`, K15's also that the caller's columns are
+unchanged) and timed beside one `index_add_` (K14), or beside the
+out-of-place `torch.index_copy` of every written column and the alive
+bits and the parent's clones + scatter kernel (`k15_parent_call`) (K15)
+(`time_k14`, `time_k15`; a call that launches nothing, or a K14 library
+write with no kept value, is not timed: its CUDA graph would be empty);
 `check_rel_state` holds refresh and the hop histograms on a path's state
 to their plain versions. K16-K19 (the sample pass and row lookups) take
 seeded inputs of every shape of a path's census, rebuilt from the fields
@@ -2395,27 +2397,44 @@ def k15_inputs(dev, mode: str, B: int, seed: int = 0) -> dict:
 
 
 def check_k15(ops, inp: dict) -> float:
-    """K15 on a copy of the inputs on the card against its plain version
-    on a CPU copy: every column and the alive bits bit-equal. Returns 0.0
-    (or fails)."""
-    dev_in = _tree_map(inp["args"], lambda x: x.clone())
+    """K15 on the inputs on the card against its plain version on a CPU
+    copy: every new column and the new alive bits bit-equal, and the
+    caller's columns (and alive bits) on the card unchanged by the call.
+    Returns 0.0 (or fails)."""
     cpu_in = _tree_map(inp["args"], lambda x: x.cpu())
-    ops.batch_write(*dev_in)
-    ops.batch_write_plain(*cpu_in)
+    got = ops.batch_write(*inp["args"])
+    want = ops.batch_write_plain(*cpu_in)
     torch.cuda.synchronize()
-    for i, (g, w) in enumerate(zip(
-            dev_in[0] + [dev_in[4]], cpu_in[0] + [cpu_in[4]])):
-        if g is not None:
+    for i, (g, w) in enumerate(zip(got[0] + [got[1]], want[0] + [want[1]])):
+        if w is not None:
             require(torch.equal(g.cpu(), w), f"batch_write differs from "
                     f"its plain version at {inp['mode']}, B = {inp['B']} "
                     f"(column {i})")
+    cols, alive = inp["args"][0], inp["args"][4]
+    for i, (c, w) in enumerate(zip(cols + [alive], cpu_in[0] + [cpu_in[4]])):
+        if w is not None:
+            require(torch.equal(c.cpu(), w), f"batch_write wrote the "
+                    f"caller's column {i} at {inp['mode']}, B = {inp['B']}")
     return 0.0
 
 
 def k15_bytes(inp: dict) -> int:
-    """K15's bytes: the slots, the ok bits and every value read once, one
-    element of each column (and the alive bits) written a row the ok
-    bits keep and the drop rule leaves in range."""
+    """K15's bytes, each input read once and each output written once:
+    every written column and the alive bits read and written whole (2 C
+    elements each), and the batch read (the slots, the ok bits and every
+    value column)."""
+    cols, vals, slots, ok, alive = inp["args"]
+    B = slots.shape[0]
+    n = sum(2 * c.numel() * c.element_size() for c in cols)
+    n += 2 * alive.numel() if alive is not None else 0
+    return n + B * (8 + 1) + sum(B * v.element_size() for v in vals)
+
+
+def k15_scatter_bytes(inp: dict) -> int:
+    """The parent's K15 bound (the scatter-only design), the scatter
+    alone: the slots, the ok bits and every value read once, one element
+    of each column (and the alive bits) written a row the ok bits keep
+    and the drop rule leaves in range."""
     cols, vals, slots, ok, alive = inp["args"]
     B = slots.shape[0]
     n = B * (8 + 1) + sum(B * v.element_size() for v in vals)
@@ -2427,33 +2446,73 @@ def k15_bytes(inp: dict) -> int:
     return n
 
 
+def k15_parent_call(ops, args):
+    """The parent's _apply_batch-shaped call (the scatter-only design):
+    one clone() of each column and of the alive bits, then its scatter
+    kernel (csrc/batch_write.cu's pclean_batch_write_scatter, up to
+    K15_MAX_COLS columns) writing the rows into the clones: a callable
+    returning the new columns."""
+    cols, vals, slots, ok, alive = args
+    srcs = list(cols) + ([alive] if alive is not None else [])
+    vs = [v.reshape(-1).contiguous() for v in vals] + \
+        ([None] if alive is not None else [])
+    require(len(srcs) <= ops.K15_MAX_COLS, "k15_parent_call: more columns "
+            "than one launch of the parent's kernel takes")
+    fn, B = ops._libs["batch_write_scatter"], slots.shape[0]
+
+    def call():
+        dsts = [c.clone() for c in srcs]
+        words = [len(dsts), B, slots.data_ptr(), ok.data_ptr()] + \
+            [0] * (ops.K15_SCATTER_HEAD - 4)
+        for d, v in zip(dsts, vs):
+            words += [d.data_ptr(), ops._DT[d.dtype], d.shape[0],
+                      0 if v is None else v.data_ptr(),
+                      0 if v is None else ops._DT[v.dtype], 0]
+        arr = (ctypes.c_int64 * len(words))(*words)
+        ops._check(fn(arr, len(arr), ops._stream(slots)), "batch_write")
+        return dsts
+    return call
+
+
 def time_k15(ops, inp: dict) -> dict:
-    """K15 on a copy of these inputs beside its plain version on the card
-    and the library call of one column's write: one index_copy_ of the
-    first column's kept values at their slots (precomputed): ms (cuda_ms)
-    and device_ms (graph_ms) of each. A call that launches nothing (no
-    rows, or no column and no alive bits) is not timed, and neither is a
-    library call with no kept value to write (a CUDA graph of it would be
-    empty): those times are None."""
-    x = _tree_map(inp["args"], lambda t: t.clone())
-    y = _tree_map(inp["args"], lambda t: t.clone())
-    cols, vals, slots, ok, alive = x
+    """K15 on these inputs beside its plain version, the parent's call
+    (k15_parent_call: the clones and the scatter kernel) and the library
+    call computing the same function: one out-of-place torch.index_copy
+    of every column's kept values at their slots (precomputed), and of
+    the alive bits', in one callable (their times summed). ms (cuda_ms),
+    device_ms (graph_ms) and host_us of the kernel and the parent, the
+    parent's outputs held bit-equal to the kernel's. A call with no column
+    is not timed: those times are None."""
+    cols, vals, slots, ok, alive = inp["args"]
     out = dict(ms=None, device_ms=None, plain_ms=None, library_ms=None,
-               library_device_ms=None)
-    if slots.shape[0] == 0 or (not cols and alive is None):
+               library_device_ms=None, parent_ms=None,
+               parent_device_ms=None, host_us=None, parent_host_us=None)
+    if not cols and alive is None:
         return out
-    call = lambda: ops.batch_write(*x)  # noqa: E731
+    call = lambda: ops.batch_write(*inp["args"])  # noqa: E731
+    parent = k15_parent_call(ops, inp["args"])
+    got, old = call(), parent()
+    torch.cuda.synchronize()
+    for g, w in zip(got[0] + ([got[1]] if alive is not None else []), old):
+        require(torch.equal(g, w), f"batch_write differs from the parent's "
+                f"call at {inp['mode']}, B = {inp['B']}")
     out.update(ms=cuda_ms(call), device_ms=graph_ms(call),
-               plain_ms=cuda_ms(lambda: ops.batch_write_plain(*y)))
-    if cols:
-        cap = cols[0].shape[0]
-        s = torch.where(slots < 0, slots + cap, slots)
-        keep = torch.nonzero(ok & (s >= 0) & (s < cap))[:, 0]
-        if keep.numel():
-            lib_col = cols[0].clone()
-            li, lv = s[keep], vals[0][keep].to(lib_col.dtype)
-            lib = lambda: lib_col.index_copy_(0, li, lv)  # noqa: E731
-            out.update(library_ms=cuda_ms(lib), library_device_ms=graph_ms(lib))
+               plain_ms=cuda_ms(lambda: ops.batch_write_plain(*inp["args"])),
+               parent_ms=cuda_ms(parent), parent_device_ms=graph_ms(parent),
+               host_us=host_us(call, 500), parent_host_us=host_us(parent, 500))
+    cap = (cols[0] if cols else alive).shape[0]
+    s = torch.where(slots < 0, slots + cap, slots)
+    keep = torch.nonzero(ok & (s >= 0) & (s < cap))[:, 0]
+    li = s[keep]
+    lib_vals = [v.reshape(-1)[keep].to(c.dtype) for c, v in zip(cols, vals)]
+    lib_ones = torch.ones(li.shape, dtype=torch.bool, device=li.device)
+
+    def lib():
+        new = [torch.index_copy(c, 0, li, v) for c, v in zip(cols, lib_vals)]
+        if alive is not None:
+            new.append(torch.index_copy(alive, 0, li, lib_ones))
+        return new
+    out.update(library_ms=cuda_ms(lib), library_device_ms=graph_ms(lib))
     return out
 
 
@@ -4875,7 +4934,7 @@ class LimitCalls:
                             if k not in ("label", "cls", "B")}
                 got = getattr(o, name)(*x[0], **x[1])
                 want = getattr(o, name + "_plain")(*y[0], **kw_plain)
-                if name in ("rel_scatter", "batch_write"):   # in place
+                if name == "rel_scatter":   # in place
                     got, want = x, y
                 torch.cuda.synchronize()
                 bad = [p for p, g, w in _leaves(got, want, name)

@@ -59,8 +59,10 @@ replaces, its bound on the H100 and its design):
                        old and new sides, a class's cascade (refresh.py
                        refresh, hop_histograms, batch_obs_delta,
                        batch_latent_delta, _cascade);
-  K15 batch_write    — a batch of accepted rows written into a class's
-                       columns and alive bits (smc.py _apply_batch);
+  K15 batch_write    — a batch of accepted rows written out of place: a
+                       class's columns and alive bits copied and the rows
+                       written into the copies in one launch (smc.py
+                       _apply_batch);
   K16 fk_sample      — a foreign key's sample step for every row: the
                        record picked at the ancestors, the draw (K2's, from
                        csrc/inv_cdf.cuh) or the retained slot, the
@@ -124,7 +126,8 @@ cached on the model; K11's `row_write_plan` from a row's structure: a
 table of index groups and three words a write) travel by value as the
 kernel's argument, bound to the pointers of a loop segment's carry
 (`RowCarry`) once, so no table lives on the card. K14's and K15's words
-(pointers, dtypes, lengths, K14's route)
+(pointers, dtypes, lengths, K14's route; K15's clusters, shares and block
+table from `batch_write_plan`, built once a call structure)
 are built at each call, also by value, and so are K16's, K17's and
 K21-K23's (K21's `py_prior_words`; K22's descriptors, K23's classes).
 K19's are built once a call structure (`_K19_PLANS`: each pair's dtypes,
@@ -166,6 +169,7 @@ ctypes. Nothing is built or loaded when the module is imported.
 from __future__ import annotations
 
 import array
+import bisect
 import collections
 import ctypes
 import functools
@@ -463,6 +467,11 @@ def build_kernels(force: bool = False) -> float:
                 group.restype = ctypes.c_int
                 group.argtypes = [P, I32, P]
                 _libs["choice_sample_group"] = group
+            if name == "batch_write":   # the parent's K15, a yardstick
+                scatter = lib.pclean_batch_write_scatter
+                scatter.restype = ctypes.c_int
+                scatter.argtypes = [P, I32, P]
+                _libs["batch_write_scatter"] = scatter
             if name == "row_delta":   # the yardsticks beside K10
                 probe = lib.pclean_chase_probe
                 probe.restype = ctypes.c_int
@@ -2736,6 +2745,8 @@ def _k13_entry(enum, ch, full, obs_ld, obs, state, rec, logz, cls,
 
 _K12_PLANS: dict = {}
 _K13_PLANS: dict = {}
+# K15's entries by call structure (_k15_plan)
+_K15_PLANS: dict = {}
 
 
 # ---------------------------------------------------------------- K14, K15
@@ -2757,8 +2768,17 @@ K14_ROUTES = ("thread", "local")
 K14_THREADS, K14_HIST_THREADS, K14_UNIT = 256, 1024, 4
 K14_SMEM_MAX = SMEM_MAX - 1024   # a histogram block's dynamic shared memory
 K14_HIST_MIN, K14_HIST_RATIO = 1 << 15, 16
-# K15's plan (csrc/batch_write.cu): a header, then one record a column
-K15_HEAD, K15_COL, K15_MAX_COLS = 8, 6, 48
+# K15's plan (csrc/batch_write.cu): a header, then one record a column;
+# its launch (batch_write_plan): clusters of up to K15_CLUSTER blocks of
+# K15_THREADS (a block for each K15_CLUSTER_ROWS rows), at most one block
+# an SM, each cluster owning a share of the call's columns, K15_UNROLL_W
+# rows a thread a round of its writes; the parent's scatter-only entry
+# (kernel_bench's yardstick) takes a K15_SCATTER_HEAD-word header and
+# K15_SCATTER_COL words a column
+K15_HEAD, K15_COL, K15_MAX_COLS = 12, 8, 48
+K15_THREADS, K15_UNROLL_W, K15_MIN_SHARE = 512, 8, 1 << 13
+K15_CLUSTER, K15_CLUSTER_ROWS, K15_MAX_BLOCKS = 8, 1024, 256
+K15_SCATTER_HEAD, K15_SCATTER_COL = 8, 6
 _SHORT = {torch.bool: "b", torch.int8: "i8", torch.uint8: "u8",
           torch.int16: "i16", torch.int32: "i32", torch.int64: "i64",
           torch.float32: "f32", torch.float64: "f64"}
@@ -3041,39 +3061,164 @@ def cascade_groups(n: int) -> list:
             for i in range(0, max(n, 1), K14_MAX_FKS)]
 
 
-def batch_write_plain(cols, vals, slots, ok, alive=None) -> None:
-    """K15's plain version, in place: smc._apply_batch's writes of a batch
-    of B rows: each column cols[c] at slots where ok takes vals[c] [B]
-    converted to its dtype (torch's .to), and alive, where given, True
-    there; slots follow mode="drop" (utils.index_set_where)."""
-    for col, v in zip(cols, vals):
-        col.copy_(index_set_where(col, slots, v.reshape(-1).to(col.dtype),
-                                  ok))
-    if alive is not None:
-        alive.copy_(index_set_where(alive, slots, True, ok))
+def batch_write_plain(cols, vals, slots, ok, alive=None) -> tuple:
+    """K15's plain version, out of place as smc._apply_batch: (new
+    columns, new alive or None), each column cols[c] with vals[c] [B]
+    converted to its dtype (torch's .to) at the slots where ok, and alive,
+    where given, True there; slots follow mode="drop"
+    (utils.index_set_where). The inputs are left as they were."""
+    new = [index_set_where(col, slots, v.reshape(-1).to(col.dtype), ok)
+           for col, v in zip(cols, vals)]
+    return new, (None if alive is None
+                 else index_set_where(alive, slots, True, ok))
 
 
 def batch_write_chunks(n: int) -> list:
     """K15's launches for n destination columns (the alive bit counted as
     one): the (first, end) column ranges of each, in order, at most
-    K15_MAX_COLS a launch. Each column is written by exactly one launch,
-    from inputs no launch changes, so the split writes what one launch
-    would."""
+    K15_MAX_COLS a launch. Each column is copied and written by exactly
+    one launch, from inputs no launch changes, so the split writes what
+    one launch would."""
     return [(i, min(n, i + K15_MAX_COLS))
             for i in range(0, max(n, 1), K15_MAX_COLS)]
 
 
-def batch_write(cols, vals, slots, ok, alive=None, cls=None) -> None:
-    """K15: batch_write_plain's writes in place on columns the caller owns
-    (the batched drivers' copies), every index and mask read on the card
-    and the drop rule inside the kernel, in one launch a batch_write_chunks
-    range of columns (one for up to K15_MAX_COLS). slots int64 [B], ok
-    bool [B], vals [B] of any dtype of ops._DT. On CPU tensors the plain
-    version; on CUDA ones the kernel or an error. Counted in
-    LAUNCH_CENSUS by ("cls cap=C dst<src,...[,alive]", r1 or rn, B), once
-    a launch."""
-    if not _route(slots, "batch_write"):
-        return batch_write_plain(cols, vals, slots, ok, alive)
+def batch_write_plan(nbytes: list, sms: int, rows: int = 0) -> dict:
+    """K15's launch for columns of `nbytes` bytes each and `rows` rows: the
+    columns laid end to end in one byte space, each at a 16-byte boundary
+    (`offsets`, `total` the padded end); `clusters` thread-block clusters
+    of `cluster` blocks of K15_THREADS, `blocks` in all, at most `sms` (and
+    K15_MAX_BLOCKS). Cluster q owns `share` bytes of the space (a multiple
+    of 16 x cluster): [q share, (q + 1) share); its block j copies the
+    j-th `share` / cluster bytes of it and takes the j-th part of the rows;
+    `touches`[q] = (the first, the last) column the share touches ((n, -1)
+    for none).
+    - A copy that fills half the card at K15_MIN_SHARE bytes a block takes
+      clusters of one block, a block an SM (clusters of more blocks, all
+      scheduled together, left SMs idle on such a copy).
+    - Otherwise each cluster splits its rows over up to K15_CLUSTER
+      blocks, a block for each K15_CLUSTER_ROWS rows, so that no block
+      reads a large batch alone.
+    - Enough clusters that each block's part is at least K15_MIN_SHARE,
+      and that each cluster's writes (its rows against each column its
+      share touches) come to about one round a column: a cluster a column
+      where the columns are small."""
+    offsets, o = [], 0
+    for n in nbytes:
+        offsets.append(o)
+        o += -(-n // 16) * 16
+    per = K15_THREADS * K15_UNROLL_W
+    sms = max(1, min(sms, K15_MAX_BLOCKS))
+    cl = 1 if 2 * (o // K15_MIN_SHARE) >= sms else \
+        max(1, min(K15_CLUSTER, sms, -(-rows // K15_CLUSTER_ROWS), o // 16))
+    want = max(1, min(sms // cl, max(o // (cl * K15_MIN_SHARE),
+                                     len(nbytes) * -(-rows // (cl * per)))))
+    unit = 16 * cl
+    share = max(unit, -(-(-(-o // want)) // unit) * unit)
+    clusters = max(1, -(-o // share))
+    ends = [off + n for off, n in zip(offsets, nbytes)]
+    touches = []
+    for q in range(clusters):
+        lo, hi = q * share, min((q + 1) * share, o)
+        ca = bisect.bisect_right(ends, lo)
+        cb = max((c for c in range(bisect.bisect_left(offsets, hi) - 1, -1,
+                                   -1) if ends[c] > offsets[c]), default=-1)
+        touches.append((ca, cb))
+    return dict(offsets=offsets, total=o, share=share, cluster=cl,
+                clusters=clusters, blocks=clusters * cl, touches=touches)
+
+
+def _k15_launches(dsts, vdts, B: int, sms: int) -> list:
+    """K15's launches for new columns shaped as `dsts` (the alive bit's
+    among them), values of dtypes `vdts` (None: the alive bit's True), B
+    rows and `sms` SMs: one (lo, hi, words, plan) a batch_write_chunks
+    range of columns, the words an array.array in csrc/batch_write.cu's
+    layout with every pointer 0 (_k15_point writes a call's): the header
+    [columns, B, slots, ok, share, total, blocks a cluster n, share / n,
+    ceil(B / n), rows a thread a round (2 up to 2 x K15_THREADS rows a
+    block, else K15_UNROLL_W: a kernel instance each), 0, 0], then each
+    column [src, dst, dtype, length, values or 0, values' dtype, byte
+    offset, 16-byte aligned], then a word a block: its cluster's first
+    column | (its last + 1) << 32."""
+    out = []
+    for lo, hi in batch_write_chunks(len(dsts)):
+        plan = batch_write_plan([d.numel() * d.element_size()
+                                 for d in dsts[lo:hi]], sms, B)
+        cl = plan["cluster"]
+        per = -(-B // cl)
+        words = [hi - lo, B, 0, 0, plan["share"], plan["total"], cl,
+                 plan["share"] // cl, per,
+                 2 if per <= 2 * K15_THREADS else K15_UNROLL_W, 0, 0]
+        for dst, vdt, off in zip(dsts[lo:hi], vdts[lo:hi], plan["offsets"]):
+            words += [0, 0, _DT[dst.dtype], dst.shape[0], 0,
+                      0 if vdt is None else _DT[vdt], off, 0]
+        words += [ca | (cb + 1) << 32 for ca, cb in plan["touches"]
+                  for _j in range(cl)]
+        out.append((lo, hi, array.array("q", words), plan))
+    return out
+
+
+def _k15_point(launches, srcs, dsts, vals, slots, ok) -> None:
+    """This call's pointers written into its launches' words: slots and ok,
+    and each column's source, destination and values (0 for the alive
+    bit), with its 16-byte alignment flag (the kernel's vector copy)."""
+    sps = [t.data_ptr() for t in srcs]
+    dps = [t.data_ptr() for t in dsts]
+    vps = [0 if v is None else v.data_ptr() for v in vals]
+    sp, op = slots.data_ptr(), ok.data_ptr()
+    for lo, hi, w, _plan in launches:
+        end = K15_HEAD + K15_COL * (hi - lo)
+        w[2], w[3] = sp, op
+        w[K15_HEAD:end:K15_COL] = array.array("q", sps[lo:hi])
+        w[K15_HEAD + 1:end:K15_COL] = array.array("q", dps[lo:hi])
+        w[K15_HEAD + 4:end:K15_COL] = array.array("q", vps[lo:hi])
+        w[K15_HEAD + 7:end:K15_COL] = array.array(
+            "q", [int(x % 16 == 0 and y % 16 == 0)
+                  for x, y in zip(sps[lo:hi], dps[lo:hi])])
+
+
+def batch_write_words(srcs, dsts, vals, slots, ok, sms: int) -> list:
+    """K15's launches for copying each srcs[c] into dsts[c] and writing
+    vals[c] ([B], or None for the alive bit: True) at slots where ok:
+    _k15_launches' (lo, hi, words, plan) with this call's pointers
+    written. Pointers are the tensors' own, on whatever device they lie
+    (the CPU tests read them there)."""
+    launches = _k15_launches(dsts, [None if v is None else v.dtype
+                                    for v in vals], slots.shape[0], sms)
+    _k15_point(launches, srcs, dsts, vals, slots, ok)
+    return launches
+
+
+def _k15_plan(srcs, vals, slots, ok, cls) -> tuple:
+    """The _K15_PLANS entry of this call's structure (slots', ok's, each
+    column's and each value's dtype, shape, stride and card; the class),
+    built and checked by _k15_entry at its first call."""
+    try:
+        key = (cls, slots.dtype, slots.shape, slots.stride(),
+               slots.get_device(), ok.dtype, ok.shape, ok.get_device(),
+               tuple((t.dtype, t.shape, t.stride(), t.get_device())
+                     for t in srcs),
+               tuple(None if v is None else
+                     (v.dtype, v.shape, v.stride(), v.get_device())
+                     for v in vals))
+    except AttributeError:   # (a value that is no tensor: _k15_entry says)
+        return _k15_entry(srcs, vals, slots, ok, cls)
+    ent = _K15_PLANS.get(key)
+    if ent is None:
+        ent = _k15_entry(srcs, vals, slots, ok, cls)
+        if len(_K15_PLANS) >= _PLAN_CACHE_MAX:
+            _K15_PLANS.clear()
+        _K15_PLANS[key] = ent
+    return ent
+
+
+def _k15_entry(srcs, vals, slots, ok, cls) -> tuple:
+    """A _K15_PLANS entry: (B, the card, the new columns' blocks [(dtype,
+    length, the columns, stacked)], the values a call makes contiguous,
+    _k15_launches' launches, each launch's census mode): the new columns
+    of one dtype and length are the rows of one [columns, length]
+    allocation where its rows fall on 16-byte boundaries (stacked), else
+    an allocation each. Raises for what the kernel does not take."""
     B = slots.shape[0] if slots.dim() == 1 else -1
     if not slots.is_cuda or slots.dtype != torch.int64 or B < 0 or \
             not slots.is_contiguous():
@@ -3081,39 +3226,79 @@ def batch_write(cols, vals, slots, ok, alive=None, cls=None) -> None:
                          f"card, got {slots.dtype} {tuple(slots.shape)}")
     if not ok.is_cuda or ok.dtype != torch.bool or ok.shape != (B,):
         raise ValueError(f"batch_write: ok must be bool [{B}] on the card")
-    ok = ok.contiguous()
-    dsts = list(cols) + ([alive] if alive is not None else [])
-    srcs = [v.reshape(-1).contiguous() for v in vals] + \
-        ([None] if alive is not None else [])
-    recs, sig = [], []
-    for dst, src in zip(dsts, srcs):
-        if not dst.is_cuda or dst.dim() != 1 or not dst.is_contiguous() or \
-                dst.dtype not in _DT:
-            raise ValueError(f"batch_write: column {dst.dtype} "
-                             f"{tuple(dst.shape)} on {dst.device}")
-        if src is not None and (not src.is_cuda or src.shape != (B,) or
-                                src.dtype not in _DT):
-            raise ValueError(f"batch_write: values {src.dtype} "
-                             f"{tuple(src.shape)} on {src.device} (expected "
+    sig, fix, by_shape = [], [], {}
+    for i, (src, v) in enumerate(zip(srcs, vals)):
+        if not torch.is_tensor(src) or not src.is_cuda or src.dim() != 1 \
+                or not src.is_contiguous() or src.dtype not in _DT:
+            raise ValueError(f"batch_write: column "
+                             f"{getattr(src, 'dtype', src)} "
+                             f"{tuple(getattr(src, 'shape', ()))} on "
+                             f"{getattr(src, 'device', None)}")
+        if v is not None and (not torch.is_tensor(v) or not v.is_cuda or
+                              v.numel() != B or v.dtype not in _DT):
+            raise ValueError(f"batch_write: values "
+                             f"{getattr(v, 'dtype', v)} "
+                             f"{tuple(getattr(v, 'shape', ()))} on "
+                             f"{getattr(v, 'device', None)} (expected "
                              f"[{B}] on the card)")
-        recs.append([dst.data_ptr(), _DT[dst.dtype], dst.shape[0],
-                     0 if src is None else src.data_ptr(),
-                     0 if src is None else _DT[src.dtype], 0])
-        sig.append("alive" if src is None
-                   else f"{_SHORT[dst.dtype]}<{_SHORT[src.dtype]}")
-    cap = dsts[0].shape[0] if dsts else 0
-    chunks = batch_write_chunks(len(dsts))
-    if len(chunks) > 1:
+        if v is not None and not v.is_contiguous():
+            fix.append(i)
+        sig.append("alive" if v is None
+                   else f"{_SHORT[src.dtype]}<{_SHORT[v.dtype]}")
+        by_shape.setdefault((src.dtype, src.shape[0]), []).append(i)
+    blocks = [(dt, n, idx, len(idx) > 1 and
+               n * srcs[idx[0]].element_size() % 16 == 0)
+              for (dt, n), idx in by_shape.items()]
+    launches = _k15_launches(srcs, [None if v is None else v.dtype
+                                    for v in vals], B, sm_count(slots.device))
+    cap = srcs[0].shape[0] if srcs else 0
+    modes = [f"{cls} cap={cap} {','.join(sig[lo:hi])}"
+             for lo, hi, _w, _p in launches]
+    return B, slots.device, blocks, fix, launches, modes
+
+
+def batch_write(cols, vals, slots, ok, alive=None, cls=None) -> tuple:
+    """K15: batch_write_plain's new columns in one launch a
+    batch_write_chunks range (one for up to K15_MAX_COLS columns, the
+    alive bit counted as one): every column copied into a new tensor and
+    the kept rows' values written there, every index and mask read on the
+    card and the drop rule inside the kernel; the caller's columns are not
+    written. The new columns of one dtype and length are the rows of one
+    allocation where they can be (_k15_entry's blocks). slots int64 [B],
+    ok bool [B], vals [B] of any dtype of ops._DT. The plan is cached by
+    the call's structure (_K15_PLANS). On CPU tensors the plain version;
+    on CUDA ones the kernel or an error. Returns (new columns, new alive
+    or None). Counted in LAUNCH_CENSUS by ("cls cap=C dst<src,...[,alive]",
+    r1 or rn, B), once a launch; a call with no column launches nothing."""
+    if not _route(slots, "batch_write"):
+        return batch_write_plain(cols, vals, slots, ok, alive)
+    srcs = list(cols) + ([alive] if alive is not None else [])
+    vs = list(vals) + ([None] if alive is not None else [])
+    B, dev, blocks, fix, launches, modes = _k15_plan(srcs, vs, slots, ok,
+                                                     cls)
+    if not srcs:
+        return [], None
+    for i in fix:
+        vs[i] = vs[i].reshape(-1).contiguous()
+    ok = ok.contiguous()
+    dsts = [None] * len(srcs)
+    for dt, n, idx, stacked in blocks:
+        new = torch.empty((len(idx), n), dtype=dt, device=dev).unbind(0) \
+            if stacked else [torch.empty((n,), dtype=dt, device=dev)
+                             for _i in idx]
+        for i, t in zip(idx, new):
+            dsts[i] = t
+    _k15_point(launches, srcs, dsts, vs, slots, ok)
+    if len(launches) > 1:
         _split("batch_write")
-    for lo, hi in chunks:
-        words = [hi - lo, B, slots.data_ptr(), ok.data_ptr()] + \
-            [0] * (K15_HEAD - 4)
-        for r in recs[lo:hi]:
-            words += r
-        arr = (ctypes.c_int64 * len(words))(*words)
-        rc = _fn("batch_write")(arr, len(arr), _stream(slots))
-        _check(rc, "batch_write")
-        _count("batch_write", B, B, f"{cls} cap={cap} {','.join(sig[lo:hi])}")
+    fn, stream = _fn("batch_write"), _stream(slots)
+    for (_lo, _hi, words, _plan), mode in zip(launches, modes):
+        _check(fn(words.buffer_info()[0], len(words), stream),
+               "batch_write")
+        _count("batch_write", B, B, mode)
+    if alive is None:
+        return dsts, None
+    return dsts[:-1], dsts[-1]
 
 
 # ---------------------------------------------------------------- K16-K19

@@ -1,7 +1,8 @@
 """Flights workload: multi-source deduplication with per-source error rates.
 
 The port's own copy of experiments/flights.py (CAPACITIES, TIME_FIELDS,
-build_model, QUERY_CLAUSES, setup), which cannot be imported because it
+build_model, QUERY_CLAUSES, setup, main: `python -m
+pclean_tpu_torch.workloads.flights`), which cannot be imported because it
 imports jax, and `synth`, a seeded generator of the flights schema, because
 the source's flights_dirty.csv / flights_clean.csv are not in the
 repository. The model (reference experiments/flights/run.jl): Flight keyed
@@ -20,6 +21,7 @@ from ..engine.compile import compile_model
 from ..engine.smc import InferenceConfig
 from ..model.builder import ModelBuilder
 from ..model.query import ObservedDataset, Query
+from .common import run, std_argparser, tile
 
 CAPACITIES = {"Flight": 160, "TrackingWebsite": 64}
 TIME_FIELDS = ["sched_dep_time", "sched_arr_time", "act_dep_time",
@@ -186,11 +188,12 @@ def model_inputs(dirty):
 
 def setup(rows=2376, flights=100, websites=38, seed=0, missing=0.03,
           sweeps=None, batch=1, particles=None, capacities=None,
-          device="cuda", **cfg):
-    """Compiled workload on `synth`'s data: (cm, config, dirty, clean,
-    query, sweeps); observed class 'Obs'. `capacities` defaults to
-    CAPACITIES."""
+          device="cuda", repeat=1, **cfg):
+    """Compiled workload on `synth`'s data tiled `repeat` times: (cm,
+    config, dirty, clean, query, sweeps); observed class 'Obs'.
+    `capacities` defaults to CAPACITIES."""
     dirty, clean = synth(rows, flights, websites, seed, missing)
+    dirty, clean = tile(dirty, repeat), tile(clean, repeat)
     model = build_model(*model_inputs(dirty))
     query = Query.build(model, "Obs", QUERY_CLAUSES)
     ds = ObservedDataset(query, dirty)
@@ -203,3 +206,12 @@ def setup(rows=2376, flights=100, websites=38, seed=0, missing=0.03,
     cm = compile_model(model, [ds], capacities=capacities or CAPACITIES,
                        device=device)
     return cm, config, dirty, clean, query, sweeps
+
+
+def main(argv=None) -> None:
+    args = std_argparser(__doc__).parse_args(argv)
+    run("flights", args, setup, repeat=args.repeat)
+
+
+if __name__ == "__main__":
+    main()

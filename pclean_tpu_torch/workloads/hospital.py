@@ -1,10 +1,11 @@
 """Hospital workload: the seven-class relational model with typo errors.
 
 The port's own copy of experiments/hospital.py (CAPACITIES, build_model,
-QUERY_CLAUSES, setup) and of experiments/common.py's `tile`, which cannot
-be imported because they import jax, and `synth`, a seeded generator of the
-hospital schema, because the source's hospital_dirty.csv /
-hospital_clean.csv are not in the repository. The model (reference
+QUERY_CLAUSES, load, setup, main), which cannot be imported because it
+imports jax, and `synth`, a seeded generator of the hospital schema,
+because the source's hospital_dirty.csv / hospital_clean.csv are not in
+the repository: `python -m pclean_tpu_torch.workloads.hospital` runs on
+synth's tables, or on CSVs given by --dirty and --clean. The model (reference
 experiments/hospital/run.jl:5-85): County -> Place -> Hospital <-
 HospitalType, Condition -> Measure, and Record with two blocks, one
 referencing a Hospital (eleven AddTypos columns, slot chains three deep:
@@ -22,8 +23,10 @@ from ..dists import (AddTypos, ChooseProportionally, ChooseUniformly,
                      ParamRef, Proportions, Ref, StringPrior)
 from ..engine.compile import compile_model
 from ..engine.smc import InferenceConfig
+from ..io import _infer, possibilities_from, read_csv
 from ..model.builder import ModelBuilder
 from ..model.query import ObservedDataset, Query
+from .common import run, std_argparser, tile
 from .scaled import _ADJ, _NOUN, _typo
 
 CAPACITIES = {"County": 128, "Place": 256, "Condition": 64, "Measure": 128,
@@ -75,29 +78,6 @@ _MEASURE_W2 = ["given aspirin at arrival", "given beta blocker",
                "given relievers", "given systemic corticosteroids",
                "given home management plan", "given statin at discharge",
                "given thrombolytic medication", "whose antibiotics stopped"]
-
-
-def tile(data: dict, times: int) -> dict:
-    """experiments/common.py's tile: the dataset's rows repeated `times`
-    times (the source's 100,000-row hospital runs)."""
-    if times <= 1:
-        return data
-    return {k: list(v) * times for k, v in data.items()}
-
-
-def possibilities(data: dict) -> dict:
-    """{column: its unique non-missing values in first-seen order}, as
-    pclean_tpu/io.py's possibilities_from gives them."""
-    out = {}
-    for col, vals in data.items():
-        seen, uniq = set(), []
-        for v in vals:
-            if v is None or v in seen:
-                continue
-            seen.add(v)
-            uniq.append(v)
-        out[col] = uniq
-    return out
 
 
 def _edit_distance(a: str, b: str) -> int:
@@ -281,14 +261,34 @@ QUERY_CLAUSES = [
 ]
 
 
+# the numeric columns the reference compares as text (load_data.jl:8-15)
+NUMERIC_TEXT = ("PhoneNumber", "ZipCode", "ProviderNumber")
+
+
+def load(dirty_path: str, clean_path: str, rows=None) -> tuple:
+    """experiments/hospital.py's load on the given CSVs: (dirty, clean),
+    each read with io.read_csv's typed inference and cut to `rows`, except
+    NUMERIC_TEXT, which both keep as the text in the file
+    (experiments/hospital.py parses the clean table's and turns the ints
+    back into strings, the same text wherever a value has no leading zero;
+    synth's digit strings have some)."""
+    out = []
+    for path in (dirty_path, clean_path):
+        raw = read_csv(path, typed=False)
+        out.append({k: (v if k in NUMERIC_TEXT else _infer(v))[:rows]
+                    for k, v in raw.items()})
+    return tuple(out)
+
+
 def setup(rows=1000, repeat=1, sweeps=None, batch=1, particles=None, seed=7,
-          device="cuda", **cfg):
-    """Compiled workload on `synth`'s tables tiled `repeat` times, as
+          device="cuda", tables=None, **cfg):
+    """Compiled workload on `synth`'s tables (or `tables`, a (dirty, clean)
+    pair such as `load` gives) tiled `repeat` times, as
     experiments/hospital.py's setup tiles the source's: (cm, config, dirty,
     clean, query, sweeps); observed class 'Record'."""
-    dirty, clean = synth(rows, seed)
+    dirty, clean = synth(rows, seed) if tables is None else tables
     dirty, clean = tile(dirty, repeat), tile(clean, repeat)
-    model = build_model(possibilities(dirty))
+    model = build_model(possibilities_from(dirty))
     query = Query.build(model, "Record", QUERY_CLAUSES)
     ds = ObservedDataset(query, dirty)
     sweeps = 1 if sweeps is None else sweeps
@@ -299,3 +299,20 @@ def setup(rows=1000, repeat=1, sweeps=None, batch=1, particles=None, seed=7,
     config = InferenceConfig(num_iters=sweeps, batch_rows=batch, **cfg)
     cm = compile_model(model, [ds], capacities=CAPACITIES, device=device)
     return cm, config, dirty, clean, query, sweeps
+
+
+def main(argv=None) -> None:
+    p = std_argparser(__doc__)
+    p.add_argument("--dirty", default=None,
+                   help="a dirty table CSV in place of synth's (with --clean)")
+    p.add_argument("--clean", default=None, help="its clean table CSV")
+    args = p.parse_args(argv)
+    if (args.dirty is None) != (args.clean is None):
+        p.error("--dirty and --clean go together")
+    tables = None if args.dirty is None else \
+        load(args.dirty, args.clean, args.rows)
+    run("hospital", args, setup, repeat=args.repeat, tables=tables)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,7 +1,8 @@
 """Rents workload: continuous and discrete latents with learned means.
 
 The port's own copy of experiments/rents.py (county_key, build_model,
-QUERY_CLAUSES, setup), which cannot be imported because it imports jax, and
+QUERY_CLAUSES, setup, main: `python -m pclean_tpu_torch.workloads.rents`),
+which cannot be imported because it imports jax, and
 `synth`, a seeded generator of the rents schema, because the source's
 rents_dirty.csv / rents_clean.csv are not in the repository. The model
 (reference experiments/rents/run.jl): County keyed by a derived
@@ -25,6 +26,7 @@ from ..engine.compile import compile_model
 from ..engine.smc import InferenceConfig
 from ..model.builder import ModelBuilder
 from ..model.query import ObservedDataset, Query
+from .common import run, std_argparser, tile
 from .scaled import _typo
 
 CAPACITIES = {"County": 4096}
@@ -168,10 +170,12 @@ def model_inputs(dirty):
 
 
 def setup(rows=50_000, states=51, counties=1500, seed=7, missing=0.0,
-          sweeps=None, batch=256, particles=None, device="cuda", **cfg):
-    """Compiled workload on `synth`'s data: (cm, config, dirty, clean,
-    query, sweeps); observed class 'Obs'."""
+          sweeps=None, batch=256, particles=None, device="cuda", repeat=1,
+          **cfg):
+    """Compiled workload on `synth`'s data tiled `repeat` times: (cm,
+    config, dirty, clean, query, sweeps); observed class 'Obs'."""
     dirty, clean = synth(rows, states, counties, seed, missing)
+    dirty, clean = tile(dirty, repeat), tile(clean, repeat)
     model = build_model(*model_inputs(dirty))
     query = Query.build(model, "Obs", QUERY_CLAUSES)
     ds = ObservedDataset(query, dirty)
@@ -182,3 +186,12 @@ def setup(rows=50_000, states=51, counties=1500, seed=7, missing=0.0,
     config = InferenceConfig(num_iters=sweeps, batch_rows=batch, **cfg)
     cm = compile_model(model, [ds], capacities=CAPACITIES, device=device)
     return cm, config, dirty, clean, query, sweeps
+
+
+def main(argv=None) -> None:
+    args = std_argparser(__doc__).parse_args(argv)
+    run("rents", args, setup, repeat=args.repeat)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,7 +1,8 @@
 """Scaled synthetic workload: Record -> Hospital -> County entity resolution.
 
-The port's own copy of experiments/scaled.py:92-178 (synth, build_model,
-QUERY_CLAUSES, setup), which cannot be imported because it imports jax. A
+The port's own copy of experiments/scaled.py (synth, build_model,
+QUERY_CLAUSES, setup, main: `python -m pclean_tpu_torch.workloads.scaled`),
+which cannot be imported because it imports jax. A
 generated latent database whose entity count grows with the requested
 scale; typo'd observations are drawn from a small per-word variant pool
 (recurring misspellings), so the AddTypos vocabulary-pair matrices stay
@@ -24,6 +25,7 @@ from ..engine.compile import compile_model
 from ..engine.smc import InferenceConfig
 from ..model.builder import ModelBuilder
 from ..model.query import ObservedDataset, Query
+from .common import run, std_argparser
 
 _ADJ = ["mercy", "memorial", "saint", "unity", "grand", "pioneer", "summit",
         "liberty", "harbor", "crescent", "beacon", "cedar", "willow",
@@ -156,3 +158,30 @@ def setup(rows=None, counties=1000, hospitals=8000, names=2000, zips=500,
     cm = compile_model(model, [ds], capacities=caps, auto_capacities=True,
                        device=device)
     return cm, config, dirty, clean, query, sweeps
+
+
+def occupancy(eng, arenas) -> dict:
+    """experiments/scaled.py's extra result: each class's live slots."""
+    return {"occupancy": {c: list(v) for c, v in
+                          eng.arena_occupancy(arenas).items()}}
+
+
+def main(argv=None) -> None:
+    p = std_argparser(__doc__)
+    p.add_argument("--counties", type=int, default=1000)
+    p.add_argument("--hospitals", type=int, default=8000)
+    p.add_argument("--names", type=int, default=2000)
+    p.add_argument("--zips", type=int, default=500)
+    p.add_argument("--typo", type=float, default=0.05)
+    args = p.parse_args(argv)
+    if args.repeat != 1:
+        p.error("scaled sizes its tables by --rows, not --repeat")
+    if args.batch == 1 and not args.particles:
+        args.batch = 64  # scaled default: blocked Gibbs
+    run("scaled", args, setup, extra=occupancy, counties=args.counties,
+        hospitals=args.hospitals, names=args.names, zips=args.zips,
+        typo=args.typo, seed=args.seed + 7)
+
+
+if __name__ == "__main__":
+    main()

@@ -35,6 +35,7 @@ from pclean_tpu.engine import smc as jsmc
 from pclean_tpu.io import possibilities_from
 from pclean_tpu.model.query import ObservedDataset as JDS
 from pclean_tpu.model.query import Query as JQuery
+from pclean_tpu_torch import io as tio
 from pclean_tpu_torch import ops
 from pclean_tpu_torch.engine import propose as tprop
 from pclean_tpu_torch.utils import chase
@@ -53,7 +54,7 @@ def hospital_pair(rows=ROWS, batch=B):
     """The hospital model through both packages on the same synth tables
     (both on the segmented batched drivers, fused_dispatch_rows=0)."""
     dirty, clean = thospital.synth(rows)
-    assert possibilities_from(dirty) == thospital.possibilities(dirty)
+    assert possibilities_from(dirty) == tio.possibilities_from(dirty)
     model = jhospital.build_model(possibilities_from(dirty))
     q_j = JQuery.build(model, "Record", jhospital.QUERY_CLAUSES)
     cm_j = jcompile.compile_model(model, [JDS(q_j, dirty)],

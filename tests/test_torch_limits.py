@@ -13,8 +13,8 @@ more than 64 operands, 29 nodes in Record's fk tree), and on the card
     raises, naming the model's feature;
   * K11, K15, K14's cascade: the model's Record row birthing a Wide writes
     more than 64 values (three launches) and Wide's batched write has 67
-    columns (two); batch_write_plain over the column chunks equals
-    one call;
+    columns (two); batch_write_plain (out of place) over the column
+    chunks gives the columns of one call;
   * K16/K17: the model's Anc block picks a record at four ancestors, and
     the kernels take up to seven;
   * K20: the model's widest level holds more than 64 operands (one a
@@ -160,12 +160,29 @@ def test_row_writes_and_batched_columns_split(model, traced):
     vals = [torch.tensor(rng.integers(0, 9, 6)) for _ in range(60)]
     slots = torch.tensor([0, 3, 19, -1, 25, 7])
     ok = torch.tensor([True, True, False, True, True, True])
-    one = [c.clone() for c in cols]
-    ops.batch_write_plain(one, vals, slots, ok)
-    split = [c.clone() for c in cols]
-    for lo, hi in ops.batch_write_chunks(len(split)):
-        ops.batch_write_plain(split[lo:hi], vals[lo:hi], slots, ok)
+    one, _alive = ops.batch_write_plain(cols, vals, slots, ok)
+    split = []
+    for lo, hi in ops.batch_write_chunks(len(cols)):
+        split += ops.batch_write_plain(cols[lo:hi], vals[lo:hi], slots,
+                                       ok)[0]
+    assert len(split) == len(one) == len(cols)
     assert all(torch.equal(a, b) for a, b in zip(one, split))
+
+
+@pytest.mark.parametrize("B", [1, 256])
+def test_k15_plan_past_the_old_limit(B):
+    """Wide's batched write at the card test's shape (65 columns and the
+    alive bits): two launches, each launch's columns copied and written as
+    the kernel reads its words (test_torch_rel_kernels.run_k15), bit-equal
+    to the plain version."""
+    from pclean_tpu_torch import kernel_bench as kb
+    from test_torch_rel_kernels import _k15_plan_check
+
+    mode = "Wide cap=300 " + ",".join(["i32<i32"] * 60 + ["f32<f32"] * 5
+                                      + ["alive"])
+    inp = kb.k15_inputs("cpu", mode, B)
+    assert len(ops.batch_write_chunks(66)) == 2
+    _k15_plan_check(*inp["args"], sms=132)
 
 
 def test_model_row_write_exceeds_one_launch(model):

@@ -513,11 +513,255 @@ K15_CASES = [
 ]
 
 
+_NP = {0: np.uint8, 1: np.int8, 2: np.uint8, 3: np.int16, 4: np.int32,
+       5: np.int64, 6: np.float32, 7: np.float64}
+
+
+def _at(ptr: int, n: int, dt: int) -> np.ndarray:
+    """The n elements of dtype code dt at address ptr, as a numpy view."""
+    t = np.dtype(_NP[dt])
+    if n == 0:   # an empty tensor's pointer may be 0
+        return np.zeros(0, t)
+    buf = (ctypes.c_uint8 * (n * t.itemsize)).from_address(ptr)
+    return np.frombuffer(buf, dtype=t)
+
+
+def run_k15(words) -> tuple:
+    """csrc/batch_write.cu's kernel written out over one launch's words,
+    bound to CPU tensors (ops.batch_write_words), reading and writing
+    through the words' addresses: cluster q of ceil(total / share) owns
+    bytes [q share, (q + 1) share) of the columns laid end to end, its
+    block j the j-th share / n of them and the j-th ceil(B / n) rows (n
+    blocks a cluster, header word 6; share / n and ceil(B / n) words 7
+    and 8; solo, word 9, held to one cluster starting at column 0); each
+    block copies its 16-byte units,
+    each in the column of the last offset at or below it (the kernel's
+    walk), up to the column's end; then, after the cluster's barrier,
+    writes each of its rows whose element lies in the cluster's share into
+    the columns the share touches (the plan's block table, the same word
+    for every block of a cluster, held to the columns the share overlaps),
+    a column at a time, the slots [tlo, thi)
+    (converted as the kernel converts: an integer by a C cast, a float
+    through a double). Returns, a list a column, how many times each byte
+    was copied, the block that copied each element and the block that
+    wrote each element (-1: none)."""
+    cols, B, slots_p, ok_p, share, total, n, part, per, w_rows = words[:10]
+    recs = [words[ops.K15_HEAD + ops.K15_COL * c:
+                  ops.K15_HEAD + ops.K15_COL * (c + 1)] for c in range(cols)]
+    size = [np.dtype(_NP[r[2]]).itemsize for r in recs]
+    offs = np.array([r[6] for r in recs], np.int64)
+    ends = [r[6] + r[3] * sz for r, sz in zip(recs, size)]
+    slots = _at(slots_p, B, 5).copy()
+    ok = _at(ok_p, B, 0) != 0
+    copied = [np.zeros(r[3] * sz, np.int64) for r, sz in zip(recs, size)]
+    owner = [np.full(r[3], -1) for r in recs]
+    wrote = [np.full(r[3], -1) for r in recs]
+    clusters = 1 if total == 0 else -(-total // share)
+    assert share % (16 * n) == 0
+    assert len(words) == ops.K15_HEAD + ops.K15_COL * cols + clusters * n
+    assert part == share // n and per == -(-B // n)
+    assert w_rows == (2 if per <= 2 * ops.K15_THREADS else 8)
+    for q in range(clusters):
+        lo, hi = q * share, min(q * share + share, total)
+        for j in range(n):   # the copy: block q n + j's part
+            plo = min(hi, lo + j * part)
+            units = np.arange(plo // 16, min(hi, plo + part) // 16,
+                              dtype=np.int64)
+            col_of = np.searchsorted(offs, units * 16, side="right") - 1
+            for c in np.unique(col_of):
+                r, sz = recs[c], size[c]
+                nb = r[3] * sz
+                b = units[col_of == c] * 16 - r[6]
+                idx = (b[:, None] + np.arange(16)).ravel()
+                idx = idx[idx < nb]
+                _at(r[1], nb, 2)[idx] = _at(r[0], nb, 2)[idx]
+                copied[c][idx] += 1
+                owner[c][idx // sz] = q * n + j
+        # the block table's words, against the columns the share touches
+        table = ops.K15_HEAD + ops.K15_COL * cols + q * n
+        assert len(set(words[table:table + n])) == 1
+        cw = words[table]
+        ca, cb = cw & 0xffffffff, (cw >> 32) - 1
+        assert ca == next((c for c in range(cols) if ends[c] > lo), cols)
+        assert cb == max((c for c in range(cols) if recs[c][6] < hi and
+                          ends[c] > recs[c][6]), default=-1)
+        for j in range(n):   # the writes: block q n + j's rows
+            rows = np.zeros(B, bool)
+            rows[min(B, j * per):min(B, j * per + per)] = True
+            for c in range(ca, cb + 1):   # slots [tlo, thi)
+                r, sz = recs[c], size[c]
+                assert (lo - r[6]) % sz == 0 and (hi - r[6]) % sz == 0
+                tlo = min(r[3], max(0, (lo - r[6]) // sz))
+                thi = min(r[3], max(0, (hi - r[6]) // sz))
+                t = np.where(slots < 0, slots + r[3], slots)
+                keep = rows & ok & (t >= tlo) & (t < thi)
+                dst = _at(r[1], r[3], r[2])
+                if r[4] == 0:   # the alive bit
+                    dst[t[keep]] = 1
+                else:
+                    v = _at(r[4], B, r[5])[keep]
+                    if r[2] == 0:
+                        v = v != 0
+                    elif r[2] < 6 or r[5] < 6:
+                        v = v.astype(np.int64)
+                    dst[t[keep]] = v.astype(_NP[r[2]])
+                assert (wrote[c][t[keep]] == -1).all(), "written twice"
+                wrote[c][t[keep]] = q * n + j
+    return copied, owner, wrote
+
+
+def _k15_plan_check(cols, vals, slots, ok, alive, sms, dsts=None):
+    """K15's launches over CPU tensors through run_k15, against the plain
+    version: the new columns bit-equal, the caller's unchanged, every byte
+    of every column copied by exactly one block and every kept slot
+    written by exactly one block, of the cluster that copied it. `dsts`:
+    the new columns to write (torch.empty_like by default)."""
+    srcs = list(cols) + ([alive] if alive is not None else [])
+    vs = [v.reshape(-1).contiguous() for v in vals] + \
+        ([None] if alive is not None else [])
+    before = [x.clone() for x in srcs]
+    dsts = dsts or [torch.empty_like(x) for x in srcs]
+    want = ops.batch_write_plain(cols, vals, slots, ok, alive)
+    want = want[0] + ([want[1]] if alive is not None else [])
+    launches = ops.batch_write_words(srcs, dsts, vs, slots, ok, sms)
+    assert [(lo, hi) for lo, hi, _w, _p in launches] == \
+        ops.batch_write_chunks(len(srcs))
+    for lo, hi, words, plan in launches:
+        n, B = hi - lo, slots.shape[0]
+        cl = plan["cluster"]
+        assert plan["blocks"] == plan["clusters"] * cl <= sms
+        assert 1 <= cl <= ops.K15_CLUSTER and plan["share"] % (16 * cl) == 0
+        per = cl * ops.K15_THREADS * ops.K15_UNROLL_W
+        assert plan["clusters"] == 1 or \
+            plan["share"] >= cl * ops.K15_MIN_SHARE or \
+            plan["clusters"] <= n * -(-B // per)
+        copied, owner, wrote = run_k15(words)
+        for c in range(hi - lo):
+            x = srcs[lo + c]
+            assert (copied[c] == 1).all(), f"column {lo + c}: bytes copied " \
+                f"{np.unique(copied[c])} times"
+            cap = x.shape[0]
+            s = slots.numpy()
+            s = np.where(s < 0, s + cap, s)
+            kept = np.zeros(cap, bool)
+            kept[s[ok.numpy() & (s >= 0) & (s < cap)]] = True
+            np.testing.assert_array_equal(wrote[c] >= 0, kept)
+            # written by a block of the cluster that copied the element,
+            # after the cluster's barrier
+            np.testing.assert_array_equal(wrote[c][kept] // cl,
+                                          owner[c][kept] // cl)
+    for i, (d, w, b, x) in enumerate(zip(dsts, want, before, srcs)):
+        assert torch.equal(d, w), f"column {i}"
+        assert torch.equal(x, b), f"the caller's column {i} was written"
+
+
+@pytest.mark.parametrize("sms", [1, 3, 132])
+@pytest.mark.parametrize("mode,B", K15_CASES + [
+    ("Record cap=100000 i32<i64,i32<i64,f32<f32,alive", 4096),
+    ("Hospital cap=512 i32<i64,i32<i32,i16<i64,u8<b,f64<f32,i8<i32,b<b",
+     4096)])
+def test_k15_plan_read_as_the_kernel_reads_it(mode, B, sms):
+    for seed in (0, 1):
+        inp = kb.k15_inputs("cpu", mode, B, seed=seed)
+        _k15_plan_check(*inp["args"], sms=sms)
+
+
+def test_k15_plan_at_ragged_sizes_and_alignments():
+    """Columns of 0, 1, 15, 17 and 4,099 elements, of every dtype, views
+    whose pointers are not 16-byte aligned (the byte path) beside aligned
+    ones, new columns unaligned too, 9,000 rows (three of the kernel's
+    rounds of staged rows; the model reads them at once), slots wrapping,
+    dropping and past every length."""
+    rng = np.random.default_rng(3)
+    dts = [torch.int32, torch.int8, torch.float64, torch.int16, torch.bool,
+           torch.float32, torch.int64, torch.uint8]
+    for lens, B in (([17, 15, 1, 0, 4099], 40), ([4099] * 3, 9000),
+                    ([1], 3), ([0, 0], 5)):
+        cols, vals, dsts = [], [], []
+        for i, n in enumerate(lens):
+            dt = dts[i % len(dts)]
+            shift = i % 3   # 0: aligned; else an offset view
+            base = torch.as_tensor(rng.integers(0, 100, n + shift)).to(dt)
+            cols.append(base[shift:])
+            vals.append(torch.as_tensor(rng.random(B) * 120).to(
+                dts[(i + 3) % len(dts)]))
+            dsts.append(torch.empty(n + 1, dtype=dt)[1:] if i % 2
+                        else torch.empty(n, dtype=dt))
+        cap = max(lens)
+        s = rng.permutation(cap + 7)[:B] if B <= cap + 7 else \
+            rng.integers(-cap, cap + 7, B)
+        if B > cap + 7:   # distinct slots as the callers give them
+            s = np.concatenate([rng.permutation(cap + 7),
+                                np.full(B - cap - 7, cap + 50)])
+        # the last slot named by -1 (its wrap), the slots still distinct
+        s[np.flatnonzero(s == cap - 1)[:1] if (s == cap - 1).any()
+          else 0] = -1
+        slots = torch.as_tensor(s, dtype=torch.int64)
+        ok = torch.as_tensor(rng.random(B) < 0.8)
+        alive = torch.as_tensor(rng.random(cap) < 0.5)
+        if len(set(lens)) == 1:   # alive has the columns' length
+            _k15_plan_check(cols, vals, slots, ok, alive, 132,
+                            dsts + [torch.empty_like(alive)])
+        for sms in (1, 7):
+            _k15_plan_check(cols, vals, slots, ok, None, sms, list(dsts))
+
+
+def test_k15_plain_leaves_the_callers_columns():
+    inp = kb.k15_inputs("cpu", K15_CASES[0][0], K15_CASES[0][1])
+    before = [x.clone() for x in inp["args"][0] + [inp["args"][4]]]
+    new, alive = ops.batch_write_plain(*inp["args"])
+    after = inp["args"][0] + [inp["args"][4]]
+    assert all(torch.equal(a, b) for a, b in zip(after, before))
+    assert not any(x.data_ptr() == y.data_ptr()
+                   for x, y in zip(new + [alive], after))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode,B", K15_CASES)
 def test_k15_cuda_matches_plain(card, mode, B):
     for seed in (0, 1):
         kb.check_k15(ops, kb.k15_inputs(card, mode, B, seed=seed))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lens,B", [([17, 15, 1, 0, 4099], 40),
+                                    ([4099] * 3, 9000),
+                                    ([1_000_000] * 4, 4096)])
+def test_k15_cuda_ragged_and_unaligned_match_plain(card, lens, B):
+    """Columns of every dtype, views on the card whose pointers are not
+    16-byte aligned (the kernel's byte copy: their words' aligned flag is
+    0) beside aligned ones, empty columns, more rows than one round of
+    staged rows, and scaled's shape: bit-equal to the plain version, the
+    caller's columns unchanged, one launch."""
+    rng = np.random.default_rng(5)
+    dts = [torch.int32, torch.int8, torch.float64, torch.int16, torch.bool,
+           torch.float32, torch.int64, torch.uint8]
+    cols, vals = [], []
+    for i, n in enumerate(lens):
+        shift = i % 3
+        base = torch.as_tensor(rng.integers(0, 100, n + shift)).to(
+            dts[i % len(dts)])
+        cols.append(base.to(card)[shift:])
+        vals.append(torch.as_tensor(rng.random(B) * 120).to(
+            dts[(i + 3) % len(dts)]).to(card))
+    cap = max(lens)
+    s = np.concatenate([rng.permutation(cap + 7), np.full(B, cap + 50)])[:B]
+    # the last slot named by its wrap, the slots still distinct
+    s[np.flatnonzero(s == cap - 1)[:1] if (s == cap - 1).any() else 0] = -1
+    slots = torch.as_tensor(s, dtype=torch.int64, device=card)
+    ok = torch.as_tensor(rng.random(B) < 0.8, device=card)
+    alive = torch.as_tensor(rng.random(cap) < 0.5, device=card) \
+        if len(set(lens)) == 1 else None
+    before = ops.LAUNCHES["batch_write"]
+    kb.check_k15(ops, dict(mode=f"lens {lens}", B=B,
+                           args=(cols, vals, slots, ok, alive)))
+    assert ops.LAUNCHES["batch_write"] - before == 1
+    # the words of that launch (its call's pointers): some column unaligned
+    srcs = cols + ([alive] if alive is not None else [])
+    vs = vals + ([None] if alive is not None else [])
+    (_lo, hi, words, _plan), = ops._k15_plan(srcs, vs, slots, ok, None)[4]
+    flags = [words[ops.K15_HEAD + ops.K15_COL * c + 7] for c in range(hi)]
+    assert 0 in flags and 1 in flags, flags
 
 
 @pytest.mark.cuda
